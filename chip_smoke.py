@@ -1,0 +1,451 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+Drives ``filodb_tpu_torch`` end to end at a real deployment's size and
+checks it, phase by phase; any failed phase exits non-zero:
+
+1. build the four CUDA kernels from ``filodb_tpu_torch/csrc`` (nvcc, sm_90a);
+2. ingest ``--series`` prom-counter series of ``http_requests_total``
+   (labels ``_ws_``, ``_ns_`` over 100 namespaces, ``instance``, ``job``),
+   ``--samples`` samples each at 10 s with ±500 ms scrape jitter, counter
+   increments 0-19 and a reset in about 5 % of series, into 4 shards,
+   spread 1, 400-sample chunks (``conf/server.json``);
+3. the main path: launch counts set to 0, then ``QueryService.query_range``
+   over the whole 2 h at a 60 s step for four queries (cold once, then warm
+   repeats), counts read back; every kernel must have launched;
+4. every kernel against its plain PyTorch version on the card, at the
+   shapes the main path gave it, with its time, its plain version's time,
+   its bound and (for B4) a PyTorch yardstick;
+5. answers: the main results have the expected shape and finite values,
+   agree with the plain path, and a small store answers the same on the
+   card as on the CPU.
+
+Its last two lines are a JSON object with the kernels' numbers and
+``{"ok": true, "device": {...}}``. Run it from the repository root:
+``python3 chip_smoke.py``. Without CUDA it exits with code 2 and prints no
+result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
+F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+T0_MS = 1_700_000_000_000
+QUERIES = (
+    ("sum(rate(http_requests_total[5m])) by (_ns_)", "rate"),
+    ("increase(http_requests_total[5m])", "increase"),
+    ('avg(avg_over_time(http_requests_total{_ns_="App-0"}[2m]))',
+     "avg_over_time"),
+    ("sum(count_over_time(http_requests_total[5m])) by (job)",
+     "count_over_time"),
+)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def make_series(rng, a: int, b: int, samples: int):
+    """Series a..b-1: labels, jittered timestamps, counters with resets."""
+    n = b - a
+    labels = [{"_metric_": "http_requests_total", "_ws_": "demo",
+               "_ns_": f"App-{i % 100}", "instance": f"instance-{i}",
+               "job": f"job-{i % 10}"} for i in range(a, b)]
+    ts = (T0_MS + np.arange(samples, dtype=np.int64)[None, :] * 10_000
+          + rng.integers(-500, 501, (n, samples)))
+    vals = np.cumsum(rng.integers(0, 20, (n, samples)), axis=1).astype(
+        np.float64)
+    reset = np.flatnonzero(rng.random(n) < 0.05)
+    at = rng.integers(1, samples, len(reset))
+    for r, k in zip(reset, at):
+        vals[r, k:] -= vals[r, k]
+    return labels, ts, vals
+
+
+def ingest(store, series: int, samples: int, seed: int) -> int:
+    rng = np.random.default_rng(seed)
+    kept = 0
+    step = 65536
+    for a in range(0, series, step):
+        kept += store.ingest_series(*make_series(rng, a, min(a + step, series),
+                                                 samples))
+    return kept
+
+
+def cuda_time_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def wall_ms(fn) -> float:
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1000.0
+
+
+def compare(got, want, rtol: float, atol: float, bitwise: bool = False):
+    """(max_abs_err, ok): NaN positions must agree."""
+    import torch
+
+    if bitwise:
+        a = got.contiguous().view(torch.int32)
+        b = want.contiguous().view(torch.int32)
+        diff = (got.double() - want.double()).abs()
+        diff = diff[torch.isfinite(diff)]
+        err = float(diff.max()) if diff.numel() else 0.0
+        return err, bool(torch.equal(a, b))
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    both = ~nan_g & ~nan_w
+    g, w = got[both].double(), want[both].double()
+    err = float((g - w).abs().max()) if g.numel() else 0.0
+    ok = bool(torch.equal(nan_g, nan_w)) and bool(
+        ((g - w).abs() <= atol + rtol * w.abs()).all())
+    return err, ok
+
+
+# Operations each kernel does on its data, counted from the .cu bodies
+# (loop control and address arithmetic left out). The card's table gives no
+# integer rate, so integer operations are charged at the float32 rate.
+# common.cuh unpack_field: w==0 test, lane*w, >>5, &31, wi+1 and its clamp
+# (3), funnelshift, w>=32, 1<<w, -1, select, &.
+UNPACK_OPS = 13
+# decode_pages.cu decode_ts_kernel: unpack, unzigzag (>>, &, negate, ^),
+# slope*lane, +.
+B1_OPS_LANE = UNPACK_OPS + 4 + 2
+# decode_f32_kernel: unpack, tz>=32, <<, select, ^ first.
+B2_OPS_LANE = UNPACK_OPS + 4
+# fused_rate.cu, per sample: valid test, two unpacks, unzigzag (4),
+# base+slope*lane+resid (3), float decode (4), four selects; four scans at
+# two operations an element; counter correction (5) and v+cv.
+B3_OPS_SAMPLE = 1 + 2 * UNPACK_OPS + 4 + 3 + 4 + 4 + 4 * 2 + 6
+# per step: t-w, window count (5), extrapolatedRate (34), plus 5 an
+# iteration of each of the two binary searches.
+B3_OPS_STEP = 1 + 5 + 34
+# windowed_sum.cu: per sample the pad test and select and the scan (2);
+# per step t-w and the two searches; per window sample two compares, &&, +.
+B4_OPS_SAMPLE, B4_OPS_STEP, B4_OPS_WINDOW_SAMPLE = 4, 1, 3
+SEARCH_OPS = 5
+
+
+def search_iters(S: int) -> int:
+    """Iterations of common.cuh upper_bound over S keys."""
+    return S.bit_length()
+
+
+def word_bytes(widths) -> int:
+    """Bytes of packed words the blocks' widths need: 4*w words a block."""
+    return 16 * int(widths.long().sum())
+
+
+def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_kernels(svc, reps: int) -> list[dict]:
+    """Phase 4: each kernel at the main path's shapes, against its plain
+    version on the same inputs."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.memory import device_pages as dp
+    from filodb_tpu_torch.parallel.mesh_engine import _DECODE_ROWS
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+    from filodb_tpu_torch.query.engine.device_batch import (
+        BLOCK,
+        assemble,
+    )
+
+    eng = svc.engine
+    big = max(eng._batches.values(), key=lambda b: len(b.keys))
+    packed = big.packed
+    P, NB = packed[0].shape
+    n_series = len(big.keys)
+    K = 121
+    steps = torch.arange(300_000, 300_000 + K * 60_000, 60_000,
+                         dtype=torch.int32, device=svc.device)
+    window = 300_000
+    saved = dict(_build.LAUNCHES)
+    out = []
+
+    # B1 / B2 on one decode chunk of the B4 path, as assemble calls them
+    rows = min(_DECODE_ROWS, n_series)
+    part = tuple(t[:rows] for t in packed)
+    nb = rows * NB
+    sl, tw = part[1].reshape(-1), part[2].reshape(-1)
+    tw_words = part[3].reshape(-1, BLOCK)
+    vf, vs, vw = (part[i].reshape(-1) for i in (4, 5, 6))
+    vw_words = part[7].reshape(-1, BLOCK)
+    # bytes: the per-block scalars, the words the widths need, the output
+    for name, src, repl, run, plain, nbytes, ops in (
+        ("decode_ts_page", "filodb_tpu_torch/csrc/decode_pages.cu",
+         "filodb_tpu/memory/device_pages.py:262",
+         lambda: dp.decode_ts_blocks(sl, tw, tw_words),
+         lambda: dp.decode_ts_blocks_plain(sl, tw, tw_words),
+         nb * (8 + 512) + word_bytes(tw), nb * BLOCK * B1_OPS_LANE),
+        ("decode_f32_page", "filodb_tpu_torch/csrc/decode_pages.cu",
+         "filodb_tpu/memory/device_pages.py:307",
+         lambda: dp.decode_f32_blocks(vf, vs, vw, vw_words),
+         lambda: dp.decode_f32_blocks_plain(vf, vs, vw, vw_words),
+         nb * (12 + 512) + word_bytes(vw), nb * BLOCK * B2_OPS_LANE),
+    ):
+        got, want = run(), plain()
+        err, ok = compare(got, want, 0, 0, bitwise=True)
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version")
+        b, by = bound_ms(nbytes, ops)
+        out.append(dict(name=name, route="cuda", source=src, replaces=repl,
+                        shape=f"{nb} blocks", tolerance="bitwise",
+                        max_abs_err=err, ms=cuda_time_ms(run, reps),
+                        plain_ms=wall_ms(plain), bound_ms=b, bound_by=by,
+                        library_ms=None, bound_bytes=nbytes, bound_ops=ops))
+        log(f"  {name}: {nb} blocks bitwise equal to plain")
+
+    # B3 on the whole batch of the rate query
+    got = ck.fused_decode_rate(packed, steps, window, "rate", True)
+    want = torch.cat([ck.fused_decode_rate_plain(
+        tuple(t[a : a + 65536] for t in packed), steps, window, "rate", True)
+        for a in range(0, P, 65536)])
+    err, ok = compare(got, want, 1e-6, 1e-6)
+    if not ok:
+        raise AssertionError(f"fused_decode_rate off by {err}")
+    # bytes: the seven per-block scalar arrays, the words the ts and value
+    # widths need, the steps and the output; operations on valid samples
+    nbytes = (sum(packed[i].numel() * 4 for i in (0, 1, 2, 4, 5, 6, 8))
+              + word_bytes(packed[2]) + word_bytes(packed[6])
+              + K * 4 + P * K * 4)
+    ops = (int(packed[8].long().sum()) * B3_OPS_SAMPLE
+           + P * K * (B3_OPS_STEP + 2 * SEARCH_OPS * search_iters(NB * BLOCK)))
+    b, by = bound_ms(nbytes, ops)
+    out.append(dict(
+        name="fused_decode_rate", route="cuda",
+        source="filodb_tpu_torch/csrc/fused_rate.cu",
+        replaces="filodb_tpu/query/engine/pallas_kernels.py:231",
+        shape=f"P={P} NB={NB} K={K}", tolerance="rtol 1e-6, atol 1e-6",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: ck.fused_decode_rate(packed, steps, window,
+                                                     "rate", True), reps),
+        plain_ms=wall_ms(lambda: [ck.fused_decode_rate_plain(
+            tuple(t[a : a + 65536] for t in packed), steps, window, "rate",
+            True) for a in range(0, P, 65536)]),
+        bound_ms=b, bound_by=by, library_ms=None, bound_bytes=nbytes,
+        bound_ops=ops))
+    log(f"  fused_decode_rate: P={P} NB={NB} K={K}, max abs err {err:g} "
+        f"(tolerance rtol 1e-6 atol 1e-6)")
+    rate_plain = want[:n_series]
+
+    # B4 on one decode chunk, as the avg/count_over_time leaves call it
+    ts, vals, valid = assemble(part, 7_500_000)
+    ts = torch.where(valid, ts, ck.TS_PAD).contiguous()
+    v0 = torch.where(valid, vals, 0.0).contiguous()
+    got = ck.windowed_sum(ts, v0, steps, window)
+    want = ck.windowed_sum_plain(ts, v0, steps, window)
+    err, ok = compare(got, want, 0, 0, bitwise=True)
+    if not ok:
+        raise AssertionError("windowed_sum differs from its plain version")
+
+    def window_bounds():
+        key = torch.cummax(torch.where(ts == ck.TS_PAD, -(2**31), ts),
+                           1).values
+        t = steps[None, :].expand(rows, -1).contiguous()
+        return (torch.searchsorted(key, t - window, right=True),
+                torch.searchsorted(key, t, right=True))
+
+    def library():
+        # nearest PyTorch yardstick: prefix sums + searchsorted + gathers
+        csum = torch.nn.functional.pad(torch.cumsum(v0, 1), (1, 0))
+        lo, hi = window_bounds()
+        return csum.gather(1, hi) - csum.gather(1, lo)
+
+    S = ts.shape[1]
+    lo, hi = window_bounds()
+    nbytes = rows * S * 8 + K * 4 + rows * K * 4
+    ops = (rows * S * B4_OPS_SAMPLE
+           + rows * K * (B4_OPS_STEP + 2 * SEARCH_OPS * search_iters(S))
+           + int((hi - lo).sum()) * B4_OPS_WINDOW_SAMPLE)
+    b, by = bound_ms(nbytes, ops)
+    out.append(dict(
+        name="windowed_sum", route="cuda",
+        source="filodb_tpu_torch/csrc/windowed_sum.cu",
+        replaces="filodb_tpu/query/engine/pallas_kernels.py:49",
+        shape=f"P={rows} S={S} K={K}", tolerance="bitwise (same order)",
+        max_abs_err=err,
+        ms=cuda_time_ms(lambda: ck.windowed_sum(ts, v0, steps, window), reps),
+        plain_ms=wall_ms(lambda: ck.windowed_sum_plain(ts, v0, steps,
+                                                       window)),
+        bound_ms=b, bound_by=by, library_ms=cuda_time_ms(library, reps),
+        library_call="cumsum + cummax + searchsorted + gather",
+        bound_bytes=nbytes, bound_ops=ops))
+    log(f"  windowed_sum: P={rows} S={S} K={K} bitwise equal to plain")
+    _build.LAUNCHES.update(saved)  # comparison launches are not counted
+    return out, rate_plain
+
+
+def small_store_check(seed: int, dev) -> None:
+    """The same small store answers the same on the card and on the CPU."""
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+
+    store = MemStore(4, 1, 400)
+    ingest(store, 256, 720, seed + 1)
+    gpu, cpu = QueryService(store, dev), QueryService(store, device="cpu")
+    for q, _ in QUERIES:
+        a = gpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
+        b = cpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
+        ka = [str(k) for k in a.result.keys]
+        kb = [str(k) for k in b.result.keys]
+        if ka != kb or not np.allclose(a.result.values, b.result.values,
+                                       rtol=2e-5, atol=1e-6,
+                                       equal_nan=True):
+            raise AssertionError(f"card and CPU disagree on {q}")
+    log("  small store: card and CPU answers agree (rtol 2e-5, atol 1e-6)")
+
+
+def run(dev, args) -> list[dict]:
+    """Phases 2-5 on ``dev``; returns the kernels' numbers."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.http.promjson import matrix_json
+    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.engine.aggregations import aggregate
+
+    t = time.perf_counter()
+    store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    kept = ingest(store, args.series, args.samples, args.seed)
+    chunks = sum(len(s.chunks["pid"]) for s in store.shards)
+    log(f"phase 2: ingest: {args.series} series, {kept} samples, {chunks} "
+        f"sealed chunks, {time.perf_counter() - t:.1f} s on the host")
+
+    svc = QueryService(store, device=dev)
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    _build.reset_counts()
+    results, timings = {}, []
+    for q, _ in QUERIES:
+        t = time.perf_counter()
+        r = svc.query_range(q, start, 60, end)
+        cold = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(args.repeats):
+            t = time.perf_counter()
+            r = svc.query_range(q, start, 60, end)
+            warm.append((time.perf_counter() - t) * 1000.0)
+        results[q] = r
+        timings.append((q, cold, float(np.median(warm)), r.result.num_series))
+    launches = dict(_build.LAUNCHES)
+    log("phase 3: main path (query_range, 2 h at 60 s):")
+    for q, cold, p50, rows in timings:
+        log(f"  {q}: cold {cold:.1f} ms, warm p50 {p50:.2f} ms, {rows} rows")
+    log(f"  launches on the main path: {launches}; packed pages on the card: "
+        f"{svc.engine.batch_bytes / 1e9:.2f} GB")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing and dev.type == "cuda":
+        raise AssertionError(f"kernels not launched on the main path: "
+                             f"{missing}")
+
+    log("phase 4: kernels against their plain versions on the card")
+    kernels, rate_plain = check_kernels(svc, reps=10)
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+
+    log("phase 5: answers")
+    q0 = QUERIES[0][0]
+    r = results[q0].result
+    n_ns = min(100, args.series)
+    if r.values.shape != (n_ns, 121) \
+            or not np.isfinite(r.values[:, 1:]).all():
+        raise AssertionError(f"sum(rate) by (_ns_): shape {r.values.shape}")
+    eng = svc.engine
+    batch = max(eng._batches.values(), key=lambda b: len(b.keys))
+    gids, gkeys = eng._group_ids(
+        batch, lower_plan(parse_query(q0, TimeStepParams(start, 60, end))))
+    plain = aggregate("sum", rate_plain, gids, len(gkeys)).cpu().numpy()
+    order = {str(k): i for i, k in enumerate(gkeys)}
+    idx = [order[str(k)] for k in r.keys]
+    if not np.allclose(r.values, plain[idx], rtol=1e-5, atol=1e-6,
+                       equal_nan=True):
+        raise AssertionError("sum(rate) by (_ns_) disagrees with the plain "
+                             "path on the card")
+    body = matrix_json(results[QUERIES[3][0]])
+    if body["status"] != "success" \
+            or len(body["data"]["result"]) != min(10, args.series):
+        raise AssertionError("count_over_time by job: bad Prometheus body")
+    log(f"  sum(rate) by (_ns_): {n_ns} x 121 finite, equal to the plain "
+        f"path (rtol 1e-5)")
+    small_store_check(args.seed, dev)
+    return kernels
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--series", type=int, default=1_000_000)
+    ap.add_argument("--samples", type=int, default=720)
+    ap.add_argument("--repeats", type=int, default=5)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; nothing was run",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "filodb_tpu_torch" / "csrc").is_dir():
+        print("chip_smoke: run it from the repository root (filodb_tpu_torch "
+              "is missing)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from filodb_tpu_torch import _build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    log(f"device: {torch.cuda.get_device_name(0)}, torch {torch.__version__}"
+        f", CUDA {torch.version.cuda}")
+    log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
+        f"process a source)")
+    kernels = run(torch.device("cuda"), args)
+    print(smi[0] if smi else "nvidia-smi: no output")
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [
+        {**{k: kern[k] for k in keys},
+         **{k: v for k, v in kern.items() if k not in keys}}
+        for kern in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

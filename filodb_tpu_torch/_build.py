@@ -1,0 +1,118 @@
+"""Build and load the hand-written CUDA kernels, and count their launches.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (``build/kernels/lib<name>-<hash>.so``,
+keyed by the source's content), loaded with ``ctypes``. The first call of
+``library`` builds every source at once, one ``nvcc`` process each, all
+started together. Nothing builds when a module is imported: the CPU tests
+import every module and have no ``nvcc``.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+``check`` raises on a non-zero code. Launch counts are plain integers in
+``LAUNCHES``, added to by each wrapper where it launches its kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
+SOURCES = ("decode_pages", "fused_rate", "windowed_sum")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+              "-Xptxas", "-v")
+
+LAUNCHES: dict[str, int] = {"decode_ts_page": 0, "decode_f32_page": 0,
+                            "fused_decode_rate": 0, "windowed_sum": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+def count(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin/nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes() \
+        + (CSRC / "common.cuh").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every source not yet built, in parallel. Returns seconds."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name in SOURCES:
+        out = _target(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        log = open(BUILD_DIR / f"{name}.log", "w")
+        procs.append((name, out, tmp, log, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=log, stderr=subprocess.STDOUT)))
+    failed = []
+    for name, out, tmp, log, proc in procs:
+        rc = proc.wait()
+        log.close()
+        if rc != 0:
+            failed.append(name)
+        else:
+            tmp.replace(out)
+    if failed:
+        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
+                         for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
+        if not _target(name).exists():
+            build_all()
+        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        lib.filodb_error_string.restype = ctypes.c_char_p
+        lib.filodb_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def bind(name: str, fn: str, nargs: int):
+    """A C entry point taking ``nargs`` arguments, every one passed as a
+    64-bit value (pointers, the stream and sizes alike)."""
+    f = getattr(library(name), fn)
+    f.argtypes = [ctypes.c_void_p] * nargs
+    f.restype = ctypes.c_int
+    return f
+
+
+def check(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = library(name).filodb_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel launch in {name} failed: {msg} "
+                           f"(error {rc})")

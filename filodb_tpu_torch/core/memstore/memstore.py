@@ -1,0 +1,103 @@
+"""The in-memory store: shards, and series routed to them.
+
+Port of ``filodb_tpu/core/memstore/memstore.py`` with the shard routing of
+``filodb_tpu/coordinator/ingestion.py::route_container``: a series' shard
+takes its upper bits from the hash of its shard-key labels (``_ws_``,
+``_ns_``, ``_metric_``) and its low ``spread`` bits from the hash of its
+whole part key, so one namespace's series land in 2^spread shards.
+
+Ingest is columnar: ``ingest_series`` takes many series at once as label
+maps plus [N, T] timestamp and value arrays, routes them with hashes
+computed for all keys together, and appends per shard in vectorised
+rounds. It is host code; the device sees only the sealed pages.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from filodb_tpu_torch.core.memstore.shard import Shard
+from filodb_tpu_torch.core.partkey import (
+    PartKey,
+    ingestion_shard,
+    murmur3_32_many,
+    shard_key_hash,
+)
+from filodb_tpu_torch.core.schemas import SCHEMAS
+
+# series appended to the shards per round of ``ingest_series``
+_INGEST_ROWS = 65536
+
+
+class MemStore:
+    def __init__(self, num_shards: int = 4, spread: int = 1,
+                 max_chunk_size: int = 400):
+        if num_shards & (num_shards - 1):
+            raise ValueError("num_shards must be a power of 2")
+        self.num_shards = num_shards
+        self.spread = spread
+        self.shards = [Shard(s, max_chunk_size) for s in range(num_shards)]
+        self._skh: dict[tuple, int] = {}
+
+    @property
+    def version(self) -> int:
+        return sum(s.version for s in self.shards)
+
+    def shard_of(self, keys: list[PartKey]) -> np.ndarray:
+        """Owning shard of every key."""
+        skh = np.empty(len(keys), np.int64)
+        for i, k in enumerate(keys):
+            labels = k.label_map
+            sk = tuple(labels.get(n, "") for n in
+                       SCHEMAS[k.schema].part.shard_key_labels)
+            h = self._skh.get(sk)
+            if h is None:
+                names = SCHEMAS[k.schema].part.shard_key_labels
+                h = self._skh[sk] = shard_key_hash(dict(zip(names, sk)))
+            skh[i] = h
+        ph = murmur3_32_many([k.serialized for k in keys]).astype(np.int64)
+        return ingestion_shard(skh, ph, self.num_shards, self.spread)
+
+    def ingest_series(self, labels: list[dict], ts: np.ndarray,
+                      vals: np.ndarray, lens: np.ndarray | None = None,
+                      schema: str = "prom-counter") -> int:
+        """Ingest N series: ``labels[i]`` (with ``_metric_``), timestamps
+        int64 ms [N, T] (ascending) and values [N, T]; ``lens[i]`` of each
+        row are samples (default: all T). Returns the samples kept."""
+        if schema not in SCHEMAS:
+            raise ValueError(f"schema {schema} is not in this slice "
+                             f"(known: {sorted(SCHEMAS)})")
+        ts = np.asarray(ts, np.int64)
+        vals = np.asarray(vals, np.float64)
+        if ts.ndim != 2 or ts.shape != vals.shape or len(labels) != len(ts):
+            raise ValueError("ingest_series takes N label maps and [N, T] "
+                             "timestamps and values")
+        lens = np.full(len(ts), ts.shape[1], np.int64) if lens is None \
+            else np.asarray(lens, np.int64)
+        kept = 0
+        for a in range(0, len(labels), _INGEST_ROWS):
+            b = min(a + _INGEST_ROWS, len(labels))
+            keys = [PartKey.create(schema, lb) for lb in labels[a:b]]
+            shard = self.shard_of(keys)
+            for s in np.unique(shard):
+                rows = np.flatnonzero(shard == s)
+                kept += self.shards[int(s)].ingest(
+                    [keys[i] for i in rows], ts[a:b][rows], vals[a:b][rows],
+                    lens[a:b][rows])
+        return kept
+
+    def ingest(self, labels: dict, ts, vals,
+               schema: str = "prom-counter") -> int:
+        """Ingest one series' samples."""
+        ts = np.asarray(ts, np.int64)[None, :]
+        return self.ingest_series([labels], ts,
+                                  np.asarray(vals, np.float64)[None, :],
+                                  schema=schema)
+
+    def seal(self, labels: dict, schema: str = "prom-counter") -> None:
+        """Close one series' write buffer into a chunk now."""
+        key = PartKey.create(schema, labels)
+        shard = self.shards[int(self.shard_of([key])[0])]
+        pid = shard._by_key.get(key)
+        if pid is not None:
+            shard.seal(np.array([pid]))
