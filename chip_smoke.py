@@ -18,7 +18,13 @@ checks it, phase by phase; any failed phase exits non-zero:
    its bound and (for B4) a PyTorch yardstick;
 5. answers: the main results have the expected shape and finite values,
    agree with the plain path, and a small store answers the same on the
-   card as on the CPU.
+   card as on the CPU;
+6. long ranges: a second store of ``--long-series`` series with
+   ``--long-samples`` samples each (48 h at 10 s, so NB = 256 blocks and
+   S = 32,768 samples a series), queried over the 48 h at a 60 s step
+   (K = 2,881) with ``sum(rate[5m]) by (_ns_)``, ``sum(count_over_time[5m])
+   by (job)`` and ``increase[1h]``; B3 and B4 must launch, match their plain
+   versions on the card, and the answers must agree with the plain path.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -41,6 +47,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 T0_MS = 1_700_000_000_000
+LONG_QUERIES = (
+    ("sum(rate(http_requests_total[5m])) by (_ns_)", "rate", 300_000),
+    ("sum(count_over_time(http_requests_total[5m])) by (job)",
+     "count_over_time", 300_000),
+    ("increase(http_requests_total[1h])", "increase", 3_600_000),
+)
 QUERIES = (
     ("sum(rate(http_requests_total[5m])) by (_ns_)", "rate"),
     ("increase(http_requests_total[5m])", "increase"),
@@ -140,16 +152,23 @@ B1_OPS_LANE = UNPACK_OPS + 4 + 2
 # decode_f32_kernel: unpack, tz>=32, <<, select, ^ first.
 B2_OPS_LANE = UNPACK_OPS + 4
 # fused_rate.cu, per sample: valid test, two unpacks, unzigzag (4),
-# base+slope*lane+resid (3), float decode (4), four selects; four scans at
-# two operations an element; counter correction (5) and v+cv.
+# base+slope*lane+resid (3), float decode (4), four selects, scans at eight
+# operations a sample, counter correction (5) and v+cv. (This is the count
+# of the kernel that held a series in one CTA with four scans; the
+# streaming kernel's two warp scans and carries do no fewer, so it stays.)
 B3_OPS_SAMPLE = 1 + 2 * UNPACK_OPS + 4 + 3 + 4 + 4 + 4 * 2 + 6
-# per step: t-w, window count (5), extrapolatedRate (34), plus 5 an
-# iteration of each of the two binary searches.
-B3_OPS_STEP = 1 + 5 + 34
+# per step: t-w, window count from the two ordinals (2), extrapolatedRate
+# (34), plus 5 an iteration of each of the two binary searches, which run
+# over the 128 keys of the block the stream is in.
+B3_OPS_STEP = 1 + 2 + 34
 # windowed_sum.cu: per sample the pad test and select and the scan (2);
-# per step t-w and the two searches; per window sample two compares, &&, +.
-B4_OPS_SAMPLE, B4_OPS_STEP, B4_OPS_WINDOW_SAMPLE = 4, 1, 3
+# per step t-w and the two searches over one 128-sample chunk; per window
+# sample one +, since a sorted chunk's samples in [lo, hi) skip the mask
+# (this run's timestamps are sorted; an unsorted chunk adds two compares
+# and an &&).
+B4_OPS_SAMPLE, B4_OPS_STEP, B4_OPS_WINDOW_SAMPLE = 4, 1, 1
 SEARCH_OPS = 5
+SEARCH_KEYS = 128  # keys a binary search of B3 and B4 runs over
 
 
 def search_iters(S: int) -> int:
@@ -175,7 +194,7 @@ def check_kernels(svc, reps: int) -> list[dict]:
 
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.memory import device_pages as dp
-    from filodb_tpu_torch.parallel.mesh_engine import _DECODE_ROWS
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import (
         BLOCK,
@@ -191,11 +210,12 @@ def check_kernels(svc, reps: int) -> list[dict]:
     steps = torch.arange(300_000, 300_000 + K * 60_000, 60_000,
                          dtype=torch.int32, device=svc.device)
     window = 300_000
+    flight = ck.steps_in_flight(steps.cpu(), window)  # as the engine does
     saved = dict(_build.LAUNCHES)
     out = []
 
     # B1 / B2 on one decode chunk of the B4 path, as assemble calls them
-    rows = min(_DECODE_ROWS, n_series)
+    rows = min(decode_rows(NB * BLOCK), n_series)
     part = tuple(t[:rows] for t in packed)
     nb = rows * NB
     sl, tw = part[1].reshape(-1), part[2].reshape(-1)
@@ -229,9 +249,7 @@ def check_kernels(svc, reps: int) -> list[dict]:
 
     # B3 on the whole batch of the rate query
     got = ck.fused_decode_rate(packed, steps, window, "rate", True)
-    want = torch.cat([ck.fused_decode_rate_plain(
-        tuple(t[a : a + 65536] for t in packed), steps, window, "rate", True)
-        for a in range(0, P, 65536)])
+    want = plain_b3(packed, steps, window, "rate")
     err, ok = compare(got, want, 1e-6, 1e-6)
     if not ok:
         raise AssertionError(f"fused_decode_rate off by {err}")
@@ -241,7 +259,8 @@ def check_kernels(svc, reps: int) -> list[dict]:
               + word_bytes(packed[2]) + word_bytes(packed[6])
               + K * 4 + P * K * 4)
     ops = (int(packed[8].long().sum()) * B3_OPS_SAMPLE
-           + P * K * (B3_OPS_STEP + 2 * SEARCH_OPS * search_iters(NB * BLOCK)))
+           + P * K * (B3_OPS_STEP
+                      + 2 * SEARCH_OPS * search_iters(SEARCH_KEYS)))
     b, by = bound_ms(nbytes, ops)
     out.append(dict(
         name="fused_decode_rate", route="cuda",
@@ -249,11 +268,9 @@ def check_kernels(svc, reps: int) -> list[dict]:
         replaces="filodb_tpu/query/engine/pallas_kernels.py:231",
         shape=f"P={P} NB={NB} K={K}", tolerance="rtol 1e-6, atol 1e-6",
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: ck.fused_decode_rate(packed, steps, window,
-                                                     "rate", True), reps),
-        plain_ms=wall_ms(lambda: [ck.fused_decode_rate_plain(
-            tuple(t[a : a + 65536] for t in packed), steps, window, "rate",
-            True) for a in range(0, P, 65536)]),
+        ms=cuda_time_ms(lambda: ck.fused_decode_rate(
+            packed, steps, window, "rate", True, flight), reps),
+        plain_ms=wall_ms(lambda: plain_b3(packed, steps, window, "rate")),
         bound_ms=b, bound_by=by, library_ms=None, bound_bytes=nbytes,
         bound_ops=ops))
     log(f"  fused_decode_rate: P={P} NB={NB} K={K}, max abs err {err:g} "
@@ -287,7 +304,8 @@ def check_kernels(svc, reps: int) -> list[dict]:
     lo, hi = window_bounds()
     nbytes = rows * S * 8 + K * 4 + rows * K * 4
     ops = (rows * S * B4_OPS_SAMPLE
-           + rows * K * (B4_OPS_STEP + 2 * SEARCH_OPS * search_iters(S))
+           + rows * K * (B4_OPS_STEP
+                         + 2 * SEARCH_OPS * search_iters(SEARCH_KEYS))
            + int((hi - lo).sum()) * B4_OPS_WINDOW_SAMPLE)
     b, by = bound_ms(nbytes, ops)
     out.append(dict(
@@ -296,7 +314,8 @@ def check_kernels(svc, reps: int) -> list[dict]:
         replaces="filodb_tpu/query/engine/pallas_kernels.py:49",
         shape=f"P={rows} S={S} K={K}", tolerance="bitwise (same order)",
         max_abs_err=err,
-        ms=cuda_time_ms(lambda: ck.windowed_sum(ts, v0, steps, window), reps),
+        ms=cuda_time_ms(lambda: ck.windowed_sum(ts, v0, steps, window,
+                                                flight), reps),
         plain_ms=wall_ms(lambda: ck.windowed_sum_plain(ts, v0, steps,
                                                        window)),
         bound_ms=b, bound_by=by, library_ms=cuda_time_ms(library, reps),
@@ -305,6 +324,142 @@ def check_kernels(svc, reps: int) -> list[dict]:
     log(f"  windowed_sum: P={rows} S={S} K={K} bitwise equal to plain")
     _build.LAUNCHES.update(saved)  # comparison launches are not counted
     return out, rate_plain
+
+
+def plain_b3(packed, steps, window: int, kind: str):
+    """B3's plain version over a batch, in row chunks of 2^26 samples."""
+    import torch
+
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+
+    P, NB = packed[0].shape
+    rows = max(1, 2**26 // (NB * 128))
+    return torch.cat([ck.fused_decode_rate_plain(
+        tuple(t[a : a + rows] for t in packed), steps, window, kind, True)
+        for a in range(0, P, rows)])
+
+
+def agrees_with_plain(svc, q: str, start: int, end: int, got,
+                      per_series) -> bool:
+    """A query's answer against the plain per-series results [n, K],
+    aggregated as the engine aggregates them."""
+    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.engine.aggregations import aggregate
+
+    eng = svc.engine
+    low = lower_plan(parse_query(q, TimeStepParams(start, 60, end)))
+    batch = eng._batch(svc.memstore, low)
+    if low.agg is None:
+        want, keys = per_series.cpu().double().numpy(), batch.out_keys
+    else:
+        gids, keys = eng._group_ids(batch, low)
+        want = aggregate(low.agg, per_series, gids,
+                         len(keys)).cpu().numpy()
+    order = {str(k): i for i, k in enumerate(keys)}
+    idx = [order[str(k)] for k in got.keys]
+    return got.values.shape[1] == want.shape[1] and np.allclose(
+        got.values, want[idx], rtol=1e-5, atol=1e-6, equal_nan=True)
+
+
+def long_range(dev, args, reps: int) -> dict:
+    """Phase 6: 48 h series through B3 and B4 (NB = 256, K = 2,881)."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows, lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK, assemble
+
+    t = t_phase = time.perf_counter()
+    store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    kept = ingest(store, args.long_series, args.long_samples, args.seed + 2)
+    log(f"phase 6: long ranges: {args.long_series} series x "
+        f"{args.long_samples} samples ({kept} samples), ingest "
+        f"{time.perf_counter() - t:.1f} s on the host")
+    svc = QueryService(store, device=dev)
+    start = T0_MS // 1000
+    end = start + args.long_samples * 10
+    _build.reset_counts()
+    results = {}
+    for q, _, _ in LONG_QUERIES:
+        t = time.perf_counter()
+        results[q] = svc.query_range(q, start, 60, end)
+        cold = (time.perf_counter() - t) * 1000.0
+        t = time.perf_counter()
+        r = svc.query_range(q, start, 60, end)
+        warm = (time.perf_counter() - t) * 1000.0
+        log(f"  {q}: cold {cold:.1f} ms, warm {warm:.2f} ms, "
+            f"{r.result.num_series} x {r.result.num_steps}")
+    launches = dict(_build.LAUNCHES)
+    log(f"  launches in the phase: {launches}")
+    if dev.type == "cuda" and not (launches["fused_decode_rate"]
+                                   and launches["windowed_sum"]):
+        raise AssertionError("long ranges did not run through B3 and B4")
+
+    eng = svc.engine
+    steps_ms = np.arange(start * 1000, end * 1000 + 1, 60_000)
+    K = len(steps_ms)
+    out = {"series": args.long_series, "samples": args.long_samples,
+           "K": K, "kernels": []}
+    for q, fn, w in LONG_QUERIES:
+        low = lower_plan(parse_query(q, TimeStepParams(start, 60, end)))
+        batch = eng._batch(store, low)
+        packed = batch.packed
+        P, NB = packed[0].shape
+        n = len(batch.keys)
+        host = torch.from_numpy((steps_ms - low.chunk_range[0]).astype(
+            np.int32))
+        flight = ck.steps_in_flight(host, w)
+        steps = host.to(dev)
+        if fn in ("rate", "increase"):
+            def run():
+                return ck.fused_decode_rate(packed, steps, w, fn, True,
+                                            flight)
+            got, want = run(), plain_b3(packed, steps, w, fn)
+            err, ok = compare(got, want, 1e-6, 1e-6)
+            per_series = want[:n]
+            name, shape, tol = ("fused_decode_rate", f"P={P} NB={NB} K={K}",
+                                "rtol 1e-6, atol 1e-6")
+        else:
+            rows = min(decode_rows(NB * BLOCK), n)
+            cnts, ok, err = [], True, 0.0
+            for a in range(0, n, rows):
+                ts, vals, valid = assemble(tuple(t[a : a + rows]
+                                                 for t in packed),
+                                           low.chunk_range[1]
+                                           - low.chunk_range[0])
+                ts = torch.where(valid, ts, ck.TS_PAD).contiguous()
+                ones = valid.to(torch.float32)
+                got = ck.windowed_sum(ts, ones, steps, w)
+                want = ck.windowed_sum_plain(ts, ones, steps, w)
+                e, same = compare(got, want, 0, 0, bitwise=True)
+                ok, err = ok and same, max(err, e)
+                cnts.append(torch.where(want > 0, want, float("nan")))
+                if a == 0:
+                    def run(ts=ts, ones=ones):
+                        return ck.windowed_sum(ts, ones, steps, w, flight)
+                    shape = f"P={ts.shape[0]} S={ts.shape[1]} K={K}"
+            per_series = torch.cat(cnts)
+            name, tol = "windowed_sum", "bitwise (same order)"
+        if not ok:
+            raise AssertionError(f"{name} differs from its plain version on "
+                                 f"{q} (max abs err {err})")
+        if not agrees_with_plain(svc, q, start, end, results[q].result,
+                                 per_series):
+            raise AssertionError(f"{q} disagrees with the plain path")
+        ms = cuda_time_ms(run, reps)
+        out["kernels"].append(dict(name=name, query=q, shape=shape,
+                                   tolerance=tol, max_abs_err=err, ms=ms))
+        log(f"  {name} on {q}: {shape}, {ms:.4f} ms, max abs err {err:g} "
+            f"({tol}); answer equal to the plain path")
+    _build.LAUNCHES.update(launches)  # comparison launches are not counted
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 6 took {out['seconds']:.1f} s")
+    return out
 
 
 def small_store_check(seed: int, dev) -> None:
@@ -411,6 +566,8 @@ def main() -> int:
     ap.add_argument("--series", type=int, default=1_000_000)
     ap.add_argument("--samples", type=int, default=720)
     ap.add_argument("--repeats", type=int, default=5)
+    ap.add_argument("--long-series", type=int, default=4096)
+    ap.add_argument("--long-samples", type=int, default=17_280)
     args = ap.parse_args()
 
     import torch
@@ -434,6 +591,9 @@ def main() -> int:
     log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
         f"process a source)")
     kernels = run(torch.device("cuda"), args)
+    torch.cuda.empty_cache()
+    longs = long_range(torch.device("cuda"), args, reps=3)
+    print(json.dumps({"long_range": longs}))
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

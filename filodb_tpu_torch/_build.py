@@ -111,6 +111,14 @@ def bind(name: str, fn: str, nargs: int):
     return f
 
 
+def constant(name: str, fn: str) -> int:
+    """A C entry point of no arguments returning a 64-bit integer."""
+    f = getattr(library(name), fn)
+    f.argtypes = []
+    f.restype = ctypes.c_longlong
+    return int(f())
+
+
 def check(name: str, rc: int) -> None:
     if rc != 0:
         msg = library(name).filodb_error_string(rc).decode()

@@ -43,9 +43,11 @@ from filodb_tpu_torch.query.engine.aggregations import AGG_OPS, aggregate
 from filodb_tpu_torch.query.engine.cuda_kernels import (
     TS_PAD,
     fused_decode_rate,
+    steps_in_flight,
     windowed_sum,
 )
 from filodb_tpu_torch.query.engine.device_batch import (
+    BLOCK,
     assemble,
     pack_blocks,
     to_device,
@@ -55,10 +57,16 @@ from filodb_tpu_torch.query.model import QueryStats, StepMatrix
 
 F32_SAFE_MAX = float(1 << 20)
 RATE_FNS = ("rate", "increase", "delta")
-# series decoded at once on the B4 path (bounds the decoded [rows, S] temps)
-_DECODE_ROWS = 1 << 17
+# samples decoded at once on the B4 path: bounds the decoded [rows, S]
+# temporaries (about 25 bytes a sample) whatever the series' length
+_DECODE_SAMPLES = 1 << 27
 # uploaded batches kept (each up to ~9 GB at a million series)
 _BATCH_CACHE_CAP = 4
+
+
+def decode_rows(S: int) -> int:
+    """Series decoded at once on the B4 path for rows of S samples."""
+    return max(1, _DECODE_SAMPLES // max(S, 1))
 
 
 class UnsupportedQuery(ValueError):
@@ -203,8 +211,9 @@ class MeshQueryEngine:
     # ---- evaluation --------------------------------------------------------
 
     def _eval(self, batch: _Batch, low: Lowered, steps: torch.Tensor,
-              stats: QueryStats) -> torch.Tensor:
-        """Per-series results [n_series, K] on the device."""
+              flight: int, stats: QueryStats) -> torch.Tensor:
+        """Per-series results [n_series, K] on the device; ``flight`` is
+        ``steps_in_flight`` of the steps, taken on the host."""
         n = len(batch.keys)
         packed = batch.packed
         lo_ms, hi_ms = low.chunk_range
@@ -212,7 +221,7 @@ class MeshQueryEngine:
             counter = low.fn != "delta" or batch.is_counter
             if batch.vmax < F32_SAFE_MAX:
                 out = fused_decode_rate(packed, steps, low.window, low.fn,
-                                        counter)
+                                        counter, in_flight=flight)
                 return out[:n]
             stats.precise_lane += 1
             ts, vals, valid = assemble(packed, hi_ms - lo_ms)
@@ -220,19 +229,20 @@ class MeshQueryEngine:
                                      low.window, counter=counter,
                                      dtype=EXACT_DTYPE)[:n]
         outs = []
-        for a in range(0, n, _DECODE_ROWS):
-            b = min(a + _DECODE_ROWS, n)
+        rows = decode_rows(packed[0].shape[1] * BLOCK)
+        for a in range(0, n, rows):
+            b = min(a + rows, n)
             part = tuple(t[a:b] for t in packed)
             ts, vals, valid = assemble(part, hi_ms - lo_ms)
             ts = torch.where(valid, ts, TS_PAD).contiguous()
             cnt = windowed_sum(ts, valid.to(torch.float32), steps,
-                               low.window)
+                               low.window, flight)
             nan = torch.tensor(float("nan"), device=cnt.device)
             if low.fn == "count_over_time":
                 outs.append(torch.where(cnt > 0, cnt, nan))
                 continue
             s = windowed_sum(ts, torch.where(valid, vals, 0.0).contiguous(),
-                             steps, low.window)
+                             steps, low.window, flight)
             if low.fn == "avg_over_time":
                 s = s / cnt.clamp(min=1.0)
             outs.append(torch.where(cnt > 0, s, nan))
@@ -273,8 +283,10 @@ class MeshQueryEngine:
         rel = (steps_ms - low.offset - low.chunk_range[0])
         if rel.size and (rel.min() < -2**31 or rel.max() >= 2**31 - 1):
             raise UnsupportedQuery("query range too long for int32 ms steps")
-        steps = torch.from_numpy(rel.astype(np.int32)).to(self.device)
-        res = self._eval(batch, low, steps, stats)
+        host_steps = torch.from_numpy(rel.astype(np.int32))
+        flight = steps_in_flight(host_steps, low.window)
+        res = self._eval(batch, low, host_steps.to(self.device), flight,
+                         stats)
         if low.agg is None:
             return StepMatrix(list(batch.out_keys), res, steps_ms)
         gids, gkeys = self._group_ids(batch, low)

@@ -10,7 +10,10 @@ Counterpart of ``filodb_tpu/query/engine/pallas_kernels.py``:
   sum over (t-w, t] for every series and step, 0.0 for an empty window.
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
-tensors it launches its kernel, or raises.
+tensors it launches its kernel, or raises. Both kernels stream a series
+through one warp and hold only the steps in flight in shared memory (see
+``steps_in_flight``); that count is their one limit, and it takes any query
+of up to 11,000 steps whatever its window.
 """
 
 from __future__ import annotations
@@ -25,10 +28,7 @@ from filodb_tpu_torch.query.engine.kernels import range_eval_masked
 
 TS_PAD = 2**31 - 1
 KINDS = {"rate": 0, "increase": 1, "delta": 2}
-# shared memory one CTA may hold on Hopper, less the kernels' static arrays
-_SMEM_LIMIT = 227 * 1024 - 1024
-_FUSED_SMEM_PER_SAMPLE = 20   # key, prev-valid index, count, value, corrected
-_SUM_SMEM_PER_SAMPLE = 12     # key, timestamp, value
+_WARP = 32  # a kernel takes a warp's 32 steps at a time: ring slots >= 32
 
 
 def _check_packed(packed) -> None:
@@ -52,6 +52,41 @@ def _check_steps(steps: torch.Tensor, device: torch.device) -> None:
                          "device")
 
 
+def steps_in_flight(steps: torch.Tensor, window: int) -> int:
+    """The most steps whose t falls in one interval [x, x + window): the
+    windows a streaming kernel holds open at once. Raises ``ValueError``
+    unless the steps are non-decreasing (one host sync)."""
+    if steps.numel() == 0:
+        return 0
+    s = steps.to(torch.int64)
+    ends = torch.searchsorted(s, s + int(window))
+    most = (ends - torch.arange(s.numel(), device=s.device)).max()
+    unsorted = (s[1:] < s[:-1]).any()
+    most, unsorted = torch.stack([most, unsorted.to(torch.int64)]).tolist()
+    if unsorted:
+        raise ValueError("the window kernels take non-decreasing steps")
+    return int(most)
+
+
+def _ring_slots(lib: str, entry: str, steps: torch.Tensor, window: int,
+                in_flight: int | None) -> int:
+    """Slots of a kernel's per-warp ring of steps in flight, or
+    ``ValueError`` past what one CTA's shared memory holds."""
+    need = steps_in_flight(steps, window) if in_flight is None \
+        else int(in_flight)
+    limit = _build.constant(lib, f"{entry}_max_in_flight")
+    if need > limit:
+        raise ValueError(
+            f"{need} steps in flight (steps whose t lies within one "
+            f"{window} ms window) exceed the {entry} kernel's limit of "
+            f"{limit}")
+    return max(_WARP, need)
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
 # ---------------------------------------------------------------------------
 # B3: fused decode -> counter correction -> window
 
@@ -65,12 +100,15 @@ def fused_decode_rate_plain(packed, steps: torch.Tensor, window: int,
 
 
 def fused_decode_rate(packed, steps: torch.Tensor, window: int,
-                      kind: str = "rate",
-                      counter: bool = True) -> torch.Tensor:
+                      kind: str = "rate", counter: bool = True,
+                      in_flight: int | None = None) -> torch.Tensor:
     """B3: packed [P, NB, ...] pages (int32 tensors, u32 bits where the
     reference has uint32) → f32 [P, K], NaN where a window holds < 2
     samples. ``counter`` turns on reset correction (rate and increase
-    always correct, as the reference's kernels do)."""
+    always correct, as the reference's kernels do). On the card the steps
+    must be non-decreasing; ``in_flight`` is ``steps_in_flight(steps,
+    window)`` where the caller has it from host steps, which saves the
+    wrapper a host sync."""
     if kind not in KINDS:
         raise ValueError(f"kind must be one of {tuple(KINDS)}")
     _check_packed(packed)
@@ -80,18 +118,16 @@ def fused_decode_rate(packed, steps: torch.Tensor, window: int,
     if dev.type == "cpu":
         return fused_decode_rate_plain(packed, steps, window, kind, counter)
     P, NB = packed[0].shape
-    if NB * BLOCK * _FUSED_SMEM_PER_SAMPLE > _SMEM_LIMIT:
-        raise ValueError(
-            f"fused_decode_rate holds a series in one CTA's shared memory: "
-            f"{NB} blocks ({NB * BLOCK} samples) need "
-            f"{NB * BLOCK * _FUSED_SMEM_PER_SAMPLE} bytes, over the "
-            f"{_SMEM_LIMIT}-byte limit")
+    if not _aligned(packed[3], packed[7]):
+        raise ValueError("packed word arrays must be 16-byte aligned")
+    R = _ring_slots("fused_rate", "fused_decode_rate", steps, window,
+                    in_flight)
     K = steps.shape[0]
     out = torch.empty((P, K), dtype=torch.float32, device=dev)
-    fn = _build.bind("fused_rate", "fused_decode_rate", 18)
+    fn = _build.bind("fused_rate", "fused_decode_rate", 19)
     _build.check("fused_rate", fn(
         *(a.data_ptr() for a in packed), steps.data_ptr(), K, int(window),
-        P, NB, KINDS[kind], int(counter), out.data_ptr(),
+        P, NB, KINDS[kind], int(counter), R, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream))
     _build.count("fused_decode_rate")
     return out
@@ -124,10 +160,11 @@ def windowed_sum_plain(ts: torch.Tensor, vals: torch.Tensor,
 
 
 def windowed_sum(ts: torch.Tensor, vals: torch.Tensor, steps: torch.Tensor,
-                 window: int) -> torch.Tensor:
+                 window: int, in_flight: int | None = None) -> torch.Tensor:
     """B4: ts int32 [P, S] (TS_PAD in padded lanes; the other timestamps
     non-decreasing along each row), vals f32 [P, S] → f32 [P, K], the sum
-    over (t-w, t]; 0.0 for an empty window."""
+    over (t-w, t]; 0.0 for an empty window. Steps and ``in_flight`` as for
+    ``fused_decode_rate``."""
     if ts.dtype != torch.int32 or vals.dtype != torch.float32 \
             or ts.dim() != 2 or ts.shape != vals.shape:
         raise ValueError("windowed_sum takes int32 ts and float32 vals of "
@@ -139,15 +176,15 @@ def windowed_sum(ts: torch.Tensor, vals: torch.Tensor, steps: torch.Tensor,
     if ts.device.type == "cpu":
         return windowed_sum_plain(ts, vals, steps, window)
     P, S = ts.shape
-    if S * _SUM_SMEM_PER_SAMPLE > _SMEM_LIMIT:
-        raise ValueError(f"windowed_sum holds a series in one CTA's shared "
-                         f"memory: {S} samples exceed the "
-                         f"{_SMEM_LIMIT}-byte limit")
+    R = _ring_slots("windowed_sum", "windowed_sum", steps, window,
+                    in_flight)
+    vec = S % 4 == 0 and _aligned(ts, vals)
     K = steps.shape[0]
     out = torch.empty((P, K), dtype=torch.float32, device=ts.device)
-    fn = _build.bind("windowed_sum", "windowed_sum", 9)
+    fn = _build.bind("windowed_sum", "windowed_sum", 11)
     _build.check("windowed_sum", fn(
         ts.data_ptr(), vals.data_ptr(), steps.data_ptr(), K, int(window), P,
-        S, out.data_ptr(), torch.cuda.current_stream(ts.device).cuda_stream))
+        S, R, int(vec), out.data_ptr(),
+        torch.cuda.current_stream(ts.device).cuda_stream))
     _build.count("windowed_sum")
     return out

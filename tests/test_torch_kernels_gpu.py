@@ -55,18 +55,37 @@ def test_b1_b2_bitwise_equal_to_plain(cuda, nb):
     assert torch.equal(f_gpu.view(torch.int32), f_cpu.view(torch.int32))
 
 
-def _packed(n_series, n, seed):
+def _packed(n_series, n, seed, reset_at=None, gauge=False):
+    """Series of n samples at about 10 s, cut into 400-sample chunks as the
+    store seals them (so a block boundary falls every 128 samples of a
+    chunk); counters reset at ``reset_at`` (every third series) or at
+    n // 2."""
     rng = np.random.default_rng(seed)
     per = []
     for i in range(n_series):
         ts = np.cumsum(rng.integers(8000, 12000, n)).astype(np.int64)
-        vals = np.cumsum(rng.integers(0, 20, n)).astype(np.float64)
-        if i % 3 == 0:
-            vals[n // 2:] -= vals[n // 2]
+        if gauge:
+            vals = rng.integers(-50, 50, n).astype(np.float64)
+        else:
+            vals = np.cumsum(rng.integers(0, 20, n)).astype(np.float64)
+            if i % 3 == 0:
+                for r in np.atleast_1d(reset_at if reset_at is not None
+                                       else n // 2):
+                    vals[r:] -= vals[r]
         per.append([(dp.encode_ts_page(ts[a : a + 400]),
                      dp.encode_f32_page(vals[a : a + 400]),
                      len(ts[a : a + 400])) for a in range(0, n, 400)])
     return pack_series_pages(per, 0)[0]
+
+
+def _b3_both(packed, steps, window, kind="rate", counter=True):
+    got = ck.fused_decode_rate(packed, steps, window, kind, counter)
+    want = ck.fused_decode_rate_plain(packed, steps, window, kind, counter)
+    # correction sums are exact on integer-valued counters, so only the
+    # last float32 roundings of the rate formula may differ
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
+                               equal_nan=True)
+    return got
 
 
 @pytest.mark.parametrize("n", [100, 250, 720])
@@ -75,37 +94,142 @@ def test_b3_matches_plain(cuda, n, kind):
     packed = to_device(_packed(37, n, n), cuda)
     steps = torch.arange(60_000, n * 12_000, 60_000, dtype=torch.int32,
                          device=cuda)
-    got = ck.fused_decode_rate(packed, steps, 300_000, kind, True)
-    want = ck.fused_decode_rate_plain(packed, steps, 300_000, kind, True)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6,
-                               equal_nan=True)
+    _b3_both(packed, steps, 300_000, kind)
 
 
-def test_b3_raises_past_shared_memory(cuda):
-    packed = to_device(_packed(1, 128 * 128, 0), cuda)
-    assert packed[0].shape[1] >= 128
-    with pytest.raises(ValueError, match="shared memory"):
-        ck.fused_decode_rate(packed, torch.zeros(1, dtype=torch.int32,
-                                                 device=cuda), 300_000)
+@pytest.mark.parametrize("nb,n", [(128, 6800), (256, 17280)])
+@pytest.mark.parametrize("kind", ["rate", "increase", "delta"])
+def test_b3_matches_plain_on_long_series(cuda, nb, n, kind):
+    packed = to_device(_packed(9, n, nb), cuda)
+    assert packed[0].shape[1] == nb
+    steps = torch.arange(0, n * 10_000, 60_000, dtype=torch.int32,
+                         device=cuda)
+    got = _b3_both(packed, steps, 300_000, kind)
+    assert torch.isfinite(got[:9, 10:-10]).float().mean() > 0.9
 
 
-def test_b4_bitwise_equal_to_plain(cuda):
-    rng = np.random.default_rng(3)
-    P, S = 300, 1024
+def _limit(lib, entry):
+    from filodb_tpu_torch import _build
+
+    return _build.constant(lib, f"{entry}_max_in_flight")
+
+
+def _edge_steps(case, limit=None):
+    """(steps, window) of one edge case over series of about 30 to 40
+    minutes (300 samples at 8-12 s)."""
+    if case == "one_step":
+        return np.array([1_500_000]), 300_000
+    if case == "window_wider_than_series":
+        return np.arange(0, 4_000_000, 60_000), 100_000_000
+    if case == "steps_outside_the_series":
+        return np.arange(-3_000_000, 9_000_000, 120_000), 300_000
+    if case == "window_below_scrape_interval":
+        return np.arange(0, 4_000_000, 30_000), 5_000
+    if case == "more_than_32_in_flight":
+        return np.arange(0, 4_000_000, 7_000), 300_000
+    if case == "11000_steps_any_window":
+        return np.arange(0, 11_000) * 300, 2_000_000_000
+    # the largest number of steps in flight the kernel takes, and one more
+    k = limit if case == "most_in_flight" else limit + 1
+    return np.arange(k) * 250, k * 250
+
+
+EDGES = ("one_step", "window_wider_than_series", "steps_outside_the_series",
+         "window_below_scrape_interval", "more_than_32_in_flight",
+         "11000_steps_any_window", "most_in_flight")
+
+
+@pytest.mark.parametrize("case", EDGES)
+@pytest.mark.parametrize("kind", ["rate", "increase"])
+def test_b3_edge_cases(cuda, case, kind):
+    packed = to_device(_packed(5, 300, 11), cuda)
+    steps, w = _edge_steps(case, _limit("fused_rate", "fused_decode_rate"))
+    steps = torch.from_numpy(steps.astype(np.int32)).to(cuda)
+    assert ck.steps_in_flight(steps, w) <= steps.numel()
+    got = _b3_both(packed, steps, w, kind)
+    if case == "window_below_scrape_interval":
+        assert torch.isnan(got).all()
+    if case == "steps_outside_the_series":
+        assert torch.isnan(got[:5, :5]).all() and torch.isnan(
+            got[:5, -5:]).all()
+
+
+@pytest.mark.parametrize("reset_at", [[128], [400], [128, 400, 528]])
+def test_b3_reset_on_a_blocks_first_lane(cuda, reset_at):
+    # the previous valid sample of lane 0 is carried from the block before
+    packed = to_device(_packed(6, 900, 5, reset_at=reset_at), cuda)
+    steps = torch.arange(0, 9_000_000, 20_000, dtype=torch.int32,
+                         device=cuda)
+    for kind in ("rate", "increase", "delta"):
+        _b3_both(packed, steps, 300_000, kind)
+
+
+def test_b3_delta_on_gauges(cuda):
+    packed = to_device(_packed(7, 900, 6, gauge=True), cuda)
+    steps = torch.arange(0, 9_000_000, 60_000, dtype=torch.int32,
+                         device=cuda)
+    got = _b3_both(packed, steps, 300_000, "delta", counter=False)
+    assert (got[torch.isfinite(got)] < 0).any()
+
+
+def test_b3_raises_past_steps_in_flight(cuda):
+    packed = to_device(_packed(2, 300, 0), cuda)
+    steps, w = _edge_steps("past",
+                           _limit("fused_rate", "fused_decode_rate"))
+    steps = torch.from_numpy(steps.astype(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="limit"):
+        ck.fused_decode_rate(packed, steps, w)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        ck.fused_decode_rate(packed, steps.flip(0).contiguous(), 300_000)
+
+
+def _sum_rows(P, S, seed, span=15_000):
+    rng = np.random.default_rng(seed)
     ts = np.full((P, S), ck.TS_PAD, np.int32)
     vals = np.zeros((P, S), np.float32)
     for p in range(P):
         k = int(rng.integers(1, S))
-        ts[p, :k] = np.cumsum(rng.integers(5_000, 15_000, k))
+        ts[p, :k] = np.cumsum(rng.integers(5_000, span, k))
         vals[p, :k] = rng.normal(50, 10, k)
         hole = rng.choice(k, k // 4, replace=False)
         ts[p, hole], vals[p, hole] = ck.TS_PAD, 0.0
-    steps = torch.arange(0, 6_000_000, 60_000, dtype=torch.int32)
-    t, v = torch.from_numpy(ts), torch.from_numpy(vals)
-    want = ck.windowed_sum(t, v, steps, 300_000)
+    return torch.from_numpy(ts), torch.from_numpy(vals)
+
+
+def _b4_both(cuda, t, v, steps, window):
+    want = ck.windowed_sum(t, v, steps, window)
     got = ck.windowed_sum(t.to(cuda), v.to(cuda), steps.to(cuda),
-                          300_000).cpu()
+                          window).cpu()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got
+
+
+@pytest.mark.parametrize("S", [1024, 1000, 32768])
+def test_b4_bitwise_equal_to_plain(cuda, S):
+    # S = 1000 is not a multiple of 4: rows stream without 16-byte copies
+    P = 300 if S < 32768 else 40
+    t, v = _sum_rows(P, S, S, span=15_000 if S < 32768 else 11_000)
+    steps = torch.arange(0, int(t[t < ck.TS_PAD].max()) + 600_000, 60_000,
+                         dtype=torch.int32)
+    _b4_both(cuda, t, v, steps, 300_000)
+
+
+@pytest.mark.parametrize("case", EDGES)
+def test_b4_edge_cases(cuda, case):
+    t, v = _sum_rows(6, 384, 4, span=12_000)
+    steps, w = _edge_steps(case, _limit("windowed_sum", "windowed_sum"))
+    steps = torch.from_numpy(steps.astype(np.int32))
+    got = _b4_both(cuda, t, v, steps, w)
+    if case == "steps_outside_the_series":
+        assert (got[:, :5] == 0.0).all() and (got[:, -5:] == 0.0).all()
+
+
+def test_b4_raises_past_steps_in_flight(cuda):
+    t, v = _sum_rows(2, 256, 1)
+    steps, w = _edge_steps("past", _limit("windowed_sum", "windowed_sum"))
+    steps = torch.from_numpy(steps.astype(np.int32)).to(cuda)
+    with pytest.raises(ValueError, match="limit"):
+        ck.windowed_sum(t.to(cuda), v.to(cuda), steps, w)
 
 
 def test_query_on_card_equals_cpu(cuda):

@@ -62,6 +62,9 @@ SPECS = {
     1: [(100, None), (120, 60), (17, None), (1, None)],
     2: [(150, None), (240, 200), (130, 3)],
     8: [(800, None), (780, 450), (700, 401), (600, None), (30, None)],
+    # 17 chunks of 400 samples, 4 blocks each: the long series the
+    # streaming kernel takes and the one-CTA kernel refused
+    128: [(6800, None), (6500, 3001), (6600, 512), (100, None)],
 }
 
 
@@ -98,13 +101,13 @@ def test_b3_empty_windows_are_nan():
     assert torch.isnan(got[0]).all()
 
 
-def _sum_inputs(seed, P=5, S=256, gaps=False):
+def _sum_inputs(seed, P=5, S=256, gaps=False, span=15_000):
     rng = np.random.default_rng(seed)
     ts = np.full((P, S), cuda_kernels.TS_PAD, np.int32)
     vals = np.zeros((P, S), np.float32)
     for p in range(P):
         n = int(rng.integers(S // 2, S))
-        ts[p, :n] = np.cumsum(rng.integers(5_000, 15_000, n))
+        ts[p, :n] = np.cumsum(rng.integers(5_000, span, n))
         vals[p, :n] = rng.normal(50, 10, n)
         if gaps:  # interior padded lanes, as assemble leaves between chunks
             hole = rng.choice(n, n // 5, replace=False)
@@ -130,6 +133,46 @@ def test_b4_plain_matches_windowed_sum_pallas(gaps, window):
     assert empty.any() and not empty.all()
     np.testing.assert_allclose(got[~empty], want[~empty], rtol=1e-5)
     assert (got[empty] == 0.0).all()
+
+
+def test_b4_plain_matches_windowed_sum_pallas_on_long_rows():
+    """S = 32,768 samples a row (48 h at 10 s padded to 256 blocks)."""
+    import jax.numpy as jnp
+
+    ts, vals = _sum_inputs(seed=11, P=3, S=32768, gaps=True, span=11_000)
+    steps = np.arange(0, 2_880 * 60_000 + 1, 60_000, dtype=np.int32)
+    want = np.asarray(windowed_sum_pallas(
+        jnp.asarray(ts), jnp.asarray(vals), jnp.asarray(steps),
+        jnp.asarray(np.int32(300_000)), interpret=True))
+    got = cuda_kernels.windowed_sum(torch.from_numpy(ts),
+                                    torch.from_numpy(vals),
+                                    torch.from_numpy(steps), 300_000).numpy()
+    empty = want == 0.0
+    assert empty.any() and not empty.all()
+    np.testing.assert_allclose(got[~empty], want[~empty], rtol=1e-5)
+    assert (got[empty] == 0.0).all()
+
+
+@pytest.mark.parametrize("step,window,want", [
+    (60_000, 300_000, 5),
+    (60_000, 3_600_000, 60),
+    (60_000, 3_600_001, 61),
+    (7_000, 300_000, 43),
+    (60_000, 1_000, 1),
+    (60_000, 0, 0),
+])
+def test_steps_in_flight(step, window, want):
+    steps = torch.arange(0, 2_881 * step, step, dtype=torch.int32)
+    assert cuda_kernels.steps_in_flight(steps, window) == want
+    assert cuda_kernels.steps_in_flight(steps[:1], window) == min(want, 1)
+
+
+def test_steps_in_flight_takes_only_sorted_steps():
+    with pytest.raises(ValueError, match="non-decreasing"):
+        cuda_kernels.steps_in_flight(
+            torch.tensor([3, 1, 2], dtype=torch.int32), 10)
+    assert cuda_kernels.steps_in_flight(
+        torch.tensor([5, 5, 5], dtype=torch.int32), 1) == 3
 
 
 def test_b4_plain_adds_in_sample_order():

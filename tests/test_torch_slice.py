@@ -71,12 +71,12 @@ def _series_specs():
     return specs
 
 
-@pytest.fixture(scope="module")
-def stores():
-    specs = _series_specs()
+def _build_stores(specs, chunk):
+    """The same series in a JAX store (device pages on, 4 shards, spread 1)
+    and in the port's MemStore, sealed alike."""
     ref = TimeSeriesMemStore()
     for s in range(NUM_SHARDS):
-        ref.setup(DS, s, StoreConfig(max_chunk_size=CHUNK, groups_per_shard=2,
+        ref.setup(DS, s, StoreConfig(max_chunk_size=chunk, groups_per_shard=2,
                                      device_pages=True))
     stream, off = [], 0
     for schema, labels, ts, vals in specs:
@@ -99,9 +99,14 @@ def stores():
             states.append(SeriesState(p.schema.name, p.part_key.label_map,
                                       ts, vals,
                                       [c.num_rows for c in p.chunks]))
-    port = MemStore(NUM_SHARDS, spread=1, max_chunk_size=CHUNK)
+    port = MemStore(NUM_SHARDS, spread=1, max_chunk_size=chunk)
     ingest_states(port, states)
     return ref, port
+
+
+@pytest.fixture(scope="module")
+def stores():
+    return _build_stores(_series_specs(), CHUNK)
 
 
 def test_port_routes_and_seals_like_the_reference(stores):
@@ -386,3 +391,60 @@ def test_parser_matches_reference(q):
     want = parse_query(q, TimeStepParams(Q_START, Q_STEP, Q_END))
     got = port_parse(q, PortParams(Q_START, Q_STEP, Q_END))
     assert repr(got) == repr(want)
+
+
+LONG_SAMPLES = 17_280  # 48 h at 10 s: 43 chunks of 400, 256 packed blocks
+
+
+@pytest.fixture(scope="module")
+def long_services():
+    """A few counters of 48 h each, one with a reset, in 400-sample
+    chunks as ``conf/server.json`` seals them."""
+    rng = np.random.default_rng(11)
+    specs = []
+    for i in range(4):
+        ts = (START_S * 1000 + np.arange(LONG_SAMPLES) * 10_000
+              + rng.integers(-500, 501, LONG_SAMPLES)).astype(np.int64)
+        vals = np.cumsum(rng.integers(0, 20, LONG_SAMPLES)).astype(
+            np.float64)
+        if i == 1:
+            vals[9_000:] -= vals[9_000]
+        specs.append(("prom-counter", {
+            "_metric_": "http_requests_total", "_ws_": "demo",
+            "_ns_": f"App-{i % 2}", "instance": f"instance-{i}",
+            "job": f"job-{i % 2}"}, ts, vals))
+    ref, port = _build_stores(specs, 400)
+    return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
+            RefService(ref, DS, NUM_SHARDS, spread=1),
+            QueryService(port, device="cpu"))
+
+
+@pytest.mark.parametrize("q", [
+    "sum(rate(http_requests_total[5m])) by (job)",
+    "increase(http_requests_total[1h])",
+    "count_over_time(http_requests_total[5m])",
+])
+def test_long_range_matches_both_reference_engines(long_services, q):
+    """48 h at a 60 s step (K = 2,881): the series the one-CTA kernels
+    refused on the card."""
+    ref_exec, ref_mesh, port = long_services
+    start, end = START_S, START_S + LONG_SAMPLES * 10
+    res = port.query_range(q, start, 60, end)
+    assert res.result.num_steps == 2_881
+    got_keys, got = _sorted(res)
+    assert np.isfinite(got).mean() > 0.99
+    for svc in (ref_exec, ref_mesh):
+        r = svc.query_range(q, start, 60, end)
+        r.result.materialize()
+        want_keys, want = _sorted(r)
+        assert got_keys == want_keys, (q, svc.engine)
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6,
+                                   equal_nan=True, err_msg=f"{q} {svc.engine}")
+
+
+@pytest.mark.parametrize("S,rows", [(1024, 2**17), (32_768, 4_096),
+                                    (2**28, 1)])
+def test_decode_chunk_is_sized_by_samples(S, rows):
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+
+    assert decode_rows(S) == rows

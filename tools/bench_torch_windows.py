@@ -1,0 +1,104 @@
+#!/usr/bin/env python3
+"""Time the window kernels B3 (fused decode -> rate) and B4 (windowed sum)
+of ``filodb_tpu_torch`` on a CUDA card, at the shapes of ``chip_smoke.py``'s
+main path, without its minutes of host ingest.
+
+A few thousand distinct series (``chip_smoke.make_series``: 720 samples at
+10 s, counters with resets) are ingested and packed as the engine packs
+them; their packed rows are then tiled to ``--series`` rows on the card.
+Each kernel is timed with CUDA events (mean of ``--reps`` launches after a
+warm-up) and checked against its plain version on the distinct rows.
+
+    python3 tools/bench_torch_windows.py [--series 1048576] [--reps 20]
+
+Prints one JSON object with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--series", type=int, default=1 << 20)
+    ap.add_argument("--distinct", type=int, default=4096)
+    ap.add_argument("--samples", type=int, default=720)
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("bench_torch_windows: CUDA is not available", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows, lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK, assemble
+
+    _build.build_all()
+    dev = torch.device("cuda")
+    store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    cs.ingest(store, args.distinct, args.samples, 0)
+    svc = QueryService(store, device=dev)
+    start = cs.T0_MS // 1000
+    end = start + args.samples * 10
+    q = "sum(rate(http_requests_total[5m])) by (_ns_)"
+    low = lower_plan(parse_query(q, TimeStepParams(start, 60, end)))
+    small = svc.engine._batch(store, low).packed
+    reps = -(-args.series // small[0].shape[0])
+    packed = tuple(t.repeat((reps,) + (1,) * (t.dim() - 1))[: args.series]
+                   .contiguous() for t in small)
+    P, NB = packed[0].shape
+    window = 300_000
+    host = torch.from_numpy((np.arange(start * 1000, end * 1000 + 1, 60_000)
+                             - low.chunk_range[0]).astype(np.int32))
+    K = host.numel()
+    flight = ck.steps_in_flight(host, window)
+    steps = host.to(dev)
+
+    got = ck.fused_decode_rate(small, steps, window, "rate", True, flight)
+    want = ck.fused_decode_rate_plain(small, steps, window, "rate", True)
+    err_b3, ok_b3 = cs.compare(got, want, 1e-6, 1e-6)
+    b3 = cs.cuda_time_ms(lambda: ck.fused_decode_rate(
+        packed, steps, window, "rate", True, flight), args.reps)
+
+    rows = min(decode_rows(NB * BLOCK), P)
+    ts, vals, valid = assemble(tuple(t[:rows] for t in packed),
+                               low.chunk_range[1] - low.chunk_range[0])
+    ts = torch.where(valid, ts, ck.TS_PAD).contiguous()
+    v0 = torch.where(valid, vals, 0.0).contiguous()
+    n = small[0].shape[0]
+    _, ok_b4 = cs.compare(ck.windowed_sum(ts[:n], v0[:n], steps, window,
+                                          flight),
+                          ck.windowed_sum_plain(ts[:n], v0[:n], steps,
+                                                window), 0, 0, bitwise=True)
+    b4 = cs.cuda_time_ms(lambda: ck.windowed_sum(ts, v0, steps, window,
+                                                 flight), args.reps)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(json.dumps({
+        "card": smi, "fused_decode_rate": {
+            "shape": f"P={P} NB={NB} K={K}", "ms": b3, "max_abs_err": err_b3,
+            "matches_plain": ok_b3},
+        "windowed_sum": {"shape": f"P={rows} S={ts.shape[1]} K={K}",
+                         "ms": b4, "bitwise_plain": ok_b4}}))
+    return 0 if ok_b3 and ok_b4 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
