@@ -15,7 +15,9 @@ checks it, phase by phase; any failed phase exits non-zero:
    repeats), counts read back; every kernel must have launched;
 4. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with its time, its plain version's time,
-   its bound and (for B4) a PyTorch yardstick;
+   its bound and (for B4) a PyTorch yardstick; and the time of each part
+   of one count_over_time decode chunk (B1, B2, ``assemble``'s glue, the
+   pad select and cast, B4);
 5. answers: the main results have the expected shape and finite values,
    agree with the plain path, and a small store answers the same on the
    card as on the CPU;
@@ -146,11 +148,17 @@ def compare(got, want, rtol: float, atol: float, bitwise: bool = False):
 # common.cuh unpack_field: w==0 test, lane*w, >>5, &31, wi+1 and its clamp
 # (3), funnelshift, w>=32, 1<<w, -1, select, &.
 UNPACK_OPS = 13
-# decode_pages.cu decode_ts_kernel: unpack, unzigzag (>>, &, negate, ^),
-# slope*lane, +.
-B1_OPS_LANE = UNPACK_OPS + 4 + 2
-# decode_f32_kernel: unpack, tz>=32, <<, select, ^ first.
-B2_OPS_LANE = UNPACK_OPS + 4
+# common.cuh unpack_four, per lane (four fields): 4j*w, &31, four funnel
+# shifts, 2w and 3w, field 0's & (1), field 1's shift and & (2), field 2's
+# compare, subtract, three selects, shift and & (7), field 3's two
+# compares, two subtracts, three selects, shift and & (9).
+UNPACK_FOUR_OPS = 1 + 1 + 4 + 2 + 1 + 2 + 7 + 9
+# decode_pages.cu, per lane of a block: the width mask (w==0, w>=32, 1<<w,
+# -1, two selects), unpack_four, then per field B1: unzigzag (>>, &,
+# negate, ^), slope*i, +; B2: <<, select, ^ first, and tz>=32 once.
+WIDTH_MASK_OPS = 6
+B1_OPS_BLOCK = 32 * (WIDTH_MASK_OPS + UNPACK_FOUR_OPS + 4 * 6)
+B2_OPS_BLOCK = 32 * (WIDTH_MASK_OPS + UNPACK_FOUR_OPS + 1 + 4 * 3)
 # fused_rate.cu, per sample: valid test, two unpacks, unzigzag (4),
 # base+slope*lane+resid (3), float decode (4), four selects, scans at eight
 # operations a sample, counter correction (5) and v+cv. (This is the count
@@ -187,13 +195,80 @@ def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def decode_cases(part) -> tuple:
+    """B1 and B2 on one decode chunk of packed rows, as ``assemble`` calls
+    them: (name, TPU kernel replaced, kernel, plain version, bytes,
+    operations) each. Bytes are the per-block scalars, the words the widths
+    need and the output."""
+    from filodb_tpu_torch.memory import device_pages as dp
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK
+
+    sl, tw = part[1].reshape(-1), part[2].reshape(-1)
+    tw_words = part[3].reshape(-1, BLOCK)
+    vf, vs, vw = (part[i].reshape(-1) for i in (4, 5, 6))
+    vw_words = part[7].reshape(-1, BLOCK)
+    nb = tw.numel()
+    return (
+        ("decode_ts_page", "filodb_tpu/memory/device_pages.py:262",
+         lambda: dp.decode_ts_blocks(sl, tw, tw_words),
+         lambda: dp.decode_ts_blocks_plain(sl, tw, tw_words),
+         nb * (8 + 512) + word_bytes(tw), nb * B1_OPS_BLOCK),
+        ("decode_f32_page", "filodb_tpu/memory/device_pages.py:307",
+         lambda: dp.decode_f32_blocks(vf, vs, vw, vw_words),
+         lambda: dp.decode_f32_blocks_plain(vf, vs, vw, vw_words),
+         nb * (12 + 512) + word_bytes(vw), nb * B2_OPS_BLOCK),
+    )
+
+
+def over_time_split(part, range_len: int, steps, window: int, flight: int,
+                    reps: int) -> dict:
+    """CUDA-event ms of each part of one count_over_time decode chunk, in
+    the order ``mesh_engine`` runs them, and of the whole chunk."""
+    import torch
+
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+    from filodb_tpu_torch.query.engine.device_batch import fill_gaps
+
+    (_, _, b1, *_), (_, _, b2, *_) = decode_cases(part)
+    nan = torch.tensor(float("nan"), device=part[0].device)
+
+    def glue(off, vals):  # assemble after B1/B2: base add, validity,
+        ts, _, valid = fill_gaps(part[0], part[8], off, vals)  # cummax
+        return ts, valid & (ts >= 0) & (ts <= range_len)  # and range
+
+    def pad_cast(ts, valid):
+        return (torch.where(valid, ts, ck.TS_PAD).contiguous(),
+                valid.to(torch.float32))
+
+    def b4(ts, ones):
+        return ck.windowed_sum(ts, ones, steps, window, flight)
+
+    def nan_select(cnt):
+        return torch.where(cnt > 0, cnt, nan)
+
+    off, vals = b1(), b2()
+    ts, valid = glue(off, vals)
+    padded, ones = pad_cast(ts, valid)
+    cnt = b4(padded, ones)
+    parts = {"B1": b1, "B2": b2,
+             "assemble_glue": lambda: glue(off, vals),
+             "pad_cast": lambda: pad_cast(ts, valid),
+             "B4": lambda: b4(padded, ones),
+             "nan_select": lambda: nan_select(cnt)}
+    out = {k: cuda_time_ms(f, reps) for k, f in parts.items()}
+    out["sum_of_parts"] = sum(out.values())
+    out["chunk"] = cuda_time_ms(
+        lambda: nan_select(b4(*pad_cast(*glue(b1(), b2())))), reps)
+    out["rows"], out["S"] = int(ts.shape[0]), int(ts.shape[1])
+    return out
+
+
 def check_kernels(svc, reps: int) -> list[dict]:
     """Phase 4: each kernel at the main path's shapes, against its plain
     version on the same inputs."""
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.memory import device_pages as dp
     from filodb_tpu_torch.parallel.mesh_engine import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import (
@@ -218,31 +293,17 @@ def check_kernels(svc, reps: int) -> list[dict]:
     rows = min(decode_rows(NB * BLOCK), n_series)
     part = tuple(t[:rows] for t in packed)
     nb = rows * NB
-    sl, tw = part[1].reshape(-1), part[2].reshape(-1)
-    tw_words = part[3].reshape(-1, BLOCK)
-    vf, vs, vw = (part[i].reshape(-1) for i in (4, 5, 6))
-    vw_words = part[7].reshape(-1, BLOCK)
-    # bytes: the per-block scalars, the words the widths need, the output
-    for name, src, repl, run, plain, nbytes, ops in (
-        ("decode_ts_page", "filodb_tpu_torch/csrc/decode_pages.cu",
-         "filodb_tpu/memory/device_pages.py:262",
-         lambda: dp.decode_ts_blocks(sl, tw, tw_words),
-         lambda: dp.decode_ts_blocks_plain(sl, tw, tw_words),
-         nb * (8 + 512) + word_bytes(tw), nb * BLOCK * B1_OPS_LANE),
-        ("decode_f32_page", "filodb_tpu_torch/csrc/decode_pages.cu",
-         "filodb_tpu/memory/device_pages.py:307",
-         lambda: dp.decode_f32_blocks(vf, vs, vw, vw_words),
-         lambda: dp.decode_f32_blocks_plain(vf, vs, vw, vw_words),
-         nb * (12 + 512) + word_bytes(vw), nb * BLOCK * B2_OPS_LANE),
-    ):
+    for name, repl, run, plain, nbytes, ops in decode_cases(part):
         got, want = run(), plain()
         err, ok = compare(got, want, 0, 0, bitwise=True)
         if not ok:
             raise AssertionError(f"{name} differs from its plain version")
         b, by = bound_ms(nbytes, ops)
-        out.append(dict(name=name, route="cuda", source=src, replaces=repl,
-                        shape=f"{nb} blocks", tolerance="bitwise",
-                        max_abs_err=err, ms=cuda_time_ms(run, reps),
+        out.append(dict(name=name, route="cuda",
+                        source="filodb_tpu_torch/csrc/decode_pages.cu",
+                        replaces=repl, shape=f"{nb} blocks",
+                        tolerance="bitwise", max_abs_err=err,
+                        ms=cuda_time_ms(run, reps),
                         plain_ms=wall_ms(plain), bound_ms=b, bound_by=by,
                         library_ms=None, bound_bytes=nbytes, bound_ops=ops))
         log(f"  {name}: {nb} blocks bitwise equal to plain")
@@ -322,6 +383,8 @@ def check_kernels(svc, reps: int) -> list[dict]:
         library_call="cumsum + cummax + searchsorted + gather",
         bound_bytes=nbytes, bound_ops=ops))
     log(f"  windowed_sum: P={rows} S={S} K={K} bitwise equal to plain")
+    split = over_time_split(part, 7_500_000, steps, window, flight, reps)
+    log(f"  over_time chunk split (ms, CUDA events): {json.dumps(split)}")
     _build.LAUNCHES.update(saved)  # comparison launches are not counted
     return out, rate_plain
 

@@ -1,6 +1,7 @@
-// Pieces shared by the page-decoding kernels: the width-w field unpack,
-// 16-byte asynchronous copies into shared memory, a warp-wide inclusive
-// scan, and a binary search over 128 keys.
+// Pieces shared by the page-decoding kernels: the width-w field unpack (one
+// field, or four neighbouring ones), 16-byte asynchronous copies into
+// shared memory, a warp-wide inclusive scan, and a binary search over 128
+// keys.
 #pragma once
 
 #include <cstdint>
@@ -28,6 +29,37 @@ __device__ __forceinline__ uint32_t unpack_field(const uint32_t* row,
   uint32_t v = __funnelshift_r(lo, hi, off);
   uint32_t mask = w >= 32 ? 0xFFFFFFFFu : ((1u << w) - 1u);
   return v & mask;
+}
+
+// The four width-w fields 4j..4j+3 of a block's word row (w <= 32; the row
+// readable up to word 4j*w/32 + 4, so a 128-word row needs one pad word).
+// Their 4*w <= 128 bits start at bit 4j*w and span at most five words,
+// each read once: shifted right by the start's offset, the five give a
+// 128-bit value y0..y3 whose bits [k*w, k*w + w) are field k.
+// __funnelshift_rc clamps its shift at 32, so w = 32 takes whole words.
+// `mask` is the width mask (0 at w = 0, all ones at w = 32); it drops every
+// bit past a field, and since field 127 ends at bit 128*w, the words of the
+// row from 4*w on never show in a result, whatever they hold.
+__device__ __forceinline__ void unpack_four(const uint32_t* row, int j,
+                                            uint32_t w, uint32_t mask,
+                                            uint32_t f[4]) {
+  const uint32_t bit0 = 4u * static_cast<uint32_t>(j) * w;
+  const uint32_t* at = row + (bit0 >> 5);
+  const uint32_t off = bit0 & 31u;
+  const uint32_t x0 = at[0], x1 = at[1], x2 = at[2], x3 = at[3], x4 = at[4];
+  const uint32_t y0 = __funnelshift_r(x0, x1, off);
+  const uint32_t y1 = __funnelshift_r(x1, x2, off);
+  const uint32_t y2 = __funnelshift_r(x2, x3, off);
+  const uint32_t y3 = __funnelshift_r(x3, x4, off);
+  // field 1 starts at bit w <= 32, field 2 at 2w <= 64, field 3 at 3w <= 96
+  const uint32_t s2 = 2u * w, s3 = 3u * w;
+  f[0] = y0 & mask;
+  f[1] = __funnelshift_rc(y0, y1, w) & mask;
+  f[2] = (s2 >= 32u ? __funnelshift_rc(y1, y2, s2 - 32u)
+                    : __funnelshift_rc(y0, y1, s2)) & mask;
+  f[3] = (s3 >= 64u   ? __funnelshift_rc(y2, y3, s3 - 64u)
+          : s3 >= 32u ? __funnelshift_rc(y1, y2, s3 - 32u)
+                      : __funnelshift_rc(y0, y1, s3)) & mask;
 }
 
 // 16 bytes from device memory into shared memory, asynchronously (both

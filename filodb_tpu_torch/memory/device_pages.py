@@ -21,7 +21,10 @@ them as ``uint32_t``.
 
 Decode: ``decode_ts_blocks`` (kernel B1) and ``decode_f32_blocks`` (kernel
 B2) launch ``csrc/decode_pages.cu`` on a CUDA tensor and run their plain
-versions (``*_plain``, integer arithmetic in int64) on a CPU tensor.
+versions (``*_plain``, integer arithmetic in int64) on a CPU tensor. The
+kernels load words and store outputs 16 bytes a lane, so on the card
+``words`` must start on a 16-byte boundary (every row slice of a packed
+batch does: rows are 512 bytes); a misaligned view raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -229,6 +232,14 @@ def _check_blocks(words: torch.Tensor, *scalars: torch.Tensor) -> None:
             raise ValueError("all operands must be on one device")
 
 
+def _check_aligned(**operands: torch.Tensor) -> None:
+    """The kernels move words and outputs 16 bytes a lane."""
+    for name, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the decode "
+                             f"kernel (data_ptr % 16 = {t.data_ptr() % 16})")
+
+
 def decode_ts_blocks(slopes: torch.Tensor, widths: torch.Tensor,
                      words: torch.Tensor) -> torch.Tensor:
     """B1: int32 offsets from each block's base [nb, 128]."""
@@ -237,6 +248,7 @@ def decode_ts_blocks(slopes: torch.Tensor, widths: torch.Tensor,
         return decode_ts_blocks_plain(slopes, widths, words)
     slopes, widths, words = (t.contiguous() for t in (slopes, widths, words))
     out = torch.empty(words.shape, dtype=torch.int32, device=words.device)
+    _check_aligned(words=words, out=out)
     fn = _build.bind("decode_pages", "decode_ts_pages", 6)
     _build.check("decode_pages", fn(
         slopes.data_ptr(), widths.data_ptr(), words.data_ptr(),
@@ -256,6 +268,7 @@ def decode_f32_blocks(firsts: torch.Tensor, shifts: torch.Tensor,
     firsts, shifts, widths, words = (
         t.contiguous() for t in (firsts, shifts, widths, words))
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
+    _check_aligned(words=words, out=out)
     fn = _build.bind("decode_pages", "decode_f32_pages", 7)
     _build.check("decode_pages", fn(
         firsts.data_ptr(), shifts.data_ptr(), widths.data_ptr(),

@@ -183,13 +183,20 @@ def decode_packed(packed, plain: bool = False):
     ``TS_GAP_MIN``). ``plain`` uses B1/B2's plain versions on any device."""
     (rel_bases, ts_slopes, ts_widths, ts_words, v_firsts, v_shifts,
      v_widths, v_words, blk_counts) = packed
-    P, NB = rel_bases.shape
     dec_ts = decode_ts_blocks_plain if plain else decode_ts_blocks
     dec_f32 = decode_f32_blocks_plain if plain else decode_f32_blocks
     off = dec_ts(ts_slopes.reshape(-1), ts_widths.reshape(-1),
                  ts_words.reshape(-1, BLOCK))
     vals = dec_f32(v_firsts.reshape(-1), v_shifts.reshape(-1),
                    v_widths.reshape(-1), v_words.reshape(-1, BLOCK))
+    return fill_gaps(rel_bases, blk_counts, off, vals)
+
+
+def fill_gaps(rel_bases, blk_counts, off, vals):
+    """The torch glue after B1/B2: per-block offsets [P*NB, 128] and values
+    → (ts, vals, valid) [P, NB*128], ts = base + offset on valid lanes and
+    the running max over the row (gaps take the previous real timestamp)."""
+    P, NB = rel_bases.shape
     lane = torch.arange(BLOCK, dtype=torch.int32, device=off.device)
     valid = lane[None, :] < blk_counts.reshape(-1, 1)
     ts = torch.where(valid, rel_bases.reshape(-1, 1) + off, TS_GAP_MIN)

@@ -66,10 +66,12 @@ def test_encode_f32_random_bits_byte_equal():
 
 
 def _width_words(rng, nb):
-    """Per-block widths covering 0, 1, 31 and 32 with full random words."""
-    widths = np.array(([0, 1, 31, 32] * nb)[:nb], np.int32)
-    words = rng.integers(0, 2**32, (nb, 128), dtype=np.uint64).astype(
-        np.uint32)
+    """Blocks of every width 0..32, then ``nb`` more cycling through 0, 1,
+    31 and 32, with random words across the whole row (past 4*w too)."""
+    widths = np.concatenate([np.arange(33), [0, 1, 31, 32] * nb])[
+        : 33 + nb].astype(np.int32)
+    words = rng.integers(0, 2**32, (len(widths), 128),
+                         dtype=np.uint64).astype(np.uint32)
     return widths, words
 
 
@@ -79,7 +81,7 @@ def test_b1_plain_bitwise_equal_to_pallas(nb):
 
     rng = np.random.default_rng(nb)
     widths, words = _width_words(rng, nb)
-    slopes = rng.integers(-20_000, 20_000, nb).astype(np.int32)
+    slopes = rng.integers(-20_000, 20_000, len(widths)).astype(np.int32)
     want = np.asarray(ref.decode_ts_page_pallas(
         jnp.asarray(slopes), jnp.asarray(widths), jnp.asarray(words),
         interpret=True))
@@ -95,8 +97,10 @@ def test_b2_plain_bitwise_equal_to_pallas(nb):
 
     rng = np.random.default_rng(100 + nb)
     widths, words = _width_words(rng, nb)
-    shifts = np.array(([0, 32, 5, 31] * nb)[:nb], np.int32)
-    firsts = rng.integers(0, 2**32, nb, dtype=np.uint64).astype(np.uint32)
+    # every shift 0..32 (5 is prime to 33)
+    shifts = (np.arange(len(widths)) * 5 % 33).astype(np.int32)
+    firsts = rng.integers(0, 2**32, len(widths),
+                          dtype=np.uint64).astype(np.uint32)
     want = np.asarray(ref.decode_f32_page_pallas(
         jnp.asarray(firsts), jnp.asarray(shifts), jnp.asarray(widths),
         jnp.asarray(words), interpret=True))
@@ -105,6 +109,31 @@ def test_b2_plain_bitwise_equal_to_pallas(nb):
                                  torch.from_numpy(widths),
                                  port.u32_as_i32(words)).numpy()
     assert got.view(np.uint32).tobytes() == want.view(np.uint32).tobytes()
+
+
+@pytest.mark.parametrize("w", range(33))
+def test_b1_b2_plain_ignore_words_past_4w(w):
+    # a block of width w keeps its 128 fields in its first 4*w words; the
+    # decode kernels read past them and rely on the width mask, so the
+    # plain versions they are held to must not see those words either
+    rng = np.random.default_rng(w)
+    nb = 33
+    words = rng.integers(0, 2**32, (nb, 128), dtype=np.uint64).astype(
+        np.uint32)
+    other = words.copy()
+    other[:, 4 * w:] = rng.integers(0, 2**32, (nb, 128 - 4 * w),
+                                    dtype=np.uint64).astype(np.uint32)
+    widths = torch.full((nb,), w, dtype=torch.int32)
+    slopes = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, nb).astype(
+        np.int32))
+    shifts = torch.arange(nb, dtype=torch.int32)  # every shift 0..32
+    firsts = port.u32_as_i32(rng.integers(0, 2**32, nb, dtype=np.uint64)
+                             .astype(np.uint32))
+    ts = [port.decode_ts_blocks(slopes, widths, port.u32_as_i32(x))
+          for x in (words, other)]
+    fs = [port.decode_f32_blocks(firsts, shifts, widths, port.u32_as_i32(x))
+          .view(torch.int32) for x in (words, other)]
+    assert torch.equal(ts[0], ts[1]) and torch.equal(fs[0], fs[1])
 
 
 @pytest.mark.parametrize("n", [5, 300])

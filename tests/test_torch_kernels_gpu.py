@@ -6,6 +6,8 @@ Marked ``gpu``: without a card every test here skips. On the card run
 have).
 """
 
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -30,9 +32,13 @@ def cuda():
 
 
 def _blocks(nb, seed):
+    """nb blocks cycling through every width 0..32 and every shift 0..32
+    (5 is prime to 33, so any 33 neighbours hold each shift once), words
+    random across the whole row, past 4*w as well."""
     rng = np.random.default_rng(seed)
-    widths = np.array(([0, 1, 31, 32, 7] * nb)[:nb], np.int32)
-    shifts = np.array(([0, 32, 3, 31] * nb)[:nb], np.int32)
+    i = np.arange(nb)
+    widths = (i % 33).astype(np.int32)
+    shifts = (i * 5 % 33).astype(np.int32)
     words = rng.integers(0, 2**32, (nb, 128), dtype=np.uint64).astype(
         np.uint32)
     slopes = rng.integers(-2**31, 2**31 - 1, nb).astype(np.int32)
@@ -42,8 +48,23 @@ def _blocks(nb, seed):
             dp.u32_as_i32(words))
 
 
-@pytest.mark.parametrize("nb", [1, 5, 4099])
+def _block_count(case):
+    """Block counts at and around the decode kernel's boundaries: "warp"
+    and "cta" are the blocks one warp walks and one CTA covers, read from
+    the library, and "+1"/"-1" step off them."""
+    if isinstance(case, int):
+        return case
+    from filodb_tpu_torch import _build
+
+    unit, delta = re.fullmatch(r"(warp|cta)([+-]1)?", case).groups()
+    n = _build.constant("decode_pages", f"decode_pages_blocks_per_{unit}")
+    return n + int(delta or 0)
+
+
+@pytest.mark.parametrize("nb", [1, 5, 4099, "warp-1", "warp", "warp+1",
+                                "cta-1", "cta", "cta+1", 2**20 + 3])
 def test_b1_b2_bitwise_equal_to_plain(cuda, nb):
+    nb = _block_count(nb)
     slopes, widths, shifts, firsts, words = _blocks(nb, nb)
     ts_cpu = dp.decode_ts_blocks(slopes, widths, words)
     f_cpu = dp.decode_f32_blocks(firsts, shifts, widths, words)
@@ -53,6 +74,19 @@ def test_b1_b2_bitwise_equal_to_plain(cuda, nb):
                                  widths.to(cuda), words.to(cuda)).cpu()
     assert torch.equal(ts_gpu, ts_cpu)
     assert torch.equal(f_gpu.view(torch.int32), f_cpu.view(torch.int32))
+
+
+def test_b1_b2_raise_on_misaligned_words(cuda):
+    slopes, widths, shifts, firsts, words = (
+        t.to(cuda) for t in _blocks(9, 0))
+    # a view one word into a buffer: contiguous, 4 bytes off a 16-byte line
+    buf = torch.zeros(9 * 128 + 1, dtype=torch.int32, device=cuda)
+    view = buf[1:].view(9, 128)
+    view.copy_(words)
+    with pytest.raises(ValueError, match="words must be 16-byte aligned"):
+        dp.decode_ts_blocks(slopes, widths, view)
+    with pytest.raises(ValueError, match="words must be 16-byte aligned"):
+        dp.decode_f32_blocks(firsts, shifts, widths, view)
 
 
 def _packed(n_series, n, seed, reset_at=None, gauge=False):
