@@ -20,13 +20,29 @@ checks it, phase by phase; any failed phase exits non-zero:
    pad select and cast, B4);
 5. answers: the main results have the expected shape and finite values,
    agree with the plain path, and a small store answers the same on the
-   card as on the CPU;
+   card as on the CPU, for the four queries and one query of every other
+   family the port serves (``FAMILY_QUERIES``);
 6. long ranges: a second store of ``--long-series`` series with
    ``--long-samples`` samples each (48 h at 10 s, so NB = 256 blocks and
    S = 32,768 samples a series), queried over the 48 h at a 60 s step
    (K = 2,881) with ``sum(rate[5m]) by (_ns_)``, ``sum(count_over_time[5m])
    by (job)`` and ``increase[1h]``; B3 and B4 must launch, match their plain
-   versions on the card, and the answers must agree with the plain path.
+   versions on the card, and the answers must agree with the plain path;
+7. the rest of PromQL on the phase-2 store (not ingested again): launch
+   counts set to 0, then ``PROMQL_QUERIES`` (instant selectors, min/max and
+   stddev over time, topk, irate times a number, quantile_over_time, a
+   one-to-one join) and ``MAPPED_QUERIES`` (aggregations over an operator
+   or an instant function) cold once and warm three times, counts and peak
+   device memory read back; B1/B2 and B3 must have launched; the answers'
+   shapes, finiteness, the join against its two sides and each mapped
+   query against its plain form are checked; max_over_time's and the
+   instant selector's answers are held against plain decode plus the
+   float64 function, with B1 and B2 bitwise against their plain versions
+   on every chunk the engine cuts, and the join's two sides against B3's
+   plain version; a warm time of every range function and the instant
+   selector over one namespace (``PER_FUNCTION``); and the time of each
+   part of one engine-sized decode chunk of max_over_time and of the
+   instant selector (B1, B2, ``assemble``'s glue, the float64 function).
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -62,6 +78,63 @@ QUERIES = (
      "avg_over_time"),
     ("sum(count_over_time(http_requests_total[5m])) by (job)",
      "count_over_time"),
+)
+
+M = "http_requests_total"
+# one query of every family the port serves beyond QUERIES: each range
+# function, the instant selector, each aggregation, instant functions,
+# operators with a number, a join and the set operators
+FAMILY_QUERIES = tuple(f"{fn}({M}[5m])" for fn in (
+    "min_over_time", "max_over_time", "stddev_over_time", "stdvar_over_time",
+    "zscore", "last_over_time", "present_over_time", "changes", "resets",
+    "irate", "idelta", "deriv", "sum_over_time", "delta")) + (
+    f"timestamp({M})", f"predict_linear({M}[5m], 600)",
+    f"quantile_over_time(0.9, {M}[5m])", f"holt_winters({M}[5m], 0.5, 0.5)",
+    M, f"{M} offset 5m", f"sum({M}) by (job)", f"group({M}) by (_ns_)",
+    f"stddev(rate({M}[5m])) by (job)", f"stdvar(irate({M}[5m]))",
+    f"topk(3, rate({M}[5m]))", f"bottomk(2, {M}) by (job)",
+    f"quantile(0.9, rate({M}[5m])) by (job)",
+    f"abs(deriv({M}[5m]))", f"month(timestamp({M}))", f"{M} % 7 > bool 3",
+    f"2 ^ (irate({M}[5m]) / 2)",
+    f"sum(rate({M}[5m])) by (_ns_) / on (_ns_) sum(rate({M}[5m] offset 1m)) "
+    f"by (_ns_)",
+    f"rate({M}[5m]) * on (job) group_left sum(rate({M}[5m])) by (job)",
+    f"rate({M}[5m]) > 1 and on (job) {M}{{_ns_=\"App-1\"}}",
+    f"irate({M}[5m]) > 1 or rate({M}[5m])",
+    f"{M} unless {M} > 5000",
+)
+# every range function and the instant selector over one namespace's
+# 10 k series (phase 7: a warm time for each new path)
+_APP0 = f'{M}{{_ns_="App-0"}}'
+PER_FUNCTION = {
+    **{fn: f"{fn}({_APP0}[5m])" for fn in (
+        "min_over_time", "max_over_time", "stddev_over_time",
+        "stdvar_over_time", "zscore", "last_over_time", "present_over_time",
+        "changes", "resets", "irate", "idelta", "deriv")},
+    "predict_linear": f"predict_linear({_APP0}[5m], 600)",
+    "quantile_over_time": f"quantile_over_time(0.5, {_APP0}[5m])",
+    "holt_winters": f"holt_winters({_APP0}[5m], 0.5, 0.5)",
+    "timestamp": f"timestamp({_APP0})",
+    "instant selector": _APP0,
+}
+# the new phase's full-width queries (phase 7)
+PROMQL_QUERIES = (
+    f"sum({M}) by (job)",
+    f'{M}{{_ns_="App-0"}}',
+    f"max(max_over_time({M}[5m])) by (_ns_)",
+    f"avg(stddev_over_time({M}[5m])) by (job)",
+    f"topk(10, rate({M}[5m]))",
+    f"sum(irate({M}[5m])) by (_ns_) * 60",
+    f'quantile_over_time(0.9, {M}{{_ns_="App-0"}}[5m])',
+    f'sum(rate({M}{{job="job-0"}}[5m])) by (_ns_) / sum(rate({M}[5m])) '
+    f"by (_ns_)",
+)
+# aggregations over an operator or an instant function (phase 7), each with
+# the query it must equal times a factor: their group ids come from the
+# leaf's cached keys, so a warm one costs about what its plain form does
+MAPPED_QUERIES = (
+    (f"sum(rate({M}[5m]) * 8) by (job)", f"sum(rate({M}[5m])) by (job)", 8.0),
+    (f"sum(abs({M})) by (job)", PROMQL_QUERIES[0], 1.0),
 )
 
 
@@ -402,23 +475,46 @@ def plain_b3(packed, steps, window: int, kind: str):
         for a in range(0, P, rows)])
 
 
+def lowered(eng, q: str, start: int, end: int):
+    """(the lowered leaf of query ``q``, the engine's aggregation above it
+    or None), as the engine ``eng`` evaluates them."""
+    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query import logical as lp
+
+    plan = parse_query(q, TimeStepParams(start, 60, end))
+    if not isinstance(plan, lp.Aggregate):
+        return lower_plan(plan), None
+    return lower_plan(plan.vector), eng._aggregation(plan)
+
+
+def leaf_steps(low):
+    """A lowered leaf's steps as the engine hands them to the card: int32
+    ms relative to the start of its data range, on the host."""
+    import torch
+
+    from filodb_tpu_torch.query.exec.transformers import steps_array
+
+    rel = steps_array(low.start, low.step, low.end) - low.offset \
+        - low.chunk_range[0]
+    return torch.from_numpy(rel.astype(np.int32))
+
+
 def agrees_with_plain(svc, q: str, start: int, end: int, got,
                       per_series) -> bool:
     """A query's answer against the plain per-series results [n, K],
     aggregated as the engine aggregates them."""
-    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
-    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
     from filodb_tpu_torch.query.engine.aggregations import aggregate
 
     eng = svc.engine
-    low = lower_plan(parse_query(q, TimeStepParams(start, 60, end)))
+    low, amr = lowered(eng, q, start, end)
     batch = eng._batch(svc.memstore, low)
-    if low.agg is None:
-        want, keys = per_series.cpu().double().numpy(), batch.out_keys
+    leaf_keys = batch.keys if low.keep_metric else batch.out_keys
+    if amr is None:
+        want, keys = per_series.cpu().double().numpy(), leaf_keys
     else:
-        gids, keys = eng._group_ids(batch, low)
-        want = aggregate(low.agg, per_series, gids,
-                         len(keys)).cpu().numpy()
+        gids, keys = eng._group_ids(leaf_keys, amr)
+        want = aggregate(amr.op, per_series, gids, len(keys)).cpu().numpy()
     order = {str(k): i for i, k in enumerate(keys)}
     idx = [order[str(k)] for k in got.keys]
     return got.values.shape[1] == want.shape[1] and np.allclose(
@@ -432,8 +528,7 @@ def long_range(dev, args, reps: int) -> dict:
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows, lower_plan
-    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import BLOCK, assemble
 
@@ -469,7 +564,7 @@ def long_range(dev, args, reps: int) -> dict:
     out = {"series": args.long_series, "samples": args.long_samples,
            "K": K, "kernels": []}
     for q, fn, w in LONG_QUERIES:
-        low = lower_plan(parse_query(q, TimeStepParams(start, 60, end)))
+        low, _ = lowered(eng, q, start, end)
         batch = eng._batch(store, low)
         packed = batch.packed
         P, NB = packed[0].shape
@@ -533,7 +628,7 @@ def small_store_check(seed: int, dev) -> None:
     store = MemStore(4, 1, 400)
     ingest(store, 256, 720, seed + 1)
     gpu, cpu = QueryService(store, dev), QueryService(store, device="cpu")
-    for q, _ in QUERIES:
+    for q in [q for q, _ in QUERIES] + list(FAMILY_QUERIES):
         a = gpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
         b = cpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
         ka = [str(k) for k in a.result.keys]
@@ -542,19 +637,231 @@ def small_store_check(seed: int, dev) -> None:
                                        rtol=2e-5, atol=1e-6,
                                        equal_nan=True):
             raise AssertionError(f"card and CPU disagree on {q}")
-    log("  small store: card and CPU answers agree (rtol 2e-5, atol 1e-6)")
+    log(f"  small store: card and CPU answers agree on "
+        f"{len(QUERIES) + len(FAMILY_QUERIES)} queries (rtol 2e-5, atol "
+        f"1e-6)")
 
 
-def run(dev, args) -> list[dict]:
-    """Phases 2-5 on ``dev``; returns the kernels' numbers."""
+def decoded_against_plain(svc, q: str, start: int, end: int, got) -> dict:
+    """Query ``q`` (an aggregation of one leaf that runs in float64 on
+    decoded rows) against the plain path, chunk by chunk as the engine
+    cuts its batch (``decode_rows``, the last chunk short): B1 and B2 must
+    equal their plain versions bit for bit on every chunk, and the answer
+    must equal plain decode plus the float64 function, aggregated as the
+    engine aggregates."""
     import torch
 
+    from filodb_tpu_torch.device import EXACT_DTYPE
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK, fill_gaps
+    from filodb_tpu_torch.query.engine.kernels import range_eval_masked
+
+    low, _ = lowered(svc.engine, q, start, end)
+    batch = svc.engine._batch(svc.memstore, low)
+    n = len(batch.keys)
+    rows = min(decode_rows(batch.packed[0].shape[1] * BLOCK, low.fn), n)
+    lo_ms, hi_ms = low.chunk_range
+    steps = leaf_steps(low).to(svc.device)
+    outs = []
+    for a in range(0, n, rows):
+        part = tuple(t[a : min(a + rows, n)] for t in batch.packed)
+        (n1, _, b1, p1, *_), (n2, _, b2, p2, *_) = decode_cases(part)
+        off, vals = p1(), p2()
+        for name, run, want in ((n1, b1, off), (n2, b2, vals)):
+            if not compare(run(), want, 0, 0, bitwise=True)[1]:
+                raise AssertionError(f"{name} differs from its plain version "
+                                     f"on rows {a}.. of {q}")
+        ts, v, valid = fill_gaps(part[0], part[8], off, vals)
+        valid = valid & (ts >= 0) & (ts <= hi_ms - lo_ms)
+        outs.append(range_eval_masked(low.fn, ts, v, valid, steps,
+                                      low.window, dtype=EXACT_DTYPE))
+    if not agrees_with_plain(svc, q, start, end, got, torch.cat(outs)):
+        raise AssertionError(f"{q} disagrees with plain decode and the "
+                             f"float64 function")
+    chunks = -(-n // rows)
+    return {"series": n, "rows": rows, "chunks": chunks,
+            "last_rows": n - (chunks - 1) * rows}
+
+
+def rate_against_plain(svc, q: str, start: int, end: int, got) -> dict:
+    """Query ``q`` (an aggregation of one rate leaf) against the plain path:
+    B3 must match its plain version on the leaf's batch, and the answer the
+    plain rates aggregated as the engine aggregates."""
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+
+    low, _ = lowered(svc.engine, q, start, end)
+    batch = svc.engine._batch(svc.memstore, low)
+    host = leaf_steps(low)
+    steps = host.to(svc.device)
+    got_b3 = ck.fused_decode_rate(batch.packed, steps, low.window, low.fn,
+                                  True, ck.steps_in_flight(host, low.window))
+    want = plain_b3(batch.packed, steps, low.window, low.fn)
+    err, ok = compare(got_b3, want, 1e-6, 1e-6)
+    if not ok:
+        raise AssertionError(f"fused_decode_rate off by {err} on {q}")
+    if not agrees_with_plain(svc, q, start, end, got, want[:len(batch.keys)]):
+        raise AssertionError(f"{q} disagrees with the plain path")
+    P, NB = batch.packed[0].shape
+    return {"shape": f"P={P} NB={NB} K={steps.numel()}", "max_abs_err": err}
+
+
+def decoded_split(svc, low, rows: int, reps: int) -> dict:
+    """CUDA-event ms of each part of one decode chunk of ``rows`` series
+    of a lowered leaf that runs in float64 on decoded rows: B1, B2,
+    ``assemble``'s glue, the function, and the whole chunk."""
+    from filodb_tpu_torch.parallel.mesh_engine import _decoded_fn
+    from filodb_tpu_torch.query.engine.device_batch import fill_gaps
+
+    batch = svc.engine._batch(svc.memstore, low)
+    part = tuple(t[:rows] for t in batch.packed)
+    lo_ms, hi_ms = low.chunk_range
+    steps = leaf_steps(low).to(svc.device)
+    (_, _, b1, *_), (_, _, b2, *_) = decode_cases(part)
+
+    def glue(off, vals):
+        ts, v, valid = fill_gaps(part[0], part[8], off, vals)
+        return ts, v, valid & (ts >= 0) & (ts <= hi_ms - lo_ms)
+
+    def fn(ts, v, valid):
+        return _decoded_fn(low, ts, v, valid, steps, 0)
+
+    off, vals = b1(), b2()
+    decoded = glue(off, vals)
+    parts = {"B1": b1, "B2": b2, "assemble_glue": lambda: glue(off, vals),
+             low.fn: lambda: fn(*decoded)}
+    out = {k: cuda_time_ms(f, reps) for k, f in parts.items()}
+    out["sum_of_parts"] = sum(out.values())
+    out["chunk"] = cuda_time_ms(lambda: fn(*glue(b1(), b2())), reps)
+    out["rows"], out["S"] = int(part[0].shape[0]), int(decoded[0].shape[1])
+    return out
+
+
+def promql_phase(svc, args) -> dict:
+    """Phase 7: the rest of PromQL on the phase-2 store, at full width."""
+    import torch
+
+    from filodb_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    log("phase 7: the rest of PromQL on the phase-2 store (query_range, "
+        "2 h at 60 s):")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    results, timings = {}, []
+    for q in PROMQL_QUERIES + tuple(m for m, _, _ in MAPPED_QUERIES):
+        t = time.perf_counter()
+        r = svc.query_range(q, start, 60, end)
+        cold = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(3):
+            t = time.perf_counter()
+            r = svc.query_range(q, start, 60, end)
+            warm.append((time.perf_counter() - t) * 1000.0)
+        results[q] = r.result
+        timings.append(dict(query=q, cold_ms=cold,
+                            warm_p50_ms=float(np.median(warm)),
+                            rows=r.result.num_series))
+        log(f"  {q}: cold {cold:.1f} ms, warm p50 {np.median(warm):.2f} "
+            f"ms, {r.result.num_series} rows")
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in the phase: {launches}; peak device memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated)")
+    if svc.device.type == "cuda" and not (
+            launches["decode_ts_page"] and launches["decode_f32_page"]
+            and launches["fused_decode_rate"]):
+        raise AssertionError("phase 7 did not run through B1/B2 and B3")
+
+    # answers: shapes, finite where data exist, the join against its sides
+    n_ns, n_job = min(100, args.series), min(10, args.series)
+    app0 = len(range(0, args.series, 100))
+    want_shape = {PROMQL_QUERIES[0]: (n_job, 121),
+                  PROMQL_QUERIES[1]: (app0, 121),
+                  PROMQL_QUERIES[2]: (n_ns, 121),
+                  PROMQL_QUERIES[3]: (n_job, 121),
+                  PROMQL_QUERIES[5]: (n_ns, 121),
+                  PROMQL_QUERIES[6]: (app0, 121)}
+    for q, shape in want_shape.items():
+        v = results[q].values
+        if v.shape != shape or not np.isfinite(v[:, 1:]).all():
+            raise AssertionError(f"{q}: shape {v.shape}, want {shape}, "
+                                 f"finite after the first step")
+    if not all(dict(k.labels).get("_metric_") == M
+               for k in results[PROMQL_QUERIES[1]].keys):
+        raise AssertionError("the bare selector lost its metric label")
+    top = results[PROMQL_QUERIES[4]].values
+    if not (np.isfinite(top[:, 1:]).sum(0) == min(10, args.series)).all():
+        raise AssertionError("topk(10) does not give 10 series a step")
+    q8 = PROMQL_QUERIES[7]
+    lhs_q, rhs_q = q8.split(" / ")
+    lhs = svc.query_range(lhs_q, start, 60, end).result
+    rhs = svc.query_range(rhs_q, start, 60, end).result
+    by_ns = {str(k): i for i, k in enumerate(rhs.keys)}
+    quot = lhs.values / rhs.values[[by_ns[str(k)] for k in lhs.keys]]
+    got = results[q8]
+    order = {str(k): i for i, k in enumerate(got.keys)}
+    if sorted(order) != sorted(str(k) for k in lhs.keys) \
+            or len(order) != min(10, args.series) \
+            or not np.allclose(got.values[[order[str(k)] for k in lhs.keys]],
+                               quot, rtol=1e-12, atol=0, equal_nan=True):
+        raise AssertionError("the join differs from the quotient of its "
+                             "sides")
+    for q, base, factor in MAPPED_QUERIES:
+        base_r = svc.query_range(base, start, 60, end).result
+        if [str(k) for k in results[q].keys] != [str(k) for k in base_r.keys] \
+                or not np.allclose(results[q].values, factor * base_r.values,
+                                   rtol=1e-12, atol=0, equal_nan=True):
+            raise AssertionError(f"{q} differs from {factor} x {base}")
+    log(f"  answers: shapes, finite values, topk's 10 a step, the bare "
+        f"selector's metric label, the join ({len(order)} namespaces, "
+        f"equal to its sides' quotient) and the aggregations over an "
+        f"operator or function (equal to their plain forms) checked")
+
+    # against the plain path at the shapes the engine gave the kernels
+    plain = {q: decoded_against_plain(svc, q, start, end, results[q])
+             for q in (PROMQL_QUERIES[2], PROMQL_QUERIES[0])}
+    for q, r in plain.items():
+        log(f"  {q}: B1 and B2 bitwise equal to plain on {r['chunks']} "
+            f"chunks of {r['rows']} rows (last {r['last_rows']}); answer "
+            f"equal to plain decode + float64 function (rtol 1e-5)")
+    for side, r in ((lhs_q, lhs), (rhs_q, rhs)):
+        plain[side] = rate_against_plain(svc, side, start, end, r)
+        log(f"  {side}: B3 at {plain[side]['shape']} max abs err "
+            f"{plain[side]['max_abs_err']:g} (rtol 1e-6, atol 1e-6); answer "
+            f"equal to the plain path (rtol 1e-5)")
+
+    per_fn = {}
+    for name, q in PER_FUNCTION.items():
+        svc.query_range(q, start, 60, end)
+        per_fn[name] = wall_ms(lambda: svc.query_range(q, start, 60, end))
+    log(f"  warm ms a function over App-0's {app0} series: "
+        f"{json.dumps(per_fn)}")
+
+    splits = {}
+    for q in (PROMQL_QUERIES[2], PROMQL_QUERIES[0]):
+        low, _ = lowered(svc.engine, q, start, end)
+        split = decoded_split(svc, low, plain[q]["rows"], reps=5)
+        splits[low.fn] = split
+        log(f"  {low.fn} chunk split at the engine's rows (ms, CUDA "
+            f"events): {json.dumps(split)}")
+    # the checks' and the split's launches are not counted
+    _build.LAUNCHES.update(launches)
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 7 took {seconds:.1f} s")
+    return {"queries": timings, "launches": launches,
+            "peak_bytes": int(peak), "plain_checks": plain,
+            "per_function_ms": per_fn, "splits": splits, "seconds": seconds}
+
+
+def run(dev, args):
+    """Phases 2-5 on ``dev``; returns the kernels' numbers and the
+    phase-2 store's service (phase 7 queries it again)."""
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.http.promjson import matrix_json
-    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
-    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
     from filodb_tpu_torch.query.engine.aggregations import aggregate
 
     t = time.perf_counter()
@@ -604,8 +911,8 @@ def run(dev, args) -> list[dict]:
         raise AssertionError(f"sum(rate) by (_ns_): shape {r.values.shape}")
     eng = svc.engine
     batch = max(eng._batches.values(), key=lambda b: len(b.keys))
-    gids, gkeys = eng._group_ids(
-        batch, lower_plan(parse_query(q0, TimeStepParams(start, 60, end))))
+    gids, gkeys = eng._group_ids(batch.out_keys,
+                                 lowered(eng, q0, start, end)[1])
     plain = aggregate("sum", rate_plain, gids, len(gkeys)).cpu().numpy()
     order = {str(k): i for i, k in enumerate(gkeys)}
     idx = [order[str(k)] for k in r.keys]
@@ -620,7 +927,7 @@ def run(dev, args) -> list[dict]:
     log(f"  sum(rate) by (_ns_): {n_ns} x 121 finite, equal to the plain "
         f"path (rtol 1e-5)")
     small_store_check(args.seed, dev)
-    return kernels
+    return kernels, svc
 
 
 def main() -> int:
@@ -653,10 +960,15 @@ def main() -> int:
         f", CUDA {torch.version.cuda}")
     log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
         f"process a source)")
-    kernels = run(torch.device("cuda"), args)
+    kernels, svc = run(torch.device("cuda"), args)
     torch.cuda.empty_cache()
     longs = long_range(torch.device("cuda"), args, reps=3)
     print(json.dumps({"long_range": longs}))
+    torch.cuda.empty_cache()
+    promql = promql_phase(svc, args)
+    print(json.dumps({"promql": promql}))
+    for kern in kernels:
+        kern["launches_phase7"] = promql["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

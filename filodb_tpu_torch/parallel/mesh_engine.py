@@ -1,23 +1,32 @@
-"""The one-GPU query engine: a PromQL range plan lowered onto the kernels.
+"""The one-GPU query engine: PromQL plans over scalar series on the card.
 
-Port of ``filodb_tpu/parallel/mesh_engine.py`` for the plan family of its
-core lowering (``_lower_plan`` / ``_lower_periodic``)::
+Port of ``filodb_tpu/parallel/mesh_engine.py`` and, for the plans that
+engine hands to the exec engine, of the exec engine's transformers. A leaf
+is lowered (``lower_plan``) from
 
-    agg?( range_fn( selector[w] offset o ) ) by/without (labels)
+    range_fn(selector[w] offset o)   every range function of
+                                     ``query/engine/kernels.py`` plus
+                                     quantile_over_time and holt_winters
+    selector offset o                the instant selector: the last sample
+                                     within the staleness lookback
 
-with ``range_fn`` one of rate, increase, delta, sum_over_time,
-count_over_time, avg_over_time and ``agg`` one of sum, avg, min, max,
-count or none. Any other plan raises ``UnsupportedQuery`` naming its shape;
-nothing answers it some other way.
+and ``execute`` walks everything above the leaves: aggregations (sum, avg,
+min, max, count, group, stddev, stdvar, topk, bottomk, quantile), instant
+functions, operators with a fixed scalar, and binary joins and set
+operators of two vectors. Any other plan raises ``UnsupportedQuery``
+naming its shape; nothing answers it some other way.
 
 A query selects partitions shard by shard, packs their page blocks
 (``device_batch.pack_blocks``) and uploads the packed pages only. On the
 card:
 
 - rate / increase / delta run kernel B3 straight from the packed pages;
-- sum / count / avg_over_time decode through B1 and B2 (``assemble``) and
-  sum windows with B4, over the values and over the validity mask;
-- the group reduce is plain torch (``aggregations.aggregate``).
+- every other range function and the instant selector decode through B1
+  and B2 (``assemble``) in chunks of rows; sum / count / avg /
+  present_over_time sum windows with B4 over the values and the validity
+  mask, the rest run the plain ``range_eval_masked`` family in float64;
+- aggregations, instant functions and operators are plain torch on the
+  card (``query/exec``); joins match labels on the host.
 
 Precision gate (the reference's ``F32_SAFE_MAX``): float32 keeps window
 differences exact only below 2^20, so a rate / increase / delta leaf whose
@@ -39,7 +48,7 @@ import torch
 from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.device import EXACT_DTYPE
 from filodb_tpu_torch.query import logical as lp
-from filodb_tpu_torch.query.engine.aggregations import AGG_OPS, aggregate
+from filodb_tpu_torch.query.engine.aggregations import AGG_OPS
 from filodb_tpu_torch.query.engine.cuda_kernels import (
     TS_PAD,
     fused_decode_rate,
@@ -52,21 +61,59 @@ from filodb_tpu_torch.query.engine.device_batch import (
     pack_blocks,
     to_device,
 )
-from filodb_tpu_torch.query.engine.kernels import RANGE_FNS, range_eval_masked
+from filodb_tpu_torch.query.engine.instantfns import INSTANT_FNS
+from filodb_tpu_torch.query.engine.kernels import (
+    RANGE_FNS,
+    RATE_FNS,
+    holt_winters_masked,
+    quantile_over_time_masked,
+    range_eval_masked,
+)
+from filodb_tpu_torch.query.exec.binaryjoin import (
+    SET_OPS,
+    binary_join,
+    set_operator,
+)
+from filodb_tpu_torch.query.exec.transformers import (
+    AggregateMapReduce,
+    InstantVectorFunctionMapper,
+    ScalarOperationMapper,
+    steps_array,
+)
 from filodb_tpu_torch.query.model import QueryStats, StepMatrix
 
 F32_SAFE_MAX = float(1 << 20)
-RATE_FNS = ("rate", "increase", "delta")
-# samples decoded at once on the B4 path: bounds the decoded [rows, S]
-# temporaries (about 25 bytes a sample) whatever the series' length
-_DECODE_SAMPLES = 1 << 27
+# range functions whose windows B4 sums (values and validity)
+WINDOW_SUM_FNS = ("sum_over_time", "count_over_time", "avg_over_time",
+                  "present_over_time")
+# every range function a leaf serves, with its number of parameters
+SERVED_FNS = {**{f: 0 for f in RANGE_FNS}, "predict_linear": 1,
+              "quantile_over_time": 1, "holt_winters": 2}
+STALENESS_MS = 300_000  # the instant selector's default lookback
+_RANK_AGGS = ("topk", "bottomk", "quantile")  # one scalar parameter
+# working set of a decode chunk: the decoded rows plus the temporaries of
+# the function evaluated on them stay near this whatever the row length
+_DECODE_BYTES = 25 << 27
+_QUANTILE_BLOCK = 16  # steps a quantile_over_time sort takes at once
 # uploaded batches kept (each up to ~9 GB at a million series)
 _BATCH_CACHE_CAP = 4
 
 
-def decode_rows(S: int) -> int:
-    """Series decoded at once on the B4 path for rows of S samples."""
-    return max(1, _DECODE_SAMPLES // max(S, 1))
+def decode_rows(S: int, fn: str = "count_over_time") -> int:
+    """Series decoded at once for rows of S samples, from the bytes a
+    sample of ``fn``'s working set takes: about 25 on the B4 path, about 96
+    for the float64 temporaries of ``range_eval_masked``, plus 4 a level of
+    min/max's float32 sparse table and 21 a step of quantile_over_time's
+    block sort (float32 keys, int64 indices, mask)."""
+    if fn in WINDOW_SUM_FNS:
+        per = 25
+    elif fn in ("min_over_time", "max_over_time"):
+        per = 96 + 4 * max(S.bit_length(), 1)
+    elif fn == "quantile_over_time":
+        per = 96 + 21 * _QUANTILE_BLOCK
+    else:
+        per = 96
+    return max(1, _DECODE_BYTES // (per * max(S, 1)))
 
 
 class UnsupportedQuery(ValueError):
@@ -82,9 +129,8 @@ class Lowered:
     window: int
     fn: str
     offset: int
-    agg: str | None = None
-    by: tuple = ()
-    without: tuple = ()
+    params: tuple = ()
+    keep_metric: bool = False  # the instant selector keeps the metric
 
     @property
     def chunk_range(self) -> tuple[int, int]:
@@ -98,46 +144,46 @@ def _shape(plan) -> str:
     return f"{name}({detail})" if detail else name
 
 
-def lower_plan(plan) -> Lowered:
-    """Recognize the slice's plan family, or raise ``UnsupportedQuery``."""
-    if isinstance(plan, lp.Aggregate):
-        if plan.op not in AGG_OPS or plan.params:
-            raise UnsupportedQuery(
-                f"aggregation {plan.op}"
-                f"{'(' + ', '.join(map(str, plan.params)) + ')' if plan.params else ''}"
-                f" is not served by this slice (served: {', '.join(AGG_OPS)})")
-        inner = _lower_periodic(plan.vector)
-        return Lowered(*inner[:7], plan.op, tuple(plan.by),
-                       tuple(plan.without))
-    return Lowered(*_lower_periodic(plan))
+def _is_number(x) -> bool:
+    return isinstance(x, (int, float))
 
 
-def _lower_periodic(plan) -> tuple:
-    if not isinstance(plan, lp.PeriodicSeriesWithWindowing):
-        raise UnsupportedQuery(
-            f"plan shape {_shape(plan)} is not served by this slice: it "
-            f"serves agg(range_fn(selector[w] offset o)) by/without (...) "
-            f"with range_fn in {', '.join(RANGE_FNS)}")
-    if plan.function not in RANGE_FNS or plan.params:
-        raise UnsupportedQuery(
-            f"range function {plan.function} is not served by this slice "
-            f"(served: {', '.join(RANGE_FNS)})")
+def _raw_selector(plan) -> lp.RawSeries:
     if plan.at_ms is not None:
         raise UnsupportedQuery("the @ modifier is not served by this slice")
     raw = plan.raw
     if not isinstance(raw, lp.RawSeries) or raw.column is not None:
         raise UnsupportedQuery(
-            f"range function over {_shape(raw)} is not served by this slice")
-    # the parser records the selector offset on both nodes: one value
-    return (tuple(raw.filters), plan.start, plan.step, plan.end,
-            plan.window, plan.function, plan.offset or raw.offset)
+            f"{_shape(plan)} over {_shape(raw)} is not served by this slice")
+    return raw
 
 
-def steps_array(start: int, step: int, end: int) -> np.ndarray:
-    """Step timestamps [start, end] inclusive (epoch ms)."""
-    if step <= 0:
-        return np.array([end], dtype=np.int64)
-    return np.arange(start, end + 1, step, dtype=np.int64)
+def lower_plan(plan) -> Lowered:
+    """Lower a leaf (a range function or an instant selector over a raw
+    selector), or raise ``UnsupportedQuery``; ``execute`` evaluates what
+    stands above the leaves."""
+    if isinstance(plan, lp.PeriodicSeriesWithWindowing):
+        if SERVED_FNS.get(plan.function) != len(plan.params) \
+                or not all(_is_number(p) for p in plan.params):
+            raise UnsupportedQuery(
+                f"range function {plan.function}"
+                f"{tuple(plan.params) if plan.params else ''} is not "
+                f"served by this slice (served: {', '.join(SERVED_FNS)})")
+        raw = _raw_selector(plan)
+        # the parser records the selector offset on both nodes: one value
+        return Lowered(tuple(raw.filters), plan.start, plan.step, plan.end,
+                       plan.window, plan.function, plan.offset or raw.offset,
+                       tuple(float(p) for p in plan.params))
+    if isinstance(plan, lp.PeriodicSeries):
+        raw = _raw_selector(plan)
+        return Lowered(tuple(raw.filters), plan.start, plan.step, plan.end,
+                       raw.lookback or STALENESS_MS, "last_sample",
+                       plan.offset or raw.offset, keep_metric=True)
+    raise UnsupportedQuery(
+        f"plan shape {_shape(plan)} is not served by this slice: it serves "
+        f"range functions and instant selectors over scalar series, "
+        f"aggregations, instant functions, operators with a number and "
+        f"binary joins and set operators of vectors")
 
 
 @dataclass
@@ -159,9 +205,38 @@ class _Batch:
         return self._out_keys
 
 
+def _decoded_fn(low: Lowered, ts, vals, valid, steps: torch.Tensor,
+                flight: int) -> torch.Tensor:
+    """A non-rate range function on one decoded chunk, [rows, K]."""
+    if low.fn in WINDOW_SUM_FNS:
+        ts = torch.where(valid, ts, TS_PAD).contiguous()
+        cnt = windowed_sum(ts, valid.to(torch.float32), steps, low.window,
+                           flight)
+        nan = torch.tensor(float("nan"), device=cnt.device)
+        if low.fn == "count_over_time":
+            return torch.where(cnt > 0, cnt, nan)
+        if low.fn == "present_over_time":
+            return torch.where(cnt > 0, 1.0, nan)
+        s = windowed_sum(ts, torch.where(valid, vals, 0.0).contiguous(),
+                         steps, low.window, flight)
+        if low.fn == "avg_over_time":
+            s = s / cnt.clamp(min=1.0)
+        return torch.where(cnt > 0, s, nan)
+    if low.fn == "quantile_over_time":
+        return quantile_over_time_masked(low.params[0], ts, vals, valid,
+                                         steps, low.window, _QUANTILE_BLOCK,
+                                         dtype=EXACT_DTYPE)
+    if low.fn == "holt_winters":
+        return holt_winters_masked(*low.params, ts, vals, valid, steps,
+                                   low.window, dtype=EXACT_DTYPE)
+    return range_eval_masked(low.fn, ts, vals, valid, steps, low.window,
+                             extra=low.params[0] if low.params else 0.0,
+                             dtype=EXACT_DTYPE)
+
+
 class MeshQueryEngine:
-    """Runs lowered plans on one device; caches uploaded batches and group
-    ids across queries over unchanged data."""
+    """Runs plans on one device; caches uploaded batches and group ids
+    across queries over unchanged data."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -208,7 +283,7 @@ class MeshQueryEngine:
         self._batches[key] = batch
         return batch
 
-    # ---- evaluation --------------------------------------------------------
+    # ---- leaves ------------------------------------------------------------
 
     def _eval(self, batch: _Batch, low: Lowered, steps: torch.Tensor,
               flight: int, stats: QueryStats) -> torch.Tensor:
@@ -229,51 +304,23 @@ class MeshQueryEngine:
                                      low.window, counter=counter,
                                      dtype=EXACT_DTYPE)[:n]
         outs = []
-        rows = decode_rows(packed[0].shape[1] * BLOCK)
+        rows = decode_rows(packed[0].shape[1] * BLOCK, low.fn)
         for a in range(0, n, rows):
-            b = min(a + rows, n)
-            part = tuple(t[a:b] for t in packed)
+            part = tuple(t[a : min(a + rows, n)] for t in packed)
             ts, vals, valid = assemble(part, hi_ms - lo_ms)
-            ts = torch.where(valid, ts, TS_PAD).contiguous()
-            cnt = windowed_sum(ts, valid.to(torch.float32), steps,
-                               low.window, flight)
-            nan = torch.tensor(float("nan"), device=cnt.device)
-            if low.fn == "count_over_time":
-                outs.append(torch.where(cnt > 0, cnt, nan))
-                continue
-            s = windowed_sum(ts, torch.where(valid, vals, 0.0).contiguous(),
-                             steps, low.window, flight)
-            if low.fn == "avg_over_time":
-                s = s / cnt.clamp(min=1.0)
-            outs.append(torch.where(cnt > 0, s, nan))
-        return torch.cat(outs)
+            outs.append(_decoded_fn(low, ts, vals, valid, steps, flight))
+        out = torch.cat(outs)
+        if low.fn == "timestamp":
+            # seconds relative to the batch base → epoch seconds, in float64
+            out = out + lo_ms / 1000.0
+        return out
 
     @property
     def batch_bytes(self) -> int:
         """Device bytes of the packed pages the engine holds."""
         return sum(b.nbytes for b in self._batches.values())
 
-    def _group_ids(self, batch: _Batch, low: Lowered):
-        key = (id(batch), batch.version, low.by, low.without)
-        hit = self._groups.get(key)
-        if hit is not None and hit[0] is batch:
-            return hit[1], hit[2]
-        # first-occurrence order, metric label dropped first
-        uniq: dict = {}
-        gids = np.empty(len(batch.keys), np.int64)
-        for i, k in enumerate(batch.keys):
-            base = k.drop_metric()
-            gk = base.without(low.without) if low.without \
-                else base.only(low.by)
-            gids[i] = uniq.setdefault(gk, len(uniq))
-        out = (batch, torch.from_numpy(gids).to(self.device), list(uniq))
-        if len(self._groups) >= 16:
-            self._groups.pop(next(iter(self._groups)))
-        self._groups[key] = out
-        return out[1], out[2]
-
-    def execute(self, memstore, plan, stats: QueryStats) -> StepMatrix:
-        low = lower_plan(plan)
+    def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
         steps_ms = steps_array(low.start, low.step, low.end)
         batch = self._batch(memstore, low)
         if not batch.keys:
@@ -287,9 +334,73 @@ class MeshQueryEngine:
         flight = steps_in_flight(host_steps, low.window)
         res = self._eval(batch, low, host_steps.to(self.device), flight,
                          stats)
-        if low.agg is None:
-            return StepMatrix(list(batch.out_keys), res, steps_ms)
-        gids, gkeys = self._group_ids(batch, low)
-        out = aggregate(low.agg, res, gids, len(gkeys))
-        return StepMatrix(gkeys, out, steps_ms, pending_compact=True)
+        return StepMatrix(batch.keys if low.keep_metric else batch.out_keys,
+                          res, steps_ms, dropped_keys=batch.out_keys)
 
+    # ---- the plan above the leaves ------------------------------------------
+
+    def _group_ids(self, keys: list, amr: AggregateMapReduce):
+        """``amr.group_ids(keys)`` with the ids on the device, cached per
+        keys list: a cached batch hands out the same list every query, and
+        instant functions and operators above it hand on its metric-free
+        list (``StepMatrix.derive_without_metric``)."""
+        key = (id(keys), amr.by, amr.without)
+        hit = self._groups.get(key)
+        if hit is not None and hit[0] is keys:
+            return hit[1]
+        gids, gkeys = amr.group_ids(keys)
+        out = (torch.from_numpy(gids).to(self.device), gkeys)
+        if len(self._groups) >= 16:
+            self._groups.pop(next(iter(self._groups)))
+        self._groups[key] = (keys, out)
+        return out
+
+    def _aggregation(self, plan: lp.Aggregate) -> AggregateMapReduce:
+        params = tuple(plan.params)
+        if not (plan.op in AGG_OPS and not params
+                or plan.op in _RANK_AGGS and len(params) == 1
+                and _is_number(params[0])):
+            raise UnsupportedQuery(
+                f"aggregation {plan.op}"
+                f"{'(' + ', '.join(map(str, params)) + ')' if params else ''}"
+                f" is not served by this slice (served: "
+                f"{', '.join(AGG_OPS + _RANK_AGGS)}, the last three with a "
+                f"number)")
+        return AggregateMapReduce(plan.op, params, tuple(plan.by),
+                                  tuple(plan.without))
+
+    def execute(self, memstore, plan, stats: QueryStats) -> StepMatrix:
+        """Evaluate ``plan``: the one place that walks a plan tree."""
+        if isinstance(plan, lp.Aggregate):
+            amr = self._aggregation(plan)
+            data = self.execute(memstore, plan.vector, stats).settle()
+            return amr.apply(data, self._group_ids(data.keys, amr))
+        if isinstance(plan, lp.ApplyInstantFunction):
+            if plan.function not in INSTANT_FNS \
+                    or not all(_is_number(a) for a in plan.args):
+                raise UnsupportedQuery(
+                    f"instant function {plan.function} is not served by "
+                    f"this slice (served: {', '.join(INSTANT_FNS)}, with "
+                    f"number arguments)")
+            return InstantVectorFunctionMapper(plan.function, tuple(
+                plan.args)).apply(self.execute(memstore, plan.vector, stats))
+        if isinstance(plan, lp.ScalarVectorBinaryOperation):
+            sc = plan.scalar.value \
+                if isinstance(plan.scalar, lp.ScalarFixedDoublePlan) \
+                else plan.scalar
+            if not _is_number(sc):
+                raise UnsupportedQuery(
+                    f"operator {plan.op} with a {_shape(plan.scalar)} "
+                    f"scalar is not served by this slice (only a number)")
+            return ScalarOperationMapper(
+                plan.op, float(sc), plan.scalar_is_lhs, plan.bool_mode
+            ).apply(self.execute(memstore, plan.vector, stats))
+        if isinstance(plan, lp.BinaryJoin):
+            lhs = self.execute(memstore, plan.lhs, stats)
+            rhs = self.execute(memstore, plan.rhs, stats)
+            if plan.op in SET_OPS:
+                return set_operator(lhs, rhs, plan.op, plan.on,
+                                    plan.ignoring)
+            return binary_join(lhs, rhs, plan.op, plan.cardinality, plan.on,
+                               plan.ignoring, plan.include, plan.bool_mode)
+        return self._leaf(memstore, lower_plan(plan), stats)

@@ -1,17 +1,19 @@
 """Range functions over a masked series batch, in plain PyTorch.
 
-Port of ``filodb_tpu/query/engine/kernels.py::range_eval_masked``
-(``_range_impl``) for the six range functions of this slice: ``rate``,
-``increase``, ``delta``, ``sum_over_time``, ``count_over_time`` and
-``avg_over_time``. Same formulation: window bounds by binary search over
-sorted timestamps, windowed sums and counts as differences of exclusive
-prefix sums, first/last valid samples through prev/next-valid index maps,
-counter-reset correction as a cumulative sum of dropped previous values,
-and Prometheus ``extrapolatedRate``.
+Port of ``filodb_tpu/query/engine/kernels.py`` (``range_eval_masked`` /
+``_range_impl``, ``_linreg``, the sparse table ``_build_sparse`` /
+``_rmq``, ``quantile_over_time_masked`` and ``holt_winters_masked``). Same
+formulation: window bounds by binary search over sorted timestamps,
+windowed sums and counts as differences of exclusive prefix sums,
+first/last valid samples through prev/next-valid index maps (the rows have
+interior gaps), min/max by a sparse-table range query, counter-reset
+correction as a cumulative sum of dropped previous values, and Prometheus
+``extrapolatedRate``.
 
 It runs in the dtype the caller names: float32 as the plain version of the
-fused kernel B3 (``cuda_kernels.fused_decode_rate_plain``), float64 as the
-precise lane the engine's precision gate falls back to on the card.
+fused kernel B3 (``cuda_kernels.fused_decode_rate_plain``), float64 for
+every function the engine evaluates on decoded chunks and for the precise
+lane its precision gate falls back to.
 
 ``ts`` int32 [P, S] relative ms, non-decreasing (gap positions carry the
 previous real timestamp); ``vals`` [P, S]; ``valid`` bool [P, S];
@@ -22,8 +24,19 @@ from __future__ import annotations
 
 import torch
 
-RANGE_FNS = ("rate", "increase", "delta", "sum_over_time",
-             "count_over_time", "avg_over_time")
+RATE_FNS = ("rate", "increase", "delta")
+RANGE_FNS = (
+    "sum_over_time", "avg_over_time", "count_over_time", "min_over_time",
+    "max_over_time", "stddev_over_time", "stdvar_over_time",
+    "last_over_time", "present_over_time", "changes", "resets", "deriv",
+    "irate", "idelta", "rate", "increase", "delta", "last_sample",
+    "timestamp", "zscore", "predict_linear",
+)
+# functions that gather a window's last valid sample, and of those the
+# ones that gather its first too
+_LAST_FNS = ("zscore", "last_over_time", "last_sample", "timestamp",
+             "changes", "resets", "irate", "idelta") + RATE_FNS
+_FIRST_FNS = ("changes", "resets") + RATE_FNS
 
 
 def _eprefix(x: torch.Tensor) -> torch.Tensor:
@@ -38,6 +51,10 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
     return x / torch.tensor(d, dtype=x.dtype, device=x.device)
 
 
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return torch.gather(x, 1, idx)
+
+
 def window_bounds(ts: torch.Tensor, steps: torch.Tensor, window: int):
     """[lo, hi) sample bounds of (t-w, t] per series and step."""
     P = ts.shape[0]
@@ -47,59 +64,175 @@ def window_bounds(ts: torch.Tensor, steps: torch.Tensor, window: int):
     return lo, hi
 
 
+def _prev_valid_value(v: torch.Tensor, pv: torch.Tensor):
+    """(previous valid value, it exists) per position, skipping gaps
+    through the prev-valid index map ``pv``."""
+    pv_prev = torch.cat([torch.full_like(pv[:, :1], -1), pv[:, :-1]], 1)
+    return torch.gather(v, 1, pv_prev.clamp(min=0)), pv_prev >= 0
+
+
 def _counter_corrected(v: torch.Tensor, valid: torch.Tensor,
                        pv: torch.Tensor) -> torch.Tensor:
     """Values plus the cumulative reset correction; comparisons are against
-    the previous VALID sample (prev-valid index map ``pv``)."""
-    pv_prev = torch.cat([torch.full_like(pv[:, :1], -1), pv[:, :-1]], 1)
-    prev = torch.gather(v, 1, pv_prev.clamp(min=0))
-    dropped = (v < prev) & valid & (pv_prev >= 0)
+    the previous VALID sample."""
+    prev, prev_ok = _prev_valid_value(v, pv)
+    dropped = (v < prev) & valid & prev_ok
     return v + torch.cumsum(torch.where(dropped, prev, 0.0), 1)
+
+
+def _floor_log2(w: torch.Tensor) -> torch.Tensor:
+    """floor(log2 w) for integer w >= 1, exactly (the reference's
+    ``31 - clz``): frexp's exponent of the float64 value, exact below 2^53."""
+    return (torch.frexp(w.to(torch.float64)).exponent - 1).to(torch.int64)
+
+
+def _range_minmax(vals: torch.Tensor, valid: torch.Tensor, lo, hi,
+                  is_min: bool) -> torch.Tensor:
+    """Sparse-table range min/max over [lo, hi), in ``vals``'s own dtype
+    (the float32 page values: casting the answer is exact). Levels fill one
+    preallocated [L, P, S] table in place."""
+    P, S = vals.shape
+    ident = float("inf") if is_min else float("-inf")
+    op = torch.minimum if is_min else torch.maximum
+    levels = max(S.bit_length(), 1)
+    table = torch.empty((levels, P, S), dtype=vals.dtype, device=vals.device)
+    table[0] = torch.where(valid, vals, ident)
+    for j in range(1, levels):
+        half = 1 << (j - 1)
+        prev, cur = table[j - 1], table[j]
+        cur[:, : S - half] = op(prev[:, : S - half], prev[:, half:])
+        cur[:, S - half:] = prev[:, S - half:]  # op(x, identity) = x
+    w = hi - lo
+    j = _floor_log2(w.clamp(min=1))
+    p = torch.arange(P, device=vals.device)[:, None]
+    a = table[j, p, lo.clamp(max=S - 1)]
+    b = table[j, p, (hi - 2 ** j).clamp(0, S - 1)]
+    nan = torch.tensor(float("nan"), dtype=vals.dtype, device=vals.device)
+    return torch.where(w > 0, op(a, b), nan)
+
+
+def _linreg(ts, v, valid, lo, hi, steps, dtype, slope_only: bool,
+            horizon_s: float = 0.0) -> torch.Tensor:
+    """Least-squares slope / prediction over each window (deriv,
+    predict_linear), time centred at the step."""
+    t_s = torch.where(valid, ts, 0).to(dtype) / 1000.0
+    zero = torch.zeros((), dtype=dtype, device=ts.device)
+
+    def window_sum(x):
+        c = _eprefix(x)
+        return _gather(c, hi) - _gather(c, lo)
+
+    n = window_sum(valid.to(dtype))
+    St = window_sum(torch.where(valid, t_s, zero))
+    Sv = window_sum(v)
+    Stt = window_sum(torch.where(valid, t_s * t_s, zero))
+    Stv = window_sum(torch.where(valid, t_s * v, zero))
+    c = steps.to(device=ts.device, dtype=dtype)[None, :] / 1000.0
+    St_c = St - n * c
+    Stt_c = Stt - 2.0 * c * St + n * c * c
+    Stv_c = Stv - c * Sv
+    denom = n * Stt_c - St_c * St_c
+    slope = (n * Stv_c - St_c * Sv) / torch.where(denom == 0, 1.0, denom)
+    ok = (n >= 2) & (denom != 0)
+    nan = torch.tensor(float("nan"), dtype=dtype, device=ts.device)
+    if slope_only:
+        return torch.where(ok, slope, nan)
+    intercept = (Sv - slope * St_c) / n.clamp(min=1.0)
+    return torch.where(ok, intercept + slope * horizon_s, nan)
 
 
 def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
                       valid: torch.Tensor, steps: torch.Tensor, window: int,
-                      counter: bool = False,
+                      extra: float = 0.0, counter: bool = False,
                       dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """One range function at every step of every series; ``extra`` is
+    predict_linear's horizon in seconds."""
     if fn not in RANGE_FNS:
-        raise ValueError(f"range function {fn} is not in this slice")
+        raise ValueError(f"unknown range function {fn}")
+    raw_vals = vals
     vals = vals.to(dtype)
     v = torch.where(valid, vals, 0.0)
     S = ts.shape[1]
     lo, hi = window_bounds(ts, steps, window)
     vcount = _eprefix(valid.to(dtype))
-    n = torch.gather(vcount, 1, hi) - torch.gather(vcount, 1, lo)
+    n = _gather(vcount, hi) - _gather(vcount, lo)
     has1 = n >= 1
     nan = torch.tensor(float("nan"), dtype=dtype, device=ts.device)
+    if fn in _LAST_FNS:
+        sidx = torch.arange(S, dtype=torch.int64, device=ts.device)[None, :]
+        pv = torch.cummax(torch.where(valid, sidx, -1), 1).values
+        last_idx = _gather(pv, (hi - 1).clamp(min=0)).clamp(0, S - 1)
+    if fn in _FIRST_FNS:
+        nv = torch.flip(torch.cummin(torch.flip(
+            torch.where(valid, sidx, S), [1]), 1).values, [1])
+        first_idx = _gather(nv, lo.clamp(max=S - 1)).clamp(0, S - 1)
 
     if fn == "count_over_time":
         return torch.where(has1, n, nan)
+    if fn == "present_over_time":
+        return torch.where(has1, 1.0, nan).to(dtype)
     if fn in ("sum_over_time", "avg_over_time"):
         csum = _eprefix(v)
-        s = torch.gather(csum, 1, hi) - torch.gather(csum, 1, lo)
+        s = _gather(csum, hi) - _gather(csum, lo)
         if fn == "avg_over_time":
             return torch.where(has1, s / n.clamp(min=1.0), nan)
         return torch.where(has1, s, nan)
+    if fn in ("stddev_over_time", "stdvar_over_time", "zscore"):
+        csum, csum2 = _eprefix(v), _eprefix(v * v)
+        s = _gather(csum, hi) - _gather(csum, lo)
+        s2 = _gather(csum2, hi) - _gather(csum2, lo)
+        mean = s / n.clamp(min=1.0)
+        var = (s2 / n.clamp(min=1.0) - mean * mean).clamp(min=0.0)
+        if fn == "stdvar_over_time":
+            return torch.where(has1, var, nan)
+        sd = torch.sqrt(var)
+        if fn == "stddev_over_time":
+            return torch.where(has1, sd, nan)
+        return torch.where(has1, (_gather(v, last_idx) - mean) / sd, nan)
+    if fn in ("min_over_time", "max_over_time"):
+        out = _range_minmax(raw_vals, valid, lo, hi, fn == "min_over_time")
+        return torch.where(has1, out.to(dtype), nan)
+    if fn == "timestamp":
+        return torch.where(has1, _gather(ts, last_idx).to(dtype) / 1000.0,
+                           nan)
+    if fn in ("last_over_time", "last_sample"):
+        return torch.where(has1, _gather(v, last_idx), nan)
+    if fn in ("changes", "resets"):
+        prev, prev_ok = _prev_valid_value(v, pv)
+        moved = (v != prev) if fn == "changes" else (v < prev)
+        cind = _eprefix((moved & valid & prev_ok).to(dtype))
+        # indicators whose predecessor is in the window too: (first, hi)
+        start = torch.minimum(first_idx + 1, hi)
+        return torch.where(has1, _gather(cind, hi) - _gather(cind, start),
+                           nan)
+    if fn in ("irate", "idelta"):
+        i1 = last_idx
+        i0 = _gather(pv, (i1 - 1).clamp(min=0)).clamp(0, S - 1)
+        v1, v0 = _gather(v, i1), _gather(v, i0)
+        dv = v1 - v0
+        if fn == "irate":
+            t1 = _gather(ts, i1).to(dtype)
+            t0 = _gather(ts, i0).to(dtype)
+            dv = torch.where(v1 < v0, v1, dv)  # reset: rate from 0
+            dv = dv / ((t1 - t0) / 1000.0).clamp(min=1e-10)
+        return torch.where(n >= 2, dv, nan)
+    if fn in ("deriv", "predict_linear"):
+        return _linreg(ts, v, valid, lo, hi, steps, dtype,
+                       fn == "deriv", float(extra))
 
     # rate / increase / delta
-    sidx = torch.arange(S, dtype=torch.int64, device=ts.device)[None, :]
-    pv = torch.cummax(torch.where(valid, sidx, -1), 1).values
-    nv = torch.flip(torch.cummin(torch.flip(torch.where(valid, sidx, S), [1]),
-                                 1).values, [1])
-    first_idx = torch.gather(nv, 1, lo.clamp(max=S - 1)).clamp(0, S - 1)
-    last_idx = torch.gather(pv, 1, (hi - 1).clamp(min=0)).clamp(0, S - 1)
     if counter or fn in ("rate", "increase"):
         cv = torch.where(valid, _counter_corrected(v, valid, pv), 0.0)
     else:
         cv = v
-    v_first = torch.gather(cv, 1, first_idx)
-    v_last = torch.gather(cv, 1, last_idx)
-    raw_first = torch.gather(v, 1, first_idx)
+    v_first = _gather(cv, first_idx)
+    v_last = _gather(cv, last_idx)
+    raw_first = _gather(v, first_idx)
     # durations are differenced in integer ms, then divided: one rounding
     # (the reference divides each time by 1000 first, which in float32
     # costs an ulp of the absolute time in every duration)
-    t_first = torch.gather(ts, 1, first_idx).to(torch.int64)
-    t_last = torch.gather(ts, 1, last_idx).to(torch.int64)
+    t_first = _gather(ts, first_idx).to(torch.int64)
+    t_last = _gather(ts, last_idx).to(torch.int64)
     result = v_last - v_first
     st = steps.to(device=ts.device, dtype=torch.int64)[None, :]
     sampled = _div((t_last - t_first).to(dtype), 1000.0)
@@ -123,3 +256,63 @@ def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
         win_s = _div(torch.tensor(float(window), dtype=dtype), 1000.0)
         result = _div(result, win_s.item())
     return torch.where(n >= 2, result, nan)
+
+
+def quantile_over_time_masked(q: float, ts: torch.Tensor, vals: torch.Tensor,
+                              valid: torch.Tensor, steps: torch.Tensor,
+                              window: int, block: int = 16,
+                              dtype: torch.dtype = torch.float64
+                              ) -> torch.Tensor:
+    """φ-quantile of each window: a masked sort of [P, block, S] per block
+    of steps. The sort runs in ``vals``'s own dtype (same order as after
+    the exact cast); the interpolation in ``dtype``."""
+    lo, hi = window_bounds(ts, steps, window)
+    vcount = _eprefix(valid.to(dtype))
+    P, S = ts.shape
+    K = steps.shape[0]
+    s_idx = torch.arange(S, device=ts.device)[None, None, :]
+    inf = torch.tensor(float("inf"), dtype=vals.dtype, device=ts.device)
+    nan = torch.tensor(float("nan"), dtype=dtype, device=ts.device)
+    outs = []
+    for b in range(0, K, block):
+        lo_b, hi_b = lo[:, b : b + block], hi[:, b : b + block]
+        in_win = (s_idx >= lo_b[:, :, None]) & (s_idx < hi_b[:, :, None])
+        srt = torch.sort(torch.where(in_win & valid[:, None, :],
+                                     vals[:, None, :], inf), dim=-1).values
+        n = _gather(vcount, hi_b) - _gather(vcount, lo_b)
+        pos = q * (n - 1.0).clamp(min=0.0)
+        i0 = torch.floor(pos).to(torch.int64)
+        frac = pos - i0
+        a = torch.gather(srt, 2, i0[:, :, None])[:, :, 0].to(dtype)
+        bv = torch.gather(srt, 2, (i0 + 1).clamp(max=S - 1)[:, :, None]
+                          )[:, :, 0].to(dtype)
+        outs.append(torch.where(n > 0, a + (bv - a) * frac, nan))
+    return torch.cat(outs, 1) if outs else \
+        torch.empty((P, 0), dtype=dtype, device=ts.device)
+
+
+def holt_winters_masked(sf: float, tf: float, ts: torch.Tensor,
+                        vals: torch.Tensor, valid: torch.Tensor,
+                        steps: torch.Tensor, window: int,
+                        dtype: torch.dtype = torch.float64) -> torch.Tensor:
+    """Holt's double exponential smoothing over each window: a scan over
+    the S samples carrying (level, trend, count) per series and step."""
+    vals = vals.to(dtype)
+    lo, hi = window_bounds(ts, steps, window)
+    P, K = lo.shape
+    level = torch.zeros((P, K), dtype=dtype, device=ts.device)
+    trend = torch.zeros_like(level)
+    cnt = torch.zeros((P, K), dtype=torch.int32, device=ts.device)
+    for i in range(ts.shape[1]):
+        in_win = (lo <= i) & (hi > i) & valid[:, i : i + 1]
+        x = vals[:, i : i + 1]
+        sm_level = sf * x + (1 - sf) * (level + trend)
+        sm_trend = tf * (sm_level - level) + (1 - tf) * trend
+        nl = torch.where(cnt <= 1, x, sm_level)
+        nt = torch.where(cnt == 0, 0.0,
+                         torch.where(cnt == 1, x - level, sm_trend))
+        level = torch.where(in_win, nl, level)
+        trend = torch.where(in_win, nt, trend)
+        cnt = torch.where(in_win, cnt + 1, cnt)
+    nan = torch.tensor(float("nan"), dtype=dtype, device=ts.device)
+    return torch.where(cnt >= 2, level, nan)

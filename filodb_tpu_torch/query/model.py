@@ -4,8 +4,9 @@ Port of ``filodb_tpu/query/model.py`` (``RangeVectorKey``, ``StepMatrix``,
 ``QueryStats``, ``QueryResult``): a batch of series keys plus a dense
 [P, K] value matrix over shared step timestamps, NaN marking "no sample".
 The engine hands values over as a torch tensor on its device;
-``materialize`` brings them to host numpy (float64) and applies any
-compaction deferred while they lived on the device.
+``materialize`` applies any compaction deferred while they lived on the
+device (on the device, so only kept rows cross to the host) and brings them
+to host numpy (float64).
 """
 
 from __future__ import annotations
@@ -57,6 +58,10 @@ class StepMatrix:
     values: "np.ndarray | torch.Tensor"
     steps_ms: np.ndarray  # int64 [K] epoch millis
     pending_compact: bool = False
+    # ``keys`` with the metric label dropped, where known: a leaf hands over
+    # its batch's cached list, so mappers above it keep one keys list (and
+    # the group ids the engine caches for it) across queries
+    dropped_keys: list | None = None
 
     @property
     def num_series(self) -> int:
@@ -67,21 +72,65 @@ class StepMatrix:
         return len(self.steps_ms)
 
     @staticmethod
-    def empty(steps_ms: np.ndarray) -> "StepMatrix":
-        return StepMatrix([], np.zeros((0, len(steps_ms))), steps_ms)
+    def empty(steps_ms: np.ndarray | None = None) -> "StepMatrix":
+        steps = steps_ms if steps_ms is not None else np.array([], np.int64)
+        return StepMatrix([], np.zeros((0, len(steps))), steps)
+
+    def compact(self) -> "StepMatrix":
+        """Drop series with no sample at all, when next settled (``settle``,
+        ``materialize``), so values on the device cost no host sync here."""
+        self.pending_compact = True
+        return self
+
+    def derive(self, keys, values) -> "StepMatrix":
+        """A result whose rows still correspond 1:1 to this matrix's rows:
+        deferred compaction carries over and is decided on the new values."""
+        return StepMatrix(keys, values, self.steps_ms, self.pending_compact)
+
+    def derive_without_metric(self, values) -> "StepMatrix":
+        """``derive`` with the metric label dropped from every key; the
+        dropped keys are built at most once a matrix and handed on."""
+        if self.dropped_keys is None:
+            self.dropped_keys = [k.drop_metric() for k in self.keys]
+        out = self.derive(self.dropped_keys, values)
+        out.dropped_keys = self.dropped_keys
+        return out
+
+    @staticmethod
+    def concat(parts: list["StepMatrix"]) -> "StepMatrix":
+        parts = [p for p in parts if p.num_series > 0]
+        if len(parts) <= 1:
+            return parts[0] if parts else StepMatrix.empty()
+        dev = torch.as_tensor(parts[0].values).device
+        values = torch.cat([torch.as_tensor(p.values).to(dev, torch.float64)
+                            for p in parts])
+        return StepMatrix([k for p in parts for k in p.keys], values,
+                          parts[0].steps_ms,
+                          any(p.pending_compact for p in parts))
+
+    def settle(self) -> "StepMatrix":
+        """Apply deferred compaction now, in place (on the device for device
+        values: one host sync for the rows kept). Row-regrouping consumers
+        (aggregations, joins) settle first, as the reference's compacted
+        host matrices reach them."""
+        if not self.pending_compact:
+            return self
+        self.pending_compact = False
+        v = torch.as_tensor(self.values)
+        kept = (~torch.isnan(v).all(1)).nonzero().squeeze(1)
+        if kept.numel() < self.num_series:
+            self.keys = [self.keys[i] for i in kept.tolist()]
+            self.values = v[kept]
+            self.dropped_keys = None
+        return self
 
     def materialize(self) -> "StepMatrix":
-        """Host float64 values; drop all-NaN series if compaction was
-        asked for (an aggregate's empty groups)."""
+        """Host float64 values, after any deferred compaction (applied on
+        the device, so dropped rows never cross to the host)."""
+        self.settle()
         if isinstance(self.values, torch.Tensor):
             self.values = self.values.detach().to("cpu", torch.float64) \
                 .numpy()
-        if self.pending_compact:
-            self.pending_compact = False
-            keep = ~np.all(np.isnan(self.values), axis=1)
-            if not keep.all():
-                self.keys = [k for k, m in zip(self.keys, keep) if m]
-                self.values = self.values[keep]
         return self
 
 

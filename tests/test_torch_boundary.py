@@ -17,6 +17,8 @@ import filodb_tpu_torch
 from filodb_tpu_torch.coordinator.query_service import QueryService
 from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.http.promjson import matrix_json
+from filodb_tpu_torch.query.engine import instantfns
+from filodb_tpu_torch.query.exec import binaryjoin, transformers
 
 store = MemStore(num_shards=4, spread=1, max_chunk_size=64)
 rng = np.random.default_rng(0)
@@ -31,10 +33,15 @@ svc = QueryService(store, device="cpu")
 body = matrix_json(svc.query_range(
     "sum(rate(http_requests_total[5m])) by (_ns_)",
     1_600_000_600, 60, 1_600_001_400))
+joined = svc.query_range(
+    "abs(topk(2, max_over_time(http_requests_total[5m]))) / on (instance) "
+    "(http_requests_total * 2) or quantile(0.5, http_requests_total)",
+    1_600_000_600, 60, 1_600_001_400)
 loaded = sorted(m for m in sys.modules
                 if m == "jax" or m.startswith("jax.")
                 or m == "filodb_tpu" or m.startswith("filodb_tpu."))
-print(json.dumps({"series": len(body["data"]["result"]), "loaded": loaded}))
+print(json.dumps({"series": len(body["data"]["result"]),
+                  "joined": joined.result.num_series, "loaded": loaded}))
 """
 
 
@@ -44,4 +51,5 @@ def test_port_loads_no_jax_and_no_reference_module():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["series"] == 2
+    assert res["joined"] > 0
     assert res["loaded"] == []

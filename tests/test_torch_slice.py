@@ -1,9 +1,9 @@
 """Port parity for the slice as a whole: the same series go into a JAX
 store (device pages on, 4 shards, spread 1) and into the port's MemStore on
 the CPU; packed pages must be byte-equal, and ``query_range`` must agree
-with the JAX ``QueryService`` on both its engines (exec over device pages,
-and the default mesh engine) for every range function and aggregation form
-of the slice.
+with the JAX ``QueryService`` on both its engines, named explicitly (exec
+over device pages, and mesh, which falls back to exec for the shapes it
+does not lower), for the range functions and aggregation forms here.
 
 Keys compare as sorted strings; values with ``rtol=2e-5, atol=1e-6``,
 NaN equal. The data are integer counters and gauges, exact in float32,
@@ -201,7 +201,7 @@ def test_packed_pages_byte_equal(stores, selector, window):
 def services(stores):
     ref, port = stores
     return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            RefService(ref, DS, NUM_SHARDS, spread=1),
+            RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
             QueryService(port, device="cpu"))
 
 
@@ -254,12 +254,14 @@ def test_answer_renders_as_prometheus_matrix(services):
 
 
 @pytest.mark.parametrize("q", [
-    "topk(2, rate(http_requests_total[5m]))",
-    "quantile(0.9, rate(http_requests_total[5m]))",
-    "max_over_time(http_requests_total[5m])",
-    "http_requests_total",
-    "abs(rate(http_requests_total[5m]))",
-    "rate(http_requests_total[5m]) + 1",
+    "absent(http_requests_total)",
+    'count_values("v", http_requests_total)',
+    "rate(http_requests_total[5m] @ 1600000600)",
+    "max_over_time(rate(http_requests_total[1m])[5m:1m])",
+    'label_replace(http_requests_total, "a", "$1", "job", "(.*)")',
+    "sort(http_requests_total)",
+    "histogram_quantile(0.9, sum(rate(http_requests_total[5m])) by (le))",
+    "http_requests_total * time()",
 ])
 def test_other_plan_shapes_raise(services, q):
     _, _, port = services
@@ -415,7 +417,7 @@ def long_services():
             "job": f"job-{i % 2}"}, ts, vals))
     ref, port = _build_stores(specs, 400)
     return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            RefService(ref, DS, NUM_SHARDS, spread=1),
+            RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
             QueryService(port, device="cpu"))
 
 
