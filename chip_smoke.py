@@ -42,7 +42,27 @@ checks it, phase by phase; any failed phase exits non-zero:
    plain version; a warm time of every range function and the instant
    selector over one namespace (``PER_FUNCTION``); and the time of each
    part of one engine-sized decode chunk of max_over_time and of the
-   instant selector (B1, B2, ``assemble``'s glue, the float64 function).
+   instant selector (B1, B2, ``assemble``'s glue, the float64 function);
+8. first-class histograms on a store of their own: ``--hist-series``
+   ``prom-histogram`` series of ``http_req_latency`` (labels as phase 2's)
+   with the 12 bucket bounds of Prometheus' ``DefBuckets`` and +Inf, 720
+   samples at 10 s, per-scrape observations spread over the buckets and a
+   reset of every bucket in about 5 % of series, and the series of
+   App-0..App-9 again as ``le``-labelled prom-counter series on a second
+   store; launch counts set to 0, then ``HIST_QUERIES`` (histogram_quantile
+   over a per-bucket sum of rates, per series, a histogram matrix, over
+   increase) and the flat form against its native twin, cold once and warm
+   seven times (``HIST_WARM``: p50, min and max), counts and peak device
+   memory read back; B1 and B3 must
+   have launched; shapes, finite values and the ``le`` series of Prom JSON
+   are checked, the flat answer must equal the native one (rtol 1e-5),
+   and the first query must equal plain decode plus the float64 per-bucket
+   rate, sum and quantile, with B1 bitwise against its plain version on
+   the timestamp and bucket blocks of every chunk the engine cuts; a split
+   of one engine-sized chunk (B1 on timestamps, B1 on buckets, the glue,
+   the rate, the aggregation, the quantile), each part timed by CUDA
+   events (median of 5 rounds) and by a ``torch.profiler`` trace's device
+   time; and B1's time against its bound on a chunk's bucket blocks.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -183,6 +203,38 @@ def cuda_time_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_time_ms(fn, reps: int) -> float | None:
+    """Mean device time of ``fn`` a call over ``reps`` calls, from a
+    ``torch.profiler`` trace: the device time of every kernel and copy it
+    launched, without the host's gaps between launches. None where the
+    trace holds no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0) or 0
+             for e in prof.key_averages())
+    return us / 1000.0 / reps if us > 0 else None
+
+
+def split_times(parts: dict, reps: int, rounds: int) -> dict:
+    """Per part of a split: the median over ``rounds`` of ``cuda_time_ms``
+    (host launch gaps included), the spread of those rounds, and the
+    profiler's device time."""
+    out = {}
+    for name, f in parts.items():
+        ev = sorted(cuda_time_ms(f, reps) for _ in range(rounds))
+        out[name] = {"events_ms": float(np.median(ev)),
+                     "events_min_ms": ev[0], "events_max_ms": ev[-1],
+                     "device_ms": device_time_ms(f, reps)}
+    return out
 
 
 def wall_ms(fn) -> float:
@@ -855,6 +907,349 @@ def promql_phase(svc, args) -> dict:
             "per_function_ms": per_fn, "splits": splits, "seconds": seconds}
 
 
+# phase 8: first-class histograms. Bucket bounds: Prometheus client_golang's
+# DefBuckets (seconds) and +Inf; per-scrape observations a bucket are drawn
+# uniformly from 0 to ``_OBS_HIGH``, a latency distribution peaking at
+# 100-250 ms.
+DEF_BUCKETS = np.array([0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                        5.0, 10.0, np.inf])
+_OBS_HIGH = np.array([1, 1, 2, 3, 5, 8, 5, 3, 2, 1, 1, 1])
+H = "http_req_latency"
+HIST_QUERIES = (
+    f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))",
+    f'histogram_quantile(0.9, rate({H}{{_ns_="App-0"}}[5m]))',
+    f"sum(rate({H}[5m])) by (job)",
+    f"histogram_quantile(0.5, sum(increase({H}[10m])) by (job))",
+)
+# the flat form: the series of App-0..App-9 again as prom-counter bucket
+# series with an ``le`` label, and the native query over the same ones
+FLAT_QUERY = (f"histogram_quantile(0.99, sum(rate({H}_bucket"
+              f'{{_ns_=~"App-[0-9]"}}[5m])) by (le, _ns_))')
+FLAT_NATIVE = (f'histogram_quantile(0.99, sum(rate({H}{{_ns_=~"App-[0-9]"}}'
+               f"[5m])) by (_ns_))")
+_HIST_BLOCK = 10_000  # series generated and ingested at once
+HIST_WARM = 7  # warm runs of each phase-8 query
+
+
+def make_hist_series(rng, a: int, b: int, samples: int):
+    """Histogram series a..b-1: labels, jittered timestamps, cumulative
+    bucket counts int64 [n, samples, 12] with a reset of every bucket in
+    about 5 % of series."""
+    n = b - a
+    labels = [{"_metric_": H, "_ws_": "demo", "_ns_": f"App-{i % 100}",
+               "instance": f"instance-{i}", "job": f"job-{i % 10}"}
+              for i in range(a, b)]
+    ts = (T0_MS + np.arange(samples, dtype=np.int64)[None, :] * 10_000
+          + rng.integers(-500, 501, (n, samples)))
+    obs = rng.integers(0, _OBS_HIGH + 1, (n, samples, len(_OBS_HIGH)),
+                       dtype=np.int32)
+    counts = np.cumsum(np.cumsum(obs, axis=2, dtype=np.int64), axis=1)
+    reset = np.flatnonzero(rng.random(n) < 0.05)
+    at = rng.integers(1, samples, len(reset))
+    for r, k in zip(reset, at):
+        counts[r, k:] -= counts[r, k]
+    return labels, ts, counts
+
+
+def _fmt_le(le: float) -> str:
+    return "+Inf" if np.isinf(le) else repr(float(le))
+
+
+def hist_leaf(eng, q: str, start: int, end: int):
+    """(lowered leaf, aggregation or None) of a query of the form
+    [histogram_quantile(φ,] [agg(] range_fn(selector[w]) [)] [)]."""
+    from filodb_tpu_torch.parallel.mesh_engine import lower_plan
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query import logical as lp
+
+    plan = parse_query(q, TimeStepParams(start, 60, end))
+    if isinstance(plan, lp.ApplyInstantFunction):
+        plan = plan.vector
+    if isinstance(plan, lp.Aggregate):
+        return lower_plan(plan.vector), eng._aggregation(plan)
+    return lower_plan(plan), None
+
+
+def hist_against_plain(svc, q: str, start: int, end: int, got) -> dict:
+    """Query ``q`` (histogram_quantile over a per-bucket aggregation of one
+    rate leaf) against the plain path, chunk by chunk as the engine cuts
+    its batch: B1 must equal its plain version bit for bit on the timestamp
+    blocks and on the bucket blocks of every chunk, and the answer must
+    equal plain decode + float64 ``range_eval_masked`` per bucket, the
+    per-bucket sum and the plain quantile."""
+    import torch
+
+    from filodb_tpu_torch.device import EXACT_DTYPE
+    from filodb_tpu_torch.memory import device_pages as dp
+    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.engine.aggregations import (
+        aggregate,
+        histogram_quantile,
+    )
+    from filodb_tpu_torch.query.engine.device_batch import (
+        BLOCK,
+        assemble_hist,
+    )
+    from filodb_tpu_torch.query.engine.kernels import range_eval_masked
+
+    eng = svc.engine
+    low, amr = hist_leaf(eng, q, start, end)
+    batch = eng._batch(svc.memstore, low)
+    n, B = len(batch.keys), len(batch.les)
+    NB = batch.packed[0].shape[1]
+    rows = min(max(1, decode_rows(NB * BLOCK, low.fn) // B), n)
+    lo_ms, hi_ms = low.chunk_range
+    steps = leaf_steps(low).to(svc.device)
+    outs = []
+    for a in range(0, n, rows):
+        part = tuple(t[a : min(a + rows, n)] for t in batch.packed)
+        for name, (sl, w, wd) in (("timestamp", part[1:4]),
+                                  ("bucket", part[5:8])):
+            args = (sl.reshape(-1), w.reshape(-1), wd.reshape(-1, BLOCK))
+            if not compare(dp.decode_ts_blocks(*args),
+                           dp.decode_ts_blocks_plain(*args), 0, 0,
+                           bitwise=True)[1]:
+                raise AssertionError(f"B1 differs from its plain version on "
+                                     f"the {name} blocks of rows {a}.. of "
+                                     f"{q}")
+        ts, counts, valid = assemble_hist(part, hi_ms - lo_ms, plain=True)
+        outs.append(range_eval_masked(low.fn, ts, counts, valid, steps,
+                                      low.window, counter=True,
+                                      dtype=EXACT_DTYPE))
+    per_series = torch.cat(outs)                             # [n, B, K]
+    K = per_series.shape[2]
+    gids, gkeys = eng._group_ids(batch.out_keys, amr)
+    G = len(gkeys)
+    gb = (gids[:, None] * B + torch.arange(B, device=gids.device)).reshape(-1)
+    summed = aggregate("sum", per_series.reshape(n * B, K), gb, G * B)
+    phi = float(q.split("(")[1].split(",")[0])
+    want = histogram_quantile(phi, summed.view(G, B, K).transpose(1, 2),
+                              torch.from_numpy(batch.les)).cpu().numpy()
+    order = {str(k): i for i, k in enumerate(gkeys)}
+    idx = [order[str(k)] for k in got.keys]
+    if got.values.shape != want.shape or not np.allclose(
+            got.values, want[idx], rtol=1e-9, atol=0, equal_nan=True):
+        raise AssertionError(f"{q} disagrees with the plain path")
+    chunks = -(-n // rows)
+    return {"series": n, "buckets": B, "rows": rows, "chunks": chunks,
+            "last_rows": n - (chunks - 1) * rows}
+
+
+def hist_split(svc, q: str, start: int, end: int, rows: int,
+               reps: int) -> dict:
+    """Times of each part of one engine-sized chunk of the histogram rate
+    leaf of ``q`` (``split_times``: CUDA events, median of 5 rounds, and
+    profiler device time): B1 on the timestamp blocks, B1 on the bucket
+    blocks, the glue (gap fill, range mask, int64 base add in float64), the
+    per-bucket float64 rate, the per-bucket sum of the chunk's rows and the
+    quantile; and the whole chunk (decode to rate)."""
+    import torch
+
+    from filodb_tpu_torch.device import EXACT_DTYPE
+    from filodb_tpu_torch.memory import device_pages as dp
+    from filodb_tpu_torch.query.engine.aggregations import (
+        aggregate,
+        histogram_quantile,
+    )
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK, fill_hist
+    from filodb_tpu_torch.query.engine.kernels import range_eval_masked
+
+    eng = svc.engine
+    low, amr = hist_leaf(eng, q, start, end)
+    batch = eng._batch(svc.memstore, low)
+    part = tuple(t[:rows] for t in batch.packed)
+    B = len(batch.les)
+    lo_ms, hi_ms = low.chunk_range
+    steps = leaf_steps(low).to(svc.device)
+    les = torch.from_numpy(batch.les)
+
+    def b1_ts():
+        return dp.decode_ts_blocks(part[1].reshape(-1), part[2].reshape(-1),
+                                   part[3].reshape(-1, BLOCK))
+
+    def b1_buckets():
+        return dp.decode_ts_blocks(part[5].reshape(-1), part[6].reshape(-1),
+                                   part[7].reshape(-1, BLOCK))
+
+    def glue(ts_off, b_off):
+        return fill_hist(part[0], part[8], part[4], ts_off, b_off,
+                         hi_ms - lo_ms)
+
+    def rate(ts, counts, valid):
+        return range_eval_masked(low.fn, ts, counts, valid, steps,
+                                 low.window, counter=True, dtype=EXACT_DTYPE)
+
+    gids, gkeys = eng._group_ids(batch.out_keys, amr)
+    G, K = len(gkeys), steps.numel()
+    gb = (gids[:rows, None] * B
+          + torch.arange(B, device=gids.device)).reshape(-1)
+
+    def agg(per):
+        return aggregate("sum", per.reshape(rows * B, K), gb, G * B) \
+            .view(G, B, K).transpose(1, 2)
+
+    ts_off, b_off = b1_ts(), b1_buckets()
+    decoded = glue(ts_off, b_off)
+    per = rate(*decoded)
+    summed = agg(per)
+    phi = float(q.split("(")[1].split(",")[0])
+    parts = {"B1_timestamps": b1_ts, "B1_buckets": b1_buckets,
+             "glue": lambda: glue(ts_off, b_off),
+             "rate": lambda: rate(*decoded), "aggregation": lambda: agg(per),
+             "quantile": lambda: histogram_quantile(phi, summed, les),
+             "chunk": lambda: rate(*glue(b1_ts(), b1_buckets()))}
+    out = split_times(parts, reps, rounds=5)
+    for kind in ("events_ms", "device_ms"):
+        if all(out[k][kind] is not None for k in parts):
+            out[f"sum_of_parts_{kind}"] = sum(out[k][kind] for k in parts
+                                              if k != "chunk")
+    out["rows"], out["buckets"], out["S"] = rows, B, int(decoded[0].shape[1])
+    return out
+
+
+def b1_bucket_case(svc, q: str, start: int, end: int, rows: int,
+                   reps: int) -> dict:
+    """B1 on the bucket blocks of one engine-sized chunk: time, plain
+    time, and its byte bound at that shape (per-block slope and width, the
+    4·w words each width needs, the int32 output)."""
+    from filodb_tpu_torch.memory import device_pages as dp
+    from filodb_tpu_torch.query.engine.device_batch import BLOCK
+
+    batch = svc.engine._batch(svc.memstore, hist_leaf(svc.engine, q, start,
+                                                      end)[0])
+    part = tuple(t[:rows] for t in batch.packed)
+    args = (part[5].reshape(-1), part[6].reshape(-1),
+            part[7].reshape(-1, BLOCK))
+    nb = args[1].numel()
+    nbytes = nb * (8 + 512) + word_bytes(args[1])
+    b, by = bound_ms(nbytes, nb * B1_OPS_BLOCK)
+    return {"blocks": nb, "ms": cuda_time_ms(lambda: dp.decode_ts_blocks(
+        *args), reps), "plain_ms": wall_ms(lambda: dp.decode_ts_blocks_plain(
+            *args)), "bound_ms": b, "bound_by": by, "bound_bytes": nbytes}
+
+
+def histogram_phase(dev, args, reps: int) -> dict:
+    """Phase 8: first-class histograms at full width, and the flat form."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.http.promjson import matrix_json
+
+    t_phase = t = time.perf_counter()
+    N, samples = args.hist_series, args.samples
+    store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    kept, flat_parts = 0, []
+    for a in range(0, N, _HIST_BLOCK):
+        rng = np.random.default_rng([args.seed, 8, a])
+        labels, ts, counts = make_hist_series(rng, a, min(a + _HIST_BLOCK, N),
+                                              samples)
+        kept += store.ingest_histograms(labels, ts, counts, DEF_BUCKETS)
+        sel = [j for j, lb in enumerate(labels) if int(lb["_ns_"][4:]) < 10]
+        flat_parts.append(([labels[j] for j in sel], ts[sel], counts[sel]))
+    ingest_s = time.perf_counter() - t
+    chunks = sum(len(s.hist_chunks["pid"]) for s in store.shards)
+    log(f"phase 8: histograms: {N} series x {samples} samples x "
+        f"{len(DEF_BUCKETS)} buckets ({kept} samples, {chunks} sealed "
+        f"chunks), ingest {ingest_s:.1f} s on the host")
+    # the flat form on a second store: App-0..App-9 as le-labelled counters
+    t = time.perf_counter()
+    flat_store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    lbs = [{**lb, "_metric_": f"{H}_bucket", "le": _fmt_le(le)}
+           for part in flat_parts for lb in part[0] for le in DEF_BUCKETS]
+    fts = np.concatenate([np.repeat(p[1], len(DEF_BUCKETS), axis=0)
+                          for p in flat_parts])
+    fvals = np.concatenate([p[2].transpose(0, 2, 1).reshape(-1, samples)
+                            for p in flat_parts]).astype(np.float64)
+    del flat_parts
+    flat_store.ingest_series(lbs, fts, fvals)
+    flat_s = time.perf_counter() - t
+    log(f"  flat form: {len(lbs)} prom-counter series {H}_bucket{{le=...}} "
+        f"of App-0..App-9, ingest {flat_s:.1f} s on the host")
+
+    svc = QueryService(store, device=dev)
+    flat_svc = QueryService(flat_store, device=dev)
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    results, timings = {}, []
+    for s, q in [(svc, q) for q in HIST_QUERIES] \
+            + [(flat_svc, FLAT_QUERY), (svc, FLAT_NATIVE)]:
+        t = time.perf_counter()
+        r = s.query_range(q, start, 60, end)
+        cold = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(HIST_WARM):
+            t = time.perf_counter()
+            r = s.query_range(q, start, 60, end)
+            warm.append((time.perf_counter() - t) * 1000.0)
+        results[q] = r
+        timings.append(dict(query=q, cold_ms=cold,
+                            warm_p50_ms=float(np.median(warm)),
+                            warm_ms=warm, rows=r.result.num_series))
+        log(f"  {q}: cold {cold:.1f} ms, warm p50 {np.median(warm):.2f} "
+            f"ms (min {min(warm):.2f}, max {max(warm):.2f} of {HIST_WARM}), "
+            f"{r.result.num_series} rows")
+    launches = dict(_build.LAUNCHES)
+    packed = svc.engine.batch_bytes
+    log(f"  launches in the phase: {launches}; packed pages on the card "
+        f"{packed / 1e9:.2f} GB (histograms) and "
+        f"{flat_svc.engine.batch_bytes / 1e9:.2f} GB (the flat form)")
+    if dev.type == "cuda" and not (launches["decode_ts_page"]
+                                   and launches["fused_decode_rate"]):
+        raise AssertionError("phase 8 did not run through B1 (histograms) "
+                             "and B3 (the flat form)")
+
+    # answers: shapes, finite values after the first step, Prom JSON, the
+    # flat form against the native one
+    qa, qb, qc, qd = HIST_QUERIES
+    n_ns, n_job = min(100, N), min(10, N)
+    app0 = len(range(0, N, 100))
+    for q, shape in ((qa, (n_ns, 121)), (qb, (app0, 121)),
+                     (qc, (n_job, 121, 12)), (qd, (n_job, 121))):
+        v = results[q].result.values
+        if v.shape != shape or not np.isfinite(v[:, 1:]).all():
+            raise AssertionError(f"{q}: shape {v.shape}, want {shape}, "
+                                 f"finite after the first step")
+    body = matrix_json(results[qc])
+    les = {s["metric"]["le"] for s in body["data"]["result"]}
+    if len(body["data"]["result"]) != n_job * 12 \
+            or les != {_fmt_le(x) for x in DEF_BUCKETS}:
+        raise AssertionError("sum(rate) by (job): bad Prometheus body")
+    fr, nr = results[FLAT_QUERY].result, results[FLAT_NATIVE].result
+    fk = {str(k): i for i, k in enumerate(fr.keys)}
+    if sorted(fk) != sorted(str(k) for k in nr.keys) or not np.allclose(
+            fr.values[[fk[str(k)] for k in nr.keys]], nr.values, rtol=1e-5,
+            atol=0, equal_nan=True):
+        raise AssertionError("the le form disagrees with the native form")
+    plain = hist_against_plain(svc, qa, start, end, results[qa].result)
+    log(f"  answers: shapes and finite values checked; {qc} renders "
+        f"{n_job} x 12 le series; the le form equals the native form at "
+        f"rtol 1e-5 over {len(nr.keys)} namespaces. {qa}: B1 bitwise equal "
+        f"to plain on the timestamp and bucket blocks of {plain['chunks']} "
+        f"chunks of {plain['rows']} series x 12 buckets (last "
+        f"{plain['last_rows']}); answer equal to plain decode + float64 "
+        f"rate + sum + quantile (rtol 1e-9)")
+    split = hist_split(svc, qa, start, end, plain["rows"], reps)
+    log(f"  {qa} chunk split at the engine's rows (ms: CUDA events, median "
+        f"of 5 rounds, and profiler device time): {json.dumps(split)}")
+    b1 = b1_bucket_case(svc, qa, start, end, plain["rows"], reps)
+    log(f"  B1 on one chunk's bucket blocks: {json.dumps(b1)}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {peak / 1e9:.2f} GB (max_memory_allocated)")
+    _build.LAUNCHES.update(launches)  # the checks' launches are not counted
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 8 took {seconds:.1f} s")
+    return {"series": N, "buckets": len(DEF_BUCKETS), "samples": samples,
+            "ingest_s": ingest_s, "flat_series": len(lbs),
+            "flat_ingest_s": flat_s, "packed_bytes": int(packed),
+            "queries": timings, "launches": launches, "plain_check": plain,
+            "split": split, "b1_buckets": b1, "peak_bytes": int(peak),
+            "seconds": seconds}
+
+
 def run(dev, args):
     """Phases 2-5 on ``dev``; returns the kernels' numbers and the
     phase-2 store's service (phase 7 queries it again)."""
@@ -938,6 +1333,7 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
+    ap.add_argument("--hist-series", type=int, default=100_000)
     args = ap.parse_args()
 
     import torch
@@ -967,8 +1363,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     promql = promql_phase(svc, args)
     print(json.dumps({"promql": promql}))
+    del svc
+    torch.cuda.empty_cache()
+    hist = histogram_phase(torch.device("cuda"), args, reps=5)
+    print(json.dumps({"histograms": hist}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
+        kern["launches_phase8"] = hist["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -9,7 +9,9 @@ whole part key, so one namespace's series land in 2^spread shards.
 Ingest is columnar: ``ingest_series`` takes many series at once as label
 maps plus [N, T] timestamp and value arrays, routes them with hashes
 computed for all keys together, and appends per shard in vectorised
-rounds. It is host code; the device sees only the sealed pages.
+rounds; ``ingest_histograms`` does the same for ``prom-histogram`` series
+with cumulative bucket counts [N, T, B] under one bucket scheme. It is host
+code; the device sees only the sealed pages.
 """
 
 from __future__ import annotations
@@ -64,14 +66,42 @@ class MemStore:
         """Ingest N series: ``labels[i]`` (with ``_metric_``), timestamps
         int64 ms [N, T] (ascending) and values [N, T]; ``lens[i]`` of each
         row are samples (default: all T). Returns the samples kept."""
-        if schema not in SCHEMAS:
-            raise ValueError(f"schema {schema} is not in this slice "
-                             f"(known: {sorted(SCHEMAS)})")
+        if schema not in SCHEMAS or SCHEMAS[schema].is_histogram:
+            raise ValueError(f"ingest_series takes a scalar schema, not "
+                             f"{schema} (known: {sorted(SCHEMAS)}; "
+                             f"histograms go through ingest_histograms)")
         ts = np.asarray(ts, np.int64)
         vals = np.asarray(vals, np.float64)
         if ts.ndim != 2 or ts.shape != vals.shape or len(labels) != len(ts):
             raise ValueError("ingest_series takes N label maps and [N, T] "
                              "timestamps and values")
+        return self._routed(labels, ts, vals, lens, schema,
+                            lambda shard, *a: shard.ingest(*a))
+
+    def ingest_histograms(self, labels: list[dict], ts: np.ndarray,
+                          buckets: np.ndarray, les: np.ndarray,
+                          lens: np.ndarray | None = None) -> int:
+        """Ingest N ``prom-histogram`` series: ``labels[i]`` (with
+        ``_metric_``), timestamps int64 ms [N, T] (ascending), cumulative
+        bucket counts int64 [N, T, B] under the bucket upper bounds ``les``
+        float64 [B] (the last one +Inf); ``lens[i]`` of each row are samples
+        (default: all T). Returns the samples kept."""
+        ts = np.asarray(ts, np.int64)
+        buckets = np.asarray(buckets, np.int64)
+        les = np.asarray(les, np.float64)
+        if ts.ndim != 2 or buckets.shape[:2] != ts.shape \
+                or buckets.ndim != 3 or len(labels) != len(ts) \
+                or les.shape != buckets.shape[2:]:
+            raise ValueError("ingest_histograms takes N label maps, [N, T] "
+                             "timestamps, [N, T, B] bucket counts and [B] "
+                             "bucket bounds")
+        return self._routed(labels, ts, buckets, lens, "prom-histogram",
+                            lambda shard, *a: shard.ingest_histograms(
+                                *a, les))
+
+    def _routed(self, labels, ts, vals, lens, schema: str, append) -> int:
+        """Route rows to their shards and ``append(shard, keys, ts, vals,
+        lens)`` each shard's rows, ``_INGEST_ROWS`` series a round."""
         lens = np.full(len(ts), ts.shape[1], np.int64) if lens is None \
             else np.asarray(lens, np.int64)
         kept = 0
@@ -81,9 +111,9 @@ class MemStore:
             shard = self.shard_of(keys)
             for s in np.unique(shard):
                 rows = np.flatnonzero(shard == s)
-                kept += self.shards[int(s)].ingest(
-                    [keys[i] for i in rows], ts[a:b][rows], vals[a:b][rows],
-                    lens[a:b][rows])
+                kept += append(self.shards[int(s)], [keys[i] for i in rows],
+                               ts[a:b][rows], vals[a:b][rows],
+                               lens[a:b][rows])
         return kept
 
     def ingest(self, labels: dict, ts, vals,
@@ -93,6 +123,12 @@ class MemStore:
         return self.ingest_series([labels], ts,
                                   np.asarray(vals, np.float64)[None, :],
                                   schema=schema)
+
+    def ingest_histogram(self, labels: dict, ts, buckets, les) -> int:
+        """Ingest one histogram series' samples ([T], [T, B], [B])."""
+        return self.ingest_histograms(
+            [labels], np.asarray(ts, np.int64)[None, :],
+            np.asarray(buckets, np.int64)[None, :], les)
 
     def seal(self, labels: dict, schema: str = "prom-counter") -> None:
         """Close one series' write buffer into a chunk now."""

@@ -1,20 +1,24 @@
 """Dataset schemas and column metadata.
 
-Copy of ``filodb_tpu/core/schemas.py`` trimmed to the two scalar schemas
-this slice serves: ``gauge`` and ``prom-counter``. Column 0 is always the
-timestamp; the value column of a counter schema carries ``is_counter``, which
-turns on reset correction in ``rate``/``increase``/``delta``.
+Copy of ``filodb_tpu/core/schemas.py`` trimmed to the schemas the port
+serves: ``gauge``, ``prom-counter`` and ``prom-histogram``. Column 0 is always
+the timestamp; the value column of a counter schema carries ``is_counter``,
+which turns on reset correction in ``rate``/``increase``/``delta``. A
+histogram value column holds cumulative bucket counts per sample. The schema
+id is the reference's (crc32 of the name and column types, 16 bits).
 """
 
 from __future__ import annotations
 
 import enum
+import zlib
 from dataclasses import dataclass, field
 
 
 class ColumnType(enum.Enum):
     TIMESTAMP = "ts"
     DOUBLE = "double"
+    HISTOGRAM = "hist"
 
 
 @dataclass(frozen=True)
@@ -58,6 +62,17 @@ class Schema:
     def is_counter(self) -> bool:
         return self.data.columns[self.data.value_column].is_counter
 
+    @property
+    def is_histogram(self) -> bool:
+        return self.data.columns[self.data.value_column].ctype \
+            == ColumnType.HISTOGRAM
+
+    @property
+    def schema_id(self) -> int:
+        sig = self.data.name + "|" + ",".join(
+            f"{c.name}:{c.ctype.value}" for c in self.data.columns)
+        return zlib.crc32(sig.encode()) & 0xFFFF
+
 
 def _mk(name, cols, value_column) -> Schema:
     return Schema(DataSchema(name, tuple(cols), value_column))
@@ -76,4 +91,13 @@ PROM_COUNTER = _mk(
     value_column=1,
 )
 
-SCHEMAS = {s.name: s for s in (GAUGE, PROM_COUNTER)}
+PROM_HISTOGRAM = _mk(
+    "prom-histogram",
+    [Column("timestamp", ColumnType.TIMESTAMP),
+     Column("sum", ColumnType.DOUBLE, is_counter=True),
+     Column("count", ColumnType.DOUBLE, is_counter=True),
+     Column("h", ColumnType.HISTOGRAM, is_counter=True)],
+    value_column=3,
+)
+
+SCHEMAS = {s.name: s for s in (GAUGE, PROM_COUNTER, PROM_HISTOGRAM)}

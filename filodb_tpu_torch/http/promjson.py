@@ -2,7 +2,10 @@
 
 Port of ``filodb_tpu/http/promjson.py::matrix_json``: StepMatrix → the
 Prometheus ``matrix`` response body. NaN entries are gaps and are omitted;
-a series with no sample at all is left out.
+a series with no sample at all is left out. A histogram matrix is
+flattened into one series a bucket, labelled ``le``
+(``StepMatrix.flatten_histograms``), as the reference renders first-class
+histograms on the Prometheus wire.
 """
 
 from __future__ import annotations
@@ -11,14 +14,7 @@ import math
 
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
 from filodb_tpu_torch.query.model import QueryResult
-
-
-def _fmt(v: float) -> str:
-    if math.isinf(v):
-        return "+Inf" if v > 0 else "-Inf"
-    if math.isnan(v):
-        return "NaN"
-    return repr(float(v))
+from filodb_tpu_torch.query.model import prom_float as _fmt
 
 
 def _labels_json(key) -> dict:
@@ -36,6 +32,8 @@ def _stats_json(result: QueryResult) -> dict:
 
 def matrix_json(result: QueryResult) -> dict:
     m = result.result.materialize()
+    if m.is_histogram:
+        m = m.flatten_histograms()
     series = []
     for i, key in enumerate(m.keys):
         row = m.values[i]

@@ -28,6 +28,20 @@ card:
 - aggregations, instant functions and operators are plain torch on the
   card (``query/exec``); joins match labels on the host.
 
+Histograms: a selector that matches ``prom-histogram`` series packs their
+timestamp blocks and one int block a bucket (``pack_hist_blocks``), B at
+the batch's widest scheme. Every range function of ``HIST_FNS`` and the
+instant selector decode a chunk of series through B1 (timestamps once, then
+every bucket block in one launch) and run ``range_eval_masked`` in float64
+on the [series, B, S] bucket rows, each bucket its own counter, as the
+reference's exec engine does over ``_assemble_hist``. Above the leaf a
+histogram matrix is [P, K, B]: sum … stdvar aggregate per bucket,
+``histogram_quantile`` / ``histogram_max_quantile`` interpolate on the
+card, instant functions and operators with a number are element-wise.
+``histogram_quantile`` over ``le``-labelled scalar series (the classic
+Prometheus form) groups the bucket series on the host and interpolates on
+the card. Other histogram shapes raise ``UnsupportedQuery``.
+
 Precision gate (the reference's ``F32_SAFE_MAX``): float32 keeps window
 differences exact only below 2^20, so a rate / increase / delta leaf whose
 selected chunks hold a larger |value| runs the plain ``range_eval_masked``
@@ -58,7 +72,9 @@ from filodb_tpu_torch.query.engine.cuda_kernels import (
 from filodb_tpu_torch.query.engine.device_batch import (
     BLOCK,
     assemble,
+    assemble_hist,
     pack_blocks,
+    pack_hist_blocks,
     to_device,
 )
 from filodb_tpu_torch.query.engine.instantfns import INSTANT_FNS
@@ -89,6 +105,14 @@ WINDOW_SUM_FNS = ("sum_over_time", "count_over_time", "avg_over_time",
 # every range function a leaf serves, with its number of parameters
 SERVED_FNS = {**{f: 0 for f in RANGE_FNS}, "predict_linear": 1,
               "quantile_over_time": 1, "holt_winters": 2}
+# range functions a histogram leaf serves: the reference's per-bucket
+# ``range_eval_masked`` answers these; it also answers timestamp (in
+# seconds from the batch start, not epoch seconds) and predict_linear
+# (with its horizon dropped), which the port leaves out (ROADMAP §A)
+HIST_FNS = tuple(f for f in RANGE_FNS
+                 if f not in ("timestamp", "predict_linear"))
+HIST_INSTANT_FNS = ("histogram_quantile", "histogram_max_quantile",
+                    "hist_to_prom_vectors")
 STALENESS_MS = 300_000  # the instant selector's default lookback
 _RANK_AGGS = ("topk", "bottomk", "quantile")  # one scalar parameter
 # working set of a decode chunk: the decoded rows plus the temporaries of
@@ -196,6 +220,7 @@ class _Batch:
     is_counter: bool
     nbytes: int = 0
     _out_keys: list | None = None
+    les: np.ndarray | None = None  # bucket bounds of a histogram batch
 
     @property
     def out_keys(self) -> list:
@@ -252,32 +277,53 @@ class MeshQueryEngine:
         hit = self._batches.get(key)
         if hit is not None and hit.version == version:
             return hit
+        selected = [(shard, shard.lookup_partitions(list(low.filters), lo_ms,
+                                                   hi_ms))
+                    for shard in memstore.shards]
+        selected = [(sh, pids) for sh, pids in selected if len(pids)]
+        kind = np.concatenate([sh.hist[pids] for sh, pids in selected]) \
+            if selected else np.zeros(0, bool)
+        hist = bool(kind.all()) and len(kind) > 0
+        if kind.any() and not hist:
+            raise UnsupportedQuery(
+                f"selector {low.filters} matches both histogram and scalar "
+                f"series, which this slice does not serve in one leaf")
         tables, table_of, block_of, row_of = [], [], [], []
-        keys, vmax = [], 0.0
-        for shard in memstore.shards:
-            pids = shard.lookup_partitions(list(low.filters), lo_ms, hi_ms)
-            if not len(pids):
-                continue
-            tabs, t_of, b_of, r_of, vm = shard.select_blocks(pids, lo_ms,
-                                                             hi_ms)
+        keys, vmax, les = [], 0.0, None
+        for shard, pids in selected:
+            if hist:
+                tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(
+                    pids, lo_ms, hi_ms)
+                # the first scheme of the most buckets, in batch order
+                if sl is not None and (les is None or len(sl) > len(les)):
+                    les = sl
+            else:
+                tabs, t_of, b_of, r_of, vm = shard.select_blocks(pids, lo_ms,
+                                                                 hi_ms)
+                vmax = max(vmax, vm)
             table_of.append(t_of + len(tables))
             tables.extend(tabs)
             block_of.append(b_of)
             row_of.append(r_of + len(keys))
             keys.extend(shard.keys[p] for p in pids)
-            vmax = max(vmax, vm)
         if not keys:
             batch = _Batch(version, [], None, np.zeros(0, np.int32), 0.0,
                            False)
         else:
-            packed, counts = pack_blocks(
-                tables, np.concatenate(table_of), np.concatenate(block_of),
-                np.concatenate(row_of), len(keys), lo_ms)
+            entries = (tables, np.concatenate(table_of),
+                       np.concatenate(block_of), np.concatenate(row_of),
+                       len(keys), lo_ms)
+            if hist:
+                les = les if les is not None else np.array([np.inf])
+                packed, counts = pack_hist_blocks(*entries, len(les))
+            else:
+                packed, counts = pack_blocks(*entries)
             dev = to_device(packed, self.device)
             batch = _Batch(version, [k.range_vector_key for k in keys], dev,
                            counts[: len(keys)], vmax,
                            SCHEMAS[keys[0].schema].is_counter,
-                           sum(a.numel() * 4 for a in dev))
+                           sum(a.numel() * a.element_size() for a in dev),
+                           les=les)
         if len(self._batches) >= _BATCH_CACHE_CAP:
             self._batches.pop(next(iter(self._batches)))
         self._batches[key] = batch
@@ -289,6 +335,8 @@ class MeshQueryEngine:
               flight: int, stats: QueryStats) -> torch.Tensor:
         """Per-series results [n_series, K] on the device; ``flight`` is
         ``steps_in_flight`` of the steps, taken on the host."""
+        if batch.les is not None:
+            return self._eval_hist(batch, low, steps)
         n = len(batch.keys)
         packed = batch.packed
         lo_ms, hi_ms = low.chunk_range
@@ -315,6 +363,26 @@ class MeshQueryEngine:
             out = out + lo_ms / 1000.0
         return out
 
+    def _eval_hist(self, batch: _Batch, low: Lowered,
+                   steps: torch.Tensor) -> torch.Tensor:
+        """A histogram leaf, [n_series, K, B]: chunks of series decoded
+        (B1 on timestamps, then on every bucket block) and evaluated in
+        float64 per bucket row; ``decode_rows`` counts series × B rows."""
+        n = len(batch.keys)
+        lo_ms, hi_ms = low.chunk_range
+        B = len(batch.les)
+        rows = max(1, decode_rows(batch.packed[0].shape[1] * BLOCK, low.fn)
+                   // B)
+        outs = []
+        for a in range(0, n, rows):
+            part = tuple(t[a : min(a + rows, n)] for t in batch.packed)
+            ts, counts, valid = assemble_hist(part, hi_ms - lo_ms)
+            outs.append(range_eval_masked(low.fn, ts, counts, valid, steps,
+                                          low.window,
+                                          counter=batch.is_counter,
+                                          dtype=EXACT_DTYPE))
+        return torch.cat(outs).transpose(1, 2)
+
     @property
     def batch_bytes(self) -> int:
         """Device bytes of the packed pages the engine holds."""
@@ -325,6 +393,10 @@ class MeshQueryEngine:
         batch = self._batch(memstore, low)
         if not batch.keys:
             return StepMatrix.empty(steps_ms)
+        if batch.les is not None and low.fn not in HIST_FNS:
+            raise UnsupportedQuery(
+                f"range function {low.fn} over a histogram is not served by "
+                f"this slice (served: {', '.join(HIST_FNS)})")
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
         rel = (steps_ms - low.offset - low.chunk_range[0])
@@ -335,7 +407,8 @@ class MeshQueryEngine:
         res = self._eval(batch, low, host_steps.to(self.device), flight,
                          stats)
         return StepMatrix(batch.keys if low.keep_metric else batch.out_keys,
-                          res, steps_ms, dropped_keys=batch.out_keys)
+                          res, steps_ms, dropped_keys=batch.out_keys,
+                          les=batch.les)
 
     # ---- the plan above the leaves ------------------------------------------
 
@@ -374,13 +447,18 @@ class MeshQueryEngine:
         if isinstance(plan, lp.Aggregate):
             amr = self._aggregation(plan)
             data = self.execute(memstore, plan.vector, stats).settle()
+            if data.is_histogram and amr.op not in AGG_OPS:
+                raise UnsupportedQuery(
+                    f"aggregation {amr.op} over a histogram is not served by "
+                    f"this slice (served per bucket: {', '.join(AGG_OPS)})")
             return amr.apply(data, self._group_ids(data.keys, amr))
         if isinstance(plan, lp.ApplyInstantFunction):
-            if plan.function not in INSTANT_FNS \
+            if plan.function not in INSTANT_FNS + HIST_INSTANT_FNS \
                     or not all(_is_number(a) for a in plan.args):
                 raise UnsupportedQuery(
                     f"instant function {plan.function} is not served by "
-                    f"this slice (served: {', '.join(INSTANT_FNS)}, with "
+                    f"this slice (served: "
+                    f"{', '.join(INSTANT_FNS + HIST_INSTANT_FNS)}, with "
                     f"number arguments)")
             return InstantVectorFunctionMapper(plan.function, tuple(
                 plan.args)).apply(self.execute(memstore, plan.vector, stats))
@@ -398,6 +476,10 @@ class MeshQueryEngine:
         if isinstance(plan, lp.BinaryJoin):
             lhs = self.execute(memstore, plan.lhs, stats)
             rhs = self.execute(memstore, plan.rhs, stats)
+            if lhs.is_histogram or rhs.is_histogram:
+                raise UnsupportedQuery(
+                    f"operator {plan.op} with a histogram side is not served "
+                    f"by this slice")
             if plan.op in SET_OPS:
                 return set_operator(lhs, rhs, plan.op, plan.on,
                                     plan.ignoring)

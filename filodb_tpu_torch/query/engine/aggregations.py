@@ -2,7 +2,9 @@
 
 Port of ``filodb_tpu/query/engine/aggregations.py``: ``aggregate`` (sum,
 avg, min, max, count, group, stddev, stdvar: [P, K] per-series results →
-[G, K] per group), ``topk_mask`` (topk / bottomk) and ``quantile_across``.
+[G, K] per group), ``topk_mask`` (topk / bottomk), ``quantile_across`` and
+``histogram_quantile`` (Prometheus' bucket interpolation over [..., B]
+cumulative bucket values).
 NaN is excluded from every operation; a group with no sample at a step is
 NaN there. Plain PyTorch (``index_add_`` / ``scatter_reduce_`` / stable
 sorts); the reference uses XLA segment reductions here, not a Pallas
@@ -118,3 +120,39 @@ def quantile_across(q: float, values: torch.Tensor, group_ids: torch.Tensor,
 
     a, b = at(i0), at((i0 + 1).clamp(max=P - 1))
     return torch.where(n > 0, a + (b - a) * frac, _nan(v))
+
+
+def histogram_quantile(q: float, buckets: torch.Tensor,
+                       les: torch.Tensor) -> torch.Tensor:
+    """φ-quantile of cumulative bucket values [..., B] (e.g. per-bucket
+    rates) with upper bounds ``les`` [B] (last +Inf) → [...], as the
+    reference computes it: linear interpolation inside the first bucket
+    whose count reaches q·total; the top bucket answers the second-highest
+    bound; NaN where the total is 0 or NaN; -inf for q < 0, +inf for
+    q > 1."""
+    h = buckets.to(EXACT_DTYPE)
+    les = les.to(device=h.device, dtype=EXACT_DTYPE)
+    B = h.shape[-1]
+    total = h[..., B - 1]
+    rank = q * total
+    ge = h >= rank[..., None]
+    # the first bucket reaching the rank (jnp.argmax of the mask: 0 when
+    # none does)
+    lane = torch.arange(B, device=h.device)
+    idx = torch.where(ge, lane, B).amin(-1)
+    idx = torch.where(idx < B, idx, 0)
+    below = (idx - 1).clamp(min=0)
+    cum_hi = torch.gather(h, -1, idx[..., None])[..., 0]
+    cum_lo = torch.where(idx > 0, torch.gather(h, -1, below[..., None])[..., 0],
+                         0.0)
+    le_hi = les[idx]
+    le_lo = torch.where(idx > 0, les[below], 0.0)
+    frac = (rank - cum_lo) / (cum_hi - cum_lo).clamp(min=1e-30)
+    val = le_lo + (le_hi - le_lo) * frac
+    val = torch.where(idx >= B - 1, les[max(B - 2, 0)], val)
+    nan = _nan(h)
+    val = torch.where(total > 0, val, nan)
+    val = torch.where(torch.isnan(total), nan, val)
+    if q < 0 or q > 1:
+        return torch.full_like(val, float("-inf") if q < 0 else float("inf"))
+    return val

@@ -13,6 +13,18 @@ a list of block ids per series, gathered with numpy. ``pack_series_pages``
 keeps the reference's signature (per-series lists of
 ``(ts_page, val_page, nrows)``) on top of the same packer; the tests hold
 its output byte-equal to the reference's.
+
+Histograms (``_hist_pages`` / ``_build_hist_device_batch`` /
+``_assemble_hist`` of the reference): a block carries its timestamp block
+and one int block per bucket, encoded as timestamp pages are (cumulative
+counts suit the sloped-line predictor), with int64 bases. ``HistPageBlocks``
+holds such blocks; ``pack_hist_blocks`` lays a batch out with the buckets
+ahead of the blocks, [P, B, NB, ...], so that B1 decodes every bucket block
+of a chunk in one launch and its output is already rows of (series,
+bucket), [P·B, S]. ``assemble_hist`` decodes each series' timestamp blocks
+once (B1), every bucket block (B1 again), and adds the int64 bases in
+float64: cumulative counts pass 2^24 within days, which float32 would lose.
+Series of a shorter bucket scheme are zero-padded up to the batch's widest.
 """
 
 from __future__ import annotations
@@ -105,6 +117,17 @@ def chunk_blocks(ts: np.ndarray, vals: np.ndarray, n: np.ndarray):
             rows[keep].astype(np.int32), per)
 
 
+def _layout(row_of: np.ndarray, n_rows: int):
+    """(P, NB, the slot of each entry in its row) of a dense batch whose
+    entries are ordered by row: P and NB padded to powers of two."""
+    P = _pow2(n_rows, 4)
+    per_row = np.bincount(row_of, minlength=n_rows) if len(row_of) \
+        else np.zeros(n_rows, np.int64)
+    NB = _pow2(max(int(per_row.max(initial=0)), 1))
+    first = np.concatenate([[0], np.cumsum(per_row)[:-1]])
+    return P, NB, np.arange(len(row_of)) - first[row_of]
+
+
 def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
                 block_of: np.ndarray, row_of: np.ndarray, n_rows: int,
                 start: int):
@@ -115,12 +138,7 @@ def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
     Returns the nine [P, NB(, 128)] arrays in ``_assemble``'s parameter
     order, with timestamps rebased to ``start``, and the valid-sample count
     of each row."""
-    P = _pow2(n_rows, 4)
-    per_row = np.bincount(row_of, minlength=n_rows) if len(row_of) \
-        else np.zeros(n_rows, np.int64)
-    NB = _pow2(max(int(per_row.max(initial=0)), 1))
-    first = np.concatenate([[0], np.cumsum(per_row)[:-1]])
-    slot = np.arange(len(row_of)) - first[row_of]
+    P, NB, slot = _layout(row_of, n_rows)
     rel_bases = np.zeros((P, NB), np.int32)
     ts_slopes = np.zeros((P, NB), np.int32)
     ts_widths = np.zeros((P, NB), np.int32)
@@ -151,6 +169,63 @@ def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
     return packed, counts.astype(np.int32)
 
 
+@dataclass
+class HistPageBlocks:
+    """A table of histogram page blocks of one bucket count B: a timestamp
+    block and B bucket blocks (int pages, int64 bases) a row."""
+
+    ts_bases: np.ndarray    # int64 [nb]
+    ts_slopes: np.ndarray   # int32 [nb]
+    ts_widths: np.ndarray   # int32 [nb]
+    ts_words: np.ndarray    # uint32 [nb, 128]
+    b_bases: np.ndarray     # int64 [nb, B]
+    b_slopes: np.ndarray    # int32 [nb, B]
+    b_widths: np.ndarray    # int32 [nb, B]
+    b_words: np.ndarray     # uint32 [nb, B, 128]
+    rows: np.ndarray        # int32 [nb]
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    @property
+    def buckets(self) -> int:
+        return self.b_bases.shape[1]
+
+    @staticmethod
+    def encode(ts: np.ndarray, counts: np.ndarray,
+               rows: np.ndarray) -> "HistPageBlocks":
+        """Encode blocks of timestamps int64 [nb, 128] and cumulative bucket
+        counts int64 [nb, B, 128] (lanes past ``rows`` ignored)."""
+        nb, B = counts.shape[:2]
+        bb, bs, bw, bwd = encode_ts_blocks(counts.reshape(nb * B, BLOCK),
+                                           np.repeat(rows, B))
+        return HistPageBlocks(*encode_ts_blocks(ts, rows),
+                              bb.reshape(nb, B), bs.reshape(nb, B),
+                              bw.reshape(nb, B), bwd.reshape(nb, B, BLOCK),
+                              np.asarray(rows, np.int32))
+
+    @staticmethod
+    def concat(parts: list["HistPageBlocks"]) -> "HistPageBlocks":
+        return HistPageBlocks(*(
+            np.concatenate([getattr(p, f.name) for p in parts])
+            for f in fields(HistPageBlocks)))
+
+
+def hist_chunk_blocks(ts: np.ndarray, counts: np.ndarray, n: np.ndarray):
+    """``chunk_blocks`` for histogram rows: ts int64 [C, T], cumulative
+    counts int64 [C, T, B], ``n[c]`` valid → (ts blocks [nb, 128], count
+    blocks [nb, B, 128], rows [nb], blocks a row [C])."""
+    C, T, B = counts.shape
+    tb, _, rows, per = chunk_blocks(ts, ts, n)
+    nbw = max(-(-T // BLOCK), 1)
+    pad = nbw * BLOCK - T
+    c = np.pad(counts, ((0, 0), (0, pad), (0, 0))) if pad else counts
+    keep = (np.arange(nbw)[None, :] < per[:, None]).ravel()
+    # [C, T, B] -> [C, nbw, B, 128]: a block's buckets side by side
+    blocks = c.reshape(C, nbw, BLOCK, B).transpose(0, 1, 3, 2)
+    return tb, blocks.reshape(C * nbw, B, BLOCK)[keep], rows, per
+
+
 def pack_series_pages(per_series, start: int):
     """Reference signature: per-series lists of ``(ts_page, val_page,
     nrows)`` → (packed arrays, counts)."""
@@ -168,8 +243,50 @@ def pack_series_pages(per_series, start: int):
                        np.arange(len(table)), row, len(per_series), start)
 
 
+def pack_hist_blocks(tables: list[HistPageBlocks], table_of: np.ndarray,
+                     block_of: np.ndarray, row_of: np.ndarray, n_rows: int,
+                     start: int, buckets: int):
+    """``pack_blocks`` for histogram blocks: the nine arrays of
+    ``assemble_hist`` (ts fields [P, NB(, 128)], bucket fields [P, B, NB(,
+    128)] with int64 bases, block counts [P, NB]) and the valid-sample
+    count of each row. Tables of fewer than ``buckets`` buckets fill the
+    first slots; the rest stay zero (the reference's padding)."""
+    P, NB, slot = _layout(row_of, n_rows)
+    B = buckets
+    rel_bases = np.zeros((P, NB), np.int32)
+    ts_slopes = np.zeros((P, NB), np.int32)
+    ts_widths = np.zeros((P, NB), np.int32)
+    ts_words = np.zeros((P, NB, WORDS_PER_BLOCK_MAX), np.uint32)
+    b_bases = np.zeros((P, B, NB), np.int64)
+    b_slopes = np.zeros((P, B, NB), np.int32)
+    b_widths = np.zeros((P, B, NB), np.int32)
+    b_words = np.zeros((P, B, NB, WORDS_PER_BLOCK_MAX), np.uint32)
+    blk_counts = np.zeros((P, NB), np.int32)
+    counts = np.zeros(P, np.int64)
+    for t, tab in enumerate(tables):
+        sel = np.flatnonzero(table_of == t)
+        if not len(sel):
+            continue
+        r, s, b = row_of[sel], slot[sel], block_of[sel]
+        Bt = tab.buckets
+        rel_bases[r, s] = (tab.ts_bases[b] - start).astype(np.int32)
+        ts_slopes[r, s] = tab.ts_slopes[b]
+        ts_widths[r, s] = tab.ts_widths[b]
+        ts_words[r, s] = tab.ts_words[b]
+        b_bases[r, :Bt, s] = tab.b_bases[b]
+        b_slopes[r, :Bt, s] = tab.b_slopes[b]
+        b_widths[r, :Bt, s] = tab.b_widths[b]
+        b_words[r, :Bt, s] = tab.b_words[b]
+        blk_counts[r, s] = tab.rows[b]
+        counts += np.bincount(r, tab.rows[b], P).astype(np.int64)
+    packed = (rel_bases, ts_slopes, ts_widths, ts_words, b_bases, b_slopes,
+              b_widths, b_words, blk_counts)
+    return packed, counts.astype(np.int32)
+
+
 def to_device(packed, device: torch.device):
-    """Numpy packed arrays → int32 tensors on ``device`` (u32 bits kept)."""
+    """Numpy packed arrays → tensors on ``device``: int32 (u32 bits kept),
+    int64 bases as int64."""
     out = []
     for a in packed:
         t = u32_as_i32(a) if a.dtype == np.uint32 else torch.from_numpy(a)
@@ -212,3 +329,35 @@ def assemble(packed, range_len: int):
     ts, vals, valid = decode_packed(packed)
     valid = valid & (ts >= 0) & (ts <= range_len)
     return ts, vals, valid
+
+
+def fill_hist(rel_bases, blk_counts, b_bases, ts_off, b_off,
+              range_len: int):
+    """The torch glue after B1 for histograms: timestamp offsets [P*NB,
+    128] → (ts, valid) [P, S] as ``fill_gaps`` and the query range give
+    them; bucket offsets [P*B*NB, 128] plus each block's int64 base, both
+    exact in float64 → cumulative counts [P, B, S]."""
+    ts, _, valid = fill_gaps(rel_bases, blk_counts, ts_off, ts_off)
+    valid = valid & (ts >= 0) & (ts <= range_len)
+    P, B, NB = b_bases.shape
+    counts = b_off.to(torch.float64)
+    counts += b_bases.to(torch.float64).reshape(-1, 1)
+    return ts, counts.reshape(P, B, NB * BLOCK), valid
+
+
+def assemble_hist(packed, range_len: int, plain: bool = False):
+    """Torch ``_assemble_hist``: (ts [P, S], counts float64 [P, B, S], valid
+    [P, S]) from ``pack_hist_blocks`` arrays. B1 decodes each series'
+    timestamp blocks once and every bucket block in one launch; each
+    series' timestamp row serves its B bucket rows. Bucket lanes past a
+    block's count decode as the reference decodes them (the block's line),
+    masked by ``valid``. ``plain`` uses B1's plain version on any device."""
+    (rel_bases, ts_slopes, ts_widths, ts_words, b_bases, b_slopes, b_widths,
+     b_words, blk_counts) = packed
+    dec = decode_ts_blocks_plain if plain else decode_ts_blocks
+    ts_off = dec(ts_slopes.reshape(-1), ts_widths.reshape(-1),
+                 ts_words.reshape(-1, BLOCK))
+    b_off = dec(b_slopes.reshape(-1), b_widths.reshape(-1),
+                b_words.reshape(-1, BLOCK))
+    return fill_hist(rel_bases, blk_counts, b_bases, ts_off, b_off,
+                     range_len)

@@ -18,6 +18,11 @@ lane its precision gate falls back to.
 ``ts`` int32 [P, S] relative ms, non-decreasing (gap positions carry the
 previous real timestamp); ``vals`` [P, S]; ``valid`` bool [P, S];
 ``steps`` int32 [K]; ``window`` int ms. Returns [P, K], NaN = no result.
+``range_eval_masked`` also takes histogram rows, ``vals`` [P, B, S] under
+their series' ``ts`` and ``valid`` [P, S], and returns [P, B, K]: window
+bounds and valid-sample maps are computed once a series and gathered for
+its B bucket rows through expanded index views (the reference vmaps the
+whole function over the bucket axis), so each bucket is its own counter.
 """
 
 from __future__ import annotations
@@ -52,13 +57,14 @@ def _div(x: torch.Tensor, d: float) -> torch.Tensor:
 
 
 def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return torch.gather(x, 1, idx)
+    """x[..., idx] along the sample axis; an index of one row a series
+    ([P, 1, K]) serves every bucket row of ``x`` [P, B, S]."""
+    return torch.gather(x, -1, idx.expand(*x.shape[:-1], idx.shape[-1]))
 
 
 def window_bounds(ts: torch.Tensor, steps: torch.Tensor, window: int):
     """[lo, hi) sample bounds of (t-w, t] per series and step."""
-    P = ts.shape[0]
-    t = steps.to(ts.dtype)[None, :].expand(P, -1).contiguous()
+    t = steps.to(ts.dtype).expand(*ts.shape[:-1], -1).contiguous()
     hi = torch.searchsorted(ts.contiguous(), t, right=True)
     lo = torch.searchsorted(ts.contiguous(), t - window, right=True)
     return lo, hi
@@ -67,8 +73,9 @@ def window_bounds(ts: torch.Tensor, steps: torch.Tensor, window: int):
 def _prev_valid_value(v: torch.Tensor, pv: torch.Tensor):
     """(previous valid value, it exists) per position, skipping gaps
     through the prev-valid index map ``pv``."""
-    pv_prev = torch.cat([torch.full_like(pv[:, :1], -1), pv[:, :-1]], 1)
-    return torch.gather(v, 1, pv_prev.clamp(min=0)), pv_prev >= 0
+    pv_prev = torch.cat([torch.full_like(pv[..., :1], -1), pv[..., :-1]],
+                        -1)
+    return _gather(v, pv_prev.clamp(min=0)), pv_prev >= 0
 
 
 def _counter_corrected(v: torch.Tensor, valid: torch.Tensor,
@@ -77,7 +84,7 @@ def _counter_corrected(v: torch.Tensor, valid: torch.Tensor,
     the previous VALID sample."""
     prev, prev_ok = _prev_valid_value(v, pv)
     dropped = (v < prev) & valid & prev_ok
-    return v + torch.cumsum(torch.where(dropped, prev, 0.0), 1)
+    return v + torch.cumsum(torch.where(dropped, prev, 0.0), -1)
 
 
 def _floor_log2(w: torch.Tensor) -> torch.Tensor:
@@ -145,26 +152,36 @@ def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
                       valid: torch.Tensor, steps: torch.Tensor, window: int,
                       extra: float = 0.0, counter: bool = False,
                       dtype: torch.dtype = torch.float64) -> torch.Tensor:
-    """One range function at every step of every series; ``extra`` is
-    predict_linear's horizon in seconds."""
+    """One range function at every step of every series (of every bucket
+    row, for ``vals`` [P, B, S]); ``extra`` is predict_linear's horizon in
+    seconds."""
     if fn not in RANGE_FNS:
         raise ValueError(f"unknown range function {fn}")
+    if vals.dim() == 3:
+        out = _range_eval(fn, ts[:, None, :], vals, valid[:, None, :], steps,
+                          window, extra, counter, dtype)
+        return out.expand(*vals.shape[:2], out.shape[-1])
+    return _range_eval(fn, ts, vals, valid, steps, window, extra, counter,
+                       dtype)
+
+
+def _range_eval(fn, ts, vals, valid, steps, window, extra, counter, dtype):
     raw_vals = vals
     vals = vals.to(dtype)
     v = torch.where(valid, vals, 0.0)
-    S = ts.shape[1]
+    S = ts.shape[-1]
     lo, hi = window_bounds(ts, steps, window)
     vcount = _eprefix(valid.to(dtype))
     n = _gather(vcount, hi) - _gather(vcount, lo)
     has1 = n >= 1
     nan = torch.tensor(float("nan"), dtype=dtype, device=ts.device)
     if fn in _LAST_FNS:
-        sidx = torch.arange(S, dtype=torch.int64, device=ts.device)[None, :]
-        pv = torch.cummax(torch.where(valid, sidx, -1), 1).values
+        sidx = torch.arange(S, dtype=torch.int64, device=ts.device)
+        pv = torch.cummax(torch.where(valid, sidx, -1), -1).values
         last_idx = _gather(pv, (hi - 1).clamp(min=0)).clamp(0, S - 1)
     if fn in _FIRST_FNS:
         nv = torch.flip(torch.cummin(torch.flip(
-            torch.where(valid, sidx, S), [1]), 1).values, [1])
+            torch.where(valid, sidx, S), [-1]), -1).values, [-1])
         first_idx = _gather(nv, lo.clamp(max=S - 1)).clamp(0, S - 1)
 
     if fn == "count_over_time":
@@ -190,7 +207,18 @@ def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
             return torch.where(has1, sd, nan)
         return torch.where(has1, (_gather(v, last_idx) - mean) / sd, nan)
     if fn in ("min_over_time", "max_over_time"):
-        out = _range_minmax(raw_vals, valid, lo, hi, fn == "min_over_time")
+        if raw_vals.dim() == 3:  # bucket rows: one sparse table of P·B
+            P, B = raw_vals.shape[:2]
+
+            def rows(x):
+                return x.expand(P, B, x.shape[-1]).reshape(P * B, -1)
+
+            out = _range_minmax(rows(raw_vals), rows(valid), rows(lo),
+                                rows(hi), fn == "min_over_time"
+                                ).reshape(P, B, -1)
+        else:
+            out = _range_minmax(raw_vals, valid, lo, hi,
+                                fn == "min_over_time")
         return torch.where(has1, out.to(dtype), nan)
     if fn == "timestamp":
         return torch.where(has1, _gather(ts, last_idx).to(dtype) / 1000.0,

@@ -2,11 +2,18 @@
 
 Trimmed port of ``filodb_tpu/query/exec/transformers.py``:
 ``steps_array``, ``AggregateMapReduce`` (every aggregation of
-``aggregations.py``: sum … stdvar, topk / bottomk, quantile),
-``InstantVectorFunctionMapper`` (without its histogram branches) and
+``aggregations.py``: sum … stdvar, topk / bottomk, quantile; sum … stdvar
+also per bucket over a histogram matrix), ``InstantVectorFunctionMapper``
+(with ``histogram_quantile`` / ``histogram_max_quantile`` over a histogram
+matrix or ``le``-labelled bucket series, and ``hist_to_prom_vectors``) and
 ``ScalarOperationMapper`` for a fixed scalar. Values stay torch tensors on
 the device that holds them; keys are handled on the host. Output keys drop
 the metric label exactly where the reference's do.
+
+A histogram matrix's values are [P, K, B]. Aggregations flatten the buckets
+into the group axis, group id g·B + b, as the reference's mesh engine does,
+so each bucket reduces as a series of its own; instant functions and
+operators are element-wise and keep ``les``.
 """
 
 from __future__ import annotations
@@ -17,10 +24,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from filodb_tpu_torch.core.partkey import METRIC_LABEL
 from filodb_tpu_torch.device import EXACT_DTYPE
 from filodb_tpu_torch.query.engine.aggregations import (
     AGG_OPS,
     aggregate,
+    histogram_quantile,
     quantile_across,
     topk_mask,
 )
@@ -80,6 +89,13 @@ class AggregateMapReduce:
         v = tensor_of(data)
         g = torch.as_tensor(gids).to(v.device)
         G = len(out_keys)
+        if self.op in AGG_OPS and data.is_histogram:
+            P, K, B = v.shape
+            rows = v.transpose(1, 2).reshape(P * B, K)
+            gb = (g[:, None] * B + torch.arange(B, device=v.device)).reshape(-1)
+            out = aggregate(self.op, rows, gb, G * B)
+            return StepMatrix(out_keys, out.view(G, B, K).transpose(1, 2),
+                              data.steps_ms, les=data.les)
         if self.op in AGG_OPS:
             return StepMatrix(out_keys, aggregate(self.op, v, g, G),
                               data.steps_ms)
@@ -100,9 +116,50 @@ class InstantVectorFunctionMapper:
     args: tuple = ()
 
     def apply(self, data: StepMatrix) -> StepMatrix:
+        if self.function == "hist_to_prom_vectors":
+            return data.flatten_histograms() if data.is_histogram else data
+        if self.function in ("histogram_quantile", "histogram_max_quantile"):
+            q = float(self.args[0])
+            if data.is_histogram:
+                les = torch.from_numpy(np.asarray(data.les, np.float64))
+                out = histogram_quantile(q, tensor_of(data), les)
+                return data.derive([k.drop_metric() for k in data.keys], out)
+            return bucket_quantile(q, data)
         out = apply_instant_fn(self.function, tensor_of(data),
                                tuple(float(a) for a in self.args))
         return data.derive_without_metric(out)
+
+
+def bucket_quantile(q: float, data: StepMatrix) -> StepMatrix:
+    """histogram_quantile over ``le``-labelled bucket series (reference
+    ``InstantVectorFunctionMapper._bucket_quantile``): series group by
+    their labels but ``le`` and the metric, buckets sort by bound, counts
+    are made monotonic across buckets (NaN as 0, a running max), and the
+    groups of one bucket scheme take one quantile call on the device. The
+    grouping is host work on the keys."""
+    data.settle()
+    groups: dict[RangeVectorKey, list[tuple[float, int]]] = {}
+    for i, k in enumerate(data.keys):
+        le = k.label_map.get("le")
+        if le is not None:
+            gk = k.without(("le", METRIC_LABEL))
+            groups.setdefault(gk, []).append((float(le), i))
+    if not groups:
+        return StepMatrix.empty(data.steps_ms)
+    by_les: dict[tuple, list] = {}
+    for gk, buckets in groups.items():
+        buckets.sort()
+        by_les.setdefault(tuple(b[0] for b in buckets), []).append(
+            (gk, [b[1] for b in buckets]))
+    v = tensor_of(data)
+    out_keys, outs = [], []
+    for les, members in by_les.items():
+        idx = torch.tensor([rows for _, rows in members], device=v.device)
+        h = torch.cummax(torch.nan_to_num(v[idx], nan=0.0), 1).values
+        outs.append(histogram_quantile(q, h.transpose(1, 2),
+                                       torch.tensor(les, dtype=EXACT_DTYPE)))
+        out_keys.extend(gk for gk, _ in members)
+    return StepMatrix(out_keys, torch.cat(outs), data.steps_ms)
 
 
 @dataclass

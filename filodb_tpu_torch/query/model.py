@@ -2,7 +2,8 @@
 
 Port of ``filodb_tpu/query/model.py`` (``RangeVectorKey``, ``StepMatrix``,
 ``QueryStats``, ``QueryResult``): a batch of series keys plus a dense
-[P, K] value matrix over shared step timestamps, NaN marking "no sample".
+[P, K] value matrix over shared step timestamps, NaN marking "no sample";
+a histogram matrix holds [P, K, B] values under bucket bounds ``les`` [B].
 The engine hands values over as a torch tensor on its device;
 ``materialize`` applies any compaction deferred while they lived on the
 device (on the device, so only kept rows cross to the host) and brings them
@@ -11,12 +12,22 @@ to host numpy (float64).
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
+
+
+def prom_float(v: float) -> str:
+    """A float as the Prometheus wire writes it (``+Inf``, ``NaN``)."""
+    if math.isinf(v):
+        return "+Inf" if v > 0 else "-Inf"
+    if math.isnan(v):
+        return "NaN"
+    return repr(float(v))
 
 
 @dataclass(frozen=True)
@@ -51,7 +62,8 @@ class RangeVectorKey:
 
 @dataclass
 class StepMatrix:
-    """Series sharing step timestamps: values [P, K] (numpy after
+    """Series sharing step timestamps: values [P, K], or [P, K, B] with
+    bucket bounds ``les`` for a histogram matrix (numpy after
     ``materialize``, possibly a device tensor before)."""
 
     keys: list[RangeVectorKey]
@@ -62,6 +74,11 @@ class StepMatrix:
     # its batch's cached list, so mappers above it keep one keys list (and
     # the group ids the engine caches for it) across queries
     dropped_keys: list | None = None
+    les: np.ndarray | None = None  # [B] bucket upper bounds (histograms)
+
+    @property
+    def is_histogram(self) -> bool:
+        return self.values.ndim == 3
 
     @property
     def num_series(self) -> int:
@@ -84,8 +101,10 @@ class StepMatrix:
 
     def derive(self, keys, values) -> "StepMatrix":
         """A result whose rows still correspond 1:1 to this matrix's rows:
-        deferred compaction carries over and is decided on the new values."""
-        return StepMatrix(keys, values, self.steps_ms, self.pending_compact)
+        deferred compaction carries over and is decided on the new values;
+        bucket bounds carry over to values that still have a bucket axis."""
+        return StepMatrix(keys, values, self.steps_ms, self.pending_compact,
+                          les=self.les if values.ndim == 3 else None)
 
     def derive_without_metric(self, values) -> "StepMatrix":
         """``derive`` with the metric label dropped from every key; the
@@ -106,23 +125,41 @@ class StepMatrix:
                             for p in parts])
         return StepMatrix([k for p in parts for k in p.keys], values,
                           parts[0].steps_ms,
-                          any(p.pending_compact for p in parts))
+                          any(p.pending_compact for p in parts),
+                          les=parts[0].les)
 
     def settle(self) -> "StepMatrix":
         """Apply deferred compaction now, in place (on the device for device
         values: one host sync for the rows kept). Row-regrouping consumers
         (aggregations, joins) settle first, as the reference's compacted
-        host matrices reach them."""
+        host matrices reach them. A histogram row is kept where its last
+        bucket has a sample, as the reference's ``_keep_mask``."""
         if not self.pending_compact:
             return self
         self.pending_compact = False
         v = torch.as_tensor(self.values)
-        kept = (~torch.isnan(v).all(1)).nonzero().squeeze(1)
+        last = v[:, :, -1] if v.dim() == 3 else v
+        kept = (~torch.isnan(last).all(1)).nonzero().squeeze(1)
         if kept.numel() < self.num_series:
             self.keys = [self.keys[i] for i in kept.tolist()]
             self.values = v[kept]
             self.dropped_keys = None
         return self
+
+    def flatten_histograms(self) -> "StepMatrix":
+        """[P, K, B] histogram matrix → host [P·B, K], one series a bucket
+        labelled ``le`` (bucket b of series i is row i·B + b; without
+        ``les``, ``le`` counts the buckets 0, 1, … as the reference
+        does)."""
+        self.materialize()
+        B = self.values.shape[2]
+        les = self.les if self.les is not None else np.arange(B)
+        le = [prom_float(float(x)) for x in les]
+        keys = [RangeVectorKey.of({**k.label_map, "le": s})
+                for k in self.keys for s in le]
+        rows = np.ascontiguousarray(self.values.transpose(0, 2, 1)).reshape(
+            -1, self.num_steps)
+        return StepMatrix(keys, rows, self.steps_ms)
 
     def materialize(self) -> "StepMatrix":
         """Host float64 values, after any deferred compaction (applied on

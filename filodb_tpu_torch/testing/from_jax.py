@@ -5,8 +5,11 @@ The caller reads each partition of a ``filodb_tpu`` store out as numpy
 chunk in order; samples past the last chunk are its write buffer) and hands
 the list here, in the order the reference created the partitions. Each
 series is re-ingested chunk by chunk, sealing where the reference sealed,
-so both stores hold the same chunks and so the same device pages. This
-module imports nothing of ``filodb_tpu``.
+so both stores hold the same chunks and so the same device pages. A
+histogram series carries one ``HistogramColumn`` (bucket bounds and
+cumulative count rows) per chunk, and one more for its write buffer, so a
+series whose bucket scheme changed keeps each chunk's own. This module
+imports nothing of ``filodb_tpu``.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from filodb_tpu_torch.core.memstore.memstore import MemStore
+from filodb_tpu_torch.memory.codecs import HistogramColumn
 
 
 @dataclass
@@ -23,18 +27,26 @@ class SeriesState:
     schema: str
     labels: dict
     ts: np.ndarray           # int64 [n], ascending
-    vals: np.ndarray         # float64 [n]
+    vals: np.ndarray | None  # float64 [n]; None for a histogram series
     chunk_rows: list[int]    # rows of each sealed chunk, in time order
+    # histogram series: the chunks' columns in order, then the buffer's
+    hist: list[HistogramColumn] | None = None
 
 
 def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
     for st in states:
+        rows = list(st.chunk_rows)
+        if sum(rows) < len(st.ts):
+            rows.append(len(st.ts) - sum(rows))  # the write buffer
         a = 0
-        for rows in st.chunk_rows:
-            memstore.ingest(st.labels, st.ts[a : a + rows],
-                            st.vals[a : a + rows], schema=st.schema)
-            memstore.seal(st.labels, schema=st.schema)
-            a += rows
-        if a < len(st.ts):
-            memstore.ingest(st.labels, st.ts[a:], st.vals[a:],
-                            schema=st.schema)
+        for i, n in enumerate(rows):
+            seg = slice(a, a + n)
+            if st.hist is not None:
+                memstore.ingest_histogram(st.labels, st.ts[seg],
+                                          st.hist[i].rows, st.hist[i].les)
+            else:
+                memstore.ingest(st.labels, st.ts[seg], st.vals[seg],
+                                schema=st.schema)
+            if i < len(st.chunk_rows):
+                memstore.seal(st.labels, schema=st.schema)
+            a += n

@@ -17,6 +17,7 @@ from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.memory import device_pages as dp
 from filodb_tpu_torch.query.engine import cuda_kernels as ck
 from filodb_tpu_torch.query.engine.device_batch import (
+    assemble_hist,
     pack_series_pages,
     to_device,
 )
@@ -286,3 +287,63 @@ def test_query_on_card_equals_cpu(cuda):
             [str(k) for k in b.result.keys]
         np.testing.assert_allclose(a.result.values, b.result.values,
                                    rtol=2e-5, atol=1e-6, equal_nan=True)
+
+
+def _bucket_blocks(P, B, NB, seed):
+    """Histogram batch arrays as ``pack_hist_blocks`` lays them out, with
+    random words: bucket blocks [P, B, NB] cycling through every width
+    0..32, int64 bases past 2^32, random slopes; timestamp blocks of width
+    12 on a 10 s line; block counts 0..128."""
+    rng = np.random.default_rng(seed)
+    i = np.arange(P * B * NB).reshape(P, B, NB)
+    words = rng.integers(0, 2**32, (P, B, NB, 128), dtype=np.uint64)
+    ts_words = rng.integers(0, 2**12, (P, NB, 128), dtype=np.uint64)
+    arrays = (
+        rng.integers(0, 10_000_000, (P, NB)).astype(np.int32),
+        np.full((P, NB), 10_000, np.int32), np.full((P, NB), 12, np.int32),
+        ts_words.astype(np.uint32),
+        rng.integers(2**33, 2**40, (P, B, NB)),
+        rng.integers(-2**20, 2**20, (P, B, NB)).astype(np.int32),
+        (i % 33).astype(np.int32), words.astype(np.uint32),
+        rng.integers(0, 129, (P, NB)).astype(np.int32))
+    return to_device(arrays, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("P,B,NB", [(3, 1, 8), (37, 11, 8), (1001, 12, 4),
+                                    (129, 63, 2)])
+def test_b1_on_bucket_blocks_bitwise_equal_to_plain(cuda, P, B, NB):
+    """``assemble_hist`` on the card (B1 on the timestamp blocks, then on
+    all P·B·NB bucket blocks in one launch) equals its plain version on
+    the CPU bit for bit: ts, float64 counts and validity."""
+    from filodb_tpu_torch import _build
+
+    cta = _build.constant("decode_pages", "decode_pages_blocks_per_cta")
+    assert (P * B * NB) % cta
+    packed = _bucket_blocks(P, B, NB, P * B)
+    want = assemble_hist(packed, 2**31 - 1)
+    got = assemble_hist(tuple(t.to(cuda) for t in packed), 2**31 - 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_histogram_queries_on_card_equal_cpu(cuda):
+    rng = np.random.default_rng(2)
+    n, T, les = 200, 720, np.array([0.1, 0.5, 1.0, 5.0, np.inf])
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    counts = np.cumsum(np.cumsum(rng.integers(0, 4, (n, T, len(les))),
+                                 axis=2), axis=1)
+    labels = [{"_metric_": "h", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store = MemStore(4, 1, 400)
+    store.ingest_histograms(labels, ts, counts, les)
+    gpu, cpu = QueryService(store, cuda), QueryService(store, "cpu")
+    for q in ("histogram_quantile(0.9, sum(rate(h[5m])) by (_ns_))",
+              "sum(increase(h[10m])) by (job)", "max_over_time(h[5m])",
+              "h", "histogram_quantile(0.5, rate(h[5m]))"):
+        a = gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        b = cpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        assert [str(k) for k in a.result.keys] == \
+            [str(k) for k in b.result.keys]
+        np.testing.assert_allclose(a.result.values, b.result.values,
+                                   rtol=1e-9, atol=0, equal_nan=True)

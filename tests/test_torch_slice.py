@@ -260,8 +260,9 @@ def test_answer_renders_as_prometheus_matrix(services):
     "max_over_time(rate(http_requests_total[1m])[5m:1m])",
     'label_replace(http_requests_total, "a", "$1", "job", "(.*)")',
     "sort(http_requests_total)",
-    "histogram_quantile(0.9, sum(rate(http_requests_total[5m])) by (le))",
     "http_requests_total * time()",
+    "http_requests_total::sum",
+    "sum(rate(http_requests_total::count[5m])) by (job)",
 ])
 def test_other_plan_shapes_raise(services, q):
     _, _, port = services
