@@ -149,6 +149,25 @@ PROMQL_QUERIES = (
     f'sum(rate({M}{{job="job-0"}}[5m])) by (_ns_) / sum(rate({M}[5m])) '
     f"by (_ns_)",
 )
+END_S = T0_MS // 1000 + 7200  # the end of the stores' 2 h
+# the plan shapes of phase 9, at full width on the phase-2 store (and on
+# phase 5's small store, card against CPU)
+PLAN_SHAPES = (
+    f'absent({M}{{job="none"}})',
+    f"absent_over_time({_APP0}[5m])",
+    f'count_values("r", round(rate({M}[5m])))',
+    f"sort_desc(sum(rate({M}[5m])) by (_ns_))",
+    f'label_replace(sum(rate({M}[5m])) by (job), "j", "$1", "job", '
+    f'"job-(.*)")',
+    f"limit(100, {_APP0})",
+    f"{_APP0} * time()",
+    f"scalar(sum(rate({M}[5m])))",
+    "vector(1) + 1",
+    f"sum(rate({M}[5m] @ {END_S})) by (_ns_)",
+    f"max_over_time(sum(rate({M}[5m])) by (_ns_)[30m:1m])",
+)
+# instant queries of phase 9, at the end of the 2 h
+INSTANT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)", _APP0)
 # aggregations over an operator or an instant function (phase 7), each with
 # the query it must equal times a factor: their group ids come from the
 # leaf's cached keys, so a warm one costs about what its plain form does
@@ -162,8 +181,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_series(rng, a: int, b: int, samples: int):
-    """Series a..b-1: labels, jittered timestamps, counters with resets."""
+def make_series(rng, a: int, b: int, samples: int,
+                stale_every: int | None = None):
+    """Series a..b-1: labels, jittered timestamps, counters with resets,
+    and stale markers: in about 2 % of series (or in every
+    ``stale_every``-th), one run of 3-6 NaN samples at a random place, a
+    scrape target that vanished and came back."""
     n = b - a
     labels = [{"_metric_": "http_requests_total", "_ws_": "demo",
                "_ns_": f"App-{i % 100}", "instance": f"instance-{i}",
@@ -176,16 +199,23 @@ def make_series(rng, a: int, b: int, samples: int):
     at = rng.integers(1, samples, len(reset))
     for r, k in zip(reset, at):
         vals[r, k:] -= vals[r, k]
+    stale = np.flatnonzero(rng.random(n) < 0.02) if stale_every is None \
+        else np.arange(0, n, stale_every)
+    at = rng.integers(30, samples - 6, len(stale))  # after the first 5 min
+    run = rng.integers(3, 7, len(stale))
+    for r, k, m in zip(stale, at, run):
+        vals[r, k : k + m] = np.nan
     return labels, ts, vals
 
 
-def ingest(store, series: int, samples: int, seed: int) -> int:
+def ingest(store, series: int, samples: int, seed: int,
+           stale_every: int | None = None) -> int:
     rng = np.random.default_rng(seed)
     kept = 0
     step = 65536
     for a in range(0, series, step):
-        kept += store.ingest_series(*make_series(rng, a, min(a + step, series),
-                                                 samples))
+        kept += store.ingest_series(*make_series(
+            rng, a, min(a + step, series), samples, stale_every))
     return kept
 
 
@@ -678,19 +708,21 @@ def small_store_check(seed: int, dev) -> None:
     from filodb_tpu_torch.core.memstore.memstore import MemStore
 
     store = MemStore(4, 1, 400)
-    ingest(store, 256, 720, seed + 1)
+    ingest(store, 256, 720, seed + 1, stale_every=2)
     gpu, cpu = QueryService(store, dev), QueryService(store, device="cpu")
-    for q in [q for q, _ in QUERIES] + list(FAMILY_QUERIES):
-        a = gpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
-        b = cpu.query_range(q, T0_MS // 1000, 60, T0_MS // 1000 + 7200)
+    queries = [q for q, _ in QUERIES] + list(FAMILY_QUERIES) \
+        + list(PLAN_SHAPES)
+    for q in queries:
+        a = gpu.query_range(q, T0_MS // 1000, 60, END_S)
+        b = cpu.query_range(q, T0_MS // 1000, 60, END_S)
         ka = [str(k) for k in a.result.keys]
         kb = [str(k) for k in b.result.keys]
         if ka != kb or not np.allclose(a.result.values, b.result.values,
                                        rtol=2e-5, atol=1e-6,
                                        equal_nan=True):
             raise AssertionError(f"card and CPU disagree on {q}")
-    log(f"  small store: card and CPU answers agree on "
-        f"{len(QUERIES) + len(FAMILY_QUERIES)} queries (rtol 2e-5, atol "
+    log(f"  small store (stale markers in every other series): card and "
+        f"CPU answers agree on {len(queries)} queries (rtol 2e-5, atol "
         f"1e-6)")
 
 
@@ -905,6 +937,146 @@ def promql_phase(svc, args) -> dict:
     return {"queries": timings, "launches": launches,
             "peak_bytes": int(peak), "plain_checks": plain,
             "per_function_ms": per_fn, "splits": splits, "seconds": seconds}
+
+
+def plan_shapes_phase(svc, args) -> dict:
+    """Phase 9: the plan shapes beside the leaves, instant queries and the
+    metadata calls, on the phase-2 store at full width."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.http.promjson import scalar_json, vector_json
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    t_phase = time.perf_counter()
+    start, end = T0_MS // 1000, END_S
+    log("phase 9: plan shapes, instant queries and metadata on the phase-2 "
+        "store:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_counts()
+    app0 = parse_query(_APP0, TimeStepParams(start, 0, end)).raw.filters
+    calls = {q: (lambda q=q: svc.query_range(q, start, 60, end).result)
+             for q in PLAN_SHAPES}
+    calls.update({f"instant {q}": (lambda q=q: svc.query_instant(q, end))
+                  for q in INSTANT_QUERIES})
+    calls.update({"label_names()": svc.label_names,
+                  'label_values("_ns_")': lambda: svc.label_values("_ns_"),
+                  'label_values("instance")':
+                      lambda: svc.label_values("instance"),
+                  'series({_ns_="App-0"})':
+                      lambda: svc.series(app0, start, end)})
+    results, timings = {}, []
+    for name, call in calls.items():
+        t = time.perf_counter()
+        results[name] = call()
+        cold = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(3):
+            t = time.perf_counter()
+            results[name] = call()
+            warm.append((time.perf_counter() - t) * 1000.0)
+        timings.append(dict(query=name, cold_ms=cold,
+                            warm_p50_ms=float(np.median(warm))))
+        log(f"  {name}: cold {cold:.1f} ms, warm p50 "
+            f"{np.median(warm):.2f} ms")
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  launches in the phase: {launches}; peak device memory "
+        f"{peak / 1e9:.2f} GB (max_memory_allocated)")
+    if svc.device.type == "cuda" and not (
+            launches["decode_ts_page"] and launches["decode_f32_page"]
+            and launches["fused_decode_rate"]):
+        raise AssertionError("phase 9 did not run through B1/B2 and B3")
+
+    # answers: shapes and finite values
+    n_app0 = len(range(0, args.series, 100))
+    n_ns, n_job = min(100, args.series), min(10, args.series)
+    (absent, absent_ot, cvals, srt, lrep, lim, times, scal, vec, at,
+     sub) = (results[q] for q in PLAN_SHAPES)
+
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"phase 9: {what}")
+
+    need(absent.values.shape == (1, 121) and (absent.values == 1).all()
+         and absent.keys[0].labels == (("job", "none"),), "absent")
+    need(absent_ot.num_series == 0, "absent_over_time of a present series")
+    count = svc.query_range(f"count(round(rate({M}[5m])))", start, 60,
+                            end).result.values[0]
+    need(np.array_equal(np.nansum(cvals.values, 0)[1:], count[1:])
+         and all(dict(k.labels)["r"].lstrip("-").isdigit()
+                 for k in cvals.keys), "count_values against count")
+    last = srt.values[:, -1]
+    need(srt.values.shape == (n_ns, 121) and (np.diff(last) <= 0).all(),
+         "sort_desc order")
+    need(lrep.values.shape == (n_job, 121) and all(
+        dict(k.labels)["j"] == dict(k.labels)["job"][4:] for k in lrep.keys),
+        "label_replace")
+    need(lim.values.shape == (min(100, n_app0), 121), "limit")
+    plain = svc.query_range(_APP0, start, 60, end).result
+    need([str(k) for k in times.keys] == [str(k.drop_metric())
+                                          for k in plain.keys]
+         and np.allclose(times.values, plain.values * (
+             np.arange(start, end + 1, 60.0)[None, :]), rtol=1e-12,
+             equal_nan=True) and np.isfinite(times.values[:, 1:]).all(),
+         "an instant selector times time()")
+    need(scal.values.shape == (1, 121) and np.isfinite(scal.values[0, 1:])
+         .all(), "scalar()")
+    need((vec.values == 2).all() and vec.values.shape == (1, 121),
+         "vector(1) + 1")
+    rng_q = svc.query_range(f"sum(rate({M}[5m])) by (_ns_)", start, 60,
+                            end).result
+    col = {str(k): rng_q.values[i, -1] for i, k in enumerate(rng_q.keys)}
+    want_at = np.array([col[str(k)] for k in at.keys])[:, None]
+    need(at.values.shape == (n_ns, 121) and np.allclose(
+        at.values, want_at, rtol=1e-6, atol=1e-9), "@ against the range "
+         "query's column at the end")
+    # the subquery against the float64 function over the inner matrix
+    inner_start = (start * 1000 - 1_800_000) // 60_000 * 60_000
+    inner = svc.query_range(f"sum(rate({M}[5m])) by (_ns_)",
+                            inner_start // 1000, 60, end).result
+    steps = np.arange(start, end + 1, 60) * 1000
+    in_win = (inner.steps_ms[None, :] > steps[:, None] - 1_800_000) \
+        & (inner.steps_ms[None, :] <= steps[:, None])
+    vals = np.where(np.isnan(inner.values), -np.inf, inner.values)
+    want = np.where(in_win[None], vals[:, None, :], -np.inf).max(2)
+    want[want == -np.inf] = np.nan
+    order = {str(k): i for i, k in enumerate(inner.keys)}
+    want = want[[order[str(k)] for k in sub.keys]]
+    need(sub.values.shape == (n_ns, 121)
+         and np.isfinite(sub.values[:, 1:]).all()
+         and np.allclose(sub.values, want, rtol=1e-12, atol=0,
+                         equal_nan=True),
+         "the subquery against the float64 max over its inner matrix")
+    inst_agg, inst_sel = (results[f"instant {q}"] for q in INSTANT_QUERIES)
+    body = vector_json(inst_agg)
+    need(inst_agg.result.values.shape == (n_ns, 1)
+         and len(body["data"]["result"]) == n_ns and np.allclose(
+             inst_agg.result.values[:, 0],
+             [col[str(k)] for k in inst_agg.result.keys], rtol=1e-6),
+         "instant sum(rate) against the range query's last step")
+    need(inst_sel.result.values.shape == (n_app0, 1)
+         and np.isfinite(inst_sel.result.values).all(), "instant selector")
+    need(scalar_json(svc.query_instant("time()", end))["data"]["result"]
+         == [float(end), repr(float(end))], "scalar_json of time()")
+    need(results["label_names()"] == ["_metric_", "_ns_", "_ws_",
+                                      "instance", "job"], "label_names")
+    need(len(results['label_values("_ns_")']) == n_ns, "label_values(_ns_)")
+    n_inst = len(results['label_values("instance")'])
+    need(n_inst == args.series, "label_values(instance)")
+    need(len(results['series({_ns_="App-0"})']) == n_app0, "series")
+    log(f"  answers: absent, count_values (its counts summing to count()), "
+        f"sort_desc's order, label_replace, limit, time(), scalar, vector, "
+        f"@ (equal to the range query's column at the end, rtol 1e-6), the "
+        f"subquery (equal to the float64 max over its inner matrix, rtol "
+        f"1e-12), the instant queries and the metadata ({n_inst} "
+        f"instances) checked")
+    _build.LAUNCHES.update(launches)  # the checks' launches are not counted
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 9 took {seconds:.1f} s")
+    return {"queries": timings, "launches": launches,
+            "peak_bytes": int(peak), "seconds": seconds}
 
 
 # phase 8: first-class histograms. Bucket bounds: Prometheus client_golang's
@@ -1363,6 +1535,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     promql = promql_phase(svc, args)
     print(json.dumps({"promql": promql}))
+    shapes = plan_shapes_phase(svc, args)
+    print(json.dumps({"plan_shapes": shapes}))
     del svc
     torch.cuda.empty_cache()
     hist = histogram_phase(torch.device("cuda"), args, reps=5)
@@ -1370,6 +1544,7 @@ def main() -> int:
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
+        kern["launches_phase9"] = shapes["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,7 +1,8 @@
 """Part-key index of one shard: label filters → partition ids.
 
 Port of the lookup half of ``filodb_tpu/core/memstore/index.py``
-(``PartKeyIndex.part_ids_from_filters``), for ``Equals``, ``NotEquals``,
+(``PartKeyIndex.part_ids_from_filters``, ``label_names`` and
+``label_values``), for ``Equals``, ``NotEquals``,
 ``In``, ``EqualsRegex`` and ``NotEqualsRegex``, with the reference's
 semantics: positive filters (equality, set membership, a regex that does
 not match "") select partitions holding a matching value; the others are
@@ -120,3 +121,19 @@ class PartKeyIndex:
         keep &= (self._start[: self._n] <= end_time) \
             & (self._end[: self._n] >= start_time)
         return np.flatnonzero(keep)
+
+    def label_names(self) -> list[str]:
+        """The labels some partition holds, sorted."""
+        return sorted(name for name, col in self._labels.items()
+                      if (col.vid[: self._n] >= 0).any())
+
+    def label_values(self, label: str, filters=None) -> list[str]:
+        """The values of ``label`` among all partitions, or among those the
+        filters select, sorted."""
+        col = self._labels.get(label)
+        if col is None:
+            return []
+        vid = col.vid[: self._n]
+        if filters:
+            vid = vid[self.part_ids_from_filters(filters, 0, INGESTING)]
+        return sorted(col.values[i] for i in np.unique(vid[vid >= 0]))

@@ -5,11 +5,11 @@
 //
 // Computes, per series, from its packed device pages: decode every block
 // (timestamps relative to the batch base, float32 values; lanes past a
-// block's count are gaps), Prometheus counter-reset correction (a drop
-// below the previous valid value adds that value to every later sample),
-// then for every step t the window (t-w, t]: sample count n, first and last
-// valid samples, and extrapolatedRate for rate / increase / delta. Output
-// f32 [P, K], NaN where n < 2. Durations are differenced in integer ms
+// block's count and NaN values are gaps), Prometheus counter-reset
+// correction (a drop below the previous valid value adds that value to
+// every later sample), then for every step t the window (t-w, t]: sample
+// count n, first and last valid samples, and extrapolatedRate for rate /
+// increase / delta. Output f32 [P, K], NaN where n < 2. Durations are differenced in integer ms
 // and then divided by 1000 in float32; the TPU kernel divides each time by
 // 1000 first, which costs an ulp of the absolute time (a quarter ms at 40
 // minutes) in every duration, and cross-series sums of deltas magnify that
@@ -31,12 +31,17 @@
 // blocks' words are in flight while the current one is evaluated. The
 // seven per-block scalars come 32 blocks at a time, one block a lane with
 // coalesced loads, and are shuffled out. A lane decodes four neighbouring
-// samples from padded word rows without branches. Gaps are only the lanes
-// >= a block's count, so the valid ordinal and the previous valid sample
-// follow from the counts; the running-max key (gaps take the previous
-// timestamp, as assemble does) and the counter correction are one
-// warp-shuffle scan each (the correction's only where the block holds a
-// drop), carried from block to block with the last valid sample.
+// samples from padded word rows without branches. A NaN value (a
+// Prometheus staleness marker) is not a sample: the reference's host
+// decode drops it, and the plain version masks it out. A block that holds
+// one (one __any_sync tells) moves its other samples to the front in
+// order, through shared memory, so in every block the samples are the
+// lanes below a count; the valid ordinal and the previous valid sample
+// then follow from the counts. A block of NaN only carries nothing. The
+// running-max key (gaps take the previous timestamp, as assemble does) and
+// the counter correction are one warp-shuffle scan each (the correction's
+// only where the block holds a drop), carried from block to block with the
+// last valid sample.
 //
 // Steps: both ends of a window move forward with k. Step k opens when the
 // stream passes t_k - w: the first valid sample after it (its key, raw and
@@ -246,7 +251,7 @@ fused_rate_kernel(Pages pg, const int32_t* __restrict__ steps, int K,
       load_group(gb, pg, row, NB, g + 1);
     }
     const int src = b & 31;
-    const int cnt = __shfl_sync(kFullMask, ga.cnt, src);
+    int cnt = __shfl_sync(kFullMask, ga.cnt, src);
     const int32_t base = __shfl_sync(kFullMask, ga.base, src);
     const int32_t slope = __shfl_sync(kFullMask, ga.slope, src);
     // widths past 32 are not in the format; clamped, they stay in the row
@@ -259,27 +264,65 @@ fused_rate_kernel(Pages pg, const int32_t* __restrict__ steps, int K,
     issue_block(ring, ts_row, v_row, b + kStages - 1, NB, g, ga, gb);
     cp_async_wait<kStages - 1>();
     __syncwarp();
+    int32_t tt[4];
+    float vv[4];
     if (cnt > 0) {
       // 1. decode lanes 4*lane .. 4*lane+3 of block b
       const uint32_t* rts = ring + (b % kStages) * 2 * kRow;
       const uint32_t* rv = rts + kRow;
       const uint32_t tmask = width_mask(tw), vmask = width_mask(vw);
-      int32_t kk[4];
-      float vv[4];
-      int32_t m = kGap;
+      bool nan_lane = false;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int i = 4 * lane + c;
-        const bool valid = i < cnt;
         const uint32_t zz = field(rts, i, tw, tmask);
         const uint32_t resid = (zz >> 1) ^ (0u - (zz & 1u));
-        const uint32_t t = static_cast<uint32_t>(base) +
-            static_cast<uint32_t>(slope) * static_cast<uint32_t>(i) + resid;
+        tt[c] = static_cast<int32_t>(static_cast<uint32_t>(base) +
+            static_cast<uint32_t>(slope) * static_cast<uint32_t>(i) + resid);
         const uint32_t x = field(rv, i, vw, vmask);
         const uint32_t tz = static_cast<uint32_t>(shift);
-        const uint32_t bits = (tz >= 32 ? 0u : (x << tz)) ^ first;
-        vv[c] = valid ? __uint_as_float(bits) : 0.0f;
-        m = valid ? max(m, static_cast<int32_t>(t)) : m;
+        vv[c] = __uint_as_float((tz >= 32 ? 0u : (x << tz)) ^ first);
+        nan_lane = nan_lane || (i < cnt && isnan(vv[c]));
+      }
+      // NaN samples (staleness markers) are dropped: the block's other
+      // samples move to the front, in order, through key_s / raw_s, so
+      // that what follows sees a block of cnt samples with no gaps.
+      // Blocks without a NaN (nearly all) skip this.
+      if (__any_sync(kFullMask, nan_lane)) {
+        int keep[4], nk = 0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          keep[c] = 4 * lane + c < cnt && !isnan(vv[c]);
+          nk += keep[c];
+        }
+        const int incl = warp_inclusive_scan(nk, SumOp());
+        int at = incl - nk;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          if (keep[c]) {
+            key_s[at] = tt[c];
+            raw_s[at] = vv[c];
+            ++at;
+          }
+        }
+        cnt = __shfl_sync(kFullMask, incl, 31);
+        __syncwarp();
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          tt[c] = key_s[4 * lane + c];
+          vv[c] = raw_s[4 * lane + c];
+        }
+        __syncwarp();
+      }
+    }
+    if (cnt > 0) {  // the block's samples that are not NaN
+      int32_t kk[4];
+      int32_t m = kGap;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const bool valid = 4 * lane + c < cnt;
+        vv[c] = valid ? vv[c] : 0.0f;
+        m = valid ? max(m, tt[c]) : m;
         kk[c] = m;
       }
       // running-max key: warp scan of the lanes' maxima, then the carry

@@ -1,7 +1,9 @@
-"""Prometheus HTTP API JSON rendering of a range query's answer.
+"""Prometheus HTTP API JSON rendering of a query's answer.
 
-Port of ``filodb_tpu/http/promjson.py::matrix_json``: StepMatrix → the
-Prometheus ``matrix`` response body. NaN entries are gaps and are omitted;
+Port of ``filodb_tpu/http/promjson.py``: ``matrix_json`` (a range query's
+StepMatrix → the ``matrix`` body), ``vector_json`` (an instant query's
+last step → the ``vector`` body) and ``scalar_json`` (a scalar
+expression's last step). NaN entries are gaps and are omitted;
 a series with no sample at all is left out. A histogram matrix is
 flattened into one series a bucket, labelled ``le``
 (``StepMatrix.flatten_histograms``), as the reference renders first-class
@@ -44,3 +46,29 @@ def matrix_json(result: QueryResult) -> dict:
     return {"status": "success",
             "data": {"resultType": "matrix", "result": series},
             "queryStats": _stats_json(result)}
+
+
+def vector_json(result: QueryResult) -> dict:
+    """The last step of every series with a value there."""
+    m = result.result.materialize()
+    if m.is_histogram:
+        m = m.flatten_histograms()
+    out = []
+    k = m.num_steps - 1
+    for i, key in enumerate(m.keys):
+        v = m.values[i, k] if m.num_steps else float("nan")
+        if not math.isnan(v):
+            out.append({"metric": _labels_json(key),
+                        "value": [m.steps_ms[k] / 1000.0, _fmt(v)]})
+    return {"status": "success",
+            "data": {"resultType": "vector", "result": out}}
+
+
+def scalar_json(result: QueryResult) -> dict:
+    """A scalar expression's value at the last step."""
+    m = result.result.materialize()
+    k = m.num_steps - 1
+    v = m.values[0, k] if m.num_series else float("nan")
+    return {"status": "success",
+            "data": {"resultType": "scalar",
+                     "result": [m.steps_ms[k] / 1000.0, _fmt(v)]}}

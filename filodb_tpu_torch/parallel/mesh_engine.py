@@ -10,11 +10,16 @@ is lowered (``lower_plan``) from
     selector offset o                the instant selector: the last sample
                                      within the staleness lookback
 
-and ``execute`` walks everything above the leaves: aggregations (sum, avg,
-min, max, count, group, stddev, stdvar, topk, bottomk, quantile), instant
-functions, operators with a fixed scalar, and binary joins and set
-operators of two vectors. Any other plan raises ``UnsupportedQuery``
-naming its shape; nothing answers it some other way.
+(either at the query's steps, or once at an ``@`` time and repeated
+across them) and ``execute`` walks everything above the leaves:
+aggregations (sum, avg, min, max, count, group, stddev, stdvar, topk,
+bottomk, quantile, count_values), instant functions, absent, sort,
+label_replace / label_join, limit, operators with a number or a per-step
+scalar, binary joins and set operators of two vectors, scalar plans
+(numbers, ``time()``, ``scalar(v)``, scalar arithmetic, ``vector(s)``)
+and subqueries, whose range function runs over the inner matrix's steps
+as samples. Any other plan raises ``UnsupportedQuery`` naming its shape;
+nothing answers it some other way.
 
 A query selects partitions shard by shard, packs their page blocks
 (``device_batch.pack_blocks``) and uploads the packed pages only. On the
@@ -54,6 +59,7 @@ ingests again, as the reference's mesh engine caches placed batches.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -90,13 +96,23 @@ from filodb_tpu_torch.query.exec.binaryjoin import (
     binary_join,
     set_operator,
 )
+from filodb_tpu_torch.query.engine.instantfns import apply_binary_op
 from filodb_tpu_torch.query.exec.transformers import (
+    AbsentFunctionMapper,
     AggregateMapReduce,
     InstantVectorFunctionMapper,
+    LimitFunctionMapper,
+    MiscellaneousFunctionMapper,
     ScalarOperationMapper,
+    SortFunctionMapper,
     steps_array,
+    tensor_of,
 )
-from filodb_tpu_torch.query.model import QueryStats, StepMatrix
+from filodb_tpu_torch.query.model import (
+    QueryStats,
+    RangeVectorKey,
+    StepMatrix,
+)
 
 F32_SAFE_MAX = float(1 << 20)
 # range functions whose windows B4 sums (values and validity)
@@ -115,6 +131,8 @@ HIST_INSTANT_FNS = ("histogram_quantile", "histogram_max_quantile",
                     "hist_to_prom_vectors")
 STALENESS_MS = 300_000  # the instant selector's default lookback
 _RANK_AGGS = ("topk", "bottomk", "quantile")  # one scalar parameter
+_SCALAR_PLANS = (lp.ScalarFixedDoublePlan, lp.ScalarTimeBasedPlan,
+                 lp.ScalarVaryingDoublePlan, lp.ScalarBinaryOperation)
 # working set of a decode chunk: the decoded rows plus the temporaries of
 # the function evaluated on them stay near this whatever the row length
 _DECODE_BYTES = 25 << 27
@@ -155,11 +173,13 @@ class Lowered:
     offset: int
     params: tuple = ()
     keep_metric: bool = False  # the instant selector keeps the metric
+    at_ms: int | None = None   # @: every step evaluates at this time
 
     @property
     def chunk_range(self) -> tuple[int, int]:
-        return (self.start - self.window - self.offset,
-                self.end - self.offset)
+        lo, hi = (self.start, self.end) if self.at_ms is None \
+            else (self.at_ms, self.at_ms)
+        return lo - self.window - self.offset, hi - self.offset
 
 
 def _shape(plan) -> str:
@@ -173,8 +193,6 @@ def _is_number(x) -> bool:
 
 
 def _raw_selector(plan) -> lp.RawSeries:
-    if plan.at_ms is not None:
-        raise UnsupportedQuery("the @ modifier is not served by this slice")
     raw = plan.raw
     if not isinstance(raw, lp.RawSeries) or raw.column is not None:
         raise UnsupportedQuery(
@@ -197,17 +215,59 @@ def lower_plan(plan) -> Lowered:
         # the parser records the selector offset on both nodes: one value
         return Lowered(tuple(raw.filters), plan.start, plan.step, plan.end,
                        plan.window, plan.function, plan.offset or raw.offset,
-                       tuple(float(p) for p in plan.params))
+                       tuple(float(p) for p in plan.params),
+                       at_ms=plan.at_ms)
     if isinstance(plan, lp.PeriodicSeries):
         raw = _raw_selector(plan)
         return Lowered(tuple(raw.filters), plan.start, plan.step, plan.end,
                        raw.lookback or STALENESS_MS, "last_sample",
-                       plan.offset or raw.offset, keep_metric=True)
+                       plan.offset or raw.offset, keep_metric=True,
+                       at_ms=plan.at_ms)
     raise UnsupportedQuery(
         f"plan shape {_shape(plan)} is not served by this slice: it serves "
-        f"range functions and instant selectors over scalar series, "
-        f"aggregations, instant functions, operators with a number and "
-        f"binary joins and set operators of vectors")
+        f"range functions and instant selectors, the plans above them and "
+        f"scalar plans")
+
+
+def retime(plan, start: int, step: int, end: int):
+    """``plan`` evaluated over [start, end] at ``step`` (the reference
+    planner's ``_retime``, for subqueries)."""
+    if isinstance(plan, (lp.PeriodicSeries, lp.PeriodicSeriesWithWindowing)):
+        raw = dataclasses.replace(plan.raw, range_start=start, range_end=end)
+        return dataclasses.replace(plan, raw=raw, start=start, step=step,
+                                   end=end)
+    if isinstance(plan, (lp.SubqueryWithWindowing, lp.ScalarFixedDoublePlan,
+                         lp.ScalarTimeBasedPlan, lp.ScalarBinaryOperation)):
+        return dataclasses.replace(plan, start=start, step=step, end=end)
+    if dataclasses.is_dataclass(plan):
+        changes = {f.name: retime(getattr(plan, f.name), start, step, end)
+                   for f in dataclasses.fields(plan)
+                   if isinstance(getattr(plan, f.name), lp.LogicalPlan)}
+        if changes:
+            return dataclasses.replace(plan, **changes)
+    return plan
+
+
+def _matrix_fn(fn: str, params: tuple, ts, vals, valid, steps,
+               window: int) -> torch.Tensor:
+    """A range function over an evaluated matrix's rows (a subquery's
+    inner steps as samples), in float64 on the device."""
+    if fn == "quantile_over_time":
+        return quantile_over_time_masked(params[0], ts, vals, valid, steps,
+                                         window, _QUANTILE_BLOCK,
+                                         dtype=EXACT_DTYPE)
+    if fn == "holt_winters":
+        return holt_winters_masked(*params, ts, vals, valid, steps, window,
+                                   dtype=EXACT_DTYPE)
+    return range_eval_masked(fn, ts, vals, valid, steps, window,
+                             extra=params[0] if params else 0.0,
+                             dtype=EXACT_DTYPE)
+
+
+def _int32_steps(rel: np.ndarray) -> torch.Tensor:
+    if rel.size and (rel.min() < -2**31 or rel.max() >= 2**31 - 1):
+        raise UnsupportedQuery("query range too long for int32 ms steps")
+    return torch.from_numpy(rel.astype(np.int32))
 
 
 @dataclass
@@ -389,6 +449,9 @@ class MeshQueryEngine:
         return sum(b.nbytes for b in self._batches.values())
 
     def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
+        """A leaf at its steps; under ``@`` it is evaluated once, at the
+        ``@`` time, and the column repeats across the steps (each of the
+        reference's steps computes the same)."""
         steps_ms = steps_array(low.start, low.step, low.end)
         batch = self._batch(memstore, low)
         if not batch.keys:
@@ -399,13 +462,14 @@ class MeshQueryEngine:
                 f"this slice (served: {', '.join(HIST_FNS)})")
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
-        rel = (steps_ms - low.offset - low.chunk_range[0])
-        if rel.size and (rel.min() < -2**31 or rel.max() >= 2**31 - 1):
-            raise UnsupportedQuery("query range too long for int32 ms steps")
-        host_steps = torch.from_numpy(rel.astype(np.int32))
+        eval_ms = steps_ms if low.at_ms is None \
+            else np.array([low.at_ms], np.int64)
+        host_steps = _int32_steps(eval_ms - low.offset - low.chunk_range[0])
         flight = steps_in_flight(host_steps, low.window)
         res = self._eval(batch, low, host_steps.to(self.device), flight,
                          stats)
+        if low.at_ms is not None:
+            res = res.expand(res.shape[0], len(steps_ms), *res.shape[2:])
         return StepMatrix(batch.keys if low.keep_metric else batch.out_keys,
                           res, steps_ms, dropped_keys=batch.out_keys,
                           les=batch.les)
@@ -432,15 +496,103 @@ class MeshQueryEngine:
         params = tuple(plan.params)
         if not (plan.op in AGG_OPS and not params
                 or plan.op in _RANK_AGGS and len(params) == 1
-                and _is_number(params[0])):
+                and _is_number(params[0])
+                or plan.op == "count_values" and len(params) == 1
+                and isinstance(params[0], str)):
             raise UnsupportedQuery(
                 f"aggregation {plan.op}"
                 f"{'(' + ', '.join(map(str, params)) + ')' if params else ''}"
                 f" is not served by this slice (served: "
                 f"{', '.join(AGG_OPS + _RANK_AGGS)}, the last three with a "
-                f"number)")
+                f"number, and count_values with a label)")
         return AggregateMapReduce(plan.op, params, tuple(plan.by),
                                   tuple(plan.without))
+
+    # ---- scalars and subqueries ----------------------------------------------
+
+    def _scalar(self, memstore, plan, stats: QueryStats):
+        """A scalar plan → (values float64 [K] on the device, steps_ms),
+        as the reference's scalar execs compute them."""
+        if isinstance(plan, lp.ScalarVaryingDoublePlan):
+            data = self.execute(memstore, plan.vector, stats).settle()
+            if data.is_histogram:
+                raise UnsupportedQuery("scalar() of a histogram is not "
+                                       "served by this slice")
+            if data.num_series == 0:
+                return torch.full((data.num_steps,), float("nan"),
+                                  dtype=EXACT_DTYPE, device=self.device), \
+                    data.steps_ms
+            v = tensor_of(data, self.device)
+            present = ~torch.isnan(v)
+            one = torch.where(present, v, 0.0).sum(0)
+            return torch.where(present.sum(0) == 1, one, float("nan")), \
+                data.steps_ms
+        steps = steps_array(plan.start, plan.step or 1000, plan.end)
+        if isinstance(plan, lp.ScalarFixedDoublePlan):
+            return torch.full((len(steps),), float(plan.value),
+                              dtype=EXACT_DTYPE, device=self.device), steps
+        if isinstance(plan, lp.ScalarTimeBasedPlan):
+            if plan.function != "time":
+                raise ValueError(f"unknown scalar generator {plan.function}")
+            return torch.from_numpy(steps / 1000.0).to(self.device), steps
+
+        def side(x):
+            if _is_number(x):
+                return torch.full((len(steps),), float(x), dtype=EXACT_DTYPE,
+                                  device=self.device)
+            return self._scalar(memstore, x, stats)[0]
+
+        return apply_binary_op(plan.op, side(plan.lhs), side(plan.rhs)), steps
+
+    def _subquery(self, memstore, plan: lp.SubqueryWithWindowing,
+                  stats: QueryStats) -> StepMatrix:
+        """A range function over a subquery: the inner plan at the
+        sub-step over the window before the first step (its start aligned
+        down to a multiple of the sub-step, as the reference planner
+        aligns it), then the function over the inner steps as samples,
+        NaN entries dropped, on the device."""
+        if SERVED_FNS.get(plan.function) != len(plan.params):
+            raise UnsupportedQuery(
+                f"range function {plan.function} over a subquery is not "
+                f"served by this slice")
+        sub_step = plan.subquery_step or 60_000
+        inner_start = plan.start - plan.subquery_window - plan.offset
+        inner_start = (inner_start // sub_step) * sub_step
+        inner = self.execute(memstore, retime(
+            plan.inner, inner_start, sub_step, plan.end - plan.offset),
+            stats).settle()
+        steps_ms = steps_array(plan.start, plan.step, plan.end)
+        if inner.num_series == 0:
+            return StepMatrix.empty(steps_ms)
+        if inner.is_histogram:
+            raise UnsupportedQuery("a subquery over a histogram is not "
+                                   "served by this slice")
+        vals = tensor_of(inner, self.device)
+        base = int(inner.steps_ms[0])
+        ts = _int32_steps(inner.steps_ms - base).to(self.device)
+        ts = ts[None, :].expand(vals.shape[0], -1).contiguous()
+        steps = _int32_steps(steps_ms - plan.offset - base).to(self.device)
+        out = _matrix_fn(plan.function, tuple(plan.params), ts, vals,
+                         ~torch.isnan(vals), steps, plan.subquery_window)
+        if plan.function == "timestamp":
+            out = out + base / 1000.0
+        return StepMatrix([k.drop_metric() for k in inner.keys], out,
+                          steps_ms)
+
+    @staticmethod
+    def _scalar_matrix(values: torch.Tensor, steps_ms) -> StepMatrix:
+        """A scalar as the one-series, label-free matrix the reference's
+        scalar execs answer."""
+        return StepMatrix([RangeVectorKey(())], values[None, :], steps_ms)
+
+    def _vector(self, memstore, plan, stats: QueryStats,
+                what: str) -> StepMatrix:
+        """``plan``'s matrix, which must not be a histogram for ``what``."""
+        data = self.execute(memstore, plan, stats)
+        if data.is_histogram:
+            raise UnsupportedQuery(f"{what} over a histogram is not served "
+                                   f"by this slice")
+        return data
 
     def execute(self, memstore, plan, stats: QueryStats) -> StepMatrix:
         """Evaluate ``plan``: the one place that walks a plan tree."""
@@ -463,16 +615,41 @@ class MeshQueryEngine:
             return InstantVectorFunctionMapper(plan.function, tuple(
                 plan.args)).apply(self.execute(memstore, plan.vector, stats))
         if isinstance(plan, lp.ScalarVectorBinaryOperation):
-            sc = plan.scalar.value \
-                if isinstance(plan.scalar, lp.ScalarFixedDoublePlan) \
-                else plan.scalar
-            if not _is_number(sc):
-                raise UnsupportedQuery(
-                    f"operator {plan.op} with a {_shape(plan.scalar)} "
-                    f"scalar is not served by this slice (only a number)")
+            if isinstance(plan.scalar, lp.ScalarFixedDoublePlan) \
+                    or _is_number(plan.scalar):
+                sc = float(getattr(plan.scalar, "value", plan.scalar))
+                data = self.execute(memstore, plan.vector, stats)
+            else:
+                data = self._vector(memstore, plan.vector, stats,
+                                    f"operator {plan.op} with a "
+                                    f"{_shape(plan.scalar)} scalar")
+                sc = self._scalar(memstore, plan.scalar, stats)[0]
             return ScalarOperationMapper(
-                plan.op, float(sc), plan.scalar_is_lhs, plan.bool_mode
-            ).apply(self.execute(memstore, plan.vector, stats))
+                plan.op, sc, plan.scalar_is_lhs, plan.bool_mode).apply(data)
+        if isinstance(plan, _SCALAR_PLANS):
+            return self._scalar_matrix(*self._scalar(memstore, plan, stats))
+        if isinstance(plan, lp.VectorPlan):
+            return self._scalar_matrix(*self._scalar(memstore, plan.scalar,
+                                                     stats))
+        if isinstance(plan, lp.ApplyAbsentFunction):
+            return AbsentFunctionMapper(
+                plan.filters, plan.start, plan.step or 1000, plan.end,
+                self.device).apply(self._vector(memstore, plan.vector, stats,
+                                                "absent"))
+        if isinstance(plan, lp.ApplySortFunction):
+            return SortFunctionMapper(plan.descending).apply(
+                self._vector(memstore, plan.vector, stats, "sort"))
+        if isinstance(plan, lp.ApplyMiscellaneousFunction):
+            return MiscellaneousFunctionMapper(plan.function, tuple(
+                plan.args)).apply(self.execute(memstore, plan.vector, stats))
+        if isinstance(plan, lp.ApplyLimitFunction):
+            return LimitFunctionMapper(plan.limit).apply(
+                self.execute(memstore, plan.vector, stats))
+        if isinstance(plan, lp.SubqueryWithWindowing):
+            return self._subquery(memstore, plan, stats)
+        if isinstance(plan, lp.TopLevelSubquery):
+            return self.execute(memstore, retime(plan.inner, plan.start,
+                                                 plan.step, plan.end), stats)
         if isinstance(plan, lp.BinaryJoin):
             lhs = self.execute(memstore, plan.lhs, stats)
             rhs = self.execute(memstore, plan.rhs, stats)

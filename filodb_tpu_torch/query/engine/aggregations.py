@@ -4,7 +4,8 @@ Port of ``filodb_tpu/query/engine/aggregations.py``: ``aggregate`` (sum,
 avg, min, max, count, group, stddev, stdvar: [P, K] per-series results →
 [G, K] per group), ``topk_mask`` (topk / bottomk), ``quantile_across`` and
 ``histogram_quantile`` (Prometheus' bucket interpolation over [..., B]
-cumulative bucket values).
+cumulative bucket values); and ``count_values``, the device half of the
+exec engine's host branch of ``AggregateMapReduce``.
 NaN is excluded from every operation; a group with no sample at a step is
 NaN there. Plain PyTorch (``index_add_`` / ``scatter_reduce_`` / stable
 sorts); the reference uses XLA segment reductions here, not a Pallas
@@ -156,3 +157,31 @@ def histogram_quantile(q: float, buckets: torch.Tensor,
     if q < 0 or q > 1:
         return torch.full_like(val, float("-inf") if q < 0 else float("inf"))
     return val
+
+
+def count_values(values: torch.Tensor, group_ids: torch.Tensor):
+    """count_values over [P, K] values: → (group id [n], value [n]) of the
+    n distinct (group, value) pairs among the non-NaN entries, ordered by
+    group, then value, and their counts at each step [n, K] (NaN where a
+    pair does not occur), as the reference's ``np.unique`` over (group,
+    value, step) triples gives them. On the device: the distinct values
+    (one ``torch.unique``) number the values in order, and one
+    ``torch.unique`` over the int64 keys (group, value number, step)
+    counts the triples."""
+    v = values.to(EXACT_DTYPE)
+    P, K = v.shape
+    present = ~torch.isnan(v)
+    gids = group_ids.to(device=v.device, dtype=torch.int64)
+    g = gids[:, None].expand(P, K)[present]
+    s = torch.arange(K, device=v.device)[None, :].expand(P, K)[present]
+    uniq_v, vid = torch.unique(v[present], return_inverse=True)
+    nv = max(uniq_v.numel(), 1)
+    if (int(gids.max()) + 1 if P else 1) * nv * K >= 2**62:
+        raise ValueError("count_values: too many distinct values to key")
+    triples, counts = torch.unique((g * nv + vid) * K + s,
+                                   return_counts=True)
+    pairs, row_of = torch.unique(triples // K, return_inverse=True)
+    out = torch.full((pairs.numel(), K), float("nan"), dtype=EXACT_DTYPE,
+                     device=v.device)
+    out[row_of, triples % K] = counts.to(EXACT_DTYPE)
+    return pairs // nv, uniq_v[pairs % nv], out

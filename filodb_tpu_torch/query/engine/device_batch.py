@@ -4,8 +4,10 @@ Port of ``filodb_tpu/query/engine/device_batch.py``: ``pack_series_pages``
 lays the page blocks of each selected series side by side in dense
 [P, NB, ...] arrays (P and NB padded to powers of two), and ``assemble`` is
 the torch form of ``_assemble``: decode every block through kernels B1 and
-B2, add the block base, mark validity from ``blk_counts``, give gaps the
-previous real timestamp (``torch.cummax``) and apply the query-range mask.
+B2, add the block base, mark validity from ``blk_counts`` and drop NaN
+samples (staleness markers, which the reference's host decode filters), give
+gaps the previous real timestamp (``torch.cummax``) and apply the
+query-range mask.
 
 Packing is vectorised: page blocks live in ``PageBlocks`` tables (one per
 shard for sealed chunks, one for the encoded write buffers), and a batch is
@@ -311,11 +313,16 @@ def decode_packed(packed, plain: bool = False):
 
 def fill_gaps(rel_bases, blk_counts, off, vals):
     """The torch glue after B1/B2: per-block offsets [P*NB, 128] and values
-    → (ts, vals, valid) [P, NB*128], ts = base + offset on valid lanes and
-    the running max over the row (gaps take the previous real timestamp)."""
+    → (ts, vals, valid) [P, NB*128]. A lane is valid below its block's
+    count and where its value is not NaN: a NaN sample (a Prometheus
+    staleness marker) is dropped, as the reference's host decode drops it.
+    ts = base + offset on valid lanes and the running max over the row, so
+    gaps (NaN samples among them) take the previous real timestamp.
+    Integer offsets (``fill_hist`` passes timestamps as values) hold no
+    NaN."""
     P, NB = rel_bases.shape
     lane = torch.arange(BLOCK, dtype=torch.int32, device=off.device)
-    valid = lane[None, :] < blk_counts.reshape(-1, 1)
+    valid = (lane[None, :] < blk_counts.reshape(-1, 1)) & (vals == vals)
     ts = torch.where(valid, rel_bases.reshape(-1, 1) + off, TS_GAP_MIN)
     S = NB * BLOCK
     ts = torch.cummax(ts.reshape(P, S), 1).values

@@ -2,13 +2,16 @@
 
 Trimmed port of ``filodb_tpu/query/exec/transformers.py``:
 ``steps_array``, ``AggregateMapReduce`` (every aggregation of
-``aggregations.py``: sum … stdvar, topk / bottomk, quantile; sum … stdvar
-also per bucket over a histogram matrix), ``InstantVectorFunctionMapper``
-(with ``histogram_quantile`` / ``histogram_max_quantile`` over a histogram
-matrix or ``le``-labelled bucket series, and ``hist_to_prom_vectors``) and
-``ScalarOperationMapper`` for a fixed scalar. Values stay torch tensors on
-the device that holds them; keys are handled on the host. Output keys drop
-the metric label exactly where the reference's do.
+``aggregations.py``: sum … stdvar, topk / bottomk, quantile, count_values;
+sum … stdvar also per bucket over a histogram matrix),
+``InstantVectorFunctionMapper`` (with ``histogram_quantile`` /
+``histogram_max_quantile`` over a histogram matrix or ``le``-labelled
+bucket series, and ``hist_to_prom_vectors``), ``ScalarOperationMapper``
+(a number, or a per-step scalar), ``MiscellaneousFunctionMapper``
+(label_replace, label_join), ``SortFunctionMapper``,
+``AbsentFunctionMapper`` and ``LimitFunctionMapper``. Values stay torch
+tensors on the device that holds them; keys are handled on the host.
+Output keys drop the metric label exactly where the reference's do.
 
 A histogram matrix's values are [P, K, B]. Aggregations flatten the buckets
 into the group axis, group id g·B + b, as the reference's mesh engine does,
@@ -19,6 +22,7 @@ operators are element-wise and keep ``les``.
 from __future__ import annotations
 
 import math
+import re
 from dataclasses import dataclass
 
 import numpy as np
@@ -26,9 +30,11 @@ import torch
 
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
 from filodb_tpu_torch.device import EXACT_DTYPE
+from filodb_tpu_torch.core.filters import Equals
 from filodb_tpu_torch.query.engine.aggregations import (
     AGG_OPS,
     aggregate,
+    count_values,
     histogram_quantile,
     quantile_across,
     topk_mask,
@@ -107,7 +113,23 @@ class AggregateMapReduce:
         if self.op == "quantile":
             return StepMatrix(out_keys, quantile_across(
                 float(self.params[0]), v, g, G), data.steps_ms)
+        if self.op == "count_values":
+            label = str(self.params[0])
+            pg, pv, counts = count_values(v, g)
+            keys = [RangeVectorKey(tuple(sorted(
+                list(out_keys[gi].labels) + [(label, _fmt_value(val))])))
+                for gi, val in zip(pg.tolist(), pv.tolist())]
+            return StepMatrix(keys, counts, data.steps_ms)
         raise ValueError(f"unknown aggregation {self.op}")
+
+
+def _fmt_value(v: float) -> str:
+    """count_values' label value, as the reference writes it: an integral
+    value as an integer, any other as ``repr`` of the numpy float64 that
+    ``np.unique`` hands it (``np.float64(2.5)`` under numpy 2)."""
+    if v == int(v):
+        return str(int(v))
+    return repr(np.float64(v))
 
 
 @dataclass
@@ -164,17 +186,22 @@ def bucket_quantile(q: float, data: StepMatrix) -> StepMatrix:
 
 @dataclass
 class ScalarOperationMapper:
-    """vector-scalar binary operation (reference ``ScalarOperationMapper``)
-    for a fixed scalar."""
+    """vector-scalar binary operation (reference ``ScalarOperationMapper``):
+    ``scalar`` is a number, or a per-step scalar, a tensor [K] (``time()``,
+    ``scalar(v)``, scalar arithmetic), which applies to step k of every
+    series."""
 
     op: str
-    scalar: float
+    scalar: "float | torch.Tensor"
     scalar_is_lhs: bool = True
     bool_mode: bool = False
 
     def apply(self, data: StepMatrix) -> StepMatrix:
         v = tensor_of(data)
-        sc = torch.full_like(v, float(self.scalar))
+        if isinstance(self.scalar, torch.Tensor):
+            sc = self.scalar.to(v)[None, :].expand_as(v)
+        else:
+            sc = torch.full_like(v, float(self.scalar))
         lhs, rhs = (sc, v) if self.scalar_is_lhs else (v, sc)
         if self.op in COMPARISON_OPS and not self.bool_mode:
             # comparison filtering keeps the vector's sample values
@@ -183,3 +210,113 @@ class ScalarOperationMapper:
         else:
             out = apply_binary_op(self.op, lhs, rhs, self.bool_mode)
         return data.derive_without_metric(out)
+
+
+@dataclass
+class MiscellaneousFunctionMapper:
+    """label_replace / label_join (reference
+    ``MiscellaneousFunctionMapper``): keys change on the host, values pass
+    through."""
+
+    function: str
+    args: tuple = ()
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        keys = []
+        if self.function == "label_replace":
+            dst, repl, src, regex = self.args[:4]
+            pat = re.compile(f"^(?:{regex})$")
+            repl = _dollar_to_backslash(repl)
+            for k in data.keys:
+                lm = k.label_map
+                m = pat.match(lm.get(src, ""))
+                if m:
+                    val = m.expand(repl)
+                    if val:
+                        lm[dst] = val
+                    else:
+                        lm.pop(dst, None)
+                keys.append(RangeVectorKey.of(lm))
+        elif self.function == "label_join":
+            dst, sep, *srcs = self.args
+            for k in data.keys:
+                lm = k.label_map
+                lm[dst] = sep.join(lm.get(s, "") for s in srcs)
+                keys.append(RangeVectorKey.of(lm))
+        else:
+            raise ValueError(f"unknown misc function {self.function}")
+        return data.derive(keys, data.values)
+
+
+def _dollar_to_backslash(repl: str) -> str:
+    """PromQL's ``$1`` / ``${1}`` → Python's ``\\1``."""
+    return re.sub(r"\$(\d+|\{\w+\})",
+                  lambda m: "\\" + m.group(1).strip("{}"), repl)
+
+
+@dataclass
+class SortFunctionMapper:
+    """sort / sort_desc (reference ``SortFunctionMapper``): series ordered
+    by their value at the last step, stably; NaN reads as -inf for sort and
+    +inf for sort_desc (both first), an infinity as the largest finite
+    value (``nan_to_num``)."""
+
+    descending: bool = False
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        data.settle()
+        if data.num_series == 0:
+            return data
+        v = tensor_of(data)
+        last = torch.nan_to_num(v[:, -1], nan=math.inf if self.descending
+                                else -math.inf)
+        order = torch.argsort(-last if self.descending else last,
+                              stable=True)
+        return data.derive([data.keys[i] for i in order.tolist()],
+                           v[order])
+
+
+@dataclass
+class AbsentFunctionMapper:
+    """absent / absent_over_time (reference ``AbsentFunctionMapper``): one
+    series, labelled by the selector's ``Equals`` filters other than the
+    metric, that is 1 at the steps where no input series has a value, or
+    no series when every step has one."""
+
+    filters: tuple = ()
+    start: int = 0
+    step: int = 1000
+    end: int = 0
+    device: torch.device | None = None  # where an answer of no input goes
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        steps = steps_array(self.start, self.step, self.end)
+        data.settle()
+        if data.num_series == 0:
+            out = torch.ones((1, len(steps)), dtype=EXACT_DTYPE,
+                             device=self.device)
+        else:
+            v = tensor_of(data)
+            out = torch.where(torch.isnan(v).all(0, keepdim=True), 1.0,
+                              math.nan)
+        if bool(torch.isnan(out).all()):
+            return StepMatrix.empty(steps)
+        labels = {f.column: f.filter.value for f in self.filters
+                  if isinstance(f.filter, Equals)
+                  and f.column != METRIC_LABEL}
+        return StepMatrix([RangeVectorKey.of(labels)], out, steps)
+
+
+@dataclass
+class LimitFunctionMapper:
+    """FiloDB's limit (reference ``LimitFunctionMapper``): the first
+    ``limit`` series."""
+
+    limit: int = 1000
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        data.settle()
+        if data.num_series <= self.limit:
+            return data
+        return data.derive(data.keys[: self.limit],
+                           torch.as_tensor(data.values)[: self.limit])

@@ -2,7 +2,9 @@
 query loads neither JAX nor any module of the JAX package. Checked in a
 fresh interpreter, because this test process imports JAX for every test;
 there both are blocked (an import of either raises), and the port's
-modules, histograms included, import and answer all the same.
+modules, histograms, absent, count_values, sort, label functions, limit,
+scalars, @, subqueries, instant queries and the metadata calls included,
+import and answer all the same.
 """
 
 import json
@@ -51,13 +53,34 @@ flat = matrix_json(svc.query_range("sum(rate(lat[5m])) by (_ns_)",
                                    1_600_000_600, 60, 1_600_001_400))
 quant = svc.query_range("histogram_quantile(0.9, sum(rate(lat[5m])) by (job))",
                         1_600_000_600, 60, 1_600_001_400)
+from filodb_tpu_torch.http.promjson import scalar_json, vector_json
+shapes = {}
+for q in ('absent(nope{job="x"})', 'count_values("v", http_requests_total % 3)',
+          "sort_desc(rate(http_requests_total[5m]))",
+          'label_replace(http_requests_total, "j", "$1", "job", "job-(.*)")',
+          "limit(2, http_requests_total)", "http_requests_total * time()",
+          "scalar(sum(rate(http_requests_total[5m])))", "vector(1) + 1",
+          "sum(rate(http_requests_total[5m] @ 1600001000)) by (_ns_)",
+          "max_over_time(sum(rate(http_requests_total[5m])) by (_ns_)[10m:1m])"):
+    shapes[q] = svc.query_range(q, 1_600_000_600, 60, 1_600_001_400) \
+        .result.num_series
+inst = vector_json(svc.query_instant("sum(rate(http_requests_total[5m])) "
+                                     "by (_ns_)", 1_600_001_400))
+scal = scalar_json(svc.query_instant("time()", 1_600_001_400))
+from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+app0 = parse_query('lat{_ns_="App-0"}', TimeStepParams(0, 0, 0)).raw.filters
+meta = {"names": svc.label_names(), "jobs": svc.label_values("job"),
+        "series": len(svc.series(app0, 1_600_000_000, 1_600_002_000))}
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
 print(json.dumps({"series": len(body["data"]["result"]),
                   "joined": joined.result.num_series,
                   "buckets": len(flat["data"]["result"]),
-                  "quantiles": quant.result.num_series, "loaded": loaded}))
+                  "quantiles": quant.result.num_series, "shapes": shapes,
+                  "instant": len(inst["data"]["result"]),
+                  "scalar": scal["data"]["result"], "meta": meta,
+                  "loaded": loaded}))
 """
 
 
@@ -70,4 +93,22 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["joined"] > 0
     assert res["buckets"] == 2 * 3
     assert res["quantiles"] == 3
+    assert res["shapes"] == {
+        'absent(nope{job="x"})': 1,
+        'count_values("v", http_requests_total % 3)': 3,
+        "sort_desc(rate(http_requests_total[5m]))": 12,
+        'label_replace(http_requests_total, "j", "$1", "job", "job-(.*)")':
+            12,
+        "limit(2, http_requests_total)": 2,
+        "http_requests_total * time()": 12,
+        "scalar(sum(rate(http_requests_total[5m])))": 1,
+        "vector(1) + 1": 1,
+        "sum(rate(http_requests_total[5m] @ 1600001000)) by (_ns_)": 2,
+        "max_over_time(sum(rate(http_requests_total[5m])) by (_ns_)"
+        "[10m:1m])": 2}
+    assert res["instant"] == 2
+    assert res["scalar"] == [1_600_001_400.0, "1600001400.0"]
+    assert res["meta"] == {
+        "names": ["_metric_", "_ns_", "_ws_", "instance", "job"],
+        "jobs": ["job-0", "job-1", "job-2"], "series": 6}
     assert res["loaded"] == []

@@ -8,10 +8,12 @@ pages on, 4 shards, spread 1, 64-sample chunks) and, through
 ``testing.from_jax``, into the port's ``MemStore`` chunk for chunk. Pages
 are compared byte for byte, ``assemble_hist`` bit for bit in float64
 against ``_assemble_hist``, and ``query_range`` against both reference
-engines, named explicitly (``engine="exec"`` over device pages, and
-``engine="mesh"``, which serves histograms under no aggregation or ``sum``
-and hands the rest to exec) at the reference's tolerance for its device
-path, ``rtol=5e-5, atol=1e-4`` (``tests/test_device_path.py:116``).
+engines, each lane named (``engine="exec"`` over device pages with
+``FILODB_SIDECARS`` at 0 and at 1 — histogram columns bypass the sidecar
+folds, the ``le`` counters do not — and ``engine="mesh"``, which serves
+histograms under no aggregation or ``sum`` and hands the rest to exec) at
+the reference's tolerance for its device path, ``rtol=5e-5, atol=1e-4``
+(``tests/test_device_path.py:116``).
 
 Metrics of the store:
 
@@ -37,7 +39,6 @@ import pytest
 import torch
 
 from filodb_tpu.coordinator.ingestion import ingest_routed
-from filodb_tpu.coordinator.query_service import QueryService as RefService
 from filodb_tpu.core.memstore.memstore import TimeSeriesMemStore
 from filodb_tpu.core.partkey import PartKey as RefPartKey
 from filodb_tpu.core.record import IngestRecord, RecordContainer, SomeData
@@ -54,6 +55,7 @@ from filodb_tpu_torch.promql.parser import ParseError, TimeStepParams
 from filodb_tpu_torch.promql.parser import parse_query as port_parse
 from filodb_tpu_torch.query.engine import device_batch as port_db
 from filodb_tpu_torch.testing.from_jax import SeriesState, ingest_states
+from test_torch_slice import reference_lanes
 
 DS = "timeseries"
 NUM_SHARDS = 4
@@ -193,8 +195,8 @@ def stores():
 @pytest.fixture(scope="module")
 def services(stores):
     ref, port = stores
-    return {"exec": RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            "mesh": RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
+    exec0, exec1, mesh = reference_lanes(ref)
+    return {"exec": exec0, "exec1": exec1, "mesh": mesh,
             "port": QueryService(port, device="cpu")}
 
 
@@ -204,7 +206,7 @@ def _sorted(m):
     return [keys[i] for i in order], np.asarray(m.values)[order]
 
 
-def _check(services, q, engines=("exec", "mesh"), finite=True):
+def _check(services, q, engines=("exec", "exec1", "mesh"), finite=True):
     """The port's answer against each named reference engine."""
     res = services["port"].query_range(q, Q_START, Q_STEP, Q_END)
     got_keys, got = _sorted(res.result)
@@ -425,7 +427,8 @@ RANGE_FNS = ("rate", "increase", "delta", "irate", "idelta", "resets",
 @pytest.mark.parametrize("fn", RANGE_FNS)
 @pytest.mark.parametrize("metric", ["lat", "lat_mixed", "lat_switch"])
 def test_range_functions_match_the_reference_engines(services, fn, metric):
-    engines = ("exec",) if metric == "lat_switch" else ("exec", "mesh")
+    engines = ("exec", "exec1") if metric == "lat_switch" \
+        else ("exec", "exec1", "mesh")
     res = _check(services, f"{fn}({metric}[5m])", engines)
     m = res.result
     assert m.is_histogram and m.les is not None
@@ -437,7 +440,7 @@ def test_mesh_cannot_read_a_scheme_change(services):
     with pytest.raises(ValueError, match="concatenation axis"):
         services["mesh"].query_range("sum(rate(lat_switch[5m]))", Q_START,
                                      Q_STEP, Q_END)
-    _check(services, "sum(rate(lat_switch[5m]))", ("exec",))
+    _check(services, "sum(rate(lat_switch[5m]))", ("exec", "exec1"))
 
 
 @pytest.mark.parametrize("fn", ["stddev_over_time", "stdvar_over_time",

@@ -90,11 +90,12 @@ def test_b1_b2_raise_on_misaligned_words(cuda):
         dp.decode_f32_blocks(firsts, shifts, widths, view)
 
 
-def _packed(n_series, n, seed, reset_at=None, gauge=False):
+def _packed(n_series, n, seed, reset_at=None, gauge=False, nan_at=None):
     """Series of n samples at about 10 s, cut into 400-sample chunks as the
     store seals them (so a block boundary falls every 128 samples of a
     chunk); counters reset at ``reset_at`` (every third series) or at
-    n // 2."""
+    n // 2; every other series has NaN samples (staleness markers) at the
+    indices ``nan_at``."""
     rng = np.random.default_rng(seed)
     per = []
     for i in range(n_series):
@@ -107,6 +108,8 @@ def _packed(n_series, n, seed, reset_at=None, gauge=False):
                 for r in np.atleast_1d(reset_at if reset_at is not None
                                        else n // 2):
                     vals[r:] -= vals[r]
+        if nan_at is not None and i % 2 == 0:
+            vals[nan_at] = np.nan
         per.append([(dp.encode_ts_page(ts[a : a + 400]),
                      dp.encode_f32_page(vals[a : a + 400]),
                      len(ts[a : a + 400])) for a in range(0, n, 400)])
@@ -197,6 +200,62 @@ def test_b3_reset_on_a_blocks_first_lane(cuda, reset_at):
                          device=cuda)
     for kind in ("rate", "increase", "delta"):
         _b3_both(packed, steps, 300_000, kind)
+
+
+# NaN samples at block lanes: chunks of 400 give blocks of samples 0-127,
+# 128-255, 256-383, 384-399, then 400-527, ...
+NAN_CASES = {
+    "lane_0": [0, 128, 400],
+    "lane_127": [127, 255, 527],
+    "whole_block": list(range(128, 256)),
+    "across_a_block_edge": list(range(124, 133)) + list(range(396, 404)),
+    "a_partial_block": list(range(384, 400)),
+    "runs_of_stale_markers": list(range(30, 36)) + list(range(600, 604)),
+    "every_sample": list(range(900)),
+}
+
+
+@pytest.mark.parametrize("case", NAN_CASES)
+def test_b3_drops_nan_samples_as_its_plain_version(cuda, case):
+    """NaN samples are gaps in B3 as in ``decode_packed``: the window's
+    count, first and last samples and the counter correction skip them."""
+    packed = to_device(_packed(6, 900, 3, reset_at=[130, 401],
+                               nan_at=NAN_CASES[case]), cuda)
+    steps = torch.arange(0, 9_000_000, 20_000, dtype=torch.int32,
+                         device=cuda)
+    for kind in ("rate", "increase", "delta"):
+        got = _b3_both(packed, steps, 300_000, kind)
+        if case == "every_sample":
+            assert torch.isnan(got[0::2]).all()
+            assert torch.isfinite(got[1:6:2]).any()
+
+
+def test_stale_markers_on_card_equal_cpu(cuda):
+    """Every family of query over series with runs of NaN samples answers
+    the same on the card as on the CPU."""
+    rng = np.random.default_rng(3)
+    n, T = 200, 720
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    vals = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+    for i in range(0, n, 2):
+        a = int(rng.integers(0, T - 6))
+        vals[i, a : a + int(rng.integers(3, 7))] = np.nan
+    labels = [{"_metric_": "m", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store = MemStore(4, 1, 400)
+    store.ingest_series(labels, ts, vals)
+    gpu, cpu = QueryService(store, cuda), QueryService(store, "cpu")
+    for q in ("sum(rate(m[5m])) by (_ns_)", "delta(m[5m])", "m",
+              "max(sum_over_time(m[2m])) by (job)", "changes(m[5m])",
+              "avg(avg_over_time(m[5m]))", "count(count_over_time(m[1m]))",
+              "max_over_time(m[5m])", "irate(m[5m])", "deriv(m[5m])"):
+        a = gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        b = cpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        assert [str(k) for k in a.result.keys] == \
+            [str(k) for k in b.result.keys]
+        np.testing.assert_allclose(a.result.values, b.result.values,
+                                   rtol=2e-5, atol=1e-6, equal_nan=True)
 
 
 def test_b3_delta_on_gauges(cuda):

@@ -5,8 +5,9 @@ functions, operators with a number, binary joins and set operators.
 The store is ``test_torch_slice``'s (28 series, counters with resets and
 gauges, 64-sample chunks), built once here. ``QueryService(port,
 device="cpu")`` must equal the JAX ``QueryService`` on both its engines,
-named explicitly: ``engine="exec"`` and ``engine="mesh"`` (which falls back
-to exec for the shapes it does not lower). Keys compare as sorted strings,
+each lane named (``test_torch_slice.reference_lanes``): ``engine="exec"``
+with ``FILODB_SIDECARS`` at 0 and at 1, and ``engine="mesh"`` (which falls
+back to exec for the shapes it does not lower). Keys compare as sorted strings,
 values with ``rtol=2e-5, atol=1e-6``, NaN equal; ``timestamp`` with
 ``atol=1e-3``.
 """
@@ -16,7 +17,6 @@ import re
 import numpy as np
 import pytest
 
-from filodb_tpu.coordinator.query_service import QueryService as RefService
 from filodb_tpu_torch.coordinator.query_service import QueryService
 from filodb_tpu_torch.http.promjson import matrix_json
 from test_torch_slice import (
@@ -28,6 +28,7 @@ from test_torch_slice import (
     _build_stores,
     _series_specs,
     _sorted,
+    reference_lanes,
 )
 
 TOL = dict(rtol=2e-5, atol=1e-6, equal_nan=True)
@@ -37,19 +38,17 @@ TS_TOL = dict(rtol=0, atol=1e-3, equal_nan=True)
 @pytest.fixture(scope="module")
 def services():
     ref, port = _build_stores(_series_specs(), 64)
-    return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
-            QueryService(port, device="cpu"))
+    return (*reference_lanes(ref), QueryService(port, device="cpu"))
 
 
 def _check(services, q, tol=TOL, expect_data=True):
     """Port against both reference engines; returns the port's answer."""
-    ref_exec, ref_mesh, port = services
+    *refs, port = services
     res = port.query_range(q, Q_START, Q_STEP, Q_END)
     got_keys, got = _sorted(res)
     if expect_data:
         assert len(got_keys) > 0 and np.isfinite(got).any(), q
-    for svc in (ref_exec, ref_mesh):
+    for svc in refs:
         r = svc.query_range(q, Q_START, Q_STEP, Q_END)
         r.result.materialize()
         want_keys, want = _sorted(r)
@@ -126,7 +125,7 @@ def test_metric_grouping_of_an_instant_selector_follows_exec(services):
     """``by (_metric_)`` over an instant selector: the exec engine groups
     on the kept metric label, the mesh engine drops it first (ROADMAP §C);
     the port answers as exec."""
-    ref_exec, ref_mesh, port = services
+    ref_exec, _, ref_mesh, port = services
     q = "sum(http_requests_total) by (_metric_)"
     got = port.query_range(q, Q_START, Q_STEP, Q_END).result
     want = ref_exec.query_range(q, Q_START, Q_STEP, Q_END).result
@@ -144,7 +143,7 @@ def test_all_nan_groups_are_kept_as_exec_keeps_them(services):
     (``AggregateMapReduce``) and drops them in the mesh engine
     (``_apply_post`` compacts); ROADMAP §C. No 1 s window holds the two
     samples rate needs, so every group is NaN: the port answers as exec."""
-    ref_exec, ref_mesh, port = services
+    ref_exec, _, ref_mesh, port = services
     q = "sum(rate(queue_depth[1s])) by (instance)"
     got_keys, got = _sorted(port.query_range(q, Q_START, Q_STEP, Q_END))
     want = ref_exec.query_range(q, Q_START, Q_STEP, Q_END)
@@ -200,7 +199,7 @@ def test_group_ids_under_mappers_are_built_once(services, q, monkeypatch):
     group_ids = AggregateMapReduce.group_ids
     monkeypatch.setattr(AggregateMapReduce, "group_ids", lambda self, keys:
                         walks.append(len(keys)) or group_ids(self, keys))
-    svc = QueryService(services[2].memstore, device="cpu")
+    svc = QueryService(services[-1].memstore, device="cpu")
     first = _sorted(svc.query_range(q, Q_START, Q_STEP, Q_END))
     for _ in range(2):
         keys, vals = _sorted(svc.query_range(q, Q_START, Q_STEP, Q_END))
@@ -272,7 +271,7 @@ def test_binary_joins_match_both_reference_engines(services, q):
     "sum(rate(http_requests_total[5m])) by (job)",
 ])
 def test_many_to_many_raises_as_the_reference(services, q):
-    ref_exec, _, port = services
+    ref_exec, *_, port = services
     with pytest.raises(ValueError) as want:
         ref_exec.query_range(q, Q_START, Q_STEP, Q_END)
     with pytest.raises(ValueError) as got:

@@ -1,9 +1,11 @@
 """Port parity for the slice as a whole: the same series go into a JAX
 store (device pages on, 4 shards, spread 1) and into the port's MemStore on
 the CPU; packed pages must be byte-equal, and ``query_range`` must agree
-with the JAX ``QueryService`` on both its engines, named explicitly (exec
-over device pages, and mesh, which falls back to exec for the shapes it
-does not lower), for the range functions and aggregation forms here.
+with the JAX ``QueryService`` on both its engines, each lane named
+(``reference_lanes``): exec over device pages with ``FILODB_SIDECARS`` at
+0 (the decode lane) and at 1 (sidecar folds for the functions they
+serve), and mesh, which falls back to exec for the shapes it does not
+lower, for the range functions and aggregation forms here.
 
 Keys compare as sorted strings; values with ``rtol=2e-5, atol=1e-6``,
 NaN equal. The data are integer counters and gauges, exact in float32,
@@ -71,13 +73,14 @@ def _series_specs():
     return specs
 
 
-def _build_stores(specs, chunk):
-    """The same series in a JAX store (device pages on, 4 shards, spread 1)
-    and in the port's MemStore, sealed alike."""
+def _build_stores(specs, chunk, device_pages=True):
+    """The same series in a JAX store (4 shards, spread 1; device pages on,
+    or off for the reference's default lane, host decode) and in the port's
+    MemStore, sealed alike."""
     ref = TimeSeriesMemStore()
     for s in range(NUM_SHARDS):
         ref.setup(DS, s, StoreConfig(max_chunk_size=chunk, groups_per_shard=2,
-                                     device_pages=True))
+                                     device_pages=device_pages))
     stream, off = [], 0
     for schema, labels, ts, vals in specs:
         key = RefPartKey.create(schema, labels)
@@ -197,12 +200,44 @@ def test_packed_pages_byte_equal(stores, selector, window):
     np.testing.assert_array_equal(wcounts, gcounts)
 
 
+class Valved:
+    """A reference ``QueryService`` whose every call runs with
+    ``FILODB_SIDECARS`` set to ``valve``: the valve is read at query time,
+    so it is set around each call, not around a module-scoped fixture.
+    ``engine`` names the lane."""
+
+    def __init__(self, svc, valve: str):
+        self.svc = svc
+        self.valve = valve
+        self.engine = f"{svc.engine} FILODB_SIDECARS={valve}"
+
+    def __getattr__(self, name):
+        attr = getattr(self.svc, name)
+        if not callable(attr):
+            return attr
+
+        def call(*args, **kwargs):
+            with pytest.MonkeyPatch.context() as mp:
+                mp.setenv("FILODB_SIDECARS", self.valve)
+                return attr(*args, **kwargs)
+        return call
+
+
+def reference_lanes(ref):
+    """(exec at valve 0: the decode lane; exec at valve 1: the sidecar
+    folds for ``ELIGIBLE_FNS``; mesh at valve 0, whose fallbacks to exec
+    then decode) over the reference store ``ref``."""
+    def svc(engine):
+        return RefService(ref, DS, NUM_SHARDS, spread=1, engine=engine)
+
+    return (Valved(svc("exec"), "0"), Valved(svc("exec"), "1"),
+            Valved(svc("mesh"), "0"))
+
+
 @pytest.fixture(scope="module")
 def services(stores):
     ref, port = stores
-    return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
-            QueryService(port, device="cpu"))
+    return (*reference_lanes(ref), QueryService(port, device="cpu"))
 
 
 def _sorted(result):
@@ -215,13 +250,13 @@ def _sorted(result):
 @pytest.mark.parametrize("agg", AGGS)
 @pytest.mark.parametrize("fn", FNS)
 def test_query_range_matches_both_reference_engines(services, fn, agg):
-    ref_exec, ref_mesh, port = services
+    *refs, port = services
     window = "2m" if fn == "avg_over_time" else "5m"
     metric = "queue_depth" if fn == "delta" else "http_requests_total"
     q = agg.format(f"{fn}({metric}[{window}])")
     got_keys, got = _sorted(port.query_range(q, Q_START, Q_STEP, Q_END))
     assert len(got_keys) > 0 and np.isfinite(got).any()
-    for svc in (ref_exec, ref_mesh):
+    for svc in refs:
         r = svc.query_range(q, Q_START, Q_STEP, Q_END)
         r.result.materialize()
         want_keys, want = _sorted(r)
@@ -231,7 +266,7 @@ def test_query_range_matches_both_reference_engines(services, fn, agg):
 
 
 def test_delta_on_counters_is_reset_corrected(services):
-    ref_exec, _, port = services
+    ref_exec, *_, port = services
     q = "sum(delta(http_requests_total[5m])) by (job)"
     got_keys, got = _sorted(port.query_range(q, Q_START, Q_STEP, Q_END))
     r = ref_exec.query_range(q, Q_START, Q_STEP, Q_END)
@@ -243,7 +278,7 @@ def test_delta_on_counters_is_reset_corrected(services):
 
 
 def test_answer_renders_as_prometheus_matrix(services):
-    _, _, port = services
+    *_, port = services
     body = matrix_json(port.query_range(
         "sum(rate(http_requests_total[5m])) by (_ns_)", Q_START, Q_STEP,
         Q_END))
@@ -254,18 +289,11 @@ def test_answer_renders_as_prometheus_matrix(services):
 
 
 @pytest.mark.parametrize("q", [
-    "absent(http_requests_total)",
-    'count_values("v", http_requests_total)',
-    "rate(http_requests_total[5m] @ 1600000600)",
-    "max_over_time(rate(http_requests_total[1m])[5m:1m])",
-    'label_replace(http_requests_total, "a", "$1", "job", "(.*)")',
-    "sort(http_requests_total)",
-    "http_requests_total * time()",
     "http_requests_total::sum",
     "sum(rate(http_requests_total::count[5m])) by (job)",
 ])
 def test_other_plan_shapes_raise(services, q):
-    _, _, port = services
+    *_, port = services
     with pytest.raises(UnsupportedQuery):
         port.query_range(q, Q_START, Q_STEP, Q_END)
 
@@ -361,8 +389,8 @@ def test_precision_gate_runs_large_counters_in_float64():
     res = QueryService(port, device="cpu").query_range(q, Q_START, Q_STEP,
                                                         START_S + 1900)
     assert res.stats.precise_lane == 1
-    want = RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec") \
-        .query_range(q, Q_START, Q_STEP, START_S + 1900)
+    want = Valved(RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
+                  "0").query_range(q, Q_START, Q_STEP, START_S + 1900)
     want.result.materialize()
     got_keys, got = _sorted(res)
     want_keys, want_v = _sorted(want)
@@ -372,7 +400,7 @@ def test_precision_gate_runs_large_counters_in_float64():
 
 
 def test_small_counters_take_the_fused_kernel(services):
-    _, _, port = services
+    *_, port = services
     res = port.query_range("sum(rate(http_requests_total[5m]))", Q_START,
                            Q_STEP, Q_END)
     assert res.stats.precise_lane == 0
@@ -417,9 +445,7 @@ def long_services():
             "_ns_": f"App-{i % 2}", "instance": f"instance-{i}",
             "job": f"job-{i % 2}"}, ts, vals))
     ref, port = _build_stores(specs, 400)
-    return (RefService(ref, DS, NUM_SHARDS, spread=1, engine="exec"),
-            RefService(ref, DS, NUM_SHARDS, spread=1, engine="mesh"),
-            QueryService(port, device="cpu"))
+    return (*reference_lanes(ref), QueryService(port, device="cpu"))
 
 
 @pytest.mark.parametrize("q", [
@@ -430,13 +456,13 @@ def long_services():
 def test_long_range_matches_both_reference_engines(long_services, q):
     """48 h at a 60 s step (K = 2,881): the series the one-CTA kernels
     refused on the card."""
-    ref_exec, ref_mesh, port = long_services
+    *refs, port = long_services
     start, end = START_S, START_S + LONG_SAMPLES * 10
     res = port.query_range(q, start, 60, end)
     assert res.result.num_steps == 2_881
     got_keys, got = _sorted(res)
     assert np.isfinite(got).mean() > 0.99
-    for svc in (ref_exec, ref_mesh):
+    for svc in refs:
         r = svc.query_range(q, start, 60, end)
         r.result.materialize()
         want_keys, want = _sorted(r)
