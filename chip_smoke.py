@@ -62,12 +62,29 @@ checks it, phase by phase; any failed phase exits non-zero:
    of one engine-sized chunk (B1 on timestamps, B1 on buckets, the glue,
    the rate, the aggregation, the quantile), each part timed by CUDA
    events (median of 5 rounds) and by a ``torch.profiler`` trace's device
-   time; and B1's time against its bound on a chunk's bucket blocks.
+   time; and B1's time against its bound on a chunk's bucket blocks. The
+   store also holds each histogram's ``sum`` and ``count`` columns, and
+   ``HIST_EXEC_QUERIES`` (the mean latency ``sum(rate(h::sum[5m])) /
+   sum(rate(h::count[5m]))`` by namespace, ``timestamp(h)`` and a join of
+   two histogram rates) go through the default engine: the mesh engine
+   must hand each to the exec engine, whose answer must equal the plain
+   path on the card (B3's plain version over the sum and count pages; B1's
+   plain version and the float64 function), cold once and warm five times;
+   every query of phases 3, 7, 8 and 9 must have been served by the mesh
+   engine;
+10. (run after phase 5) the exec engine: ``QueryService(engine="exec")``,
+   a leaf a shard, on the phase-2 store: ``EXEC_QUERIES`` (sum(rate) by
+   namespace: B3 once a leaf; sum(count_over_time) by job: B1, B2 and B4
+   in every leaf; a sum of rates whose shard key reads 2 of the 4 shards;
+   a per-series rate) cold once and warm three times, each with its plan
+   tree's leaf count and launches, against the mesh engine's answer in the
+   same run (per series bit for bit, aggregated within rtol 1e-9) and its
+   times, and the device memory both engines' batches hold.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
-``python3 chip_smoke.py``. Without CUDA it exits with code 2 and prints no
-result.
+``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone).
+Without CUDA it exits with code 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -166,6 +183,16 @@ PLAN_SHAPES = (
     f"sum(rate({M}[5m] @ {END_S})) by (_ns_)",
     f"max_over_time(sum(rate({M}[5m])) by (_ns_)[30m:1m])",
 )
+# phase 10: the exec engine at full width on the phase-2 store, each query
+# against the mesh engine's answer; the third reads the 2 of 4 shards its
+# shard key maps to, the fourth is per series (bitwise between engines)
+EXEC_QUERIES = (
+    f"sum(rate({M}[5m])) by (_ns_)",
+    f"sum(count_over_time({M}[5m])) by (job)",
+    f'sum(rate({M}{{_ws_="demo",_ns_="App-0"}}[5m]))',
+    f"rate({_APP0}[5m])",
+)
+EXEC_WARM = 3  # warm runs of each phase-10 query on each engine
 # instant queries of phase 9, at the end of the 2 h
 INSTANT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)", _APP0)
 # aggregations over an operator or an instant function (phase 7), each with
@@ -177,8 +204,23 @@ MAPPED_QUERIES = (
 )
 
 
+def keys_group_ids(eng, amr, keys):
+    """The engine's cached group ids of ``keys`` under aggregation
+    ``amr``."""
+    return eng.gids.keys_group_ids(amr, keys, eng.device)
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def on_mesh(res, q: str):
+    """``res``, the answer to ``q``, which the mesh engine must have served:
+    no shape moves to the exec engine unnoticed."""
+    if res.stats.engine != "mesh":
+        raise AssertionError(f"{q}: served by the {res.stats.engine} engine, "
+                             f"not mesh ({res.stats.fallback})")
+    return res
 
 
 def make_series(rng, a: int, b: int, samples: int,
@@ -252,6 +294,46 @@ def device_time_ms(fn, reps: int) -> float | None:
     us = sum(getattr(e, "self_device_time_total", 0) or 0
              for e in prof.key_averages())
     return us / 1000.0 / reps if us > 0 else None
+
+
+def top_device_ops(fn, reps: int, k: int = 8) -> dict:
+    """The device time of ``fn`` a call and its ``k`` largest kernels and
+    copies by device time (ms a call), from a ``torch.profiler`` trace of
+    the device alone: each kernel counts once, not again under the
+    operator that launched it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ops = sorted(((getattr(e, "self_device_time_total", 0) or 0, e.key)
+                  for e in prof.key_averages()), reverse=True)
+    return {"device_ms": sum(us for us, _ in ops) / 1000.0 / reps,
+            "top_ms": {name[:80]: us / 1000.0 / reps for us, name in ops[:k]
+                       if us > 0}}
+
+
+def host_split(fn, reps: int, k: int = 10) -> dict:
+    """Host seconds of ``fn`` by function, from ``cProfile`` over ``reps``
+    calls: the ``k`` largest self times, ms a call (the device's work
+    shows where the host waits on it)."""
+    import cProfile
+    import pstats
+
+    fn()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    st = pstats.Stats(prof).stats
+    top = sorted(((v[2], f"{Path(f[0]).name}:{f[1]}:{f[2]}")
+                  for f, v in st.items()), reverse=True)[:k]
+    return {name: sec * 1000.0 / reps for sec, name in top}
 
 
 def split_times(parts: dict, reps: int, rounds: int) -> dict:
@@ -424,15 +506,15 @@ def check_kernels(svc, reps: int) -> list[dict]:
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import (
         BLOCK,
         assemble,
     )
 
-    eng = svc.engine
-    big = max(eng._batches.values(), key=lambda b: len(b.keys))
+    eng = svc.mesh
+    big = max(eng.batches.batches("mesh"), key=lambda b: len(b.keys))
     packed = big.packed
     P, NB = packed[0].shape
     n_series = len(big.keys)
@@ -588,14 +670,14 @@ def agrees_with_plain(svc, q: str, start: int, end: int, got,
     aggregated as the engine aggregates them."""
     from filodb_tpu_torch.query.engine.aggregations import aggregate
 
-    eng = svc.engine
+    eng = svc.mesh
     low, amr = lowered(eng, q, start, end)
     batch = eng._batch(svc.memstore, low)
     leaf_keys = batch.keys if low.keep_metric else batch.out_keys
     if amr is None:
         want, keys = per_series.cpu().double().numpy(), leaf_keys
     else:
-        gids, keys = eng._group_ids(leaf_keys, amr)
+        gids, keys = keys_group_ids(eng, amr, leaf_keys)
         want = aggregate(amr.op, per_series, gids, len(keys)).cpu().numpy()
     order = {str(k): i for i, k in enumerate(keys)}
     idx = [order[str(k)] for k in got.keys]
@@ -610,7 +692,7 @@ def long_range(dev, args, reps: int) -> dict:
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import BLOCK, assemble
 
@@ -640,7 +722,7 @@ def long_range(dev, args, reps: int) -> dict:
                                    and launches["windowed_sum"]):
         raise AssertionError("long ranges did not run through B3 and B4")
 
-    eng = svc.engine
+    eng = svc.mesh
     steps_ms = np.arange(start * 1000, end * 1000 + 1, 60_000)
     K = len(steps_ms)
     out = {"series": args.long_series, "samples": args.long_samples,
@@ -736,12 +818,12 @@ def decoded_against_plain(svc, q: str, start: int, end: int, got) -> dict:
     import torch
 
     from filodb_tpu_torch.device import EXACT_DTYPE
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine.device_batch import BLOCK, fill_gaps
     from filodb_tpu_torch.query.engine.kernels import range_eval_masked
 
-    low, _ = lowered(svc.engine, q, start, end)
-    batch = svc.engine._batch(svc.memstore, low)
+    low, _ = lowered(svc.mesh, q, start, end)
+    batch = svc.mesh._batch(svc.memstore, low)
     n = len(batch.keys)
     rows = min(decode_rows(batch.packed[0].shape[1] * BLOCK, low.fn), n)
     lo_ms, hi_ms = low.chunk_range
@@ -773,8 +855,8 @@ def rate_against_plain(svc, q: str, start: int, end: int, got) -> dict:
     plain rates aggregated as the engine aggregates."""
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
 
-    low, _ = lowered(svc.engine, q, start, end)
-    batch = svc.engine._batch(svc.memstore, low)
+    low, _ = lowered(svc.mesh, q, start, end)
+    batch = svc.mesh._batch(svc.memstore, low)
     host = leaf_steps(low)
     steps = host.to(svc.device)
     got_b3 = ck.fused_decode_rate(batch.packed, steps, low.window, low.fn,
@@ -793,10 +875,10 @@ def decoded_split(svc, low, rows: int, reps: int) -> dict:
     """CUDA-event ms of each part of one decode chunk of ``rows`` series
     of a lowered leaf that runs in float64 on decoded rows: B1, B2,
     ``assemble``'s glue, the function, and the whole chunk."""
-    from filodb_tpu_torch.parallel.mesh_engine import _decoded_fn
+    from filodb_tpu_torch.query.exec.transformers import decoded_fn
     from filodb_tpu_torch.query.engine.device_batch import fill_gaps
 
-    batch = svc.engine._batch(svc.memstore, low)
+    batch = svc.mesh._batch(svc.memstore, low)
     part = tuple(t[:rows] for t in batch.packed)
     lo_ms, hi_ms = low.chunk_range
     steps = leaf_steps(low).to(svc.device)
@@ -807,7 +889,8 @@ def decoded_split(svc, low, rows: int, reps: int) -> dict:
         return ts, v, valid & (ts >= 0) & (ts <= hi_ms - lo_ms)
 
     def fn(ts, v, valid):
-        return _decoded_fn(low, ts, v, valid, steps, 0)
+        return decoded_fn(low.fn, low.params, low.window, ts, v, valid,
+                          steps, 0)
 
     off, vals = b1(), b2()
     decoded = glue(off, vals)
@@ -836,7 +919,7 @@ def promql_phase(svc, args) -> dict:
     results, timings = {}, []
     for q in PROMQL_QUERIES + tuple(m for m, _, _ in MAPPED_QUERIES):
         t = time.perf_counter()
-        r = svc.query_range(q, start, 60, end)
+        r = on_mesh(svc.query_range(q, start, 60, end), q)
         cold = (time.perf_counter() - t) * 1000.0
         warm = []
         for _ in range(3):
@@ -925,7 +1008,7 @@ def promql_phase(svc, args) -> dict:
 
     splits = {}
     for q in (PROMQL_QUERIES[2], PROMQL_QUERIES[0]):
-        low, _ = lowered(svc.engine, q, start, end)
+        low, _ = lowered(svc.mesh, q, start, end)
         split = decoded_split(svc, low, plain[q]["rows"], reps=5)
         splits[low.fn] = split
         log(f"  {low.fn} chunk split at the engine's rows (ms, CUDA "
@@ -956,10 +1039,11 @@ def plan_shapes_phase(svc, args) -> dict:
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
     app0 = parse_query(_APP0, TimeStepParams(start, 0, end)).raw.filters
-    calls = {q: (lambda q=q: svc.query_range(q, start, 60, end).result)
+    calls = {q: (lambda q=q: on_mesh(svc.query_range(q, start, 60, end),
+                                     q).result)
              for q in PLAN_SHAPES}
-    calls.update({f"instant {q}": (lambda q=q: svc.query_instant(q, end))
-                  for q in INSTANT_QUERIES})
+    calls.update({f"instant {q}": (lambda q=q: on_mesh(
+        svc.query_instant(q, end), q)) for q in INSTANT_QUERIES})
     calls.update({"label_names()": svc.label_names,
                   'label_values("_ns_")': lambda: svc.label_values("_ns_"),
                   'label_values("instance")':
@@ -1099,6 +1183,19 @@ FLAT_QUERY = (f"histogram_quantile(0.99, sum(rate({H}_bucket"
               f'{{_ns_=~"App-[0-9]"}}[5m])) by (le, _ns_))')
 FLAT_NATIVE = (f'histogram_quantile(0.99, sum(rate({H}{{_ns_=~"App-[0-9]"}}'
                f"[5m])) by (_ns_))")
+# the shapes only the exec engine answers (phase 8, through the default
+# engine): the mean latency a dashboard charts from a histogram's sum and
+# count columns, timestamp() of a histogram, a join of two histograms
+HIST_EXEC_QUERIES = (
+    f"sum(rate({H}::sum[5m])) by (_ns_) / sum(rate({H}::count[5m])) "
+    f"by (_ns_)",
+    f'timestamp({H}{{_ns_="App-0"}})',
+    f'rate({H}{{_ns_="App-0"}}[5m]) / on (instance) '
+    f'rate({H}{{_ns_="App-0"}}[5m] offset 5m)',
+)
+# a latency a bucket's observations stand for: its middle, 15 s past 10 s
+_BUCKET_MIDS = np.array([0.0025, 0.0075, 0.0175, 0.0375, 0.075, 0.175,
+                         0.375, 0.75, 1.75, 3.75, 7.5, 15.0])
 _HIST_BLOCK = 10_000  # series generated and ingested at once
 HIST_WARM = 7  # warm runs of each phase-8 query
 
@@ -1106,7 +1203,9 @@ HIST_WARM = 7  # warm runs of each phase-8 query
 def make_hist_series(rng, a: int, b: int, samples: int):
     """Histogram series a..b-1: labels, jittered timestamps, cumulative
     bucket counts int64 [n, samples, 12] with a reset of every bucket in
-    about 5 % of series."""
+    about 5 % of series, and the cumulative sum (each observation counted
+    at its bucket's middle) and count float64 [n, samples], reset with
+    the buckets."""
     n = b - a
     labels = [{"_metric_": H, "_ws_": "demo", "_ns_": f"App-{i % 100}",
                "instance": f"instance-{i}", "job": f"job-{i % 10}"}
@@ -1116,11 +1215,13 @@ def make_hist_series(rng, a: int, b: int, samples: int):
     obs = rng.integers(0, _OBS_HIGH + 1, (n, samples, len(_OBS_HIGH)),
                        dtype=np.int32)
     counts = np.cumsum(np.cumsum(obs, axis=2, dtype=np.int64), axis=1)
+    sums = np.cumsum(obs @ _BUCKET_MIDS, axis=1)
     reset = np.flatnonzero(rng.random(n) < 0.05)
     at = rng.integers(1, samples, len(reset))
     for r, k in zip(reset, at):
         counts[r, k:] -= counts[r, k]
-    return labels, ts, counts
+        sums[r, k:] -= sums[r, k]
+    return labels, ts, counts, sums, counts[:, :, -1].astype(np.float64)
 
 
 def _fmt_le(le: float) -> str:
@@ -1153,7 +1254,7 @@ def hist_against_plain(svc, q: str, start: int, end: int, got) -> dict:
 
     from filodb_tpu_torch.device import EXACT_DTYPE
     from filodb_tpu_torch.memory import device_pages as dp
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine.aggregations import (
         aggregate,
         histogram_quantile,
@@ -1164,7 +1265,7 @@ def hist_against_plain(svc, q: str, start: int, end: int, got) -> dict:
     )
     from filodb_tpu_torch.query.engine.kernels import range_eval_masked
 
-    eng = svc.engine
+    eng = svc.mesh
     low, amr = hist_leaf(eng, q, start, end)
     batch = eng._batch(svc.memstore, low)
     n, B = len(batch.keys), len(batch.les)
@@ -1190,7 +1291,7 @@ def hist_against_plain(svc, q: str, start: int, end: int, got) -> dict:
                                       dtype=EXACT_DTYPE))
     per_series = torch.cat(outs)                             # [n, B, K]
     K = per_series.shape[2]
-    gids, gkeys = eng._group_ids(batch.out_keys, amr)
+    gids, gkeys = keys_group_ids(eng, amr, batch.out_keys)
     G = len(gkeys)
     gb = (gids[:, None] * B + torch.arange(B, device=gids.device)).reshape(-1)
     summed = aggregate("sum", per_series.reshape(n * B, K), gb, G * B)
@@ -1226,7 +1327,7 @@ def hist_split(svc, q: str, start: int, end: int, rows: int,
     from filodb_tpu_torch.query.engine.device_batch import BLOCK, fill_hist
     from filodb_tpu_torch.query.engine.kernels import range_eval_masked
 
-    eng = svc.engine
+    eng = svc.mesh
     low, amr = hist_leaf(eng, q, start, end)
     batch = eng._batch(svc.memstore, low)
     part = tuple(t[:rows] for t in batch.packed)
@@ -1251,7 +1352,7 @@ def hist_split(svc, q: str, start: int, end: int, rows: int,
         return range_eval_masked(low.fn, ts, counts, valid, steps,
                                  low.window, counter=True, dtype=EXACT_DTYPE)
 
-    gids, gkeys = eng._group_ids(batch.out_keys, amr)
+    gids, gkeys = keys_group_ids(eng, amr, batch.out_keys)
     G, K = len(gkeys), steps.numel()
     gb = (gids[:rows, None] * B
           + torch.arange(B, device=gids.device)).reshape(-1)
@@ -1287,7 +1388,7 @@ def b1_bucket_case(svc, q: str, start: int, end: int, rows: int,
     from filodb_tpu_torch.memory import device_pages as dp
     from filodb_tpu_torch.query.engine.device_batch import BLOCK
 
-    batch = svc.engine._batch(svc.memstore, hist_leaf(svc.engine, q, start,
+    batch = svc.mesh._batch(svc.memstore, hist_leaf(svc.mesh, q, start,
                                                       end)[0])
     part = tuple(t[:rows] for t in batch.packed)
     args = (part[5].reshape(-1), part[6].reshape(-1),
@@ -1298,6 +1399,149 @@ def b1_bucket_case(svc, q: str, start: int, end: int, rows: int,
     return {"blocks": nb, "ms": cuda_time_ms(lambda: dp.decode_ts_blocks(
         *args), reps), "plain_ms": wall_ms(lambda: dp.decode_ts_blocks_plain(
             *args)), "bound_ms": b, "bound_by": by, "bound_bytes": nbytes}
+
+
+def selector_batch(svc, sel: str, start: int, end: int, window_ms: int,
+                   offset_ms: int = 0):
+    """(the batch of selector ``sel`` over every shard, built as the mesh
+    engine builds it, rows in shard order as the exec leaves concatenate
+    them; the query's steps relative to its start) for a window of
+    ``window_ms`` at ``offset_ms``."""
+    import torch
+
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.engine.device_batch import build_device_batch
+
+    raw = parse_query(sel, TimeStepParams(start, 60, end)).raw
+    lo = start * 1000 - window_ms - offset_ms
+    hi = end * 1000 - offset_ms
+    batch = build_device_batch(
+        [(sh, sh.lookup_partitions(list(raw.filters), lo, hi))
+         for sh in svc.memstore.shards], lo, hi, svc.device, raw.column)
+    steps = np.arange(start * 1000, end * 1000 + 1, 60_000) - offset_ms - lo
+    return batch, torch.from_numpy(steps.astype(np.int32)).to(svc.device)
+
+
+def _aligned(got, keys, want, what: str, rtol: float | None = None):
+    """``got``'s rows against ``want`` [len(keys), ...] by key: bit for bit,
+    or within ``rtol``."""
+    order = {str(k): i for i, k in enumerate(keys)}
+    if sorted(order) != sorted(str(k) for k in got.keys):
+        raise AssertionError(f"{what}: the series differ from the plain "
+                             f"path's")
+    w = want[[order[str(k)] for k in got.keys]]
+    ok = got.values.shape == w.shape and (
+        np.array_equal(got.values, w, equal_nan=True) if rtol is None
+        else np.allclose(got.values, w, rtol=rtol, atol=0, equal_nan=True))
+    if not ok:
+        raise AssertionError(f"{what}: disagrees with the plain path on the "
+                             f"card")
+
+
+def mean_latency_plain(svc, start: int, end: int, got) -> dict:
+    """The mean-latency query against B3's plain version over the ``sum``
+    and ``count`` value pages of every series, summed by namespace and
+    divided (rtol 1e-9: the card's sums add in another order)."""
+    from filodb_tpu_torch.query.engine.aggregations import aggregate
+    from filodb_tpu_torch.query.exec.transformers import (
+        F32_SAFE_MAX,
+        AggregateMapReduce,
+    )
+
+    amr = AggregateMapReduce("sum", by=("_ns_",))
+    sums, vmax = {}, {}
+    for col in ("sum", "count"):
+        batch, steps = selector_batch(svc, f"{H}::{col}", start, end, 300_000)
+        n = len(batch.keys)
+        rates = plain_b3(batch.packed, steps, 300_000, "rate")[:n].double()
+        gids, gkeys = keys_group_ids(svc.mesh, amr, batch.out_keys)
+        sums[col] = (aggregate("sum", rates, gids, len(gkeys)), gkeys)
+        vmax[col] = batch.vmax
+    (num, keys), (den, _) = sums["sum"], sums["count"]
+    _aligned(got, keys, (num / den).cpu().numpy(), "mean latency", 1e-9)
+    return {"vmax_sum": vmax["sum"], "vmax_count": vmax["count"],
+            "under_f32_gate": bool(max(vmax.values()) < F32_SAFE_MAX),
+            "check": "B3 plain, rtol 1e-9"}
+
+
+def _hist_plain(svc, sel: str, fn: str, start: int, end: int,
+                offset_ms: int = 0):
+    """A histogram leaf [n, K, B] by B1's plain version and the float64
+    per-bucket function; and the batch's metric-free keys."""
+    from filodb_tpu_torch.device import EXACT_DTYPE
+    from filodb_tpu_torch.query.engine.device_batch import assemble_hist
+    from filodb_tpu_torch.query.engine.kernels import range_eval_masked
+
+    batch, steps = selector_batch(svc, sel, start, end, 300_000, offset_ms)
+    ts, counts, valid = assemble_hist(batch.packed, batch.end - batch.base,
+                                      plain=True)
+    out = range_eval_masked(fn, ts, counts, valid, steps, 300_000,
+                            counter=True, dtype=EXACT_DTYPE)
+    return out[: len(batch.keys)].transpose(1, 2), batch.out_keys
+
+
+def timestamp_plain(svc, start: int, end: int, got) -> dict:
+    """timestamp(h) against B1's plain version and the float64 function,
+    bit for bit: seconds from the batch start, as the reference's exec
+    engine answers it."""
+    want, keys = _hist_plain(svc, f'{H}{{_ns_="App-0"}}', "timestamp", start,
+                             end)
+    _aligned(got, keys, want.cpu().numpy(), "timestamp(h)")
+    return {"check": "B1 plain + float64 timestamp, bitwise",
+            "max_s": float(np.nanmax(got.values))}
+
+
+def hist_join_plain(svc, start: int, end: int, got) -> dict:
+    """The join of two histogram rates against B1's plain version and the
+    float64 per-bucket rate of each side, matched by instance (rtol
+    1e-12)."""
+    sel = f'{H}{{_ns_="App-0"}}'
+    now, keys = _hist_plain(svc, sel, "rate", start, end)
+    before, keys_b = _hist_plain(svc, sel, "rate", start, end, 300_000)
+    if [k.only(("instance",)) for k in keys] \
+            != [k.only(("instance",)) for k in keys_b]:
+        raise AssertionError("histogram join: the sides' series differ")
+    _aligned(got, [k.only(("instance",)) for k in keys],
+             (now / before).cpu().numpy(), "histogram join", 1e-12)
+    return {"check": "B1 plain + float64 rate per bucket, rtol 1e-12"}
+
+
+def hist_exec_queries(svc, start: int, end: int, reps: int = 5) -> list:
+    """Phase 8's shapes that only the exec engine answers, through the
+    default engine: each must be handed to exec and agree with the plain
+    path on the card; cold and warm times and launches are printed."""
+    from filodb_tpu_torch import _build
+
+    checks = (mean_latency_plain, timestamp_plain, hist_join_plain)
+    out = []
+    for q, check in zip(HIST_EXEC_QUERIES, checks):
+        _build.reset_counts()
+        t = time.perf_counter()
+        r = svc.query_range(q, start, 60, end)
+        cold = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(reps):
+            t = time.perf_counter()
+            r = svc.query_range(q, start, 60, end)
+            warm.append((time.perf_counter() - t) * 1000.0)
+        launches = dict(_build.LAUNCHES)
+        if r.stats.engine != "exec":
+            raise AssertionError(f"{q}: served by {r.stats.engine}, not by "
+                                 f"the exec engine")
+        checked = check(svc, start, end, r.result)
+        rec = dict(query=q, cold_ms=cold, warm_p50_ms=float(np.median(warm)),
+                   rows=r.result.num_series, launches=launches,
+                   fallback=r.stats.fallback, **checked)
+        if q == HIST_EXEC_QUERIES[0] and rec["under_f32_gate"] \
+                and svc.device.type == "cuda" \
+                and not launches["fused_decode_rate"]:
+            raise AssertionError(f"{q}: B3 did not serve the sum and count "
+                                 f"columns")
+        out.append(rec)
+        log(f"  exec (handed on by mesh: {r.stats.fallback}) {q}: cold "
+            f"{cold:.1f} ms, warm p50 {np.median(warm):.2f} ms, "
+            f"{r.result.num_series} rows, launches {launches}, {checked}")
+    return out
 
 
 def histogram_phase(dev, args, reps: int) -> dict:
@@ -1315,9 +1559,10 @@ def histogram_phase(dev, args, reps: int) -> dict:
     kept, flat_parts = 0, []
     for a in range(0, N, _HIST_BLOCK):
         rng = np.random.default_rng([args.seed, 8, a])
-        labels, ts, counts = make_hist_series(rng, a, min(a + _HIST_BLOCK, N),
-                                              samples)
-        kept += store.ingest_histograms(labels, ts, counts, DEF_BUCKETS)
+        labels, ts, counts, sums, cnts = make_hist_series(
+            rng, a, min(a + _HIST_BLOCK, N), samples)
+        kept += store.ingest_histograms(labels, ts, counts, DEF_BUCKETS,
+                                        sums=sums, counts=cnts)
         sel = [j for j, lb in enumerate(labels) if int(lb["_ns_"][4:]) < 10]
         flat_parts.append(([labels[j] for j in sel], ts[sel], counts[sel]))
     ingest_s = time.perf_counter() - t
@@ -1350,7 +1595,7 @@ def histogram_phase(dev, args, reps: int) -> dict:
     for s, q in [(svc, q) for q in HIST_QUERIES] \
             + [(flat_svc, FLAT_QUERY), (svc, FLAT_NATIVE)]:
         t = time.perf_counter()
-        r = s.query_range(q, start, 60, end)
+        r = on_mesh(s.query_range(q, start, 60, end), q)
         cold = (time.perf_counter() - t) * 1000.0
         warm = []
         for _ in range(HIST_WARM):
@@ -1365,10 +1610,10 @@ def histogram_phase(dev, args, reps: int) -> dict:
             f"ms (min {min(warm):.2f}, max {max(warm):.2f} of {HIST_WARM}), "
             f"{r.result.num_series} rows")
     launches = dict(_build.LAUNCHES)
-    packed = svc.engine.batch_bytes
+    packed = svc.mesh.batch_bytes
     log(f"  launches in the phase: {launches}; packed pages on the card "
         f"{packed / 1e9:.2f} GB (histograms) and "
-        f"{flat_svc.engine.batch_bytes / 1e9:.2f} GB (the flat form)")
+        f"{flat_svc.mesh.batch_bytes / 1e9:.2f} GB (the flat form)")
     if dev.type == "cuda" and not (launches["decode_ts_page"]
                                    and launches["fused_decode_rate"]):
         raise AssertionError("phase 8 did not run through B1 (histograms) "
@@ -1411,6 +1656,7 @@ def histogram_phase(dev, args, reps: int) -> dict:
     log(f"  B1 on one chunk's bucket blocks: {json.dumps(b1)}")
     peak = torch.cuda.max_memory_allocated()
     log(f"  peak device memory {peak / 1e9:.2f} GB (max_memory_allocated)")
+    exec_runs = hist_exec_queries(svc, start, end)
     _build.LAUNCHES.update(launches)  # the checks' launches are not counted
     seconds = time.perf_counter() - t_phase
     log(f"  phase 8 took {seconds:.1f} s")
@@ -1419,6 +1665,121 @@ def histogram_phase(dev, args, reps: int) -> dict:
             "flat_ingest_s": flat_s, "packed_bytes": int(packed),
             "queries": timings, "launches": launches, "plain_check": plain,
             "split": split, "b1_buckets": b1, "peak_bytes": int(peak),
+            "exec_queries": exec_runs, "seconds": seconds}
+
+
+def exec_phase(svc, args) -> dict:
+    """Phase 10: ``QueryService(engine="exec")`` at full width on the
+    phase-2 store: each of ``EXEC_QUERIES`` cold once and warm
+    ``EXEC_WARM`` times, its plan tree's leaf count and its launches (B3
+    once a leaf and run for the rates; B1, B2 and B4 in every leaf for
+    count_over_time), held against the mesh engine's answer in the same run
+    (per series bit for bit, aggregated within rtol 1e-9: the sums add in
+    another order) with the mesh engine's times beside (its first call may
+    find its batch cached by phases 3-5; phase 3 gives its cold time)."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.exec.plan import leaves
+
+    t_phase = time.perf_counter()
+    start, end = T0_MS // 1000, END_S
+    ex = QueryService(svc.memstore, device=svc.device, engine="exec")
+    log("phase 10: the exec engine (QueryService(engine=\"exec\"), a leaf "
+        "a shard) on the phase-2 store, against the mesh engine:")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    total = {k: 0 for k in _build.LAUNCHES}
+    out = []
+
+    def timed(s, q):
+        t = time.perf_counter()
+        r = s.query_range(q, start, 60, end)
+        first = (time.perf_counter() - t) * 1000.0
+        warm = []
+        for _ in range(EXEC_WARM):
+            t = time.perf_counter()
+            r = s.query_range(q, start, 60, end)
+            warm.append((time.perf_counter() - t) * 1000.0)
+        return r, first, float(np.median(warm))
+
+    for q in EXEC_QUERIES:
+        tree = ex.planner.materialize(parse_query(q, TimeStepParams(
+            start, 60, end)))
+        n_leaves = len(leaves(tree))
+        # leaves whose shard holds a matching series: the others launch
+        # nothing
+        n_data = sum(bool(len(svc.memstore.shards[f.shard].lookup_partitions(
+            list(f.filters), f.chunk_start, f.chunk_end)))
+            for f in leaves(tree))
+        _build.reset_counts()
+        r, cold, p50 = timed(ex, q)
+        launches = dict(_build.LAUNCHES)
+        for k, v in launches.items():
+            total[k] += v
+        m, m_first, m_p50 = timed(svc, q)
+        if (r.stats.engine, m.stats.engine) != ("exec", "mesh"):
+            raise AssertionError(f"{q}: engines {r.stats.engine}, "
+                                 f"{m.stats.engine}")
+        runs = 1 + EXEC_WARM
+        if svc.device.type == "cuda":
+            if "rate(" in q and launches["fused_decode_rate"] \
+                    != runs * n_data:
+                raise AssertionError(f"{q}: B3 launched "
+                                     f"{launches['fused_decode_rate']} times "
+                                     f"for {n_data} leaves with series x "
+                                     f"{runs} runs")
+            if "count_over_time" in q and min(
+                    launches["decode_ts_page"], launches["decode_f32_page"],
+                    launches["windowed_sum"]) < runs * n_data:
+                raise AssertionError(f"{q}: B1, B2 and B4 not in every leaf")
+        if "_ws_" in q and n_leaves != 2:
+            raise AssertionError(f"{q}: {n_leaves} leaves, not the 2 shards "
+                                 f"of its shard key")
+        per_series = not q.startswith("sum")
+        _aligned(r.result, m.result.keys, m.result.values, f"phase 10 {q}",
+                 None if per_series else 1e-9)
+        rec = dict(query=q, leaves=n_leaves, leaves_with_series=n_data,
+                   launches=launches,
+                   cold_ms=cold, warm_p50_ms=p50, mesh_first_ms=m_first,
+                   mesh_warm_p50_ms=m_p50, rows=r.result.num_series,
+                   check="bitwise" if per_series else "rtol 1e-9")
+        out.append(rec)
+        log(f"  {q}: {n_leaves} leaves ({n_data} with series); exec cold {cold:.1f} ms, warm p50 "
+            f"{p50:.2f} ms; mesh first {m_first:.1f} ms, warm p50 "
+            f"{m_p50:.2f} ms; {r.result.num_series} rows, equal to mesh "
+            f"({rec['check']}); launches {launches}")
+    q0 = EXEC_QUERIES[0]
+    prof_svcs = (("exec", ex), ("mesh", svc))
+    prof = {name: top_device_ops(
+        lambda s=s: s.query_range(q0, start, 60, end), EXEC_WARM)
+        for name, s in prof_svcs}
+    for name, rec in prof.items():
+        wall = next(r[f"{'' if name == 'exec' else 'mesh_'}warm_p50_ms"]
+                    for r in out if r["query"] == q0)
+        rec["idle_share"] = 1.0 - rec["device_ms"] / wall
+        if not 0.0 <= rec["idle_share"] < 1.0:
+            raise AssertionError(f"{q0} on {name}: device time "
+                                 f"{rec['device_ms']:.3f} ms a query against "
+                                 f"a warm p50 of {wall:.3f} ms")
+        rec["host_self_ms"] = host_split(
+            lambda s=dict(prof_svcs)[name]: s.query_range(q0, start, 60, end),
+            EXEC_WARM)
+        log(f"  {q0} on {name}, torch.profiler device time a warm query "
+            f"{rec['device_ms']:.2f} ms (idle share of its warm p50 "
+            f"{rec['idle_share']:.2f}); largest: {json.dumps(rec['top_ms'])}"
+            f"; host self ms (cProfile): {json.dumps(rec['host_self_ms'])}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  exec batches on the card {ex.batches.nbytes('exec') / 1e9:.2f} GB, "
+        f"mesh batches {svc.mesh.batch_bytes / 1e9:.2f} GB; peak device "
+        f"memory {peak / 1e9:.2f} GB (max_memory_allocated)")
+    seconds = time.perf_counter() - t_phase
+    log(f"  phase 10 took {seconds:.1f} s")
+    return {"queries": out, "launches": total, "profile": prof,
+            "peak_bytes": int(peak),
+            "exec_batch_bytes": int(ex.batches.nbytes("exec")),
             "seconds": seconds}
 
 
@@ -1444,7 +1805,7 @@ def run(dev, args):
     results, timings = {}, []
     for q, _ in QUERIES:
         t = time.perf_counter()
-        r = svc.query_range(q, start, 60, end)
+        r = on_mesh(svc.query_range(q, start, 60, end), q)
         cold = (time.perf_counter() - t) * 1000.0
         warm = []
         for _ in range(args.repeats):
@@ -1458,7 +1819,7 @@ def run(dev, args):
     for q, cold, p50, rows in timings:
         log(f"  {q}: cold {cold:.1f} ms, warm p50 {p50:.2f} ms, {rows} rows")
     log(f"  launches on the main path: {launches}; packed pages on the card: "
-        f"{svc.engine.batch_bytes / 1e9:.2f} GB")
+        f"{svc.mesh.batch_bytes / 1e9:.2f} GB")
     missing = [k for k, v in launches.items() if v == 0]
     if missing and dev.type == "cuda":
         raise AssertionError(f"kernels not launched on the main path: "
@@ -1476,10 +1837,10 @@ def run(dev, args):
     if r.values.shape != (n_ns, 121) \
             or not np.isfinite(r.values[:, 1:]).all():
         raise AssertionError(f"sum(rate) by (_ns_): shape {r.values.shape}")
-    eng = svc.engine
-    batch = max(eng._batches.values(), key=lambda b: len(b.keys))
-    gids, gkeys = eng._group_ids(batch.out_keys,
-                                 lowered(eng, q0, start, end)[1])
+    eng = svc.mesh
+    batch = max(eng.batches.batches("mesh"), key=lambda b: len(b.keys))
+    gids, gkeys = keys_group_ids(eng, lowered(eng, q0, start, end)[1],
+                                 batch.out_keys)
     plain = aggregate("sum", rate_plain, gids, len(gkeys)).cpu().numpy()
     order = {str(k): i for i, k in enumerate(gkeys)}
     idx = [order[str(k)] for k in r.keys]
@@ -1506,6 +1867,9 @@ def main() -> int:
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
     ap.add_argument("--hist-series", type=int, default=100_000)
+    ap.add_argument("--exec-only", action="store_true",
+                    help="build, ingest the phase-2 store and run phase 10 "
+                    "only (the exec engine against the mesh engine)")
     args = ap.parse_args()
 
     import torch
@@ -1528,7 +1892,19 @@ def main() -> int:
         f", CUDA {torch.version.cuda}")
     log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
         f"process a source)")
+    if args.exec_only:
+        from filodb_tpu_torch.coordinator.query_service import QueryService
+        from filodb_tpu_torch.core.memstore.memstore import MemStore
+
+        store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+        ingest(store, args.series, args.samples, args.seed)
+        print(json.dumps({"exec": exec_phase(QueryService(
+            store, device=torch.device("cuda")), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     kernels, svc = run(torch.device("cuda"), args)
+    exec10 = exec_phase(svc, args)
+    print(json.dumps({"exec": exec10}))
     torch.cuda.empty_cache()
     longs = long_range(torch.device("cuda"), args, reps=3)
     print(json.dumps({"long_range": longs}))
@@ -1545,6 +1921,7 @@ def main() -> int:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
         kern["launches_phase9"] = shapes["launches"][kern["name"]]
+        kern["launches_phase10"] = exec10["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,0 +1,248 @@
+"""The single-cluster planner: a logical plan → an exec plan tree.
+
+Port of ``filodb_tpu/coordinator/planner.py``'s ``SingleClusterPlanner``:
+shard-aware materialization with shard-key pruning (a selector with
+equality filters on every shard-key label reads only the 2^spread shards
+its shard key maps to), one ``SelectRawPartitionsExec`` leaf a shard
+under a ``DistConcatExec``, the time split (``time_split_ms`` > 0 plans a long range as sequential
+sub-ranges and stitches them, ``StitchRvsExec``), and a ``_mat_*`` for
+every logical plan the port parses.
+
+Aggregations reduce at the root (``ReduceAggregateExec`` over the
+gathered series): the reference's ``agg_pushdown="off"``. Its two-phase
+pushdown pays only when a child leaves the process; every leaf here runs
+in-process, where the reference's default arm reduces at the root too.
+Pushdown comes with multi-process serving (ROADMAP §A.12). The reference's
+per-shard-key spread overrides come with the write path that ingests at
+them (ROADMAP §A.9): an override the store does not ingest at would prune
+shards that hold the key's series.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from filodb_tpu_torch.core.filters import Equals
+from filodb_tpu_torch.core.partkey import shard_key_hash, shards_for_shard_key
+from filodb_tpu_torch.query import logical as lp
+from filodb_tpu_torch.query.exec import transformers as tf
+from filodb_tpu_torch.query.exec.binaryjoin import (
+    SET_OPS,
+    BinaryJoinExec,
+    SetOperatorExec,
+)
+from filodb_tpu_torch.query.exec.plan import (
+    DistConcatExec,
+    ExecContext,
+    ExecPlan,
+    ReduceAggregateExec,
+    ScalarBinaryOperationExec,
+    ScalarFixedDoubleExec,
+    ScalarVaryingExec,
+    SelectRawPartitionsExec,
+    StitchRvsExec,
+    TimeScalarGeneratorExec,
+    VectorFromScalarExec,
+)
+
+# the labels of a shard key, as every schema of the store has them
+SHARD_KEY_LABELS = ("_ws_", "_ns_", "_metric_")
+
+
+@dataclass
+class SingleClusterPlanner:
+    num_shards: int = 1
+    spread: int = 1
+    # ms above which a range query is split into sequential sub-plans and
+    # stitched (0: never)
+    time_split_ms: int = 0
+
+    # ---- shard selection ----------------------------------------------------
+
+    def shards_for_filters(self, filters) -> list[int]:
+        """The shards a selector reads: with equality filters on every
+        shard-key label, the 2^spread shards of its shard key, else all."""
+        eq = {f.column: f.filter.value for f in filters
+              if isinstance(f.filter, Equals)}
+        if all(lbl in eq for lbl in SHARD_KEY_LABELS):
+            skh = shard_key_hash({k: eq[k] for k in SHARD_KEY_LABELS})
+            return shards_for_shard_key(skh, self.num_shards, self.spread)
+        return list(range(self.num_shards))
+
+    # ---- materialization ----------------------------------------------------
+
+    def materialize(self, plan: lp.LogicalPlan) -> ExecPlan:
+        m = getattr(self, "_mat_" + type(plan).__name__, None)
+        if m is None:
+            raise ValueError(f"cannot materialize {type(plan).__name__}")
+        return m(plan)
+
+    def _leaves(self, raw: lp.RawSeries, mapper) -> list[ExecPlan]:
+        chunk_start = raw.range_start - raw.lookback - raw.offset
+        chunk_end = raw.range_end - raw.offset
+        out = []
+        for shard in self.shards_for_filters(raw.filters):
+            leaf = SelectRawPartitionsExec(
+                shard=shard, filters=raw.filters, chunk_start=chunk_start,
+                chunk_end=chunk_end, value_column=raw.column)
+            out.append(leaf.add_transformer(mapper))
+        return out
+
+    @staticmethod
+    def _concat(plans: list[ExecPlan]) -> ExecPlan:
+        return plans[0] if len(plans) == 1 \
+            else DistConcatExec(children_plans=plans)
+
+    def _split_ranges(self, start: int, step: int, end: int):
+        """[start, end] as sequential sub-ranges on step boundaries."""
+        if (self.time_split_ms <= 0 or step <= 0
+                or end - start <= self.time_split_ms):
+            return [(start, end)]
+        out = []
+        cur = start
+        steps_per_split = max(self.time_split_ms // step, 1)
+        while cur <= end:
+            sub_end = min(cur + steps_per_split * step - step, end)
+            out.append((cur, sub_end))
+            cur = sub_end + step
+        return out
+
+    def _split(self, plan, mapper_for, lookback: int) -> ExecPlan:
+        parts = []
+        for s, e in self._split_ranges(plan.start, plan.step, plan.end):
+            raw = plan.raw if plan.at_ms is not None else lp.RawSeries(
+                plan.raw.filters, s, e, lookback, plan.raw.offset,
+                plan.raw.column)
+            parts.append(self._concat(self._leaves(raw, mapper_for(s, e))))
+        return parts[0] if len(parts) == 1 \
+            else StitchRvsExec(children_plans=parts)
+
+    def _mat_PeriodicSeries(self, plan: lp.PeriodicSeries) -> ExecPlan:
+        return self._split(plan, lambda s, e: tf.PeriodicSamplesMapper(
+            s, plan.step, e, offset=plan.offset, at_ms=plan.at_ms),
+            plan.raw.lookback)
+
+    def _mat_PeriodicSeriesWithWindowing(
+            self, plan: lp.PeriodicSeriesWithWindowing) -> ExecPlan:
+        return self._split(plan, lambda s, e: tf.PeriodicSamplesMapper(
+            s, plan.step, e, plan.window, plan.function, plan.params,
+            plan.offset, plan.at_ms), max(plan.raw.lookback, plan.window))
+
+    def _mat_RawSeries(self, plan: lp.RawSeries) -> ExecPlan:
+        # a raw export: the last sample at the end of the range
+        mapper = tf.PeriodicSamplesMapper(plan.range_start, 0, plan.range_end,
+                                          offset=plan.offset)
+        return self._concat(self._leaves(plan, mapper))
+
+    # -- aggregations and joins --
+
+    def _mat_Aggregate(self, plan: lp.Aggregate) -> ExecPlan:
+        return ReduceAggregateExec(children_plans=[self.materialize(
+            plan.vector)], op=plan.op, params=tuple(plan.params),
+            by=plan.by, without=plan.without)
+
+    def _mat_BinaryJoin(self, plan: lp.BinaryJoin) -> ExecPlan:
+        lhs, rhs = self.materialize(plan.lhs), self.materialize(plan.rhs)
+        if plan.op in SET_OPS:
+            return SetOperatorExec(lhs_plans=[lhs], rhs_plans=[rhs],
+                                   op=plan.op, on=plan.on,
+                                   ignoring=plan.ignoring)
+        return BinaryJoinExec(lhs_plans=[lhs], rhs_plans=[rhs], op=plan.op,
+                              cardinality=plan.cardinality, on=plan.on,
+                              ignoring=plan.ignoring, include=plan.include,
+                              bool_mode=plan.bool_mode)
+
+    def _mat_ScalarVectorBinaryOperation(
+            self, plan: lp.ScalarVectorBinaryOperation) -> ExecPlan:
+        vec = self.materialize(plan.vector)
+        return vec.add_transformer(_ScalarOpDeferred(
+            plan.op, self.materialize(plan.scalar), plan.scalar_is_lhs,
+            plan.bool_mode))
+
+    # -- functions --
+
+    def _mapped(self, plan, mapper) -> ExecPlan:
+        return self.materialize(plan.vector).add_transformer(mapper)
+
+    def _mat_ApplyInstantFunction(self, plan) -> ExecPlan:
+        return self._mapped(plan, tf.InstantVectorFunctionMapper(
+            plan.function, tuple(plan.args)))
+
+    def _mat_ApplyMiscellaneousFunction(self, plan) -> ExecPlan:
+        return self._mapped(plan, tf.MiscellaneousFunctionMapper(
+            plan.function, tuple(plan.args)))
+
+    def _mat_ApplySortFunction(self, plan) -> ExecPlan:
+        return self._mapped(plan, tf.SortFunctionMapper(plan.descending))
+
+    def _mat_ApplyAbsentFunction(self, plan) -> ExecPlan:
+        return self._mapped(plan, tf.AbsentFunctionMapper(
+            plan.filters, plan.start, plan.step or 1000, plan.end))
+
+    def _mat_ApplyLimitFunction(self, plan) -> ExecPlan:
+        return self._mapped(plan, tf.LimitFunctionMapper(plan.limit))
+
+    # -- subqueries --
+
+    def _mat_SubqueryWithWindowing(self, plan: lp.SubqueryWithWindowing
+                                   ) -> ExecPlan:
+        return self.materialize(lp.subquery_inner(plan)).add_transformer(
+            tf.PeriodicSamplesMapper(
+                plan.start, plan.step, plan.end, plan.subquery_window,
+                plan.function, tuple(plan.params), plan.offset))
+
+    def _mat_TopLevelSubquery(self, plan: lp.TopLevelSubquery) -> ExecPlan:
+        return self.materialize(lp.retime(plan.inner, plan.start,
+                                          plan.step, plan.end))
+
+    # -- scalars --
+
+    def _mat_ScalarFixedDoublePlan(self, plan) -> ExecPlan:
+        return ScalarFixedDoubleExec(value=plan.value, start=plan.start,
+                                     step=plan.step or 1000, end=plan.end)
+
+    def _mat_ScalarTimeBasedPlan(self, plan) -> ExecPlan:
+        return TimeScalarGeneratorExec(function=plan.function,
+                                       start=plan.start,
+                                       step=plan.step or 1000, end=plan.end)
+
+    def _mat_ScalarVaryingDoublePlan(self, plan) -> ExecPlan:
+        times = lp.plan_times(plan.vector)
+        start, step, end = (times[0], max(times[1], 1), times[2]) if times \
+            else (0, 1000, 0)
+        return ScalarVaryingExec(inner=self.materialize(plan.vector),
+                                 start=start, step=step, end=end)
+
+    def _mat_ScalarBinaryOperation(self, plan) -> ExecPlan:
+        def side(x):
+            if isinstance(x, (int, float)):
+                return float(x)
+            return self.materialize(x)
+
+        return ScalarBinaryOperationExec(op=plan.op, lhs=side(plan.lhs),
+                                         rhs=side(plan.rhs), start=plan.start,
+                                         step=plan.step or 1000, end=plan.end)
+
+    def _mat_VectorPlan(self, plan) -> ExecPlan:
+        return VectorFromScalarExec(inner=self.materialize(plan.scalar))
+
+
+class _ScalarOpDeferred(tf.RangeVectorTransformer):
+    """``ScalarOperationMapper`` whose scalar side is a scalar plan,
+    evaluated when the transformer runs (it takes the exec context through
+    ``bind``)."""
+
+    def __init__(self, op, scalar_exec, scalar_is_lhs, bool_mode):
+        self.op = op
+        self.scalar_exec = scalar_exec
+        self.scalar_is_lhs = scalar_is_lhs
+        self.bool_mode = bool_mode
+        self._ctx: ExecContext | None = None
+
+    def bind(self, ctx: ExecContext) -> None:
+        self._ctx = ctx
+
+    def apply(self, data):
+        scalar, _ = self.scalar_exec.execute_scalar(self._ctx)
+        return tf.ScalarOperationMapper(self.op, scalar, self.scalar_is_lhs,
+                                        self.bool_mode).apply(data)

@@ -2,11 +2,28 @@
 
 Port of the query and metadata paths of
 ``filodb_tpu/coordinator/query_service.py``: ``query_range`` and
-``query_instant`` (steps ``(t, 0, t)``) parse, lower, run on the one-GPU
-engine and materialize; ``label_names``, ``label_values`` and ``series``
+``query_instant`` (steps ``(t, 0, t)``) parse, run on one of the two
+engines and materialize; ``label_names``, ``label_values`` and ``series``
 answer from the shards' part-key indexes, on the host. A range answer's
 ``StepMatrix`` renders with ``http.promjson.matrix_json``, an instant one
 with ``vector_json`` or, for a scalar expression, ``scalar_json``.
+
+``engine`` picks the engine, as the reference's does:
+
+- ``"mesh"`` (the default, as ``standalone`` boots the reference): the
+  one-card split pipeline (``parallel/mesh_engine.py``); a plan that it
+  does not ``supports`` runs through the planner and the exec engine
+  instead, decided before either runs, as the reference falls back for
+  the plans its mesh engine does not support. An ``UnsupportedQuery``
+  that the mesh engine raises while it runs routes too, as a backstop;
+  any other exception reaches the caller;
+- ``"exec"``: ``SingleClusterPlanner`` materializes the exec plan tree
+  (``query/exec/plan.py``), a leaf a shard.
+
+``QueryStats.engine`` records which engine answered and
+``QueryStats.fallback`` why mesh handed the plan on. Both engines keep
+their uploaded batches in one ``BatchCache``, under one budget of device
+memory, and their group ids in one ``GroupIdCache``.
 """
 
 from __future__ import annotations
@@ -15,22 +32,46 @@ import time
 
 import torch
 
+from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
 from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.device import resolve
 from filodb_tpu_torch.parallel.mesh_engine import MeshQueryEngine
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
-from filodb_tpu_torch.query.model import QueryResult, QueryStats
+from filodb_tpu_torch.query.engine.device_batch import BatchCache
+from filodb_tpu_torch.query.exec.plan import ExecContext
+from filodb_tpu_torch.query.exec.transformers import GroupIdCache
+from filodb_tpu_torch.query.model import (
+    QueryResult,
+    QueryStats,
+    StepMatrix,
+    UnsupportedQuery,
+)
+
+ENGINES = ("mesh", "exec")
 
 
 class QueryService:
     """Serves queries over ``memstore`` on ``device`` (default: the CUDA
-    card; ``device="cpu"`` runs every kernel's plain version)."""
+    card; ``device="cpu"`` runs every kernel's plain version) with
+    ``engine`` ``"mesh"`` (falling back to exec) or ``"exec"``;
+    ``time_split_ms`` > 0 has the planner split longer ranges. The
+    batches both engines keep take at most half the card's memory
+    (``batches.budget``)."""
 
     def __init__(self, memstore: MemStore,
-                 device: "str | torch.device | None" = None):
+                 device: "str | torch.device | None" = None,
+                 engine: str = "mesh", time_split_ms: int = 0):
+        if engine not in ENGINES:
+            raise ValueError(f"engine {engine!r}: one of {ENGINES}")
         self.memstore = memstore
         self.device = resolve(device)
-        self.engine = MeshQueryEngine(self.device)
+        self.engine = engine
+        self.batches = BatchCache(self.device)
+        self.gids = GroupIdCache()
+        self.mesh = MeshQueryEngine(self.device, self.batches, self.gids)
+        self.planner = SingleClusterPlanner(memstore.num_shards,
+                                            memstore.spread,
+                                            time_split_ms=time_split_ms)
 
     def query_range(self, promql: str, start_sec: int, step_sec: int,
                     end_sec: int) -> QueryResult:
@@ -44,11 +85,29 @@ class QueryService:
     def _run(self, promql: str, params: TimeStepParams) -> QueryResult:
         t0 = time.perf_counter()
         plan = parse_query(promql, params)
-        stats = QueryStats()
-        m = self.engine.execute(self.memstore, plan, stats).materialize()
+        m, stats = self.execute_logical(plan)
+        m.materialize()
         stats.result_series = m.num_series
         stats.wall_time_s = time.perf_counter() - t0
         return QueryResult(m, stats)
+
+    def execute_logical(self, plan) -> tuple[StepMatrix, QueryStats]:
+        """``plan``'s answer (values still on the card) and its stats."""
+        fallback = ""
+        if self.engine == "mesh":
+            fallback = self.mesh.supports(self.memstore, plan)
+            if fallback is None:
+                stats = QueryStats(engine="mesh")
+                try:
+                    return self.mesh.execute(self.memstore, plan, stats), \
+                        stats
+                except UnsupportedQuery as e:
+                    fallback = str(e)
+        stats = QueryStats(engine="exec", fallback=fallback)
+        tree = self.planner.materialize(plan)
+        ctx = ExecContext(self.memstore, stats, self.device, self.batches,
+                          self.gids)
+        return tree.execute(ctx), stats
 
     # ---- metadata ------------------------------------------------------------
 

@@ -10,7 +10,8 @@ Ingest is columnar: ``ingest_series`` takes many series at once as label
 maps plus [N, T] timestamp and value arrays, routes them with hashes
 computed for all keys together, and appends per shard in vectorised
 rounds; ``ingest_histograms`` does the same for ``prom-histogram`` series
-with cumulative bucket counts [N, T, B] under one bucket scheme. It is host
+with cumulative bucket counts [N, T, B] under one bucket scheme, and each
+sample's ``sum`` and ``count`` (the schema's other two columns). It is host
 code; the device sees only the sealed pages.
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from filodb_tpu_torch.core.memstore.shard import Shard
+from filodb_tpu_torch.core.memstore.shard import Shard, hist_slots
 from filodb_tpu_torch.core.partkey import (
     PartKey,
     ingestion_shard,
@@ -80,22 +81,28 @@ class MemStore:
 
     def ingest_histograms(self, labels: list[dict], ts: np.ndarray,
                           buckets: np.ndarray, les: np.ndarray,
-                          lens: np.ndarray | None = None) -> int:
+                          lens: np.ndarray | None = None, sums=None,
+                          counts=None) -> int:
         """Ingest N ``prom-histogram`` series: ``labels[i]`` (with
         ``_metric_``), timestamps int64 ms [N, T] (ascending), cumulative
         bucket counts int64 [N, T, B] under the bucket upper bounds ``les``
-        float64 [B] (the last one +Inf); ``lens[i]`` of each row are samples
-        (default: all T). Returns the samples kept."""
+        float64 [B] (the last one +Inf), and each sample's sum and count,
+        float64 [N, T] (NaN if not given: ``h::sum`` then selects no
+        sample); ``lens[i]`` of each row are samples (default: all T).
+        Returns the samples kept."""
         ts = np.asarray(ts, np.int64)
         buckets = np.asarray(buckets, np.int64)
         les = np.asarray(les, np.float64)
         if ts.ndim != 2 or buckets.shape[:2] != ts.shape \
                 or buckets.ndim != 3 or len(labels) != len(ts) \
-                or les.shape != buckets.shape[2:]:
+                or les.shape != buckets.shape[2:] \
+                or any(c is not None and np.shape(c) != ts.shape
+                       for c in (sums, counts)):
             raise ValueError("ingest_histograms takes N label maps, [N, T] "
-                             "timestamps, [N, T, B] bucket counts and [B] "
-                             "bucket bounds")
-        return self._routed(labels, ts, buckets, lens, "prom-histogram",
+                             "timestamps, [N, T, B] bucket counts, [B] "
+                             "bucket bounds and [N, T] sums and counts")
+        slots = hist_slots(buckets, sums, counts)
+        return self._routed(labels, ts, slots, lens, "prom-histogram",
                             lambda shard, *a: shard.ingest_histograms(
                                 *a, les))
 
@@ -124,11 +131,17 @@ class MemStore:
                                   np.asarray(vals, np.float64)[None, :],
                                   schema=schema)
 
-    def ingest_histogram(self, labels: dict, ts, buckets, les) -> int:
-        """Ingest one histogram series' samples ([T], [T, B], [B])."""
+    def ingest_histogram(self, labels: dict, ts, buckets, les, sums=None,
+                         counts=None) -> int:
+        """Ingest one histogram series' samples ([T], [T, B], [B], and the
+        sums and counts [T])."""
+        def row(c):
+            return None if c is None else np.asarray(c, np.float64)[None, :]
+
         return self.ingest_histograms(
             [labels], np.asarray(ts, np.int64)[None, :],
-            np.asarray(buckets, np.int64)[None, :], les)
+            np.asarray(buckets, np.int64)[None, :], les, sums=row(sums),
+            counts=row(counts))
 
     def seal(self, labels: dict, schema: str = "prom-counter") -> None:
         """Close one series' write buffer into a chunk now."""

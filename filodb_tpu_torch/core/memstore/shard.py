@@ -14,8 +14,13 @@ part of the port.
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
-(``HistPageBlocks``, as the reference's ``_hist_pages``). Each chunk
-records its bucket scheme (``les``) as the partition held it at seal time.
+(``HistPageBlocks``, as the reference's ``_hist_pages``) and a float32 XOR
+value page of each of the schema's ``sum`` and ``count`` columns (the
+reference's ``encode_f32_page`` of the column), beside the bucket pages and
+over the same timestamp page. Each chunk records its bucket scheme
+(``les``) as the partition held it at seal time. A column selector
+(``h::sum``) selects those value pages as a scalar series
+(``select_blocks(..., column="sum")``).
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from filodb_tpu_torch.core.memstore.partition import (
     drop_out_of_order,
 )
 from filodb_tpu_torch.core.partkey import PartKey
+from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.query.engine.device_batch import (
     HistPageBlocks,
     PageBlocks,
@@ -41,6 +47,29 @@ from filodb_tpu_torch.query.engine.device_batch import (
 # threads (the card's host has 8 cores)
 _ENCODE_ROWS = 4096
 _ENCODE_WORKERS = 8
+SCHEMA_NAMES = tuple(SCHEMAS)  # a partition's schema, by index
+# the value columns a histogram sample carries beside its buckets
+HIST_COLUMNS = ("sum", "count")
+_NCOL = len(HIST_COLUMNS)
+
+
+def hist_slots(counts: np.ndarray, sums, cnts) -> np.ndarray:
+    """Histogram samples as one int64 [N, T, B + 2] array: the B cumulative
+    bucket counts, then the float64 bit patterns of the sample's sum and
+    count (NaN where not given), so that out-of-order drops and buffer
+    appends move all three with their sample."""
+    N, T = counts.shape[:2]
+    cols = [np.full((N, T), np.nan) if c is None
+            else np.asarray(c, np.float64).reshape(N, T)
+            for c in (sums, cnts)]
+    return np.concatenate([counts] + [np.ascontiguousarray(c).view(
+        np.int64)[:, :, None] for c in cols], axis=2)
+
+
+def slot_columns(slots: np.ndarray) -> np.ndarray:
+    """The sum and count columns of histogram slots [..., B + 2] as float64
+    [..., 2]."""
+    return slots[..., -_NCOL:].view(np.float64)
 
 
 def _abs_max_finite(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
@@ -54,9 +83,9 @@ def encode_chunks(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
                   take: np.ndarray | None = None):
     """Device pages of many chunks (rows of samples, or of the rows
     ``take`` of the arrays): → (PageBlocks or HistPageBlocks, blocks a
-    chunk). Values [C, T] give scalar pages, cumulative bucket counts
-    [C, T, B] histogram pages. Large batches encode on a thread pool (numpy
-    releases the interpreter lock inside its loops)."""
+    chunk). Values [C, T] give scalar pages, histogram slots [C, T, B + 2]
+    (``hist_slots``) histogram pages. Large batches encode on a thread pool
+    (numpy releases the interpreter lock inside its loops)."""
     n = len(rows) if take is None else len(take)
     hist = vals.ndim == 3
     step = max(1, _ENCODE_ROWS // (vals.shape[2] + 1)) if hist \
@@ -68,7 +97,8 @@ def encode_chunks(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
         if hist:
             tb, cb, rb, per = hist_chunk_blocks(ts[idx], vals[idx],
                                                 rows[idx])
-            return HistPageBlocks.encode(tb, cb, rb), per
+            cols = cb[:, -_NCOL:].view(np.float64)
+            return HistPageBlocks.encode(tb, cb[:, :-_NCOL], rb, cols), per
         tb, vb, rb, per = chunk_blocks(ts[idx], vals[idx], rows[idx])
         return PageBlocks.encode(tb, vb, rb), per
 
@@ -95,11 +125,11 @@ class ChunkTable:
     """Sealed chunks of one kind (scalar or histogram): their page tables,
     one a sealing, and one row a chunk in ``columns`` (pid, seq, blk0 and
     nblk: the chunk's blocks among all the tables' blocks, rows, t0, t1,
-    and the kind's own column ``extra``)."""
+    and the kind's own columns ``extra``)."""
 
-    def __init__(self, extra: str):
+    def __init__(self, *extra: str):
         self.names = ("pid", "seq", "blk0", "nblk", "rows", "t0", "t1",
-                      extra)
+                      *extra)
         self.pages: list = []
         self.offsets: list[int] = [0]
         self._cols: list[dict] = []
@@ -130,6 +160,7 @@ class Shard:
         self._by_key: dict[PartKey, int] = {}
         self.buffers = WriteBuffers(max_chunk_size)
         self.latest = np.zeros(0, np.int64)
+        self.schema_of = np.zeros(0, np.int8)  # index into SCHEMA_NAMES
         self._seq = np.zeros(0, np.int64)  # next chunk sequence a partition
         self._sealed = ChunkTable("vmax")  # largest finite |value| a chunk
         self.version = 0
@@ -143,7 +174,9 @@ class Shard:
         self.les_list: list[np.ndarray] = []
         self._les_index: dict[bytes, int] = {}
         self.hist_buffers: dict[int, WriteBuffers] = {}
-        self._hist_sealed = ChunkTable("les")  # each chunk's scheme
+        # each chunk's scheme, and the largest finite |value| of its sum and
+        # count columns
+        self._hist_sealed = ChunkTable("les", "vmax_sum", "vmax_count")
         self._hist_buffer_pages = None  # (version, [per bucket count])
 
     @property
@@ -173,11 +206,15 @@ class Shard:
                     [self.latest, np.full(grow, -1, np.int64)])
                 self._seq = np.concatenate(
                     [self._seq, np.zeros(grow, np.int64)])
+                self.schema_of = np.concatenate(
+                    [self.schema_of, np.zeros(grow, np.int8)])
                 self.hist = np.concatenate([self.hist, np.zeros(grow, bool)])
                 self._width = np.concatenate(
                     [self._width, np.zeros(grow, np.int64)])
                 self._les_id = np.concatenate(
                     [self._les_id, np.full(grow, -1, np.int64)])
+            self.schema_of[base:n] = [SCHEMA_NAMES.index(k.schema)
+                                      for k in new_keys]
             self.index.add_part_keys(base, [k.labels for k in new_keys],
                                      np.asarray(new_first, np.int64))
         return pids
@@ -209,21 +246,21 @@ class Shard:
         return lid
 
     def ingest_histograms(self, keys: list[PartKey], ts: np.ndarray,
-                          counts: np.ndarray, lens: np.ndarray,
+                          slots: np.ndarray, lens: np.ndarray,
                           les: np.ndarray) -> int:
         """Append histogram samples: row i holds ``lens[i]`` samples of
-        ``keys[i]`` (distinct keys), cumulative bucket counts int64
-        [N, T, B] under bucket bounds ``les`` [B]. A series whose buffer
-        holds another bucket count seals it first. Returns the samples
-        kept."""
+        ``keys[i]`` (distinct keys), ``hist_slots`` int64 [N, T, B + 2]
+        (cumulative bucket counts under bucket bounds ``les`` [B], then the
+        sum and count). A series whose buffer holds another bucket count
+        seals it first. Returns the samples kept."""
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
-        B = counts.shape[2]
+        B = slots.shape[2] - _NCOL
         first = np.where(lens > 0, ts[:, 0], -1)
         pids = self._partitions_for(keys, first)
         self.hist[pids] = True
-        ts, counts, lens = drop_out_of_order(ts, counts, lens,
-                                             self.latest[pids])
+        ts, slots, lens = drop_out_of_order(ts, slots, lens,
+                                            self.latest[pids])
         act = pids[lens > 0]
         width = self._width[act]
         for old in np.unique(width[(width != B) & (width > 0)]):
@@ -234,8 +271,9 @@ class Shard:
         self._les_id[act] = self._scheme(les)
         buf = self.hist_buffers.get(B)
         if buf is None:
-            buf = self.hist_buffers[B] = WriteBuffers(self.max_chunk_size, B)
-        for sealed in buf.append(pids, ts, counts, lens):
+            buf = self.hist_buffers[B] = WriteBuffers(self.max_chunk_size,
+                                                      B + _NCOL)
+        for sealed in buf.append(pids, ts, slots, lens):
             self._add_hist_chunks(*sealed)
         has = lens > 0
         self.latest[pids[has]] = ts[has, np.maximum(lens[has] - 1, 0)]
@@ -264,12 +302,16 @@ class Shard:
         self._sealed.add(pages, per, **self._chunk_row(pids, ts, rows),
                          vmax=_abs_max_finite(vals, rows))
 
-    def _add_hist_chunks(self, pids, ts, counts, rows) -> None:
-        """Seal histogram buffers: pages, and each chunk's scheme as its
-        partition holds it now."""
-        pages, per = encode_chunks(ts, counts, rows)
+    def _add_hist_chunks(self, pids, ts, slots, rows) -> None:
+        """Seal histogram buffers: pages, each chunk's scheme as its
+        partition holds it now, and its sum and count columns' largest
+        finite |value| (the precision gate's input)."""
+        pages, per = encode_chunks(ts, slots, rows)
+        cols = slot_columns(slots)
         self._hist_sealed.add(pages, per, **self._chunk_row(pids, ts, rows),
-                              les=self._les_id[pids].copy())
+                              les=self._les_id[pids].copy(),
+                              vmax_sum=_abs_max_finite(cols[..., 0], rows),
+                              vmax_count=_abs_max_finite(cols[..., 1], rows))
 
     def _chunk_row(self, pids, ts, rows) -> dict:
         """The columns every sealed chunk has; takes the next sequence
@@ -288,7 +330,7 @@ class Shard:
     @property
     def hist_chunks(self) -> dict:
         """Every sealed histogram chunk (pid, seq, blk0, nblk, rows, t0, t1,
-        les: its scheme's index in ``les_list``)."""
+        les: its scheme's index in ``les_list``, vmax_sum, vmax_count)."""
         return self._hist_sealed.columns
 
     # ---- query -------------------------------------------------------------
@@ -332,15 +374,23 @@ class Shard:
 
     def hist_buffer_pages(self) -> list[dict]:
         """``buffer_pages`` of the histogram buffers, one dict per bucket
-        count."""
+        count; ``vmax`` [P, 2] is per column (sum, count)."""
         cached = self._hist_buffer_pages
         if cached is None or cached[0] != self.version:
-            cached = self._hist_buffer_pages = (self.version, [
-                self._buffer_table(b, self.num_partitions)[0]
-                for b in self.hist_buffers.values()])
+            tables = []
+            for b in self.hist_buffers.values():
+                out, rows, pids = self._buffer_table(b, self.num_partitions)
+                out["vmax"] = np.zeros((self.num_partitions, _NCOL))
+                cols = slot_columns(b.vals[rows])
+                for j in range(_NCOL):
+                    out["vmax"][pids, j] = _abs_max_finite(cols[..., j],
+                                                           b.n[rows])
+                tables.append(out)
+            cached = self._hist_buffer_pages = (self.version, tables)
         return cached[1]
 
-    def _select(self, pids, start, end, sealed: ChunkTable, bufs):
+    def _select(self, pids, start, end, sealed: ChunkTable, bufs,
+                view=lambda pages: pages):
         """Page blocks of partitions ``pids`` (batch rows in that order)
         for [start, end]: chunks overlapping the range in sequence order,
         then the write buffer if it overlaps. → (tables, table_of,
@@ -355,7 +405,7 @@ class Shard:
         blocks = _expand(ch["blk0"][sel], ch["nblk"][sel])
         offsets = np.asarray(sealed.offsets)
         seg = np.searchsorted(offsets, blocks, side="right") - 1
-        tables, table_of = list(sealed.pages), [seg]
+        tables, table_of = [view(p) for p in sealed.pages], [seg]
         block_of = [blocks - offsets[seg]]
         row_of = [np.repeat(row_of_pid[ch["pid"][sel]], ch["nblk"][sel])]
         bsels = []
@@ -366,7 +416,7 @@ class Shard:
             if len(bsel):
                 blocks = _expand(buf["blk0"][bsel], buf["nblk"][bsel])
                 table_of.append(np.full(len(blocks), len(tables)))
-                tables.append(buf["pages"])
+                tables.append(view(buf["pages"]))
                 block_of.append(blocks)
                 row_of.append(np.repeat(row_of_pid[bsel], buf["nblk"][bsel]))
         row_of = np.concatenate(row_of)
@@ -376,11 +426,23 @@ class Shard:
         return (tables, np.concatenate(table_of)[order],
                 np.concatenate(block_of)[order], row_of[order], sel, bsels)
 
-    def select_blocks(self, pids: np.ndarray, start: int, end: int):
+    def select_blocks(self, pids: np.ndarray, start: int, end: int,
+                      column: str | None = None):
         """Page blocks of scalar partitions ``pids`` (batch rows in that
-        order) for [start, end]. Returns (tables, table_of, block_of,
-        row_of, vmax) for ``device_batch.pack_blocks`` plus the largest
-        |value| they hold."""
+        order) for [start, end], or with ``column`` (one of
+        ``HIST_COLUMNS``) the value pages of that column of histogram
+        partitions. Returns (tables, table_of, block_of, row_of, vmax) for
+        ``device_batch.pack_blocks`` plus the largest |value| they hold."""
+        if column is not None:
+            j = HIST_COLUMNS.index(column)
+            bufs = self.hist_buffer_pages()
+            tables, t_of, b_of, r_of, sel, bsels = self._select(
+                pids, start, end, self._hist_sealed, bufs,
+                lambda pages: pages.column(j))
+            vmax = max([float(self.hist_chunks[f"vmax_{column}"][sel].max(
+                initial=0.0))] + [float(b["vmax"][bs, j].max(initial=0.0))
+                                  for b, bs in zip(bufs, bsels)])
+            return tables, t_of, b_of, r_of, vmax
         buf = self.buffer_pages()
         tables, t_of, b_of, r_of, sel, (bsel,) = self._select(
             pids, start, end, self._sealed, [buf])

@@ -160,6 +160,14 @@ def shard_key_hash(shard_key_values: dict[str, str]) -> int:
     return murmur3_32(data, seed=0x5EED)
 
 
+def shards_for_shard_key(shard_key_h: int, num_shards: int,
+                         spread: int) -> list[int]:
+    """Every shard a shard key maps to at ``spread``: the query fan-out."""
+    mask = (1 << spread) - 1
+    base = shard_key_h & ~mask & (num_shards - 1)
+    return [(base | i) & (num_shards - 1) for i in range(1 << spread)]
+
+
 def ingestion_shard(shard_key_h, part_h, num_shards: int, spread: int):
     """Owning shard: upper bits from the shard-key hash, the low ``spread``
     bits from the whole-key hash. Works on ints and on numpy arrays."""

@@ -1,8 +1,7 @@
 """The one-GPU query engine: PromQL plans over scalar series on the card.
 
-Port of ``filodb_tpu/parallel/mesh_engine.py`` and, for the plans that
-engine hands to the exec engine, of the exec engine's transformers. A leaf
-is lowered (``lower_plan``) from
+Port of ``filodb_tpu/parallel/mesh_engine.py`` for one card. A leaf is
+lowered (``lower_plan``) from
 
     range_fn(selector[w] offset o)   every range function of
                                      ``query/engine/kernels.py`` plus
@@ -18,91 +17,76 @@ label_replace / label_join, limit, operators with a number or a per-step
 scalar, binary joins and set operators of two vectors, scalar plans
 (numbers, ``time()``, ``scalar(v)``, scalar arithmetic, ``vector(s)``)
 and subqueries, whose range function runs over the inner matrix's steps
-as samples. Any other plan raises ``UnsupportedQuery`` naming its shape;
-nothing answers it some other way.
+as samples.
 
-A query selects partitions shard by shard, packs their page blocks
-(``device_batch.pack_blocks``) and uploads the packed pages only. On the
-card:
+A leaf selects its partitions on every shard into one batch
+(``device_batch.build_device_batch``: the packed pages are uploaded once
+and cached per (selector, data range) until the store ingests again, as
+the reference's mesh engine caches placed batches, in a ``BatchCache``
+that the service's exec engine shares) and evaluates it with
+the exec engine's own windowing stage
+(``transformers.PeriodicSamplesMapper.eval_batch``), so both engines
+launch the same kernels through the same code: B3 for rate / increase /
+delta, B1 and B2 then B4 or the float64 functions for the rest, B1 for
+histogram buckets. Aggregations, instant functions and operators are plain
+torch on the card (``query/exec``); joins match labels on the host.
 
-- rate / increase / delta run kernel B3 straight from the packed pages;
-- every other range function and the instant selector decode through B1
-  and B2 (``assemble``) in chunks of rows; sum / count / avg /
-  present_over_time sum windows with B4 over the values and the validity
-  mask, the rest run the plain ``range_eval_masked`` family in float64;
-- aggregations, instant functions and operators are plain torch on the
-  card (``query/exec``); joins match labels on the host.
+Histograms: a selector that matches ``prom-histogram`` series reads their
+bucket pages; every range function of ``HIST_FNS`` and the instant
+selector run per bucket. Above the leaf a histogram matrix is [P, K, B]:
+sum … stdvar aggregate per bucket, ``histogram_quantile`` /
+``histogram_max_quantile`` interpolate on the card, instant functions and
+operators with a number are element-wise. ``histogram_quantile`` over
+``le``-labelled scalar series (the classic Prometheus form) groups the
+bucket series on the host and interpolates on the card.
 
-Histograms: a selector that matches ``prom-histogram`` series packs their
-timestamp blocks and one int block a bucket (``pack_hist_blocks``), B at
-the batch's widest scheme. Every range function of ``HIST_FNS`` and the
-instant selector decode a chunk of series through B1 (timestamps once, then
-every bucket block in one launch) and run ``range_eval_masked`` in float64
-on the [series, B, S] bucket rows, each bucket its own counter, as the
-reference's exec engine does over ``_assemble_hist``. Above the leaf a
-histogram matrix is [P, K, B]: sum … stdvar aggregate per bucket,
-``histogram_quantile`` / ``histogram_max_quantile`` interpolate on the
-card, instant functions and operators with a number are element-wise.
-``histogram_quantile`` over ``le``-labelled scalar series (the classic
-Prometheus form) groups the bucket series on the host and interpolates on
-the card. Other histogram shapes raise ``UnsupportedQuery``.
-
-Precision gate (the reference's ``F32_SAFE_MAX``): float32 keeps window
-differences exact only below 2^20, so a rate / increase / delta leaf whose
-selected chunks hold a larger |value| runs the plain ``range_eval_masked``
-in float64 on the card instead of B3, and ``QueryStats.precise_lane``
-counts it.
-
-Uploaded batches are cached per (selector, data range) until the store
-ingests again, as the reference's mesh engine caches placed batches.
+``supports`` decides, before anything runs, whether the engine serves a
+plan, as the reference's ``supports`` does: from the plan, and from the
+shards' indexes for which selectors match histograms. For any other plan
+it names the shape, and ``execute`` raises ``UnsupportedQuery`` with that
+text. As in the reference, that is the signal to hand the plan to the
+exec engine (``QueryService(engine="mesh")`` does): column selectors
+(``h::sum``, ``h::count``), joins and set operators with a histogram
+side, ``timestamp(h)``, ``predict_linear(h[w], t)`` and the plan shapes
+over a histogram that the exec engine answers go there.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.device import EXACT_DTYPE
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.engine.aggregations import AGG_OPS
-from filodb_tpu_torch.query.engine.cuda_kernels import (
-    TS_PAD,
-    fused_decode_rate,
-    steps_in_flight,
-    windowed_sum,
-)
 from filodb_tpu_torch.query.engine.device_batch import (
-    BLOCK,
-    assemble,
-    assemble_hist,
-    pack_blocks,
-    pack_hist_blocks,
-    to_device,
+    MIXED_KINDS,
+    BatchCache,
+    DeviceBatch,
+    build_device_batch,
 )
-from filodb_tpu_torch.query.engine.instantfns import INSTANT_FNS
-from filodb_tpu_torch.query.engine.kernels import (
-    RANGE_FNS,
-    RATE_FNS,
-    holt_winters_masked,
-    quantile_over_time_masked,
-    range_eval_masked,
+from filodb_tpu_torch.query.engine.instantfns import (
+    INSTANT_FNS,
+    apply_binary_op,
 )
+from filodb_tpu_torch.query.engine.kernels import RANGE_FNS
 from filodb_tpu_torch.query.exec.binaryjoin import (
     SET_OPS,
     binary_join,
     set_operator,
 )
-from filodb_tpu_torch.query.engine.instantfns import apply_binary_op
 from filodb_tpu_torch.query.exec.transformers import (
+    SERVED_FNS,
+    STALENESS_MS,
     AbsentFunctionMapper,
     AggregateMapReduce,
+    GroupIdCache,
     InstantVectorFunctionMapper,
     LimitFunctionMapper,
     MiscellaneousFunctionMapper,
+    PeriodicSamplesMapper,
     ScalarOperationMapper,
     SortFunctionMapper,
     steps_array,
@@ -112,54 +96,21 @@ from filodb_tpu_torch.query.model import (
     QueryStats,
     RangeVectorKey,
     StepMatrix,
+    UnsupportedQuery,
 )
 
-F32_SAFE_MAX = float(1 << 20)
-# range functions whose windows B4 sums (values and validity)
-WINDOW_SUM_FNS = ("sum_over_time", "count_over_time", "avg_over_time",
-                  "present_over_time")
-# every range function a leaf serves, with its number of parameters
-SERVED_FNS = {**{f: 0 for f in RANGE_FNS}, "predict_linear": 1,
-              "quantile_over_time": 1, "holt_winters": 2}
-# range functions a histogram leaf serves: the reference's per-bucket
-# ``range_eval_masked`` answers these; it also answers timestamp (in
-# seconds from the batch start, not epoch seconds) and predict_linear
-# (with its horizon dropped), which the port leaves out (ROADMAP §A)
+# range functions a histogram leaf serves here. The exec engine also
+# answers timestamp (in seconds from the batch start, not epoch seconds)
+# and predict_linear (with its horizon dropped) over a histogram, as the
+# reference's exec engine does; this engine raises ``UnsupportedQuery`` for
+# them, the signal that sends them there
 HIST_FNS = tuple(f for f in RANGE_FNS
                  if f not in ("timestamp", "predict_linear"))
 HIST_INSTANT_FNS = ("histogram_quantile", "histogram_max_quantile",
                     "hist_to_prom_vectors")
-STALENESS_MS = 300_000  # the instant selector's default lookback
 _RANK_AGGS = ("topk", "bottomk", "quantile")  # one scalar parameter
 _SCALAR_PLANS = (lp.ScalarFixedDoublePlan, lp.ScalarTimeBasedPlan,
                  lp.ScalarVaryingDoublePlan, lp.ScalarBinaryOperation)
-# working set of a decode chunk: the decoded rows plus the temporaries of
-# the function evaluated on them stay near this whatever the row length
-_DECODE_BYTES = 25 << 27
-_QUANTILE_BLOCK = 16  # steps a quantile_over_time sort takes at once
-# uploaded batches kept (each up to ~9 GB at a million series)
-_BATCH_CACHE_CAP = 4
-
-
-def decode_rows(S: int, fn: str = "count_over_time") -> int:
-    """Series decoded at once for rows of S samples, from the bytes a
-    sample of ``fn``'s working set takes: about 25 on the B4 path, about 96
-    for the float64 temporaries of ``range_eval_masked``, plus 4 a level of
-    min/max's float32 sparse table and 21 a step of quantile_over_time's
-    block sort (float32 keys, int64 indices, mask)."""
-    if fn in WINDOW_SUM_FNS:
-        per = 25
-    elif fn in ("min_over_time", "max_over_time"):
-        per = 96 + 4 * max(S.bit_length(), 1)
-    elif fn == "quantile_over_time":
-        per = 96 + 21 * _QUANTILE_BLOCK
-    else:
-        per = 96
-    return max(1, _DECODE_BYTES // (per * max(S, 1)))
-
-
-class UnsupportedQuery(ValueError):
-    """A plan shape this slice of the port does not serve."""
 
 
 @dataclass(frozen=True)
@@ -181,6 +132,14 @@ class Lowered:
             else (self.at_ms, self.at_ms)
         return lo - self.window - self.offset, hi - self.offset
 
+    @property
+    def mapper(self) -> PeriodicSamplesMapper:
+        """The windowing stage that evaluates the leaf."""
+        return PeriodicSamplesMapper(
+            self.start, self.step, self.end, self.window,
+            None if self.keep_metric else self.fn, self.params, self.offset,
+            self.at_ms)
+
 
 def _shape(plan) -> str:
     name = type(plan).__name__
@@ -194,9 +153,14 @@ def _is_number(x) -> bool:
 
 def _raw_selector(plan) -> lp.RawSeries:
     raw = plan.raw
-    if not isinstance(raw, lp.RawSeries) or raw.column is not None:
+    if not isinstance(raw, lp.RawSeries):
         raise UnsupportedQuery(
-            f"{_shape(plan)} over {_shape(raw)} is not served by this slice")
+            f"{_shape(plan)} over {_shape(raw)} is not served by the mesh "
+            f"engine")
+    if raw.column is not None:
+        raise UnsupportedQuery(
+            f"the column selector ::{raw.column} ({_shape(plan)} over "
+            f"RawSeries) is not served by the mesh engine")
     return raw
 
 
@@ -210,7 +174,7 @@ def lower_plan(plan) -> Lowered:
             raise UnsupportedQuery(
                 f"range function {plan.function}"
                 f"{tuple(plan.params) if plan.params else ''} is not "
-                f"served by this slice (served: {', '.join(SERVED_FNS)})")
+                f"served by the mesh engine (served: {', '.join(SERVED_FNS)})")
         raw = _raw_selector(plan)
         # the parser records the selector offset on both nodes: one value
         return Lowered(tuple(raw.filters), plan.start, plan.step, plan.end,
@@ -224,273 +188,165 @@ def lower_plan(plan) -> Lowered:
                        plan.offset or raw.offset, keep_metric=True,
                        at_ms=plan.at_ms)
     raise UnsupportedQuery(
-        f"plan shape {_shape(plan)} is not served by this slice: it serves "
+        f"plan shape {_shape(plan)} is not served by the mesh engine: it serves "
         f"range functions and instant selectors, the plans above them and "
         f"scalar plans")
 
 
-def retime(plan, start: int, step: int, end: int):
-    """``plan`` evaluated over [start, end] at ``step`` (the reference
-    planner's ``_retime``, for subqueries)."""
-    if isinstance(plan, (lp.PeriodicSeries, lp.PeriodicSeriesWithWindowing)):
-        raw = dataclasses.replace(plan.raw, range_start=start, range_end=end)
-        return dataclasses.replace(plan, raw=raw, start=start, step=step,
-                                   end=end)
-    if isinstance(plan, (lp.SubqueryWithWindowing, lp.ScalarFixedDoublePlan,
-                         lp.ScalarTimeBasedPlan, lp.ScalarBinaryOperation)):
-        return dataclasses.replace(plan, start=start, step=step, end=end)
-    if dataclasses.is_dataclass(plan):
-        changes = {f.name: retime(getattr(plan, f.name), start, step, end)
-                   for f in dataclasses.fields(plan)
-                   if isinstance(getattr(plan, f.name), lp.LogicalPlan)}
-        if changes:
-            return dataclasses.replace(plan, **changes)
-    return plan
-
-
-def _matrix_fn(fn: str, params: tuple, ts, vals, valid, steps,
-               window: int) -> torch.Tensor:
-    """A range function over an evaluated matrix's rows (a subquery's
-    inner steps as samples), in float64 on the device."""
-    if fn == "quantile_over_time":
-        return quantile_over_time_masked(params[0], ts, vals, valid, steps,
-                                         window, _QUANTILE_BLOCK,
-                                         dtype=EXACT_DTYPE)
-    if fn == "holt_winters":
-        return holt_winters_masked(*params, ts, vals, valid, steps, window,
-                                   dtype=EXACT_DTYPE)
-    return range_eval_masked(fn, ts, vals, valid, steps, window,
-                             extra=params[0] if params else 0.0,
-                             dtype=EXACT_DTYPE)
-
-
-def _int32_steps(rel: np.ndarray) -> torch.Tensor:
-    if rel.size and (rel.min() < -2**31 or rel.max() >= 2**31 - 1):
-        raise UnsupportedQuery("query range too long for int32 ms steps")
-    return torch.from_numpy(rel.astype(np.int32))
-
-
-@dataclass
-class _Batch:
-    version: int
-    keys: list            # RangeVectorKey per series (metric kept)
-    packed: tuple | None  # device tensors, [P, NB(, 128)]
-    counts: np.ndarray    # valid samples a series
-    vmax: float           # largest finite |value| in the selected pages
-    is_counter: bool
-    nbytes: int = 0
-    _out_keys: list | None = None
-    les: np.ndarray | None = None  # bucket bounds of a histogram batch
-
-    @property
-    def out_keys(self) -> list:
-        """Series keys of a range function's output (metric dropped)."""
-        if self._out_keys is None:
-            self._out_keys = [k.drop_metric() for k in self.keys]
-        return self._out_keys
-
-
-def _decoded_fn(low: Lowered, ts, vals, valid, steps: torch.Tensor,
-                flight: int) -> torch.Tensor:
-    """A non-rate range function on one decoded chunk, [rows, K]."""
-    if low.fn in WINDOW_SUM_FNS:
-        ts = torch.where(valid, ts, TS_PAD).contiguous()
-        cnt = windowed_sum(ts, valid.to(torch.float32), steps, low.window,
-                           flight)
-        nan = torch.tensor(float("nan"), device=cnt.device)
-        if low.fn == "count_over_time":
-            return torch.where(cnt > 0, cnt, nan)
-        if low.fn == "present_over_time":
-            return torch.where(cnt > 0, 1.0, nan)
-        s = windowed_sum(ts, torch.where(valid, vals, 0.0).contiguous(),
-                         steps, low.window, flight)
-        if low.fn == "avg_over_time":
-            s = s / cnt.clamp(min=1.0)
-        return torch.where(cnt > 0, s, nan)
-    if low.fn == "quantile_over_time":
-        return quantile_over_time_masked(low.params[0], ts, vals, valid,
-                                         steps, low.window, _QUANTILE_BLOCK,
-                                         dtype=EXACT_DTYPE)
-    if low.fn == "holt_winters":
-        return holt_winters_masked(*low.params, ts, vals, valid, steps,
-                                   low.window, dtype=EXACT_DTYPE)
-    return range_eval_masked(low.fn, ts, vals, valid, steps, low.window,
-                             extra=low.params[0] if low.params else 0.0,
-                             dtype=EXACT_DTYPE)
-
-
 class MeshQueryEngine:
-    """Runs plans on one device; caches uploaded batches and group ids
-    across queries over unchanged data."""
+    """Runs plans on one device. Its batches live in ``batches`` and its
+    group ids in ``gids``, which a service shares with its exec engine."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 batches: BatchCache | None = None,
+                 gids: GroupIdCache | None = None):
         self.device = device
-        self._batches: dict[tuple, _Batch] = {}
-        self._groups: dict[tuple, tuple] = {}
+        self.batches = batches if batches is not None else BatchCache(device)
+        self.gids = gids if gids is not None else GroupIdCache()
+        # (selector, data range) → 0 scalar series, 1 histograms, 2 both,
+        # for the store (id, version) in ``_kinds_of``
+        self._kinds: dict = {}
+        self._kinds_of = None
 
-    # ---- selection and upload ----------------------------------------------
+    # ---- what the engine serves, decided before anything runs ---------------
 
-    def _batch(self, memstore, low: Lowered) -> _Batch:
+    def supports(self, memstore, plan) -> str | None:
+        """None where this engine serves ``plan``, else why not. It is
+        decided from the plan and the shards' indexes (which selectors
+        match histograms) before any batch is built, as the reference's
+        ``supports`` decides."""
+        try:
+            self._check(memstore, plan)
+        except UnsupportedQuery as e:
+            return str(e)
+        return None
+
+    def _kind(self, memstore, low: Lowered) -> bool:
+        """Whether the leaf's selector matches histograms; raises where it
+        matches both kinds."""
+        if self._kinds_of != (id(memstore), memstore.version):
+            self._kinds.clear()
+            self._kinds_of = (id(memstore), memstore.version)
         lo_ms, hi_ms = low.chunk_range
         key = (str(low.filters), lo_ms, hi_ms)
-        version = memstore.version
-        hit = self._batches.get(key)
-        if hit is not None and hit.version == version:
-            return hit
-        selected = [(shard, shard.lookup_partitions(list(low.filters), lo_ms,
-                                                   hi_ms))
-                    for shard in memstore.shards]
-        selected = [(sh, pids) for sh, pids in selected if len(pids)]
-        kind = np.concatenate([sh.hist[pids] for sh, pids in selected]) \
-            if selected else np.zeros(0, bool)
-        hist = bool(kind.all()) and len(kind) > 0
-        if kind.any() and not hist:
+        kind = self._kinds.get(key)
+        if kind is None:
+            hist = np.concatenate([shard.hist[shard.lookup_partitions(
+                list(low.filters), lo_ms, hi_ms)]
+                for shard in memstore.shards])
+            kind = self._kinds[key] = 2 if hist.any() and not hist.all() \
+                else int(hist.any())
+        if kind == 2:
+            raise UnsupportedQuery(MIXED_KINDS)
+        return kind == 1
+
+    def _check_scalar(self, memstore, plan) -> None:
+        if isinstance(plan, lp.ScalarVaryingDoublePlan):
+            if self._check(memstore, plan.vector):
+                raise UnsupportedQuery("scalar() of a histogram is not "
+                                       "served by the mesh engine")
+        elif isinstance(plan, lp.ScalarBinaryOperation):
+            for side in (plan.lhs, plan.rhs):
+                if not _is_number(side):
+                    self._check_scalar(memstore, side)
+
+    def _not_histogram(self, memstore, plan, what: str) -> bool:
+        if self._check(memstore, plan):
+            raise UnsupportedQuery(f"{what} over a histogram is not served "
+                                   f"by the mesh engine")
+        return False
+
+    def _check(self, memstore, plan) -> bool:
+        """Raise ``UnsupportedQuery`` where this engine does not serve
+        ``plan``; else whether its answer is a histogram matrix."""
+        if isinstance(plan, lp.Aggregate):
+            amr = self._aggregation(plan)
+            if amr.op in AGG_OPS:
+                return self._check(memstore, plan.vector)
+            return self._not_histogram(memstore, plan.vector,
+                                       f"aggregation {plan.op}")
+        if isinstance(plan, lp.ApplyInstantFunction):
+            if plan.function not in INSTANT_FNS + HIST_INSTANT_FNS \
+                    or not all(_is_number(a) for a in plan.args):
+                raise UnsupportedQuery(
+                    f"instant function {plan.function} is not served by "
+                    f"the mesh engine (served: "
+                    f"{', '.join(INSTANT_FNS + HIST_INSTANT_FNS)}, with "
+                    f"number arguments)")
+            return self._check(memstore, plan.vector) \
+                and plan.function not in HIST_INSTANT_FNS
+        if isinstance(plan, lp.ScalarVectorBinaryOperation):
+            if isinstance(plan.scalar, lp.ScalarFixedDoublePlan) \
+                    or _is_number(plan.scalar):
+                return self._check(memstore, plan.vector)
+            self._check_scalar(memstore, plan.scalar)
+            return self._not_histogram(memstore, plan.vector,
+                                       f"operator {plan.op} with a "
+                                       f"{_shape(plan.scalar)} scalar")
+        if isinstance(plan, _SCALAR_PLANS):
+            self._check_scalar(memstore, plan)
+            return False
+        if isinstance(plan, lp.VectorPlan):
+            self._check_scalar(memstore, plan.scalar)
+            return False
+        if isinstance(plan, lp.ApplyAbsentFunction):
+            return self._not_histogram(memstore, plan.vector, "absent")
+        if isinstance(plan, lp.ApplySortFunction):
+            return self._not_histogram(memstore, plan.vector, "sort")
+        if isinstance(plan, (lp.ApplyMiscellaneousFunction,
+                             lp.ApplyLimitFunction)):
+            return self._check(memstore, plan.vector)
+        if isinstance(plan, lp.SubqueryWithWindowing):
+            _subquery_mapper(plan)._served("a subquery")
+            return self._not_histogram(memstore, lp.subquery_inner(plan),
+                                       "a subquery")
+        if isinstance(plan, lp.TopLevelSubquery):
+            return self._check(memstore, lp.retime(plan.inner, plan.start,
+                                                   plan.step, plan.end))
+        if isinstance(plan, lp.BinaryJoin):
+            if self._check(memstore, plan.lhs) \
+                    or self._check(memstore, plan.rhs):
+                raise UnsupportedQuery(
+                    f"operator {plan.op} with a histogram side is not served "
+                    f"by the mesh engine")
+            return False
+        low = lower_plan(plan)
+        hist = self._kind(memstore, low)
+        if hist and low.fn not in HIST_FNS:
             raise UnsupportedQuery(
-                f"selector {low.filters} matches both histogram and scalar "
-                f"series, which this slice does not serve in one leaf")
-        tables, table_of, block_of, row_of = [], [], [], []
-        keys, vmax, les = [], 0.0, None
-        for shard, pids in selected:
-            if hist:
-                tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(
-                    pids, lo_ms, hi_ms)
-                # the first scheme of the most buckets, in batch order
-                if sl is not None and (les is None or len(sl) > len(les)):
-                    les = sl
-            else:
-                tabs, t_of, b_of, r_of, vm = shard.select_blocks(pids, lo_ms,
-                                                                 hi_ms)
-                vmax = max(vmax, vm)
-            table_of.append(t_of + len(tables))
-            tables.extend(tabs)
-            block_of.append(b_of)
-            row_of.append(r_of + len(keys))
-            keys.extend(shard.keys[p] for p in pids)
-        if not keys:
-            batch = _Batch(version, [], None, np.zeros(0, np.int32), 0.0,
-                           False)
-        else:
-            entries = (tables, np.concatenate(table_of),
-                       np.concatenate(block_of), np.concatenate(row_of),
-                       len(keys), lo_ms)
-            if hist:
-                les = les if les is not None else np.array([np.inf])
-                packed, counts = pack_hist_blocks(*entries, len(les))
-            else:
-                packed, counts = pack_blocks(*entries)
-            dev = to_device(packed, self.device)
-            batch = _Batch(version, [k.range_vector_key for k in keys], dev,
-                           counts[: len(keys)], vmax,
-                           SCHEMAS[keys[0].schema].is_counter,
-                           sum(a.numel() * a.element_size() for a in dev),
-                           les=les)
-        if len(self._batches) >= _BATCH_CACHE_CAP:
-            self._batches.pop(next(iter(self._batches)))
-        self._batches[key] = batch
+                f"range function {low.fn} over a histogram is not served by "
+                f"the mesh engine (served: {', '.join(HIST_FNS)})")
+        return hist
+
+    # ---- leaves ---------------------------------------------------------------
+
+    def _batch(self, memstore, low: Lowered) -> DeviceBatch:
+        """The leaf's batch over every shard, cached per (selector, data
+        range) until the store ingests again."""
+        lo_ms, hi_ms = low.chunk_range
+        key = ("mesh", str(low.filters), lo_ms, hi_ms)
+        batch = self.batches.get(key, memstore)
+        if batch is None:
+            selected = [(shard, shard.lookup_partitions(list(low.filters),
+                                                        lo_ms, hi_ms))
+                        for shard in memstore.shards]
+            batch = build_device_batch(selected, lo_ms, hi_ms, self.device)
+            self.batches.put(key, memstore, None, batch)
         return batch
-
-    # ---- leaves ------------------------------------------------------------
-
-    def _eval(self, batch: _Batch, low: Lowered, steps: torch.Tensor,
-              flight: int, stats: QueryStats) -> torch.Tensor:
-        """Per-series results [n_series, K] on the device; ``flight`` is
-        ``steps_in_flight`` of the steps, taken on the host."""
-        if batch.les is not None:
-            return self._eval_hist(batch, low, steps)
-        n = len(batch.keys)
-        packed = batch.packed
-        lo_ms, hi_ms = low.chunk_range
-        if low.fn in RATE_FNS:
-            counter = low.fn != "delta" or batch.is_counter
-            if batch.vmax < F32_SAFE_MAX:
-                out = fused_decode_rate(packed, steps, low.window, low.fn,
-                                        counter, in_flight=flight)
-                return out[:n]
-            stats.precise_lane += 1
-            ts, vals, valid = assemble(packed, hi_ms - lo_ms)
-            return range_eval_masked(low.fn, ts, vals, valid, steps,
-                                     low.window, counter=counter,
-                                     dtype=EXACT_DTYPE)[:n]
-        outs = []
-        rows = decode_rows(packed[0].shape[1] * BLOCK, low.fn)
-        for a in range(0, n, rows):
-            part = tuple(t[a : min(a + rows, n)] for t in packed)
-            ts, vals, valid = assemble(part, hi_ms - lo_ms)
-            outs.append(_decoded_fn(low, ts, vals, valid, steps, flight))
-        out = torch.cat(outs)
-        if low.fn == "timestamp":
-            # seconds relative to the batch base → epoch seconds, in float64
-            out = out + lo_ms / 1000.0
-        return out
-
-    def _eval_hist(self, batch: _Batch, low: Lowered,
-                   steps: torch.Tensor) -> torch.Tensor:
-        """A histogram leaf, [n_series, K, B]: chunks of series decoded
-        (B1 on timestamps, then on every bucket block) and evaluated in
-        float64 per bucket row; ``decode_rows`` counts series × B rows."""
-        n = len(batch.keys)
-        lo_ms, hi_ms = low.chunk_range
-        B = len(batch.les)
-        rows = max(1, decode_rows(batch.packed[0].shape[1] * BLOCK, low.fn)
-                   // B)
-        outs = []
-        for a in range(0, n, rows):
-            part = tuple(t[a : min(a + rows, n)] for t in batch.packed)
-            ts, counts, valid = assemble_hist(part, hi_ms - lo_ms)
-            outs.append(range_eval_masked(low.fn, ts, counts, valid, steps,
-                                          low.window,
-                                          counter=batch.is_counter,
-                                          dtype=EXACT_DTYPE))
-        return torch.cat(outs).transpose(1, 2)
 
     @property
     def batch_bytes(self) -> int:
         """Device bytes of the packed pages the engine holds."""
-        return sum(b.nbytes for b in self._batches.values())
+        return self.batches.nbytes("mesh")
 
     def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
-        """A leaf at its steps; under ``@`` it is evaluated once, at the
-        ``@`` time, and the column repeats across the steps (each of the
-        reference's steps computes the same)."""
-        steps_ms = steps_array(low.start, low.step, low.end)
+        """A leaf at its steps through its windowing stage."""
         batch = self._batch(memstore, low)
-        if not batch.keys:
-            return StepMatrix.empty(steps_ms)
-        if batch.les is not None and low.fn not in HIST_FNS:
-            raise UnsupportedQuery(
-                f"range function {low.fn} over a histogram is not served by "
-                f"this slice (served: {', '.join(HIST_FNS)})")
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
-        eval_ms = steps_ms if low.at_ms is None \
-            else np.array([low.at_ms], np.int64)
-        host_steps = _int32_steps(eval_ms - low.offset - low.chunk_range[0])
-        flight = steps_in_flight(host_steps, low.window)
-        res = self._eval(batch, low, host_steps.to(self.device), flight,
-                         stats)
-        if low.at_ms is not None:
-            res = res.expand(res.shape[0], len(steps_ms), *res.shape[2:])
-        return StepMatrix(batch.keys if low.keep_metric else batch.out_keys,
-                          res, steps_ms, dropped_keys=batch.out_keys,
-                          les=batch.les)
+        return low.mapper.eval_batch(batch, stats)
 
     # ---- the plan above the leaves ------------------------------------------
-
-    def _group_ids(self, keys: list, amr: AggregateMapReduce):
-        """``amr.group_ids(keys)`` with the ids on the device, cached per
-        keys list: a cached batch hands out the same list every query, and
-        instant functions and operators above it hand on its metric-free
-        list (``StepMatrix.derive_without_metric``)."""
-        key = (id(keys), amr.by, amr.without)
-        hit = self._groups.get(key)
-        if hit is not None and hit[0] is keys:
-            return hit[1]
-        gids, gkeys = amr.group_ids(keys)
-        out = (torch.from_numpy(gids).to(self.device), gkeys)
-        if len(self._groups) >= 16:
-            self._groups.pop(next(iter(self._groups)))
-        self._groups[key] = (keys, out)
-        return out
 
     def _aggregation(self, plan: lp.Aggregate) -> AggregateMapReduce:
         params = tuple(plan.params)
@@ -502,7 +358,7 @@ class MeshQueryEngine:
             raise UnsupportedQuery(
                 f"aggregation {plan.op}"
                 f"{'(' + ', '.join(map(str, params)) + ')' if params else ''}"
-                f" is not served by this slice (served: "
+                f" is not served by the mesh engine (served: "
                 f"{', '.join(AGG_OPS + _RANK_AGGS)}, the last three with a "
                 f"number, and count_values with a label)")
         return AggregateMapReduce(plan.op, params, tuple(plan.by),
@@ -514,10 +370,7 @@ class MeshQueryEngine:
         """A scalar plan → (values float64 [K] on the device, steps_ms),
         as the reference's scalar execs compute them."""
         if isinstance(plan, lp.ScalarVaryingDoublePlan):
-            data = self.execute(memstore, plan.vector, stats).settle()
-            if data.is_histogram:
-                raise UnsupportedQuery("scalar() of a histogram is not "
-                                       "served by this slice")
+            data = self._eval(memstore, plan.vector, stats).settle()
             if data.num_series == 0:
                 return torch.full((data.num_steps,), float("nan"),
                                   dtype=EXACT_DTYPE, device=self.device), \
@@ -546,38 +399,11 @@ class MeshQueryEngine:
 
     def _subquery(self, memstore, plan: lp.SubqueryWithWindowing,
                   stats: QueryStats) -> StepMatrix:
-        """A range function over a subquery: the inner plan at the
-        sub-step over the window before the first step (its start aligned
-        down to a multiple of the sub-step, as the reference planner
-        aligns it), then the function over the inner steps as samples,
-        NaN entries dropped, on the device."""
-        if SERVED_FNS.get(plan.function) != len(plan.params):
-            raise UnsupportedQuery(
-                f"range function {plan.function} over a subquery is not "
-                f"served by this slice")
-        sub_step = plan.subquery_step or 60_000
-        inner_start = plan.start - plan.subquery_window - plan.offset
-        inner_start = (inner_start // sub_step) * sub_step
-        inner = self.execute(memstore, retime(
-            plan.inner, inner_start, sub_step, plan.end - plan.offset),
-            stats).settle()
-        steps_ms = steps_array(plan.start, plan.step, plan.end)
-        if inner.num_series == 0:
-            return StepMatrix.empty(steps_ms)
-        if inner.is_histogram:
-            raise UnsupportedQuery("a subquery over a histogram is not "
-                                   "served by this slice")
-        vals = tensor_of(inner, self.device)
-        base = int(inner.steps_ms[0])
-        ts = _int32_steps(inner.steps_ms - base).to(self.device)
-        ts = ts[None, :].expand(vals.shape[0], -1).contiguous()
-        steps = _int32_steps(steps_ms - plan.offset - base).to(self.device)
-        out = _matrix_fn(plan.function, tuple(plan.params), ts, vals,
-                         ~torch.isnan(vals), steps, plan.subquery_window)
-        if plan.function == "timestamp":
-            out = out + base / 1000.0
-        return StepMatrix([k.drop_metric() for k in inner.keys], out,
-                          steps_ms)
+        """A range function over a subquery: the inner plan over the window
+        before the first step at the sub-step, then the function over the
+        inner steps as samples."""
+        inner = self._eval(memstore, lp.subquery_inner(plan), stats)
+        return _subquery_mapper(plan).apply(inner)
 
     @staticmethod
     def _scalar_matrix(values: torch.Tensor, steps_ms) -> StepMatrix:
@@ -585,44 +411,27 @@ class MeshQueryEngine:
         scalar execs answer."""
         return StepMatrix([RangeVectorKey(())], values[None, :], steps_ms)
 
-    def _vector(self, memstore, plan, stats: QueryStats,
-                what: str) -> StepMatrix:
-        """``plan``'s matrix, which must not be a histogram for ``what``."""
-        data = self.execute(memstore, plan, stats)
-        if data.is_histogram:
-            raise UnsupportedQuery(f"{what} over a histogram is not served "
-                                   f"by this slice")
-        return data
-
     def execute(self, memstore, plan, stats: QueryStats) -> StepMatrix:
-        """Evaluate ``plan``: the one place that walks a plan tree."""
+        """Evaluate ``plan``; where the engine does not serve it, raise
+        ``UnsupportedQuery`` before anything runs (``supports``)."""
+        self._check(memstore, plan)
+        return self._eval(memstore, plan, stats)
+
+    def _eval(self, memstore, plan, stats: QueryStats) -> StepMatrix:
+        """The one place that walks a plan tree, once ``_check`` passed."""
         if isinstance(plan, lp.Aggregate):
             amr = self._aggregation(plan)
-            data = self.execute(memstore, plan.vector, stats).settle()
-            if data.is_histogram and amr.op not in AGG_OPS:
-                raise UnsupportedQuery(
-                    f"aggregation {amr.op} over a histogram is not served by "
-                    f"this slice (served per bucket: {', '.join(AGG_OPS)})")
-            return amr.apply(data, self._group_ids(data.keys, amr))
+            data = self._eval(memstore, plan.vector, stats).settle()
+            return amr.apply(data, self.gids.of(amr, data))
         if isinstance(plan, lp.ApplyInstantFunction):
-            if plan.function not in INSTANT_FNS + HIST_INSTANT_FNS \
-                    or not all(_is_number(a) for a in plan.args):
-                raise UnsupportedQuery(
-                    f"instant function {plan.function} is not served by "
-                    f"this slice (served: "
-                    f"{', '.join(INSTANT_FNS + HIST_INSTANT_FNS)}, with "
-                    f"number arguments)")
             return InstantVectorFunctionMapper(plan.function, tuple(
-                plan.args)).apply(self.execute(memstore, plan.vector, stats))
+                plan.args)).apply(self._eval(memstore, plan.vector, stats))
         if isinstance(plan, lp.ScalarVectorBinaryOperation):
+            data = self._eval(memstore, plan.vector, stats)
             if isinstance(plan.scalar, lp.ScalarFixedDoublePlan) \
                     or _is_number(plan.scalar):
                 sc = float(getattr(plan.scalar, "value", plan.scalar))
-                data = self.execute(memstore, plan.vector, stats)
             else:
-                data = self._vector(memstore, plan.vector, stats,
-                                    f"operator {plan.op} with a "
-                                    f"{_shape(plan.scalar)} scalar")
                 sc = self._scalar(memstore, plan.scalar, stats)[0]
             return ScalarOperationMapper(
                 plan.op, sc, plan.scalar_is_lhs, plan.bool_mode).apply(data)
@@ -634,32 +443,34 @@ class MeshQueryEngine:
         if isinstance(plan, lp.ApplyAbsentFunction):
             return AbsentFunctionMapper(
                 plan.filters, plan.start, plan.step or 1000, plan.end,
-                self.device).apply(self._vector(memstore, plan.vector, stats,
-                                                "absent"))
+                self.device).apply(self._eval(memstore, plan.vector, stats))
         if isinstance(plan, lp.ApplySortFunction):
             return SortFunctionMapper(plan.descending).apply(
-                self._vector(memstore, plan.vector, stats, "sort"))
+                self._eval(memstore, plan.vector, stats))
         if isinstance(plan, lp.ApplyMiscellaneousFunction):
             return MiscellaneousFunctionMapper(plan.function, tuple(
-                plan.args)).apply(self.execute(memstore, plan.vector, stats))
+                plan.args)).apply(self._eval(memstore, plan.vector, stats))
         if isinstance(plan, lp.ApplyLimitFunction):
             return LimitFunctionMapper(plan.limit).apply(
-                self.execute(memstore, plan.vector, stats))
+                self._eval(memstore, plan.vector, stats))
         if isinstance(plan, lp.SubqueryWithWindowing):
             return self._subquery(memstore, plan, stats)
         if isinstance(plan, lp.TopLevelSubquery):
-            return self.execute(memstore, retime(plan.inner, plan.start,
-                                                 plan.step, plan.end), stats)
+            return self._eval(memstore, lp.retime(plan.inner, plan.start,
+                                                  plan.step, plan.end), stats)
         if isinstance(plan, lp.BinaryJoin):
-            lhs = self.execute(memstore, plan.lhs, stats)
-            rhs = self.execute(memstore, plan.rhs, stats)
-            if lhs.is_histogram or rhs.is_histogram:
-                raise UnsupportedQuery(
-                    f"operator {plan.op} with a histogram side is not served "
-                    f"by this slice")
+            lhs = self._eval(memstore, plan.lhs, stats)
+            rhs = self._eval(memstore, plan.rhs, stats)
             if plan.op in SET_OPS:
                 return set_operator(lhs, rhs, plan.op, plan.on,
                                     plan.ignoring)
             return binary_join(lhs, rhs, plan.op, plan.cardinality, plan.on,
                                plan.ignoring, plan.include, plan.bool_mode)
         return self._leaf(memstore, lower_plan(plan), stats)
+
+
+def _subquery_mapper(plan: lp.SubqueryWithWindowing) -> PeriodicSamplesMapper:
+    """The range function of a subquery, over the inner plan's steps."""
+    return PeriodicSamplesMapper(plan.start, plan.step, plan.end,
+                                 plan.subquery_window, plan.function,
+                                 tuple(plan.params), plan.offset)

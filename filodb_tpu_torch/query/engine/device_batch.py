@@ -27,6 +27,14 @@ bucket), [P·B, S]. ``assemble_hist`` decodes each series' timestamp blocks
 once (B1), every bucket block (B1 again), and adds the int64 bases in
 float64: cumulative counts pass 2^24 within days, which float32 would lose.
 Series of a shorter bucket scheme are zero-padded up to the batch's widest.
+
+``build_device_batch`` is the one place that selects, packs and uploads a
+batch: the mesh engine calls it with every shard's partitions, an exec
+leaf with one shard's partitions of one schema. ``BatchCache`` keeps both
+engines' batches under one budget of device memory. A column selector
+(``h::sum``) reads the named column of the partitions' schema, or its
+value column where the schema has no such column, as the reference's
+``SelectRawPartitionsExec._value_col_index`` does.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
+from filodb_tpu_torch.core.schemas import SCHEMAS, Column, ColumnType
 from filodb_tpu_torch.memory.device_pages import (
     BLOCK,
     WORDS_PER_BLOCK_MAX,
@@ -47,6 +56,7 @@ from filodb_tpu_torch.memory.device_pages import (
     encode_ts_blocks,
     u32_as_i32,
 )
+from filodb_tpu_torch.query.model import UnsupportedQuery
 
 TS_GAP_MIN = -(2**31) + 2
 
@@ -174,7 +184,9 @@ def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
 @dataclass
 class HistPageBlocks:
     """A table of histogram page blocks of one bucket count B: a timestamp
-    block and B bucket blocks (int pages, int64 bases) a row."""
+    block, B bucket blocks (int pages, int64 bases) and a value block of
+    each of the schema's ``sum`` and ``count`` columns (float32 XOR pages)
+    a row. The two value columns share the row's timestamp block."""
 
     ts_bases: np.ndarray    # int64 [nb]
     ts_slopes: np.ndarray   # int32 [nb]
@@ -185,6 +197,11 @@ class HistPageBlocks:
     b_widths: np.ndarray    # int32 [nb, B]
     b_words: np.ndarray     # uint32 [nb, B, 128]
     rows: np.ndarray        # int32 [nb]
+    # the sum (0) and count (1) columns
+    c_firsts: np.ndarray    # uint32 [nb, 2]
+    c_shifts: np.ndarray    # int32 [nb, 2]
+    c_widths: np.ndarray    # int32 [nb, 2]
+    c_words: np.ndarray     # uint32 [nb, 2, 128]
 
     def __len__(self) -> int:
         return len(self.rows)
@@ -194,17 +211,36 @@ class HistPageBlocks:
         return self.b_bases.shape[1]
 
     @staticmethod
-    def encode(ts: np.ndarray, counts: np.ndarray,
-               rows: np.ndarray) -> "HistPageBlocks":
-        """Encode blocks of timestamps int64 [nb, 128] and cumulative bucket
-        counts int64 [nb, B, 128] (lanes past ``rows`` ignored)."""
+    def encode(ts: np.ndarray, counts: np.ndarray, rows: np.ndarray,
+               columns: np.ndarray | None = None) -> "HistPageBlocks":
+        """Encode blocks of timestamps int64 [nb, 128], cumulative bucket
+        counts int64 [nb, B, 128] and the sum and count columns float64
+        [nb, 2, 128] (NaN where not given; lanes past ``rows`` ignored)."""
         nb, B = counts.shape[:2]
         bb, bs, bw, bwd = encode_ts_blocks(counts.reshape(nb * B, BLOCK),
                                            np.repeat(rows, B))
+        if columns is None:
+            columns = np.full((nb, 2, BLOCK), np.nan)
+        # lanes past a block's rows hold whatever the buffer held: zero
+        live = np.arange(BLOCK)[None, None, :] < np.asarray(rows)[:, None,
+                                                                  None]
+        cf, cs, cw, cwd = encode_f32_blocks(
+            np.where(live, columns, 0.0).reshape(nb * 2, BLOCK).astype(
+                np.float32), np.repeat(rows, 2))
         return HistPageBlocks(*encode_ts_blocks(ts, rows),
                               bb.reshape(nb, B), bs.reshape(nb, B),
                               bw.reshape(nb, B), bwd.reshape(nb, B, BLOCK),
-                              np.asarray(rows, np.int32))
+                              np.asarray(rows, np.int32),
+                              cf.reshape(nb, 2), cs.reshape(nb, 2),
+                              cw.reshape(nb, 2), cwd.reshape(nb, 2, BLOCK))
+
+    def column(self, j: int) -> PageBlocks:
+        """The blocks of value column ``j`` (0: sum, 1: count) as scalar
+        page blocks over the shared timestamp blocks."""
+        return PageBlocks(self.ts_bases, self.ts_slopes, self.ts_widths,
+                          self.ts_words, self.c_firsts[:, j],
+                          self.c_shifts[:, j], self.c_widths[:, j],
+                          self.c_words[:, j], self.rows)
 
     @staticmethod
     def concat(parts: list["HistPageBlocks"]) -> "HistPageBlocks":
@@ -214,9 +250,9 @@ class HistPageBlocks:
 
 
 def hist_chunk_blocks(ts: np.ndarray, counts: np.ndarray, n: np.ndarray):
-    """``chunk_blocks`` for histogram rows: ts int64 [C, T], cumulative
-    counts int64 [C, T, B], ``n[c]`` valid → (ts blocks [nb, 128], count
-    blocks [nb, B, 128], rows [nb], blocks a row [C])."""
+    """``chunk_blocks`` for histogram rows: ts int64 [C, T], per-sample
+    slots int64 [C, T, B] (cumulative counts), ``n[c]`` valid → (ts blocks
+    [nb, 128], slot blocks [nb, B, 128], rows [nb], blocks a row [C])."""
     C, T, B = counts.shape
     tb, _, rows, per = chunk_blocks(ts, ts, n)
     nbw = max(-(-T // BLOCK), 1)
@@ -368,3 +404,143 @@ def assemble_hist(packed, range_len: int, plain: bool = False):
                 b_words.reshape(-1, BLOCK))
     return fill_hist(rel_bases, blk_counts, b_bases, ts_off, b_off,
                      range_len)
+
+
+# ---------------------------------------------------------------------------
+# a selection's batch on the card
+
+
+@dataclass
+class DeviceBatch:
+    """The packed pages of selected series on the card (the reference's
+    ``DeviceSeriesBatch`` holds them decoded; here the kernels decode them
+    where they are used): batch rows in selection order, timestamps
+    relative to ``base``."""
+
+    keys: list               # RangeVectorKey per series (metric kept)
+    packed: tuple | None     # device tensors, [P, NB(, 128)]
+    counts: np.ndarray       # valid samples a series
+    vmax: float              # largest finite |value| in the selected pages
+    is_counter: bool         # the read column is a counter
+    base: int                # ms: the selected data range [base, end]
+    end: int
+    les: np.ndarray | None = None  # bucket bounds of a histogram batch
+    nbytes: int = 0
+    _out_keys: list | None = None
+
+    @property
+    def out_keys(self) -> list:
+        """Series keys of a range function's output (metric dropped)."""
+        if self._out_keys is None:
+            self._out_keys = [k.drop_metric() for k in self.keys]
+        return self._out_keys
+
+
+def read_column(schema: str, column: str | None) -> Column:
+    """The column a selector reads in ``schema``: the one named
+    ``column`` if the schema has it, else the value column. The timestamp
+    column is no value: the reference's exec engine raises on it."""
+    data = SCHEMAS[schema].data
+    idx = next((i for i, c in enumerate(data.columns) if c.name == column),
+               data.value_column)
+    if idx == 0:
+        raise UnsupportedQuery(f"the {column} column of {schema} holds no "
+                               f"values (the reference's exec engine "
+                               f"raises too)")
+    return data.columns[idx]
+
+
+MIXED_KINDS = ("the selector matches both histogram and scalar series, "
+               "which one batch does not hold")
+
+
+def build_device_batch(selected, start: int, end: int, device: torch.device,
+                       column: str | None = None) -> DeviceBatch:
+    """Select, pack and upload the pages of ``selected``, a list of
+    (shard, partition ids), for [start, end]; rows follow that order. All
+    partitions are histograms or none are; a histogram batch reads the
+    bucket pages, or with ``column`` ``sum`` / ``count`` that column's
+    value pages as scalar series."""
+    selected = [(sh, np.asarray(p, np.int64)) for sh, p in selected
+                if len(p)]
+    if not selected:
+        return DeviceBatch([], None, np.zeros(0, np.int32), 0.0, False,
+                           start, end)
+    kind = np.concatenate([sh.hist[p] for sh, p in selected])
+    if kind.any() and not kind.all():
+        raise UnsupportedQuery(MIXED_KINDS)
+    sh0, p0 = selected[0]
+    col = read_column(sh0.keys[p0[0]].schema, column)
+    hist = col.ctype == ColumnType.HISTOGRAM
+    sub = col.name if kind.all() and not hist else None
+    tables, table_of, block_of, row_of = [], [], [], []
+    keys, vmax, les = [], 0.0, None
+    for shard, pids in selected:
+        if hist:
+            tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(pids, start,
+                                                                  end)
+            # the first scheme of the most buckets, in batch order
+            if sl is not None and (les is None or len(sl) > len(les)):
+                les = sl
+        else:
+            tabs, t_of, b_of, r_of, vm = shard.select_blocks(pids, start, end,
+                                                             sub)
+            vmax = max(vmax, vm)
+        table_of.append(t_of + len(tables))
+        tables.extend(tabs)
+        block_of.append(b_of)
+        row_of.append(r_of + len(keys))
+        keys.extend(shard.keys[p] for p in pids)
+    entries = (tables, np.concatenate(table_of), np.concatenate(block_of),
+               np.concatenate(row_of), len(keys), start)
+    if hist:
+        les = les if les is not None else np.array([np.inf])
+        packed, counts = pack_hist_blocks(*entries, len(les))
+    else:
+        packed, counts = pack_blocks(*entries)
+    dev = to_device(packed, device)
+    return DeviceBatch([k.range_vector_key for k in keys], dev,
+                       counts[: len(keys)], vmax, col.is_counter, start,
+                       end, les if hist else None,
+                       sum(a.numel() * a.element_size() for a in dev))
+
+
+class BatchCache:
+    """Uploaded batches of both engines under one budget of device bytes
+    (half the card's memory), least recently used dropped first.
+    A batch is kept until its owner, the store (mesh) or a shard (exec
+    leaf), ingests again: it is found by its key, its owner's version and,
+    where given, its partition ids, which are compared, not hashed (a
+    shard's may number 10^5)."""
+
+    def __init__(self, device: torch.device):
+        self.budget = torch.cuda.get_device_properties(device).total_memory \
+            // 2 if device.type == "cuda" else 1 << 32
+        # key → (owner, owner's version, pids, batch), least recent first
+        self._entries: dict = {}
+
+    def get(self, key, owner, pids: np.ndarray | None = None):
+        hit = self._entries.get(key)
+        if hit is None or hit[1] != owner.version \
+                or (pids is not None and not np.array_equal(hit[2], pids)):
+            return None
+        self._entries[key] = self._entries.pop(key)
+        return hit[3]
+
+    def put(self, key, owner, pids, batch: DeviceBatch) -> None:
+        self._entries.pop(key, None)
+        for k in [k for k, (o, v, _, _) in self._entries.items()
+                  if o.version != v]:
+            del self._entries[k]
+        while self._entries and self.nbytes() + batch.nbytes > self.budget:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[key] = (owner, owner.version, pids, batch)
+
+    def batches(self, engine: str | None = None) -> list[DeviceBatch]:
+        """The batches held, of one engine (a key's first item) or all."""
+        return [e[3] for k, e in self._entries.items()
+                if engine is None or k[0] == engine]
+
+    def nbytes(self, engine: str | None = None) -> int:
+        """Device bytes of the packed pages held."""
+        return sum(b.nbytes for b in self.batches(engine))

@@ -1,16 +1,24 @@
 """Binary joins and set operators of two step matrices.
 
-Port of ``filodb_tpu/query/exec/binaryjoin.py`` (``BinaryJoinExec``: label
+Port of ``filodb_tpu/query/exec/binaryjoin.py``: ``binary_join`` (label
 matching one-to-one, group_left, group_right, ``on`` / ``ignoring``,
-``bool``; ``SetOperatorExec``: and / or / unless) as functions of two
-``StepMatrix``es, the port having no distributed exec tree. Labels match
-on the host, as in the reference; the value operation runs on the device
-that holds the values. Results are compacted as the reference's are.
+``bool``) and ``set_operator`` (and / or / unless) as functions of two
+``StepMatrix``es, which the mesh engine calls, and the exec plans
+``BinaryJoinExec`` and ``SetOperatorExec`` over them. Labels match on the
+host, as in the reference; the value operation runs on the device that
+holds the values. Results are compacted as the reference's are.
+
+Either side may be a histogram, [P, K, B] values: two histograms join or
+set-operate bucket by bucket, and the answer drops ``les``, as the
+reference's exec engine answers them. A histogram against scalar series
+raises ``UnsupportedQuery`` wherever the reference's values would have to
+broadcast (and raise there).
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -20,8 +28,13 @@ from filodb_tpu_torch.query.engine.instantfns import (
     COMPARISON_OPS,
     apply_binary_op,
 )
+from filodb_tpu_torch.query.exec.plan import ExecContext, NonLeafExecPlan
 from filodb_tpu_torch.query.exec.transformers import tensor_of
-from filodb_tpu_torch.query.model import RangeVectorKey, StepMatrix
+from filodb_tpu_torch.query.model import (
+    RangeVectorKey,
+    StepMatrix,
+    UnsupportedQuery,
+)
 
 SET_OPS = ("and", "or", "unless")
 
@@ -41,6 +54,15 @@ def _device(*ms: StepMatrix) -> torch.device:
 
 def _steps(lhs: StepMatrix, rhs: StepMatrix) -> np.ndarray:
     return lhs.steps_ms if lhs.num_steps else rhs.steps_ms
+
+
+def _same_kind(a, b, op: str) -> None:
+    """Values ``a`` and ``b`` both of a histogram, or both of scalar
+    series."""
+    if a.ndim != b.ndim:
+        raise UnsupportedQuery(
+            f"operator {op} between a histogram and scalar series is not "
+            f"served (the reference's exec engine raises)")
 
 
 def _result_key(cardinality: str, on, ignoring, include,
@@ -99,6 +121,7 @@ def binary_join(lhs: StepMatrix, rhs: StepMatrix, op: str,
                                     one.keys[j]))
     if not many_idx:
         return StepMatrix.empty(steps)
+    _same_kind(lhs.values, rhs.values, op)
     dev = _device(lhs, rhs)
     mv = tensor_of(many, dev)[torch.tensor(many_idx, device=dev)]
     ov = tensor_of(one, dev)[torch.tensor(one_idx, device=dev)]
@@ -112,21 +135,21 @@ def binary_join(lhs: StepMatrix, rhs: StepMatrix, op: str,
 
 
 def _presence(m: StepMatrix, on, ignoring, dev):
-    """Per join key of ``m``: its index, and [G, K] whether any of the
-    key's series has a sample at the step."""
+    """Per join key of ``m``: its index, and [G, K] (or [G, K, B] over a
+    histogram) whether any of the key's series has a sample there."""
     index: dict[RangeVectorKey, int] = {}
     gids = [index.setdefault(_join_key(k, on, ignoring), len(index))
             for k in m.keys]
     v = tensor_of(m, dev)
-    present = torch.zeros((len(index), v.shape[1]), dtype=torch.int32,
-                          device=dev).index_add_(
+    present = torch.zeros((len(index),) + tuple(v.shape[1:]),
+                          dtype=torch.int32, device=dev).index_add_(
         0, torch.tensor(gids, dtype=torch.int64, device=dev),
         (~torch.isnan(v)).to(torch.int32)) > 0
     return index, present
 
 
 def _masked(m: StepMatrix, other_index, other_present, on, ignoring, dev,
-            keep_where_present: bool):
+            keep_where_present: bool, op: str):
     """(``m``'s values NaN where the matching key of the other side is
     absent (``keep_where_present``) or present, the rows that match)."""
     rows, groups = [], []
@@ -137,8 +160,10 @@ def _masked(m: StepMatrix, other_index, other_present, on, ignoring, dev,
             groups.append(g)
     v = tensor_of(m, dev)
     hit = torch.zeros_like(v, dtype=torch.bool)
-    hit[torch.tensor(rows, dtype=torch.int64, device=dev)] = other_present[
-        torch.tensor(groups, dtype=torch.int64, device=dev)]
+    if rows:
+        _same_kind(v, other_present, op)
+        hit[torch.tensor(rows, dtype=torch.int64, device=dev)] = \
+            other_present[torch.tensor(groups, dtype=torch.int64, device=dev)]
     return torch.where(hit if keep_where_present else ~hit, v, math.nan), rows
 
 
@@ -155,15 +180,19 @@ def set_operator(lhs: StepMatrix, rhs: StepMatrix, op: str, on=None,
     steps = _steps(lhs, rhs)
     dev = _device(lhs, rhs)
     if op == "or":
+        if lhs.num_series and rhs.num_series:
+            _same_kind(lhs.values, rhs.values, op)
         l_index, l_present = _presence(lhs, on, ignoring, dev)
         r_vals, _ = _masked(rhs, l_index, l_present, on, ignoring, dev,
-                            keep_where_present=False)
+                            False, op)
         out = StepMatrix.concat([lhs, StepMatrix(list(rhs.keys), r_vals,
                                                  steps)])
-        return out.compact() if out.num_series else StepMatrix.empty(steps)
+        if not out.num_series:
+            return StepMatrix.empty(steps)
+        return StepMatrix(out.keys, out.values, steps).compact()
     r_index, r_present = _presence(rhs, on, ignoring, dev)
     vals, rows = _masked(lhs, r_index, r_present, on, ignoring, dev,
-                         keep_where_present=op == "and")
+                         op == "and", op)
     if op == "and":
         keys = [lhs.keys[i] for i in rows]
         vals = vals[torch.tensor(rows, dtype=torch.int64, device=dev)]
@@ -172,3 +201,61 @@ def set_operator(lhs: StepMatrix, rhs: StepMatrix, op: str, on=None,
     if not keys:
         return StepMatrix.empty(steps)
     return StepMatrix(keys, vals, steps).compact()
+
+
+# ---------------------------------------------------------------------------
+# exec plans
+
+
+@dataclass
+class BinaryJoinExec(NonLeafExecPlan):
+    """``lhs op rhs`` of the two sides' plans (reference
+    ``BinaryJoinExec``)."""
+
+    lhs_plans: list = field(default_factory=list)
+    rhs_plans: list = field(default_factory=list)
+    op: str = "+"
+    cardinality: str = "one-to-one"
+    on: tuple[str, ...] | None = None
+    ignoring: tuple[str, ...] = ()
+    include: tuple[str, ...] = ()
+    bool_mode: bool = False
+
+    def children(self):
+        return self.lhs_plans + self.rhs_plans
+
+    def do_execute(self, ctx: ExecContext) -> StepMatrix:
+        lhs, rhs = _sides(self, ctx)
+        return binary_join(lhs, rhs, self.op, self.cardinality, self.on,
+                           self.ignoring, self.include, self.bool_mode)
+
+    def __repr__(self):
+        return (f"BinaryJoinExec(op={self.op}, card={self.cardinality}, "
+                f"on={self.on}, ignoring={self.ignoring})")
+
+
+@dataclass
+class SetOperatorExec(NonLeafExecPlan):
+    """and / or / unless of the two sides' plans (reference
+    ``SetOperatorExec``)."""
+
+    lhs_plans: list = field(default_factory=list)
+    rhs_plans: list = field(default_factory=list)
+    op: str = "and"
+    on: tuple[str, ...] | None = None
+    ignoring: tuple[str, ...] = ()
+
+    def children(self):
+        return self.lhs_plans + self.rhs_plans
+
+    def do_execute(self, ctx: ExecContext) -> StepMatrix:
+        lhs, rhs = _sides(self, ctx)
+        return set_operator(lhs, rhs, self.op, self.on, self.ignoring)
+
+    def __repr__(self):
+        return f"SetOperatorExec(op={self.op})"
+
+
+def _sides(plan, ctx: ExecContext) -> tuple[StepMatrix, StepMatrix]:
+    return tuple(StepMatrix.concat([p.execute(ctx) for p in plans])
+                 for plans in (plan.lhs_plans, plan.rhs_plans))

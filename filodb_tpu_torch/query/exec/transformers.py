@@ -1,17 +1,42 @@
-"""Per-plan stages over ``StepMatrix`` batches.
+"""Per-plan stages over series batches and ``StepMatrix`` batches.
 
-Trimmed port of ``filodb_tpu/query/exec/transformers.py``:
-``steps_array``, ``AggregateMapReduce`` (every aggregation of
-``aggregations.py``: sum … stdvar, topk / bottomk, quantile, count_values;
-sum … stdvar also per bucket over a histogram matrix),
-``InstantVectorFunctionMapper`` (with ``histogram_quantile`` /
-``histogram_max_quantile`` over a histogram matrix or ``le``-labelled
-bucket series, and ``hist_to_prom_vectors``), ``ScalarOperationMapper``
-(a number, or a per-step scalar), ``MiscellaneousFunctionMapper``
-(label_replace, label_join), ``SortFunctionMapper``,
-``AbsentFunctionMapper`` and ``LimitFunctionMapper``. Values stay torch
-tensors on the device that holds them; keys are handled on the host.
-Output keys drop the metric label exactly where the reference's do.
+Trimmed port of ``filodb_tpu/query/exec/transformers.py``. Every stage is
+a ``RangeVectorTransformer`` with the reference's ``apply(StepMatrix)``:
+
+- ``PeriodicSamplesMapper``, the leaf's windowing stage: ``eval_batch``
+  evaluates a range function (or the instant selector's last sample)
+  over a ``DeviceBatch`` at every step on the card; ``apply`` evaluates it
+  over an evaluated matrix, a subquery's steps as samples. Both engines
+  evaluate their leaves through it, so both launch the same kernels
+  through the same code:
+
+  - rate / increase / delta run kernel B3 straight from the packed pages,
+    unless the precision gate (``F32_SAFE_MAX``, the reference's) sends the
+    batch through the plain float64 ``range_eval_masked``;
+  - every other range function and the instant selector decode through B1
+    and B2 (``assemble``) in chunks of ``decode_rows``; sum / count / avg /
+    present_over_time sum windows with B4, the rest run the float64
+    ``range_eval_masked`` family;
+  - a histogram batch decodes through B1 (``assemble_hist``) and runs
+    ``range_eval_masked`` per bucket. As the reference's exec engine
+    computes them, ``timestamp(h)`` is in seconds from the batch start (the
+    histogram branch returns before the epoch rebase) and
+    ``predict_linear(h[w], t)`` drops its horizon;
+
+- ``AggregateMapReduce`` (every aggregation of ``aggregations.py``: sum …
+  stdvar, topk / bottomk, quantile, count_values; sum … stdvar also per
+  bucket over a histogram matrix), with its group ids cached per keys list
+  (``GroupIdCache``, one a service);
+- ``InstantVectorFunctionMapper`` (with ``histogram_quantile`` /
+  ``histogram_max_quantile`` over a histogram matrix or ``le``-labelled
+  bucket series, and ``hist_to_prom_vectors``), ``ScalarOperationMapper``
+  (a number, or a per-step scalar), ``MiscellaneousFunctionMapper``
+  (label_replace, label_join), ``SortFunctionMapper``,
+  ``AbsentFunctionMapper`` and ``LimitFunctionMapper``.
+
+Values stay torch tensors on the device that holds them; keys are handled
+on the host. Output keys drop the metric label exactly where the
+reference's do.
 
 A histogram matrix's values are [P, K, B]. Aggregations flatten the buckets
 into the group axis, group id g·B + b, as the reference's mesh engine does,
@@ -39,12 +64,66 @@ from filodb_tpu_torch.query.engine.aggregations import (
     quantile_across,
     topk_mask,
 )
+from filodb_tpu_torch.query.engine.cuda_kernels import (
+    TS_PAD,
+    fused_decode_rate,
+    steps_in_flight,
+    windowed_sum,
+)
+from filodb_tpu_torch.query.engine.device_batch import (
+    BLOCK,
+    DeviceBatch,
+    assemble,
+    assemble_hist,
+)
 from filodb_tpu_torch.query.engine.instantfns import (
     COMPARISON_OPS,
     apply_binary_op,
     apply_instant_fn,
 )
-from filodb_tpu_torch.query.model import RangeVectorKey, StepMatrix
+from filodb_tpu_torch.query.engine.kernels import (
+    RANGE_FNS,
+    RATE_FNS,
+    holt_winters_masked,
+    quantile_over_time_masked,
+    range_eval_masked,
+)
+from filodb_tpu_torch.query.model import (
+    QueryStats,
+    RangeVectorKey,
+    StepMatrix,
+    UnsupportedQuery,
+)
+
+F32_SAFE_MAX = float(1 << 20)
+STALENESS_MS = 300_000  # the instant selector's lookback
+# range functions whose windows B4 sums (values and validity)
+WINDOW_SUM_FNS = ("sum_over_time", "count_over_time", "avg_over_time",
+                  "present_over_time")
+# every range function a leaf serves, with its number of parameters
+SERVED_FNS = {**{f: 0 for f in RANGE_FNS}, "predict_linear": 1,
+              "quantile_over_time": 1, "holt_winters": 2}
+# working set of a decode chunk: the decoded rows plus the temporaries of
+# the function evaluated on them stay near this whatever the row length
+_DECODE_BYTES = 25 << 27
+_QUANTILE_BLOCK = 16  # steps a quantile_over_time sort takes at once
+
+
+def decode_rows(S: int, fn: str = "count_over_time") -> int:
+    """Series decoded at once for rows of S samples, from the bytes a
+    sample of ``fn``'s working set takes: about 25 on the B4 path, about 96
+    for the float64 temporaries of ``range_eval_masked``, plus 4 a level of
+    min/max's float32 sparse table and 21 a step of quantile_over_time's
+    block sort (float32 keys, int64 indices, mask)."""
+    if fn in WINDOW_SUM_FNS:
+        per = 25
+    elif fn in ("min_over_time", "max_over_time"):
+        per = 96 + 4 * max(S.bit_length(), 1)
+    elif fn == "quantile_over_time":
+        per = 96 + 21 * _QUANTILE_BLOCK
+    else:
+        per = 96
+    return max(1, _DECODE_BYTES // (per * max(S, 1)))
 
 
 def steps_array(start: int, step: int, end: int) -> np.ndarray:
@@ -52,6 +131,13 @@ def steps_array(start: int, step: int, end: int) -> np.ndarray:
     if step <= 0:
         return np.array([end], dtype=np.int64)
     return np.arange(start, end + 1, step, dtype=np.int64)
+
+
+def int32_steps(rel: np.ndarray) -> torch.Tensor:
+    """Steps in ms relative to a batch start, as the kernels take them."""
+    if rel.size and (rel.min() < -2**31 or rel.max() >= 2**31 - 1):
+        raise UnsupportedQuery("query range too long for int32 ms steps")
+    return torch.from_numpy(rel.astype(np.int32))
 
 
 def tensor_of(m: StepMatrix, device: torch.device | None = None
@@ -62,8 +148,234 @@ def tensor_of(m: StepMatrix, device: torch.device | None = None
                 dtype=EXACT_DTYPE)
 
 
+def decoded_fn(fn: str, params: tuple, window: int, ts, vals, valid,
+               steps: torch.Tensor, flight: int) -> torch.Tensor:
+    """A non-rate range function on one decoded chunk, [rows, K]: B4 for
+    the window sums, else the float64 ``range_eval_masked`` family."""
+    if fn in WINDOW_SUM_FNS:
+        ts = torch.where(valid, ts, TS_PAD).contiguous()
+        cnt = windowed_sum(ts, valid.to(torch.float32), steps, window,
+                           flight)
+        nan = torch.tensor(float("nan"), device=cnt.device)
+        if fn == "count_over_time":
+            return torch.where(cnt > 0, cnt, nan)
+        if fn == "present_over_time":
+            return torch.where(cnt > 0, 1.0, nan)
+        s = windowed_sum(ts, torch.where(valid, vals, 0.0).contiguous(),
+                         steps, window, flight)
+        if fn == "avg_over_time":
+            s = s / cnt.clamp(min=1.0)
+        return torch.where(cnt > 0, s, nan)
+    return matrix_fn(fn, params, ts, vals, valid, steps, window)
+
+
+def matrix_fn(fn: str, params: tuple, ts, vals, valid, steps,
+              window: int) -> torch.Tensor:
+    """A range function in float64 on the device over decoded rows, or
+    over an evaluated matrix's rows (a subquery's steps as samples)."""
+    if fn == "quantile_over_time":
+        return quantile_over_time_masked(params[0], ts, vals, valid, steps,
+                                         window, _QUANTILE_BLOCK,
+                                         dtype=EXACT_DTYPE)
+    if fn == "holt_winters":
+        return holt_winters_masked(*params, ts, vals, valid, steps, window,
+                                   dtype=EXACT_DTYPE)
+    return range_eval_masked(fn, ts, vals, valid, steps, window,
+                             extra=params[0] if params else 0.0,
+                             dtype=EXACT_DTYPE)
+
+
+class RangeVectorTransformer:
+    """A stage that maps one ``StepMatrix`` to another."""
+
+    def apply(self, data: StepMatrix) -> StepMatrix:  # pragma: no cover
+        raise NotImplementedError
+
+
 @dataclass
-class AggregateMapReduce:
+class PeriodicSamplesMapper(RangeVectorTransformer):
+    """The leaf's windowing stage (reference ``PeriodicSamplesMapper``): a
+    range function, or with ``function`` None the instant selector's last
+    sample within the staleness lookback, at each step of [start, end]; at
+    the ``@`` time for every step if ``at_ms`` is set."""
+
+    start: int
+    step: int
+    end: int
+    window: int = 0
+    function: str | None = None
+    params: tuple = ()
+    offset: int = 0
+    at_ms: int | None = None
+
+    @property
+    def fn(self) -> str:
+        return self.function or "last_sample"
+
+    @property
+    def span(self) -> int:
+        return self.window if self.function else STALENESS_MS
+
+    def _served(self, what: str) -> None:
+        if SERVED_FNS.get(self.fn) != len(self.params) \
+                or not all(isinstance(p, (int, float)) for p in self.params):
+            raise UnsupportedQuery(
+                f"range function {self.fn}"
+                f"{tuple(self.params) if self.params else ''} over {what} is "
+                f"not served (served: {', '.join(SERVED_FNS)})")
+
+    def eval_batch(self, batch: DeviceBatch, stats: QueryStats) -> StepMatrix:
+        """The stage over a batch of packed pages on the card."""
+        steps_ms = steps_array(self.start, self.step, self.end)
+        if not batch.keys:
+            return StepMatrix.empty(steps_ms)
+        hist = batch.les is not None
+        self._served("a histogram" if hist else "a selector")
+        if hist and self.fn not in RANGE_FNS:
+            raise UnsupportedQuery(
+                f"range function {self.fn} over a histogram is not served "
+                f"(the reference's exec engine raises)")
+        eval_ms = steps_ms if self.at_ms is None \
+            else np.array([self.at_ms], np.int64)
+        host_steps = int32_steps(eval_ms - self.offset - batch.base)
+        flight = steps_in_flight(host_steps, self.span)
+        steps = host_steps.to(batch.packed[0].device)
+        res = self._eval_hist(batch, steps) if hist \
+            else self._eval(batch, steps, flight, stats)
+        if self.at_ms is not None:
+            res = res.expand(res.shape[0], len(steps_ms), *res.shape[2:])
+        return StepMatrix(batch.keys if self.function is None
+                          else batch.out_keys, res, steps_ms,
+                          dropped_keys=batch.out_keys, les=batch.les)
+
+    def _eval(self, batch: DeviceBatch, steps: torch.Tensor, flight: int,
+              stats: QueryStats) -> torch.Tensor:
+        """Per-series results [n_series, K]; ``flight`` is
+        ``steps_in_flight`` of the steps, taken on the host."""
+        n = len(batch.keys)
+        packed = batch.packed
+        fn, params, window = self.fn, tuple(self.params), self.span
+        range_len = batch.end - batch.base
+        if fn in RATE_FNS:
+            counter = fn != "delta" or batch.is_counter
+            if batch.vmax < F32_SAFE_MAX:
+                out = fused_decode_rate(packed, steps, window, fn, counter,
+                                        in_flight=flight)
+                return out[:n]
+            stats.precise_lane += 1
+            ts, vals, valid = assemble(packed, range_len)
+            return range_eval_masked(fn, ts, vals, valid, steps, window,
+                                     counter=counter,
+                                     dtype=EXACT_DTYPE)[:n]
+        outs = []
+        rows = decode_rows(packed[0].shape[1] * BLOCK, fn)
+        for a in range(0, n, rows):
+            part = tuple(t[a : min(a + rows, n)] for t in packed)
+            ts, vals, valid = assemble(part, range_len)
+            outs.append(decoded_fn(fn, params, window, ts, vals, valid,
+                                   steps, flight))
+        out = torch.cat(outs)
+        if fn == "timestamp":
+            # seconds relative to the batch base → epoch seconds, in float64
+            out = out + batch.base / 1000.0
+        return out
+
+    def _eval_hist(self, batch: DeviceBatch,
+                   steps: torch.Tensor) -> torch.Tensor:
+        """A histogram leaf, [n_series, K, B]: chunks of series decoded
+        (B1 on timestamps, then on every bucket block) and evaluated in
+        float64 per bucket row; ``decode_rows`` counts series × B rows.
+        No parameter reaches the function and no epoch rebase follows, as
+        in the reference's per-bucket branch."""
+        n = len(batch.keys)
+        B = len(batch.les)
+        rows = max(1, decode_rows(batch.packed[0].shape[1] * BLOCK, self.fn)
+                   // B)
+        outs = []
+        for a in range(0, n, rows):
+            part = tuple(t[a : min(a + rows, n)] for t in batch.packed)
+            ts, counts, valid = assemble_hist(part, batch.end - batch.base)
+            outs.append(range_eval_masked(self.fn, ts, counts, valid, steps,
+                                          self.span,
+                                          counter=batch.is_counter,
+                                          dtype=EXACT_DTYPE))
+        return torch.cat(outs).transpose(1, 2)
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        """The stage over an evaluated matrix (a subquery): the inner steps
+        act as samples, NaN entries dropped, on the device."""
+        steps_ms = steps_array(self.start, self.step, self.end)
+        data.settle()
+        if data.num_series == 0:
+            return StepMatrix.empty(steps_ms)
+        if data.is_histogram:
+            raise UnsupportedQuery("a subquery over a histogram is not served "
+                                   "(the reference's exec engine raises)")
+        self._served("a subquery")
+        vals = tensor_of(data)
+        base = int(data.steps_ms[0])
+        ts = int32_steps(data.steps_ms - base).to(vals.device)
+        ts = ts[None, :].expand(vals.shape[0], -1).contiguous()
+        steps = int32_steps(steps_ms - self.offset - base).to(vals.device)
+        out = matrix_fn(self.fn, tuple(self.params), ts, vals,
+                        ~torch.isnan(vals), steps, self.window)
+        if self.fn == "timestamp":
+            out = out + base / 1000.0
+        return StepMatrix([k.drop_metric() for k in data.keys], out,
+                          steps_ms)
+
+
+class GroupIdCache:
+    """Group ids of aggregations, on the card, per keys list object: a
+    cached batch hands out the same list every query, and instant
+    functions and operators above it hand on its metric-free list
+    (``StepMatrix.derive_without_metric``). A service holds one for its
+    engines; the oldest of its ``cap`` entries goes first."""
+
+    def __init__(self, cap: int = 16):
+        self.cap = cap
+        self._entries: dict = {}
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def keys_group_ids(self, amr: "AggregateMapReduce", keys: list,
+                       device: torch.device):
+        """``amr.group_ids(keys)`` with the ids on ``device``."""
+        ck = (id(keys), amr.by, amr.without, str(device))
+        hit = self._entries.get(ck)
+        if hit is not None and hit[0] is keys:
+            return hit[1]
+        gids, gkeys = amr.group_ids(keys)
+        out = (torch.from_numpy(gids).to(device), gkeys)
+        if len(self._entries) >= self.cap:
+            self._entries.pop(next(iter(self._entries)))
+        self._entries[ck] = (keys, out)
+        return out
+
+    def of(self, amr: "AggregateMapReduce", data: StepMatrix):
+        """(group id per series on the values' device, group keys) of
+        ``data``. Over rows that ``StepMatrix.concat`` joined from several
+        key lists (an exec engine's per-shard leaves), each list's ids are
+        cached and only its distinct group keys are mapped to the joint
+        ids, in first occurrence order as over the joined keys."""
+        device = torch.as_tensor(data.values).device
+        parts = data.key_parts or [data.keys]
+        if len(parts) == 1:
+            return self.keys_group_ids(amr, parts[0], device)
+        uniq: dict[RangeVectorKey, int] = {}
+        gids = []
+        for keys in parts:
+            g, gkeys = self.keys_group_ids(amr, keys, device)
+            joint = torch.tensor([uniq.setdefault(k, len(uniq))
+                                  for k in gkeys],
+                                 dtype=torch.int64, device=device)
+            gids.append(joint[g])
+        return torch.cat(gids), list(uniq)
+
+
+@dataclass
+class AggregateMapReduce(RangeVectorTransformer):
     """Label-grouped aggregation (reference ``AggregateMapReduce``)."""
 
     op: str
@@ -90,6 +402,11 @@ class AggregateMapReduce:
         data.settle()
         if data.num_series == 0:
             return data
+        if data.is_histogram and self.op not in AGG_OPS:
+            raise UnsupportedQuery(
+                f"aggregation {self.op} over a histogram is not served (the "
+                f"reference fails on it; served per bucket: "
+                f"{', '.join(AGG_OPS)})")
         gids, out_keys = groups if groups is not None \
             else self.group_ids(data.keys)
         v = tensor_of(data)
@@ -133,7 +450,7 @@ def _fmt_value(v: float) -> str:
 
 
 @dataclass
-class InstantVectorFunctionMapper:
+class InstantVectorFunctionMapper(RangeVectorTransformer):
     function: str
     args: tuple = ()
 
@@ -185,7 +502,7 @@ def bucket_quantile(q: float, data: StepMatrix) -> StepMatrix:
 
 
 @dataclass
-class ScalarOperationMapper:
+class ScalarOperationMapper(RangeVectorTransformer):
     """vector-scalar binary operation (reference ``ScalarOperationMapper``):
     ``scalar`` is a number, or a per-step scalar, a tensor [K] (``time()``,
     ``scalar(v)``, scalar arithmetic), which applies to step k of every
@@ -199,6 +516,11 @@ class ScalarOperationMapper:
     def apply(self, data: StepMatrix) -> StepMatrix:
         v = tensor_of(data)
         if isinstance(self.scalar, torch.Tensor):
+            if self.scalar.dim() != 1 or data.is_histogram:
+                raise UnsupportedQuery(
+                    f"operator {self.op} between a per-step scalar and a "
+                    f"histogram is not served (the reference's exec engine "
+                    f"raises)")
             sc = self.scalar.to(v)[None, :].expand_as(v)
         else:
             sc = torch.full_like(v, float(self.scalar))
@@ -213,7 +535,7 @@ class ScalarOperationMapper:
 
 
 @dataclass
-class MiscellaneousFunctionMapper:
+class MiscellaneousFunctionMapper(RangeVectorTransformer):
     """label_replace / label_join (reference
     ``MiscellaneousFunctionMapper``): keys change on the host, values pass
     through."""
@@ -255,7 +577,7 @@ def _dollar_to_backslash(repl: str) -> str:
 
 
 @dataclass
-class SortFunctionMapper:
+class SortFunctionMapper(RangeVectorTransformer):
     """sort / sort_desc (reference ``SortFunctionMapper``): series ordered
     by their value at the last step, stably; NaN reads as -inf for sort and
     +inf for sort_desc (both first), an infinity as the largest finite
@@ -267,6 +589,9 @@ class SortFunctionMapper:
         data.settle()
         if data.num_series == 0:
             return data
+        if data.is_histogram:
+            raise UnsupportedQuery("sort of a histogram is not served (the "
+                                   "reference fails on it)")
         v = tensor_of(data)
         last = torch.nan_to_num(v[:, -1], nan=math.inf if self.descending
                                 else -math.inf)
@@ -277,7 +602,7 @@ class SortFunctionMapper:
 
 
 @dataclass
-class AbsentFunctionMapper:
+class AbsentFunctionMapper(RangeVectorTransformer):
     """absent / absent_over_time (reference ``AbsentFunctionMapper``): one
     series, labelled by the selector's ``Equals`` filters other than the
     metric, that is 1 at the steps where no input series has a value, or
@@ -288,6 +613,11 @@ class AbsentFunctionMapper:
     step: int = 1000
     end: int = 0
     device: torch.device | None = None  # where an answer of no input goes
+
+    def bind(self, ctx) -> None:
+        """Take the exec context's device for an answer of no input."""
+        if self.device is None:
+            self.device = ctx.device
 
     def apply(self, data: StepMatrix) -> StepMatrix:
         steps = steps_array(self.start, self.step, self.end)
@@ -308,7 +638,7 @@ class AbsentFunctionMapper:
 
 
 @dataclass
-class LimitFunctionMapper:
+class LimitFunctionMapper(RangeVectorTransformer):
     """FiloDB's limit (reference ``LimitFunctionMapper``): the first
     ``limit`` series."""
 

@@ -6,13 +6,19 @@ Counterpart of reference ``query/src/main/scala/filodb/query/LogicalPlan.scala:6
 and ``PlanEnums.scala``: the planner-facing description of a query, produced by
 the PromQL front end and materialized into ExecPlans by the planners.
 
+The plan rewrites at the end (``subquery_inner``, ``retime``,
+``plan_times``) are copies of the reference planners' (``_retime`` in
+``coordinator/planner.py``, ``_plan_times`` in
+``coordinator/longtime_planner.py``), kept here so that the planner and
+the mesh engine share them.
+
 Times are epoch millis throughout (reference uses millis too); windows/offsets
 are millis.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, fields, is_dataclass, replace
 
 from filodb_tpu_torch.core.filters import ColumnFilter
 
@@ -296,3 +302,64 @@ def leaf_raw_series(plan: LogicalPlan) -> list[RawSeries]:
 
     walk(plan)
     return out
+
+
+# --- plan rewrites the planner and the mesh engine share --------------------
+
+
+def subquery_inner(plan: SubqueryWithWindowing) -> LogicalPlan:
+    """A subquery's inner plan over the window before its first step, at
+    the sub-step (60 s without one), its start aligned down to a multiple
+    of the sub-step as the reference planner aligns it."""
+    sub_step = plan.subquery_step or 60_000
+    inner_start = plan.start - plan.subquery_window - plan.offset
+    inner_start = (inner_start // sub_step) * sub_step
+    return retime(plan.inner, inner_start, sub_step, plan.end - plan.offset)
+
+
+def retime(plan: LogicalPlan, start: int, step: int, end: int):
+    """``plan`` evaluated over [start, end] at ``step`` (the reference
+    planner's ``_retime``, for subqueries)."""
+    if isinstance(plan, (PeriodicSeries, PeriodicSeriesWithWindowing)):
+        raw = replace(plan.raw, range_start=start, range_end=end)
+        return replace(plan, raw=raw, start=start, step=step, end=end)
+    if isinstance(plan, (SubqueryWithWindowing, ScalarFixedDoublePlan,
+                         ScalarTimeBasedPlan, ScalarBinaryOperation)):
+        return replace(plan, start=start, step=step, end=end)
+    if is_dataclass(plan):
+        changes = {f.name: retime(getattr(plan, f.name), start, step, end)
+                   for f in fields(plan)
+                   if isinstance(getattr(plan, f.name), LogicalPlan)}
+        if changes:
+            return replace(plan, **changes)
+    return plan
+
+
+def plan_times(plan: LogicalPlan):
+    """(start, step, end, longest lookback) over a plan tree's periodic
+    nodes, or None (a copy of the reference's
+    ``coordinator/longtime_planner._plan_times``)."""
+    lo, st, hi, lb = [], [], [], [0]
+
+    def walk(p):
+        if isinstance(p, (PeriodicSeries, PeriodicSeriesWithWindowing,
+                          SubqueryWithWindowing)):
+            lo.append(p.start)
+            st.append(p.step)
+            hi.append(p.end)
+            if isinstance(p, PeriodicSeriesWithWindowing):
+                lb.append(p.window + p.offset)
+            elif isinstance(p, SubqueryWithWindowing):
+                lb.append(p.subquery_window + p.offset)
+            else:
+                lb.append(300_000 + p.offset)
+        if is_dataclass(p):
+            for f in fields(p):
+                v = getattr(p, f.name)
+                if isinstance(v, LogicalPlan):
+                    walk(v)
+
+    walk(plan)
+    if not lo:
+        return None
+    return min(lo), max(st), max(hi), max(lb)

@@ -21,6 +21,12 @@ import torch
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
 
 
+class UnsupportedQuery(ValueError):
+    """A plan shape the port does not serve, or one that the reference's
+    exec engine raises on. Under ``QueryService(engine="mesh")`` it is also
+    the mesh engine's signal to hand the plan to the exec engine."""
+
+
 def prom_float(v: float) -> str:
     """A float as the Prometheus wire writes it (``+Inf``, ``NaN``)."""
     if math.isinf(v):
@@ -75,6 +81,9 @@ class StepMatrix:
     # the group ids the engine caches for it) across queries
     dropped_keys: list | None = None
     les: np.ndarray | None = None  # [B] bucket upper bounds (histograms)
+    # the key lists ``concat`` joined, in order, while the rows still are
+    # theirs: group ids are cached per such list (``GroupIdCache.of``)
+    key_parts: list | None = None
 
     @property
     def is_histogram(self) -> bool:
@@ -104,7 +113,9 @@ class StepMatrix:
         deferred compaction carries over and is decided on the new values;
         bucket bounds carry over to values that still have a bucket axis."""
         return StepMatrix(keys, values, self.steps_ms, self.pending_compact,
-                          les=self.les if values.ndim == 3 else None)
+                          les=self.les if values.ndim == 3 else None,
+                          key_parts=self.key_parts if keys is self.keys
+                          else None)
 
     def derive_without_metric(self, values) -> "StepMatrix":
         """``derive`` with the metric label dropped from every key; the
@@ -117,16 +128,30 @@ class StepMatrix:
 
     @staticmethod
     def concat(parts: list["StepMatrix"]) -> "StepMatrix":
+        """The rows of ``parts`` in order (the first part's bucket bounds).
+        Parts of different shapes, a histogram beside scalar series or
+        histograms of different bucket counts, do not concatenate, as the
+        reference's do not: that raises ``UnsupportedQuery``."""
         parts = [p for p in parts if p.num_series > 0]
         if len(parts) <= 1:
             return parts[0] if parts else StepMatrix.empty()
+        shapes = {tuple(p.values.shape[1:]) for p in parts}
+        if len(shapes) > 1:
+            raise UnsupportedQuery(
+                f"series of shapes {sorted(shapes)} do not concatenate (the "
+                f"reference's exec engine raises too)")
         dev = torch.as_tensor(parts[0].values).device
         values = torch.cat([torch.as_tensor(p.values).to(dev, torch.float64)
                             for p in parts])
-        return StepMatrix([k for p in parts for k in p.keys], values,
+        keys = []
+        for p in parts:
+            keys.extend(p.keys)
+        return StepMatrix(keys, values,
                           parts[0].steps_ms,
                           any(p.pending_compact for p in parts),
-                          les=parts[0].les)
+                          les=parts[0].les,
+                          key_parts=[kp for p in parts
+                                     for kp in (p.key_parts or [p.keys])])
 
     def settle(self) -> "StepMatrix":
         """Apply deferred compaction now, in place (on the device for device
@@ -144,6 +169,7 @@ class StepMatrix:
             self.keys = [self.keys[i] for i in kept.tolist()]
             self.values = v[kept]
             self.dropped_keys = None
+            self.key_parts = None
         return self
 
     def flatten_histograms(self) -> "StepMatrix":
@@ -179,6 +205,8 @@ class QueryStats:
     wall_time_s: float = 0.0
     # leaves whose magnitudes failed the float32 gate and ran in float64
     precise_lane: int = 0
+    engine: str = ""    # the engine that answered: "mesh" or "exec"
+    fallback: str = ""  # why mesh handed the plan to exec (its message)
 
 
 @dataclass

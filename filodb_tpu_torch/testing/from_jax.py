@@ -8,8 +8,8 @@ series is re-ingested chunk by chunk, sealing where the reference sealed,
 so both stores hold the same chunks and so the same device pages. A
 histogram series carries one ``HistogramColumn`` (bucket bounds and
 cumulative count rows) per chunk, and one more for its write buffer, so a
-series whose bucket scheme changed keeps each chunk's own. This module
-imports nothing of ``filodb_tpu``.
+series whose bucket scheme changed keeps each chunk's own, and its ``sum``
+and ``count`` columns. This module imports nothing of ``filodb_tpu``.
 """
 
 from __future__ import annotations
@@ -29,8 +29,11 @@ class SeriesState:
     ts: np.ndarray           # int64 [n], ascending
     vals: np.ndarray | None  # float64 [n]; None for a histogram series
     chunk_rows: list[int]    # rows of each sealed chunk, in time order
-    # histogram series: the chunks' columns in order, then the buffer's
+    # histogram series: the chunks' columns in order, then the buffer's;
+    # and the sum and count columns float64 [n] (None: not carried)
     hist: list[HistogramColumn] | None = None
+    sums: np.ndarray | None = None
+    counts: np.ndarray | None = None
 
 
 def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
@@ -42,8 +45,10 @@ def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
         for i, n in enumerate(rows):
             seg = slice(a, a + n)
             if st.hist is not None:
-                memstore.ingest_histogram(st.labels, st.ts[seg],
-                                          st.hist[i].rows, st.hist[i].les)
+                memstore.ingest_histogram(
+                    st.labels, st.ts[seg], st.hist[i].rows, st.hist[i].les,
+                    None if st.sums is None else st.sums[seg],
+                    None if st.counts is None else st.counts[seg])
             else:
                 memstore.ingest(st.labels, st.ts[seg], st.vals[seg],
                                 schema=st.schema)

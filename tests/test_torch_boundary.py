@@ -3,7 +3,9 @@ query loads neither JAX nor any module of the JAX package. Checked in a
 fresh interpreter, because this test process imports JAX for every test;
 there both are blocked (an import of either raises), and the port's
 modules, histograms, absent, count_values, sort, label functions, limit,
-scalars, @, subqueries, instant queries and the metadata calls included,
+scalars, @, subqueries, instant queries, the metadata calls, the exec
+engine and its planner (``query/exec/plan.py``,
+``coordinator/planner.py``) and the histogram columns it serves included,
 import and answer all the same.
 """
 
@@ -25,7 +27,8 @@ from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.http.promjson import matrix_json
 from filodb_tpu_torch.memory import codecs
 from filodb_tpu_torch.query.engine import instantfns
-from filodb_tpu_torch.query.exec import binaryjoin, transformers
+from filodb_tpu_torch.query.exec import binaryjoin, plan, transformers
+from filodb_tpu_torch.coordinator import planner
 from filodb_tpu_torch.testing import from_jax
 
 store = MemStore(num_shards=4, spread=1, max_chunk_size=64)
@@ -48,7 +51,14 @@ joined = svc.query_range(
 les = np.array([0.1, 1.0, np.inf])
 hist = np.cumsum(np.cumsum(rng.integers(0, 4, (n, T, 3)), axis=2), axis=1)
 store.ingest_histograms([{**lb, "_metric_": "lat"} for lb in labels], ts,
-                        hist, les)
+                        hist, les, sums=0.25 * hist[:, :, -1],
+                        counts=hist[:, :, -1].astype(float))
+ex = QueryService(store, device="cpu", engine="exec")
+exec_rows = ex.query_range("sum(rate(http_requests_total[5m])) by (_ns_)",
+                           1_600_000_600, 60, 1_600_001_400).result.num_series
+mean = svc.query_range("sum(rate(lat::sum[5m])) by (_ns_) / "
+                       "sum(rate(lat::count[5m])) by (_ns_)",
+                       1_600_000_600, 60, 1_600_001_400)
 flat = matrix_json(svc.query_range("sum(rate(lat[5m])) by (_ns_)",
                                    1_600_000_600, 60, 1_600_001_400))
 quant = svc.query_range("histogram_quantile(0.9, sum(rate(lat[5m])) by (job))",
@@ -80,6 +90,9 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "quantiles": quant.result.num_series, "shapes": shapes,
                   "instant": len(inst["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
+                  "exec": exec_rows,
+                  "mean": [mean.stats.engine, mean.result.num_series,
+                           float(np.nanmax(mean.result.values))],
                   "loaded": loaded}))
 """
 
@@ -111,4 +124,6 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["meta"] == {
         "names": ["_metric_", "_ns_", "_ws_", "instance", "job"],
         "jobs": ["job-0", "job-1", "job-2"], "series": 6}
+    assert res["exec"] == 2
+    assert res["mean"] == ["exec", 2, 0.25]
     assert res["loaded"] == []

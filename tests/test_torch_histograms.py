@@ -172,8 +172,11 @@ def _states(ref):
                 if b.n:
                     hist.append(HistogramColumn(p.bucket_les,
                                                 b.cols[2][: b.n]))
+                sums, counts = (np.concatenate(
+                    [np.asarray(c.decode_column(col)) for c in p.chunks]
+                    + [b.cols[col - 1][: b.n]]) for col in (1, 2))
                 states.append(SeriesState(p.schema.name, p.part_key.label_map,
-                                          ts, None, rows, hist))
+                                          ts, None, rows, hist, sums, counts))
             else:
                 vals = np.concatenate([np.asarray(c.decode_column(1))
                                        for c in p.chunks]
@@ -349,8 +352,9 @@ def test_write_buffers_hold_rows_of_their_own_kind_only():
     assert shard.buffers.used == 2 * n
     assert shard.buffers.n[:2 * n].sum() == 2 * n * len(ts)
     buf3 = shard.hist_buffers[3]
+    # a sample's slots: its 3 bucket counts, then its sum and count
     assert (buf3.used, len(buf3.n), buf3.vals.shape) == (1, 1024,
-                                                          (1024, CHUNK, 3))
+                                                          (1024, CHUNK, 3 + 2))
     port.ingest_histogram(lb, ts + 100_000, np.ones((10, 5), np.int64),
                           LES5)
     buf5 = shard.hist_buffers[5]
@@ -628,16 +632,197 @@ def test_shapes_the_reference_fails_raise(services, q):
         services["port"].query_range(q, Q_START, Q_STEP, Q_END)
 
 
-@pytest.mark.parametrize("q", [
+EXEC_SHAPES = [
     "lat::sum", "rate(lat::count[5m])", "sum(rate(lat::sum[5m]))",
     "timestamp(lat)", "predict_linear(lat[5m], 600)",
     "rate(lat[5m]) / on (instance) rate(lat[5m])",
     "rate(lat[5m]) and rate(lat[5m])",
-    '{_ns_="App-0",instance="instance-0"}'])
+    '{_ns_="App-0",instance="instance-0"}']
+
+
+@pytest.mark.parametrize("q", EXEC_SHAPES)
 def test_shapes_left_out_raise(services, q):
-    """Shapes the reference answers and the port leaves out (ROADMAP §A):
-    column selectors, timestamp and predict_linear over a histogram (the
-    reference answers relative seconds and drops the horizon), joins with
-    a histogram side, and a selector matching histograms and scalars."""
+    """The mesh engine raises ``UnsupportedQuery`` for column selectors,
+    timestamp and predict_linear over a histogram, joins with a histogram
+    side and a selector matching histograms and scalars: the signal that
+    hands them to the exec engine (``test_shapes_exec_answers_match_exec``)."""
+    from filodb_tpu_torch.query.model import QueryStats
+
+    port = services["port"]
+    plan = port_parse(q, TimeStepParams(Q_START, Q_STEP, Q_END))
+    with pytest.raises(UnsupportedQuery):
+        port.mesh.execute(port.memstore, plan, QueryStats())
+
+
+@pytest.mark.parametrize("q", EXEC_SHAPES)
+def test_mesh_declines_before_it_builds_a_batch(services, q, monkeypatch):
+    """``supports`` decides from the plan and the shards' indexes, before
+    anything runs: a shape the mesh engine hands on builds no mesh batch,
+    and the reason the stats record is the text ``execute`` raises. The
+    exec engine raises for the selector of both kinds as the reference's
+    does (``test_shapes_exec_raises_raise``)."""
+    from filodb_tpu_torch.parallel import mesh_engine
+    from filodb_tpu_torch.query.model import QueryStats
+
+    port = services["port"]
+    built = []
+    real = mesh_engine.build_device_batch
+    monkeypatch.setattr(mesh_engine, "build_device_batch",
+                        lambda *a: built.append(a) or real(*a))
+    plan = port_parse(q, TimeStepParams(Q_START, Q_STEP, Q_END))
+    reason = port.mesh.supports(port.memstore, plan)
+    assert reason
+    with pytest.raises(UnsupportedQuery) as raised:
+        port.mesh.execute(port.memstore, plan, QueryStats())
+    assert str(raised.value) == reason
+    if q == EXEC_SHAPES[-1]:
+        with pytest.raises(UnsupportedQuery):
+            port.query_range(q, Q_START, Q_STEP, Q_END)
+    else:
+        res = port.query_range(q, Q_START, Q_STEP, Q_END)
+        assert (res.stats.engine, res.stats.fallback) == ("exec", reason)
+    assert built == []
+
+
+@pytest.mark.parametrize("q,finite", [
+    *[(q, True) for q in EXEC_SHAPES[:-1]],
+    # the mean latency a dashboard charts from a histogram
+    ("sum(rate(lat::sum[5m])) by (job) / sum(rate(lat::count[5m])) by (job)",
+     True),
+    ("rate(lat::count[5m]) > 1", True),
+    ("lat::h", True), ("lat_bucket::sum", True),
+    ("rate(lat_mixed[5m]) + rate(lat_mixed[5m])", True),
+    ("rate(lat[5m]) unless rate(lat_bucket[5m])", True),
+    ("rate(lat[5m]) > bool on (instance) rate(lat_small[5m])", True),
+    # the plan shapes over a histogram: absent of a present histogram is no
+    # series; scalar() is per bucket, NaN unless one series has a value
+    ("absent(lat)", False), ("absent_over_time(lat[5m])", False),
+    ("scalar(lat)", False),
+])
+def test_shapes_exec_answers_match_exec(services, q, finite):
+    """Shapes the mesh engine hands on, answered by the port's exec engine
+    through the default ``engine="mesh"`` service, against the reference's
+    exec engine at both valves and its mesh engine (which hands them to
+    exec too): ``timestamp(h)`` in seconds from the batch start,
+    ``predict_linear(h[w], t)`` without its horizon, joins of two
+    histograms bucket by bucket with ``les`` dropped."""
+    port = services["port"]
+    res = port.query_range(q, Q_START, Q_STEP, Q_END)
+    assert res.stats.engine == "exec" and res.stats.fallback, q
+    if res.result.num_series:
+        _check(services, q, finite=finite)
+    else:
+        for name in ("exec", "exec1", "mesh"):
+            r = services[name].query_range(q, Q_START, Q_STEP, Q_END)
+            assert r.result.num_series == 0, (q, name)
+
+
+@pytest.mark.parametrize("q", [
+    '{_ns_="App-0",instance="instance-0"}',
+    "max_over_time(rate(lat[5m])[10m:1m])", "lat * time()",
+    "rate(lat[5m]) * scalar(sum(rate(lat_bucket[5m])))",
+    "rate(lat[5m]) / on (instance) group_left rate(lat::count[5m])",
+    "rate(lat::count[5m]) / on (instance) rate(lat[5m])",
+    "rate(lat[5m]) or rate(lat_bucket[5m])",
+    "rate(lat_bucket[5m]) and on (instance) rate(lat[5m])",
+    "lat::timestamp"])
+def test_shapes_exec_raises_raise(services, q):
+    """Where the reference's exec engine raises (a selector matching
+    histograms and scalars, a subquery over a histogram, a histogram
+    against scalars or a per-step scalar, the timestamp column), the port
+    raises ``UnsupportedQuery``."""
+    with pytest.raises((ValueError, TypeError, IndexError)):
+        services["exec"].query_range(q, Q_START, Q_STEP, Q_END)
     with pytest.raises(UnsupportedQuery):
         services["port"].query_range(q, Q_START, Q_STEP, Q_END)
+
+
+@pytest.mark.parametrize("col", ["sum", "count"])
+def test_sum_and_count_pages_byte_equal(stores, col):
+    """The packed value pages of ``lat::sum`` / ``lat::count`` against the
+    reference's ``encode_f32_page`` of the column, chunk by chunk and the
+    write buffer, packed by ``pack_series_pages``."""
+    from filodb_tpu.memory.device_pages import encode_f32_page, encode_ts_page
+    from filodb_tpu.query.engine.device_batch import (
+        chunk_device_pages,
+        pack_series_pages,
+    )
+
+    ref, port = stores
+    c_idx = {"sum": 1, "count": 2}[col]
+    start, end = Q_START * 1000 - 300_000, Q_END * 1000
+    per_series, want_keys = [], []
+    for shard in ref.shards_for(DS):
+        for p in shard.partitions:
+            if p.part_key.label_map["_metric_"] != "lat":
+                continue
+            entries = [(*chunk_device_pages(c, p.schema, c_idx), c.num_rows)
+                       for c in p.chunks_in_range(start, end,
+                                                  include_buffer=False)]
+            b = p._buf
+            if b.n and b.ts[b.n - 1] >= start and b.ts[0] <= end:
+                entries.append((encode_ts_page(b.ts[: b.n]),
+                                encode_f32_page(b.cols[c_idx - 1][: b.n]),
+                                b.n))
+            per_series.append(entries)
+    want, wcounts = pack_series_pages(per_series, start)
+    filters = list(port_parse(f"lat::{col}", TimeStepParams(
+        Q_START, Q_STEP, Q_END)).raw.filters)
+    tables, t_of, b_of, r_of, n = [], [], [], [], 0
+    for shard in port.shards:
+        pids = shard.lookup_partitions(filters, start, end)
+        tabs, t, b, r, _ = shard.select_blocks(pids, start, end, col)
+        t_of.append(t + len(tables))
+        tables += tabs
+        b_of.append(b)
+        r_of.append(r + n)
+        n += len(pids)
+    assert n == len(per_series) > 0
+    got, gcounts = port_db.pack_blocks(
+        tables, np.concatenate(t_of), np.concatenate(b_of),
+        np.concatenate(r_of), n, start)
+    for a, b in zip(want, got):
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    np.testing.assert_array_equal(wcounts, gcounts)
+
+
+def test_scheme_change_keeps_the_sample_sum_and_count(stores):
+    """The first sample after a bucket-scheme change keeps its sum and
+    count in the port. The reference's partition writes them into the
+    buffer it is about to seal and leaves the new buffer's first slot
+    uninitialised (``filodb_tpu/core/memstore/partition.py:247-262``;
+    ROADMAP §C.3), so its ``lat_switch`` count column holds a garbage value
+    there; the port's own ingest of the same samples holds the true ones
+    (float32 pages: counts exact, sums within float32 rounding)."""
+    ref, _ = stores
+    (labels, ts, segs), = [s for s in _hist_specs()
+                           if s[0]["_metric_"] == "lat_switch"
+                           and len(s[2]) > 1]
+    port = MemStore(NUM_SHARDS, spread=1, max_chunk_size=CHUNK)
+    a = 0
+    for les, counts in segs:
+        n = len(counts)
+        port.ingest_histogram(labels, ts[a:a + n], counts, les,
+                              0.2 * counts[:, -1], counts[:, -1])
+        a += n
+    want = np.concatenate([c[:, -1] for _, c in segs]).astype(np.float64)
+    ref_counts = [np.concatenate(
+        [np.asarray(c.decode_column(2)) for c in p.chunks]
+        + [p._buf.cols[1][: p._buf.n]])
+        for sh in ref.shards_for(DS) for p in sh.partitions
+        if p.part_key.label_map == labels]
+    assert len(ref_counts) == 1
+    first = len(segs[0][1])
+    assert ref_counts[0][first] != want[first]      # the reference's fault
+    np.testing.assert_array_equal(np.delete(ref_counts[0], first),
+                                  np.delete(want, first))
+    shard = next(s for s in port.shards if s.num_partitions)
+    pid = np.array([0])
+    for col, scale in (("count", 1.0), ("sum", 0.2)):
+        tabs, t_of, b_of, r_of, _ = shard.select_blocks(pid, 0, 2**62, col)
+        packed, counts = port_db.pack_blocks(tabs, t_of, b_of, r_of, 1, 0)
+        _, vals, valid = port_db.decode_packed(port_db.to_device(
+            packed, torch.device("cpu")), plain=True)
+        got = vals[0][valid[0]].double().numpy()
+        np.testing.assert_allclose(got, (scale * want).astype(np.float32),
+                                   rtol=0, atol=0)

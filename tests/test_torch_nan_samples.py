@@ -149,7 +149,7 @@ def test_pages_keep_nan_samples_and_decode_drops_them(stale_services):
     low = lower_plan(parse_query("rate(http_requests_total[5m])",
                                  TimeStepParams(START_S + 300, 60,
                                                 START_S + 3000)))
-    packed = port.engine._batch(port.memstore, low).packed
+    packed = port.mesh._batch(port.memstore, low).packed
     ts, vals, valid = decode_packed(packed)
     P, NB = packed[0].shape
     lane = torch.arange(NB * BLOCK) % BLOCK
@@ -226,7 +226,7 @@ def test_b3_plain_matches_fused_pallas_on_the_store(stale_services):
     svc = QueryService(port, device="cpu")
     low = lower_plan(parse_query("rate(http_requests_total[5m])",
                                  TimeStepParams(Q_START, Q_STEP, Q_END)))
-    batch = svc.engine._batch(port, low)
+    batch = svc.mesh._batch(port, low)
     steps = np.arange(low.start, low.end + 1, low.step) \
         - low.chunk_range[0]
     steps = steps.astype(np.int32)

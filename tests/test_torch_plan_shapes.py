@@ -36,9 +36,16 @@ AT = Q_START + 900  # an @ time inside the data
 
 
 @pytest.fixture(scope="module")
-def services():
+def stores():
     ref, port = _build_stores(_series_specs(), 64)
-    return (*reference_lanes(ref), QueryService(port, device="cpu"))
+    return reference_lanes(ref), port
+
+
+@pytest.fixture(scope="module", params=["mesh", "exec"])
+def services(stores, request):
+    """The reference lanes and the port on one of its two engines."""
+    lanes, port = stores
+    return (*lanes, QueryService(port, device="cpu", engine=request.param))
 
 
 def _check(services, q, ordered=False, expect_rows=None):
@@ -237,8 +244,8 @@ def test_top_level_subquery_matches_exec(services):
     exec0, *_, port = services
     from filodb_tpu_torch.query.model import QueryStats
 
-    got = port.engine.execute(port.memstore, port_plan,
-                              QueryStats()).materialize()
+    got = port.mesh.execute(port.memstore, port_plan,
+                            QueryStats()).materialize()
     want = exec0.execute_logical(ref_plan).result.materialize()
     assert got.num_steps == want.num_steps == 16
     gk, gv = _sorted(type("R", (), {"result": got}))
@@ -250,5 +257,15 @@ def test_top_level_subquery_matches_exec(services):
 @pytest.mark.parametrize("q", ["http_requests_total::sum",
                                "rate(http_requests_total::count[5m])"])
 def test_column_selectors_still_raise(services, q):
+    """The mesh engine still raises for a column selector; the service
+    hands it to the exec engine, which answers a scalar series' value
+    column as the reference's exec engine does."""
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.model import QueryStats
+
+    port = services[-1]
+    plan = parse_query(q, TimeStepParams(Q_START, Q_STEP, Q_END))
     with pytest.raises(UnsupportedQuery):
-        services[-1].query_range(q, Q_START, Q_STEP, Q_END)
+        port.mesh.execute(port.memstore, plan, QueryStats())
+    res = _check(services, q)
+    assert res.stats.engine == "exec"

@@ -36,9 +36,16 @@ TS_TOL = dict(rtol=0, atol=1e-3, equal_nan=True)
 
 
 @pytest.fixture(scope="module")
-def services():
+def stores():
     ref, port = _build_stores(_series_specs(), 64)
-    return (*reference_lanes(ref), QueryService(port, device="cpu"))
+    return reference_lanes(ref), port
+
+
+@pytest.fixture(scope="module", params=["mesh", "exec"])
+def services(stores, request):
+    """The reference lanes and the port on one of its two engines."""
+    lanes, port = stores
+    return (*lanes, QueryService(port, device="cpu", engine=request.param))
 
 
 def _check(services, q, tol=TOL, expect_data=True):

@@ -204,12 +204,18 @@ class Valved:
     """A reference ``QueryService`` whose every call runs with
     ``FILODB_SIDECARS`` set to ``valve``: the valve is read at query time,
     so it is set around each call, not around a module-scoped fixture.
-    ``engine`` names the lane."""
+    ``engine`` names the lane. Its ``query_range`` and ``query_instant``
+    answers are kept per arguments, so that the port's two engines are
+    held against one reference answer each (the store does not change
+    under a fixture)."""
+
+    _KEPT = ("query_range", "query_instant")
 
     def __init__(self, svc, valve: str):
         self.svc = svc
         self.valve = valve
         self.engine = f"{svc.engine} FILODB_SIDECARS={valve}"
+        self._answers: dict = {}
 
     def __getattr__(self, name):
         attr = getattr(self.svc, name)
@@ -217,9 +223,15 @@ class Valved:
             return attr
 
         def call(*args, **kwargs):
+            key = (name, args, tuple(sorted(kwargs.items())))
+            if name in self._KEPT and key in self._answers:
+                return self._answers[key]
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("FILODB_SIDECARS", self.valve)
-                return attr(*args, **kwargs)
+                out = attr(*args, **kwargs)
+            if name in self._KEPT:
+                self._answers[key] = out
+            return out
         return call
 
 
@@ -235,9 +247,15 @@ def reference_lanes(ref):
 
 
 @pytest.fixture(scope="module")
-def services(stores):
-    ref, port = stores
-    return (*reference_lanes(ref), QueryService(port, device="cpu"))
+def lanes(stores):
+    return reference_lanes(stores[0])
+
+
+@pytest.fixture(scope="module", params=["mesh", "exec"])
+def services(stores, lanes, request):
+    """The reference lanes and the port on one of its two engines."""
+    return (*lanes, QueryService(stores[1], device="cpu",
+                                 engine=request.param))
 
 
 def _sorted(result):
@@ -293,9 +311,26 @@ def test_answer_renders_as_prometheus_matrix(services):
     "sum(rate(http_requests_total::count[5m])) by (job)",
 ])
 def test_other_plan_shapes_raise(services, q):
-    *_, port = services
+    """Column selectors raise in the mesh engine, the signal that hands
+    them to the exec engine; a scalar series has no ``sum`` or ``count``
+    column, so exec reads its value column, as the reference's exec engine
+    does (``rtol=2e-5, atol=1e-6``)."""
+    from filodb_tpu_torch.query.model import QueryStats
+
+    exec0, *_, port = services
+    plan = port_parse(q, PortParams(Q_START, Q_STEP, Q_END))
     with pytest.raises(UnsupportedQuery):
-        port.query_range(q, Q_START, Q_STEP, Q_END)
+        port.mesh.execute(port.memstore, plan, QueryStats())
+    res = port.query_range(q, Q_START, Q_STEP, Q_END)
+    assert res.stats.engine == "exec"
+    assert ("RawSeries" in res.stats.fallback) == (port.engine == "mesh")
+    r = exec0.query_range(q, Q_START, Q_STEP, Q_END)
+    r.result.materialize()
+    got_keys, got = _sorted(res)
+    want_keys, want = _sorted(r)
+    assert got_keys == want_keys and len(got_keys) > 0
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-6,
+                               equal_nan=True)
 
 
 def test_entry_points_default_to_cuda():
@@ -474,6 +509,6 @@ def test_long_range_matches_both_reference_engines(long_services, q):
 @pytest.mark.parametrize("S,rows", [(1024, 2**17), (32_768, 4_096),
                                     (2**28, 1)])
 def test_decode_chunk_is_sized_by_samples(S, rows):
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
 
     assert decode_rows(S) == rows

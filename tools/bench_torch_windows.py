@@ -48,7 +48,7 @@ def main() -> int:
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
-    from filodb_tpu_torch.parallel.mesh_engine import decode_rows
+    from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
     from filodb_tpu_torch.query.engine.device_batch import BLOCK, assemble
 
@@ -60,8 +60,8 @@ def main() -> int:
     start = cs.T0_MS // 1000
     end = start + args.samples * 10
     q = "sum(rate(http_requests_total[5m])) by (_ns_)"
-    low, _ = cs.lowered(svc.engine, q, start, end)
-    small = svc.engine._batch(store, low).packed
+    low, _ = cs.lowered(svc.mesh, q, start, end)
+    small = svc.mesh._batch(store, low).packed
     reps = -(-args.series // small[0].shape[0])
     packed = tuple(t.repeat((reps,) + (1,) * (t.dim() - 1))[: args.series]
                    .contiguous() for t in small)
