@@ -79,11 +79,30 @@ checks it, phase by phase; any failed phase exits non-zero:
    a per-series rate) cold once and warm three times, each with its plan
    tree's leaf count and launches, against the mesh engine's answer in the
    same run (per series bit for bit, aggregated within rtol 1e-9) and its
-   times, and the device memory both engines' batches hold.
+   times, and the device memory both engines' batches hold;
+11. (run after phase 9) durability: a store of the phase-2 generator's
+   first ``--durable-series`` series (``DURABLE_SERIES``) on a local-disk
+   column and meta store (sqlite) under a ``tempfile.mkdtemp()``
+   directory, 20 flush groups a shard: flush it (chunks, codec bytes a
+   sample, sqlite bytes, seconds); one more scrape of every series
+   through record containers, routed by ``MemStore.shard_of`` into a
+   ``SegmentedFileLog`` a shard and ingested at their offsets; half the
+   groups flushed; ``chunk_infos`` of one series against the chunks
+   written; the live answers of ``DURABLE_QUERIES`` on both engines over
+   2 h plus the scrape; the store dropped; a new store on the directory
+   and logs recovers its index, replays each log from its recovery start
+   (keys, seconds, records, records below a watermark, records/s) and
+   answers each query on each engine bitwise as the live store did, every
+   chunk paged in from disk (cold split: store read, C++ decode, page
+   encode, pack and upload; warm p50; chunks paged); the same for
+   ``DURABLE_HIST_SERIES`` histograms through histogram containers and
+   ``DURABLE_HIST``; B1-B4 must have launched in the phase; the directory
+   is removed and its bytes reported.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
-``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone).
+``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
+``--durability-only``: phases 1 and 11).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -91,8 +110,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -1783,6 +1804,356 @@ def exec_phase(svc, args) -> dict:
             "seconds": seconds}
 
 
+# phase 11: durability. The phase-2 store (built on a local-disk column and
+# meta store) flushes, takes one more scrape through the write-ahead log,
+# flushes half of its groups and is dropped; a new store on the same
+# directory and logs recovers its index, replays the log and must answer
+# these queries bitwise as the live store did, paging every chunk in from
+# disk (B1-B4 on data read back).
+DURABLE_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
+                   f"sum(count_over_time({M}[5m])) by (job)")
+# series of phase 11's store: the first of the phase-2 generator's. On an
+# H100's host this phase takes 70-90 s a 100,000 series (flush, scrape,
+# index, replay, two cold page-ins; 295-371 s at 400,000 series), so the
+# full million would add 12-15 minutes to the smoke (PERF.md §4)
+DURABLE_SERIES = 300_000
+DURABLE_HIST = f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))"
+DURABLE_HIST_SERIES = 10_000  # App-0..App-9, 1,000 histograms each
+DURABLE_END_S = END_S + 60    # 2 h plus the new scrape, at 60 s
+SCRAPE_RECORDS = 10_000       # records a container of the scrape
+DURABLE_WARM = 3
+
+
+def durable_store(root: str, dataset: str):
+    """A 4-shard, spread-1 store on the local-disk column and meta stores at
+    ``root`` (400-sample chunks, the reference's 20 groups a shard)."""
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.core.store.config import StoreConfig
+    from filodb_tpu_torch.core.store.localstore import (
+        LocalDiskColumnStore,
+        LocalDiskMetaStore,
+    )
+
+    return MemStore(4, 1, column_store=LocalDiskColumnStore(root),
+                    meta_store=LocalDiskMetaStore(root),
+                    config=StoreConfig(max_chunk_size=400,
+                                       groups_per_shard=20), dataset=dataset)
+
+
+def dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+
+def last_samples(store):
+    """(keys, timestamps, values) of every series' last sample, from the
+    write buffers (the 720th sample of a 400-sample-chunk series is in its
+    buffer); histogram values are the [B + 2] slots (buckets, sum, count)."""
+    keys, ts, vals = [], [], []
+    for shard in store.shards:
+        for buf in [shard.buffers, *shard.hist_buffers.values()]:
+            rows = buf.occupied()
+            if not len(rows):
+                continue
+            n = buf.n[rows].astype(np.int64)
+            keys += [shard.keys[p] for p in buf.pid_of[rows].tolist()]
+            ts.append(buf.ts[rows, n - 1])
+            vals.append(buf.vals[rows, n - 1])
+    return keys, np.concatenate(ts), np.concatenate(vals)
+
+
+def scrape_through_wal(store, wal_root, keys, ts, vals, les=None):
+    """One more scrape: a sample a series 10 s after its last, as record
+    containers (histogram values: tag 1) routed by ``MemStore.shard_of``,
+    appended to a ``SegmentedFileLog`` a shard and ingested with their
+    offsets. Returns (logs, containers, records, seconds)."""
+    from filodb_tpu_torch.core.record import (
+        BytesContainer,
+        IngestRecord,
+        RecordContainer,
+        SomeData,
+    )
+    from filodb_tpu_torch.kafka.log import SegmentedFileLog
+
+    t = time.perf_counter()
+    shard_of = store.shard_of(keys)
+    logs, containers = {}, 0
+    for s in range(store.num_shards):
+        logs[s] = SegmentedFileLog(str(Path(wal_root) / f"shard-{s}"))
+        idx = np.flatnonzero(shard_of == s).tolist()
+        for a in range(0, len(idx), SCRAPE_RECORDS):
+            c = RecordContainer()
+            for i in idx[a:a + SCRAPE_RECORDS]:
+                v = (float(vals[i]),) if les is None else (
+                    float(vals[i, -2]), float(vals[i, -1]),
+                    (les, vals[i, :-2].astype(np.int64)))
+                c.add(IngestRecord(keys[i], int(ts[i]), v))
+            raw = c.serialize()
+            off = logs[s].append(BytesContainer(raw))
+            store.shards[s].ingest(SomeData(BytesContainer(raw), off))
+            containers += 1
+    return logs, containers, len(keys), time.perf_counter() - t
+
+
+def _sorted_answer(res):
+    m = res.result
+    m.materialize()
+    keys = [str(k) for k in m.keys]
+    order = np.argsort(keys)
+    return [keys[i] for i in order], np.asarray(m.values)[order]
+
+
+def _paging_seconds(store) -> dict:
+    out = {"read": 0.0, "decode": 0.0, "encode": 0.0}
+    for sh in store.shards:
+        for k, v in sh.odp_cache.seconds.items():
+            out[k] += v
+    return out
+
+
+def restart_and_check(root, dataset, wal_root, queries, live, dev,
+                      engines=("mesh", "exec")):
+    """A new store on ``root`` and the logs under ``wal_root``: recover the
+    index, then replay each shard's log from its recovery start; then each
+    of ``queries`` on each engine, cold and warm, held bitwise against the
+    live store's answers ``live``."""
+    import torch
+
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.kafka.log import SegmentedFileLog
+
+    store = durable_store(root, dataset)
+    t = time.perf_counter()
+    keys = sum(store.recover_index(s) for s in range(store.num_shards))
+    index_s = time.perf_counter() - t
+    t = time.perf_counter()
+    records = 0
+    for s in range(store.num_shards):
+        log_ = SegmentedFileLog(str(Path(wal_root) / f"shard-{s}"))
+        start = store.recovery_start_offset(s)
+        for sd in log_.read_from(start):
+            records += len(sd.container)
+            store.shards[s].ingest(sd)
+        log_.close()
+    replay_s = time.perf_counter() - t
+    skipped = sum(sh.rows_skipped for sh in store.shards)
+    out = {"keys_restored": keys, "index_recovery_s": index_s,
+           "records_replayed": records, "records_skipped": skipped,
+           "replay_s": replay_s,
+           "replay_records_per_s": records / max(replay_s, 1e-9),
+           "queries": []}
+    start, end = T0_MS // 1000, DURABLE_END_S
+    for engine in engines:
+        svc = QueryService(store, device=dev, engine=engine)
+        for q in queries:
+            before = _paging_seconds(store)
+            paged0 = sum(sh.odp_cache.chunks_paged for sh in store.shards)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = svc.query_range(q, start, 60, end)
+            got = _sorted_answer(res)
+            cold = (time.perf_counter() - t) * 1000.0
+            warm = []
+            for _ in range(DURABLE_WARM):
+                t = time.perf_counter()
+                _sorted_answer(svc.query_range(q, start, 60, end))
+                warm.append((time.perf_counter() - t) * 1000.0)
+            want = live[(engine, q)]
+            if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
+                raise AssertionError(f"phase 11: {engine} {q} after the "
+                                     f"restart differs from the live store")
+            after = _paging_seconds(store)
+            split = {k: (after[k] - before[k]) * 1000.0 for k in after}
+            p50 = float(np.median(warm))
+            split["pack_upload"] = cold - sum(split.values()) - p50
+            split["kernels_and_rest"] = p50
+            paged = sum(sh.odp_cache.chunks_paged
+                        for sh in store.shards) - paged0
+            out["queries"].append({
+                "engine": engine, "query": q, "cold_ms": cold,
+                "warm_p50_ms": p50, "rows": len(got[0]),
+                "chunks_paged": paged, "cold_split_ms": split,
+                "served_by": res.stats.engine})
+            log(f"  {engine} {q}: cold {cold:.1f} ms (read "
+                f"{split['read']:.0f}, decode {split['decode']:.0f}, page "
+                f"encode {split['encode']:.0f}, pack and upload "
+                f"{split['pack_upload']:.0f}; {paged} chunks paged), warm "
+                f"p50 {p50:.2f} ms, {len(got[0])} rows, bitwise equal to "
+                f"the live store")
+        del svc
+    store.close()
+    return out
+
+
+def live_answers(store, queries, dev, engines=("mesh", "exec")) -> dict:
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+
+    out = {}
+    for engine in engines:
+        svc = QueryService(store, device=dev, engine=engine)
+        for q in queries:
+            out[(engine, q)] = _sorted_answer(svc.query_range(
+                q, T0_MS // 1000, 60, DURABLE_END_S))
+    return out
+
+
+def flush_half(store) -> int:
+    return sum(sh.flush_group(g) for sh in store.shards
+               for g in range(sh.config.groups_per_shard // 2))
+
+
+def chunk_infos_check(svc, store) -> dict:
+    """``chunk_infos`` of one series against the chunks the store wrote
+    for it."""
+    from filodb_tpu_torch.core.filters import ColumnFilter, Equals
+    from filodb_tpu_torch.memory.chunk import Chunk
+
+    shard = store.shards[0]
+    key = shard.keys[0]
+    filters = [ColumnFilter(k, Equals(v)) for k, v in key.labels]
+    lo, hi = T0_MS, DURABLE_END_S * 1000
+    infos = [i for i in svc.chunk_infos(filters, lo, hi)
+             if i["shard"] == 0 and i["partId"] == 0]
+    written = [Chunk.deserialize(d) for _, d in store.column_store
+               .read_chunk_rows(store.dataset, 0, [key.serialized], lo, hi)]
+    want = [(c.id, c.num_rows, c.start_time, c.end_time, c.nbytes)
+            for c in written]
+    got = [(i["chunkId"], i["numRows"], i["startTime"], i["endTime"],
+            i["numBytes"]) for i in infos]
+    if got != want or not got:
+        raise AssertionError(f"chunk_infos {got} != chunks written {want}")
+    log(f"  chunk_infos of {key}: {len(got)} chunks, equal to the chunks "
+        f"written ({[g[1] for g in got]} rows)")
+    return {"series": str(key), "chunks": len(got)}
+
+
+def durability_phase(dev, args) -> dict:
+    """Phase 11: a store of the phase-2 generator's first
+    ``args.durable_series`` series on a local-disk column store; flush, one
+    more scrape through the log, flush half the groups, ``chunk_infos``,
+    drop, restart, replay, and the queries bitwise against the live
+    answers; then the same for ``DURABLE_HIST_SERIES`` histograms; then
+    the clean-up."""
+    import gc
+    import shutil
+
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+
+    t_phase = time.perf_counter()
+    root = args.durable_dir
+    n_series = min(args.durable_series, args.series)
+    log(f"phase 11: durability (local-disk column store under {root})")
+    t = time.perf_counter()
+    store = durable_store(root, "timeseries")
+    ingest(store, n_series, args.samples, args.seed)
+    out = {"dir": root, "series": n_series,
+           "ingest_s": time.perf_counter() - t}
+    log(f"  ingest: {n_series} series of the phase-2 generator, "
+        f"{out['ingest_s']:.1f} s on the host")
+    svc = QueryService(store, device=dev)
+    keys, ts, vals = last_samples(store)
+    t = time.perf_counter()
+    written = store.flush_all()
+    flush_s = time.perf_counter() - t
+    nbytes = sum(int(sh._sealed.columns["nbytes"].sum())
+                 for sh in store.shards)
+    samples = n_series * args.samples
+    out["flush"] = {"chunks": written, "seconds": flush_s,
+                    "codec_bytes": nbytes,
+                    "codec_bytes_per_sample": nbytes / samples,
+                    "sqlite_bytes": dir_bytes(root)}
+    log(f"  flush: {written} chunks, {nbytes / samples:.3f} codec bytes a "
+        f"sample, {out['flush']['sqlite_bytes'] / 1e9:.3f} GB of sqlite on "
+        f"disk, {flush_s:.1f} s")
+    rng = np.random.default_rng([args.seed, 11])
+    logs, nc, nr, scrape_s = scrape_through_wal(
+        store, Path(root) / "wal", keys, ts + 10_000,
+        vals + rng.integers(0, 20, len(vals)))
+    for lg in logs.values():
+        lg.close()
+    half = flush_half(store)
+    log(f"  scrape through the WAL: {nr} records in {nc} containers, "
+        f"{scrape_s:.1f} s; half the groups flushed ({half} chunks)")
+    live = live_answers(store, DURABLE_QUERIES, dev)
+    out["chunk_infos"] = chunk_infos_check(svc, store)
+    store.close()
+    del svc, store, keys, ts, vals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _build.reset_counts()
+    log("  restart:")
+    out.update(restart_and_check(root, "timeseries", Path(root) / "wal",
+                                 DURABLE_QUERIES, live, dev))
+    log(f"  restored {out['keys_restored']} keys in "
+        f"{out['index_recovery_s']:.1f} s; replayed "
+        f"{out['records_replayed']} records ({out['records_skipped']} below "
+        f"a watermark) in {out['replay_s']:.1f} s, "
+        f"{out['replay_records_per_s']:.0f} records/s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["histograms"] = durable_histograms(args, dev, Path(root))
+    launches = dict(_build.LAUNCHES)
+    out["launches"] = launches
+    log(f"  launches in phase 11: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing and dev.type == "cuda":
+        raise AssertionError(f"phase 11: kernels not launched: {missing}")
+    freed = dir_bytes(root)
+    shutil.rmtree(root)
+    out["bytes_freed"] = freed
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  removed {root}: {freed / 1e9:.3f} GB freed; phase 11 took "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def durable_histograms(args, dev, root: Path) -> dict:
+    """Phase 11's histograms: ``DURABLE_HIST_SERIES`` series of phase 8's
+    generator in App-0..App-9, ingested, flushed, one more scrape of
+    histogram containers through the log, half the groups flushed, dropped,
+    restarted; ``DURABLE_HIST`` bitwise against the live store."""
+    import gc
+
+    rng = np.random.default_rng([args.seed, 11, 8])
+    labels, ts, counts, sums, cnts = make_hist_series(
+        rng, 0, DURABLE_HIST_SERIES, args.samples)
+    for i, lb in enumerate(labels):
+        lb["_ns_"] = f"App-{i % 10}"
+    store = durable_store(str(root), "histograms")
+    t = time.perf_counter()
+    store.ingest_histograms(labels, ts, counts, DEF_BUCKETS, sums=sums,
+                            counts=cnts)
+    ingest_s = time.perf_counter() - t
+    keys, lts, slots = last_samples(store)
+    t = time.perf_counter()
+    written = store.flush_all()
+    flush_s = time.perf_counter() - t
+    obs = rng.integers(0, _OBS_HIGH + 1, (len(keys), len(_OBS_HIGH)))
+    cols = slots[:, -2:].view(np.float64)
+    new = np.concatenate([slots[:, :-2] + np.cumsum(obs, axis=1),
+                          np.stack([cols[:, 0] + obs @ _BUCKET_MIDS,
+                                    cols[:, 1] + obs.sum(1)], 1)], axis=1)
+    logs, nc, nr, scrape_s = scrape_through_wal(
+        store, root / "wal-h", keys, lts + 10_000, new, les=DEF_BUCKETS)
+    for lg in logs.values():
+        lg.close()
+    flush_half(store)
+    live = live_answers(store, [DURABLE_HIST], dev)
+    store.close()
+    del store
+    gc.collect()
+    log(f"  histograms: {len(keys)} series ingested in {ingest_s:.1f} s, "
+        f"{written} chunks flushed in {flush_s:.1f} s, {nr} histogram "
+        f"records through the WAL in {scrape_s:.1f} s; restart:")
+    out = restart_and_check(str(root), "histograms", root / "wal-h",
+                            [DURABLE_HIST], live, dev)
+    out.update(ingest_s=ingest_s, flush_s=flush_s, chunks=written)
+    return out
+
+
 def run(dev, args):
     """Phases 2-5 on ``dev``; returns the kernels' numbers and the
     phase-2 store's service (phase 7 queries it again)."""
@@ -1870,6 +2241,10 @@ def main() -> int:
     ap.add_argument("--exec-only", action="store_true",
                     help="build, ingest the phase-2 store and run phase 10 "
                     "only (the exec engine against the mesh engine)")
+    ap.add_argument("--durable-series", type=int, default=DURABLE_SERIES)
+    ap.add_argument("--durability-only", action="store_true",
+                    help="build and run phase 11 only (its own store: "
+                    "flush, WAL, restart, paged queries)")
     args = ap.parse_args()
 
     import torch
@@ -1892,6 +2267,23 @@ def main() -> int:
         f", CUDA {torch.version.cuda}")
     log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
         f"process a source)")
+    t = time.perf_counter()
+    _build.host_library()
+    log(f"  host codec: {time.perf_counter() - t:.1f} s (g++)")
+    args.durable_dir = tempfile.mkdtemp(prefix="filodb-durable-")
+    free = shutil.disk_usage(args.durable_dir).free
+    log(f"  phase 11's store directory {args.durable_dir}: "
+        f"{free / 1e9:.1f} GB free")
+    try:
+        return _phases(args, smi)
+    finally:
+        shutil.rmtree(args.durable_dir, ignore_errors=True)
+
+
+def _phases(args, smi) -> int:
+    import torch
+
+    from filodb_tpu_torch import _build
     if args.exec_only:
         from filodb_tpu_torch.coordinator.query_service import QueryService
         from filodb_tpu_torch.core.memstore.memstore import MemStore
@@ -1900,6 +2292,11 @@ def main() -> int:
         ingest(store, args.series, args.samples, args.seed)
         print(json.dumps({"exec": exec_phase(QueryService(
             store, device=torch.device("cuda")), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
+    if args.durability_only:
+        print(json.dumps({"durability": durability_phase(
+            torch.device("cuda"), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     kernels, svc = run(torch.device("cuda"), args)
@@ -1915,6 +2312,9 @@ def main() -> int:
     print(json.dumps({"plan_shapes": shapes}))
     del svc
     torch.cuda.empty_cache()
+    durable = durability_phase(torch.device("cuda"), args)
+    print(json.dumps({"durability": durable}))
+    torch.cuda.empty_cache()
     hist = histogram_phase(torch.device("cuda"), args, reps=5)
     print(json.dumps({"histograms": hist}))
     for kern in kernels:
@@ -1922,6 +2322,7 @@ def main() -> int:
         kern["launches_phase8"] = hist["launches"][kern["name"]]
         kern["launches_phase9"] = shapes["launches"][kern["name"]]
         kern["launches_phase10"] = exec10["launches"][kern["name"]]
+        kern["launches_phase11"] = durable["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA kernels, and count their launches.
+"""Build and load the hand-written CUDA kernels and the host codec, and
+count the kernels' launches.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (``build/kernels/lib<name>-<hash>.so``,
@@ -10,6 +11,11 @@ import every module and have no ``nvcc``.
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code. Launch counts are plain integers in
 ``LAUNCHES``, added to by each wrapper where it launches its kernel.
+
+The host codec of the write path, ``csrc/hostcodec.cpp`` (NibblePack, the
+chunk vectors, the record-container scan), compiles with ``g++`` into the
+same directory on its first use (``host_library``), on any machine. A
+failed build raises: nothing falls back to the Python twins.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -32,7 +39,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: dict[str, int] = {"decode_ts_page": 0, "decode_f32_page": 0,
                             "fused_decode_rate": 0, "windowed_sum": 0}
 
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+
 _libs: dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 
 
 def count(name: str) -> None:
@@ -124,3 +134,47 @@ def check(name: str, rc: int) -> None:
         msg = library(name).filodb_error_string(rc).decode()
         raise RuntimeError(f"CUDA kernel launch in {name} failed: {msg} "
                            f"(error {rc})")
+
+
+def _host_target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes()
+                            + " ".join(HOST_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def host_library(name: str = "hostcodec") -> ctypes.CDLL:
+    """The host C++ library ``csrc/<name>.cpp``, built with ``g++`` on
+    first use. Raises if it does not build."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _host_lock:
+        return _libs.get(name) or _build_host(name)
+
+
+def _build_host(name: str) -> ctypes.CDLL:
+    out = _host_target(name)
+    if not out.exists():
+        cxx = shutil.which("g++") or shutil.which("c++")
+        if cxx is None:
+            raise RuntimeError(f"no C++ compiler (g++) to build {name}")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
+                               str(CSRC / f"{name}.cpp")],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n"
+                               f"{proc.stderr[-4000:]}")
+        tmp.replace(out)
+    lib = _libs[name] = ctypes.CDLL(str(out))
+    return lib
+
+
+def host_fn(fn: str, nargs: int):
+    """An entry point of the host codec taking ``nargs`` 64-bit arguments
+    (pointers and sizes) and returning a 64-bit integer."""
+    f = getattr(host_library(), fn)
+    f.argtypes = [ctypes.c_void_p] * nargs
+    f.restype = ctypes.c_int64
+    return f

@@ -4,7 +4,8 @@ Port of the query and metadata paths of
 ``filodb_tpu/coordinator/query_service.py``: ``query_range`` and
 ``query_instant`` (steps ``(t, 0, t)``) parse, run on one of the two
 engines and materialize; ``label_names``, ``label_values`` and ``series``
-answer from the shards' part-key indexes, on the host. A range answer's
+answer from the shards' part-key indexes, and ``chunk_infos`` from their
+chunk tables, on the host. A range answer's
 ``StepMatrix`` renders with ``http.promjson.matrix_json``, an instant one
 with ``vector_json`` or, for a scalar expression, ``scalar_json``.
 
@@ -119,6 +120,22 @@ class QueryService:
         """The values of one label, among the series ``filters`` (column
         filters) select if given, sorted (``/api/v1/label/<l>/values``)."""
         return self.memstore.label_values(label, filters)
+
+    def chunk_infos(self, filters, start_ms: int, end_ms: int,
+                    include_buffer: bool = False) -> list[dict]:
+        """The resident chunks of the series the filters select over
+        [start, end] (and their write buffers with ``include_buffer``),
+        shard by shard (the reference's ``SelectChunkInfosExec``)."""
+        out = []
+        for shard in self.memstore.shards:
+            pids = shard.lookup_partitions(list(filters), start_ms, end_ms)
+            for pid, cid, rows, t0, t1, nbytes in shard.chunk_infos(
+                    pids, start_ms, end_ms, include_buffer):
+                out.append({"shard": shard.shard_num, "partId": pid,
+                            "partKey": str(shard.keys[pid]), "chunkId": cid,
+                            "numRows": rows, "startTime": t0, "endTime": t1,
+                            "numBytes": nbytes})
+        return out
 
     def series(self, filters, start_sec: int, end_sec: int) -> list[dict]:
         """The label maps of the series the filters select over [start,

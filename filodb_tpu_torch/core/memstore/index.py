@@ -89,6 +89,15 @@ class PartKeyIndex:
             self._labels[k].vid[first_pid : first_pid + n] = out
         self._n += n
 
+    def start_times(self, pids: np.ndarray) -> np.ndarray:
+        return self._start[pids]
+
+    def end_times(self, pids: np.ndarray) -> np.ndarray:
+        return self._end[pids]
+
+    def set_end_times(self, pids: np.ndarray, end_times) -> None:
+        self._end[pids] = end_times
+
     def _matches(self, f: ColumnFilter) -> np.ndarray:
         """bool [n]: partitions the filter keeps."""
         n = self._n

@@ -13,13 +13,35 @@ rounds; ``ingest_histograms`` does the same for ``prom-histogram`` series
 with cumulative bucket counts [N, T, B] under one bucket scheme, and each
 sample's ``sum`` and ``count`` (the schema's other two columns). It is host
 code; the device sees only the sealed pages.
+
+Durability (``TimeSeriesMemStore``'s streams): the store is built on a
+column store and a meta store (in-memory ones by default;
+``core/store/localstore.py`` for disk). ``ingest_stream`` ingests a shard's
+containers from the log with a group flush every ``flush_stagger``
+containers; ``flush_all`` flushes every group of every shard;
+``recover_index`` and ``recovery_start_offset`` restore a restarted
+store's partitions and watermarks, and ``recover_stream`` replays the log
+from there.
 """
 
 from __future__ import annotations
 
+import time
+from collections.abc import Iterable, Iterator
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
-from filodb_tpu_torch.core.memstore.shard import Shard, hist_slots
+from filodb_tpu_torch.core.memstore.partition import hist_slots
+from filodb_tpu_torch.core.memstore.shard import Shard
+from filodb_tpu_torch.core.record import SomeData
+from filodb_tpu_torch.core.store.api import (
+    ColumnStore,
+    InMemoryColumnStore,
+    InMemoryMetaStore,
+    MetaStore,
+)
+from filodb_tpu_torch.core.store.config import StoreConfig
 from filodb_tpu_torch.core.partkey import (
     PartKey,
     ingestion_shard,
@@ -33,13 +55,34 @@ _INGEST_ROWS = 65536
 
 
 class MemStore:
+    """``num_shards`` shards of one dataset. ``max_chunk_size``, when given,
+    overrides the config's."""
+
     def __init__(self, num_shards: int = 4, spread: int = 1,
-                 max_chunk_size: int = 400):
+                 max_chunk_size: int | None = None,
+                 column_store: ColumnStore | None = None,
+                 meta_store: MetaStore | None = None,
+                 config: StoreConfig | None = None,
+                 dataset: str = "timeseries"):
         if num_shards & (num_shards - 1):
             raise ValueError("num_shards must be a power of 2")
         self.num_shards = num_shards
         self.spread = spread
-        self.shards = [Shard(s, max_chunk_size) for s in range(num_shards)]
+        config = config or StoreConfig()
+        if max_chunk_size is not None:
+            config = StoreConfig(**{**config.__dict__,
+                                    "max_chunk_size": max_chunk_size})
+        self.config = config
+        self.dataset = dataset
+        self.column_store = column_store or InMemoryColumnStore()
+        self.meta_store = meta_store or InMemoryMetaStore()
+        # open every shard's store connections here, before any flush
+        # thread does
+        self.column_store.initialize(dataset, num_shards)
+        for s in range(num_shards):
+            self.meta_store.read_checkpoints(dataset, s)
+        self.shards = [Shard(s, config, dataset, self.column_store,
+                             self.meta_store) for s in range(num_shards)]
         self._skh: dict[tuple, int] = {}
 
     @property
@@ -77,7 +120,7 @@ class MemStore:
             raise ValueError("ingest_series takes N label maps and [N, T] "
                              "timestamps and values")
         return self._routed(labels, ts, vals, lens, schema,
-                            lambda shard, *a: shard.ingest(*a))
+                            lambda shard, *a: shard.ingest_series(*a))
 
     def ingest_histograms(self, labels: list[dict], ts: np.ndarray,
                           buckets: np.ndarray, les: np.ndarray,
@@ -147,9 +190,60 @@ class MemStore:
         """Close one series' write buffer into a chunk now."""
         key = PartKey.create(schema, labels)
         shard = self.shards[int(self.shard_of([key])[0])]
-        pid = shard._by_key.get(key)
+        pid = shard._by_blob.get(key.serialized)
         if pid is not None:
             shard.seal(np.array([pid]))
+
+    # ---- the log, flush and recovery ---------------------------------------
+
+    def ingest_stream(self, shard: int, stream: Iterable[SomeData],
+                      flush_stagger: int | None = None) -> int:
+        """Ingest a shard's containers from the log, flushing the next
+        group (round robin) every ``flush_stagger`` containers. Returns the
+        samples kept."""
+        s = self.shards[shard]
+        total = since = 0
+        for data in stream:
+            total += s.ingest(data)
+            since += 1
+            if flush_stagger and since >= flush_stagger:
+                s.flush_group(s.next_flush_group())
+                since = 0
+        return total
+
+    def recover_stream(self, shard: int, stream: Iterable[SomeData],
+                       checkpoint_interval: int = 0) -> Iterator[int]:
+        """Replay a shard's log from its recovery start, yielding the offset
+        every ``checkpoint_interval`` containers and the latest at the
+        end."""
+        s = self.shards[shard]
+        n = 0
+        for data in stream:
+            s.ingest(data)
+            n += 1
+            if checkpoint_interval and n % checkpoint_interval == 0:
+                yield data.offset
+        yield s.latest_offset
+
+    def recover_index(self, shard: int) -> int:
+        return self.shards[shard].recover_index()
+
+    def recovery_start_offset(self, shard: int) -> int:
+        return self.shards[shard].setup_watermarks_for_recovery()
+
+    def flush_all(self, ingestion_time: int | None = None) -> int:
+        """Flush every group of every shard, ``flush_task_parallelism``
+        shards at once. Returns the chunks written."""
+        now = int(time.time() * 1000) if ingestion_time is None \
+            else ingestion_time
+        with ThreadPoolExecutor(max(self.config.flush_task_parallelism,
+                                    1)) as pool:
+            return sum(pool.map(lambda s: s.flush_all(now), self.shards))
+
+    def close(self) -> None:
+        """Close the column store and the meta store."""
+        self.column_store.close()
+        self.meta_store.close()
 
     def label_names(self) -> list[str]:
         """Label names over every shard, sorted (the reference's

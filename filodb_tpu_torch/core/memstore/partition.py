@@ -23,11 +23,36 @@ bucket count: cumulative counts int64 [rows, max_chunk_size, B]
 that bucket count only. A series whose bucket count
 changes seals its buffer first, as the reference's partition does
 (``TimeSeriesPartition.ingest``); the shard decides that.
+
+A sealed chunk lives in a ``ChunkTable``: its device pages (encoded once,
+on a thread pool: ``encode_pages``) and, until its flush group is written
+to the column store, its codec chunk (``memory/chunk.py``, encoded from
+the same float64 rows: the pages hold float32 values, which cannot be
+decoded back to what the store must keep). An evicted chunk is marked dead
+and its pages go at the table's next compaction.
 """
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+
+from filodb_tpu_torch.memory.chunk import ChunkBytes
+from filodb_tpu_torch.query.engine.device_batch import (
+    HistPageBlocks,
+    PageBlocks,
+    chunk_blocks,
+    hist_chunk_blocks,
+)
+
+# encode at most this many series' chunks per worker task, on this many
+# threads (the card's host has 8 cores)
+_ENCODE_ROWS = 4096
+_ENCODE_WORKERS = 8
+# the value columns a histogram sample carries beside its buckets
+HIST_COLUMNS = ("sum", "count")
+_NCOL = len(HIST_COLUMNS)
 
 
 def _along(idx: np.ndarray, a: np.ndarray) -> np.ndarray:
@@ -157,3 +182,166 @@ class WriteBuffers:
                self.vals[rows].copy(), self.n[rows].copy())
         self.n[rows] = 0
         return out
+
+
+def hist_slots(counts: np.ndarray, sums, cnts) -> np.ndarray:
+    """Histogram samples as one int64 [N, T, B + 2] array: the B cumulative
+    bucket counts, then the float64 bit patterns of the sample's sum and
+    count (NaN where not given), so that out-of-order drops and buffer
+    appends move all three with their sample."""
+    N, T = counts.shape[:2]
+    cols = [np.full((N, T), np.nan) if c is None
+            else np.asarray(c, np.float64).reshape(N, T)
+            for c in (sums, cnts)]
+    return np.concatenate([counts] + [np.ascontiguousarray(c).view(
+        np.int64)[:, :, None] for c in cols], axis=2)
+
+
+def slot_columns(slots: np.ndarray) -> np.ndarray:
+    """The sum and count columns of histogram slots [..., B + 2] as float64
+    [..., 2]."""
+    return slots[..., -_NCOL:].view(np.float64)
+
+
+def abs_max_finite(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Per row, the largest |value| among the first ``rows`` finite ones."""
+    live = (np.arange(vals.shape[1])[None, :] < rows[:, None]) \
+        & np.isfinite(vals)
+    return np.where(live, np.abs(vals), 0.0).max(axis=1, initial=0.0)
+
+
+def encode_pages(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
+                 take: np.ndarray | None = None):
+    """Device pages of many chunks (rows of samples, or of the rows
+    ``take`` of the arrays): → (PageBlocks or HistPageBlocks, blocks a
+    chunk). Values [C, T] give scalar pages, histogram slots [C, T, B + 2]
+    (``hist_slots``) histogram pages. Large batches encode on a thread pool
+    (numpy releases the interpreter lock inside its loops)."""
+    n = len(rows) if take is None else len(take)
+    hist = vals.ndim == 3
+    step = max(1, _ENCODE_ROWS // (vals.shape[2] + 1)) if hist \
+        else _ENCODE_ROWS
+    spans = [(i, min(i + step, n)) for i in range(0, n, step)]
+
+    def one(span):
+        idx = slice(*span) if take is None else take[span[0]:span[1]]
+        if hist:
+            tb, cb, rb, per = hist_chunk_blocks(ts[idx], vals[idx],
+                                                rows[idx])
+            cols = cb[:, -_NCOL:].view(np.float64)
+            return HistPageBlocks.encode(tb, cb[:, :-_NCOL], rb, cols), per
+        tb, vb, rb, per = chunk_blocks(ts[idx], vals[idx], rows[idx])
+        return PageBlocks.encode(tb, vb, rb), per
+
+    if len(spans) > 1:
+        with ThreadPoolExecutor(min(_ENCODE_WORKERS, len(spans))) as pool:
+            parts = list(pool.map(one, spans))
+    else:
+        parts = [one(s) for s in spans]
+    if not parts:
+        return None, np.zeros(0, np.int64)
+    table = HistPageBlocks if hist else PageBlocks
+    return (table.concat([p for p, _ in parts]),
+            np.concatenate([per for _, per in parts]))
+
+
+def expand(first: np.ndarray, count: np.ndarray) -> np.ndarray:
+    """Concatenated ranges first[i] .. first[i] + count[i] - 1."""
+    count = count.astype(np.int64)
+    before = np.cumsum(count) - count
+    return np.repeat(first - before, count) + np.arange(int(count.sum()))
+
+
+class ChunkTable:
+    """Chunks of one kind (scalar or histogram): their page tables, one a
+    sealing, and one row a chunk in ``columns``: pid, seq, cid (the chunk
+    id), blk0 and nblk (the chunk's blocks among all the tables' blocks),
+    rows, t0, t1, nbytes (its codec vectors' length), dead (evicted: its
+    pages go at the next ``compact``), cbatch, cidx and pending (its codec
+    chunk, ``codec[cbatch]``'s chunk ``cidx``, awaits its flush), and the
+    kind's own columns ``extra``."""
+
+    def __init__(self, *extra: str):
+        self.names = ("pid", "seq", "cid", "blk0", "nblk", "rows", "t0", "t1",
+                      "nbytes", "dead", "cbatch", "cidx", "pending", *extra)
+        self.pages: list = []
+        self.offsets: list[int] = [0]
+        self.codec: dict[int, ChunkBytes] = {}
+        self._batches = 0
+        self._cols: list[dict] = []
+        self._columns: dict | None = None
+
+    def add(self, pages, per: np.ndarray, codec: ChunkBytes | None,
+            **cols) -> None:
+        n = len(per)
+        blk0 = self.offsets[-1] + np.cumsum(per) - per
+        batch = -1
+        if codec is not None:
+            batch = self._batches
+            self.codec[batch] = codec
+            self._batches += 1
+        self.pages.append(pages)
+        self.offsets.append(self.offsets[-1] + len(pages))
+        self._cols.append(dict(
+            blk0=blk0.astype(np.int64), nblk=per, dead=np.zeros(n, bool),
+            cbatch=np.full(n, batch, np.int64), cidx=np.arange(n),
+            pending=np.full(n, codec is not None),
+            nbytes=codec.nbytes if codec is not None
+            else np.zeros(n, np.int64), **cols))
+        self._columns = None
+
+    @property
+    def columns(self) -> dict:
+        """Every chunk's columns; writable in place (dead, pending)."""
+        if self._columns is None:
+            self._columns = {
+                n: np.concatenate([c[n] for c in self._cols]) if self._cols
+                else np.zeros(0, bool if n in ("dead", "pending")
+                              else np.int64) for n in self.names}
+            self._cols = [self._columns]
+        return self._columns
+
+    def live(self) -> np.ndarray:
+        return np.flatnonzero(~self.columns["dead"])
+
+    def codec_rows(self, idx: np.ndarray) -> list[memoryview]:
+        """The serialized codec chunks of chunks ``idx`` (pending ones)."""
+        col = self.columns
+        return [self.codec[b].data(i) for b, i in
+                zip(col["cbatch"][idx].tolist(), col["cidx"][idx].tolist())]
+
+    def flushed(self, idx: np.ndarray) -> None:
+        """Chunks ``idx`` are in the column store: drop their codec chunks.
+        A codec buffer goes when none of its chunks is pending, and is
+        copied down to the pending ones once they hold under half of it."""
+        col = self.columns
+        col["pending"][idx] = False
+        for b in np.unique(col["cbatch"][idx]).tolist():
+            mine = np.flatnonzero((col["cbatch"] == b) & col["pending"])
+            cb = self.codec[b]
+            if not len(mine):
+                del self.codec[b]
+                continue
+            keep = col["cidx"][mine]
+            if 2 * int((cb.ends[keep] - cb.starts[keep]).sum()) \
+                    < len(cb.buf):
+                self.codec[b] = cb.take(keep).copy()
+                col["cidx"][mine] = np.arange(len(mine))
+
+    def compact(self) -> None:
+        """Drop the dead chunks' rows and pages."""
+        col = self.columns
+        keep = np.flatnonzero(~col["dead"])
+        if len(keep) == len(col["dead"]):
+            return
+        blocks = expand(col["blk0"][keep], col["nblk"][keep])
+        offsets = np.asarray(self.offsets)
+        seg = np.searchsorted(offsets, blocks, side="right") - 1
+        parts = [self.pages[s].take(blocks[seg == s] - offsets[s])
+                 for s in np.unique(seg).tolist()]
+        self._columns = {n: col[n][keep] for n in self.names}
+        self._cols = [self._columns]
+        nblk = self._columns["nblk"]
+        self._columns["blk0"] = (np.cumsum(nblk) - nblk).astype(np.int64)
+        self.pages = [type(parts[0]).concat(parts)] if parts else []
+        self.offsets = [0, int(nblk.sum())] if parts else [0]

@@ -1,167 +1,106 @@
-"""One shard of the in-memory store: partitions, their sealed chunks with
-device pages, and the selection of page blocks for a query.
+"""One shard of the store: partitions, their sealed chunks with device
+pages, the write path to the column store, recovery, and the selection of
+page blocks for a query.
 
-Port of the parts of ``filodb_tpu/core/memstore/shard.py`` this slice runs:
-partition creation (ids in creation order), columnar ingest, index lookup
-with the time-range predicate, and the chunk selection of
-``device_batch._query_chunks`` (chunks overlapping the range, then the
-write buffer). A sealed chunk keeps its device pages, encoded once at seal
-time (the reference's ``StoreConfig.device_pages=True``); the write buffers
-are encoded when a query first needs them and kept until the shard next
-ingests. NibblePack chunks, the WAL, flush and the column store are not
-part of the port.
+Port of ``filodb_tpu/core/memstore/shard.py``: partition creation (ids in
+creation order), columnar ingest (``ingest_series``) and container ingest
+from the log (``ingest``: records grouped per series, then the same
+vectorised append), index lookup with the time-range predicate, and the
+chunk selection of ``device_batch._query_chunks`` (resident and paged
+chunks overlapping the range in chunk-id order, then the write buffer). A
+sealed chunk keeps its device pages, encoded once at seal time (the
+reference's ``StoreConfig.device_pages=True``), and its codec chunk until
+its group flushes; the write buffers are encoded when a query first needs
+them and kept until the shard next ingests.
+
+The write path, as the reference's: a partition belongs to flush group
+``part_hash % groups_per_shard``. A container's records at or below their
+group's watermark are skipped (replay after a restart).
+``flush_group`` captures the checkpoint offset first, seals the group's
+write buffers, writes its pending codec chunks and dirty part keys, then
+the checkpoint. ``recover_index`` restores partitions from the part-key
+table with their out-of-order floor at their largest persisted timestamp;
+``setup_watermarks_for_recovery`` loads the checkpoints and returns where
+replay starts. Columnar ingest has no log offset: it counts as offset -1,
+checks no watermark and moves no offset, so one store takes both kinds.
+``evict_partition_chunks`` drops flushed chunks from memory; a query pages
+them back in (``core/memstore/odp.py``).
 
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
 (``HistPageBlocks``, as the reference's ``_hist_pages``) and a float32 XOR
-value page of each of the schema's ``sum`` and ``count`` columns (the
-reference's ``encode_f32_page`` of the column), beside the bucket pages and
-over the same timestamp page. Each chunk records its bucket scheme
-(``les``) as the partition held it at seal time. A column selector
-(``h::sum``) selects those value pages as a scalar series
+value page of each of the schema's ``sum`` and ``count`` columns, beside
+the bucket pages and over the same timestamp page. Each chunk records its
+bucket scheme (``les``) as the partition held it at seal time. A column
+selector (``h::sum``) selects those value pages as a scalar series
 (``select_blocks(..., column="sum")``).
 """
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
+import time
 
 import numpy as np
 
+from filodb_tpu_torch.core.memstore import odp
 from filodb_tpu_torch.core.memstore.index import PartKeyIndex
 from filodb_tpu_torch.core.memstore.partition import (
+    HIST_COLUMNS,
+    ChunkTable,
     WriteBuffers,
+    abs_max_finite,
     drop_out_of_order,
+    encode_pages,
+    expand,
+    hist_slots,
+    slot_columns,
 )
-from filodb_tpu_torch.core.partkey import PartKey
+from filodb_tpu_torch.core.partkey import PartKey, murmur3_32_many
+from filodb_tpu_torch.core.record import (
+    SCHEMA_NAMES,
+    SomeData,
+    parse_container,
+)
 from filodb_tpu_torch.core.schemas import SCHEMAS
-from filodb_tpu_torch.query.engine.device_batch import (
-    HistPageBlocks,
-    PageBlocks,
-    chunk_blocks,
-    hist_chunk_blocks,
+from filodb_tpu_torch.core.store.api import (
+    ColumnStore,
+    InMemoryMetaStore,
+    MetaStore,
+    NullColumnStore,
+    PartKeyRecord,
+    pk_from_blob,
 )
+from filodb_tpu_torch.core.store.config import StoreConfig
+from filodb_tpu_torch.memory.chunk import chunk_ids, encode_chunks
 
-# encode at most this many series' chunks per worker task, on this many
-# threads (the card's host has 8 cores)
-_ENCODE_ROWS = 4096
-_ENCODE_WORKERS = 8
-SCHEMA_NAMES = tuple(SCHEMAS)  # a partition's schema, by index
-# the value columns a histogram sample carries beside its buckets
-HIST_COLUMNS = ("sum", "count")
 _NCOL = len(HIST_COLUMNS)
-
-
-def hist_slots(counts: np.ndarray, sums, cnts) -> np.ndarray:
-    """Histogram samples as one int64 [N, T, B + 2] array: the B cumulative
-    bucket counts, then the float64 bit patterns of the sample's sum and
-    count (NaN where not given), so that out-of-order drops and buffer
-    appends move all three with their sample."""
-    N, T = counts.shape[:2]
-    cols = [np.full((N, T), np.nan) if c is None
-            else np.asarray(c, np.float64).reshape(N, T)
-            for c in (sums, cnts)]
-    return np.concatenate([counts] + [np.ascontiguousarray(c).view(
-        np.int64)[:, :, None] for c in cols], axis=2)
-
-
-def slot_columns(slots: np.ndarray) -> np.ndarray:
-    """The sum and count columns of histogram slots [..., B + 2] as float64
-    [..., 2]."""
-    return slots[..., -_NCOL:].view(np.float64)
-
-
-def _abs_max_finite(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
-    """Per row, the largest |value| among the first ``rows`` finite ones."""
-    live = (np.arange(vals.shape[1])[None, :] < rows[:, None]) \
-        & np.isfinite(vals)
-    return np.where(live, np.abs(vals), 0.0).max(axis=1, initial=0.0)
-
-
-def encode_chunks(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
-                  take: np.ndarray | None = None):
-    """Device pages of many chunks (rows of samples, or of the rows
-    ``take`` of the arrays): → (PageBlocks or HistPageBlocks, blocks a
-    chunk). Values [C, T] give scalar pages, histogram slots [C, T, B + 2]
-    (``hist_slots``) histogram pages. Large batches encode on a thread pool
-    (numpy releases the interpreter lock inside its loops)."""
-    n = len(rows) if take is None else len(take)
-    hist = vals.ndim == 3
-    step = max(1, _ENCODE_ROWS // (vals.shape[2] + 1)) if hist \
-        else _ENCODE_ROWS
-    spans = [(i, min(i + step, n)) for i in range(0, n, step)]
-
-    def one(span):
-        idx = slice(*span) if take is None else take[span[0]:span[1]]
-        if hist:
-            tb, cb, rb, per = hist_chunk_blocks(ts[idx], vals[idx],
-                                                rows[idx])
-            cols = cb[:, -_NCOL:].view(np.float64)
-            return HistPageBlocks.encode(tb, cb[:, :-_NCOL], rb, cols), per
-        tb, vb, rb, per = chunk_blocks(ts[idx], vals[idx], rows[idx])
-        return PageBlocks.encode(tb, vb, rb), per
-
-    if len(spans) > 1:
-        with ThreadPoolExecutor(min(_ENCODE_WORKERS, len(spans))) as pool:
-            parts = list(pool.map(one, spans))
-    else:
-        parts = [one(s) for s in spans]
-    if not parts:
-        return None, np.zeros(0, np.int64)
-    table = HistPageBlocks if hist else PageBlocks
-    return (table.concat([p for p, _ in parts]),
-            np.concatenate([per for _, per in parts]))
-
-
-def _expand(first: np.ndarray, count: np.ndarray) -> np.ndarray:
-    """Concatenated ranges first[i] .. first[i] + count[i] - 1."""
-    count = count.astype(np.int64)
-    before = np.cumsum(count) - count
-    return np.repeat(first - before, count) + np.arange(int(count.sum()))
-
-
-class ChunkTable:
-    """Sealed chunks of one kind (scalar or histogram): their page tables,
-    one a sealing, and one row a chunk in ``columns`` (pid, seq, blk0 and
-    nblk: the chunk's blocks among all the tables' blocks, rows, t0, t1,
-    and the kind's own columns ``extra``)."""
-
-    def __init__(self, *extra: str):
-        self.names = ("pid", "seq", "blk0", "nblk", "rows", "t0", "t1",
-                      *extra)
-        self.pages: list = []
-        self.offsets: list[int] = [0]
-        self._cols: list[dict] = []
-        self._columns: dict | None = None
-
-    def add(self, pages, per: np.ndarray, **cols) -> None:
-        blk0 = self.offsets[-1] + np.concatenate([[0], np.cumsum(per)[:-1]])
-        self.pages.append(pages)
-        self.offsets.append(self.offsets[-1] + len(pages))
-        self._cols.append(dict(blk0=blk0, nblk=per, **cols))
-        self._columns = None
-
-    @property
-    def columns(self) -> dict:
-        if self._columns is None:
-            self._columns = {
-                n: np.concatenate([c[n] for c in self._cols]) if self._cols
-                else np.zeros(0, np.int64) for n in self.names}
-        return self._columns
+_NO_TS = np.iinfo(np.int64).max
 
 
 class Shard:
-    def __init__(self, shard_num: int, max_chunk_size: int = 400):
+    def __init__(self, shard_num: int, config: StoreConfig | None = None,
+                 dataset: str = "timeseries",
+                 column_store: ColumnStore | None = None,
+                 meta_store: MetaStore | None = None):
         self.shard_num = shard_num
-        self.max_chunk_size = max_chunk_size
+        self.config = config or StoreConfig()
+        self.max_chunk_size = self.config.max_chunk_size
+        self.dataset = dataset
+        self.column_store = column_store or NullColumnStore()
+        self.meta_store = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()
         self.keys: list[PartKey] = []
-        self._by_key: dict[PartKey, int] = {}
-        self.buffers = WriteBuffers(max_chunk_size)
+        self._by_blob: dict[bytes, int] = {}  # PartKey.serialized → pid
+        self.buffers = WriteBuffers(self.max_chunk_size)
+        # per partition: latest timestamp (the out-of-order floor), next
+        # chunk sequence, schema (index into SCHEMA_NAMES), flush group,
+        # part key not yet written to the column store
         self.latest = np.zeros(0, np.int64)
-        self.schema_of = np.zeros(0, np.int8)  # index into SCHEMA_NAMES
-        self._seq = np.zeros(0, np.int64)  # next chunk sequence a partition
+        self._seq = np.zeros(0, np.int64)
+        self.schema_of = np.zeros(0, np.int8)
+        self.group = np.zeros(0, np.int64)
+        self._dirty = np.zeros(0, bool)
         self._sealed = ChunkTable("vmax")  # largest finite |value| a chunk
         self.version = 0
         self._buffer_pages = None  # (version, buffer_pages() dict)
@@ -178,55 +117,104 @@ class Shard:
         # count columns
         self._hist_sealed = ChunkTable("les", "vmax_sum", "vmax_count")
         self._hist_buffer_pages = None  # (version, [per bucket count])
+        # write path: per-group watermarks (replayed records at or below
+        # are skipped), the highest log offset ingested, and the largest
+        # persisted timestamp of each part key found at recovery, which
+        # seeds the floor of a partition that replay creates
+        self.group_watermarks = np.full(self.config.groups_per_shard, -1,
+                                        np.int64)
+        self._ingested_offset = -1
+        self._last_flushed_group = -1
+        self._persisted_floors: dict[bytes, int] = {}
+        self.rows_skipped = 0  # replayed records below their watermark
+        self.odp_cache = odp.DemandPagedChunkCache()
+        self._earliest = None  # (version, earliest_in_memory())
 
     @property
     def num_partitions(self) -> int:
         return len(self.keys)
 
-    # ---- ingest ------------------------------------------------------------
+    # ---- partitions --------------------------------------------------------
+
+    def _grow(self, n: int) -> None:
+        cap = len(self.latest)
+        if n <= cap:
+            return
+        grow = max(n, 2 * cap, 1024) - cap
+
+        def more(a, fill):
+            return np.concatenate([a, np.full(grow, fill, a.dtype)])
+
+        self.latest = more(self.latest, -1)
+        self._seq = more(self._seq, 0)
+        self.schema_of = more(self.schema_of, 0)
+        self.group = more(self.group, 0)
+        self._dirty = more(self._dirty, False)
+        self.hist = more(self.hist, False)
+        self._width = more(self._width, 0)
+        self._les_id = more(self._les_id, -1)
+
+    def _create(self, keys: list[PartKey], first_ts: np.ndarray) -> np.ndarray:
+        """New partitions of distinct new ``keys`` with their first sample
+        times: ids in order, dirty, floors from the persisted ones."""
+        base = len(self.keys)
+        n = base + len(keys)
+        blobs = [k.serialized for k in keys]
+        self._grow(n)
+        self.keys.extend(keys)
+        self._by_blob.update(zip(blobs, range(base, n)))
+        schema = np.array([SCHEMA_NAMES.index(k.schema) for k in keys],
+                          np.int8)
+        self.schema_of[base:n] = schema
+        self.hist[base:n] = [SCHEMAS[k.schema].is_histogram for k in keys]
+        self.group[base:n] = murmur3_32_many(blobs).astype(np.int64) \
+            % self.config.groups_per_shard
+        self._dirty[base:n] = True
+        if self._persisted_floors:
+            self.latest[base:n] = [self._persisted_floors.get(b, -1)
+                                   for b in blobs]
+        self.index.add_part_keys(base, [k.labels for k in keys],
+                                 np.asarray(first_ts, np.int64))
+        return np.arange(base, n)
 
     def _partitions_for(self, keys: list[PartKey],
                         first_ts: np.ndarray) -> np.ndarray:
-        pids = np.empty(len(keys), np.int64)
-        new_keys, new_first = [], []
-        for i, k in enumerate(keys):
-            pid = self._by_key.get(k)
-            if pid is None:
-                pid = self._by_key[k] = len(self.keys) + len(new_keys)
-                new_keys.append(k)
-                new_first.append(first_ts[i])
-            pids[i] = pid
-        if new_keys:
-            base = len(self.keys)
-            self.keys.extend(new_keys)
-            n = len(self.keys)
-            if n > len(self.latest):
-                grow = max(n, 2 * len(self.latest), 1024) - len(self.latest)
-                self.latest = np.concatenate(
-                    [self.latest, np.full(grow, -1, np.int64)])
-                self._seq = np.concatenate(
-                    [self._seq, np.zeros(grow, np.int64)])
-                self.schema_of = np.concatenate(
-                    [self.schema_of, np.zeros(grow, np.int8)])
-                self.hist = np.concatenate([self.hist, np.zeros(grow, bool)])
-                self._width = np.concatenate(
-                    [self._width, np.zeros(grow, np.int64)])
-                self._les_id = np.concatenate(
-                    [self._les_id, np.full(grow, -1, np.int64)])
-            self.schema_of[base:n] = [SCHEMA_NAMES.index(k.schema)
-                                      for k in new_keys]
-            self.index.add_part_keys(base, [k.labels for k in new_keys],
-                                     np.asarray(new_first, np.int64))
+        """Partition ids of distinct ``keys``, created where new."""
+        pids = np.array([self._by_blob.get(k.serialized, -1) for k in keys],
+                        np.int64)
+        new = np.flatnonzero(pids < 0)
+        if len(new):
+            pids[new] = self._create([keys[i] for i in new], first_ts[new])
         return pids
 
-    def ingest(self, keys: list[PartKey], ts: np.ndarray, vals: np.ndarray,
-               lens: np.ndarray) -> int:
+    def _pids_of_blobs(self, blobs: list[bytes],
+                       ts: np.ndarray) -> np.ndarray:
+        """Partition ids of records' part-key blobs (repeats allowed; a new
+        key's partition starts at its first record's time)."""
+        pids = np.array([self._by_blob.get(b, -1) for b in blobs], np.int64)
+        miss = np.flatnonzero(pids < 0)
+        if len(miss):
+            first: dict[bytes, int] = {}
+            for i in miss.tolist():
+                first.setdefault(blobs[i], i)
+            at = np.fromiter(first.values(), np.int64, len(first))
+            self._create([pk_from_blob(b) for b in first], ts[at])
+            pids[miss] = [self._by_blob[blobs[i]] for i in miss.tolist()]
+        return pids
+
+    # ---- ingest ------------------------------------------------------------
+
+    def ingest_series(self, keys: list[PartKey], ts: np.ndarray,
+                      vals: np.ndarray, lens: np.ndarray) -> int:
         """Append series samples (row i: ``lens[i]`` samples of ``keys[i]``,
-        distinct keys). Returns the samples kept."""
+        distinct keys). Columnar ingest: no log offset, no watermark.
+        Returns the samples kept."""
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
         first = np.where(lens > 0, ts[:, 0], -1)
-        pids = self._partitions_for(keys, first)
+        return self._append(self._partitions_for(keys, first), ts, vals, lens)
+
+    def _append(self, pids, ts, vals, lens) -> int:
         ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
         for sealed in self.buffers.append(pids, ts, vals, lens):
             self._add_chunks(*sealed)
@@ -255,10 +243,12 @@ class Shard:
         seals it first. Returns the samples kept."""
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
-        B = slots.shape[2] - _NCOL
         first = np.where(lens > 0, ts[:, 0], -1)
-        pids = self._partitions_for(keys, first)
-        self.hist[pids] = True
+        return self._append_hist(self._partitions_for(keys, first), ts,
+                                  slots, lens, self._scheme(les))
+
+    def _append_hist(self, pids, ts, slots, lens, lid: int) -> int:
+        B = slots.shape[2] - _NCOL
         ts, slots, lens = drop_out_of_order(ts, slots, lens,
                                             self.latest[pids])
         act = pids[lens > 0]
@@ -268,7 +258,7 @@ class Shard:
             if len(sealed[0]):
                 self._add_hist_chunks(*sealed)
         self._width[act] = B
-        self._les_id[act] = self._scheme(les)
+        self._les_id[act] = lid
         buf = self.hist_buffers.get(B)
         if buf is None:
             buf = self.hist_buffers[B] = WriteBuffers(self.max_chunk_size,
@@ -280,14 +270,75 @@ class Shard:
         self.version += 1
         return int(lens.sum())
 
+    def ingest(self, data: SomeData) -> int:
+        """Ingest one container from the log at its offset: records at or
+        below their group's watermark are skipped, and records of a schema
+        the port does not know are dropped. Returns the samples kept."""
+        cols = parse_container(data.container.serialize())
+        group = cols.part_hash.astype(np.int64) % self.config.groups_per_shard
+        below = data.offset <= self.group_watermarks[group]
+        self.rows_skipped += int(below.sum())
+        idx = np.flatnonzero(~below & (cols.schema >= 0))
+        kept = 0
+        if len(idx):
+            pids = self._pids_of_blobs([cols.keys[i] for i in idx.tolist()],
+                                       cols.ts[idx])
+            hist = self.hist[pids]
+            if (~hist).any():
+                s = idx[~hist]
+                kept += self._append(*_by_series(pids[~hist], cols.ts[s],
+                                                 cols.dvals[s, 0]))
+            if hist.any():
+                kept += self._ingest_hist_records(cols, idx[hist],
+                                                  pids[hist])
+        self._ingested_offset = max(self._ingested_offset, data.offset)
+        return kept
+
+    def _ingest_hist_records(self, cols, idx: np.ndarray,
+                             pids: np.ndarray) -> int:
+        """Histogram records ``idx`` (container order) of partitions
+        ``pids``: appended one bucket scheme at a time, cut where a series'
+        scheme changes so that its samples stay in order."""
+        nb = cols.bucket_counts()[idx]
+        lid = np.zeros(len(idx), np.int64)
+        counts_of = {}
+        for b in np.unique(nb).tolist():
+            at = np.flatnonzero(nb == b)
+            les, counts = cols.histograms(idx[at])
+            uniq, inv = np.unique(les, axis=0, return_inverse=True)
+            lid[at] = np.array([self._scheme(u) for u in uniq])[
+                inv.reshape(-1)]
+            counts_of[b] = counts, at
+        order = np.argsort(pids, kind="stable")
+        change = np.zeros(len(idx), bool)
+        change[order[1:]] = (pids[order[1:]] == pids[order[:-1]]) \
+            & (lid[order[1:]] != lid[order[:-1]])
+        cuts = np.concatenate([[0], np.flatnonzero(change), [len(idx)]])
+        counts = np.zeros((len(idx), int(nb.max(initial=0))), np.int64)
+        for b, (c, at) in counts_of.items():
+            counts[at, :b] = c
+        kept = 0
+        for a, e in zip(cuts[:-1], cuts[1:]):
+            for scheme in np.unique(lid[a:e]).tolist():
+                r = a + np.flatnonzero(lid[a:e] == scheme)
+                B = len(self.les_list[scheme])
+                slots = hist_slots(counts[r, :B][:, None, :],
+                                   cols.dvals[idx[r], 0],
+                                   cols.dvals[idx[r], 1])[:, 0, :]
+                kept += self._append_hist(*_by_series(
+                    pids[r], cols.ts[idx[r]], slots), scheme)
+        return kept
+
     def seal(self, pids: np.ndarray) -> None:
         """Close the write buffers of ``pids`` into chunks now."""
         pids = np.asarray(pids, np.int64)
         hist = self.hist[pids]
+        sealed_any = False
         if (~hist).any():
             sealed = self.buffers.take(pids[~hist])
             if len(sealed[0]):
                 self._add_chunks(*sealed)
+                sealed_any = True
         hpids = pids[hist]
         for B in np.unique(self._width[hpids]):
             if B > 0:
@@ -295,23 +346,31 @@ class Shard:
                     hpids[self._width[hpids] == B])
                 if len(sealed[0]):
                     self._add_hist_chunks(*sealed)
-        self.version += 1
+                    sealed_any = True
+        if sealed_any:
+            self.version += 1
 
     def _add_chunks(self, pids, ts, vals, rows) -> None:
-        pages, per = encode_chunks(ts, vals, rows)
-        self._sealed.add(pages, per, **self._chunk_row(pids, ts, rows),
-                         vmax=_abs_max_finite(vals, rows))
+        pages, per = encode_pages(ts, vals, rows)
+        row = self._chunk_row(pids, ts, rows)
+        codec = encode_chunks(ts, vals[:, None, :], rows, row["cid"])
+        self._sealed.add(pages, per, codec, **row,
+                         vmax=abs_max_finite(vals, rows))
 
     def _add_hist_chunks(self, pids, ts, slots, rows) -> None:
-        """Seal histogram buffers: pages, each chunk's scheme as its
-        partition holds it now, and its sum and count columns' largest
-        finite |value| (the precision gate's input)."""
-        pages, per = encode_chunks(ts, slots, rows)
+        """Seal histogram buffers: pages, codec chunks, each chunk's scheme
+        as its partition holds it now, and its sum and count columns'
+        largest finite |value| (the precision gate's input)."""
+        pages, per = encode_pages(ts, slots, rows)
         cols = slot_columns(slots)
-        self._hist_sealed.add(pages, per, **self._chunk_row(pids, ts, rows),
-                              les=self._les_id[pids].copy(),
-                              vmax_sum=_abs_max_finite(cols[..., 0], rows),
-                              vmax_count=_abs_max_finite(cols[..., 1], rows))
+        row = self._chunk_row(pids, ts, rows)
+        les = self._les_id[pids].copy()
+        codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"],
+                              hist=slots, les=np.stack(
+                                  [self.les_list[i] for i in les.tolist()]))
+        self._hist_sealed.add(pages, per, codec, **row, les=les,
+                              vmax_sum=abs_max_finite(cols[..., 0], rows),
+                              vmax_count=abs_max_finite(cols[..., 1], rows))
 
     def _chunk_row(self, pids, ts, rows) -> dict:
         """The columns every sealed chunk has; takes the next sequence
@@ -319,19 +378,208 @@ class Shard:
         seq = self._seq[pids].copy()
         self._seq[pids] += 1
         last = ts[np.arange(len(rows)), np.maximum(rows - 1, 0)]
-        return dict(pid=pids, seq=seq, rows=rows, t0=ts[:, 0].copy(), t1=last)
+        t0 = ts[:, 0].copy()
+        return dict(pid=pids, seq=seq, cid=chunk_ids(t0, seq), rows=rows,
+                    t0=t0, t1=last)
 
     @property
     def chunks(self) -> dict:
-        """Every sealed chunk, one entry per column (pid, seq, blk0, nblk,
-        rows, t0, t1, vmax)."""
-        return self._sealed.columns
+        """Every resident sealed chunk, one entry per column (pid, seq,
+        cid, blk0, nblk, rows, t0, t1, nbytes, vmax, ...)."""
+        return _live_columns(self._sealed)
 
     @property
     def hist_chunks(self) -> dict:
-        """Every sealed histogram chunk (pid, seq, blk0, nblk, rows, t0, t1,
-        les: its scheme's index in ``les_list``, vmax_sum, vmax_count)."""
-        return self._hist_sealed.columns
+        """Every resident sealed histogram chunk (as ``chunks``, with les:
+        its scheme's index in ``les_list``, vmax_sum, vmax_count)."""
+        return _live_columns(self._hist_sealed)
+
+    # ---- flush and recovery ------------------------------------------------
+
+    @property
+    def latest_offset(self) -> int:
+        return self._ingested_offset
+
+    def next_flush_group(self) -> int:
+        """Round-robin group scheduling."""
+        self._last_flushed_group = (self._last_flushed_group + 1) \
+            % self.config.groups_per_shard
+        return self._last_flushed_group
+
+    def flush_group(self, group: int, ingestion_time: int | None = None
+                    ) -> int:
+        """Flush one group (the reference's ``doFlushSteps``): seal its
+        write buffers, write its pending chunks and dirty part keys, then
+        its checkpoint. Returns the chunks written."""
+        if ingestion_time is None:
+            ingestion_time = int(time.time() * 1000)
+        # rows at or below this offset are in the buffers sealed below;
+        # rows ingested later are replayed on recovery
+        checkpoint = self._ingested_offset
+        P = self.num_partitions
+        mine = self.group[:P] == group
+        pids = np.flatnonzero(mine)
+        self.seal(pids)
+        written = 0
+        for table in (self._sealed, self._hist_sealed):
+            col = table.columns
+            sel = np.flatnonzero(col["pending"] & mine[col["pid"]])
+            if not len(sel):
+                continue
+            blobs = [self.keys[p].serialized for p in col["pid"][sel]]
+            rows = list(zip(blobs, col["cid"][sel].tolist(),
+                            col["t0"][sel].tolist(), col["t1"][sel].tolist(),
+                            table.codec_rows(sel)))
+            self.column_store.write_chunk_rows(self.dataset, self.shard_num,
+                                               rows, ingestion_time)
+            table.flushed(sel)
+            written += len(sel)
+        self._write_part_keys(pids)
+        self.meta_store.write_checkpoint(self.dataset, self.shard_num, group,
+                                         checkpoint)
+        self.group_watermarks[group] = max(self.group_watermarks[group],
+                                           checkpoint)
+        return written
+
+    def _write_part_keys(self, pids: np.ndarray) -> None:
+        """Write the dirty part keys among ``pids`` (in pid order)."""
+        dirty = pids[self._dirty[pids]]
+        if not len(dirty):
+            return
+        starts = self.index.start_times(dirty)
+        ends = self.index.end_times(dirty)
+        self.column_store.write_part_keys(
+            self.dataset, self.shard_num,
+            [PartKeyRecord(self.keys[p], s, e) for p, s, e in
+             zip(dirty.tolist(), starts.tolist(), ends.tolist())])
+        self._dirty[dirty] = False
+
+    def flush_all(self, ingestion_time: int | None = None) -> int:
+        """Flush every group. The dirty part keys of all groups go first,
+        in pid order, so that a restart recovers the partitions in the
+        order they were created (``recover_index`` reads them back in the
+        order written), and a batch's rows, and so its sums, come out as
+        before."""
+        self._write_part_keys(np.arange(self.num_partitions))
+        return sum(self.flush_group(g, ingestion_time)
+                   for g in range(self.config.groups_per_shard))
+
+    def setup_watermarks_for_recovery(self) -> int:
+        """Load the groups' checkpoints as their watermarks; returns where
+        replay starts: the smallest watermark, a group that never flushed
+        counting as -1 (ROADMAP §C.4: the reference starts at the smallest
+        checkpoint written and so never replays such a group's rows)."""
+        cps = self.meta_store.read_checkpoints(self.dataset, self.shard_num)
+        for g, off in cps.items():
+            if g < len(self.group_watermarks):
+                self.group_watermarks[g] = off
+        return int(self.group_watermarks.min())
+
+    def recover_index(self) -> int:
+        """Restore partitions from the column store's part keys, in the
+        order they were written (index only: their chunks stay on disk until
+        a query pages them in), each with its out-of-order floor at its
+        largest persisted timestamp. Returns the keys restored."""
+        self._persisted_floors = self.column_store.max_persisted_ts(
+            self.dataset, self.shard_num)
+        recs = [r for r in self.column_store.scan_part_keys(
+            self.dataset, self.shard_num)
+            if r.part_key.serialized not in self._by_blob]
+        if not recs:
+            return 0
+        pids = self._create([r.part_key for r in recs],
+                            np.array([r.start_time for r in recs], np.int64))
+        self.index.set_end_times(pids, [r.end_time for r in recs])
+        self._dirty[pids] = False
+        self.version += 1
+        return len(recs)
+
+    def evict_partition_chunks(self, part_ids) -> int:
+        """Drop the flushed resident chunks of ``part_ids`` (the partitions
+        and their index entries stay; a query pages the chunks back in).
+        Returns the chunks evicted."""
+        mine = np.zeros(self.num_partitions, bool)
+        mine[np.atleast_1d(np.asarray(part_ids, np.int64))] = True
+        n = 0
+        for table in (self._sealed, self._hist_sealed):
+            col = table.columns
+            sel = np.flatnonzero(mine[col["pid"]] & ~col["pending"]
+                                 & ~col["dead"])
+            col["dead"][sel] = True
+            n += len(sel)
+            if 2 * int(col["dead"].sum()) > len(col["dead"]):
+                table.compact()
+        if n:
+            self.version += 1
+        return n
+
+    def earliest_in_memory(self) -> np.ndarray:
+        """int64 [P]: each partition's earliest resident timestamp (its
+        first live chunk's start, else its write buffer's first sample),
+        -1 where memory holds none of it."""
+        cached = self._earliest
+        if cached is not None and cached[0] == self.version:
+            return cached[1]
+        e = np.full(self.num_partitions, _NO_TS, np.int64)
+        for table in (self._sealed, self._hist_sealed):
+            col = table.columns
+            live = ~col["dead"]
+            np.minimum.at(e, col["pid"][live], col["t0"][live])
+        for buf in [self.buffers, *self.hist_buffers.values()]:
+            rows = buf.occupied()
+            pids = buf.pid_of[rows]
+            e[pids] = np.minimum(e[pids], buf.ts[rows, 0])
+        e[e == _NO_TS] = -1
+        self._earliest = (self.version, e)
+        return e
+
+    def page_in(self, pids: np.ndarray, start: int, end: int) -> dict | None:
+        """The paged chunks ``pids`` need for [start, end]
+        (``odp.page_partitions``), or None (demand paging off, or nothing
+        to page)."""
+        if not self.config.demand_paging_enabled:
+            return None
+        return odp.page_partitions(self, pids, start, end, self.odp_cache)
+
+    def chunk_infos(self, pids: np.ndarray, start: int, end: int,
+                    include_buffer: bool = False) -> list[tuple]:
+        """(pid, chunk id, rows, start, end, codec bytes) of the resident
+        chunks of ``pids`` overlapping [start, end], by partition then
+        chunk id, and with ``include_buffer`` each overlapping write buffer
+        as the chunk it would seal into (id ``chunk_id(t0, 0xFFF)``, as the
+        reference's transient buffer chunk)."""
+        want = np.zeros(self.num_partitions, bool)
+        want[pids] = True
+        out = []
+        for table in (self._sealed, self._hist_sealed):
+            col = table.columns
+            sel = np.flatnonzero(want[col["pid"]] & ~col["dead"]
+                                 & (col["t1"] >= start) & (col["t0"] <= end))
+            out.extend(zip(*(col[n][sel].tolist() for n in
+                             ("pid", "cid", "rows", "t0", "t1", "nbytes"))))
+        for buf in ([self.buffers, *self.hist_buffers.values()]
+                    if include_buffer else []):
+            rows = buf.occupied()
+            n = buf.n[rows].astype(np.int64)
+            t0, t1 = buf.ts[rows, 0], buf.ts[rows, n - 1]
+            rows = rows[want[buf.pid_of[rows]] & (t1 >= start) & (t0 <= end)]
+            if not len(rows):
+                continue
+            pids_b, n = buf.pid_of[rows], buf.n[rows].astype(np.int64)
+            ts, vals = buf.ts[rows], buf.vals[rows]
+            ids = chunk_ids(ts[:, 0], np.full(len(rows), 0xFFF))
+            if vals.ndim == 3:
+                codec = encode_chunks(
+                    ts, slot_columns(vals).transpose(0, 2, 1), n, ids,
+                    hist=vals, les=np.stack([self.les_list[i] for i in
+                                             self._les_id[pids_b].tolist()]))
+            else:
+                codec = encode_chunks(ts, vals[:, None, :], n, ids)
+            out.extend(zip(pids_b.tolist(), ids.tolist(), n.tolist(),
+                           ts[:, 0].tolist(),
+                           ts[np.arange(len(n)), n - 1].tolist(),
+                           codec.nbytes.tolist()))
+        return sorted(out)
 
     # ---- query -------------------------------------------------------------
 
@@ -345,7 +593,7 @@ class Shard:
         t1); → (that dict, the buffers' occupied rows, their pids)."""
         rows = buffers.occupied()
         pids = buffers.pid_of[rows]
-        pages, per = encode_chunks(buffers.ts, buffers.vals, buffers.n, rows)
+        pages, per = encode_pages(buffers.ts, buffers.vals, buffers.n, rows)
         out = dict(pages=pages, blk0=np.full(P, -1, np.int64),
                    nblk=np.zeros(P, np.int64), t0=np.zeros(P, np.int64),
                    t1=np.zeros(P, np.int64))
@@ -367,8 +615,8 @@ class Shard:
                                              self.num_partitions)
         out["vmax"] = np.zeros(self.num_partitions)
         if len(rows):
-            out["vmax"][pids] = _abs_max_finite(self.buffers.vals[rows],
-                                                self.buffers.n[rows])
+            out["vmax"][pids] = abs_max_finite(self.buffers.vals[rows],
+                                               self.buffers.n[rows])
         self._buffer_pages = (self.version, out)
         return out
 
@@ -383,93 +631,141 @@ class Shard:
                 out["vmax"] = np.zeros((self.num_partitions, _NCOL))
                 cols = slot_columns(b.vals[rows])
                 for j in range(_NCOL):
-                    out["vmax"][pids, j] = _abs_max_finite(cols[..., j],
-                                                           b.n[rows])
+                    out["vmax"][pids, j] = abs_max_finite(cols[..., j],
+                                                          b.n[rows])
                 tables.append(out)
             cached = self._hist_buffer_pages = (self.version, tables)
         return cached[1]
 
-    def _select(self, pids, start, end, sealed: ChunkTable, bufs,
+    def _select(self, pids, start, end, tables, bufs,
                 view=lambda pages: pages):
         """Page blocks of partitions ``pids`` (batch rows in that order)
-        for [start, end]: chunks overlapping the range in sequence order,
-        then the write buffer if it overlaps. → (tables, table_of,
-        block_of, row_of) for the packer, the selected chunks' indices and
-        each buffer table's selected pids."""
+        for [start, end]: the chunks of ``tables`` (pairs of a ChunkTable
+        and the rows of it to consider, None for all live ones) that
+        overlap the range, in chunk-id order, then the write buffer if it
+        overlaps. → (tables, table_of, block_of, row_of) for the packer,
+        the selected rows of each chunk table and each buffer table's
+        selected pids."""
         row_of_pid = np.full(self.num_partitions, -1, np.int64)
         row_of_pid[pids] = np.arange(len(pids))
-        ch = sealed.columns
-        sel = np.flatnonzero((row_of_pid[ch["pid"]] >= 0)
-                             & (ch["t1"] >= start) & (ch["t0"] <= end))
-        sel = sel[np.lexsort((ch["seq"][sel], row_of_pid[ch["pid"][sel]]))]
-        blocks = _expand(ch["blk0"][sel], ch["nblk"][sel])
-        offsets = np.asarray(sealed.offsets)
-        seg = np.searchsorted(offsets, blocks, side="right") - 1
-        tables, table_of = [view(p) for p in sealed.pages], [seg]
-        block_of = [blocks - offsets[seg]]
-        row_of = [np.repeat(row_of_pid[ch["pid"][sel]], ch["nblk"][sel])]
+        out_tables, table_of, block_of, row_of, keys, sels = [], [], [], [], \
+            [], []
+        for table, rows in tables:
+            ch = table.columns
+            cand = np.flatnonzero(~ch["dead"]) if rows is None else rows
+            sel = cand[(row_of_pid[ch["pid"][cand]] >= 0)
+                       & (ch["t1"][cand] >= start) & (ch["t0"][cand] <= end)]
+            sels.append(sel)
+            blocks = expand(ch["blk0"][sel], ch["nblk"][sel])
+            offsets = np.asarray(table.offsets)
+            seg = np.searchsorted(offsets, blocks, side="right") - 1
+            table_of.append(seg + len(out_tables))
+            out_tables.extend(view(p) for p in table.pages)
+            block_of.append(blocks - offsets[seg])
+            r = np.repeat(row_of_pid[ch["pid"][sel]], ch["nblk"][sel])
+            row_of.append(r)
+            keys.append((r, np.zeros(len(r)),
+                         np.repeat(ch["cid"][sel], ch["nblk"][sel])))
         bsels = []
         for buf in bufs:
             bsel = pids[(buf["blk0"][pids] >= 0) & (buf["t1"][pids] >= start)
                         & (buf["t0"][pids] <= end)]
             bsels.append(bsel)
             if len(bsel):
-                blocks = _expand(buf["blk0"][bsel], buf["nblk"][bsel])
-                table_of.append(np.full(len(blocks), len(tables)))
-                tables.append(view(buf["pages"]))
+                blocks = expand(buf["blk0"][bsel], buf["nblk"][bsel])
+                table_of.append(np.full(len(blocks), len(out_tables)))
+                out_tables.append(view(buf["pages"]))
                 block_of.append(blocks)
-                row_of.append(np.repeat(row_of_pid[bsel], buf["nblk"][bsel]))
-        row_of = np.concatenate(row_of)
-        # chunk blocks come first and in sequence order: a stable sort by
-        # row keeps each series' chunks in time order, its buffer last
-        order = np.argsort(row_of, kind="stable")
-        return (tables, np.concatenate(table_of)[order],
-                np.concatenate(block_of)[order], row_of[order], sel, bsels)
+                r = np.repeat(row_of_pid[bsel], buf["nblk"][bsel])
+                row_of.append(r)
+                keys.append((r, np.ones(len(r)), np.zeros(len(r), np.int64)))
+        row, late, cid = (np.concatenate(k) for k in zip(*keys))
+        # by series, its chunks in chunk-id order and its buffer last; a
+        # chunk's blocks keep their order
+        order = np.lexsort((np.arange(len(row)), cid, late, row))
+        return (out_tables, np.concatenate(table_of)[order],
+                np.concatenate(block_of)[order], row[order], sels, bsels)
 
     def select_blocks(self, pids: np.ndarray, start: int, end: int,
-                      column: str | None = None):
+                      column: str | None = None, paged=None):
         """Page blocks of scalar partitions ``pids`` (batch rows in that
         order) for [start, end], or with ``column`` (one of
         ``HIST_COLUMNS``) the value pages of that column of histogram
-        partitions. Returns (tables, table_of, block_of, row_of, vmax) for
-        ``device_batch.pack_blocks`` plus the largest |value| they hold."""
+        partitions; ``paged`` adds the chunks a page-in selected
+        (``odp.page_partitions``). Returns (tables, table_of, block_of,
+        row_of, vmax) for ``device_batch.pack_blocks`` plus the largest
+        |value| they hold."""
+        extra = [] if paged is None else [paged[column is not None]]
         if column is not None:
             j = HIST_COLUMNS.index(column)
             bufs = self.hist_buffer_pages()
-            tables, t_of, b_of, r_of, sel, bsels = self._select(
-                pids, start, end, self._hist_sealed, bufs,
-                lambda pages: pages.column(j))
-            vmax = max([float(self.hist_chunks[f"vmax_{column}"][sel].max(
-                initial=0.0))] + [float(b["vmax"][bs, j].max(initial=0.0))
-                                  for b, bs in zip(bufs, bsels)])
-            return tables, t_of, b_of, r_of, vmax
+            tables = [(self._hist_sealed, None), *extra]
+            out, t_of, b_of, r_of, sels, bsels = self._select(
+                pids, start, end, tables, bufs, lambda pages: pages.column(j))
+            vmax = max([float(t.columns[f"vmax_{column}"][s].max(initial=0.0))
+                        for (t, _), s in zip(tables, sels)]
+                       + [float(b["vmax"][bs, j].max(initial=0.0))
+                          for b, bs in zip(bufs, bsels)])
+            return out, t_of, b_of, r_of, vmax
         buf = self.buffer_pages()
-        tables, t_of, b_of, r_of, sel, (bsel,) = self._select(
-            pids, start, end, self._sealed, [buf])
-        vmax = max(float(self.chunks["vmax"][sel].max(initial=0.0)),
-                   float(buf["vmax"][bsel].max(initial=0.0)))
-        return tables, t_of, b_of, r_of, vmax
+        tables = [(self._sealed, None), *extra]
+        out, t_of, b_of, r_of, sels, (bsel,) = self._select(
+            pids, start, end, tables, [buf])
+        vmax = max([float(t.columns["vmax"][s].max(initial=0.0))
+                    for (t, _), s in zip(tables, sels)]
+                   + [float(buf["vmax"][bsel].max(initial=0.0))])
+        return out, t_of, b_of, r_of, vmax
 
-    def select_hist_blocks(self, pids: np.ndarray, start: int, end: int):
+    def select_hist_blocks(self, pids: np.ndarray, start: int, end: int,
+                           paged=None):
         """Page blocks of histogram partitions ``pids`` for [start, end],
         as ``select_blocks`` (for ``device_batch.pack_hist_blocks``), and
         the bucket scheme of the first selected chunk or buffer, in batch
         order, that has the most buckets (the reference's ``les_out``)."""
         bufs = self.hist_buffer_pages()
-        ch = self.hist_chunks
-        tables, t_of, b_of, r_of, sel, bsels = self._select(
-            pids, start, end, self._hist_sealed, bufs)
+        tables = [(self._hist_sealed, None)] + ([] if paged is None
+                                                else [paged[True]])
+        out, t_of, b_of, r_of, sels, bsels = self._select(
+            pids, start, end, tables, bufs)
         row_of_pid = np.full(self.num_partitions, -1, np.int64)
         row_of_pid[pids] = np.arange(len(pids))
         bsel = np.concatenate(bsels) if bsels else np.zeros(0, np.int64)
-        # entries in batch order: by row, a row's chunks by sequence first
-        row = np.concatenate([row_of_pid[ch["pid"][sel]], row_of_pid[bsel]])
-        late = np.concatenate([np.zeros(len(sel)), np.ones(len(bsel))])
-        seq = np.concatenate([ch["seq"][sel], np.zeros(len(bsel))])
-        lid = np.concatenate([ch["les"][sel], self._les_id[bsel]])
+        chs = [(t.columns, s) for (t, _), s in zip(tables, sels)]
+        # entries in batch order: by row, a row's chunks by chunk id first
+        row = np.concatenate([row_of_pid[c["pid"][s]] for c, s in chs]
+                             + [row_of_pid[bsel]])
+        late = np.concatenate([np.zeros(len(s)) for _, s in chs]
+                              + [np.ones(len(bsel))])
+        cid = np.concatenate([c["cid"][s] for c, s in chs]
+                             + [np.zeros(len(bsel), np.int64)])
+        lid = np.concatenate([c["les"][s] for c, s in chs]
+                             + [self._les_id[bsel]])
         if not len(lid):
-            return tables, t_of, b_of, r_of, None
-        lid = lid[np.lexsort((seq, late, row))]
+            return out, t_of, b_of, r_of, None
+        lid = lid[np.lexsort((cid, late, row))]
         width = np.array([len(self.les_list[i]) for i in lid])
-        return tables, t_of, b_of, r_of, self.les_list[int(
+        return out, t_of, b_of, r_of, self.les_list[int(
             lid[np.argmax(width)])]
+
+
+def _live_columns(table: ChunkTable) -> dict:
+    col = table.columns
+    live = ~col["dead"]
+    return {n: v[live] for n, v in col.items()}
+
+
+def _by_series(pids: np.ndarray, ts: np.ndarray, vals: np.ndarray):
+    """Records (in order) of partitions ``pids`` as one row a partition:
+    (distinct pids, ts [N, T], vals [N, T, ...], lens), each row's samples
+    in record order."""
+    order = np.argsort(pids, kind="stable")
+    sp = pids[order]
+    uniq, first, lens = np.unique(sp, return_index=True, return_counts=True)
+    pos = np.arange(len(sp)) - np.repeat(first, lens)
+    row = np.repeat(np.arange(len(uniq)), lens)
+    T = int(lens.max(initial=1))
+    ts2 = np.zeros((len(uniq), T), np.int64)
+    ts2[row, pos] = ts[order]
+    vals2 = np.zeros((len(uniq), T) + vals.shape[1:], vals.dtype)
+    vals2[row, pos] = vals[order]
+    return uniq, ts2, vals2, lens.astype(np.int64)

@@ -1,0 +1,169 @@
+"""Column store and meta store: the interfaces and their in-memory forms.
+
+Copy of the parts of ``filodb_tpu/core/store/api.py`` the port's write path
+uses. A column store keeps serialized chunks and part keys per (dataset,
+shard); a meta store keeps each flush group's checkpoint offset.
+
+Chunks move in batches: ``write_chunk_rows`` / ``read_chunk_rows`` carry
+the chunks of many part keys in one call, as a flush of a shard and a
+page-in of a query need, where the reference's ``write_chunks`` /
+``read_chunks`` take one part key: rows are (part-key blob, chunk id,
+start, end, serialized chunk). Part keys travel as their blobs
+(``PartKey.serialized``, the reference's ``_pk_blob``).
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from dataclasses import dataclass
+
+from filodb_tpu_torch.core.partkey import PartKey
+
+
+@dataclass(frozen=True)
+class PartKeyRecord:
+    part_key: PartKey
+    start_time: int
+    end_time: int
+
+
+def pk_from_blob(blob: bytes) -> PartKey:
+    """The part key of a blob (``PartKey.serialized``)."""
+    blob = bytes(blob)
+    parts = blob.split(b"\x00")
+    labels = []
+    for p in parts[1:]:
+        k, v = p.split(b"\x01", 1)
+        labels.append((k.decode(), v.decode()))
+    pk = PartKey(parts[0].decode(), tuple(labels))
+    pk.__dict__["serialized"] = blob  # the cached property: the same bytes
+    return pk
+
+
+class ColumnStore:
+    """Durable store of encoded chunks and part keys, per (dataset, shard)."""
+
+    def initialize(self, dataset: str, num_shards: int) -> None:
+        raise NotImplementedError
+
+    def write_chunk_rows(self, dataset: str, shard: int, rows: list,
+                         ingestion_time: int) -> None:
+        """Write chunks given as (part-key blob, chunk id, start, end,
+        serialized chunk) rows; a chunk already stored is kept."""
+        raise NotImplementedError
+
+    def read_chunk_rows(self, dataset: str, shard: int, blobs: list[bytes],
+                        start_time: int, end_time: int) -> list:
+        """(part-key blob, serialized chunk) of the chunks of part keys
+        ``blobs`` overlapping [start, end], in no particular order."""
+        raise NotImplementedError
+
+    def write_part_keys(self, dataset: str, shard: int,
+                        records: list[PartKeyRecord]) -> None:
+        raise NotImplementedError
+
+    def scan_part_keys(self, dataset: str, shard: int) -> list[PartKeyRecord]:
+        """Every part key of the shard, in the order first written."""
+        raise NotImplementedError
+
+    def max_persisted_ts(self, dataset: str, shard: int) -> dict[bytes, int]:
+        """Largest persisted chunk end time per part-key blob: recovery
+        seeds each partition's out-of-order floor with it, so WAL replay of
+        rows flushed just before a crash is not written twice."""
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class MetaStore:
+    """Ingestion checkpoints: (dataset, shard, group) → offset."""
+
+    def write_checkpoint(self, dataset: str, shard: int, group: int,
+                         offset: int) -> None:
+        raise NotImplementedError
+
+    def read_checkpoints(self, dataset: str, shard: int) -> dict[int, int]:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+
+class NullColumnStore(ColumnStore):
+    """Discards chunks (reference ``NullColumnStore``)."""
+
+    def initialize(self, dataset, num_shards):
+        pass
+
+    def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
+        pass
+
+    def read_chunk_rows(self, dataset, shard, blobs, start_time, end_time):
+        return []
+
+    def write_part_keys(self, dataset, shard, records):
+        pass
+
+    def scan_part_keys(self, dataset, shard):
+        return []
+
+    def max_persisted_ts(self, dataset, shard):
+        return {}
+
+
+class InMemoryColumnStore(ColumnStore):
+    """Keeps everything in process memory."""
+
+    def __init__(self):
+        # (dataset, shard) -> blob -> chunk id -> (start, end, data)
+        self._chunks = defaultdict(lambda: defaultdict(dict))
+        self._part_keys: dict[tuple, dict[PartKey, PartKeyRecord]] = \
+            defaultdict(dict)
+
+    def initialize(self, dataset, num_shards):
+        pass
+
+    def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
+        store = self._chunks[(dataset, shard)]
+        for blob, cid, st, et, data in rows:
+            store[bytes(blob)].setdefault(int(cid), (st, et, bytes(data)))
+
+    def read_chunk_rows(self, dataset, shard, blobs, start_time, end_time):
+        store = self._chunks[(dataset, shard)]
+        out = []
+        for blob in sorted(set(blobs)):
+            for cid in sorted(store.get(blob, ())):
+                st, et, data = store[blob][cid]
+                if et >= start_time and st <= end_time:
+                    out.append((blob, data))
+        return out
+
+    def write_part_keys(self, dataset, shard, records):
+        d = self._part_keys[(dataset, shard)]
+        for r in records:
+            prev = d.get(r.part_key)
+            if prev is not None:
+                r = PartKeyRecord(r.part_key,
+                                  min(prev.start_time, r.start_time),
+                                  r.end_time)
+            d[r.part_key] = r
+
+    def scan_part_keys(self, dataset, shard):
+        return list(self._part_keys[(dataset, shard)].values())
+
+    def max_persisted_ts(self, dataset, shard):
+        return {blob: max(et for _, et, _ in chunks.values())
+                for blob, chunks in self._chunks[(dataset, shard)].items()
+                if chunks}
+
+
+class InMemoryMetaStore(MetaStore):
+    def __init__(self):
+        self._checkpoints: dict[tuple, dict[int, int]] = defaultdict(dict)
+
+    def write_checkpoint(self, dataset, shard, group, offset):
+        self._checkpoints[(dataset, shard)][group] = offset
+
+    def read_checkpoints(self, dataset, shard):
+        return dict(self._checkpoints[(dataset, shard)])

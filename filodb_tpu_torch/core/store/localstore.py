@@ -1,0 +1,184 @@
+"""Durable local column store and meta store over sqlite.
+
+Copy of ``filodb_tpu/core/store/localstore.py``'s data model, file for
+file: one database a shard, ``<root>/<dataset>/shard-<n>.db``, with the
+tables ``chunks`` (partition, chunkid → start, end, serialized chunk),
+``ingestion_time_index``, ``partkeys`` (partition → start, end),
+``checkpoints`` (group → offset), and the ``upd`` write counter on chunks
+and part keys. A partition is its part-key blob (``PartKey.serialized``).
+A directory either package writes, the other reads.
+
+A flush of a shard's group writes its chunks with one ``executemany`` in
+one transaction; a query's page-in reads the chunks of many part keys in
+one statement (``read_chunk_rows``).
+"""
+
+from __future__ import annotations
+
+import os
+import sqlite3
+import threading
+from collections import defaultdict
+
+from filodb_tpu_torch.core.store.api import (
+    ColumnStore,
+    MetaStore,
+    PartKeyRecord,
+    pk_from_blob,
+)
+
+# part keys a page-in reads one by one; more, and it scans the table in
+# its stored order and keeps theirs
+_FEW_KEYS = 256
+
+
+class _Db:
+    """One sqlite database per (dataset, shard), opened on first use."""
+
+    def __init__(self, root: str):
+        self.root = root
+        self._conns: dict[tuple[str, int], sqlite3.Connection] = {}
+        self._lock = threading.Lock()
+
+    def conn(self, dataset: str, shard: int) -> sqlite3.Connection:
+        key = (dataset, shard)
+        with self._lock:
+            c = self._conns.get(key)
+            if c is None:
+                d = os.path.join(self.root, dataset)
+                os.makedirs(d, exist_ok=True)
+                c = sqlite3.connect(os.path.join(d, f"shard-{shard}.db"),
+                                    check_same_thread=False)
+                # the meta store and the column store hold separate
+                # connections to one file: lock waits block and retry
+                c.execute("PRAGMA busy_timeout=10000")
+                c.execute("PRAGMA journal_mode=WAL")
+                c.execute("PRAGMA synchronous=NORMAL")
+                c.execute("""CREATE TABLE IF NOT EXISTS chunks (
+                    partition BLOB, chunkid INTEGER, start_time INTEGER,
+                    end_time INTEGER, data BLOB,
+                    PRIMARY KEY (partition, chunkid))""")
+                c.execute("""CREATE TABLE IF NOT EXISTS ingestion_time_index (
+                    partition BLOB, ingestion_time INTEGER, chunkid INTEGER,
+                    PRIMARY KEY (partition, ingestion_time, chunkid))""")
+                c.execute("""CREATE TABLE IF NOT EXISTS partkeys (
+                    partition BLOB PRIMARY KEY, start_time INTEGER,
+                    end_time INTEGER)""")
+                c.execute("""CREATE TABLE IF NOT EXISTS checkpoints (
+                    grp INTEGER PRIMARY KEY, offset INTEGER)""")
+                for tbl in ("chunks", "partkeys"):
+                    try:
+                        c.execute(f"ALTER TABLE {tbl} ADD COLUMN upd "
+                                  "INTEGER DEFAULT 0")
+                    except sqlite3.OperationalError:
+                        pass  # column already present
+                self._conns[key] = c
+            return c
+
+    def close(self):
+        with self._lock:
+            for c in self._conns.values():
+                c.close()
+            self._conns.clear()
+
+
+class LocalDiskColumnStore(ColumnStore):
+    def __init__(self, root: str):
+        self.root = root
+        self._db = _Db(root)
+        # a write lock a shard file: shards flush side by side
+        self._wlocks: dict[tuple[str, int], threading.Lock] = \
+            defaultdict(threading.Lock)
+        self._upd: dict[tuple[str, int], int] = {}
+
+    def initialize(self, dataset: str, num_shards: int) -> None:
+        for s in range(num_shards):
+            self._db.conn(dataset, s)
+
+    def _next_upd(self, c, dataset, shard) -> int:
+        """The next write counter (caller holds the shard's write lock),
+        read from the database the first time."""
+        key = (dataset, shard)
+        cur = self._upd.get(key)
+        if cur is None:
+            cur = c.execute(
+                "SELECT MAX(m) FROM (SELECT COALESCE(MAX(upd),0) m FROM "
+                "chunks UNION ALL SELECT COALESCE(MAX(upd),0) FROM partkeys)"
+            ).fetchone()[0] or 0
+        self._upd[key] = cur + 1
+        return cur + 1
+
+    def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
+        c = self._db.conn(dataset, shard)
+        with self._wlocks[(dataset, shard)]:
+            upd = self._next_upd(c, dataset, shard)
+            with c:  # one transaction
+                c.executemany(
+                    "INSERT OR IGNORE INTO chunks(partition, chunkid, "
+                    "start_time, end_time, data, upd) VALUES (?,?,?,?,?,?)",
+                    ((b, cid, st, et, d, upd) for b, cid, st, et, d in rows))
+                c.executemany(
+                    "INSERT OR IGNORE INTO ingestion_time_index VALUES "
+                    "(?,?,?)", ((r[0], ingestion_time, r[1]) for r in rows))
+
+    def read_chunk_rows(self, dataset, shard, blobs, start_time, end_time):
+        c = self._db.conn(dataset, shard)
+        if len(blobs) <= _FEW_KEYS:
+            out = []
+            for b in sorted(set(blobs)):
+                out.extend(c.execute(
+                    "SELECT partition, data FROM chunks WHERE partition=? "
+                    "AND end_time>=? AND start_time<=? ORDER BY chunkid",
+                    (b, start_time, end_time)))
+            return out
+        want = set(blobs)
+        return [r for r in c.execute(
+            "SELECT partition, data FROM chunks WHERE end_time>=? AND "
+            "start_time<=?", (start_time, end_time)) if r[0] in want]
+
+    def write_part_keys(self, dataset, shard, records):
+        c = self._db.conn(dataset, shard)
+        with self._wlocks[(dataset, shard)]:
+            upd = self._next_upd(c, dataset, shard)
+            with c:
+                c.executemany(
+                    "INSERT INTO partkeys(partition, start_time, end_time, "
+                    "upd) VALUES (?,?,?,?) ON CONFLICT(partition)"
+                    " DO UPDATE SET start_time=MIN(start_time, excluded."
+                    "start_time), end_time=excluded.end_time, "
+                    "upd=excluded.upd",
+                    ((r.part_key.serialized, r.start_time, r.end_time, upd)
+                     for r in records))
+
+    def scan_part_keys(self, dataset, shard):
+        c = self._db.conn(dataset, shard)
+        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in
+                c.execute("SELECT partition, start_time, end_time FROM "
+                          "partkeys ORDER BY rowid")]
+
+    def max_persisted_ts(self, dataset, shard):
+        c = self._db.conn(dataset, shard)
+        return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "
+                              "GROUP BY partition"))
+
+    def close(self):
+        self._db.close()
+
+
+class LocalDiskMetaStore(MetaStore):
+    def __init__(self, root: str):
+        self._db = _Db(root)
+        self._wlock = threading.Lock()
+
+    def write_checkpoint(self, dataset, shard, group, offset):
+        c = self._db.conn(dataset, shard)
+        with self._wlock, c:
+            c.execute("INSERT INTO checkpoints VALUES (?,?) ON CONFLICT(grp) "
+                      "DO UPDATE SET offset=excluded.offset", (group, offset))
+
+    def read_checkpoints(self, dataset, shard):
+        c = self._db.conn(dataset, shard)
+        return dict(c.execute("SELECT grp, offset FROM checkpoints"))
+
+    def close(self):
+        self._db.close()

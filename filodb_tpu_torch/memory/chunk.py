@@ -1,0 +1,322 @@
+"""Chunks: the immutable, compressed rows of one partition that the column
+store keeps.
+
+Copy of ``filodb_tpu/memory/chunk.py`` without its aggregate sidecar: a
+chunk is one encoded vector per data column plus its id, row count and
+time range; ``chunk_id`` sorts by start time. ``Chunk.serialize`` writes
+the reference's layout without the trailing summary section, and
+``Chunk.deserialize`` stops after the declared vectors, so it reads the
+reference's chunks with or without one (a summary is derived data, and
+the reference's equality ignores it). Summaries come with the sidecar
+lane (ROADMAP §C).
+
+Besides the per-chunk form, ``encode_chunks`` seals and ``decode_chunks``
+reads many chunks in one call of the host C++ codec: timestamp and value
+arrays in, the serialized chunks out as one byte buffer with offsets
+(``ChunkBytes``), and back. A flush of a million series is about two
+million chunks; the batched form is what makes that a few calls.
+"""
+
+from __future__ import annotations
+
+import struct
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass
+
+import numpy as np
+
+from filodb_tpu_torch import _build
+from filodb_tpu_torch.core.schemas import ColumnType, Schema
+from filodb_tpu_torch.memory import codecs
+
+_HEAD = struct.Struct("<qIqqI")  # id, rows, start, end, vector count
+# chunks a host codec call takes, and threads it runs on
+_BATCH = 4096
+_WORKERS = 8
+
+
+def chunk_id(start_time: int, ingestion_seq: int = 0) -> int:
+    """Time-sortable chunk id: millis in high bits, sequence in low 12 bits."""
+    return (start_time << 12) | (ingestion_seq & 0xFFF)
+
+
+def chunk_ids(start_times: np.ndarray, seqs: np.ndarray) -> np.ndarray:
+    """``chunk_id`` of many chunks."""
+    return (np.asarray(start_times, np.int64) << 12) \
+        | (np.asarray(seqs, np.int64) & 0xFFF)
+
+
+@dataclass(frozen=True)
+class Chunk:
+    """One encoded chunkset for a partition."""
+
+    id: int
+    num_rows: int
+    start_time: int
+    end_time: int
+    vectors: tuple[bytes, ...]  # one encoded vector per data column
+
+    @property
+    def nbytes(self) -> int:
+        return sum(len(v) for v in self.vectors)
+
+    def decode_column(self, i: int):
+        """Decode one column (memoized: chunks are immutable)."""
+        cache = self.__dict__.setdefault("_decoded", {})
+        out = cache.get(i)
+        if out is None:
+            out = cache[i] = codecs.decode_any(self.vectors[i])
+        return out
+
+    def serialize(self) -> bytes:
+        parts = [_HEAD.pack(self.id, self.num_rows, self.start_time,
+                            self.end_time, len(self.vectors))]
+        for v in self.vectors:
+            parts.append(struct.pack("<I", len(v)))
+            parts.append(v)
+        return b"".join(parts)
+
+    @staticmethod
+    def deserialize(data: bytes) -> "Chunk":
+        cid, rows, st, et, nvec = _HEAD.unpack_from(data, 0)
+        off = _HEAD.size
+        vectors = []
+        for _ in range(nvec):
+            (ln,) = struct.unpack_from("<I", data, off)
+            off += 4
+            vectors.append(bytes(data[off : off + ln]))
+            off += ln
+        return Chunk(cid, rows, st, et, tuple(vectors))
+
+
+def encode_chunk(schema: Schema, ts: np.ndarray, columns: list, seq: int = 0,
+                 with_summary: bool = False) -> Chunk:
+    """Encode one chunkset: ``columns`` holds one array per non-timestamp
+    data column in schema order, float64 for DOUBLE and a
+    ``HistogramColumn`` (or (n, nb) int64 rows) for HISTOGRAM. Summaries
+    are not made here (``with_summary`` must stay False)."""
+    if with_summary:
+        raise ValueError("chunk summaries come with the sidecar lane; the "
+                         "port encodes chunks without them")
+    if not len(ts):
+        raise ValueError("a chunk holds at least one row")
+    vectors: list[bytes] = [codecs.encode_delta_delta(ts)]
+    for col, data in zip(schema.data.columns[1:], columns):
+        if col.ctype == ColumnType.DOUBLE:
+            vectors.append(codecs.encode_double(np.asarray(data, np.float64)))
+        elif isinstance(data, codecs.HistogramColumn):
+            vectors.append(codecs.encode_hist_2d_delta(data.rows, data.les))
+        else:
+            vectors.append(codecs.encode_hist_2d_delta(
+                np.asarray(data, np.int64)))
+    return Chunk(chunk_id(int(ts[0]), seq), len(ts), int(ts[0]), int(ts[-1]),
+                 tuple(vectors))
+
+
+@dataclass
+class ChunkBytes:
+    """Serialized chunks in one buffer: chunk i is ``buf[starts[i]:
+    ends[i]]``, ``nbytes[i]`` the length of its vectors (``Chunk.nbytes``).
+    ``take`` selects chunks without copying; ``copy`` packs them into a
+    buffer of their own."""
+
+    buf: np.ndarray     # uint8, contiguous
+    starts: np.ndarray  # int64 [C]
+    ends: np.ndarray    # int64 [C]
+    nbytes: np.ndarray  # int64 [C]
+
+    def __len__(self) -> int:
+        return len(self.starts)
+
+    def data(self, i: int) -> memoryview:
+        return memoryview(self.buf)[self.starts[i]:self.ends[i]]
+
+    def take(self, idx: np.ndarray) -> "ChunkBytes":
+        return ChunkBytes(self.buf, self.starts[idx], self.ends[idx],
+                          self.nbytes[idx])
+
+    def copy(self) -> "ChunkBytes":
+        lens = self.ends - self.starts
+        ends = np.cumsum(lens)
+        buf = np.concatenate([self.buf[a:b] for a, b in
+                              zip(self.starts.tolist(), self.ends.tolist())]
+                             or [np.zeros(0, np.uint8)])
+        return ChunkBytes(buf, ends - lens, ends, self.nbytes.copy())
+
+    @staticmethod
+    def from_blobs(blobs: list) -> "ChunkBytes":
+        """Serialized chunks as the column store hands them back."""
+        lens = np.fromiter((len(b) for b in blobs), np.int64, len(blobs))
+        ends = np.cumsum(lens)
+        buf = np.frombuffer(b"".join(blobs), np.uint8)
+        return ChunkBytes(buf, ends - lens, ends,
+                          np.zeros(len(blobs), np.int64))
+
+
+def _spans(n: int) -> list[tuple[int, int]]:
+    return [(a, min(a + _BATCH, n)) for a in range(0, n, _BATCH)]
+
+
+def _on_threads(fn, spans):
+    if len(spans) > 1:
+        with ThreadPoolExecutor(min(_WORKERS, len(spans))) as pool:
+            return list(pool.map(fn, spans))
+    return [fn(s) for s in spans]
+
+
+def encode_chunks(ts: np.ndarray, dcols: np.ndarray, rows: np.ndarray,
+                  ids: np.ndarray, hist: np.ndarray | None = None,
+                  les: np.ndarray | None = None) -> ChunkBytes:
+    """Serialize C chunks (host C++): timestamps int64 [C, M], K double
+    columns float64 [C, K, M], ``rows[c]`` samples and id ``ids[c]`` a
+    chunk, and for a histogram schema its bucket column: int64 [C, M, S]
+    with the cumulative counts in the first B slots, under bounds ``les``
+    float64 [C, B]. The vectors follow the schema: timestamps, the K double
+    columns, the histogram. Bytes equal ``encode_chunk(...).serialize()``
+    chunk by chunk."""
+    ts = np.ascontiguousarray(ts, np.int64)
+    dcols = np.ascontiguousarray(dcols, np.float64)
+    rows = np.ascontiguousarray(rows, np.int64)
+    ids = np.ascontiguousarray(ids, np.int64)
+    C, M = ts.shape
+    K = dcols.shape[1]
+    if hist is not None:
+        hist = np.ascontiguousarray(hist, np.int64)
+        les = np.ascontiguousarray(les, np.float64)
+        B, hs = les.shape[1], hist.shape[2]
+    else:
+        B, hs = 0, 0
+    if (rows < 1).any() or (rows > M).any():
+        raise ValueError("every chunk holds 1..M rows")
+    enc = _build.host_fn("fh_encode_chunks", 15)
+    groups = -(-rows // 8)
+    bound = 32 + 4 * (1 + K + (B > 0)) + 21 + 66 * groups \
+        + K * (5 + 66 * groups) \
+        + ((9 + 8 * B + 66 * (-(-rows * B // 8))) if B else 0)
+
+    def one(span):
+        a, b = span
+        cap = int(bound[a:b].sum())
+        out = np.empty(cap, np.uint8)
+        offs = np.zeros(b - a + 1, np.int64)
+        nbytes = np.zeros(b - a, np.int64)
+        rc = enc(ts[a:b].ctypes.data, dcols[a:b].ctypes.data, K,
+                 hist[a:b].ctypes.data if B else None, hs,
+                 les[a:b].ctypes.data if B else None, B,
+                 rows[a:b].ctypes.data, ids[a:b].ctypes.data, b - a, M,
+                 out.ctypes.data, cap, offs.ctypes.data, nbytes.ctypes.data)
+        if rc != 0:
+            raise RuntimeError("host codec: chunk encode passed its bound")
+        return out[: offs[-1]], offs, nbytes
+
+    parts = _on_threads(one, _spans(C))
+    base = np.cumsum([0] + [len(b) for b, _, _ in parts])
+    offs = np.concatenate([o[:-1] + x for (_, o, _), x in zip(parts, base)]
+                          + [np.zeros(0, np.int64)])
+    return ChunkBytes(np.concatenate([b for b, _, _ in parts]
+                                     + [np.zeros(0, np.uint8)]),
+                      offs, np.concatenate([offs[1:], base[-1:]]),
+                      np.concatenate([n for _, _, n in parts]
+                                     + [np.zeros(0, np.int64)]))
+
+
+@dataclass
+class DecodedChunks:
+    """Columns of C decoded chunks of one schema, rows padded to M."""
+
+    ids: np.ndarray      # int64 [C]
+    rows: np.ndarray     # int64 [C]
+    start: np.ndarray    # int64 [C]
+    end: np.ndarray      # int64 [C]
+    ts: np.ndarray       # int64 [C, M]
+    dcols: np.ndarray    # float64 [C, K, M]: the schema's DOUBLE columns
+    hist: np.ndarray | None = None  # int64 [C, M, B] cumulative counts
+    les: np.ndarray | None = None   # float64 [C, B]
+
+
+def _layout(cb: ChunkBytes, schema: Schema):
+    """(header [C, 5]: id, rows, start, end, vectors; offset and length of
+    each of the schema's vectors [C, columns]) of serialized chunks."""
+    C, nv = len(cb), len(schema.data.columns)
+    hdr = np.zeros((C, 5), np.int64)
+    voff = np.zeros((C, nv), np.int64)
+    vlen = np.zeros((C, nv), np.int64)
+    if C:
+        starts = np.ascontiguousarray(cb.starts, np.int64)
+        ends = np.ascontiguousarray(cb.ends, np.int64)
+        bad = _build.host_fn("fh_chunk_layout", 8)(
+            cb.buf.ctypes.data, starts.ctypes.data, ends.ctypes.data, C, nv,
+            hdr.ctypes.data, voff.ctypes.data, vlen.ctypes.data)
+        if bad:
+            raise ValueError(f"malformed chunk {bad - 1} of {C}")
+        if (hdr[:, 4] < nv).any():
+            raise ValueError(f"a chunk has fewer vectors than {schema.name} "
+                             f"has columns")
+    return hdr, voff, vlen
+
+
+def _hist_column(schema: Schema) -> int | None:
+    return next((i for i, c in enumerate(schema.data.columns)
+                 if c.ctype == ColumnType.HISTOGRAM), None)
+
+
+def bucket_counts(cb: ChunkBytes, schema: Schema) -> np.ndarray:
+    """int64 [C]: the bucket count of each chunk's histogram vector."""
+    _, voff, _ = _layout(cb, schema)
+    at = voff[:, _hist_column(schema), None] + np.arange(5, 9)
+    return cb.buf[at].copy().view("<u4")[:, 0].astype(np.int64)
+
+
+def decode_chunks(cb: ChunkBytes, schema: Schema) -> DecodedChunks:
+    """Decode serialized chunks of ``schema`` (host C++, on threads). A
+    histogram schema's chunks must share one bucket count
+    (``bucket_counts``).
+    Raises ``ValueError`` on a malformed chunk or one that does not fit
+    the schema."""
+    cols = schema.data.columns
+    dbl = [i for i, c in enumerate(cols) if c.ctype == ColumnType.DOUBLE]
+    hcol = _hist_column(schema)
+    C = len(cb)
+    buf = cb.buf
+    hdr, voff, vlen = _layout(cb, schema)
+    rows = hdr[:, 1]
+    M = int(rows.max(initial=1))
+    dec = _build.host_fn("fh_decode_vectors", 8)
+
+    def column(v: int, width: int, nb: int = 0) -> np.ndarray:
+        out = np.zeros((C, width), np.int64)
+        n = np.zeros(C, np.int64)
+        vo, vl = np.ascontiguousarray(voff[:, v]), np.ascontiguousarray(
+            vlen[:, v])
+
+        def one(span):
+            a, b = span
+            bad = dec(buf.ctypes.data, vo[a:].ctypes.data,
+                      vl[a:].ctypes.data, b - a, out[a:b].ctypes.data,
+                      width, nb, n[a:].ctypes.data)
+            if bad:
+                raise ValueError(f"column {v} of chunk {a + bad - 1}: "
+                                 f"malformed or not of this schema")
+
+        _on_threads(one, _spans(C))
+        if (n != rows).any():
+            raise ValueError(f"column {v}: row counts disagree with the "
+                             f"chunk headers")
+        return out
+
+    out = DecodedChunks(hdr[:, 0].copy(), rows.copy(), hdr[:, 2].copy(),
+                        hdr[:, 3].copy(), column(0, M),
+                        np.stack([column(v, M).view(np.float64)
+                                  for v in dbl], axis=1) if dbl
+                        else np.zeros((C, 0, M)))
+    if hcol is not None:
+        nbs = bucket_counts(cb, schema)
+        B = int(nbs[0]) if C else 0
+        if (nbs != B).any():
+            raise ValueError("decode_chunks takes histogram chunks of one "
+                             "bucket count")
+        out.hist = column(hcol, M * B, B).reshape(C, M, B)
+        lo = voff[:, hcol] + 9
+        out.les = buf[lo[:, None] + np.arange(8 * B)[None, :]].copy().view(
+            np.float64).reshape(C, B)
+    return out

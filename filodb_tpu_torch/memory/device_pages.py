@@ -12,12 +12,15 @@ Float blocks (XOR against the block's first value, float32 lanes): first
 u32 bit pattern, trailing-zero shift tz (in the slope slot), width w; the
 128 ``(bits ^ first) >> tz`` fields are bit-packed the same way.
 
-The encoders are vectorised with numpy over many blocks at once (the
-reference packs one value at a time in Python, which cannot encode the
-hundreds of millions of samples of a real store); the tests hold them
-byte-equal to the reference's. Words travel as int32 tensors holding the
-u32 bits, because torch's uint32 supports few operations; the kernels read
-them as ``uint32_t``.
+The encoders run many blocks a call in the host C++ codec
+(``csrc/hostcodec.cpp``; the reference packs one value at a time in
+Python, which cannot encode the hundreds of millions of samples of a real
+store, and a page-in after a restart encodes every chunk it reads); their
+numpy twins (``encode_ts_blocks_py``, ``encode_f32_blocks_py``) vectorise
+the same arithmetic, and the tests hold both byte-equal to the
+reference's. Words travel as int32 tensors holding the u32 bits, because
+torch's uint32 supports few operations; the kernels read them as
+``uint32_t``.
 
 Decode: ``decode_ts_blocks`` (kernel B1) and ``decode_f32_blocks`` (kernel
 B2) launch ``csrc/decode_pages.cu`` on a CUDA tensor and run their plain
@@ -111,7 +114,43 @@ def pack_blocks(vals: np.ndarray, widths: np.ndarray) -> np.ndarray:
 def encode_ts_blocks(ts: np.ndarray, n: np.ndarray):
     """Delta-delta encode blocks: ``ts`` int64 [nb, 128] (lanes past
     ``n[b]`` ignored), ``n`` valid lanes a block → (bases, slopes, widths,
-    words) as the reference's ``encode_ts_page`` lays each block out."""
+    words) as the reference's ``encode_ts_page`` lays each block out. Runs
+    the host C++ codec; ``encode_ts_blocks_py`` is its numpy twin."""
+    ts = np.ascontiguousarray(ts, np.int64)
+    n = np.ascontiguousarray(n, np.int64)
+    nb = len(n)
+    base = np.zeros(nb, np.int64)
+    slope = np.zeros(nb, np.int32)
+    width = np.zeros(nb, np.int32)
+    words = np.zeros((nb, BLOCK), np.uint32)
+    if nb and _build.host_fn("fh_encode_ts_blocks", 7)(
+            ts.ctypes.data, n.ctypes.data, nb, base.ctypes.data,
+            slope.ctypes.data, width.ctypes.data, words.ctypes.data):
+        raise ValueError("residual too large for a ts page")
+    return base, slope, width, words
+
+
+def encode_f32_blocks(vals: np.ndarray, n: np.ndarray):
+    """XOR-vs-block-first encode blocks of float32 values [nb, 128] →
+    (firsts u32, shifts i32, widths i32, words u32), as the reference's
+    ``encode_f32_page`` lays each block out. Runs the host C++ codec;
+    ``encode_f32_blocks_py`` is its numpy twin."""
+    bits = np.ascontiguousarray(vals, np.float32).view(np.uint32)
+    n = np.ascontiguousarray(n, np.int64)
+    nb = len(n)
+    first = np.zeros(nb, np.uint32)
+    shift = np.zeros(nb, np.int32)
+    width = np.zeros(nb, np.int32)
+    words = np.zeros((nb, BLOCK), np.uint32)
+    if nb:
+        _build.host_fn("fh_encode_f32_blocks", 7)(
+            bits.ctypes.data, n.ctypes.data, nb, first.ctypes.data,
+            shift.ctypes.data, width.ctypes.data, words.ctypes.data)
+    return first, shift, width, words
+
+
+def encode_ts_blocks_py(ts: np.ndarray, n: np.ndarray):
+    """Numpy twin of ``encode_ts_blocks``."""
     ts = np.asarray(ts, np.int64)
     n = np.asarray(n, np.int64)
     nb = ts.shape[0]
@@ -131,10 +170,8 @@ def encode_ts_blocks(ts: np.ndarray, n: np.ndarray):
             pack_blocks(zz32, widths))
 
 
-def encode_f32_blocks(vals: np.ndarray, n: np.ndarray):
-    """XOR-vs-block-first encode blocks of float32 values [nb, 128] →
-    (firsts u32, shifts i32, widths i32, words u32), as the reference's
-    ``encode_f32_page`` lays each block out."""
+def encode_f32_blocks_py(vals: np.ndarray, n: np.ndarray):
+    """Numpy twin of ``encode_f32_blocks``."""
     bits = np.ascontiguousarray(vals, np.float32).view(np.uint32)
     n = np.asarray(n, np.int64)
     lane = np.arange(BLOCK, dtype=np.int64)[None, :]

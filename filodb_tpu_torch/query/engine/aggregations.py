@@ -10,6 +10,11 @@ NaN is excluded from every operation; a group with no sample at a step is
 NaN there. Plain PyTorch (``index_add_`` / ``scatter_reduce_`` / stable
 sorts); the reference uses XLA segment reductions here, not a Pallas
 kernel. Everything accumulates in float64, the reference's dtype under x64.
+
+Sums are deterministic (``group_sum``): a group's rows, in batch order, are
+added in pairs, level by level, so the answer does not depend on the
+order in which the card's atomics land; a store answers bitwise alike run
+after run, and after a restart that restores its partitions in order.
 """
 
 from __future__ import annotations
@@ -23,6 +28,43 @@ AGG_OPS = ("sum", "avg", "min", "max", "count", "group", "stddev", "stdvar")
 
 def _nan(values: torch.Tensor) -> torch.Tensor:
     return torch.tensor(float("nan"), dtype=EXACT_DTYPE, device=values.device)
+
+
+_RUN = 64  # rows a tree level adds at once, at most
+
+
+def group_sum(values: torch.Tensor, group_ids: torch.Tensor,
+              num_groups: int) -> torch.Tensor:
+    """Per-group sums [G, K] of ``values`` [P, K], in a fixed order: each
+    group's rows, in row order, are cut into runs of up to ``_RUN``, each
+    run summed in order (``embedding_bag`` in sum mode: one thread a run
+    and column, adding its rows one after another), level by level, until
+    a group has one row. Nothing depends on the card's scheduling, as
+    ``index_add_``'s atomics would make the last bits do. The row counts
+    come to the host once."""
+    K, dev = values.shape[1], values.device
+    counts = torch.bincount(group_ids, minlength=num_groups)
+    ch = counts.cpu().numpy()
+    out = torch.zeros((num_groups, K), dtype=values.dtype, device=dev)
+    if ch.max(initial=0) <= 1:
+        return out.index_copy_(0, group_ids, values)
+    rows = torch.sort(group_ids, stable=True).indices  # by group, in order
+    gidx = torch.arange(num_groups, device=dev)
+    x = values
+    while ch.max(initial=0) > 1:
+        runs = -(-ch // _RUN)
+        nruns = int(runs.sum())
+        runs_t = torch.as_tensor(runs, device=dev)
+        g = torch.repeat_interleave(gidx, runs_t, output_size=nruns)
+        first_run = torch.cumsum(runs_t, 0) - runs_t
+        first_row = torch.cumsum(counts, 0) - counts
+        offsets = first_row[g] + (torch.arange(nruns, device=dev)
+                                  - first_run[g]) * _RUN
+        x = torch.nn.functional.embedding_bag(rows, x, offsets, mode="sum")
+        rows = torch.arange(nruns, device=dev)
+        counts, ch = runs_t, runs
+    return out.index_copy_(0, torch.repeat_interleave(
+        gidx, counts, output_size=int(ch.sum())), x)
 
 
 def aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
@@ -43,13 +85,13 @@ def aggregate(op: str, values: torch.Tensor, group_ids: torch.Tensor,
     if op == "group":
         return torch.where(cnt > 0, 1.0, nan).to(EXACT_DTYPE)
     if op in ("sum", "avg", "stddev", "stdvar"):
-        s = zeros.clone().index_add_(0, gids, zeroed)
+        s = group_sum(zeroed, gids, num_groups)
         if op == "sum":
             return torch.where(cnt > 0, s, nan)
         mean = s / cnt.clamp(min=1.0)
         if op == "avg":
             return torch.where(cnt > 0, mean, nan)
-        s2 = zeros.clone().index_add_(0, gids, zeroed * zeroed)
+        s2 = group_sum(zeroed * zeroed, gids, num_groups)
         var = (s2 / cnt.clamp(min=1.0) - mean * mean).clamp(min=0.0)
         if op == "stdvar":
             return torch.where(cnt > 0, var, nan)

@@ -100,6 +100,10 @@ class PageBlocks:
         return PageBlocks(*(np.concatenate([getattr(p, f.name) for p in parts])
                             for f in fields(PageBlocks)))
 
+    def take(self, idx: np.ndarray) -> "PageBlocks":
+        return PageBlocks(*(getattr(self, f.name)[idx]
+                            for f in fields(PageBlocks)))
+
     @staticmethod
     def from_pages(ts_page, val_page, nrows: int) -> "PageBlocks":
         nb = ts_page.num_blocks
@@ -247,6 +251,10 @@ class HistPageBlocks:
         return HistPageBlocks(*(
             np.concatenate([getattr(p, f.name) for p in parts])
             for f in fields(HistPageBlocks)))
+
+    def take(self, idx: np.ndarray) -> "HistPageBlocks":
+        return HistPageBlocks(*(getattr(self, f.name)[idx]
+                                for f in fields(HistPageBlocks)))
 
 
 def hist_chunk_blocks(ts: np.ndarray, counts: np.ndarray, n: np.ndarray):
@@ -460,7 +468,10 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     (shard, partition ids), for [start, end]; rows follow that order. All
     partitions are histograms or none are; a histogram batch reads the
     bucket pages, or with ``column`` ``sum`` / ``count`` that column's
-    value pages as scalar series."""
+    value pages as scalar series. Partitions whose flushed chunks memory
+    no longer holds page them in first (``core/memstore/odp.py``), as the
+    reference's engines do before they build a batch; a cached batch is
+    served without paging."""
     selected = [(sh, np.asarray(p, np.int64)) for sh, p in selected
                 if len(p)]
     if not selected:
@@ -476,15 +487,16 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     tables, table_of, block_of, row_of = [], [], [], []
     keys, vmax, les = [], 0.0, None
     for shard, pids in selected:
+        paged = shard.page_in(pids, start, end)
         if hist:
-            tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(pids, start,
-                                                                  end)
+            tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(
+                pids, start, end, paged)
             # the first scheme of the most buckets, in batch order
             if sl is not None and (les is None or len(sl) > len(les)):
                 les = sl
         else:
-            tabs, t_of, b_of, r_of, vm = shard.select_blocks(pids, start, end,
-                                                             sub)
+            tabs, t_of, b_of, r_of, vm = shard.select_blocks(
+                pids, start, end, sub, paged)
             vmax = max(vmax, vm)
         table_of.append(t_of + len(tables))
         tables.extend(tabs)

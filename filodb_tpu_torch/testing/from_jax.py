@@ -9,7 +9,15 @@ so both stores hold the same chunks and so the same device pages. A
 histogram series carries one ``HistogramColumn`` (bucket bounds and
 cumulative count rows) per chunk, and one more for its write buffer, so a
 series whose bucket scheme changed keeps each chunk's own, and its ``sum``
-and ``count`` columns. This module imports nothing of ``filodb_tpu``.
+and ``count`` columns.
+
+The write path needs no carrying: both packages write the same bytes.
+``log_stream`` wraps serialized containers (the reference's
+``RecordContainer.serialize()``, or a log's entries) as the port ingests
+them; ``open_local`` opens a local-disk store directory that either package
+wrote; ``restart`` runs the recovery of every shard of a store from its
+logs, as a restarted node does. This module imports nothing of
+``filodb_tpu``.
 """
 
 from __future__ import annotations
@@ -19,6 +27,12 @@ from dataclasses import dataclass
 import numpy as np
 
 from filodb_tpu_torch.core.memstore.memstore import MemStore
+from filodb_tpu_torch.core.record import BytesContainer, SomeData
+from filodb_tpu_torch.core.store.config import StoreConfig
+from filodb_tpu_torch.core.store.localstore import (
+    LocalDiskColumnStore,
+    LocalDiskMetaStore,
+)
 from filodb_tpu_torch.memory.codecs import HistogramColumn
 
 
@@ -55,3 +69,38 @@ def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
             if i < len(st.chunk_rows):
                 memstore.seal(st.labels, schema=st.schema)
             a += n
+
+
+def log_stream(raws: list[bytes], first_offset: int = 0) -> list[SomeData]:
+    """Serialized containers as the log hands them to a shard, at
+    consecutive offsets from ``first_offset``."""
+    return [SomeData(BytesContainer(r), first_offset + i)
+            for i, r in enumerate(raws)]
+
+
+def open_local(root: str, num_shards: int = 1, spread: int = 0,
+               config: StoreConfig | None = None,
+               dataset: str = "timeseries") -> MemStore:
+    """A store over the local-disk column and meta stores at ``root``
+    (``<root>/<dataset>/shard-<n>.db``, as either package lays it out)."""
+    return MemStore(num_shards, spread, column_store=LocalDiskColumnStore(
+        root), meta_store=LocalDiskMetaStore(root), config=config,
+        dataset=dataset)
+
+
+def restart(memstore: MemStore, logs: dict) -> dict:
+    """Recover every shard of a freshly opened store: its index from the
+    column store, its watermarks from the checkpoints, then its log (a
+    ``ReplayLog`` a shard in ``logs``) from the recovery start. Returns
+    the keys restored, the records replayed and the records skipped below
+    a watermark, summed over the shards."""
+    out = {"keys": 0, "records": 0, "skipped": 0}
+    for s, log in logs.items():
+        out["keys"] += memstore.recover_index(s)
+        start = memstore.recovery_start_offset(s)
+        before = memstore.shards[s].rows_skipped
+        for sd in log.read_from(start):
+            out["records"] += len(sd.container)
+            memstore.shards[s].ingest(sd)
+        out["skipped"] += memstore.shards[s].rows_skipped - before
+    return out

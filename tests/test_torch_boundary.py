@@ -6,7 +6,9 @@ modules, histograms, absent, count_values, sort, label functions, limit,
 scalars, @, subqueries, instant queries, the metadata calls, the exec
 engine and its planner (``query/exec/plan.py``,
 ``coordinator/planner.py``) and the histogram columns it serves included,
-import and answer all the same.
+import and answer all the same; and so do the write path's modules (the
+host codec, chunks, containers, the column stores, the WAL, on-demand
+paging), through a flush, a restart and a paged query.
 """
 
 import json
@@ -81,6 +83,31 @@ from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
 app0 = parse_query('lat{_ns_="App-0"}', TimeStepParams(0, 0, 0)).raw.filters
 meta = {"names": svc.label_names(), "jobs": svc.label_values("job"),
         "series": len(svc.series(app0, 1_600_000_000, 1_600_002_000))}
+import tempfile
+from filodb_tpu_torch.core import record
+from filodb_tpu_torch.core.memstore import odp
+from filodb_tpu_torch.core.store import api, config, localstore
+from filodb_tpu_torch.kafka import log as wal
+from filodb_tpu_torch.memory import chunk, nibblepack
+from filodb_tpu_torch.testing.from_jax import open_local, restart
+root = tempfile.mkdtemp()
+disk = open_local(root, num_shards=4, spread=1)
+disk.ingest_series(labels, ts, vals)
+disk.flush_all()
+logs = {s: wal.SegmentedFileLog(f"{root}/wal-{s}") for s in range(4)}
+for s, sh in enumerate(disk.shards):
+    c = record.RecordContainer()
+    for k in sh.keys:
+        c.add(record.IngestRecord(k, int(ts.max()) + 10_000, (1e6,)))
+    sh.ingest(record.SomeData(c, logs[s].append(c)))
+disk.close()
+again = open_local(root, num_shards=4, spread=1)
+durable = restart(again, logs)
+paged = QueryService(again, device="cpu").query_range(
+    "sum(count_over_time(http_requests_total[30m])) by (_ns_)",
+    1_600_001_500, 60, 1_600_001_510)
+durable["rows"] = paged.result.num_series
+durable["paged"] = sum(sh.odp_cache.chunks_paged for sh in again.shards)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -90,7 +117,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "quantiles": quant.result.num_series, "shapes": shapes,
                   "instant": len(inst["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
-                  "exec": exec_rows,
+                  "exec": exec_rows, "durable": durable,
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
                   "loaded": loaded}))
@@ -126,4 +153,6 @@ def test_port_loads_no_jax_and_no_reference_module():
         "jobs": ["job-0", "job-1", "job-2"], "series": 6}
     assert res["exec"] == 2
     assert res["mean"] == ["exec", 2, 0.25]
+    assert res["durable"] == {"keys": 12, "records": 12, "skipped": 0,
+                              "rows": 2, "paged": 12}
     assert res["loaded"] == []

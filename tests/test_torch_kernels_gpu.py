@@ -406,3 +406,95 @@ def test_histogram_queries_on_card_equal_cpu(cuda):
             [str(k) for k in b.result.keys]
         np.testing.assert_allclose(a.result.values, b.result.values,
                                    rtol=1e-9, atol=0, equal_nan=True)
+
+
+def _restarted_store(root, hist: bool = False):
+    """Series (counters, or 5-bucket histograms) flushed to a local-disk
+    store, which is then reopened index-only: a query pages every chunk
+    back in from disk (``core/memstore/odp.py``)."""
+    from filodb_tpu_torch.core.store.localstore import (
+        LocalDiskColumnStore,
+        LocalDiskMetaStore,
+    )
+
+    def opened():
+        return MemStore(4, 1, 400, column_store=LocalDiskColumnStore(root),
+                        meta_store=LocalDiskMetaStore(root))
+
+    rng = np.random.default_rng(5)
+    n, T = 150, 720
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    labels = [{"_metric_": "m", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store = opened()
+    if hist:
+        counts = np.cumsum(np.cumsum(rng.integers(0, 4, (n, T, 5)), axis=2),
+                           axis=1)
+        store.ingest_histograms(labels, ts, counts,
+                                np.array([0.1, 0.5, 1.0, 5.0, np.inf]))
+    else:
+        vals = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+        vals[::9, 300:] -= vals[::9, 300:301]
+        vals[::11, 100:104] = np.nan
+        store.ingest_series(labels, ts, vals)
+    store.flush_all()
+    store.close()
+    again = opened()
+    for s in range(4):
+        again.recover_index(s)
+    return again
+
+
+def _paged_batch(store, cuda):
+    from filodb_tpu_torch.query.engine.device_batch import build_device_batch
+
+    lo, hi = 1_600_000_000_000, 1_600_007_200_000
+    batch = build_device_batch(
+        [(sh, sh.lookup_partitions([], lo, hi)) for sh in store.shards], lo,
+        hi, cuda)
+    assert sum(sh.odp_cache.chunks_paged for sh in store.shards) == 300
+    return batch
+
+
+def test_b1_b2_b3_on_paged_chunks_equal_plain(cuda, tmp_path):
+    """The blocks of chunks paged in from disk after a restart: B1 and B2
+    bitwise equal to their plain versions, B3 within ``_b3_both``'s
+    tolerance."""
+    from filodb_tpu_torch.query.engine.device_batch import decode_packed
+
+    batch = _paged_batch(_restarted_store(str(tmp_path)), cuda)
+    got = decode_packed(batch.packed)
+    want = decode_packed(tuple(t.cpu() for t in batch.packed), plain=True)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32) if g.is_floating_point()
+                           else g.cpu(),
+                           w.view(torch.int32) if w.is_floating_point()
+                           else w)
+    steps = torch.arange(300_000, 7_200_000, 60_000, dtype=torch.int32,
+                         device=cuda)
+    _b3_both(batch.packed, steps, 300_000)
+
+
+def test_b1_on_paged_histogram_chunks_equal_plain(cuda, tmp_path):
+    batch = _paged_batch(_restarted_store(str(tmp_path), hist=True), cuda)
+    got = assemble_hist(batch.packed, 7_200_000)
+    want = assemble_hist(tuple(t.cpu() for t in batch.packed), 7_200_000,
+                         plain=True)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+
+
+def test_restarted_store_on_card_equals_cpu(cuda, tmp_path):
+    store = _restarted_store(str(tmp_path))
+    for engine in ("mesh", "exec"):
+        gpu = QueryService(store, cuda, engine=engine)
+        cpu = QueryService(store, "cpu", engine=engine)
+        for q in ("sum(rate(m[5m])) by (_ns_)",
+                  "sum(count_over_time(m[5m])) by (job)"):
+            a = gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+            b = cpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+            assert [str(k) for k in a.result.keys] == \
+                [str(k) for k in b.result.keys]
+            np.testing.assert_allclose(a.result.values, b.result.values,
+                                       rtol=2e-5, atol=1e-6, equal_nan=True)
