@@ -96,13 +96,36 @@ checks it, phase by phase; any failed phase exits non-zero:
    chunk paged in from disk (cold split: store read, C++ decode, page
    encode, pack and upload; warm p50; chunks paged); the same for
    ``DURABLE_HIST_SERIES`` histograms through histogram containers and
-   ``DURABLE_HIST``; B1-B4 must have launched in the phase; the directory
-   is removed and its bytes reported.
+   ``DURABLE_HIST``; B1-B4 must have launched in the phase. The directory
+   has the standalone server's layout (``<dir>/columnstore`` and
+   ``<dir>/wal/<dataset>/shard-<n>``);
+12. (run after phase 11, over its directory) the node on the card:
+   ``FiloServer`` (4 shards, spread 1, 400-sample chunks, 20 groups a
+   shard, the mesh engine, HTTP and gateway on free ports) boots over
+   phase 11's files (seconds to every shard ACTIVE, split into index
+   recovery and replay); ``DURABLE_QUERIES`` through ``/api/v1/
+   query_range``, cold and warm p50 of 5 beside ``QueryService``'s
+   in-process p50, each body's data byte-equal to phase 11's live answer,
+   one answer a kernel path against the plain versions; 8 client threads
+   sending both queries 4 times each, every body byte-equal; one more
+   scrape of every series as Influx lines over TCP into the gateway (lines
+   a second, seconds until an instant ``count`` and ``sum`` at the scrape
+   time see every series with the sum sent, and the latency of
+   ``sum(rate)`` while the scrape is ingested); the flush scheduler at a
+   0.5 s tick (snapshots every 10 s), its round robin from the first group
+   without a checkpoint, until every group has one, every shard truncated
+   its log below its smallest watermark and wrote its index snapshot;
+   shutdown and
+   boot 2 from the snapshot (index-restore seconds against boot 1's full
+   scan), whose first query (App-0's instant sum at the scrape time)
+   answers byte-equal to the live node's; B1-B4
+   must have launched behind the HTTP API; the directory is removed and
+   its bytes reported.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
-``--durability-only``: phases 1 and 11).
+``--durability-only``: phases 1, 11 and 12).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -1825,8 +1848,9 @@ DURABLE_WARM = 3
 
 
 def durable_store(root: str, dataset: str):
-    """A 4-shard, spread-1 store on the local-disk column and meta stores at
-    ``root`` (400-sample chunks, the reference's 20 groups a shard)."""
+    """A 4-shard, spread-1 store on the local-disk column and meta stores
+    under ``root`` (``<root>/columnstore``, the standalone server's
+    layout; 400-sample chunks, the reference's 20 groups a shard)."""
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.core.store.config import StoreConfig
     from filodb_tpu_torch.core.store.localstore import (
@@ -1834,8 +1858,9 @@ def durable_store(root: str, dataset: str):
         LocalDiskMetaStore,
     )
 
-    return MemStore(4, 1, column_store=LocalDiskColumnStore(root),
-                    meta_store=LocalDiskMetaStore(root),
+    cs = str(Path(root) / "columnstore")
+    return MemStore(4, 1, column_store=LocalDiskColumnStore(cs),
+                    meta_store=LocalDiskMetaStore(cs),
                     config=StoreConfig(max_chunk_size=400,
                                        groups_per_shard=20), dataset=dataset)
 
@@ -1985,15 +2010,28 @@ def restart_and_check(root, dataset, wal_root, queries, live, dev,
 
 
 def live_answers(store, queries, dev, engines=("mesh", "exec")) -> dict:
+    """Each query's answer on each engine, sorted by key; and under
+    ("body", q) the data of the mesh engine's Prometheus body
+    (``body_data``)."""
     from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.http.promjson import matrix_json_str
 
     out = {}
     for engine in engines:
         svc = QueryService(store, device=dev, engine=engine)
         for q in queries:
-            out[(engine, q)] = _sorted_answer(svc.query_range(
-                q, T0_MS // 1000, 60, DURABLE_END_S))
+            res = svc.query_range(q, T0_MS // 1000, 60, DURABLE_END_S)
+            if engine == "mesh":
+                out[("body", q)] = body_data(matrix_json_str(res))
+            out[(engine, q)] = _sorted_answer(res)
     return out
+
+
+def body_data(body: str) -> str:
+    """A Prometheus body without its ``queryStats`` (wall time, counters):
+    the bytes two answers of the same data share."""
+    cut = body.find(',"queryStats"')
+    return body if cut < 0 else body[:cut] + "}"
 
 
 def flush_half(store) -> int:
@@ -2031,10 +2069,9 @@ def durability_phase(dev, args) -> dict:
     ``args.durable_series`` series on a local-disk column store; flush, one
     more scrape through the log, flush half the groups, ``chunk_infos``,
     drop, restart, replay, and the queries bitwise against the live
-    answers; then the same for ``DURABLE_HIST_SERIES`` histograms; then
-    the clean-up."""
+    answers; then the same for ``DURABLE_HIST_SERIES`` histograms. The
+    directory stays for phase 12."""
     import gc
-    import shutil
 
     import torch
 
@@ -2054,6 +2091,7 @@ def durability_phase(dev, args) -> dict:
         f"{out['ingest_s']:.1f} s on the host")
     svc = QueryService(store, device=dev)
     keys, ts, vals = last_samples(store)
+    wal = Path(root) / "wal" / "timeseries"
     t = time.perf_counter()
     written = store.flush_all()
     flush_s = time.perf_counter() - t
@@ -2068,9 +2106,9 @@ def durability_phase(dev, args) -> dict:
         f"sample, {out['flush']['sqlite_bytes'] / 1e9:.3f} GB of sqlite on "
         f"disk, {flush_s:.1f} s")
     rng = np.random.default_rng([args.seed, 11])
-    logs, nc, nr, scrape_s = scrape_through_wal(
-        store, Path(root) / "wal", keys, ts + 10_000,
-        vals + rng.integers(0, 20, len(vals)))
+    ts, vals = ts + 10_000, vals + rng.integers(0, 20, len(vals))
+    logs, nc, nr, scrape_s = scrape_through_wal(store, wal, keys, ts, vals)
+    out["scrape"] = (keys, ts, vals)  # phase 12 scrapes after it
     for lg in logs.values():
         lg.close()
     half = flush_half(store)
@@ -2085,8 +2123,9 @@ def durability_phase(dev, args) -> dict:
 
     _build.reset_counts()
     log("  restart:")
-    out.update(restart_and_check(root, "timeseries", Path(root) / "wal",
-                                 DURABLE_QUERIES, live, dev))
+    out.update(restart_and_check(root, "timeseries", wal, DURABLE_QUERIES,
+                                 live, dev))
+    out["bodies"] = {q: live[("body", q)] for q in DURABLE_QUERIES}
     log(f"  restored {out['keys_restored']} keys in "
         f"{out['index_recovery_s']:.1f} s; replayed "
         f"{out['records_replayed']} records ({out['records_skipped']} below "
@@ -2101,13 +2140,33 @@ def durability_phase(dev, args) -> dict:
     missing = [k for k, v in launches.items() if v == 0]
     if missing and dev.type == "cuda":
         raise AssertionError(f"phase 11: kernels not launched: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {out['seconds']:.1f} s (its directory stays for "
+        f"phase 12)")
+    return out
+
+
+def durable_and_node(dev, args) -> tuple[dict, dict]:
+    """Phases 11 and 12 over one directory, then its removal."""
+    import gc
+
+    import torch
+
+    durable = durability_phase(dev, args)
+    gc.collect()
+    torch.cuda.empty_cache()
+    node = node_phase(dev, args, durable)
+    del durable["scrape"], durable["bodies"]
+    node["bytes_freed"] = remove_dir(args.durable_dir)
+    return durable, node
+
+
+def remove_dir(root) -> int:
+    """Remove phase 11's directory; returns the bytes it held."""
     freed = dir_bytes(root)
     shutil.rmtree(root)
-    out["bytes_freed"] = freed
-    out["seconds"] = time.perf_counter() - t_phase
-    log(f"  removed {root}: {freed / 1e9:.3f} GB freed; phase 11 took "
-        f"{out['seconds']:.1f} s")
-    return out
+    log(f"  removed {root}: {freed / 1e9:.3f} GB freed")
+    return freed
 
 
 def durable_histograms(args, dev, root: Path) -> dict:
@@ -2137,7 +2196,8 @@ def durable_histograms(args, dev, root: Path) -> dict:
                           np.stack([cols[:, 0] + obs @ _BUCKET_MIDS,
                                     cols[:, 1] + obs.sum(1)], 1)], axis=1)
     logs, nc, nr, scrape_s = scrape_through_wal(
-        store, root / "wal-h", keys, lts + 10_000, new, les=DEF_BUCKETS)
+        store, root / "wal" / "histograms", keys, lts + 10_000, new,
+        les=DEF_BUCKETS)
     for lg in logs.values():
         lg.close()
     flush_half(store)
@@ -2148,10 +2208,424 @@ def durable_histograms(args, dev, root: Path) -> dict:
     log(f"  histograms: {len(keys)} series ingested in {ingest_s:.1f} s, "
         f"{written} chunks flushed in {flush_s:.1f} s, {nr} histogram "
         f"records through the WAL in {scrape_s:.1f} s; restart:")
-    out = restart_and_check(str(root), "histograms", root / "wal-h",
-                            [DURABLE_HIST], live, dev)
+    out = restart_and_check(str(root), "histograms",
+                            root / "wal" / "histograms", [DURABLE_HIST],
+                            live, dev)
     out.update(ingest_s=ingest_s, flush_s=flush_s, chunks=written)
     return out
+
+
+NODE_DS = "timeseries"
+NODE_CONCURRENCY = (8, 4)  # client threads, rounds of both queries each
+NODE_WARM = 5
+NODE_TICK_S = 0.5          # the flush scheduler's tick in step 5
+# boot 2's first query, held byte-equal to the live node's answer (one
+# namespace: its page-in is 1 % of the store's)
+NODE_FIRST_QUERY = 'sum(http_requests_total{_ns_="App-0"})'
+
+
+def http_get(port: int, path: str, **params) -> tuple[int, str, float]:
+    """(status, body, ms) of one GET on a new connection."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}?" + urllib.parse.urlencode(params)
+    t = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=900) as r:
+            code, body = r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        code, body = e.code, e.read().decode()
+    return code, body, (time.perf_counter() - t) * 1000.0
+
+
+def node_config(root: str) -> str:
+    """Phase 12's server config (written into phase 11's directory): the
+    smoke's store shape, HTTP and gateway on free ports, the mesh engine,
+    a flush tick of 300 s (none before step 5) and snapshots every 10 s
+    once the scheduler ticks."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        gateway = sock.getsockname()[1]
+    path = Path(root) / "server.json"
+    path.write_text(json.dumps({
+        "node_name": "node-0", "data_dir": root, "http_port": 0,
+        "gateway_port": gateway,
+        "datasets": {NODE_DS: {
+            "num_shards": 4, "spread": 1, "engine": "mesh",
+            "store": {"max_chunk_size": 400, "groups_per_shard": 20,
+                      "flush_interval_ms": 6_000_000,
+                      "index_snapshot_interval_ms": 10_000}}}}))
+    return str(path)
+
+
+def boot_node(path: str, dev, what: str) -> tuple:
+    """A ``FiloServer`` on ``dev`` over the config at ``path``, waited on
+    until every shard is ACTIVE; returns it and its boot split."""
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.standalone import FiloServer
+
+    t = time.perf_counter()
+    srv = FiloServer(ServerConfig.load(path), device=dev).start()
+    started = time.perf_counter() - t
+    if not srv.cluster.wait_active(NODE_DS, timeout=900):
+        raise AssertionError(f"phase 12: {what}: shards not ACTIVE: "
+                             f"{srv.cluster.shard_statuses(NODE_DS)}")
+    boot_s = time.perf_counter() - t
+    rec = srv.node.recovery
+    workers = srv.node._workers.values()
+    shards = srv.node.memstores[NODE_DS].shards
+    out = {"boot_s": boot_s, "start_s": started,
+           "index_s": sum(r["index_s"] for r in rec.values()),
+           "keys": sum(r["keys"] for r in rec.values()),
+           "replay_s": max(w.replay_s for w in workers),
+           "records_replayed": sum(w.records_replayed for w in workers),
+           "records_skipped": sum(sh.rows_skipped for sh in shards),
+           "from_snapshot": sum(sh.recovered_from == "snapshot"
+                                for sh in shards)}
+    log(f"  {what}: every shard ACTIVE {boot_s:.1f} s after start(): index "
+        f"recovery {out['index_s']:.1f} s ({out['keys']} keys; "
+        f"{out['from_snapshot']} of 4 shards from a snapshot), replay "
+        f"{out['replay_s']:.1f} s ({out['records_replayed']} records, "
+        f"{out['records_skipped']} below a watermark)")
+    return srv, out
+
+
+def node_phase(dev, args, durable: dict) -> dict:
+    """Phase 12: the node on the card over phase 11's directory (see the
+    module's phase 12)."""
+    from filodb_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    root = args.durable_dir
+    log("phase 12: the node on the card (FiloServer over phase 11's "
+        "directory)")
+    _build.reset_counts()
+    # launches made in process (the in-process timings, the plain checks):
+    # the phase counts only those behind the HTTP API
+    side = dict.fromkeys(_build.LAUNCHES, 0)
+    path = node_config(root)
+    srv, boot1 = boot_node(path, dev, "boot 1 (no snapshot)")
+    out = {"boot1": boot1}
+    try:
+        out.update(_node_queries(srv, durable, side))
+        svc = srv.services[NODE_DS]
+        # one answer a kernel path against the plain versions
+        before = dict(_build.LAUNCHES)
+        start, end = T0_MS // 1000, DURABLE_END_S
+        q_rate, q_count = DURABLE_QUERIES
+        with svc.lock:
+            out["plain_rate"] = rate_against_plain(
+                svc, q_rate, start, end, _answer(svc, q_rate))
+            out["plain_decode"] = decoded_against_plain(
+                svc, q_count, start, end, _answer(svc, q_count))
+        for k in side:
+            side[k] += _build.LAUNCHES[k] - before[k]
+        log(f"  {q_rate}: B3 against its plain version "
+            f"({out['plain_rate']['shape']}, max abs err "
+            f"{out['plain_rate']['max_abs_err']}); {q_count}: B1/B2 bitwise "
+            f"on {out['plain_decode']['chunks']} chunks, the answer equal "
+            f"to plain decode")
+        out["concurrency"] = _node_concurrency(srv, durable["bodies"])
+        out["gateway"] = _node_gateway(srv, durable["scrape"], args)
+        out["scheduler"] = _node_scheduler(srv)
+    finally:
+        srv.shutdown()
+    log("  shutdown; boot 2:")
+    srv, boot2 = boot_node(path, dev, "boot 2 (snapshot + delta)")
+    out["boot2"] = boot2
+    try:
+        if boot2["from_snapshot"] != 4:
+            raise AssertionError("phase 12: boot 2 did not restore every "
+                                 "shard from its index snapshot")
+        out["first_queries"] = []
+        for q, want in out["gateway"].pop("bodies").items():
+            code, body, ms = http_get(srv.http.port,
+                                      f"/promql/{NODE_DS}/api/v1/query",
+                                      query=q, time=out["gateway"]["at_s"])
+            if code != 200 or body != want:
+                raise AssertionError(f"phase 12: boot 2: {q} differs from "
+                                     f"the live node's answer")
+            out["first_queries"].append({"query": q, "cold_ms": ms})
+            log(f"  boot 2: {q}: cold {ms:.1f} ms, byte-equal to the live "
+                f"node's answer")
+    finally:
+        srv.shutdown()
+    log(f"  index restore {boot2['index_s']:.2f} s from the snapshot against "
+        f"{boot1['index_s']:.2f} s by the part-key scan in boot 1")
+    launches = {k: _build.LAUNCHES[k] - side[k] for k in side}
+    out["launches"] = launches
+    log(f"  launches behind the HTTP API in phase 12: {launches}")
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing and dev.type == "cuda":
+        raise AssertionError(f"phase 12: kernels not launched behind the "
+                             f"HTTP API: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+def _answer(svc, q: str):
+    """The answer the service holds for ``q`` over phase 11's range (its
+    batch is cached: the HTTP queries built it)."""
+    return svc.execute_logical(_parsed(q))[0].materialize()
+
+
+def _parsed(q: str):
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    return parse_query(q, TimeStepParams(T0_MS // 1000, 60, DURABLE_END_S))
+
+
+def _node_queries(srv, durable: dict, side: dict) -> dict:
+    """Step 2: each query through the HTTP API, cold then warm, its body's
+    data byte-equal to phase 11's live answer; in-process warm beside (its
+    launches added to ``side``)."""
+    from filodb_tpu_torch import _build
+
+    svc = srv.services[NODE_DS]
+    store = srv.node.memstores[NODE_DS]
+    res = {"http": []}
+    params = dict(start=T0_MS // 1000, end=DURABLE_END_S, step=60)
+    for q in DURABLE_QUERIES:
+        paging = _paging_seconds(store)
+        code, body, cold = http_get(srv.http.port, f"/promql/{NODE_DS}/api/"
+                                    "v1/query_range", query=q, **params)
+        split = {k: (v - paging[k]) * 1000.0
+                 for k, v in _paging_seconds(store).items()}
+        if code != 200 or body_data(body) != durable["bodies"][q]:
+            raise AssertionError(f"phase 12: {q} through HTTP differs from "
+                                 f"phase 11's live answer ({code})")
+        warm = [http_get(srv.http.port, f"/promql/{NODE_DS}/api/v1/"
+                         "query_range", query=q, **params)[2]
+                for _ in range(NODE_WARM)]
+        inproc, before = [], dict(_build.LAUNCHES)
+        for _ in range(NODE_WARM):
+            t = time.perf_counter()
+            svc.query_range(q, T0_MS // 1000, 60, DURABLE_END_S)
+            inproc.append((time.perf_counter() - t) * 1000.0)
+        for k in side:
+            side[k] += _build.LAUNCHES[k] - before[k]
+        entry = {"query": q, "cold_ms": cold, "cold_split_ms": split,
+                 "warm_p50_ms": float(np.median(warm)),
+                 "inprocess_p50_ms": float(np.median(inproc)),
+                 "body_bytes": len(body)}
+        res["http"].append(entry)
+        log(f"  HTTP {q}: cold {cold:.1f} ms (store read {split['read']:.0f},"
+            f" decode {split['decode']:.0f}, page encode "
+            f"{split['encode']:.0f}), warm p50 "
+            f"{entry['warm_p50_ms']:.2f} ms against {entry['inprocess_p50_ms']:.2f}"
+            f" ms in process; body ({len(body)} bytes) byte-equal to phase "
+            f"11's live answer")
+    return res
+
+
+def _node_concurrency(srv, bodies: dict) -> dict:
+    """Step 3: client threads each sending both queries several times;
+    every body's data byte-equal to the live answer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    threads, rounds = NODE_CONCURRENCY
+    params = dict(start=T0_MS // 1000, end=DURABLE_END_S, step=60)
+
+    def client(_):
+        got = []
+        for _ in range(rounds):
+            for q in DURABLE_QUERIES:
+                code, body, ms = http_get(srv.http.port, f"/promql/{NODE_DS}"
+                                          "/api/v1/query_range", query=q,
+                                          **params)
+                got.append((q, code, body_data(body) == bodies[q], ms))
+        return got
+
+    t = time.perf_counter()
+    with ThreadPoolExecutor(threads) as pool:
+        results = [r for rs in pool.map(client, range(threads)) for r in rs]
+    wall = time.perf_counter() - t
+    bad = [(q, c) for q, c, same, _ in results if c != 200 or not same]
+    if bad:
+        raise AssertionError(f"phase 12: concurrent bodies differ: {bad[:3]}")
+    ms = [r[3] for r in results]
+    out = {"threads": threads, "requests": len(results), "wall_s": wall,
+           "p50_ms": float(np.median(ms)), "max_ms": float(max(ms))}
+    log(f"  {threads} threads x {rounds} rounds x 2 queries: {len(results)} "
+        f"bodies byte-equal, {wall:.2f} s, p50 {out['p50_ms']:.1f} ms, max "
+        f"{out['max_ms']:.1f} ms")
+    return out
+
+
+def _node_gateway(srv, scrape, args) -> dict:
+    """Step 4: one more scrape of every series as Influx lines over TCP,
+    10 s after the last; lines a second, seconds until instant queries at
+    the scrape time see all of it, and ``sum(rate)`` latency meanwhile."""
+    import math
+    import socket
+    import threading
+
+    from filodb_tpu_torch.gateway import server as gw
+
+    keys, ts1, vals1 = scrape
+    rng = np.random.default_rng([args.seed, 12])
+    ts2 = ts1 + 10_000
+    vals2 = np.where(np.isnan(vals1), 0.0, vals1) \
+        + rng.integers(1, 20, len(vals1))
+    lines = []
+    for k, t, v in zip(keys, ts2.tolist(), vals2.tolist()):
+        tags = ",".join(f"{a}={b}" for a, b in k.labels if a != "_metric_")
+        lines.append(f"{k.metric},{tags} counter={v!r} {t * 1_000_000}\n")
+    payload = "".join(lines).encode()
+    n = len(lines)
+    at_s = int(math.ceil(int(ts2.max()) / 1000))
+    parsed0 = gw.lines_parsed.value
+    workers = list(srv.node._workers.values())
+    offsets0 = [w.offset for w in workers]
+    dashboard, stop = [], threading.Event()
+
+    def dash():
+        # a dashboard refreshing while the scrape lands: from the first
+        # container a shard ingested until the last
+        while not stop.is_set() and all(
+                w.offset == o for w, o in zip(workers, offsets0)):
+            time.sleep(0.01)
+        q = DURABLE_QUERIES[0]
+        while not stop.is_set():
+            code, _, ms = http_get(srv.http.port, f"/promql/{NODE_DS}/api/v1/"
+                                   "query_range", query=q,
+                                   start=T0_MS // 1000, end=DURABLE_END_S,
+                                   step=60)
+            dashboard.append((code, ms))
+
+    def send():
+        with socket.create_connection(("127.0.0.1", srv.gateway.port)) as c:
+            c.sendall(payload)
+
+    t0 = time.perf_counter()
+    sender = threading.Thread(target=send)
+    sender.start()
+    dash_thread = threading.Thread(target=dash)
+    dash_thread.start()
+    parsed_s = ingested_s = None
+    deadline = t0 + 900
+    while time.perf_counter() < deadline:
+        if parsed_s is None and gw.lines_parsed.value - parsed0 >= n:
+            parsed_s = time.perf_counter() - t0
+        if parsed_s is not None:
+            srv.gateway.sink.flush()
+            if all(w.offset >= w.log.latest_offset for w in workers):
+                ingested_s = time.perf_counter() - t0
+                break
+        time.sleep(0.01)
+    stop.set()
+    sender.join(timeout=60)
+    if ingested_s is None:
+        raise AssertionError("phase 12: the gateway scrape was not ingested "
+                             "in time")
+    dash_thread.join(timeout=900)
+    dash_wait_s = time.perf_counter() - t0 - ingested_s
+    if dash_thread.is_alive() or any(c != 200 for c, _ in dashboard):
+        raise AssertionError(f"phase 12: sum(rate) during the ingest: "
+                             f"{dashboard}")
+    dashboard = [ms for _, ms in dashboard]
+    app0 = np.array([k.label_map["_ns_"] == "App-0" for k in keys])
+    want = {"count(http_requests_total)": float(n),
+            "sum(http_requests_total)": float(vals2.sum()),
+            NODE_FIRST_QUERY: float(vals2[app0].sum())}
+    bodies, t_query = {}, time.perf_counter()
+    for q, value in want.items():
+        while True:
+            code, body, ms = http_get(srv.http.port, f"/promql/{NODE_DS}/"
+                                      "api/v1/query", query=q, time=at_s)
+            res = json.loads(body)["data"]["result"] if code == 200 else []
+            if res and float(res[0]["value"][1]) == value:
+                break
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"phase 12: {q} at {at_s}: {body[:200]}"
+                                     f" (want {value})")
+            time.sleep(0.05)
+        bodies[q] = body
+    visible_s = time.perf_counter() - t0
+    bodies = {NODE_FIRST_QUERY: bodies[NODE_FIRST_QUERY]}
+    out = {"lines": n, "bytes": len(payload), "parsed_s": parsed_s,
+           "lines_per_s": n / parsed_s, "ingested_s": ingested_s,
+           "dashboard_wait_s": dash_wait_s,
+           "visible_query_s": time.perf_counter() - t_query,
+           "visible_s": visible_s, "at_s": at_s, "sum_sent": want[
+               "sum(http_requests_total)"],
+           "during_ingest_ms": dashboard,
+           "during_ingest_p50_ms": float(np.median(dashboard))
+           if dashboard else None, "bodies": bodies}
+    log(f"  gateway: {n} Influx lines ({len(payload) / 1e6:.1f} MB) parsed "
+        f"in {parsed_s:.1f} s ({out['lines_per_s']:.0f} lines/s), ingested "
+        f"{ingested_s:.1f} s after the first byte, visible to instant count "
+        f"and sum (and App-0's sum) at {at_s} after {visible_s:.1f} s (the "
+        f"last in-flight "
+        f"sum(rate) ended {dash_wait_s:.1f} s after the ingest, the two "
+        f"instant queries took {out['visible_query_s']:.1f} s; sum "
+        f"{want['sum(http_requests_total)']:.0f} equal to the sum sent); "
+        f"sum(rate) while ingesting: "
+        f"{len(dashboard)} queries, {[round(x) for x in dashboard]} ms")
+    return out
+
+
+def _node_scheduler(srv) -> dict:
+    """Step 5: the flush scheduler at a short tick until every shard has
+    a checkpoint in every group, truncated its log below its smallest
+    watermark and written its index snapshot. Each shard's round robin
+    starts at the first group phase 11 left without a checkpoint (a group
+    flush of this store takes about a second on the host of an NVIDIA
+    H100 80GB HBM3 machine: sqlite inserts into a 400 MB table)."""
+    from filodb_tpu_torch.coordinator.cluster import _FlushScheduler
+
+    node = srv.node
+    node._flusher.stop()
+    node.flush_tick_s = NODE_TICK_S
+    node._flusher = sched = _FlushScheduler(node, NODE_TICK_S)
+    shards = node.memstores[NODE_DS].shards
+    for sh in shards:
+        sh._last_flushed_group = int(np.argmin(sh.group_watermarks)) - 1
+    flushes0 = [sh.stats.flushes_done.value for sh in shards]
+    t = time.perf_counter()
+    sched.start()
+    keys = [(NODE_DS, s) for s in range(len(shards))]
+    deadline = t + 600
+    while time.perf_counter() < deadline:
+        if all(sh.group_watermarks.min() >= 0 for sh in shards) \
+                and all(k in sched.truncated for k in keys) \
+                and all(sched.snapshots.get(k, (0, 0))[0] for k in keys):
+            break
+        time.sleep(0.05)
+    else:
+        raise AssertionError("phase 12: the scheduler did not flush, "
+                             "truncate and snapshot every shard in time")
+    out = {"tick_s": NODE_TICK_S, "seconds": time.perf_counter() - t,
+           "flushes": [sh.stats.flushes_done.value - f0
+                       for sh, f0 in zip(shards, flushes0)],
+           "min_watermarks": [int(sh.group_watermarks.min())
+                              for sh in shards],
+           "truncated_before": [sched.truncated[k][0] for k in keys],
+           "segments_removed": [sched.truncated[k][1] for k in keys],
+           "snapshot_bytes": [sched.snapshots[k][1] for k in keys]}
+    log(f"  scheduler at a {NODE_TICK_S} s tick: {out['flushes']} group "
+        f"flushes a shard in {out['seconds']:.1f} s; logs truncated below "
+        f"{out['truncated_before']} ({out['segments_removed']} segments "
+        f"removed: a segment holds 4,096 containers); index snapshots of "
+        f"{out['snapshot_bytes']} bytes")
+    return out
+
+
+def main_store():
+    """The phase-2 store: 4 shards, spread 1, 400-sample chunks, and no
+    limit on the series an exec leaf matches (``max_query_matches``, the
+    reference's 250,000 a shard: phase 10 runs exec over shards of
+    250,000 series and more, as the reference's exec would refuse to)."""
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.core.store.config import StoreConfig
+
+    return MemStore(num_shards=4, spread=1, config=StoreConfig(
+        max_chunk_size=400, max_query_matches=0))
 
 
 def run(dev, args):
@@ -2159,12 +2633,11 @@ def run(dev, args):
     phase-2 store's service (phase 7 queries it again)."""
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.query_service import QueryService
-    from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.http.promjson import matrix_json
     from filodb_tpu_torch.query.engine.aggregations import aggregate
 
     t = time.perf_counter()
-    store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+    store = main_store()
     kept = ingest(store, args.series, args.samples, args.seed)
     chunks = sum(len(s.chunks["pid"]) for s in store.shards)
     log(f"phase 2: ingest: {args.series} series, {kept} samples, {chunks} "
@@ -2237,7 +2710,9 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
-    ap.add_argument("--hist-series", type=int, default=100_000)
+    # phase 8's histograms: cut from 100,000 to keep the smoke inside its
+    # limit with phase 12 (PERF.md §4)
+    ap.add_argument("--hist-series", type=int, default=50_000)
     ap.add_argument("--exec-only", action="store_true",
                     help="build, ingest the phase-2 store and run phase 10 "
                     "only (the exec engine against the mesh engine)")
@@ -2286,17 +2761,17 @@ def _phases(args, smi) -> int:
     from filodb_tpu_torch import _build
     if args.exec_only:
         from filodb_tpu_torch.coordinator.query_service import QueryService
-        from filodb_tpu_torch.core.memstore.memstore import MemStore
 
-        store = MemStore(num_shards=4, spread=1, max_chunk_size=400)
+        store = main_store()
         ingest(store, args.series, args.samples, args.seed)
         print(json.dumps({"exec": exec_phase(QueryService(
             store, device=torch.device("cuda")), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.durability_only:
-        print(json.dumps({"durability": durability_phase(
-            torch.device("cuda"), args)}))
+        durable, node = durable_and_node(torch.device("cuda"), args)
+        print(json.dumps({"durability": durable}))
+        print(json.dumps({"node": node}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     kernels, svc = run(torch.device("cuda"), args)
@@ -2312,8 +2787,9 @@ def _phases(args, smi) -> int:
     print(json.dumps({"plan_shapes": shapes}))
     del svc
     torch.cuda.empty_cache()
-    durable = durability_phase(torch.device("cuda"), args)
+    durable, node = durable_and_node(torch.device("cuda"), args)
     print(json.dumps({"durability": durable}))
+    print(json.dumps({"node": node}))
     torch.cuda.empty_cache()
     hist = histogram_phase(torch.device("cuda"), args, reps=5)
     print(json.dumps({"histograms": hist}))
@@ -2323,6 +2799,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase9"] = shapes["launches"][kern["name"]]
         kern["launches_phase10"] = exec10["launches"][kern["name"]]
         kern["launches_phase11"] = durable["launches"][kern["name"]]
+        kern["launches_phase12"] = node["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -25,10 +25,17 @@ with ``vector_json`` or, for a scalar expression, ``scalar_json``.
 ``QueryStats.fallback`` why mesh handed the plan on. Both engines keep
 their uploaded batches in one ``BatchCache``, under one budget of device
 memory, and their group ids in one ``GroupIdCache``.
+
+Threads share a service (the HTTP front end, a node's callers): its
+queries run one at a time under ``lock`` (the engines' caches are not
+shared between two queries in flight), while the shards' locks let
+ingest and flushes go on between a query's selections. The metadata
+calls take only the shards' locks.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -73,6 +80,7 @@ class QueryService:
         self.planner = SingleClusterPlanner(memstore.num_shards,
                                             memstore.spread,
                                             time_split_ms=time_split_ms)
+        self.lock = threading.Lock()
 
     def query_range(self, promql: str, start_sec: int, step_sec: int,
                     end_sec: int) -> QueryResult:
@@ -86,14 +94,16 @@ class QueryService:
     def _run(self, promql: str, params: TimeStepParams) -> QueryResult:
         t0 = time.perf_counter()
         plan = parse_query(promql, params)
-        m, stats = self.execute_logical(plan)
-        m.materialize()
+        with self.lock:
+            m, stats = self.execute_logical(plan)
+            m.materialize()
         stats.result_series = m.num_series
         stats.wall_time_s = time.perf_counter() - t0
         return QueryResult(m, stats)
 
     def execute_logical(self, plan) -> tuple[StepMatrix, QueryStats]:
-        """``plan``'s answer (values still on the card) and its stats."""
+        """``plan``'s answer (values still on the card) and its stats;
+        a caller that shares the service holds ``lock``."""
         fallback = ""
         if self.engine == "mesh":
             fallback = self.mesh.supports(self.memstore, plan)

@@ -131,6 +131,50 @@ class PartKeyIndex:
             & (self._end[: self._n] >= start_time)
         return np.flatnonzero(keep)
 
+    def postings(self):
+        """Yield (label, values, pids, counts) a label, labels sorted: the
+        values some partition holds, sorted by their UTF-8 bytes, their
+        partition ids value after value, each value's in order, and how
+        many each value has, as the reference's index snapshot stores them
+        (``FrozenLabel``)."""
+        n = self._n
+        for name in sorted(self._labels):
+            col = self._labels[name]
+            vid = col.vid[:n]
+            pids = np.flatnonzero(vid >= 0)
+            if not len(pids):
+                continue
+            enc = [v.encode() for v in col.values]
+            order = sorted(range(len(enc)), key=enc.__getitem__)
+            rank = np.empty(len(enc), np.int64)
+            rank[order] = np.arange(len(enc))
+            r = rank[vid[pids]]
+            pids = pids[np.lexsort((pids, r))]
+            counts = np.bincount(r, minlength=len(enc))  # by rank
+            have = counts > 0
+            yield (name, [enc[i] for i, h in zip(order, have) if h], pids,
+                   counts[have])
+
+    def restore(self, starts: np.ndarray, ends: np.ndarray,
+                postings) -> None:
+        """Load an empty index from ``starts`` / ``ends`` of n partitions
+        and ``postings`` (label, value strings, pids, counts; as
+        ``postings`` yields them)."""
+        if self._n:
+            raise ValueError("restore needs an empty index")
+        n = len(starts)
+        self._grow(n)
+        self._start[:n] = starts
+        self._end[:n] = ends
+        for name, values, pids, counts in postings:
+            col = self._labels[name] = _LabelColumn()
+            col.values = list(values)
+            col.ids = {v: i for i, v in enumerate(col.values)}
+            col.vid = np.full(len(self._start), -1, np.int32)
+            col.vid[pids] = np.repeat(np.arange(len(values), dtype=np.int32),
+                                      counts)
+        self._n = n
+
     def label_names(self) -> list[str]:
         """The labels some partition holds, sorted."""
         return sorted(name for name, col in self._labels.items()

@@ -248,11 +248,10 @@ class MemStore:
     def label_names(self) -> list[str]:
         """Label names over every shard, sorted (the reference's
         ``TimeSeriesMemStore.label_names``)."""
-        return sorted(set().union(*(s.index.label_names()
-                                    for s in self.shards)))
+        return sorted(set().union(*(s.label_names() for s in self.shards)))
 
     def label_values(self, label: str, filters=None) -> list[str]:
         """Values of ``label`` over every shard (among the partitions the
         filters select, if any), sorted."""
-        return sorted(set().union(*(s.index.label_values(label, filters)
+        return sorted(set().union(*(s.label_values(label, filters)
                                     for s in self.shards)))

@@ -180,7 +180,7 @@ def page_partitions(shard, pids: np.ndarray, start: int, end: int,
         t = time.perf_counter()
         rows = shard.column_store.read_chunk_rows(
             shard.dataset, shard.shard_num,
-            [shard.keys[p].serialized for p in read.tolist()], start, end)
+            shard.key_blobs(read), start, end)
         cb = ChunkBytes.from_blobs([d for _, d in rows])
         rpid = np.array([shard._by_blob[b] for b, _ in rows], np.int64)
         cache.seconds["read"] += time.perf_counter() - t

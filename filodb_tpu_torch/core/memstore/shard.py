@@ -26,6 +26,23 @@ checks no watermark and moves no offset, so one store takes both kinds.
 ``evict_partition_chunks`` drops flushed chunks from memory; a query pages
 them back in (``core/memstore/odp.py``).
 
+A node's ingest worker, its flush scheduler and the query threads share a
+shard: ``lock`` (the reference's ``write_lock``) is taken where the
+reference takes it, around ingest (container and columnar), seal, a group
+flush, part-key writes, recovery, the index snapshot, page-in and chunk
+eviction, and around each index lookup. A query's ``select_for_batch``
+pages in and selects its page blocks under it, so they come from one
+version of the shard; the page arrays it hands out are never written
+again (a seal or a compaction makes new ones), so the pack that follows,
+the upload and the kernels run without it.
+
+Index snapshots (``snapshot_index``, ``core/memstore/index_snapshot.py``)
+hold the partition registry, the index and the cardinality tree; a
+restart restores one and then the part keys and chunk floors written
+since its tokens, or on any failure falls back to the full part-key scan,
+as the reference does. ``floor`` is each partition's largest persisted
+timestamp (the snapshot's out-of-order floor).
+
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
@@ -39,11 +56,14 @@ selector (``h::sum``) selects those value pages as a scalar series
 
 from __future__ import annotations
 
+import logging
+import threading
 import time
 
 import numpy as np
 
 from filodb_tpu_torch.core.memstore import odp
+from filodb_tpu_torch.core.memstore.cardinality import CardinalityTracker
 from filodb_tpu_torch.core.memstore.index import PartKeyIndex
 from filodb_tpu_torch.core.memstore.partition import (
     HIST_COLUMNS,
@@ -73,9 +93,74 @@ from filodb_tpu_torch.core.store.api import (
 )
 from filodb_tpu_torch.core.store.config import StoreConfig
 from filodb_tpu_torch.memory.chunk import chunk_ids, encode_chunks
+from filodb_tpu_torch.utils.metrics import Counter, Gauge, Histogram
+
+log = logging.getLogger(__name__)
 
 _NCOL = len(HIST_COLUMNS)
 _NO_TS = np.iinfo(np.int64).max
+
+
+class KeyList:
+    """A shard's part keys by pid and their ``PartKey.serialized`` blobs;
+    a key a snapshot restored is made from its blob when first used (a
+    restore creates no key object)."""
+
+    def __init__(self, blobs: list[bytes] = ()):
+        self._blobs = list(blobs)
+        self._keys: list = [None] * len(self._blobs)
+
+    def __len__(self) -> int:
+        return len(self._keys)
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[j] for j in range(*i.indices(len(self)))]
+        k = self._keys[i]
+        if k is None:
+            k = self._keys[i] = pk_from_blob(self._blobs[i])
+        return k
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+    def blob(self, i: int) -> bytes:
+        return self._blobs[i]
+
+    def extend(self, keys) -> None:
+        keys = list(keys)
+        self._keys.extend(keys)
+        self._blobs.extend(k.serialized for k in keys)
+
+
+class ShardStats:
+    """The reference's shard metrics (``ShardStats``) of the ingest, flush
+    and recovery paths, tagged {dataset, shard}, under its names."""
+
+    def __init__(self, dataset: str, shard: int):
+        tags = {"dataset": dataset, "shard": str(shard)}
+        self.rows_ingested = Counter("memstore_rows_ingested", tags)
+        self.rows_skipped = Counter("recovery_row_skipped", tags)
+        self.partitions_created = Counter("memstore_partitions_created",
+                                          tags)
+        self.num_partitions = Gauge("num_partitions", tags)
+        self.chunks_flushed = Counter("memstore_flushes_chunks_written", tags)
+        self.flushes_done = Counter("memstore_flushes_success", tags)
+        self.flushes_failed = Counter("memstore_flushes_failed", tags)
+        self.dirty_keys_flushed = Counter(
+            "memstore_index_num_dirty_keys_flushed", tags)
+        self.flush_latency = Histogram("chunk_flush_task_latency_seconds",
+                                       tags)
+        self.offset_latest_in_mem = Gauge("shard_offset_latest_inmemory",
+                                          tags)
+        self.offset_flushed_latest = Gauge("shard_offset_flushed_latest",
+                                           tags)
+        self.offset_flushed_earliest = Gauge("shard_offset_flushed_earliest",
+                                             tags)
+        self.recovery_time_ms = Gauge("memstore_total_shard_recovery_time_ms",
+                                      tags)
+        self.index_recovery_partkeys = Counter(
+            "memstore_index_recovery_partkeys_processed", tags)
 
 
 class Shard:
@@ -90,7 +175,7 @@ class Shard:
         self.column_store = column_store or NullColumnStore()
         self.meta_store = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()
-        self.keys: list[PartKey] = []
+        self.keys = KeyList()
         self._by_blob: dict[bytes, int] = {}  # PartKey.serialized → pid
         self.buffers = WriteBuffers(self.max_chunk_size)
         # per partition: latest timestamp (the out-of-order floor), next
@@ -129,10 +214,20 @@ class Shard:
         self.rows_skipped = 0  # replayed records below their watermark
         self.odp_cache = odp.DemandPagedChunkCache()
         self._earliest = None  # (version, earliest_in_memory())
+        # each partition's largest persisted timestamp (-1: none known)
+        self.floor = np.zeros(0, np.int64)
+        self.lock = threading.Lock()
+        self.stats = ShardStats(dataset, shard_num)
+        self.recovered_from: str | None = None  # "snapshot" or "scan"
+        self.cardinality = CardinalityTracker(shard_num)
 
     @property
     def num_partitions(self) -> int:
         return len(self.keys)
+
+    def key_blobs(self, pids) -> list[bytes]:
+        """``PartKey.serialized`` of partitions ``pids``."""
+        return [self.keys.blob(p) for p in np.asarray(pids).tolist()]
 
     # ---- partitions --------------------------------------------------------
 
@@ -146,6 +241,7 @@ class Shard:
             return np.concatenate([a, np.full(grow, fill, a.dtype)])
 
         self.latest = more(self.latest, -1)
+        self.floor = more(self.floor, -1)
         self._seq = more(self._seq, 0)
         self.schema_of = more(self.schema_of, 0)
         self.group = more(self.group, 0)
@@ -171,10 +267,14 @@ class Shard:
             % self.config.groups_per_shard
         self._dirty[base:n] = True
         if self._persisted_floors:
-            self.latest[base:n] = [self._persisted_floors.get(b, -1)
-                                   for b in blobs]
+            self.floor[base:n] = [self._persisted_floors.get(b, -1)
+                                  for b in blobs]
+            self.latest[base:n] = self.floor[base:n]
         self.index.add_part_keys(base, [k.labels for k in keys],
                                  np.asarray(first_ts, np.int64))
+        self.cardinality.series_created_many(k.label_map for k in keys)
+        self.stats.partitions_created.inc(len(keys))
+        self.stats.num_partitions.set(n)
         return np.arange(base, n)
 
     def _partitions_for(self, keys: list[PartKey],
@@ -212,7 +312,11 @@ class Shard:
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
         first = np.where(lens > 0, ts[:, 0], -1)
-        return self._append(self._partitions_for(keys, first), ts, vals, lens)
+        with self.lock:
+            kept = self._append(self._partitions_for(keys, first), ts, vals,
+                                lens)
+        self.stats.rows_ingested.inc(kept)
+        return kept
 
     def _append(self, pids, ts, vals, lens) -> int:
         ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
@@ -244,8 +348,11 @@ class Shard:
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
         first = np.where(lens > 0, ts[:, 0], -1)
-        return self._append_hist(self._partitions_for(keys, first), ts,
-                                  slots, lens, self._scheme(les))
+        with self.lock:
+            kept = self._append_hist(self._partitions_for(keys, first), ts,
+                                     slots, lens, self._scheme(les))
+        self.stats.rows_ingested.inc(kept)
+        return kept
 
     def _append_hist(self, pids, ts, slots, lens, lid: int) -> int:
         B = slots.shape[2] - _NCOL
@@ -275,9 +382,17 @@ class Shard:
         below their group's watermark are skipped, and records of a schema
         the port does not know are dropped. Returns the samples kept."""
         cols = parse_container(data.container.serialize())
+        with self.lock:
+            kept, skipped = self._ingest_columns(cols, data.offset)
+        self.stats.rows_ingested.inc(kept)
+        self.stats.rows_skipped.inc(skipped)
+        return kept
+
+    def _ingest_columns(self, cols, offset: int) -> tuple[int, int]:
         group = cols.part_hash.astype(np.int64) % self.config.groups_per_shard
-        below = data.offset <= self.group_watermarks[group]
-        self.rows_skipped += int(below.sum())
+        below = offset <= self.group_watermarks[group]
+        skipped = int(below.sum())
+        self.rows_skipped += skipped
         idx = np.flatnonzero(~below & (cols.schema >= 0))
         kept = 0
         if len(idx):
@@ -291,8 +406,8 @@ class Shard:
             if hist.any():
                 kept += self._ingest_hist_records(cols, idx[hist],
                                                   pids[hist])
-        self._ingested_offset = max(self._ingested_offset, data.offset)
-        return kept
+        self._ingested_offset = max(self._ingested_offset, offset)
+        return kept, skipped
 
     def _ingest_hist_records(self, cols, idx: np.ndarray,
                              pids: np.ndarray) -> int:
@@ -331,7 +446,10 @@ class Shard:
 
     def seal(self, pids: np.ndarray) -> None:
         """Close the write buffers of ``pids`` into chunks now."""
-        pids = np.asarray(pids, np.int64)
+        with self.lock:
+            self._seal(np.asarray(pids, np.int64))
+
+    def _seal(self, pids: np.ndarray) -> None:
         hist = self.hist[pids]
         sealed_any = False
         if (~hist).any():
@@ -408,31 +526,49 @@ class Shard:
 
     def flush_group(self, group: int, ingestion_time: int | None = None
                     ) -> int:
-        """Flush one group (the reference's ``doFlushSteps``): seal its
-        write buffers, write its pending chunks and dirty part keys, then
-        its checkpoint. Returns the chunks written."""
+        """Flush one group (the reference's ``doFlushSteps``), under the
+        lock: seal its write buffers, write its pending chunks and dirty
+        part keys, then its checkpoint. Returns the chunks written."""
         if ingestion_time is None:
             ingestion_time = int(time.time() * 1000)
+        t0 = time.perf_counter()
+        try:
+            with self.lock:
+                written = self._flush_group(group, ingestion_time)
+        except Exception:
+            self.stats.flushes_failed.inc()
+            raise
+        st = self.stats
+        st.chunks_flushed.inc(written)
+        st.flushes_done.inc()
+        st.flush_latency.observe(time.perf_counter() - t0)
+        st.offset_latest_in_mem.set(self._ingested_offset)
+        st.offset_flushed_latest.set(int(self.group_watermarks.max()))
+        st.offset_flushed_earliest.set(int(self.group_watermarks.min()))
+        return written
+
+    def _flush_group(self, group: int, ingestion_time: int) -> int:
         # rows at or below this offset are in the buffers sealed below;
         # rows ingested later are replayed on recovery
         checkpoint = self._ingested_offset
         P = self.num_partitions
         mine = self.group[:P] == group
         pids = np.flatnonzero(mine)
-        self.seal(pids)
+        self._seal(pids)
         written = 0
         for table in (self._sealed, self._hist_sealed):
             col = table.columns
             sel = np.flatnonzero(col["pending"] & mine[col["pid"]])
             if not len(sel):
                 continue
-            blobs = [self.keys[p].serialized for p in col["pid"][sel]]
+            blobs = self.key_blobs(col["pid"][sel])
             rows = list(zip(blobs, col["cid"][sel].tolist(),
                             col["t0"][sel].tolist(), col["t1"][sel].tolist(),
                             table.codec_rows(sel)))
             self.column_store.write_chunk_rows(self.dataset, self.shard_num,
                                                rows, ingestion_time)
             table.flushed(sel)
+            np.maximum.at(self.floor, col["pid"][sel], col["t1"][sel])
             written += len(sel)
         self._write_part_keys(pids)
         self.meta_store.write_checkpoint(self.dataset, self.shard_num, group,
@@ -453,6 +589,7 @@ class Shard:
             [PartKeyRecord(self.keys[p], s, e) for p, s, e in
              zip(dirty.tolist(), starts.tolist(), ends.tolist())])
         self._dirty[dirty] = False
+        self.stats.dirty_keys_flushed.inc(len(dirty))
 
     def flush_all(self, ingestion_time: int | None = None) -> int:
         """Flush every group. The dirty part keys of all groups go first,
@@ -460,7 +597,8 @@ class Shard:
         order they were created (``recover_index`` reads them back in the
         order written), and a batch's rows, and so its sums, come out as
         before."""
-        self._write_part_keys(np.arange(self.num_partitions))
+        with self.lock:
+            self._write_part_keys(np.arange(self.num_partitions))
         return sum(self.flush_group(g, ingestion_time)
                    for g in range(self.config.groups_per_shard))
 
@@ -470,12 +608,42 @@ class Shard:
         counting as -1 (ROADMAP §C.4: the reference starts at the smallest
         checkpoint written and so never replays such a group's rows)."""
         cps = self.meta_store.read_checkpoints(self.dataset, self.shard_num)
-        for g, off in cps.items():
-            if g < len(self.group_watermarks):
-                self.group_watermarks[g] = off
-        return int(self.group_watermarks.min())
+        with self.lock:
+            for g, off in cps.items():
+                if g < len(self.group_watermarks):
+                    self.group_watermarks[g] = off
+            return int(self.group_watermarks.min())
 
     def recover_index(self) -> int:
+        """Restore the index of an empty shard: from its index snapshot
+        and the part keys and chunk floors written since the snapshot's
+        tokens, or, without a snapshot or when its restore fails, from the
+        full part-key scan (``_scan_part_keys``). Returns the partitions
+        restored."""
+        t0 = time.perf_counter()
+        try:
+            with self.lock:
+                if not self.num_partitions:
+                    snap = self.column_store.read_index_snapshot(
+                        self.dataset, self.shard_num)
+                    if snap:
+                        try:
+                            n = self._recover_from_snapshot(snap)
+                            self.recovered_from = "snapshot"
+                            return n
+                        except Exception:
+                            log.exception("index snapshot restore failed "
+                                          "for %s/%d; falling back to the "
+                                          "full part-key scan", self.dataset,
+                                          self.shard_num)
+                            self._reset_registry()
+                self.recovered_from = "scan"
+                return self._scan_part_keys()
+        finally:
+            self.stats.recovery_time_ms.set(
+                (time.perf_counter() - t0) * 1000.0)
+
+    def _scan_part_keys(self) -> int:
         """Restore partitions from the column store's part keys, in the
         order they were written (index only: their chunks stay on disk until
         a query pages them in), each with its out-of-order floor at its
@@ -492,12 +660,106 @@ class Shard:
         self.index.set_end_times(pids, [r.end_time for r in recs])
         self._dirty[pids] = False
         self.version += 1
+        self.stats.index_recovery_partkeys.inc(len(recs))
         return len(recs)
+
+    def _reset_registry(self) -> None:
+        """Forget a partly restored registry (before the full scan)."""
+        self.index = PartKeyIndex()
+        self.keys = KeyList()
+        self._by_blob = {}
+        self.cardinality = CardinalityTracker(self.shard_num)
+        for name in ("latest", "floor", "_seq", "schema_of", "group",
+                     "_dirty", "hist", "_width", "_les_id"):
+            setattr(self, name, getattr(self, name)[:0])
+
+    def _recover_from_snapshot(self, data: bytes) -> int:
+        from filodb_tpu_torch.core.memstore.index_snapshot import (
+            load_snapshot,
+        )
+
+        info = load_snapshot(self, data)
+        # part keys created or updated after the snapshot
+        recs = self.column_store.scan_part_keys_since(
+            self.dataset, self.shard_num, info["pk_token"])
+        new = [r for r in recs if r.part_key.serialized not in self._by_blob]
+        if new:
+            pids = self._create([r.part_key for r in new],
+                                np.array([r.start_time for r in new],
+                                         np.int64))
+            self._dirty[pids] = False
+        if recs:
+            pids = np.array([self._by_blob[r.part_key.serialized]
+                             for r in recs], np.int64)
+            self.index.set_end_times(pids, [r.end_time for r in recs])
+        # chunk floors written after the snapshot; a partition that replay
+        # creates takes its floor from them
+        delta = self.column_store.max_persisted_ts_since(
+            self.dataset, self.shard_num, info["chunk_token"])
+        self._persisted_floors = delta
+        hit = [(self._by_blob[b], t) for b, t in delta.items()
+               if b in self._by_blob]
+        if hit:
+            pids, ts = (np.array(x, np.int64) for x in zip(*hit))
+            np.maximum.at(self.floor, pids, ts)
+            np.maximum.at(self.latest, pids, ts)
+        self.version += 1
+        self.stats.index_recovery_partkeys.inc(len(new))
+        self.stats.num_partitions.set(self.num_partitions)
+        return self.num_partitions
+
+    def restore_registry(self, snap: dict) -> None:
+        """Load the partitions of a read index snapshot
+        (``index_snapshot.read_snapshot``) into this empty shard, in pid
+        order: keys, kinds, flush groups from the stored part hashes,
+        floors, the index and the cardinality tree."""
+        if self.num_partitions:
+            raise ValueError("an index snapshot restores into an empty shard")
+        blobs, n = snap["blobs"], snap["n"]
+        self._grow(n)
+        self.keys = KeyList(blobs)
+        self._by_blob = dict(zip(blobs, range(n)))
+        index_of = np.full(1 << 16, -1, np.int64)
+        for i, name in enumerate(SCHEMA_NAMES):
+            index_of[SCHEMAS[name].schema_id] = i
+        schema = index_of[snap["schema_ids"]]
+        self.schema_of[:n] = schema
+        self.hist[:n] = np.array([SCHEMAS[x].is_histogram
+                                  for x in SCHEMA_NAMES])[schema]
+        self.group[:n] = snap["hashes"].astype(np.int64) \
+            % self.config.groups_per_shard
+        self.floor[:n] = snap["floors"]
+        self.latest[:n] = snap["floors"]
+        self._dirty[:n] = False
+        self.index.restore(snap["starts"], snap["ends"], snap["postings"])
+        self.cardinality.load_state(snap["cardinality"])
+
+    def snapshot_index(self) -> int:
+        """Write the index snapshot to the column store; returns its
+        bytes. The tokens are taken first, so a restore replays everything
+        written while the snapshot was made."""
+        from filodb_tpu_torch.core.memstore.index_snapshot import (
+            save_snapshot,
+        )
+
+        chunk_token, pk_token = self.column_store.update_tokens(
+            self.dataset, self.shard_num)
+        with self.lock:
+            data = save_snapshot(self, chunk_token=chunk_token,
+                                 pk_token=pk_token,
+                                 snapshot_ms=int(time.time() * 1000))
+        self.column_store.write_index_snapshot(self.dataset, self.shard_num,
+                                               data)
+        return len(data)
 
     def evict_partition_chunks(self, part_ids) -> int:
         """Drop the flushed resident chunks of ``part_ids`` (the partitions
         and their index entries stay; a query pages the chunks back in).
         Returns the chunks evicted."""
+        with self.lock:
+            return self._evict(part_ids)
+
+    def _evict(self, part_ids) -> int:
         mine = np.zeros(self.num_partitions, bool)
         mine[np.atleast_1d(np.asarray(part_ids, np.int64))] = True
         n = 0
@@ -533,13 +795,33 @@ class Shard:
         self._earliest = (self.version, e)
         return e
 
-    def page_in(self, pids: np.ndarray, start: int, end: int) -> dict | None:
+    def _page_in(self, pids, start, end) -> dict | None:
         """The paged chunks ``pids`` need for [start, end]
         (``odp.page_partitions``), or None (demand paging off, or nothing
-        to page)."""
+        to page); the caller holds the lock."""
         if not self.config.demand_paging_enabled:
             return None
         return odp.page_partitions(self, pids, start, end, self.odp_cache)
+
+    def select_for_batch(self, pids: np.ndarray, start: int, end: int,
+                         hist: bool, column: str | None = None,
+                         expect: int | None = None):
+        """A query's page-in and selection under the lock, so both see one
+        version of the shard: ``select_hist_blocks`` (``hist``) or
+        ``select_blocks`` of ``pids`` for [start, end] with the chunks
+        paged in for them. Returns (that selection, the version it
+        reflects): the version after the page-in when the shard is still
+        at ``expect`` (the version its caller read before choosing
+        ``pids``), else ``expect``, so a writer that came between the
+        lookup and the selection leaves the batch stale at once."""
+        with self.lock:
+            same = expect is None or self.version == expect
+            paged = self._page_in(pids, start, end)
+            if hist:
+                sel = self.select_hist_blocks(pids, start, end, paged)
+            else:
+                sel = self.select_blocks(pids, start, end, column, paged)
+            return sel, (self.version if same else expect)
 
     def chunk_infos(self, pids: np.ndarray, start: int, end: int,
                     include_buffer: bool = False) -> list[tuple]:
@@ -548,6 +830,10 @@ class Shard:
         chunk id, and with ``include_buffer`` each overlapping write buffer
         as the chunk it would seal into (id ``chunk_id(t0, 0xFFF)``, as the
         reference's transient buffer chunk)."""
+        with self.lock:
+            return self._chunk_infos(pids, start, end, include_buffer)
+
+    def _chunk_infos(self, pids, start, end, include_buffer) -> list[tuple]:
         want = np.zeros(self.num_partitions, bool)
         want[pids] = True
         out = []
@@ -584,7 +870,16 @@ class Shard:
     # ---- query -------------------------------------------------------------
 
     def lookup_partitions(self, filters, start: int, end: int) -> np.ndarray:
-        return self.index.part_ids_from_filters(filters, start, end)
+        with self.lock:
+            return self.index.part_ids_from_filters(filters, start, end)
+
+    def label_names(self) -> list[str]:
+        with self.lock:
+            return self.index.label_names()
+
+    def label_values(self, label: str, filters=None) -> list[str]:
+        with self.lock:
+            return self.index.label_values(label, filters)
 
     @staticmethod
     def _buffer_table(buffers: WriteBuffers, P: int):

@@ -10,6 +10,14 @@ page-in of a query need, where the reference's ``write_chunks`` /
 ``read_chunks`` take one part key: rows are (part-key blob, chunk id,
 start, end, serialized chunk). Part keys travel as their blobs
 (``PartKey.serialized``, the reference's ``_pk_blob``).
+
+Index snapshots (``core/memstore/index_snapshot.py``): a column store
+keeps one a shard (``write_index_snapshot`` / ``read_index_snapshot``)
+and hands out write counters (``update_tokens``); a restore replays the
+part keys and chunk floors written after them (``scan_part_keys_since``,
+``max_persisted_ts_since``). The base class and the in-memory store keep
+the reference's defaults: the "since" calls return everything, which a
+restore applies idempotently.
 """
 
 from __future__ import annotations
@@ -72,6 +80,28 @@ class ColumnStore:
         rows flushed just before a crash is not written twice."""
         raise NotImplementedError
 
+    def update_tokens(self, dataset: str, shard: int) -> tuple[int, int]:
+        """(chunk token, part-key token): the write counters now."""
+        return (-1, -1)
+
+    def write_index_snapshot(self, dataset: str, shard: int,
+                             data: bytes) -> None:
+        """Keep a shard's index snapshot (replacing the last)."""
+
+    def read_index_snapshot(self, dataset: str, shard: int) -> bytes | None:
+        return None
+
+    def scan_part_keys_since(self, dataset: str, shard: int,
+                             pk_token: int) -> list[PartKeyRecord]:
+        """The part keys written after ``pk_token``."""
+        return self.scan_part_keys(dataset, shard)
+
+    def max_persisted_ts_since(self, dataset: str, shard: int,
+                               chunk_token: int) -> dict[bytes, int]:
+        """``max_persisted_ts`` of the chunks written after
+        ``chunk_token``."""
+        return self.max_persisted_ts(dataset, shard)
+
     def close(self) -> None:
         pass
 
@@ -120,6 +150,7 @@ class InMemoryColumnStore(ColumnStore):
         self._chunks = defaultdict(lambda: defaultdict(dict))
         self._part_keys: dict[tuple, dict[PartKey, PartKeyRecord]] = \
             defaultdict(dict)
+        self._snapshots: dict[tuple, bytes] = {}
 
     def initialize(self, dataset, num_shards):
         pass
@@ -156,6 +187,18 @@ class InMemoryColumnStore(ColumnStore):
         return {blob: max(et for _, et, _ in chunks.values())
                 for blob, chunks in self._chunks[(dataset, shard)].items()
                 if chunks}
+
+    def write_index_snapshot(self, dataset, shard, data):
+        self._snapshots[(dataset, shard)] = bytes(data)
+
+    def read_index_snapshot(self, dataset, shard):
+        return self._snapshots.get((dataset, shard))
+
+    def update_tokens(self, dataset, shard):
+        # counts stand in for write counters, as the reference's in-memory
+        # store counts (its "since" calls return everything)
+        nchunks = sum(len(v) for v in self._chunks[(dataset, shard)].values())
+        return (nchunks, len(self._part_keys[(dataset, shard)]))
 
 
 class InMemoryMetaStore(MetaStore):

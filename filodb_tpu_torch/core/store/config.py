@@ -1,18 +1,78 @@
-"""Store configuration: the fields of ``filodb_tpu/core/store/config.py``'s
-``StoreConfig`` that the port's write path reads."""
+"""Store and ingestion configuration.
+
+Copy of ``filodb_tpu/core/store/config.py``'s ``StoreConfig`` and
+``IngestionConfig``, with the fields the port reads. Some fields are read
+by modules the port does not have yet; they are accepted at the
+reference's defaults and raise ``NotImplementedError`` set to anything
+else (``check_supported``): ``shard_mem_mb``, ``retention_ms`` and
+``evicted_pk_bloom_filter_capacity`` (memory-pressure eviction and
+retention purge, ROADMAP §A.9) and ``disk_ttl_ms``.
+``max_query_matches`` is the exec leaf's limit of series a shard matches
+(``QueryLimitExceeded``), as in the reference.
+``native_ingest`` is accepted either way: the port's container ingest is
+its host C++ scan (``core/record.py::parse_container``) whatever it says.
+``device_pages`` is always on in the port (sealed chunks keep their
+pages), so its reference default (off) and on are both accepted.
+"""
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, fields
 
 
 @dataclass(frozen=True)
 class StoreConfig:
+    flush_interval_ms: int = 3_600_000  # a flush cycle of every group
     max_chunk_size: int = 400           # samples a chunk
     groups_per_shard: int = 20          # flush groups (the reference's dev)
+    shard_mem_mb: int = 256
+    disk_ttl_ms: int = 3 * 24 * 3_600_000
+    retention_ms: int = 3 * 24 * 3_600_000
     # shards ``MemStore.flush_all`` flushes at once (each shard its own
     # sqlite file); a shard flushes its groups one after another
     flush_task_parallelism: int = 2
     # page flushed chunks in from the column store when a query reaches
     # past what memory holds
     demand_paging_enabled: bool = True
+    max_query_matches: int = 250_000
+    evicted_pk_bloom_filter_capacity: int = 50_000
+    trace_part_key_substrings: tuple[str, ...] = ()
+    assert_single_writer: bool = False
+    device_pages: bool = False
+    native_ingest: bool = True
+    # write each shard's index snapshot this often (0: only on demand)
+    index_snapshot_interval_ms: int = 600_000
+
+    def check_supported(self) -> None:
+        """Raise for a field set away from the reference's default whose
+        module the port lacks."""
+        for f in fields(self):
+            if f.name in _UNPORTED and getattr(self, f.name) != f.default:
+                raise NotImplementedError(
+                    f"store.{f.name}={getattr(self, f.name)!r}: "
+                    f"{_UNPORTED[f.name]}")
+
+
+_EVICTION = ("memory-pressure eviction and retention purge are not ported "
+             "(ROADMAP §A.9)")
+_UNPORTED = {
+    "shard_mem_mb": _EVICTION,
+    "retention_ms": _EVICTION,
+    "evicted_pk_bloom_filter_capacity": _EVICTION,
+    "disk_ttl_ms": "column-store expiry is not ported (ROADMAP §A.9)",
+    "trace_part_key_substrings": "tracing partitions are not ported "
+                                 "(ROADMAP §A.11)",
+    "assert_single_writer": "the single-writer tripwire is not ported "
+                            "(ROADMAP §A.11)",
+}
+
+
+@dataclass(frozen=True)
+class IngestionConfig:
+    dataset: str
+    num_shards: int = 4
+    min_num_nodes: int = 1
+    source_factory: str = "in-proc"
+    source_config: dict = field(default_factory=dict)
+    store: StoreConfig = field(default_factory=StoreConfig)
+    downsample: dict | None = None

@@ -5,8 +5,12 @@ file: one database a shard, ``<root>/<dataset>/shard-<n>.db``, with the
 tables ``chunks`` (partition, chunkid → start, end, serialized chunk),
 ``ingestion_time_index``, ``partkeys`` (partition → start, end),
 ``checkpoints`` (group → offset), and the ``upd`` write counter on chunks
-and part keys. A partition is its part-key blob (``PartKey.serialized``).
-A directory either package writes, the other reads.
+and part keys (the port indexes ``upd``: a snapshot restore reads what
+was written after its token; the reference's queries ignore the index);
+a shard's index snapshot is the file
+``<root>/<dataset>/index-shard-<n>.snap``, replaced atomically. A
+partition is its part-key blob (``PartKey.serialized``). A directory
+either package writes, the other reads.
 
 A flush of a shard's group writes its chunks with one ``executemany`` in
 one transaction; a query's page-in reads the chunks of many part keys in
@@ -72,6 +76,10 @@ class _Db:
                                   "INTEGER DEFAULT 0")
                     except sqlite3.OperationalError:
                         pass  # column already present
+                    # a snapshot restore reads the rows written after its
+                    # token; without an index that is a scan of the table
+                    c.execute(f"CREATE INDEX IF NOT EXISTS {tbl}_upd ON "
+                              f"{tbl}(upd)")
                 self._conns[key] = c
             return c
 
@@ -95,18 +103,22 @@ class LocalDiskColumnStore(ColumnStore):
         for s in range(num_shards):
             self._db.conn(dataset, s)
 
-    def _next_upd(self, c, dataset, shard) -> int:
-        """The next write counter (caller holds the shard's write lock),
+    def _upd_peek(self, c, dataset, shard) -> int:
+        """The last write counter (caller holds the shard's write lock),
         read from the database the first time."""
         key = (dataset, shard)
         cur = self._upd.get(key)
         if cur is None:
-            cur = c.execute(
+            cur = self._upd[key] = c.execute(
                 "SELECT MAX(m) FROM (SELECT COALESCE(MAX(upd),0) m FROM "
                 "chunks UNION ALL SELECT COALESCE(MAX(upd),0) FROM partkeys)"
             ).fetchone()[0] or 0
-        self._upd[key] = cur + 1
-        return cur + 1
+        return cur
+
+    def _next_upd(self, c, dataset, shard) -> int:
+        cur = self._upd[(dataset, shard)] = \
+            self._upd_peek(c, dataset, shard) + 1
+        return cur
 
     def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
         c = self._db.conn(dataset, shard)
@@ -160,6 +172,44 @@ class LocalDiskColumnStore(ColumnStore):
         c = self._db.conn(dataset, shard)
         return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "
                               "GROUP BY partition"))
+
+    def max_persisted_ts_since(self, dataset, shard, chunk_token):
+        c = self._db.conn(dataset, shard)
+        # by the upd index: sqlite would otherwise walk every chunk through
+        # the primary key to group by partition
+        return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "
+                              "INDEXED BY chunks_upd WHERE upd > ? GROUP BY "
+                              "partition", (chunk_token,)))
+
+    def scan_part_keys_since(self, dataset, shard, pk_token):
+        c = self._db.conn(dataset, shard)
+        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in
+                c.execute("SELECT partition, start_time, end_time FROM "
+                          "partkeys WHERE upd > ? ORDER BY rowid",
+                          (pk_token,))]
+
+    def update_tokens(self, dataset, shard):
+        c = self._db.conn(dataset, shard)
+        with self._wlocks[(dataset, shard)]:
+            cur = self._upd_peek(c, dataset, shard)
+        return (cur, cur)
+
+    def _snapshot_path(self, dataset, shard) -> str:
+        return os.path.join(self.root, dataset, f"index-shard-{shard}.snap")
+
+    def write_index_snapshot(self, dataset, shard, data):
+        path = self._snapshot_path(dataset, shard)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(path + ".tmp", path)  # readers never see a partial file
+
+    def read_index_snapshot(self, dataset, shard):
+        try:
+            with open(self._snapshot_path(dataset, shard), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
 
     def close(self):
         self._db.close()

@@ -1,0 +1,360 @@
+"""The default HTTP front end: one thread, a selector event loop.
+
+Port of ``filodb_tpu/http/fastserver.py``'s ``FastHttpServer``
+(``http_impl: "fast"``, the reference's default): one thread owns every
+socket, parses pipelined HTTP/1.1 requests with the same framing rules
+(Content-Length only, duplicate lengths that differ and chunked bodies
+refused, a header block over 1 MiB answered 431, a body over 10 MiB 413),
+and answers in request order. Cold paths (metadata, admin, POST forms)
+run inline through the shared ``HttpDispatcher``. The reference evaluates
+the hot queries (``query`` and ``query_range``) of one readiness pass as
+one ``query_range_many`` engine batch; the port has no such batch yet
+(ROADMAP §A.11), so it answers them one at a time through the dataset's
+``QueryService`` (ROADMAP §C), rendering as the dispatcher does.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import selectors
+import socket
+import threading
+from urllib.parse import parse_qs, urlparse
+
+from filodb_tpu_torch.http import promjson
+from filodb_tpu_torch.http.server import JSON_CT, HttpDispatcher
+from filodb_tpu_torch.promql.parser import ParseError
+from filodb_tpu_torch.query.model import QueryLimitExceeded
+
+log = logging.getLogger(__name__)
+
+_MAX_BUF = 1 << 20          # drop connections with >1MB of pending request
+_MAX_BODY = 10 << 20
+_STATUS = {200: b"200 OK", 400: b"400 Bad Request", 404: b"404 Not Found",
+           413: b"413 Content Too Large", 422: b"422 Unprocessable Entity",
+           429: b"429 Too Many Requests", 431: b"431 Headers Too Large",
+           500: b"500 Internal Server Error", 501: b"501 Not Implemented",
+           503: b"503 Service Unavailable"}
+
+
+def _response_bytes(code: int, headers: dict, body: bytes,
+                    close: bool) -> bytes:
+    head = [b"HTTP/1.1 " + _STATUS.get(code, str(code).encode())]
+    for k, v in headers.items():
+        head.append(f"{k}: {v}".encode())
+    head.append(b"Content-Length: " + str(len(body)).encode())
+    if close:
+        head.append(b"Connection: close")
+    return b"\r\n".join(head) + b"\r\n\r\n" + body
+
+
+class _Conn:
+    __slots__ = ("sock", "inbuf", "out", "slots", "base", "close_after")
+
+    def __init__(self, sock: socket.socket):
+        self.sock = sock
+        self.inbuf = b""
+        self.out = b""
+        # responses must leave in request order (HTTP/1.1 pipelining):
+        # each parsed request claims an ABSOLUTE slot number; completed
+        # prefix slots are shifted out by _flush, so ``base`` tracks the
+        # absolute number of slots[0] (hot queries fill theirs after the
+        # batch runs, by which time earlier slots may have flushed)
+        self.slots: list[bytes | None] = []
+        self.base = 0
+        self.close_after = False
+
+    def fill(self, slot: int, resp: bytes) -> None:
+        i = slot - self.base
+        if 0 <= i < len(self.slots):
+            self.slots[i] = resp
+
+    def is_last(self, slot: int) -> bool:
+        return slot == self.base + len(self.slots) - 1
+
+
+class _HotReq:
+    __slots__ = ("conn", "slot", "svc", "kind", "params")
+
+    def __init__(self, conn, slot, svc, kind, params):
+        self.conn = conn
+        self.slot = slot
+        self.svc = svc
+        self.kind = kind          # "range" | "instant"
+        self.params = params      # (query, start, step, end)
+
+
+class FastHttpServer:
+    """The event-loop front end (``FiloHttpServer``'s constructor
+    surface)."""
+
+    def __init__(self, services: dict, host="127.0.0.1", port=8080,
+                 cluster=None, reuse_port: bool = False):
+        self.services = services
+        self.cluster = cluster
+        self.dispatcher = HttpDispatcher(self)
+        self._listen = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        if reuse_port:
+            self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        self._listen.bind((host, port))
+        self._listen.listen(512)
+        self._listen.setblocking(False)
+        self.port = self._listen.getsockname()[1]
+        self._sel = selectors.DefaultSelector()
+        self._wake_r, self._wake_w = socket.socketpair()
+        self._wake_r.setblocking(False)
+        self._running = False
+        self._thread: threading.Thread | None = None
+
+    def start(self) -> "FastHttpServer":
+        self._running = True
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="fast-http")
+        self._thread.start()
+        return self
+
+    def stop(self):
+        if not self._running:
+            return
+        self._running = False
+        try:
+            self._wake_w.send(b"x")
+        except OSError:
+            pass
+        if self._thread is not None:
+            self._thread.join(timeout=30)
+        for key in list(self._sel.get_map().values()):
+            if isinstance(key.data, _Conn):
+                try:
+                    key.data.sock.close()
+                except OSError:
+                    pass
+        self._sel.close()
+        self._listen.close()
+        self._wake_r.close()
+        self._wake_w.close()
+
+    # -- event loop --
+
+    def _loop(self):
+        self._sel.register(self._listen, selectors.EVENT_READ, None)
+        self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
+        while self._running:
+            hot: list[_HotReq] = []
+            try:
+                for key, mask in self._sel.select(timeout=1.0):
+                    if key.data is None:
+                        self._accept()
+                    elif key.data == "wake":
+                        try:
+                            self._wake_r.recv(4096)
+                        except OSError:
+                            pass
+                    else:
+                        conn: _Conn = key.data
+                        if mask & selectors.EVENT_READ:
+                            self._read(conn, hot)
+                        if mask & selectors.EVENT_WRITE:
+                            self._flush(conn)
+                for req in hot:
+                    code, headers, body = self._run_single(req)
+                    req.conn.fill(req.slot, _response_bytes(
+                        code, headers, body,
+                        req.conn.close_after and req.conn.is_last(req.slot)))
+                    self._flush(req.conn)
+            except Exception:  # the loop outlives a handler's fault
+                log.exception("event loop pass failed")
+                for req in hot:
+                    self._close(req.conn)
+
+    def _accept(self):
+        while True:
+            try:
+                sock, _ = self._listen.accept()
+            except (BlockingIOError, OSError):
+                return
+            sock.setblocking(False)
+            sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            self._sel.register(sock, selectors.EVENT_READ, _Conn(sock))
+
+    def _close(self, conn: _Conn):
+        try:
+            self._sel.unregister(conn.sock)
+        except (KeyError, ValueError):
+            pass
+        try:
+            conn.sock.close()
+        except OSError:
+            pass
+
+    def _read(self, conn: _Conn, hot: list[_HotReq]):
+        try:
+            data = conn.sock.recv(65536)
+        except (BlockingIOError, InterruptedError):
+            return
+        except OSError:
+            self._close(conn)
+            return
+        if not data:
+            self._close(conn)
+            return
+        conn.inbuf += data
+        self._parse_requests(conn, hot)
+        self._flush(conn)
+
+    def _reject(self, conn: _Conn, code: int, message: str):
+        conn.slots.append(_response_bytes(
+            code, {"Content-Type": JSON_CT},
+            json.dumps(promjson.error_json(message)).encode(), True))
+        conn.close_after = True
+        conn.inbuf = b""
+
+    def _parse_requests(self, conn: _Conn, hot: list[_HotReq]):
+        while conn.inbuf and not conn.close_after:
+            end = conn.inbuf.find(b"\r\n\r\n")
+            if end < 0:
+                if len(conn.inbuf) > _MAX_BUF:
+                    self._reject(conn, 431, "headers too large")
+                return
+            lines = conn.inbuf[:end].split(b"\r\n")
+            try:
+                method, target, version = lines[0].split(b" ", 2)
+            except ValueError:
+                self._close(conn)
+                return
+            clen = 0
+            seen_clen = None
+            ctype = ""
+            keep = version.strip() == b"HTTP/1.1"
+            chunked = False
+            for ln in lines[1:]:
+                lower = ln.lower()
+                if lower.startswith(b"transfer-encoding:"):
+                    chunked = True
+                elif lower.startswith(b"content-length:"):
+                    try:
+                        clen = int(ln.split(b":", 1)[1])
+                    except ValueError:
+                        self._close(conn)
+                        return
+                    if seen_clen is not None and seen_clen != clen:
+                        self._close(conn)  # CL.CL request smuggling
+                        return
+                    seen_clen = clen
+                elif lower.startswith(b"content-type:"):
+                    ctype = ln.split(b":", 1)[1].strip().decode(
+                        "latin-1", "replace")
+                elif lower.startswith(b"connection:"):
+                    v = lower.split(b":", 1)[1].strip()
+                    keep = v != b"close" if keep else v == b"keep-alive"
+            if chunked:
+                self._reject(conn, 501, "Transfer-Encoding not supported")
+                return
+            if clen < 0:
+                self._close(conn)
+                return
+            if clen > _MAX_BODY:
+                self._reject(conn, 413, "request body too large")
+                return
+            total = end + 4 + clen
+            if len(conn.inbuf) < total:
+                return  # the body is still to come
+            body = conn.inbuf[end + 4:total]
+            conn.inbuf = conn.inbuf[total:]
+            if not keep:
+                conn.close_after = True
+            slot = conn.base + len(conn.slots)
+            conn.slots.append(None)
+            path = target.decode("latin-1", "replace")
+            req = self._classify_hot(conn, slot, method, path)
+            if req is not None:
+                hot.append(req)
+            else:
+                code, headers, resp = self.dispatcher.handle(
+                    method.decode("latin-1", "replace"), path, body, ctype)
+                conn.fill(slot, _response_bytes(
+                    code, headers, resp,
+                    conn.close_after and conn.is_last(slot)))
+
+    def _classify_hot(self, conn, slot, method: bytes, path: str):
+        """A GET query or query_range of a known dataset with well-formed
+        parameters; anything else goes through the dispatcher."""
+        if method != b"GET" or not path.startswith("/promql/"):
+            return None
+        url = urlparse(path)
+        parts = url.path.split("/")
+        if len(parts) != 6 or parts[3] != "api" or parts[4] != "v1" \
+                or parts[5] not in ("query_range", "query"):
+            return None
+        svc = self.services.get(parts[2])
+        if svc is None:
+            return None
+        qs = parse_qs(url.query)
+        try:
+            if parts[5] == "query_range":
+                q, start, step, end = HttpDispatcher.range_params(qs)
+                return _HotReq(conn, slot, svc, "range", (q, start, step, end))
+            q, t = HttpDispatcher.instant_params(qs)
+            return _HotReq(conn, slot, svc, "instant", (q, t, 0, t))
+        except (KeyError, ValueError, IndexError):
+            return None  # malformed: the dispatcher answers
+
+    @staticmethod
+    def _render(req: _HotReq, result) -> bytes:
+        if req.kind == "range":
+            return promjson.matrix_json_str(result).encode()
+        return promjson.vector_json_str(result).encode()
+
+    def _run_single(self, req: _HotReq) -> tuple[int, dict, bytes]:
+        ct = {"Content-Type": JSON_CT}
+        try:
+            return (200, ct,
+                    self._render(req, req.svc.query_range(*req.params)))
+        except (ParseError, ValueError) as e:
+            return 400, ct, json.dumps(promjson.error_json(str(e))).encode()
+        except QueryLimitExceeded as e:
+            return 422, ct, json.dumps(
+                promjson.error_json(str(e), "query_limit")).encode()
+        except Exception as e:  # noqa: BLE001 - every failure answers
+            log.exception("hot query failed")
+            return 500, ct, json.dumps(
+                promjson.error_json(str(e), "internal")).encode()
+
+    # -- writes --
+
+    def _flush(self, conn: _Conn):
+        # move contiguous completed slots into the out buffer
+        done = 0
+        for resp in conn.slots:
+            if resp is None:
+                break
+            conn.out += resp
+            done += 1
+        if done:
+            del conn.slots[:done]
+            conn.base += done
+        if not conn.out:
+            if conn.close_after and not conn.slots:
+                self._close(conn)
+            return
+        try:
+            sent = conn.sock.send(conn.out)
+            conn.out = conn.out[sent:]
+        except (BlockingIOError, InterruptedError):
+            sent = 0
+        except OSError:
+            self._close(conn)
+            return
+        try:
+            if conn.out:
+                self._sel.modify(conn.sock,
+                                 selectors.EVENT_READ | selectors.EVENT_WRITE,
+                                 conn)
+            else:
+                self._sel.modify(conn.sock, selectors.EVENT_READ, conn)
+                if conn.close_after and not conn.slots:
+                    self._close(conn)
+        except (KeyError, ValueError):
+            pass

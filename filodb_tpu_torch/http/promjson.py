@@ -3,7 +3,10 @@
 Port of ``filodb_tpu/http/promjson.py``: ``matrix_json`` (a range query's
 StepMatrix → the ``matrix`` body), ``vector_json`` (an instant query's
 last step → the ``vector`` body) and ``scalar_json`` (a scalar
-expression's last step). NaN entries are gaps and are omitted;
+expression's last step); ``matrix_json_str`` and ``vector_json_str``, the
+same bodies rendered straight to the JSON text the HTTP API sends (values
+formatted in one vectorised pass); and ``error_json``, the error
+envelope. NaN entries are gaps and are omitted;
 a series with no sample at all is left out. A histogram matrix is
 flattened into one series a bucket, labelled ``le``
 (``StepMatrix.flatten_histograms``), as the reference renders first-class
@@ -12,7 +15,10 @@ histograms on the Prometheus wire.
 
 from __future__ import annotations
 
+import json
 import math
+
+import numpy as np
 
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
 from filodb_tpu_torch.query.model import QueryResult
@@ -72,3 +78,77 @@ def scalar_json(result: QueryResult) -> dict:
     return {"status": "success",
             "data": {"resultType": "scalar",
                      "result": [m.steps_ms[k] / 1000.0, _fmt(v)]}}
+
+
+def _labels_json_str(key) -> str:
+    """A key's label object as JSON, kept on the key (keys repeat across
+    queries)."""
+    s = key.__dict__.get("_json_str")
+    if s is None:
+        s = json.dumps(_labels_json(key), separators=(",", ":"))
+        object.__setattr__(key, "_json_str", s)
+    return s
+
+
+def _value_strings(vals: np.ndarray) -> np.ndarray:
+    """Shortest round-trip strings of float64 values, vectorised (numpy's
+    float formatting is Python's ``repr``), with the wire's specials."""
+    sv = vals.astype("U24")
+    if not np.isfinite(vals).all():
+        sv = np.where(np.isposinf(vals), "+Inf", sv)
+        sv = np.where(np.isneginf(vals), "-Inf", sv)
+        sv = np.where(np.isnan(vals), "NaN", sv)
+    return sv
+
+
+def _stats_str(result: QueryResult) -> str:
+    return json.dumps(_stats_json(result), separators=(",", ":"))
+
+
+def matrix_json_str(result: QueryResult) -> str:
+    """The ``matrix`` body rendered straight to a JSON string, as the
+    reference's HTTP front ends render it (``matrix_json_str``); it parses
+    to ``matrix_json``'s object."""
+    m = result.result.materialize()
+    if m.is_histogram:
+        m = m.flatten_histograms()
+    vals = np.asarray(m.values, np.float64)
+    ok = ~np.isnan(vals)
+    sv = _value_strings(vals)
+    ts_str = [repr(t / 1000.0) for t in np.asarray(m.steps_ms).tolist()]
+    parts = []
+    for i, key in enumerate(m.keys):
+        idx = np.flatnonzero(ok[i])
+        if not len(idx):
+            continue
+        row = sv[i]
+        body = ",".join(f'[{ts_str[k]},"{row[k]}"]' for k in idx.tolist())
+        parts.append('{"metric":%s,"values":[%s]}'
+                     % (_labels_json_str(key), body))
+    return ('{"status":"success","data":{"resultType":"matrix","result":[%s'
+            ']},"queryStats":%s}' % (",".join(parts), _stats_str(result)))
+
+
+def vector_json_str(result: QueryResult) -> str:
+    """The ``vector`` body (the last step) rendered straight to a JSON
+    string, as the reference's HTTP front ends render instant queries."""
+    m = result.result.materialize()
+    if m.is_histogram:
+        m = m.flatten_histograms()
+    if not m.num_steps or not m.num_series:
+        return '{"status":"success","data":{"resultType":"vector",' \
+            '"result":[]}}'
+    k = m.num_steps - 1
+    vals = np.asarray(m.values[:, k], np.float64)
+    sv = _value_strings(vals)
+    t = repr(float(m.steps_ms[k]) / 1000.0)
+    parts = ['{"metric":%s,"value":[%s,"%s"]}'
+             % (_labels_json_str(m.keys[i]), t, sv[i])
+             for i in np.flatnonzero(~np.isnan(vals)).tolist()]
+    return ('{"status":"success","data":{"resultType":"vector","result":'
+            '[%s]}}' % ",".join(parts))
+
+
+def error_json(message: str, error_type: str = "bad_data") -> dict:
+    """The Prometheus API's error envelope."""
+    return {"status": "error", "errorType": error_type, "error": message}

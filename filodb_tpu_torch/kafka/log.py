@@ -32,6 +32,10 @@ class ReplayLog:
     def latest_offset(self) -> int:
         raise NotImplementedError
 
+    def offset_lag(self, consumed: int) -> int:
+        """Records appended past ``consumed`` (never negative)."""
+        return max(0, self.latest_offset - consumed)
+
     def align_after(self, offset: int) -> None:
         """Make the next append's offset greater than ``offset``. Recovery
         calls this with the largest checkpoint: a torn tail may have lost
@@ -236,6 +240,11 @@ class SegmentedFileLog(ReplayLog):
             if first > offset and seg.latest_offset < 0:
                 return  # an empty segment already starts past the offset
             self._roll(offset + 1)
+
+    @property
+    def earliest_offset(self) -> int:
+        with self._lock:
+            return self._segments[0][0]
 
     def truncate_before(self, offset: int) -> int:
         """Delete whole segments below ``offset`` (the newest is always

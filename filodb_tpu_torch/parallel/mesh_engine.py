@@ -327,10 +327,13 @@ class MeshQueryEngine:
         key = ("mesh", str(low.filters), lo_ms, hi_ms)
         batch = self.batches.get(key, memstore)
         if batch is None:
+            # each shard's version before its lookup
+            versions = [shard.version for shard in memstore.shards]
             selected = [(shard, shard.lookup_partitions(list(low.filters),
                                                         lo_ms, hi_ms))
                         for shard in memstore.shards]
-            batch = build_device_batch(selected, lo_ms, hi_ms, self.device)
+            batch = build_device_batch(selected, lo_ms, hi_ms, self.device,
+                                       versions=versions)
             self.batches.put(key, memstore, None, batch)
         return batch
 

@@ -435,6 +435,7 @@ class DeviceBatch:
     les: np.ndarray | None = None  # bucket bounds of a histogram batch
     nbytes: int = 0
     _out_keys: list | None = None
+    version: int = 0  # the owner's version the batch is valid at
 
     @property
     def out_keys(self) -> list:
@@ -463,7 +464,8 @@ MIXED_KINDS = ("the selector matches both histogram and scalar series, "
 
 
 def build_device_batch(selected, start: int, end: int, device: torch.device,
-                       column: str | None = None) -> DeviceBatch:
+                       column: str | None = None,
+                       versions=None) -> DeviceBatch:
     """Select, pack and upload the pages of ``selected``, a list of
     (shard, partition ids), for [start, end]; rows follow that order. All
     partitions are histograms or none are; a histogram batch reads the
@@ -471,12 +473,20 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     value pages as scalar series. Partitions whose flushed chunks memory
     no longer holds page them in first (``core/memstore/odp.py``), as the
     reference's engines do before they build a batch; a cached batch is
-    served without paging."""
-    selected = [(sh, np.asarray(p, np.int64)) for sh, p in selected
-                if len(p)]
+    served without paging. Each shard pages in and selects under its lock
+    (``Shard.select_for_batch``); the pack and the upload run without
+    it. ``versions``, each shard's version read before its partitions
+    were looked up, give the batch's ``version`` (their sum, moved on by
+    this build's own page-ins): the owner's version it is valid at."""
+    if versions is None:
+        versions = [None] * len(selected)
+    version = sum(v for v in versions if v is not None)
+    picked = [(sh, np.asarray(p, np.int64), v)
+              for (sh, p), v in zip(selected, versions) if len(p)]
+    selected = [(sh, p) for sh, p, _ in picked]
     if not selected:
         return DeviceBatch([], None, np.zeros(0, np.int32), 0.0, False,
-                           start, end)
+                           start, end, version=version)
     kind = np.concatenate([sh.hist[p] for sh, p in selected])
     if kind.any() and not kind.all():
         raise UnsupportedQuery(MIXED_KINDS)
@@ -486,18 +496,19 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     sub = col.name if kind.all() and not hist else None
     tables, table_of, block_of, row_of = [], [], [], []
     keys, vmax, les = [], 0.0, None
-    for shard, pids in selected:
-        paged = shard.page_in(pids, start, end)
+    for shard, pids, v in picked:
         if hist:
-            tabs, t_of, b_of, r_of, sl = shard.select_hist_blocks(
-                pids, start, end, paged)
+            (tabs, t_of, b_of, r_of, sl), now = shard.select_for_batch(
+                pids, start, end, True, expect=v)
             # the first scheme of the most buckets, in batch order
             if sl is not None and (les is None or len(sl) > len(les)):
                 les = sl
         else:
-            tabs, t_of, b_of, r_of, vm = shard.select_blocks(
-                pids, start, end, sub, paged)
+            (tabs, t_of, b_of, r_of, vm), now = shard.select_for_batch(
+                pids, start, end, False, sub, expect=v)
             vmax = max(vmax, vm)
+        if v is not None:
+            version += now - v
         table_of.append(t_of + len(tables))
         tables.extend(tabs)
         block_of.append(b_of)
@@ -514,7 +525,8 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     return DeviceBatch([k.range_vector_key for k in keys], dev,
                        counts[: len(keys)], vmax, col.is_counter, start,
                        end, les if hist else None,
-                       sum(a.numel() * a.element_size() for a in dev))
+                       sum(a.numel() * a.element_size() for a in dev),
+                       version=version)
 
 
 class BatchCache:
@@ -523,7 +535,10 @@ class BatchCache:
     A batch is kept until its owner, the store (mesh) or a shard (exec
     leaf), ingests again: it is found by its key, its owner's version and,
     where given, its partition ids, which are compared, not hashed (a
-    shard's may number 10^5)."""
+    shard's may number 10^5). ``put`` takes the batch's ``version``, not
+    the owner's version after the build: a writer that ingests between a
+    lookup and its selection moves the owner past it, so the batch is not
+    served as that newer version."""
 
     def __init__(self, device: torch.device):
         self.budget = torch.cuda.get_device_properties(device).total_memory \
@@ -546,7 +561,7 @@ class BatchCache:
             del self._entries[k]
         while self._entries and self.nbytes() + batch.nbytes > self.budget:
             self._entries.pop(next(iter(self._entries)))
-        self._entries[key] = (owner, owner.version, pids, batch)
+        self._entries[key] = (owner, batch.version, pids, batch)
 
     def batches(self, engine: str | None = None) -> list[DeviceBatch]:
         """The batches held, of one engine (a key's first item) or all."""

@@ -47,6 +47,7 @@ from filodb_tpu_torch.query.exec.transformers import (
     tensor_of,
 )
 from filodb_tpu_torch.query.model import (
+    QueryLimitExceeded,
     QueryStats,
     RangeVectorKey,
     StepMatrix,
@@ -138,8 +139,15 @@ class SelectRawPartitionsExec(ExecPlan):
         # a shard with no matching partition answers the empty matrix
         # without running the transformers, as the reference's leaf does
         shard = ctx.memstore.shards[self.shard]
+        version = shard.version  # before the lookup its batches cover
         pids = shard.lookup_partitions(list(self.filters), self.chunk_start,
                                        self.chunk_end)
+        limit = shard.config.max_query_matches
+        if limit and len(pids) > limit:
+            # the reference's query-size guardrail
+            raise QueryLimitExceeded(
+                f"query matches {len(pids)} series on shard {self.shard} > "
+                f"limit {limit}")
         ctx.stats.series_scanned += len(pids)
         if not len(pids):
             return StepMatrix.empty()
@@ -155,8 +163,9 @@ class SelectRawPartitionsExec(ExecPlan):
             if batch is None:
                 batch = build_device_batch([(shard, spids)], self.chunk_start,
                                            self.chunk_end, ctx.device,
-                                           self.value_column)
+                                           self.value_column, [version])
                 ctx.batches.put(key, shard, spids, batch)
+                version = batch.version  # this build's page-ins included
             ctx.stats.samples_scanned += int(batch.counts.sum())
             mats.append(psm.eval_batch(batch, ctx.stats))
         data = StepMatrix.concat(mats)

@@ -21,6 +21,11 @@ import torch
 from filodb_tpu_torch.core.partkey import METRIC_LABEL
 
 
+class QueryLimitExceeded(RuntimeError):
+    """A query over a size limit (``StoreConfig.max_query_matches``); the
+    HTTP API answers 422, as the reference does."""
+
+
 class UnsupportedQuery(ValueError):
     """A plan shape the port does not serve, or one that the reference's
     exec engine raises on. Under ``QueryService(engine="mesh")`` it is also

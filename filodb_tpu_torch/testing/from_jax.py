@@ -16,12 +16,18 @@ The write path needs no carrying: both packages write the same bytes.
 ``RecordContainer.serialize()``, or a log's entries) as the port ingests
 them; ``open_local`` opens a local-disk store directory that either package
 wrote; ``restart`` runs the recovery of every shard of a store from its
-logs, as a restarted node does. This module imports nothing of
+logs, as a restarted node does. ``server_pair`` boots the reference's
+``FiloServer`` and the port's over one config and shuts both down; the
+caller hands in the reference's classes. This module imports nothing of
 ``filodb_tpu``.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import socket
+from contextlib import contextmanager
 from dataclasses import dataclass
 
 import numpy as np
@@ -104,3 +110,44 @@ def restart(memstore: MemStore, logs: dict) -> dict:
             memstore.shards[s].ingest(sd)
         out["skipped"] += memstore.shards[s].rows_skipped - before
     return out
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def boot(server_cls, config_cls, conf: dict, data_dir: str, **kw):
+    """One ``FiloServer`` (either package's ``server_cls`` and its
+    ``ServerConfig`` ``config_cls``) over ``conf`` with ``data_dir``, HTTP
+    on a free port and the gateway on another; ``kw`` go to the server
+    (the port's ``device``)."""
+    os.makedirs(data_dir, exist_ok=True)
+    path = os.path.join(data_dir, "server.json")
+    with open(path, "w") as f:
+        json.dump({**conf, "data_dir": data_dir, "http_port": 0}, f)
+    cfg = config_cls.load(path)
+    cfg.gateway_port = free_port()
+    return server_cls(cfg, **kw).start()
+
+
+@contextmanager
+def server_pair(conf: dict, root: str, reference: tuple, device="cpu"):
+    """The reference's server (``reference`` = its FiloServer and
+    ServerConfig classes) under ``<root>/ref`` and the port's under
+    ``<root>/port``, both over ``conf``; yields (reference, port) and
+    shuts both down, the port's first."""
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.standalone import FiloServer
+
+    ref = boot(*reference, conf, os.path.join(root, "ref"))
+    try:
+        port = boot(FiloServer, ServerConfig, conf,
+                    os.path.join(root, "port"), device=device)
+        try:
+            yield ref, port
+        finally:
+            port.shutdown()
+    finally:
+        ref.shutdown()

@@ -8,7 +8,10 @@ engine and its planner (``query/exec/plan.py``,
 ``coordinator/planner.py``) and the histogram columns it serves included,
 import and answer all the same; and so do the write path's modules (the
 host codec, chunks, containers, the column stores, the WAL, on-demand
-paging), through a flush, a restart and a paged query.
+paging), through a flush, a restart and a paged query; and the node's
+(configuration, cluster, gateway, HTTP fronts, index snapshots, metrics),
+through a ``FiloServer(device="cpu")`` fed by its gateway and queried
+over HTTP.
 """
 
 import json
@@ -108,6 +111,37 @@ paged = QueryService(again, device="cpu").query_range(
     1_600_001_500, 60, 1_600_001_510)
 durable["rows"] = paged.result.num_series
 durable["paged"] = sum(sh.odp_cache.chunks_paged for sh in again.shards)
+import socket, time, urllib.request
+from filodb_tpu_torch import config as server_config
+from filodb_tpu_torch import standalone
+from filodb_tpu_torch.coordinator import cluster, ingestion, shardmapper
+from filodb_tpu_torch.core.memstore import cardinality, index_snapshot
+from filodb_tpu_torch.gateway import influx, server as gateway_server
+from filodb_tpu_torch.http import fastserver, server as http_server
+from filodb_tpu_torch.utils import metrics
+node_root = tempfile.mkdtemp()
+srv = from_jax.boot(standalone.FiloServer, server_config.ServerConfig,
+                    {"datasets": {"timeseries": {"num_shards": 2}}},
+                    node_root, device="cpu")
+with socket.create_connection(("127.0.0.1", srv.gateway.port)) as s:
+    s.sendall("".join(f"up,_ws_=w,_ns_=n,i=i{i % 3} value={i} "
+                      f"{(1_600_000_000 + 10 * i) * 10**9}\n"
+                      for i in range(30)).encode())
+node = {"statuses": None, "rows": 0, "snapshot": 0}
+for _ in range(300):
+    srv.gateway.sink.flush()
+    url = (f"http://127.0.0.1:{srv.http.port}/promql/timeseries/api/v1/"
+           "query?query=sum(count_over_time(up[1h]))&time=1600000300")
+    res = json.loads(urllib.request.urlopen(url).read())["data"]["result"]
+    if res and float(res[0]["value"][1]) == 30:
+        node["rows"] = 30
+        break
+    time.sleep(0.05)
+node["statuses"] = [e["status"] for e in
+                    srv.cluster.shard_statuses("timeseries")]
+node["snapshot"] = sum(int(sh.snapshot_index() > 0) for sh in
+                       srv.node.memstores["timeseries"].shards)
+srv.shutdown()
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -117,7 +151,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "quantiles": quant.result.num_series, "shapes": shapes,
                   "instant": len(inst["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
-                  "exec": exec_rows, "durable": durable,
+                  "exec": exec_rows, "durable": durable, "node": node,
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
                   "loaded": loaded}))
@@ -155,4 +189,6 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["mean"] == ["exec", 2, 0.25]
     assert res["durable"] == {"keys": 12, "records": 12, "skipped": 0,
                               "rows": 2, "paged": 12}
+    assert res["node"] == {"statuses": ["active", "active"], "rows": 30,
+                           "snapshot": 2}
     assert res["loaded"] == []

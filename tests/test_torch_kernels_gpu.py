@@ -498,3 +498,62 @@ def test_restarted_store_on_card_equals_cpu(cuda, tmp_path):
                 [str(k) for k in b.result.keys]
             np.testing.assert_allclose(a.result.values, b.result.values,
                                        rtol=2e-5, atol=1e-6, equal_nan=True)
+
+
+def test_server_on_card_answers_as_its_query_service(cuda, tmp_path):
+    """A ``FiloServer`` on the card, fed through its gateway, answers one
+    query a kernel path (B3; B1/B2 with B4; B1/B2 with a float64
+    function) through the HTTP API with the bytes its ``QueryService``
+    renders on the card."""
+    import json
+    import socket
+    import time
+    import urllib.parse
+    import urllib.request
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.http.promjson import matrix_json_str
+    from filodb_tpu_torch.standalone import FiloServer
+    from filodb_tpu_torch.testing.from_jax import boot
+
+    conf = {"datasets": {"timeseries": {
+        "num_shards": 4, "spread": 1,
+        "store": {"max_chunk_size": 400, "groups_per_shard": 4}}}}
+    srv = boot(FiloServer, ServerConfig, conf, str(tmp_path), device=cuda)
+    try:
+        rng = np.random.default_rng(3)
+        n, T, t0 = 64, 500, 1_600_000_000
+        vals = np.cumsum(rng.integers(0, 20, (n, T)), axis=1)
+        with socket.create_connection(("127.0.0.1", srv.gateway.port)) as s:
+            s.sendall("".join(
+                f"m,_ws_=w,_ns_=ns-{i % 5},instance=i-{i},job=j-{i % 3} "
+                f"counter={vals[i, t]} {(t0 + 10 * t) * 10**9}\n"
+                for t in range(T) for i in range(n)).encode())
+        svc = srv.services["timeseries"]
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            srv.gateway.sink.flush()
+            got = svc.query_range("sum(count_over_time(m[1d]))", t0 + 5000,
+                                  60, t0 + 5000).result
+            if got.num_series and got.values[0, -1] == n * T:
+                break
+            time.sleep(0.2)
+        assert got.values[0, -1] == n * T
+        _build.reset_counts()
+        for q in ("sum(rate(m[5m])) by (_ns_)",
+                  "sum(count_over_time(m[5m])) by (job)",
+                  "max(max_over_time(m[5m])) by (_ns_)"):
+            args = dict(query=q, start=t0 + 600, end=t0 + 10 * T, step=60)
+            url = (f"http://127.0.0.1:{srv.http.port}/promql/timeseries/api"
+                   f"/v1/query_range?" + urllib.parse.urlencode(args))
+            with urllib.request.urlopen(url, timeout=120) as r:
+                body = r.read().decode()
+            want = matrix_json_str(svc.query_range(q, t0 + 600, 60,
+                                                   t0 + 10 * T))
+            cut = ',"queryStats"'
+            assert body[:body.index(cut)] == want[:want.index(cut)], q
+            assert json.loads(body)["data"]["result"], q
+        assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
+    finally:
+        srv.shutdown()
