@@ -71,7 +71,11 @@ checks it, phase by phase; any failed phase exits non-zero:
    path on the card (B3's plain version over the sum and count pages; B1's
    plain version and the float64 function), cold once and warm five times;
    every query of phases 3, 7, 8 and 9 must have been served by the mesh
-   engine;
+   engine, but phase 9's ``SIDECAR_INSTANT``: instant queries over
+   functions the sidecar lane serves, which the service's mesh engine
+   hands to exec, each with the lane forced and with it off (cold, warm
+   p50, served and bypassed leaves, B1/B2 launches; the answers within
+   rtol 2e-5, atol 1e-9) and once at the default gate;
 10. (run after phase 5) the exec engine: ``QueryService(engine="exec")``,
    a leaf a shard, on the phase-2 store: ``EXEC_QUERIES`` (sum(rate) by
    namespace: B3 once a leaf; sum(count_over_time) by job: B1, B2 and B4
@@ -120,12 +124,27 @@ checks it, phase by phase; any failed phase exits non-zero:
    scan), whose first query (App-0's instant sum at the scrape time)
    answers byte-equal to the live node's; B1-B4
    must have launched behind the HTTP API; the directory is removed and
-   its bytes reported.
+   its bytes reported;
+13. (after phase 12) the shard's memory bound: a local-disk store of the
+   phase-2 generator's first ``--evict-series`` series
+   (``EVICT_SERIES``), a budget of ``EVICT_MEM_MB`` a shard and a
+   retention of ``EVICT_RETENTION_MS``: flush, one more scrape of
+   App-50..App-99, the answers of ``EVICT_QUERIES`` on both engines and
+   an instant count, one scheduler tick (chunk bytes before and after,
+   chunks evicted), ``evict_cold_partitions`` of the stopped half, the
+   queries again (cold split, warm p50) bitwise as before with B1-B4
+   launched on the paged-back shells, App-0's series scraped again (bloom
+   queries, false positives, restored series, start times kept),
+   ``purge_expired`` (exactly the stopped series not scraped again), the
+   survivors' rows byte-equal to before and ``torch.cuda.memory_allocated``
+   once the purged batches were replaced, and an index snapshot with the
+   holes and the bloom restored into a new store whose first answer is
+   byte-equal; its directory is removed.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
-``--durability-only``: phases 1, 11 and 12).
+``--durability-only``: phases 1, 11, 12 and 13).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -239,6 +258,19 @@ EXEC_QUERIES = (
 EXEC_WARM = 3  # warm runs of each phase-10 query on each engine
 # instant queries of phase 9, at the end of the 2 h
 INSTANT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)", _APP0)
+# phase 9's instant queries over functions the sidecar lane serves: the
+# service's mesh engine hands a one-step grid to exec, whose leaves fold it
+# from the chunks' summaries; each runs with the lane forced
+# (FILODB_SIDECAR_SEALED_GATE=0) and with the lane off (FILODB_SIDECARS=0:
+# mesh, the decode lane), cold and warm, and once at the default gate for
+# the lane's own decision
+SIDECAR_INSTANT = (f"count(count_over_time({M}[5m]))",
+                   f"sum(count_over_time({M}[5m]))",
+                   f"sum(rate({M}[5m])) by (_ns_)",
+                   f"sum(last_over_time({M}[5m]))")
+SIDECAR_VALVES = (("lane", {"FILODB_SIDECAR_SEALED_GATE": "0"}),
+                  ("default gate", {}),
+                  ("decode lane", {"FILODB_SIDECARS": "0"}))
 # aggregations over an operator or an instant function (phase 7), each with
 # the query it must equal times a factor: their group ids come from the
 # leaf's cached keys, so a warm one costs about what its plain form does
@@ -256,6 +288,29 @@ def keys_group_ids(eng, amr, keys):
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+class valves:
+    """Environment variables set for a ``with`` block (the lane's
+    valves, read at query time), restored after it."""
+
+    def __init__(self, **env):
+        self.env = env
+
+    def __enter__(self):
+        import os
+
+        self.saved = {k: os.environ.get(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        import os
+
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def on_mesh(res, q: str):
@@ -1086,8 +1141,10 @@ def plan_shapes_phase(svc, args) -> dict:
     calls = {q: (lambda q=q: on_mesh(svc.query_range(q, start, 60, end),
                                      q).result)
              for q in PLAN_SHAPES}
+    # the lane off: these stay on the mesh engine, as before the lane
     calls.update({f"instant {q}": (lambda q=q: on_mesh(
-        svc.query_instant(q, end), q)) for q in INSTANT_QUERIES})
+        _valved(svc.query_instant, {"FILODB_SIDECARS": "0"}, q, end), q))
+        for q in INSTANT_QUERIES})
     calls.update({"label_names()": svc.label_names,
                   'label_values("_ns_")': lambda: svc.label_values("_ns_"),
                   'label_values("instance")':
@@ -1108,6 +1165,7 @@ def plan_shapes_phase(svc, args) -> dict:
                             warm_p50_ms=float(np.median(warm))))
         log(f"  {name}: cold {cold:.1f} ms, warm p50 "
             f"{np.median(warm):.2f} ms")
+    sidecar = sidecar_instants(svc, end)
     launches = dict(_build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches in the phase: {launches}; peak device memory "
@@ -1203,8 +1261,68 @@ def plan_shapes_phase(svc, args) -> dict:
     _build.LAUNCHES.update(launches)  # the checks' launches are not counted
     seconds = time.perf_counter() - t_phase
     log(f"  phase 9 took {seconds:.1f} s")
-    return {"queries": timings, "launches": launches,
+    return {"queries": timings, "sidecar": sidecar, "launches": launches,
             "peak_bytes": int(peak), "seconds": seconds}
+
+
+def _valved(call, env: dict, *a):
+    with valves(**env):
+        return call(*a)
+
+
+def sidecar_instants(svc, end: int) -> list:
+    """``SIDECAR_INSTANT`` at ``end`` under each of ``SIDECAR_VALVES``:
+    cold, warm p50 of 3, the engine, the lane's served and bypassed
+    counts and B1/B2 launches; the lane's answers held against the decode
+    lane's within the reference's sidecar tolerance (rtol 2e-5, atol
+    1e-9)."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.query.engine import sidecar_lane as sl
+
+    out = []
+    for q in SIDECAR_INSTANT:
+        answers = {}
+        for name, env in SIDECAR_VALVES:
+            served, bypassed = sl.SIDECAR_SERVED.value, \
+                sl.SIDECAR_BYPASSED.value
+            l0 = dict(_build.LAUNCHES)
+            with valves(**env):
+                t = time.perf_counter()
+                r = svc.query_instant(q, end)
+                r.result.materialize()
+                cold = (time.perf_counter() - t) * 1000.0
+                warm = []
+                # the default gate once: its decision, not its time
+                for _ in range(0 if name == "default gate" else 3):
+                    t = time.perf_counter()
+                    r = svc.query_instant(q, end)
+                    r.result.materialize()
+                    warm.append((time.perf_counter() - t) * 1000.0)
+            rec = {"query": q, "valve": name, "cold_ms": cold,
+                   "warm_p50_ms": float(np.median(warm)) if warm else None,
+                   "engine": r.stats.engine,
+                   "served": sl.SIDECAR_SERVED.value - served,
+                   "bypassed": sl.SIDECAR_BYPASSED.value - bypassed,
+                   "b1_b2": [_build.LAUNCHES[k] - l0[k] for k in
+                             ("decode_ts_page", "decode_f32_page")]}
+            out.append(rec)
+            answers[name] = _sorted_answer(r)
+            log(f"  instant {q} [{name}]: cold {cold:.1f} ms, warm p50 "
+                f"{rec['warm_p50_ms']} ms, {rec['engine']}, sidecar "
+                f"served {rec['served']} / bypassed {rec['bypassed']} "
+                f"leaves, B1/B2 {rec['b1_b2']}")
+        lane, dec = answers["lane"], answers["decode lane"]
+        if out[-3]["served"] == 0 or out[-3]["engine"] != "exec" \
+                or out[-1]["engine"] != "mesh":
+            raise AssertionError(f"phase 9: {q} was not sidecar-served "
+                                 f"with the lane forced: {out[-3:]}")
+        if lane[0] != dec[0] or not np.allclose(
+                lane[1], dec[1], rtol=2e-5, atol=1e-9, equal_nan=True):
+            raise AssertionError(f"phase 9: {q}: the sidecar lane's answer "
+                                 f"disagrees with the decode lane's")
+    log("  sidecar-served instant queries (mesh -> exec -> the lane) agree "
+        "with the decode lane within rtol 2e-5, atol 1e-9")
+    return out
 
 
 # phase 8: first-class histograms. Bucket bounds: Prometheus client_golang's
@@ -1838,8 +1956,10 @@ DURABLE_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
 # series of phase 11's store: the first of the phase-2 generator's. On an
 # H100's host this phase takes 70-90 s a 100,000 series (flush, scrape,
 # index, replay, two cold page-ins; 295-371 s at 400,000 series), so the
-# full million would add 12-15 minutes to the smoke (PERF.md §4)
-DURABLE_SERIES = 300_000
+# full million would add 12-15 minutes to the smoke; cut to 150,000 to
+# keep the smoke with phase 13 well inside its limit on the card's slower
+# hosts (PERF.md §4)
+DURABLE_SERIES = 150_000
 DURABLE_HIST = f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))"
 DURABLE_HIST_SERIES = 10_000  # App-0..App-9, 1,000 histograms each
 DURABLE_END_S = END_S + 60    # 2 h plus the new scrape, at 60 s
@@ -1847,10 +1967,11 @@ SCRAPE_RECORDS = 10_000       # records a container of the scrape
 DURABLE_WARM = 3
 
 
-def durable_store(root: str, dataset: str):
+def durable_store(root: str, dataset: str, **cfg):
     """A 4-shard, spread-1 store on the local-disk column and meta stores
     under ``root`` (``<root>/columnstore``, the standalone server's
-    layout; 400-sample chunks, the reference's 20 groups a shard)."""
+    layout; 400-sample chunks, the reference's 20 groups a shard; ``cfg``
+    sets other ``StoreConfig`` fields)."""
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.core.store.config import StoreConfig
     from filodb_tpu_torch.core.store.localstore import (
@@ -1862,7 +1983,8 @@ def durable_store(root: str, dataset: str):
     return MemStore(4, 1, column_store=LocalDiskColumnStore(cs),
                     meta_store=LocalDiskMetaStore(cs),
                     config=StoreConfig(max_chunk_size=400,
-                                       groups_per_shard=20), dataset=dataset)
+                                       groups_per_shard=20, **cfg),
+                    dataset=dataset)
 
 
 def dir_bytes(path) -> int:
@@ -2222,6 +2344,9 @@ NODE_TICK_S = 0.5          # the flush scheduler's tick in step 5
 # boot 2's first query, held byte-equal to the live node's answer (one
 # namespace: its page-in is 1 % of the store's)
 NODE_FIRST_QUERY = 'sum(http_requests_total{_ns_="App-0"})'
+# the node's retention: the stores' samples date from T0 (2023), and the
+# scheduler's tick purges past retention_ms, so the node holds ten years
+NODE_RETENTION_MS = 10 * 365 * 86_400_000
 
 
 def http_get(port: int, path: str, **params) -> tuple[int, str, float]:
@@ -2243,8 +2368,8 @@ def http_get(port: int, path: str, **params) -> tuple[int, str, float]:
 def node_config(root: str) -> str:
     """Phase 12's server config (written into phase 11's directory): the
     smoke's store shape, HTTP and gateway on free ports, the mesh engine,
-    a flush tick of 300 s (none before step 5) and snapshots every 10 s
-    once the scheduler ticks."""
+    a flush tick of 300 s (none before step 5), snapshots every 10 s once
+    the scheduler ticks, and a retention that holds the store's data."""
     import socket
 
     with socket.socket() as sock:
@@ -2258,7 +2383,8 @@ def node_config(root: str) -> str:
             "num_shards": 4, "spread": 1, "engine": "mesh",
             "store": {"max_chunk_size": 400, "groups_per_shard": 20,
                       "flush_interval_ms": 6_000_000,
-                      "index_snapshot_interval_ms": 10_000}}}}))
+                      "index_snapshot_interval_ms": 10_000,
+                      "retention_ms": NODE_RETENTION_MS}}}}))
     return str(path)
 
 
@@ -2616,6 +2742,269 @@ def _node_scheduler(srv) -> dict:
     return out
 
 
+# phase 13: the shard's memory bound on the card. A store of its own: the
+# phase-2 generator's first EVICT_SERIES series (1,000 a namespace) on a
+# local-disk store, 20 flush groups a shard, a budget of EVICT_MEM_MB a
+# shard and a retention of EVICT_RETENTION_MS. One more scrape reaches
+# App-50..App-99 only, so App-0..App-49 stop: the scheduler's tick evicts
+# their chunks, evict_cold_partitions then the partitions, App-0 comes back
+# through the bloom and purge_expired drops the rest.
+EVICT_SERIES = 100_000
+EVICT_MEM_MB = 30
+EVICT_RETENTION_MS = 1_800_000  # 30 min past a series' last sample
+EVICT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
+                 f"sum(count_over_time({M}[5m])) by (job)")
+EVICT_INSTANT = f"count({M})"
+EVICT_WARM = 3
+
+
+def _bodies(services, queries, start: int, end: int) -> dict:
+    """(engine, query) → the sorted answer of each query on each engine
+    over [start, end] at 60 s."""
+    return {(name, q): _sorted_answer(svc.query_range(q, start, 60, end))
+            for name, svc in services.items() for q in queries}
+
+
+def _ns_of(key: str) -> int:
+    """The namespace number of an answer's key (``App-<n>``), -1 if
+    none."""
+    import re
+
+    m = re.search(r"App-(\d+)", key)
+    return int(m.group(1)) if m else -1
+
+
+def _same_rows(got, want, keep, what: str) -> None:
+    """The rows of ``got`` and ``want`` whose key ``keep`` holds, byte for
+    byte."""
+    gk, gv = got
+    wk, wv = want
+    gi = [i for i, k in enumerate(gk) if keep(k)]
+    wi = [i for i, k in enumerate(wk) if keep(k)]
+    if [gk[i] for i in gi] != [wk[i] for i in wi] or not gi \
+            or gv[gi].tobytes() != wv[wi].tobytes():
+        raise AssertionError(f"phase 13: {what}")
+
+
+def eviction_phase(dev, args) -> dict:
+    """Phase 13 (see the module): eviction and purge on the card."""
+    import gc
+
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.cluster import shard_tick
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.core.memstore.shard import EVICTED, GONE
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="filodb-evict-")
+    n = min(args.evict_series, args.series)
+    cfg = dict(shard_mem_mb=EVICT_MEM_MB, retention_ms=EVICT_RETENTION_MS)
+    log(f"phase 13: eviction and purge on the card: {n} series on a "
+        f"local-disk store under {root}, shard_mem_mb {EVICT_MEM_MB}, "
+        f"retention_ms {EVICT_RETENTION_MS}")
+    store = durable_store(root, "evict", **cfg)
+    shards = store.shards
+    t = time.perf_counter()
+    ingest(store, n, args.samples, args.seed)
+    out = {"series": n, "ingest_s": time.perf_counter() - t}
+    keys, ts, vals = last_samples(store)
+    # 1. flush
+    t = time.perf_counter()
+    out["flush"] = {"chunks": store.flush_all(),
+                    "seconds": time.perf_counter() - t}
+    # 2. one more scrape of App-50..App-99: App-0..App-49 stop
+    ns = np.array([int(k.label_map["_ns_"][4:]) for k in keys])
+    go = ns >= 50
+    stopped_last = int(ts[~go].max())
+    store.ingest_series([keys[i].label_map for i in np.flatnonzero(go)],
+                        (ts[go] + 10_000)[:, None],
+                        (vals[go] + 1.0)[:, None])
+    n_stopped = int((~go).sum())
+    log(f"  ingest {out['ingest_s']:.1f} s, flush {out['flush']['chunks']} "
+        f"chunks in {out['flush']['seconds']:.1f} s; one more scrape of "
+        f"App-50..App-99 ({int(go.sum())} series), {n_stopped} stopped")
+    # 3. the answers before
+    start, end = T0_MS // 1000, DURABLE_END_S
+    engines = {"mesh": QueryService(store, device=dev),
+               "exec": QueryService(store, device=dev, engine="exec")}
+    before = _bodies(engines, EVICT_QUERIES, start, end)
+    count0 = engines["mesh"].query_instant(EVICT_INSTANT, end)
+    if count0.result.values[0, 0] != n:
+        raise AssertionError(f"phase 13: count before: "
+                             f"{count0.result.values}")
+    # 4. one scheduler tick at the budget
+    mem0 = [sh.chunk_bytes() for sh in shards]
+    t = time.perf_counter()
+    ticks = [shard_tick(sh, end * 1000) for sh in shards]
+    out["tick"] = {"seconds": time.perf_counter() - t, "bytes_before": mem0,
+                   "bytes_after": [sh.chunk_bytes() for sh in shards],
+                   "chunks_evicted": [k["evicted"] for k in ticks],
+                   "flushed": [k["flushed"] for k in ticks],
+                   "purged": [k["purged"] for k in ticks]}
+    if max(out["tick"]["bytes_after"]) > EVICT_MEM_MB * 2**20 \
+            or sum(out["tick"]["purged"]):
+        raise AssertionError(f"phase 13: the tick: {out['tick']}")
+    log(f"  scheduler tick: chunk bytes a shard {mem0} -> "
+        f"{out['tick']['bytes_after']} (budget {EVICT_MEM_MB} MiB), "
+        f"{out['tick']['chunks_evicted']} chunks evicted, "
+        f"{out['tick']['seconds']:.2f} s")
+    # 5. evict the stopped half
+    stopped = [np.flatnonzero(sh.latest[:sh.num_partitions] <= stopped_last)
+               for sh in shards]
+    app0_f = list(parse_query('http_requests_total{_ns_="App-0"}',
+                              TimeStepParams(0, 0, 0)).raw.filters)
+    app0_starts = np.concatenate([sh.index.start_times(
+        sh.lookup_partitions(app0_f, 0, 2**62)) for sh in shards])
+    t = time.perf_counter()
+    evicted = [sh.evict_cold_partitions(len(st))
+               for sh, st in zip(shards, stopped)]
+    out["evict"] = {"partitions": evicted,
+                    "seconds": time.perf_counter() - t}
+    if sum(evicted) != n_stopped or any(
+            (sh.status[st] != EVICTED).any()
+            for sh, st in zip(shards, stopped)):
+        raise AssertionError(f"phase 13: evicted {evicted}, stopped "
+                             f"{n_stopped}")
+    log(f"  evict_cold_partitions: {evicted} partitions a shard in "
+        f"{out['evict']['seconds']:.2f} s")
+    # 6. the answers again: the shells page in, bitwise as before
+    torch.cuda.synchronize()
+    _build.reset_counts()
+    out["queries"] = []
+    for (name, q), want in before.items():
+        svc = engines[name]
+        p0 = _paging_seconds(store)
+        t = time.perf_counter()
+        got = _sorted_answer(svc.query_range(q, start, 60, end))
+        cold = (time.perf_counter() - t) * 1000.0
+        split = {k: v - p0[k] for k, v in _paging_seconds(store).items()}
+        warm = []
+        for _ in range(EVICT_WARM):
+            t = time.perf_counter()
+            got = _sorted_answer(svc.query_range(q, start, 60, end))
+            warm.append((time.perf_counter() - t) * 1000.0)
+        if got[0] != want[0] or got[1].tobytes() != want[1].tobytes():
+            raise AssertionError(f"phase 13: {name} {q} after eviction is "
+                                 f"not bitwise the answer before")
+        rec = {"engine": name, "query": q, "cold_ms": cold, "split_s": split,
+               "warm_p50_ms": float(np.median(warm))}
+        out["queries"].append(rec)
+        log(f"  {name} {q}: cold {cold:.1f} ms (store read "
+            f"{split['read']:.2f} s, C++ decode {split['decode']:.2f} s, page "
+            f"encode {split['encode']:.2f} s, the rest pack and upload), "
+            f"warm p50 {rec['warm_p50_ms']:.2f} ms, bitwise as before")
+    count1 = engines["mesh"].query_instant(EVICT_INSTANT, end)
+    if count1.result.values.tobytes() != count0.result.values.tobytes():
+        raise AssertionError("phase 13: instant count after eviction")
+    launches = dict(_build.LAUNCHES)
+    out["launches"] = launches
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing and dev.type == "cuda":
+        raise AssertionError(f"phase 13: kernels not launched on the paged "
+                             f"shells: {missing}")
+    mem_before = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    log(f"  launches over the paged shells: {launches}")
+    # 7. App-0's series come back: the bloom restores their identity
+    q0 = [sh.stats.bloom_queries.value for sh in shards]
+    f0 = [sh.stats.bloom_fp.value for sh in shards]
+    r0 = [sh.stats.partitions_restored.value for sh in shards]
+    back_ts = end * 1000 + 60_000
+    app0 = [k for k, x in zip(keys, ns) if x == 0]
+    store.ingest_series([k.label_map for k in app0],
+                        np.full((len(app0), 1), back_ts), np.ones(
+                            (len(app0), 1)))
+    restored = sum(sh.stats.partitions_restored.value - r
+                   for sh, r in zip(shards, r0))
+    out["bloom"] = {
+        "queries": sum(sh.stats.bloom_queries.value - q
+                       for sh, q in zip(shards, q0)),
+        "false_positives": sum(sh.stats.bloom_fp.value - f
+                               for sh, f in zip(shards, f0)),
+        "restored": restored}
+    new_pids = [sh.lookup_partitions(app0_f, 0, 2**62) for sh in shards]
+    starts = np.concatenate([sh.index.start_times(p) for sh, p in
+                             zip(shards, new_pids)])
+    gap = engines["mesh"].query_range(
+        f'count_over_time({M}{{_ns_="App-0"}}[5m])', start, 60,
+        back_ts // 1000).result
+    gap.materialize()
+    if restored != len(app0) or sorted(starts.tolist()) != sorted(
+            app0_starts.tolist()) or gap.num_series != len(app0) \
+            or not np.isfinite(gap.values[:, [1, -1]]).all():
+        raise AssertionError(f"phase 13: App-0's return: {out['bloom']}, "
+                             f"{gap.num_series} series")
+    log(f"  App-0's {len(app0)} series scraped again: bloom queries "
+        f"{out['bloom']['queries']}, false positives "
+        f"{out['bloom']['false_positives']}, restored {restored}; start "
+        f"times kept, count_over_time continuous across the gap")
+    # 8. purge past the retention
+    now = stopped_last + EVICT_RETENTION_MS + 1000
+    t = time.perf_counter()
+    purged = [sh.purge_expired(now) for sh in shards]
+    out["purge"] = {"partitions": purged,
+                    "seconds": time.perf_counter() - t}
+    if sum(purged) != n_stopped - len(app0):
+        raise AssertionError(f"phase 13: purged {purged}, expected "
+                             f"{n_stopped - len(app0)}")
+    log(f"  purge_expired: {purged} partitions a shard (the stopped series "
+        f"not scraped again) in {out['purge']['seconds']:.3f} s")
+    # 9. the survivors as before, the purged absent, their batches freed
+    after = _bodies(engines, EVICT_QUERIES, start, end)
+    for key, want in before.items():
+        got = after[key]
+        if key[1].endswith("by (_ns_)"):
+            _same_rows(got, want, lambda k: _ns_of(k) >= 50,
+                       f"{key}: the survivors' rows")
+            if any(1 <= _ns_of(k) < 50 for k in got[0]):
+                raise AssertionError(f"phase 13: {key}: purged rows")
+    app_f = parse_query('http_requests_total{_ns_="App-1"}',
+                        TimeStepParams(0, 0, 0)).raw.filters
+    if engines["mesh"].series(app_f, start, end):
+        raise AssertionError("phase 13: series() returns purged series")
+    gc.collect()
+    mem_after = torch.cuda.memory_allocated() if dev.type == "cuda" else 0
+    out["memory_allocated"] = {"before": mem_before, "after": mem_after}
+    log(f"  survivors' rows byte-equal to before, purged series absent from "
+        f"the answers and from series(); memory_allocated "
+        f"{mem_before / 1e9:.3f} -> {mem_after / 1e9:.3f} GB once the "
+        f"purged batches were replaced")
+    # 10. an index snapshot with the holes and the bloom, restored
+    store.flush_all()
+    live = _sorted_answer(engines["mesh"].query_range(EVICT_QUERIES[0],
+                                                      start, 60, end))
+    snap = [sh.snapshot_index() for sh in shards]
+    holes = sum(int((sh.status[:sh.num_partitions] == GONE).sum())
+                for sh in shards)
+    store.close()
+    del engines, store, shards
+    gc.collect()
+    torch.cuda.empty_cache()
+    again = durable_store(root, "evict", **cfg)
+    t = time.perf_counter()
+    for s in range(again.num_shards):
+        again.recover_index(s)
+    restore_s = time.perf_counter() - t
+    first = _sorted_answer(QueryService(again, device=dev).query_range(
+        EVICT_QUERIES[0], start, 60, end))
+    if any(sh.recovered_from != "snapshot" for sh in again.shards) \
+            or first[0] != live[0] or first[1].tobytes() != live[1] \
+            .tobytes():
+        raise AssertionError("phase 13: the snapshot's restore")
+    out["snapshot"] = {"bytes": snap, "holes": holes,
+                       "restore_s": restore_s}
+    log(f"  index snapshots of {snap} bytes ({holes} holes, the bloom); "
+        f"restored in {restore_s:.2f} s without the scan, first query "
+        f"byte-equal")
+    again.close()
+    out["bytes_freed"] = remove_dir(root)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13 took {out['seconds']:.1f} s")
+    return out
+
+
 def main_store():
     """The phase-2 store: 4 shards, spread 1, 400-sample chunks, and no
     limit on the series an exec leaf matches (``max_query_matches``, the
@@ -2710,16 +3099,18 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
-    # phase 8's histograms: cut from 100,000 to keep the smoke inside its
-    # limit with phase 12 (PERF.md §4)
-    ap.add_argument("--hist-series", type=int, default=50_000)
+    # phase 8's histograms: cut from 100,000 (then 50,000) to keep the
+    # smoke inside its limit with phases 12 and 13 (PERF.md §4)
+    ap.add_argument("--hist-series", type=int, default=30_000)
     ap.add_argument("--exec-only", action="store_true",
                     help="build, ingest the phase-2 store and run phase 10 "
                     "only (the exec engine against the mesh engine)")
     ap.add_argument("--durable-series", type=int, default=DURABLE_SERIES)
     ap.add_argument("--durability-only", action="store_true",
-                    help="build and run phase 11 only (its own store: "
-                    "flush, WAL, restart, paged queries)")
+                    help="build and run phases 11, 12 and 13 only (their "
+                    "own stores: flush, WAL, restart, paged queries, the "
+                    "node, eviction and purge)")
+    ap.add_argument("--evict-series", type=int, default=EVICT_SERIES)
     args = ap.parse_args()
 
     import torch
@@ -2772,6 +3163,9 @@ def _phases(args, smi) -> int:
         durable, node = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
         print(json.dumps({"node": node}))
+        torch.cuda.empty_cache()
+        print(json.dumps({"eviction": eviction_phase(torch.device("cuda"),
+                                                      args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     kernels, svc = run(torch.device("cuda"), args)
@@ -2791,6 +3185,9 @@ def _phases(args, smi) -> int:
     print(json.dumps({"durability": durable}))
     print(json.dumps({"node": node}))
     torch.cuda.empty_cache()
+    evict = eviction_phase(torch.device("cuda"), args)
+    print(json.dumps({"eviction": evict}))
+    torch.cuda.empty_cache()
     hist = histogram_phase(torch.device("cuda"), args, reps=5)
     print(json.dumps({"histograms": hist}))
     for kern in kernels:
@@ -2800,6 +3197,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase10"] = exec10["launches"][kern["name"]]
         kern["launches_phase11"] = durable["launches"][kern["name"]]
         kern["launches_phase12"] = node["launches"][kern["name"]]
+        kern["launches_phase13"] = evict["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -39,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: dict[str, int] = {"decode_ts_page": 0, "decode_f32_page": 0,
                             "fused_decode_rate": 0, "windowed_sum": 0}
 
-HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _host_lock = threading.Lock()

@@ -9,13 +9,13 @@ Port of the single-node part of ``filodb_tpu/coordinator/cluster.py``:
   replays the log from the recovery start and then tails it. The shard is
   RECOVERY until the replay reaches the log's end, then ACTIVE; a record
   that fails to ingest stops the worker and surfaces ERROR.
-- ``_FlushScheduler``: one thread a node; each tick flushes the next
-  group of every shard (round robin), truncates the shard's log below its
-  smallest group watermark, and writes the shard's index snapshot every
+- ``_FlushScheduler``: one thread a node; each tick runs ``shard_tick``
+  on every shard (flush the next group, round robin; hold the resident
+  chunks to ``shard_mem_mb``; purge past ``retention_ms``, in the
+  reference's order), truncates the shard's log below its smallest group
+  watermark, and writes the shard's index snapshot every
   ``index_snapshot_interval_ms``. A tick comes every ``flush_interval /
-  groups`` (between 0.5 and 300 s). The reference's tick also enforces
-  the shards' memory budget and purges expired partitions; the port has
-  neither yet (ROADMAP §A.9).
+  groups`` (between 0.5 and 300 s).
 - ``FilodbCluster``: ``join``, ``setup_dataset`` (shards assigned by
   ``ShardManager`` and started on their node), ``query_service``,
   ``shard_statuses``, ``wait_active`` and ``stop``.
@@ -141,6 +141,20 @@ def _register_lag_gauges(dataset: str, shard: int, s, shard_log,
             help="log records past the lowest group checkpoint")
 
 
+def shard_tick(shard, now_ms: int | None = None) -> dict:
+    """A flush-scheduler tick's work on one shard, in the reference's order
+    (``filodb_tpu/coordinator/cluster.py:307-312``): flush the next group,
+    hold the resident chunks to ``shard_mem_mb``, purge past
+    ``retention_ms``. → {flushed, evicted, purged}: chunks written,
+    chunks evicted by the budget's first step, partitions purged."""
+    if now_ms is None:
+        now_ms = int(time.time() * 1000)
+    flushed = shard.flush_group(shard.next_flush_group())
+    evicted = shard.enforce_memory()
+    purged = shard.purge_expired(now_ms)
+    return {"flushed": flushed, "evicted": evicted, "purged": purged}
+
+
 class _FlushScheduler(threading.Thread):
     """A node's flush scheduler (the reference's time-staggered
     ``createFlushTasks``): see the module. ``truncated`` holds each
@@ -176,7 +190,7 @@ class _FlushScheduler(threading.Thread):
         if ms is None:
             return
         shard = ms.shards[shard_num]
-        shard.flush_group(shard.next_flush_group())
+        shard_tick(shard)
         # the log below the smallest watermark is persisted, and replay
         # skips it
         w = self.node._workers.get(key)

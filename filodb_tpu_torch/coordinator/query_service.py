@@ -21,6 +21,11 @@ with ``vector_json`` or, for a scalar expression, ``scalar_json``.
 - ``"exec"``: ``SingleClusterPlanner`` materializes the exec plan tree
   (``query/exec/plan.py``), a leaf a shard.
 
+The service's mesh engine delegates, as the reference's production
+service does: a grid of at most two steps over a function the sidecar
+lane serves goes to exec, whose leaves fold it from the chunks' summaries
+(``query/engine/sidecar_lane.py``).
+
 ``QueryStats.engine`` records which engine answered and
 ``QueryStats.fallback`` why mesh handed the plan on. Both engines keep
 their uploaded batches in one ``BatchCache``, under one budget of device
@@ -76,7 +81,8 @@ class QueryService:
         self.engine = engine
         self.batches = BatchCache(self.device)
         self.gids = GroupIdCache()
-        self.mesh = MeshQueryEngine(self.device, self.batches, self.gids)
+        self.mesh = MeshQueryEngine(self.device, self.batches, self.gids,
+                                    sidecars=True)
         self.planner = SingleClusterPlanner(memstore.num_shards,
                                             memstore.spread,
                                             time_split_ms=time_split_ms)

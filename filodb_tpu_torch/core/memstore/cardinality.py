@@ -68,6 +68,14 @@ class CardinalityTracker:
                 node.card.active_ts += n
                 node.card.total_ts += n
 
+    def series_stopped_many(self, label_maps) -> None:
+        """Count series that stopped (purged or evicted): each one's path
+        loses an active series, never below zero, as the reference's
+        ``series_stopped`` one at a time."""
+        for path, n in Counter(self._path(lm) for lm in label_maps).items():
+            for node in self._walk(path):
+                node.card.active_ts = max(node.card.active_ts - n, 0)
+
     def cardinality(self, prefix: list[str]) -> Cardinality:
         nodes = self._walk(prefix)
         if len(nodes) <= len(prefix):

@@ -13,6 +13,11 @@ Columnar instead of postings: each label keeps a value table and an int32
 value id per partition (-1 = absent), so a filter is one vectorised
 comparison over the shard's partitions and bulk ingest of a million keys
 costs one dict lookup per label value.
+
+A removed part key (``remove_part_keys``: a purged partition, or the old
+entry of an evicted series that came back) leaves a hole: its pid is never
+reused, holds no label, has both times at ``INGESTING`` as the reference's
+tombstones do, and no lookup returns it. ``len`` counts the live entries.
 """
 
 from __future__ import annotations
@@ -46,7 +51,12 @@ class PartKeyIndex:
         self._labels: dict[str, _LabelColumn] = {}
         self._start = np.zeros(0, np.int64)
         self._end = np.zeros(0, np.int64)
+        self._live = np.zeros(0, bool)
         self._n = 0
+        self._count = 0
+
+    def __len__(self) -> int:
+        return self._count
 
     def _grow(self, n: int) -> None:
         cap = len(self._start)
@@ -56,6 +66,7 @@ class PartKeyIndex:
         self._start = np.concatenate([self._start,
                                       np.full(new - cap, INGESTING)])
         self._end = np.concatenate([self._end, np.full(new - cap, INGESTING)])
+        self._live = np.concatenate([self._live, np.zeros(new - cap, bool)])
         for col in self._labels.values():
             col.vid = np.concatenate([col.vid, np.full(new - cap, -1,
                                                        np.int32)])
@@ -69,6 +80,7 @@ class PartKeyIndex:
             raise ValueError("partition ids must be added in order")
         self._grow(first_pid + n)
         self._start[first_pid : first_pid + n] = start_times
+        self._live[first_pid : first_pid + n] = True
         outs: dict[str, np.ndarray] = {}
         for i, labels in enumerate(label_sets):
             for k, v in labels:
@@ -88,6 +100,30 @@ class PartKeyIndex:
         for k, out in outs.items():
             self._labels[k].vid[first_pid : first_pid + n] = out
         self._n += n
+        self._count += n
+
+    def remove_part_keys(self, pids) -> None:
+        """Remove partitions ``pids`` from the index for good (holes)."""
+        pids = np.asarray(pids, np.int64)
+        pids = pids[self._live[pids]]
+        for col in self._labels.values():
+            col.vid[pids] = -1
+        self._start[pids] = INGESTING
+        self._end[pids] = INGESTING
+        self._live[pids] = False
+        self._count -= len(pids)
+
+    def pid_for_exact_key(self, labels, blob: bytes, blob_of,
+                          exclude: int = -1) -> int | None:
+        """A live pid other than ``exclude`` whose key has the sorted
+        ``labels`` and the blob ``blob`` (``blob_of(pid)``), or None: the
+        label equalities narrow the candidates and the blob rejects keys
+        with more labels, as the reference's lookup does."""
+        filters = [ColumnFilter(k, Equals(v)) for k, v in labels]
+        for pid in self.part_ids_from_filters(filters, 0, INGESTING).tolist():
+            if pid != exclude and blob_of(pid) == blob:
+                return pid
+        return None
 
     def start_times(self, pids: np.ndarray) -> np.ndarray:
         return self._start[pids]
@@ -97,6 +133,9 @@ class PartKeyIndex:
 
     def set_end_times(self, pids: np.ndarray, end_times) -> None:
         self._end[pids] = end_times
+
+    def set_start_times(self, pids: np.ndarray, start_times) -> None:
+        self._start[pids] = start_times
 
     def _matches(self, f: ColumnFilter) -> np.ndarray:
         """bool [n]: partitions the filter keeps."""
@@ -122,7 +161,7 @@ class PartKeyIndex:
 
     def part_ids_from_filters(self, filters, start_time: int,
                               end_time: int) -> np.ndarray:
-        keep = np.ones(self._n, bool)
+        keep = self._live[: self._n].copy()
         for f in filters:
             keep &= self._matches(f)
             if not keep.any():
@@ -166,6 +205,9 @@ class PartKeyIndex:
         self._grow(n)
         self._start[:n] = starts
         self._end[:n] = ends
+        # holes carry INGESTING start times (the reference's tombstones)
+        self._live[:n] = np.asarray(starts) != INGESTING
+        self._count = int(self._live[:n].sum())
         for name, values, pids, counts in postings:
             col = self._labels[name] = _LabelColumn()
             col.values = list(values)

@@ -16,7 +16,7 @@ Port of ``filodb_tpu/core/memstore/index_snapshot.py``, format ``FIDX4``
         u32 voff[nv+1] | value blob
         i64 poff[nv+1] | i32 pids[poff[nv]]
     u32 card_len | cardinality tracker state (JSON)
-    [u32 bloom_len | evicted-part-key bloom state (JSON)]
+    u32 bloom_len | evicted-part-key bloom state (JSON)
 
 The core section is the layout of the reference's C++ ingest core
 (``shard_core_export``): ``key`` is the record-form part key (u16 schema id,
@@ -32,16 +32,21 @@ pids in order. The port converts between its key blobs
 with numpy, a few passes over all keys at once (no C++ core of its own
 holds the registry), byte-equal to the reference's layout.
 
+A partition that is not live is written as the reference's C++ core
+writes a freed slot: key length 0, its hash and floor, ``alive`` 0 and
+``ncols`` 0. A purged one (a hole) also has both times at ``INGESTING``
+and no postings; an evicted one keeps its times and postings. The bloom
+section holds the evicted-key filter's ``state()``.
+
 A restore needs an empty shard. It rebuilds the partition registry in pid
 order (key blobs, flush groups from the stored hashes, floors), the index
-from the postings, and the cardinality tree; each ``PartKey`` is made from
-its blob when first used (``shard.KeyList``), as the reference keeps its
-keys lazy. The trailing bloom section (the
-reference's evicted-part-key filter) is skipped on read and not written:
-partition eviction is not ported (ROADMAP §A.9). A snapshot with an
-entry of key length 0 (a partition the reference purged) raises: the port
-keeps no holes in its pid arrays, so the shard falls back to the full
-part-key scan (ROADMAP §C).
+from the postings, the cardinality tree and the bloom; each ``PartKey`` is
+made from its blob when first used (``shard.KeyList``), as the reference
+keeps its keys lazy. An entry of key length 0 restores as a hole, or, when
+its times say it was evicted, as an evicted partition whose key is rebuilt
+from its postings and its stored hash (the reference's restore leaves such
+a partition without a key, so its chunks on disk stay out of reach:
+ROADMAP §C).
 """
 
 from __future__ import annotations
@@ -138,6 +143,24 @@ def core_section(blobs: list[bytes], sid: np.ndarray, hashes: np.ndarray,
             rec_len.astype(np.int32))
 
 
+def record_keys(blobs: list[bytes], schema: np.ndarray) -> list[bytes]:
+    """The record-form keys (the reference's ``part_key_blob``) of keys
+    given as ``PartKey.serialized`` blobs of schemas ``schema`` (indexes
+    into ``SCHEMA_NAMES``)."""
+    from filodb_tpu_torch.core.record import SCHEMA_NAMES
+
+    if not blobs:
+        return []
+    sid_of = np.array([SCHEMAS[x].schema_id for x in SCHEMA_NAMES], np.int64)
+    n = len(blobs)
+    core, key_len = core_section(blobs, sid_of[np.asarray(schema, np.int64)],
+                                 np.zeros(n, np.int64), np.zeros(n, np.int64),
+                                 np.zeros(n, np.int64))
+    at = (np.cumsum(key_len.astype(np.int64) + 4 + _TAIL)
+          - key_len - _TAIL).tolist()
+    return [core[a:a + k] for a, k in zip(at, key_len.tolist())]
+
+
 def serialized_blobs(core: np.ndarray, entry: np.ndarray,
                      key_len: np.ndarray) -> tuple[list[bytes], np.ndarray]:
     """``PartKey.serialized`` of every record-form key of a core section
@@ -196,17 +219,24 @@ def save_snapshot(shard, chunk_token: int = -1, pk_token: int = -1,
     from filodb_tpu_torch.core.partkey import murmur3_32_many
     from filodb_tpu_torch.core.record import SCHEMA_NAMES
 
+    from filodb_tpu_torch.core.memstore.shard import LIVE
+
     n = shard.num_partitions
-    blobs = shard.key_blobs(range(n))
+    live = np.flatnonzero(shard.status[:n] == LIVE)
+    blobs = shard.key_blobs(live)
     schema = shard.schema_of[:n].astype(np.int64)
     ncols_of = np.array([len(SCHEMAS[x].data.columns) - 1
                          for x in SCHEMA_NAMES], np.int64)
     sid_of = np.array([SCHEMAS[x].schema_id for x in SCHEMA_NAMES], np.int64)
-    core, key_len = core_section(blobs, sid_of[schema],
-                                 murmur3_32_many(blobs), shard.floor[:n],
-                                 ncols_of[schema])
+    lcore, lkey_len = core_section(blobs, sid_of[schema[live]],
+                                   murmur3_32_many(blobs), shard.floor[live],
+                                   ncols_of[schema[live]])
+    key_len = np.zeros(n, np.int32)
+    key_len[live] = lkey_len
+    core = _with_holes(np.frombuffer(lcore, np.uint8), key_len, live,
+                       shard.hashes[:n], shard.floor[:n])
     eligible = np.array([_native_eligible(x) for x in SCHEMA_NAMES])
-    host = np.flatnonzero(~eligible[schema]).astype(np.int32)
+    host = live[~eligible[schema[live]]].astype(np.int32)
     out = [MAGIC, _HEAD.pack(n, snapshot_ms, chunk_token, pk_token),
            struct.pack("<I", len(core)), core, key_len.tobytes(),
            struct.pack("<I", len(host)), host.tobytes(),
@@ -227,16 +257,40 @@ def save_snapshot(shard, chunk_token: int = -1, pk_token: int = -1,
                 b"".join(values), poff.tobytes(),
                 pids.astype(np.int32).tobytes()]
     card = json.dumps(shard.cardinality.to_state()).encode()
-    out += [struct.pack("<I", len(card)), card]
+    bloom = json.dumps(shard.evicted_keys.state()).encode()
+    out += [struct.pack("<I", len(card)), card,
+            struct.pack("<I", len(bloom)), bloom]
     return b"".join(out)
+
+
+def _with_holes(lcore: np.ndarray, key_len: np.ndarray, live: np.ndarray,
+                hashes: np.ndarray, floors: np.ndarray) -> bytes:
+    """The core section of every pid: the live entries of ``lcore`` in
+    order and, for every other pid, a freed slot (key length 0, its hash
+    and floor, alive 0, ncols 0)."""
+    n = len(key_len)
+    size = key_len.astype(np.int64) + 4 + _TAIL
+    if len(live) == n:
+        return lcore.tobytes()
+    dead = np.setdiff1d(np.arange(n), live)
+    slots = np.concatenate([np.zeros((len(dead), 4), np.uint8),
+                            _le(hashes[dead], 4), _le(floors[dead], 8),
+                            np.zeros((len(dead), 2), np.uint8)], 1)
+    starts = np.zeros(n, np.int64)
+    lsize = size[live]
+    starts[live] = np.cumsum(lsize) - lsize
+    starts[dead] = len(lcore) + (4 + _TAIL) * np.arange(len(dead))
+    src = np.concatenate([lcore, slots.reshape(-1)])
+    return _segments(src, starts, size, np.arange(n)).tobytes()
 
 
 def read_snapshot(data: bytes) -> dict:
     """The sections of ``FIDX4`` bytes: n, snapshot_ms, chunk_token,
     pk_token, blobs (``PartKey.serialized`` a pid), schema_ids, hashes,
     floors, ncols, starts, ends, postings (label, values, pids, counts) and
-    cardinality (the tree state). Raises ``ValueError`` on a malformed snapshot or a purged
-    entry."""
+    cardinality (the tree state) and bloom (its state, or None). A pid of
+    key length 0 has the blob b"". Raises ``ValueError`` on a malformed
+    snapshot."""
     if data[:5] != MAGIC:
         raise ValueError("not an FIDX4 index snapshot")
     n, snapshot_ms, chunk_token, pk_token = _HEAD.unpack_from(data, 5)
@@ -247,9 +301,6 @@ def read_snapshot(data: bytes) -> dict:
     off += core_len
     key_len = np.frombuffer(data, np.int32, n, off).astype(np.int64)
     off += 4 * n
-    if (key_len == 0).any():
-        raise ValueError("the snapshot holds purged partitions, which the "
-                         "port's pid arrays cannot hold (ROADMAP §C)")
     size = key_len + 4 + _TAIL
     entry = np.concatenate([[0], np.cumsum(size)[:-1]]).astype(np.int64)
     if n and int(entry[-1] + size[-1]) != core_len:
@@ -263,7 +314,13 @@ def read_snapshot(data: bytes) -> dict:
     hashes = field(tail, 4, np.uint32)
     floors = field(tail + 4, 8, np.int64)
     ncols = core[tail + 13]
-    blobs, sids = serialized_blobs(core, entry, key_len)
+    keyed = np.flatnonzero(key_len > 0)
+    kblobs, ksids = serialized_blobs(core, entry[keyed], key_len[keyed])
+    blobs = [b""] * n
+    for i, b in zip(keyed.tolist(), kblobs):
+        blobs[i] = b
+    sids = np.zeros(n, np.int64)
+    sids[keyed] = ksids
     (n_host,) = struct.unpack_from("<I", data, off)
     off += 4 + 4 * n_host
     starts = np.frombuffer(data, np.int64, n, off)
@@ -295,11 +352,42 @@ def read_snapshot(data: bytes) -> dict:
     (card_len,) = struct.unpack_from("<I", data, off)
     off += 4
     card = json.loads(data[off:off + card_len].decode())
+    off += card_len
+    bloom = None
+    if off + 4 <= len(data):  # absent in older snapshots
+        (bl,) = struct.unpack_from("<I", data, off)
+        bloom = json.loads(data[off + 4:off + 4 + bl].decode())
     return dict(n=n, snapshot_ms=snapshot_ms, chunk_token=chunk_token,
                 pk_token=pk_token, blobs=blobs, schema_ids=sids,
                 hashes=hashes, floors=floors,
                 ncols=ncols, starts=starts, ends=ends, postings=postings,
-                cardinality=card)
+                cardinality=card, bloom=bloom)
+
+
+def rebuild_keys(pids: np.ndarray, hashes: np.ndarray,
+                 postings) -> dict[int, bytes]:
+    """``PartKey.serialized`` of the keyless pids ``pids``, rebuilt from
+    the labels their postings give them and the schema whose key hashes to
+    their stored hash; a pid no schema matches is left out."""
+    from filodb_tpu_torch.core.partkey import murmur3_32
+    from filodb_tpu_torch.core.record import SCHEMA_NAMES
+
+    labels: dict[int, list] = {int(p): [] for p in pids.tolist()}
+    for name, values, ppids, counts in postings:
+        vid = np.repeat(np.arange(len(values)), counts)
+        hit = np.isin(ppids, pids)
+        for p, v in zip(ppids[hit].tolist(), vid[hit].tolist()):
+            labels[p].append((name, values[v]))
+    out = {}
+    for p, lab in labels.items():
+        body = b"".join(b"\x00" + k.encode() + b"\x01" + v.encode()
+                        for k, v in sorted(lab))
+        for name in SCHEMA_NAMES:
+            blob = name.encode() + body
+            if murmur3_32(blob) == int(hashes[p]):
+                out[p] = blob
+                break
+    return out
 
 
 def load_snapshot(shard, data: bytes) -> dict:

@@ -13,6 +13,11 @@ a bucket and the ``sum`` / ``count`` value pages. A paged chunk's pages are
 therefore the pages it had in memory, and those of the reference's
 ``chunk_device_pages``.
 
+A paged chunk keeps its summary (``memory/chunk.py``): read from the
+chunk's ``SC01`` section where it has one, else made from the decoded
+values (``chunk.read_summaries``). An evicted partition (a paged shell)
+has nothing resident, so every query over it pages its chunks in.
+
 ``DemandPagedChunkCache`` keeps the paged chunks of one shard as those
 pages (a ``ChunkTable`` a kind), keyed (partition, chunk id), bounded as
 the reference's cache is: ``max_chunks`` (10,000) a shard, the least
@@ -42,6 +47,7 @@ from filodb_tpu_torch.memory.chunk import (
     ChunkBytes,
     bucket_counts,
     decode_chunks,
+    read_summaries,
 )
 
 _NONE = np.iinfo(np.int64).max
@@ -72,7 +78,7 @@ class DemandPagedChunkCache:
         self.max_chunks = max_chunks
         self.tables = {False: ChunkTable("vmax", "used"),
                        True: ChunkTable("les", "vmax_sum", "vmax_count",
-                                        "used")}
+                                        "used", schema="prom-histogram")}
         self._cov = np.zeros((0, 2), np.int64)  # per pid: covered [lo, hi]
         self._tick = 0
         self.requests = 0      # partitions that needed paging
@@ -107,6 +113,11 @@ class DemandPagedChunkCache:
             self._cov[col["pid"][drop]] = (_NONE, -_NONE)
             t.compact()
 
+    def forget(self, pids: np.ndarray) -> None:
+        """Forget the covered ranges of ``pids`` (purged or evicted)."""
+        pids = pids[pids < len(self._cov)]
+        self._cov[pids] = (_NONE, -_NONE)
+
     def _add(self, shard, pids: np.ndarray, cb: ChunkBytes) -> None:
         """Decode chunks ``cb`` of partitions ``pids`` and keep their
         pages."""
@@ -125,14 +136,16 @@ class DemandPagedChunkCache:
                     part = g[a:a + _DECODE_CHUNKS]
                     t = time.perf_counter()
                     d = decode_chunks(cb.take(part), sch)
+                    summ = read_summaries(cb.take(part), sch, d)
                     self.seconds["decode"] += time.perf_counter() - t
-                    self._add_decoded(shard, pids[part], d, sch.is_histogram)
+                    self._add_decoded(shard, pids[part], d, sch.is_histogram,
+                                      summ)
 
-    def _add_decoded(self, shard, pids, d, hist: bool) -> None:
+    def _add_decoded(self, shard, pids, d, hist: bool, summ: dict) -> None:
         t = time.perf_counter()
         row = dict(pid=pids, seq=d.ids & 0xFFF, cid=d.ids, rows=d.rows,
                    t0=d.start, t1=d.end,
-                   used=np.full(len(pids), self._tick, np.int64))
+                   used=np.full(len(pids), self._tick, np.int64), **summ)
         if hist:
             slots = hist_slots(d.hist, d.dcols[:, 0], d.dcols[:, 1])
             pages, per = encode_pages(d.ts, slots, d.rows)
@@ -178,11 +191,12 @@ def page_partitions(shard, pids: np.ndarray, start: int, end: int,
     read = pids[~covered]
     if len(read):
         t = time.perf_counter()
+        blobs = shard.key_blobs(read)
         rows = shard.column_store.read_chunk_rows(
-            shard.dataset, shard.shard_num,
-            shard.key_blobs(read), start, end)
+            shard.dataset, shard.shard_num, blobs, start, end)
         cb = ChunkBytes.from_blobs([d for _, d in rows])
-        rpid = np.array([shard._by_blob[b] for b, _ in rows], np.int64)
+        pid_of = dict(zip(blobs, read.tolist()))
+        rpid = np.array([pid_of[b] for b, _ in rows], np.int64)
         cache.seconds["read"] += time.perf_counter() - t
         if rows:
             ids = cb.buf[cb.starts[:, None] + np.arange(8)].copy().view(

@@ -38,7 +38,14 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
-from filodb_tpu_torch.memory.chunk import ChunkBytes
+from filodb_tpu_torch.core.schemas import SCHEMAS
+from filodb_tpu_torch.memory.chunk import (
+    SKETCH_BUCKETS,
+    STATS_WIDTH,
+    ChunkBytes,
+    summary_kinds,
+    summary_sections,
+)
 from filodb_tpu_torch.query.engine.device_batch import (
     HistPageBlocks,
     PageBlocks,
@@ -86,7 +93,9 @@ class WriteBuffers:
     handed out on a partition's first append, so a shard's histogram
     buffers hold rows for its histograms only, and its scalar buffers none
     for them. Values are float64 [rows, M], or with ``buckets`` B
-    cumulative bucket counts int64 [rows, M, B]."""
+    cumulative bucket counts int64 [rows, M, B]. A row that ``free``
+    gives back (a purged or evicted partition's) goes to the next
+    partition that needs one."""
 
     def __init__(self, max_chunk_size: int, buckets: int | None = None):
         self.max_chunk_size = max_chunk_size
@@ -98,6 +107,7 @@ class WriteBuffers:
         self.slot = np.zeros(0, np.int64)
         self.pid_of = np.zeros(0, np.int64)
         self.used = 0
+        self._free = np.zeros(0, np.int64)
 
     def rows(self, pids: np.ndarray, create: bool = False) -> np.ndarray:
         """Rows of partitions ``pids`` (−1 where none); with ``create``,
@@ -110,13 +120,33 @@ class WriteBuffers:
         rows = self.slot[pids]
         new = pids[rows < 0] if create else pids[:0]
         if len(new):
-            self._reserve(self.used + len(new))
+            reuse, self._free = self._free[:len(new)], self._free[len(new):]
+            fresh = len(new) - len(reuse)
+            self._reserve(self.used + fresh)
+            got = np.concatenate([reuse, np.arange(self.used,
+                                                   self.used + fresh)])
+            self.used += fresh
             rows = rows.copy()
-            rows[rows < 0] = self.slot[new] = np.arange(
-                self.used, self.used + len(new))
-            self.pid_of[self.used:self.used + len(new)] = new
-            self.used += len(new)
+            rows[rows < 0] = self.slot[new] = got
+            self.pid_of[got] = new
         return rows
+
+    def free(self, pids: np.ndarray) -> None:
+        """Drop the unsealed samples of ``pids`` and give their rows
+        back."""
+        rows = self.rows(np.asarray(pids, np.int64))
+        have = rows >= 0
+        rows = rows[have]
+        self.n[rows] = 0
+        self.slot[np.asarray(pids, np.int64)[have]] = -1
+        self._free = np.concatenate([self._free, rows])
+
+    def holding(self, pids: np.ndarray) -> np.ndarray:
+        """bool [len(pids)]: which of ``pids`` hold unsealed samples."""
+        rows = self.rows(np.asarray(pids, np.int64))
+        out = rows >= 0
+        out[out] = self.n[rows[out]] > 0
+        return out
 
     def _reserve(self, n_rows: int) -> None:
         cap = len(self.n)
@@ -182,6 +212,15 @@ class WriteBuffers:
                self.vals[rows].copy(), self.n[rows].copy())
         self.n[rows] = 0
         return out
+
+
+def _empty(name: str) -> np.ndarray:
+    """A column of an empty chunk table."""
+    if name.startswith("stats_"):
+        return np.zeros((0, STATS_WIDTH), np.float64)
+    if name.startswith("sketch_"):
+        return np.zeros((0, SKETCH_BUCKETS), np.uint16)
+    return np.zeros(0, bool if name in ("dead", "pending") else np.int64)
 
 
 def hist_slots(counts: np.ndarray, sums, cnts) -> np.ndarray:
@@ -258,12 +297,22 @@ class ChunkTable:
     id), blk0 and nblk (the chunk's blocks among all the tables' blocks),
     rows, t0, t1, nbytes (its codec vectors' length), dead (evicted: its
     pages go at the next ``compact``), cbatch, cidx and pending (its codec
-    chunk, ``codec[cbatch]``'s chunk ``cidx``, awaits its flush), and the
-    kind's own columns ``extra``."""
+    chunk, ``codec[cbatch]``'s chunk ``cidx``, awaits its flush), the
+    summary of each scalar column ``c`` of the kind's schema (``stats_c``
+    float64 [12] and ``sketch_c`` uint16 [64], ``memory/chunk.py``), and
+    the kind's own columns ``extra``."""
 
-    def __init__(self, *extra: str):
+    def __init__(self, *extra: str, schema: str = "gauge"):
+        sch = SCHEMAS[schema]
+        self.kinds = summary_kinds(sch)
+        self.summarized = [c.name for c, k in zip(sch.data.columns,
+                                                  self.kinds)
+                           if k is not None]
+        summ = [f"{p}_{c}" for c in self.summarized for p in ("stats",
+                                                             "sketch")]
         self.names = ("pid", "seq", "cid", "blk0", "nblk", "rows", "t0", "t1",
-                      "nbytes", "dead", "cbatch", "cidx", "pending", *extra)
+                      "nbytes", "dead", "cbatch", "cidx", "pending", *summ,
+                      *extra)
         self.pages: list = []
         self.offsets: list[int] = [0]
         self.codec: dict[int, ChunkBytes] = {}
@@ -296,8 +345,7 @@ class ChunkTable:
         if self._columns is None:
             self._columns = {
                 n: np.concatenate([c[n] for c in self._cols]) if self._cols
-                else np.zeros(0, bool if n in ("dead", "pending")
-                              else np.int64) for n in self.names}
+                else _empty(n) for n in self.names}
             self._cols = [self._columns]
         return self._columns
 
@@ -309,6 +357,13 @@ class ChunkTable:
         col = self.columns
         return [self.codec[b].data(i) for b, i in
                 zip(col["cbatch"][idx].tolist(), col["cidx"][idx].tolist())]
+
+    def sections(self, idx: np.ndarray) -> np.ndarray:
+        """The ``SC01`` summary sections of chunks ``idx``, uint8 [n, L]."""
+        col = self.columns
+        return summary_sections(
+            self.kinds, [col[f"stats_{c}"][idx] for c in self.summarized],
+            [col[f"sketch_{c}"][idx] for c in self.summarized])
 
     def flushed(self, idx: np.ndarray) -> None:
         """Chunks ``idx`` are in the column store: drop their codec chunks.

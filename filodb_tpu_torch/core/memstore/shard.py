@@ -43,6 +43,21 @@ since its tokens, or on any failure falls back to the full part-key scan,
 as the reference does. ``floor`` is each partition's largest persisted
 timestamp (the snapshot's out-of-order floor).
 
+The memory bound (the reference's ``shard.py:765-926``): ``enforce_memory``
+evicts flushed chunks, partitions of the oldest latest sample first, and
+past that whole cold partitions (``evict_cold_partitions``);
+``purge_expired`` drops partitions whose latest sample is older than
+``retention_ms``. Both work on the per-pid arrays at once. A pid has a
+``status``: live, evicted (a paged shell: its index entry stays with its
+end time, its key goes into the evicted-key bloom ``evicted_keys``, its
+chunks page back in through ``odp.py``) or gone (purged, or the old entry
+of an evicted series that came back: a hole in every array, never reused).
+A new key that hits the bloom takes its evicted pid's start time and dedup
+floor, and the old pid becomes a hole (``_restore_evicted``). Every sealed
+chunk carries its summary (``memory/chunk.py``; ``ChunkTable`` columns
+``stats_*`` and ``sketch_*``), made at seal by the host codec and written
+with the chunk at flush.
+
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
@@ -64,7 +79,7 @@ import numpy as np
 
 from filodb_tpu_torch.core.memstore import odp
 from filodb_tpu_torch.core.memstore.cardinality import CardinalityTracker
-from filodb_tpu_torch.core.memstore.index import PartKeyIndex
+from filodb_tpu_torch.core.memstore.index import INGESTING, PartKeyIndex
 from filodb_tpu_torch.core.memstore.partition import (
     HIST_COLUMNS,
     ChunkTable,
@@ -92,13 +107,16 @@ from filodb_tpu_torch.core.store.api import (
     pk_from_blob,
 )
 from filodb_tpu_torch.core.store.config import StoreConfig
-from filodb_tpu_torch.memory.chunk import chunk_ids, encode_chunks
+from filodb_tpu_torch.memory.chunk import chunk_ids, encode_chunks, summarize
+from filodb_tpu_torch.utils.bloom import BloomFilter
 from filodb_tpu_torch.utils.metrics import Counter, Gauge, Histogram
 
 log = logging.getLogger(__name__)
 
 _NCOL = len(HIST_COLUMNS)
 _NO_TS = np.iinfo(np.int64).max
+# a pid's status
+LIVE, EVICTED, GONE = 0, 1, 2
 
 
 class KeyList:
@@ -132,6 +150,12 @@ class KeyList:
         self._keys.extend(keys)
         self._blobs.extend(k.serialized for k in keys)
 
+    def drop(self, pids) -> None:
+        """Forget the keys of ``pids`` (holes)."""
+        for p in np.asarray(pids).tolist():
+            self._blobs[p] = b""
+            self._keys[p] = None
+
 
 class ShardStats:
     """The reference's shard metrics (``ShardStats``) of the ingest, flush
@@ -161,6 +185,17 @@ class ShardStats:
                                       tags)
         self.index_recovery_partkeys = Counter(
             "memstore_index_recovery_partkeys_processed", tags)
+        self.partitions_purged = Counter("memstore_partitions_purged", tags)
+        self.purge_time_ms = Counter("memstore_partitions_purge_time_ms",
+                                     tags)
+        self.partitions_evicted = Counter("memstore_partitions_evicted",
+                                          tags)
+        self.chunkids_evicted = Counter("memstore_chunkids_evicted", tags)
+        self.partitions_restored = Counter(
+            "memstore_partitions_paged_restored", tags)
+        self.eviction_stall_ns = Counter("memstore_eviction_stall_ns", tags)
+        self.bloom_queries = Counter("evicted_pk_bloom_filter_queries", tags)
+        self.bloom_fp = Counter("evicted_pk_bloom_filter_fp", tags)
 
 
 class Shard:
@@ -186,6 +221,8 @@ class Shard:
         self.schema_of = np.zeros(0, np.int8)
         self.group = np.zeros(0, np.int64)
         self._dirty = np.zeros(0, bool)
+        self.status = np.zeros(0, np.int8)  # LIVE, EVICTED or GONE
+        self.hashes = np.zeros(0, np.uint32)  # part hash (murmur3 of key)
         self._sealed = ChunkTable("vmax")  # largest finite |value| a chunk
         self.version = 0
         self._buffer_pages = None  # (version, buffer_pages() dict)
@@ -200,7 +237,8 @@ class Shard:
         self.hist_buffers: dict[int, WriteBuffers] = {}
         # each chunk's scheme, and the largest finite |value| of its sum and
         # count columns
-        self._hist_sealed = ChunkTable("les", "vmax_sum", "vmax_count")
+        self._hist_sealed = ChunkTable("les", "vmax_sum", "vmax_count",
+                                       schema="prom-histogram")
         self._hist_buffer_pages = None  # (version, [per bucket count])
         # write path: per-group watermarks (replayed records at or below
         # are skipped), the highest log offset ingested, and the largest
@@ -220,6 +258,9 @@ class Shard:
         self.stats = ShardStats(dataset, shard_num)
         self.recovered_from: str | None = None  # "snapshot" or "scan"
         self.cardinality = CardinalityTracker(shard_num)
+        self.evicted_keys = BloomFilter(
+            self.config.evicted_pk_bloom_filter_capacity)
+        self._shells: dict[bytes, int] = {}  # evicted key blob → its pid
 
     @property
     def num_partitions(self) -> int:
@@ -249,6 +290,8 @@ class Shard:
         self.hist = more(self.hist, False)
         self._width = more(self._width, 0)
         self._les_id = more(self._les_id, -1)
+        self.status = more(self.status, LIVE)
+        self.hashes = more(self.hashes, 0)
 
     def _create(self, keys: list[PartKey], first_ts: np.ndarray) -> np.ndarray:
         """New partitions of distinct new ``keys`` with their first sample
@@ -263,7 +306,8 @@ class Shard:
                           np.int8)
         self.schema_of[base:n] = schema
         self.hist[base:n] = [SCHEMAS[k.schema].is_histogram for k in keys]
-        self.group[base:n] = murmur3_32_many(blobs).astype(np.int64) \
+        self.hashes[base:n] = murmur3_32_many(blobs)
+        self.group[base:n] = self.hashes[base:n].astype(np.int64) \
             % self.config.groups_per_shard
         self._dirty[base:n] = True
         if self._persisted_floors:
@@ -274,8 +318,46 @@ class Shard:
                                  np.asarray(first_ts, np.int64))
         self.cardinality.series_created_many(k.label_map for k in keys)
         self.stats.partitions_created.inc(len(keys))
-        self.stats.num_partitions.set(n)
+        if self.evicted_keys.count:
+            self._restore_evicted(np.arange(base, n), blobs)
+        self.stats.num_partitions.set(len(self.index))
         return np.arange(base, n)
+
+    def record_keys(self, pids) -> list[bytes]:
+        """The record-form part keys of ``pids`` (the reference's
+        ``part_key_blob``, the bloom's keys)."""
+        from filodb_tpu_torch.core.memstore.index_snapshot import (
+            record_keys,
+        )
+
+        pids = np.asarray(pids, np.int64)
+        return record_keys(self.key_blobs(pids), self.schema_of[pids])
+
+    def _restore_evicted(self, pids: np.ndarray, blobs: list[bytes]) -> None:
+        """New partitions whose key hits the evicted-key bloom and belongs
+        to an evicted pid take that pid's identity: its start time where
+        earlier, its end time as their dedup floor; the old pid becomes a
+        hole (the reference's ``_maybe_restore_evicted``)."""
+        self.stats.bloom_queries.inc(len(pids))
+        rec = self.record_keys(pids)
+        hit = [i for i, r in enumerate(rec) if r in self.evicted_keys]
+        old = np.array([self._shells.pop(blobs[i], -1) for i in hit],
+                       np.int64)
+        self.stats.bloom_fp.inc(int((old < 0).sum()))
+        new = pids[np.array(hit, np.int64)[old >= 0]]
+        old = old[old >= 0]
+        if not len(new):
+            return
+        starts = np.minimum(self.index.start_times(old),
+                            self.index.start_times(new))
+        self.index.set_start_times(new, starts)
+        ends = self.index.end_times(old)
+        ended = ends < 2**62
+        np.maximum.at(self.latest, new[ended], ends[ended])
+        np.maximum.at(self.floor, new, self.floor[old])
+        self._dirty[new] = True
+        self._remove(old)
+        self.stats.partitions_restored.inc(len(new))
 
     def _partitions_for(self, keys: list[PartKey],
                         first_ts: np.ndarray) -> np.ndarray:
@@ -472,8 +554,10 @@ class Shard:
         pages, per = encode_pages(ts, vals, rows)
         row = self._chunk_row(pids, ts, rows)
         codec = encode_chunks(ts, vals[:, None, :], rows, row["cid"])
+        stats, sketch = summarize(ts, vals, rows)
         self._sealed.add(pages, per, codec, **row,
-                         vmax=abs_max_finite(vals, rows))
+                         vmax=abs_max_finite(vals, rows), stats_value=stats,
+                         sketch_value=sketch)
 
     def _add_hist_chunks(self, pids, ts, slots, rows) -> None:
         """Seal histogram buffers: pages, codec chunks, each chunk's scheme
@@ -486,9 +570,14 @@ class Shard:
         codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"],
                               hist=slots, les=np.stack(
                                   [self.les_list[i] for i in les.tolist()]))
+        summ = {}
+        for j, name in enumerate(HIST_COLUMNS):
+            summ[f"stats_{name}"], summ[f"sketch_{name}"] = summarize(
+                ts, np.ascontiguousarray(cols[..., j]), rows)
         self._hist_sealed.add(pages, per, codec, **row, les=les,
                               vmax_sum=abs_max_finite(cols[..., 0], rows),
-                              vmax_count=abs_max_finite(cols[..., 1], rows))
+                              vmax_count=abs_max_finite(cols[..., 1], rows),
+                              **summ)
 
     def _chunk_row(self, pids, ts, rows) -> dict:
         """The columns every sealed chunk has; takes the next sequence
@@ -562,9 +651,12 @@ class Shard:
             if not len(sel):
                 continue
             blobs = self.key_blobs(col["pid"][sel])
+            sections = table.sections(sel)
+            chunks = [bytes(c) + sec.tobytes() for c, sec in
+                      zip(table.codec_rows(sel), sections)]
             rows = list(zip(blobs, col["cid"][sel].tolist(),
                             col["t0"][sel].tolist(), col["t1"][sel].tolist(),
-                            table.codec_rows(sel)))
+                            chunks))
             self.column_store.write_chunk_rows(self.dataset, self.shard_num,
                                                rows, ingestion_time)
             table.flushed(sel)
@@ -670,7 +762,8 @@ class Shard:
         self._by_blob = {}
         self.cardinality = CardinalityTracker(self.shard_num)
         for name in ("latest", "floor", "_seq", "schema_of", "group",
-                     "_dirty", "hist", "_width", "_les_id"):
+                     "_dirty", "hist", "_width", "_les_id", "status",
+                     "hashes"):
             setattr(self, name, getattr(self, name)[:0])
 
     def _recover_from_snapshot(self, data: bytes) -> int:
@@ -705,34 +798,58 @@ class Shard:
             np.maximum.at(self.latest, pids, ts)
         self.version += 1
         self.stats.index_recovery_partkeys.inc(len(new))
-        self.stats.num_partitions.set(self.num_partitions)
-        return self.num_partitions
+        self.stats.num_partitions.set(len(self.index))
+        return len(self.index)
 
     def restore_registry(self, snap: dict) -> None:
         """Load the partitions of a read index snapshot
         (``index_snapshot.read_snapshot``) into this empty shard, in pid
         order: keys, kinds, flush groups from the stored part hashes,
-        floors, the index and the cardinality tree."""
+        floors, the index, the cardinality tree and the evicted-key bloom.
+        A keyless entry is a hole, or, where its times say it was evicted,
+        an evicted partition whose key is rebuilt from its postings."""
+        from filodb_tpu_torch.core.memstore.index_snapshot import (
+            rebuild_keys,
+        )
+
         if self.num_partitions:
             raise ValueError("an index snapshot restores into an empty shard")
-        blobs, n = snap["blobs"], snap["n"]
+        blobs, n = list(snap["blobs"]), snap["n"]
+        keyless = np.flatnonzero(np.fromiter((not b for b in blobs), bool, n))
+        shells = keyless[np.asarray(snap["starts"])[keyless] != INGESTING]
+        rebuilt = rebuild_keys(shells, snap["hashes"], snap["postings"])
+        for p, b in rebuilt.items():
+            blobs[p] = b
         self._grow(n)
         self.keys = KeyList(blobs)
-        self._by_blob = dict(zip(blobs, range(n)))
+        has_key = np.fromiter((bool(b) for b in blobs), bool, n)
+        status = np.where(has_key, LIVE, GONE).astype(np.int8)
+        status[list(rebuilt)] = EVICTED
+        self.status[:n] = status
+        self._by_blob = {b: i for i, b in enumerate(blobs)
+                         if status[i] == LIVE}
+        self._shells = {blobs[p]: p for p in rebuilt}
         index_of = np.full(1 << 16, -1, np.int64)
         for i, name in enumerate(SCHEMA_NAMES):
             index_of[SCHEMAS[name].schema_id] = i
         schema = index_of[snap["schema_ids"]]
+        schema[~has_key] = 0
+        for p, b in rebuilt.items():
+            schema[p] = SCHEMA_NAMES.index(b.split(b"\x00", 1)[0].decode())
         self.schema_of[:n] = schema
         self.hist[:n] = np.array([SCHEMAS[x].is_histogram
                                   for x in SCHEMA_NAMES])[schema]
+        self.hashes[:n] = snap["hashes"]
         self.group[:n] = snap["hashes"].astype(np.int64) \
             % self.config.groups_per_shard
         self.floor[:n] = snap["floors"]
         self.latest[:n] = snap["floors"]
         self._dirty[:n] = False
         self.index.restore(snap["starts"], snap["ends"], snap["postings"])
+        self.index.remove_part_keys(np.setdiff1d(keyless, list(rebuilt)))
         self.cardinality.load_state(snap["cardinality"])
+        if snap["bloom"] is not None:
+            self.evicted_keys = BloomFilter.from_state(snap["bloom"])
 
     def snapshot_index(self) -> int:
         """Write the index snapshot to the column store; returns its
@@ -759,7 +876,7 @@ class Shard:
         with self.lock:
             return self._evict(part_ids)
 
-    def _evict(self, part_ids) -> int:
+    def _evict(self, part_ids, count: bool = True) -> int:
         mine = np.zeros(self.num_partitions, bool)
         mine[np.atleast_1d(np.asarray(part_ids, np.int64))] = True
         n = 0
@@ -773,7 +890,186 @@ class Shard:
                 table.compact()
         if n:
             self.version += 1
+        if count:
+            self.stats.chunkids_evicted.inc(n)
         return n
+
+    # ---- the memory bound ----------------------------------------------------
+
+    def chunk_bytes(self) -> int:
+        """Codec bytes of the resident sealed chunks (``Chunk.nbytes``, the
+        reference's measure)."""
+        with self.lock:
+            return self._chunk_bytes()
+
+    def _chunk_bytes(self) -> int:
+        return sum(int(t.columns["nbytes"][t.live()].sum())
+                   for t in (self._sealed, self._hist_sealed))
+
+    def _unpersisted(self, pids: np.ndarray) -> np.ndarray:
+        """bool [len(pids)]: which hold unsealed samples or unflushed
+        chunks."""
+        out = self.buffers.holding(pids)
+        for b in self.hist_buffers.values():
+            out |= b.holding(pids)
+        mine = np.zeros(self.num_partitions, bool)
+        for table in (self._sealed, self._hist_sealed):
+            col = table.columns
+            mine[col["pid"][col["pending"] & ~col["dead"]]] = True
+        return out | mine[pids]
+
+    def _release(self, pids: np.ndarray) -> None:
+        """Free the write-buffer rows of ``pids``."""
+        self.buffers.free(pids)
+        for b in self.hist_buffers.values():
+            b.free(pids)
+
+    def _remove(self, pids: np.ndarray) -> None:
+        """Make ``pids`` (live or evicted) holes: out of the index, the key
+        maps, the write buffers, the chunk tables and the page cache."""
+        live = pids[self.status[pids] == LIVE]
+        self.cardinality.series_stopped_many(self.keys[p].label_map
+                                             for p in live.tolist())
+        for p in pids.tolist():
+            blob = self.keys.blob(p)
+            # a series that came back holds its key under a new pid
+            if self._by_blob.get(blob) == p:
+                del self._by_blob[blob]
+            if self._shells.get(blob) == p:
+                del self._shells[blob]
+        self._release(pids)
+        gone = np.zeros(self.num_partitions, bool)
+        gone[pids] = True
+        for table in (self._sealed, self._hist_sealed,
+                      *self.odp_cache.tables.values()):
+            col = table.columns
+            sel = gone[col["pid"]] & ~col["dead"]
+            col["dead"][sel] = True
+            col["pending"][sel] = False
+        self.odp_cache.forget(pids)
+        self.index.remove_part_keys(pids)
+        self.keys.drop(pids)
+        self.status[pids] = GONE
+        self._dirty[pids] = False
+        self.version += 1
+
+    def remove_partitions(self, pids) -> None:
+        """Make ``pids`` holes now (as a purge does, counting nothing)."""
+        with self.lock:
+            self._remove(np.asarray(pids, np.int64))
+
+    def purge_expired(self, now_ms: int) -> int:
+        """Drop every partition whose latest sample is older than
+        ``now_ms - retention_ms`` (the reference's TTL purge); returns the
+        partitions purged. Evicted partitions go too, by the latest sample
+        they held (the reference walks partition objects, which an evicted
+        pid lacks, and so never purges one: ROADMAP §C)."""
+        cutoff = now_ms - self.config.retention_ms
+        t0 = time.perf_counter()
+        with self.lock:
+            P = self.num_partitions
+            lat = self.latest[:P]
+            pids = np.flatnonzero((self.status[:P] != GONE) & (lat != -1)
+                                  & (lat < cutoff))
+            if len(pids):
+                self._remove(pids)
+        if len(pids):
+            self.stats.partitions_purged.inc(len(pids))
+            self.stats.purge_time_ms.inc(
+                int((time.perf_counter() - t0) * 1000))
+            self.stats.num_partitions.set(len(self.index))
+        return len(pids)
+
+    def _evict_partitions(self, pids: np.ndarray) -> int:
+        """Evict the live ``pids`` that hold nothing unpersisted (after
+        their flushed chunks go): keep their index entries with their end
+        times, put their keys in the bloom, free the rest."""
+        pids = pids[self.status[pids] == LIVE]
+        self._evict(pids)
+        pids = pids[~self._unpersisted(pids)]
+        if not len(pids):
+            return 0
+        ends = self.index.end_times(pids)
+        ends = np.where(ends < 2**62, ends, self.latest[pids])
+        set_ = ends != -1
+        self.index.set_end_times(pids[set_], ends[set_])
+        for r in self.record_keys(pids):
+            self.evicted_keys.add(r)
+        for p in pids.tolist():
+            blob = self.keys.blob(p)
+            self._by_blob.pop(blob, None)
+            self._shells[blob] = p
+        self._release(pids)
+        self.cardinality.series_stopped_many(self.keys[p].label_map
+                                             for p in pids.tolist())
+        self.status[pids] = EVICTED
+        self.version += 1
+        self.stats.partitions_evicted.inc(len(pids))
+        return len(pids)
+
+    def evict_partition(self, part_id: int) -> bool:
+        """Evict one partition whole (see ``_evict_partitions``); False
+        where it is not live or holds unpersisted data."""
+        with self.lock:
+            return self._evict_partitions(np.array([part_id], np.int64)) == 1
+
+    def evict_cold_partitions(self, max_evict: int, now_ms: int | None = None,
+                              min_idle_ms: int = 0) -> int:
+        """Evict up to ``max_evict`` fully persisted partitions, the oldest
+        latest sample first (ties by pid, as the reference's sort breaks
+        them); returns the partitions evicted. Every partition visited on
+        the way loses its flushed chunks, as in the reference."""
+        with self.lock:
+            return self._evict_cold(max_evict, now_ms, min_idle_ms)
+
+    def _evict_cold(self, max_evict: int, now_ms: int | None = None,
+                    min_idle_ms: int = 0) -> int:
+        P = self.num_partitions
+        lat = self.latest[:P]
+        cand = self.status[:P] == LIVE
+        if now_ms is not None and min_idle_ms:
+            cand &= ~((lat != -1) & (lat > now_ms - min_idle_ms))
+        pids = np.flatnonzero(cand)
+        pids = pids[np.lexsort((pids, np.where(lat[pids] != -1,
+                                               lat[pids], 0)))]
+        ok = np.flatnonzero(~self._unpersisted(pids))
+        if max_evict <= 0:
+            return 0
+        if len(ok) >= max_evict:
+            pids = pids[: ok[max_evict - 1] + 1]
+        return self._evict_partitions(pids)
+
+    def enforce_memory(self, budget_bytes: int | None = None) -> int:
+        """Evict flushed chunks, partitions of the oldest latest sample
+        first, until the resident chunks fit the budget (``shard_mem_mb``
+        by default); if they still do not, evict whole cold partitions,
+        ``max(len(index) // 20, 64)`` of them. Returns the chunks evicted
+        in the first step (the reference's count)."""
+        budget = budget_bytes if budget_bytes is not None \
+            else self.config.shard_mem_mb * 1024 * 1024
+        t0 = time.perf_counter()
+        with self.lock:
+            used = self._chunk_bytes()
+            if used <= budget:
+                return 0
+            P = self.num_partitions
+            pids = np.flatnonzero(self.status[:P] == LIVE)
+            pids = pids[np.argsort(self.latest[pids], kind="stable")]
+            freed = np.zeros(P, np.int64)
+            for table in (self._sealed, self._hist_sealed):
+                col = table.columns
+                sel = ~col["pending"] & ~col["dead"]
+                np.add.at(freed, col["pid"][sel], col["nbytes"][sel])
+            before = used - (np.cumsum(freed[pids]) - freed[pids])
+            k = int(np.argmax(before <= budget)) if (before <= budget).any() \
+                else len(pids)
+            evicted = self._evict(pids[:k], count=False)
+            used -= int(freed[pids[:k]].sum())
+            if used > budget:
+                self._evict_cold(max(len(self.index) // 20, 64))
+        self.stats.eviction_stall_ns.inc(int((time.perf_counter() - t0)
+                                             * 1e9))
+        return evicted
 
     def earliest_in_memory(self) -> np.ndarray:
         """int64 [P]: each partition's earliest resident timestamp (its

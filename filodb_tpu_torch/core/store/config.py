@@ -4,9 +4,12 @@ Copy of ``filodb_tpu/core/store/config.py``'s ``StoreConfig`` and
 ``IngestionConfig``, with the fields the port reads. Some fields are read
 by modules the port does not have yet; they are accepted at the
 reference's defaults and raise ``NotImplementedError`` set to anything
-else (``check_supported``): ``shard_mem_mb``, ``retention_ms`` and
-``evicted_pk_bloom_filter_capacity`` (memory-pressure eviction and
-retention purge, ROADMAP §A.9) and ``disk_ttl_ms``.
+else (``check_supported``). ``shard_mem_mb`` (the budget of a shard's
+resident chunks, ``Shard.enforce_memory``), ``retention_ms``
+(``Shard.purge_expired``) and ``evicted_pk_bloom_filter_capacity`` (the
+evicted-key bloom) take any value; the flush scheduler acts on the first
+two every tick. ``disk_ttl_ms`` takes any value and acts on nothing, in
+either package: the reference reads it only in its config dataclass.
 ``max_query_matches`` is the exec leaf's limit of series a shard matches
 (``QueryLimitExceeded``), as in the reference.
 ``native_ingest`` is accepted either way: the port's container ingest is
@@ -53,13 +56,7 @@ class StoreConfig:
                     f"{_UNPORTED[f.name]}")
 
 
-_EVICTION = ("memory-pressure eviction and retention purge are not ported "
-             "(ROADMAP §A.9)")
 _UNPORTED = {
-    "shard_mem_mb": _EVICTION,
-    "retention_ms": _EVICTION,
-    "evicted_pk_bloom_filter_capacity": _EVICTION,
-    "disk_ttl_ms": "column-store expiry is not ported (ROADMAP §A.9)",
     "trace_part_key_substrings": "tracing partitions are not ported "
                                  "(ROADMAP §A.11)",
     "assert_single_writer": "the single-writer tripwire is not ported "

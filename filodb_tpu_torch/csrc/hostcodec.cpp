@@ -15,9 +15,16 @@
 // and touch no global state: the caller splits a batch over threads (ctypes
 // releases the interpreter lock for the call).
 //
+// fh_summarize folds each chunk's values into the chunk summary of
+// filodb_tpu/memory/chunk.py::summarize_values: every sum is accumulated
+// left to right (np.cumsum's order), so the stats are bitwise the numpy
+// function's; the library builds with -ffp-contract=off, so no sum or
+// square is fused.
+//
 // Signed arithmetic that the numpy twins let wrap (predictions, residuals,
 // bucket deltas) is done in uint64_t here, where wrapping is defined.
 
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 
@@ -551,6 +558,81 @@ void fh_encode_f32_blocks(const uint32_t* bits, const int64_t* n, int64_t nb,
         width[b] = mx ? 32 - __builtin_clz(mx) : 0;
         pack_block(x, width[b], words + b * 128);
     }
+}
+
+// Chunk summaries (memory/chunk.py's twelve slots and log2 sketch) of C
+// chunks: chunk c's samples are ts[c * ts_row + i] and
+// vals[c * v_row + i * v_step] for i < rows[c]. NaN samples are left out.
+// flags[c] is 1 where the chunk's kept values hold both +0.0 and -0.0, so
+// that its min or max may be either zero: the caller takes those from
+// numpy, whose choice among equal values depends on its reduction order.
+int64_t fh_summarize(const int64_t* ts, int64_t ts_row, const double* vals,
+                     int64_t v_row, int64_t v_step, const int64_t* rows,
+                     int64_t C, double* stats, uint16_t* sketch,
+                     int64_t* flags) {
+    for (int64_t c = 0; c < C; c++) {
+        const int64_t* t = ts + c * ts_row;
+        const double* v = vals + c * v_row;
+        double* st = stats + c * 12;
+        uint16_t* sk = sketch + c * 64;
+        std::memset(sk, 0, 64 * sizeof(uint16_t));
+        for (int k = 0; k < 12; k++) st[k] = 0.0;
+        int64_t n = 0, resets = 0, changes = 0;
+        double sum = 0, sumsq = 0, mn = 0, mx = 0, corr = 0, prev = 0;
+        bool pz = false, nz = false;
+        for (int64_t i = 0; i < rows[c]; i++) {
+            double x = v[i * v_step];
+            if (std::isnan(x)) continue;
+            if (n == 0) {
+                sum = x;
+                sumsq = x * x;
+                mn = mx = x;
+                st[5] = static_cast<double>(t[i]);
+                st[6] = x;
+            } else {
+                sum = sum + x;
+                sumsq = sumsq + x * x;
+                if (x < mn) mn = x;
+                if (x > mx) mx = x;
+                bool drop = x < prev;
+                double w = drop ? prev : 0.0;
+                corr = n == 1 ? w : corr + w;
+                resets += drop;
+                changes += x != prev;
+            }
+            if (x == 0) {
+                if (std::signbit(x)) nz = true; else pz = true;
+            }
+            st[7] = static_cast<double>(t[i]);
+            st[8] = x;
+            prev = x;
+            n++;
+            // frexp's exponent, read from the bits where x is normal
+            uint64_t bits;
+            std::memcpy(&bits, &x, 8);
+            int ex = static_cast<int>((bits >> 52) & 0x7FF);
+            int e = 0;
+            if (ex == 0) std::frexp(x, &e);
+            else if (ex != 0x7FF) e = ex - 1022;
+            int mag = e - 1 + 16;
+            mag = mag < 0 ? 0 : (mag > 30 ? 30 : mag);
+            sk[x == 0 ? 32 : (x > 0 ? 33 + mag : 31 - mag)]++;
+        }
+        flags[c] = pz && nz;
+        if (n == 0) {
+            for (int k = 3; k <= 8; k++) st[k] = NAN;
+            continue;
+        }
+        st[0] = static_cast<double>(n);
+        st[1] = sum;
+        st[2] = sumsq;
+        st[3] = mn;
+        st[4] = mx;
+        st[9] = static_cast<double>(resets);
+        st[10] = corr;
+        st[11] = static_cast<double>(changes);
+    }
+    return 0;
 }
 
 }  // extern "C"

@@ -60,6 +60,7 @@ import torch
 
 from filodb_tpu_torch.device import EXACT_DTYPE
 from filodb_tpu_torch.query import logical as lp
+from filodb_tpu_torch.query.engine import sidecar_lane
 from filodb_tpu_torch.query.engine.aggregations import AGG_OPS
 from filodb_tpu_torch.query.engine.device_batch import (
     MIXED_KINDS,
@@ -199,8 +200,14 @@ class MeshQueryEngine:
 
     def __init__(self, device: torch.device,
                  batches: BatchCache | None = None,
-                 gids: GroupIdCache | None = None):
+                 gids: GroupIdCache | None = None, sidecars: bool = False):
         self.device = device
+        # the reference's sidecar delegation: grids of at most two steps
+        # (rule ticks, alert probes, instant queries) over a function the
+        # sidecar lane serves go to exec, whose leaves fold them from the
+        # chunks' summaries; off for an engine built directly, on in
+        # ``QueryService``
+        self.sidecars = sidecars
         self.batches = batches if batches is not None else BatchCache(device)
         self.gids = gids if gids is not None else GroupIdCache()
         # (selector, data range) → 0 scalar series, 1 histograms, 2 both,
@@ -311,6 +318,12 @@ class MeshQueryEngine:
                     f"by the mesh engine")
             return False
         low = lower_plan(plan)
+        if self.sidecars and (low.end - low.start) // max(low.step, 1) + 1 \
+                <= 2 and sidecar_lane.covers_fn(low.fn):
+            raise UnsupportedQuery(
+                f"sidecar delegation: {low.fn} at "
+                f"{(low.end - low.start) // max(low.step, 1) + 1} step(s) "
+                f"goes to the exec engine's sidecar lane")
         hist = self._kind(memstore, low)
         if hist and low.fn not in HIST_FNS:
             raise UnsupportedQuery(

@@ -1,0 +1,791 @@
+"""The sidecar lane: range functions folded from chunk summaries instead of
+decoded samples.
+
+Port of ``filodb_tpu/query/engine/sidecar_lane.py``. Every sealed chunk
+carries the summary of its values (``memory/chunk.py``: count, sum, sum
+of squares, min, max, first and last sample, resets with their
+correction, changes, and a log2 sketch), made at seal. For a window
+(t - w, t] the lane splits each partition's data into
+
+    [left-edge chunk] [interior chunks ...] [right-edge chunk] [write buffer]
+
+folds the interior chunks from their summaries, decodes only the edge
+chunks and the write buffer, and merges the segments with Prometheus
+counter-reset carry across their boundaries; the merged stats feed
+closed-form formulas that mirror the kernels' range functions. Anything
+whose exactness the lane cannot keep bypasses to the decode lane and counts
+in ``filodb_sidecar_bypassed``: an ineligible function, parameters, an ``@``
+pin, histogram columns, a partition that needs demand paging (an evicted
+one among them), chunks out of time order, a write buffer that does not
+follow its chunks, and a fold the gate says would not pay
+(``FILODB_SIDECAR_SEALED_GATE``). ``quantile_over_time`` is served from the
+sketches only under ``FILODB_SIDECAR_APPROX=1``.
+
+The port's idiom: the folds and the formulas are float64 torch ops on the
+service's device. The interior stats are the shard's summary columns,
+uploaded with the chunk spans, the write buffers' packed pages and the
+keys as a bundle kept in the service's ``BatchCache`` under the shard's
+version, as a batch is. The edge chunks and the write buffers are decoded
+from their device pages by B1/B2 (``device_batch.decode_packed``), so
+their values are the pages' float32 ones, as in the port's decode lane; a
+selection whose values float32 cannot hold exactly (past
+``F32_SAFE_MAX``) bypasses, as the decode lane takes its float64 gate
+there. A leaf's fold runs under the shard's lock, so it reads one version
+of the chunk table and the buffers.
+
+The valve ``FILODB_SIDECARS``: ``1`` (default) folds the stored summaries;
+``decode`` makes every interior summary again from the chunk's codec
+vectors (held until its flush, read back from the column store after it),
+bitwise the stored one, so its answers are bitwise those of ``1``; ``0``
+turns the lane off.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from filodb_tpu_torch.core.memstore.odp import needs_paging
+from filodb_tpu_torch.core.schemas import SCHEMAS
+from filodb_tpu_torch.memory.chunk import (
+    SKETCH_BUCKETS,
+    STATS_WIDTH,
+    ChunkBytes,
+    S_CHANGES,
+    S_CORR,
+    S_COUNT,
+    S_FIRST_TS,
+    S_FIRST_VAL,
+    S_LAST_TS,
+    S_LAST_VAL,
+    S_MAX,
+    S_MIN,
+    S_RESETS,
+    S_SUM,
+    S_SUMSQ,
+    decode_chunks,
+    sketch_values,
+    summarize,
+)
+from filodb_tpu_torch.query.engine.device_batch import (
+    decode_packed,
+    pack_blocks,
+    to_device,
+)
+from filodb_tpu_torch.utils.metrics import Counter
+
+SIDECAR_SERVED = Counter(
+    "filodb_sidecar_served",
+    help="leaf evaluations served from chunk aggregate sidecars")
+SIDECAR_BYPASSED = Counter(
+    "filodb_sidecar_bypassed",
+    help="eligible-path evaluations that fell back to the decode lane")
+
+# functions whose (t-w, t] evaluation is exact over the summary algebra
+ELIGIBLE_FNS = frozenset((
+    "count_over_time", "sum_over_time", "avg_over_time", "min_over_time",
+    "max_over_time", "stddev_over_time", "stdvar_over_time", "zscore",
+    "last_over_time", "present_over_time", "absent_over_time", "changes",
+    "resets", "rate", "increase", "delta", "last_sample", "timestamp",
+))
+
+# below this many sealed partition-windows the lane serves whatever the
+# chunks' geometry; above it, only where each partition-window skips this
+# many interior samples (the reference's static arm)
+_SEALED_FREE_PART_WINDOWS = 512
+_SEALED_MIN_SKIPPED_SAMPLES = 1024
+# (partition, window) pairs an edge or buffer fold takes at once
+_FOLD_PAIRS = 1 << 16
+
+
+def mode() -> str:
+    """``1`` serve, ``decode`` make the summaries again, ``0`` off."""
+    v = os.environ.get("FILODB_SIDECARS", "1").strip().lower()
+    if v in ("0", "off", "false"):
+        return "0"
+    if v == "decode":
+        return "decode"
+    return "1"
+
+
+def approx_enabled() -> bool:
+    return os.environ.get("FILODB_SIDECAR_APPROX", "0") == "1"
+
+
+def _sealed_gate() -> int:
+    """Sealed partition-windows past which the fold is not tried; 0 always
+    serves."""
+    try:
+        return int(os.environ.get("FILODB_SIDECAR_SEALED_GATE", "65536"))
+    except ValueError:
+        return 65536
+
+
+def covers_fn(fn: str) -> bool:
+    """Would the lane serve this range function (mesh's routing check)?"""
+    if mode() == "0":
+        return False
+    return fn in ELIGIBLE_FNS or (
+        fn == "quantile_over_time" and approx_enabled())
+
+
+class _Bypass(Exception):
+    """Exactness cannot be kept: the decode lane serves the leaf."""
+
+
+# ---------------------------------------------------------------------------
+# the bundle of a leaf's sealed chunks (cached under the shard's version)
+
+
+@dataclass
+class SidecarBundle:
+    """The kept (non-empty) sealed chunks of a leaf's partitions of one
+    schema, by partition then time: their rows in the shard's chunk table,
+    each one's partition (its index in the leaf's list), the offsets of
+    each partition's run, their stats [C, 12] (float64, on the device),
+    valid-sample spans and sketches, the largest |value| they hold, the
+    write buffers of the partitions, packed on the device, and the
+    partitions' keys (a bundle lives as long as the shard's version,
+    which every ingest moves)."""
+
+    rows: np.ndarray
+    part: np.ndarray
+    offs: np.ndarray
+    stats: torch.Tensor
+    starts: np.ndarray
+    ends: np.ndarray
+    sketch: np.ndarray
+    vmax: float
+    bufs: "_Segments"      # the partitions' write buffers, packed
+    buf_pids: np.ndarray   # their pids, in ``bufs`` row order
+    keys: list             # RangeVectorKey a partition (metric kept)
+    version: int = 0
+    nbytes: int = 0
+    _out_keys: list | None = None
+
+    @property
+    def out_keys(self) -> list:
+        """The keys with the metric dropped, one list for the bundle's
+        life, so the aggregations' group ids stay cached."""
+        if self._out_keys is None:
+            self._out_keys = [k.drop_metric() for k in self.keys]
+        return self._out_keys
+
+
+def _bundle(shard, pids: np.ndarray, decode_mode: bool,
+            device: torch.device, version: int, base: int) -> SidecarBundle:
+    table = shard._sealed
+    col = table.columns
+    row_of = np.full(shard.num_partitions, -1, np.int64)
+    row_of[pids] = np.arange(len(pids))
+    live = np.flatnonzero(~col["dead"] & (row_of[col["pid"]] >= 0))
+    live = live[np.lexsort((col["cid"][live], row_of[col["pid"][live]]))]
+    stats = col["stats_value"][live]
+    sketch = col["sketch_value"][live]
+    if decode_mode:
+        stats, sketch = _decoded_summaries(shard, table, live)
+    keep = stats[:, S_COUNT] > 0
+    rows = live[keep]
+    part = row_of[col["pid"][rows]]
+    st = stats[keep]
+    starts = st[:, S_FIRST_TS].astype(np.int64)
+    ends = st[:, S_LAST_TS].astype(np.int64)
+    # time-ordered, non-overlapping valid spans within each partition
+    same = part[1:] == part[:-1]
+    if (same & ((starts[1:] <= starts[:-1]) | (starts[1:] <= ends[:-1]))
+            ).any():
+        raise _Bypass
+    offs = np.zeros(len(pids) + 1, np.int64)
+    np.cumsum(np.bincount(part, minlength=len(pids)), out=offs[1:])
+    t = torch.from_numpy(np.ascontiguousarray(st)).to(device)
+    buf = shard.buffer_pages()
+    bpids = pids[buf["blk0"][pids] >= 0]
+    bufs = _Segments(shard, np.zeros(0, np.int64), bpids, base, device)
+    vmax = max(float(col["vmax"][live].max(initial=0.0)),
+               float(buf["vmax"][bpids].max(initial=0.0)))
+    keys = [shard.keys[p].range_vector_key for p in pids.tolist()]
+    return SidecarBundle(rows, part, offs, t, starts, ends, sketch[keep],
+                         vmax, bufs, bpids, keys, version,
+                         t.numel() * 8 + bufs.nbytes)
+
+
+def _decoded_summaries(shard, table, idx: np.ndarray):
+    """The summaries of chunks ``idx`` made again from their codec
+    vectors: held until the flush, read back from the column store
+    after it."""
+    col = table.columns
+    pending = col["pending"][idx]
+    want = list(zip(col["pid"][idx].tolist(), col["cid"][idx].tolist()))
+    found = {want[i]: bytes(b) for i, b in zip(
+        np.flatnonzero(pending).tolist(), table.codec_rows(idx[pending]))}
+    flushed = idx[~pending]
+    if len(flushed):
+        pids = np.unique(col["pid"][flushed])
+        pid_of = dict(zip(shard.key_blobs(pids), pids.tolist()))
+        for blob, data in shard.column_store.read_chunk_rows(
+                shard.dataset, shard.shard_num, list(pid_of),
+                int(col["t0"][flushed].min()), int(col["t1"][flushed].max())):
+            cid = int(np.frombuffer(bytes(data[:8]), np.int64)[0])
+            found.setdefault((pid_of[bytes(blob)], cid), bytes(data))
+    if any(w not in found for w in want):
+        raise _Bypass  # a flushed chunk the store no longer holds
+    d = decode_chunks(ChunkBytes.from_blobs([found[w] for w in want]),
+                      SCHEMAS["gauge"])
+    return summarize(d.ts, d.dcols[:, 0], d.rows)
+
+
+# ---------------------------------------------------------------------------
+# folds on the device
+
+
+def _empty_stats(n: int, device) -> torch.Tensor:
+    out = torch.zeros((n, STATS_WIDTH), dtype=torch.float64, device=device)
+    out[:, S_MIN:S_LAST_VAL + 1] = float("nan")
+    return out
+
+
+def fold_rows(ts: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
+              base: int = 0) -> torch.Tensor:
+    """Stats [R, 12] of the samples ``mask`` keeps in each row of
+    (ts, vals float64) [R, L], in row order; timestamps are ``ts + base``
+    (epoch ms)."""
+    R, L = vals.shape
+    dev = vals.device
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=dev)
+    out = torch.zeros((R, STATS_WIDTH), dtype=torch.float64, device=dev)
+    cnt = mask.sum(1)
+    have = cnt > 0
+    v0 = torch.where(mask, vals, torch.zeros_like(vals))
+    out[:, S_COUNT] = cnt.to(torch.float64)
+    out[:, S_SUM] = v0.sum(1)
+    out[:, S_SUMSQ] = (v0 * v0).sum(1)
+    inf = torch.full_like(vals, float("inf"))
+    out[:, S_MIN] = torch.where(mask, vals, inf).amin(1)
+    out[:, S_MAX] = torch.where(mask, vals, -inf).amax(1)
+    idx = torch.arange(L, device=dev).expand(R, L)
+    last_at = torch.cummax(torch.where(mask, idx, torch.full_like(idx, -1)),
+                           1).values
+    first = torch.where(mask, idx, torch.full_like(idx, L)).amin(1)
+    last = last_at[:, -1]
+    fi = first.clamp(max=L - 1)[:, None]
+    li = last.clamp(min=0)[:, None]
+    out[:, S_FIRST_TS] = ts.gather(1, fi)[:, 0].to(torch.float64) + base
+    out[:, S_FIRST_VAL] = vals.gather(1, fi)[:, 0]
+    out[:, S_LAST_TS] = ts.gather(1, li)[:, 0].to(torch.float64) + base
+    out[:, S_LAST_VAL] = vals.gather(1, li)[:, 0]
+    prev_at = torch.cat([torch.full((R, 1), -1, dtype=idx.dtype, device=dev),
+                         last_at[:, :-1]], 1)
+    pair = mask & (prev_at >= 0)
+    prev = vals.gather(1, prev_at.clamp(min=0))
+    drop = pair & (vals < prev)
+    out[:, S_RESETS] = drop.sum(1).to(torch.float64)
+    out[:, S_CORR] = torch.where(drop, prev, torch.zeros_like(prev)).sum(1)
+    out[:, S_CHANGES] = (pair & (vals != prev)).sum(1).to(torch.float64)
+    out[:, S_MIN:S_LAST_VAL + 1] = torch.where(
+        have[:, None], out[:, S_MIN:S_LAST_VAL + 1], nan)
+    return out
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Stats [N, 12] of two segments consecutive in time, merged; a drop
+    from A's last sample to B's first counts as a reset with correction
+    A.last, as the kernels compare each sample with the previous valid
+    one."""
+    an = a[:, S_COUNT] > 0
+    bn = b[:, S_COUNT] > 0
+    bdrop = (b[:, S_FIRST_VAL] < a[:, S_LAST_VAL]).to(torch.float64)
+    bchg = (b[:, S_FIRST_VAL] != a[:, S_LAST_VAL]).to(torch.float64)
+    r = a.clone()
+    r[:, S_COUNT] = a[:, S_COUNT] + b[:, S_COUNT]
+    r[:, S_SUM] = a[:, S_SUM] + b[:, S_SUM]
+    r[:, S_SUMSQ] = a[:, S_SUMSQ] + b[:, S_SUMSQ]
+    r[:, S_MIN] = torch.minimum(a[:, S_MIN], b[:, S_MIN])
+    r[:, S_MAX] = torch.maximum(a[:, S_MAX], b[:, S_MAX])
+    r[:, S_LAST_TS] = b[:, S_LAST_TS]
+    r[:, S_LAST_VAL] = b[:, S_LAST_VAL]
+    r[:, S_RESETS] = a[:, S_RESETS] + bdrop + b[:, S_RESETS]
+    r[:, S_CORR] = (a[:, S_CORR] + bdrop * a[:, S_LAST_VAL]) + b[:, S_CORR]
+    r[:, S_CHANGES] = a[:, S_CHANGES] + bchg + b[:, S_CHANGES]
+    both = (an & bn)[:, None]
+    only_b = (~an & bn)[:, None]
+    return torch.where(both, r, torch.where(only_b, b, a))
+
+
+def _prefix(x: torch.Tensor) -> torch.Tensor:
+    return torch.cat([x.new_zeros(1), torch.cumsum(x, 0)])
+
+
+def _interior(b: SidecarBundle, t0s: np.ndarray, t1s: np.ndarray,
+              device) -> tuple:
+    """Merged stats [S, W, 12] of each partition's interior chunk run per
+    window, and the run bounds (i0, i1) and overlap bounds (o0, o1),
+    partition-local, [S, W] on the host."""
+    S, W = len(b.offs) - 1, len(t0s)
+    Cs = np.diff(b.offs)
+    lo = min(int(b.starts.min(initial=0)), int(t0s.min()))
+    hi = max(int(b.ends.max(initial=0)), int(t1s.max()))
+    span = np.int64(hi - lo + 2)
+    ks = b.part * span + (b.starts - lo)
+    ke = b.part * span + (b.ends - lo)
+    base = np.arange(S, dtype=np.int64)[:, None] * span
+    q0 = (base + (t0s[None, :] - lo)).ravel()
+    q1 = (base + (t1s[None, :] - lo)).ravel()
+    first = b.offs[:-1, None]
+    i0 = np.searchsorted(ks, q0, side="right").reshape(S, W) - first
+    i1 = np.searchsorted(ke, q1, side="right").reshape(S, W) - first
+    i1 = np.maximum(i1, i0)
+    o0 = np.searchsorted(ke, q0, side="right").reshape(S, W) - first
+    o1 = np.searchsorted(ks, q1, side="right").reshape(S, W) - first
+    A = torch.from_numpy((first + i0).ravel()).to(device)
+    B = torch.from_numpy((first + i1).ravel()).to(device)
+    have = B > A
+    st = b.stats
+    out = _empty_stats(S * W, device)
+    for slot in (S_COUNT, S_SUM, S_SUMSQ, S_RESETS, S_CORR, S_CHANGES):
+        p = _prefix(st[:, slot])
+        out[:, slot] = p[B] - p[A]
+    C = st.shape[0]
+    if C > 1:
+        same = torch.from_numpy(b.part[1:] == b.part[:-1]).to(device)
+        drop = same & (st[1:, S_FIRST_VAL] < st[:-1, S_LAST_VAL])
+        chg = same & (st[1:, S_FIRST_VAL] != st[:-1, S_LAST_VAL])
+        # boundaries between consecutive chunks both inside [A, B)
+        bl = A.clamp(max=C - 1)
+        bh = torch.maximum(B - 1, bl).clamp(max=C - 1)
+        for slot, x in ((S_RESETS, drop.to(torch.float64)),
+                        (S_CORR, torch.where(drop, st[:-1, S_LAST_VAL],
+                                             st.new_zeros(C - 1))),
+                        (S_CHANGES, chg.to(torch.float64))):
+            p = _prefix(x)
+            out[:, slot] += p[bh] - p[bl]
+    if C:
+        fi = torch.minimum(A, B - 1).clamp(0, C - 1)
+        li = (B - 1).clamp(0, C - 1)
+        for slot, at in ((S_FIRST_TS, fi), (S_FIRST_VAL, fi),
+                         (S_LAST_TS, li), (S_LAST_VAL, li)):
+            out[:, slot] = st[at, slot]
+        n = B - A
+        run = torch.repeat_interleave(torch.arange(S * W, device=device), n)
+        at = torch.repeat_interleave(A - torch.cumsum(n, 0) + n, n) \
+            + torch.arange(int(n.sum()), device=device)
+        for slot, red in ((S_MIN, "amin"), (S_MAX, "amax")):
+            out[:, slot] = out[:, slot].scatter_reduce(
+                0, run, st[at, slot], red, include_self=False)
+    nanrow = _empty_stats(1, device)
+    out = torch.where(have[:, None], out, nanrow)
+    return out.reshape(S, W, STATS_WIDTH), i0, i1, o0, o1
+
+
+class _Segments:
+    """Edge chunks or write buffers of a leaf, packed as the rows of one
+    batch on the device; ``fold`` decodes the rows it needs by B1/B2
+    (values the pages' float32), timestamps relative to ``base``."""
+
+    def __init__(self, shard, chunk_rows: np.ndarray, buf_pids: np.ndarray,
+                 base: int, device):
+        sealed = shard._sealed
+        col = sealed.columns
+        offsets = np.asarray(sealed.offsets)
+        tables = list(sealed.pages)
+        blocks = _expand(col["blk0"][chunk_rows], col["nblk"][chunk_rows])
+        seg = np.searchsorted(offsets, blocks, side="right") - 1
+        table_of = [seg]
+        block_of = [blocks - offsets[seg]]
+        row_of = [np.repeat(np.arange(len(chunk_rows)),
+                            col["nblk"][chunk_rows])]
+        if len(buf_pids):
+            buf = shard.buffer_pages()
+            tables.append(buf["pages"])
+            bb = _expand(buf["blk0"][buf_pids], buf["nblk"][buf_pids])
+            table_of.append(np.full(len(bb), len(tables) - 1))
+            block_of.append(bb)
+            row_of.append(len(chunk_rows) + np.repeat(
+                np.arange(len(buf_pids)), buf["nblk"][buf_pids]))
+        self.base = base
+        self.device = device
+        self.n_rows = len(chunk_rows) + len(buf_pids)
+        self.packed = None
+        self.nbytes = 0
+        if self.n_rows:
+            packed, _ = pack_blocks(tables, np.concatenate(table_of),
+                                    np.concatenate(block_of),
+                                    np.concatenate(row_of), self.n_rows,
+                                    base)
+            self.packed = to_device(packed, device)
+            self.nbytes = sum(t.numel() * t.element_size()
+                              for t in self.packed)
+
+    def host_rows(self):
+        """(ts epoch ms int64, vals float64, valid) [R, L] of every row,
+        on the host."""
+        if not self.n_rows:
+            z = np.zeros((0, 1))
+            return z.astype(np.int64), z, z.astype(bool)
+        ts, vals, valid = decode_packed(self.packed)
+        return (ts.cpu().numpy().astype(np.int64) + self.base,
+                vals.cpu().numpy().astype(np.float64), valid.cpu().numpy())
+
+    def fold(self, rows: np.ndarray, t0s: np.ndarray,
+             t1s: np.ndarray) -> torch.Tensor:
+        """Stats [len(rows), 12] of segment row ``rows[i]`` over the window
+        (t0s[i], t1s[i]] (epoch ms)."""
+        dev = self.device
+        if not len(rows):
+            return _empty_stats(0, dev)
+        outs = []
+        for a in range(0, len(rows), _FOLD_PAIRS):
+            r = torch.from_numpy(rows[a:a + _FOLD_PAIRS]).to(dev)
+            ts, vals, valid = decode_packed(tuple(t[r] for t in self.packed))
+            t0 = torch.from_numpy(t0s[a:a + _FOLD_PAIRS] - self.base).to(
+                dev)[:, None]
+            t1 = torch.from_numpy(t1s[a:a + _FOLD_PAIRS] - self.base).to(
+                dev)[:, None]
+            mask = valid & (ts > t0) & (ts <= t1)
+            outs.append(fold_rows(ts, vals.to(torch.float64), mask,
+                                  self.base))
+        return torch.cat(outs)
+
+
+def _expand(first: np.ndarray, count: np.ndarray) -> np.ndarray:
+    count = count.astype(np.int64)
+    before = np.cumsum(count) - count
+    return np.repeat(first - before, count) + np.arange(int(count.sum()))
+
+
+# ---------------------------------------------------------------------------
+# range-function formulas (the kernels' ``_range_impl``, in float64)
+
+
+def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
+            window_ms: int, counter: bool) -> torch.Tensor:
+    """Values [..., W] of ``fn`` from merged stats [..., W, 12] at the
+    absolute eval steps ``steps_ms`` [W] (float64)."""
+    n = st[..., S_COUNT]
+    has1 = n >= 1
+    nan = torch.tensor(float("nan"), dtype=torch.float64, device=st.device)
+    one = torch.ones_like(n)
+
+    def gate(x, ok=has1):
+        return torch.where(ok, x, nan)
+
+    if fn == "count_over_time":
+        return gate(n)
+    if fn == "present_over_time":
+        return gate(one)
+    if fn == "absent_over_time":
+        return torch.where(has1, nan, one)
+    if fn == "sum_over_time":
+        return gate(st[..., S_SUM])
+    if fn == "avg_over_time":
+        return gate(st[..., S_SUM] / torch.clamp(n, min=1.0))
+    if fn in ("stddev_over_time", "stdvar_over_time", "zscore"):
+        mean = st[..., S_SUM] / torch.clamp(n, min=1.0)
+        var = torch.clamp(st[..., S_SUMSQ] / torch.clamp(n, min=1.0)
+                          - mean * mean, min=0.0)
+        if fn == "stdvar_over_time":
+            return gate(var)
+        sd = torch.sqrt(var)
+        if fn == "stddev_over_time":
+            return gate(sd)
+        return gate((st[..., S_LAST_VAL] - mean) / sd)
+    if fn == "min_over_time":
+        return gate(st[..., S_MIN])
+    if fn == "max_over_time":
+        return gate(st[..., S_MAX])
+    if fn in ("last_over_time", "last_sample"):
+        return gate(st[..., S_LAST_VAL])
+    if fn == "timestamp":
+        return gate(st[..., S_LAST_TS] / 1000.0)
+    if fn == "changes":
+        return gate(st[..., S_CHANGES])
+    if fn == "resets":
+        return gate(st[..., S_RESETS])
+    if fn in ("rate", "increase", "delta"):
+        corrected = counter or fn in ("rate", "increase")
+        raw_first = st[..., S_FIRST_VAL]
+        v_last = st[..., S_LAST_VAL]
+        if corrected:
+            v_last = v_last + st[..., S_CORR]
+        result = v_last - raw_first
+        t_first = st[..., S_FIRST_TS] / 1000.0
+        t_last = st[..., S_LAST_TS] / 1000.0
+        range_start = (steps_ms - window_ms) / 1000.0
+        range_end = steps_ms / 1000.0
+        sampled = t_last - t_first
+        avg_dur = sampled / torch.clamp(n - 1.0, min=1.0)
+        dur_start = t_first - range_start
+        dur_end = range_end - t_last
+        if fn in ("rate", "increase"):
+            dur_to_zero = torch.where(
+                result > 0, sampled * raw_first
+                / torch.clamp(result, min=1e-30),
+                torch.full_like(result, float("inf")))
+            dur_start = torch.minimum(dur_start, dur_to_zero)
+        threshold = avg_dur * 1.1
+        extend = sampled \
+            + torch.where(dur_start < threshold, dur_start, avg_dur / 2.0) \
+            + torch.where(dur_end < threshold, dur_end, avg_dur / 2.0)
+        result = result * (extend / torch.clamp(sampled, min=1e-10))
+        if fn == "rate":
+            result = result / (window_ms / 1000.0)
+        return gate(result, n >= 2)
+    raise _Bypass
+
+
+# ---------------------------------------------------------------------------
+# the leaf's entry point
+
+
+def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
+    """The leaf's windowing stage served from summaries: a ``StepMatrix``
+    (the leaf applies its other transformers), or None for the decode
+    lane. ``pids`` are the leaf's partitions, looked up at ``version``."""
+    from filodb_tpu_torch.query.exec.transformers import PeriodicSamplesMapper
+
+    m = mode()
+    if m == "0":
+        return None
+    psm = leaf.transformers[0] if leaf.transformers else None
+    if not isinstance(psm, PeriodicSamplesMapper):
+        return None
+    fn = psm.fn
+    approx = approx_enabled()
+    if (fn not in ELIGIBLE_FNS
+            and not (fn == "quantile_over_time" and approx)) \
+            or psm.at_ms is not None \
+            or (psm.params and fn != "quantile_over_time"):
+        SIDECAR_BYPASSED.inc()
+        return None
+    try:
+        # the shard's chunk table and write buffers are read as of one
+        # version: an ingest or an eviction waits for the fold
+        with shard.lock:
+            return _execute(leaf, ctx, shard, pids, version, psm, fn,
+                            m == "decode")
+    except _Bypass:
+        SIDECAR_BYPASSED.inc()
+        return None
+
+
+def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
+    from filodb_tpu_torch.query.exec.plan import _by_schema
+    from filodb_tpu_torch.query.exec.transformers import steps_array
+    from filodb_tpu_torch.query.model import StepMatrix
+
+    if not len(pids):
+        raise _Bypass  # the decode lane answers the empty matrix
+    if shard.hist[pids].any():
+        raise _Bypass  # histogram columns
+    if (shard.status[pids] != 0).any():
+        raise _Bypass  # evicted partitions: paged shells
+    if shard.config.demand_paging_enabled and needs_paging(
+            shard.earliest_in_memory()[pids], shard.index.start_times(pids),
+            leaf.chunk_start).any():
+        raise _Bypass  # memory does not reach back to the query start
+    steps = steps_array(psm.start, psm.step, psm.end)
+    eval_steps = (steps - psm.offset).astype(np.int64)
+    window = int(psm.span)
+    # the decode lane reads samples in [chunk_start, chunk_end] only
+    t1s = np.minimum(eval_steps, int(leaf.chunk_end))
+    t0s = np.maximum(eval_steps - window, int(leaf.chunk_start) - 1)
+    dev = ctx.device
+    mats, acc = [], {"samples": 0.0, "sidecar": 0, "decoded": 0}
+    for s, spids in _by_schema(shard, pids):
+        if fn != "quantile_over_time" \
+                and not _sealed_fold_pays(shard, spids, t0s, t1s):
+            raise _Bypass  # the decode lane amortizes better here
+        key = ("sidecar", shard.shard_num, s, str(leaf.filters),
+               leaf.chunk_start, leaf.chunk_end, decode_mode)
+        bundle = ctx.batches.get(key, shard, spids)
+        if bundle is None:
+            bundle = _bundle(shard, spids, decode_mode, dev, version,
+                             leaf.chunk_start)
+            ctx.batches.put(key, shard, spids, bundle)
+        counter = SCHEMAS[_schema_name(s)].is_counter
+        if fn == "quantile_over_time":
+            out = _quantile(shard, spids, bundle, float(psm.params[0]), t0s,
+                            t1s, leaf.chunk_start, dev, acc)
+        else:
+            st = _group_stats(shard, spids, bundle, t0s, t1s,
+                              leaf.chunk_start, dev, acc)
+            acc["samples"] += float(st[..., S_COUNT].sum())
+            out = formula(fn, st, torch.from_numpy(
+                eval_steps.astype(np.float64)).to(dev), window, counter)
+        mats.append(StepMatrix(
+            bundle.keys if psm.function is None else bundle.out_keys, out,
+            steps, dropped_keys=bundle.out_keys))
+    data = StepMatrix.concat(mats) if len(mats) > 1 else mats[0]
+    # samples_scanned counts the samples each window accounts for (interior
+    # samples are folded, never decoded); chunks_touched every chunk
+    # consulted, of which sidecar_chunks were folded from their summaries
+    ctx.stats.samples_scanned += int(acc["samples"])
+    ctx.stats.sidecar_chunks += acc["sidecar"]
+    ctx.stats.chunks_touched += acc["sidecar"] + acc["decoded"]
+    SIDECAR_SERVED.inc()
+    return data
+
+
+def _schema_name(s: int) -> str:
+    from filodb_tpu_torch.core.record import SCHEMA_NAMES
+
+    return SCHEMA_NAMES[s]
+
+
+def _sealed_fold_pays(shard, pids: np.ndarray, t0s: np.ndarray,
+                      t1s: np.ndarray) -> bool:
+    """The reference's static decision, taken from the chunk table before
+    anything is built: serve below the free count of sealed
+    partition-windows, bypass past the gate, and in between only where a
+    window skips enough interior samples, judged from the first
+    overlapping partition's first eight chunks."""
+    gate = _sealed_gate()
+    if gate <= 0:
+        return True
+    col = shard._sealed.columns
+    hit = (col["t1"] > t0s.min()) & (col["t0"] <= t1s.max()) & ~col["dead"]
+    overlap = np.zeros(shard.num_partitions, bool)
+    overlap[col["pid"][hit]] = True
+    overlap = overlap[pids]
+    W = len(t0s)
+    n_sealed = int(overlap.sum())
+    if n_sealed == 0:
+        return True
+    if n_sealed * W > gate:
+        return False
+    if n_sealed * W <= _SEALED_FREE_PART_WINDOWS:
+        return True
+    first = np.flatnonzero((col["pid"] == pids[np.argmax(overlap)])
+                           & ~col["dead"])
+    first = first[np.argsort(col["cid"][first])][:8]
+    spans = col["t1"][first] - col["t0"][first]
+    ok = spans > 0
+    if not ok.any():
+        return False
+    span = float(np.median(spans[ok]))
+    density = float(np.median(col["rows"][first])) / span
+    skipped = max(0.0, float((t1s - t0s).max()) - 2.0 * span) * density
+    return skipped >= _SEALED_MIN_SKIPPED_SAMPLES
+
+
+def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
+                 acc) -> torch.Tensor:
+    """Merged stats [P, W, 12] of one schema's partitions."""
+    from filodb_tpu_torch.query.exec.transformers import F32_SAFE_MAX
+
+    P, W = len(pids), len(t0s)
+    interior, i0, i1, o0, o1 = _interior(b, t0s, t1s, dev)
+    Cs = np.diff(b.offs)[:, None]
+    left = np.where(o0 < i0, o0, -1)
+    re = o1 - 1
+    right = np.where((re >= i1) & (re >= 0) & (re < Cs) & (re != left), re,
+                     -1)
+    if b.vmax >= F32_SAFE_MAX:
+        raise _Bypass  # float32 pages cannot hold these values exactly
+    # the edge chunks, packed for this query's windows
+    edges = np.unique(np.concatenate([(b.offs[:-1, None] + e)[e >= 0]
+                                      for e in (left, right)]))
+    segs = _Segments(shard, b.rows[edges], np.zeros(0, np.int64), base, dev)
+    seg_of_edge = np.full(len(b.rows), -1, np.int64)
+    seg_of_edge[edges] = np.arange(len(edges))
+
+    def edge_stats(e):
+        out = _empty_stats(P * W, dev)
+        sw = np.flatnonzero((e >= 0).ravel())
+        if len(sw):
+            rows = seg_of_edge[(b.offs[:-1, None] + e).ravel()[sw]]
+            out[torch.from_numpy(sw).to(dev)] = segs.fold(
+                rows, np.tile(t0s, P)[sw], np.tile(t1s, P)[sw])
+        return out
+
+    pre = merge(merge(edge_stats(left), interior.reshape(P * W, -1)),
+                edge_stats(right))
+    bufs = _empty_stats(P * W, dev)
+    bpids = b.buf_pids
+    if len(bpids):
+        at = np.searchsorted(pids, bpids)
+        sw = (at[:, None] * W + np.arange(W)[None, :]).ravel()
+        rows = np.repeat(np.arange(len(bpids)), W)
+        bufs[torch.from_numpy(sw).to(dev)] = b.bufs.fold(
+            rows, np.tile(t0s, len(bpids)), np.tile(t1s, len(bpids)))
+    both = (pre[:, S_COUNT] > 0) & (bufs[:, S_COUNT] > 0)
+    if bool((both & (bufs[:, S_FIRST_TS] <= pre[:, S_LAST_TS])).any()):
+        raise _Bypass  # out-of-order ingest across the seal boundary
+    acc["sidecar"] += int((i1 - i0).sum())
+    acc["decoded"] += len(edges)
+    return merge(pre, bufs).reshape(P, W, STATS_WIDTH)
+
+
+def _quantile(shard, pids, b: SidecarBundle, q: float, t0s, t1s, base: int,
+              dev, acc) -> torch.Tensor:
+    """Approximate quantile_over_time [P, W] from the sketches: interior
+    chunks give their stored sketch, edge chunks and the write buffer the
+    sketch of their window's values (the pages' float32 ones)."""
+    P, W = len(pids), len(t0s)
+    gate = _sealed_gate()
+    if gate > 0 and P * W > gate:
+        raise _Bypass  # a per-window sketch merge would not pay
+    _, i0, i1, _, _ = _interior(b, t0s, t1s, dev)
+    Cs = np.diff(b.offs)
+    chunk_rows = _Segments(shard, b.rows, np.zeros(0, np.int64), base,
+                           dev).host_rows()
+    buf_rows = b.bufs.host_rows()
+    L = max(chunk_rows[0].shape[1], buf_rows[0].shape[1])
+
+    def padded(x, fill):
+        return np.pad(x, ((0, 0), (0, L - x.shape[1])),
+                      constant_values=fill)
+
+    ts, vals, valid = (np.concatenate([padded(c, f), padded(r, f)])
+                       for c, r, f in zip(chunk_rows, buf_rows, (0, 0, False)))
+    out = np.full((P, W), np.nan)
+    samples = 0
+    brow = dict(zip(np.searchsorted(pids, b.buf_pids).tolist(),
+                    range(len(b.rows), len(b.rows) + len(b.buf_pids))))
+    for i in range(P):
+        for k in range(W):
+            a = b.offs[i]
+            sk = b.sketch[a + i0[i, k]:a + i1[i, k]].astype(np.int64).sum(0) \
+                if i1[i, k] > i0[i, k] else np.zeros(SKETCH_BUCKETS, np.int64)
+            total = int(b.stats[a + i0[i, k]:a + i1[i, k], S_COUNT].sum())
+            rows = [a + c for c in range(Cs[i])
+                    if not i0[i, k] <= c < i1[i, k]]
+            if i in brow:
+                rows.append(brow[i])
+            for r in rows:
+                m = valid[r] & (ts[r] > t0s[k]) & (ts[r] <= t1s[k])
+                sk += sketch_values(vals[r][m]).astype(np.int64)
+                total += int(m.sum())
+            if total:
+                out[i, k] = sketch_quantile(q, sk)
+            samples += total
+    acc["samples"] += float(samples)
+    return torch.from_numpy(out).to(dev)
+
+
+def _sketch_bucket_value(b: int) -> float:
+    """The representative value of sketch bucket ``b``: the geometric
+    middle of its power-of-two span."""
+    if b == 32:
+        return 0.0
+    if b > 32:
+        return float(2.0 ** (b - 33 - 16) * 1.5)
+    return float(-(2.0 ** (31 - b - 16) * 1.5))
+
+
+def sketch_quantile(q: float, sketch: np.ndarray) -> float:
+    """The ``q`` quantile of a merged sketch: the representative of the
+    bucket where the cumulative count passes rank ``q * (total - 1)``."""
+    if q < 0:
+        return -np.inf
+    if q > 1:
+        return np.inf
+    counts = np.asarray(sketch, np.float64)
+    total = counts.sum()
+    if total <= 0:
+        return np.nan
+    cum = np.cumsum(counts)
+    b = int(np.searchsorted(cum, q * (total - 1), side="right"))
+    return _sketch_bucket_value(min(b, len(counts) - 1))

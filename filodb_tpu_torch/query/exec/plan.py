@@ -18,8 +18,11 @@ shard, keyed as the reference keys them (schema, filters, data range,
 column, partitions), until that shard ingests again, in the service's
 ``BatchCache`` beside the mesh engine's.
 
-Left out, with the reason in ``ROADMAP.md``: the host-decode lane, ODP
-paging and the sidecar lane (they need the write path's chunks), the
+A leaf first tries the sidecar lane (``query/engine/sidecar_lane.py``),
+which folds its windows from the chunks' summaries, as the reference's
+leaf does; on a bypass it builds its batches.
+
+Left out, with the reason in ``ROADMAP.md``: the host-decode lane, the
 plan dispatchers, remote dispatch and partial results (a plan runs where
 it is, ``execute``), two-phase aggregation pushdown, and the governor's
 budgets and limits.
@@ -33,6 +36,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.device import EXACT_DTYPE
+from filodb_tpu_torch.query.engine import sidecar_lane
 from filodb_tpu_torch.query.engine.device_batch import (
     BatchCache,
     build_device_batch,
@@ -149,9 +153,14 @@ class SelectRawPartitionsExec(ExecPlan):
                 f"query matches {len(pids)} series on shard {self.shard} > "
                 f"limit {limit}")
         ctx.stats.series_scanned += len(pids)
+        psm, rest = self.transformers[0], self.transformers[1:]
+        data = sidecar_lane.try_execute(self, ctx, shard, pids, version)
+        if data is not None:
+            for t in rest:
+                data = _applied(t, data, ctx)
+            return data
         if not len(pids):
             return StepMatrix.empty()
-        psm, rest = self.transformers[0], self.transformers[1:]
         if not isinstance(psm, PeriodicSamplesMapper):
             raise ValueError("a leaf's transformers start with "
                              "PeriodicSamplesMapper")

@@ -212,6 +212,9 @@ class QueryStats:
     precise_lane: int = 0
     engine: str = ""    # the engine that answered: "mesh" or "exec"
     fallback: str = ""  # why mesh handed the plan to exec (its message)
+    # the sidecar lane's: chunks consulted, of them folded from summaries
+    chunks_touched: int = 0
+    sidecar_chunks: int = 0
 
 
 @dataclass

@@ -9,7 +9,13 @@ so both stores hold the same chunks and so the same device pages. A
 histogram series carries one ``HistogramColumn`` (bucket bounds and
 cumulative count rows) per chunk, and one more for its write buffer, so a
 series whose bucket scheme changed keeps each chunk's own, and its ``sum``
-and ``count`` columns.
+and ``count`` columns. Each chunk's summary comes with it: the port makes
+it at seal from the same values, bitwise the reference's.
+
+A reference shard's holes (pids its purge or an identity restore left
+without a partition) travel as states with ``gone`` set, in their place,
+so the port's pids line up with the reference's; ``blooms`` carries each
+shard's evicted-key bloom (its ``state()``).
 
 The write path needs no carrying: both packages write the same bytes.
 ``log_stream`` wraps serialized containers (the reference's
@@ -54,10 +60,21 @@ class SeriesState:
     hist: list[HistogramColumn] | None = None
     sums: np.ndarray | None = None
     counts: np.ndarray | None = None
+    gone: bool = False  # a hole: no partition under this pid any more
 
 
-def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
+def ingest_states(memstore: MemStore, states: list[SeriesState],
+                  blooms: dict | None = None) -> None:
+    from filodb_tpu_torch.core.partkey import PartKey
+    from filodb_tpu_torch.utils.bloom import BloomFilter
+
+    holes = []
     for st in states:
+        if st.gone:
+            # a partition in its place, removed below
+            memstore.ingest(st.labels, [0], [0.0], schema=st.schema)
+            holes.append(PartKey.create(st.schema, st.labels))
+            continue
         rows = list(st.chunk_rows)
         if sum(rows) < len(st.ts):
             rows.append(len(st.ts) - sum(rows))  # the write buffer
@@ -75,6 +92,12 @@ def ingest_states(memstore: MemStore, states: list[SeriesState]) -> None:
             if i < len(st.chunk_rows):
                 memstore.seal(st.labels, schema=st.schema)
             a += n
+    for key, s in zip(holes, memstore.shard_of(holes).tolist()
+                      if holes else []):
+        shard = memstore.shards[s]
+        shard.remove_partitions([shard._by_blob[key.serialized]])
+    for s, state in (blooms or {}).items():
+        memstore.shards[s].evicted_keys = BloomFilter.from_state(state)
 
 
 def log_stream(raws: list[bytes], first_offset: int = 0) -> list[SomeData]:

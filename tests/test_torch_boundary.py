@@ -111,6 +111,20 @@ paged = QueryService(again, device="cpu").query_range(
     1_600_001_500, 60, 1_600_001_510)
 durable["rows"] = paged.result.num_series
 durable["paged"] = sum(sh.odp_cache.chunks_paged for sh in again.shards)
+from filodb_tpu_torch.query.engine import sidecar_lane
+from filodb_tpu_torch.utils import bloom
+served = sidecar_lane.SIDECAR_SERVED.value
+tick = svc.query_instant("sum(count_over_time(http_requests_total[5m]))",
+                         1_600_001_400)
+bounded = open_local(tempfile.mkdtemp(), num_shards=1, spread=0)
+bounded.ingest_series(labels[:4], ts[:4], vals[:4])
+bounded.flush_all()
+memory = {"sidecar": [tick.stats.engine,
+                      sidecar_lane.SIDECAR_SERVED.value - served],
+          "evicted": bounded.shards[0].evict_cold_partitions(3),
+          "purged": bounded.shards[0].purge_expired(2_000_000_000_000),
+          "bloom": bounded.shards[0].evicted_keys.count}
+bounded.close()
 import socket, time, urllib.request
 from filodb_tpu_torch import config as server_config
 from filodb_tpu_torch import standalone
@@ -152,6 +166,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "instant": len(inst["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
                   "exec": exec_rows, "durable": durable, "node": node,
+                  "memory": memory,
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
                   "loaded": loaded}))
@@ -191,4 +206,6 @@ def test_port_loads_no_jax_and_no_reference_module():
                               "rows": 2, "paged": 12}
     assert res["node"] == {"statuses": ["active", "active"], "rows": 30,
                            "snapshot": 2}
+    assert res["memory"] == {"sidecar": ["exec", 4], "evicted": 3,
+                             "purged": 4, "bloom": 3}
     assert res["loaded"] == []

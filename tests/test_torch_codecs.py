@@ -162,16 +162,17 @@ def test_chunk_serialize_byte_equal_both_ways():
         assert port.serialize() == ref.serialize()
         assert port.id == ref.id == pchunk.chunk_id(int(ts[0]), seq)
         assert port.nbytes == ref.nbytes
-        # the reference's chunk with its summary section reads in the port
-        # (the section is skipped), and the port's in the reference
+        # with the summary section: the same bytes, read by either package
         full = rchunk.encode_chunk(rs, ts, [vals], seq).serialize()
         assert len(full) > len(ref.serialize())
+        assert pchunk.encode_chunk(ps, ts, [vals], seq,
+                                   with_summary=True).serialize() == full
         back = pchunk.Chunk.deserialize(full)
-        assert back.serialize() == ref.serialize()
+        assert back.serialize() == full
+        assert back.summary[1].stats.tobytes() == \
+            rchunk.Chunk.deserialize(full).summary[1].stats.tobytes()
         assert rchunk.Chunk.deserialize(port.serialize()) == ref
         assert _bits(back.decode_column(1)) == _bits(vals)
-    with pytest.raises(ValueError):
-        pchunk.encode_chunk(ps, ts, [vals], with_summary=True)
 
 
 def test_histogram_chunk_byte_equal():

@@ -163,9 +163,11 @@ def test_time_split_stitches_as_exec(stores, q):
     f"max_over_time(queue_depth[5m])",
     f"{M}",
 ])
-def test_engines_agree_bitwise_per_series(engines, q):
+def test_engines_agree_bitwise_per_series(engines, q, monkeypatch):
     """The same kernel over the same series: the port's exec and mesh
-    engines give the same bits."""
+    engines give the same bits (exec's decode lane: the sidecar lane folds
+    summaries, ``tests/test_torch_sidecars.py``)."""
+    monkeypatch.setenv("FILODB_SIDECARS", "0")
     _, exec_, mesh = engines
     a, b = exec_.query_range(q, Q_START, Q_STEP, Q_END), \
         mesh.query_range(q, Q_START, Q_STEP, Q_END)
@@ -214,6 +216,7 @@ def test_leaf_batches_are_cached_per_shard_until_it_ingests(stores,
                                                             monkeypatch):
     from filodb_tpu_torch.query.exec import plan as plan_mod
 
+    monkeypatch.setenv("FILODB_SIDECARS", "0")  # the leaves' decode lane
     ref, port = stores
     built = []
     real = plan_mod.build_device_batch
@@ -257,9 +260,11 @@ def test_both_engines_keep_batches_under_one_budget(stores):
         or len(small.batches.batches()) == 1
 
 
-def test_a_batch_leaves_the_cache_when_its_owner_ingests(stores):
+def test_a_batch_leaves_the_cache_when_its_owner_ingests(stores,
+                                                         monkeypatch):
     """A mesh batch belongs to the store, an exec leaf's to its shard:
     once the owner's version moves, the next batch put drops it."""
+    monkeypatch.setenv("FILODB_SIDECARS", "0")  # the leaves' decode lane
     _, port = stores
     svc = QueryService(port, device="cpu")
     svc.query_range(f"rate({M}[5m])", Q_START, Q_STEP, Q_END)

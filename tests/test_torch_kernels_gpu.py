@@ -348,6 +348,69 @@ def test_query_on_card_equals_cpu(cuda):
                                    rtol=2e-5, atol=1e-6, equal_nan=True)
 
 
+def _counter_store(store, n=300, T=720, seed=1):
+    rng = np.random.default_rng(seed)
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    vals = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+    labels = [{"_metric_": "m", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store.ingest_series(labels, ts, vals)
+    return store
+
+
+def test_paged_back_shells_on_card_equal_their_plain_version(cuda,
+                                                             tmp_path):
+    """Whole partitions evicted (paged shells): a query pages their chunks
+    back and B1-B4 serve them as before the eviction, and as the plain
+    versions on the CPU."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.testing.from_jax import open_local
+
+    store = _counter_store(open_local(str(tmp_path), num_shards=4,
+                                      spread=1))
+    store.flush_all()
+    gpu, cpu = QueryService(store, cuda), QueryService(store, "cpu")
+    qs = ("sum(rate(m[5m])) by (_ns_)", "count(count_over_time(m[1m]))")
+    before = [gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+              for q in qs]
+    assert sum(sh.evict_cold_partitions(10**9) for sh in store.shards) \
+        == 300
+    _build.reset_counts()
+    for q, b in zip(qs, before):
+        a = gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        c = cpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+        np.testing.assert_array_equal(a.result.values, b.result.values)
+        np.testing.assert_allclose(a.result.values, c.result.values,
+                                   rtol=2e-5, atol=1e-6, equal_nan=True)
+    assert all(_build.LAUNCHES.values())
+    store.close()
+
+
+def test_sidecar_lane_on_card_equals_cpu(cuda, monkeypatch):
+    """The sidecar lane's folds on the card (its edges and buffers decoded
+    by B1/B2) against the same lane on the CPU."""
+    from filodb_tpu_torch.query.engine import sidecar_lane
+
+    store = _counter_store(MemStore(4, 1, 400))
+    monkeypatch.setenv("FILODB_SIDECARS", "1")
+    monkeypatch.setenv("FILODB_SIDECAR_SEALED_GATE", "0")  # always fold
+    gpu = QueryService(store, cuda, engine="exec")
+    cpu = QueryService(store, "cpu", engine="exec")
+    for q in ("sum(rate(m[5m])) by (_ns_)", "count_over_time(m[30m])",
+              "max_over_time(m[1h])", "changes(m[10m])", "m"):
+        for start in (1_600_007_200, 1_600_003_600):
+            served = sidecar_lane.SIDECAR_SERVED.value
+            a = gpu.query_range(q, start, 60, 1_600_007_200)
+            assert sidecar_lane.SIDECAR_SERVED.value > served
+            b = cpu.query_range(q, start, 60, 1_600_007_200)
+            assert [str(k) for k in a.result.keys] == \
+                [str(k) for k in b.result.keys]
+            np.testing.assert_allclose(a.result.values, b.result.values,
+                                       rtol=2e-5, atol=1e-9,
+                                       equal_nan=True)
+
+
 def _bucket_blocks(P, B, NB, seed):
     """Histogram batch arrays as ``pack_hist_blocks`` lays them out, with
     random words: bucket blocks [P, B, NB] cycling through every width

@@ -155,8 +155,10 @@ def test_a_scheduler_tick_flushes_one_group_and_truncates_the_log(tmp_path):
                 LocalDiskMetaStore(str(tmp_path / "cs")), flush_tick_s=3600)
     cluster = FilodbCluster()
     cluster.join(node)
+    # the gauges are years old: a retention that holds them, or the tick's
+    # purge would drop them
     cfg = StoreConfig(max_chunk_size=50, groups_per_shard=2,
-                      index_snapshot_interval_ms=1)
+                      index_snapshot_interval_ms=1, retention_ms=2**60)
     cluster.setup_dataset(IngestionConfig(DS, num_shards=1, store=cfg),
                           {0: log}, 0)
     try:
@@ -225,10 +227,13 @@ def test_concurrent_queries_and_ingest_answer_as_a_sequential_run():
     log = InMemoryLog()
     for r, _ in counters:
         log.append(BytesContainer(r))
+    # the series are years old: a retention that holds them, or a tick's
+    # purge would drop them mid-run
     cluster, node = _node({0: log, 1: InMemoryLog()}, tick_s=0.01,
                           num_shards=2, spread=1,
                           config=StoreConfig(max_chunk_size=50,
-                                             groups_per_shard=4))
+                                             groups_per_shard=4,
+                                             retention_ms=2**60))
     try:
         assert cluster.wait_active(DS, 10)
         svc = cluster.query_service(DS, device="cpu")
@@ -419,8 +424,9 @@ def test_a_reference_snapshot_restores_in_the_port(tmp_path):
                     reason="the reference's native library is unavailable")
 def test_a_reference_snapshot_with_purged_partitions_takes_the_full_scan(
         tmp_path):
-    """The pinned deviation (ROADMAP §C): the port keeps no holes in its
-    pid arrays, so a snapshot with purged entries falls back to the scan."""
+    """Named for what the port did before it kept holes: a snapshot with
+    purged entries now restores without the part-key scan, the purged
+    series absent, and the survivor answers as the reference's store."""
     ms, ref = _ref_store(tmp_path, RefConfig(
         max_chunk_size=50, groups_per_shard=2, retention_ms=1_000_000))
     _ref_feed(ref, _gauges(n=3, samples=10))
@@ -429,17 +435,27 @@ def test_a_reference_snapshot_with_purged_partitions_takes_the_full_scan(
     assert ref.purge_expired(now_ms=8_000_000) == 3
     ref.flush_all()
     ref.snapshot_index()
-    with pytest.raises(ValueError, match="purged"):
-        index_snapshot.read_snapshot(
-            ms.column_store.read_index_snapshot(DS, 0))
+    from filodb_tpu.coordinator.query_service import QueryService as RefQS
+    q = ("sum_over_time(fresh[1m])", 10_000, 10, 10_040)
+    want = RefQS(ms, DS, 1, spread=0).query_range(*q).result
+    snap = index_snapshot.read_snapshot(
+        ms.column_store.read_index_snapshot(DS, 0))
+    assert snap["blobs"][:3] == [b""] * 3 and snap["bloom"] is not None
     ms.column_store.close()
     ms.meta_store.close()
     again = _port_store(tmp_path)
     s2 = again.shards[0]
     scanned = s2.stats.index_recovery_partkeys.value
     assert s2.recover_index() == 1
-    assert s2.stats.index_recovery_partkeys.value == scanned + 1
+    assert s2.recovered_from == "snapshot"
+    assert s2.stats.index_recovery_partkeys.value == scanned  # no scan
     assert len(_lookup(s2, "fresh")) == 1
+    assert len(_lookup(s2, "heap_usage")) == 0
+    assert s2.status[:4].tolist() == [2, 2, 2, 0]  # three holes
+    got = QueryService(again, device="cpu", engine="exec").query_range(
+        *q).result
+    np.testing.assert_allclose(np.asarray(got.values),
+                               np.asarray(want.values), rtol=2e-5)
     again.close()
 
 

@@ -132,9 +132,6 @@ UNSUPPORTED = [
     {"cost_model": {"min_samples": 2}},
     {"federation": {"mem_retention_ms": 60000}},
     {"tracing": {"sample_rate": 1.0}},
-    {"datasets": {DS: {"store": {"retention_ms": 1000}}}},
-    {"datasets": {DS: {"store": {"shard_mem_mb": 64}}}},
-    {"datasets": {DS: {"store": {"evicted_pk_bloom_filter_capacity": 9}}}},
 ]
 
 
@@ -148,6 +145,67 @@ def test_unsupported_options_raise(override, tmp_path):
         cfg.check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FiloServer(cfg, device="cpu")
+
+
+def _store_with(field: str, value, tmp_path):
+    """A one-shard store under the dataset config a server.json setting
+    ``field`` loads, with 8 gauges of 200 samples at 10 s from t = 0
+    ingested and flushed."""
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.core.partkey import PartKey
+
+    tmp_path.mkdir(parents=True, exist_ok=True)
+    path = tmp_path / "server.json"
+    path.write_text(json.dumps({"datasets": {DS: {"store": {
+        field: value, "max_chunk_size": 50}}}}))
+    cfg = port_config.ServerConfig.load(str(path))
+    cfg.check_supported()
+    FiloServer(cfg, device="cpu")  # boots with it
+    store = cfg.datasets[DS].store
+    assert getattr(store, field) == value
+    ms = MemStore(1, 0, config=store)
+    keys = [PartKey.create("gauge", {"_metric_": "g", "host": f"h{i}"})
+            for i in range(8)]
+    ts = np.tile(np.arange(200, dtype=np.int64) * 10_000, (8, 1))
+    ms.shards[0].ingest_series(keys, ts, np.ones((8, 200)),
+                               np.full(8, 200))
+    ms.shards[0].flush_all()
+    return ms.shards[0]
+
+
+def test_retention_ms_is_accepted_and_purges(tmp_path):
+    shard = _store_with("retention_ms", 1000, tmp_path)
+    assert shard.purge_expired(now_ms=1_990_000 + 1000) == 0
+    assert shard.purge_expired(now_ms=1_990_000 + 1001) == 8
+
+
+def test_shard_mem_mb_is_accepted_and_bounds_the_chunks(tmp_path):
+    shard = _store_with("shard_mem_mb", 0, tmp_path)
+    assert shard.chunk_bytes() > 0
+    assert shard.enforce_memory() == 32  # every flushed chunk
+    assert shard.chunk_bytes() == 0
+
+
+def test_the_bloom_capacity_is_accepted_and_sizes_the_filter(tmp_path):
+    from filodb_tpu_torch.utils.bloom import BloomFilter
+
+    shard = _store_with("evicted_pk_bloom_filter_capacity", 9, tmp_path)
+    assert shard.evicted_keys.state() == BloomFilter(9).state()
+    assert shard.evict_cold_partitions(8) == 8
+    assert shard.evicted_keys.count == 8
+
+
+def test_disk_ttl_ms_is_accepted_and_changes_nothing(tmp_path):
+    """The reference reads ``disk_ttl_ms`` only in its config dataclass:
+    a tick does the same with it as without."""
+    from filodb_tpu_torch.coordinator.cluster import shard_tick
+
+    ttl = _store_with("disk_ttl_ms", 1000, tmp_path / "a")
+    default = _store_with("max_chunk_size", 50, tmp_path / "b")
+    for shard in (ttl, default):
+        assert shard_tick(shard, now_ms=2_000_000) == {
+            "flushed": 0, "evicted": 0, "purged": 0}
+        assert shard.chunk_bytes() == default.chunk_bytes()
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")
