@@ -139,12 +139,28 @@ checks it, phase by phase; any failed phase exits non-zero:
    survivors' rows byte-equal to before and ``torch.cuda.memory_allocated``
    once the purged batches were replaced, and an index snapshot with the
    holes and the bloom restored into a new store whose first answer is
-   byte-equal; its directory is removed.
+   byte-equal; its directory is removed;
+14. (after phase 8) the host-decode lane: a store of phase 2's layout
+   with ``--host-series`` series whose values float32 does not hold
+   (``HOST_SHARES``: byte counters from 1e9-1e12, CPU seconds in
+   hundredths, load averages with two decimals); the series that fail the
+   float32 round trip; ``HOST_QUERIES`` over the 2 h at 60 s on the mesh
+   and the exec engine, cold (split into the batch's build seconds:
+   select and C++ decode on the host, upload, layout and
+   correct-and-rebase on the card, and the rest)
+   and warm p50 of ``HOST_WARM``; each must take the host-decode lane and
+   its answer over the ``App-0``..``App-9`` namespaces must equal the
+   port's own ``device="cpu"`` answer (rtol 2e-5, atol 1e-6); the instant
+   ``HOST_INSTANT`` at the end must bypass the sidecar lane to it and
+   equal the CPU's; B3 must not launch; the batches' device bytes. Phase 3
+   checks the other side of the gate: its ``sum(rate)`` over integer
+   counters stays on B3.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
-``--durability-only``: phases 1, 11, 12 and 13).
+``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
+and 14).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -1602,28 +1618,39 @@ def _aligned(got, keys, want, what: str, rtol: float | None = None):
 
 def mean_latency_plain(svc, start: int, end: int, got) -> dict:
     """The mean-latency query against B3's plain version over the ``sum``
-    and ``count`` value pages of every series, summed by namespace and
-    divided (rtol 1e-9: the card's sums add in another order)."""
+    and ``count`` value pages of every series, or where a column's values
+    are not exact in float32 (the sums: observations at the buckets'
+    middles) the float64 rate over its host-decode lane batch, summed by
+    namespace and divided (rtol 1e-9: the card's sums add in another
+    order)."""
     from filodb_tpu_torch.query.engine.aggregations import aggregate
+    from filodb_tpu_torch.query.engine.batch import SeriesBatch
+    from filodb_tpu_torch.query.engine.kernels import range_eval
     from filodb_tpu_torch.query.exec.transformers import (
         F32_SAFE_MAX,
         AggregateMapReduce,
     )
 
     amr = AggregateMapReduce("sum", by=("_ns_",))
-    sums, vmax = {}, {}
+    sums, lanes = {}, {}
     for col in ("sum", "count"):
         batch, steps = selector_batch(svc, f"{H}::{col}", start, end, 300_000)
         n = len(batch.keys)
-        rates = plain_b3(batch.packed, steps, 300_000, "rate")[:n].double()
+        if isinstance(batch, SeriesBatch):
+            ts, vals, counts, raw = batch.delta_arrays(True)
+            rates = range_eval("rate", ts, vals, counts, steps, 300_000,
+                               pre_corrected=True, raw=raw)
+            lanes[col] = "host"
+        else:
+            rates = plain_b3(batch.packed, steps, 300_000, "rate")[:n]
+            lanes[col] = "B3" if batch.vmax < F32_SAFE_MAX else "precise"
         gids, gkeys = keys_group_ids(svc.mesh, amr, batch.out_keys)
-        sums[col] = (aggregate("sum", rates, gids, len(gkeys)), gkeys)
-        vmax[col] = batch.vmax
+        sums[col] = (aggregate("sum", rates.double(), gids, len(gkeys)),
+                     gkeys)
     (num, keys), (den, _) = sums["sum"], sums["count"]
     _aligned(got, keys, (num / den).cpu().numpy(), "mean latency", 1e-9)
-    return {"vmax_sum": vmax["sum"], "vmax_count": vmax["count"],
-            "under_f32_gate": bool(max(vmax.values()) < F32_SAFE_MAX),
-            "check": "B3 plain, rtol 1e-9"}
+    return {"lane_sum": lanes["sum"], "lane_count": lanes["count"],
+            "check": "B3 plain or the host lane's float64 rate, rtol 1e-9"}
 
 
 def _hist_plain(svc, sel: str, fn: str, start: int, end: int,
@@ -1694,11 +1721,11 @@ def hist_exec_queries(svc, start: int, end: int, reps: int = 5) -> list:
         rec = dict(query=q, cold_ms=cold, warm_p50_ms=float(np.median(warm)),
                    rows=r.result.num_series, launches=launches,
                    fallback=r.stats.fallback, **checked)
-        if q == HIST_EXEC_QUERIES[0] and rec["under_f32_gate"] \
+        if q == HIST_EXEC_QUERIES[0] and "B3" in (rec["lane_sum"],
+                                                  rec["lane_count"]) \
                 and svc.device.type == "cuda" \
                 and not launches["fused_decode_rate"]:
-            raise AssertionError(f"{q}: B3 did not serve the sum and count "
-                                 f"columns")
+            raise AssertionError(f"{q}: B3 did not serve the count column")
         out.append(rec)
         log(f"  exec (handed on by mesh: {r.stats.fallback}) {q}: cold "
             f"{cold:.1f} ms, warm p50 {np.median(warm):.2f} ms, "
@@ -3005,6 +3032,199 @@ def eviction_phase(dev, args) -> dict:
     return out
 
 
+# phase 14: the host-decode lane. Three metrics a node exporter and a
+# process exporter scrape, whose values float32 does not hold: byte
+# counters past 2^24, CPU seconds in hundredths, load averages with two
+# decimals (the series of each, in this order, as shares of
+# ``--host-series``)
+NB_BYTES = "node_network_receive_bytes_total"
+CPU_S = "process_cpu_seconds_total"
+LOAD1 = "node_load1"
+HOST_SERIES = 150_000  # phase 11's count (PERF.md §4)
+HOST_SHARES = ((NB_BYTES, "prom-counter", 10), (CPU_S, "prom-counter", 4),
+               (LOAD1, "gauge", 1))
+HOST_QUERIES = (f"sum(rate({NB_BYTES}[5m])) by (_ns_)",
+                f"sum(increase({CPU_S}[5m])) by (job)",
+                f"max(irate({NB_BYTES}[5m])) by (_ns_)",
+                f"sum(idelta({LOAD1}[5m])) by (job)",
+                f"sum(deriv({LOAD1}[10m])) by (_ns_)",
+                f"sum(changes({CPU_S}[5m])) by (job)",
+                f"avg(stddev_over_time({LOAD1}[5m])) by (_ns_)")
+# the instant query at the range's end: the service's mesh engine hands it
+# to exec, whose leaves try the sidecar lane first
+HOST_INSTANT = f"sum(rate({NB_BYTES}[5m])) by (_ns_)"
+HOST_WARM = 5
+HOST_SUBSET = '_ns_=~"App-[0-9]"'  # the card-against-CPU check's series
+HOST_TOL = dict(rtol=2e-5, atol=1e-6, equal_nan=True)
+
+
+def make_host_series(rng, metric: str, a: int, b: int, samples: int):
+    """Series a..b-1 of ``metric`` (labels as phase 2's): byte counters
+    from integers in [1e9, 1e12) plus 0-1.25e6 a scrape, a reset in about
+    5 % of series; CPU seconds from [1e3, 1e6) plus 0.01-0.5 s a scrape in
+    hundredths; a load average 0-64 with two decimals, a random walk of
+    0.01-0.5 either way."""
+    n = b - a
+    labels = [{"_metric_": metric, "_ws_": "demo", "_ns_": f"App-{i % 100}",
+               "instance": f"instance-{i}", "job": f"job-{i % 10}"}
+              for i in range(a, b)]
+    ts = (T0_MS + np.arange(samples, dtype=np.int64)[None, :] * 10_000
+          + rng.integers(-500, 501, (n, samples)))
+    if metric == NB_BYTES:
+        vals = (rng.integers(10**9, 10**12, (n, 1))
+                + np.cumsum(rng.integers(0, 1_250_001, (n, samples)),
+                            axis=1)).astype(np.float64)
+        reset = np.flatnonzero(rng.random(n) < 0.05)
+        at = rng.integers(1, samples, len(reset))
+        for r, k in zip(reset, at):
+            vals[r, k:] -= vals[r, k]
+    elif metric == CPU_S:
+        vals = (rng.integers(10**5, 10**8, (n, 1)) + np.cumsum(
+            rng.integers(1, 51, (n, samples)), axis=1)) / 100.0
+    else:
+        walk = rng.integers(1, 51, (n, samples)) * rng.choice([-1, 1],
+                                                               (n, samples))
+        vals = np.clip(rng.integers(0, 6401, (n, 1)) + np.cumsum(walk, 1), 0,
+                       6400) / 100.0
+    return labels, ts, vals
+
+
+def host_store(series: int, samples: int, seed: int):
+    """The phase-14 store (phase 2's layout) and the series of it whose
+    values do not survive float64 → float32 → float64."""
+    from filodb_tpu_torch.core.memstore.partition import exact_in_f32
+
+    store = main_store()
+    rng = np.random.default_rng(seed + 14)
+    total = sum(w for _, _, w in HOST_SHARES)
+    inexact, step = 0, 65536
+    for metric, schema, w in HOST_SHARES:
+        n = series * w // total
+        for a in range(0, n, step):
+            labels, ts, vals = make_host_series(rng, metric, a,
+                                                min(a + step, n), samples)
+            inexact += int((~exact_in_f32(vals, np.full(len(vals),
+                                                        samples))).sum())
+            store.ingest_series(labels, ts, vals, schema=schema)
+    return store, inexact
+
+
+def _subset(q: str) -> str:
+    """``q`` with every selector of the three metrics cut to the
+    ``HOST_SUBSET`` namespaces."""
+    for m, _, _ in HOST_SHARES:
+        q = q.replace(f"{m}[", f"{m}{{{HOST_SUBSET}}}[")
+    return q
+
+
+def _same(got, want, what: str) -> dict:
+    """The card's answer against the CPU's, rows by key, within
+    ``HOST_TOL``; → the largest absolute difference, and the largest
+    relative one where the CPU's value passes the ``atol``."""
+    gk, gv = _sorted_answer(got)
+    wk, wv = _sorted_answer(want)
+    if gk != wk or gv.shape != wv.shape or not np.allclose(gv, wv,
+                                                           **HOST_TOL):
+        raise AssertionError(f"phase 14: {what}: the card's answer is not "
+                             f"the CPU's")
+    fin = np.isfinite(wv)
+    diff, ref = np.abs(gv[fin] - wv[fin]), np.abs(wv[fin])
+    big = ref > HOST_TOL["atol"]
+    return {"max_abs": float(diff.max(initial=0.0)),
+            "max_rel": float((diff[big] / ref[big]).max(initial=0.0))}
+
+
+def host_lane_phase(dev, args) -> dict:
+    """Phase 14: the host-decode lane at a real scale (see the module)."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.query.engine.batch import SeriesBatch
+
+    t_phase = t = time.perf_counter()
+    store, inexact = host_store(args.host_series, args.samples, args.seed)
+    log(f"phase 14: the host-decode lane: {args.host_series} series "
+        f"({', '.join(m for m, _, _ in HOST_SHARES)}), {args.samples} "
+        f"samples, ingested in {time.perf_counter() - t:.1f} s; "
+        f"{inexact} series fail the float32 round trip")
+    start, end = T0_MS // 1000, END_S
+    out = {"series": args.host_series, "inexact_series": inexact,
+           "ingest_s": time.perf_counter() - t, "queries": []}
+    services = {e: QueryService(store, device=dev, engine=e)
+                for e in ("mesh", "exec")}
+    cpu = QueryService(store, device="cpu")
+    _build.reset_counts()
+    for q in HOST_QUERIES:
+        sub = _subset(q)
+        want = cpu.query_range(sub, start, 60, end)
+        for engine, svc in services.items():
+            before = {id(b) for b in svc.batches.batches()}
+            t = time.perf_counter()
+            r = svc.query_range(q, start, 60, end)
+            cold = (time.perf_counter() - t) * 1000.0
+            if engine == "mesh":
+                on_mesh(r, q)
+            # the build seconds of the batches this query built (a batch
+            # the query found cached rebases for it if it must)
+            built = [b for b in svc.batches.batches()
+                     if isinstance(b, SeriesBatch) and id(b) not in before]
+            split = {k: sum(b.seconds.get(k, 0.0) for b in built)
+                     for k in ("select", "decode", "layout", "rebase",
+                               "upload")}
+            split["rest"] = cold / 1000.0 - sum(split.values())
+            warm = []
+            for _ in range(HOST_WARM):
+                t = time.perf_counter()
+                r = svc.query_range(q, start, 60, end)
+                warm.append((time.perf_counter() - t) * 1000.0)
+            if r.stats.host_lane == 0 or r.stats.precise_lane:
+                raise AssertionError(f"phase 14: {q} on {engine} did not "
+                                     f"take the host-decode lane")
+            rel = _same(svc.query_range(sub, start, 60, end), want,
+                        f"{sub} ({engine})")
+            rec = dict(query=q, engine=engine, cold_ms=cold,
+                       cold_split_s=split,
+                       warm_p50_ms=float(np.median(warm)),
+                       rows=r.result.num_series,
+                       host_lane=r.stats.host_lane,
+                       samples_scanned=r.stats.samples_scanned,
+                       vs_cpu=rel)
+            out["queries"].append(rec)
+            log(f"  {engine} {q}: cold {cold:.1f} ms (host s: "
+                f"{', '.join(f'{k} {v:.2f}' for k, v in split.items())}), "
+                f"warm p50 {rec['warm_p50_ms']:.2f} ms, {rec['rows']} rows, "
+                f"{r.stats.host_lane} host-lane batches; the subset equals "
+                f"the CPU's (max abs {rel['max_abs']:.2e}, rel "
+                f"{rel['max_rel']:.2e})")
+    t = time.perf_counter()
+    r = services["mesh"].query_instant(HOST_INSTANT, end)
+    inst_ms = (time.perf_counter() - t) * 1000.0
+    if r.stats.engine != "exec" or not r.stats.host_lane \
+            or "values float32 does not hold" not in r.stats.sidecar_bypassed:
+        raise AssertionError(f"phase 14: the instant {HOST_INSTANT} did not "
+                             f"bypass the sidecar lane to the host-decode "
+                             f"lane ({r.stats})")
+    sub = _subset(HOST_INSTANT)
+    rel = _same(services["mesh"].query_instant(sub, end),
+                cpu.query_instant(sub, end), f"instant {sub}")
+    out["instant"] = dict(query=HOST_INSTANT, ms=inst_ms,
+                          sidecar_bypassed=r.stats.sidecar_bypassed,
+                          host_lane=r.stats.host_lane, vs_cpu=rel)
+    log(f"  instant {HOST_INSTANT} at the end: {inst_ms:.1f} ms through "
+        f"exec (sidecar bypassed: {r.stats.sidecar_bypassed}), "
+        f"{r.stats.host_lane} host-lane batches; equal to the CPU's")
+    out["launches"] = dict(_build.LAUNCHES)
+    if out["launches"]["fused_decode_rate"]:
+        raise AssertionError("phase 14: B3 launched on values float32 does "
+                             "not hold")
+    out["batch_bytes"] = {e: sum(b.nbytes for b in svc.batches.batches())
+                          for e, svc in services.items()}
+    log(f"  launches {out['launches']}; host-lane batches on the card: "
+        f"{', '.join(f'{e} {v / 1e9:.2f} GB' for e, v in out['batch_bytes'].items())}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['seconds']:.1f} s")
+    return out
+
+
 def main_store():
     """The phase-2 store: 4 shards, spread 1, 400-sample chunks, and no
     limit on the series an exec leaf matches (``max_query_matches``, the
@@ -3057,6 +3277,10 @@ def run(dev, args):
     if missing and dev.type == "cuda":
         raise AssertionError(f"kernels not launched on the main path: "
                              f"{missing}")
+    st = results[QUERIES[0][0]].stats
+    if st.host_lane or st.precise_lane:
+        raise AssertionError("sum(rate) by (_ns_) over integer counters left "
+                             "the page lane (the lane gate)")
 
     log("phase 4: kernels against their plain versions on the card")
     kernels, rate_plain = check_kernels(svc, reps=10)
@@ -3111,6 +3335,10 @@ def main() -> int:
                     "own stores: flush, WAL, restart, paged queries, the "
                     "node, eviction and purge)")
     ap.add_argument("--evict-series", type=int, default=EVICT_SERIES)
+    ap.add_argument("--host-series", type=int, default=HOST_SERIES)
+    ap.add_argument("--host-only", action="store_true",
+                    help="build and run phase 14 only (the host-decode "
+                    "lane)")
     args = ap.parse_args()
 
     import torch
@@ -3159,6 +3387,11 @@ def _phases(args, smi) -> int:
             store, device=torch.device("cuda")), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.host_only:
+        print(json.dumps({"host_lane": host_lane_phase(torch.device("cuda"),
+                                                       args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
         durable, node = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
@@ -3190,6 +3423,9 @@ def _phases(args, smi) -> int:
     torch.cuda.empty_cache()
     hist = histogram_phase(torch.device("cuda"), args, reps=5)
     print(json.dumps({"histograms": hist}))
+    torch.cuda.empty_cache()
+    host = host_lane_phase(torch.device("cuda"), args)
+    print(json.dumps({"host_lane": host}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -3198,6 +3434,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase11"] = durable["launches"][kern["name"]]
         kern["launches_phase12"] = node["launches"][kern["name"]]
         kern["launches_phase13"] = evict["launches"][kern["name"]]
+        kern["launches_phase14"] = host["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

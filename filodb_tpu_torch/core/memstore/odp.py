@@ -15,8 +15,11 @@ therefore the pages it had in memory, and those of the reference's
 
 A paged chunk keeps its summary (``memory/chunk.py``): read from the
 chunk's ``SC01`` section where it has one, else made from the decoded
-values (``chunk.read_summaries``). An evicted partition (a paged shell)
-has nothing resident, so every query over it pages its chunks in.
+values (``chunk.read_summaries``); its codec chunk, which the host-decode
+lane decodes again where float32 does not hold its values; and the flags
+that say so (``exact*``, made from the decoded values as at seal). An
+evicted partition (a paged shell) has nothing resident, so every query
+over it pages its chunks in.
 
 ``DemandPagedChunkCache`` keeps the paged chunks of one shard as those
 pages (a ``ChunkTable`` a kind), keyed (partition, chunk id), bounded as
@@ -39,6 +42,7 @@ from filodb_tpu_torch.core.memstore.partition import (
     ChunkTable,
     abs_max_finite,
     encode_pages,
+    exact_in_f32,
     hist_slots,
 )
 from filodb_tpu_torch.core.record import SCHEMA_NAMES
@@ -76,9 +80,10 @@ class DemandPagedChunkCache:
 
     def __init__(self, max_chunks: int = 10_000):
         self.max_chunks = max_chunks
-        self.tables = {False: ChunkTable("vmax", "used"),
+        self.tables = {False: ChunkTable("vmax", "exact", "used"),
                        True: ChunkTable("les", "vmax_sum", "vmax_count",
-                                        "used", schema="prom-histogram")}
+                                        "exact_sum", "exact_count", "used",
+                                        schema="prom-histogram")}
         self._cov = np.zeros((0, 2), np.int64)  # per pid: covered [lo, hi]
         self._tick = 0
         self.requests = 0      # partitions that needed paging
@@ -135,13 +140,15 @@ class DemandPagedChunkCache:
                 for a in range(0, len(g), _DECODE_CHUNKS):
                     part = g[a:a + _DECODE_CHUNKS]
                     t = time.perf_counter()
-                    d = decode_chunks(cb.take(part), sch)
-                    summ = read_summaries(cb.take(part), sch, d)
+                    codec = cb.take(part)
+                    d = decode_chunks(codec, sch)
+                    summ = read_summaries(codec, sch, d)
                     self.seconds["decode"] += time.perf_counter() - t
                     self._add_decoded(shard, pids[part], d, sch.is_histogram,
-                                      summ)
+                                      summ, codec)
 
-    def _add_decoded(self, shard, pids, d, hist: bool, summ: dict) -> None:
+    def _add_decoded(self, shard, pids, d, hist: bool, summ: dict,
+                     codec: ChunkBytes) -> None:
         t = time.perf_counter()
         row = dict(pid=pids, seq=d.ids & 0xFFF, cid=d.ids, rows=d.rows,
                    t0=d.start, t1=d.end,
@@ -153,14 +160,17 @@ class DemandPagedChunkCache:
             les = np.array([shard._scheme(u) for u in uniq],
                            np.int64)[inv.reshape(-1)]
             self.tables[True].add(
-                pages, per, None, **row, les=les,
+                pages, per, codec, **row, les=les,
                 vmax_sum=abs_max_finite(d.dcols[:, 0], d.rows),
-                vmax_count=abs_max_finite(d.dcols[:, 1], d.rows))
+                vmax_count=abs_max_finite(d.dcols[:, 1], d.rows),
+                exact_sum=exact_in_f32(d.dcols[:, 0], d.rows),
+                exact_count=exact_in_f32(d.dcols[:, 1], d.rows))
         else:
             vals = d.dcols[:, 0]
             pages, per = encode_pages(d.ts, vals, d.rows)
-            self.tables[False].add(pages, per, None, **row,
-                                   vmax=abs_max_finite(vals, d.rows))
+            self.tables[False].add(pages, per, codec, **row,
+                                   vmax=abs_max_finite(vals, d.rows),
+                                   exact=exact_in_f32(vals, d.rows))
         self.chunks_paged += len(pids)
         self.seconds["encode"] += time.perf_counter() - t
 

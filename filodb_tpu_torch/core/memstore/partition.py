@@ -28,8 +28,11 @@ A sealed chunk lives in a ``ChunkTable``: its device pages (encoded once,
 on a thread pool: ``encode_pages``) and, until its flush group is written
 to the column store, its codec chunk (``memory/chunk.py``, encoded from
 the same float64 rows: the pages hold float32 values, which cannot be
-decoded back to what the store must keep). An evicted chunk is marked dead
-and its pages go at the table's next compaction.
+decoded back to what the store must keep). Each chunk also records
+whether its pages hold its values exactly (``exact_in_f32``): a query over
+chunks that do not reads their float64 values from the codec chunks (the
+host-decode lane, ``query/engine/batch.py``). An evicted chunk is marked
+dead and its pages go at the table's next compaction.
 """
 
 from __future__ import annotations
@@ -220,7 +223,8 @@ def _empty(name: str) -> np.ndarray:
         return np.zeros((0, STATS_WIDTH), np.float64)
     if name.startswith("sketch_"):
         return np.zeros((0, SKETCH_BUCKETS), np.uint16)
-    return np.zeros(0, bool if name in ("dead", "pending") else np.int64)
+    boolean = name in ("dead", "pending") or name.startswith("exact")
+    return np.zeros(0, bool if boolean else np.int64)
 
 
 def hist_slots(counts: np.ndarray, sums, cnts) -> np.ndarray:
@@ -247,6 +251,16 @@ def abs_max_finite(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
     live = (np.arange(vals.shape[1])[None, :] < rows[:, None]) \
         & np.isfinite(vals)
     return np.where(live, np.abs(vals), 0.0).max(axis=1, initial=0.0)
+
+
+def exact_in_f32(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """Per row, whether each of the first ``rows`` values survives float64
+    → float32 → float64: the pages then hold it exactly. NaN survives; a
+    finite value past float32's range does not."""
+    live = np.arange(vals.shape[1])[None, :] < rows[:, None]
+    with np.errstate(over="ignore"):
+        back = vals.astype(np.float32).astype(np.float64)
+    return ((back == vals) | np.isnan(vals) | ~live).all(axis=1)
 
 
 def encode_pages(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
@@ -297,10 +311,11 @@ class ChunkTable:
     id), blk0 and nblk (the chunk's blocks among all the tables' blocks),
     rows, t0, t1, nbytes (its codec vectors' length), dead (evicted: its
     pages go at the next ``compact``), cbatch, cidx and pending (its codec
-    chunk, ``codec[cbatch]``'s chunk ``cidx``, awaits its flush), the
-    summary of each scalar column ``c`` of the kind's schema (``stats_c``
-    float64 [12] and ``sketch_c`` uint16 [64], ``memory/chunk.py``), and
-    the kind's own columns ``extra``."""
+    chunk, ``codec[cbatch]``'s chunk ``cidx``, is held: it awaits its
+    flush, or was paged in; ``compact`` drops the codec buffers no kept
+    chunk uses), the summary of each scalar column ``c`` of the kind's
+    schema (``stats_c`` float64 [12] and ``sketch_c`` uint16 [64],
+    ``memory/chunk.py``), and the kind's own columns ``extra``."""
 
     def __init__(self, *extra: str, schema: str = "gauge"):
         sch = SCHEMAS[schema]
@@ -400,3 +415,6 @@ class ChunkTable:
         self._columns["blk0"] = (np.cumsum(nblk) - nblk).astype(np.int64)
         self.pages = [type(parts[0]).concat(parts)] if parts else []
         self.offsets = [0, int(nblk.sum())] if parts else [0]
+        kept = set(np.unique(self._columns["cbatch"]).tolist())
+        for b in [b for b in self.codec if b not in kept]:
+            del self.codec[b]

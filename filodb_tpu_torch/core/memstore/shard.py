@@ -58,6 +58,14 @@ chunk carries its summary (``memory/chunk.py``; ``ChunkTable`` columns
 ``stats_*`` and ``sketch_*``), made at seal by the host codec and written
 with the chunk at flush.
 
+Each sealed chunk and each write buffer records whether float32 holds its
+values exactly (``partition.exact_in_f32``). ``select_for_batch`` reads
+those flags over a selection before it packs anything: where one fails,
+it hands over the selection's float64 samples instead (``_samples``: the
+codec chunks, held, paged in or read back from the column store, and
+copies of the write buffers) for the host-decode lane
+(``query/engine/batch.py``).
+
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
@@ -87,6 +95,7 @@ from filodb_tpu_torch.core.memstore.partition import (
     abs_max_finite,
     drop_out_of_order,
     encode_pages,
+    exact_in_f32,
     expand,
     hist_slots,
     slot_columns,
@@ -107,7 +116,18 @@ from filodb_tpu_torch.core.store.api import (
     pk_from_blob,
 )
 from filodb_tpu_torch.core.store.config import StoreConfig
-from filodb_tpu_torch.memory.chunk import chunk_ids, encode_chunks, summarize
+from filodb_tpu_torch.memory.chunk import (
+    ChunkBytes,
+    chunk_ids,
+    encode_chunks,
+    summarize,
+)
+from filodb_tpu_torch.query.engine.batch import Samples
+from filodb_tpu_torch.query.engine.device_batch import (
+    decode_packed,
+    pack_blocks,
+    to_device,
+)
 from filodb_tpu_torch.utils.bloom import BloomFilter
 from filodb_tpu_torch.utils.metrics import Counter, Gauge, Histogram
 
@@ -223,9 +243,12 @@ class Shard:
         self._dirty = np.zeros(0, bool)
         self.status = np.zeros(0, np.int8)  # LIVE, EVICTED or GONE
         self.hashes = np.zeros(0, np.uint32)  # part hash (murmur3 of key)
-        self._sealed = ChunkTable("vmax")  # largest finite |value| a chunk
+        # a chunk's largest finite |value|, and whether its pages hold its
+        # values exactly (``exact_in_f32``)
+        self._sealed = ChunkTable("vmax", "exact")
         self.version = 0
         self._buffer_pages = None  # (version, buffer_pages() dict)
+        self._buffer_meta_cache = None  # (version, buffer_meta() dict)
         # histogram partitions: a kind flag, the bucket count of each
         # one's write buffer and its current scheme (an index into
         # ``les_list``); buffers, chunks and pages of their own
@@ -236,10 +259,12 @@ class Shard:
         self._les_index: dict[bytes, int] = {}
         self.hist_buffers: dict[int, WriteBuffers] = {}
         # each chunk's scheme, and the largest finite |value| of its sum and
-        # count columns
+        # count columns and whether its pages hold them exactly
         self._hist_sealed = ChunkTable("les", "vmax_sum", "vmax_count",
+                                       "exact_sum", "exact_count",
                                        schema="prom-histogram")
         self._hist_buffer_pages = None  # (version, [per bucket count])
+        self._hist_buffer_meta = None
         # write path: per-group watermarks (replayed records at or below
         # are skipped), the highest log offset ingested, and the largest
         # persisted timestamp of each part key found at recovery, which
@@ -556,13 +581,15 @@ class Shard:
         codec = encode_chunks(ts, vals[:, None, :], rows, row["cid"])
         stats, sketch = summarize(ts, vals, rows)
         self._sealed.add(pages, per, codec, **row,
-                         vmax=abs_max_finite(vals, rows), stats_value=stats,
+                         vmax=abs_max_finite(vals, rows),
+                         exact=exact_in_f32(vals, rows), stats_value=stats,
                          sketch_value=sketch)
 
     def _add_hist_chunks(self, pids, ts, slots, rows) -> None:
         """Seal histogram buffers: pages, codec chunks, each chunk's scheme
         as its partition holds it now, and its sum and count columns'
-        largest finite |value| (the precision gate's input)."""
+        largest finite |value| and exactness in float32 (the lane gate's
+        inputs)."""
         pages, per = encode_pages(ts, slots, rows)
         cols = slot_columns(slots)
         row = self._chunk_row(pids, ts, rows)
@@ -577,6 +604,8 @@ class Shard:
         self._hist_sealed.add(pages, per, codec, **row, les=les,
                               vmax_sum=abs_max_finite(cols[..., 0], rows),
                               vmax_count=abs_max_finite(cols[..., 1], rows),
+                              exact_sum=exact_in_f32(cols[..., 0], rows),
+                              exact_count=exact_in_f32(cols[..., 1], rows),
                               **summ)
 
     def _chunk_row(self, pids, ts, rows) -> dict:
@@ -1101,11 +1130,16 @@ class Shard:
 
     def select_for_batch(self, pids: np.ndarray, start: int, end: int,
                          hist: bool, column: str | None = None,
-                         expect: int | None = None):
+                         expect: int | None = None,
+                         host: bool | None = None):
         """A query's page-in and selection under the lock, so both see one
-        version of the shard: ``select_hist_blocks`` (``hist``) or
+        version of the shard: ``select_hist_blocks`` (``hist``: bucket
+        counts, which the pages hold exactly), or for scalar values
         ``select_blocks`` of ``pids`` for [start, end] with the chunks
-        paged in for them. Returns (that selection, the version it
+        paged in for them, or the host-decode lane's ``Samples``
+        (``_samples``). The lane is the data's choice: the samples where
+        the selected values are not exact in float32 (``host`` None), or
+        as ``host`` says. Returns (that selection, the version it
         reflects): the version after the page-in when the shard is still
         at ``expect`` (the version its caller read before choosing
         ``pids``), else ``expect``, so a writer that came between the
@@ -1115,6 +1149,9 @@ class Shard:
             paged = self._page_in(pids, start, end)
             if hist:
                 sel = self.select_hist_blocks(pids, start, end, paged)
+            elif host or (host is None and not self.values_exact(
+                    pids, start, end, column, paged)):
+                sel = self._samples(pids, start, end, column, paged)
             else:
                 sel = self.select_blocks(pids, start, end, column, paged)
             return sel, (self.version if same else expect)
@@ -1178,75 +1215,136 @@ class Shard:
             return self.index.label_values(label, filters)
 
     @staticmethod
-    def _buffer_table(buffers: WriteBuffers, P: int):
-        """Device pages of the non-empty buffers, with per-pid arrays over
-        the shard's P partitions (blk0 = -1 for an empty buffer, nblk, t0,
-        t1); → (that dict, the buffers' occupied rows, their pids)."""
+    def _buffer_meta(buffers: WriteBuffers, P: int, hist: bool) -> dict:
+        """Per-pid arrays over the shard's P partitions of the non-empty
+        buffers of ``buffers``, cheap (no page is encoded): live, t0, t1,
+        and the largest finite |value| and the float32 exactness
+        (``exact_in_f32``) of the values, ``vmax`` and ``exact`` ([P, 2]:
+        the sum and count columns, for histograms); and the occupied rows
+        and their pids."""
         rows = buffers.occupied()
         pids = buffers.pid_of[rows]
-        pages, per = encode_pages(buffers.ts, buffers.vals, buffers.n, rows)
-        out = dict(pages=pages, blk0=np.full(P, -1, np.int64),
-                   nblk=np.zeros(P, np.int64), t0=np.zeros(P, np.int64),
-                   t1=np.zeros(P, np.int64))
+        n = buffers.n[rows]
+        shape = (P, _NCOL) if hist else (P,)
+        out = dict(rows=rows, pids=pids, live=np.zeros(P, bool),
+                   t0=np.zeros(P, np.int64), t1=np.zeros(P, np.int64),
+                   vmax=np.zeros(shape), exact=np.ones(shape, bool))
         if len(rows):
-            out["blk0"][pids] = np.concatenate([[0], np.cumsum(per)[:-1]])
-            out["nblk"][pids] = per
+            out["live"][pids] = True
             out["t0"][pids] = buffers.ts[rows, 0]
-            out["t1"][pids] = buffers.ts[rows, buffers.n[rows] - 1]
-        return out, rows, pids
+            out["t1"][pids] = buffers.ts[rows, n - 1]
+            vals = buffers.vals[rows]
+            if hist:
+                cols = slot_columns(vals)
+                for j in range(_NCOL):
+                    out["vmax"][pids, j] = abs_max_finite(cols[..., j], n)
+                    out["exact"][pids, j] = exact_in_f32(cols[..., j], n)
+            else:
+                out["vmax"][pids] = abs_max_finite(vals, n)
+                out["exact"][pids] = exact_in_f32(vals, n)
+        return out
+
+    def buffer_meta(self) -> dict:
+        """``_buffer_meta`` of the scalar write buffers, made on first use
+        after an ingest."""
+        cached = self._buffer_meta_cache
+        if cached is None or cached[0] != self.version:
+            meta = self._buffer_meta(self.buffers, self.num_partitions, False)
+            cached = self._buffer_meta_cache = (self.version, meta)
+        return cached[1]
+
+    def hist_buffer_meta(self) -> list[dict]:
+        """``_buffer_meta`` of the histogram write buffers, one dict per
+        bucket count, in ``hist_buffers`` order."""
+        cached = self._hist_buffer_meta
+        if cached is None or cached[0] != self.version:
+            cached = self._hist_buffer_meta = (self.version, [
+                self._buffer_meta(b, self.num_partitions, True)
+                for b in self.hist_buffers.values()])
+        return cached[1]
+
+    def _buffer_table(self, buffers: WriteBuffers, meta: dict) -> dict:
+        """``meta`` with the device pages of its buffers: pages, blk0 (-1
+        for an empty buffer) and nblk per pid."""
+        P = self.num_partitions
+        pages, per = encode_pages(buffers.ts, buffers.vals, buffers.n,
+                                  meta["rows"])
+        out = dict(meta, pages=pages, blk0=np.full(P, -1, np.int64),
+                   nblk=np.zeros(P, np.int64))
+        if len(meta["rows"]):
+            out["blk0"][meta["pids"]] = np.concatenate([[0],
+                                                        np.cumsum(per)[:-1]])
+            out["nblk"][meta["pids"]] = per
+        return out
 
     def buffer_pages(self):
         """Device pages of every non-empty scalar write buffer, encoded on
-        first use after an ingest: a dict of the pages and of per-pid
-        arrays (blk0 = -1 for an empty buffer, nblk, t0, t1, vmax)."""
+        first use after an ingest: ``buffer_meta`` with the pages and per
+        pid blk0 (-1 for an empty buffer) and nblk."""
         cached = self._buffer_pages
-        if cached is not None and cached[0] == self.version:
-            return cached[1]
-        out, rows, pids = self._buffer_table(self.buffers,
-                                             self.num_partitions)
-        out["vmax"] = np.zeros(self.num_partitions)
-        if len(rows):
-            out["vmax"][pids] = abs_max_finite(self.buffers.vals[rows],
-                                               self.buffers.n[rows])
-        self._buffer_pages = (self.version, out)
-        return out
+        if cached is None or cached[0] != self.version:
+            cached = self._buffer_pages = (self.version, self._buffer_table(
+                self.buffers, self.buffer_meta()))
+        return cached[1]
 
     def hist_buffer_pages(self) -> list[dict]:
         """``buffer_pages`` of the histogram buffers, one dict per bucket
-        count; ``vmax`` [P, 2] is per column (sum, count)."""
+        count; ``vmax`` and ``exact`` [P, 2] are per column (sum,
+        count)."""
         cached = self._hist_buffer_pages
         if cached is None or cached[0] != self.version:
-            tables = []
-            for b in self.hist_buffers.values():
-                out, rows, pids = self._buffer_table(b, self.num_partitions)
-                out["vmax"] = np.zeros((self.num_partitions, _NCOL))
-                cols = slot_columns(b.vals[rows])
-                for j in range(_NCOL):
-                    out["vmax"][pids, j] = abs_max_finite(cols[..., j],
-                                                          b.n[rows])
-                tables.append(out)
-            cached = self._hist_buffer_pages = (self.version, tables)
+            cached = self._hist_buffer_pages = (self.version, [
+                self._buffer_table(b, m) for b, m in zip(
+                    self.hist_buffers.values(), self.hist_buffer_meta())])
         return cached[1]
+
+    def _row_of_pid(self, pids: np.ndarray) -> np.ndarray:
+        """int64 [P]: each partition's index in ``pids``, -1 if absent."""
+        row_of_pid = np.full(self.num_partitions, -1, np.int64)
+        row_of_pid[pids] = np.arange(len(pids))
+        return row_of_pid
+
+    @staticmethod
+    def _chunk_sel(row_of_pid, start, end, tables) -> list[np.ndarray]:
+        """The rows of each of ``tables`` (pairs of a ChunkTable and the
+        rows of it to consider, None for all live ones) whose chunks belong
+        to a selected partition and overlap [start, end]."""
+        sels = []
+        for table, rows in tables:
+            ch = table.columns
+            cand = np.flatnonzero(~ch["dead"]) if rows is None else rows
+            sels.append(cand[(row_of_pid[ch["pid"][cand]] >= 0)
+                             & (ch["t1"][cand] >= start)
+                             & (ch["t0"][cand] <= end)])
+        return sels
+
+    def _tables(self, column: str | None, paged) -> list:
+        """(chunk table, rows) pairs a scalar selection reads: the sealed
+        chunks of the kind and the paged ones."""
+        hist = column is not None
+        return [(self._hist_sealed if hist else self._sealed, None)] + (
+            [] if paged is None else [paged[hist]])
+
+    @staticmethod
+    def _buffer_sel(buf: dict, pids, start, end) -> np.ndarray:
+        """The partitions of ``pids`` whose buffer of the page table
+        ``buf`` overlaps [start, end]."""
+        return pids[buf["live"][pids] & (buf["t1"][pids] >= start)
+                    & (buf["t0"][pids] <= end)]
 
     def _select(self, pids, start, end, tables, bufs,
                 view=lambda pages: pages):
         """Page blocks of partitions ``pids`` (batch rows in that order)
-        for [start, end]: the chunks of ``tables`` (pairs of a ChunkTable
-        and the rows of it to consider, None for all live ones) that
+        for [start, end]: the chunks of ``tables`` (``_chunk_sel``) that
         overlap the range, in chunk-id order, then the write buffer if it
         overlaps. → (tables, table_of, block_of, row_of) for the packer,
         the selected rows of each chunk table and each buffer table's
         selected pids."""
-        row_of_pid = np.full(self.num_partitions, -1, np.int64)
-        row_of_pid[pids] = np.arange(len(pids))
-        out_tables, table_of, block_of, row_of, keys, sels = [], [], [], [], \
-            [], []
-        for table, rows in tables:
+        row_of_pid = self._row_of_pid(pids)
+        out_tables, table_of, block_of, row_of, keys = [], [], [], [], []
+        sels = self._chunk_sel(row_of_pid, start, end, tables)
+        for (table, _), sel in zip(tables, sels):
             ch = table.columns
-            cand = np.flatnonzero(~ch["dead"]) if rows is None else rows
-            sel = cand[(row_of_pid[ch["pid"][cand]] >= 0)
-                       & (ch["t1"][cand] >= start) & (ch["t0"][cand] <= end)]
-            sels.append(sel)
             blocks = expand(ch["blk0"][sel], ch["nblk"][sel])
             offsets = np.asarray(table.offsets)
             seg = np.searchsorted(offsets, blocks, side="right") - 1
@@ -1259,8 +1357,7 @@ class Shard:
                          np.repeat(ch["cid"][sel], ch["nblk"][sel])))
         bsels = []
         for buf in bufs:
-            bsel = pids[(buf["blk0"][pids] >= 0) & (buf["t1"][pids] >= start)
-                        & (buf["t0"][pids] <= end)]
+            bsel = self._buffer_sel(buf, pids, start, end)
             bsels.append(bsel)
             if len(bsel):
                 blocks = expand(buf["blk0"][bsel], buf["nblk"][bsel])
@@ -1284,28 +1381,137 @@ class Shard:
         ``HIST_COLUMNS``) the value pages of that column of histogram
         partitions; ``paged`` adds the chunks a page-in selected
         (``odp.page_partitions``). Returns (tables, table_of, block_of,
-        row_of, vmax) for ``device_batch.pack_blocks`` plus the largest
-        |value| they hold."""
-        extra = [] if paged is None else [paged[column is not None]]
+        row_of) for ``device_batch.pack_blocks`` and (the largest |value|
+        they hold, whether their pages hold every value exactly)."""
+        tables = self._tables(column, paged)
         if column is not None:
             j = HIST_COLUMNS.index(column)
             bufs = self.hist_buffer_pages()
-            tables = [(self._hist_sealed, None), *extra]
             out, t_of, b_of, r_of, sels, bsels = self._select(
                 pids, start, end, tables, bufs, lambda pages: pages.column(j))
-            vmax = max([float(t.columns[f"vmax_{column}"][s].max(initial=0.0))
-                        for (t, _), s in zip(tables, sels)]
-                       + [float(b["vmax"][bs, j].max(initial=0.0))
-                          for b, bs in zip(bufs, bsels)])
-            return out, t_of, b_of, r_of, vmax
-        buf = self.buffer_pages()
-        tables = [(self._sealed, None), *extra]
-        out, t_of, b_of, r_of, sels, (bsel,) = self._select(
-            pids, start, end, tables, [buf])
-        vmax = max([float(t.columns["vmax"][s].max(initial=0.0))
+        else:
+            j = None
+            bufs = [self.buffer_pages()]
+            out, t_of, b_of, r_of, sels, bsels = self._select(
+                pids, start, end, tables, bufs)
+        name = "vmax" if column is None else f"vmax_{column}"
+        vmax = max([float(t.columns[name][s].max(initial=0.0))
                     for (t, _), s in zip(tables, sels)]
-                   + [float(buf["vmax"][bsel].max(initial=0.0))])
-        return out, t_of, b_of, r_of, vmax
+                   + [float((b["vmax"][bs] if j is None else b["vmax"][bs, j]
+                             ).max(initial=0.0))
+                      for b, bs in zip(bufs, bsels)])
+        return out, t_of, b_of, r_of, (vmax, self.values_exact(
+            pids, start, end, column, paged))
+
+    def values_exact(self, pids, start, end, column=None,
+                     paged=None) -> bool:
+        """Whether the pages hold every value of the chunks (resident, and
+        ``paged``) and write buffers of ``pids`` that overlap [start, end]
+        exactly: the lane gate, read from the flags made at seal and on the
+        buffers before anything is packed. The caller holds the lock."""
+        tables = self._tables(column, paged)
+        sels = self._chunk_sel(self._row_of_pid(pids), start, end, tables)
+        suffix = "" if column is None else f"_{column}"
+        if not all(t.columns["exact" + suffix][s].all()
+                   for (t, _), s in zip(tables, sels)):
+            return False
+        if column is None:
+            buf = self.buffer_meta()
+            return bool(buf["exact"][self._buffer_sel(buf, pids, start,
+                                                      end)].all())
+        j = HIST_COLUMNS.index(column)
+        return all(bool(b["exact"][self._buffer_sel(b, pids, start, end),
+                                   j].all())
+                   for b in self.hist_buffer_meta())
+
+    def codec_chunks(self, table, idx: np.ndarray) -> tuple[list, np.ndarray]:
+        """The serialized codec chunks of chunks ``idx`` of ``table``: a
+        list of (positions in ``idx``, their ``ChunkBytes``) groups, the
+        held ones a codec buffer at a time and the flushed ones read back
+        from the column store; and the positions of the chunks the store
+        no longer holds. The caller holds the lock."""
+        col = table.columns
+        held = col["pending"][idx]
+        batch = col["cbatch"][idx]
+        out = []
+        for b in np.unique(batch[held]).tolist():
+            pos = np.flatnonzero(held & (batch == b))
+            out.append((pos, table.codec[b].take(col["cidx"][idx[pos]])))
+        pos = np.flatnonzero(~held)
+        if not len(pos):
+            return out, pos
+        flushed = idx[pos]
+        pids = np.unique(col["pid"][flushed])
+        pid_of = dict(zip(self.key_blobs(pids), pids.tolist()))
+        found = {}
+        for blob, data in self.column_store.read_chunk_rows(
+                self.dataset, self.shard_num, list(pid_of),
+                int(col["t0"][flushed].min()), int(col["t1"][flushed].max())):
+            cid = int(np.frombuffer(bytes(data[:8]), np.int64)[0])
+            found.setdefault((pid_of[bytes(blob)], cid), bytes(data))
+        want = list(zip(col["pid"][flushed].tolist(),
+                        col["cid"][flushed].tolist()))
+        have = np.array([w in found for w in want], bool)
+        if have.any():
+            out.append((pos[have], ChunkBytes.from_blobs(
+                [found[w] for w, h in zip(want, have) if h])))
+        return out, pos[~have]
+
+    def _samples(self, pids, start, end, column, paged) -> Samples:
+        """The host-decode lane's samples of ``pids`` for [start, end]
+        (``query/engine/batch.py``): the codec chunks of the chunks
+        ``select_blocks`` would select, and copies of the write buffers
+        that overlap the range. A chunk that was flushed to a store that no
+        longer holds it gives its page values. Rows are indices in
+        ``pids``. The caller holds the lock."""
+        row_of_pid = self._row_of_pid(pids)
+        tables = self._tables(column, paged)
+        hist = column is not None
+        out = Samples(SCHEMAS["prom-histogram" if hist else "gauge"],
+                      HIST_COLUMNS.index(column) if hist else 0)
+        for (table, _), sel in zip(tables, self._chunk_sel(
+                row_of_pid, start, end, tables)):
+            col = table.columns
+            groups, lost = self.codec_chunks(table, sel)
+            for pos, cb in groups:
+                out.codec.append((cb, row_of_pid[col["pid"][sel[pos]]],
+                                  col["cid"][sel[pos]]))
+            if len(lost):
+                out.decoded.append(self._page_values(
+                    table, sel[lost], row_of_pid, start, out.column
+                    if hist else None))
+        bufs = zip(self.hist_buffers.values(), self.hist_buffer_meta()) \
+            if hist else [(self.buffers, self.buffer_meta())]
+        for buf, meta in bufs:
+            rows = buf.rows(self._buffer_sel(meta, pids, start, end))
+            n = buf.n[rows].astype(np.int64)
+            vals = buf.vals[rows]
+            if hist:
+                vals = np.ascontiguousarray(slot_columns(vals)[..., out.column])
+            out.decoded.append((
+                row_of_pid[buf.pid_of[rows]], np.ones(len(rows), np.int64),
+                np.zeros(len(rows), np.int64), buf.ts[rows], vals,
+                np.arange(buf.ts.shape[1])[None, :] < n[:, None]))
+        return out
+
+    @staticmethod
+    def _page_values(table, idx, row_of_pid, start: int, j):
+        """``Samples.decoded`` entries of chunks ``idx`` from their
+        float32 pages (plain decode on the host): the values left of a
+        chunk flushed to a store that no longer holds it."""
+        col = table.columns
+        blocks = expand(col["blk0"][idx], col["nblk"][idx])
+        offsets = np.asarray(table.offsets)
+        seg = np.searchsorted(offsets, blocks, side="right") - 1
+        pages = [p if j is None else p.column(j) for p in table.pages]
+        packed, _ = pack_blocks(pages, seg, blocks - offsets[seg],
+                                np.repeat(np.arange(len(idx)),
+                                          col["nblk"][idx]), len(idx), start)
+        ts, vals, live = decode_packed(to_device(packed, "cpu"), plain=True)
+        n = len(idx)
+        return (row_of_pid[col["pid"][idx]], np.zeros(n, np.int64),
+                col["cid"][idx], ts[:n].numpy().astype(np.int64) + start,
+                vals[:n].numpy().astype(np.float64), live[:n].numpy())
 
     def select_hist_blocks(self, pids: np.ndarray, start: int, end: int,
                            paged=None):

@@ -7,9 +7,12 @@ kernel wrapper runs its plain PyTorch version. Nothing silently carries on
 on the CPU.
 
 Dtypes: device pages store float32 values, and the hand-written kernels
-compute in float32, as the TPU kernels do. The precision gate
-(``parallel/mesh_engine.py``) sends a batch whose magnitudes float32 cannot
-difference exactly through the plain path in float64 on the same device.
+compute in float32, as the TPU kernels do. A batch whose values float32
+does not hold takes the host-decode lane, float64 values decoded from the
+codec chunks (``query/engine/batch.py``); the precision gate
+(``query/exec/transformers.py``) sends a batch of exact values whose
+magnitudes float32 cannot difference exactly through the plain path in
+float64 on the same device.
 """
 
 from __future__ import annotations

@@ -28,7 +28,8 @@ the exec engine's own windowing stage
 (``transformers.PeriodicSamplesMapper.eval_batch``), so both engines
 launch the same kernels through the same code: B3 for rate / increase /
 delta, B1 and B2 then B4 or the float64 functions for the rest, B1 for
-histogram buckets. Aggregations, instant functions and operators are plain
+histogram buckets; and both take the same lane for a batch whose values
+float32 does not hold (the host-decode lane, ``query/engine/batch.py``). Aggregations, instant functions and operators are plain
 torch on the card (``query/exec``); joins match labels on the host.
 
 Histograms: a selector that matches ``prom-histogram`` series reads their

@@ -30,8 +30,10 @@ Series of a shorter bucket scheme are zero-padded up to the batch's widest.
 
 ``build_device_batch`` is the one place that selects, packs and uploads a
 batch: the mesh engine calls it with every shard's partitions, an exec
-leaf with one shard's partitions of one schema. ``BatchCache`` keeps both
-engines' batches under one budget of device memory. A column selector
+leaf with one shard's partitions of one schema. It is also the lane gate:
+where the selected values float32 does not hold, the batch is the
+host-decode lane's float64 ``batch.SeriesBatch`` instead. ``BatchCache``
+keeps both engines' batches under one budget of device memory. A column selector
 (``h::sum``) reads the named column of the partitions' schema, or its
 value column where the schema has no such column, as the reference's
 ``SelectRawPartitionsExec._value_col_index`` does.
@@ -39,6 +41,7 @@ value column where the schema has no such column, as the reference's
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, fields
 
 import numpy as np
@@ -55,6 +58,11 @@ from filodb_tpu_torch.memory.device_pages import (
     encode_f32_blocks,
     encode_ts_blocks,
     u32_as_i32,
+)
+from filodb_tpu_torch.query.engine.batch import (
+    Samples,
+    SeriesBatch,
+    build_batch,
 )
 from filodb_tpu_torch.query.model import UnsupportedQuery
 
@@ -464,8 +472,7 @@ MIXED_KINDS = ("the selector matches both histogram and scalar series, "
 
 
 def build_device_batch(selected, start: int, end: int, device: torch.device,
-                       column: str | None = None,
-                       versions=None) -> DeviceBatch:
+                       column: str | None = None, versions=None):
     """Select, pack and upload the pages of ``selected``, a list of
     (shard, partition ids), for [start, end]; rows follow that order. All
     partitions are histograms or none are; a histogram batch reads the
@@ -477,7 +484,12 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     (``Shard.select_for_batch``); the pack and the upload run without
     it. ``versions``, each shard's version read before its partitions
     were looked up, give the batch's ``version`` (their sum, moved on by
-    this build's own page-ins): the owner's version it is valid at."""
+    this build's own page-ins): the owner's version it is valid at.
+
+    The lane gate: where any shard's selected values are not exact in
+    float32, every shard hands over its float64 samples instead and the
+    batch is the host-decode lane's ``SeriesBatch`` (``batch.py``); the
+    gate is per batch, as the reference's mesh gate is."""
     if versions is None:
         versions = [None] * len(selected)
     version = sum(v for v in versions if v is not None)
@@ -494,26 +506,47 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     col = read_column(sh0.keys[p0[0]].schema, column)
     hist = col.ctype == ColumnType.HISTOGRAM
     sub = col.name if kind.all() and not hist else None
-    tables, table_of, block_of, row_of = [], [], [], []
-    keys, vmax, les = [], 0.0, None
+    t0 = time.perf_counter()
+    sels, host = [], False
     for shard, pids, v in picked:
-        if hist:
-            (tabs, t_of, b_of, r_of, sl), now = shard.select_for_batch(
-                pids, start, end, True, expect=v)
-            # the first scheme of the most buckets, in batch order
-            if sl is not None and (les is None or len(sl) > len(les)):
-                les = sl
-        else:
-            (tabs, t_of, b_of, r_of, vm), now = shard.select_for_batch(
-                pids, start, end, False, sub, expect=v)
-            vmax = max(vmax, vm)
+        sel, now = shard.select_for_batch(pids, start, end, hist, sub,
+                                          expect=v, host=host or None)
+        host = host or isinstance(sel, Samples)
+        sels.append((sel, now))
+    if host:
+        # an earlier shard's selection was exact: it hands over its
+        # samples too, at the version its selection saw
+        sels = [(sel, now) if isinstance(sel, Samples)
+                else shard.select_for_batch(pids, start, end, False, sub,
+                                            expect=now, host=True)
+                for (sel, now), (shard, pids, _) in zip(sels, picked)]
+    for (_, now), (_, _, v) in zip(sels, picked):
         if v is not None:
             version += now - v
+    keys = [shard.keys[p] for shard, pids, _ in picked for p in pids]
+    if host:
+        firsts = np.cumsum([0] + [len(p) for _, p, _ in picked])
+        select_s = time.perf_counter() - t0
+        ts, vals, counts, seconds = build_batch(
+            [(int(f), sel) for f, (sel, _) in zip(firsts, sels)], len(keys),
+            start, end, device)
+        return SeriesBatch([k.range_vector_key for k in keys], ts, vals,
+                           counts, col.is_counter, start, end, version,
+                           seconds={"select": select_s, **seconds})
+    tables, table_of, block_of, row_of = [], [], [], []
+    vmax, les, n = 0.0, None, 0
+    for ((tabs, t_of, b_of, r_of, x), _), (_, pids, _) in zip(sels, picked):
+        if hist:
+            # the first scheme of the most buckets, in batch order
+            if x is not None and (les is None or len(x) > len(les)):
+                les = x
+        else:
+            vmax = max(vmax, x[0])
         table_of.append(t_of + len(tables))
         tables.extend(tabs)
         block_of.append(b_of)
-        row_of.append(r_of + len(keys))
-        keys.extend(shard.keys[p] for p in pids)
+        row_of.append(r_of + n)
+        n += len(pids)
     entries = (tables, np.concatenate(table_of), np.concatenate(block_of),
                np.concatenate(row_of), len(keys), start)
     if hist:

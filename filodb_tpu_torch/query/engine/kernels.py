@@ -15,6 +15,13 @@ fused kernel B3 (``cuda_kernels.fused_decode_rate_plain``), float64 for
 every function the engine evaluates on decoded chunks and for the precise
 lane its precision gate falls back to.
 
+``range_eval`` is the counts form of the host-decode lane's batches (the
+first ``counts`` samples of a row valid). Over those batches' values,
+which float32 does not hold, the prefix sums of values add in the
+reference's order (``_scan``), so that the functions that cancel agree
+with the reference's; over the page lane's exact values the order moves
+no bit that matters, and one ``torch.cumsum`` is faster on the card.
+
 ``ts`` int32 [P, S] relative ms, non-decreasing (gap positions carry the
 previous real timestamp); ``vals`` [P, S]; ``valid`` bool [P, S];
 ``steps`` int32 [K]; ``window`` int ms. Returns [P, K], NaN = no result.
@@ -44,9 +51,60 @@ _LAST_FNS = ("zscore", "last_over_time", "last_sample", "timestamp",
 _FIRST_FNS = ("changes", "resets") + RATE_FNS
 
 
-def _eprefix(x: torch.Tensor) -> torch.Tensor:
-    """Exclusive prefix sum along the last axis: [..., S] → [..., S+1]."""
-    return torch.cat([torch.zeros_like(x[..., :1]), torch.cumsum(x, -1)], -1)
+_SCAN_TILE = 16
+
+
+def running_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, one element after another
+    as ``np.cumsum`` adds: the sum runs along an outer axis, which PyTorch
+    scans sequentially on the CPU and on CUDA alike."""
+    return torch.cumsum(x.movedim(-1, 0).contiguous(), 0).movedim(0, -1)
+
+
+def _scan(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along the last axis, added in the order the
+    reference's ``jnp.cumsum`` adds on the CPU (XLA rewrites the
+    cumulative reduce-window into tiles of 16: a running sum inside each
+    tile, plus the prefix of the tile totals, scanned the same way). In
+    float64 over values that float32 does not hold, the windowed moments
+    (stddev, stdvar, zscore) cancel E[x²] − E[x]², so their last bits, and
+    at large magnitudes their leading ones, follow the order of the sums."""
+    S = x.shape[-1]
+    if S <= _SCAN_TILE:
+        return running_sum(x)
+    nt = -(-S // _SCAN_TILE)
+    pad = torch.zeros((*x.shape[:-1], nt * _SCAN_TILE - S), dtype=x.dtype,
+                      device=x.device)
+    inner = _scan(torch.cat([x, pad], -1).reshape(*x.shape[:-1], nt,
+                                                   _SCAN_TILE))
+    outer = _scan(inner[..., -1])
+    before = torch.cat([torch.zeros_like(outer[..., :1]), outer[..., :-1]],
+                       -1)
+    return (inner + before[..., None]).reshape(*x.shape[:-1], -1)[..., :S]
+
+
+def _minus_square(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """x − m², rounded once where it cancels, as the reference's XLA
+    contracts it into a fused multiply-add: m² = p + e exactly (Dekker's
+    product, one operation at a time, so on any device), and x − p is
+    exact where x and p lie within a factor of two (Sterbenz). Over values
+    float32 does not hold, E[x²] − mean² cancels, and the rounding of mean²
+    would otherwise reach its leading digits."""
+    p = m * m
+    # Veltkamp's split into two halves of the mantissa: 2^27 + 1 splits a
+    # float64, 2^12 + 1 a float32
+    c = m * (134217729.0 if m.dtype == torch.float64 else 4097.0)
+    hi = c - (c - m)
+    lo = m - hi
+    e = ((hi * hi - p) + 2.0 * hi * lo) + lo * lo
+    return (x - p) - e
+
+
+def _eprefix(x: torch.Tensor, ordered: bool = False) -> torch.Tensor:
+    """Exclusive prefix sum along the last axis: [..., S] → [..., S+1];
+    ``ordered``: added in the reference's order (``_scan``)."""
+    return torch.cat([torch.zeros_like(x[..., :1]),
+                      _scan(x) if ordered else torch.cumsum(x, -1)], -1)
 
 
 def _div(x: torch.Tensor, d: float) -> torch.Tensor:
@@ -119,14 +177,14 @@ def _range_minmax(vals: torch.Tensor, valid: torch.Tensor, lo, hi,
 
 
 def _linreg(ts, v, valid, lo, hi, steps, dtype, slope_only: bool,
-            horizon_s: float = 0.0) -> torch.Tensor:
+            horizon_s: float = 0.0, ordered: bool = False) -> torch.Tensor:
     """Least-squares slope / prediction over each window (deriv,
     predict_linear), time centred at the step."""
     t_s = torch.where(valid, ts, 0).to(dtype) / 1000.0
     zero = torch.zeros((), dtype=dtype, device=ts.device)
 
     def window_sum(x):
-        c = _eprefix(x)
+        c = _eprefix(x, ordered)
         return _gather(c, hi) - _gather(c, lo)
 
     n = window_sum(valid.to(dtype))
@@ -151,10 +209,18 @@ def _linreg(ts, v, valid, lo, hi, steps, dtype, slope_only: bool,
 def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
                       valid: torch.Tensor, steps: torch.Tensor, window: int,
                       extra: float = 0.0, counter: bool = False,
-                      dtype: torch.dtype = torch.float64) -> torch.Tensor:
+                      dtype: torch.dtype = torch.float64,
+                      pre_corrected: bool = False,
+                      raw: torch.Tensor | None = None,
+                      ordered: bool = False) -> torch.Tensor:
     """One range function at every step of every series (of every bucket
     row, for ``vals`` [P, B, S]); ``extra`` is predict_linear's horizon in
-    seconds."""
+    seconds. ``pre_corrected``: rate / increase / delta take ``vals`` as
+    already corrected (and rebased, ``batch.SeriesBatch.delta_host``), and
+    ``raw`` [P, S], the values before that, gives the raw first sample of
+    each window that the extrapolation clamp of rate and increase reads
+    (the reference's ``range_eval``). ``ordered``: the prefix sums of
+    values add in the reference's order (``_scan``)."""
     if fn not in RANGE_FNS:
         raise ValueError(f"unknown range function {fn}")
     if vals.dim() == 3:
@@ -162,10 +228,32 @@ def range_eval_masked(fn: str, ts: torch.Tensor, vals: torch.Tensor,
                           window, extra, counter, dtype)
         return out.expand(*vals.shape[:2], out.shape[-1])
     return _range_eval(fn, ts, vals, valid, steps, window, extra, counter,
-                       dtype)
+                       dtype, pre_corrected, raw, ordered)
 
 
-def _range_eval(fn, ts, vals, valid, steps, window, extra, counter, dtype):
+def counts_valid(ts: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """The counts form's validity: the first ``counts[p]`` samples of each
+    row (the reference's ``_valid_mask``)."""
+    S = ts.shape[-1]
+    return torch.arange(S, device=ts.device)[None, :] < counts[:, None]
+
+
+def range_eval(fn: str, ts: torch.Tensor, vals: torch.Tensor,
+               counts: torch.Tensor, steps: torch.Tensor, window: int,
+               extra: float = 0.0, counter: bool = False,
+               dtype: torch.dtype = torch.float64,
+               pre_corrected: bool = False,
+               raw: torch.Tensor | None = None) -> torch.Tensor:
+    """``range_eval_masked`` over rows whose first ``counts`` samples are
+    valid (the host-decode lane's batches), its prefix sums of values
+    added in the reference's order."""
+    return range_eval_masked(fn, ts, vals, counts_valid(ts, counts), steps,
+                             window, extra, counter, dtype, pre_corrected,
+                             raw, ordered=True)
+
+
+def _range_eval(fn, ts, vals, valid, steps, window, extra, counter, dtype,
+                pre_corrected=False, raw=None, ordered=False):
     raw_vals = vals
     vals = vals.to(dtype)
     v = torch.where(valid, vals, 0.0)
@@ -189,17 +277,17 @@ def _range_eval(fn, ts, vals, valid, steps, window, extra, counter, dtype):
     if fn == "present_over_time":
         return torch.where(has1, 1.0, nan).to(dtype)
     if fn in ("sum_over_time", "avg_over_time"):
-        csum = _eprefix(v)
+        csum = _eprefix(v, ordered)
         s = _gather(csum, hi) - _gather(csum, lo)
         if fn == "avg_over_time":
             return torch.where(has1, s / n.clamp(min=1.0), nan)
         return torch.where(has1, s, nan)
     if fn in ("stddev_over_time", "stdvar_over_time", "zscore"):
-        csum, csum2 = _eprefix(v), _eprefix(v * v)
+        csum, csum2 = _eprefix(v, ordered), _eprefix(v * v, ordered)
         s = _gather(csum, hi) - _gather(csum, lo)
         s2 = _gather(csum2, hi) - _gather(csum2, lo)
         mean = s / n.clamp(min=1.0)
-        var = (s2 / n.clamp(min=1.0) - mean * mean).clamp(min=0.0)
+        var = _minus_square(s2 / n.clamp(min=1.0), mean).clamp(min=0.0)
         if fn == "stdvar_over_time":
             return torch.where(has1, var, nan)
         sd = torch.sqrt(var)
@@ -246,16 +334,17 @@ def _range_eval(fn, ts, vals, valid, steps, window, extra, counter, dtype):
         return torch.where(n >= 2, dv, nan)
     if fn in ("deriv", "predict_linear"):
         return _linreg(ts, v, valid, lo, hi, steps, dtype,
-                       fn == "deriv", float(extra))
+                       fn == "deriv", float(extra), ordered)
 
     # rate / increase / delta
-    if counter or fn in ("rate", "increase"):
+    if not pre_corrected and (counter or fn in ("rate", "increase")):
         cv = torch.where(valid, _counter_corrected(v, valid, pv), 0.0)
     else:
         cv = v
     v_first = _gather(cv, first_idx)
     v_last = _gather(cv, last_idx)
-    raw_first = _gather(v, first_idx)
+    raw_first = _gather(v if raw is None else
+                        torch.where(valid, raw.to(dtype), 0.0), first_idx)
     # durations are differenced in integer ms, then divided: one rounding
     # (the reference divides each time by 1000 first, which in float32
     # costs an ulp of the absolute time in every duration)

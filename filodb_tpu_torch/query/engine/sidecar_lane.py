@@ -27,11 +27,15 @@ uploaded with the chunk spans, the write buffers' packed pages and the
 keys as a bundle kept in the service's ``BatchCache`` under the shard's
 version, as a batch is. The edge chunks and the write buffers are decoded
 from their device pages by B1/B2 (``device_batch.decode_packed``), so
-their values are the pages' float32 ones, as in the port's decode lane; a
-selection whose values float32 cannot hold exactly (past
-``F32_SAFE_MAX``) bypasses, as the decode lane takes its float64 gate
-there. A leaf's fold runs under the shard's lock, so it reads one version
-of the chunk table and the buffers.
+their values are the pages' float32 ones, as in the port's page lane. A
+selection whose values the pages do not hold exactly (a chunk or a write
+buffer whose values do not survive float32, ``partition.exact_in_f32``)
+bypasses to the host-decode lane, which reads them in float64; so does
+one past ``F32_SAFE_MAX``, where the page lane takes its float64 gate.
+Every bypass counts in ``filodb_sidecar_bypassed`` and, with its reason,
+in the query's ``QueryStats.sidecar_bypassed``. A leaf's fold runs under
+the shard's lock, so it reads one version of the chunk table and the
+buffers.
 
 The valve ``FILODB_SIDECARS``: ``1`` (default) folds the stored summaries;
 ``decode`` makes every interior summary again from the chunk's codec
@@ -53,7 +57,6 @@ from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.memory.chunk import (
     SKETCH_BUCKETS,
     STATS_WIDTH,
-    ChunkBytes,
     S_CHANGES,
     S_CORR,
     S_COUNT,
@@ -133,7 +136,8 @@ def covers_fn(fn: str) -> bool:
 
 
 class _Bypass(Exception):
-    """Exactness cannot be kept: the decode lane serves the leaf."""
+    """Exactness cannot be kept: the decode lane serves the leaf. Its
+    argument is the reason ``QueryStats.sidecar_bypassed`` counts."""
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +201,7 @@ def _bundle(shard, pids: np.ndarray, decode_mode: bool,
     same = part[1:] == part[:-1]
     if (same & ((starts[1:] <= starts[:-1]) | (starts[1:] <= ends[:-1]))
             ).any():
-        raise _Bypass
+        raise _Bypass("chunks out of time order")
     offs = np.zeros(len(pids) + 1, np.int64)
     np.cumsum(np.bincount(part, minlength=len(pids)), out=offs[1:])
     t = torch.from_numpy(np.ascontiguousarray(st)).to(device)
@@ -215,26 +219,16 @@ def _bundle(shard, pids: np.ndarray, decode_mode: bool,
 def _decoded_summaries(shard, table, idx: np.ndarray):
     """The summaries of chunks ``idx`` made again from their codec
     vectors: held until the flush, read back from the column store
-    after it."""
-    col = table.columns
-    pending = col["pending"][idx]
-    want = list(zip(col["pid"][idx].tolist(), col["cid"][idx].tolist()))
-    found = {want[i]: bytes(b) for i, b in zip(
-        np.flatnonzero(pending).tolist(), table.codec_rows(idx[pending]))}
-    flushed = idx[~pending]
-    if len(flushed):
-        pids = np.unique(col["pid"][flushed])
-        pid_of = dict(zip(shard.key_blobs(pids), pids.tolist()))
-        for blob, data in shard.column_store.read_chunk_rows(
-                shard.dataset, shard.shard_num, list(pid_of),
-                int(col["t0"][flushed].min()), int(col["t1"][flushed].max())):
-            cid = int(np.frombuffer(bytes(data[:8]), np.int64)[0])
-            found.setdefault((pid_of[bytes(blob)], cid), bytes(data))
-    if any(w not in found for w in want):
-        raise _Bypass  # a flushed chunk the store no longer holds
-    d = decode_chunks(ChunkBytes.from_blobs([found[w] for w in want]),
-                      SCHEMAS["gauge"])
-    return summarize(d.ts, d.dcols[:, 0], d.rows)
+    after it (``Shard.codec_chunks``)."""
+    groups, lost = shard.codec_chunks(table, idx)
+    if len(lost):
+        raise _Bypass("a flushed chunk the store no longer holds")
+    stats = np.zeros((len(idx), STATS_WIDTH))
+    sketch = np.zeros((len(idx), SKETCH_BUCKETS), np.uint16)
+    for pos, cb in groups:
+        d = decode_chunks(cb, SCHEMAS["gauge"])
+        stats[pos], sketch[pos] = summarize(d.ts, d.dcols[:, 0], d.rows)
+    return stats, sketch
 
 
 # ---------------------------------------------------------------------------
@@ -532,7 +526,7 @@ def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
         if fn == "rate":
             result = result / (window_ms / 1000.0)
         return gate(result, n >= 2)
-    raise _Bypass
+    raise _Bypass(f"no formula for {fn}")
 
 
 # ---------------------------------------------------------------------------
@@ -553,20 +547,23 @@ def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
         return None
     fn = psm.fn
     approx = approx_enabled()
-    if (fn not in ELIGIBLE_FNS
-            and not (fn == "quantile_over_time" and approx)) \
-            or psm.at_ms is not None \
-            or (psm.params and fn != "quantile_over_time"):
-        SIDECAR_BYPASSED.inc()
-        return None
     try:
+        if fn not in ELIGIBLE_FNS \
+                and not (fn == "quantile_over_time" and approx):
+            raise _Bypass("ineligible function")
+        if psm.at_ms is not None:
+            raise _Bypass("@")
+        if psm.params and fn != "quantile_over_time":
+            raise _Bypass("parameters")
         # the shard's chunk table and write buffers are read as of one
         # version: an ingest or an eviction waits for the fold
         with shard.lock:
             return _execute(leaf, ctx, shard, pids, version, psm, fn,
                             m == "decode")
-    except _Bypass:
+    except _Bypass as e:
         SIDECAR_BYPASSED.inc()
+        why = ctx.stats.sidecar_bypassed
+        why[e.args[0]] = why.get(e.args[0], 0) + 1
         return None
 
 
@@ -576,15 +573,16 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
     from filodb_tpu_torch.query.model import StepMatrix
 
     if not len(pids):
-        raise _Bypass  # the decode lane answers the empty matrix
+        # the decode lane answers the empty matrix
+        raise _Bypass("no partition")
     if shard.hist[pids].any():
-        raise _Bypass  # histogram columns
+        raise _Bypass("histogram columns")
     if (shard.status[pids] != 0).any():
-        raise _Bypass  # evicted partitions: paged shells
+        raise _Bypass("evicted partitions")  # paged shells
     if shard.config.demand_paging_enabled and needs_paging(
             shard.earliest_in_memory()[pids], shard.index.start_times(pids),
             leaf.chunk_start).any():
-        raise _Bypass  # memory does not reach back to the query start
+        raise _Bypass("demand paging")  # memory does not reach back
     steps = steps_array(psm.start, psm.step, psm.end)
     eval_steps = (steps - psm.offset).astype(np.int64)
     window = int(psm.span)
@@ -596,7 +594,9 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
     for s, spids in _by_schema(shard, pids):
         if fn != "quantile_over_time" \
                 and not _sealed_fold_pays(shard, spids, t0s, t1s):
-            raise _Bypass  # the decode lane amortizes better here
+            raise _Bypass("static gate")  # the decode lane amortizes better
+        if not shard.values_exact(spids, leaf.chunk_start, leaf.chunk_end):
+            raise _Bypass("values float32 does not hold")
         key = ("sidecar", shard.shard_num, s, str(leaf.filters),
                leaf.chunk_start, leaf.chunk_end, decode_mode)
         bundle = ctx.batches.get(key, shard, spids)
@@ -683,7 +683,7 @@ def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
     right = np.where((re >= i1) & (re >= 0) & (re < Cs) & (re != left), re,
                      -1)
     if b.vmax >= F32_SAFE_MAX:
-        raise _Bypass  # float32 pages cannot hold these values exactly
+        raise _Bypass("past F32_SAFE_MAX")
     # the edge chunks, packed for this query's windows
     edges = np.unique(np.concatenate([(b.offs[:-1, None] + e)[e >= 0]
                                       for e in (left, right)]))
@@ -712,7 +712,7 @@ def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
             rows, np.tile(t0s, len(bpids)), np.tile(t1s, len(bpids)))
     both = (pre[:, S_COUNT] > 0) & (bufs[:, S_COUNT] > 0)
     if bool((both & (bufs[:, S_FIRST_TS] <= pre[:, S_LAST_TS])).any()):
-        raise _Bypass  # out-of-order ingest across the seal boundary
+        raise _Bypass("out of order across the seal")
     acc["sidecar"] += int((i1 - i0).sum())
     acc["decoded"] += len(edges)
     return merge(pre, bufs).reshape(P, W, STATS_WIDTH)
@@ -726,7 +726,7 @@ def _quantile(shard, pids, b: SidecarBundle, q: float, t0s, t1s, base: int,
     P, W = len(pids), len(t0s)
     gate = _sealed_gate()
     if gate > 0 and P * W > gate:
-        raise _Bypass  # a per-window sketch merge would not pay
+        raise _Bypass("static gate")  # a per-window sketch merge
     _, i0, i1, _, _ = _interior(b, t0s, t1s, dev)
     Cs = np.diff(b.offs)
     chunk_rows = _Segments(shard, b.rows, np.zeros(0, np.int64), base,

@@ -20,12 +20,17 @@ column, partitions), until that shard ingests again, in the service's
 
 A leaf first tries the sidecar lane (``query/engine/sidecar_lane.py``),
 which folds its windows from the chunks' summaries, as the reference's
-leaf does; on a bypass it builds its batches.
+leaf does; on a bypass it builds its batches. A batch is the page lane's
+packed pages, or, where the selected values float32 does not hold, the
+host-decode lane's float64 samples (the gate in
+``device_batch.build_device_batch``); ``samples_scanned`` counts the
+batch's samples as that lane counts them (the page lane every row of the
+selected blocks, the host-decode lane the in-range non-NaN samples, as
+the reference's two lanes count).
 
-Left out, with the reason in ``ROADMAP.md``: the host-decode lane, the
-plan dispatchers, remote dispatch and partial results (a plan runs where
-it is, ``execute``), two-phase aggregation pushdown, and the governor's
-budgets and limits.
+Left out, with the reason in ``ROADMAP.md``: the plan dispatchers, remote
+dispatch and partial results (a plan runs where it is, ``execute``),
+two-phase aggregation pushdown, and the governor's budgets and limits.
 """
 
 from __future__ import annotations

@@ -12,11 +12,19 @@ a ``RangeVectorTransformer`` with the reference's ``apply(StepMatrix)``:
 
   - rate / increase / delta run kernel B3 straight from the packed pages,
     unless the precision gate (``F32_SAFE_MAX``, the reference's) sends the
-    batch through the plain float64 ``range_eval_masked``;
+    batch through the plain float64 ``range_eval_masked`` (its values are
+    exact in float32, so that is the reference's float64 answer);
   - every other range function and the instant selector decode through B1
     and B2 (``assemble``) in chunks of ``decode_rows``; sum / count / avg /
     present_over_time sum windows with B4, the rest run the float64
     ``range_eval_masked`` family;
+  - a batch whose values float32 does not hold exactly is the host-decode
+    lane's ``SeriesBatch`` (the lane gate of
+    ``device_batch.build_device_batch``): float64 values decoded from the
+    codec chunks, evaluated as the reference's default lane evaluates them
+    (``range_eval`` in float64 on the device; the delta family over
+    ``delta_arrays``: rate, increase and irate reset-corrected, delta on
+    counters, idelta and deriv rebased only);
   - a histogram batch decodes through B1 (``assemble_hist``) and runs
     ``range_eval_masked`` per bucket. As the reference's exec engine
     computes them, ``timestamp(h)`` is in seconds from the batch start (the
@@ -64,6 +72,7 @@ from filodb_tpu_torch.query.engine.aggregations import (
     quantile_across,
     topk_mask,
 )
+from filodb_tpu_torch.query.engine.batch import SeriesBatch
 from filodb_tpu_torch.query.engine.cuda_kernels import (
     TS_PAD,
     fused_decode_rate,
@@ -84,8 +93,10 @@ from filodb_tpu_torch.query.engine.instantfns import (
 from filodb_tpu_torch.query.engine.kernels import (
     RANGE_FNS,
     RATE_FNS,
+    counts_valid,
     holt_winters_masked,
     quantile_over_time_masked,
+    range_eval,
     range_eval_masked,
 )
 from filodb_tpu_torch.query.model import (
@@ -107,6 +118,8 @@ SERVED_FNS = {**{f: 0 for f in RANGE_FNS}, "predict_linear": 1,
 # the function evaluated on them stay near this whatever the row length
 _DECODE_BYTES = 25 << 27
 _QUANTILE_BLOCK = 16  # steps a quantile_over_time sort takes at once
+# the host-decode lane evaluates these over ``SeriesBatch.delta_arrays``
+DELTA_FNS = ("rate", "increase", "delta", "irate", "idelta", "deriv")
 
 
 def decode_rows(S: int, fn: str = "count_over_time") -> int:
@@ -224,8 +237,10 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
                 f"{tuple(self.params) if self.params else ''} over {what} is "
                 f"not served (served: {', '.join(SERVED_FNS)})")
 
-    def eval_batch(self, batch: DeviceBatch, stats: QueryStats) -> StepMatrix:
-        """The stage over a batch of packed pages on the card."""
+    def eval_batch(self, batch: DeviceBatch | SeriesBatch,
+                   stats: QueryStats) -> StepMatrix:
+        """The stage over a batch of packed pages on the card, or over a
+        host-decode lane batch."""
         steps_ms = steps_array(self.start, self.step, self.end)
         if not batch.keys:
             return StepMatrix.empty(steps_ms)
@@ -238,10 +253,14 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
         eval_ms = steps_ms if self.at_ms is None \
             else np.array([self.at_ms], np.int64)
         host_steps = int32_steps(eval_ms - self.offset - batch.base)
-        flight = steps_in_flight(host_steps, self.span)
-        steps = host_steps.to(batch.packed[0].device)
-        res = self._eval_hist(batch, steps) if hist \
-            else self._eval(batch, steps, flight, stats)
+        if isinstance(batch, SeriesBatch):
+            stats.host_lane += 1
+            res = self._eval_host(batch, host_steps.to(batch.device))
+        else:
+            flight = steps_in_flight(host_steps, self.span)
+            steps = host_steps.to(batch.packed[0].device)
+            res = self._eval_hist(batch, steps) if hist \
+                else self._eval(batch, steps, flight, stats)
         if self.at_ms is not None:
             res = res.expand(res.shape[0], len(steps_ms), *res.shape[2:])
         return StepMatrix(batch.keys if self.function is None
@@ -277,6 +296,45 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
         out = torch.cat(outs)
         if fn == "timestamp":
             # seconds relative to the batch base → epoch seconds, in float64
+            out = out + batch.base / 1000.0
+        return out
+
+    def _eval_host(self, batch: SeriesBatch,
+                   steps: torch.Tensor) -> torch.Tensor:
+        """A host-decode lane batch, [n_series, K], in float64 on the
+        batch's device, in chunks of ``decode_rows`` series: the
+        reference's counts-form branch. The delta family reads
+        ``delta_arrays`` (reset-corrected for rate, increase and irate and
+        for delta on counters; rebased only for idelta and deriv), rate and
+        increase the raw values too; every other function the raw
+        values."""
+        fn, params, window = self.fn, tuple(self.params), self.span
+        pre = fn in DELTA_FNS
+        if pre:
+            corrected = fn in ("rate", "increase", "irate") \
+                or (fn == "delta" and batch.is_counter)
+            ts, vals, counts, raw = batch.delta_arrays(corrected)
+            if fn not in ("rate", "increase"):
+                raw = None  # only the extrapolation clamp reads it
+        else:
+            (ts, vals, counts), raw = batch.device_arrays(), None
+        n = len(batch.keys)
+        outs = []
+        rows = decode_rows(ts.shape[1], fn)
+        for a in range(0, n, rows):
+            part = slice(a, min(a + rows, n))
+            if fn in ("quantile_over_time", "holt_winters"):
+                outs.append(matrix_fn(fn, params, ts[part], vals[part],
+                                      counts_valid(ts[part], counts[part]),
+                                      steps, window))
+                continue
+            outs.append(range_eval(
+                fn, ts[part], vals[part], counts[part], steps, window,
+                extra=params[0] if params else 0.0,
+                counter=batch.is_counter, dtype=EXACT_DTYPE,
+                pre_corrected=pre, raw=None if raw is None else raw[part]))
+        out = torch.cat(outs)
+        if fn == "timestamp":
             out = out + batch.base / 1000.0
         return out
 

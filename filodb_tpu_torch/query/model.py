@@ -210,11 +210,16 @@ class QueryStats:
     wall_time_s: float = 0.0
     # leaves whose magnitudes failed the float32 gate and ran in float64
     precise_lane: int = 0
+    # batches whose values float32 does not hold, evaluated over float64
+    # values decoded from the codec chunks (the host-decode lane)
+    host_lane: int = 0
     engine: str = ""    # the engine that answered: "mesh" or "exec"
     fallback: str = ""  # why mesh handed the plan to exec (its message)
     # the sidecar lane's: chunks consulted, of them folded from summaries
     chunks_touched: int = 0
     sidecar_chunks: int = 0
+    # the sidecar lane's bypasses of this query: reason → leaves
+    sidecar_bypassed: dict = field(default_factory=dict)
 
 
 @dataclass

@@ -8,7 +8,9 @@ engine and its planner (``query/exec/plan.py``,
 ``coordinator/planner.py``) and the histogram columns it serves included,
 import and answer all the same; and so do the write path's modules (the
 host codec, chunks, containers, the column stores, the WAL, on-demand
-paging), through a flush, a restart and a paged query; and the node's
+paging), through a flush, a restart and a paged query, and the
+host-decode lane, through a query over load averages with two decimals;
+and the node's
 (configuration, cluster, gateway, HTTP fronts, index snapshots, metrics),
 through a ``FiloServer(device="cpu")`` fed by its gateway and queried
 over HTTP.
@@ -82,6 +84,10 @@ for q in ('absent(nope{job="x"})', 'count_values("v", http_requests_total % 3)',
 inst = vector_json(svc.query_instant("sum(rate(http_requests_total[5m])) "
                                      "by (_ns_)", 1_600_001_400))
 scal = scalar_json(svc.query_instant("time()", 1_600_001_400))
+store.ingest_series([{**lb, "_metric_": "load1"} for lb in labels], ts,
+                    np.round(rng.random((n, T)) * 64, 2), schema="gauge")
+host = svc.query_range("sum(idelta(load1[5m])) by (_ns_)", 1_600_000_600,
+                       60, 1_600_001_400)
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
 app0 = parse_query('lat{_ns_="App-0"}', TimeStepParams(0, 0, 0)).raw.filters
 meta = {"names": svc.label_names(), "jobs": svc.label_values("job"),
@@ -167,6 +173,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
                   "exec": exec_rows, "durable": durable, "node": node,
                   "memory": memory,
+                  "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
                   "loaded": loaded}))
@@ -202,6 +209,7 @@ def test_port_loads_no_jax_and_no_reference_module():
         "jobs": ["job-0", "job-1", "job-2"], "series": 6}
     assert res["exec"] == 2
     assert res["mean"] == ["exec", 2, 0.25]
+    assert res["host"] == [1, 2]  # one host-decode lane batch, mesh
     assert res["durable"] == {"keys": 12, "records": 12, "skipped": 0,
                               "rows": 2, "paged": 12}
     assert res["node"] == {"statuses": ["active", "active"], "rows": 30,

@@ -411,6 +411,43 @@ def test_sidecar_lane_on_card_equals_cpu(cuda, monkeypatch):
                                        equal_nan=True)
 
 
+def test_host_lane_on_card_equals_cpu(cuda):
+    """Values float32 does not hold (byte counters past 2^24, load
+    averages with two decimals) take the host-decode lane, on the card as
+    on the CPU, on both engines, and launch no B3."""
+    from filodb_tpu_torch import _build
+
+    rng = np.random.default_rng(3)
+    n, T = 300, 720
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    labels = [{"_metric_": "bytes", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store = MemStore(4, 1, 400)
+    store.ingest_series(labels, ts, (rng.integers(10**9, 10**12, (n, 1))
+                        + np.cumsum(rng.integers(0, 10**6, (n, T)), 1)
+                        ).astype(float))
+    store.ingest_series([{**lb, "_metric_": "load"} for lb in labels], ts,
+                        np.abs(np.cumsum(rng.integers(-50, 51, (n, T)), 1))
+                        / 100.0, schema="gauge")
+    for engine in ("mesh", "exec"):
+        gpu = QueryService(store, cuda, engine=engine)
+        cpu = QueryService(store, "cpu", engine=engine)
+        _build.reset_counts()
+        for q in ("sum(rate(bytes[5m])) by (_ns_)", "irate(bytes[5m])",
+                  "sum(idelta(load[5m])) by (job)", "deriv(load[10m])",
+                  "stddev_over_time(load[5m])", "changes(load[5m])"):
+            a = gpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+            b = cpu.query_range(q, 1_600_000_000, 60, 1_600_007_200)
+            assert a.stats.host_lane and b.stats.host_lane, q
+            assert [str(k) for k in a.result.keys] == \
+                [str(k) for k in b.result.keys]
+            np.testing.assert_allclose(a.result.values, b.result.values,
+                                       rtol=2e-5, atol=1e-6, equal_nan=True,
+                                       err_msg=f"{q} {engine}")
+        assert _build.LAUNCHES["fused_decode_rate"] == 0
+
+
 def _bucket_blocks(P, B, NB, seed):
     """Histogram batch arrays as ``pack_hist_blocks`` lays them out, with
     random words: bucket blocks [P, B, NB] cycling through every width
