@@ -154,13 +154,31 @@ checks it, phase by phase; any failed phase exits non-zero:
    ``HOST_INSTANT`` at the end must bypass the sidecar lane to it and
    equal the CPU's; B3 must not launch; the batches' device bytes. Phase 3
    checks the other side of the gate: its ``sum(rate)`` over integer
-   counters stays on B3.
+   counters stays on B3;
+15. (after phase 9) the serving front end, on a store of the phase-2
+   generator's first ``--serving-series`` series (``SERVING_SERIES``):
+   ``SERVING_BATCH`` range queries in flight through
+   ``QueryService.query_range_many`` (the four phase-3 shapes in turn,
+   member i's 2 h range slid by i mod 5 steps), cold and warm, against the
+   same queries one at a time through ``query_range``, cold and warm:
+   wall times and each kernel's launches in each run, every member equal
+   to its single answer (rate and increase bit for bit, the others within
+   rtol 2e-5, atol 1e-6); then ``SERVING_QUERY`` over the last 2 h
+   through a service with the reference's default ``result_cache`` block:
+   cold, ``SERVING_WARM`` warm repeats (extents hit and evaluated), two
+   scrapes of a sample a series, each followed by the refresh one step
+   later (only the head extent may be evaluated again) and the uncached
+   query; every answer bit for bit the uncached service's; the batches'
+   bytes on the card with the cache and without; B1-B4 must launch. Phase
+   12's node boots with both caches at their defaults: its warm HTTP p50
+   with the response cache on and off, its hits and misses, and the hot
+   batch sizes of the 8 clients' passes with it off.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
-and 14).
+and 14; ``--serving-only``: phases 1 and 15).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2522,9 +2540,10 @@ def node_phase(dev, args, durable: dict) -> dict:
 
 
 def _answer(svc, q: str):
-    """The answer the service holds for ``q`` over phase 11's range (its
-    batch is cached: the HTTP queries built it)."""
-    return svc.execute_logical(_parsed(q))[0].materialize()
+    """The engine's answer for ``q`` over phase 11's range, past the
+    extent cache (its whole-range batch is the one the plain checks
+    read)."""
+    return svc._execute_uncached(_parsed(q)).result
 
 
 def _parsed(q: str):
@@ -2555,6 +2574,21 @@ def _node_queries(srv, durable: dict, side: dict) -> dict:
         warm = [http_get(srv.http.port, f"/promql/{NODE_DS}/api/v1/"
                          "query_range", query=q, **params)[2]
                 for _ in range(NODE_WARM)]
+        # the same with the rendered-response cache off: the extent cache
+        # answers, the body is rendered again
+        cache, srv.http.response_cache = srv.http.response_cache, None
+        try:
+            no_rc = []
+            for _ in range(NODE_WARM):
+                code, body2, ms = http_get(
+                    srv.http.port, f"/promql/{NODE_DS}/api/v1/query_range",
+                    query=q, **params)
+                if code != 200 or body_data(body2) != durable["bodies"][q]:
+                    raise AssertionError(f"phase 12: {q} without the "
+                                         f"response cache differs")
+                no_rc.append(ms)
+        finally:
+            srv.http.response_cache = cache
         inproc, before = [], dict(_build.LAUNCHES)
         for _ in range(NODE_WARM):
             t = time.perf_counter()
@@ -2564,21 +2598,49 @@ def _node_queries(srv, durable: dict, side: dict) -> dict:
             side[k] += _build.LAUNCHES[k] - before[k]
         entry = {"query": q, "cold_ms": cold, "cold_split_ms": split,
                  "warm_p50_ms": float(np.median(warm)),
+                 "warm_p50_no_response_cache_ms": float(np.median(no_rc)),
                  "inprocess_p50_ms": float(np.median(inproc)),
                  "body_bytes": len(body)}
         res["http"].append(entry)
         log(f"  HTTP {q}: cold {cold:.1f} ms (store read {split['read']:.0f},"
             f" decode {split['decode']:.0f}, page encode "
             f"{split['encode']:.0f}), warm p50 "
-            f"{entry['warm_p50_ms']:.2f} ms against {entry['inprocess_p50_ms']:.2f}"
-            f" ms in process; body ({len(body)} bytes) byte-equal to phase "
-            f"11's live answer")
+            f"{entry['warm_p50_ms']:.2f} ms (response cache off: "
+            f"{entry['warm_p50_no_response_cache_ms']:.2f}) against "
+            f"{entry['inprocess_p50_ms']:.2f} ms in process (extent cache); "
+            f"body ({len(body)} bytes) byte-equal to phase 11's live answer")
+    rc = srv.http.response_cache
+    res["response_cache"] = {"hits": rc.hits, "misses": rc.misses}
+    log(f"  response cache: {rc.hits} hits, {rc.misses} misses")
     return res
 
 
 def _node_concurrency(srv, bodies: dict) -> dict:
-    """Step 3: client threads each sending both queries several times;
-    every body's data byte-equal to the live answer."""
+    """Step 3: client threads each sending both queries several times,
+    with the response cache on and then off (every query reaches the fast
+    front end's hot batches: the batch sizes a pass); every body's data
+    byte-equal to the live answer."""
+    out = {}
+    cache = srv.http.response_cache
+    for name in ("response cache on", "response cache off"):
+        srv.http.response_cache = cache if name.endswith("on") else None
+        srv.http.batch_sizes.clear()
+        h0, m0 = cache.hits, cache.misses
+        try:
+            out[name] = _node_clients(srv, bodies)
+        finally:
+            srv.http.response_cache = cache
+        out[name].update(batch_sizes=list(srv.http.batch_sizes),
+                         hits=cache.hits - h0, misses=cache.misses - m0)
+        log(f"  ({name}: hot batch sizes a pass "
+            f"{out[name]['batch_sizes']}; response cache "
+            f"{out[name]['hits']} hits, {out[name]['misses']} misses)")
+    return out
+
+
+def _node_clients(srv, bodies: dict) -> dict:
+    """``NODE_CONCURRENCY`` client threads, each sending both queries
+    several times."""
     from concurrent.futures import ThreadPoolExecutor
 
     threads, rounds = NODE_CONCURRENCY
@@ -3225,6 +3287,229 @@ def host_lane_phase(dev, args) -> dict:
     return out
 
 
+# phase 15: the serving front end, on a store of the phase-2 generator's
+# first SERVING_SERIES series. SERVING_BATCH range queries in flight, the
+# four phase-3 shapes in turn, member i's 2 h range slid by (i mod 5)
+# steps: many users of one dashboard refreshed at different moments (the
+# reference's QueryInMemoryBenchmark shape, 100 concurrent queries cycling
+# 4 plans); then a dashboard query through the extent cache at the
+# reference's default block, before and after a scrape. Cut from the
+# 1,000,000 series of phase 2: a batch of 1 M series takes about 9 GB on
+# the card (P padded to 2^20), the batch cache holds four, and the 100
+# queries one at a time, five data ranges in turn, rebuilt a batch for
+# nearly every query (the phase ran past 20 minutes); then from 250,000
+# to phase 11's count, to keep the smoke well inside its limit (PERF.md
+# §4)
+SERVING_SERIES = 150_000
+SERVING_BATCH = 100
+SERVING_SHIFTS = 5
+SERVING_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
+SERVING_WARM = 5
+SERVING_TOL = dict(rtol=2e-5, atol=1e-6)
+
+
+def _answers_agree(got, want, bitwise: bool) -> float:
+    """Two materialized answers of one engine over one store: keys in the
+    same order, NaN at the same places, values bit for bit or within
+    ``SERVING_TOL``; → the largest absolute difference."""
+    g, w = got.result, want.result
+    if g.keys != w.keys \
+            or g.values.shape != w.values.shape \
+            or not np.array_equal(np.isnan(g.values), np.isnan(w.values)):
+        raise AssertionError("phase 15: keys, shape or NaN positions differ")
+    fin = np.isfinite(w.values)
+    err = float(np.abs(g.values[fin] - w.values[fin]).max()) \
+        if fin.any() else 0.0
+    ok = np.array_equal(g.values, w.values, equal_nan=True) if bitwise \
+        else np.allclose(g.values, w.values, equal_nan=True, **SERVING_TOL)
+    if not ok:
+        raise AssertionError(f"phase 15: answers differ by {err}")
+    return err
+
+
+def serving_batch(svc) -> dict:
+    """Step 1: the in-flight batch through ``query_range_many``, cold then
+    warm, against the same queries one at a time through ``query_range``,
+    cold then warm; every member held against its single answer (B3's
+    shapes bit for bit, the others within ``SERVING_TOL``)."""
+    from filodb_tpu_torch import _build
+
+    qs = []
+    for i in range(SERVING_BATCH):
+        end = END_S - (SERVING_SHIFTS - 1 - i % SERVING_SHIFTS) * 60
+        qs.append((QUERIES[i % len(QUERIES)][0], end - 7200, 60, end))
+    runs, batch = {}, None
+    for name in ("cold", "warm"):
+        _build.reset_counts()
+        t = time.perf_counter()
+        batch = svc.query_range_many(qs)
+        runs[f"batch_{name}"] = {"ms": (time.perf_counter() - t) * 1000.0,
+                                 "launches": dict(_build.LAUNCHES)}
+        log(f"  {len(qs)} queries, batch {name}: "
+            f"{runs[f'batch_{name}']['ms']:.1f} ms")
+    engines = sorted({r.stats.engine for r in batch})
+    if engines != ["mesh"]:
+        raise AssertionError(f"phase 15: the batch ran on {engines}")
+    errs = {}
+    for name in ("cold", "warm"):
+        _build.reset_counts()
+        total, t_run = 0.0, time.perf_counter()
+        for q, got in zip(qs, batch):
+            t = time.perf_counter()
+            one = svc.query_range(*q)
+            ms = (time.perf_counter() - t) * 1000.0
+            total += ms
+            if ms > 5000.0:
+                log(f"    {name}: {q[0]} over [{q[1]}, {q[3]}]: {ms:.0f} ms")
+            if name == "warm":
+                fn = dict(QUERIES)[q[0]]
+                err = _answers_agree(got, one, fn in ("rate", "increase"))
+                errs[fn] = max(errs.get(fn, 0.0), err)
+            del one
+        runs[f"sequential_{name}"] = {"ms": total,
+                                      "launches": dict(_build.LAUNCHES)}
+        log(f"  {len(qs)} queries one at a time, {name}: {total:.1f} ms "
+            f"({time.perf_counter() - t_run:.1f} s with the checks)")
+    del batch
+    for name, r in runs.items():
+        log(f"  launches, {name.replace('_', ' ')}: {r['launches']}")
+    log(f"  every member equal to its single answer (rate and increase bit "
+        f"for bit; max abs err by function {errs})")
+    return {"queries": len(qs), "shifts": SERVING_SHIFTS, "runs": runs,
+            "max_abs_err": errs}
+
+
+def _scrape_one(store, rng) -> tuple[int, float]:
+    """One more sample a series, 10 s after its last, counters going on
+    (the series' shards ingest theirs); → (series, seconds)."""
+    keys, ts1, vals1 = last_samples(store)
+    vals2 = np.where(np.isnan(vals1), 0.0, vals1) \
+        + rng.integers(0, 20, len(vals1))
+    t = time.perf_counter()
+    shard_of = store.shard_of(keys)
+    for s, shard in enumerate(store.shards):
+        idx = np.flatnonzero(shard_of == s)
+        shard.ingest_series([keys[i] for i in idx.tolist()],
+                            (ts1[idx] + 10_000)[:, None], vals2[idx, None],
+                            np.ones(len(idx), np.int64))
+    return len(keys), time.perf_counter() - t
+
+
+def serving_extents(svc, args) -> dict:
+    """Step 2: ``SERVING_QUERY`` over the last 2 h through a service with
+    the reference's default ``result_cache`` block: cold, ``SERVING_WARM``
+    warm repeats; then two scrapes (a sample a series 10 s after its
+    last), each followed by the refresh one step later (only the head
+    extent may miss) and the uncached service's query over the same
+    range, the refresh first after the first scrape and the uncached
+    query first after the second (the first query after a scrape encodes
+    the write buffers' pages, which the second finds made). Each cached
+    answer is held against the uncached service's over the same data, bit
+    for bit (B3, and the same rows in every extent's batch)."""
+    import torch
+
+    from filodb_tpu_torch.config import DEFAULTS
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+
+    store = svc.memstore
+    rng = np.random.default_rng([args.seed, 15])
+    cached = QueryService(store, device=svc.device,
+                          result_cache=DEFAULTS["result_cache"])
+    rows = []
+
+    def timed(service, s, e):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = service.query_range(SERVING_QUERY, s, 60, e)
+        return r, (time.perf_counter() - t) * 1000.0
+
+    def row(what, r, ms, against):
+        rows.append({"run": what, "ms": ms, "hits": r.stats.cache_hits,
+                     "misses": r.stats.cache_misses,
+                     "max_abs_err": _answers_agree(r, against, True)})
+
+    start, end = END_S - 7200, END_S
+    want = svc.query_range(SERVING_QUERY, start, 60, end)
+    row("cold", *timed(cached, start, end), want)
+    cold_bytes = cached.batches.nbytes()
+    for i in range(SERVING_WARM):
+        row(f"warm {i + 1}", *timed(cached, start, end), want)
+    stamped = sum(stamp is not None
+                  for stamp, _ in cached.result_cache._lru.values())
+    if stamped != 1:
+        raise AssertionError(f"phase 15: {stamped} extents carry a version "
+                             f"stamp; only the head should")
+    scrapes, uncached = [], []
+    for k in (1, 2):
+        n, secs = _scrape_one(store, rng)
+        scrapes.append(secs)
+        s, e = start + 60 * k, end + 60 * k
+        if k == 1:
+            refresh, ms = timed(cached, s, e)
+            plain, plain_ms = timed(svc, s, e)
+        else:
+            plain, plain_ms = timed(svc, s, e)
+            refresh, ms = timed(cached, s, e)
+        row(f"refresh after scrape {k}", refresh, ms, plain)
+        uncached.append(plain_ms)
+        if refresh.stats.cache_misses != 1:
+            raise AssertionError(f"phase 15: the refresh after scrape {k} "
+                                 f"evaluated {refresh.stats.cache_misses} "
+                                 f"extents; only the head should miss")
+    low, _ = lowered(svc.mesh, SERVING_QUERY, start + 120, end + 120)
+    out = {"query": SERVING_QUERY, "extent_steps": cached.result_cache
+           .config.extent_steps, "runs": rows, "scrape_series": n,
+           "scrape_s": scrapes, "uncached_after_scrape_ms": uncached,
+           "cached_batch_bytes_cold": cold_bytes,
+           "cached_batch_bytes": cached.batches.nbytes(),
+           "uncached_batch_bytes": svc.mesh._batch(store, low).nbytes,
+           "result_cache_bytes": cached.result_cache.nbytes}
+    for r in rows:
+        log(f"  {SERVING_QUERY} {r['run']}: {r['ms']:.1f} ms, extents hit "
+            f"{r['hits']}, evaluated {r['misses']}, max abs err "
+            f"{r['max_abs_err']} against the uncached answer")
+    log(f"  scrapes of {n} series {scrapes} s; the uncached query after "
+        f"each {uncached} ms (second, then first after its scrape); "
+        f"batches on the card with the extent cache "
+        f"{cold_bytes / 1e9:.3f} GB after the cold query (its missing "
+        f"extents' one batch), {out['cached_batch_bytes'] / 1e9:.3f} GB "
+        f"after the last "
+        f"refresh, {out['uncached_batch_bytes'] / 1e9:.3f} GB for the "
+        f"uncached query's one batch; extents kept "
+        f"{out['result_cache_bytes']} bytes")
+    del cached
+    return out
+
+
+def serving_phase(dev, args) -> dict:
+    """Phase 15 (see the module's text) on a store of its own."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+
+    t = time.perf_counter()
+    store = main_store()
+    ingest(store, args.serving_series, args.samples, args.seed)
+    log(f"phase 15: the serving front end (query_range_many and the extent "
+        f"cache); ingest of the first {args.serving_series} series of the "
+        f"phase-2 generator {time.perf_counter() - t:.1f} s")
+    svc = QueryService(store, device=dev)
+    _build.reset_counts()
+    batch = serving_batch(svc)
+    launches = {k: sum(r["launches"][k] for r in batch["runs"].values())
+                for k in _build.LAUNCHES}
+    _build.reset_counts()
+    extents = serving_extents(svc, args)
+    for k, v in _build.LAUNCHES.items():
+        launches[k] += v
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing and svc.device.type == "cuda":
+        raise AssertionError(f"phase 15: kernels not launched: {missing}")
+    out = {"batch": batch, "extents": extents, "launches": launches,
+           "seconds": time.perf_counter() - t}
+    log(f"  launches in phase 15: {launches}; {out['seconds']:.1f} s")
+    return out
+
+
 def main_store():
     """The phase-2 store: 4 shards, spread 1, 400-sample chunks, and no
     limit on the series an exec leaf matches (``max_query_matches``, the
@@ -3339,6 +3624,10 @@ def main() -> int:
     ap.add_argument("--host-only", action="store_true",
                     help="build and run phase 14 only (the host-decode "
                     "lane)")
+    ap.add_argument("--serving-series", type=int, default=SERVING_SERIES)
+    ap.add_argument("--serving-only", action="store_true",
+                    help="build and run phase 15 only (query_range_many "
+                    "and the extent cache, on a store of its own)")
     args = ap.parse_args()
 
     import torch
@@ -3392,6 +3681,11 @@ def _phases(args, smi) -> int:
                                                        args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.serving_only:
+        print(json.dumps({"serving": serving_phase(torch.device("cuda"),
+                                                   args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
         durable, node = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
@@ -3414,6 +3708,9 @@ def _phases(args, smi) -> int:
     print(json.dumps({"plan_shapes": shapes}))
     del svc
     torch.cuda.empty_cache()
+    serving = serving_phase(torch.device("cuda"), args)
+    print(json.dumps({"serving": serving}))
+    torch.cuda.empty_cache()
     durable, node = durable_and_node(torch.device("cuda"), args)
     print(json.dumps({"durability": durable}))
     print(json.dumps({"node": node}))
@@ -3435,6 +3732,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase12"] = node["launches"][kern["name"]]
         kern["launches_phase13"] = evict["launches"][kern["name"]]
         kern["launches_phase14"] = host["launches"][kern["name"]]
+        kern["launches_phase15"] = serving["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -12,7 +12,10 @@ their ROADMAP item when set away from their default (``UNPORTED``). A few
 blocks are on by default in the reference and change speed or overload
 behaviour, not answers; at their defaults they are accepted and not acted
 on yet (``NOT_ACTED_ON``; the server logs them at boot, ROADMAP §C lists
-them), and set to anything else they raise too.
+them), and set to anything else they raise too. ``result_cache`` (the
+extent cache of every dataset's service) and ``http_response_cache`` (the
+fronts' rendered-response cache) are acted on, in any form the reference
+takes.
 """
 
 from __future__ import annotations
@@ -184,8 +187,8 @@ UNPORTED = {
 }
 # blocks on by default in the reference that change speed or overload
 # behaviour, not answers: accepted at their defaults, not acted on yet
-NOT_ACTED_ON = ("result_cache", "http_response_cache", "governor",
-                "resilience", "cost_model", "federation", "tracing")
+NOT_ACTED_ON = ("governor", "resilience", "cost_model", "federation",
+                "tracing")
 _NOT_ACTED = "is not acted on by the port yet (ROADMAP §C, §A.11)"
 
 
@@ -289,12 +292,6 @@ class ServerConfig:
                 raise NotImplementedError(
                     f"{opt}={_get(self, opt)!r}: {why}")
         for block in NOT_ACTED_ON:
-            if block == "http_response_cache":
-                if self.http_response_cache is not True:
-                    raise NotImplementedError(
-                        f"http_response_cache={self.http_response_cache!r}"
-                        f": the response cache {_NOT_ACTED}")
-                continue
             got = {**DEFAULTS[block], **getattr(self, block)}
             if got != DEFAULTS[block]:
                 raise NotImplementedError(

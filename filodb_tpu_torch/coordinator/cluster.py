@@ -362,12 +362,13 @@ class FilodbCluster:
             node.kill()
 
     def query_service(self, dataset: str, engine: str = "mesh",
-                      device=None) -> QueryService:
+                      device=None, result_cache=None) -> QueryService:
         """A query service over the dataset's store on the node (engine
-        ``"mesh"`` by default, as the standalone server boots it)."""
+        ``"mesh"`` by default, as the standalone server boots it; the
+        extent cache of ``result_cache``, off by default)."""
         node = next(iter(self.nodes.values()))
         return QueryService(node.memstores[dataset], device=device,
-                            engine=engine)
+                            engine=engine, result_cache=result_cache)
 
     def shard_statuses(self, dataset: str) -> list[dict]:
         sm = self.shard_managers.get(dataset)

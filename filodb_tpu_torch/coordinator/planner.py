@@ -12,10 +12,15 @@ Aggregations reduce at the root (``ReduceAggregateExec`` over the
 gathered series): the reference's ``agg_pushdown="off"``. Its two-phase
 pushdown pays only when a child leaves the process; every leaf here runs
 in-process, where the reference's default arm reduces at the root too.
-Pushdown comes with multi-process serving (ROADMAP §A.12). The reference's
-per-shard-key spread overrides come with the write path that ingests at
-them (ROADMAP §A.9): an override the store does not ingest at would prune
-shards that hold the key's series.
+Pushdown comes with multi-process serving (ROADMAP §A.12).
+
+Spread overrides, as the reference's: a per-query ``PlannerParams.spread``
+wins over the override of the selector's shard key
+(``spread_overrides``), which wins over the planner's ``spread``. Ingest
+writes every key at the store's spread whatever the overrides say, in both
+packages, so an override narrower than it prunes shards that hold the
+key's series (ROADMAP §C). Only the exec engine prunes: the mesh engine
+reads every shard.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from filodb_tpu_torch.query.exec.plan import (
     TimeScalarGeneratorExec,
     VectorFromScalarExec,
 )
+from filodb_tpu_torch.query.model import QueryContext
 
 # the labels of a shard key, as every schema of the store has them
 SHARD_KEY_LABELS = ("_ws_", "_ns_", "_metric_")
@@ -56,32 +62,51 @@ class SingleClusterPlanner:
     # ms above which a range query is split into sequential sub-plans and
     # stitched (0: never)
     time_split_ms: int = 0
+    # per-shard-key spreads: the shard key's values but the metric's
+    # (("demo", "App-1")) → the spread its selectors read at
+    spread_overrides: dict | None = None
 
     # ---- shard selection ----------------------------------------------------
 
-    def shards_for_filters(self, filters) -> list[int]:
+    def shards_for_filters(self, filters, spread: int | None = None
+                           ) -> list[int]:
         """The shards a selector reads: with equality filters on every
-        shard-key label, the 2^spread shards of its shard key, else all."""
+        shard-key label, the 2^spread shards of its shard key, else all.
+        The spread is ``spread`` (a query's own) where given, else the
+        override of the selector's shard key (its values but the metric's)
+        in ``spread_overrides``, else the planner's."""
         eq = {f.column: f.filter.value for f in filters
               if isinstance(f.filter, Equals)}
+        if spread is None and self.spread_overrides:
+            spread = self.spread_overrides.get(tuple(
+                eq.get(lbl) for lbl in SHARD_KEY_LABELS
+                if lbl != "_metric_"))
+        spread = self.spread if spread is None else spread
         if all(lbl in eq for lbl in SHARD_KEY_LABELS):
             skh = shard_key_hash({k: eq[k] for k in SHARD_KEY_LABELS})
-            return shards_for_shard_key(skh, self.num_shards, self.spread)
+            return shards_for_shard_key(skh, self.num_shards, spread)
         return list(range(self.num_shards))
 
     # ---- materialization ----------------------------------------------------
 
-    def materialize(self, plan: lp.LogicalPlan) -> ExecPlan:
+    def materialize(self, plan: lp.LogicalPlan,
+                    qcontext: QueryContext | None = None) -> ExecPlan:
+        """The exec plan tree of ``plan``; its leaves read the shards
+        ``qcontext``'s spread (if set) maps their selectors to."""
+        return self._walk(plan, qcontext or QueryContext())
+
+    def _walk(self, plan, q: QueryContext) -> ExecPlan:
         m = getattr(self, "_mat_" + type(plan).__name__, None)
         if m is None:
             raise ValueError(f"cannot materialize {type(plan).__name__}")
-        return m(plan)
+        return m(plan, q)
 
-    def _leaves(self, raw: lp.RawSeries, mapper) -> list[ExecPlan]:
+    def _leaves(self, raw: lp.RawSeries, mapper, q) -> list[ExecPlan]:
         chunk_start = raw.range_start - raw.lookback - raw.offset
         chunk_end = raw.range_end - raw.offset
         out = []
-        for shard in self.shards_for_filters(raw.filters):
+        for shard in self.shards_for_filters(raw.filters,
+                                             q.planner_params.spread):
             leaf = SelectRawPartitionsExec(
                 shard=shard, filters=raw.filters, chunk_start=chunk_start,
                 chunk_end=chunk_end, value_column=raw.column)
@@ -107,42 +132,44 @@ class SingleClusterPlanner:
             cur = sub_end + step
         return out
 
-    def _split(self, plan, mapper_for, lookback: int) -> ExecPlan:
+    def _split(self, plan, mapper_for, lookback: int, q) -> ExecPlan:
         parts = []
         for s, e in self._split_ranges(plan.start, plan.step, plan.end):
             raw = plan.raw if plan.at_ms is not None else lp.RawSeries(
                 plan.raw.filters, s, e, lookback, plan.raw.offset,
                 plan.raw.column)
-            parts.append(self._concat(self._leaves(raw, mapper_for(s, e))))
+            parts.append(self._concat(self._leaves(raw, mapper_for(s, e),
+                                                   q)))
         return parts[0] if len(parts) == 1 \
             else StitchRvsExec(children_plans=parts)
 
-    def _mat_PeriodicSeries(self, plan: lp.PeriodicSeries) -> ExecPlan:
+    def _mat_PeriodicSeries(self, plan: lp.PeriodicSeries, q) -> ExecPlan:
         return self._split(plan, lambda s, e: tf.PeriodicSamplesMapper(
             s, plan.step, e, offset=plan.offset, at_ms=plan.at_ms),
-            plan.raw.lookback)
+            plan.raw.lookback, q)
 
     def _mat_PeriodicSeriesWithWindowing(
-            self, plan: lp.PeriodicSeriesWithWindowing) -> ExecPlan:
+            self, plan: lp.PeriodicSeriesWithWindowing, q) -> ExecPlan:
         return self._split(plan, lambda s, e: tf.PeriodicSamplesMapper(
             s, plan.step, e, plan.window, plan.function, plan.params,
-            plan.offset, plan.at_ms), max(plan.raw.lookback, plan.window))
+            plan.offset, plan.at_ms), max(plan.raw.lookback, plan.window),
+            q)
 
-    def _mat_RawSeries(self, plan: lp.RawSeries) -> ExecPlan:
+    def _mat_RawSeries(self, plan: lp.RawSeries, q) -> ExecPlan:
         # a raw export: the last sample at the end of the range
         mapper = tf.PeriodicSamplesMapper(plan.range_start, 0, plan.range_end,
                                           offset=plan.offset)
-        return self._concat(self._leaves(plan, mapper))
+        return self._concat(self._leaves(plan, mapper, q))
 
     # -- aggregations and joins --
 
-    def _mat_Aggregate(self, plan: lp.Aggregate) -> ExecPlan:
-        return ReduceAggregateExec(children_plans=[self.materialize(
-            plan.vector)], op=plan.op, params=tuple(plan.params),
+    def _mat_Aggregate(self, plan: lp.Aggregate, q) -> ExecPlan:
+        return ReduceAggregateExec(children_plans=[self._walk(
+            plan.vector, q)], op=plan.op, params=tuple(plan.params),
             by=plan.by, without=plan.without)
 
-    def _mat_BinaryJoin(self, plan: lp.BinaryJoin) -> ExecPlan:
-        lhs, rhs = self.materialize(plan.lhs), self.materialize(plan.rhs)
+    def _mat_BinaryJoin(self, plan: lp.BinaryJoin, q) -> ExecPlan:
+        lhs, rhs = self._walk(plan.lhs, q), self._walk(plan.rhs, q)
         if plan.op in SET_OPS:
             return SetOperatorExec(lhs_plans=[lhs], rhs_plans=[rhs],
                                    op=plan.op, on=plan.on,
@@ -153,78 +180,78 @@ class SingleClusterPlanner:
                               bool_mode=plan.bool_mode)
 
     def _mat_ScalarVectorBinaryOperation(
-            self, plan: lp.ScalarVectorBinaryOperation) -> ExecPlan:
-        vec = self.materialize(plan.vector)
+            self, plan: lp.ScalarVectorBinaryOperation, q) -> ExecPlan:
+        vec = self._walk(plan.vector, q)
         return vec.add_transformer(_ScalarOpDeferred(
-            plan.op, self.materialize(plan.scalar), plan.scalar_is_lhs,
+            plan.op, self._walk(plan.scalar, q), plan.scalar_is_lhs,
             plan.bool_mode))
 
     # -- functions --
 
-    def _mapped(self, plan, mapper) -> ExecPlan:
-        return self.materialize(plan.vector).add_transformer(mapper)
+    def _mapped(self, plan, mapper, q) -> ExecPlan:
+        return self._walk(plan.vector, q).add_transformer(mapper)
 
-    def _mat_ApplyInstantFunction(self, plan) -> ExecPlan:
+    def _mat_ApplyInstantFunction(self, plan, q) -> ExecPlan:
         return self._mapped(plan, tf.InstantVectorFunctionMapper(
-            plan.function, tuple(plan.args)))
+            plan.function, tuple(plan.args)), q)
 
-    def _mat_ApplyMiscellaneousFunction(self, plan) -> ExecPlan:
+    def _mat_ApplyMiscellaneousFunction(self, plan, q) -> ExecPlan:
         return self._mapped(plan, tf.MiscellaneousFunctionMapper(
-            plan.function, tuple(plan.args)))
+            plan.function, tuple(plan.args)), q)
 
-    def _mat_ApplySortFunction(self, plan) -> ExecPlan:
-        return self._mapped(plan, tf.SortFunctionMapper(plan.descending))
+    def _mat_ApplySortFunction(self, plan, q) -> ExecPlan:
+        return self._mapped(plan, tf.SortFunctionMapper(plan.descending), q)
 
-    def _mat_ApplyAbsentFunction(self, plan) -> ExecPlan:
+    def _mat_ApplyAbsentFunction(self, plan, q) -> ExecPlan:
         return self._mapped(plan, tf.AbsentFunctionMapper(
-            plan.filters, plan.start, plan.step or 1000, plan.end))
+            plan.filters, plan.start, plan.step or 1000, plan.end), q)
 
-    def _mat_ApplyLimitFunction(self, plan) -> ExecPlan:
-        return self._mapped(plan, tf.LimitFunctionMapper(plan.limit))
+    def _mat_ApplyLimitFunction(self, plan, q) -> ExecPlan:
+        return self._mapped(plan, tf.LimitFunctionMapper(plan.limit), q)
 
     # -- subqueries --
 
-    def _mat_SubqueryWithWindowing(self, plan: lp.SubqueryWithWindowing
-                                   ) -> ExecPlan:
-        return self.materialize(lp.subquery_inner(plan)).add_transformer(
+    def _mat_SubqueryWithWindowing(self, plan: lp.SubqueryWithWindowing,
+                                   q) -> ExecPlan:
+        return self._walk(lp.subquery_inner(plan), q).add_transformer(
             tf.PeriodicSamplesMapper(
                 plan.start, plan.step, plan.end, plan.subquery_window,
                 plan.function, tuple(plan.params), plan.offset))
 
-    def _mat_TopLevelSubquery(self, plan: lp.TopLevelSubquery) -> ExecPlan:
-        return self.materialize(lp.retime(plan.inner, plan.start,
-                                          plan.step, plan.end))
+    def _mat_TopLevelSubquery(self, plan: lp.TopLevelSubquery, q) -> ExecPlan:
+        return self._walk(lp.retime(plan.inner, plan.start, plan.step,
+                                    plan.end), q)
 
     # -- scalars --
 
-    def _mat_ScalarFixedDoublePlan(self, plan) -> ExecPlan:
+    def _mat_ScalarFixedDoublePlan(self, plan, q) -> ExecPlan:
         return ScalarFixedDoubleExec(value=plan.value, start=plan.start,
                                      step=plan.step or 1000, end=plan.end)
 
-    def _mat_ScalarTimeBasedPlan(self, plan) -> ExecPlan:
+    def _mat_ScalarTimeBasedPlan(self, plan, q) -> ExecPlan:
         return TimeScalarGeneratorExec(function=plan.function,
                                        start=plan.start,
                                        step=plan.step or 1000, end=plan.end)
 
-    def _mat_ScalarVaryingDoublePlan(self, plan) -> ExecPlan:
+    def _mat_ScalarVaryingDoublePlan(self, plan, q) -> ExecPlan:
         times = lp.plan_times(plan.vector)
         start, step, end = (times[0], max(times[1], 1), times[2]) if times \
             else (0, 1000, 0)
-        return ScalarVaryingExec(inner=self.materialize(plan.vector),
+        return ScalarVaryingExec(inner=self._walk(plan.vector, q),
                                  start=start, step=step, end=end)
 
-    def _mat_ScalarBinaryOperation(self, plan) -> ExecPlan:
+    def _mat_ScalarBinaryOperation(self, plan, q) -> ExecPlan:
         def side(x):
             if isinstance(x, (int, float)):
                 return float(x)
-            return self.materialize(x)
+            return self._walk(x, q)
 
         return ScalarBinaryOperationExec(op=plan.op, lhs=side(plan.lhs),
                                          rhs=side(plan.rhs), start=plan.start,
                                          step=plan.step or 1000, end=plan.end)
 
-    def _mat_VectorPlan(self, plan) -> ExecPlan:
-        return VectorFromScalarExec(inner=self.materialize(plan.scalar))
+    def _mat_VectorPlan(self, plan, q) -> ExecPlan:
+        return VectorFromScalarExec(inner=self._walk(plan.scalar, q))
 
 
 class _ScalarOpDeferred(tf.RangeVectorTransformer):

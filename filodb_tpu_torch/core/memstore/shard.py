@@ -43,6 +43,13 @@ since its tokens, or on any failure falls back to the full part-key scan,
 as the reference does. ``floor`` is each partition's largest persisted
 timestamp (the snapshot's out-of-order floor).
 
+``version`` moves on every change to what a selection sees: each ingest
+call and each purge, as the reference's ``data_version`` moves, and each
+seal, page-in, eviction and recovery besides; the query caches stamp with
+it (a batch, a result extent past the horizon, a rendered response).
+``max_ingested_ts`` is the largest timestamp ingested on either lane (-1
+before any), the extent cache's horizon.
+
 The memory bound (the reference's ``shard.py:765-926``): ``enforce_memory``
 evicts flushed chunks, partitions of the oldest latest sample first, and
 past that whole cold partitions (``evict_cold_partitions``);
@@ -247,6 +254,7 @@ class Shard:
         # values exactly (``exact_in_f32``)
         self._sealed = ChunkTable("vmax", "exact")
         self.version = 0
+        self.max_ingested_ts = -1
         self._buffer_pages = None  # (version, buffer_pages() dict)
         self._buffer_meta_cache = None  # (version, buffer_meta() dict)
         # histogram partitions: a kind flag, the bucket count of each
@@ -429,10 +437,18 @@ class Shard:
         ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
         for sealed in self.buffers.append(pids, ts, vals, lens):
             self._add_chunks(*sealed)
+        self._ingested(pids, ts, lens)
+        return int(lens.sum())
+
+    def _ingested(self, pids, ts, lens) -> None:
+        """After an append: each partition's latest sample, the shard's
+        largest ingested timestamp and its version."""
         has = lens > 0
         self.latest[pids[has]] = ts[has, np.maximum(lens[has] - 1, 0)]
+        if has.any():
+            self.max_ingested_ts = max(self.max_ingested_ts,
+                                       int(self.latest[pids[has]].max()))
         self.version += 1
-        return int(lens.sum())
 
     def _scheme(self, les: np.ndarray) -> int:
         """Index of bucket scheme ``les`` in ``les_list``."""
@@ -479,9 +495,7 @@ class Shard:
                                                       B + _NCOL)
         for sealed in buf.append(pids, ts, slots, lens):
             self._add_hist_chunks(*sealed)
-        has = lens > 0
-        self.latest[pids[has]] = ts[has, np.maximum(lens[has] - 1, 0)]
-        self.version += 1
+        self._ingested(pids, ts, lens)
         return int(lens.sum())
 
     def ingest(self, data: SomeData) -> int:

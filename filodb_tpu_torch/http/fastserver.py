@@ -6,11 +6,14 @@ socket, parses pipelined HTTP/1.1 requests with the same framing rules
 (Content-Length only, duplicate lengths that differ and chunked bodies
 refused, a header block over 1 MiB answered 431, a body over 10 MiB 413),
 and answers in request order. Cold paths (metadata, admin, POST forms)
-run inline through the shared ``HttpDispatcher``. The reference evaluates
-the hot queries (``query`` and ``query_range``) of one readiness pass as
-one ``query_range_many`` engine batch; the port has no such batch yet
-(ROADMAP §A.11), so it answers them one at a time through the dataset's
-``QueryService`` (ROADMAP §C), rendering as the dispatcher does.
+run inline through the shared ``HttpDispatcher``. A hot query (``query``
+and ``query_range``) is looked up in the rendered-response cache as it
+arrives (``http/server.py::ResponseCache``) and answered at once on a
+hit; the misses of one readiness pass are evaluated as one
+``query_range_many`` batch a service (``_run_hot_batch``), each rendered
+as the dispatcher renders it, and stored. A query that fails gets its own
+error response from its own exception (``return_errors``); the others of
+its batch are answered, and nothing is run twice.
 """
 
 from __future__ import annotations
@@ -23,7 +26,13 @@ import threading
 from urllib.parse import parse_qs, urlparse
 
 from filodb_tpu_torch.http import promjson
-from filodb_tpu_torch.http.server import JSON_CT, HttpDispatcher
+from filodb_tpu_torch.http.server import (
+    JSON_CT,
+    HttpDispatcher,
+    ResponseCache,
+    response_cache_key,
+    service_version,
+)
 from filodb_tpu_torch.promql.parser import ParseError
 from filodb_tpu_torch.query.model import QueryLimitExceeded
 
@@ -75,7 +84,7 @@ class _Conn:
 
 
 class _HotReq:
-    __slots__ = ("conn", "slot", "svc", "kind", "params")
+    __slots__ = ("conn", "slot", "svc", "kind", "params", "ckey", "version")
 
     def __init__(self, conn, slot, svc, kind, params):
         self.conn = conn
@@ -83,6 +92,8 @@ class _HotReq:
         self.svc = svc
         self.kind = kind          # "range" | "instant"
         self.params = params      # (query, start, step, end)
+        self.ckey = None          # its response-cache key and the version
+        self.version = None       # it was looked up at (None: no cache)
 
 
 class FastHttpServer:
@@ -90,9 +101,13 @@ class FastHttpServer:
     surface)."""
 
     def __init__(self, services: dict, host="127.0.0.1", port=8080,
-                 cluster=None, reuse_port: bool = False):
+                 cluster=None, reuse_port: bool = False,
+                 response_cache: bool = True):
         self.services = services
         self.cluster = cluster
+        self.response_cache = ResponseCache() if response_cache else None
+        # the sizes of the hot batches run, in order (the last 1,024)
+        self.batch_sizes: list[int] = []
         self.dispatcher = HttpDispatcher(self)
         self._listen = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._listen.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -107,6 +122,11 @@ class FastHttpServer:
         self._wake_r.setblocking(False)
         self._running = False
         self._thread: threading.Thread | None = None
+
+    def batched(self, svc):
+        """The dispatcher's query paths run on the service itself: the
+        loop batches its hot queries a pass."""
+        return svc
 
     def start(self) -> "FastHttpServer":
         self._running = True
@@ -158,12 +178,7 @@ class FastHttpServer:
                             self._read(conn, hot)
                         if mask & selectors.EVENT_WRITE:
                             self._flush(conn)
-                for req in hot:
-                    code, headers, body = self._run_single(req)
-                    req.conn.fill(req.slot, _response_bytes(
-                        code, headers, body,
-                        req.conn.close_after and req.conn.is_last(req.slot)))
-                    self._flush(req.conn)
+                self._run_hot_batch(hot)
             except Exception:  # the loop outlives a handler's fault
                 log.exception("event loop pass failed")
                 for req in hot:
@@ -270,6 +285,17 @@ class FastHttpServer:
             path = target.decode("latin-1", "replace")
             req = self._classify_hot(conn, slot, method, path)
             if req is not None:
+                cache = self.response_cache
+                if cache is not None:
+                    req.ckey = response_cache_key(req.svc, req.kind,
+                                                  req.params)
+                    req.version = service_version(req.svc)
+                    hit = cache.get(req.ckey, req.version)
+                    if hit is not None:
+                        conn.fill(slot, _response_bytes(
+                            200, {"Content-Type": JSON_CT}, hit,
+                            conn.close_after and conn.is_last(slot)))
+                        continue
                 hot.append(req)
             else:
                 code, headers, resp = self.dispatcher.handle(
@@ -301,17 +327,40 @@ class FastHttpServer:
         except (KeyError, ValueError, IndexError):
             return None  # malformed: the dispatcher answers
 
+    def _run_hot_batch(self, hot: list[_HotReq]) -> None:
+        """The pass's hot queries, one ``query_range_many`` batch a
+        service; each answer rendered, stored in the response cache and
+        written to its slot."""
+        by_svc: dict[int, list[_HotReq]] = {}
+        for req in hot:
+            by_svc.setdefault(req.svc.serial, []).append(req)
+        for reqs in by_svc.values():
+            self.batch_sizes = self.batch_sizes[-1023:] + [len(reqs)]
+            results = reqs[0].svc.query_range_many(
+                [r.params for r in reqs], return_errors=True)
+            for req, result in zip(reqs, results):
+                code, headers, body = self._run_single(req, result)
+                if code == 200 and req.version is not None:
+                    self.response_cache.put(req.ckey, req.version, body)
+                req.conn.fill(req.slot, _response_bytes(
+                    code, headers, body,
+                    req.conn.close_after and req.conn.is_last(req.slot)))
+                self._flush(req.conn)
+
     @staticmethod
     def _render(req: _HotReq, result) -> bytes:
         if req.kind == "range":
             return promjson.matrix_json_str(result).encode()
         return promjson.vector_json_str(result).encode()
 
-    def _run_single(self, req: _HotReq) -> tuple[int, dict, bytes]:
+    def _run_single(self, req: _HotReq, result) -> tuple[int, dict, bytes]:
+        """The response to one hot query from its outcome, its answer or
+        the exception it raised."""
         ct = {"Content-Type": JSON_CT}
         try:
-            return (200, ct,
-                    self._render(req, req.svc.query_range(*req.params)))
+            if isinstance(result, Exception):
+                raise result
+            return 200, ct, self._render(req, result)
         except (ParseError, ValueError) as e:
             return 400, ct, json.dumps(promjson.error_json(str(e))).encode()
         except QueryLimitExceeded as e:

@@ -17,10 +17,19 @@ error or a bad parameter, 404 for an unknown dataset or route, 422 for a
 query limit, 500 (``internal``) for anything else. Routes whose modules
 are not ported answer 501: remote read, rules and alerts, ``status/*``
 and ``debug/*`` (ROADMAP §A.11), the cluster's shard commands and
-migration (ROADMAP §A.12). The reference's rendered-response cache and
-governor admission are not ported yet (ROADMAP §A.11); a query runs on
-its request's thread through its ``QueryService`` (one query at a time a
-service). ``?stats=all`` renders the four basic stats (ROADMAP §C).
+migration (ROADMAP §A.12). Governor admission is not ported yet (ROADMAP
+§A.11). ``?stats=all`` renders the four basic stats (ROADMAP §C).
+
+The hot routes (``query`` and ``query_range``) go through the rendered-
+response cache (``ResponseCache``, ``response_cache=True`` by default, as
+the reference's ``http_response_cache``): the rendered body is kept under
+the resolved query parameters and the service's construction serial, and
+served while the store's version (``service_version``: the sum of its
+shards' versions) has not moved. Any ingested row moves it, so under
+live ingest the extent cache below answers instead. A miss runs through
+``app.batched(svc)``: on this threaded front a ``QueryBatcher`` a service
+coalesces the queries of concurrent request threads into one
+``query_range_many`` batch.
 
 Two fronts share ``HttpDispatcher``: ``FiloHttpServer`` here (stdlib
 threaded server, ``http_impl: "threaded"``) and
@@ -35,9 +44,11 @@ import logging
 import socket
 import threading
 import time
+from collections import OrderedDict
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlparse
 
+from filodb_tpu_torch.coordinator.query_service import QueryBatcher
 from filodb_tpu_torch.http import promjson
 from filodb_tpu_torch.promql.parser import (
     ParseError,
@@ -63,6 +74,54 @@ _UNPORTED_PROM = {
     "debug": "query tracing (ROADMAP §A.11)",
     "read": "remote read (ROADMAP §A.11)",
 }
+
+
+class ResponseCache:
+    """Rendered bodies of hot queries, least recently used dropped past
+    ``cap``: a key's entry serves while its service's version is the one
+    it was stored at. Both fronts' request threads share it."""
+
+    def __init__(self, cap: int = 1024):
+        self.cap = cap
+        self.hits = 0
+        self.misses = 0
+        self._lru: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+
+    def get(self, key: tuple, version: int) -> bytes | None:
+        with self._lock:
+            entry = self._lru.get(key)
+            if entry is None or entry[0] != version:
+                self.misses += 1
+                return None
+            self._lru.move_to_end(key)
+            self.hits += 1
+            return entry[1]
+
+    def put(self, key: tuple, version: int, body: bytes) -> None:
+        with self._lock:
+            self._lru.pop(key, None)
+            while len(self._lru) >= self.cap:
+                self._lru.popitem(last=False)
+            self._lru[key] = (version, body)
+
+
+def service_version(svc) -> int:
+    """The response cache's stamp for ``svc``: the sum of its store's shard
+    versions (every ingest call moves it). The reference bypasses the
+    cache where the store lacks some of the dataset's shards; a port store
+    holds them all."""
+    return svc.memstore.version
+
+
+def response_cache_key(svc, kind: str, params: tuple) -> tuple:
+    """The response cache's key, alike on both fronts: the service's
+    construction ``serial`` (never ``id()``, which a later service may
+    reuse), the kind, and the resolved parameters, (query, start, step,
+    end) for a range, (query, time) for an instant query."""
+    if kind == "instant":
+        return (svc.serial, "instant", params[0], params[1])
+    return (svc.serial, "range", *params)
 
 
 def parse_time(s: str) -> float:
@@ -149,14 +208,29 @@ class HttpDispatcher:
             return qs["query"][0], int(parse_time(qs["time"][0]))
         return qs["query"][0], int(time.time())
 
+    def _cached_query(self, svc, kind: str, params: tuple):
+        """A hot query through the response cache; a miss runs through
+        ``app.batched(svc)`` and stores its rendered body."""
+        cache = self.app.response_cache
+        if cache is not None:
+            key = response_cache_key(svc, kind, params)
+            version = service_version(svc)
+            body = cache.get(key, version)
+            if body is not None:
+                return 200, {"Content-Type": JSON_CT}, body
+        r = self.app.batched(svc).query_range(*params)
+        out = self._json(200, promjson.matrix_json_str(r) if kind == "range"
+                         else promjson.vector_json_str(r))
+        if cache is not None:
+            cache.put(key, version, out[2])
+        return out
+
     def _prom_api(self, svc, rest: list[str], qs: dict):
         if rest == ["query_range"]:
-            r = svc.query_range(*self.range_params(qs))
-            return self._json(200, promjson.matrix_json_str(r))
+            return self._cached_query(svc, "range", self.range_params(qs))
         if rest == ["query"]:
             query, t = self.instant_params(qs)
-            r = svc.query_range(query, t, 0, t)
-            return self._json(200, promjson.vector_json_str(r))
+            return self._cached_query(svc, "instant", (query, t, 0, t))
         if rest == ["series"]:
             start = int(parse_time(qs.get("start", ["0"])[0]))
             end = int(parse_time(qs.get("end", ["9999999999"])[0]))
@@ -202,18 +276,32 @@ class HttpDispatcher:
 
 
 class FiloHttpServer:
-    """The threaded front end: one thread a connection, keep-alive."""
+    """The threaded front end: one thread a connection, keep-alive; the
+    hot queries of concurrent connections meet in one ``QueryBatcher`` a
+    service (``batched``)."""
 
     def __init__(self, services: dict, host: str = "127.0.0.1",
-                 port: int = 8080, cluster=None, reuse_port: bool = False):
+                 port: int = 8080, cluster=None, reuse_port: bool = False,
+                 response_cache: bool = True):
         self.services = services
         self.cluster = cluster
+        self.response_cache = ResponseCache() if response_cache else None
+        self._batchers: dict[int, QueryBatcher] = {}
+        self._batchers_lock = threading.Lock()
         self.dispatcher = HttpDispatcher(self)
         cls = _ReusePortHTTPServer if reuse_port else ThreadingHTTPServer
         self.httpd = cls((host, port), _make_handler(self))
         self.httpd.daemon_threads = True
         self.port = self.httpd.server_address[1]
         self._thread: threading.Thread | None = None
+
+    def batched(self, svc) -> QueryBatcher:
+        """The service's batcher, made on first use."""
+        with self._batchers_lock:
+            b = self._batchers.get(svc.serial)
+            if b is None:
+                b = self._batchers[svc.serial] = QueryBatcher(svc)
+            return b
 
     def start(self) -> "FiloHttpServer":
         self._thread = threading.Thread(target=self.httpd.serve_forever,
@@ -226,6 +314,8 @@ class FiloHttpServer:
         self.httpd.server_close()
         if self._thread is not None:
             self._thread.join(timeout=10)
+        for b in self._batchers.values():
+            b.close()
 
 
 class _ReusePortHTTPServer(ThreadingHTTPServer):

@@ -41,6 +41,16 @@ operators with a number are element-wise. ``histogram_quantile`` over
 ``le``-labelled scalar series (the classic Prometheus form) groups the
 bucket series on the host and interpolates on the card.
 
+``execute_many`` evaluates many plans at once, as the reference's does
+for ``QueryService.query_range_many``: leaves that differ only in their
+step grid (``Lowered.signature``) share one batch over the union of their
+data ranges, selected, packed and uploaded once, and each distinct grid
+is evaluated over it once. The reference joins its members' grids into
+one padded grid for one program; B3 and B4 take only non-decreasing
+steps, so here each grid is launched on its own over the shared batch. A
+histogram batch under an aggregation other than ``sum`` goes to exec
+there, as the reference's batch declines it.
+
 ``supports`` decides, before anything runs, whether the engine serves a
 plan, as the reference's ``supports`` does: from the plan, and from the
 shards' indexes for which selectors match histograms. For any other plan
@@ -54,7 +64,7 @@ over a histogram that the exec engine answers go there.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -127,6 +137,13 @@ class Lowered:
     params: tuple = ()
     keep_metric: bool = False  # the instant selector keeps the metric
     at_ms: int | None = None   # @: every step evaluates at this time
+
+    @property
+    def signature(self) -> tuple:
+        """What leaves that share a batch have in common: everything but
+        the step grid (the step stays: only grids of one step share)."""
+        return (str(self.filters), self.window, self.fn, self.offset,
+                self.params, self.keep_metric, self.at_ms, self.step)
 
     @property
     def chunk_range(self) -> tuple[int, int]:
@@ -215,6 +232,12 @@ class MeshQueryEngine:
         # for the store (id, version) in ``_kinds_of``
         self._kinds: dict = {}
         self._kinds_of = None
+        # while ``execute_many`` runs: leaf signature → (the group's shared
+        # batch, its evaluations by grid); None otherwise
+        self._shared: dict | None = None
+        # while ``execute_many`` checks its plans: the leaves ``_check``
+        # lowers are appended here
+        self._collect: list | None = None
 
     # ---- what the engine serves, decided before anything runs ---------------
 
@@ -269,10 +292,15 @@ class MeshQueryEngine:
         ``plan``; else whether its answer is a histogram matrix."""
         if isinstance(plan, lp.Aggregate):
             amr = self._aggregation(plan)
-            if amr.op in AGG_OPS:
-                return self._check(memstore, plan.vector)
-            return self._not_histogram(memstore, plan.vector,
-                                       f"aggregation {plan.op}")
+            if amr.op not in AGG_OPS:
+                return self._not_histogram(memstore, plan.vector,
+                                           f"aggregation {plan.op}")
+            hist = self._check(memstore, plan.vector)
+            if hist and amr.op != "sum" and self._collect is not None:
+                raise UnsupportedQuery(
+                    f"a histogram batch under {amr.op} goes to the exec "
+                    f"engine, as the reference's batch declines it")
+            return hist
         if isinstance(plan, lp.ApplyInstantFunction):
             if plan.function not in INSTANT_FNS + HIST_INSTANT_FNS \
                     or not all(_is_number(a) for a in plan.args):
@@ -330,20 +358,27 @@ class MeshQueryEngine:
             raise UnsupportedQuery(
                 f"range function {low.fn} over a histogram is not served by "
                 f"the mesh engine (served: {', '.join(HIST_FNS)})")
+        if self._collect is not None:
+            self._collect.append(low)
         return hist
 
     # ---- leaves ---------------------------------------------------------------
 
     def _batch(self, memstore, low: Lowered) -> DeviceBatch:
-        """The leaf's batch over every shard, cached per (selector, data
-        range) until the store ingests again."""
-        lo_ms, hi_ms = low.chunk_range
-        key = ("mesh", str(low.filters), lo_ms, hi_ms)
+        """The leaf's batch over every shard (``_batch_over``)."""
+        return self._batch_over(memstore, low.filters, *low.chunk_range)
+
+    def _batch_over(self, memstore, filters, lo_ms: int, hi_ms: int
+                    ) -> DeviceBatch:
+        """The batch of a selector over every shard and the data range
+        [lo_ms, hi_ms], cached per (selector, data range) until the store
+        ingests again."""
+        key = ("mesh", str(filters), lo_ms, hi_ms)
         batch = self.batches.get(key, memstore)
         if batch is None:
             # each shard's version before its lookup
             versions = [shard.version for shard in memstore.shards]
-            selected = [(shard, shard.lookup_partitions(list(low.filters),
+            selected = [(shard, shard.lookup_partitions(list(filters),
                                                         lo_ms, hi_ms))
                         for shard in memstore.shards]
             batch = build_device_batch(selected, lo_ms, hi_ms, self.device,
@@ -357,11 +392,72 @@ class MeshQueryEngine:
         return self.batches.nbytes("mesh")
 
     def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
-        """A leaf at its steps through its windowing stage."""
-        batch = self._batch(memstore, low)
+        """A leaf at its steps through its windowing stage; in
+        ``execute_many``, over its group's shared batch, once a grid."""
+        shared = self._shared.get(low.signature) if self._shared else None
+        batch = self._batch(memstore, low) if shared is None else shared[0]
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
-        return low.mapper.eval_batch(batch, stats)
+        if shared is None:
+            return low.mapper.eval_batch(batch, stats)
+        evals = shared[1]
+        m = evals.get((low.start, low.end))
+        if m is None:
+            m = evals[(low.start, low.end)] = low.mapper.eval_batch(batch,
+                                                                    stats)
+        # a matrix of the member's own: what is above it settles in place
+        return replace(m)
+
+    def execute_many(self, memstore, plans: list,
+                     stats_list: list[QueryStats]) -> list:
+        """Evaluate many plans with one batch a leaf signature: the leaves
+        of every served plan are grouped by ``Lowered.signature`` (all but
+        the step grid), each group's batch is selected, packed and
+        uploaded once over the union of its members' data ranges, and each
+        member's grid is evaluated over it, once for grids that are equal
+        (the kernels take each grid as it is; grids are never joined).
+        Returns, a plan, its matrix (values still on the card), None where
+        the engine does not serve it (the caller runs it on exec, as for
+        an ``UnsupportedQuery`` it raised while it ran), or the exception
+        it raised."""
+        out: list = [None] * len(plans)
+        leaves: dict = {}  # served plan → its lowered leaves
+        for i, plan in enumerate(plans):
+            self._collect = []
+            try:
+                self._check(memstore, plan)
+                leaves[i] = self._collect
+            except UnsupportedQuery:
+                pass
+            finally:
+                self._collect = None
+        groups: dict = {}
+        for lows in leaves.values():
+            for low in lows:
+                groups.setdefault(low.signature, []).append(low)
+        self._shared, failed = {}, {}
+        try:
+            for sig, lows in groups.items():
+                try:
+                    self._shared[sig] = (self._batch_over(
+                        memstore, lows[0].filters,
+                        min(lo.chunk_range[0] for lo in lows),
+                        max(lo.chunk_range[1] for lo in lows)), {})
+                except Exception as e:  # noqa: BLE001 - at each member
+                    failed[sig] = e
+            for i, lows in leaves.items():
+                err = next((failed[low.signature] for low in lows
+                            if low.signature in failed), None)
+                try:
+                    out[i] = err if err is not None \
+                        else self._eval(memstore, plans[i], stats_list[i])
+                except UnsupportedQuery:
+                    out[i] = None
+                except Exception as e:  # noqa: BLE001 - at its position
+                    out[i] = e
+        finally:
+            self._shared = None
+        return out
 
     # ---- the plan above the leaves ------------------------------------------
 

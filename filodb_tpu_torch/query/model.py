@@ -1,7 +1,8 @@
 """Query result model.
 
 Port of ``filodb_tpu/query/model.py`` (``RangeVectorKey``, ``StepMatrix``,
-``QueryStats``, ``QueryResult``): a batch of series keys plus a dense
+``QueryStats``, ``QueryResult``, ``PlannerParams``, ``QueryContext``): a
+batch of series keys plus a dense
 [P, K] value matrix over shared step timestamps, NaN marking "no sample";
 a histogram matrix holds [P, K, B] values under bucket bounds ``les`` [B].
 The engine hands values over as a torch tensor on its device;
@@ -13,6 +14,7 @@ to host numpy (float64).
 from __future__ import annotations
 
 import math
+import uuid
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -220,9 +222,60 @@ class QueryStats:
     sidecar_chunks: int = 0
     # the sidecar lane's bypasses of this query: reason → leaves
     sidecar_bypassed: dict = field(default_factory=dict)
+    # the extent result cache's: extents served from it, and evaluated
+    cache_hits: int = 0
+    cache_misses: int = 0
+
+    def merge_counts(self, other: "QueryStats") -> None:
+        """Fold a sub-query's counts into these (the extent cache folds
+        each evaluated extent's); ``wall_time_s`` and ``result_series``
+        stay the caller's."""
+        for name in ("series_scanned", "samples_scanned", "precise_lane",
+                     "host_lane", "chunks_touched", "sidecar_chunks",
+                     "cache_hits", "cache_misses"):
+            setattr(self, name, getattr(self, name) + getattr(other, name))
+        for reason, n in other.sidecar_bypassed.items():
+            self.sidecar_bypassed[reason] = \
+                self.sidecar_bypassed.get(reason, 0) + n
 
 
 @dataclass
 class QueryResult:
     result: StepMatrix
     stats: QueryStats = field(default_factory=QueryStats)
+    query_id: str = ""
+
+
+@dataclass
+class PlannerParams:
+    """The reference's ``PlannerParams``, the fields the port reads."""
+
+    # per-query spread: over the planner's per-shard-key overrides and
+    # its default (None: not set)
+    spread: "int | None" = None
+    # result samples (series × steps) above which a query raises
+    # ``QueryLimitExceeded``; None: no limit (the reference's default of
+    # 1,000,000 is not applied by the port, ROADMAP §C)
+    sample_limit: "int | None" = None
+    # shard overrides: neither package's planner reads them; the extent
+    # cache bypasses a query that sets them, as the reference's does
+    shard_overrides: "list[int] | None" = None
+
+
+@dataclass
+class QueryContext:
+    """The reference's ``QueryContext``, the fields the port reads."""
+
+    query_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
+    origin: str = ""  # who asked: "" (a user), "rules", ...
+    planner_params: PlannerParams = field(default_factory=PlannerParams)
+
+
+def enforce_limits(data: StepMatrix, qcontext: QueryContext) -> None:
+    """Raise ``QueryLimitExceeded`` where ``data`` (materialized) holds
+    more samples than the query's ``sample_limit``."""
+    limit = qcontext.planner_params.sample_limit
+    if limit is not None and data.num_series * data.num_steps > limit:
+        raise QueryLimitExceeded(
+            f"result samples {data.num_series * data.num_steps} > limit "
+            f"{limit}")

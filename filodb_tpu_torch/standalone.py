@@ -6,9 +6,11 @@ local-disk column and meta stores at ``<data_dir>/columnstore``, a
 shard-<n>`` (the reference's layout, so either package's server serves a
 directory the other wrote), the cluster with this node (each shard
 recovered, then replayed and tailed by its ingest worker; the flush
-scheduler), a ``QueryService`` a dataset on the card, the HTTP API
-(``http_impl``: ``fast``, the default, or ``threaded``) and, with a
-``gateway_port``, the Influx gateway into the first dataset's logs.
+scheduler), a ``QueryService`` a dataset on the card with the extent
+cache of ``result_cache``, the HTTP API (``http_impl``: ``fast``, the
+default, or ``threaded``) with the rendered-response cache unless
+``http_response_cache`` is false and, with a ``gateway_port``, the Influx
+gateway into the first dataset's logs.
 
 It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
 version on the CPU, as the tests do. Without a card it raises; nothing
@@ -81,12 +83,13 @@ class FiloServer:
             self.cluster.setup_dataset(ing, logs, cfg.spreads.get(name, 1))
             self.services[name] = self.cluster.query_service(
                 name, engine=cfg.engines.get(name, "mesh"),
-                device=self.device)
+                device=self.device, result_cache=cfg.result_cache)
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
         self.http = http_cls(self.services, port=cfg.http_port,
                              cluster=self.cluster,
-                             reuse_port=cfg.http_reuse_port).start()
+                             reuse_port=cfg.http_reuse_port,
+                             response_cache=cfg.http_response_cache).start()
         if cfg.gateway_port:
             first = next(iter(cfg.datasets.values()))
             sink = ContainerSink(

@@ -657,3 +657,44 @@ def test_server_on_card_answers_as_its_query_service(cuda, tmp_path):
         assert all(v > 0 for v in _build.LAUNCHES.values()), _build.LAUNCHES
     finally:
         srv.shutdown()
+
+
+def test_execute_many_shares_a_batch_and_launches_once_a_grid(cuda):
+    """``execute_many`` over one shared batch a leaf signature equals each
+    plan's own ``execute`` (rate bit for bit; sum_over_time within rtol
+    2e-5), and B3 and B4 launch as often as one evaluation of a distinct
+    grid launches them: members of equal grids share one evaluation."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.model import QueryStats
+
+    store = _counter_store(MemStore(4, 1, 400))
+    svc = QueryService(store, cuda)
+    t0 = 1_600_000_000
+    grids = [(t0 + 600 + 60 * s, 60, t0 + 6600 + 60 * s) for s in range(3)]
+    qs = [("sum(rate(m[5m])) by (_ns_)", g) for g in grids + grids] \
+        + [("sum_over_time(m[2m])", g) for g in grids[:2] * 2]
+    plans = [parse_query(q, TimeStepParams(*g)) for q, g in qs]
+    one = {}
+    for i in (0, 6):  # one evaluation of each shape, on its own
+        _build.reset_counts()
+        QueryService(store, cuda).mesh.execute(store, plans[i],
+                                               QueryStats())
+        one[qs[i][0]] = dict(_build.LAUNCHES)
+    _build.reset_counts()
+    got = svc.mesh.execute_many(store, plans, [QueryStats() for _ in plans])
+    launches = dict(_build.LAUNCHES)
+    rate, over = one[qs[0][0]], one[qs[6][0]]
+    assert rate["fused_decode_rate"] == 1 and over["windowed_sum"] > 0
+    assert launches["fused_decode_rate"] == 3 * rate["fused_decode_rate"]
+    assert launches["windowed_sum"] == 2 * over["windowed_sum"]
+    assert len(svc.batches.batches("mesh")) == 2
+    for (q, _), plan, m in zip(qs, plans, got):
+        want = svc.mesh.execute(store, plan, QueryStats()).materialize()
+        m.materialize()
+        assert [str(k) for k in m.keys] == [str(k) for k in want.keys]
+        if "rate" in q:
+            assert np.array_equal(m.values, want.values, equal_nan=True)
+        else:
+            np.testing.assert_allclose(m.values, want.values, rtol=2e-5,
+                                       atol=1e-6, equal_nan=True)

@@ -126,8 +126,6 @@ UNSUPPORTED = [
     {"governor": {"max_group_cardinality": 100}},
     {"governor": {"tenants": {"demo": {"max_series": 10}}}},
     {"governor": {"admission_capacity": 4}},
-    {"result_cache": {"enabled": False}},
-    {"http_response_cache": False},
     {"resilience": {"query_timeout_s": 5.0}},
     {"cost_model": {"min_samples": 2}},
     {"federation": {"mem_retention_ms": 60000}},
@@ -145,6 +143,41 @@ def test_unsupported_options_raise(override, tmp_path):
         cfg.check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FiloServer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", [{"result_cache": {"enabled": False}},
+                                      {"http_response_cache": False}],
+                         ids=lambda o: json.dumps(o)[:60])
+def test_cache_switches_are_acted_on(override, tmp_path):
+    """The two serving caches are on at their defaults, as the reference's
+    node has them, and each block turns its own off: the extent cache of
+    every dataset's service, the response cache of the front."""
+    path = tmp_path / "server.json"
+    path.write_text(json.dumps({**SMALL, **override,
+                                "data_dir": str(tmp_path / "d"),
+                                "http_port": 0}))
+    cfg = port_config.ServerConfig.load(str(path))
+    cfg.check_supported()
+    ref = ref_config.ServerConfig.load(str(path))
+    assert (cfg.result_cache, cfg.http_response_cache) == \
+        (ref.result_cache, ref.http_response_cache)
+    srv = FiloServer(cfg, device="cpu").start()
+    try:
+        result_cache = "result_cache" not in override
+        assert (srv.services[DS].result_cache is not None) == result_cache
+        assert (srv.http.response_cache is not None) == \
+            ("http_response_cache" not in override)
+    finally:
+        srv.shutdown()
+    default = port_config.ServerConfig.load(None)
+    default.data_dir, default.http_port = str(tmp_path / "d0"), 0
+    srv = FiloServer(default, device="cpu").start()
+    try:
+        rc = srv.services[DS].result_cache
+        assert rc is not None and rc.config.extent_steps == 32
+        assert srv.http.response_cache is not None
+    finally:
+        srv.shutdown()
 
 
 def _store_with(field: str, value, tmp_path):
