@@ -12,7 +12,15 @@ checks it, phase by phase; any failed phase exits non-zero:
    spread 1, 400-sample chunks (``conf/server.json``);
 3. the main path: launch counts set to 0, then ``QueryService.query_range``
    over the whole 2 h at a 60 s step for four queries (cold once, then warm
-   repeats), counts read back; every kernel must have launched;
+   repeats), counts read back; every kernel must have launched (in the
+   cold runs: a warm query answers from the mesh engine's window cache and
+   launches no B3 or B4); then one warm round's launches, the four warm
+   p50s again with ``FILODB_MESH_SPLIT=0`` (the window cache off, the path
+   of the runs before it) with their launches, bit for bit the cached answers, and
+   the cache's entries and device bytes (a ``{"main_path": ...}`` line).
+   The smoke's queries carry a ``QueryContext`` that raises the default
+   result-sample limit of 1,000,000 (``wide``: phase 3's ``increase``
+   answers 121 M samples) and a deadline of ``SMOKE_TIMEOUT_S``;
 4. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, with its time, its plain version's time,
    its bound and (for B4) a PyTorch yardstick; and the time of each part
@@ -124,7 +132,10 @@ checks it, phase by phase; any failed phase exits non-zero:
    scan), whose first query (App-0's instant sum at the scrape time)
    answers byte-equal to the live node's; B1-B4
    must have launched behind the HTTP API; the directory is removed and
-   its bytes reported;
+   its bytes reported; and the control plane through HTTP: a request the
+   governor sheds (capacity 1, a slot held) answers 503 with
+   ``Retry-After``, one past a 1 ms deadline 503 ``timeout``, and
+   ``debug/slow_queries`` and ``debug/costmodel`` answer;
 13. (after phase 12) the shard's memory bound: a local-disk store of the
    phase-2 generator's first ``--evict-series`` series
    (``EVICT_SERIES``), a budget of ``EVICT_MEM_MB`` a shard and a
@@ -172,13 +183,34 @@ checks it, phase by phase; any failed phase exits non-zero:
    bytes on the card with the cache and without; B1-B4 must launch. Phase
    12's node boots with both caches at their defaults: its warm HTTP p50
    with the response cache on and off, its hits and misses, and the hot
-   batch sizes of the 8 clients' passes with it off.
+   batch sizes of the 8 clients' passes with it off;
+16. (after phase 15, on its store) the query control plane: the window
+   cache under ingest (a scrape, then a miss on the new version, bit for
+   bit a service with ``FILODB_MESH_SPLIT=0``); the governor
+   (``CONTROL_THREADS`` threads of ``sum(rate) by (_ns_)`` against an
+   admission capacity of 2, a queue of 2 and a wait of 0.5 s, the valve
+   off: admitted, queued and shed counts and the admitted p50; a watchdog
+   source forced to CRITICAL: the range query shed, the instant admitted,
+   gateway records shed, then back to OK; a 1 ms ``query_timeout_s``
+   raising ``DeadlineExceeded``; the samples budget on exec, partial with
+   its warning and raising under ``"error"``; the default sample limit
+   raising on a per-series ``increase``); the cost model's ``sidecar``
+   site over ``SIDECAR_INSTANT`` at ``CONTROL_INSTANT_AT``, each repeated
+   ``CONTROL_REPEATS`` times at the static arm, with the fold forced and
+   then at the model's pick (decisions by source, the arm of every
+   repeat, warm p50s), persisted and installed again through a local meta
+   store with equal estimates; the adaptive engine (``query_range_many``
+   batches of 1, 4 and 16 over App-0, ``ADAPTIVE_ROUNDS`` rounds: routed
+   and shadowed counts by lane, the lanes' estimates, every answer equal
+   to mesh's, the host lane's within rtol 2e-5, atol 1e-6); and one query
+   traced at ``sample_rate`` 1, its span tree from the slow-query ring
+   (threshold 1 ms).
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
-and 14; ``--serving-only``: phases 1 and 15).
+and 14; ``--serving-only``: phases 1, 15 and 16).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -823,7 +855,6 @@ def long_range(dev, args, reps: int) -> dict:
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.query.exec.transformers import decode_rows
     from filodb_tpu_torch.query.engine import cuda_kernels as ck
@@ -835,7 +866,7 @@ def long_range(dev, args, reps: int) -> dict:
     log(f"phase 6: long ranges: {args.long_series} series x "
         f"{args.long_samples} samples ({kept} samples), ingest "
         f"{time.perf_counter() - t:.1f} s on the host")
-    svc = QueryService(store, device=dev)
+    svc = smoke_service(store, device=dev)
     start = T0_MS // 1000
     end = start + args.long_samples * 10
     _build.reset_counts()
@@ -919,12 +950,11 @@ def long_range(dev, args, reps: int) -> dict:
 
 def small_store_check(seed: int, dev) -> None:
     """The same small store answers the same on the card and on the CPU."""
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
 
     store = MemStore(4, 1, 400)
     ingest(store, 256, 720, seed + 1, stale_every=2)
-    gpu, cpu = QueryService(store, dev), QueryService(store, device="cpu")
+    gpu, cpu = smoke_service(store, dev), smoke_service(store, device="cpu")
     queries = [q for q, _ in QUERIES] + list(FAMILY_QUERIES) \
         + list(PLAN_SHAPES)
     for q in queries:
@@ -1756,7 +1786,6 @@ def histogram_phase(dev, args, reps: int) -> dict:
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.http.promjson import matrix_json
 
@@ -1792,8 +1821,8 @@ def histogram_phase(dev, args, reps: int) -> dict:
     log(f"  flat form: {len(lbs)} prom-counter series {H}_bucket{{le=...}} "
         f"of App-0..App-9, ingest {flat_s:.1f} s on the host")
 
-    svc = QueryService(store, device=dev)
-    flat_svc = QueryService(flat_store, device=dev)
+    svc = smoke_service(store, device=dev)
+    flat_svc = smoke_service(flat_store, device=dev)
     start, end = T0_MS // 1000, T0_MS // 1000 + 7200
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1887,13 +1916,12 @@ def exec_phase(svc, args) -> dict:
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
     from filodb_tpu_torch.query.exec.plan import leaves
 
     t_phase = time.perf_counter()
     start, end = T0_MS // 1000, END_S
-    ex = QueryService(svc.memstore, device=svc.device, engine="exec")
+    ex = smoke_service(svc.memstore, device=svc.device, engine="exec")
     log("phase 10: the exec engine (QueryService(engine=\"exec\"), a leaf "
         "a shard) on the phase-2 store, against the mesh engine:")
     torch.cuda.synchronize()
@@ -2003,8 +2031,10 @@ DURABLE_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
 # index, replay, two cold page-ins; 295-371 s at 400,000 series), so the
 # full million would add 12-15 minutes to the smoke; cut to 150,000 to
 # keep the smoke with phase 13 well inside its limit on the card's slower
-# hosts (PERF.md §4)
-DURABLE_SERIES = 150_000
+# hosts, then to 100,000 when phase 16 came: at 150,000 the whole smoke
+# took 1,203 s of its 1,200 s on a host 18 % slower in phase 2's ingest
+# than the run before (PERF.md §4)
+DURABLE_SERIES = 100_000
 DURABLE_HIST = f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))"
 DURABLE_HIST_SERIES = 10_000  # App-0..App-9, 1,000 histograms each
 DURABLE_END_S = END_S + 60    # 2 h plus the new scrape, at 60 s
@@ -2110,7 +2140,6 @@ def restart_and_check(root, dataset, wal_root, queries, live, dev,
     live store's answers ``live``."""
     import torch
 
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.kafka.log import SegmentedFileLog
 
     store = durable_store(root, dataset)
@@ -2135,7 +2164,7 @@ def restart_and_check(root, dataset, wal_root, queries, live, dev,
            "queries": []}
     start, end = T0_MS // 1000, DURABLE_END_S
     for engine in engines:
-        svc = QueryService(store, device=dev, engine=engine)
+        svc = smoke_service(store, device=dev, engine=engine)
         for q in queries:
             before = _paging_seconds(store)
             paged0 = sum(sh.odp_cache.chunks_paged for sh in store.shards)
@@ -2180,12 +2209,11 @@ def live_answers(store, queries, dev, engines=("mesh", "exec")) -> dict:
     """Each query's answer on each engine, sorted by key; and under
     ("body", q) the data of the mesh engine's Prometheus body
     (``body_data``)."""
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.http.promjson import matrix_json_str
 
     out = {}
     for engine in engines:
-        svc = QueryService(store, device=dev, engine=engine)
+        svc = smoke_service(store, device=dev, engine=engine)
         for q in queries:
             res = svc.query_range(q, T0_MS // 1000, 60, DURABLE_END_S)
             if engine == "mesh":
@@ -2243,7 +2271,6 @@ def durability_phase(dev, args) -> dict:
     import torch
 
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
 
     t_phase = time.perf_counter()
     root = args.durable_dir
@@ -2256,7 +2283,7 @@ def durability_phase(dev, args) -> dict:
            "ingest_s": time.perf_counter() - t}
     log(f"  ingest: {n_series} series of the phase-2 generator, "
         f"{out['ingest_s']:.1f} s on the host")
-    svc = QueryService(store, device=dev)
+    svc = smoke_service(store, device=dev)
     keys, ts, vals = last_samples(store)
     wal = Path(root) / "wal" / "timeseries"
     t = time.perf_counter()
@@ -2503,6 +2530,7 @@ def node_phase(dev, args, durable: dict) -> dict:
         out["concurrency"] = _node_concurrency(srv, durable["bodies"])
         out["gateway"] = _node_gateway(srv, durable["scrape"], args)
         out["scheduler"] = _node_scheduler(srv)
+        out["control"] = _node_control(srv)
     finally:
         srv.shutdown()
     log("  shutdown; boot 2:")
@@ -2536,6 +2564,92 @@ def node_phase(dev, args, durable: dict) -> dict:
                              f"HTTP API: {missing}")
     out["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 12 took {out['seconds']:.1f} s")
+    return out
+
+
+def _http_headers(port: int, path: str, **params) -> tuple:
+    """(status, headers, body) of one GET."""
+    import urllib.error
+    import urllib.parse
+    import urllib.request
+
+    url = f"http://127.0.0.1:{port}{path}?" + urllib.parse.urlencode(params)
+    try:
+        with urllib.request.urlopen(url, timeout=900) as r:
+            return r.status, dict(r.headers), r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read().decode()
+
+
+def _node_control(srv) -> dict:
+    """Step 6: the node's control plane through HTTP: a request the
+    governor sheds (503 with ``Retry-After``), one past its deadline (503
+    ``timeout``), and ``debug/slow_queries`` and ``debug/costmodel``."""
+    import threading
+
+    from filodb_tpu_torch.utils import governor, resilience
+
+    api = f"/promql/{NODE_DS}/api/v1/"
+    q = DURABLE_QUERIES[0]
+    saved = dict(vars(governor.config()))
+    governor.configure(admission_capacity=1, max_queue_wait_s=0.05)
+    held, release = threading.Event(), threading.Event()
+
+    def occupant():
+        with governor.governor().admit():
+            held.set()
+            release.wait(timeout=60)
+
+    th = threading.Thread(target=occupant, daemon=True)
+    th.start()
+    held.wait(timeout=10)
+    try:
+        # a grid no cache holds: the front runs it, the governor sheds it
+        shed = _http_headers(srv.http.port, api + "query_range", query=q,
+                             start=T0_MS // 1000, end=DURABLE_END_S,
+                             step=120)
+    finally:
+        release.set()
+        th.join(timeout=60)
+        governor.configure(**saved)
+    timeout_s = resilience.config().query_timeout_s
+    resilience.configure(query_timeout_s=0.001)
+    try:
+        # a data range no batch covers: its build outlasts 1 ms
+        late = _http_headers(srv.http.port, api + "query_range", query=q,
+                             start=T0_MS // 1000 + 7, end=DURABLE_END_S,
+                             step=60)
+    finally:
+        resilience.configure(query_timeout_s=timeout_s)
+    slow = json.loads(http_get(srv.http.port, api + "debug/slow_queries",
+                               limit=5)[1])["data"]["slow_queries"]
+    costs = json.loads(http_get(srv.http.port, api + "debug/costmodel")[1])
+    out = {"shed": {"status": shed[0],
+                    "retry_after": shed[1].get("Retry-After"),
+                    "error_type": json.loads(shed[2]).get("errorType")},
+           "deadline": {"status": late[0],
+                        "retry_after": late[1].get("Retry-After"),
+                        "error_type": json.loads(late[2]).get("errorType")},
+           "slow_queries": [{"query": e.get("query"),
+                             "duration_ms": e["duration_ms"],
+                             "batched": e.get("batched", False)}
+                            for e in slow],
+           "costmodel": {k: costs["data"][k] for k in
+                         ("enabled", "min_samples", "signatures",
+                          "calibration_error")},
+           "costmodel_sites": sorted({r["site"] for r in
+                                      costs["data"]["estimates"]})}
+    if out["shed"]["status"] != 503 or not out["shed"]["retry_after"] \
+            or out["shed"]["error_type"] != "unavailable" \
+            or out["deadline"]["status"] != 503 \
+            or out["deadline"]["error_type"] != "timeout":
+        raise AssertionError(f"phase 12: the control plane: {out}")
+    log(f"  shed: 503 Retry-After {out['shed']['retry_after']} "
+        f"({out['shed']['error_type']}); past a 1 ms deadline: 503 "
+        f"({out['deadline']['error_type']}); debug/slow_queries "
+        f"{len(slow)} entries (limit 5); debug/costmodel "
+        f"{out['costmodel']['signatures']} signatures, sites "
+        f"{out['costmodel_sites']}")
     return out
 
 
@@ -2883,7 +2997,6 @@ def eviction_phase(dev, args) -> dict:
 
     from filodb_tpu_torch import _build
     from filodb_tpu_torch.coordinator.cluster import shard_tick
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.core.memstore.shard import EVICTED, GONE
     from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
 
@@ -2917,8 +3030,8 @@ def eviction_phase(dev, args) -> dict:
         f"App-50..App-99 ({int(go.sum())} series), {n_stopped} stopped")
     # 3. the answers before
     start, end = T0_MS // 1000, DURABLE_END_S
-    engines = {"mesh": QueryService(store, device=dev),
-               "exec": QueryService(store, device=dev, engine="exec")}
+    engines = {"mesh": smoke_service(store, device=dev),
+               "exec": smoke_service(store, device=dev, engine="exec")}
     before = _bodies(engines, EVICT_QUERIES, start, end)
     count0 = engines["mesh"].query_instant(EVICT_INSTANT, end)
     if count0.result.values[0, 0] != n:
@@ -3076,7 +3189,7 @@ def eviction_phase(dev, args) -> dict:
     for s in range(again.num_shards):
         again.recover_index(s)
     restore_s = time.perf_counter() - t
-    first = _sorted_answer(QueryService(again, device=dev).query_range(
+    first = _sorted_answer(smoke_service(again, device=dev).query_range(
         EVICT_QUERIES[0], start, 60, end))
     if any(sh.recovered_from != "snapshot" for sh in again.shards) \
             or first[0] != live[0] or first[1].tobytes() != live[1] \
@@ -3102,7 +3215,7 @@ def eviction_phase(dev, args) -> dict:
 NB_BYTES = "node_network_receive_bytes_total"
 CPU_S = "process_cpu_seconds_total"
 LOAD1 = "node_load1"
-HOST_SERIES = 150_000  # phase 11's count (PERF.md §4)
+HOST_SERIES = 150_000  # (PERF.md §4)
 HOST_SHARES = ((NB_BYTES, "prom-counter", 10), (CPU_S, "prom-counter", 4),
                (LOAD1, "gauge", 1))
 HOST_QUERIES = (f"sum(rate({NB_BYTES}[5m])) by (_ns_)",
@@ -3199,7 +3312,6 @@ def _same(got, want, what: str) -> dict:
 def host_lane_phase(dev, args) -> dict:
     """Phase 14: the host-decode lane at a real scale (see the module)."""
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.query.engine.batch import SeriesBatch
 
     t_phase = t = time.perf_counter()
@@ -3211,9 +3323,9 @@ def host_lane_phase(dev, args) -> dict:
     start, end = T0_MS // 1000, END_S
     out = {"series": args.host_series, "inexact_series": inexact,
            "ingest_s": time.perf_counter() - t, "queries": []}
-    services = {e: QueryService(store, device=dev, engine=e)
+    services = {e: smoke_service(store, device=dev, engine=e)
                 for e in ("mesh", "exec")}
-    cpu = QueryService(store, device="cpu")
+    cpu = smoke_service(store, device="cpu")
     _build.reset_counts()
     for q in HOST_QUERIES:
         sub = _subset(q)
@@ -3298,9 +3410,10 @@ def host_lane_phase(dev, args) -> dict:
 # the card (P padded to 2^20), the batch cache holds four, and the 100
 # queries one at a time, five data ranges in turn, rebuilt a batch for
 # nearly every query (the phase ran past 20 minutes); then from 250,000
-# to phase 11's count, to keep the smoke well inside its limit (PERF.md
+# to 150,000 and, when phase 16 came to run on this store, to 100,000
+# (phase 11's count), to keep the smoke well inside its limit (PERF.md
 # §4)
-SERVING_SERIES = 150_000
+SERVING_SERIES = 100_000
 SERVING_BATCH = 100
 SERVING_SHIFTS = 5
 SERVING_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
@@ -3409,11 +3522,10 @@ def serving_extents(svc, args) -> dict:
     import torch
 
     from filodb_tpu_torch.config import DEFAULTS
-    from filodb_tpu_torch.coordinator.query_service import QueryService
 
     store = svc.memstore
     rng = np.random.default_rng([args.seed, 15])
-    cached = QueryService(store, device=svc.device,
+    cached = smoke_service(store, device=svc.device,
                           result_cache=DEFAULTS["result_cache"])
     rows = []
 
@@ -3484,7 +3596,6 @@ def serving_extents(svc, args) -> dict:
 def serving_phase(dev, args) -> dict:
     """Phase 15 (see the module's text) on a store of its own."""
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
 
     t = time.perf_counter()
     store = main_store()
@@ -3492,7 +3603,7 @@ def serving_phase(dev, args) -> dict:
     log(f"phase 15: the serving front end (query_range_many and the extent "
         f"cache); ingest of the first {args.serving_series} series of the "
         f"phase-2 generator {time.perf_counter() - t:.1f} s")
-    svc = QueryService(store, device=dev)
+    svc = smoke_service(store, device=dev)
     _build.reset_counts()
     batch = serving_batch(svc)
     launches = {k: sum(r["launches"][k] for r in batch["runs"].values())
@@ -3507,7 +3618,407 @@ def serving_phase(dev, args) -> dict:
     out = {"batch": batch, "extents": extents, "launches": launches,
            "seconds": time.perf_counter() - t}
     log(f"  launches in phase 15: {launches}; {out['seconds']:.1f} s")
+    return out, svc
+
+
+# phase 16: the query control plane on phase 15's store
+CONTROL_QUERY = SERVING_QUERY          # sum(rate) by (_ns_)
+CONTROL_THREADS = 16
+CONTROL_GOVERNOR = dict(admission_capacity=2, admission_queue_limit=2,
+                        max_queue_wait_s=0.5)
+# the sidecar site's instants an hour into the 2 h: their 5 m windows
+# overlap every series' first (sealed) 400-sample chunk, so the site
+# decides (past 4,000 s they reach the write buffers only, which the lane
+# folds without a decision)
+CONTROL_INSTANT_AT = END_S - 3600
+# each query settles one decision a leaf (4 shards): 3 repeats of the 4
+# queries settle 48 an arm, past the cost model's min_samples (8)
+CONTROL_REPEATS = 3
+_APP0_RATE = f'sum(rate({M}{{_ns_="App-0"}}[5m])) by (job)'
+ADAPTIVE_BATCHES = (1, 4, 16)
+ADAPTIVE_ROUNDS = 3
+
+
+def _ms(fn) -> tuple:
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1000.0
+
+
+def control_plane_phase(svc, args) -> dict:
+    """Phase 16 (see the module's text) on phase 15's store."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.utils import governor
+
+    t0 = time.perf_counter()
+    log("phase 16: the query control plane on phase 15's store")
+    _build.reset_counts()
+    out = {"window_cache": _control_window_cache(svc, args),
+           "governor": _control_governor(svc),
+           "cost_model": _control_cost_model(svc, args),
+           "adaptive": _control_adaptive(svc),
+           "tracing": _control_tracing(svc)}
+    governor.reset()
+    out["launches"] = dict(_build.LAUNCHES)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 16: launches {out['launches']}; {out['seconds']:.1f} s")
     return out
+
+
+def _control_window_cache(svc, args) -> dict:
+    """Step 1: a scrape, then the first query misses the window cache on
+    the new version and answers bit for bit as a service with
+    ``FILODB_MESH_SPLIT=0``."""
+    from filodb_tpu_torch.parallel.mesh_engine import _M_EVAL
+
+    start, end = END_S - 7200 + 180, END_S + 180
+    svc.query_range(CONTROL_QUERY, start, 60, end)
+    _, warm_ms = _ms(lambda: svc.query_range(CONTROL_QUERY, start, 60, end))
+    n, scrape_s = _scrape_one(svc.memstore, np.random.default_rng(
+        [args.seed, 16]))
+    h0, m0 = _M_EVAL["hit"].value, _M_EVAL["miss"].value
+    got, first_ms = _ms(lambda: svc.query_range(CONTROL_QUERY, start, 60,
+                                                end))
+    hits, misses = _M_EVAL["hit"].value - h0, _M_EVAL["miss"].value - m0
+    with valves(FILODB_MESH_SPLIT="0"):
+        want = smoke_service(svc.memstore, device=svc.device).query_range(
+            CONTROL_QUERY, start, 60, end)
+    if (hits, misses) != (0, 1):
+        raise AssertionError(f"phase 16: after a scrape the window cache "
+                             f"hit {hits}, missed {misses}")
+    err = _answers_agree(got, want, True)
+    entries, nbytes = svc.mesh.window_cache
+    out = {"warm_ms": warm_ms, "scrape_series": n, "scrape_s": scrape_s,
+           "first_after_scrape_ms": first_ms, "hits": hits,
+           "misses": misses, "max_abs_err": err, "entries": entries,
+           "device_bytes": nbytes}
+    log(f"  window cache under ingest: warm {warm_ms:.1f} ms; a scrape of "
+        f"{n} series ({scrape_s:.1f} s); the first query after it "
+        f"{first_ms:.1f} ms, a miss on the new version, bit for bit the "
+        f"uncached service's; {entries} entries, {nbytes / 1e9:.3f} GB")
+    return out
+
+
+def _control_governor(svc) -> dict:
+    """Step 2: admission under load, memory pressure, the deadline, the
+    budgets and the default sample limit."""
+    import threading
+
+    from filodb_tpu_torch.coordinator.query_service import QueryService
+    from filodb_tpu_torch.gateway import influx
+    from filodb_tpu_torch.gateway import server as gw
+    from filodb_tpu_torch.query.model import QueryContext, QueryLimitExceeded
+    from filodb_tpu_torch.utils import governor
+    from filodb_tpu_torch.utils.resilience import DeadlineExceeded
+
+    start, end = END_S - 7200, END_S
+    out = {}
+    # (a) 16 threads against capacity 2 and a queue of 2, the valve off
+    governor.reset()
+    governor.configure(**CONTROL_GOVERNOR)
+    results, barrier = [], threading.Barrier(CONTROL_THREADS)
+
+    def client():
+        barrier.wait()
+        t = time.perf_counter()
+        try:
+            r = svc.query_range(CONTROL_QUERY, start, 60, end)
+            results.append(("admitted", (time.perf_counter() - t) * 1000.0,
+                            r.stats.admission_wait_s))
+        except governor.QueryRejected as e:
+            results.append((f"shed:{e.reason}", None, None))
+
+    with valves(FILODB_MESH_SPLIT="0"):
+        # the batch built first (step 1's scrape moved the store), so the
+        # clients wait for each other, not for a re-pack
+        svc.query_range(CONTROL_QUERY, start, 60, end)
+        threads = [threading.Thread(target=client)
+                   for _ in range(CONTROL_THREADS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+    admitted = [r for r in results if r[0] == "admitted"]
+    queued = [r for r in admitted if r[2] > 1e-3]
+    shed = {}
+    for r in results:
+        if r[0] != "admitted":
+            shed[r[0][5:]] = shed.get(r[0][5:], 0) + 1
+    out["admission"] = {
+        **CONTROL_GOVERNOR, "threads": CONTROL_THREADS,
+        "admitted": len(admitted), "queued": len(queued), "shed": shed,
+        "admitted_p50_ms": float(np.median([r[1] for r in admitted]))
+        if admitted else None,
+        "queue_wait_ms": sorted(r[2] * 1000.0 for r in queued)}
+    if len(results) != CONTROL_THREADS or len(admitted) < 2 or not shed:
+        raise AssertionError(f"phase 16: admission under load: {results}")
+    log(f"  admission (capacity 2, queue 2, wait 0.5 s; {CONTROL_THREADS} "
+        f"threads, valve off): admitted {len(admitted)} (queued "
+        f"{len(queued)}), shed {shed}, admitted p50 "
+        f"{out['admission']['admitted_p50_ms']:.1f} ms")
+    governor.reset()
+    # (b) a watchdog source forced to CRITICAL; the admission classes
+    # static (FILODB_ADAPTIVE=0): phase 15 warmed the cost model on this
+    # query, whose learned class (CHEAP under 50 ms) would admit it
+    wd = governor.MemoryWatchdog(interval_s=999.0)
+    level = {"v": 0.99}
+    wd.add_source("forced", lambda: level["v"])
+    state = wd.sample()
+    with valves(FILODB_ADAPTIVE="0"):
+        try:
+            svc.query_range(CONTROL_QUERY, start, 60, end)
+            raise AssertionError("phase 16: a range query was admitted "
+                                 "under CRITICAL")
+        except governor.QueryRejected as e:
+            range_reason = e.reason
+        instant = svc.query_instant(CONTROL_QUERY, end)
+    sink = gw.ContainerSink({}, num_shards=4, spread=1, flush_every=4,
+                            max_pending=4)
+    recs = []
+    for i in range(6):
+        recs += influx.parse_influx_line(
+            f"{M},_ws_=demo,_ns_=App-0,instance=x{i} counter={i}",
+            {"_ws_": "demo", "_ns_": "App-0"}, now_ms=END_S * 1000)
+    sink._pending.records.extend(recs[:4])  # full, a drain in flight
+    sink._flushing = True
+    shed0 = gw.records_shed.value
+    sink.add(recs[4:])
+    level["v"] = 0.1
+    back = wd.sample()
+    again = svc.query_range(CONTROL_QUERY, start, 60, end)
+    out["critical"] = {"state": state, "range": f"shed:{range_reason}",
+                       "instant_rows": instant.result.num_series,
+                       "gateway_records_shed": gw.records_shed.value - shed0,
+                       "after": back,
+                       "range_after_rows": again.result.num_series}
+    if state != governor.CRITICAL or range_reason != "critical" \
+            or not instant.result.num_series \
+            or out["critical"]["gateway_records_shed"] != 2 \
+            or back != governor.OK:
+        raise AssertionError(f"phase 16: CRITICAL: {out['critical']}")
+    log(f"  CRITICAL: the range query shed ({range_reason}), the instant "
+        f"admitted ({instant.result.num_series} rows), gateway records shed "
+        f"{out['critical']['gateway_records_shed']}; back to {back}, the "
+        f"range query admitted")
+    # (c) a deadline of 1 ms, the valve off
+    with valves(FILODB_MESH_SPLIT="0"):
+        try:
+            smoke_service(svc.memstore, device=svc.device,
+                          query_timeout_s=0.001).query_range(
+                CONTROL_QUERY, start, 60, end)
+            raise AssertionError("phase 16: a 1 ms deadline passed")
+        except DeadlineExceeded as e:
+            out["deadline"] = str(e)
+    log(f"  query_timeout_s 1 ms: DeadlineExceeded ({out['deadline']})")
+    # (d) the samples budget on the exec engine, partial then error
+    ex = smoke_service(svc.memstore, device=svc.device, engine="exec")
+    full = ex.query_range(CONTROL_QUERY, start, 60, end)
+    budget = {}
+    for degrade in ("partial", "error"):
+        qc = wide()
+        qc.planner_params.budget = governor.QueryBudget(
+            max_samples_scanned=100_000, degrade=degrade)
+        try:
+            r = ex.query_range(CONTROL_QUERY, start, 60, end, qc)
+            budget[degrade] = {"partial": r.partial,
+                               "warnings": r.warnings,
+                               "rows": r.result.num_series}
+        except governor.QueryBudgetExceeded as e:
+            budget[degrade] = {"raised": str(e)}
+    if not budget["partial"].get("partial") \
+            or not budget["partial"]["warnings"] \
+            or "raised" not in budget["error"]:
+        raise AssertionError(f"phase 16: the samples budget: {budget}")
+    out["budget"] = {**budget, "full_samples_scanned":
+                     full.stats.samples_scanned}
+    whole = full.stats.samples_scanned
+    log(f"  max_samples_scanned 100,000 on exec ({whole} scanned whole): "
+        f"partial with {len(budget['partial']['warnings'])} warnings "
+        f"({budget['partial']['warnings'][0]}), "
+        f"{budget['partial']['rows']} rows; error: "
+        f"{budget['error']['raised']}")
+    # (e) the default sample limit on a per-series increase (121 steps
+    # over more than 8,264 series pass 1,000,000 samples)
+    plain = QueryService(svc.memstore, device=svc.device,
+                         query_timeout_s=SMOKE_TIMEOUT_S)
+    series = sum(sh.num_partitions for sh in svc.memstore.shards)
+    try:
+        r = plain.query_range(f"increase({M}[5m])", start, 60, end,
+                              QueryContext())
+        out["sample_limit"] = f"{r.result.num_series} x 121 samples pass"
+        if series * 121 > 1_000_000:
+            raise AssertionError("phase 16: the default sample limit passed")
+    except QueryLimitExceeded as e:
+        out["sample_limit"] = str(e)
+    log(f"  the default sample limit: {out['sample_limit']}")
+    return out
+
+
+def _control_cost_model(svc, args) -> dict:
+    """Step 3: ``SIDECAR_INSTANT`` through the sidecar site: at the
+    static arm (the geometry gate), with the fold forced
+    (``FILODB_SIDECAR_SEALED_GATE=0``, the override), then the model's
+    pick once both arms are warm; persisted and installed again through
+    a local meta store."""
+    from filodb_tpu_torch.coordinator import adaptive_planner
+    from filodb_tpu_torch.core.store.localstore import LocalDiskMetaStore
+    from filodb_tpu_torch.query import cost_model as cm
+
+    ds = svc.memstore.dataset
+    model = cm.model_for(ds)
+    at = CONTROL_INSTANT_AT
+    runs = []
+    for label, env in (("static", {}),
+                       ("forced fold", {"FILODB_SIDECAR_SEALED_GATE": "0"}),
+                       ("model", {})):
+        for q in SIDECAR_INSTANT:
+            d0 = {src: cm._decided[("sidecar", src)].value
+                  for src in ("static", "model", "override")}
+            ms, arms = [], []
+            with valves(**env):
+                for _ in range(CONTROL_REPEATS):
+                    r, t = _ms(lambda: svc.query_instant(q, at))
+                    ms.append(t)
+                    arms.append("decode" if r.stats.sidecar_bypassed
+                                else "sidecar")
+            runs.append({"run": label, "query": q,
+                         "warm_p50_ms": float(np.median(ms[1:])),
+                         "ms": ms,
+                         "cold_ms": ms[0], "arms": arms,
+                         "decisions": {src: cm._decided[("sidecar", src)]
+                                       .value - v for src, v in d0.items()}})
+            log(f"  sidecar site [{label}] {q}: warm p50 "
+                f"{runs[-1]['warm_p50_ms']:.1f} ms, arms {arms}, decisions "
+                f"{runs[-1]['decisions']}")
+    root = tempfile.mkdtemp(prefix="filodb-costmodel-")
+    try:
+        meta = LocalDiskMetaStore(root)
+        before = model.to_bytes()
+        adaptive_planner.persist(ds, meta)
+        cm.reset_models()
+        again = adaptive_planner.install(ds, meta, {})
+        same = again.to_bytes() == before
+        meta.close()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not same:
+        raise AssertionError("phase 16: the cost model's estimates changed "
+                             "through persist and install")
+    if not any(r["decisions"]["model"] for r in runs):
+        raise AssertionError("phase 16: the sidecar site never left its "
+                             "static arm's source")
+    ests = [r for r in again.snapshot()["estimates"]
+            if r["site"] == "sidecar"]
+    log(f"  persisted and installed through a local meta store: estimates "
+        f"equal ({len(ests)} sidecar rows)")
+    return {"at_s": at, "runs": runs, "estimates": ests,
+            "persisted_equal": same}
+
+
+def _control_adaptive(svc) -> dict:
+    """Step 4: ``engine="adaptive"``: ``query_range_many`` batches of 1, 4
+    and 16 over App-0, repeated; every answer equal to the mesh engine's
+    (the host lane's within rtol 2e-5, atol 1e-6)."""
+    ad = smoke_service(svc.memstore, device=svc.device, engine="adaptive")
+    rows = []
+    for rnd in range(ADAPTIVE_ROUNDS):
+        for n in ADAPTIVE_BATCHES:
+            qs = [(_APP0_RATE, END_S - 7200 - 60 * (i % 5), 60,
+                   END_S - 60 * (i % 5)) for i in range(n)]
+            before = dict(ad.mesh.routed)
+            got, ms = _ms(lambda: ad.query_range_many(qs))
+            want = svc.query_range_many(qs)
+            lane = [k for k, v in ad.mesh.routed.items()
+                    if v > before[k]]
+            # the device lane is the mesh engine: bit for bit
+            err = max(_answers_agree(g, w, lane == ["device"])
+                      for g, w in zip(got, want))
+            rows.append({"round": rnd, "batch": n, "ms": ms, "lane": lane,
+                         "max_abs_err": err})
+    ad.mesh.drain()
+    out = {"runs": rows, "routed": dict(ad.mesh.routed),
+           "shadowed": dict(ad.mesh.shadowed),
+           "estimates_s_per_query": {
+               lane: {str(b): v for b, v in e.items()}
+               for lane, e in ad.mesh.estimates().items()},
+           "sync_floor_ms": (ad.mesh.sync_floor_s or 0.0) * 1000.0}
+    log(f"  adaptive: routed {out['routed']}, shadowed {out['shadowed']}, "
+        f"estimates {out['estimates_s_per_query']}, sync floor "
+        f"{out['sync_floor_ms']:.3f} ms; every answer equal to mesh's")
+    for r in rows:
+        log(f"    round {r['round']} batch {r['batch']}: {r['ms']:.1f} ms "
+            f"on {r['lane']}")
+    return out
+
+
+def _control_tracing(svc) -> dict:
+    """Step 5: one query traced at ``sample_rate`` 1; with a threshold of
+    1 ms it lands in the slow-query ring with its span tree."""
+    from filodb_tpu_torch.utils import tracing
+
+    tracing.configure(sample_rate=1.0, slow_query_threshold_ms=1.0)
+    tracing.flight_recorder().clear()
+    try:
+        fresh = smoke_service(svc.memstore, device=svc.device)
+        r = fresh.query_range(CONTROL_QUERY, END_S - 7200, 60, END_S)
+        entries = tracing.slow_queries()
+    finally:
+        tracing.configure()
+    if not entries or entries[0]["query"] != CONTROL_QUERY \
+            or not entries[0]["spans"]:
+        raise AssertionError(f"phase 16: the traced query is not in the "
+                             f"slow-query ring: {entries}")
+    spans = [(s["name"], s["depth"], s["duration_ms"])
+             for s in entries[0]["spans"]]
+    log(f"  traced {CONTROL_QUERY} ({r.stats.wall_time_s * 1000.0:.1f} ms) "
+        f"in the slow-query ring: " + ", ".join(
+            f"{'  ' * d}{n} {ms:.1f} ms" for n, d, ms in spans))
+    return {"duration_ms": entries[0]["duration_ms"], "spans": spans}
+
+
+# The smoke is a caller of the reference's kind: its per-series shapes
+# answer up to 121 M samples (phase 3's increase over 1 M series), past
+# the default result-sample limit of 1,000,000, so its queries carry a
+# QueryContext whose PlannerParams raise the limit (``wide``), as a caller
+# of the reference raises it; phase 16 checks that the default raises.
+# Its deadline is SMOKE_TIMEOUT_S: a cold query at 1 M series takes up to
+# 40 s, past the default 30 s.
+WIDE_LIMIT = 1 << 40
+SMOKE_TIMEOUT_S = 900.0
+_SMOKE_SERVICE = []
+
+
+def wide():
+    """A QueryContext whose sample limit the smoke's answers fit."""
+    from filodb_tpu_torch.query.model import PlannerParams, QueryContext
+
+    return QueryContext(planner_params=PlannerParams(sample_limit=WIDE_LIMIT))
+
+
+def smoke_service(store, device=None, **kw):
+    """A ``QueryService`` whose queries carry ``wide()`` unless they bring
+    a context, with the smoke's deadline."""
+    if not _SMOKE_SERVICE:
+        from filodb_tpu_torch.coordinator.query_service import QueryService
+
+        class SmokeService(QueryService):
+            def query_range(self, promql, start, step, end, qcontext=None):
+                return super().query_range(promql, start, step, end,
+                                           qcontext or wide())
+
+            def query_range_many(self, queries, return_errors=False,
+                                 qcontext=None):
+                return super().query_range_many(queries, return_errors,
+                                                qcontext or wide())
+
+            def _execute_uncached(self, plan, qcontext=None,
+                                  materialize=True):
+                return super()._execute_uncached(plan, qcontext or wide(),
+                                                 materialize)
+
+        _SMOKE_SERVICE.append(SmokeService)
+    kw.setdefault("query_timeout_s", SMOKE_TIMEOUT_S)
+    return _SMOKE_SERVICE[0](store, device=device, **kw)
 
 
 def main_store():
@@ -3526,7 +4037,6 @@ def run(dev, args):
     """Phases 2-5 on ``dev``; returns the kernels' numbers and the
     phase-2 store's service (phase 7 queries it again)."""
     from filodb_tpu_torch import _build
-    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.http.promjson import matrix_json
     from filodb_tpu_torch.query.engine.aggregations import aggregate
 
@@ -3537,7 +4047,7 @@ def run(dev, args):
     log(f"phase 2: ingest: {args.series} series, {kept} samples, {chunks} "
         f"sealed chunks, {time.perf_counter() - t:.1f} s on the host")
 
-    svc = QueryService(store, device=dev)
+    svc = smoke_service(store, device=dev)
     start, end = T0_MS // 1000, T0_MS // 1000 + 7200
     _build.reset_counts()
     results, timings = {}, []
@@ -3558,6 +4068,8 @@ def run(dev, args):
         log(f"  {q}: cold {cold:.1f} ms, warm p50 {p50:.2f} ms, {rows} rows")
     log(f"  launches on the main path: {launches}; packed pages on the card: "
         f"{svc.mesh.batch_bytes / 1e9:.2f} GB")
+    print(json.dumps({"main_path": window_cache_split(svc, results, timings,
+                                                      start, end, args)}))
     missing = [k for k, v in launches.items() if v == 0]
     if missing and dev.type == "cuda":
         raise AssertionError(f"kernels not launched on the main path: "
@@ -3600,6 +4112,58 @@ def run(dev, args):
     return kernels, svc
 
 
+def window_cache_split(svc, results: dict, timings: list, start: int,
+                       end: int, args) -> dict:
+    """Phase 3's warm p50 with the window cache (the default; ``timings``)
+    and with ``FILODB_MESH_SPLIT=0`` (the path without the cache), the
+    launches of one warm round of each, and the cache's entries and device
+    bytes; the answers with and without it must be equal bit for bit."""
+    from filodb_tpu_torch import _build
+
+    entries, nbytes = svc.mesh.window_cache
+    out = {"cached": {}, "uncached": {}, "entries": entries,
+           "device_bytes": nbytes, "batch_bytes": svc.mesh.batch_bytes,
+           "budget": svc.batches.budget}
+    _build.reset_counts()
+    for q, _, p50, _ in timings:
+        svc.query_range(q, start, 60, end)
+        out["cached"][q] = p50
+    out["cached_launches"] = dict(_build.LAUNCHES)
+    with valves(FILODB_MESH_SPLIT="0"):
+        for q, _, _, _ in timings:
+            warm = []
+            for i in range(args.repeats):
+                if i == args.repeats - 1:
+                    _build.reset_counts()
+                t = time.perf_counter()
+                r = svc.query_range(q, start, 60, end)
+                warm.append((time.perf_counter() - t) * 1000.0)
+            out.setdefault("uncached_launches", {})[q] = dict(_build.LAUNCHES)
+            out["uncached"][q] = float(np.median(warm))
+            want = results[q].result
+            if r.result.keys != want.keys or not np.array_equal(
+                    r.result.values, want.values, equal_nan=True):
+                raise AssertionError(f"phase 3: {q}: the window cache's "
+                                     f"answer differs from the uncached one")
+    if out["cached_launches"]["fused_decode_rate"] \
+            or out["cached_launches"]["windowed_sum"]:
+        raise AssertionError(f"phase 3: a warm query from the window cache "
+                             f"launched B3 or B4: {out['cached_launches']}")
+    if svc.batches.nbytes() > svc.batches.budget:
+        raise AssertionError("phase 3: the window cache is past the batch "
+                             "cache's budget")
+    for q in out["cached"]:
+        log(f"  {q}: warm p50 {out['cached'][q]:.2f} ms with the window "
+            f"cache, {out['uncached'][q]:.2f} ms with FILODB_MESH_SPLIT=0; "
+            f"one warm run's launches without it "
+            f"{out['uncached_launches'][q]}")
+    log(f"  window cache: {entries} entries, {nbytes / 1e9:.3f} GB on the "
+        f"card (batches {out['batch_bytes'] / 1e9:.3f} GB, budget "
+        f"{out['budget'] / 1e9:.1f} GB); one warm round's launches "
+        f"{out['cached_launches']}; answers bit for bit as without it")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3626,8 +4190,9 @@ def main() -> int:
                     "lane)")
     ap.add_argument("--serving-series", type=int, default=SERVING_SERIES)
     ap.add_argument("--serving-only", action="store_true",
-                    help="build and run phase 15 only (query_range_many "
-                    "and the extent cache, on a store of its own)")
+                    help="build and run phases 15 and 16 only "
+                    "(query_range_many, the extent cache and the query "
+                    "control plane, on a store of their own)")
     args = ap.parse_args()
 
     import torch
@@ -3668,11 +4233,10 @@ def _phases(args, smi) -> int:
 
     from filodb_tpu_torch import _build
     if args.exec_only:
-        from filodb_tpu_torch.coordinator.query_service import QueryService
 
         store = main_store()
         ingest(store, args.series, args.samples, args.seed)
-        print(json.dumps({"exec": exec_phase(QueryService(
+        print(json.dumps({"exec": exec_phase(smoke_service(
             store, device=torch.device("cuda")), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
@@ -3682,8 +4246,9 @@ def _phases(args, smi) -> int:
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.serving_only:
-        print(json.dumps({"serving": serving_phase(torch.device("cuda"),
-                                                   args)}))
+        serving, svc = serving_phase(torch.device("cuda"), args)
+        print(json.dumps({"serving": serving}))
+        print(json.dumps({"control_plane": control_plane_phase(svc, args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.durability_only:
@@ -3708,8 +4273,11 @@ def _phases(args, smi) -> int:
     print(json.dumps({"plan_shapes": shapes}))
     del svc
     torch.cuda.empty_cache()
-    serving = serving_phase(torch.device("cuda"), args)
+    serving, serving_svc = serving_phase(torch.device("cuda"), args)
     print(json.dumps({"serving": serving}))
+    control = control_plane_phase(serving_svc, args)
+    print(json.dumps({"control_plane": control}))
+    del serving_svc
     torch.cuda.empty_cache()
     durable, node = durable_and_node(torch.device("cuda"), args)
     print(json.dumps({"durability": durable}))
@@ -3733,6 +4301,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase13"] = evict["launches"][kern["name"]]
         kern["launches_phase14"] = host["launches"][kern["name"]]
         kern["launches_phase15"] = serving["launches"][kern["name"]]
+        kern["launches_phase16"] = control["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

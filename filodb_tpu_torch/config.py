@@ -8,14 +8,16 @@ in both packages.
 
 The port boots a single coordinator node (``standalone.py``). Options
 whose modules it does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item when set away from their default (``UNPORTED``). A few
-blocks are on by default in the reference and change speed or overload
-behaviour, not answers; at their defaults they are accepted and not acted
-on yet (``NOT_ACTED_ON``; the server logs them at boot, ROADMAP §C lists
-them), and set to anything else they raise too. ``result_cache`` (the
-extent cache of every dataset's service) and ``http_response_cache`` (the
-fronts' rendered-response cache) are acted on, in any form the reference
-takes.
+their ROADMAP item when set away from their default (``UNPORTED``, and
+the ``resilience`` keys of remote dispatch). ``federation`` is on by
+default in the reference and changes what a node reads from colder
+tiers, which the port does not have; at its defaults it is accepted and
+not acted on (``NOT_ACTED_ON``; the server logs it at boot, ROADMAP §C),
+and set to anything else it raises too. ``result_cache``,
+``http_response_cache``, ``governor``, ``resilience`` (its single-node
+``query_timeout_s``), ``cost_model`` and ``tracing`` are acted on, in any
+form the reference takes; a dataset's ``engine`` is ``mesh``,
+``adaptive`` or ``exec``.
 """
 
 from __future__ import annotations
@@ -25,6 +27,9 @@ import json
 from dataclasses import dataclass, field
 
 from filodb_tpu_torch.core.store.config import IngestionConfig, StoreConfig
+from filodb_tpu_torch.utils import resilience as resilience_mod
+
+ENGINES = ("mesh", "adaptive", "exec")
 
 DEFAULTS = {
     "node_name": "node-0",
@@ -179,16 +184,10 @@ UNPORTED = {
     "rules.groups": "standing queries (ROADMAP §A.11)",
     "selfmon.enabled": "self-monitoring (ROADMAP §A.11)",
     "downsample": "downsampling (ROADMAP §A.11)",
-    "governor.max_samples_scanned": "the governor's budgets (ROADMAP §A.11)",
-    "governor.max_result_bytes": "the governor's budgets (ROADMAP §A.11)",
-    "governor.max_group_cardinality": "the governor's budgets "
-                                      "(ROADMAP §A.11)",
-    "governor.tenants": "tenant quotas (ROADMAP §A.11)",
 }
-# blocks on by default in the reference that change speed or overload
-# behaviour, not answers: accepted at their defaults, not acted on yet
-NOT_ACTED_ON = ("governor", "resilience", "cost_model", "federation",
-                "tracing")
+# blocks on by default in the reference that the port accepts at their
+# defaults and does not act on
+NOT_ACTED_ON = ("federation",)
 _NOT_ACTED = "is not acted on by the port yet (ROADMAP §C, §A.11)"
 
 
@@ -297,14 +296,16 @@ class ServerConfig:
                 raise NotImplementedError(
                     f"{block}={getattr(self, block)!r}: the {block} block "
                     f"{_NOT_ACTED}")
+        resilience_mod.check_supported(self.resilience)
         if self.http_impl not in ("fast", "threaded"):
             raise ValueError(f"http_impl {self.http_impl!r}: fast or "
                              f"threaded")
         for name, ing in self.datasets.items():
             ing.store.check_supported()
-            if self.engines.get(name, "mesh") not in ("mesh", "exec"):
+            if self.engines.get(name, "mesh") not in ENGINES:
                 raise ValueError(f"dataset {name}: engine "
-                                 f"{self.engines[name]!r}: mesh or exec")
+                                 f"{self.engines[name]!r}: one of "
+                                 f"{', '.join(ENGINES)}")
 
 
 def _get(cfg: ServerConfig, opt: str):

@@ -3,15 +3,15 @@
 Port of the query and metadata paths of
 ``filodb_tpu/coordinator/query_service.py``: ``query_range`` and
 ``query_instant`` (steps ``(t, 0, t)``) parse (``_parse_cached``, a memo of
-256 plans), run on one of the two engines and materialize;
-``label_names``, ``label_values`` and ``series`` answer from the shards'
-part-key indexes, and ``chunk_infos`` from their chunk tables, on the
-host. A range answer's ``StepMatrix`` renders with
-``http.promjson.matrix_json``, an instant one with ``vector_json`` or, for
-a scalar expression, ``scalar_json``. A query may carry a
-``QueryContext``: its ``PlannerParams.spread`` overrides the planner's
-spread (per shard key in ``planner.spread_overrides``) for the exec
-engine, and its ``sample_limit`` bounds the answer's samples.
+256 plans), run on an engine and materialize; ``label_names``,
+``label_values`` and ``series`` answer from the shards' part-key indexes,
+and ``chunk_infos`` from their chunk tables, on the host. A range answer's
+``StepMatrix`` renders with ``http.promjson.matrix_json``, an instant one
+with ``vector_json`` or, for a scalar expression, ``scalar_json``. A query
+may carry a ``QueryContext``: its ``PlannerParams.spread`` overrides the
+planner's spread (per shard key in ``planner.spread_overrides``) for the
+exec engine, its ``sample_limit`` (1,000,000 by default, as the
+reference's) bounds the answer's samples and its ``budget`` its scan.
 
 ``engine`` picks the engine, as the reference's does:
 
@@ -22,6 +22,8 @@ engine, and its ``sample_limit`` bounds the answer's samples.
   the plans its mesh engine does not support. An ``UnsupportedQuery``
   that the mesh engine raises while it runs routes too, as a backstop;
   any other exception reaches the caller;
+- ``"adaptive"``: the mesh engine's plans on the card or on a host lane,
+  cost-routed by batch size (``parallel/adaptive.py``); the rest as mesh;
 - ``"exec"``: ``SingleClusterPlanner`` materializes the exec plan tree
   (``query/exec/plan.py``), a leaf a shard.
 
@@ -30,28 +32,47 @@ service does: a grid of at most two steps over a function the sidecar
 lane serves goes to exec, whose leaves fold it from the chunks' summaries
 (``query/engine/sidecar_lane.py``).
 
+The control plane, as the reference's (``utils/governor.py``,
+``utils/resilience.py``, ``coordinator/adaptive_planner.py``,
+``utils/tracing.py``): a query takes the governor's default budget unless
+it brings one, a deadline ``query_timeout_s`` away (the resilience
+config's unless given), and a cost class: RULES for ``origin ==
+"rules"``, else the cost model's ``admit`` class over the static one
+(CHEAP for one step, EXPENSIVE for a range). It is admitted
+(``governor().admit``, tenant from its selectors' ``_ws_``/``_ns_``)
+before it takes the service's lock, so a queued query holds nothing;
+``stats.admission_wait_s`` records the wait. Once answered, its deferred
+cost decisions settle with its wall time, the device→host copy included.
+``query_range`` traces (``traced_query``: head sampling, the slow-query
+ring) with the reference's spans: ``parse``, ``mesh-execute``,
+``plan-materialize``, ``exec-dispatch``, ``cache``. An answer over its
+result-bytes budget keeps the rows that fit in ``degrade="partial"``,
+flagged ``partial`` with a warning.
+
 ``result_cache`` (off by default, as the reference's dataclass has it; a
 node turns it on from its config) puts the extent result cache
-(``query/result_cache.py``) in front of both engines: ``execute_logical``
+(``query/result_cache.py``) in front of every engine: ``execute_logical``
 answers from it where it does not bypass the plan, and it evaluates each
 missing extents through ``_execute_many_uncached``.
 
 ``query_range_many`` answers many range queries at once, as the
-reference's: each is parsed, then looked up in the extent cache; the rest
-go to the mesh engine's ``execute_many`` (one shared batch a leaf
-signature) and those it does not serve to exec; the answers still on the
-card come to the host in one copy a shape group; limits and stats are
-applied after. Only ``UnsupportedQuery`` routes a query to exec: any other
-exception reaches the caller or, with ``return_errors``, stands at its
-query's position (the reference sends every member to exec when its
-batch raises, which would hide a kernel that failed; ROADMAP §C).
-``QueryBatcher`` coalesces the queries of concurrent threads into such
-batches (the threaded HTTP front end).
+reference's, under one EXPENSIVE admission slot: each is parsed, then
+looked up in the extent cache; the rest go to the mesh engine's
+``execute_many`` (one shared batch a leaf signature) and those it does
+not serve to exec; the answers still on the card come to the host in one
+copy a shape group; limits and stats are applied after, and members of a
+slow batch land in the slow-query ring. Only ``UnsupportedQuery`` routes
+a query to exec: any other exception reaches the caller or, with
+``return_errors``, stands at its query's position (the reference sends
+every member to exec when its batch raises, which would hide a kernel
+that failed; ROADMAP §C). ``QueryBatcher`` coalesces the queries of
+concurrent threads into such batches (the threaded HTTP front end).
 
 ``QueryStats.engine`` records which engine answered and
 ``QueryStats.fallback`` why mesh handed the plan on. Both engines keep
-their uploaded batches in one ``BatchCache``, under one budget of device
-memory, and their group ids in one ``GroupIdCache``.
+their uploaded batches (and mesh its evaluated windows) in one
+``BatchCache``, under one budget of device memory, and their group ids in
+one ``GroupIdCache``.
 
 Threads share a service (the HTTP front ends, a node's callers): its
 queries run one at a time under ``lock`` (re-entrant; the engines' caches
@@ -62,6 +83,7 @@ selections. The metadata calls take only the shards' locks.
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import queue
 import threading
@@ -69,13 +91,16 @@ import time
 
 import torch
 
+from filodb_tpu_torch.coordinator import adaptive_planner
 from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+from filodb_tpu_torch.core.filters import Equals
 from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.device import resolve
+from filodb_tpu_torch.parallel.adaptive import AdaptiveQueryEngine
 from filodb_tpu_torch.parallel.mesh_engine import MeshQueryEngine
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
 from filodb_tpu_torch.query.engine.device_batch import BatchCache
-from filodb_tpu_torch.query.exec.plan import ExecContext
+from filodb_tpu_torch.query.exec.plan import ExecContext, apply_result_budget
 from filodb_tpu_torch.query.exec.transformers import GroupIdCache
 from filodb_tpu_torch.query.model import (
     QueryContext,
@@ -85,20 +110,90 @@ from filodb_tpu_torch.query.model import (
     enforce_limits,
 )
 from filodb_tpu_torch.query.result_cache import ResultCache
+from filodb_tpu_torch.utils.governor import (
+    CHEAP,
+    EXPENSIVE,
+    RULES,
+    QueryRejected,
+    default_budget,
+    governor,
+    tenant_of,
+)
+from filodb_tpu_torch.utils.metrics import get_counter
+from filodb_tpu_torch.utils.resilience import Deadline
+from filodb_tpu_torch.utils.resilience import config as resilience_config
+from filodb_tpu_torch.utils.tracing import (
+    device_span,
+    record_slow,
+    span,
+    traced_query,
+)
+from filodb_tpu_torch.utils.tracing import config as tracing_config
 
-ENGINES = ("mesh", "exec")
+ENGINES = ("mesh", "exec", "adaptive")
 _PLAN_MEMO = 256  # parsed plans kept by ``_parse_cached``
+partial_results = get_counter("filodb_partial_results")
+
+
+class _BudgetCtx:
+    """What a result-bytes check over an answer writes: the budget, and
+    the partial flag and warnings so far."""
+
+    def __init__(self, budget, partial: bool = False, warnings=()):
+        self.budget = budget
+        self.partial = partial
+        self.warnings: list[str] = list(warnings)
+
+
+def _walk(plan, limit: int = 64):
+    """The plan's nodes, depth first, at most ``limit``."""
+    stack, seen = [plan], 0
+    while stack and seen < limit:
+        p = stack.pop()
+        seen += 1
+        yield p
+        if dataclasses.is_dataclass(p):
+            for f in dataclasses.fields(p):
+                v = getattr(p, f.name, None)
+                if dataclasses.is_dataclass(v) and not isinstance(v, type):
+                    stack.append(v)
+
+
+def _admission_cost(plan) -> str:
+    """The static admission class of a plan, as the reference's: CHEAP
+    for one evaluation step (start == end), else EXPENSIVE."""
+    for p in _walk(plan):
+        start, end = getattr(p, "start", None), getattr(p, "end", None)
+        if isinstance(start, int) and isinstance(end, int) and end > 0:
+            return CHEAP if start == end else EXPENSIVE
+    return EXPENSIVE
+
+
+def plan_tenant(plan) -> str:
+    """The tenant (``ws/ns``) of the first selector with ``_ws_`` or
+    ``_ns_`` equality filters; "" where none (no tenant gate)."""
+    for p in _walk(plan):
+        labels = {}
+        for cf in getattr(p, "filters", None) or ():
+            f = getattr(cf, "filter", None)
+            if getattr(cf, "column", None) in ("_ws_", "_ns_") \
+                    and isinstance(f, Equals):
+                labels[cf.column] = str(f.value)
+        if labels:
+            return tenant_of(labels)
+    return ""
 
 
 class QueryService:
     """Serves queries over ``memstore`` on ``device`` (default: the CUDA
     card; ``device="cpu"`` runs every kernel's plain version) with
-    ``engine`` ``"mesh"`` (falling back to exec) or ``"exec"``;
-    ``time_split_ms`` > 0 has the planner split longer ranges;
+    ``engine`` ``"mesh"`` (falling back to exec), ``"adaptive"`` or
+    ``"exec"``; ``time_split_ms`` > 0 has the planner split longer ranges;
     ``result_cache`` (a ``result_cache`` config block, True, or a
-    ``ResultCache``; None or False: off) caches range answers by extent.
-    The batches both engines keep take at most half the card's memory
-    (``batches.budget``)."""
+    ``ResultCache``; None or False: off) caches range answers by extent;
+    ``query_timeout_s`` (None: the resilience config's) is each query's
+    deadline. The batches both engines keep take at most half the card's
+    memory (``batches.budget``)."""
 
     # construction serials: a response-cache key names its service by it,
     # never by ``id()``, which a later service can reuse
@@ -107,33 +202,52 @@ class QueryService:
     def __init__(self, memstore: MemStore,
                  device: "str | torch.device | None" = None,
                  engine: str = "mesh", time_split_ms: int = 0,
-                 result_cache=None):
+                 result_cache=None, query_timeout_s: float | None = None):
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r}: one of {ENGINES}")
         self.memstore = memstore
+        self.dataset = memstore.dataset
         self.device = resolve(device)
         self.engine = engine
+        self.query_timeout_s = query_timeout_s
         self.serial = next(QueryService._serials)
         self.batches = BatchCache(self.device)
         self.gids = GroupIdCache()
-        self.mesh = MeshQueryEngine(self.device, self.batches, self.gids,
-                                    sidecars=True)
+        self.lock = threading.RLock()
+        if engine == "adaptive":
+            self.mesh = AdaptiveQueryEngine(
+                self.device, self.batches, self.gids, sidecars=True,
+                dataset=self.dataset, lock=self.lock)
+        else:
+            self.mesh = MeshQueryEngine(self.device, self.batches,
+                                        self.gids, sidecars=True)
         self.planner = SingleClusterPlanner(memstore.num_shards,
                                             memstore.spread,
                                             time_split_ms=time_split_ms)
         self.result_cache = ResultCache.from_config(result_cache)
-        self.lock = threading.RLock()
         self._plans: dict = {}
+        self._plans_lock = threading.Lock()
+        # the deadline of the query or batch holding ``lock``
+        self._deadline = None
+
+    def _new_deadline(self) -> Deadline:
+        timeout = self.query_timeout_s if self.query_timeout_s is not None \
+            else resilience_config().query_timeout_s
+        return Deadline.after(timeout)
 
     def query_range(self, promql: str, start_sec: int, step_sec: int,
                     end_sec: int, qcontext: QueryContext | None = None
                     ) -> QueryResult:
+        qcontext = qcontext or QueryContext()
         t0 = time.perf_counter()
-        with self.lock:
-            plan = self._parse_cached(promql, TimeStepParams(
-                start_sec, step_sec, end_sec))
+        with traced_query(qcontext, query=promql,
+                          dataset=self.dataset) as rec:
+            with span("parse", promql=promql):
+                plan = self._parse_cached(promql, TimeStepParams(
+                    start_sec, step_sec, end_sec))
             result = self.execute_logical(plan, qcontext)
-        result.stats.wall_time_s = time.perf_counter() - t0
+            result.stats.wall_time_s = time.perf_counter() - t0
+            rec.observe(result)
         return result
 
     def query_instant(self, promql: str, time_sec: int,
@@ -143,28 +257,58 @@ class QueryService:
 
     def _parse_cached(self, promql: str, params: TimeStepParams):
         """The plan of (``promql``, ``params``), parsed once: plans are
-        immutable, and a dashboard cycles few. The caller holds ``lock``."""
+        immutable, and a dashboard cycles few."""
         key = (promql, params.start, params.step, params.end)
-        plan = self._plans.get(key)
+        with self._plans_lock:
+            plan = self._plans.get(key)
         if plan is None:
             plan = parse_query(promql, params)
-            if len(self._plans) >= _PLAN_MEMO:
-                self._plans.pop(next(iter(self._plans)))
-            self._plans[key] = plan
+            with self._plans_lock:
+                if len(self._plans) >= _PLAN_MEMO:
+                    self._plans.pop(next(iter(self._plans)))
+                self._plans[key] = plan
         return plan
+
+    def _admission_class(self, plan, qcontext: QueryContext) -> str:
+        if qcontext.origin == "rules":
+            return RULES
+        return adaptive_planner.admission_class(
+            self.dataset, plan, qcontext, _admission_cost(plan))
 
     def execute_logical(self, plan, qcontext: QueryContext | None = None,
                         materialize: bool = True) -> QueryResult:
-        """``plan``'s answer and stats, from the extent cache where it
-        serves the plan, else from an engine (``_execute_uncached``); with
-        ``materialize`` False the values stay on the card."""
+        """``plan``'s answer and stats, admitted by the governor, then
+        from the extent cache where it serves the plan, else from an
+        engine (``_execute_uncached``); with ``materialize`` False the
+        values stay on the card."""
         qcontext = qcontext or QueryContext()
-        with self.lock:
-            if self.result_cache is not None and materialize:
-                cached = self.result_cache.execute(self, plan, qcontext)
-                if cached is not None:
-                    return cached
-            return self._execute_uncached(plan, qcontext, materialize)
+        pp = qcontext.planner_params
+        if pp.budget is None:
+            pp.budget = default_budget()
+        deadline = self._new_deadline()
+        cost = self._admission_class(plan, qcontext)
+        t0 = time.perf_counter()
+        with governor().admit(deadline=deadline, cost=cost,
+                              tenant=plan_tenant(plan)):
+            waited = time.perf_counter() - t0
+            with self.lock:
+                self._deadline = deadline
+                try:
+                    result = None
+                    if self.result_cache is not None and materialize:
+                        result = self.result_cache.execute(self, plan,
+                                                           qcontext)
+                    if result is None:
+                        result = self._execute_uncached(plan, qcontext,
+                                                        materialize)
+                finally:
+                    self._deadline = None
+        result.stats.admission_wait_s += waited
+        adaptive_planner.settle_query(self.dataset, qcontext,
+                                      time.perf_counter() - t0 - waited, cost)
+        if result.partial:
+            partial_results.inc()
+        return result
 
     def _execute_uncached(self, plan, qcontext: QueryContext | None = None,
                           materialize: bool = True) -> QueryResult:
@@ -174,13 +318,15 @@ class QueryService:
         t0 = time.perf_counter()
         fallback = ""
         result = None
-        if self.engine == "mesh":
+        if self.engine != "exec":
             fallback = self.mesh.supports(self.memstore, plan)
             if fallback is None:
                 stats = QueryStats(engine="mesh")
                 try:
-                    result = QueryResult(self.mesh.execute(
-                        self.memstore, plan, stats), stats, qcontext.query_id)
+                    with device_span("mesh-execute", self.device):
+                        data = self.mesh.execute(self.memstore, plan, stats,
+                                                 self._deadline)
+                    result = QueryResult(data, stats, qcontext.query_id)
                 except UnsupportedQuery as e:
                     fallback = str(e)
         if result is None:
@@ -195,27 +341,75 @@ class QueryService:
         """``plan`` through the planner and the exec engine; ``fallback``
         says why mesh handed it on ("" where exec is the engine)."""
         stats = QueryStats(engine="exec", fallback=fallback)
-        tree = self.planner.materialize(plan, qcontext)
+        with span("plan-materialize"):
+            tree = self.planner.materialize(plan, qcontext)
         ctx = ExecContext(self.memstore, stats, self.device, self.batches,
-                          self.gids)
-        return QueryResult(tree.execute(ctx), stats, qcontext.query_id)
+                          self.gids, deadline=self._deadline,
+                          budget=qcontext.planner_params.budget)
+        with device_span("exec-dispatch", self.device):
+            data = tree.execute(ctx)
+        return QueryResult(data, stats, qcontext.query_id,
+                           partial=ctx.partial, warnings=list(ctx.warnings))
 
-    def query_range_many(self, queries, return_errors: bool = False
-                         ) -> list:
+    def query_range_many(self, queries, return_errors: bool = False,
+                         qcontext: QueryContext | None = None) -> list:
         """The answers of many range queries, ``(promql, start_sec,
-        step_sec, end_sec)`` each, in order, evaluated together (see the
-        module's text). With ``return_errors`` a query that fails leaves
-        its exception at its own position; without, the first failure
-        raises. Every answer's ``wall_time_s`` is the batch's."""
+        step_sec, end_sec)`` each, in order, evaluated together under one
+        EXPENSIVE admission slot (see the module's text). With
+        ``return_errors`` a query that fails leaves its exception at its
+        own position (a shed batch: ``QueryRejected`` at every position);
+        without, the first failure raises. Every answer's ``wall_time_s``
+        is the batch's. ``qcontext``'s planner parameters (the sample
+        limit, the budget) hold for every member; the reference's batch
+        takes none and holds each to the defaults, as a batch here does
+        without one."""
         t0 = time.perf_counter()
         n = len(queries)
         if n == 1:
             try:
-                return [self.query_range(*queries[0])]
+                return [self.query_range(*queries[0], qcontext=qcontext)]
             except Exception as e:  # noqa: BLE001 - at its position
                 if not return_errors:
                     raise
                 return [e]
+        deadline = self._new_deadline()
+        try:
+            with governor().admit(deadline=deadline, cost=EXPENSIVE):
+                waited = time.perf_counter() - t0
+                with self.lock:
+                    self._deadline = deadline
+                    try:
+                        outcomes = self._many_locked(queries, return_errors,
+                                                     qcontext)
+                    finally:
+                        self._deadline = None
+        except QueryRejected as e:
+            if not return_errors:
+                raise
+            return [e] * n
+        wall = time.perf_counter() - t0
+        slow = tracing_config().slow_query_threshold_ms
+        for (promql, *_), r in zip(queries, outcomes):
+            if isinstance(r, QueryResult):
+                r.stats.wall_time_s = wall
+                r.stats.admission_wait_s += waited
+                if slow > 0 and wall * 1000.0 > slow:
+                    # a batch runs as one: its members are not span-traced
+                    record_slow("query", wall * 1000.0,
+                                stats=dataclasses.asdict(r.stats),
+                                query=promql, dataset=self.dataset,
+                                batched=True)
+        return outcomes
+
+    def _many_locked(self, queries, return_errors: bool,
+                     qcontext: QueryContext | None) -> list:
+        """``query_range_many``'s body, under ``lock``."""
+        pp = (qcontext or QueryContext()).planner_params
+
+        def member() -> QueryContext:
+            return QueryContext(planner_params=pp)
+
+        n = len(queries)
         outcomes: list = [None] * n
 
         def failed(i: int, e: Exception) -> None:
@@ -223,36 +417,31 @@ class QueryService:
                 raise e
             outcomes[i] = e
 
-        with self.lock:
-            plans: list = [None] * n
-            for i, (promql, start, step, end) in enumerate(queries):
+        plans: list = [None] * n
+        for i, (promql, start, step, end) in enumerate(queries):
+            try:
+                plans[i] = self._parse_cached(promql, TimeStepParams(
+                    start, step, end))
+            except Exception as e:  # noqa: BLE001
+                failed(i, e)
+        if self.result_cache is not None:
+            for i, plan in enumerate(plans):
+                if plan is None:
+                    continue
                 try:
-                    plans[i] = self._parse_cached(promql, TimeStepParams(
-                        start, step, end))
+                    outcomes[i] = self.result_cache.execute(self, plan,
+                                                            member())
                 except Exception as e:  # noqa: BLE001
                     failed(i, e)
-            if self.result_cache is not None:
-                for i, plan in enumerate(plans):
-                    if plan is None:
-                        continue
-                    try:
-                        outcomes[i] = self.result_cache.execute(
-                            self, plan, QueryContext())
-                    except Exception as e:  # noqa: BLE001
-                        failed(i, e)
-            pending = [i for i in range(n)
-                       if outcomes[i] is None and plans[i] is not None]
-            answers = self._execute_many_uncached(
-                [plans[i] for i in pending], QueryContext())
-            for i, r in zip(pending, answers):
-                if isinstance(r, Exception):
-                    failed(i, r)
-                else:
-                    outcomes[i] = r
-        wall = time.perf_counter() - t0
-        for r in outcomes:
-            if isinstance(r, QueryResult):
-                r.stats.wall_time_s = wall
+        pending = [i for i in range(n)
+                   if outcomes[i] is None and plans[i] is not None]
+        answers = self._execute_many_uncached(
+            [plans[i] for i in pending], member())
+        for i, r in zip(pending, answers):
+            if isinstance(r, Exception):
+                failed(i, r)
+            else:
+                outcomes[i] = r
         return outcomes
 
     def _execute_many_uncached(self, plans: list, qcontext: QueryContext
@@ -261,14 +450,15 @@ class QueryService:
         (which evaluates the extents a query misses through here): one
         ``execute_many`` on the mesh engine, exec for what it does not
         serve, one device→host copy a shape group (``_fetch``), then each
-        answer materialized and held to ``qcontext``'s limit. Returns an
-        answer or the exception it raised a plan; the caller holds
-        ``lock``."""
+        answer materialized and held to ``qcontext``'s limit and budget.
+        Returns an answer or the exception it raised a plan; the caller
+        holds ``lock``."""
         on_mesh: dict = {}
-        if self.engine == "mesh" and plans:
+        if self.engine != "exec" and plans:
             stats = [QueryStats(engine="mesh") for _ in plans]
-            on_mesh = dict(enumerate(zip(self.mesh.execute_many(
-                self.memstore, plans, stats), stats)))
+            with device_span("mesh-execute", self.device):
+                on_mesh = dict(enumerate(zip(self.mesh.execute_many(
+                    self.memstore, plans, stats, self._deadline), stats)))
         out: list = []
         for i, plan in enumerate(plans):
             answer, stats = on_mesh.get(i, (None, None))
@@ -334,10 +524,15 @@ class QueryService:
 
 def _finish(result: QueryResult, qcontext: QueryContext) -> None:
     """Materialize an answer (deferred compaction first, on the card),
-    then hold it to the query's limit and count its series."""
+    then hold it to the query's limit and result-bytes budget and count
+    its series."""
     data = result.result.materialize()
     enforce_limits(data, qcontext)
-    result.stats.result_series = data.num_series
+    shim = _BudgetCtx(qcontext.planner_params.budget, result.partial,
+                      result.warnings)
+    result.result = apply_result_budget(data, shim)
+    result.partial, result.warnings = shim.partial, shim.warnings
+    result.stats.result_series = result.result.num_series
 
 
 def _fetch(results: list[QueryResult]) -> list[tuple[int, Exception]]:

@@ -7,8 +7,10 @@ each node. The index snapshot carries its state (``to_state`` /
 counts. The port counts series in bulk (``series_created_many``: one walk
 a distinct shard-key path, in order of first appearance, which gives the
 tree the reference's one-at-a-time ``series_created`` builds). Quotas come
-from the governor's ``tenants`` block, which the port does not read yet
-(ROADMAP §A.11): every quota is unlimited, so creation never raises.
+from the governor's ``tenants`` block (``governor.apply_tenant_quotas``):
+once one is finite, a shard creates series one at a time through
+``series_created``, which raises ``QuotaExceededError`` at a prefix that is
+at its quota, as the reference's tracker does.
 """
 
 from __future__ import annotations
@@ -28,6 +30,13 @@ class Cardinality:
     quota: int = UNLIMITED
 
 
+class QuotaExceededError(Exception):
+    def __init__(self, prefix, quota):
+        super().__init__(f"cardinality quota exceeded at {prefix}: {quota}")
+        self.prefix = prefix
+        self.quota = quota
+
+
 @dataclass
 class _Node:
     card: Cardinality
@@ -40,6 +49,7 @@ class CardinalityTracker:
         self.shard = shard
         self.shard_key_labels = shard_key_labels
         self._root = _Node(Cardinality("__root__"))
+        self.has_quotas = False  # a finite quota is set somewhere
 
     def _path(self, labels: dict[str, str]) -> tuple[str, ...]:
         return tuple(labels.get(k, "") for k in self.shard_key_labels)
@@ -58,8 +68,22 @@ class CardinalityTracker:
             cur = nxt
         return nodes
 
+    def set_quota(self, prefix: list[str], quota: int) -> None:
+        self._walk(prefix, create=True)[-1].card.quota = quota
+        if quota < UNLIMITED:
+            self.has_quotas = True
+
     def series_created(self, labels: dict[str, str]) -> None:
-        self.series_created_many([labels])
+        """Count one new series; raises ``QuotaExceededError`` where a
+        prefix of its path is at its quota (nothing is counted then)."""
+        path = self._path(labels)
+        nodes = self._walk(path, create=True)
+        for i, n in enumerate(nodes):
+            if n.card.active_ts + 1 > n.card.quota:
+                raise QuotaExceededError(list(path[:i]), n.card.quota)
+        for n in nodes:
+            n.card.active_ts += 1
+            n.card.total_ts += 1
 
     def series_created_many(self, label_maps) -> None:
         """Count new series, given their label maps."""
@@ -99,3 +123,8 @@ class CardinalityTracker:
                 node.children[kid[0]] = build(kid)
             return node
         self._root = build(state)
+
+        def finite(node) -> bool:
+            return node.card.quota < UNLIMITED or any(
+                finite(ch) for ch in node.children.values())
+        self.has_quotas = self.has_quotas or finite(self._root)

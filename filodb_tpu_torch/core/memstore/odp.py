@@ -53,6 +53,7 @@ from filodb_tpu_torch.memory.chunk import (
     decode_chunks,
     read_summaries,
 )
+from filodb_tpu_torch.utils.tracing import span
 
 _NONE = np.iinfo(np.int64).max
 # chunks decoded and encoded at once
@@ -183,7 +184,13 @@ def page_partitions(shard, pids: np.ndarray, start: int, end: int,
     or None when no partition needs paging. Reads the store once for the
     partitions the cache does not cover, and adds every chunk not resident
     and not cached; a page-in that adds chunks moves the shard's
-    version."""
+    version. Traced as the reference's ``odp-page`` span."""
+    with span("odp-page", shard=shard.shard_num):
+        return _page_partitions(shard, pids, start, end, cache)
+
+
+def _page_partitions(shard, pids, start: int, end: int,
+                     cache: DemandPagedChunkCache) -> dict | None:
     pids = np.asarray(pids, np.int64)
     if not len(pids):
         return None

@@ -13,6 +13,13 @@ reference's ``StoreConfig.device_pages=True``), and its codec chunk until
 its group flushes; the write buffers are encoded when a query first needs
 them and kept until the shard next ingests.
 
+A container from the log fires the ``shard.ingest`` fault site, and its
+ingest and each group flush are traced operations (the slow-ingest
+ring). Under a tenant quota (the governor's ``tenants`` block, applied at
+construction) new series of a container are counted one at a time and
+the records of one over its quota are dropped and counted
+(``memstore_data_dropped``), as the reference's.
+
 The write path, as the reference's: a partition belongs to flush group
 ``part_hash % groups_per_shard``. A container's records at or below their
 group's watermark are skipped (replay after a restart).
@@ -93,7 +100,10 @@ import time
 import numpy as np
 
 from filodb_tpu_torch.core.memstore import odp
-from filodb_tpu_torch.core.memstore.cardinality import CardinalityTracker
+from filodb_tpu_torch.core.memstore.cardinality import (
+    CardinalityTracker,
+    QuotaExceededError,
+)
 from filodb_tpu_torch.core.memstore.index import INGESTING, PartKeyIndex
 from filodb_tpu_torch.core.memstore.partition import (
     HIST_COLUMNS,
@@ -137,6 +147,12 @@ from filodb_tpu_torch.query.engine.device_batch import (
 )
 from filodb_tpu_torch.utils.bloom import BloomFilter
 from filodb_tpu_torch.utils.metrics import Counter, Gauge, Histogram
+from filodb_tpu_torch.utils.governor import (
+    apply_tenant_quotas,
+    record_tenant_drop,
+)
+from filodb_tpu_torch.utils.resilience import FaultInjector
+from filodb_tpu_torch.utils.tracing import traced_operation
 
 log = logging.getLogger(__name__)
 
@@ -223,6 +239,7 @@ class ShardStats:
         self.eviction_stall_ns = Counter("memstore_eviction_stall_ns", tags)
         self.bloom_queries = Counter("evicted_pk_bloom_filter_queries", tags)
         self.bloom_fp = Counter("evicted_pk_bloom_filter_fp", tags)
+        self.quota_dropped = Counter("memstore_data_dropped", tags)
 
 
 class Shard:
@@ -291,6 +308,7 @@ class Shard:
         self.stats = ShardStats(dataset, shard_num)
         self.recovered_from: str | None = None  # "snapshot" or "scan"
         self.cardinality = CardinalityTracker(shard_num)
+        apply_tenant_quotas(self.cardinality)
         self.evicted_keys = BloomFilter(
             self.config.evicted_pk_bloom_filter_capacity)
         self._shells: dict[bytes, int] = {}  # evicted key blob → its pid
@@ -326,9 +344,11 @@ class Shard:
         self.status = more(self.status, LIVE)
         self.hashes = more(self.hashes, 0)
 
-    def _create(self, keys: list[PartKey], first_ts: np.ndarray) -> np.ndarray:
+    def _create(self, keys: list[PartKey], first_ts: np.ndarray,
+                counted: bool = False) -> np.ndarray:
         """New partitions of distinct new ``keys`` with their first sample
-        times: ids in order, dirty, floors from the persisted ones."""
+        times: ids in order, dirty, floors from the persisted ones
+        (``counted``: the cardinality tree has counted them already)."""
         base = len(self.keys)
         n = base + len(keys)
         blobs = [k.serialized for k in keys]
@@ -349,7 +369,8 @@ class Shard:
             self.latest[base:n] = self.floor[base:n]
         self.index.add_part_keys(base, [k.labels for k in keys],
                                  np.asarray(first_ts, np.int64))
-        self.cardinality.series_created_many(k.label_map for k in keys)
+        if not counted:
+            self.cardinality.series_created_many(k.label_map for k in keys)
         self.stats.partitions_created.inc(len(keys))
         if self.evicted_keys.count:
             self._restore_evicted(np.arange(base, n), blobs)
@@ -405,16 +426,34 @@ class Shard:
     def _pids_of_blobs(self, blobs: list[bytes],
                        ts: np.ndarray) -> np.ndarray:
         """Partition ids of records' part-key blobs (repeats allowed; a new
-        key's partition starts at its first record's time)."""
+        key's partition starts at its first record's time). Under a tenant
+        quota new keys are counted one at a time, in order, and the
+        records of a key over its quota get -1 and are counted dropped, as
+        the reference drops them."""
         pids = np.array([self._by_blob.get(b, -1) for b in blobs], np.int64)
         miss = np.flatnonzero(pids < 0)
         if len(miss):
             first: dict[bytes, int] = {}
             for i in miss.tolist():
                 first.setdefault(blobs[i], i)
-            at = np.fromiter(first.values(), np.int64, len(first))
-            self._create([pk_from_blob(b) for b in first], ts[at])
-            pids[miss] = [self._by_blob[blobs[i]] for i in miss.tolist()]
+            keys = [pk_from_blob(b) for b in first]
+            counted = self.cardinality.has_quotas
+            if counted:
+                ok = []
+                for k in keys:
+                    try:
+                        self.cardinality.series_created(k.label_map)
+                        ok.append(k)
+                    except QuotaExceededError:
+                        pass
+                keys = ok
+            at = np.array([first[k.serialized] for k in keys], np.int64)
+            self._create(keys, ts[at], counted)
+            pids[miss] = [self._by_blob.get(blobs[i], -1)
+                          for i in miss.tolist()]
+            for i in np.flatnonzero(pids < 0).tolist():
+                self.stats.quota_dropped.inc()
+                record_tenant_drop(pk_from_blob(blobs[i]).label_map)
         return pids
 
     # ---- ingest ------------------------------------------------------------
@@ -502,8 +541,11 @@ class Shard:
         """Ingest one container from the log at its offset: records at or
         below their group's watermark are skipped, and records of a schema
         the port does not know are dropped. Returns the samples kept."""
+        FaultInjector.fire("shard.ingest", dataset=self.dataset,
+                           shard=self.shard_num, offset=data.offset)
         cols = parse_container(data.container.serialize())
-        with self.lock:
+        with traced_operation("ingest", dataset=self.dataset,
+                              shard=self.shard_num), self.lock:
             kept, skipped = self._ingest_columns(cols, data.offset)
         self.stats.rows_ingested.inc(kept)
         self.stats.rows_skipped.inc(skipped)
@@ -519,6 +561,7 @@ class Shard:
         if len(idx):
             pids = self._pids_of_blobs([cols.keys[i] for i in idx.tolist()],
                                        cols.ts[idx])
+            idx, pids = idx[pids >= 0], pids[pids >= 0]
             hist = self.hist[pids]
             if (~hist).any():
                 s = idx[~hist]
@@ -665,7 +708,9 @@ class Shard:
             ingestion_time = int(time.time() * 1000)
         t0 = time.perf_counter()
         try:
-            with self.lock:
+            with traced_operation("flush", dataset=self.dataset,
+                                  shard=self.shard_num, group=group), \
+                    self.lock:
                 written = self._flush_group(group, ingestion_time)
         except Exception:
             self.stats.flushes_failed.inc()
@@ -804,6 +849,7 @@ class Shard:
         self.keys = KeyList()
         self._by_blob = {}
         self.cardinality = CardinalityTracker(self.shard_num)
+        apply_tenant_quotas(self.cardinality)
         for name in ("latest", "floor", "_seq", "schema_of", "group",
                      "_dirty", "hist", "_width", "_les_id", "status",
                      "hashes"):

@@ -116,6 +116,17 @@ class MetaStore:
     def read_checkpoints(self, dataset: str, shard: int) -> dict[int, int]:
         raise NotImplementedError
 
+    # the cost model's learned estimates (``query/cost_model.py``), kept
+    # beside the checkpoints so a restart keeps them; durable stores
+    # override, the default keeps them in memory
+    def write_cost_model(self, dataset: str, data: bytes) -> None:
+        if not hasattr(self, "_cost_models"):
+            self._cost_models = {}
+        self._cost_models[dataset] = data
+
+    def read_cost_model(self, dataset: str) -> bytes | None:
+        return getattr(self, "_cost_models", {}).get(dataset)
+
     def close(self) -> None:
         pass
 

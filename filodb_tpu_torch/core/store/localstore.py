@@ -8,7 +8,8 @@ tables ``chunks`` (partition, chunkid → start, end, serialized chunk),
 and part keys (the port indexes ``upd``: a snapshot restore reads what
 was written after its token; the reference's queries ignore the index);
 a shard's index snapshot is the file
-``<root>/<dataset>/index-shard-<n>.snap``, replaced atomically. A
+``<root>/<dataset>/index-shard-<n>.snap``, and the cost model's learned
+estimates ``<root>/<dataset>/costmodel.json``, each replaced atomically. A
 partition is its part-key blob (``PartKey.serialized``). A directory
 either package writes, the other reads.
 
@@ -229,6 +230,24 @@ class LocalDiskMetaStore(MetaStore):
     def read_checkpoints(self, dataset, shard):
         c = self._db.conn(dataset, shard)
         return dict(c.execute("SELECT grp, offset FROM checkpoints"))
+
+    # the cost model's snapshot, ``<root>/<dataset>/costmodel.json``,
+    # replaced atomically (``query/cost_model.py``)
+    def write_cost_model(self, dataset: str, data: bytes) -> None:
+        d = os.path.join(self._db.root, dataset)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, "costmodel.json")
+        with open(path + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(path + ".tmp", path)
+
+    def read_cost_model(self, dataset: str) -> bytes | None:
+        try:
+            with open(os.path.join(self._db.root, dataset,
+                                   "costmodel.json"), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
 
     def close(self):
         self._db.close()

@@ -11,9 +11,12 @@ drain in flight at a time (appends keep each shard's record order);
 producers keep batching into the pending container while it drains, and
 once ``max_pending`` records wait, ``add`` blocks its producer (TCP then
 pushes back on the client) until the drain completes. Waits show as the
-``gateway_backpressure_*`` metrics. The reference's governor sheds records
-instead of blocking under memory pressure (``gateway_records_shed``); the
-governor is not ported yet (ROADMAP §A.11), so the port always blocks.
+``gateway_backpressure_*`` metrics. Under the governor's CRITICAL state
+(memory pressure, ``utils/governor.py``) a producer that would block sheds
+its records instead, counted in ``gateway_records_shed``, and the client
+retries once the pressure clears, as the reference's sink does. Each
+drain is a ``traced_operation("gateway")``: a slow one lands in the
+slow-ingest ring.
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ from filodb_tpu_torch.coordinator.ingestion import route_container
 from filodb_tpu_torch.core.record import RecordContainer
 from filodb_tpu_torch.gateway.influx import InfluxParseError, parse_influx_line
 from filodb_tpu_torch.kafka.log import ReplayLog
+from filodb_tpu_torch.utils import governor as governor_mod
 from filodb_tpu_torch.utils.metrics import Counter, GaugeFn, Histogram
+from filodb_tpu_torch.utils.tracing import traced_operation
 
 log = logging.getLogger(__name__)
 
@@ -36,6 +41,8 @@ lines_parsed = Counter("gateway_lines_parsed")
 lines_failed = Counter("gateway_lines_failed")
 backpressure_waits = Counter("gateway_backpressure_waits")
 backpressure_seconds = Histogram("gateway_backpressure_seconds")
+# records dropped under the governor's CRITICAL state instead of blocking
+records_shed = Counter("gateway_records_shed")
 
 
 class ContainerSink:
@@ -76,8 +83,16 @@ class ContainerSink:
                     # retries its own insert
                     batch = self._take()
                 else:
-                    # full while a drain is in flight: block (TCP pushes
-                    # the pressure back to the client)
+                    # full while a drain is in flight. Under CRITICAL,
+                    # blocking would hold the records while memory is the
+                    # scarce resource: shed them, the client retries
+                    if governor_mod.governor().state == governor_mod.CRITICAL:
+                        records_shed.inc(len(records))
+                        if t0 is not None:
+                            backpressure_seconds.observe(
+                                time.perf_counter() - t0)
+                        return
+                    # else block (TCP pushes the pressure back)
                     if t0 is None:
                         t0 = time.perf_counter()
                         backpressure_waits.inc()
@@ -113,9 +128,11 @@ class ContainerSink:
         crossed ``flush_every`` during the drain."""
         while batch is not None:
             try:
-                for shard, cont in route_container(
-                        batch, self.num_shards, self.spread).items():
-                    self.logs[shard].append(cont)
+                with traced_operation("gateway", op="drain",
+                                      records=len(batch)):
+                    for shard, cont in route_container(
+                            batch, self.num_shards, self.spread).items():
+                        self.logs[shard].append(cont)
             finally:
                 with self._cond:
                     self._flushing = False

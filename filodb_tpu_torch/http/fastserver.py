@@ -12,8 +12,11 @@ arrives (``http/server.py::ResponseCache``) and answered at once on a
 hit; the misses of one readiness pass are evaluated as one
 ``query_range_many`` batch a service (``_run_hot_batch``), each rendered
 as the dispatcher renders it, and stored. A query that fails gets its own
-error response from its own exception (``return_errors``); the others of
-its batch are answered, and nothing is run twice.
+error response from its own exception (``return_errors``), as the
+dispatcher maps it (``error_response``: a governor's shed and a passed
+deadline answer 503 with ``Retry-After``); the others of its batch are
+answered, and nothing is run twice. A pass's batch takes one admission
+slot.
 """
 
 from __future__ import annotations
@@ -30,11 +33,10 @@ from filodb_tpu_torch.http.server import (
     JSON_CT,
     HttpDispatcher,
     ResponseCache,
+    error_response,
     response_cache_key,
     service_version,
 )
-from filodb_tpu_torch.promql.parser import ParseError
-from filodb_tpu_torch.query.model import QueryLimitExceeded
 
 log = logging.getLogger(__name__)
 
@@ -361,12 +363,11 @@ class FastHttpServer:
             if isinstance(result, Exception):
                 raise result
             return 200, ct, self._render(req, result)
-        except (ParseError, ValueError) as e:
-            return 400, ct, json.dumps(promjson.error_json(str(e))).encode()
-        except QueryLimitExceeded as e:
-            return 422, ct, json.dumps(
-                promjson.error_json(str(e), "query_limit")).encode()
         except Exception as e:  # noqa: BLE001 - every failure answers
+            named = error_response(e)
+            if named is not None:
+                code, headers, body = named
+                return code, {**ct, **headers}, json.dumps(body).encode()
             log.exception("hot query failed")
             return 500, ct, json.dumps(
                 promjson.error_json(str(e), "internal")).encode()

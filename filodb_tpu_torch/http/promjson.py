@@ -38,6 +38,25 @@ def _stats_json(result: QueryResult) -> dict:
             "wallTimeMs": round(s.wall_time_s * 1000.0, 3)}
 
 
+def _partial_fields(result: QueryResult) -> dict:
+    """``partial`` and ``warnings`` of an answer a budget degraded (the
+    Prometheus API's ``warnings``); empty for a whole one."""
+    out = {}
+    if result.partial:
+        out["partial"] = True
+    if result.warnings:
+        out["warnings"] = list(result.warnings)
+    return out
+
+
+def _partial_fields_str(result: QueryResult) -> str:
+    """``_partial_fields`` as a leading-comma fragment, or ""."""
+    fields = _partial_fields(result)
+    if not fields:
+        return ""
+    return "," + json.dumps(fields, separators=(",", ":"))[1:-1]
+
+
 def matrix_json(result: QueryResult) -> dict:
     m = result.result.materialize()
     if m.is_histogram:
@@ -51,7 +70,7 @@ def matrix_json(result: QueryResult) -> dict:
             series.append({"metric": _labels_json(key), "values": vals})
     return {"status": "success",
             "data": {"resultType": "matrix", "result": series},
-            "queryStats": _stats_json(result)}
+            "queryStats": _stats_json(result), **_partial_fields(result)}
 
 
 def vector_json(result: QueryResult) -> dict:
@@ -67,7 +86,8 @@ def vector_json(result: QueryResult) -> dict:
             out.append({"metric": _labels_json(key),
                         "value": [m.steps_ms[k] / 1000.0, _fmt(v)]})
     return {"status": "success",
-            "data": {"resultType": "vector", "result": out}}
+            "data": {"resultType": "vector", "result": out},
+            **_partial_fields(result)}
 
 
 def scalar_json(result: QueryResult) -> dict:
@@ -126,7 +146,8 @@ def matrix_json_str(result: QueryResult) -> str:
         parts.append('{"metric":%s,"values":[%s]}'
                      % (_labels_json_str(key), body))
     return ('{"status":"success","data":{"resultType":"matrix","result":[%s'
-            ']},"queryStats":%s}' % (",".join(parts), _stats_str(result)))
+            ']},"queryStats":%s%s}' % (",".join(parts), _stats_str(result),
+                                       _partial_fields_str(result)))
 
 
 def vector_json_str(result: QueryResult) -> str:
@@ -136,8 +157,8 @@ def vector_json_str(result: QueryResult) -> str:
     if m.is_histogram:
         m = m.flatten_histograms()
     if not m.num_steps or not m.num_series:
-        return '{"status":"success","data":{"resultType":"vector",' \
-            '"result":[]}}'
+        return ('{"status":"success","data":{"resultType":"vector",'
+                '"result":[]}%s}' % _partial_fields_str(result))
     k = m.num_steps - 1
     vals = np.asarray(m.values[:, k], np.float64)
     sv = _value_strings(vals)
@@ -146,7 +167,7 @@ def vector_json_str(result: QueryResult) -> str:
              % (_labels_json_str(m.keys[i]), t, sv[i])
              for i in np.flatnonzero(~np.isnan(vals)).tolist()]
     return ('{"status":"success","data":{"resultType":"vector","result":'
-            '[%s]}}' % ",".join(parts))
+            '[%s]}%s}' % (",".join(parts), _partial_fields_str(result)))
 
 
 def error_json(message: str, error_type: str = "bad_data") -> dict:

@@ -9,16 +9,26 @@ Port of ``filodb_tpu/http/server.py``'s ``HttpDispatcher`` and
 - ``GET /promql/{dataset}/api/v1/series?match[]=&start=&end=``
 - ``GET /promql/{dataset}/api/v1/labels``
 - ``GET /promql/{dataset}/api/v1/label/{name}/values``
+- ``GET /promql/{dataset}/api/v1/debug/trace?query=&start=&end=&step=``
+  (or ``&time=``): the query run traced, its spans and stats
+- ``GET /promql/{dataset}/api/v1/debug/slow_queries?limit=``: the
+  slow-query ring, newest first
+- ``GET /promql/{dataset}/api/v1/debug/costmodel?limit=``: the cost
+  model's estimates, calibration and recent decisions
 - ``GET /api/v1/cluster`` (datasets) and ``/api/v1/cluster/{dataset}/status``
+- ``GET /api/v1/status/ingest?dataset=&limit=``: each shard's ingest
+  freshness and offsets, and the slow-ingest ring
 - ``GET /__health``, ``GET /metrics`` (Prometheus exposition)
 
 Status codes and error envelopes are the reference's: 400 for a parse
 error or a bad parameter, 404 for an unknown dataset or route, 422 for a
-query limit, 500 (``internal``) for anything else. Routes whose modules
+query limit or a budget in ``degrade="error"``, 503 with ``Retry-After``
+for a query the governor shed (``unavailable``) or whose deadline passed
+(``timeout``), 500 (``internal``) for anything else. Routes whose modules
 are not ported answer 501: remote read, rules and alerts, ``status/*``
-and ``debug/*`` (ROADMAP §A.11), the cluster's shard commands and
-migration (ROADMAP §A.12). Governor admission is not ported yet (ROADMAP
-§A.11). ``?stats=all`` renders the four basic stats (ROADMAP §C).
+other than ``status/ingest`` (ROADMAP §A.11), the cluster's shard
+commands and migration (ROADMAP §A.12). ``?stats=all`` renders the four
+basic stats (ROADMAP §C).
 
 The hot routes (``query`` and ``query_range``) go through the rendered-
 response cache (``ResponseCache``, ``response_cache=True`` by default, as
@@ -55,8 +65,14 @@ from filodb_tpu_torch.promql.parser import (
     TimeStepParams,
     parse_query,
 )
+from filodb_tpu_torch.query import cost_model
 from filodb_tpu_torch.query.model import QueryLimitExceeded
+from filodb_tpu_torch.utils import metrics as metrics_mod
+from filodb_tpu_torch.utils.governor import QueryRejected
+from filodb_tpu_torch.utils.governor import config as governor_config
 from filodb_tpu_torch.utils.metrics import render_prometheus
+from filodb_tpu_torch.utils.resilience import DeadlineExceeded
+from filodb_tpu_torch.utils.tracing import slow_ingest, slow_queries, start_trace
 
 log = logging.getLogger(__name__)
 
@@ -66,14 +82,40 @@ JSON_CT = "application/json"
 _UNPORTED_ROUTES = {
     ("api", "v1", "rules"): "standing queries (ROADMAP §A.11)",
     ("api", "v1", "alerts"): "standing queries (ROADMAP §A.11)",
-    ("api", "v1", "status"): "status introspection (ROADMAP §A.11)",
+    ("api", "v1", "status"): "status introspection other than "
+                             "status/ingest (ROADMAP §A.11)",
 }
 _UNPORTED_PROM = {
     "rules": "standing queries (ROADMAP §A.11)",
     "alerts": "standing queries (ROADMAP §A.11)",
-    "debug": "query tracing (ROADMAP §A.11)",
     "read": "remote read (ROADMAP §A.11)",
 }
+
+
+def retry_after_headers(after_s: float | None = None) -> dict:
+    """``Retry-After`` of a 503, alike on both fronts: whole seconds, at
+    least 1 (the governor's ``retry_after_s`` unless given)."""
+    if after_s is None:
+        after_s = governor_config().retry_after_s
+    return {"Retry-After": str(max(1, int(round(float(after_s)))))}
+
+
+def error_response(e: Exception) -> tuple[int, dict, dict] | None:
+    """(status, extra headers, error body) of a query's failure that the
+    API names, alike on both fronts; None for an internal error."""
+    if isinstance(e, (ParseError, ValueError)):
+        return 400, {}, promjson.error_json(str(e))
+    if isinstance(e, QueryLimitExceeded):
+        return 422, {}, promjson.error_json(str(e), "query_limit")
+    if isinstance(e, QueryRejected):
+        # shed by the admission gate: a distinct errorType from a timeout,
+        # and Retry-After, so clients back off
+        return 503, retry_after_headers(e.retry_after_s), \
+            promjson.error_json(str(e), "unavailable")
+    if isinstance(e, DeadlineExceeded):
+        return 503, retry_after_headers(), \
+            promjson.error_json(str(e), "timeout")
+    return None
 
 
 class ResponseCache:
@@ -153,11 +195,11 @@ class HttpDispatcher:
                     for k, v in parse_qs(raw.decode()).items():
                         qs.setdefault(k, v)
             return self._dispatch(parts, qs)
-        except (ParseError, ValueError) as e:
-            return self._json(400, promjson.error_json(str(e)))
-        except QueryLimitExceeded as e:
-            return self._json(422, promjson.error_json(str(e), "query_limit"))
         except Exception as e:  # noqa: BLE001 - every failure answers
+            named = error_response(e)
+            if named is not None:
+                code, headers, body = named
+                return self._json(code, body, headers)
             log.exception("request failed")
             return self._json(500, promjson.error_json(str(e), "internal"))
 
@@ -187,6 +229,8 @@ class HttpDispatcher:
             return self._prom_api(svc, parts[4:], qs)
         if len(parts) >= 3 and parts[:3] == ["api", "v1", "cluster"]:
             return self._cluster_api(parts[3:])
+        if parts == ["api", "v1", "status", "ingest"]:
+            return self._status_ingest(qs)
         if tuple(parts[:3]) in _UNPORTED_ROUTES:
             return self._unported(_UNPORTED_ROUTES[tuple(parts[:3])])
         return self._json(404, promjson.error_json("not found", "not_found"))
@@ -253,9 +297,94 @@ class HttpDispatcher:
                 label = "_metric_"
             return self._json(200, {"status": "success",
                                     "data": svc.label_values(label)})
+        if rest[:1] == ["debug"]:
+            return self._debug(svc, rest[1:], qs)
         if rest[:1] and rest[0] in _UNPORTED_PROM:
             return self._unported(_UNPORTED_PROM[rest[0]])
         return self._json(404, promjson.error_json("unknown endpoint"))
+
+    @staticmethod
+    def _limit(qs: dict, default: int = 0) -> int:
+        try:
+            return int(qs.get("limit", [str(default)])[0])
+        except ValueError:
+            return default
+
+    def _debug(self, svc, rest: list[str], qs: dict):
+        """The reference's ``debug/trace``, ``debug/slow_queries`` and
+        ``debug/costmodel``."""
+        if rest == ["trace"]:
+            # this one query traced, whatever the sampling rate
+            if "start" in qs:
+                query, start, step, end = self.range_params(qs)
+            else:
+                query, t = self.instant_params(qs)
+                start, step, end = t, 0, t
+            with start_trace() as trace:
+                r = svc.query_range(query, start, step, end)
+            return self._json(200, {
+                "status": "success",
+                "data": {"spans": trace.as_dicts(),
+                         "result_series": r.result.num_series,
+                         "stats": {
+                             "series_scanned": r.stats.series_scanned,
+                             "samples_scanned": r.stats.samples_scanned,
+                             "wall_time_s": r.stats.wall_time_s,
+                         }}})
+        if rest == ["slow_queries"]:
+            limit = self._limit(qs)
+            entries = [e for e in slow_queries()
+                       if e.get("dataset") in (None, svc.dataset)]
+            if limit > 0:
+                entries = entries[:limit]
+            return self._json(200, {"status": "success",
+                                    "data": {"slow_queries": entries}})
+        if rest == ["costmodel"]:
+            snap = cost_model.model_for(svc.dataset).snapshot()
+            limit = self._limit(qs)
+            if limit > 0:
+                snap["estimates"] = snap["estimates"][:limit]
+            return self._json(200, {"status": "success", "data": snap})
+        return self._json(404, promjson.error_json("unknown endpoint"))
+
+    def _status_ingest(self, qs: dict):
+        """Each shard's ingest freshness (lag against the wall clock, the
+        log's offsets and the checkpoint watermarks), the gateway's queue
+        depth and the slow-ingest ring, as the reference's route; the
+        object store's part waits for its module (ROADMAP A5)."""
+        cluster = self.app.cluster
+        now = time.time()
+        wanted = qs.get("dataset", [None])[0]
+        data = {"datasets": {}}
+        for name, svc in self.app.services.items():
+            if wanted is not None and name != wanted:
+                continue
+            shards = []
+            for sh in svc.memstore.shards:
+                lag = (None if sh.max_ingested_ts < 0
+                       else max(0.0, now - sh.max_ingested_ts / 1000.0))
+                entry = {"shard": sh.shard_num,
+                         "maxIngestedTs": sh.max_ingested_ts,
+                         "ingestLagSeconds": lag,
+                         "ingestedOffset": sh.latest_offset,
+                         "groupWatermarks": [
+                             int(w) for w in sh.group_watermarks]}
+                log_ = cluster.logs.get((name, sh.shard_num)) \
+                    if cluster is not None else None
+                if log_ is not None:
+                    entry["logLatestOffset"] = log_.latest_offset
+                    entry["offsetLag"] = log_.offset_lag(sh.latest_offset)
+                    entry["checkpointLag"] = log_.offset_lag(
+                        int(min(sh.group_watermarks, default=-1)))
+                shards.append(entry)
+            data["datasets"][name] = {"shards": shards}
+        with metrics_mod._lock:
+            fams = list(metrics_mod._registry.values())
+        for m in fams:
+            if m.name == "gateway_queue_depth" and m.value is not None:
+                data["gatewayQueueDepth"] = m.value
+        data["slowIngest"] = slow_ingest(self._limit(qs, 20))
+        return self._json(200, {"status": "success", "data": data})
 
     # ---- cluster admin -------------------------------------------------------
 

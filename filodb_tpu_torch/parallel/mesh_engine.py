@@ -51,6 +51,27 @@ steps, so here each grid is launched on its own over the shared batch. A
 histogram batch under an aggregation other than ``sum`` goes to exec
 there, as the reference's batch declines it.
 
+The per-series window cache (the reference's split pipeline,
+``_series_eval_cached``): a leaf's evaluated windows [P, K] (the
+windowing stage's answer, before any aggregation) are kept on the card in
+the ``BatchCache``, keyed as the reference keys them, by the batch's key
+and version, the window, the step grid and the function (the functions of
+``SPLIT_FNS``; the instant selector is the reference's
+``last_over_time``). Every aggregation over one inner range function
+shares an entry, so a warm query runs only the group reduce and the
+device→host copy, and launches no B3 or B4. Entries count against the
+batch cache's budget (least recently used dropped first) and, stamped
+with the batch's version, are dropped once the store ingests; counted in
+``filodb_mesh_eval_cache{event}``. B3 fuses decode, counter correction
+and the window bounds, so the reference's prepare and bounds stages have
+no counterpart and no cache of their own (ROADMAP §C).
+``FILODB_MESH_SPLIT=0``, read at query time, turns the cache off, as in
+the reference.
+
+A query's deadline (``utils.resilience.Deadline``, handed to ``execute``
+and ``execute_many``) is checked where each leaf starts and ends, never
+inside a kernel.
+
 ``supports`` decides, before anything runs, whether the engine serves a
 plan, as the reference's ``supports`` does: from the plan, and from the
 shards' indexes for which selectors match histograms. For any other plan
@@ -64,6 +85,7 @@ over a histogram that the exec engine answers go there.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, replace
 
 import numpy as np
@@ -110,6 +132,36 @@ from filodb_tpu_torch.query.model import (
     StepMatrix,
     UnsupportedQuery,
 )
+from filodb_tpu_torch.utils.metrics import get_counter
+from filodb_tpu_torch.utils.resilience import check
+
+# the reference's split-pipeline functions (``dist_query.SPLIT_FNS``) and
+# the instant selector, which the reference evaluates as last_over_time:
+# their evaluated windows are cached
+SPLIT_FNS = ("rate", "increase", "delta", "sum_over_time",
+             "count_over_time", "avg_over_time", "last_over_time",
+             "present_over_time", "stddev_over_time", "stdvar_over_time",
+             "last_sample")
+_M_EVAL = {e: get_counter("filodb_mesh_eval_cache", {"event": e},
+                          help="cached per-series window evaluation "
+                          "hits/misses on the split pipeline")
+           for e in ("hit", "miss")}
+
+
+def split_enabled() -> bool:
+    """The window cache's valve, ``FILODB_MESH_SPLIT`` (on unless "0")."""
+    return os.environ.get("FILODB_MESH_SPLIT", "1") != "0"
+
+
+@dataclass
+class Evaluated:
+    """A window-cache entry: a leaf's evaluated windows, the stats its
+    evaluation counted, its device bytes and its batch's version."""
+
+    matrix: StepMatrix
+    stats: QueryStats
+    nbytes: int
+    version: int
 
 # range functions a histogram leaf serves here. The exec engine also
 # answers timestamp (in seconds from the batch start, not epoch seconds)
@@ -233,11 +285,13 @@ class MeshQueryEngine:
         self._kinds: dict = {}
         self._kinds_of = None
         # while ``execute_many`` runs: leaf signature → (the group's shared
-        # batch, its evaluations by grid); None otherwise
+        # batch, its evaluations by grid, its batch key); None otherwise
         self._shared: dict | None = None
         # while ``execute_many`` checks its plans: the leaves ``_check``
         # lowers are appended here
         self._collect: list | None = None
+        # the deadline of the query or batch running
+        self._deadline = None
 
     # ---- what the engine serves, decided before anything runs ---------------
 
@@ -368,12 +422,16 @@ class MeshQueryEngine:
         """The leaf's batch over every shard (``_batch_over``)."""
         return self._batch_over(memstore, low.filters, *low.chunk_range)
 
+    @staticmethod
+    def _batch_key(filters, lo_ms: int, hi_ms: int) -> tuple:
+        return ("mesh", str(filters), lo_ms, hi_ms)
+
     def _batch_over(self, memstore, filters, lo_ms: int, hi_ms: int
                     ) -> DeviceBatch:
         """The batch of a selector over every shard and the data range
         [lo_ms, hi_ms], cached per (selector, data range) until the store
         ingests again."""
-        key = ("mesh", str(filters), lo_ms, hi_ms)
+        key = self._batch_key(filters, lo_ms, hi_ms)
         batch = self.batches.get(key, memstore)
         if batch is None:
             # each shard's version before its lookup
@@ -391,25 +449,63 @@ class MeshQueryEngine:
         """Device bytes of the packed pages the engine holds."""
         return self.batches.nbytes("mesh")
 
+    @property
+    def window_cache(self) -> tuple[int, int]:
+        """(entries, device bytes) of the window cache."""
+        held = self.batches.batches("mesh-eval")
+        return len(held), sum(e.nbytes for e in held)
+
     def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
-        """A leaf at its steps through its windowing stage; in
-        ``execute_many``, over its group's shared batch, once a grid."""
+        """A leaf at its steps through its windowing stage, from the window
+        cache where it holds it; in ``execute_many``, over its group's
+        shared batch, once a grid."""
+        check(self._deadline, "the mesh engine's leaf")
         shared = self._shared.get(low.signature) if self._shared else None
-        batch = self._batch(memstore, low) if shared is None else shared[0]
+        if shared is None:
+            bkey = self._batch_key(low.filters, *low.chunk_range)
+            batch = self._batch(memstore, low)
+        else:
+            batch, _, bkey = shared
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
-        if shared is None:
-            return low.mapper.eval_batch(batch, stats)
-        evals = shared[1]
-        m = evals.get((low.start, low.end))
-        if m is None:
-            m = evals[(low.start, low.end)] = low.mapper.eval_batch(batch,
-                                                                    stats)
-        # a matrix of the member's own: what is above it settles in place
+        if split_enabled() and low.fn in SPLIT_FNS:
+            m = self._evaluated(memstore, bkey, batch, low, stats)
+        elif shared is None:
+            m = low.mapper.eval_batch(batch, stats)
+        else:
+            m = shared[1].get((low.start, low.end))
+            if m is None:
+                m = shared[1][(low.start, low.end)] = \
+                    low.mapper.eval_batch(batch, stats)
+        check(self._deadline, "the mesh engine's leaf")
+        # a matrix of the leaf's own: what is above it settles in place
         return replace(m)
 
+    def _evaluated(self, memstore, bkey: tuple, batch, low: Lowered,
+                   stats: QueryStats) -> StepMatrix:
+        """The leaf's evaluated windows through the window cache, keyed as
+        the reference's ``_series_eval_cached``: the batch's key (and, by
+        the cache's stamp, its version), the window, the step grid and the
+        function (with its parameters, offset and ``@``)."""
+        ekey = ("mesh-eval", bkey, low.window, low.start, low.step, low.end,
+                low.fn, low.params, low.offset, low.at_ms, low.keep_metric)
+        hit = self.batches.get(ekey, memstore)
+        if hit is not None:
+            _M_EVAL["hit"].inc()
+            stats.merge_counts(hit.stats)
+            return hit.matrix
+        _M_EVAL["miss"].inc()
+        counted = QueryStats()
+        m = low.mapper.eval_batch(batch, counted)
+        stats.merge_counts(counted)
+        values = torch.as_tensor(m.values)
+        self.batches.put(ekey, memstore, None, Evaluated(
+            m, counted, values.numel() * values.element_size(),
+            batch.version))
+        return m
+
     def execute_many(self, memstore, plans: list,
-                     stats_list: list[QueryStats]) -> list:
+                     stats_list: list[QueryStats], deadline=None) -> list:
         """Evaluate many plans with one batch a leaf signature: the leaves
         of every served plan are grouped by ``Lowered.signature`` (all but
         the step grid), each group's batch is selected, packed and
@@ -436,13 +532,15 @@ class MeshQueryEngine:
             for low in lows:
                 groups.setdefault(low.signature, []).append(low)
         self._shared, failed = {}, {}
+        self._deadline = deadline
         try:
             for sig, lows in groups.items():
                 try:
-                    self._shared[sig] = (self._batch_over(
-                        memstore, lows[0].filters,
-                        min(lo.chunk_range[0] for lo in lows),
-                        max(lo.chunk_range[1] for lo in lows)), {})
+                    span = (lows[0].filters,
+                            min(lo.chunk_range[0] for lo in lows),
+                            max(lo.chunk_range[1] for lo in lows))
+                    self._shared[sig] = (self._batch_over(memstore, *span),
+                                         {}, self._batch_key(*span))
                 except Exception as e:  # noqa: BLE001 - at each member
                     failed[sig] = e
             for i, lows in leaves.items():
@@ -457,6 +555,7 @@ class MeshQueryEngine:
                     out[i] = e
         finally:
             self._shared = None
+            self._deadline = None
         return out
 
     # ---- the plan above the leaves ------------------------------------------
@@ -524,11 +623,16 @@ class MeshQueryEngine:
         scalar execs answer."""
         return StepMatrix([RangeVectorKey(())], values[None, :], steps_ms)
 
-    def execute(self, memstore, plan, stats: QueryStats) -> StepMatrix:
+    def execute(self, memstore, plan, stats: QueryStats,
+                deadline=None) -> StepMatrix:
         """Evaluate ``plan``; where the engine does not serve it, raise
         ``UnsupportedQuery`` before anything runs (``supports``)."""
         self._check(memstore, plan)
-        return self._eval(memstore, plan, stats)
+        self._deadline = deadline
+        try:
+            return self._eval(memstore, plan, stats)
+        finally:
+            self._deadline = None
 
     def _eval(self, memstore, plan, stats: QueryStats) -> StepMatrix:
         """The one place that walks a plan tree, once ``_check`` passed."""

@@ -17,9 +17,14 @@ whose exactness the lane cannot keep bypasses to the decode lane and counts
 in ``filodb_sidecar_bypassed``: an ineligible function, parameters, an ``@``
 pin, histogram columns, a partition that needs demand paging (an evicted
 one among them), chunks out of time order, a write buffer that does not
-follow its chunks, and a fold the gate says would not pay
-(``FILODB_SIDECAR_SEALED_GATE``). ``quantile_over_time`` is served from the
-sketches only under ``FILODB_SIDECAR_APPROX=1``.
+follow its chunks, a query with a scan budget (the decode lane counts its
+samples), and a fold the cost model's ``sidecar`` site sends to decode.
+That site's static arm is the reference's geometry gate
+(``FILODB_SIDECAR_SEALED_GATE``; 0 or less always folds, the override);
+once the model has settled times for both arms of a partition-window
+class it takes the cheaper (``query/cost_model.py``).
+``quantile_over_time`` is served from the sketches only under
+``FILODB_SIDECAR_APPROX=1``.
 
 The port's idiom: the folds and the formulas are float64 torch ops on the
 service's device. The interior stats are the shard's summary columns,
@@ -73,6 +78,7 @@ from filodb_tpu_torch.memory.chunk import (
     sketch_values,
     summarize,
 )
+from filodb_tpu_torch.query import cost_model as cm
 from filodb_tpu_torch.query.engine.device_batch import (
     decode_packed,
     pack_blocks,
@@ -555,6 +561,8 @@ def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
             raise _Bypass("@")
         if psm.params and fn != "quantile_over_time":
             raise _Bypass("parameters")
+        if ctx.budget is not None:
+            raise _Bypass("a scan budget")  # the decode lane counts it
         # the shard's chunk table and write buffers are read as of one
         # version: an ingest or an eviction waits for the fold
         with shard.lock:
@@ -564,6 +572,9 @@ def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
         SIDECAR_BYPASSED.inc()
         why = ctx.stats.sidecar_bypassed
         why[e.args[0]] = why.get(e.args[0], 0) + 1
+        # the decode lane serves the leaf now: a pending decision whose
+        # arm did not run settles under "decode", its prediction dropped
+        cm.CostModel.relabel_deferred(ctx, "sidecar", "decode")
         return None
 
 
@@ -593,7 +604,7 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
     mats, acc = [], {"samples": 0.0, "sidecar": 0, "decoded": 0}
     for s, spids in _by_schema(shard, pids):
         if fn != "quantile_over_time" \
-                and not _sealed_fold_pays(shard, spids, t0s, t1s):
+                and not _sealed_arm(shard, spids, t0s, t1s, ctx):
             raise _Bypass("static gate")  # the decode lane amortizes better
         if not shard.values_exact(spids, leaf.chunk_start, leaf.chunk_end):
             raise _Bypass("values float32 does not hold")
@@ -606,8 +617,8 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
             ctx.batches.put(key, shard, spids, bundle)
         counter = SCHEMAS[_schema_name(s)].is_counter
         if fn == "quantile_over_time":
-            out = _quantile(shard, spids, bundle, float(psm.params[0]), t0s,
-                            t1s, leaf.chunk_start, dev, acc)
+            out = _quantile(ctx, shard, spids, bundle, float(psm.params[0]),
+                            t0s, t1s, leaf.chunk_start, dev, acc)
         else:
             st = _group_stats(shard, spids, bundle, t0s, t1s,
                               leaf.chunk_start, dev, acc)
@@ -635,15 +646,12 @@ def _schema_name(s: int) -> str:
 
 
 def _sealed_fold_pays(shard, pids: np.ndarray, t0s: np.ndarray,
-                      t1s: np.ndarray) -> bool:
+                      t1s: np.ndarray) -> tuple[bool, int]:
     """The reference's static decision, taken from the chunk table before
-    anything is built: serve below the free count of sealed
-    partition-windows, bypass past the gate, and in between only where a
-    window skips enough interior samples, judged from the first
-    overlapping partition's first eight chunks."""
-    gate = _sealed_gate()
-    if gate <= 0:
-        return True
+    anything is built, and the sealed partitions it counted: serve below
+    the free count of sealed partition-windows, bypass past the gate, and
+    in between only where a window skips enough interior samples, judged
+    from the first overlapping partition's first eight chunks."""
     col = shard._sealed.columns
     hit = (col["t1"] > t0s.min()) & (col["t0"] <= t1s.max()) & ~col["dead"]
     overlap = np.zeros(shard.num_partitions, bool)
@@ -651,23 +659,46 @@ def _sealed_fold_pays(shard, pids: np.ndarray, t0s: np.ndarray,
     overlap = overlap[pids]
     W = len(t0s)
     n_sealed = int(overlap.sum())
-    if n_sealed == 0:
-        return True
+    gate = _sealed_gate()
+    if n_sealed == 0 or gate <= 0:
+        return True, n_sealed
     if n_sealed * W > gate:
-        return False
+        return False, n_sealed
     if n_sealed * W <= _SEALED_FREE_PART_WINDOWS:
-        return True
+        return True, n_sealed
     first = np.flatnonzero((col["pid"] == pids[np.argmax(overlap)])
                            & ~col["dead"])
     first = first[np.argsort(col["cid"][first])][:8]
     spans = col["t1"][first] - col["t0"][first]
     ok = spans > 0
     if not ok.any():
-        return False
+        return False, n_sealed
     span = float(np.median(spans[ok]))
     density = float(np.median(col["rows"][first])) / span
     skipped = max(0.0, float((t1s - t0s).max()) - 2.0 * span) * density
-    return skipped >= _SEALED_MIN_SKIPPED_SAMPLES
+    return skipped >= _SEALED_MIN_SKIPPED_SAMPLES, n_sealed
+
+
+def _sealed_arm(shard, pids: np.ndarray, t0s: np.ndarray,
+                t1s: np.ndarray, ctx) -> bool:
+    """Fold against decode as the cost model's ``sidecar`` site decides
+    (the reference's ``_sealed_arm``): the static decision
+    (``_sealed_fold_pays``) is the static arm; once the model has settled
+    wall times for both arms of this partition-window class, the
+    predicted-cheaper arm wins. ``FILODB_SIDECAR_SEALED_GATE<=0`` stays
+    the override that always folds. The decision defers onto ``ctx``; the
+    leaf settles it with its evaluation's wall time."""
+    static_serve, n_sealed = _sealed_fold_pays(shard, pids, t0s, t1s)
+    if n_sealed == 0:
+        return True  # nothing sealed: the fold reads the buffers only
+    model = cm.model_for(ctx.dataset)
+    d = model.decide(
+        "sidecar", f"fold:pw{cm.bucket(n_sealed * len(t0s))}",
+        ("sidecar", "decode"),
+        static_arm="sidecar" if static_serve else "decode",
+        override="sidecar" if _sealed_gate() <= 0 else None)
+    model.defer(ctx, d)
+    return d.arm == "sidecar"
 
 
 def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
@@ -718,14 +749,21 @@ def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
     return merge(pre, bufs).reshape(P, W, STATS_WIDTH)
 
 
-def _quantile(shard, pids, b: SidecarBundle, q: float, t0s, t1s, base: int,
-              dev, acc) -> torch.Tensor:
+def _quantile(ctx, shard, pids, b: SidecarBundle, q: float, t0s, t1s,
+              base: int, dev, acc) -> torch.Tensor:
     """Approximate quantile_over_time [P, W] from the sketches: interior
     chunks give their stored sketch, edge chunks and the write buffer the
     sketch of their window's values (the pages' float32 ones)."""
     P, W = len(pids), len(t0s)
     gate = _sealed_gate()
-    if gate > 0 and P * W > gate:
+    # the sketch merge's fold against decode, at the same site
+    model = cm.model_for(ctx.dataset)
+    d = model.decide(
+        "sidecar", f"quantile:pw{cm.bucket(P * W)}", ("sidecar", "decode"),
+        static_arm="decode" if gate > 0 and P * W > gate else "sidecar",
+        override="sidecar" if gate <= 0 else None)
+    model.defer(ctx, d)
+    if d.arm != "sidecar":
         raise _Bypass("static gate")  # a per-window sketch merge
     _, i0, i1, _, _ = _interior(b, t0s, t1s, dev)
     Cs = np.diff(b.offs)

@@ -28,13 +28,26 @@ batch's samples as that lane counts them (the page lane every row of the
 selected blocks, the host-decode lane the in-range non-NaN samples, as
 the reference's two lanes count).
 
+A query's ``ExecContext`` carries its deadline and its budget
+(``utils.governor.QueryBudget``). A leaf and a gather check the deadline
+where they start and a leaf again where it ends; a leaf stops at the
+samples budget, ``ReduceAggregateExec`` at the group-cardinality budget
+(a breach in ``degrade="partial"`` flags the context partial with the
+budget's warning; in ``"error"`` it raises). Spans wrap the reference's
+stages: ``scan`` (the sidecar attempt and the batches), ``decode`` (a
+batch built), ``reduce`` (the windowing and the leaf's other
+transformers, and the root's aggregation). After its sidecar attempt a
+leaf settles the cost model's deferred ``sidecar`` decisions with its
+whole evaluation's wall time, the card synchronized first.
+
 Left out, with the reason in ``ROADMAP.md``: the plan dispatchers, remote
-dispatch and partial results (a plan runs where it is, ``execute``),
-two-phase aggregation pushdown, and the governor's budgets and limits.
+dispatch and partial scatter-gather (a plan runs where it is,
+``execute``), and two-phase aggregation pushdown.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -55,12 +68,15 @@ from filodb_tpu_torch.query.exec.transformers import (
     steps_array,
     tensor_of,
 )
+from filodb_tpu_torch.query.cost_model import CostModel
 from filodb_tpu_torch.query.model import (
     QueryLimitExceeded,
     QueryStats,
     RangeVectorKey,
     StepMatrix,
 )
+from filodb_tpu_torch.utils.resilience import check
+from filodb_tpu_torch.utils.tracing import span
 
 @dataclass
 class ExecContext:
@@ -73,10 +89,41 @@ class ExecContext:
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     batches: BatchCache | None = None
     gids: GroupIdCache = field(default_factory=GroupIdCache)
+    # the query's deadline (``utils.resilience.Deadline``) and scan budget
+    # (``utils.governor.QueryBudget``); None: none
+    deadline: object = None
+    budget: object = None
+    # a budget in ``degrade="partial"`` stopped the query
+    partial: bool = False
+    warnings: list[str] = field(default_factory=list)
 
     def __post_init__(self):
         if self.batches is None:
             self.batches = BatchCache(self.device)
+
+    @property
+    def dataset(self) -> str:
+        """The cost model's key."""
+        return self.memstore.dataset
+
+
+def apply_result_budget(data: StepMatrix, ctx) -> StepMatrix:
+    """The result-bytes budget over a materialized answer: in
+    ``degrade="partial"`` the rows that fit (the breach flagged on
+    ``ctx``); ``"error"`` raises from the check."""
+    budget = getattr(ctx, "budget", None)
+    if budget is None or not isinstance(data.values, np.ndarray) \
+            or data.num_series == 0:
+        return data
+    nbytes = int(data.values.nbytes)
+    if not budget.check_result_bytes(ctx, nbytes):
+        return data
+    per_row = max(1, nbytes // data.num_series)
+    keep = max(1, int(budget.max_result_bytes) // per_row)
+    if keep >= data.num_series:
+        return data
+    return StepMatrix(list(data.keys[:keep]), data.values[:keep],
+                      data.steps_ms, les=data.les)
 
 
 @dataclass
@@ -145,6 +192,17 @@ class SelectRawPartitionsExec(ExecPlan):
     value_column: str | None = None
 
     def execute(self, ctx: ExecContext) -> StepMatrix:
+        check(ctx.deadline, "SelectRawPartitionsExec")
+        t0 = time.perf_counter()
+        data = self._execute(ctx)
+        if getattr(ctx, "_cost_decisions", None):
+            if ctx.device.type == "cuda":
+                torch.cuda.synchronize(ctx.device)
+            CostModel.settle_deferred(ctx, time.perf_counter() - t0)
+        check(ctx.deadline, "SelectRawPartitionsExec")
+        return data
+
+    def _execute(self, ctx: ExecContext) -> StepMatrix:
         # a shard with no matching partition answers the empty matrix
         # without running the transformers, as the reference's leaf does
         shard = ctx.memstore.shards[self.shard]
@@ -159,38 +217,69 @@ class SelectRawPartitionsExec(ExecPlan):
                 f"limit {limit}")
         ctx.stats.series_scanned += len(pids)
         psm, rest = self.transformers[0], self.transformers[1:]
-        data = sidecar_lane.try_execute(self, ctx, shard, pids, version)
-        if data is not None:
+        with span("scan", shard=self.shard):
+            data = sidecar_lane.try_execute(self, ctx, shard, pids, version)
+            batches = None if data is not None \
+                else self._scan_batches(ctx, shard, pids, version, psm)
+        if data is None and batches is None:
+            return StepMatrix.empty()
+        with span("reduce"):
+            if data is None:
+                data = StepMatrix.concat([psm.eval_batch(b, ctx.stats)
+                                          for b in batches])
             for t in rest:
                 data = _applied(t, data, ctx)
-            return data
+        return data
+
+    def _scan_batches(self, ctx, shard, pids, version, psm) -> list | None:
+        """The leaf's batches, a schema each (None: no partition); stops
+        at the samples budget, which counts this leaf's samples."""
         if not len(pids):
-            return StepMatrix.empty()
+            return None
         if not isinstance(psm, PeriodicSamplesMapper):
             raise ValueError("a leaf's transformers start with "
                              "PeriodicSamplesMapper")
-        mats = []
+        batches, scanned = [], 0
         for s, spids in _by_schema(shard, pids):
             key = ("exec", self.shard, s, str(self.filters),
                    self.chunk_start, self.chunk_end, self.value_column)
             batch = ctx.batches.get(key, shard, spids)
             if batch is None:
-                batch = build_device_batch([(shard, spids)], self.chunk_start,
-                                           self.chunk_end, ctx.device,
-                                           self.value_column, [version])
+                with span("decode", schema=s, partitions=len(spids)):
+                    batch = build_device_batch(
+                        [(shard, spids)], self.chunk_start, self.chunk_end,
+                        ctx.device, self.value_column, [version])
                 ctx.batches.put(key, shard, spids, batch)
                 version = batch.version  # this build's page-ins included
-            ctx.stats.samples_scanned += int(batch.counts.sum())
-            mats.append(psm.eval_batch(batch, ctx.stats))
-        data = StepMatrix.concat(mats)
-        for t in rest:
-            data = _applied(t, data, ctx)
-        return data
+            n = int(batch.counts.sum())
+            ctx.stats.samples_scanned += n
+            scanned += n
+            batches.append(batch)
+            if ctx.budget is not None \
+                    and ctx.budget.check_samples(ctx, scanned):
+                break
+        return batches
 
     def __repr__(self):
         f = ",".join(str(x) for x in self.filters)
         return (f"SelectRawPartitionsExec(shard={self.shard}, filters=[{f}], "
                 f"range=[{self.chunk_start},{self.chunk_end}])")
+
+
+def _cardinality_budget(ctx, data: StepMatrix, groups):
+    """The group-cardinality budget, checked before the aggregation runs:
+    in ``degrade="partial"`` the series of the first ``limit`` groups and
+    those groups (``"error"`` raises from the check)."""
+    gids, out_keys = groups
+    budget = ctx.budget
+    if budget is None or not budget.check_cardinality(ctx, len(out_keys)):
+        return data, groups
+    limit = int(budget.max_group_cardinality)
+    g = torch.as_tensor(gids)  # on the values' device (``GroupIdCache``)
+    idx = (g < limit).nonzero().squeeze(1)
+    return StepMatrix([data.keys[i] for i in idx.tolist()],
+                      torch.as_tensor(data.values)[idx], data.steps_ms,
+                      les=data.les), (g[idx], out_keys[:limit])
 
 
 def _by_schema(shard, pids: np.ndarray) -> list[tuple[int, np.ndarray]]:
@@ -218,6 +307,7 @@ class NonLeafExecPlan(ExecPlan):
         """The children's answers in child order, run one after another on
         the calling thread (they share ``ctx``, as the reference's
         in-process children do)."""
+        check(ctx.deadline, type(self).__name__ + ".gather")
         return [c.execute(ctx) for c in self.children_plans]
 
 
@@ -247,7 +337,10 @@ class ReduceAggregateExec(NonLeafExecPlan):
         amr = AggregateMapReduce(self.op, self.params, self.by, self.without)
         if data.num_series == 0:
             return data
-        return amr.apply(data, ctx.gids.of(amr, data))
+        with span("reduce", op=self.op):
+            data, groups = _cardinality_budget(ctx, data,
+                                               ctx.gids.of(amr, data))
+            return amr.apply(data, groups)
 
     def __repr__(self):
         return (f"ReduceAggregateExec(op={self.op}, by={self.by}, "

@@ -1,7 +1,8 @@
 """Query result model.
 
 Port of ``filodb_tpu/query/model.py`` (``RangeVectorKey``, ``StepMatrix``,
-``QueryStats``, ``QueryResult``, ``PlannerParams``, ``QueryContext``): a
+``QueryStats``, ``QueryResult``, ``PlannerParams``, ``QueryContext``,
+``TraceContext``): a
 batch of series keys plus a dense
 [P, K] value matrix over shared step timestamps, NaN marking "no sample";
 a histogram matrix holds [P, K, B] values under bucket bounds ``les`` [B].
@@ -225,6 +226,8 @@ class QueryStats:
     # the extent result cache's: extents served from it, and evaluated
     cache_hits: int = 0
     cache_misses: int = 0
+    # seconds the query waited in the governor's admission queue
+    admission_wait_s: float = 0.0
 
     def merge_counts(self, other: "QueryStats") -> None:
         """Fold a sub-query's counts into these (the extent cache folds
@@ -232,7 +235,7 @@ class QueryStats:
         stay the caller's."""
         for name in ("series_scanned", "samples_scanned", "precise_lane",
                      "host_lane", "chunks_touched", "sidecar_chunks",
-                     "cache_hits", "cache_misses"):
+                     "cache_hits", "cache_misses", "admission_wait_s"):
             setattr(self, name, getattr(self, name) + getattr(other, name))
         for reason, n in other.sidecar_bypassed.items():
             self.sidecar_bypassed[reason] = \
@@ -240,10 +243,24 @@ class QueryStats:
 
 
 @dataclass
+class TraceContext:
+    """A query's trace, set by ``tracing.traced_query`` where the query is
+    sampled or joins an active trace."""
+
+    trace_id: str = ""
+    parent_span_id: int = 0
+    sampled: bool = False
+
+
+@dataclass
 class QueryResult:
     result: StepMatrix
     stats: QueryStats = field(default_factory=QueryStats)
     query_id: str = ""
+    # a budget in ``degrade="partial"`` stopped the query: what it has,
+    # flagged, with the budget's warning (the Prom JSON renders both)
+    partial: bool = False
+    warnings: list[str] = field(default_factory=list)
 
 
 @dataclass
@@ -254,12 +271,15 @@ class PlannerParams:
     # its default (None: not set)
     spread: "int | None" = None
     # result samples (series × steps) above which a query raises
-    # ``QueryLimitExceeded``; None: no limit (the reference's default of
-    # 1,000,000 is not applied by the port, ROADMAP §C)
-    sample_limit: "int | None" = None
+    # ``QueryLimitExceeded``, where ``enforce_sample_limit``
+    sample_limit: int = 1_000_000
+    enforce_sample_limit: bool = True
     # shard overrides: neither package's planner reads them; the extent
     # cache bypasses a query that sets them, as the reference's does
     shard_overrides: "list[int] | None" = None
+    # the query's scan budget (``utils.governor.QueryBudget``); None: the
+    # service attaches the governor's default (none unless configured)
+    budget: "object | None" = None
 
 
 @dataclass
@@ -269,13 +289,17 @@ class QueryContext:
     query_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     origin: str = ""  # who asked: "" (a user), "rules", ...
     planner_params: PlannerParams = field(default_factory=PlannerParams)
+    # set by ``tracing.traced_query`` where the query is traced
+    trace: "TraceContext | None" = None
 
 
 def enforce_limits(data: StepMatrix, qcontext: QueryContext) -> None:
     """Raise ``QueryLimitExceeded`` where ``data`` (materialized) holds
-    more samples than the query's ``sample_limit``."""
-    limit = qcontext.planner_params.sample_limit
-    if limit is not None and data.num_series * data.num_steps > limit:
+    more samples than the query's ``sample_limit`` (1,000,000 by default,
+    as the reference's)."""
+    pp = qcontext.planner_params
+    limit = pp.sample_limit
+    if pp.enforce_sample_limit and data.num_series * data.num_steps > limit:
         raise QueryLimitExceeded(
             f"result samples {data.num_series * data.num_steps} > limit "
             f"{limit}")

@@ -31,12 +31,15 @@ negative offsets, metadata plans, a bare raw selector, queries with a
 per-query spread or shard overrides (they change what is read). The
 reference also bypasses a service whose store lacks some of its
 dataset's shards, whose ingest the local versions would not see; a port
-store holds every shard of its dataset (one node). The port's engines
-answer whole or raise, so no partial answer can be kept. Admission takes
-the reference's static arm (``"keep"``) while the port has no cost model
-(ROADMAP §C): an extent is admitted at low priority only when its caller
-says it is cheap to recompute, and such entries go first under byte
-pressure.
+store holds every shard of its dataset (one node). An extent
+answered partial (a budget in ``degrade="partial"``) is neither kept nor
+spliced: the query is evaluated whole, as the reference surrenders it.
+Admission is the cost model's ``cache`` site, as the reference's: each
+evaluated extent's recompute time settles under its signature class, and
+an extent predicted to recompute in under 2 ms is admitted at low
+priority and goes first under byte pressure (a cold model keeps every
+extent, ``"keep"``). The port evaluates the missing extents together, so
+each one settles the batch's wall time over their number.
 """
 
 from __future__ import annotations
@@ -56,7 +59,13 @@ from filodb_tpu_torch.query.model import (
     StepMatrix,
     enforce_limits,
 )
+from filodb_tpu_torch.query import cost_model as cm
 from filodb_tpu_torch.utils.metrics import Gauge, get_counter
+from filodb_tpu_torch.utils.tracing import span
+
+# an extent predicted to recompute faster than this is admitted at low
+# priority (the reference's ``_CHEAP_RECOMPUTE_S``)
+_CHEAP_RECOMPUTE_S = 0.002
 
 cache_hits = get_counter("filodb_result_cache_hits",
                          help="result extents served from the cache")
@@ -322,25 +331,42 @@ class ResultCache:
         # page-in would evict the last one's pages past the page cache's
         # bound and read them again)
         stats = QueryStats()
-        answers = svc._execute_many_uncached(
-            [retime_extent(plan, full[i][2], key[2])
-             for i, key, _ in missing],
-            QueryContext(planner_params=pp, origin=qcontext.origin))
-        for (i, key, stamp), r in zip(missing, answers):
-            if isinstance(r, Exception):
-                raise r
-            self._put(key, stamp, r.result)
-            full[i] = full[i][:3] + (r.result,)
-            stats.merge_counts(r.stats)
-        parts = [(es, ee, _slice_steps(m, fs, step, es, ee))
-                 for es, ee, fs, m in full]
         misses = len(missing)
         hits = len(extents) - misses
-        cache_hits.inc(hits)
-        cache_misses.inc(misses)
-        if 0 < hits < len(extents):
-            cache_partial_hits.inc()
-        merged = _merge_extents(parts, step)
+        with span("cache", extents=len(extents)) as sp:
+            t_eval = time.perf_counter()
+            answers = svc._execute_many_uncached(
+                [retime_extent(plan, full[i][2], key[2])
+                 for i, key, _ in missing],
+                QueryContext(planner_params=pp, origin=qcontext.origin))
+            each_s = (time.perf_counter() - t_eval) / max(misses, 1)
+            for r in answers:
+                if isinstance(r, Exception):
+                    raise r
+                if r.partial or r.warnings:
+                    # a degraded extent is neither kept nor spliced
+                    cache_misses.inc(misses)
+                    cache_hits.inc(hits)
+                    return svc._execute_uncached(plan, qcontext)
+            model = cm.model_for(svc.dataset)
+            for (i, key, stamp), r in zip(missing, answers):
+                # admission priority by recompute cost: the "cache" site
+                d = model.classify("cache", sig, _CHEAP_RECOMPUTE_S,
+                                   below_arm="cheap", above_arm="keep",
+                                   static_arm="keep")
+                model.record_actual(d, each_s)
+                self._put(key, stamp, r.result, cheap=d.arm == "cheap")
+                full[i] = full[i][:3] + (r.result,)
+                stats.merge_counts(r.stats)
+            parts = [(es, ee, _slice_steps(m, fs, step, es, ee))
+                     for es, ee, fs, m in full]
+            cache_hits.inc(hits)
+            cache_misses.inc(misses)
+            if 0 < hits < len(extents):
+                cache_partial_hits.inc()
+            merged = _merge_extents(parts, step)
+            if sp is not None:
+                sp.tags.update(hits=hits, misses=misses, bytes=self._bytes)
         if merged is None:
             # histogram buckets that differ between extents: evaluate whole
             return svc._execute_uncached(plan, qcontext)

@@ -12,6 +12,17 @@ default, or ``threaded``) with the rendered-response cache unless
 ``http_response_cache`` is false and, with a ``gateway_port``, the Influx
 gateway into the first dataset's logs.
 
+The node's control plane, as the reference's: the ``resilience``,
+``governor`` and ``tracing`` blocks configure their process-wide modules
+at construction (before any shard is made, so tenant quotas apply to
+every shard); each dataset's cost model loads its persisted estimates at
+boot and saves them at shutdown (``coordinator/adaptive_planner.py``,
+``<data_dir>/columnstore/<dataset>/costmodel.json``); a ``MemoryWatchdog``
+samples the result caches' bytes against their budgets, evicts the caches
+when the node leaves OK, and stops (back to OK) at shutdown. The
+reference's second source, the write-buffer pools, has no counterpart:
+the port's write buffers are columnar arrays without a pool (ROADMAP §C).
+
 It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
 version on the CPU, as the tests do. Without a card it raises; nothing
 carries on on the CPU unasked. Options the port lacks raise at
@@ -28,8 +39,10 @@ import os
 import signal
 import sys
 import time
+import weakref
 
 from filodb_tpu_torch.config import NOT_ACTED_ON, ServerConfig
+from filodb_tpu_torch.coordinator import adaptive_planner
 from filodb_tpu_torch.coordinator.cluster import FilodbCluster, Node
 from filodb_tpu_torch.core.store.localstore import (
     LocalDiskColumnStore,
@@ -40,6 +53,7 @@ from filodb_tpu_torch.gateway.server import ContainerSink, GatewayServer
 from filodb_tpu_torch.http.fastserver import FastHttpServer
 from filodb_tpu_torch.http.server import FiloHttpServer
 from filodb_tpu_torch.kafka.log import SegmentedFileLog
+from filodb_tpu_torch.utils import governor, resilience, tracing
 
 log = logging.getLogger(__name__)
 
@@ -48,6 +62,9 @@ class FiloServer:
     def __init__(self, config: ServerConfig, device=None):
         config.check_supported()
         self.config = config
+        resilience.configure(**config.resilience)
+        governor.configure(**config.governor)
+        tracing.configure(**config.tracing)
         self.device = resolve(device)
         os.makedirs(config.data_dir, exist_ok=True)
         root = os.path.join(config.data_dir, "columnstore")
@@ -59,6 +76,7 @@ class FiloServer:
         self.services: dict = {}
         self.http = None
         self.gateway: GatewayServer | None = None
+        self.watchdog: governor.MemoryWatchdog | None = None
 
     def _wal_path(self, dataset: str, shard: int) -> str:
         root = self.config.wal_dir or os.path.join(self.config.data_dir,
@@ -84,6 +102,9 @@ class FiloServer:
             self.services[name] = self.cluster.query_service(
                 name, engine=cfg.engines.get(name, "mesh"),
                 device=self.device, result_cache=cfg.result_cache)
+            # learned cost estimates, before any query is admitted
+            adaptive_planner.install(name, self.meta_store, cfg.cost_model)
+        self.watchdog = self._watchdog().start()
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
         self.http = http_cls(self.services, port=cfg.http_port,
@@ -102,9 +123,39 @@ class FiloServer:
                  self.gateway.port if self.gateway else "off", self.device)
         return self
 
+    def _watchdog(self) -> governor.MemoryWatchdog:
+        """The memory watchdog over the result caches' bytes; leaving OK
+        evicts them. Tenant series gauges sum the node's shards."""
+        wd = governor.MemoryWatchdog()
+        for name, svc in self.services.items():
+            if svc.result_cache is None:
+                continue
+            ref = weakref.ref(svc.result_cache)
+
+            def fraction(ref=ref):
+                rc = ref()
+                return None if rc is None \
+                    else rc.nbytes / max(1, rc.config.max_bytes)
+
+            wd.add_source(f"result_cache.{name}", fraction)
+
+        def evict_caches(_state):
+            for svc in self.services.values():
+                if svc.result_cache is not None:
+                    svc.result_cache.clear()
+
+        wd.on_degraded.append(evict_caches)
+        governor.register_tenant_series_gauges(
+            lambda: [sh for svc in self.services.values()
+                     for sh in svc.memstore.shards])
+        return wd
+
     def shutdown(self):
-        """Stop the fronts, the workers and the scheduler, then close the
+        """Stop the watchdog (the governor back to OK), the fronts, the
+        workers and the scheduler, save the cost models, then close the
         logs and the stores."""
+        if self.watchdog is not None:
+            self.watchdog.stop()
         if self.http is not None:
             self.http.stop()
         if self.gateway is not None:
@@ -112,6 +163,8 @@ class FiloServer:
         self.cluster.stop()
         for lg in self.logs.values():
             lg.close()
+        for name in self.config.datasets:
+            adaptive_planner.persist(name, self.meta_store)
         self.column_store.close()
         self.meta_store.close()
 

@@ -6,8 +6,8 @@ Copy of ``filodb_tpu/utils/metrics.py``: ``Counter``, ``Gauge``,
 family is ``<name>_total``; ``# HELP`` and ``# TYPE`` a family; a
 histogram's ``_bucket`` series with ``le``, then ``_count`` and ``_sum``).
 The port registers the families of the node: the gateway's, the ingest
-workers', the flush scheduler's and each shard's ingest, flush and
-recovery counters. Updates take a per-metric lock: the gateway, the ingest
+workers', the flush scheduler's, each shard's ingest, flush and recovery
+counters, and the governor's, the cost model's and tracing's. Updates take a per-metric lock: the gateway, the ingest
 workers, the scheduler and the HTTP threads update them side by side.
 """
 
@@ -140,6 +140,17 @@ def get_counter(name: str, tags: dict[str, str] | None = None,
     if isinstance(m, Counter):
         return m
     return Counter(name, tags, help)
+
+
+def get_gauge(name: str, tags: dict[str, str] | None = None,
+              help: str | None = None) -> Gauge:
+    """The registered gauge of (name, tags), created if new: dynamically
+    tagged series (a tenant's) keep their live value."""
+    with _lock:
+        m = _registry.get(_key(name, tags))
+    if isinstance(m, Gauge):
+        return m
+    return Gauge(name, tags, help)
 
 
 def escape_label_value(v) -> str:

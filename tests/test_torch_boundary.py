@@ -13,7 +13,10 @@ host-decode lane, through a query over load averages with two decimals;
 and the node's
 (configuration, cluster, gateway, HTTP fronts, index snapshots, metrics),
 through a ``FiloServer(device="cpu")`` fed by its gateway and queried
-over HTTP.
+over HTTP; and the query control plane's (tracing, resilience, the
+governor, the cost model and the adaptive planner, the adaptive engine),
+through that node with the governor, resilience, cost-model and tracing
+blocks set away from their defaults and acted on.
 """
 
 import json
@@ -140,8 +143,20 @@ from filodb_tpu_torch.gateway import influx, server as gateway_server
 from filodb_tpu_torch.http import fastserver, server as http_server
 from filodb_tpu_torch.utils import metrics
 node_root = tempfile.mkdtemp()
+from filodb_tpu_torch.coordinator import adaptive_planner
+from filodb_tpu_torch.parallel import adaptive
+from filodb_tpu_torch.query import cost_model
+from filodb_tpu_torch.utils import governor, resilience, tracing
+adaptive_rows = QueryService(store, device="cpu", engine="adaptive") \
+    .query_range("sum(rate(http_requests_total[5m])) by (_ns_)",
+                 1_600_000_600, 60, 1_600_001_400).result.num_series
 srv = from_jax.boot(standalone.FiloServer, server_config.ServerConfig,
-                    {"datasets": {"timeseries": {"num_shards": 2}}},
+                    {"datasets": {"timeseries": {"num_shards": 2}},
+                     "governor": {"admission_capacity": 4},
+                     "resilience": {"query_timeout_s": 5.0},
+                     "cost_model": {"min_samples": 2},
+                     "tracing": {"sample_rate": 1.0,
+                                 "slow_query_threshold_ms": 1e-6}},
                     node_root, device="cpu")
 with socket.create_connection(("127.0.0.1", srv.gateway.port)) as s:
     s.sendall("".join(f"up,_ws_=w,_ns_=n,i=i{i % 3} value={i} "
@@ -161,7 +176,20 @@ node["statuses"] = [e["status"] for e in
                     srv.cluster.shard_statuses("timeseries")]
 node["snapshot"] = sum(int(sh.snapshot_index() > 0) for sh in
                        srv.node.memstores["timeseries"].shards)
+api = f"http://127.0.0.1:{srv.http.port}/promql/timeseries/api/v1/debug/"
+slow = json.loads(urllib.request.urlopen(api + "slow_queries").read())
+costs = json.loads(urllib.request.urlopen(api + "costmodel").read())
+control = [governor.config().admission_capacity,
+           resilience.config().query_timeout_s,
+           cost_model.model_for("timeseries").min_samples,
+           tracing.config().sample_rate,
+           bool(slow["data"]["slow_queries"][0]["spans"]),
+           costs["data"]["min_samples"], srv.watchdog is not None]
 srv.shutdown()
+import os
+control.append(os.path.exists(f"{node_root}/columnstore/timeseries/"
+                              "costmodel.json"))
+control.append(governor.governor().state)
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -172,7 +200,8 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "instant": len(inst["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
                   "exec": exec_rows, "durable": durable, "node": node,
-                  "memory": memory,
+                  "memory": memory, "control": control,
+                  "adaptive": adaptive_rows,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -216,4 +245,6 @@ def test_port_loads_no_jax_and_no_reference_module():
                            "snapshot": 2}
     assert res["memory"] == {"sidecar": ["exec", 4], "evicted": 3,
                              "purged": 4, "bloom": 3}
+    assert res["control"] == [4, 5.0, 2, 1.0, True, 2, True, True, "ok"]
+    assert res["adaptive"] == 2
     assert res["loaded"] == []

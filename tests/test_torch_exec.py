@@ -209,7 +209,7 @@ def test_stats_name_the_engine(engines):
     res = mesh.query_range(f"{M}::sum", Q_START, Q_STEP, Q_END)
     assert res.stats.engine == "exec" and "RawSeries" in res.stats.fallback
     with pytest.raises(ValueError, match="engine"):
-        QueryService(mesh.memstore, device="cpu", engine="adaptive")
+        QueryService(mesh.memstore, device="cpu", engine="fused")
 
 
 def test_leaf_batches_are_cached_per_shard_until_it_ingests(stores,
@@ -237,10 +237,13 @@ def test_leaf_batches_are_cached_per_shard_until_it_ingests(stores,
     assert svc.batches.nbytes("exec") > 0
 
 
-def test_both_engines_keep_batches_under_one_budget(stores):
+def test_both_engines_keep_batches_under_one_budget(stores, monkeypatch):
     """The mesh engine's batches and the exec leaves' live in the
     service's one ``BatchCache``: past its budget the least recently used
-    batch goes first."""
+    batch goes first. (The window cache's entries count against the same
+    budget; ``tests/test_torch_window_cache.py`` holds them to it, so it
+    is off here, where the batches alone are weighed.)"""
+    monkeypatch.setenv("FILODB_MESH_SPLIT", "0")
     _, port = stores
     mesh_q, exec_q = f"rate({M}[5m])", f"{M}::sum"   # a column: exec
     svc = QueryService(port, device="cpu")

@@ -698,3 +698,61 @@ def test_execute_many_shares_a_batch_and_launches_once_a_grid(cuda):
         else:
             np.testing.assert_allclose(m.values, want.values, rtol=2e-5,
                                        atol=1e-6, equal_nan=True)
+
+
+WINDOW_QUERIES = ("sum(rate(m[5m])) by (_ns_)", "increase(m[5m])",
+                  "sum(count_over_time(m[5m])) by (job)",
+                  "avg(avg_over_time(m[5m]))", "max(m) by (job)")
+
+
+def test_window_cache_on_card_is_bitwise_the_valve_off(cuda, monkeypatch):
+    """A warm query served from the window cache launches no B3 or B4
+    and answers bit for bit as the first query and as a service with
+    ``FILODB_MESH_SPLIT=0``; the cache's bytes stay within the batch
+    cache's budget."""
+    from filodb_tpu_torch import _build
+
+    store = _counter_store(MemStore(4, 1, 400))
+    svc = QueryService(store, cuda)
+    t0 = 1_600_000_000
+    for q in WINDOW_QUERIES:
+        cold = svc.query_range(q, t0 + 600, 60, t0 + 7200)
+        _build.reset_counts()
+        warm = svc.query_range(q, t0 + 600, 60, t0 + 7200)
+        assert _build.LAUNCHES["fused_decode_rate"] == 0, q
+        assert _build.LAUNCHES["windowed_sum"] == 0, q
+        monkeypatch.setenv("FILODB_MESH_SPLIT", "0")
+        off = QueryService(store, cuda).query_range(q, t0 + 600, 60,
+                                                    t0 + 7200)
+        monkeypatch.delenv("FILODB_MESH_SPLIT")
+        for got in (warm, off):
+            assert [str(k) for k in got.result.keys] == \
+                [str(k) for k in cold.result.keys]
+            assert np.array_equal(got.result.values, cold.result.values,
+                                  equal_nan=True), q
+    entries, nbytes = svc.mesh.window_cache
+    assert entries == len(WINDOW_QUERIES) and nbytes > 0
+    assert svc.batches.nbytes() <= svc.batches.budget
+
+
+def test_adaptive_lanes_on_card_answer_as_mesh(cuda):
+    """``engine="adaptive"`` on the card builds its host lane (the plain
+    versions on the CPU) and routes between it and the card: every
+    answer equals mesh's, within the plain versions' tolerance."""
+    store = _counter_store(MemStore(4, 1, 400))
+    svc = QueryService(store, cuda, engine="adaptive")
+    mesh = QueryService(store, cuda)
+    t0 = 1_600_000_000
+    qs = [("sum(rate(m[5m])) by (_ns_)", t0 + 600 + 60 * i, 60, t0 + 7200)
+          for i in range(4)]
+    for batch in ([qs[0]], qs, [qs[1]], qs):
+        got = svc.query_range_many(batch)
+        want = mesh.query_range_many(batch)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.result.values, w.result.values,
+                                       rtol=2e-5, atol=1e-6, equal_nan=True)
+    svc.mesh.drain()
+    assert svc.mesh._host() is not None
+    assert sum(svc.mesh.routed.values()) == 4
+    assert sum(svc.mesh.shadowed.values()) >= 1
+    assert svc.mesh.sync_floor_s is not None

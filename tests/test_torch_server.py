@@ -121,6 +121,14 @@ UNSUPPORTED = [
     {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
     {"selfmon": {"enabled": True}},
     {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
+    {"resilience": {"retry_max_attempts": 5}},
+    {"resilience": {"allow_partial": False}},
+    {"federation": {"mem_retention_ms": 60000}},
+]
+
+# blocks the port acts on since its control plane came; until then
+# ``test_unsupported_options_raise`` held that each of them raised
+ACTED_ON = [
     {"governor": {"max_samples_scanned": 100}},
     {"governor": {"max_result_bytes": 100}},
     {"governor": {"max_group_cardinality": 100}},
@@ -128,7 +136,6 @@ UNSUPPORTED = [
     {"governor": {"admission_capacity": 4}},
     {"resilience": {"query_timeout_s": 5.0}},
     {"cost_model": {"min_samples": 2}},
-    {"federation": {"mem_retention_ms": 60000}},
     {"tracing": {"sample_rate": 1.0}},
 ]
 
@@ -143,6 +150,41 @@ def test_unsupported_options_raise(override, tmp_path):
         cfg.check_supported()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FiloServer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("override", ACTED_ON,
+                         ids=lambda o: json.dumps(o)[:60])
+def test_control_plane_blocks_are_acted_on(override, tmp_path):
+    """A node applies the governor, resilience, cost-model and tracing
+    blocks to the port's process-wide modules, as the reference's node
+    applies them."""
+    from filodb_tpu_torch.query import cost_model
+    from filodb_tpu_torch.utils import governor, resilience, tracing
+
+    path = tmp_path / "server.json"
+    path.write_text(json.dumps({**SMALL, **override,
+                                "data_dir": str(tmp_path / "d"),
+                                "http_port": 0}))
+    cfg = port_config.ServerConfig.load(str(path))
+    cfg.check_supported()
+    srv = FiloServer(cfg, device="cpu").start()
+    try:
+        (block, kv), = override.items()
+        (key, value), = kv.items()
+        got = {"governor": lambda: getattr(governor.config(), key),
+               "resilience": lambda: getattr(resilience.config(), key),
+               "tracing": lambda: getattr(tracing.config(), key),
+               "cost_model": lambda: getattr(cost_model.model_for(DS),
+                                             key)}[block]()
+        assert got == value
+        assert srv.watchdog is not None
+    finally:
+        srv.shutdown()
+        governor.reset()
+        resilience.reset()
+        tracing.configure()
+        cost_model.reset_models()
+    assert governor.governor().state == governor.OK
 
 
 @pytest.mark.parametrize("override", [{"result_cache": {"enabled": False}},
