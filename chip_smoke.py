@@ -162,8 +162,10 @@ checks it, phase by phase; any failed phase exits non-zero:
    and warm p50 of ``HOST_WARM``; each must take the host-decode lane and
    its answer over the ``App-0``..``App-9`` namespaces must equal the
    port's own ``device="cpu"`` answer (rtol 2e-5, atol 1e-6); the instant
-   ``HOST_INSTANT`` at the end must bypass the sidecar lane to it and
-   equal the CPU's; B3 must not launch; the batches' device bytes. Phase 3
+   ``HOST_INSTANT`` at the end (write buffers only) must be folded by the
+   sidecar lane in float64, and an hour earlier (a sealed edge chunk, the
+   fold forced) must bypass the lane to the host-decode lane, each equal
+   to the CPU's; B3 must not launch; the batches' device bytes. Phase 3
    checks the other side of the gate: its ``sum(rate)`` over integer
    counters stays on B3;
 15. (after phase 9) the serving front end, on a store of the phase-2
@@ -206,11 +208,29 @@ checks it, phase by phase; any failed phase exits non-zero:
    traced at ``sample_rate`` 1, its span tree from the slow-query ring
    (threshold 1 ms).
 
+17. (after phase 9, on the phase-2 store, which it changes) the write path
+   through the C++ ingest core (``core/memstore/native_shard.py``):
+   ``CORE_SCRAPES`` scrapes of every series, 10 s apart from the 2 h's
+   end, each shard's series in containers of ``CORE_CONTAINER`` records
+   routed by ``MemStore.shard_of`` (the bytes made once and patched with
+   numpy for each scrape), one ingest thread a shard: rows/s for the node
+   and for each shard, and a scrape's seconds (p50, max); the key, the
+   map's pid, the buffer rows and ``latest`` of ``CORE_CHECKED`` sampled
+   series against what was sent; ``CORE_QUERY`` over the last 10 min on
+   mesh (B3 must launch, held against its plain version and the plain
+   path); phase 9's ``SIDECAR_INSTANT`` at the last scrape, whose windows
+   hold write-buffer samples only (the lane's C++ fold), each against the
+   decode lane, and where one warm lane instant spends its time (the
+   write-buffer fold alone a shard, the host's largest self times, the
+   device's largest kernels); then the seal wave (``Shard.seal`` of every
+   series, one thread a shard): its seconds and chunks.
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
-and 14; ``--serving-only``: phases 1, 15 and 16).
+and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
+phases 1, 2 and 17).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -3369,23 +3389,39 @@ def host_lane_phase(dev, args) -> dict:
                 f"{r.stats.host_lane} host-lane batches; the subset equals "
                 f"the CPU's (max abs {rel['max_abs']:.2e}, rel "
                 f"{rel['max_rel']:.2e})")
-    t = time.perf_counter()
-    r = services["mesh"].query_instant(HOST_INSTANT, end)
-    inst_ms = (time.perf_counter() - t) * 1000.0
-    if r.stats.engine != "exec" or not r.stats.host_lane \
-            or "values float32 does not hold" not in r.stats.sidecar_bypassed:
-        raise AssertionError(f"phase 14: the instant {HOST_INSTANT} did not "
-                             f"bypass the sidecar lane to the host-decode "
-                             f"lane ({r.stats})")
-    sub = _subset(HOST_INSTANT)
-    rel = _same(services["mesh"].query_instant(sub, end),
-                cpu.query_instant(sub, end), f"instant {sub}")
-    out["instant"] = dict(query=HOST_INSTANT, ms=inst_ms,
-                          sidecar_bypassed=r.stats.sidecar_bypassed,
-                          host_lane=r.stats.host_lane, vs_cpu=rel)
-    log(f"  instant {HOST_INSTANT} at the end: {inst_ms:.1f} ms through "
-        f"exec (sidecar bypassed: {r.stats.sidecar_bypassed}), "
-        f"{r.stats.host_lane} host-lane batches; equal to the CPU's")
+    # at the end the windows hold write-buffer samples only, which the
+    # sidecar lane folds in float64; an hour earlier they cut a sealed
+    # chunk, an edge the lane would decode in float32: with the fold
+    # forced past the static gate, it bypasses for that
+    from filodb_tpu_torch.query.engine import sidecar_lane
+
+    out["instant"] = []
+    for at, folded in ((end, True), (end - 3600, False)):
+        served = sidecar_lane.SIDECAR_SERVED.value
+        t = time.perf_counter()
+        with valves(**({} if folded else
+                       {"FILODB_SIDECAR_SEALED_GATE": "0"})):
+            r = services["mesh"].query_instant(HOST_INSTANT, at)
+        inst_ms = (time.perf_counter() - t) * 1000.0
+        lane = sidecar_lane.SIDECAR_SERVED.value > served
+        bypassed = "values float32 does not hold" in \
+            r.stats.sidecar_bypassed
+        if r.stats.engine != "exec" or lane != folded \
+                or bypassed == folded or bool(r.stats.host_lane) == folded:
+            raise AssertionError(
+                f"phase 14: the instant {HOST_INSTANT} at {at} was "
+                f"{'not ' if folded else ''}folded by the sidecar lane "
+                f"({r.stats})")
+        sub = _subset(HOST_INSTANT)
+        rel = _same(services["mesh"].query_instant(sub, at),
+                    cpu.query_instant(sub, at), f"instant {sub} at {at}")
+        out["instant"].append(dict(
+            query=HOST_INSTANT, at_s=at, ms=inst_ms, sidecar_served=lane,
+            sidecar_bypassed=r.stats.sidecar_bypassed,
+            host_lane=r.stats.host_lane, vs_cpu=rel))
+        log(f"  instant {HOST_INSTANT} at {at}: {inst_ms:.1f} ms through "
+            f"exec ({'the sidecar lane, buffers folded in float64' if lane else f'sidecar bypassed: {r.stats.sidecar_bypassed}'}), "
+            f"{r.stats.host_lane} host-lane batches; equal to the CPU's")
     out["launches"] = dict(_build.LAUNCHES)
     if out["launches"]["fused_decode_rate"]:
         raise AssertionError("phase 14: B3 launched on values float32 does "
@@ -3983,6 +4019,242 @@ def _control_tracing(svc) -> dict:
 # of the reference raises it; phase 16 checks that the default raises.
 # Its deadline is SMOKE_TIMEOUT_S: a cold query at 1 M series takes up to
 # 40 s, past the default 30 s.
+# phase 17: the write path at full width on the phase-2 store. A scrape a
+# container lane: CORE_SCRAPES scrapes of every series 10 s apart from the
+# 2 h's end, each shard's series in containers of CORE_CONTAINER records
+# (the gateway's flush_every), one ingest thread a shard, as the node's
+# ingest workers run; the buffers of CORE_CHECKED series held against what
+# was sent; a query and the sidecar instants over the new samples; and
+# the seal wave that 400-sample chunks give every series every 4,000 s
+CORE_SCRAPES = 12
+CORE_CONTAINER = 512
+CORE_CHECKED = 1_000
+CORE_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
+CORE_BUDGET_S = 120.0  # the phase's share of the smoke's limit
+
+
+def scrape_templates(store) -> list[dict]:
+    """Per shard: its keys in pid order, and one container of
+    ``CORE_CONTAINER`` records after another, serialized into one numpy
+    buffer whose timestamp and value fields each scrape patches in place,
+    with the byte offsets of those fields and each container's [start,
+    end). ``MemStore.shard_of`` routes every series to the shard that
+    holds it (as the gateway's ``ContainerSink`` routes)."""
+    import struct
+
+    from filodb_tpu_torch.core.record import encode_labels
+    from filodb_tpu_torch.core.schemas import SCHEMAS
+
+    keys = [list(shard.keys) for shard in store.shards]
+    routed = store.shard_of([k for ks in keys for k in ks])
+    at, out = 0, []
+    for s, (shard, ks) in enumerate(zip(store.shards, keys)):
+        if (routed[at:at + len(ks)] != s).any():
+            raise AssertionError(f"phase 17: shard_of routes a series of "
+                                 f"shard {s} elsewhere")
+        at += len(ks)
+        hashes = shard.hashes[:len(ks)].tolist()
+        parts, ts_off, val_off, spans, pos = [], [], [], [], 0
+        for a in range(0, len(ks), CORE_CONTAINER):
+            chunk = ks[a:a + CORE_CONTAINER]
+            parts.append(struct.pack("<BI", 2, len(chunk)))
+            start, pos = pos, pos + 5
+            for k, h in zip(chunk, hashes[a:a + CORE_CONTAINER]):
+                lab = encode_labels(k.labels)
+                n = 14 + len(lab) + 10  # header, labels, one double value
+                parts += [struct.pack("<IIqH", n, h, 0,
+                                      SCHEMAS[k.schema].schema_id), lab,
+                          b"\x01\x00" + bytes(8)]
+                ts_off.append(pos + 8)
+                pos += 4 + n
+                val_off.append(pos - 8)
+            spans.append((start, pos))
+        out.append(dict(keys=ks, buf=np.frombuffer(bytearray(b"".join(
+            parts)), np.uint8), ts_off=np.array(ts_off, np.int64),
+            val_off=np.array(val_off, np.int64), spans=spans))
+    return out
+
+
+def _patch(buf: np.ndarray, off: np.ndarray, x: np.ndarray) -> None:
+    """Write 8-byte ``x[i]`` at byte ``off[i]`` of ``buf``."""
+    buf[off[:, None] + np.arange(8)] = np.ascontiguousarray(x).view(
+        np.uint8).reshape(-1, 8)
+
+
+def _scrape(shard, t: dict, first_offset: int) -> tuple[int, float]:
+    """One shard's containers of one scrape through ``Shard.ingest`` at
+    consecutive offsets; (samples kept, seconds)."""
+    from filodb_tpu_torch.core.record import BytesContainer, SomeData
+
+    t0 = time.perf_counter()
+    kept = 0
+    for i, (a, b) in enumerate(t["spans"]):
+        kept += shard.ingest(SomeData(BytesContainer(bytes(t["buf"][a:b])),
+                                      first_offset + i))
+    return kept, time.perf_counter() - t0
+
+
+def lane_split(svc, end: int) -> dict:
+    """Where a warm sidecar instant at ``end`` spends its time (the lane
+    forced): the write-buffer fold alone, a shard at a time over all its
+    series (``native_shard.buf_fold``, one 5 m window), and the host's
+    largest self times and the device's largest kernels over the whole
+    query."""
+    from filodb_tpu_torch.core.memstore.native_shard import buf_fold
+
+    q = SIDECAR_INSTANT[3]
+    fold = []
+    for shard in svc.memstore.shards:
+        pids = np.arange(shard.num_partitions)
+        t = np.array([end * 1000], np.int64)
+        with shard.lock:
+            fold.append(wall_ms(lambda: buf_fold(
+                shard.buffers, pids, t - 300_000, t, shard._sealed.columns,
+                shard.num_partitions)))
+    with valves(FILODB_SIDECAR_SEALED_GATE="0"):
+        run = lambda: svc.query_instant(q, end).result.materialize()
+        out = {"query": q, "fold_ms_shard": fold,
+               "host_ms": host_split(run, 3, 15),
+               "device": top_device_ops(run, 3)}
+    log(f"  the lane's split ({q}): buffer fold a shard "
+        f"{', '.join(f'{x:.1f}' for x in fold)} ms; host self ms "
+        f"{json.dumps(out['host_ms'])}; device {json.dumps(out['device'])}")
+    return out
+
+
+def ingest_core_phase(svc, args) -> dict:
+    """Phase 17: scrapes through the C++ ingest core at full width, the
+    buffers checked, a query and the sidecar instants over them, then the
+    seal wave."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from filodb_tpu_torch import _build
+
+    t_phase = time.perf_counter()
+    store = svc.memstore
+    t = time.perf_counter()
+    temps = scrape_templates(store)
+    build_s = time.perf_counter() - t
+    n_series = sum(len(x["keys"]) for x in temps)
+    nbytes = sum(len(x["buf"]) for x in temps)
+    log(f"phase 17: the write path through the C++ ingest core, "
+        f"{n_series} series: container templates {build_s:.1f} s "
+        f"({sum(len(x['spans']) for x in temps)} containers of "
+        f"{CORE_CONTAINER} records, {nbytes / n_series:.0f} bytes a record)")
+    # what each scrape sends: each series' counter from its last buffered
+    # sample on, at END + 10 s k with the generator's jitter
+    rng = np.random.default_rng(args.seed + 17)
+    sent = []
+    for shard, x in zip(store.shards, temps):
+        P = len(x["keys"])
+        rows = shard.buffers.slot[:P]
+        last = shard.buffers.vals[rows, shard.buffers.n[rows] - 1]
+        ts = (END_S * 1000 + np.arange(CORE_SCRAPES)[:, None] * 10_000
+              + rng.integers(-500, 501, (CORE_SCRAPES, P)))
+        vals = last[None, :] + np.cumsum(rng.integers(
+            0, 20, (CORE_SCRAPES, P)), axis=0).astype(np.float64)
+        sent.append((ts, vals, shard.buffers.n[rows].copy()))
+    _build.reset_counts()
+    wall, busy, kept = [], np.zeros(len(temps)), 0
+    with ThreadPoolExecutor(len(temps)) as pool:
+        for k in range(CORE_SCRAPES):
+            for x, (ts, vals, _) in zip(temps, sent):
+                _patch(x["buf"], x["ts_off"], ts[k])
+                _patch(x["buf"], x["val_off"], vals[k])
+            t = time.perf_counter()
+            done = list(pool.map(
+                lambda sx: _scrape(sx[0], sx[1], k * len(sx[1]["spans"])),
+                zip(store.shards, temps)))
+            wall.append(time.perf_counter() - t)
+            busy += [s for _, s in done]
+            kept += sum(n for n, _ in done)
+    if kept != CORE_SCRAPES * n_series:
+        raise AssertionError(f"phase 17: {kept} samples kept of "
+                             f"{CORE_SCRAPES * n_series} sent")
+    out = {"series": n_series, "scrapes": CORE_SCRAPES,
+           "container_records": CORE_CONTAINER, "template_s": build_s,
+           "rows": kept, "rows_per_s": kept / sum(wall),
+           "rows_per_s_shard": [CORE_SCRAPES * len(x["keys"]) / b
+                                for x, b in zip(temps, busy)],
+           "scrape_s": wall, "scrape_p50_s": float(np.median(wall)),
+           "scrape_max_s": max(wall)}
+    log(f"  {CORE_SCRAPES} scrapes: {kept} samples, "
+        f"{out['rows_per_s']:.0f} rows/s on the node, a shard "
+        f"{', '.join(f'{r:.0f}' for r in out['rows_per_s_shard'])} rows/s; "
+        f"a scrape p50 {out['scrape_p50_s']:.2f} s, max "
+        f"{out['scrape_max_s']:.2f} s")
+
+    # the buffers of sampled series against what was sent
+    pick = np.random.default_rng(args.seed + 18)
+    for _ in range(CORE_CHECKED):
+        s = int(pick.integers(len(temps)))
+        shard, x = store.shards[s], temps[s]
+        p = int(pick.integers(len(x["keys"])))
+        ts, vals, n0 = sent[s]
+        row = shard.buffers.slot[p]
+        n = int(shard.buffers.n[row])
+        inst = int(x["keys"][p].label_map["instance"].split("-")[1])
+        want = {"_metric_": M, "_ws_": "demo", "_ns_": f"App-{inst % 100}",
+                "instance": f"instance-{inst}", "job": f"job-{inst % 10}"}
+        if shard.keys[p].label_map != want \
+                or shard.lookup_keys([x["keys"][p].serialized])[0] != p \
+                or n != n0[p] + CORE_SCRAPES \
+                or not np.array_equal(shard.buffers.ts[row, n - CORE_SCRAPES:n],
+                                      ts[:, p]) \
+                or not np.array_equal(shard.buffers.vals[row,
+                                                         n - CORE_SCRAPES:n],
+                                      vals[:, p]) \
+                or shard.latest[p] != ts[-1, p]:
+            raise AssertionError(f"phase 17: shard {s} pid {p}: its key, "
+                                 f"buffer or latest is not what was sent")
+    out["checked"] = CORE_CHECKED
+    log(f"  {CORE_CHECKED} sampled series: key, map, buffer rows and "
+        f"latest equal to what was sent")
+
+    # the new samples through the main path and the sidecar lane
+    end = int(max(ts.max() for ts, _, _ in sent)) // 1000 + 1
+    start = end - 600
+    t = time.perf_counter()
+    r = on_mesh(svc.query_range(CORE_QUERY, start, 60, end), CORE_QUERY)
+    out["query_cold_ms"] = (time.perf_counter() - t) * 1000.0
+    if r.result.values.shape != (min(100, n_series), 11) \
+            or not np.isfinite(r.result.values).all():
+        raise AssertionError(f"phase 17: {CORE_QUERY}: shape "
+                             f"{r.result.values.shape}")
+    launches = dict(_build.LAUNCHES)
+    if svc.device.type == "cuda" and not launches["fused_decode_rate"]:
+        raise AssertionError("phase 17: B3 did not launch")
+    if svc.device.type == "cuda":
+        out["query_vs_plain"] = rate_against_plain(svc, CORE_QUERY, start,
+                                                   end, r.result)
+    log(f"  {CORE_QUERY} over the last 10 min: cold "
+        f"{out['query_cold_ms']:.1f} ms, equal to the plain path "
+        f"({out.get('query_vs_plain')})")
+    _build.reset_counts()  # the comparison's launches do not count
+    out["sidecar_instants"] = sidecar_instants(svc, end)
+    out["launches"] = {k: launches[k] + _build.LAUNCHES[k] for k in launches}
+    out["lane_split"] = lane_split(svc, end)
+
+    # the seal wave
+    t = time.perf_counter()
+    before = sum(len(sh.chunks["pid"]) for sh in store.shards)
+    with ThreadPoolExecutor(len(temps)) as pool:
+        list(pool.map(lambda sh: sh.seal(np.arange(sh.num_partitions)),
+                      store.shards))
+    out["seal_s"] = time.perf_counter() - t
+    out["seal_chunks"] = sum(len(sh.chunks["pid"]) for sh in store.shards) \
+        - before
+    if out["seal_chunks"] != n_series:
+        raise AssertionError(f"phase 17: the seal wave made "
+                             f"{out['seal_chunks']} chunks for {n_series} "
+                             f"series")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  seal wave: {out['seal_chunks']} chunks in {out['seal_s']:.1f} "
+        f"s; launches in the phase {out['launches']}; phase 17 took "
+        f"{out['seconds']:.1f} s (its share {CORE_BUDGET_S:.0f} s)")
+    return out
+
+
 WIDE_LIMIT = 1 << 40
 SMOKE_TIMEOUT_S = 900.0
 _SMOKE_SERVICE = []
@@ -4184,6 +4456,9 @@ def main() -> int:
                     "own stores: flush, WAL, restart, paged queries, the "
                     "node, eviction and purge)")
     ap.add_argument("--evict-series", type=int, default=EVICT_SERIES)
+    ap.add_argument("--ingest-only", action="store_true",
+                    help="build, ingest the phase-2 store and run phase 17 "
+                    "only (the write path through the C++ ingest core)")
     ap.add_argument("--host-series", type=int, default=HOST_SERIES)
     ap.add_argument("--host-only", action="store_true",
                     help="build and run phase 14 only (the host-decode "
@@ -4216,8 +4491,10 @@ def main() -> int:
     log(f"phase 1: build: {_build.build_all():.1f} s (nvcc, sm_90a, one "
         f"process a source)")
     t = time.perf_counter()
-    _build.host_library()
-    log(f"  host codec: {time.perf_counter() - t:.1f} s (g++)")
+    for name in _build.HOST_SOURCES:
+        _build.host_library(name)
+    log(f"  host codec and ingest core: {time.perf_counter() - t:.1f} s "
+        f"(g++)")
     args.durable_dir = tempfile.mkdtemp(prefix="filodb-durable-")
     free = shutil.disk_usage(args.durable_dir).free
     log(f"  phase 11's store directory {args.durable_dir}: "
@@ -4237,6 +4514,16 @@ def _phases(args, smi) -> int:
         store = main_store()
         ingest(store, args.series, args.samples, args.seed)
         print(json.dumps({"exec": exec_phase(smoke_service(
+            store, device=torch.device("cuda")), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
+    if args.ingest_only:
+        t = time.perf_counter()
+        store = main_store()
+        kept = ingest(store, args.series, args.samples, args.seed)
+        log(f"phase 2: ingest: {args.series} series, {kept} samples, "
+            f"{time.perf_counter() - t:.1f} s on the host")
+        print(json.dumps({"ingest_core": ingest_core_phase(smoke_service(
             store, device=torch.device("cuda")), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
@@ -4271,6 +4558,8 @@ def _phases(args, smi) -> int:
     print(json.dumps({"promql": promql}))
     shapes = plan_shapes_phase(svc, args)
     print(json.dumps({"plan_shapes": shapes}))
+    core = ingest_core_phase(svc, args)
+    print(json.dumps({"ingest_core": core}))
     del svc
     torch.cuda.empty_cache()
     serving, serving_svc = serving_phase(torch.device("cuda"), args)
@@ -4302,6 +4591,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase14"] = host["launches"][kern["name"]]
         kern["launches_phase15"] = serving["launches"][kern["name"]]
         kern["launches_phase16"] = control["launches"][kern["name"]]
+        kern["launches_phase17"] = core["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

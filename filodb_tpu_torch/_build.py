@@ -12,10 +12,12 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 ``check`` raises on a non-zero code. Launch counts are plain integers in
 ``LAUNCHES``, added to by each wrapper where it launches its kernel.
 
-The host codec of the write path, ``csrc/hostcodec.cpp`` (NibblePack, the
-chunk vectors, the record-container scan), compiles with ``g++`` into the
-same directory on its first use (``host_library``), on any machine. A
-failed build raises: nothing falls back to the Python twins.
+The host libraries of the write path, ``csrc/hostcodec.cpp`` (NibblePack,
+the chunk vectors, the record-container scan) and ``csrc/ingestcore.cpp``
+(the part-key map, the container pass, the write buffers' append and
+window fold), compile with ``g++`` into the same directory on their first
+use (``host_library``), on any machine. A failed build raises: nothing
+falls back to the Python twins.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ LAUNCHES: dict[str, int] = {"decode_ts_page": 0, "decode_f32_page": 0,
                             "fused_decode_rate": 0, "windowed_sum": 0}
 
 HOST_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
+HOST_SOURCES = ("hostcodec", "ingestcore")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _host_lock = threading.Lock()
@@ -171,10 +174,10 @@ def _build_host(name: str) -> ctypes.CDLL:
     return lib
 
 
-def host_fn(fn: str, nargs: int):
-    """An entry point of the host codec taking ``nargs`` 64-bit arguments
-    (pointers and sizes) and returning a 64-bit integer."""
-    f = getattr(host_library(), fn)
+def host_fn(fn: str, nargs: int, name: str = "hostcodec"):
+    """An entry point of the host library ``name`` taking ``nargs`` 64-bit
+    arguments (pointers and sizes) and returning a 64-bit integer."""
+    f = getattr(host_library(name), fn)
     f.argtypes = [ctypes.c_void_p] * nargs
     f.restype = ctypes.c_int64
     return f

@@ -190,9 +190,9 @@ class MemStore:
         """Close one series' write buffer into a chunk now."""
         key = PartKey.create(schema, labels)
         shard = self.shards[int(self.shard_of([key])[0])]
-        pid = shard._by_blob.get(key.serialized)
-        if pid is not None:
-            shard.seal(np.array([pid]))
+        pid = shard.lookup_keys([key.serialized])
+        if pid[0] >= 0:
+            shard.seal(pid)
 
     # ---- the log, flush and recovery ---------------------------------------
 

@@ -3,9 +3,12 @@
 Port of the ingest rule of ``filodb_tpu/core/memstore/partition.py``
 (``TimeSeriesPartition.ingest`` / ``switch_buffers``), columnar: the
 buffers of a shard's partitions are rows of one [rows, max_chunk_size]
-array pair, a row handed to a partition when it first appends, and a batch
-of series appends in a few vectorised rounds instead of one sample at a
-time.
+array pair, a row handed to a partition when it first appends. A batch of
+series appends in a few rounds of one C++ call each
+(``native_shard.append_round``), which writes only the new samples; the
+container lane appends one record at a time in C++ into the same rows
+(``native_shard.NativeShardCore.ingest``). ``WriteBuffers.append_plain``
+is the numpy twin the tests hold them against.
 
 Semantics kept from the reference:
 
@@ -41,6 +44,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from filodb_tpu_torch.core.memstore import native_shard
 from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.memory.chunk import (
     SKETCH_BUCKETS,
@@ -112,20 +116,23 @@ class WriteBuffers:
         self.used = 0
         self._free = np.zeros(0, np.int64)
 
+    def cover(self, n_pids: int) -> None:
+        """Grow ``slot`` to hold pids below ``n_pids``."""
+        if n_pids > len(self.slot):
+            grow = max(n_pids, 2 * len(self.slot), 1024) - len(self.slot)
+            self.slot = np.concatenate([self.slot,
+                                        np.full(grow, -1, np.int64)])
+
     def rows(self, pids: np.ndarray, create: bool = False) -> np.ndarray:
         """Rows of partitions ``pids`` (−1 where none); with ``create``,
         rows are handed out to those (distinct pids) that have none."""
-        top = int(pids.max(initial=-1)) + 1
-        if top > len(self.slot):
-            grow = max(top, 2 * len(self.slot), 1024) - len(self.slot)
-            self.slot = np.concatenate([self.slot,
-                                        np.full(grow, -1, np.int64)])
+        self.cover(int(pids.max(initial=-1)) + 1)
         rows = self.slot[pids]
         new = pids[rows < 0] if create else pids[:0]
         if len(new):
             reuse, self._free = self._free[:len(new)], self._free[len(new):]
             fresh = len(new) - len(reuse)
-            self._reserve(self.used + fresh)
+            self.reserve(self.used + fresh)
             got = np.concatenate([reuse, np.arange(self.used,
                                                    self.used + fresh)])
             self.used += fresh
@@ -133,6 +140,17 @@ class WriteBuffers:
             rows[rows < 0] = self.slot[new] = got
             self.pid_of[got] = new
         return rows
+
+    @property
+    def free_rows(self) -> np.ndarray:
+        """Rows given back, handed out first."""
+        return self._free
+
+    def handed_out(self, used: int, from_free: int) -> None:
+        """The container pass handed out the first ``from_free`` free rows
+        and fresh rows up to ``used``."""
+        self.used = used
+        self._free = self._free[from_free:]
 
     def free(self, pids: np.ndarray) -> None:
         """Drop the unsealed samples of ``pids`` and give their rows
@@ -151,7 +169,9 @@ class WriteBuffers:
         out[out] = self.n[rows[out]] > 0
         return out
 
-    def _reserve(self, n_rows: int) -> None:
+    def reserve(self, n_rows: int) -> None:
+        """Room for ``n_rows`` rows in all (the container pass hands rows
+        out of the free list and then ``used .. capacity - 1``)."""
         cap = len(self.n)
         if n_rows <= cap:
             return
@@ -172,7 +192,28 @@ class WriteBuffers:
                lens: np.ndarray):
         """Append ``lens[i]`` samples of row i to partition ``pids[i]``
         (distinct pids). Yields each batch of chunks sealed on the way, as
-        (pids, ts [C, M], vals [C, M(, B)], rows [C]) in sealing order."""
+        (pids, ts [C, M], vals [C, M(, B)], rows [C]) in sealing order.
+        Rounds of one C++ call write the new samples only; a round ends
+        where rows fill, and those seal together."""
+        rows = np.full(len(pids), -1, np.int64)
+        live = lens > 0
+        rows[live] = self.rows(pids[live], create=True)
+        ts = np.ascontiguousarray(ts, np.int64)
+        vals = np.ascontiguousarray(vals, self.vals.dtype)
+        lens = np.ascontiguousarray(lens, np.int64)
+        taken = np.zeros(len(pids), np.int64)
+        full = np.empty(len(pids), np.int64)
+        while True:
+            nf = native_shard.append_round(self, rows, taken, lens, ts, vals,
+                                           full)
+            if not nf:
+                return
+            yield self._take_rows(full[:nf].copy())
+
+    def append_plain(self, pids: np.ndarray, ts: np.ndarray,
+                     vals: np.ndarray, lens: np.ndarray):
+        """``append``'s numpy twin (the tests hold the C++ rounds against
+        it): every round rewrites each touched row whole."""
         M = self.max_chunk_size
         T = ts.shape[1]
         rows = np.full(len(pids), -1, np.int64)

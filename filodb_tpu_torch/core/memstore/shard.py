@@ -3,9 +3,10 @@ pages, the write path to the column store, recovery, and the selection of
 page blocks for a query.
 
 Port of ``filodb_tpu/core/memstore/shard.py``: partition creation (ids in
-creation order), columnar ingest (``ingest_series``) and container ingest
-from the log (``ingest``: records grouped per series, then the same
-vectorised append), index lookup with the time-range predicate, and the
+creation order), columnar ingest (``ingest_series``: rounds of whole rows
+of samples) and container ingest from the log (``ingest``: one C++ pass
+over the records, ``native_shard.NativeShardCore``, the reference's native
+ingest core), index lookup with the time-range predicate, and the
 chunk selection of ``device_batch._query_chunks`` (resident and paged
 chunks overlapping the range in chunk-id order, then the write buffer). A
 sealed chunk keeps its device pages, encoded once at seal time (the
@@ -19,6 +20,15 @@ ring). Under a tenant quota (the governor's ``tenants`` block, applied at
 construction) new series of a container are counted one at a time and
 the records of one over its quota are dropped and counted
 (``memstore_data_dropped``), as the reference's.
+
+The part-key map (``PartKey.serialized`` → pid) is the C++ core's
+(``self.core``). A container's scalar records are routed, deduplicated
+and appended one sample at a time in C++, in container order; the pass
+hands back to Python, and resumes at the same record, where it meets keys
+the map lacks (their partitions are made here, under the tenant quotas,
+through the evicted-key bloom) and where a buffer row it must append to is
+full (the filled rows seal here). Histogram records are listed by the pass
+and appended after the scalars, one bucket scheme at a time.
 
 The write path, as the reference's: a partition belongs to flush group
 ``part_hash % groups_per_shard``. A container's records at or below their
@@ -94,6 +104,7 @@ selector (``h::sum``) selects those value pages as a scalar series
 from __future__ import annotations
 
 import logging
+import struct
 import threading
 import time
 
@@ -105,6 +116,7 @@ from filodb_tpu_torch.core.memstore.cardinality import (
     QuotaExceededError,
 )
 from filodb_tpu_torch.core.memstore.index import INGESTING, PartKeyIndex
+from filodb_tpu_torch.core.memstore import native_shard
 from filodb_tpu_torch.core.memstore.partition import (
     HIST_COLUMNS,
     ChunkTable,
@@ -255,7 +267,7 @@ class Shard:
         self.meta_store = meta_store or InMemoryMetaStore()
         self.index = PartKeyIndex()
         self.keys = KeyList()
-        self._by_blob: dict[bytes, int] = {}  # PartKey.serialized → pid
+        self.core = native_shard.NativeShardCore()  # blob → pid
         self.buffers = WriteBuffers(self.max_chunk_size)
         # per partition: latest timestamp (the out-of-order floor), next
         # chunk sequence, schema (index into SCHEMA_NAMES), flush group,
@@ -354,7 +366,7 @@ class Shard:
         blobs = [k.serialized for k in keys]
         self._grow(n)
         self.keys.extend(keys)
-        self._by_blob.update(zip(blobs, range(base, n)))
+        self.core.insert(blobs, np.arange(base, n))
         schema = np.array([SCHEMA_NAMES.index(k.schema) for k in keys],
                           np.int8)
         self.schema_of[base:n] = schema
@@ -416,45 +428,34 @@ class Shard:
     def _partitions_for(self, keys: list[PartKey],
                         first_ts: np.ndarray) -> np.ndarray:
         """Partition ids of distinct ``keys``, created where new."""
-        pids = np.array([self._by_blob.get(k.serialized, -1) for k in keys],
-                        np.int64)
+        pids = self.core.lookup([k.serialized for k in keys])
         new = np.flatnonzero(pids < 0)
         if len(new):
             pids[new] = self._create([keys[i] for i in new], first_ts[new])
         return pids
 
-    def _pids_of_blobs(self, blobs: list[bytes],
-                       ts: np.ndarray) -> np.ndarray:
-        """Partition ids of records' part-key blobs (repeats allowed; a new
-        key's partition starts at its first record's time). Under a tenant
-        quota new keys are counted one at a time, in order, and the
-        records of a key over its quota get -1 and are counted dropped, as
-        the reference drops them."""
-        pids = np.array([self._by_blob.get(b, -1) for b in blobs], np.int64)
-        miss = np.flatnonzero(pids < 0)
-        if len(miss):
-            first: dict[bytes, int] = {}
-            for i in miss.tolist():
-                first.setdefault(blobs[i], i)
-            keys = [pk_from_blob(b) for b in first]
-            counted = self.cardinality.has_quotas
-            if counted:
-                ok = []
-                for k in keys:
-                    try:
-                        self.cardinality.series_created(k.label_map)
-                        ok.append(k)
-                    except QuotaExceededError:
-                        pass
-                keys = ok
-            at = np.array([first[k.serialized] for k in keys], np.int64)
-            self._create(keys, ts[at], counted)
-            pids[miss] = [self._by_blob.get(blobs[i], -1)
-                          for i in miss.tolist()]
-            for i in np.flatnonzero(pids < 0).tolist():
-                self.stats.quota_dropped.inc()
-                record_tenant_drop(pk_from_blob(blobs[i]).label_map)
-        return pids
+    def lookup_keys(self, blobs: list[bytes]) -> np.ndarray:
+        """int64 pids of part-key blobs (``PartKey.serialized``), -1 where
+        the shard has no live partition of one."""
+        with self.lock:
+            return self.core.lookup(blobs)
+
+    def _new_partitions(self, blobs: list[bytes], ts: np.ndarray) -> None:
+        """Partitions of distinct new keys (their first records' times
+        ``ts``), in order. Under a tenant quota they are counted one at a
+        time and a key over its quota gets none (its records are dropped
+        and counted), as the reference drops them."""
+        keys = [pk_from_blob(b) for b in blobs]
+        counted = self.cardinality.has_quotas
+        ok = np.ones(len(keys), bool)
+        if counted:
+            for i, k in enumerate(keys):
+                try:
+                    self.cardinality.series_created(k.label_map)
+                except QuotaExceededError:
+                    ok[i] = False
+        if ok.any():
+            self._create([k for k, o in zip(keys, ok) if o], ts[ok], counted)
 
     # ---- ingest ------------------------------------------------------------
 
@@ -543,35 +544,67 @@ class Shard:
         the port does not know are dropped. Returns the samples kept."""
         FaultInjector.fire("shard.ingest", dataset=self.dataset,
                            shard=self.shard_num, offset=data.offset)
-        cols = parse_container(data.container.serialize())
+        raw = data.container.serialize()
         with traced_operation("ingest", dataset=self.dataset,
                               shard=self.shard_num), self.lock:
-            kept, skipped = self._ingest_columns(cols, data.offset)
+            kept, skipped = self._ingest_container(raw, data.offset)
         self.stats.rows_ingested.inc(kept)
         self.stats.rows_skipped.inc(skipped)
         return kept
 
-    def _ingest_columns(self, cols, offset: int) -> tuple[int, int]:
-        group = cols.part_hash.astype(np.int64) % self.config.groups_per_shard
-        below = offset <= self.group_watermarks[group]
-        skipped = int(below.sum())
-        self.rows_skipped += skipped
-        idx = np.flatnonzero(~below & (cols.schema >= 0))
-        kept = 0
-        if len(idx):
-            pids = self._pids_of_blobs([cols.keys[i] for i in idx.tolist()],
-                                       cols.ts[idx])
-            idx, pids = idx[pids >= 0], pids[pids >= 0]
-            hist = self.hist[pids]
-            if (~hist).any():
-                s = idx[~hist]
-                kept += self._append(*_by_series(pids[~hist], cols.ts[s],
-                                                 cols.dvals[s, 0]))
-            if hist.any():
-                kept += self._ingest_hist_records(cols, idx[hist],
-                                                  pids[hist])
+    def _ingest_container(self, raw: bytes, offset: int) -> tuple[int, int]:
+        """The C++ pass over a serialized container (``ic_ingest``): it
+        stops where a key is new (partitions made, its records at or past
+        that point whose key got none are dropped from then on), where a
+        row it must append to is full (the filled rows seal, in pid order)
+        and where no buffer row is free (more are reserved); each time it
+        resumes at the same record. Histogram records follow."""
+        buf, nrec = _container(raw)
+        core, bufs = self.core, self.buffers
+        c = core.start(buf, nrec, offset, self.group_watermarks)
+        while True:
+            bufs.cover(self.num_partitions)
+            why = core.ingest(c, self.latest, self.hist, bufs)
+            if why == native_shard.DONE:
+                break
+            if why == native_shard.MISS:
+                _, ts, blobs = core.misses(c)
+                self._new_partitions(blobs, ts)
+                c.drop_from = c.rec
+            elif why == native_shard.FULL:
+                self._seal_full(c)
+            else:
+                bufs.reserve(bufs.used + 1)
+        self._seal_full(c)
+        kept = c.kept
+        if c.kept:
+            self.max_ingested_ts = max(self.max_ingested_ts, c.max_ts)
+        if c.scalars:
+            self.version += 1
+        cols = None
+        if c.n_drop:
+            cols = parse_container(raw)
+            for i in c.out[3][:c.n_drop].tolist():
+                self.stats.quota_dropped.inc()
+                record_tenant_drop(pk_from_blob(cols.keys[i]).label_map)
+        if c.n_hist:
+            cols = parse_container(raw) if cols is None else cols
+            kept += self._ingest_hist_records(cols, c.out[1][:c.n_hist],
+                                              c.out[2][:c.n_hist])
+        self.rows_skipped += c.skipped
         self._ingested_offset = max(self._ingested_offset, offset)
-        return kept, skipped
+        return kept, c.skipped
+
+    def _seal_full(self, c) -> None:
+        """Seal the rows the pass filled, in pid order."""
+        if not c.n_full:
+            return
+        rows = c.out[0][:c.n_full]
+        rows = rows[np.argsort(self.buffers.pid_of[rows], kind="stable")]
+        c.n_full = 0
+        sealed = self.buffers._take_rows(rows)
+        if len(sealed[0]):
+            self._add_chunks(*sealed)
 
     def _ingest_hist_records(self, cols, idx: np.ndarray,
                              pids: np.ndarray) -> int:
@@ -830,9 +863,10 @@ class Shard:
         largest persisted timestamp. Returns the keys restored."""
         self._persisted_floors = self.column_store.max_persisted_ts(
             self.dataset, self.shard_num)
-        recs = [r for r in self.column_store.scan_part_keys(
-            self.dataset, self.shard_num)
-            if r.part_key.serialized not in self._by_blob]
+        recs = list(self.column_store.scan_part_keys(self.dataset,
+                                                     self.shard_num))
+        have = self.core.lookup([r.part_key.serialized for r in recs])
+        recs = [r for r, p in zip(recs, have.tolist()) if p < 0]
         if not recs:
             return 0
         pids = self._create([r.part_key for r in recs],
@@ -847,7 +881,7 @@ class Shard:
         """Forget a partly restored registry (before the full scan)."""
         self.index = PartKeyIndex()
         self.keys = KeyList()
-        self._by_blob = {}
+        self.core.clear()
         self.cardinality = CardinalityTracker(self.shard_num)
         apply_tenant_quotas(self.cardinality)
         for name in ("latest", "floor", "_seq", "schema_of", "group",
@@ -864,25 +898,25 @@ class Shard:
         # part keys created or updated after the snapshot
         recs = self.column_store.scan_part_keys_since(
             self.dataset, self.shard_num, info["pk_token"])
-        new = [r for r in recs if r.part_key.serialized not in self._by_blob]
+        have = self.core.lookup([r.part_key.serialized for r in recs])
+        new = [r for r, p in zip(recs, have.tolist()) if p < 0]
         if new:
             pids = self._create([r.part_key for r in new],
                                 np.array([r.start_time for r in new],
                                          np.int64))
             self._dirty[pids] = False
         if recs:
-            pids = np.array([self._by_blob[r.part_key.serialized]
-                             for r in recs], np.int64)
+            pids = self.core.lookup([r.part_key.serialized for r in recs])
             self.index.set_end_times(pids, [r.end_time for r in recs])
         # chunk floors written after the snapshot; a partition that replay
         # creates takes its floor from them
         delta = self.column_store.max_persisted_ts_since(
             self.dataset, self.shard_num, info["chunk_token"])
         self._persisted_floors = delta
-        hit = [(self._by_blob[b], t) for b, t in delta.items()
-               if b in self._by_blob]
-        if hit:
-            pids, ts = (np.array(x, np.int64) for x in zip(*hit))
+        pids = self.core.lookup(list(delta))
+        ts = np.fromiter(delta.values(), np.int64, len(delta))[pids >= 0]
+        pids = pids[pids >= 0]
+        if len(pids):
             np.maximum.at(self.floor, pids, ts)
             np.maximum.at(self.latest, pids, ts)
         self.version += 1
@@ -915,8 +949,8 @@ class Shard:
         status = np.where(has_key, LIVE, GONE).astype(np.int8)
         status[list(rebuilt)] = EVICTED
         self.status[:n] = status
-        self._by_blob = {b: i for i, b in enumerate(blobs)
-                         if status[i] == LIVE}
+        self.core.clear()
+        self.core.insert(blobs, np.arange(n), status == LIVE)
         self._shells = {blobs[p]: p for p in rebuilt}
         index_of = np.full(1 << 16, -1, np.int64)
         for i, name in enumerate(SCHEMA_NAMES):
@@ -1019,11 +1053,10 @@ class Shard:
         live = pids[self.status[pids] == LIVE]
         self.cardinality.series_stopped_many(self.keys[p].label_map
                                              for p in live.tolist())
-        for p in pids.tolist():
-            blob = self.keys.blob(p)
-            # a series that came back holds its key under a new pid
-            if self._by_blob.get(blob) == p:
-                del self._by_blob[blob]
+        # a series that came back holds its key under a new pid
+        blobs = self.key_blobs(pids)
+        self.core.erase(blobs, pids)
+        for p, blob in zip(pids.tolist(), blobs):
             if self._shells.get(blob) == p:
                 del self._shells[blob]
         self._release(pids)
@@ -1084,10 +1117,9 @@ class Shard:
         self.index.set_end_times(pids[set_], ends[set_])
         for r in self.record_keys(pids):
             self.evicted_keys.add(r)
-        for p in pids.tolist():
-            blob = self.keys.blob(p)
-            self._by_blob.pop(blob, None)
-            self._shells[blob] = p
+        blobs = self.key_blobs(pids)
+        self.core.erase(blobs, pids)
+        self._shells.update(zip(blobs, pids.tolist()))
         self._release(pids)
         self.cardinality.series_stopped_many(self.keys[p].label_map
                                              for p in pids.tolist())
@@ -1603,6 +1635,19 @@ class Shard:
         width = np.array([len(self.les_list[i]) for i in lid])
         return out, t_of, b_of, r_of, self.les_list[int(
             lid[np.argmax(width)])]
+
+
+def _container(raw: bytes) -> tuple[np.ndarray, int]:
+    """A serialized v2 container's bytes and record count; raises
+    ``ValueError`` on a malformed one (then nothing is ingested)."""
+    if not raw or raw[0] != 2:
+        raise ValueError(f"container version {raw[0] if raw else None}: the "
+                         f"port reads version 2 only")
+    buf = np.frombuffer(raw, np.uint8)
+    nrec = struct.unpack_from("<I", raw, 1)[0] if len(raw) >= 5 else -1
+    if nrec < 0 or not native_shard.NativeShardCore.validate(buf, nrec):
+        raise ValueError("malformed record container")
+    return buf, nrec
 
 
 def _live_columns(table: ChunkTable) -> dict:

@@ -316,9 +316,12 @@ class MeshQueryEngine:
         key = (str(low.filters), lo_ms, hi_ms)
         kind = self._kinds.get(key)
         if kind is None:
-            hist = np.concatenate([shard.hist[shard.lookup_partitions(
-                list(low.filters), lo_ms, hi_ms)]
-                for shard in memstore.shards])
+            # read ``hist`` after the lookup: an ingest the lookup waited
+            # for may have grown it for the pids it returns
+            pids = [shard.lookup_partitions(list(low.filters), lo_ms, hi_ms)
+                    for shard in memstore.shards]
+            hist = np.concatenate([shard.hist[p] for shard, p in
+                                   zip(memstore.shards, pids)])
             kind = self._kinds[key] = 2 if hist.any() and not hist.all() \
                 else int(hist.any())
         if kind == 2:

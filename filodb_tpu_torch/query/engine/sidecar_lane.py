@@ -26,21 +26,25 @@ class it takes the cheaper (``query/cost_model.py``).
 ``quantile_over_time`` is served from the sketches only under
 ``FILODB_SIDECAR_APPROX=1``.
 
-The port's idiom: the folds and the formulas are float64 torch ops on the
-service's device. The interior stats are the shard's summary columns,
-uploaded with the chunk spans, the write buffers' packed pages and the
-keys as a bundle kept in the service's ``BatchCache`` under the shard's
-version, as a batch is. The edge chunks and the write buffers are decoded
-from their device pages by B1/B2 (``device_batch.decode_packed``), so
-their values are the pages' float32 ones, as in the port's page lane. A
-selection whose values the pages do not hold exactly (a chunk or a write
-buffer whose values do not survive float32, ``partition.exact_in_f32``)
-bypasses to the host-decode lane, which reads them in float64; so does
-one past ``F32_SAFE_MAX``, where the page lane takes its float64 gate.
-Every bypass counts in ``filodb_sidecar_bypassed`` and, with its reason,
-in the query's ``QueryStats.sidecar_bypassed``. A leaf's fold runs under
-the shard's lock, so it reads one version of the chunk table and the
-buffers.
+The port's idiom: the interior folds, the merges and the formulas are
+float64 torch ops on the service's device. The interior stats are the
+shard's summary columns, uploaded with the chunk spans and the keys as a
+bundle kept in the service's ``BatchCache`` under the shard's version, as
+a batch is. The write buffers fold on the host in float64, every window of
+every partition in one C++ call (``native_shard.buf_fold``, the
+reference's ``shard_buf_fold``), which also says which partitions have a
+sealed chunk in the windows (the static gate's count) and whether a
+buffer's timestamps run backwards (a bypass); their stats are uploaded and
+merged after the chunks'. The edge chunks are decoded from their device
+pages by B1/B2 (``device_batch.decode_packed``), so their values are the
+pages' float32 ones, as in the port's page lane: where an edge chunk's
+values do not survive float32 (``partition.exact_in_f32``) the leaf
+bypasses to the host-decode lane, which reads them in float64, and so
+does one past ``F32_SAFE_MAX``, where the page lane takes its float64
+gate; a buffer folds exactly whatever its values. Every bypass counts in
+``filodb_sidecar_bypassed`` and, with its reason, in the query's
+``QueryStats.sidecar_bypassed``. A leaf's fold runs under the shard's
+lock, so it reads one version of the chunk table and the buffers.
 
 The valve ``FILODB_SIDECARS``: ``1`` (default) folds the stored summaries;
 ``decode`` makes every interior summary again from the chunk's codec
@@ -57,6 +61,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from filodb_tpu_torch.core.memstore.native_shard import (
+    buf_fold,
+    sealed_overlap,
+)
 from filodb_tpu_torch.core.memstore.odp import needs_paging
 from filodb_tpu_torch.core.schemas import SCHEMAS
 from filodb_tpu_torch.memory.chunk import (
@@ -156,10 +164,8 @@ class SidecarBundle:
     schema, by partition then time: their rows in the shard's chunk table,
     each one's partition (its index in the leaf's list), the offsets of
     each partition's run, their stats [C, 12] (float64, on the device),
-    valid-sample spans and sketches, the largest |value| they hold, the
-    write buffers of the partitions, packed on the device, and the
-    partitions' keys (a bundle lives as long as the shard's version,
-    which every ingest moves)."""
+    valid-sample spans and sketches, and the partitions' keys (a bundle
+    lives as long as the shard's version, which every ingest moves)."""
 
     rows: np.ndarray
     part: np.ndarray
@@ -168,9 +174,6 @@ class SidecarBundle:
     starts: np.ndarray
     ends: np.ndarray
     sketch: np.ndarray
-    vmax: float
-    bufs: "_Segments"      # the partitions' write buffers, packed
-    buf_pids: np.ndarray   # their pids, in ``bufs`` row order
     keys: list             # RangeVectorKey a partition (metric kept)
     version: int = 0
     nbytes: int = 0
@@ -211,15 +214,9 @@ def _bundle(shard, pids: np.ndarray, decode_mode: bool,
     offs = np.zeros(len(pids) + 1, np.int64)
     np.cumsum(np.bincount(part, minlength=len(pids)), out=offs[1:])
     t = torch.from_numpy(np.ascontiguousarray(st)).to(device)
-    buf = shard.buffer_pages()
-    bpids = pids[buf["blk0"][pids] >= 0]
-    bufs = _Segments(shard, np.zeros(0, np.int64), bpids, base, device)
-    vmax = max(float(col["vmax"][live].max(initial=0.0)),
-               float(buf["vmax"][bpids].max(initial=0.0)))
     keys = [shard.keys[p].range_vector_key for p in pids.tolist()]
     return SidecarBundle(rows, part, offs, t, starts, ends, sketch[keep],
-                         vmax, bufs, bpids, keys, version,
-                         t.numel() * 8 + bufs.nbytes)
+                         keys, version, t.numel() * 8)
 
 
 def _decoded_summaries(shard, table, idx: np.ndarray):
@@ -380,12 +377,11 @@ def _interior(b: SidecarBundle, t0s: np.ndarray, t1s: np.ndarray,
 
 
 class _Segments:
-    """Edge chunks or write buffers of a leaf, packed as the rows of one
+    """Sealed chunks of a leaf (its edge chunks), packed as the rows of one
     batch on the device; ``fold`` decodes the rows it needs by B1/B2
     (values the pages' float32), timestamps relative to ``base``."""
 
-    def __init__(self, shard, chunk_rows: np.ndarray, buf_pids: np.ndarray,
-                 base: int, device):
+    def __init__(self, shard, chunk_rows: np.ndarray, base: int, device):
         sealed = shard._sealed
         col = sealed.columns
         offsets = np.asarray(sealed.offsets)
@@ -396,17 +392,9 @@ class _Segments:
         block_of = [blocks - offsets[seg]]
         row_of = [np.repeat(np.arange(len(chunk_rows)),
                             col["nblk"][chunk_rows])]
-        if len(buf_pids):
-            buf = shard.buffer_pages()
-            tables.append(buf["pages"])
-            bb = _expand(buf["blk0"][buf_pids], buf["nblk"][buf_pids])
-            table_of.append(np.full(len(bb), len(tables) - 1))
-            block_of.append(bb)
-            row_of.append(len(chunk_rows) + np.repeat(
-                np.arange(len(buf_pids)), buf["nblk"][buf_pids]))
         self.base = base
         self.device = device
-        self.n_rows = len(chunk_rows) + len(buf_pids)
+        self.n_rows = len(chunk_rows)
         self.packed = None
         self.nbytes = 0
         if self.n_rows:
@@ -603,11 +591,16 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
     dev = ctx.device
     mats, acc = [], {"samples": 0.0, "sidecar": 0, "decoded": 0}
     for s, spids in _by_schema(shard, pids):
-        if fn != "quantile_over_time" \
-                and not _sealed_arm(shard, spids, t0s, t1s, ctx):
-            raise _Bypass("static gate")  # the decode lane amortizes better
-        if not shard.values_exact(spids, leaf.chunk_start, leaf.chunk_end):
-            raise _Bypass("values float32 does not hold")
+        if fn != "quantile_over_time":
+            # which partitions have a sealed chunk in the windows (the
+            # static gate's count), then the write buffers' fold
+            sealed = sealed_overlap(shard._sealed.columns, spids, t0s, t1s,
+                                    shard.num_partitions)
+            if not _sealed_arm(shard, spids, sealed, t0s, t1s, ctx):
+                raise _Bypass("static gate")  # decode amortizes better
+            folded, flags = buf_fold(shard.buffers, spids, t0s, t1s)
+            if (flags & 1).any():
+                raise _Bypass("a write buffer out of time order")
         key = ("sidecar", shard.shard_num, s, str(leaf.filters),
                leaf.chunk_start, leaf.chunk_end, decode_mode)
         bundle = ctx.batches.get(key, shard, spids)
@@ -620,8 +613,11 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
             out = _quantile(ctx, shard, spids, bundle, float(psm.params[0]),
                             t0s, t1s, leaf.chunk_start, dev, acc)
         else:
-            st = _group_stats(shard, spids, bundle, t0s, t1s,
-                              leaf.chunk_start, dev, acc)
+            # without a sealed chunk in the windows (flag bit 1) the
+            # buffers' fold is all of every window, as the reference's
+            st = _group_stats(shard, spids, bundle, folded, t0s, t1s,
+                              leaf.chunk_start, dev, acc) if sealed.any() \
+                else torch.from_numpy(folded).to(dev)
             acc["samples"] += float(st[..., S_COUNT].sum())
             out = formula(fn, st, torch.from_numpy(
                 eval_steps.astype(np.float64)).to(dev), window, counter)
@@ -645,18 +641,16 @@ def _schema_name(s: int) -> str:
     return SCHEMA_NAMES[s]
 
 
-def _sealed_fold_pays(shard, pids: np.ndarray, t0s: np.ndarray,
-                      t1s: np.ndarray) -> tuple[bool, int]:
+def _sealed_fold_pays(shard, pids: np.ndarray, overlap: np.ndarray,
+                      t0s: np.ndarray, t1s: np.ndarray) -> tuple[bool, int]:
     """The reference's static decision, taken from the chunk table before
-    anything is built, and the sealed partitions it counted: serve below
-    the free count of sealed partition-windows, bypass past the gate, and
-    in between only where a window skips enough interior samples, judged
-    from the first overlapping partition's first eight chunks."""
+    anything is built, and the sealed partitions it counted (``overlap``:
+    which of ``pids`` have a live chunk in the windows,
+    ``native_shard.sealed_overlap``): serve below the free count of sealed
+    partition-windows, bypass past the gate, and in between only where a
+    window skips enough interior samples, judged from the first
+    overlapping partition's first eight chunks."""
     col = shard._sealed.columns
-    hit = (col["t1"] > t0s.min()) & (col["t0"] <= t1s.max()) & ~col["dead"]
-    overlap = np.zeros(shard.num_partitions, bool)
-    overlap[col["pid"][hit]] = True
-    overlap = overlap[pids]
     W = len(t0s)
     n_sealed = int(overlap.sum())
     gate = _sealed_gate()
@@ -679,8 +673,8 @@ def _sealed_fold_pays(shard, pids: np.ndarray, t0s: np.ndarray,
     return skipped >= _SEALED_MIN_SKIPPED_SAMPLES, n_sealed
 
 
-def _sealed_arm(shard, pids: np.ndarray, t0s: np.ndarray,
-                t1s: np.ndarray, ctx) -> bool:
+def _sealed_arm(shard, pids: np.ndarray, overlap: np.ndarray,
+                t0s: np.ndarray, t1s: np.ndarray, ctx) -> bool:
     """Fold against decode as the cost model's ``sidecar`` site decides
     (the reference's ``_sealed_arm``): the static decision
     (``_sealed_fold_pays``) is the static arm; once the model has settled
@@ -688,7 +682,8 @@ def _sealed_arm(shard, pids: np.ndarray, t0s: np.ndarray,
     predicted-cheaper arm wins. ``FILODB_SIDECAR_SEALED_GATE<=0`` stays
     the override that always folds. The decision defers onto ``ctx``; the
     leaf settles it with its evaluation's wall time."""
-    static_serve, n_sealed = _sealed_fold_pays(shard, pids, t0s, t1s)
+    static_serve, n_sealed = _sealed_fold_pays(shard, pids, overlap, t0s,
+                                               t1s)
     if n_sealed == 0:
         return True  # nothing sealed: the fold reads the buffers only
     model = cm.model_for(ctx.dataset)
@@ -701,11 +696,24 @@ def _sealed_arm(shard, pids: np.ndarray, t0s: np.ndarray,
     return d.arm == "sidecar"
 
 
-def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
-                 acc) -> torch.Tensor:
-    """Merged stats [P, W, 12] of one schema's partitions."""
+def _decodable(shard, rows: np.ndarray) -> None:
+    """Bypass unless the device pages hold the values of sealed chunks
+    ``rows`` exactly (float32, below ``F32_SAFE_MAX``): the lane decodes
+    them by B1/B2."""
     from filodb_tpu_torch.query.exec.transformers import F32_SAFE_MAX
 
+    col = shard._sealed.columns
+    if not col["exact"][rows].all():
+        raise _Bypass("values float32 does not hold")
+    if float(col["vmax"][rows].max(initial=0.0)) >= F32_SAFE_MAX:
+        raise _Bypass("past F32_SAFE_MAX")
+
+
+def _group_stats(shard, pids, b: SidecarBundle, folded: np.ndarray, t0s,
+                 t1s, base: int, dev, acc) -> torch.Tensor:
+    """Merged stats [P, W, 12] of one schema's partitions: the edge chunks
+    decoded, the interior from the summaries, and the write buffers'
+    fold ``folded`` [P, W, 12]."""
     P, W = len(pids), len(t0s)
     interior, i0, i1, o0, o1 = _interior(b, t0s, t1s, dev)
     Cs = np.diff(b.offs)[:, None]
@@ -713,12 +721,11 @@ def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
     re = o1 - 1
     right = np.where((re >= i1) & (re >= 0) & (re < Cs) & (re != left), re,
                      -1)
-    if b.vmax >= F32_SAFE_MAX:
-        raise _Bypass("past F32_SAFE_MAX")
     # the edge chunks, packed for this query's windows
     edges = np.unique(np.concatenate([(b.offs[:-1, None] + e)[e >= 0]
                                       for e in (left, right)]))
-    segs = _Segments(shard, b.rows[edges], np.zeros(0, np.int64), base, dev)
+    _decodable(shard, b.rows[edges])
+    segs = _Segments(shard, b.rows[edges], base, dev)
     seg_of_edge = np.full(len(b.rows), -1, np.int64)
     seg_of_edge[edges] = np.arange(len(edges))
 
@@ -733,14 +740,7 @@ def _group_stats(shard, pids, b: SidecarBundle, t0s, t1s, base: int, dev,
 
     pre = merge(merge(edge_stats(left), interior.reshape(P * W, -1)),
                 edge_stats(right))
-    bufs = _empty_stats(P * W, dev)
-    bpids = b.buf_pids
-    if len(bpids):
-        at = np.searchsorted(pids, bpids)
-        sw = (at[:, None] * W + np.arange(W)[None, :]).ravel()
-        rows = np.repeat(np.arange(len(bpids)), W)
-        bufs[torch.from_numpy(sw).to(dev)] = b.bufs.fold(
-            rows, np.tile(t0s, len(bpids)), np.tile(t1s, len(bpids)))
+    bufs = torch.from_numpy(folded.reshape(P * W, STATS_WIDTH)).to(dev)
     both = (pre[:, S_COUNT] > 0) & (bufs[:, S_COUNT] > 0)
     if bool((both & (bufs[:, S_FIRST_TS] <= pre[:, S_LAST_TS])).any()):
         raise _Bypass("out of order across the seal")
@@ -767,9 +767,17 @@ def _quantile(ctx, shard, pids, b: SidecarBundle, q: float, t0s, t1s,
         raise _Bypass("static gate")  # a per-window sketch merge
     _, i0, i1, _, _ = _interior(b, t0s, t1s, dev)
     Cs = np.diff(b.offs)
-    chunk_rows = _Segments(shard, b.rows, np.zeros(0, np.int64), base,
-                           dev).host_rows()
-    buf_rows = b.bufs.host_rows()
+    _decodable(shard, b.rows)
+    chunk_rows = _Segments(shard, b.rows, base, dev).host_rows()
+    # the write buffers' float64 samples
+    bufs = shard.buffers
+    bufs.cover(shard.num_partitions)
+    slot = bufs.slot[pids]
+    held = np.flatnonzero(slot >= 0)
+    held = held[bufs.n[slot[held]] > 0]
+    n = bufs.n[slot[held]]
+    buf_rows = (bufs.ts[slot[held]], bufs.vals[slot[held]],
+                np.arange(bufs.max_chunk_size)[None, :] < n[:, None])
     L = max(chunk_rows[0].shape[1], buf_rows[0].shape[1])
 
     def padded(x, fill):
@@ -780,8 +788,8 @@ def _quantile(ctx, shard, pids, b: SidecarBundle, q: float, t0s, t1s,
                        for c, r, f in zip(chunk_rows, buf_rows, (0, 0, False)))
     out = np.full((P, W), np.nan)
     samples = 0
-    brow = dict(zip(np.searchsorted(pids, b.buf_pids).tolist(),
-                    range(len(b.rows), len(b.rows) + len(b.buf_pids))))
+    brow = dict(zip(held.tolist(),
+                    range(len(b.rows), len(b.rows) + len(held))))
     for i in range(P):
         for k in range(W):
             a = b.offs[i]

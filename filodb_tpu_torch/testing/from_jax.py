@@ -95,7 +95,9 @@ def ingest_states(memstore: MemStore, states: list[SeriesState],
     for key, s in zip(holes, memstore.shard_of(holes).tolist()
                       if holes else []):
         shard = memstore.shards[s]
-        shard.remove_partitions([shard._by_blob[key.serialized]])
+        pid = shard.lookup_keys([key.serialized])
+        assert pid[0] >= 0, f"no partition of {key}"
+        shard.remove_partitions(pid)
     for s, state in (blooms or {}).items():
         memstore.shards[s].evicted_keys = BloomFilter.from_state(state)
 

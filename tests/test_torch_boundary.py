@@ -16,7 +16,10 @@ through a ``FiloServer(device="cpu")`` fed by its gateway and queried
 over HTTP; and the query control plane's (tracing, resilience, the
 governor, the cost model and the adaptive planner, the adaptive engine),
 through that node with the governor, resilience, cost-model and tracing
-blocks set away from their defaults and acted on.
+blocks set away from their defaults and acted on; and the C++ ingest core
+(``core/memstore/native_shard.py``), through a container ingested into a
+shard, after which the process's ``/proc/self/maps`` holds the port's own
+``libingestcore`` and no library under the JAX package's ``native/``.
 """
 
 import json
@@ -190,6 +193,21 @@ import os
 control.append(os.path.exists(f"{node_root}/columnstore/timeseries/"
                               "costmodel.json"))
 control.append(governor.governor().state)
+from filodb_tpu_torch.core.memstore import native_shard
+from filodb_tpu_torch.core.memstore.shard import Shard
+core_shard = Shard(0)
+c = record.RecordContainer()
+for k in sh.keys:
+    c.add(record.IngestRecord(k, int(ts.max()) + 20_000, (2e6,)))
+core = [core_shard.ingest(record.SomeData(
+    record.BytesContainer(c.serialize()), 0)), core_shard.num_partitions,
+    int(core_shard.lookup_keys([sh.keys[0].serialized])[0]),
+    isinstance(core_shard.core, native_shard.NativeShardCore)]
+libs = {line.split()[-1] for line in open("/proc/self/maps")
+        if line.rstrip().endswith(".so")}
+core.append(sorted(p for p in libs if "/native/" in p
+                   or "filodb_native" in p))
+core.append(any("libingestcore" in p for p in libs))
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -201,7 +219,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "scalar": scal["data"]["result"], "meta": meta,
                   "exec": exec_rows, "durable": durable, "node": node,
                   "memory": memory, "control": control,
-                  "adaptive": adaptive_rows,
+                  "adaptive": adaptive_rows, "core": core,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -247,4 +265,6 @@ def test_port_loads_no_jax_and_no_reference_module():
                              "purged": 4, "bloom": 3}
     assert res["control"] == [4, 5.0, 2, 1.0, True, 2, True, True, "ok"]
     assert res["adaptive"] == 2
+    n = res["core"][1]
+    assert res["core"] == [n, n, 0, True, [], True] and n > 0
     assert res["loaded"] == []

@@ -388,8 +388,9 @@ def test_paged_back_shells_on_card_equal_their_plain_version(cuda,
 
 
 def test_sidecar_lane_on_card_equals_cpu(cuda, monkeypatch):
-    """The sidecar lane's folds on the card (its edges and buffers decoded
-    by B1/B2) against the same lane on the CPU."""
+    """The sidecar lane's folds on the card (its edge chunks decoded by
+    B1/B2, its write buffers folded on the host) against the same lane on
+    the CPU."""
     from filodb_tpu_torch.query.engine import sidecar_lane
 
     store = _counter_store(MemStore(4, 1, 400))

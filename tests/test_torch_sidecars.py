@@ -96,6 +96,19 @@ def _streams():
     ]
 
 
+@pytest.fixture(autouse=True)
+def _cold_port_cost_models():
+    """Every test starts with the port's cost models cold, as
+    ``tests/conftest.py`` starts the reference's: the models are
+    process-global, and one warmed by an earlier test file on the same
+    worker would pick the sidecar site's arm here."""
+    from filodb_tpu_torch.query import cost_model
+
+    cost_model.reset_models()
+    yield
+    cost_model.reset_models()
+
+
 @pytest.fixture(scope="module")
 def stores():
     """The same containers in a reference store and in the port's, 4
