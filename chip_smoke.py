@@ -224,13 +224,35 @@ checks it, phase by phase; any failed phase exits non-zero:
    write-buffer fold alone a shard, the host's largest self times, the
    device's largest kernels); then the seal wave (``Shard.seal`` of every
    series, one thread a shard): its seconds and chunks.
+18. (after phase 14) long retention, on a local-disk store of its own
+   under a ``tempfile.mkdtemp()`` directory: ``--longterm-series``
+   counters of the phase-2 generator and a quarter as many load averages
+   (phase 14's ``node_load1``, a ``gauge``, so ``ds-gauge`` is exercised),
+   ``LT_SAMPLES`` samples at 10 s (6 h), flushed; the downsampler job's
+   ``catch_up`` at 5 m and 1 h (seconds by step, raw rows/s, ds chunks and
+   their bytes against the raw bytes), then a second one that must scan
+   nothing; ``LT_QUERIES`` over the 6 h at 60 s (K = 361), ``now`` pinned
+   to the data's end, a raw retention of 2 h and a memory one of 1 h,
+   through ``LongTimeRangePlanner`` and ``TieredPlanner`` (cold, warm p50
+   of ``LT_WARM``, ``QueryStats.tiers``, launches, the engine, which must
+   be exec); B1-B4 must launch on downsampled or cold-tier data; each
+   stitched answer must equal its tiers' own answers over their own step
+   ranges and the other planner's, the ``App-0`` subset the port's
+   ``device="cpu"`` answer (rtol 2e-5, atol 1e-6), and a warm repeat
+   through the extent cache must page no cold or ds chunk in; then a
+   ``FiloServer`` over the directory with ``downsample`` (``streaming``)
+   and ``federation.mem_retention_ms``: ``/api/v1/status/tiers``, the
+   first query through HTTP with ``?stats=all`` (its three tiers, equal
+   to the in-process answer), and an hour more of App-0's counters
+   flushed, the rollups published, a scheduler tick's ds flushes, and a
+   ds query that sees them.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
 and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
-phases 1, 2 and 17).
+phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -4260,6 +4282,461 @@ SMOKE_TIMEOUT_S = 900.0
 _SMOKE_SERVICE = []
 
 
+# phase 18: long retention. A store of its own on the local disk, built
+# from the phase-2 generator's counters and phase 14's load averages (a
+# quarter as many), LT_SAMPLES samples at 10 s (6 h), flushed; the
+# downsampler job over it at the reference's resolutions; then queries over
+# the 6 h through LongTimeRangePlanner and TieredPlanner, ``now`` pinned to
+# the data's end, the raw retention LT_RAW_RETENTION_MS and the memory's
+# LT_MEM_RETENTION_MS: the downsample tier serves the first 4 h, the cold
+# raw tier the next hour, the memstore the last. It models a node of 1 M
+# series with 3 days of raw retention (``filodb_tpu/config.py``); the
+# series, the history and both retentions are cut (PERF.md §4), the widths
+# are not: the 10 s scrape, the 5 m and 1 h resolutions, the label sets.
+LT_DS = "timeseries"
+LT_SAMPLES = 2160               # 6 h at 10 s
+LT_SERIES = 10_000              # counters in the full smoke
+LT_SERIES_ALONE = 100_000       # counters under --longterm-only
+LT_GAUGES = 4                   # counters a load-average series
+LT_RESOLUTIONS = (300_000, 3_600_000)
+LT_RAW_RETENTION_MS = 2 * 3_600_000
+LT_MEM_RETENTION_MS = 3_600_000
+LT_ODP_CHUNKS = 2_000_000       # the tiers' ODP caches hold the 6 h
+LT_QUERIES = (f"sum(rate({M}[15m])) by (_ns_)",
+              f"sum(sum_over_time({LOAD1}[15m])) by (job)",
+              f"avg(avg_over_time({LOAD1}[15m]))",
+              f"max(max_over_time({LOAD1}[15m])) by (_ns_)")
+LT_WARM = 3
+LT_SUBSET = '_ns_="App-0"'
+LT_TOL = dict(rtol=2e-5, atol=1e-6, equal_nan=True)
+
+
+def _lt_subset(q: str) -> str:
+    for m in (M, LOAD1):
+        q = q.replace(f"{m}[", f"{m}{{{LT_SUBSET}}}[")
+    return q
+
+
+def _lt_planners(store, now_ms: int) -> dict:
+    """A long-time and a tiered planner over ``store`` and its column
+    store, each with stores of its own (their cold runs page in)."""
+    from filodb_tpu_torch.coordinator.longtime_planner import (
+        LongTimeRangePlanner,
+    )
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.coordinator.tiered_planner import (
+        build_tiered_planner,
+    )
+    from filodb_tpu_torch.core.downsample import DownsampledTimeSeriesStore
+
+    def ds_planner():
+        return SingleClusterPlanner(4, 1, store=DownsampledTimeSeriesStore(
+            store.column_store, LT_DS, LT_RESOLUTIONS[0], 4,
+            max_chunks=LT_ODP_CHUNKS))
+
+    return {
+        "longtime": LongTimeRangePlanner(
+            SingleClusterPlanner(4, 1), ds_planner(), LT_RAW_RETENTION_MS,
+            now_ms=lambda: now_ms),
+        "tiered": build_tiered_planner(
+            SingleClusterPlanner(4, 1), store.column_store, LT_DS, 4, 1,
+            mem_retention_ms=LT_MEM_RETENTION_MS,
+            raw_retention_ms=LT_RAW_RETENTION_MS, ds_planner=ds_planner(),
+            odp_max_chunks=LT_ODP_CHUNKS, now_ms=lambda: now_ms)}
+
+
+def _lt_paged(planner) -> tuple:
+    """(chunks paged, bytes read) by the ODP caches of the planner's
+    colder tiers."""
+    stores = [p.store for p in (getattr(planner, "cold_planner", None),
+                                planner.ds_planner) if p is not None]
+    return (sum(s.odp_cache.chunks_paged for st in stores
+                for s in st.shards),
+            sum(s.odp_cache.bytes_read for st in stores for s in st.shards))
+
+
+def _lt_tier_answers(svc, planner, q: str, start: int, end: int):
+    """The tiered planner's per-tier answers of ``q``, each over its own
+    step range: [(tier, answer)]."""
+    from filodb_tpu_torch.coordinator.longtime_planner import (
+        rewrite_for_downsample,
+    )
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query import logical as lp
+    from filodb_tpu_torch.query.federation import (
+        DOWNSAMPLE,
+        OBJECTSTORE,
+        route_tiers,
+    )
+
+    plan = parse_query(q, TimeStepParams(start, 60, end))
+    a, step, b, lookback = lp.plan_times(plan)
+    mem_floor, raw_floor = planner._floors()
+    out = []
+    for r in route_tiers(a, step, b, lookback, mem_floor, raw_floor):
+        sub = lp.retime(plan, r.start, step, r.end)
+        tier_planner = {OBJECTSTORE: planner.cold_planner,
+                        DOWNSAMPLE: planner.ds_planner}.get(
+                            r.tier, planner.raw_planner)
+        if r.tier == DOWNSAMPLE:
+            sub = rewrite_for_downsample(sub)
+        saved, svc.planner = svc.planner, tier_planner
+        try:
+            out.append((r.tier, svc.execute_logical(sub, wide())))
+        finally:
+            svc.planner = saved
+    return out
+
+
+def _lt_stitched_check(full, parts) -> int:
+    """The stitched answer at each tier's steps equals that tier's own
+    answer (rows by key, rtol 1e-9); → the steps checked."""
+    fk, fv = _sorted_answer(full)
+    steps = np.asarray(full.result.steps_ms)
+    n = 0
+    for tier, res in parts:
+        k, v = _sorted_answer(res)
+        at = np.searchsorted(steps, np.asarray(res.result.steps_ms))
+        rows = [fk.index(x) for x in k]
+        got = fv[rows][:, at]
+        if not np.allclose(got, v, rtol=1e-9, atol=1e-12, equal_nan=True):
+            raise AssertionError(f"phase 18: the stitched answer is not the "
+                                 f"{tier} tier's own over its steps")
+        n += len(at)
+    if n != len(steps):
+        raise AssertionError(f"phase 18: the tiers' steps ({n}) are not the "
+                             f"query's ({len(steps)})")
+    return n
+
+
+def _lt_node_config(root: str, gateway: int) -> str:
+    path = Path(root) / "server.json"
+    path.write_text(json.dumps({
+        "node_name": "node-0", "data_dir": root, "http_port": 0,
+        "gateway_port": gateway,
+        "datasets": {LT_DS: {
+            "num_shards": 4, "spread": 1, "engine": "mesh",
+            "store": {"max_chunk_size": 400, "groups_per_shard": 20,
+                      "flush_interval_ms": 6_000_000,
+                      "retention_ms": NODE_RETENTION_MS},
+            "downsample": {"resolutions_ms": list(LT_RESOLUTIONS),
+                           "streaming": True, "schedule_s": 21_600,
+                           "raw_retention_ms": LT_RAW_RETENTION_MS}}},
+        "federation": {"mem_retention_ms": LT_MEM_RETENTION_MS,
+                       "odp_max_chunks": LT_ODP_CHUNKS},
+        # the cold federated query at 125,000 series outlasts the
+        # default 30 s deadline (the smoke's own, as its services')
+        "resilience": {"query_timeout_s": SMOKE_TIMEOUT_S}}))
+    return str(path)
+
+
+def _lt_node(dev, root: str, now_ms: int, tiered_answer,
+             series: int) -> dict:
+    """Step 4: a node over the directory with streaming downsampling and
+    federation: its tier status, a three-tier query over HTTP with
+    ``?stats=all``, then a new hour of App-0's counters, flushed (the
+    rollups published), a scheduler tick's ds flushes, and a ds query
+    that sees the new rollups."""
+    import socket
+
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.coordinator.tiered_planner import TieredPlanner
+    from filodb_tpu_torch.core.downsample import ds_dataset_name
+    from filodb_tpu_torch.standalone import FiloServer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        gateway = sock.getsockname()[1]
+    t = time.perf_counter()
+    srv = FiloServer(ServerConfig.load(_lt_node_config(root, gateway)),
+                     device=dev).start()
+    try:
+        if not srv.cluster.wait_active(LT_DS, timeout=900):
+            raise AssertionError("phase 18: the node's shards are not "
+                                 "ACTIVE")
+        out = {"boot_s": time.perf_counter() - t}
+        svc = srv.services[LT_DS]
+        if not isinstance(svc.planner, TieredPlanner):
+            raise AssertionError(f"phase 18: the node's planner is "
+                                 f"{type(svc.planner).__name__}")
+        svc.planner.now_ms = lambda: now_ms
+        code, body, ms = http_get(srv.http.port, "/api/v1/status/tiers")
+        doc = json.loads(body)["data"][LT_DS]
+        if code != 200 or not doc["federated"] or [
+                x["tier"] for x in doc["tiers"]] != [
+                    "objectstore", "downsample", "memstore"]:
+            raise AssertionError(f"phase 18: status/tiers: {code} {body}")
+        out["status_tiers"] = doc
+        q = LT_QUERIES[0]
+        end = now_ms // 1000
+        code, body, cold = http_get(
+            srv.http.port, f"/promql/{LT_DS}/api/v1/query_range", query=q,
+            start=end - 6 * 3600, step=60, end=end, stats="all")
+        got = json.loads(body)
+        if code != 200 or set(got["queryStats"]["tiers"]) != {
+                "memstore", "objectstore", "downsample"}:
+            raise AssertionError(f"phase 18: the node's federated query: "
+                                 f"{code} {body[:300]}")
+        m = tiered_answer.result.materialize()
+        want = {tuple(sorted(k.labels)): np.asarray(v)
+                for k, v in zip(m.keys, np.asarray(m.values))}
+        steps = np.asarray(m.steps_ms) / 1000.0
+        if len(got["data"]["result"]) != len(want):
+            raise AssertionError("phase 18: the node's answer has other "
+                                 "series than the in-process one")
+        for r in got["data"]["result"]:
+            w = want[tuple(sorted(r["metric"].items()))]
+            fin = np.isfinite(w)
+            g = np.array([float(x) for _, x in r["values"]])
+            if [float(t) for t, _ in r["values"]] != steps[fin].tolist() \
+                    or not np.allclose(g, w[fin], rtol=2e-5, atol=1e-6):
+                raise AssertionError(f"phase 18: the node's answer for "
+                                     f"{r['metric']} is not the in-process "
+                                     f"one")
+        out["http"] = {"query": q, "cold_ms": cold,
+                       "tiers": got["queryStats"]["tiers"]}
+        log(f"  node: booted in {out['boot_s']:.1f} s, tiers "
+            f"{[x['tier'] for x in doc['tiers']]}; {q} over HTTP cold "
+            f"{cold:.1f} ms, equal to the in-process tiered answer")
+        # streaming: an hour more of App-0's counters, flushed
+        raw = srv.node.memstores[LT_DS]
+        rng = np.random.default_rng(18)
+        labels = [{"_metric_": M, "_ws_": "demo", "_ns_": "App-0",
+                   "instance": f"instance-{i}", "job": f"job-{i % 10}"}
+                  for i in range(0, series, 100)]  # phase 2's App-0
+        n_new = 360
+        ts = now_ms + 10_000 * (1 + np.arange(n_new, dtype=np.int64))
+        base = np.full((len(labels), 1), 1e6)
+        vals = base + np.cumsum(rng.integers(0, 20, (len(labels), n_new)),
+                                axis=1)
+        raw.ingest_series(labels, np.tile(ts, (len(labels), 1)), vals)
+        ds_name = ds_dataset_name(LT_DS, LT_RESOLUTIONS[0])
+        ds_store = srv.node.memstores[ds_name]
+        probe = smoke_service(ds_store, device=dev, engine="exec")
+        qd = f"sum(rate({M}{{{LT_SUBSET}}}[15m]))"
+        new_end = (ts[-1] // 1000) + 60
+        new_start = now_ms // 1000 + 1200
+        before = probe.query_range(qd, new_start, 60, new_end)
+        t = time.perf_counter()
+        flushed = sum(sh.flush_all() for sh in raw.shards)
+        records = sum(sh.stats.downsample_records.value for sh in raw.shards)
+        ticks = 0
+        for key in list(srv.node._ds_shards):
+            for _ in range(20):
+                srv.node._flusher.flush_ds(key)
+                ticks += 1
+        after = probe.query_range(qd, new_start, 60, new_end)
+        vals_after = np.asarray(after.result.materialize().values)
+        if np.isfinite(np.asarray(before.result.materialize().values)).any() \
+                or not np.isfinite(vals_after).any():
+            raise AssertionError("phase 18: the ds query does not see the "
+                                 "new rollups")
+        out["streaming"] = {"series": len(labels), "samples": n_new,
+                            "raw_chunks_flushed": flushed,
+                            "rollup_records": records,
+                            "ds_flushes": ticks,
+                            "seconds": time.perf_counter() - t,
+                            "ds_steps_answered": int(np.isfinite(
+                                vals_after).sum())}
+        log(f"  streaming: {len(labels)} series x {n_new} new samples "
+            f"flushed ({flushed} chunks), {records} rollup records "
+            f"published, {ticks} ds flushes; the ds query answers "
+            f"{out['streaming']['ds_steps_answered']} new steps")
+        return out
+    finally:
+        srv.shutdown()
+
+
+def longterm_phase(dev, args) -> dict:
+    """Phase 18: long retention (see the module)."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.core.downsample import DownsamplerJob
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="filodb-longterm-")
+    try:
+        out = _longterm(dev, args, root, _build, DownsamplerJob)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 18 took {out['seconds']:.1f} s")
+    return out
+
+
+def _longterm(dev, args, root: str, _build, DownsamplerJob) -> dict:
+    series = args.longterm_series
+    gauges = series // LT_GAUGES
+    store = durable_store(root, LT_DS, retention_ms=NODE_RETENTION_MS,
+                          max_query_matches=0)
+    t = time.perf_counter()
+    rng = np.random.default_rng(args.seed + 18)
+    kept = 0
+    for a in range(0, series, 65536):
+        kept += store.ingest_series(*make_series(
+            rng, a, min(a + 65536, series), LT_SAMPLES))
+    for a in range(0, gauges, 65536):
+        labels, ts, vals = make_host_series(rng, LOAD1, a,
+                                            min(a + 65536, gauges),
+                                            LT_SAMPLES)
+        kept += store.ingest_series(labels, ts, vals, schema="gauge")
+    ingest_s = time.perf_counter() - t
+    t = time.perf_counter()
+    chunks = store.flush_all()
+    flush_s = time.perf_counter() - t
+    raw_bytes = dir_bytes(Path(root) / "columnstore" / LT_DS)
+    now_ms = T0_MS + LT_SAMPLES * 10_000
+    log(f"phase 18: long retention: {series} counters and {gauges} load "
+        f"averages x {LT_SAMPLES} samples (6 h), {kept} kept, ingested in "
+        f"{ingest_s:.1f} s, flushed in {flush_s:.1f} s ({chunks} chunks, "
+        f"{raw_bytes / 1e6:.1f} MB of sqlite)")
+    out = {"counters": series, "gauges": gauges, "samples": LT_SAMPLES,
+           "ingest_s": ingest_s, "flush_s": flush_s, "raw_chunks": chunks,
+           "raw_bytes": raw_bytes}
+    # 1. the batch job, then a second catch-up that finds nothing
+    job = DownsamplerJob(store.column_store, LT_DS, 4, LT_RESOLUTIONS,
+                         max_chunk_size=400, meta_store=store.meta_store)
+    t = time.perf_counter()
+    stats = job.catch_up(int(time.time() * 1000))
+    job_s = time.perf_counter() - t
+    again = job.catch_up(int(time.time() * 1000))
+    if again["raw_chunks"] or again["ds_samples"] or not stats["ds_chunks"]:
+        raise AssertionError(f"phase 18: the job's checkpoint does not hold "
+                             f"({stats}, then {again})")
+    out["job"] = {"seconds": job_s, "split_s": dict(job.seconds),
+                  "raw_rows": stats["raw_rows"],
+                  "raw_rows_per_s": stats["raw_rows"] / job_s,
+                  "raw_chunks_read": stats["raw_chunks"],
+                  "raw_bytes_read": stats["raw_bytes"],
+                  "ds_partitions": stats["partitions"],
+                  "ds_chunks": stats["ds_chunks"],
+                  "ds_samples": stats["ds_samples"],
+                  "ds_bytes": stats["ds_bytes"],
+                  "ds_over_raw_bytes": stats["ds_bytes"]
+                  / max(stats["raw_bytes"], 1),
+                  "second_catch_up": {k: again[k] for k in (
+                      "raw_chunks", "ds_samples", "scanned_from")}}
+    log(f"  job: {job_s:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in job.seconds.items())}), "
+        f"{stats['raw_rows']} raw rows ({out['job']['raw_rows_per_s']:.3g}/s), "
+        f"{stats['ds_chunks']} ds chunks, {stats['ds_bytes'] / 1e6:.1f} MB "
+        f"({out['job']['ds_over_raw_bytes']:.3f} of the raw bytes read); "
+        f"the second catch-up scanned nothing")
+    # 2. the queries through both planners
+    end = now_ms // 1000
+    start = end - 6 * 3600
+    planners = _lt_planners(store, now_ms)
+    services = {name: smoke_service(store, device=dev)
+                for name in planners}
+    for name, svc in services.items():
+        svc.planner = planners[name]
+    _build.reset_counts()
+    out["queries"] = []
+    answers = {}
+    for q in LT_QUERIES:
+        for name, svc in services.items():
+            l0 = dict(_build.LAUNCHES)
+            t = time.perf_counter()
+            r = svc.query_range(q, start, 60, end)
+            cold = (time.perf_counter() - t) * 1000.0
+            warm = []
+            for _ in range(LT_WARM):
+                t = time.perf_counter()
+                svc.query_range(q, start, 60, end)
+                warm.append((time.perf_counter() - t) * 1000.0)
+            if r.stats.engine != "exec":
+                raise AssertionError(f"phase 18: {q} through {name} was "
+                                     f"served by {r.stats.engine}")
+            m = r.result.materialize()
+            if m.num_steps != 361 or not np.isfinite(
+                    np.asarray(m.values)).any():
+                raise AssertionError(f"phase 18: {q} through {name}: "
+                                     f"{m.num_steps} steps, no finite value")
+            answers[(q, name)] = r
+            rec = dict(query=q, planner=name, cold_ms=cold,
+                       warm_p50_ms=float(np.median(warm)),
+                       rows=m.num_series, engine=r.stats.engine,
+                       tiers=r.stats.tiers, host_lane=r.stats.host_lane,
+                       launches={k: _build.LAUNCHES[k] - l0[k]
+                                 for k in l0})
+            out["queries"].append(rec)
+            log(f"  {name} {q}: cold {cold:.1f} ms, warm p50 "
+                f"{rec['warm_p50_ms']:.1f} ms, {m.num_series} rows, "
+                f"engine {r.stats.engine}, tiers "
+                f"{ {k: (v['series'], v['chunks']) for k, v in r.stats.tiers.items()} }, "
+                f"launches {rec['launches']}")
+    out["launches"] = dict(_build.LAUNCHES)
+    if dev.type == "cuda" and not all(out["launches"].values()):
+        raise AssertionError(f"phase 18: a kernel did not launch on "
+                             f"downsampled or cold data: {out['launches']}")
+    launches = dict(_build.LAUNCHES)
+    # 3. checks: each tier's own answer; the two planners alike; the
+    # App-0 subset against the CPU; a warm repeat through the extent cache
+    checked = {}
+    tier_svc = smoke_service(store, device=dev, engine="exec")
+    for q in LT_QUERIES:
+        parts = _lt_tier_answers(tier_svc, planners["tiered"], q, start,
+                                 end)
+        checked[q] = _lt_stitched_check(answers[(q, "tiered")], parts)
+        lk, lv = _sorted_answer(answers[(q, "longtime")])
+        tk, tv = _sorted_answer(answers[(q, "tiered")])
+        if lk != tk or not np.allclose(lv, tv, rtol=1e-9, atol=1e-12,
+                                       equal_nan=True):
+            raise AssertionError(f"phase 18: {q}: the long-time and the "
+                                 f"tiered planners' answers differ")
+    cpu_planners = _lt_planners(store, now_ms)
+    cpu = smoke_service(store, device="cpu")
+    card = smoke_service(store, device=dev)
+    vs_cpu = {}
+    for q in LT_QUERIES:
+        sub = _lt_subset(q)
+        cpu.planner, card.planner = cpu_planners["tiered"], \
+            planners["tiered"]
+        vs_cpu[sub] = _lt_same(card.query_range(sub, start, 60, end),
+                               cpu.query_range(sub, start, 60, end), sub)
+    cached = smoke_service(store, device=dev, result_cache=True)
+    cached.planner = _lt_planners(store, now_ms)["tiered"]
+    first = cached.query_range(LT_QUERIES[0], start, 60, end)
+    paged = _lt_paged(cached.planner)
+    second = cached.query_range(LT_QUERIES[0], start, 60, end)
+    if _lt_paged(cached.planner) != paged or not second.stats.cache_hits \
+            or not paged[0]:
+        raise AssertionError(f"phase 18: the warm repeat through the extent "
+                             f"cache paged chunks in ({paged} → "
+                             f"{_lt_paged(cached.planner)})")
+    _build.LAUNCHES.update(launches)  # the checks' launches are not counted
+    out["checks"] = {"tier_steps": checked, "vs_cpu": vs_cpu,
+                     "extent_cache": {"cold_paged": paged[0],
+                                      "cold_bytes": paged[1],
+                                      "warm_hits": second.stats.cache_hits,
+                                      "cold_misses":
+                                          first.stats.cache_misses}}
+    log(f"  checks: every stitched answer equals its tiers' own answers and "
+        f"the other planner's; the App-0 subset equals the CPU's; the warm "
+        f"repeat through the extent cache paged nothing "
+        f"({second.stats.cache_hits} extents hit)")
+    tiered_answer = answers[(LT_QUERIES[0], "tiered")]
+    del services, tier_svc, cpu, card, cached, planners, cpu_planners
+    store.close()
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    # 4. the node
+    out["node"] = _lt_node(dev, root, now_ms, tiered_answer, series)
+    return out
+
+
+def _lt_same(got, want, what: str) -> dict:
+    gk, gv = _sorted_answer(got)
+    wk, wv = _sorted_answer(want)
+    if gk != wk or gv.shape != wv.shape or not np.allclose(gv, wv,
+                                                           **LT_TOL):
+        raise AssertionError(f"phase 18: {what}: the card's answer is not "
+                             f"the CPU's")
+    fin = np.isfinite(wv)
+    return {"max_abs": float(np.abs(gv[fin] - wv[fin]).max(initial=0.0)),
+            "rows": len(gk)}
+
+
 def wide():
     """A QueryContext whose sample limit the smoke's answers fit."""
     from filodb_tpu_torch.query.model import PlannerParams, QueryContext
@@ -4468,7 +4945,18 @@ def main() -> int:
                     help="build and run phases 15 and 16 only "
                     "(query_range_many, the extent cache and the query "
                     "control plane, on a store of their own)")
+    ap.add_argument("--longterm-series", type=int, default=None,
+                    help=f"phase 18's counters ({LT_SERIES}, or "
+                    f"{LT_SERIES_ALONE} under --longterm-only), and a "
+                    f"quarter as many load averages")
+    ap.add_argument("--longterm-only", action="store_true",
+                    help="build and run phase 18 only (long retention: the "
+                    "downsampler job, the long-time and tiered planners "
+                    "over three tiers, and a node)")
     args = ap.parse_args()
+    if args.longterm_series is None:
+        args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
+            else LT_SERIES
 
     import torch
 
@@ -4538,6 +5026,11 @@ def _phases(args, smi) -> int:
         print(json.dumps({"control_plane": control_plane_phase(svc, args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.longterm_only:
+        print(json.dumps({"longterm": longterm_phase(torch.device("cuda"),
+                                                     args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
         durable, node = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
@@ -4580,6 +5073,9 @@ def _phases(args, smi) -> int:
     torch.cuda.empty_cache()
     host = host_lane_phase(torch.device("cuda"), args)
     print(json.dumps({"host_lane": host}))
+    torch.cuda.empty_cache()
+    longterm = longterm_phase(torch.device("cuda"), args)
+    print(json.dumps({"longterm": longterm}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -4592,6 +5088,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase15"] = serving["launches"][kern["name"]]
         kern["launches_phase16"] = control["launches"][kern["name"]]
         kern["launches_phase17"] = core["launches"][kern["name"]]
+        kern["launches_phase18"] = longterm["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

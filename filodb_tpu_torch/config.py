@@ -9,15 +9,13 @@ in both packages.
 The port boots a single coordinator node (``standalone.py``). Options
 whose modules it does not have yet raise ``NotImplementedError`` naming
 their ROADMAP item when set away from their default (``UNPORTED``, and
-the ``resilience`` keys of remote dispatch). ``federation`` is on by
-default in the reference and changes what a node reads from colder
-tiers, which the port does not have; at its defaults it is accepted and
-not acted on (``NOT_ACTED_ON``; the server logs it at boot, ROADMAP §C),
-and set to anything else it raises too. ``result_cache``,
+the ``resilience`` keys of remote dispatch). ``result_cache``,
 ``http_response_cache``, ``governor``, ``resilience`` (its single-node
-``query_timeout_s``), ``cost_model`` and ``tracing`` are acted on, in any
-form the reference takes; a dataset's ``engine`` is ``mesh``,
-``adaptive`` or ``exec``.
+``query_timeout_s``), ``cost_model``, ``tracing``, a dataset's
+``downsample`` block (the job, its streaming form and the long-time
+planner) and ``federation`` (the tiered planner, with
+``mem_retention_ms`` set) are acted on, in any form the reference takes;
+a dataset's ``engine`` is ``mesh``, ``adaptive`` or ``exec``.
 """
 
 from __future__ import annotations
@@ -180,15 +178,10 @@ UNPORTED = {
     "wal_server_port": "the log server (ROADMAP §A.12)",
     "store_remote": "the remote column store (ROADMAP §A.12)",
     "store_server_port": "the column-store server (ROADMAP §A.12)",
-    "store.backend": "the object-store tier (ROADMAP §A.11)",
+    "store.backend": "the object-store tier (ROADMAP §A5)",
     "rules.groups": "standing queries (ROADMAP §A.11)",
     "selfmon.enabled": "self-monitoring (ROADMAP §A.11)",
-    "downsample": "downsampling (ROADMAP §A.11)",
 }
-# blocks on by default in the reference that the port accepts at their
-# defaults and does not act on
-NOT_ACTED_ON = ("federation",)
-_NOT_ACTED = "is not acted on by the port yet (ROADMAP §C, §A.11)"
 
 
 @dataclass
@@ -279,23 +272,13 @@ class ServerConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for an option the port does not
-        have, set away from its default (``UNPORTED``, ``NOT_ACTED_ON``,
+        have, set away from its default (``UNPORTED``,
         ``StoreConfig.check_supported``), or an unknown front end or
         engine."""
         for opt, why in UNPORTED.items():
-            if opt == "downsample":
-                if self.downsample:
-                    raise NotImplementedError(f"downsample: {why}")
-                continue
             if _get(self, opt) != _default(opt):
                 raise NotImplementedError(
                     f"{opt}={_get(self, opt)!r}: {why}")
-        for block in NOT_ACTED_ON:
-            got = {**DEFAULTS[block], **getattr(self, block)}
-            if got != DEFAULTS[block]:
-                raise NotImplementedError(
-                    f"{block}={getattr(self, block)!r}: the {block} block "
-                    f"{_NOT_ACTED}")
         resilience_mod.check_supported(self.resilience)
         if self.http_impl not in ("fast", "threaded"):
             raise ValueError(f"http_impl {self.http_impl!r}: fast or "

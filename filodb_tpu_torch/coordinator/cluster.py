@@ -22,9 +22,15 @@ Port of the single-node part of ``filodb_tpu/coordinator/cluster.py``:
 
 The port's node holds a ``MemStore`` a dataset (the reference's one
 ``TimeSeriesMemStore`` holds every dataset), created by ``setup_dataset``
-with the dataset's spread. One node only: failure detection, migration,
-replication and remote dispatch wait for ROADMAP §A.12, and a second
-member raises.
+with the dataset's spread. A dataset whose ``downsample`` block sets
+``streaming`` gets, beside each of its shards, the shard of each ds
+dataset (``<dataset>_ds_<minutes>m``, a ``MemStore`` of its own with the
+raw shard's chunk size and ``ds_retention_ms``, five times the raw
+retention by default); the raw shard's flush publishes its rollups there
+(``core/downsample/downsampler.py::ShardDownsampler``), and the flush
+scheduler flushes those shards on its tick, as the reference's does.
+One node only: failure detection, migration, replication and remote
+dispatch wait for ROADMAP §A.12, and a second member raises.
 """
 
 from __future__ import annotations
@@ -69,6 +75,8 @@ class Node:
     recovery: dict = field(default_factory=dict)
     _workers: dict = field(default_factory=dict)  # (dataset, shard) → worker
     _flusher: object = None
+    # (ds dataset, shard) of the streaming rollups the scheduler flushes
+    _ds_shards: list = field(default_factory=list)
 
     def setup_dataset(self, config: IngestionConfig,
                       spread: int = 1) -> MemStore:
@@ -95,6 +103,9 @@ class Node:
         shard_log.align_after(int(s.group_watermarks.max()))
         self.recovery[key] = {"keys": keys, "index_s": index_s,
                               "start_offset": start_offset}
+        ds_cfg = config.downsample or {}
+        if ds_cfg.get("streaming"):
+            self._setup_streaming_downsample(config, shard, s, ds_cfg)
         if on_status:
             on_status(shard, ShardStatus.RECOVERY, 0)
         worker = _IngestWorker(self, s, shard_log, start_offset, on_status)
@@ -104,6 +115,47 @@ class Node:
         if self._flusher is None:
             self._flusher = _FlushScheduler(self, self.flush_tick_s)
             self._flusher.start()
+
+    def _setup_streaming_downsample(self, config: IngestionConfig,
+                                    shard: int, raw_shard,
+                                    ds_cfg: dict) -> None:
+        """The ds datasets' shards beside raw shard ``shard``, recovered
+        from the store, and the raw shard's downsampler publishing into
+        them (offsets from a counter of its own: a ds shard's flush
+        watermarks never skip a later batch of rollups)."""
+        import itertools
+
+        from filodb_tpu_torch.core.downsample.downsampler import (
+            DEFAULT_RESOLUTIONS_MS,
+            ShardDownsampler,
+            ds_dataset_name,
+        )
+        from filodb_tpu_torch.core.record import SomeData
+        from filodb_tpu_torch.core.store.config import StoreConfig
+
+        resolutions = tuple(ds_cfg.get("resolutions_ms",
+                                       DEFAULT_RESOLUTIONS_MS))
+        retention = ds_cfg.get("ds_retention_ms",
+                               raw_shard.config.retention_ms * 5)
+        for res in resolutions:
+            name = ds_dataset_name(config.dataset, res)
+            ms = self.memstores.get(name)
+            if ms is None:
+                ms = self.memstores[name] = MemStore(
+                    config.num_shards, column_store=self.column_store,
+                    meta_store=self.meta_store, dataset=name,
+                    config=StoreConfig(
+                        max_chunk_size=raw_shard.config.max_chunk_size,
+                        retention_ms=retention))
+            ms.shards[shard].recover_index()
+            self._ds_shards.append((name, shard))
+        seq = itertools.count(1)
+
+        def publish(res, container, _ds=config.dataset, _shard=shard):
+            self.memstores[ds_dataset_name(_ds, res)].shards[_shard].ingest(
+                SomeData(container, next(seq)))
+
+        raw_shard.downsampler = ShardDownsampler(resolutions, publish)
 
     def kill(self) -> None:
         """Stop every worker and the scheduler (process death or
@@ -183,6 +235,21 @@ class _FlushScheduler(threading.Thread):
                                  "shard": str(key[1])}).inc()
                     log.exception("scheduled flush failed for %s/%d on "
                                   "node %s", key[0], key[1], self.node.name)
+            # the streaming rollups flush on the same cadence
+            for key in list(self.node._ds_shards):
+                try:
+                    self.flush_ds(key)
+                except Exception:
+                    get_counter("filodb_flush_errors",
+                                {"dataset": key[0],
+                                 "shard": str(key[1])}).inc()
+                    log.exception("ds flush failed for %s/%d on node %s",
+                                  key[0], key[1], self.node.name)
+
+    def flush_ds(self, key) -> int:
+        """Flush the next group of a streaming ds dataset's shard."""
+        ds = self.node.memstores[key[0]].shards[key[1]]
+        return ds.flush_group(ds.next_flush_group())
 
     def _tick(self, key) -> None:
         dataset, shard_num = key

@@ -65,6 +65,10 @@ class SingleClusterPlanner:
     # per-shard-key spreads: the shard key's values but the metric's
     # (("demo", "App-1")) → the spread its selectors read at
     spread_overrides: dict | None = None
+    # leaves read this store instead of the exec context's (a downsample
+    # or cold tier's, or a streaming ds dataset's), of this dataset
+    store: object = None
+    dataset_name_override: str | None = None
 
     # ---- shard selection ----------------------------------------------------
 
@@ -109,7 +113,8 @@ class SingleClusterPlanner:
                                              q.planner_params.spread):
             leaf = SelectRawPartitionsExec(
                 shard=shard, filters=raw.filters, chunk_start=chunk_start,
-                chunk_end=chunk_end, value_column=raw.column)
+                chunk_end=chunk_end, value_column=raw.column,
+                store=self.store, dataset_name=self.dataset_name_override)
             out.append(leaf.add_transformer(mapper))
         return out
 

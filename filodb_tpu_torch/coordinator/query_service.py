@@ -135,6 +135,10 @@ _PLAN_MEMO = 256  # parsed plans kept by ``_parse_cached``
 partial_results = get_counter("filodb_partial_results")
 
 
+# why a plan that reads a colder tier skips the mesh engine
+_OLDER_TIER = "the plan reads an older tier than the memstore"
+
+
 class _BudgetCtx:
     """What a result-bytes check over an answer writes: the budget, and
     the partial flag and warnings so far."""
@@ -272,8 +276,20 @@ class QueryService:
     def _admission_class(self, plan, qcontext: QueryContext) -> str:
         if qcontext.origin == "rules":
             return RULES
+        # a tiered planner classes any query that reads a colder tier
+        hint = getattr(self.planner, "cost_hint", None)
+        forced = hint(plan) if hint is not None else None
+        if forced is not None:
+            return forced
         return adaptive_planner.admission_class(
             self.dataset, plan, qcontext, _admission_cost(plan))
+
+    def _planner_mem_only(self, plan) -> bool:
+        """Whether the planner proves ``plan`` reads the memstore only (a
+        planner without tiers reads nothing else): only such a plan may
+        take the mesh engine, which reads the memstore alone."""
+        f = getattr(self.planner, "mem_only", None)
+        return True if f is None else bool(f(plan))
 
     def execute_logical(self, plan, qcontext: QueryContext | None = None,
                         materialize: bool = True) -> QueryResult:
@@ -319,7 +335,8 @@ class QueryService:
         fallback = ""
         result = None
         if self.engine != "exec":
-            fallback = self.mesh.supports(self.memstore, plan)
+            fallback = self.mesh.supports(self.memstore, plan) \
+                if self._planner_mem_only(plan) else _OLDER_TIER
             if fallback is None:
                 stats = QueryStats(engine="mesh")
                 try:
@@ -454,11 +471,14 @@ class QueryService:
         Returns an answer or the exception it raised a plan; the caller
         holds ``lock``."""
         on_mesh: dict = {}
-        if self.engine != "exec" and plans:
-            stats = [QueryStats(engine="mesh") for _ in plans]
+        meshable = [i for i, p in enumerate(plans)
+                    if self._planner_mem_only(p)]
+        if self.engine != "exec" and meshable:
+            stats = [QueryStats(engine="mesh") for _ in meshable]
             with device_span("mesh-execute", self.device):
-                on_mesh = dict(enumerate(zip(self.mesh.execute_many(
-                    self.memstore, plans, stats, self._deadline), stats)))
+                on_mesh = dict(zip(meshable, zip(self.mesh.execute_many(
+                    self.memstore, [plans[i] for i in meshable], stats,
+                    self._deadline), stats)))
         out: list = []
         for i, plan in enumerate(plans):
             answer, stats = on_mesh.get(i, (None, None))
@@ -469,6 +489,7 @@ class QueryService:
                            if answer is not None else self._on_exec(
                                plan, qcontext,
                                "" if self.engine == "exec" else
+                               _OLDER_TIER if i not in on_mesh else
                                self.mesh.supports(self.memstore, plan)
                                or "declined by the mesh engine's batch"))
             except Exception as e:  # noqa: BLE001 - at its position

@@ -8,10 +8,12 @@ after a restart). ``page_partitions`` reads the missing chunks of every
 such partition of a batch in one column-store call, decodes them on the
 host (``memory/chunk.py::decode_chunks``, the C++ codec), and encodes them
 into device-page blocks with the encoders a sealed chunk uses
-(``partition.encode_pages``): scalar pages, or for histograms one int page
-a bucket and the ``sum`` / ``count`` value pages. A paged chunk's pages are
-therefore the pages it had in memory, and those of the reference's
-``chunk_device_pages``.
+(``partition.encode_pages``): scalar pages, for histograms one int page
+a bucket and the ``sum`` / ``count`` value pages, and for the multi-column
+``ds-gauge`` schema the timestamp page and its five columns' values (a
+column's float32 pages are encoded when a selection first reads it). A
+paged chunk's pages are therefore the pages it had in memory, and those
+of the reference's ``chunk_device_pages``.
 
 A paged chunk keeps its summary (``memory/chunk.py``): read from the
 chunk's ``SC01`` section where it has one, else made from the decoded
@@ -39,6 +41,8 @@ import time
 import numpy as np
 
 from filodb_tpu_torch.core.memstore.partition import (
+    MULTI_COLUMNS,
+    MULTI_SCHEMA,
     ChunkTable,
     abs_max_finite,
     encode_pages,
@@ -84,12 +88,17 @@ class DemandPagedChunkCache:
         self.tables = {False: ChunkTable("vmax", "exact", "used"),
                        True: ChunkTable("les", "vmax_sum", "vmax_count",
                                         "exact_sum", "exact_count", "used",
-                                        schema="prom-histogram")}
+                                        schema="prom-histogram"),
+                       "multi": ChunkTable(
+                           *(f"vmax_{c}" for c in MULTI_COLUMNS),
+                           *(f"exact_{c}" for c in MULTI_COLUMNS), "used",
+                           schema=MULTI_SCHEMA)}
         self._cov = np.zeros((0, 2), np.int64)  # per pid: covered [lo, hi]
         self._tick = 0
         self.requests = 0      # partitions that needed paging
         self.range_hits = 0    # of them, served without a store read
         self.chunks_paged = 0  # chunks read, decoded and encoded
+        self.bytes_read = 0    # their serialized bytes
         # host seconds spent reading the store, decoding chunks (C++) and
         # encoding their pages
         self.seconds = {"read": 0.0, "decode": 0.0, "encode": 0.0}
@@ -145,16 +154,26 @@ class DemandPagedChunkCache:
                     d = decode_chunks(codec, sch)
                     summ = read_summaries(codec, sch, d)
                     self.seconds["decode"] += time.perf_counter() - t
-                    self._add_decoded(shard, pids[part], d, sch.is_histogram,
-                                      summ, codec)
+                    self._add_decoded(shard, pids[part], d,
+                                      "multi" if sch.is_multi
+                                      else sch.is_histogram, summ, codec)
 
-    def _add_decoded(self, shard, pids, d, hist: bool, summ: dict,
+    def _add_decoded(self, shard, pids, d, hist, summ: dict,
                      codec: ChunkBytes) -> None:
         t = time.perf_counter()
         row = dict(pid=pids, seq=d.ids & 0xFFF, cid=d.ids, rows=d.rows,
                    t0=d.start, t1=d.end,
                    used=np.full(len(pids), self._tick, np.int64), **summ)
-        if hist:
+        if hist == "multi":
+            slots = np.ascontiguousarray(d.dcols.transpose(0, 2, 1)).view(
+                np.int64)
+            pages, per = encode_pages(d.ts, slots, d.rows, multi=True)
+            flags = {}
+            for j, name in enumerate(MULTI_COLUMNS):
+                flags[f"vmax_{name}"] = abs_max_finite(d.dcols[:, j], d.rows)
+                flags[f"exact_{name}"] = exact_in_f32(d.dcols[:, j], d.rows)
+            self.tables["multi"].add(pages, per, codec, **row, **flags)
+        elif hist:
             slots = hist_slots(d.hist, d.dcols[:, 0], d.dcols[:, 1])
             pages, per = encode_pages(d.ts, slots, d.rows)
             uniq, inv = np.unique(d.les, axis=0, return_inverse=True)
@@ -179,7 +198,8 @@ class DemandPagedChunkCache:
 def page_partitions(shard, pids: np.ndarray, start: int, end: int,
                     cache: DemandPagedChunkCache) -> dict | None:
     """Page in what partitions ``pids`` of ``shard`` need for [start, end]:
-    → per kind (False: scalar, True: histogram) the cache's chunk table and
+    → per kind (False: scalar, True: histogram, "multi") the cache's chunk
+    table and
     the rows of it a batch selects (``Shard.select_blocks``'s ``paged``),
     or None when no partition needs paging. Reads the store once for the
     partitions the cache does not cover, and adds every chunk not resident
@@ -212,6 +232,7 @@ def _page_partitions(shard, pids, start: int, end: int,
         rows = shard.column_store.read_chunk_rows(
             shard.dataset, shard.shard_num, blobs, start, end)
         cb = ChunkBytes.from_blobs([d for _, d in rows])
+        cache.bytes_read += len(cb.buf)
         pid_of = dict(zip(blobs, read.tolist()))
         rpid = np.array([pid_of[b] for b, _ in rows], np.int64)
         cache.seconds["read"] += time.perf_counter() - t
@@ -243,6 +264,6 @@ def _rows_of(pids: np.ndarray, shard, cache):
     """(table, rows) of the resident and cached chunks of ``pids``."""
     want = np.zeros(shard.num_partitions, bool)
     want[pids] = True
-    for t in (shard._sealed, shard._hist_sealed, *cache.tables.values()):
+    for t in (*shard._tables_all(), *cache.tables.values()):
         col = t.columns
         yield t, np.flatnonzero(want[col["pid"]] & ~col["dead"])

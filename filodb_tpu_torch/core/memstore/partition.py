@@ -55,9 +55,11 @@ from filodb_tpu_torch.memory.chunk import (
 )
 from filodb_tpu_torch.query.engine.device_batch import (
     HistPageBlocks,
+    MultiPageBlocks,
     PageBlocks,
     chunk_blocks,
     hist_chunk_blocks,
+    multi_chunk_blocks,
 )
 
 # encode at most this many series' chunks per worker task, on this many
@@ -67,6 +69,11 @@ _ENCODE_WORKERS = 8
 # the value columns a histogram sample carries beside its buckets
 HIST_COLUMNS = ("sum", "count")
 _NCOL = len(HIST_COLUMNS)
+# the schema of several DOUBLE value columns (the downsample tier's), and
+# its columns: its partitions keep their samples as K float64 bit
+# patterns a sample (``WriteBuffers(max_chunk_size, buckets=K)``)
+MULTI_SCHEMA = "ds-gauge"
+MULTI_COLUMNS = tuple(c.name for c in SCHEMAS[MULTI_SCHEMA].data.columns[1:])
 
 
 def _along(idx: np.ndarray, a: np.ndarray) -> np.ndarray:
@@ -287,6 +294,12 @@ def slot_columns(slots: np.ndarray) -> np.ndarray:
     return slots[..., -_NCOL:].view(np.float64)
 
 
+def multi_columns(slots: np.ndarray) -> np.ndarray:
+    """The float64 columns [..., K] of multi-column slots (their bit
+    patterns as int64)."""
+    return np.ascontiguousarray(slots).view(np.float64)
+
+
 def abs_max_finite(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
     """Per row, the largest |value| among the first ``rows`` finite ones."""
     live = (np.arange(vals.shape[1])[None, :] < rows[:, None]) \
@@ -305,13 +318,23 @@ def exact_in_f32(vals: np.ndarray, rows: np.ndarray) -> np.ndarray:
 
 
 def encode_pages(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
-                 take: np.ndarray | None = None):
+                 take: np.ndarray | None = None, multi: bool = False):
     """Device pages of many chunks (rows of samples, or of the rows
-    ``take`` of the arrays): → (PageBlocks or HistPageBlocks, blocks a
-    chunk). Values [C, T] give scalar pages, histogram slots [C, T, B + 2]
-    (``hist_slots``) histogram pages. Large batches encode on a thread pool
-    (numpy releases the interpreter lock inside its loops)."""
+    ``take`` of the arrays): → (PageBlocks, HistPageBlocks or
+    MultiPageBlocks, blocks a chunk). Values [C, T] give scalar pages,
+    histogram slots [C, T, B + 2] (``hist_slots``) histogram pages, and
+    with ``multi`` multi-column slots [C, T, K] multi-column pages. Large
+    batches encode on a thread pool (numpy releases the interpreter lock
+    inside its loops)."""
     n = len(rows) if take is None else len(take)
+    if multi:
+        if not n:
+            return None, np.zeros(0, np.int64)
+        idx = slice(None) if take is None else take
+        tb, vb, rb, per = multi_chunk_blocks(ts[idx],
+                                             multi_columns(vals[idx]),
+                                             rows[idx])
+        return MultiPageBlocks.encode(tb, vb, rb), per
     hist = vals.ndim == 3
     step = max(1, _ENCODE_ROWS // (vals.shape[2] + 1)) if hist \
         else _ENCODE_ROWS

@@ -99,6 +99,17 @@ the bucket pages and over the same timestamp page. Each chunk records its
 bucket scheme (``les``) as the partition held it at seal time. A column
 selector (``h::sum``) selects those value pages as a scalar series
 (``select_blocks(..., column="sum")``).
+
+Partitions of the downsample tier's ``ds-gauge`` schema (``multi``) carry
+K = 5 DOUBLE columns (min, max, sum, count, avg). Their records come
+through containers (the C++ pass lists them, as it lists histogram
+records) into buffers of their own, K float64 bit patterns a sample
+(``multi_buffers``); a sealed chunk keeps one timestamp page and each
+column's values (``MultiPageBlocks``: a column's float32 pages are
+encoded when a selection first reads it), and each column's largest
+finite |value| and float32 exactness, so a selector that reads one
+column (``select_blocks(..., column="sum")``) takes the page lane or the
+host-decode lane by that column's own flags.
 """
 
 from __future__ import annotations
@@ -119,6 +130,8 @@ from filodb_tpu_torch.core.memstore.index import INGESTING, PartKeyIndex
 from filodb_tpu_torch.core.memstore import native_shard
 from filodb_tpu_torch.core.memstore.partition import (
     HIST_COLUMNS,
+    MULTI_COLUMNS,
+    MULTI_SCHEMA,
     ChunkTable,
     WriteBuffers,
     abs_max_finite,
@@ -127,6 +140,7 @@ from filodb_tpu_torch.core.memstore.partition import (
     exact_in_f32,
     expand,
     hist_slots,
+    multi_columns,
     slot_columns,
 )
 from filodb_tpu_torch.core.partkey import PartKey, murmur3_32_many
@@ -169,6 +183,7 @@ from filodb_tpu_torch.utils.tracing import traced_operation
 log = logging.getLogger(__name__)
 
 _NCOL = len(HIST_COLUMNS)
+_KCOL = len(MULTI_COLUMNS)
 _NO_TS = np.iinfo(np.int64).max
 # a pid's status
 LIVE, EVICTED, GONE = 0, 1, 2
@@ -252,6 +267,8 @@ class ShardStats:
         self.bloom_queries = Counter("evicted_pk_bloom_filter_queries", tags)
         self.bloom_fp = Counter("evicted_pk_bloom_filter_fp", tags)
         self.quota_dropped = Counter("memstore_data_dropped", tags)
+        self.downsample_records = Counter(
+            "memstore_downsample_records_created", tags)
 
 
 class Shard:
@@ -302,6 +319,15 @@ class Shard:
                                        schema="prom-histogram")
         self._hist_buffer_pages = None  # (version, [per bucket count])
         self._hist_buffer_meta = None
+        # multi-column (ds-gauge) partitions: buffers of K float64 bit
+        # patterns a sample, and their chunks' per-column flags
+        self.multi = np.zeros(0, bool)
+        self.listed = np.zeros(0, bool)  # hist | multi: the C++ pass lists
+        self.multi_buffers = WriteBuffers(self.max_chunk_size, _KCOL)
+        self._multi_sealed = ChunkTable(
+            *(f"vmax_{c}" for c in MULTI_COLUMNS),
+            *(f"exact_{c}" for c in MULTI_COLUMNS), schema=MULTI_SCHEMA)
+        self._multi_buffer_cache = {}  # "meta" / "pages" → (version, dict)
         # write path: per-group watermarks (replayed records at or below
         # are skipped), the highest log offset ingested, and the largest
         # persisted timestamp of each part key found at recovery, which
@@ -324,6 +350,11 @@ class Shard:
         self.evicted_keys = BloomFilter(
             self.config.evicted_pk_bloom_filter_capacity)
         self._shells: dict[bytes, int] = {}  # evicted key blob → its pid
+        # the streaming downsampler (``core/downsample``): a flush hands it
+        # the partitions whose chunks it wrote
+        self.downsampler = None
+        # live partitions recovered with a persisted end time (``_reopen``)
+        self._ended = np.zeros(0, np.int64)
 
     @property
     def num_partitions(self) -> int:
@@ -351,6 +382,8 @@ class Shard:
         self.group = more(self.group, 0)
         self._dirty = more(self._dirty, False)
         self.hist = more(self.hist, False)
+        self.multi = more(self.multi, False)
+        self.listed = more(self.listed, False)
         self._width = more(self._width, 0)
         self._les_id = more(self._les_id, -1)
         self.status = more(self.status, LIVE)
@@ -371,6 +404,8 @@ class Shard:
                           np.int8)
         self.schema_of[base:n] = schema
         self.hist[base:n] = [SCHEMAS[k.schema].is_histogram for k in keys]
+        self.multi[base:n] = [SCHEMAS[k.schema].is_multi for k in keys]
+        self.listed[base:n] = self.hist[base:n] | self.multi[base:n]
         self.hashes[base:n] = murmur3_32_many(blobs)
         self.group[base:n] = self.hashes[base:n].astype(np.int64) \
             % self.config.groups_per_shard
@@ -466,6 +501,9 @@ class Shard:
         Returns the samples kept."""
         if len(set(keys)) != len(keys):
             raise ValueError("one batch may hold each series once")
+        if any(SCHEMAS[k.schema].is_multi for k in keys):
+            raise ValueError(f"{MULTI_SCHEMA} samples carry {_KCOL} values: "
+                             f"they come through containers")
         first = np.where(lens > 0, ts[:, 0], -1)
         with self.lock:
             kept = self._append(self._partitions_for(keys, first), ts, vals,
@@ -489,6 +527,32 @@ class Shard:
             self.max_ingested_ts = max(self.max_ingested_ts,
                                        int(self.latest[pids[has]].max()))
         self.version += 1
+        self._reopen()
+
+    def _note_ended(self) -> None:
+        """Remember the live partitions whose index end time is a persisted
+        one (after a recovery): the keys a downsampler job wrote end at
+        their last period."""
+        P = self.num_partitions
+        ends = self.index.end_times(np.arange(P))
+        self._ended = np.flatnonzero((ends != INGESTING)
+                                     & (self.status[:P] == LIVE))
+
+    def _reopen(self) -> None:
+        """A partition recovered with a persisted end time that ingests a
+        later sample is ingesting again: its end time goes back to
+        ``INGESTING`` (a lookup past the old end finds it) and its key is
+        written again at the next flush, as upstream FiloDB's ingest does;
+        the reference keeps the old end (ROADMAP §C.10)."""
+        e = self._ended
+        if not len(e):
+            return
+        back = self.latest[e] > self.index.end_times(e)
+        if back.any():
+            pids = e[back]
+            self.index.set_end_times(pids, np.full(len(pids), INGESTING))
+            self._dirty[pids] = True
+            self._ended = e[~back]
 
     def _scheme(self, les: np.ndarray) -> int:
         """Index of bucket scheme ``les`` in ``les_list``."""
@@ -564,7 +628,7 @@ class Shard:
         c = core.start(buf, nrec, offset, self.group_watermarks)
         while True:
             bufs.cover(self.num_partitions)
-            why = core.ingest(c, self.latest, self.hist, bufs)
+            why = core.ingest(c, self.latest, self.listed, bufs)
             if why == native_shard.DONE:
                 break
             if why == native_shard.MISS:
@@ -579,6 +643,7 @@ class Shard:
         kept = c.kept
         if c.kept:
             self.max_ingested_ts = max(self.max_ingested_ts, c.max_ts)
+            self._reopen()
         if c.scalars:
             self.version += 1
         cols = None
@@ -588,9 +653,15 @@ class Shard:
                 self.stats.quota_dropped.inc()
                 record_tenant_drop(pk_from_blob(cols.keys[i]).label_map)
         if c.n_hist:
-            cols = parse_container(raw) if cols is None else cols
-            kept += self._ingest_hist_records(cols, c.out[1][:c.n_hist],
-                                              c.out[2][:c.n_hist])
+            recs, pids = c.out[1][:c.n_hist], c.out[2][:c.n_hist]
+            multi = self.multi[pids]
+            if multi.any():
+                kept += self._append_multi(*_by_series(
+                    pids[multi], *_multi_records(raw, recs[multi])))
+            if not multi.all():
+                cols = parse_container(raw) if cols is None else cols
+                kept += self._ingest_hist_records(cols, recs[~multi],
+                                                  pids[~multi])
         self.rows_skipped += c.skipped
         self._ingested_offset = max(self._ingested_offset, offset)
         return kept, c.skipped
@@ -641,6 +712,15 @@ class Shard:
                     pids[r], cols.ts[idx[r]], slots), scheme)
         return kept
 
+    def _append_multi(self, pids, ts, vals, lens) -> int:
+        """Append multi-column samples: ``vals`` float64 [N, T, K]."""
+        ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
+        slots = np.ascontiguousarray(vals, np.float64).view(np.int64)
+        for sealed in self.multi_buffers.append(pids, ts, slots, lens):
+            self._add_multi_chunks(*sealed)
+        self._ingested(pids, ts, lens)
+        return int(lens.sum())
+
     def seal(self, pids: np.ndarray) -> None:
         """Close the write buffers of ``pids`` into chunks now."""
         with self.lock:
@@ -648,11 +728,17 @@ class Shard:
 
     def _seal(self, pids: np.ndarray) -> None:
         hist = self.hist[pids]
+        multi = self.multi[pids]
         sealed_any = False
-        if (~hist).any():
-            sealed = self.buffers.take(pids[~hist])
+        if (~hist & ~multi).any():
+            sealed = self.buffers.take(pids[~hist & ~multi])
             if len(sealed[0]):
                 self._add_chunks(*sealed)
+                sealed_any = True
+        if multi.any():
+            sealed = self.multi_buffers.take(pids[multi])
+            if len(sealed[0]):
+                self._add_multi_chunks(*sealed)
                 sealed_any = True
         hpids = pids[hist]
         for B in np.unique(self._width[hpids]):
@@ -674,6 +760,23 @@ class Shard:
                          vmax=abs_max_finite(vals, rows),
                          exact=exact_in_f32(vals, rows), stats_value=stats,
                          sketch_value=sketch)
+
+    def _add_multi_chunks(self, pids, ts, slots, rows) -> None:
+        """Seal multi-column buffers: the shared timestamp page and each
+        column's values, codec chunks, summaries, and each column's
+        largest finite |value| and exactness in float32."""
+        pages, per = encode_pages(ts, slots, rows, multi=True)
+        cols = multi_columns(slots)
+        row = self._chunk_row(pids, ts, rows)
+        codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"])
+        flags = {}
+        for j, name in enumerate(MULTI_COLUMNS):
+            v = np.ascontiguousarray(cols[..., j])
+            flags[f"stats_{name}"], flags[f"sketch_{name}"] = summarize(
+                ts, v, rows)
+            flags[f"vmax_{name}"] = abs_max_finite(v, rows)
+            flags[f"exact_{name}"] = exact_in_f32(v, rows)
+        self._multi_sealed.add(pages, per, codec, **row, **flags)
 
     def _add_hist_chunks(self, pids, ts, slots, rows) -> None:
         """Seal histogram buffers: pages, codec chunks, each chunk's scheme
@@ -713,6 +816,21 @@ class Shard:
         """Every resident sealed chunk, one entry per column (pid, seq,
         cid, blk0, nblk, rows, t0, t1, nbytes, vmax, ...)."""
         return _live_columns(self._sealed)
+
+    @property
+    def multi_chunks(self) -> dict:
+        """Every resident sealed multi-column chunk (as ``chunks``, with
+        each column's vmax and exact flag)."""
+        return _live_columns(self._multi_sealed)
+
+    def _tables_all(self) -> tuple:
+        """The sealed chunk tables of every kind."""
+        return (self._sealed, self._hist_sealed, self._multi_sealed)
+
+    def _buffers_all(self) -> list:
+        """The write buffers of every kind."""
+        return [self.buffers, *self.hist_buffers.values(),
+                self.multi_buffers]
 
     @property
     def hist_chunks(self) -> dict:
@@ -766,7 +884,7 @@ class Shard:
         pids = np.flatnonzero(mine)
         self._seal(pids)
         written = 0
-        for table in (self._sealed, self._hist_sealed):
+        for table in self._tables_all():
             col = table.columns
             sel = np.flatnonzero(col["pending"] & mine[col["pid"]])
             if not len(sel):
@@ -780,6 +898,9 @@ class Shard:
                             chunks))
             self.column_store.write_chunk_rows(self.dataset, self.shard_num,
                                                rows, ingestion_time)
+            if self.downsampler is not None and table is self._sealed:
+                self._downsample_flushed(col["pid"][sel], col["t0"][sel],
+                                         col["t1"][sel])
             table.flushed(sel)
             np.maximum.at(self.floor, col["pid"][sel], col["t1"][sel])
             written += len(sel)
@@ -789,6 +910,20 @@ class Shard:
         self.group_watermarks[group] = max(self.group_watermarks[group],
                                            checkpoint)
         return written
+
+    def _downsample_flushed(self, pids, t0, t1) -> None:
+        """Hand the streaming downsampler the partitions of the chunks a
+        flush wrote, in pid order, each with its chunks' time span (the
+        reference's ``on_flush`` a partition)."""
+        uniq, inv = np.unique(pids, return_inverse=True)
+        starts = np.full(len(uniq), np.iinfo(np.int64).max, np.int64)
+        ends = np.full(len(uniq), np.iinfo(np.int64).min, np.int64)
+        np.minimum.at(starts, inv, t0)
+        np.maximum.at(ends, inv, t1)
+        before = self.downsampler.records_created
+        self.downsampler.on_flush(self, uniq, starts, ends)
+        self.stats.downsample_records.inc(
+            self.downsampler.records_created - before)
 
     def _write_part_keys(self, pids: np.ndarray) -> None:
         """Write the dirty part keys among ``pids`` (in pid order)."""
@@ -875,6 +1010,7 @@ class Shard:
         self._dirty[pids] = False
         self.version += 1
         self.stats.index_recovery_partkeys.inc(len(recs))
+        self._note_ended()
         return len(recs)
 
     def _reset_registry(self) -> None:
@@ -885,8 +1021,8 @@ class Shard:
         self.cardinality = CardinalityTracker(self.shard_num)
         apply_tenant_quotas(self.cardinality)
         for name in ("latest", "floor", "_seq", "schema_of", "group",
-                     "_dirty", "hist", "_width", "_les_id", "status",
-                     "hashes"):
+                     "_dirty", "hist", "multi", "listed", "_width",
+                     "_les_id", "status", "hashes"):
             setattr(self, name, getattr(self, name)[:0])
 
     def _recover_from_snapshot(self, data: bytes) -> int:
@@ -922,6 +1058,7 @@ class Shard:
         self.version += 1
         self.stats.index_recovery_partkeys.inc(len(new))
         self.stats.num_partitions.set(len(self.index))
+        self._note_ended()
         return len(self.index)
 
     def restore_registry(self, snap: dict) -> None:
@@ -962,6 +1099,9 @@ class Shard:
         self.schema_of[:n] = schema
         self.hist[:n] = np.array([SCHEMAS[x].is_histogram
                                   for x in SCHEMA_NAMES])[schema]
+        self.multi[:n] = np.array([SCHEMAS[x].is_multi
+                                   for x in SCHEMA_NAMES])[schema]
+        self.listed[:n] = self.hist[:n] | self.multi[:n]
         self.hashes[:n] = snap["hashes"]
         self.group[:n] = snap["hashes"].astype(np.int64) \
             % self.config.groups_per_shard
@@ -1003,7 +1143,7 @@ class Shard:
         mine = np.zeros(self.num_partitions, bool)
         mine[np.atleast_1d(np.asarray(part_ids, np.int64))] = True
         n = 0
-        for table in (self._sealed, self._hist_sealed):
+        for table in self._tables_all():
             col = table.columns
             sel = np.flatnonzero(mine[col["pid"]] & ~col["pending"]
                                  & ~col["dead"])
@@ -1027,24 +1167,23 @@ class Shard:
 
     def _chunk_bytes(self) -> int:
         return sum(int(t.columns["nbytes"][t.live()].sum())
-                   for t in (self._sealed, self._hist_sealed))
+                   for t in self._tables_all())
 
     def _unpersisted(self, pids: np.ndarray) -> np.ndarray:
         """bool [len(pids)]: which hold unsealed samples or unflushed
         chunks."""
-        out = self.buffers.holding(pids)
-        for b in self.hist_buffers.values():
+        out = np.zeros(len(pids), bool)
+        for b in self._buffers_all():
             out |= b.holding(pids)
         mine = np.zeros(self.num_partitions, bool)
-        for table in (self._sealed, self._hist_sealed):
+        for table in self._tables_all():
             col = table.columns
             mine[col["pid"][col["pending"] & ~col["dead"]]] = True
         return out | mine[pids]
 
     def _release(self, pids: np.ndarray) -> None:
         """Free the write-buffer rows of ``pids``."""
-        self.buffers.free(pids)
-        for b in self.hist_buffers.values():
+        for b in self._buffers_all():
             b.free(pids)
 
     def _remove(self, pids: np.ndarray) -> None:
@@ -1062,8 +1201,7 @@ class Shard:
         self._release(pids)
         gone = np.zeros(self.num_partitions, bool)
         gone[pids] = True
-        for table in (self._sealed, self._hist_sealed,
-                      *self.odp_cache.tables.values()):
+        for table in (*self._tables_all(), *self.odp_cache.tables.values()):
             col = table.columns
             sel = gone[col["pid"]] & ~col["dead"]
             col["dead"][sel] = True
@@ -1177,7 +1315,7 @@ class Shard:
             pids = np.flatnonzero(self.status[:P] == LIVE)
             pids = pids[np.argsort(self.latest[pids], kind="stable")]
             freed = np.zeros(P, np.int64)
-            for table in (self._sealed, self._hist_sealed):
+            for table in self._tables_all():
                 col = table.columns
                 sel = ~col["pending"] & ~col["dead"]
                 np.add.at(freed, col["pid"][sel], col["nbytes"][sel])
@@ -1200,11 +1338,11 @@ class Shard:
         if cached is not None and cached[0] == self.version:
             return cached[1]
         e = np.full(self.num_partitions, _NO_TS, np.int64)
-        for table in (self._sealed, self._hist_sealed):
+        for table in self._tables_all():
             col = table.columns
             live = ~col["dead"]
             np.minimum.at(e, col["pid"][live], col["t0"][live])
-        for buf in [self.buffers, *self.hist_buffers.values()]:
+        for buf in self._buffers_all():
             rows = buf.occupied()
             pids = buf.pid_of[rows]
             e[pids] = np.minimum(e[pids], buf.ts[rows, 0])
@@ -1262,14 +1400,13 @@ class Shard:
         want = np.zeros(self.num_partitions, bool)
         want[pids] = True
         out = []
-        for table in (self._sealed, self._hist_sealed):
+        for table in self._tables_all():
             col = table.columns
             sel = np.flatnonzero(want[col["pid"]] & ~col["dead"]
                                  & (col["t1"] >= start) & (col["t0"] <= end))
             out.extend(zip(*(col[n][sel].tolist() for n in
                              ("pid", "cid", "rows", "t0", "t1", "nbytes"))))
-        for buf in ([self.buffers, *self.hist_buffers.values()]
-                    if include_buffer else []):
+        for buf in (self._buffers_all() if include_buffer else []):
             rows = buf.occupied()
             n = buf.n[rows].astype(np.int64)
             t0, t1 = buf.ts[rows, 0], buf.ts[rows, n - 1]
@@ -1279,7 +1416,10 @@ class Shard:
             pids_b, n = buf.pid_of[rows], buf.n[rows].astype(np.int64)
             ts, vals = buf.ts[rows], buf.vals[rows]
             ids = chunk_ids(ts[:, 0], np.full(len(rows), 0xFFF))
-            if vals.ndim == 3:
+            if buf is self.multi_buffers:
+                codec = encode_chunks(ts, multi_columns(vals).transpose(
+                    0, 2, 1), n, ids)
+            elif vals.ndim == 3:
                 codec = encode_chunks(
                     ts, slot_columns(vals).transpose(0, 2, 1), n, ids,
                     hist=vals, les=np.stack([self.les_list[i] for i in
@@ -1307,17 +1447,20 @@ class Shard:
             return self.index.label_values(label, filters)
 
     @staticmethod
-    def _buffer_meta(buffers: WriteBuffers, P: int, hist: bool) -> dict:
+    def _buffer_meta(buffers: WriteBuffers, P: int, columns=None) -> dict:
         """Per-pid arrays over the shard's P partitions of the non-empty
         buffers of ``buffers``, cheap (no page is encoded): live, t0, t1,
         and the largest finite |value| and the float32 exactness
-        (``exact_in_f32``) of the values, ``vmax`` and ``exact`` ([P, 2]:
-        the sum and count columns, for histograms); and the occupied rows
-        and their pids."""
+        (``exact_in_f32``) of the values, ``vmax`` and ``exact`` ([P, J]
+        for slots whose J value columns ``columns`` reads: a histogram's
+        sum and count, ``slot_columns``, or a multi-column schema's,
+        ``multi_columns``); and the occupied rows and their pids."""
         rows = buffers.occupied()
         pids = buffers.pid_of[rows]
         n = buffers.n[rows]
-        shape = (P, _NCOL) if hist else (P,)
+        ncol = None if columns is None else \
+            columns(buffers.vals[:0]).shape[-1]
+        shape = (P,) if columns is None else (P, ncol)
         out = dict(rows=rows, pids=pids, live=np.zeros(P, bool),
                    t0=np.zeros(P, np.int64), t1=np.zeros(P, np.int64),
                    vmax=np.zeros(shape), exact=np.ones(shape, bool))
@@ -1326,9 +1469,9 @@ class Shard:
             out["t0"][pids] = buffers.ts[rows, 0]
             out["t1"][pids] = buffers.ts[rows, n - 1]
             vals = buffers.vals[rows]
-            if hist:
-                cols = slot_columns(vals)
-                for j in range(_NCOL):
+            if columns is not None:
+                cols = columns(vals)
+                for j in range(ncol):
                     out["vmax"][pids, j] = abs_max_finite(cols[..., j], n)
                     out["exact"][pids, j] = exact_in_f32(cols[..., j], n)
             else:
@@ -1341,7 +1484,7 @@ class Shard:
         after an ingest."""
         cached = self._buffer_meta_cache
         if cached is None or cached[0] != self.version:
-            meta = self._buffer_meta(self.buffers, self.num_partitions, False)
+            meta = self._buffer_meta(self.buffers, self.num_partitions)
             cached = self._buffer_meta_cache = (self.version, meta)
         return cached[1]
 
@@ -1351,7 +1494,7 @@ class Shard:
         cached = self._hist_buffer_meta
         if cached is None or cached[0] != self.version:
             cached = self._hist_buffer_meta = (self.version, [
-                self._buffer_meta(b, self.num_partitions, True)
+                self._buffer_meta(b, self.num_partitions, slot_columns)
                 for b in self.hist_buffers.values()])
         return cached[1]
 
@@ -1360,7 +1503,8 @@ class Shard:
         for an empty buffer) and nblk per pid."""
         P = self.num_partitions
         pages, per = encode_pages(buffers.ts, buffers.vals, buffers.n,
-                                  meta["rows"])
+                                  meta["rows"],
+                                  multi=buffers is self.multi_buffers)
         out = dict(meta, pages=pages, blk0=np.full(P, -1, np.int64),
                    nblk=np.zeros(P, np.int64))
         if len(meta["rows"]):
@@ -1390,6 +1534,23 @@ class Shard:
                     self.hist_buffers.values(), self.hist_buffer_meta())])
         return cached[1]
 
+    def multi_buffer_meta(self) -> dict:
+        """``_buffer_meta`` of the multi-column write buffers (``vmax``
+        and ``exact`` [P, K])."""
+        return self._multi_buffer("meta", lambda: self._buffer_meta(
+            self.multi_buffers, self.num_partitions, multi_columns))
+
+    def multi_buffer_pages(self) -> dict:
+        """``buffer_pages`` of the multi-column write buffers."""
+        return self._multi_buffer("pages", lambda: self._buffer_table(
+            self.multi_buffers, self.multi_buffer_meta()))
+
+    def _multi_buffer(self, what: str, make):
+        cached = self._multi_buffer_cache.get(what)
+        if cached is None or cached[0] != self.version:
+            cached = self._multi_buffer_cache[what] = (self.version, make())
+        return cached[1]
+
     def _row_of_pid(self, pids: np.ndarray) -> np.ndarray:
         """int64 [P]: each partition's index in ``pids``, -1 if absent."""
         row_of_pid = np.full(self.num_partitions, -1, np.int64)
@@ -1410,12 +1571,34 @@ class Shard:
                              & (ch["t0"][cand] <= end)])
         return sels
 
-    def _tables(self, column: str | None, paged) -> list:
-        """(chunk table, rows) pairs a scalar selection reads: the sealed
-        chunks of the kind and the paged ones."""
-        hist = column is not None
-        return [(self._hist_sealed if hist else self._sealed, None)] + (
-            [] if paged is None else [paged[hist]])
+    def _kind(self, pids: np.ndarray, column: str | None):
+        """The chunk kind a scalar selection of ``column`` over ``pids``
+        reads: False (the value column of scalar partitions), True (a
+        histogram's sum or count column) or "multi" (a column of the
+        multi-column schema)."""
+        if column is None:
+            return False
+        return "multi" if len(pids) and self.multi[pids[0]] else True
+
+    def _kind_columns(self, kind) -> tuple:
+        return HIST_COLUMNS if kind is True else MULTI_COLUMNS
+
+    def _tables(self, kind, paged) -> list:
+        """(chunk table, rows) pairs a scalar selection of ``kind`` reads:
+        the sealed chunks of the kind and the paged ones."""
+        sealed = {False: self._sealed, True: self._hist_sealed,
+                  "multi": self._multi_sealed}[kind]
+        return [(sealed, None)] + ([] if paged is None else [paged[kind]])
+
+    def _kind_buffers(self, kind, pages: bool) -> list:
+        """The buffer tables (``pages``) or metas of ``kind``."""
+        if kind is False:
+            return [self.buffer_pages() if pages else self.buffer_meta()]
+        if kind is True:
+            return self.hist_buffer_pages() if pages \
+                else self.hist_buffer_meta()
+        return [self.multi_buffer_pages() if pages
+                else self.multi_buffer_meta()]
 
     @staticmethod
     def _buffer_sel(buf: dict, pids, start, end) -> np.ndarray:
@@ -1475,15 +1658,15 @@ class Shard:
         (``odp.page_partitions``). Returns (tables, table_of, block_of,
         row_of) for ``device_batch.pack_blocks`` and (the largest |value|
         they hold, whether their pages hold every value exactly)."""
-        tables = self._tables(column, paged)
-        if column is not None:
-            j = HIST_COLUMNS.index(column)
-            bufs = self.hist_buffer_pages()
+        kind = self._kind(pids, column)
+        tables = self._tables(kind, paged)
+        bufs = self._kind_buffers(kind, True)
+        if kind is not False:
+            j = self._kind_columns(kind).index(column)
             out, t_of, b_of, r_of, sels, bsels = self._select(
                 pids, start, end, tables, bufs, lambda pages: pages.column(j))
         else:
             j = None
-            bufs = [self.buffer_pages()]
             out, t_of, b_of, r_of, sels, bsels = self._select(
                 pids, start, end, tables, bufs)
         name = "vmax" if column is None else f"vmax_{column}"
@@ -1501,20 +1684,21 @@ class Shard:
         ``paged``) and write buffers of ``pids`` that overlap [start, end]
         exactly: the lane gate, read from the flags made at seal and on the
         buffers before anything is packed. The caller holds the lock."""
-        tables = self._tables(column, paged)
+        kind = self._kind(pids, column)
+        tables = self._tables(kind, paged)
         sels = self._chunk_sel(self._row_of_pid(pids), start, end, tables)
         suffix = "" if column is None else f"_{column}"
         if not all(t.columns["exact" + suffix][s].all()
                    for (t, _), s in zip(tables, sels)):
             return False
-        if column is None:
+        if kind is False:
             buf = self.buffer_meta()
             return bool(buf["exact"][self._buffer_sel(buf, pids, start,
                                                       end)].all())
-        j = HIST_COLUMNS.index(column)
+        j = self._kind_columns(kind).index(column)
         return all(bool(b["exact"][self._buffer_sel(b, pids, start, end),
                                    j].all())
-                   for b in self.hist_buffer_meta())
+                   for b in self._kind_buffers(kind, False))
 
     def codec_chunks(self, table, idx: np.ndarray) -> tuple[list, np.ndarray]:
         """The serialized codec chunks of chunks ``idx`` of ``table``: a
@@ -1557,10 +1741,12 @@ class Shard:
         longer holds it gives its page values. Rows are indices in
         ``pids``. The caller holds the lock."""
         row_of_pid = self._row_of_pid(pids)
-        tables = self._tables(column, paged)
-        hist = column is not None
-        out = Samples(SCHEMAS["prom-histogram" if hist else "gauge"],
-                      HIST_COLUMNS.index(column) if hist else 0)
+        kind = self._kind(pids, column)
+        tables = self._tables(kind, paged)
+        hist = kind is not False
+        out = Samples(SCHEMAS[{False: "gauge", True: "prom-histogram",
+                               "multi": MULTI_SCHEMA}[kind]],
+                      self._kind_columns(kind).index(column) if hist else 0)
         for (table, _), sel in zip(tables, self._chunk_sel(
                 row_of_pid, start, end, tables)):
             col = table.columns
@@ -1572,14 +1758,15 @@ class Shard:
                 out.decoded.append(self._page_values(
                     table, sel[lost], row_of_pid, start, out.column
                     if hist else None))
-        bufs = zip(self.hist_buffers.values(), self.hist_buffer_meta()) \
-            if hist else [(self.buffers, self.buffer_meta())]
-        for buf, meta in bufs:
+        bufs = {False: [self.buffers], True: list(self.hist_buffers.values()),
+                "multi": [self.multi_buffers]}[kind]
+        for buf, meta in zip(bufs, self._kind_buffers(kind, False)):
             rows = buf.rows(self._buffer_sel(meta, pids, start, end))
             n = buf.n[rows].astype(np.int64)
             vals = buf.vals[rows]
             if hist:
-                vals = np.ascontiguousarray(slot_columns(vals)[..., out.column])
+                cols = slot_columns if kind is True else multi_columns
+                vals = np.ascontiguousarray(cols(vals)[..., out.column])
             out.decoded.append((
                 row_of_pid[buf.pid_of[rows]], np.ones(len(rows), np.int64),
                 np.zeros(len(rows), np.int64), buf.ts[rows], vals,
@@ -1671,3 +1858,10 @@ def _by_series(pids: np.ndarray, ts: np.ndarray, vals: np.ndarray):
     vals2 = np.zeros((len(uniq), T) + vals.shape[1:], vals.dtype)
     vals2[row, pos] = vals[order]
     return uniq, ts2, vals2, lens.astype(np.int64)
+
+
+def _multi_records(raw: bytes, recs: np.ndarray):
+    """(ts [n], values float64 [n, K]) of the multi-column records
+    ``recs`` of a serialized container, in container order."""
+    cols = parse_container(raw, width=_KCOL)
+    return cols.ts[recs], cols.dvals[recs]

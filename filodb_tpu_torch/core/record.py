@@ -194,7 +194,7 @@ class ContainerColumns:
     ts: np.ndarray          # int64 [n]
     schema: np.ndarray      # int64 [n]: index into SCHEMA_NAMES, -1 unknown
     keys: list[bytes]       # part-key blobs (PartKey.serialized)
-    dvals: np.ndarray       # float64 [n, 2]: the first two double values
+    dvals: np.ndarray       # float64 [n, width]: the first double values
     hist_off: np.ndarray    # int64 [n]: a histogram value's u16 nb, or -1
     raw: np.ndarray         # uint8: the container
 
@@ -223,8 +223,9 @@ class ContainerColumns:
         return np.where(self.hist_off >= 0, nb, 0)
 
 
-def parse_container(raw: bytes) -> ContainerColumns:
-    """Columns of a serialized v2 container (host C++). Raises
+def parse_container(raw: bytes, width: int = 2) -> ContainerColumns:
+    """Columns of a serialized v2 container (host C++), the first
+    ``width`` double values of each record in ``dvals``. Raises
     ``ValueError`` on a malformed one."""
     if not raw or raw[0] != 2:
         raise ValueError(f"container version {raw[0] if raw else None}: the "
@@ -243,11 +244,11 @@ def parse_container(raw: bytes) -> ContainerColumns:
             sid.ctypes.data, lab_off.ctypes.data, lab_len.ctypes.data,
             val_off.ctypes.data, nvals.ctypes.data) != 0:
         raise ValueError("malformed record container")
-    dvals = np.zeros((n, 2), np.float64)
+    dvals = np.zeros((n, width), np.float64)
     hist_off = np.zeros(n, np.int64)
     _build.host_fn("fh_container_values", 7)(
         buf.ctypes.data, val_off.ctypes.data, nvals.ctypes.data, n,
-        dvals.ctypes.data, 2, hist_off.ctypes.data)
+        dvals.ctypes.data, width, hist_off.ctypes.data)
     schema = np.array([_SCHEMA_INDEX.get(int(s), -1) for s in np.unique(sid)])
     schema = schema[np.searchsorted(np.unique(sid), sid)] if n \
         else np.zeros(0, np.int64)

@@ -1,7 +1,12 @@
 """Dataset schemas and column metadata.
 
 Copy of ``filodb_tpu/core/schemas.py`` trimmed to the schemas the port
-serves: ``gauge``, ``prom-counter`` and ``prom-histogram``. Column 0 is always
+serves: ``gauge``, ``prom-counter``, ``prom-histogram`` and the downsample
+schema ``ds-gauge`` (the timestamp and five DOUBLE rollup columns, ``min``,
+``max``, ``sum``, ``count`` and ``avg``; its value column is ``avg``). Each
+raw schema names its downsamplers and the schema its rollups take
+(``ds_schema``): a gauge rolls up into ``ds-gauge``, a counter keeps its
+last sample a period (``dLast``) in ``prom-counter``. Column 0 is always
 the timestamp; the value column of a counter schema carries ``is_counter``,
 which turns on reset correction in ``rate``/``increase``/``delta``. A
 histogram value column holds cumulative bucket counts per sample. The schema
@@ -36,6 +41,8 @@ class DataSchema:
     name: str
     columns: tuple[Column, ...]
     value_column: int  # index of the default value column for queries
+    downsamplers: tuple[str, ...] = ()  # e.g. ("tTime(0)", "dMin(1)", ...)
+    downsample_schema: str | None = None
 
     def __post_init__(self):
         if self.columns[0].ctype != ColumnType.TIMESTAMP:
@@ -63,6 +70,13 @@ class Schema:
         return self.data.columns[self.data.value_column].is_counter
 
     @property
+    def is_multi(self) -> bool:
+        """More than one DOUBLE value column and no histogram: the rollup
+        schema ``ds-gauge``, whose selectors read one column by name."""
+        return not self.is_histogram and sum(
+            c.ctype == ColumnType.DOUBLE for c in self.data.columns) > 1
+
+    @property
     def is_histogram(self) -> bool:
         return self.data.columns[self.data.value_column].ctype \
             == ColumnType.HISTOGRAM
@@ -74,14 +88,18 @@ class Schema:
         return zlib.crc32(sig.encode()) & 0xFFFF
 
 
-def _mk(name, cols, value_column) -> Schema:
-    return Schema(DataSchema(name, tuple(cols), value_column))
+def _mk(name, cols, value_column, downsamplers=(), ds_schema=None) -> Schema:
+    return Schema(DataSchema(name, tuple(cols), value_column,
+                             tuple(downsamplers), ds_schema))
 
 
 GAUGE = _mk(
     "gauge",
     [Column("timestamp", ColumnType.TIMESTAMP), Column("value", ColumnType.DOUBLE)],
     value_column=1,
+    downsamplers=["tTime(0)", "dMin(1)", "dMax(1)", "dSum(1)", "dCount(1)",
+                  "dAvg(1)"],
+    ds_schema="ds-gauge",
 )
 
 PROM_COUNTER = _mk(
@@ -89,6 +107,8 @@ PROM_COUNTER = _mk(
     [Column("timestamp", ColumnType.TIMESTAMP),
      Column("value", ColumnType.DOUBLE, is_counter=True)],
     value_column=1,
+    downsamplers=["tTime(0)", "dLast(1)"],
+    ds_schema="prom-counter",
 )
 
 PROM_HISTOGRAM = _mk(
@@ -98,6 +118,21 @@ PROM_HISTOGRAM = _mk(
      Column("count", ColumnType.DOUBLE, is_counter=True),
      Column("h", ColumnType.HISTOGRAM, is_counter=True)],
     value_column=3,
+    downsamplers=["tTime(0)", "dLast(1)", "dLast(2)", "hLast(3)"],
+    ds_schema="prom-histogram",
 )
 
-SCHEMAS = {s.name: s for s in (GAUGE, PROM_COUNTER, PROM_HISTOGRAM)}
+DS_GAUGE = _mk(
+    "ds-gauge",
+    [Column("timestamp", ColumnType.TIMESTAMP),
+     Column("min", ColumnType.DOUBLE),
+     Column("max", ColumnType.DOUBLE),
+     Column("sum", ColumnType.DOUBLE),
+     Column("count", ColumnType.DOUBLE),
+     Column("avg", ColumnType.DOUBLE)],
+    value_column=5,
+)
+
+# a schema's index in this order is its index in ``record.SCHEMA_NAMES``
+SCHEMAS = {s.name: s for s in (GAUGE, PROM_COUNTER, PROM_HISTOGRAM,
+                               DS_GAUGE)}

@@ -11,6 +11,11 @@ page-in of a query need, where the reference's ``write_chunks`` /
 start, end, serialized chunk). Part keys travel as their blobs
 (``PartKey.serialized``, the reference's ``_pk_blob``).
 
+The downsampler's scan (``scan_chunk_rows_by_ingestion_time``) reads the
+chunks written in an ingestion-time window [start, end), the reference's
+``scan_chunks_by_ingestion_time``, as (part-key blob, serialized chunk)
+rows, each partition's chunks in chunk-id order.
+
 Index snapshots (``core/memstore/index_snapshot.py``): a column store
 keeps one a shard (``write_index_snapshot`` / ``read_index_snapshot``)
 and hands out write counters (``update_tokens``); a restore replays the
@@ -72,6 +77,13 @@ class ColumnStore:
 
     def scan_part_keys(self, dataset: str, shard: int) -> list[PartKeyRecord]:
         """Every part key of the shard, in the order first written."""
+        raise NotImplementedError
+
+    def scan_chunk_rows_by_ingestion_time(self, dataset: str, shard: int,
+                                          start: int, end: int) -> list:
+        """(part-key blob, serialized chunk) of every chunk whose
+        ingestion time lies in [start, end), partition by partition, a
+        partition's chunks in chunk-id order."""
         raise NotImplementedError
 
     def max_persisted_ts(self, dataset: str, shard: int) -> dict[bytes, int]:
@@ -149,6 +161,9 @@ class NullColumnStore(ColumnStore):
     def scan_part_keys(self, dataset, shard):
         return []
 
+    def scan_chunk_rows_by_ingestion_time(self, dataset, shard, start, end):
+        return []
+
     def max_persisted_ts(self, dataset, shard):
         return {}
 
@@ -159,6 +174,8 @@ class InMemoryColumnStore(ColumnStore):
     def __init__(self):
         # (dataset, shard) -> blob -> chunk id -> (start, end, data)
         self._chunks = defaultdict(lambda: defaultdict(dict))
+        # (dataset, shard) -> blob -> [(ingestion time, chunk id)]
+        self._ingested = defaultdict(lambda: defaultdict(list))
         self._part_keys: dict[tuple, dict[PartKey, PartKeyRecord]] = \
             defaultdict(dict)
         self._snapshots: dict[tuple, bytes] = {}
@@ -168,8 +185,20 @@ class InMemoryColumnStore(ColumnStore):
 
     def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
         store = self._chunks[(dataset, shard)]
+        index = self._ingested[(dataset, shard)]
         for blob, cid, st, et, data in rows:
-            store[bytes(blob)].setdefault(int(cid), (st, et, bytes(data)))
+            blob, cid = bytes(blob), int(cid)
+            if cid not in store[blob]:
+                store[blob][cid] = (st, et, bytes(data))
+                index[blob].append((ingestion_time, cid))
+
+    def scan_chunk_rows_by_ingestion_time(self, dataset, shard, start, end):
+        store = self._chunks[(dataset, shard)]
+        out = []
+        for blob, entries in self._ingested[(dataset, shard)].items():
+            ids = sorted({c for t, c in entries if start <= t < end})
+            out.extend((blob, store[blob][c][2]) for c in ids)
+        return out
 
     def read_chunk_rows(self, dataset, shard, blobs, start_time, end_time):
         store = self._chunks[(dataset, shard)]

@@ -4,10 +4,11 @@ Copy of ``filodb_tpu/core/store/localstore.py``'s data model, file for
 file: one database a shard, ``<root>/<dataset>/shard-<n>.db``, with the
 tables ``chunks`` (partition, chunkid → start, end, serialized chunk),
 ``ingestion_time_index``, ``partkeys`` (partition → start, end),
-``checkpoints`` (group → offset), and the ``upd`` write counter on chunks
-and part keys (the port indexes ``upd``: a snapshot restore reads what
-was written after its token; the reference's queries ignore the index);
-a shard's index snapshot is the file
+``checkpoints`` (group → offset; the downsampler keeps its watermarks in
+the same table of the dataset ``<dataset>__dsckpt``), and the ``upd``
+write counter on chunks and part keys (the port indexes ``upd``: a
+snapshot restore reads what was written after its token; the reference's
+queries ignore the index); a shard's index snapshot is the file
 ``<root>/<dataset>/index-shard-<n>.snap``, and the cost model's learned
 estimates ``<root>/<dataset>/costmodel.json``, each replaced atomically. A
 partition is its part-key blob (``PartKey.serialized``). A directory
@@ -168,6 +169,17 @@ class LocalDiskColumnStore(ColumnStore):
         return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in
                 c.execute("SELECT partition, start_time, end_time FROM "
                           "partkeys ORDER BY rowid")]
+
+    def scan_chunk_rows_by_ingestion_time(self, dataset, shard, start, end):
+        c = self._db.conn(dataset, shard)
+        # the reference's scan: the partitions indexed in the window, then
+        # each one's chunks of it by chunk id
+        return list(c.execute(
+            "SELECT c.partition, c.data FROM chunks c JOIN (SELECT DISTINCT "
+            "partition, chunkid FROM ingestion_time_index WHERE "
+            "ingestion_time>=? AND ingestion_time<?) i ON c.partition="
+            "i.partition AND c.chunkid=i.chunkid ORDER BY c.partition, "
+            "c.chunkid", (start, end)))
 
     def max_persisted_ts(self, dataset, shard):
         c = self._db.conn(dataset, shard)

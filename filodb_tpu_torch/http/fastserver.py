@@ -320,6 +320,8 @@ class FastHttpServer:
         if svc is None:
             return None
         qs = parse_qs(url.query)
+        if qs.get("stats", [""])[0] == "all":
+            return None  # the full stats: the dispatcher renders them
         try:
             if parts[5] == "query_range":
                 q, start, step, end = HttpDispatcher.range_params(qs)

@@ -30,12 +30,27 @@ def _labels_json(key) -> dict:
             for k, v in key.labels}
 
 
-def _stats_json(result: QueryResult) -> dict:
+def _stats_json(result: QueryResult, full: bool = False) -> dict:
+    """The four basic stats; with ``full`` (``?stats=all``) the counters
+    the port keeps beside them and a federated query's per-tier buckets
+    (``tiers``)."""
     s = result.stats
-    return {"seriesScanned": s.series_scanned,
-            "samplesScanned": s.samples_scanned,
-            "resultSeries": s.result_series,
-            "wallTimeMs": round(s.wall_time_s * 1000.0, 3)}
+    out = {"seriesScanned": s.series_scanned,
+           "samplesScanned": s.samples_scanned,
+           "resultSeries": s.result_series,
+           "wallTimeMs": round(s.wall_time_s * 1000.0, 3)}
+    if full:
+        out.update({"chunksTouched": s.chunks_touched,
+                    "cacheHits": s.cache_hits,
+                    "cacheMisses": s.cache_misses,
+                    "admissionWaitMs": round(s.admission_wait_s * 1000.0,
+                                             3)})
+        if s.tiers:
+            out["tiers"] = {
+                tier: {k: (round(v, 3) if isinstance(v, float) else v)
+                       for k, v in bucket.items()}
+                for tier, bucket in s.tiers.items()}
+    return out
 
 
 def _partial_fields(result: QueryResult) -> dict:
@@ -121,11 +136,11 @@ def _value_strings(vals: np.ndarray) -> np.ndarray:
     return sv
 
 
-def _stats_str(result: QueryResult) -> str:
-    return json.dumps(_stats_json(result), separators=(",", ":"))
+def _stats_str(result: QueryResult, full: bool = False) -> str:
+    return json.dumps(_stats_json(result, full), separators=(",", ":"))
 
 
-def matrix_json_str(result: QueryResult) -> str:
+def matrix_json_str(result: QueryResult, full_stats: bool = False) -> str:
     """The ``matrix`` body rendered straight to a JSON string, as the
     reference's HTTP front ends render it (``matrix_json_str``); it parses
     to ``matrix_json``'s object."""
@@ -146,19 +161,23 @@ def matrix_json_str(result: QueryResult) -> str:
         parts.append('{"metric":%s,"values":[%s]}'
                      % (_labels_json_str(key), body))
     return ('{"status":"success","data":{"resultType":"matrix","result":[%s'
-            ']},"queryStats":%s%s}' % (",".join(parts), _stats_str(result),
+            ']},"queryStats":%s%s}' % (",".join(parts),
+                                       _stats_str(result, full_stats),
                                        _partial_fields_str(result)))
 
 
-def vector_json_str(result: QueryResult) -> str:
+def vector_json_str(result: QueryResult, with_stats: bool = False) -> str:
     """The ``vector`` body (the last step) rendered straight to a JSON
-    string, as the reference's HTTP front ends render instant queries."""
+    string, as the reference's HTTP front ends render instant queries;
+    ``with_stats`` (``?stats=all``) adds the full ``queryStats``."""
+    stats = ',"queryStats":' + _stats_str(result, True) if with_stats \
+        else ""
     m = result.result.materialize()
     if m.is_histogram:
         m = m.flatten_histograms()
     if not m.num_steps or not m.num_series:
         return ('{"status":"success","data":{"resultType":"vector",'
-                '"result":[]}%s}' % _partial_fields_str(result))
+                '"result":[]}%s%s}' % (stats, _partial_fields_str(result)))
     k = m.num_steps - 1
     vals = np.asarray(m.values[:, k], np.float64)
     sv = _value_strings(vals)
@@ -167,7 +186,8 @@ def vector_json_str(result: QueryResult) -> str:
              % (_labels_json_str(m.keys[i]), t, sv[i])
              for i in np.flatnonzero(~np.isnan(vals)).tolist()]
     return ('{"status":"success","data":{"resultType":"vector","result":'
-            '[%s]}%s}' % (",".join(parts), _partial_fields_str(result)))
+            '[%s]}%s%s}' % (",".join(parts), stats,
+                            _partial_fields_str(result)))
 
 
 def error_json(message: str, error_type: str = "bad_data") -> dict:

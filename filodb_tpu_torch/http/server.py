@@ -18,6 +18,8 @@ Port of ``filodb_tpu/http/server.py``'s ``HttpDispatcher`` and
 - ``GET /api/v1/cluster`` (datasets) and ``/api/v1/cluster/{dataset}/status``
 - ``GET /api/v1/status/ingest?dataset=&limit=``: each shard's ingest
   freshness and offsets, and the slow-ingest ring
+- ``GET /api/v1/status/tiers?dataset=``: each dataset's retention tiers,
+  their floors and series (``query/federation.py::tier_status``)
 - ``GET /__health``, ``GET /metrics`` (Prometheus exposition)
 
 Status codes and error envelopes are the reference's: 400 for a parse
@@ -26,9 +28,11 @@ query limit or a budget in ``degrade="error"``, 503 with ``Retry-After``
 for a query the governor shed (``unavailable``) or whose deadline passed
 (``timeout``), 500 (``internal``) for anything else. Routes whose modules
 are not ported answer 501: remote read, rules and alerts, ``status/*``
-other than ``status/ingest`` (ROADMAP §A.11), the cluster's shard
-commands and migration (ROADMAP §A.12). ``?stats=all`` renders the four
-basic stats (ROADMAP §C).
+other than ``status/ingest`` and ``status/tiers`` (ROADMAP §A.11), the
+cluster's shard commands and migration (ROADMAP §A.12). ``?stats=all``
+renders the basic stats, the counters the port keeps beside them and a
+federated query's per-tier buckets (ROADMAP §C: the reference's timing
+fields are not there).
 
 The hot routes (``query`` and ``query_range``) go through the rendered-
 response cache (``ResponseCache``, ``response_cache=True`` by default, as
@@ -83,7 +87,8 @@ _UNPORTED_ROUTES = {
     ("api", "v1", "rules"): "standing queries (ROADMAP §A.11)",
     ("api", "v1", "alerts"): "standing queries (ROADMAP §A.11)",
     ("api", "v1", "status"): "status introspection other than "
-                             "status/ingest (ROADMAP §A.11)",
+                             "status/ingest and status/tiers "
+                             "(ROADMAP §A.11)",
 }
 _UNPORTED_PROM = {
     "rules": "standing queries (ROADMAP §A.11)",
@@ -150,10 +155,12 @@ class ResponseCache:
 
 def service_version(svc) -> int:
     """The response cache's stamp for ``svc``: the sum of its store's shard
-    versions (every ingest call moves it). The reference bypasses the
+    versions (every ingest call moves it), and under a tiered planner its
+    colder tiers' version (``version_token``). The reference bypasses the
     cache where the store lacks some of the dataset's shards; a port store
     holds them all."""
-    return svc.memstore.version
+    tok = getattr(svc.planner, "version_token", None)
+    return svc.memstore.version + (tok() if tok is not None else 0)
 
 
 def response_cache_key(svc, kind: str, params: tuple) -> tuple:
@@ -231,6 +238,8 @@ class HttpDispatcher:
             return self._cluster_api(parts[3:])
         if parts == ["api", "v1", "status", "ingest"]:
             return self._status_ingest(qs)
+        if parts == ["api", "v1", "status", "tiers"]:
+            return self._status_tiers(qs)
         if tuple(parts[:3]) in _UNPORTED_ROUTES:
             return self._unported(_UNPORTED_ROUTES[tuple(parts[:3])])
         return self._json(404, promjson.error_json("not found", "not_found"))
@@ -252,29 +261,36 @@ class HttpDispatcher:
             return qs["query"][0], int(parse_time(qs["time"][0]))
         return qs["query"][0], int(time.time())
 
-    def _cached_query(self, svc, kind: str, params: tuple):
+    def _cached_query(self, svc, kind: str, params: tuple,
+                      full_stats: bool = False):
         """A hot query through the response cache; a miss runs through
-        ``app.batched(svc)`` and stores its rendered body."""
+        ``app.batched(svc)`` and stores its rendered body. ``full_stats``
+        (``?stats=all``) renders the full stats, a body of its own."""
         cache = self.app.response_cache
         if cache is not None:
             key = response_cache_key(svc, kind, params)
+            if full_stats:
+                key = key + ("stats",)
             version = service_version(svc)
             body = cache.get(key, version)
             if body is not None:
                 return 200, {"Content-Type": JSON_CT}, body
         r = self.app.batched(svc).query_range(*params)
-        out = self._json(200, promjson.matrix_json_str(r) if kind == "range"
-                         else promjson.vector_json_str(r))
+        out = self._json(200, promjson.matrix_json_str(r, full_stats)
+                         if kind == "range"
+                         else promjson.vector_json_str(r, full_stats))
         if cache is not None:
             cache.put(key, version, out[2])
         return out
 
     def _prom_api(self, svc, rest: list[str], qs: dict):
+        full = qs.get("stats", [""])[0] == "all"
         if rest == ["query_range"]:
-            return self._cached_query(svc, "range", self.range_params(qs))
+            return self._cached_query(svc, "range", self.range_params(qs),
+                                      full)
         if rest == ["query"]:
             query, t = self.instant_params(qs)
-            return self._cached_query(svc, "instant", (query, t, 0, t))
+            return self._cached_query(svc, "instant", (query, t, 0, t), full)
         if rest == ["series"]:
             start = int(parse_time(qs.get("start", ["0"])[0]))
             end = int(parse_time(qs.get("end", ["9999999999"])[0]))
@@ -346,6 +362,17 @@ class HttpDispatcher:
                 snap["estimates"] = snap["estimates"][:limit]
             return self._json(200, {"status": "success", "data": snap})
         return self._json(404, promjson.error_json("unknown endpoint"))
+
+    def _status_tiers(self, qs: dict):
+        """Each dataset's retention tiers (memstore, cold raw, downsample):
+        their floors and series, the face of tier federation."""
+        from filodb_tpu_torch.query import federation
+
+        want = qs.get("dataset", [None])[0]
+        data = {name: federation.tier_status(name, svc)
+                for name, svc in self.app.services.items()
+                if want is None or name == want}
+        return self._json(200, {"status": "success", "data": data})
 
     def _status_ingest(self, qs: dict):
         """Each shard's ingest freshness (lag against the wall clock, the

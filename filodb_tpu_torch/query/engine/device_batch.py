@@ -36,7 +36,9 @@ host-decode lane's float64 ``batch.SeriesBatch`` instead. ``BatchCache``
 keeps both engines' batches under one budget of device memory. A column selector
 (``h::sum``) reads the named column of the partitions' schema, or its
 value column where the schema has no such column, as the reference's
-``SelectRawPartitionsExec._value_col_index`` does.
+``SelectRawPartitionsExec._value_col_index`` does; the rollup schema
+``ds-gauge`` keeps its five columns beside each other on one timestamp
+page (``MultiPageBlocks``), and a batch packs the one column it reads.
 """
 
 from __future__ import annotations
@@ -265,6 +267,75 @@ class HistPageBlocks:
                                 for f in fields(HistPageBlocks)))
 
 
+class MultiPageBlocks:
+    """A table of page blocks of a schema with K DOUBLE value columns
+    (``ds-gauge``'s min, max, sum, count and avg): a timestamp block a
+    row, shared by the columns, and each column's float64 values. A
+    column's float32 XOR blocks are encoded the first time a selection
+    reads it (``column``) and kept, so a page-in encodes only the columns
+    queries read."""
+
+    def __init__(self, ts_bases, ts_slopes, ts_widths, ts_words,
+                 vals: np.ndarray, rows: np.ndarray, enc: dict | None = None):
+        self.ts_bases, self.ts_slopes = ts_bases, ts_slopes
+        self.ts_widths, self.ts_words = ts_widths, ts_words
+        self.vals = vals  # float64 [nb, K, 128]
+        self.rows = rows  # int32 [nb]
+        self._enc = enc or {}  # column → (firsts, shifts, widths, words)
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    @staticmethod
+    def encode(ts: np.ndarray, vals: np.ndarray,
+               rows: np.ndarray) -> "MultiPageBlocks":
+        """Blocks of timestamps int64 [nb, 128] and values float64 [nb, K,
+        128] (lanes past ``rows`` ignored)."""
+        live = np.arange(BLOCK)[None, None, :] < np.asarray(rows)[:, None,
+                                                                  None]
+        return MultiPageBlocks(*encode_ts_blocks(ts, rows),
+                               np.where(live, vals, 0.0),
+                               np.asarray(rows, np.int32))
+
+    def column(self, j: int) -> PageBlocks:
+        """Column ``j``'s blocks as scalar page blocks over the shared
+        timestamp blocks."""
+        enc = self._enc.get(j)
+        if enc is None:
+            enc = self._enc[j] = encode_f32_blocks(
+                np.ascontiguousarray(self.vals[:, j]).astype(np.float32),
+                self.rows)
+        return PageBlocks(self.ts_bases, self.ts_slopes, self.ts_widths,
+                          self.ts_words, *enc, self.rows)
+
+    @staticmethod
+    def concat(parts: list["MultiPageBlocks"]) -> "MultiPageBlocks":
+        common = set.intersection(*(set(p._enc) for p in parts))
+        return MultiPageBlocks(
+            *(np.concatenate([getattr(p, n) for p in parts]) for n in
+              ("ts_bases", "ts_slopes", "ts_widths", "ts_words", "vals",
+               "rows")),
+            {j: tuple(np.concatenate([p._enc[j][i] for p in parts])
+                      for i in range(4)) for j in common})
+
+    def take(self, idx: np.ndarray) -> "MultiPageBlocks":
+        return MultiPageBlocks(
+            *(getattr(self, n)[idx] for n in
+              ("ts_bases", "ts_slopes", "ts_widths", "ts_words", "vals",
+               "rows")),
+            {j: tuple(a[idx] for a in e) for j, e in self._enc.items()})
+
+
+def multi_chunk_blocks(ts: np.ndarray, cols: np.ndarray, n: np.ndarray):
+    """``chunk_blocks`` for rows of K value columns: ts int64 [C, T], cols
+    float64 [C, T, K], ``n[c]`` valid → (ts blocks [B, 128], value blocks
+    [B, K, 128], rows [B], blocks a row [C])."""
+    tb, _, rb, per = chunk_blocks(ts, cols[..., 0], n)
+    vb = np.stack([chunk_blocks(ts, cols[..., j], n)[1]
+                   for j in range(cols.shape[2])], axis=1)
+    return tb, vb, rb, per
+
+
 def hist_chunk_blocks(ts: np.ndarray, counts: np.ndarray, n: np.ndarray):
     """``chunk_blocks`` for histogram rows: ts int64 [C, T], per-sample
     slots int64 [C, T, B] (cumulative counts), ``n[c]`` valid → (ts blocks
@@ -469,6 +540,8 @@ def read_column(schema: str, column: str | None) -> Column:
 
 MIXED_KINDS = ("the selector matches both histogram and scalar series, "
                "which one batch does not hold")
+MIXED_MULTI = ("the selector matches both rollup (ds-gauge) and other "
+               "series, which one batch does not hold")
 
 
 def build_device_batch(selected, start: int, end: int, device: torch.device,
@@ -502,10 +575,14 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     kind = np.concatenate([sh.hist[p] for sh, p in selected])
     if kind.any() and not kind.all():
         raise UnsupportedQuery(MIXED_KINDS)
+    multi = np.concatenate([sh.multi[p] for sh, p in selected])
+    if multi.any() and not multi.all():
+        raise UnsupportedQuery(MIXED_MULTI)
     sh0, p0 = selected[0]
     col = read_column(sh0.keys[p0[0]].schema, column)
     hist = col.ctype == ColumnType.HISTOGRAM
-    sub = col.name if kind.all() and not hist else None
+    # a histogram's sum or count column, or a column of the rollup schema
+    sub = col.name if (kind.all() and not hist) or multi.all() else None
     t0 = time.perf_counter()
     sels, host = [], False
     for shard, pids, v in picked:
@@ -566,9 +643,10 @@ class BatchCache:
     """Uploaded batches of both engines under one budget of device bytes
     (half the card's memory), least recently used dropped first.
     A batch is kept until its owner, the store (mesh) or a shard (exec
-    leaf), ingests again: it is found by its key, its owner's version and,
-    where given, its partition ids, which are compared, not hashed (a
-    shard's may number 10^5). ``put`` takes the batch's ``version``, not
+    leaf), ingests again: it is found by its key, its owner (the same
+    object: a shard of a downsample or cold tier shares its number with a
+    raw one), its owner's version and, where given, its partition ids,
+    which are compared, not hashed (a shard's may number 10^5). ``put`` takes the batch's ``version``, not
     the owner's version after the build: a writer that ingests between a
     lookup and its selection moves the owner past it, so the batch is not
     served as that newer version."""
@@ -581,7 +659,7 @@ class BatchCache:
 
     def get(self, key, owner, pids: np.ndarray | None = None):
         hit = self._entries.get(key)
-        if hit is None or hit[1] != owner.version \
+        if hit is None or hit[0] is not owner or hit[1] != owner.version \
                 or (pids is not None and not np.array_equal(hit[2], pids)):
             return None
         self._entries[key] = self._entries.pop(key)

@@ -15,10 +15,14 @@ counter-reset carry across their boundaries; the merged stats feed
 closed-form formulas that mirror the kernels' range functions. Anything
 whose exactness the lane cannot keep bypasses to the decode lane and counts
 in ``filodb_sidecar_bypassed``: an ineligible function, parameters, an ``@``
-pin, histogram columns, a partition that needs demand paging (an evicted
-one among them), chunks out of time order, a write buffer that does not
-follow its chunks, a query with a scan budget (the decode lane counts its
-samples), and a fold the cost model's ``sidecar`` site sends to decode.
+pin, histogram columns, the rollup schema's columns, a leaf over a
+downsample or cold-tier shard (``tier``: its partitions are not warm
+memory partitions, and the reference's pyramid lane bypasses them over a
+store that publishes no pyramids), a partition that needs demand paging
+(an evicted one among them), chunks out of time order, a write buffer
+that does not follow its chunks, a query with a scan budget (the decode
+lane counts its samples), and a fold the cost model's ``sidecar`` site
+sends to decode.
 That site's static arm is the reference's geometry gate
 (``FILODB_SIDECAR_SEALED_GATE``; 0 or less always folds, the override);
 once the model has settled times for both arms of a partition-window
@@ -574,8 +578,14 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
     if not len(pids):
         # the decode lane answers the empty matrix
         raise _Bypass("no partition")
+    if getattr(shard, "tier", None) is not None:
+        # a downsample or cold-tier shard: its partitions hold no chunk
+        # in memory and no summary to fold, and its chunks page in
+        raise _Bypass("cold partitions")
     if shard.hist[pids].any():
         raise _Bypass("histogram columns")
+    if shard.multi[pids].any():
+        raise _Bypass("rollup columns")  # the lane folds value columns
     if (shard.status[pids] != 0).any():
         raise _Bypass("evicted partitions")  # paged shells
     if shard.config.demand_paging_enabled and needs_paging(
@@ -601,7 +611,7 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
             folded, flags = buf_fold(shard.buffers, spids, t0s, t1s)
             if (flags & 1).any():
                 raise _Bypass("a write buffer out of time order")
-        key = ("sidecar", shard.shard_num, s, str(leaf.filters),
+        key = ("sidecar", shard.dataset, shard.shard_num, s, str(leaf.filters),
                leaf.chunk_start, leaf.chunk_end, decode_mode)
         bundle = ctx.batches.get(key, shard, spids)
         if bundle is None:

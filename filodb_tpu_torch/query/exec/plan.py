@@ -15,8 +15,9 @@ runs its first transformer, the ``PeriodicSamplesMapper``, on each batch
 of packed pages (``device_batch.build_device_batch``); the matrices are
 concatenated and the other transformers applied. Batches are cached per
 shard, keyed as the reference keys them (schema, filters, data range,
-column, partitions), until that shard ingests again, in the service's
-``BatchCache`` beside the mesh engine's.
+column, partitions) and by the shard's dataset (a leaf may read a
+downsample or cold tier's store, ``store``), until that shard ingests
+again, in the service's ``BatchCache`` beside the mesh engine's.
 
 A leaf first tries the sidecar lane (``query/engine/sidecar_lane.py``),
 which folds its windows from the chunks' summaries, as the reference's
@@ -190,6 +191,10 @@ class SelectRawPartitionsExec(ExecPlan):
     chunk_start: int = 0
     chunk_end: int = 0
     value_column: str | None = None
+    # the store the leaf reads (a downsample or cold tier's, or a streaming
+    # ds dataset's), and its dataset's name; None: the context's memstore
+    store: object = None
+    dataset_name: str | None = None
 
     def execute(self, ctx: ExecContext) -> StepMatrix:
         check(ctx.deadline, "SelectRawPartitionsExec")
@@ -205,7 +210,8 @@ class SelectRawPartitionsExec(ExecPlan):
     def _execute(self, ctx: ExecContext) -> StepMatrix:
         # a shard with no matching partition answers the empty matrix
         # without running the transformers, as the reference's leaf does
-        shard = ctx.memstore.shards[self.shard]
+        shard = (ctx.memstore if self.store is None
+                 else self.store).shards[self.shard]
         version = shard.version  # before the lookup its batches cover
         pids = shard.lookup_partitions(list(self.filters), self.chunk_start,
                                        self.chunk_end)
@@ -241,7 +247,7 @@ class SelectRawPartitionsExec(ExecPlan):
                              "PeriodicSamplesMapper")
         batches, scanned = [], 0
         for s, spids in _by_schema(shard, pids):
-            key = ("exec", self.shard, s, str(self.filters),
+            key = ("exec", shard.dataset, self.shard, s, str(self.filters),
                    self.chunk_start, self.chunk_end, self.value_column)
             batch = ctx.batches.get(key, shard, spids)
             if batch is None:

@@ -1,0 +1,207 @@
+"""Tier federation: one query across the memstore, cold raw chunks and
+the downsample tier.
+
+Port of ``filodb_tpu/query/federation.py``:
+
+- ``route_tiers`` cuts a query grid into per-tier step ranges at step
+  boundaries: every step goes to the newest tier whose data floor covers
+  its whole lookback window, so no step is answered twice or dropped at a
+  seam.
+- ``ColdTierStore`` is a store-shaped facade over the raw dataset's
+  persisted chunks: read-only shards (``core/downsample/dsstore.py``:
+  the index from ``scan_part_keys``, refreshed every ``refresh_s``; the
+  chunks paged on demand through each shard's ODP cache of
+  ``odp_max_chunks``), read by leaves through their ``store``, as the
+  downsample store is. Over the local store it has no pyramids, and the
+  reference's cold tier bypasses them there too.
+- ``TierExec`` runs one tier's exec subtree under a ``tier`` span with
+  stats of its own and folds them into the query's twice: merged, and
+  into ``QueryStats.tiers[tier]`` (subqueries, series, samples, chunks
+  and bytes paged in from the column store, their decode and encode ms,
+  wall ms).
+- ``tier_status``: the retention tiers of a dataset's service, for
+  ``GET /api/v1/status/tiers`` on both fronts.
+
+The planner that composes them is ``coordinator/tiered_planner.py``.
+Left for the object store (ROADMAP §A5): ``approx_topk`` and
+``approx_cardinality`` over pyramid sketches, and the pyramid cache.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+from filodb_tpu_torch.core.downsample.dsstore import ReadOnlyStore
+from filodb_tpu_torch.query.exec.plan import (
+    ExecContext,
+    NonLeafExecPlan,
+    leaves,
+)
+from filodb_tpu_torch.query.model import QueryStats, StepMatrix
+from filodb_tpu_torch.utils.metrics import Counter
+from filodb_tpu_torch.utils.tracing import span, tag
+
+MEMSTORE = "memstore"
+OBJECTSTORE = "objectstore"
+DOWNSAMPLE = "downsample"
+
+fed_queries = Counter("filodb_federation_queries")
+_SUB_COUNTERS = {t: Counter("filodb_federation_subqueries", {"tier": t})
+                 for t in (MEMSTORE, OBJECTSTORE, DOWNSAMPLE)}
+
+
+# ---------------------------------------------------------------------------
+# tier routing
+
+@dataclass(frozen=True)
+class TierRange:
+    """One tier's slice of a query grid: step instants ``start, start +
+    step, ..., end`` (both inclusive, ms)."""
+
+    tier: str
+    start: int
+    end: int
+
+
+def _first_covered_step(start: int, step: int, end: int, lookback: int,
+                        floor: int) -> int:
+    """The first grid instant whose whole lookback window lies at or above
+    ``floor``; ``end + step`` (or past it) when none does."""
+    b = start
+    while b - lookback < floor and b <= end:
+        b += step
+    return b
+
+
+def route_tiers(start: int, step: int, end: int, lookback: int,
+                mem_floor: int, raw_floor: int | None) -> list[TierRange]:
+    """A query grid as per-tier step ranges, oldest tier first: disjoint,
+    adjacent, covering every step. ``raw_floor`` is the earliest raw
+    data (None: no downsample tier, the cold tier reaches to the start);
+    a ``mem_floor`` below it is raised to it."""
+    step = max(step, 1)
+    if raw_floor is not None and mem_floor < raw_floor:
+        mem_floor = raw_floor
+    b_mem = _first_covered_step(start, step, end, lookback, mem_floor)
+    b_os = start if raw_floor is None else \
+        _first_covered_step(start, step, end, lookback, raw_floor)
+    out = []
+    if b_os > start:
+        out.append(TierRange(DOWNSAMPLE, start, b_os - step))
+    if b_mem > b_os:
+        out.append(TierRange(OBJECTSTORE, b_os, b_mem - step))
+    if b_mem <= end:
+        out.append(TierRange(MEMSTORE, b_mem, end))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the cold tier: raw history on the column store
+
+class ColdTierStore(ReadOnlyStore):
+    """The raw dataset's persisted part keys and chunks as read-only
+    shards, each with its own ODP cache (``odp_max_chunks``) and its index
+    refreshed every ``refresh_s`` seconds."""
+
+    def __init__(self, column_store, dataset: str, num_shards: int,
+                 odp_max_chunks: int = 10_000, refresh_s: float = 60.0):
+        super().__init__(column_store, dataset, num_shards, OBJECTSTORE,
+                         max_chunks=odp_max_chunks, refresh_s=refresh_s)
+
+    def tier_stats(self) -> dict:
+        """{series, bytes, segments} for the status route; a local store
+        reports no bytes or segments (None), as the reference's does."""
+        self.refresh()
+        return {"series": self.num_partitions, "bytes": None,
+                "segments": None}
+
+
+# ---------------------------------------------------------------------------
+# per-tier execution and attribution
+
+def _tier_bucket() -> dict:
+    return {"subqueries": 0, "series": 0, "samples": 0, "chunks": 0,
+            "bytes": 0, "decodeMs": 0.0, "wallMs": 0.0}
+
+
+def _paging(stores) -> tuple[int, int, float]:
+    """(chunks paged, bytes read, decode and encode seconds) summed over
+    the ODP caches of ``stores``' shards."""
+    chunks = nbytes = 0
+    secs = 0.0
+    for store in stores:
+        for sh in store.shards:
+            c = sh.odp_cache
+            chunks += c.chunks_paged
+            nbytes += c.bytes_read
+            secs += c.seconds["decode"] + c.seconds["encode"]
+    return chunks, nbytes, secs
+
+
+@dataclass
+class TierExec(NonLeafExecPlan):
+    """One tier's exec subtree, run with stats of its own under a ``tier``
+    span; its counts fold into the query's and into
+    ``QueryStats.tiers[tier]``."""
+
+    tier: str = ""
+
+    def do_execute(self, ctx: ExecContext) -> StepMatrix:
+        sub = ExecContext(ctx.memstore, QueryStats(), ctx.device,
+                          ctx.batches, ctx.gids, deadline=ctx.deadline,
+                          budget=ctx.budget)
+        _SUB_COUNTERS.get(self.tier, fed_queries).inc()
+        stores = list({id(s): s for s in (
+            ctx.memstore if leaf.store is None else leaf.store
+            for c in self.children_plans for leaf in leaves(c))}.values())
+        before = _paging(stores)
+        t0 = time.perf_counter()
+        with span("tier", tier=self.tier):
+            mats = self.gather(sub)
+            tag("series", sub.stats.series_scanned)
+        wall_s = time.perf_counter() - t0
+        chunks, nbytes, secs = (a - b for a, b in zip(_paging(stores),
+                                                      before))
+        ctx.partial = ctx.partial or sub.partial
+        for w in sub.warnings:
+            if w not in ctx.warnings:
+                ctx.warnings.append(w)
+        ctx.stats.merge_counts(sub.stats)
+        b = ctx.stats.tiers.setdefault(self.tier, _tier_bucket())
+        b["subqueries"] += 1
+        b["series"] += sub.stats.series_scanned
+        b["samples"] += sub.stats.samples_scanned
+        b["chunks"] += chunks + sub.stats.chunks_touched
+        b["bytes"] += nbytes
+        b["decodeMs"] += secs * 1000.0
+        b["wallMs"] += wall_s * 1000.0
+        return mats[0] if mats else StepMatrix.empty()
+
+    def __repr__(self):
+        return f"TierExec({self.tier})"
+
+
+# ---------------------------------------------------------------------------
+# status (both HTTP fronts)
+
+def tier_status(name: str, svc) -> dict:
+    """A dataset's retention tiers: the floors, and each tier's series and
+    bytes. A service without a tiered planner reports the memstore only."""
+    mem_series = sum(sh.cardinality.cardinality([]).active_ts
+                     for sh in svc.memstore.shards)
+    mem_bytes = sum(sh.chunk_bytes() for sh in svc.memstore.shards)
+    mem_tier = {"tier": MEMSTORE, "series": mem_series, "bytes": mem_bytes,
+                "floorMs": None, "ceilMs": None}
+    tiers: list = []
+    out = {"federated": False, "tiers": tiers}
+    detail = getattr(svc.planner, "tier_detail", None)
+    if detail is not None:
+        d = detail()
+        out["federated"] = True
+        out["memFloorMs"] = d["memFloorMs"]
+        out["rawFloorMs"] = d["rawFloorMs"]
+        mem_tier["floorMs"] = d["memFloorMs"]
+        tiers.extend(d["tiers"])
+    tiers.append(mem_tier)
+    return out

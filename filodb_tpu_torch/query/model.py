@@ -228,6 +228,10 @@ class QueryStats:
     cache_misses: int = 0
     # seconds the query waited in the governor's admission queue
     admission_wait_s: float = 0.0
+    # a federated query's attribution by retention tier
+    # (``query/federation.py::TierExec``): tier → {subqueries, series,
+    # samples, chunks, bytes, decodeMs, wallMs}; empty otherwise
+    tiers: dict = field(default_factory=dict)
 
     def merge_counts(self, other: "QueryStats") -> None:
         """Fold a sub-query's counts into these (the extent cache folds
@@ -240,6 +244,10 @@ class QueryStats:
         for reason, n in other.sidecar_bypassed.items():
             self.sidecar_bypassed[reason] = \
                 self.sidecar_bypassed.get(reason, 0) + n
+        for tier, bucket in other.tiers.items():
+            mine = self.tiers.setdefault(tier, {})
+            for k, v in bucket.items():
+                mine[k] = mine.get(k, 0) + v
 
 
 @dataclass

@@ -311,6 +311,12 @@ class ResultCache:
         horizon = min(s.max_ingested_ts for s in shards) \
             - self.config.ooo_allowance_ms
         sig = plan_signature(plan)
+        # a tiered planner's colder tiers: the signature stays the same
+        # whichever tier serves an extent, but their index versions join
+        # it, so settled extents do not outlive a change of the tiers
+        tok = getattr(svc.planner, "version_token", None)
+        if tok is not None:
+            sig = (sig, tok())
         extent_ms = self.config.extent_steps * step
         t0 = time.perf_counter()
         full, missing = [], []

@@ -23,6 +23,17 @@ when the node leaves OK, and stops (back to OK) at shutdown. The
 reference's second source, the write-buffer pools, has no counterpart:
 the port's write buffers are columnar arrays without a pool (ROADMAP §C).
 
+Long retention, as the reference's node wires it: a dataset's
+``downsample`` block starts the downsampler job's thread (``catch_up``
+every ``schedule_s``, its checkpoints in the meta store, the ds store's
+index refreshed after each run) and puts a ``LongTimeRangePlanner`` over
+the raw planner and a downsample planner, whose leaves read a
+``DownsampledTimeSeriesStore`` of the smallest resolution, or with
+``streaming`` the node's co-sharded ds dataset of it. Then
+``federation.mem_retention_ms`` wraps whatever planner a dataset has in a
+``TieredPlanner`` (memstore, the cold raw tier over the column store, and
+the downsample tier where there is one).
+
 It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
 version on the CPU, as the tests do. Without a card it raises; nothing
 carries on on the CPU unasked. Options the port lacks raise at
@@ -38,10 +49,11 @@ import logging
 import os
 import signal
 import sys
+import threading
 import time
 import weakref
 
-from filodb_tpu_torch.config import NOT_ACTED_ON, ServerConfig
+from filodb_tpu_torch.config import ServerConfig
 from filodb_tpu_torch.coordinator import adaptive_planner
 from filodb_tpu_torch.coordinator.cluster import FilodbCluster, Node
 from filodb_tpu_torch.core.store.localstore import (
@@ -77,6 +89,8 @@ class FiloServer:
         self.http = None
         self.gateway: GatewayServer | None = None
         self.watchdog: governor.MemoryWatchdog | None = None
+        self._ds_threads: list[threading.Thread] = []
+        self._stop = threading.Event()
 
     def _wal_path(self, dataset: str, shard: int) -> str:
         root = self.config.wal_dir or os.path.join(self.config.data_dir,
@@ -92,8 +106,6 @@ class FiloServer:
 
     def start(self) -> "FiloServer":
         cfg = self.config
-        log.info("options accepted at their defaults and not acted on yet "
-                 "(ROADMAP §C): %s", ", ".join(NOT_ACTED_ON))
         self.cluster.join(self.node)
         for name, ing in cfg.datasets.items():
             logs = {s: self._shard_log(name, s)
@@ -104,6 +116,11 @@ class FiloServer:
                 device=self.device, result_cache=cfg.result_cache)
             # learned cost estimates, before any query is admitted
             adaptive_planner.install(name, self.meta_store, cfg.cost_model)
+        if cfg.downsample:
+            self._setup_downsampling()
+        # federation wraps the planner a dataset has by now: raw only, or
+        # raw and downsample
+        self._setup_federation()
         self.watchdog = self._watchdog().start()
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
@@ -122,6 +139,98 @@ class FiloServer:
                  self.http.port,
                  self.gateway.port if self.gateway else "off", self.device)
         return self
+
+    def _setup_downsampling(self) -> None:
+        """Each dataset's downsampler job thread and long-time planner."""
+        from filodb_tpu_torch.coordinator.longtime_planner import (
+            LongTimeRangePlanner,
+        )
+        from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+        from filodb_tpu_torch.core.downsample import (
+            DownsampledTimeSeriesStore,
+            DownsamplerJob,
+            ds_dataset_name,
+        )
+        from filodb_tpu_torch.core.downsample.downsampler import (
+            DEFAULT_RESOLUTIONS_MS,
+        )
+
+        cfg = self.config
+        for dataset, ds_cfg in cfg.downsample.items():
+            ing = cfg.datasets[dataset]
+            resolutions = tuple(ds_cfg.get("resolutions_ms",
+                                           DEFAULT_RESOLUTIONS_MS))
+            spread = cfg.spreads.get(dataset, 1)
+            job = DownsamplerJob(
+                self.column_store, dataset, ing.num_shards, resolutions,
+                max_chunk_size=ing.store.max_chunk_size,
+                meta_store=self.meta_store)
+            name = ds_dataset_name(dataset, min(resolutions))
+            if ds_cfg.get("streaming"):
+                ds_store = self.node.memstores[name]
+            else:
+                ds_store = DownsampledTimeSeriesStore(
+                    self.column_store, dataset, min(resolutions),
+                    ing.num_shards)
+            t = threading.Thread(
+                target=self._run_job, daemon=True,
+                name=f"downsampler-{dataset}",
+                args=(job, ds_cfg.get("schedule_s", 6 * 3600),
+                      None if ds_cfg.get("streaming") else ds_store))
+            t.start()
+            self._ds_threads.append(t)
+            svc = self.services[dataset]
+            svc.planner = LongTimeRangePlanner(
+                svc.planner, SingleClusterPlanner(
+                    ing.num_shards, spread, store=ds_store,
+                    dataset_name_override=name),
+                ds_cfg.get("raw_retention_ms", ing.store.retention_ms))
+
+    def _run_job(self, job, schedule_s: float, ds_store) -> None:
+        """The job's thread: ``catch_up`` to now, then (without streaming)
+        the ds store's index refresh, every ``schedule_s`` until
+        shutdown. A failed run is logged and the next one retries from
+        the checkpoint."""
+        while not self._stop.is_set():
+            try:
+                job.catch_up(int(time.time() * 1000))
+                if ds_store is not None:
+                    ds_store.refresh_index()
+            except Exception:
+                log.exception("downsampler job of %s failed", job.dataset)
+            self._stop.wait(schedule_s)
+
+    def _setup_federation(self) -> None:
+        """A tiered planner over each dataset's planner, where
+        ``federation`` is enabled with a ``mem_retention_ms``."""
+        from filodb_tpu_torch.coordinator.longtime_planner import (
+            LongTimeRangePlanner,
+        )
+        from filodb_tpu_torch.coordinator.tiered_planner import (
+            build_tiered_planner,
+        )
+
+        fed = self.config.federation or {}
+        if not fed.get("enabled", True) or not fed.get("mem_retention_ms"):
+            return
+        for dataset, svc in self.services.items():
+            ing = self.config.datasets[dataset]
+            raw_planner, ds_planner, raw_retention = svc.planner, None, None
+            if isinstance(svc.planner, LongTimeRangePlanner):
+                raw_planner = svc.planner.raw_planner
+                ds_planner = svc.planner.ds_planner
+                raw_retention = svc.planner.raw_retention_ms
+            svc.planner = build_tiered_planner(
+                raw_planner, self.column_store, dataset, ing.num_shards,
+                self.config.spreads.get(dataset, 1),
+                mem_retention_ms=int(fed["mem_retention_ms"]),
+                raw_retention_ms=raw_retention, ds_planner=ds_planner,
+                odp_max_chunks=int(fed.get("odp_max_chunks", 10_000)),
+                refresh_s=float(fed.get("refresh_s", 60.0)))
+            log.info("federation: %s routed across memstore%s/objectstore "
+                     "(mem floor %d ms)", dataset,
+                     "/downsample" if ds_planner is not None else "",
+                     fed["mem_retention_ms"])
 
     def _watchdog(self) -> governor.MemoryWatchdog:
         """The memory watchdog over the result caches' bytes; leaving OK
@@ -154,6 +263,9 @@ class FiloServer:
         """Stop the watchdog (the governor back to OK), the fronts, the
         workers and the scheduler, save the cost models, then close the
         logs and the stores."""
+        self._stop.set()
+        for t in self._ds_threads:
+            t.join(timeout=30)
         if self.watchdog is not None:
             self.watchdog.stop()
         if self.http is not None:

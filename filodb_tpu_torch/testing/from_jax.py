@@ -21,7 +21,9 @@ The write path needs no carrying: both packages write the same bytes.
 ``log_stream`` wraps serialized containers (the reference's
 ``RecordContainer.serialize()``, or a log's entries) as the port ingests
 them; ``open_local`` opens a local-disk store directory that either package
-wrote; ``restart`` runs the recovery of every shard of a store from its
+wrote; ``dataset_samples`` reads every chunk of a dataset under such a
+directory, decoded (the downsample parity tests hold both packages' ds
+chunks by it); ``restart`` runs the recovery of every shard of a store from its
 logs, as a restarted node does. ``server_pair`` boots the reference's
 ``FiloServer`` and the port's over one config and shuts both down; the
 caller hands in the reference's classes. This module imports nothing of
@@ -117,6 +119,33 @@ def open_local(root: str, num_shards: int = 1, spread: int = 0,
     return MemStore(num_shards, spread, column_store=LocalDiskColumnStore(
         root), meta_store=LocalDiskMetaStore(root), config=config,
         dataset=dataset)
+
+
+def dataset_samples(root: str, dataset: str, num_shards: int) -> dict:
+    """{(part-key blob, chunk id): (timestamps int64 [n], the DOUBLE
+    columns' float64 bit patterns int64 [K, n])} of every chunk of the
+    stored part keys of ``dataset`` under the local-disk directory
+    ``root``, decoded by the port's codec."""
+    from filodb_tpu_torch.core.schemas import SCHEMAS
+    from filodb_tpu_torch.core.store.api import pk_from_blob
+    from filodb_tpu_torch.memory.chunk import ChunkBytes, decode_chunks
+
+    cs = LocalDiskColumnStore(root)
+    out = {}
+    try:
+        for s in range(num_shards):
+            blobs = [r.part_key.serialized
+                     for r in cs.scan_part_keys(dataset, s)]
+            for blob, data in cs.read_chunk_rows(dataset, s, blobs, 0,
+                                                 2**62):
+                d = decode_chunks(ChunkBytes.from_blobs([bytes(data)]),
+                                  SCHEMAS[pk_from_blob(blob).schema])
+                n = int(d.rows[0])
+                out[(bytes(blob), int(d.ids[0]))] = (
+                    d.ts[0, :n], d.dcols[0, :, :n].view(np.int64))
+    finally:
+        cs.close()
+    return out
 
 
 def restart(memstore: MemStore, logs: dict) -> dict:

@@ -19,7 +19,9 @@ through that node with the governor, resilience, cost-model and tracing
 blocks set away from their defaults and acted on; and the C++ ingest core
 (``core/memstore/native_shard.py``), through a container ingested into a
 shard, after which the process's ``/proc/self/maps`` holds the port's own
-``libingestcore`` and no library under the JAX package's ``native/``.
+``libingestcore`` and no library under the JAX package's ``native/``; and
+long retention's (the downsampler job, the ds store, the cold tier, the
+tiered planner and ``TierExec``), through a query over three tiers.
 """
 
 import json
@@ -208,6 +210,39 @@ libs = {line.split()[-1] for line in open("/proc/self/maps")
 core.append(sorted(p for p in libs if "/native/" in p
                    or "filodb_native" in p))
 core.append(any("libingestcore" in p for p in libs))
+# long retention: the job over a local-disk store, then counters and a
+# ds-gauge column over three tiers through the tiered planner
+import tempfile
+from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+from filodb_tpu_torch.coordinator.tiered_planner import build_tiered_planner
+from filodb_tpu_torch.core.downsample import (
+    DownsampledTimeSeriesStore, DownsamplerJob)
+lt = from_jax.open_local(tempfile.mkdtemp(), 2, 1)
+T2 = 720
+ts2 = 1_600_000_000_000 + np.arange(T2) * 10_000
+lt.ingest_series(labels, np.tile(ts2, (n, 1)),
+                 np.cumsum(rng.integers(0, 20, (n, T2)), axis=1).astype(float))
+lt.ingest_series([{**lb, "_metric_": "load"} for lb in labels],
+                 np.tile(ts2, (n, 1)), rng.normal(5, 1, (n, T2)),
+                 schema="gauge")
+lt.flush_all(1_000)
+job = DownsamplerJob(lt.column_store, lt.dataset, 2,
+                     meta_store=lt.meta_store).catch_up(2_000)
+end2 = 1_600_000_000_000 + T2 * 10_000
+tsvc = QueryService(lt, device="cpu")
+tsvc.planner = build_tiered_planner(
+    SingleClusterPlanner(2, 1), lt.column_store, lt.dataset, 2, 1,
+    mem_retention_ms=1_800_000, raw_retention_ms=3_600_000,
+    ds_planner=SingleClusterPlanner(2, 1, store=DownsampledTimeSeriesStore(
+        lt.column_store, lt.dataset, 300_000, 2)), now_ms=lambda: end2)
+longterm = []
+for q in ("sum(rate(http_requests_total[10m])) by (_ns_)",
+          "avg(avg_over_time(load[10m]))"):
+    r = tsvc.query_range(q, end2 // 1000 - 7200, 60, end2 // 1000)
+    longterm.append([r.stats.engine, sorted(r.stats.tiers),
+                     r.result.num_series])
+longterm.append(job["ds_chunks"] > 0)
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -220,6 +255,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "exec": exec_rows, "durable": durable, "node": node,
                   "memory": memory, "control": control,
                   "adaptive": adaptive_rows, "core": core,
+                  "longterm": longterm,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -267,4 +303,6 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["adaptive"] == 2
     n = res["core"][1]
     assert res["core"] == [n, n, 0, True, [], True] and n > 0
+    tiers = ["downsample", "memstore", "objectstore"]
+    assert res["longterm"] == [["exec", tiers, 2], ["exec", tiers, 1], True]
     assert res["loaded"] == []

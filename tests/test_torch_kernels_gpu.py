@@ -757,3 +757,63 @@ def test_adaptive_lanes_on_card_answer_as_mesh(cuda):
     assert sum(svc.mesh.routed.values()) == 4
     assert sum(svc.mesh.shadowed.values()) >= 1
     assert svc.mesh.sync_floor_s is not None
+
+
+def test_three_tier_query_on_card_equals_cpu(cuda, tmp_path):
+    """A query across the downsample tier, cold raw chunks and the
+    memstore (the job's ds chunks, the raw chunks paged in from the local
+    store), on the card against the same planners with device="cpu";
+    B1-B4 launch on the colder tiers' data."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.coordinator.tiered_planner import (
+        build_tiered_planner,
+    )
+    from filodb_tpu_torch.core.downsample import (
+        DownsampledTimeSeriesStore,
+        DownsamplerJob,
+    )
+    from filodb_tpu_torch.testing.from_jax import open_local
+
+    store = open_local(str(tmp_path), 4, 1)
+    rng = np.random.default_rng(3)
+    n, T = 200, 2160
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    counters = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+    gauges = np.round(rng.normal(50, 10, (n, T)))
+    for metric, vals, schema in (("m", counters, "prom-counter"),
+                                 ("g", gauges, "gauge")):
+        labels = [{"_metric_": metric, "_ws_": "w", "_ns_": f"ns-{i % 7}",
+                   "instance": f"i-{i}", "job": f"j-{i % 3}"}
+                  for i in range(n)]
+        store.ingest_series(labels, ts, vals, schema=schema)
+    store.flush_all(1_000)
+    DownsamplerJob(store.column_store, store.dataset, 4,
+                   meta_store=store.meta_store).catch_up(2_000)
+    now = 1_600_000_000_000 + T * 10_000
+
+    def planner():
+        ds = SingleClusterPlanner(4, 1, store=DownsampledTimeSeriesStore(
+            store.column_store, store.dataset, 300_000, 4))
+        return build_tiered_planner(
+            SingleClusterPlanner(4, 1), store.column_store, store.dataset,
+            4, 1, mem_retention_ms=3_600_000, raw_retention_ms=7_200_000,
+            ds_planner=ds, now_ms=lambda: now)
+
+    gpu, cpu = QueryService(store, cuda), QueryService(store, "cpu")
+    gpu.planner, cpu.planner = planner(), planner()
+    _build.reset_counts()
+    end = now // 1000
+    for q in ("sum(rate(m[15m])) by (_ns_)",
+              "sum(count_over_time(g[15m])) by (job)",
+              "avg(avg_over_time(g[15m]))", "max(max_over_time(g[15m]))"):
+        a = gpu.query_range(q, end - 6 * 3600, 60, end)
+        b = cpu.query_range(q, end - 6 * 3600, 60, end)
+        assert set(a.stats.tiers) == {"memstore", "objectstore",
+                                      "downsample"}
+        assert [str(k) for k in a.result.keys] == \
+            [str(k) for k in b.result.keys]
+        np.testing.assert_allclose(a.result.values, b.result.values,
+                                   rtol=2e-5, atol=1e-6, equal_nan=True)
+    assert all(_build.LAUNCHES.values()), _build.LAUNCHES

@@ -120,15 +120,16 @@ UNSUPPORTED = [
     {"store": {"backend": "object"}},
     {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
     {"selfmon": {"enabled": True}},
-    {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
     {"resilience": {"retry_max_attempts": 5}},
     {"resilience": {"allow_partial": False}},
-    {"federation": {"mem_retention_ms": 60000}},
 ]
 
-# blocks the port acts on since its control plane came; until then
+# blocks the port acts on since its control plane came (and, since long
+# retention came, ``downsample`` and ``federation``); until then
 # ``test_unsupported_options_raise`` held that each of them raised
 ACTED_ON = [
+    {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
+    {"federation": {"mem_retention_ms": 60000}},
     {"governor": {"max_samples_scanned": 100}},
     {"governor": {"max_result_bytes": 100}},
     {"governor": {"max_group_cardinality": 100}},
@@ -171,6 +172,18 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
     try:
         (block, kv), = override.items()
         (key, value), = kv.items()
+        if block in ("datasets", "federation"):
+            # the long-time planner over the raw one, or the tiered one
+            from filodb_tpu_torch.coordinator.longtime_planner import (
+                LongTimeRangePlanner,
+            )
+            from filodb_tpu_torch.coordinator.tiered_planner import (
+                TieredPlanner,
+            )
+            want = LongTimeRangePlanner if block == "datasets" \
+                else TieredPlanner
+            assert isinstance(srv.services[DS].planner, want)
+            return
         got = {"governor": lambda: getattr(governor.config(), key),
                "resilience": lambda: getattr(resilience.config(), key),
                "tracing": lambda: getattr(tracing.config(), key),
