@@ -246,13 +246,32 @@ checks it, phase by phase; any failed phase exits non-zero:
    to the in-process answer), and an hour more of App-0's counters
    flushed, the rollups published, a scheduler tick's ds flushes, and a
    ds query that sees them.
+19. (after phase 18) the object-store tier, phase 18's generator and
+   shapes (``--objectstore-series`` counters, a quarter as many load
+   averages, 6 h at 10 s) flushed to a directory-backed ``FakeS3`` bucket
+   with the reference's ``store`` defaults (flush and upload seconds,
+   PUTs, bytes, segments, the upload queue's depth sampled every 10 ms),
+   a restart that recovers every shard from the bucket (seconds, GETs,
+   bytes), then over the restarted store a tiered planner (memory the last
+   hour, the cold tier the rest) with the launch counts set to 0: a
+   tiered ``sum(rate) by (_ns_)`` (B3 in both tiers), ``max_over_time``
+   and ``avg_over_time`` over the cold tier through the pyramid lane (B1/B2
+   on its edge chunks) and again with ``FILODB_SIDECARS=0`` (the decode
+   lane: B1/B2/B4), each cold and warm with its GETs and payload bytes, and
+   an interior-only window that must page no payload; every kernel must
+   launch; each pyramid answer must equal the lane off's, and the ``App-0``
+   subset of each query the local-disk store's and the CPU's (rtol 2e-5,
+   atol 1e-6); ``approx_topk`` and ``approx_cardinality`` under
+   ``FILODB_SIDECAR_APPROX=1`` must read no payload, find the largest value
+   and count the series within 10 %.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
 and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
-phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18).
+phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
+``--objectstore-only``: phases 1 and 19).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2988,14 +3007,16 @@ def _node_scheduler(srv) -> dict:
 
 
 # phase 13: the shard's memory bound on the card. A store of its own: the
-# phase-2 generator's first EVICT_SERIES series (1,000 a namespace) on a
+# phase-2 generator's first EVICT_SERIES series (500 a namespace) on a
 # local-disk store, 20 flush groups a shard, a budget of EVICT_MEM_MB a
-# shard and a retention of EVICT_RETENTION_MS. One more scrape reaches
+# shard (about half a shard's chunk bytes, as 30 MiB was of 100,000
+# series' before the cut that keeps the smoke in its limit, PERF.md §4)
+# and a retention of EVICT_RETENTION_MS. One more scrape reaches
 # App-50..App-99 only, so App-0..App-49 stop: the scheduler's tick evicts
 # their chunks, evict_cold_partitions then the partitions, App-0 comes back
 # through the bloom and purge_expired drops the rest.
-EVICT_SERIES = 100_000
-EVICT_MEM_MB = 30
+EVICT_SERIES = 50_000
+EVICT_MEM_MB = 15
 EVICT_RETENTION_MS = 1_800_000  # 30 min past a series' last sample
 EVICT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
                  f"sum(count_over_time({M}[5m])) by (job)")
@@ -4295,7 +4316,7 @@ _SMOKE_SERVICE = []
 # are not: the 10 s scrape, the 5 m and 1 h resolutions, the label sets.
 LT_DS = "timeseries"
 LT_SAMPLES = 2160               # 6 h at 10 s
-LT_SERIES = 10_000              # counters in the full smoke
+LT_SERIES = 5_000               # counters in the full smoke
 LT_SERIES_ALONE = 100_000       # counters under --longterm-only
 LT_GAUGES = 4                   # counters a load-average series
 LT_RESOLUTIONS = (300_000, 3_600_000)
@@ -4691,7 +4712,9 @@ def _longterm(dev, args, root: str, _build, DownsamplerJob) -> dict:
         cpu.planner, card.planner = cpu_planners["tiered"], \
             planners["tiered"]
         vs_cpu[sub] = _lt_same(card.query_range(sub, start, 60, end),
-                               cpu.query_range(sub, start, 60, end), sub)
+                               cpu.query_range(sub, start, 60, end),
+                               f"phase 18: {sub} (the card against the "
+                               f"CPU)")
     cached = smoke_service(store, device=dev, result_cache=True)
     cached.planner = _lt_planners(store, now_ms)["tiered"]
     first = cached.query_range(LT_QUERIES[0], start, 60, end)
@@ -4725,16 +4748,344 @@ def _longterm(dev, args, root: str, _build, DownsamplerJob) -> dict:
     return out
 
 
-def _lt_same(got, want, what: str) -> dict:
+def _lt_same(got, want, what: str, check: bool = True) -> dict:
+    """The largest difference of two answers and the cells past
+    ``LT_TOL``; raises where they differ and ``check`` is set."""
     gk, gv = _sorted_answer(got)
     wk, wv = _sorted_answer(want)
-    if gk != wk or gv.shape != wv.shape or not np.allclose(gv, wv,
-                                                           **LT_TOL):
-        raise AssertionError(f"phase 18: {what}: the card's answer is not "
-                             f"the CPU's")
-    fin = np.isfinite(wv)
-    return {"max_abs": float(np.abs(gv[fin] - wv[fin]).max(initial=0.0)),
-            "rows": len(gk)}
+    if gk != wk or gv.shape != wv.shape:
+        raise AssertionError(f"{what}: the answers' series differ")
+    bad = ~np.isclose(gv, wv, **LT_TOL)
+    fin = np.isfinite(wv) & np.isfinite(gv)
+    out = {"max_abs": float(np.abs(gv[fin] - wv[fin]).max(initial=0.0)),
+           "rows": len(gk), "cells_past_tol": int(bad.sum())}
+    if bad.any():
+        at = tuple(np.argwhere(bad)[0])
+        out["first"] = {"key": gk[at[0]], "step": int(at[1]),
+                        "got": float(gv[at]), "want": float(wv[at])}
+        if check:
+            raise AssertionError(f"{what}: the answers differ: {out}")
+    return out
+
+
+# phase 19: the object-store tier. Phase 18's generator and shapes (6 h at
+# 10 s, 4 shards, spread 1, 400-sample chunks; counters and a quarter as
+# many load averages) on a directory-backed FakeS3 with the reference's
+# ``store`` defaults (1 MiB segments, 8 buckets, a queue of 64 uploads):
+# the flush, a restart that recovers every shard from the bucket, then
+# over the restarted store a tiered planner (memstore the last hour, the
+# cold tier the rest: no downsample tier) and its queries. The series and
+# the history are cut (PERF.md §4), the widths and the store's defaults
+# are not.
+OS_SERIES = 10_000              # counters in the full smoke
+OS_SERIES_ALONE = 100_000       # counters under --objectstore-only
+OS_MEM_RETENTION_MS = 3_600_000
+OS_WARM = 2
+OS_SUBSET = '_ns_="App-0"'
+
+
+def objectstore_phase(dev, args) -> dict:
+    """Phase 19: the object-store tier (see the module)."""
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="filodb-objectstore-")
+    try:
+        out = _objectstore(dev, args, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 19 took {out['seconds']:.1f} s")
+    return out
+
+
+def _os_store(root: str, bucket: str, **store_cfg):
+    """A 4-shard, spread-1 store over the object store of
+    ``<root>/<bucket>`` (the reference's ``store`` defaults)."""
+    from filodb_tpu_torch.core.memstore.memstore import MemStore
+    from filodb_tpu_torch.core.store.config import StoreConfig
+    from filodb_tpu_torch.core.store.objectstore import open_object_store
+
+    cs, meta = open_object_store({"endpoint": str(Path(root) / bucket)},
+                                 root)
+    return MemStore(4, 1, column_store=cs, meta_store=meta,
+                    config=StoreConfig(max_chunk_size=400,
+                                       groups_per_shard=20,
+                                       retention_ms=NODE_RETENTION_MS,
+                                       max_query_matches=0, **store_cfg),
+                    dataset=LT_DS)
+
+
+def _os_counters():
+    from filodb_tpu_torch.core.store import objectstore as osm
+
+    return {"puts": osm.PUTS.value, "gets": osm.GETS.value,
+            "bytes_up": osm.BYTES_UP.value, "bytes_down": osm.BYTES_DOWN.value,
+            "payload_down": osm.PAYLOAD_BYTES_DOWN.value}
+
+
+def _os_delta(before: dict) -> dict:
+    now = _os_counters()
+    return {k: now[k] - before[k] for k in now}
+
+
+def _os_tiered(store, now_ms: int):
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.coordinator.tiered_planner import (
+        build_tiered_planner,
+    )
+    from filodb_tpu_torch.core.store.objectstore import (
+        ObjectStoreColumnStore,
+    )
+
+    cs = store.column_store
+    reader = ObjectStoreColumnStore(cs.client, bucket=cs.bucket)
+    return build_tiered_planner(
+        SingleClusterPlanner(4, 1), reader, LT_DS, 4, 1,
+        mem_retention_ms=OS_MEM_RETENTION_MS, raw_retention_ms=None,
+        odp_max_chunks=LT_ODP_CHUNKS, now_ms=lambda: now_ms)
+
+
+def _os_ingest(stores, series: int, seed: int, keep=None) -> tuple:
+    """Phase 18's counters and load averages into each of ``stores`` (the
+    rows ``keep`` selects, where given, into the last); → (samples kept,
+    the largest value)."""
+    rng = np.random.default_rng(seed + 19)
+    kept, vmax = 0, -np.inf
+    for metric in (M, LOAD1):
+        n = series if metric == M else series // LT_GAUGES
+        for a in range(0, n, 65536):
+            b = min(a + 65536, n)
+            if metric == M:
+                labels, ts, vals = make_series(rng, a, b, LT_SAMPLES)
+                schema = "prom-counter"
+            else:
+                labels, ts, vals = make_host_series(rng, LOAD1, a, b,
+                                                    LT_SAMPLES)
+                schema = "gauge"
+            vmax = max(vmax, float(np.nanmax(vals)))
+            for i, st in enumerate(stores):
+                if keep is not None and i == len(stores) - 1:
+                    at = [j for j, lb in enumerate(labels) if keep(lb)]
+                    st.ingest_series([labels[j] for j in at], ts[at],
+                                     vals[at], schema=schema)
+                else:
+                    kept += st.ingest_series(labels, ts, vals,
+                                             schema=schema)
+    return kept, vmax
+
+
+def _objectstore(dev, args, root: str) -> dict:
+    import threading
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.core.store import objectstore as osm
+    from filodb_tpu_torch.query.engine import sidecar_lane
+
+    series = args.objectstore_series
+    gauges = series // LT_GAUGES
+    now_ms = T0_MS + LT_SAMPLES * 10_000
+    end = now_ms // 1000
+    # the writer, and a local-disk store of App-0's series (the backend
+    # the answers are held against)
+    store = _os_store(root, "bucket")
+    local = durable_store(str(Path(root) / "local"), LT_DS,
+                          retention_ms=NODE_RETENTION_MS,
+                          max_query_matches=0)
+    t = time.perf_counter()
+    kept, vmax = _os_ingest([store, local], series, args.seed,
+                            keep=lambda lb: lb["_ns_"] == "App-0")
+    ingest_s = time.perf_counter() - t
+    # 1. the flush, with the upload queue's depth sampled meanwhile
+    depth, done = [], threading.Event()
+
+    def sample():
+        while not done.is_set():
+            depth.append(osm.QUEUE_DEPTH.value)
+            time.sleep(0.01)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    c0 = _os_counters()
+    t = time.perf_counter()
+    sampler.start()
+    chunks = store.flush_all()
+    flush_s = time.perf_counter() - t
+    store.column_store.flush()
+    upload_s = time.perf_counter() - t
+    done.set()
+    sampler.join()
+    up = _os_delta(c0)
+    stats = store.column_store.dataset_stats(LT_DS)
+    local.flush_all()
+    log(f"phase 19: the object-store tier: {series} counters and {gauges} "
+        f"load averages x {LT_SAMPLES} samples (6 h), {kept} kept, ingested "
+        f"in {ingest_s:.1f} s; flush {flush_s:.1f} s ({chunks} chunks), "
+        f"uploads drained at {upload_s:.1f} s: {up['puts']} PUTs, "
+        f"{up['bytes_up'] / 1e6:.1f} MB, {stats['segments']} segments, "
+        f"queue depth max {max(depth, default=0):.0f}")
+    out = {"counters": series, "gauges": gauges, "samples": LT_SAMPLES,
+           "ingest_s": ingest_s, "flush_s": flush_s, "upload_s": upload_s,
+           "chunks": chunks, "puts": up["puts"], "bytes_up": up["bytes_up"],
+           "segments": stats["segments"], "segment_bytes": stats["bytes"],
+           "queue_depth_max": max(depth, default=0),
+           "queue_depth_p50": float(np.median(depth)) if depth else 0.0}
+    store.close()
+    # 2. a restart from the bucket: every shard's index recovered
+    c0 = _os_counters()
+    t = time.perf_counter()
+    store = _os_store(root, "bucket")
+    keys = sum(store.recover_index(s) for s in range(4))
+    boot_s = time.perf_counter() - t
+    down = _os_delta(c0)
+    if keys != series + gauges:
+        raise AssertionError(f"phase 19: the restart recovered {keys} part "
+                             f"keys of {series + gauges}")
+    out["restart"] = {"seconds": boot_s, "keys": keys, "gets": down["gets"],
+                      "bytes_down": down["bytes_down"]}
+    log(f"  restart from the bucket: {keys} part keys in {boot_s:.1f} s "
+        f"({down['gets']} GETs, {down['bytes_down'] / 1e6:.1f} MB)")
+    # 3. the queries over the restarted store, launches counted
+    svc = smoke_service(store, device=dev, engine="exec")
+    svc.planner = _os_tiered(store, now_ms)
+    cold = svc.planner.cold_planner.store
+    start = end - 6 * 3600
+    interior = (f"max_over_time({M}[2h])", T0_MS // 1000 + 3995,
+                T0_MS // 1000 + 3995)
+    queries = {
+        "tiered_rate": (f"sum(rate({M}[15m])) by (_ns_)", start, 60, end),
+        "max": (f"max_over_time({M}[3h])", start + 3 * 3600, 900,
+                end - 3600),
+        "avg": (f"avg_over_time({M}[3h])", start + 3 * 3600, 900,
+                end - 3600)}
+    _build.reset_counts()
+    out["queries"] = {}
+    answers = {}
+    for name, (q, a, step, b) in queries.items():
+        for lane in ("pyramid", "decode"):
+            with valves(FILODB_SIDECARS="1" if lane == "pyramid" else "0"):
+                cold.clear_caches()
+                c0 = _os_counters()
+                t = time.perf_counter()
+                r = svc.query_range(q, a, step, b)
+                cold_ms = (time.perf_counter() - t) * 1000.0
+                io = _os_delta(c0)
+                warm = []
+                for _ in range(OS_WARM):
+                    t = time.perf_counter()
+                    svc.query_range(q, a, step, b)
+                    warm.append((time.perf_counter() - t) * 1000.0)
+            m = r.result.materialize()
+            if not np.isfinite(np.asarray(m.values)).any():
+                raise AssertionError(f"phase 19: {q} ({lane}): no finite "
+                                     f"value")
+            answers[(name, lane)] = r
+            rec = {"query": q, "lane": lane, "cold_ms": cold_ms,
+                   "warm_p50_ms": float(np.median(warm)),
+                   "rows": m.num_series, "steps": m.num_steps,
+                   "tiers": sorted(r.stats.tiers),
+                   "pyramid": dict(r.stats.pyramid),
+                   "bypassed": dict(r.stats.sidecar_bypassed),
+                   "gets": io["gets"], "payload_bytes": io["payload_down"],
+                   "bytes_down": io["bytes_down"]}
+            out["queries"][f"{name}/{lane}"] = rec
+            log(f"  {q} ({lane}): cold {cold_ms:.1f} ms, warm p50 "
+                f"{rec['warm_p50_ms']:.1f} ms, {m.num_series} rows, tiers "
+                f"{rec['tiers']}, {io['gets']} GETs, "
+                f"{io['payload_down'] / 1e6:.2f} MB payload, pyramid "
+                f"{rec['pyramid']}")
+    # the interior-only window: stored roll-ups, no payload
+    cold.clear_caches()
+    c0 = _os_counters()
+    r = svc.query_range(*interior[:2], 60, interior[2])
+    io = _os_delta(c0)
+    p = r.stats.pyramid
+    if io["payload_down"] or p.get("payloadBytes") or not (
+            p.get("segmentNodes", 0) + p.get("chunkNodes", 0)):
+        raise AssertionError(f"phase 19: the interior-only window paged "
+                             f"payload or folded no node ({io}, {p})")
+    out["interior"] = {"query": interior[0], "payload_bytes":
+                       io["payload_down"], "pyramid": dict(p),
+                       "pyramid_bytes": p.get("pyramidBytes", 0)}
+    launches = dict(_build.LAUNCHES)
+    out["launches"] = launches
+    log(f"  interior-only window: 0 payload bytes, {p}; launches {launches}")
+    if dev.type == "cuda" and not all(launches.values()):
+        raise AssertionError(f"phase 19: a kernel did not launch over the "
+                             f"object store: {launches}")
+    for name in ("max", "avg"):
+        pyr = out["queries"][f"{name}/pyramid"]
+        if not pyr["pyramid"] or pyr["bypassed"]:
+            raise AssertionError(f"phase 19: the pyramid lane did not serve "
+                                 f"{pyr['query']}: {pyr['bypassed']}")
+    # 4. checks: each pyramid answer against the lane off (rate's reported:
+    # the lane's rate is the reference's formula over stats, the decode
+    # lane's B3, whose time arithmetic differs, ROADMAP §C); the App-0
+    # subset against the local-disk store, both lanes off so both decode,
+    # and against the CPU with the lanes on
+    checks = {}
+    for name in queries:
+        checks[f"{name}_vs_decode"] = _lt_same(
+            answers[(name, "pyramid")], answers[(name, "decode")],
+            f"phase 19: {name} (pyramid against FILODB_SIDECARS=0)",
+            check=name != "tiered_rate")
+    local_svc = smoke_service(local, device=dev, engine="exec")
+    local_svc.planner = _os_tiered_local(local, now_ms)
+    cpu = smoke_service(store, device="cpu", engine="exec")
+    cpu.planner = _os_tiered(store, now_ms)
+    for name, (q, a, step, b) in queries.items():
+        sub = q.replace(f"{M}[", f"{M}{{{OS_SUBSET}}}[")
+        with valves(FILODB_SIDECARS="0"):
+            checks[f"{name}_vs_local"] = _lt_same(
+                svc.query_range(sub, a, step, b),
+                local_svc.query_range(sub, a, step, b),
+                f"phase 19: {sub} (object store against the local disk)")
+        checks[f"{name}_vs_cpu"] = _lt_same(
+            svc.query_range(sub, a, step, b),
+            cpu.query_range(sub, a, step, b),
+            f"phase 19: {sub} (the card against the CPU)")
+    _build.LAUNCHES.update(launches)  # the checks' launches are not counted
+    # 5. the approximate lane: summary-only, no payload
+    with valves(FILODB_SIDECAR_APPROX="1"):
+        c0 = _os_counters()
+        t = time.perf_counter()
+        top = cold.approx_topk(10)
+        card = cold.approx_cardinality()
+        approx_ms = (time.perf_counter() - t) * 1000.0
+        io = _os_delta(c0)
+    n_all = series + gauges
+    if io["payload_down"] or abs(card - n_all) / n_all > 0.1 \
+            or top[0]["value"] != vmax \
+            or [e["value"] for e in top] != sorted(
+                (e["value"] for e in top), reverse=True):
+        raise AssertionError(f"phase 19: approx: cardinality {card} of "
+                             f"{n_all}, top {top[:2]}, max {vmax}, {io}")
+    out["approx"] = {"ms": approx_ms, "cardinality": card, "series": n_all,
+                     "top1": top[0]["value"], "pyramid_bytes":
+                     io["bytes_down"], "payload_bytes": io["payload_down"]}
+    out["checks"] = checks
+    log(f"  checks: max and avg through the pyramid lane equal "
+        f"FILODB_SIDECARS=0's (rate: {checks['tiered_rate_vs_decode']}); "
+        f"the App-0 subset equals the local disk's and the CPU's; "
+        f"approx_cardinality "
+        f"{card:.0f} of {n_all}, approx_topk's first {top[0]['value']} (the "
+        f"largest value), in {approx_ms:.1f} ms with no payload")
+    store.close()
+    local.close()
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    return out
+
+
+def _os_tiered_local(store, now_ms: int):
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.coordinator.tiered_planner import (
+        build_tiered_planner,
+    )
+
+    return build_tiered_planner(
+        SingleClusterPlanner(4, 1), store.column_store, LT_DS, 4, 1,
+        mem_retention_ms=OS_MEM_RETENTION_MS, raw_retention_ms=None,
+        odp_max_chunks=LT_ODP_CHUNKS, now_ms=lambda: now_ms)
 
 
 def wide():
@@ -4953,10 +5304,21 @@ def main() -> int:
                     help="build and run phase 18 only (long retention: the "
                     "downsampler job, the long-time and tiered planners "
                     "over three tiers, and a node)")
+    ap.add_argument("--objectstore-series", type=int, default=None,
+                    help=f"phase 19's counters ({OS_SERIES}, or "
+                    f"{OS_SERIES_ALONE} under --objectstore-only), and a "
+                    f"quarter as many load averages")
+    ap.add_argument("--objectstore-only", action="store_true",
+                    help="build and run phase 19 only (the object-store "
+                    "tier: flush to a FakeS3 bucket, a restart from it, the "
+                    "tiered and pyramid-lane queries, the approx sketches)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
             else LT_SERIES
+    if args.objectstore_series is None:
+        args.objectstore_series = OS_SERIES_ALONE \
+            if args.objectstore_only else OS_SERIES
 
     import torch
 
@@ -5031,6 +5393,11 @@ def _phases(args, smi) -> int:
                                                      args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.objectstore_only:
+        print(json.dumps({"objectstore": objectstore_phase(
+            torch.device("cuda"), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
         durable, node = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
@@ -5076,6 +5443,9 @@ def _phases(args, smi) -> int:
     torch.cuda.empty_cache()
     longterm = longterm_phase(torch.device("cuda"), args)
     print(json.dumps({"longterm": longterm}))
+    torch.cuda.empty_cache()
+    objstore = objectstore_phase(torch.device("cuda"), args)
+    print(json.dumps({"objectstore": objstore}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -5089,6 +5459,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase16"] = control["launches"][kern["name"]]
         kern["launches_phase17"] = core["launches"][kern["name"]]
         kern["launches_phase18"] = longterm["launches"][kern["name"]]
+        kern["launches_phase19"] = objstore["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

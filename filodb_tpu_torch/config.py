@@ -13,8 +13,10 @@ the ``resilience`` keys of remote dispatch). ``result_cache``,
 ``http_response_cache``, ``governor``, ``resilience`` (its single-node
 ``query_timeout_s``), ``cost_model``, ``tracing``, a dataset's
 ``downsample`` block (the job, its streaming form and the long-time
-planner) and ``federation`` (the tiered planner, with
-``mem_retention_ms`` set) are acted on, in any form the reference takes;
+planner), ``federation`` (the tiered planner, with ``mem_retention_ms``
+set) and ``store`` (``backend``: ``local`` sqlite, or ``object`` for the
+S3-compatible tier with its endpoint, bucket, prefix, credentials and
+segment, bucket and queue sizes) are acted on, in any form the reference takes;
 a dataset's ``engine`` is ``mesh``, ``adaptive`` or ``exec``.
 """
 
@@ -178,7 +180,6 @@ UNPORTED = {
     "wal_server_port": "the log server (ROADMAP §A.12)",
     "store_remote": "the remote column store (ROADMAP §A.12)",
     "store_server_port": "the column-store server (ROADMAP §A.12)",
-    "store.backend": "the object-store tier (ROADMAP §A5)",
     "rules.groups": "standing queries (ROADMAP §A.11)",
     "selfmon.enabled": "self-monitoring (ROADMAP §A.11)",
 }

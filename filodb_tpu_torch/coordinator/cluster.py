@@ -13,7 +13,8 @@ Port of the single-node part of ``filodb_tpu/coordinator/cluster.py``:
   on every shard (flush the next group, round robin; hold the resident
   chunks to ``shard_mem_mb``; purge past ``retention_ms``, in the
   reference's order), truncates the shard's log below its smallest group
-  watermark, and writes the shard's index snapshot every
+  watermark (over the object store, its smallest landed checkpoint: the
+  upload goes behind), and writes the shard's index snapshot every
   ``index_snapshot_interval_ms``. A tick comes every ``flush_interval /
   groups`` (between 0.5 and 300 s).
 - ``FilodbCluster``: ``join``, ``setup_dataset`` (shards assigned by
@@ -259,9 +260,15 @@ class _FlushScheduler(threading.Thread):
         shard = ms.shards[shard_num]
         shard_tick(shard)
         # the log below the smallest watermark is persisted, and replay
-        # skips it
+        # skips it; over a write-behind store, below the smallest one that
+        # has landed (ROADMAP §C)
         w = self.node._workers.get(key)
         wm = int(shard.group_watermarks.min())
+        durable = getattr(shard.meta_store, "durable_checkpoints", None)
+        if durable is not None:
+            landed = durable(dataset, shard_num)
+            wm = min([wm] + [landed.get(g, -1) for g in
+                             range(len(shard.group_watermarks))])
         if w is not None and wm >= 0 and hasattr(w.log, "truncate_before"):
             self.truncated[key] = (wm + 1, w.log.truncate_before(wm + 1))
         interval = shard.config.index_snapshot_interval_ms

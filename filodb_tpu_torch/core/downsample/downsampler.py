@@ -27,7 +27,9 @@ partition's ds chunks take ids ``chunk_id(first ts, seq)`` with seq from 0,
 so a window done twice writes the same chunks and the store keeps the
 first. ``catch_up`` keeps each shard's ingestion-time watermark in the
 meta store under ``<dataset>__dsckpt`` (group 0), the reference's layout,
-so a job of either package resumes from the other's checkpoint.
+so a job of either package resumes from the other's checkpoint. With
+``n_splits`` it scans split by split (the object store's
+``scan_chunk_rows_by_ingestion_time_split``).
 """
 
 from __future__ import annotations
@@ -340,6 +342,10 @@ class DownsamplerJob:
     # with a meta store, catch_up keeps each shard's watermark there, so a
     # restarted job scans exactly the window not yet done
     meta_store: MetaStore | None = None
+    # the ingestion-time scan fanned out over the store's token-range
+    # splits (the object store's buckets); a store without split scans
+    # takes 1 only
+    n_splits: int = 1
     # seconds and rows of the last run: read, decode, rollup, write
     seconds: dict = field(default_factory=dict)
 
@@ -377,8 +383,7 @@ class DownsamplerJob:
         import time
 
         t = time.perf_counter()
-        rows = self.column_store.scan_chunk_rows_by_ingestion_time(
-            self.dataset, shard, t0, t1)
+        rows = self._scan(shard, t0, t1)
         stats["raw_chunks"] += len(rows)
         stats["raw_bytes"] += sum(len(d) for _, d in rows)
         blobs, row_of = {}, []
@@ -420,6 +425,21 @@ class DownsamplerJob:
             stats["ds_samples"] += len(roll)
             stats["ds_chunks"] += len(out)
             stats["ds_bytes"] += sum(len(r[4]) for r in out)
+
+
+    def _scan(self, shard, t0, t1) -> list:
+        if self.n_splits <= 1:
+            return self.column_store.scan_chunk_rows_by_ingestion_time(
+                self.dataset, shard, t0, t1)
+        split_scan = getattr(self.column_store,
+                             "scan_chunk_rows_by_ingestion_time_split", None)
+        if split_scan is None:
+            raise NotImplementedError(
+                f"n_splits={self.n_splits}: this column store has no split "
+                "scans (the local store's come with repair, ROADMAP A6)")
+        return [row for split in range(self.n_splits)
+                for row in split_scan(self.dataset, shard, t0, t1, split,
+                                      self.n_splits)]
 
 
 def _stats() -> dict:

@@ -1,8 +1,8 @@
 """Dataset schemas and column metadata.
 
-Copy of ``filodb_tpu/core/schemas.py`` trimmed to the schemas the port
-serves: ``gauge``, ``prom-counter``, ``prom-histogram`` and the downsample
-schema ``ds-gauge`` (the timestamp and five DOUBLE rollup columns, ``min``,
+Copy of ``filodb_tpu/core/schemas.py``: ``gauge``, ``untyped`` (a gauge's
+columns, no downsamplers), ``prom-counter``, ``prom-histogram`` and the
+downsample schema ``ds-gauge`` (the timestamp and five DOUBLE rollup columns, ``min``,
 ``max``, ``sum``, ``count`` and ``avg``; its value column is ``avg``). Each
 raw schema names its downsamplers and the schema its rollups take
 (``ds_schema``): a gauge rolls up into ``ds-gauge``, a counter keeps its
@@ -133,6 +133,13 @@ DS_GAUGE = _mk(
     value_column=5,
 )
 
+UNTYPED = _mk(
+    "untyped",
+    [Column("timestamp", ColumnType.TIMESTAMP), Column("value", ColumnType.DOUBLE)],
+    value_column=1,
+)
+
 # a schema's index in this order is its index in ``record.SCHEMA_NAMES``
+# (``untyped`` last, so the indexes of the others stay as they were)
 SCHEMAS = {s.name: s for s in (GAUGE, PROM_COUNTER, PROM_HISTOGRAM,
-                               DS_GAUGE)}
+                               DS_GAUGE, UNTYPED)}

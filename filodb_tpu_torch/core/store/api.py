@@ -16,6 +16,10 @@ chunks written in an ingestion-time window [start, end), the reference's
 ``scan_chunks_by_ingestion_time``, as (part-key blob, serialized chunk)
 rows, each partition's chunks in chunk-id order.
 
+``split_of`` is the token-range split of a part key (crc32 of its blob),
+the reference's ``remotestore.split_of``: the object store's buckets are
+its splits.
+
 Index snapshots (``core/memstore/index_snapshot.py``): a column store
 keeps one a shard (``write_index_snapshot`` / ``read_index_snapshot``)
 and hands out write counters (``update_tokens``); a restore replays the
@@ -27,6 +31,7 @@ restore applies idempotently.
 
 from __future__ import annotations
 
+import zlib
 from collections import defaultdict
 from dataclasses import dataclass
 
@@ -38,6 +43,11 @@ class PartKeyRecord:
     part_key: PartKey
     start_time: int
     end_time: int
+
+
+def split_of(pk_blob: bytes, n_splits: int) -> int:
+    """Token-range split of a part key (crc32 over its blob)."""
+    return zlib.crc32(pk_blob) % n_splits if n_splits > 1 else 0
 
 
 def pk_from_blob(blob: bytes) -> PartKey:

@@ -21,14 +21,82 @@
 // function's; the library builds with -ffp-contract=off, so no sum or
 // square is fused.
 //
+// fh_crc32c computes CRC32C (Castagnoli, reflected
+// polynomial 0x82F63B78), the object store's segment and chunk checksums
+// (filodb_tpu/core/store/objectstore.py::crc32c): SSE4.2's crc32
+// instruction where the CPU has it, else a slice-by-8 table.
+//
 // Signed arithmetic that the numpy twins let wrap (predictions, residuals,
 // bucket deltas) is done in uint64_t here, where wrapping is defined.
 
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#if defined(__x86_64__)
+#include <nmmintrin.h>
+#endif
 
 namespace {
+
+struct Crc32cTables {
+    uint32_t t[8][256];
+    Crc32cTables() {
+        for (uint32_t i = 0; i < 256; i++) {
+            uint32_t c = i;
+            for (int k = 0; k < 8; k++) c = (c & 1) ? (c >> 1) ^ 0x82F63B78u : c >> 1;
+            t[0][i] = c;
+        }
+        for (int k = 1; k < 8; k++)
+            for (int i = 0; i < 256; i++)
+                t[k][i] = (t[k - 1][i] >> 8) ^ t[0][t[k - 1][i] & 0xFF];
+    }
+};
+
+const Crc32cTables crc_tables;
+
+// crc is the running value before the final inversion
+uint32_t crc32c_table(uint32_t crc, const uint8_t* p, int64_t n) {
+    const auto& t = crc_tables.t;
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint32_t lo;
+        std::memcpy(&lo, p + i, 4);
+        crc ^= lo;
+        crc = t[7][crc & 0xFF] ^ t[6][(crc >> 8) & 0xFF] ^ t[5][(crc >> 16) & 0xFF]
+            ^ t[4][crc >> 24] ^ t[3][p[i + 4]] ^ t[2][p[i + 5]] ^ t[1][p[i + 6]]
+            ^ t[0][p[i + 7]];
+    }
+    for (; i < n; i++) crc = t[0][(crc ^ p[i]) & 0xFF] ^ (crc >> 8);
+    return crc;
+}
+
+#if defined(__x86_64__)
+__attribute__((target("sse4.2")))
+uint32_t crc32c_hw(uint32_t crc, const uint8_t* p, int64_t n) {
+    uint64_t c = crc;
+    int64_t i = 0;
+    for (; i + 8 <= n; i += 8) {
+        uint64_t w;
+        std::memcpy(&w, p + i, 8);
+        c = _mm_crc32_u64(c, w);
+    }
+    uint32_t c32 = static_cast<uint32_t>(c);
+    for (; i < n; i++) c32 = _mm_crc32_u8(c32, p[i]);
+    return c32;
+}
+
+const bool have_sse42 = __builtin_cpu_supports("sse4.2");
+#endif
+
+uint32_t crc32c(uint32_t crc, const uint8_t* p, int64_t n) {
+    crc ^= 0xFFFFFFFFu;
+#if defined(__x86_64__)
+    crc = have_sse42 ? crc32c_hw(crc, p, n) : crc32c_table(crc, p, n);
+#else
+    crc = crc32c_table(crc, p, n);
+#endif
+    return crc ^ 0xFFFFFFFFu;
+}
 
 inline uint64_t zigzag(int64_t v) {
     return (static_cast<uint64_t>(v) << 1) ^ static_cast<uint64_t>(v >> 63);
@@ -633,6 +701,11 @@ int64_t fh_summarize(const int64_t* ts, int64_t ts_row, const double* vals,
         st[11] = static_cast<double>(changes);
     }
     return 0;
+}
+
+// CRC32C of n bytes, continuing from crc (0 to start).
+int64_t fh_crc32c(const uint8_t* data, int64_t n, int64_t crc) {
+    return crc32c(static_cast<uint32_t>(crc), data, n);
 }
 
 }  // extern "C"

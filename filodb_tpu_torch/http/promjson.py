@@ -32,8 +32,8 @@ def _labels_json(key) -> dict:
 
 def _stats_json(result: QueryResult, full: bool = False) -> dict:
     """The four basic stats; with ``full`` (``?stats=all``) the counters
-    the port keeps beside them and a federated query's per-tier buckets
-    (``tiers``)."""
+    the port keeps beside them, a federated query's per-tier buckets
+    (``tiers``) and the pyramid lane's levels and bytes (``pyramid``)."""
     s = result.stats
     out = {"seriesScanned": s.series_scanned,
            "samplesScanned": s.samples_scanned,
@@ -50,6 +50,10 @@ def _stats_json(result: QueryResult, full: bool = False) -> dict:
                 tier: {k: (round(v, 3) if isinstance(v, float) else v)
                        for k, v in bucket.items()}
                 for tier, bucket in s.tiers.items()}
+        if s.pyramid:
+            out["pyramid"] = {
+                k: (round(v, 3) if isinstance(v, float) else v)
+                for k, v in s.pyramid.items()}
     return out
 
 

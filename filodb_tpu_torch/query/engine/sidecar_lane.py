@@ -17,8 +17,9 @@ whose exactness the lane cannot keep bypasses to the decode lane and counts
 in ``filodb_sidecar_bypassed``: an ineligible function, parameters, an ``@``
 pin, histogram columns, the rollup schema's columns, a leaf over a
 downsample or cold-tier shard (``tier``: its partitions are not warm
-memory partitions, and the reference's pyramid lane bypasses them over a
-store that publishes no pyramids), a partition that needs demand paging
+memory partitions; a cold tier over a store that publishes pyramids goes
+to the pyramid lane, ``pyramid_lane.py``, the others bypass as the
+reference's do), a partition that needs demand paging
 (an evicted one among them), chunks out of time order, a write buffer
 that does not follow its chunks, a query with a scan budget (the decode
 lane counts its samples), and a fold the cost model's ``sidecar`` site
@@ -325,35 +326,51 @@ def _interior(b: SidecarBundle, t0s: np.ndarray, t1s: np.ndarray,
     window, and the run bounds (i0, i1) and overlap bounds (o0, o1),
     partition-local, [S, W] on the host."""
     S, W = len(b.offs) - 1, len(t0s)
-    Cs = np.diff(b.offs)
-    lo = min(int(b.starts.min(initial=0)), int(t0s.min()))
-    hi = max(int(b.ends.max(initial=0)), int(t1s.max()))
+    out, i0, i1, o0, o1 = interior_pairs(
+        b.stats, b.part, b.starts, b.ends, b.offs,
+        np.repeat(np.arange(S, dtype=np.int64), W), np.tile(t0s, S),
+        np.tile(t1s, S), device)
+    return (out.reshape(S, W, STATS_WIDTH), i0.reshape(S, W),
+            i1.reshape(S, W), o0.reshape(S, W), o1.reshape(S, W))
+
+
+def interior_pairs(st: torch.Tensor, part: np.ndarray, starts: np.ndarray,
+                   ends: np.ndarray, offs: np.ndarray, g: np.ndarray,
+                   t0: np.ndarray, t1: np.ndarray, device) -> tuple:
+    """The interior fold of N (group, window) pairs: rows ``st`` [C, 12]
+    (on the device) in groups by ``part`` (group ``k``'s rows
+    ``offs[k]:offs[k + 1]``, in time order, valid spans ``starts``,
+    ``ends``); pair ``i`` is group ``g[i]`` over (t0[i], t1[i]]. → merged
+    stats [N, 12] of the rows wholly inside each window, and the bounds
+    (i0, i1) of that run and (o0, o1) of the overlapping rows,
+    group-local, [N] on the host."""
+    N = len(g)
+    lo = min(int(starts.min(initial=0)), int(t0.min(initial=0)))
+    hi = max(int(ends.max(initial=0)), int(t1.max(initial=0)))
     span = np.int64(hi - lo + 2)
-    ks = b.part * span + (b.starts - lo)
-    ke = b.part * span + (b.ends - lo)
-    base = np.arange(S, dtype=np.int64)[:, None] * span
-    q0 = (base + (t0s[None, :] - lo)).ravel()
-    q1 = (base + (t1s[None, :] - lo)).ravel()
-    first = b.offs[:-1, None]
-    i0 = np.searchsorted(ks, q0, side="right").reshape(S, W) - first
-    i1 = np.searchsorted(ke, q1, side="right").reshape(S, W) - first
+    ks = part * span + (starts - lo)
+    ke = part * span + (ends - lo)
+    q0 = g * span + (t0 - lo)
+    q1 = g * span + (t1 - lo)
+    first = offs[g]
+    i0 = np.searchsorted(ks, q0, side="right") - first
+    i1 = np.searchsorted(ke, q1, side="right") - first
     i1 = np.maximum(i1, i0)
-    o0 = np.searchsorted(ke, q0, side="right").reshape(S, W) - first
-    o1 = np.searchsorted(ks, q1, side="right").reshape(S, W) - first
-    A = torch.from_numpy((first + i0).ravel()).to(device)
-    B = torch.from_numpy((first + i1).ravel()).to(device)
+    o0 = np.searchsorted(ke, q0, side="right") - first
+    o1 = np.searchsorted(ks, q1, side="right") - first
+    A = torch.from_numpy(first + i0).to(device)
+    B = torch.from_numpy(first + i1).to(device)
     have = B > A
-    st = b.stats
-    out = _empty_stats(S * W, device)
+    out = _empty_stats(N, device)
     for slot in (S_COUNT, S_SUM, S_SUMSQ, S_RESETS, S_CORR, S_CHANGES):
         p = _prefix(st[:, slot])
         out[:, slot] = p[B] - p[A]
     C = st.shape[0]
     if C > 1:
-        same = torch.from_numpy(b.part[1:] == b.part[:-1]).to(device)
+        same = torch.from_numpy(part[1:] == part[:-1]).to(device)
         drop = same & (st[1:, S_FIRST_VAL] < st[:-1, S_LAST_VAL])
         chg = same & (st[1:, S_FIRST_VAL] != st[:-1, S_LAST_VAL])
-        # boundaries between consecutive chunks both inside [A, B)
+        # boundaries between consecutive rows both inside [A, B)
         bl = A.clamp(max=C - 1)
         bh = torch.maximum(B - 1, bl).clamp(max=C - 1)
         for slot, x in ((S_RESETS, drop.to(torch.float64)),
@@ -369,7 +386,7 @@ def _interior(b: SidecarBundle, t0s: np.ndarray, t1s: np.ndarray,
                          (S_LAST_TS, li), (S_LAST_VAL, li)):
             out[:, slot] = st[at, slot]
         n = B - A
-        run = torch.repeat_interleave(torch.arange(S * W, device=device), n)
+        run = torch.repeat_interleave(torch.arange(N, device=device), n)
         at = torch.repeat_interleave(A - torch.cumsum(n, 0) + n, n) \
             + torch.arange(int(n.sum()), device=device)
         for slot, red in ((S_MIN, "amin"), (S_MAX, "amax")):
@@ -377,16 +394,18 @@ def _interior(b: SidecarBundle, t0s: np.ndarray, t1s: np.ndarray,
                 0, run, st[at, slot], red, include_self=False)
     nanrow = _empty_stats(1, device)
     out = torch.where(have[:, None], out, nanrow)
-    return out.reshape(S, W, STATS_WIDTH), i0, i1, o0, o1
+    return out, i0, i1, o0, o1
 
 
 class _Segments:
-    """Sealed chunks of a leaf (its edge chunks), packed as the rows of one
-    batch on the device; ``fold`` decodes the rows it needs by B1/B2
+    """Chunks of a leaf (its edge chunks), rows ``chunk_rows`` of ``table``
+    (the shard's sealed chunks, or its ODP cache's), packed as the rows of
+    one batch on the device; ``fold`` decodes the rows it needs by B1/B2
     (values the pages' float32), timestamps relative to ``base``."""
 
-    def __init__(self, shard, chunk_rows: np.ndarray, base: int, device):
-        sealed = shard._sealed
+    def __init__(self, shard, chunk_rows: np.ndarray, base: int, device,
+                 table=None):
+        sealed = shard._sealed if table is None else table
         col = sealed.columns
         offsets = np.asarray(sealed.offsets)
         tables = list(sealed.pages)
@@ -454,8 +473,12 @@ def _expand(first: np.ndarray, count: np.ndarray) -> np.ndarray:
 def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
             window_ms: int, counter: bool) -> torch.Tensor:
     """Values [..., W] of ``fn`` from merged stats [..., W, 12] at the
-    absolute eval steps ``steps_ms`` [W] (float64)."""
+    absolute eval steps ``steps_ms`` [W] (float64). Divisors are device
+    tensors: on the card PyTorch divides by a Python number as a multiply
+    by its reciprocal, a rounding off the reference's, which the rate
+    family's extrapolation thresholds can turn into a different branch."""
     n = st[..., S_COUNT]
+    k1000 = torch.tensor(1000.0, dtype=torch.float64, device=st.device)
     has1 = n >= 1
     nan = torch.tensor(float("nan"), dtype=torch.float64, device=st.device)
     one = torch.ones_like(n)
@@ -490,7 +513,7 @@ def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
     if fn in ("last_over_time", "last_sample"):
         return gate(st[..., S_LAST_VAL])
     if fn == "timestamp":
-        return gate(st[..., S_LAST_TS] / 1000.0)
+        return gate(st[..., S_LAST_TS] / k1000)
     if fn == "changes":
         return gate(st[..., S_CHANGES])
     if fn == "resets":
@@ -502,10 +525,10 @@ def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
         if corrected:
             v_last = v_last + st[..., S_CORR]
         result = v_last - raw_first
-        t_first = st[..., S_FIRST_TS] / 1000.0
-        t_last = st[..., S_LAST_TS] / 1000.0
-        range_start = (steps_ms - window_ms) / 1000.0
-        range_end = steps_ms / 1000.0
+        t_first = st[..., S_FIRST_TS] / k1000
+        t_last = st[..., S_LAST_TS] / k1000
+        range_start = (steps_ms - window_ms) / k1000
+        range_end = steps_ms / k1000
         sampled = t_last - t_first
         avg_dur = sampled / torch.clamp(n - 1.0, min=1.0)
         dur_start = t_first - range_start
@@ -522,7 +545,9 @@ def formula(fn: str, st: torch.Tensor, steps_ms: torch.Tensor,
             + torch.where(dur_end < threshold, dur_end, avg_dur / 2.0)
         result = result * (extend / torch.clamp(sampled, min=1e-10))
         if fn == "rate":
-            result = result / (window_ms / 1000.0)
+            result = result / torch.tensor(window_ms / 1000.0,
+                                           dtype=torch.float64,
+                                           device=st.device)
         return gate(result, n >= 2)
     raise _Bypass(f"no formula for {fn}")
 
@@ -567,6 +592,7 @@ def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
         # the decode lane serves the leaf now: a pending decision whose
         # arm did not run settles under "decode", its prediction dropped
         cm.CostModel.relabel_deferred(ctx, "sidecar", "decode")
+        cm.CostModel.relabel_deferred(ctx, "pyramid", "decode")
         return None
 
 
@@ -580,8 +606,12 @@ def _execute(leaf, ctx, shard, pids, version, psm, fn, decode_mode):
         raise _Bypass("no partition")
     if getattr(shard, "tier", None) is not None:
         # a downsample or cold-tier shard: its partitions hold no chunk
-        # in memory and no summary to fold, and its chunks page in
-        raise _Bypass("cold partitions")
+        # in memory and no summary to fold, and its chunks page in; a cold
+        # tier over a store that publishes pyramids folds those instead
+        from filodb_tpu_torch.query.engine import pyramid_lane
+
+        return pyramid_lane.execute_cold(leaf, ctx, shard, pids, psm, fn,
+                                         decode_mode)
     if shard.hist[pids].any():
         raise _Bypass("histogram columns")
     if shard.multi[pids].any():
@@ -706,13 +736,13 @@ def _sealed_arm(shard, pids: np.ndarray, overlap: np.ndarray,
     return d.arm == "sidecar"
 
 
-def _decodable(shard, rows: np.ndarray) -> None:
-    """Bypass unless the device pages hold the values of sealed chunks
-    ``rows`` exactly (float32, below ``F32_SAFE_MAX``): the lane decodes
-    them by B1/B2."""
+def _decodable(shard, rows: np.ndarray, table=None) -> None:
+    """Bypass unless the device pages hold the values of chunks ``rows``
+    of ``table`` (the sealed chunks by default) exactly (float32, below
+    ``F32_SAFE_MAX``): the lane decodes them by B1/B2."""
     from filodb_tpu_torch.query.exec.transformers import F32_SAFE_MAX
 
-    col = shard._sealed.columns
+    col = (shard._sealed if table is None else table).columns
     if not col["exact"][rows].all():
         raise _Bypass("values float32 does not hold")
     if float(col["vmax"][rows].max(initial=0.0)) >= F32_SAFE_MAX:

@@ -12,19 +12,29 @@ Port of ``filodb_tpu/query/federation.py``:
   the index from ``scan_part_keys``, refreshed every ``refresh_s``; the
   chunks paged on demand through each shard's ODP cache of
   ``odp_max_chunks``), read by leaves through their ``store``, as the
-  downsample store is. Over the local store it has no pyramids, and the
-  reference's cold tier bypasses them there too.
+  downsample store is. Over an object store each shard has a pyramid
+  cache (``core/store/pyramid.py``), which the pyramid lane folds
+  (``query/engine/pyramid_lane.py``), and the store answers
+  ``approx_topk`` and ``approx_cardinality`` from the pyramids' footer
+  sketches alone, under ``FILODB_SIDECAR_APPROX=1``; over the local store
+  it has no pyramids, and the reference's cold tier bypasses them there
+  too.
 - ``TierExec`` runs one tier's exec subtree under a ``tier`` span with
   stats of its own and folds them into the query's twice: merged, and
   into ``QueryStats.tiers[tier]`` (subqueries, series, samples, chunks
   and bytes paged in from the column store, their decode and encode ms,
-  wall ms).
+  wall ms; the pyramid lane's level and byte counts). Bytes from an
+  object store are what it downloaded (``BYTES_DOWN``), as the
+  reference's buckets count them; from a local store, the ODP caches'
+  reads.
+- A cold tier lost to a transport fault raises (``ObjectStoreError`` or
+  the transport's error): the reference answers the other tiers as a
+  partial result, through partial scatter-gather, which the port does
+  not have yet (ROADMAP §C).
 - ``tier_status``: the retention tiers of a dataset's service, for
   ``GET /api/v1/status/tiers`` on both fronts.
 
 The planner that composes them is ``coordinator/tiered_planner.py``.
-Left for the object store (ROADMAP §A5): ``approx_topk`` and
-``approx_cardinality`` over pyramid sketches, and the pyramid cache.
 """
 
 from __future__ import annotations
@@ -32,7 +42,16 @@ from __future__ import annotations
 import time
 from dataclasses import dataclass
 
+import numpy as np
+
 from filodb_tpu_torch.core.downsample.dsstore import ReadOnlyStore
+from filodb_tpu_torch.core.store.api import pk_from_blob
+from filodb_tpu_torch.core.store.objectstore import (
+    BYTES_DOWN,
+    ObjectStoreColumnStore,
+)
+from filodb_tpu_torch.core.store.pyramid import make_pyramid_cache
+from filodb_tpu_torch.memory.sketches import HLLSketch, TopKSketch
 from filodb_tpu_torch.query.exec.plan import (
     ExecContext,
     NonLeafExecPlan,
@@ -108,13 +127,91 @@ class ColdTierStore(ReadOnlyStore):
                  odp_max_chunks: int = 10_000, refresh_s: float = 60.0):
         super().__init__(column_store, dataset, num_shards, OBJECTSTORE,
                          max_chunks=odp_max_chunks, refresh_s=refresh_s)
+        # None where the store publishes no pyramids: the lane bypasses
+        for sh in self.shards:
+            sh.pyramids = make_pyramid_cache(column_store, dataset,
+                                             sh.shard_num)
 
     def tier_stats(self) -> dict:
-        """{series, bytes, segments} for the status route; a local store
-        reports no bytes or segments (None), as the reference's does."""
+        """{series, bytes, segments} for the status route; bytes and
+        segments where the store can say them (the object store), else
+        None, as the reference's."""
         self.refresh()
-        return {"series": self.num_partitions, "bytes": None,
-                "segments": None}
+        out = {"series": self.num_partitions, "bytes": None,
+               "segments": None}
+        stats = getattr(self.column_store, "dataset_stats", None)
+        if stats is not None:
+            st = stats(self.dataset)
+            out["bytes"], out["segments"] = st["bytes"], st["segments"]
+        return out
+
+    def clear_caches(self) -> None:
+        """Drop the ODP and pyramid caches (a cold read again)."""
+        for sh in self.shards:
+            with sh.lock:
+                for t in sh.odp_cache.tables.values():
+                    t.columns["dead"][:] = True
+                    t.compact()
+                sh.odp_cache.forget(np.arange(sh.num_partitions))
+                sh.version += 1
+                if sh.pyramids is not None:
+                    sh.pyramids.clear()
+
+    # ------------------------------------------------------ the approx lane
+    def _merged_sketches(self) -> tuple[TopKSketch, HLLSketch]:
+        """(top-k, HLL) merged over every shard's pyramid footers: bucket
+        pyramids where there are, segment pyramids for the seqs no bucket
+        covers; no payload is read."""
+        topk = TopKSketch(capacity=256)
+        hll = HLLSketch()
+        for sh in self.shards:
+            if sh.pyramids is None:
+                raise RuntimeError(
+                    "approximate scans need a pyramid-publishing "
+                    "backend (ObjectStoreColumnStore)")
+            seqs, buckets = self.column_store.pyramid_index(self.dataset,
+                                                            sh.shard_num)
+            covered: set[int] = set()
+            for bkt, rec in buckets.items():
+                bp = sh.pyramids.bucket(int(bkt), int(rec["seq"]))
+                if bp is None:
+                    continue
+                covered.update(int(q) for q in bp["covers"])
+                topk.merge(bp["topk"])
+                hll.merge(bp["hll"])
+            for seq in seqs:
+                if seq in covered:
+                    continue
+                sp = sh.pyramids.segment(seq)
+                if sp is not None:
+                    topk.merge(sp["topk"])
+                    hll.merge(sp["hll"])
+        return topk, hll
+
+    def approx_topk(self, k: int = 10) -> list[dict]:
+        """``topk(k)`` of the per-series maxima over the whole cold
+        history, from the pyramids alone; declared approximate, so served
+        only under ``FILODB_SIDECAR_APPROX=1``."""
+        from filodb_tpu_torch.query.engine.sidecar_lane import approx_enabled
+
+        if not approx_enabled():
+            raise RuntimeError("approx_topk requires FILODB_SIDECAR_APPROX=1")
+        self.refresh()
+        topk, _ = self._merged_sketches()
+        return [{"labels": pk_from_blob(blob).label_map, "value": v}
+                for blob, v in topk.top(k)]
+
+    def approx_cardinality(self) -> float:
+        """The HyperLogLog estimate of the cold history's series (standard
+        error about 3.25 %), under the same declaration as
+        :meth:`approx_topk`."""
+        from filodb_tpu_torch.query.engine.sidecar_lane import approx_enabled
+
+        if not approx_enabled():
+            raise RuntimeError(
+                "approx_cardinality requires FILODB_SIDECAR_APPROX=1")
+        self.refresh()
+        return self._merged_sketches()[1].estimate()
 
 
 # ---------------------------------------------------------------------------
@@ -127,16 +224,21 @@ def _tier_bucket() -> dict:
 
 def _paging(stores) -> tuple[int, int, float]:
     """(chunks paged, bytes read, decode and encode seconds) summed over
-    the ODP caches of ``stores``' shards."""
+    the ODP caches of ``stores``' shards; bytes from an object store are
+    its downloads (``BYTES_DOWN``), counted once."""
     chunks = nbytes = 0
     secs = 0.0
+    objects = False
     for store in stores:
+        local = not isinstance(getattr(store, "column_store", None),
+                               ObjectStoreColumnStore)
+        objects = objects or not local
         for sh in store.shards:
             c = sh.odp_cache
             chunks += c.chunks_paged
-            nbytes += c.bytes_read
+            nbytes += c.bytes_read if local else 0
             secs += c.seconds["decode"] + c.seconds["encode"]
-    return chunks, nbytes, secs
+    return chunks, nbytes + (BYTES_DOWN.value if objects else 0), secs
 
 
 @dataclass
@@ -176,6 +278,9 @@ class TierExec(NonLeafExecPlan):
         b["bytes"] += nbytes
         b["decodeMs"] += secs * 1000.0
         b["wallMs"] += wall_s * 1000.0
+        # the pyramid lane's levels, so ``?stats=all`` shows which served
+        for k, v in sub.stats.pyramid.items():
+            b[k] = b.get(k, 0) + v
         return mats[0] if mats else StepMatrix.empty()
 
     def __repr__(self):

@@ -232,6 +232,10 @@ class QueryStats:
     # (``query/federation.py::TierExec``): tier → {subqueries, series,
     # samples, chunks, bytes, decodeMs, wallMs}; empty otherwise
     tiers: dict = field(default_factory=dict)
+    # the pyramid lane's attribution (``query/engine/pyramid_lane.py``):
+    # {bucketNodes, segmentNodes, chunkNodes, decodeNodes, pyramidBytes,
+    # payloadBytes} of its cold-tier folds; empty otherwise
+    pyramid: dict = field(default_factory=dict)
 
     def merge_counts(self, other: "QueryStats") -> None:
         """Fold a sub-query's counts into these (the extent cache folds
@@ -248,6 +252,8 @@ class QueryStats:
             mine = self.tiers.setdefault(tier, {})
             for k, v in bucket.items():
                 mine[k] = mine.get(k, 0) + v
+        for k, v in other.pyramid.items():
+            self.pyramid[k] = self.pyramid.get(k, 0) + v
 
 
 @dataclass

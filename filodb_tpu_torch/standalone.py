@@ -1,7 +1,11 @@
 """FiloServer: the standalone node.
 
 Port of ``filodb_tpu/standalone.py`` for one node in the coordinator role:
-local-disk column and meta stores at ``<data_dir>/columnstore``, a
+local-disk column and meta stores at ``<data_dir>/columnstore``, or with
+``store.backend = "object"`` the object-store tier
+(``core/store/objectstore.py::open_object_store``: a directory-backed
+``FakeS3`` under ``<data_dir>/objectstore`` or the ``store.endpoint``
+path, or an S3 service at an ``http(s)://`` endpoint), a
 ``SegmentedFileLog`` a shard at ``<wal_dir or data_dir/wal>/<dataset>/
 shard-<n>`` (the reference's layout, so either package's server serves a
 directory the other wrote), the cluster with this node (each shard
@@ -60,6 +64,9 @@ from filodb_tpu_torch.core.store.localstore import (
     LocalDiskColumnStore,
     LocalDiskMetaStore,
 )
+# imported whatever the backend, so the filodb_objectstore_* metric
+# families are registered at boot, as the reference's node registers them
+from filodb_tpu_torch.core.store.objectstore import open_object_store
 from filodb_tpu_torch.device import resolve
 from filodb_tpu_torch.gateway.server import ContainerSink, GatewayServer
 from filodb_tpu_torch.http.fastserver import FastHttpServer
@@ -79,9 +86,13 @@ class FiloServer:
         tracing.configure(**config.tracing)
         self.device = resolve(device)
         os.makedirs(config.data_dir, exist_ok=True)
-        root = os.path.join(config.data_dir, "columnstore")
-        self.column_store = LocalDiskColumnStore(root)
-        self.meta_store = LocalDiskMetaStore(root)
+        if config.store.get("backend") == "object":
+            self.column_store, self.meta_store = open_object_store(
+                config.store, config.data_dir)
+        else:
+            root = os.path.join(config.data_dir, "columnstore")
+            self.column_store = LocalDiskColumnStore(root)
+            self.meta_store = LocalDiskMetaStore(root)
         self.node = Node(config.node_name, self.column_store, self.meta_store)
         self.cluster = FilodbCluster()
         self.logs: dict[tuple[str, int], SegmentedFileLog] = {}

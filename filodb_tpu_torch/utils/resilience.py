@@ -11,15 +11,20 @@ Port of the single-node part of ``filodb_tpu/utils/resilience.py``:
   policy and partial scatter-gather read belong to remote dispatch
   (ROADMAP A7): ``configure`` raises ``NotImplementedError`` naming it
   where one of them is set away from its default.
+- :class:`RetryPolicy` and ``default_retry_policy``: exponential backoff
+  with jitter under a sleep budget (the object store's uploads and reads).
 - :class:`FaultInjector` — named fault sites that tests arm (the shard's
-  ``shard.ingest``).
+  ``shard.ingest``, the object store's ``objectstore.put``).
 """
 
 from __future__ import annotations
 
+import random
 import threading
 import time
 from dataclasses import dataclass, fields
+
+from filodb_tpu_torch.utils.metrics import get_counter
 
 
 class DeadlineExceeded(TimeoutError):
@@ -66,6 +71,58 @@ def check(deadline: "Deadline | None", what: str) -> None:
         deadline.check(what)
 
 
+_retries_total = get_counter("filodb_query_retries")
+
+
+@dataclass
+class RetryPolicy:
+    """Exponential backoff with full jitter under a total-sleep budget.
+    ``sleep`` and ``rng`` are injectable, so tests never wait on the
+    clock."""
+
+    max_attempts: int = 3
+    base_backoff_s: float = 0.05
+    max_backoff_s: float = 2.0
+    multiplier: float = 2.0
+    jitter: float = 0.5          # fraction of the backoff randomized
+    budget_s: float | None = None  # cap on total sleep across attempts
+    sleep: "callable" = time.sleep
+    rng: "callable" = random.random
+
+    def backoff(self, attempt: int) -> float:
+        """Backoff before retry number ``attempt`` (1-based)."""
+        raw = min(self.base_backoff_s * (self.multiplier ** (attempt - 1)),
+                  self.max_backoff_s)
+        return raw * (1.0 - self.jitter + self.jitter * self.rng())
+
+    def call(self, fn, retry_on: tuple = (ConnectionError, OSError),
+             deadline: Deadline | None = None, on_retry=None, site: str = ""):
+        """Run ``fn`` with retries; they stop when the attempts or the
+        sleep budget run out, or when the deadline cannot cover the next
+        backoff."""
+        slept = 0.0
+        attempt = 1
+        while True:
+            try:
+                return fn()
+            except retry_on as e:
+                if isinstance(e, DeadlineExceeded):
+                    raise  # never retry a timeout
+                delay = self.backoff(attempt)
+                if attempt >= self.max_attempts \
+                        or (self.budget_s is not None
+                            and slept + delay > self.budget_s) \
+                        or (deadline is not None
+                            and deadline.remaining() <= delay):
+                    raise
+                _retries_total.inc()
+                if on_retry is not None:
+                    on_retry(attempt, e)
+                self.sleep(delay)
+                slept += delay
+                attempt += 1
+
+
 @dataclass
 class ResilienceConfig:
     query_timeout_s: float = 30.0
@@ -110,6 +167,16 @@ def configure(**kw) -> ResilienceConfig:
     return _config
 
 
+def default_retry_policy(**kw) -> RetryPolicy:
+    """A policy from the config's retry keys, ``kw`` overriding them."""
+    c = _config
+    base = dict(max_attempts=c.retry_max_attempts,
+                base_backoff_s=c.retry_base_backoff_s,
+                max_backoff_s=c.retry_max_backoff_s)
+    base.update(kw)
+    return RetryPolicy(**base)
+
+
 def reset() -> None:
     """The default config (tests)."""
     _config.__dict__.update(ResilienceConfig().__dict__)
@@ -136,7 +203,8 @@ class Fault:
 class FaultInjector:
     """Process-global registry of named fault sites. The port fires
     ``shard.ingest`` (ctx: dataset, shard, offset) before a container is
-    ingested; a site that nothing armed costs one dict test."""
+    ingested and ``objectstore.put`` (ctx: key) before an object-store
+    upload; a site that nothing armed costs one dict test."""
 
     _faults: dict[str, list[Fault]] = {}
     _lock = threading.Lock()

@@ -21,7 +21,10 @@ blocks set away from their defaults and acted on; and the C++ ingest core
 shard, after which the process's ``/proc/self/maps`` holds the port's own
 ``libingestcore`` and no library under the JAX package's ``native/``; and
 long retention's (the downsampler job, the ds store, the cold tier, the
-tiered planner and ``TierExec``), through a query over three tiers.
+tiered planner and ``TierExec``), through a query over three tiers; and
+the object-store tier's (``objectstore``, ``pyramid``, ``sketches``,
+``fake_s3``, the pyramid lane), through a flush to a bucket, a cold query
+the pyramid lane serves and the approximate sketches.
 """
 
 import json
@@ -242,6 +245,39 @@ for q in ("sum(rate(http_requests_total[10m])) by (_ns_)",
     longterm.append([r.stats.engine, sorted(r.stats.tiers),
                      r.result.num_series])
 longterm.append(job["ds_chunks"] > 0)
+# the object-store tier: a flush to a directory-backed fake S3, a cold
+# query the pyramid lane serves, the approximate sketches
+import os
+from filodb_tpu_torch.core.store import objectstore, pyramid
+from filodb_tpu_torch.core.store.api import InMemoryMetaStore
+from filodb_tpu_torch.memory import sketches
+from filodb_tpu_torch.query.engine import pyramid_lane
+from filodb_tpu_torch.testing import fake_s3
+os_root = tempfile.mkdtemp()
+ocs, _ = objectstore.open_object_store({"endpoint": os_root}, os_root)
+ost = MemStore(2, spread=1, column_store=ocs, meta_store=InMemoryMetaStore())
+ost.ingest_series([{**lb, "_metric_": "load"} for lb in labels],
+                  np.tile(ts2, (n, 1)),
+                  np.round(rng.normal(5, 1, (n, T2)) * 64) / 64,
+                  schema="gauge")
+ost.flush_all(1_000)
+ocs.flush()
+osvc = QueryService(ost, device="cpu", engine="exec")
+osvc.planner = build_tiered_planner(
+    SingleClusterPlanner(2, 1), objectstore.ObjectStoreColumnStore(
+        fake_s3.FakeS3(root=os_root)), ost.dataset, 2, 1,
+    mem_retention_ms=1_800_000, now_ms=lambda: end2)
+r = osvc.query_range("max_over_time(load[3h])", end2 // 1000 - 1810, 60,
+                     end2 // 1000 - 1810)
+os.environ["FILODB_SIDECAR_APPROX"] = "1"
+cold = osvc.planner.cold_planner.store
+objrows = [sorted(r.stats.tiers), r.result.num_series,
+           r.stats.pyramid.get("chunkNodes", 0)
+           + r.stats.pyramid.get("segmentNodes", 0) > 0,
+           len(cold.approx_topk(3)), round(cold.approx_cardinality()),
+           objectstore.crc32c(b"123456789")]
+del os.environ["FILODB_SIDECAR_APPROX"]
+ocs.close()
 
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
@@ -255,7 +291,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "exec": exec_rows, "durable": durable, "node": node,
                   "memory": memory, "control": control,
                   "adaptive": adaptive_rows, "core": core,
-                  "longterm": longterm,
+                  "longterm": longterm, "objectstore": objrows,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -305,4 +341,6 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["core"] == [n, n, 0, True, [], True] and n > 0
     tiers = ["downsample", "memstore", "objectstore"]
     assert res["longterm"] == [["exec", tiers, 2], ["exec", tiers, 1], True]
+    assert res["objectstore"] == [["objectstore"], 12, True, 3, 12,
+                                  0xE3069283]
     assert res["loaded"] == []

@@ -817,3 +817,73 @@ def test_three_tier_query_on_card_equals_cpu(cuda, tmp_path):
         np.testing.assert_allclose(a.result.values, b.result.values,
                                    rtol=2e-5, atol=1e-6, equal_nan=True)
     assert all(_build.LAUNCHES.values()), _build.LAUNCHES
+
+
+def test_pyramid_lane_on_card_equals_cpu(cuda, tmp_path):
+    """Cold-tier queries over an object store through the pyramid lane on
+    the card against the same planner with device="cpu": the edge chunks
+    decode by B1/B2 on the card, the answers agree, and modes 1 and decode
+    agree bit for bit on the card."""
+    import os
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.coordinator.planner import SingleClusterPlanner
+    from filodb_tpu_torch.coordinator.tiered_planner import (
+        build_tiered_planner,
+    )
+    from filodb_tpu_torch.core.store.objectstore import (
+        ObjectStoreColumnStore,
+        open_object_store,
+    )
+    from filodb_tpu_torch.testing.fake_s3 import FakeS3
+
+    root = str(tmp_path / "bucket")
+    cs, meta = open_object_store({"endpoint": root}, str(tmp_path))
+    store = MemStore(4, 1, column_store=cs, meta_store=meta)
+    rng = np.random.default_rng(4)
+    n, T = 200, 2160
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    counters = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+    labels = [{"_metric_": "m", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    store.ingest_series(labels, ts, counters)
+    store.flush_all(1_000)
+    cs.flush()
+    now = 1_600_000_000_000 + T * 10_000
+
+    def planner():
+        return build_tiered_planner(
+            SingleClusterPlanner(4, 1), ObjectStoreColumnStore(
+                FakeS3(root=root)), store.dataset, 4, 1,
+            mem_retention_ms=3_600_000, now_ms=lambda: now)
+
+    gpu, cpu = QueryService(store, cuda), QueryService(store, "cpu")
+    gpu.planner, cpu.planner = planner(), planner()
+    end = now // 1000
+    for q, a, step, b in (
+            ("max_over_time(m[3h])", end - 3 * 3600, 900, end - 3600),
+            ("sum(rate(m[15m])) by (_ns_)", end - 6 * 3600, 60, end),
+            ("avg_over_time(m[40m])", end - 5 * 3600, 700, end - 3600)):
+        _build.reset_counts()
+        x = gpu.query_range(q, a, step, b)
+        assert x.stats.pyramid and not x.stats.sidecar_bypassed.get(
+            "values float32 does not hold")
+        assert _build.LAUNCHES["decode_ts_page"] \
+            and _build.LAUNCHES["decode_f32_page"]
+        y = cpu.query_range(q, a, step, b)
+        assert x.result.keys == y.result.keys
+        np.testing.assert_allclose(np.asarray(x.result.values),
+                                   np.asarray(y.result.values), rtol=2e-5,
+                                   atol=1e-6, equal_nan=True, err_msg=q)
+        outs = []
+        for mode in ("1", "decode"):
+            os.environ["FILODB_SIDECARS"] = mode
+            try:
+                gpu.planner = planner()
+                outs.append(np.asarray(gpu.query_range(q, a, step,
+                                                       b).result.values))
+            finally:
+                del os.environ["FILODB_SIDECARS"]
+        assert outs[0].tobytes() == outs[1].tobytes(), q
+    cs.close()

@@ -117,7 +117,6 @@ UNSUPPORTED = [
     {"wal_server_port": 9093},
     {"store_remote": "127.0.0.1:9094"},
     {"store_server_port": 9095},
-    {"store": {"backend": "object"}},
     {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
     {"selfmon": {"enabled": True}},
     {"resilience": {"retry_max_attempts": 5}},
@@ -125,9 +124,11 @@ UNSUPPORTED = [
 ]
 
 # blocks the port acts on since its control plane came (and, since long
-# retention came, ``downsample`` and ``federation``); until then
+# retention came, ``downsample`` and ``federation``; since the object
+# store came, ``store.backend``); until then
 # ``test_unsupported_options_raise`` held that each of them raised
 ACTED_ON = [
+    {"store": {"backend": "object"}},
     {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
     {"federation": {"mem_retention_ms": 60000}},
     {"governor": {"max_samples_scanned": 100}},
@@ -172,6 +173,12 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
     try:
         (block, kv), = override.items()
         (key, value), = kv.items()
+        if block == "store":
+            from filodb_tpu_torch.core.store.objectstore import (
+                ObjectStoreColumnStore,
+            )
+            assert isinstance(srv.column_store, ObjectStoreColumnStore)
+            return
         if block in ("datasets", "federation"):
             # the long-time planner over the raw one, or the tiered one
             from filodb_tpu_torch.coordinator.longtime_planner import (
