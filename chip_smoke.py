@@ -264,6 +264,30 @@ checks it, phase by phase; any failed phase exits non-zero:
    atol 1e-6); ``approx_topk`` and ``approx_cardinality`` under
    ``FILODB_SIDECAR_APPROX=1`` must read no payload, find the largest value
    and count the series within 10 %.
+20. Standing queries, in two steps. Step 1, on the phase-2 store
+   after phase 17 (before its service goes): a ``RuleManager`` a group
+   over a ``MemstoreSink``, a 60 s group (``sum(rate) by (_ns_)``
+   recorded, and an alert on it above the median of its fresh-start
+   values with ``for: 1m``) and a 10 s group (``sum(sum_over_time[1m]) by
+   (job)`` recorded); the fresh-start ticks, 12 scrapes of every series
+   through the C++ pass with the 60 s group ticked after every sixth and
+   the 10 s group once at the end (a catch-up of 12 steps), an idle tick
+   that must evaluate nothing; each tick's ms, steps, lanes and launches
+   printed (the ticks must launch a kernel); the recorded series equal to
+   the expressions polled over the recorded steps (rtol 2e-5, atol 1e-9),
+   the alerts pending or firing as the steps' values give them, and a
+   second manager a group that recovers each watermark and the alert
+   states and evaluates and skips nothing. Step 2, after phase 12's node
+   stopped: a node over phase 11's directory with ``rules.groups``,
+   ``selfmon`` (every second) and ``rules.notify.webhook_url`` pointing at
+   a receiver in the script; remote read of 100 series equal to the
+   shards' exact samples, a scrape of them 60 s on, then the group's
+   alerts firing in ``/api/v1/alerts`` and at the webhook,
+   ``/api/v1/rules``, ``status/tsdb``, ``status/mesh``, ``status/ingest``'s
+   rules lag, ``?stats=all`` with ``decodeMs`` and ``reduceMs`` above 0,
+   and ``max(filodb_ingest_lag_seconds)`` from ``_meta``; then a restart
+   on the same directory, where the group must resume at its watermark,
+   and after two more steps hold one recorded sample a step a namespace.
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -271,7 +295,8 @@ Its last two lines are a JSON object with the kernels' numbers and
 ``--durability-only``: phases 1, 11, 12 and 13; ``--host-only``: phases 1
 and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
 phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
-``--objectstore-only``: phases 1 and 19).
+``--objectstore-only``: phases 1 and 19; ``--rules-only``: phases 1, 2,
+11 and 20).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2094,8 +2119,9 @@ DURABLE_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
 # keep the smoke with phase 13 well inside its limit on the card's slower
 # hosts, then to 100,000 when phase 16 came: at 150,000 the whole smoke
 # took 1,203 s of its 1,200 s on a host 18 % slower in phase 2's ingest
-# than the run before (PERF.md §4)
-DURABLE_SERIES = 100_000
+# than the run before, then to 50,000 when phase 20 came, whose node boots
+# twice over the same directory (PERF.md §4)
+DURABLE_SERIES = 50_000
 DURABLE_HIST = f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))"
 DURABLE_HIST_SERIES = 10_000  # App-0..App-9, 1,000 histograms each
 DURABLE_END_S = END_S + 60    # 2 h plus the new scrape, at 60 s
@@ -2401,8 +2427,10 @@ def durability_phase(dev, args) -> dict:
     return out
 
 
-def durable_and_node(dev, args) -> tuple[dict, dict]:
-    """Phases 11 and 12 over one directory, then its removal."""
+def durable_and_node(dev, args, rules: bool = False) -> tuple:
+    """Phases 11 and 12 over one directory, with ``rules`` phase 20's
+    node after phase 12's, then its removal: (phase 11, phase 12, phase
+    20 step 2 or None)."""
     import gc
 
     import torch
@@ -2412,8 +2440,13 @@ def durable_and_node(dev, args) -> tuple[dict, dict]:
     torch.cuda.empty_cache()
     node = node_phase(dev, args, durable)
     del durable["scrape"], durable["bodies"]
+    rules_node = None
+    if rules:
+        gc.collect()
+        torch.cuda.empty_cache()
+        rules_node = rules_node_phase(dev, args)
     node["bytes_freed"] = remove_dir(args.durable_dir)
-    return durable, node
+    return durable, node, rules_node
 
 
 def remove_dir(root) -> int:
@@ -2534,8 +2567,9 @@ def boot_node(path: str, dev, what: str) -> tuple:
         raise AssertionError(f"phase 12: {what}: shards not ACTIVE: "
                              f"{srv.cluster.shard_statuses(NODE_DS)}")
     boot_s = time.perf_counter() - t
-    rec = srv.node.recovery
-    workers = srv.node._workers.values()
+    # the dataset's shards (a node with selfmon has _meta's too)
+    rec = {k: r for k, r in srv.node.recovery.items() if k[0] == NODE_DS}
+    workers = [w for k, w in srv.node._workers.items() if k[0] == NODE_DS]
     shards = srv.node.memstores[NODE_DS].shards
     out = {"boot_s": boot_s, "start_s": started,
            "index_s": sum(r["index_s"] for r in rec.values()),
@@ -3490,9 +3524,9 @@ def host_lane_phase(dev, args) -> dict:
 # queries one at a time, five data ranges in turn, rebuilt a batch for
 # nearly every query (the phase ran past 20 minutes); then from 250,000
 # to 150,000 and, when phase 16 came to run on this store, to 100,000
-# (phase 11's count), to keep the smoke well inside its limit (PERF.md
-# §4)
-SERVING_SERIES = 100_000
+# (phase 11's count), then to 50,000 when phase 20 came, to keep the
+# smoke well inside its limit (PERF.md §4)
+SERVING_SERIES = 50_000
 SERVING_BATCH = 100
 SERVING_SHIFTS = 5
 SERVING_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
@@ -4165,10 +4199,11 @@ def lane_split(svc, end: int) -> dict:
     return out
 
 
-def ingest_core_phase(svc, args) -> dict:
+def ingest_core_phase(svc, args, keep: dict | None = None) -> dict:
     """Phase 17: scrapes through the C++ ingest core at full width, the
     buffers checked, a query and the sidecar instants over them, then the
-    seal wave."""
+    seal wave. ``keep`` (a dict) gets the container templates and each
+    shard's last counter values, from which phase 20 scrapes on."""
     from concurrent.futures import ThreadPoolExecutor
 
     from filodb_tpu_torch import _build
@@ -4214,6 +4249,8 @@ def ingest_core_phase(svc, args) -> dict:
     if kept != CORE_SCRAPES * n_series:
         raise AssertionError(f"phase 17: {kept} samples kept of "
                              f"{CORE_SCRAPES * n_series} sent")
+    if keep is not None:
+        keep.update(temps=temps, last=[v[-1] for _, v, _ in sent])
     out = {"series": n_series, "scrapes": CORE_SCRAPES,
            "container_records": CORE_CONTAINER, "template_s": build_s,
            "rows": kept, "rows_per_s": kept / sum(wall),
@@ -4316,7 +4353,7 @@ _SMOKE_SERVICE = []
 # are not: the 10 s scrape, the 5 m and 1 h resolutions, the label sets.
 LT_DS = "timeseries"
 LT_SAMPLES = 2160               # 6 h at 10 s
-LT_SERIES = 5_000               # counters in the full smoke
+LT_SERIES = 2_500               # counters in the full smoke (PERF.md §4)
 LT_SERIES_ALONE = 100_000       # counters under --longterm-only
 LT_GAUGES = 4                   # counters a load-average series
 LT_RESOLUTIONS = (300_000, 3_600_000)
@@ -4777,7 +4814,8 @@ def _lt_same(got, want, what: str, check: bool = True) -> dict:
 # cold tier the rest: no downsample tier) and its queries. The series and
 # the history are cut (PERF.md §4), the widths and the store's defaults
 # are not.
-OS_SERIES = 10_000              # counters in the full smoke
+# counters in the full smoke: cut from 10,000 for phase 20's room
+OS_SERIES = 2_500
 OS_SERIES_ALONE = 100_000       # counters under --objectstore-only
 OS_MEM_RETENTION_MS = 3_600_000
 OS_WARM = 2
@@ -5088,6 +5126,611 @@ def _os_tiered_local(store, now_ms: int):
         odp_max_chunks=LT_ODP_CHUNKS, now_ms=lambda: now_ms)
 
 
+# phase 20: standing queries. Step 1 runs two rule groups over the phase-2
+# store (after phase 17's seal wave; under --rules-only after phase 2 and
+# the same seal wave) through a MemstoreSink: a 60 s group (RULE_RATE
+# recorded, and an alert on it above the median of its fresh-start values,
+# for: 1m) and a 10 s group (RULE_SUM recorded); a fresh-start tick of
+# each, RULE_SCRAPES scrapes of every series through the C++ pass (phase
+# 17's templates) with the 60 s group ticked after every sixth and the
+# 10 s group once at the end (a catch-up of 12 steps), an idle tick, then
+# the recorded series against the expressions polled over the recorded
+# steps, the alerts' states, and a second manager a group that must
+# recover each watermark and evaluate nothing. Step 2 boots a node over
+# phase 11's directory (after phase 12's node stopped) with rules.groups,
+# selfmon and a webhook, checks the new routes over HTTP, restarts it and
+# checks that the group resumed at its watermark with no gap and no
+# double write.
+RULE_RATE = f"sum(rate({M}[5m])) by (_ns_)"
+RULE_SUM = f"sum(sum_over_time({M}[1m])) by (job)"
+REC_RATE = "ns:http_requests:rate5m"
+REC_SUM = "job:http_requests:sum1m"
+RULE_SCRAPES = 12
+RULE_NODE_SERIES = 100          # the series phase 20's node scrapes and reads
+RULE_BUDGET_S = 90.0            # the phase's share of the smoke's limit
+
+
+def _rule_scrape(store, temps, last, rng, base_ms: int, k: int) -> None:
+    """Scrape ``k`` (1-based) of every series at ``base_ms`` + 10 s k with
+    the generator's jitter, each counter from ``last`` on (updated)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    for x, v in zip(temps, last):
+        P = len(x["keys"])
+        v += rng.integers(0, 20, P)
+        _patch(x["buf"], x["ts_off"], base_ms + 10_000 * k
+               + rng.integers(-500, 501, P))
+        _patch(x["buf"], x["val_off"], v)
+    with ThreadPoolExecutor(len(temps)) as pool:
+        done = list(pool.map(
+            lambda sx: _scrape(sx[0], sx[1], sx[0].latest_offset + 1),
+            zip(store.shards, temps)))
+    sent = sum(len(x["keys"]) for x in temps)
+    if sum(n for n, _ in done) != sent:
+        raise AssertionError(f"phase 20: scrape {k}: "
+                             f"{sum(n for n, _ in done)} of {sent} kept")
+
+
+class _RuleTicks:
+    """Each rule tick of the phase: the manager's evaluations, wall ms,
+    the lane and ms of each of its queries and the kernels' launches."""
+
+    def __init__(self, svc):
+        from filodb_tpu_torch.query.engine import sidecar_lane
+
+        self.svc, self.lane, self.rows = svc, sidecar_lane, []
+        self._served = []
+        self._query = svc.query_range
+
+        def recorded(promql, start, step, end, qcontext=None):
+            served = sidecar_lane.SIDECAR_SERVED.value
+            t = time.perf_counter()
+            res = self._query(promql, start, step, end, qcontext)
+            self._served.append((
+                "sidecar" if sidecar_lane.SIDECAR_SERVED.value > served
+                else res.stats.engine,
+                round((time.perf_counter() - t) * 1000.0, 1)))
+            return res
+
+        svc.query_range = recorded
+
+    def close(self) -> None:
+        del self.svc.query_range  # the class's method again
+
+    def tick(self, mgr, what: str) -> int:
+        from filodb_tpu_torch import _build
+
+        g = mgr.groups[0]
+        before = mgr._state[g.name].last_step
+        self._served = []
+        launched = dict(_build.LAUNCHES)
+        t = time.perf_counter()
+        n = mgr.tick()
+        ms = (time.perf_counter() - t) * 1000.0
+        wm = mgr._state[g.name].last_step
+        steps = 0 if before is None or wm is None \
+            else (wm - before) // g.interval_ms
+        row = {"tick": what, "group": g.name, "evaluated": n,
+               "steps": steps if before is not None else int(n > 0),
+               "ms": ms, "queries": list(self._served),
+               "launches": {k: v - launched[k]
+                            for k, v in _build.LAUNCHES.items()},
+               "watermark": wm,
+               "error": mgr._state[g.name].last_error}
+        self.rows.append(row)
+        log(f"  {what}: {g.name} evaluated {n} (rule, step) pairs over "
+            f"{row['steps']} step(s) in {ms:.1f} ms; its queries' lanes and "
+            f"ms {row['queries']}; launches {row['launches']}; watermark "
+            f"{wm}"
+            + (f"; error {row['error']}" if row["error"] else ""))
+        if row["error"]:
+            raise AssertionError(f"phase 20: {what}: {row['error']}")
+        return n
+
+
+def _written(store, metric: str, label: str, start_ms: int, step_ms: int,
+             end_ms: int) -> dict:
+    """The rule outputs ``metric`` as written, read from the shards (their
+    exact float64 samples, no query engine): {label value: values at the
+    steps [start, end], NaN where none}."""
+    from filodb_tpu_torch.core.filters import ColumnFilter, Equals
+
+    steps = np.arange(start_ms, end_ms + 1, step_ms)
+    out = {}
+    for shard in store.shards:
+        pids = shard.lookup_partitions(
+            [ColumnFilter("_metric_", Equals(metric))], start_ms, end_ms)
+        if not len(pids):
+            continue
+        row, ts, vals = shard.exact_samples(pids, start_ms, end_ms)
+        for i, pid in enumerate(pids.tolist()):
+            got = np.full(len(steps), np.nan)
+            sel = row == i
+            at = np.searchsorted(steps, ts[sel])
+            if (steps[np.minimum(at, len(steps) - 1)] != ts[sel]).any():
+                raise AssertionError(f"phase 20: {metric} written off its "
+                                     f"steps")
+            got[at] = vals[sel]
+            out[shard.keys[pid].label_map.get(label)] = got
+    return out
+
+
+def _poll_next(svc, g, wm, polled: dict, label: str) -> float:
+    """Poll the first rule of group ``g`` over the steps its next tick will
+    evaluate (from its watermark ``wm``, None for a fresh start, to the
+    last step the ingest horizon completed; no out-of-order allowance),
+    into ``polled`` {label value: {step: value}}. Run just before the tick,
+    at the store's version the tick reads, the poll leaves the tick's leaf
+    batches warm. Returns its ms."""
+    horizon = min(sh.max_ingested_ts for sh in svc.memstore.shards)
+    last = horizon // g.interval_ms * g.interval_ms
+    first = last if wm is None else wm + g.interval_ms
+    t = time.perf_counter()
+    res = svc.query_range(g.rules[0].expr, first // 1000,
+                          g.interval_ms // 1000, last // 1000)
+    ms = (time.perf_counter() - t) * 1000.0
+    vals = np.asarray(res.result.values, dtype=float)
+    steps = np.asarray(res.result.steps_ms).tolist()
+    for j, k in enumerate(res.result.keys):
+        polled.setdefault(dict(k.labels).get(label), {}).update(
+            zip(steps, vals[j].tolist()))
+    return ms
+
+
+def _recorded_equal(store, record: str, expr: str, label: str, polled: dict,
+                    start_ms: int, step_ms: int, end_ms: int) -> dict:
+    """The recorded series as written against ``polled``, ``expr`` polled
+    over the recorded steps, at the reference's rule tolerance
+    (``tests/test_rules.py``: rtol 2e-5, atol 1e-9)."""
+    t = time.perf_counter()
+    rec = _written(store, record, label, start_ms, step_ms, end_ms)
+    if set(polled) != set(rec) or not polled:
+        raise AssertionError(f"phase 20: {record}: series {sorted(rec)[:5]} "
+                             f"against polled {sorted(polled)[:5]}")
+    worst = 0.0
+    for k, at in polled.items():
+        want = np.array([at.get(t, np.nan) for t in range(
+            start_ms, end_ms + 1, step_ms)])
+        got = rec[k]
+        if not np.array_equal(np.isnan(got), np.isnan(want)) \
+                or not np.allclose(got, want, rtol=2e-5, atol=1e-9,
+                                   equal_nan=True):
+            raise AssertionError(f"phase 20: {record}{{{label}={k}}}: "
+                                 f"{got} against polled {want}")
+        fin = np.isfinite(want)
+        if fin.any():
+            worst = max(worst, float(np.max(np.abs(got[fin] - want[fin])
+                                            / np.maximum(np.abs(want[fin]),
+                                                         1e-30))))
+    steps = (end_ms - start_ms) // step_ms + 1
+    log(f"  {record}: {len(polled)} series x {steps} steps as written equal "
+        f"to {expr} polled (max rel err {worst:.3g}); read in "
+        f"{time.perf_counter() - t:.1f} s")
+    return {"series": len(polled), "steps": steps, "max_rel_err": worst,
+            "values": rec}
+
+
+def rules_phase(svc, args, keep: dict | None = None) -> dict:
+    """Phase 20 step 1 (see the comment above ``RULE_RATE``); ``keep`` is
+    phase 17's (the templates and the last counter values), else they are
+    made here and the store sealed as phase 17 seals it. The ticks and the
+    polls run with ``FILODB_SIDECAR_SEALED_GATE=0``: at 250,000 sealed
+    partitions a shard the lane's static gate sends a one-step tick to the
+    decode lane, which packs every series' last chunk again after each
+    write (16.5-66.1 s a tick at 1 M series, PERF.md)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from filodb_tpu_torch.rules import (
+        AlertingRule,
+        MemstoreSink,
+        RecordingRule,
+        RuleGroup,
+        RuleManager,
+    )
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.rules import manager as mgr_mod
+
+    t_phase = time.perf_counter()
+    store = svc.memstore
+    log(f"phase 20: standing queries over the phase-2 store "
+        f"({sum(sh.num_partitions for sh in store.shards)} series)")
+    if keep:
+        temps, last = keep["temps"], [v.copy() for v in keep["last"]]
+    else:
+        temps = scrape_templates(store)
+        last = []
+        for shard, x in zip(store.shards, temps):
+            rows = shard.buffers.slot[:len(x["keys"])]
+            last.append(shard.buffers.vals[rows, shard.buffers.n[rows] - 1]
+                        .copy())
+        t = time.perf_counter()
+        with ThreadPoolExecutor(len(temps)) as pool:
+            list(pool.map(lambda sh: sh.seal(np.arange(sh.num_partitions)),
+                          store.shards))
+        log(f"  templates made and the store sealed (as phase 17's seal "
+            f"wave) in {time.perf_counter() - t:.1f} s")
+    last = [np.where(np.isnan(v), 0.0, v) for v in last]
+    gate = valves(FILODB_SIDECAR_SEALED_GATE="0")
+    g60 = RuleGroup("smoke_60s", 60_000, store.dataset,
+                    (RecordingRule(REC_RATE, RULE_RATE),))
+    g10 = RuleGroup("smoke_10s", 10_000, store.dataset,
+                    (RecordingRule(REC_SUM, RULE_SUM),))
+    # the threshold: the median of the fresh-start step's values, polled
+    # before the group (with its alert) is made
+    polled = {REC_RATE: {}, REC_SUM: {}}
+    with gate:
+        out = {"polls_ms": [_poll_next(svc, g60, None, polled[REC_RATE],
+                                       "_ns_")]}
+    thr = round(float(np.median([v for at in polled[REC_RATE].values()
+                                 for v in at.values()])), 6)
+    # the alert on the recorded series, a rule after it in the group
+    g60 = RuleGroup("smoke_60s", 60_000, store.dataset, (
+        RecordingRule(REC_RATE, RULE_RATE),
+        AlertingRule("SmokeRateHigh", f"{REC_RATE} > {thr:.6f}",
+                     for_ms=60_000)))
+    sink = MemstoreSink(store, store.dataset, store.num_shards, store.spread)
+
+    def managers():
+        m60 = RuleManager(svc, sink, [g60], ooo_allowance_ms=0)
+        m10 = RuleManager(svc, sink, [g10], ooo_allowance_ms=0)
+        # two managers over one service: the cache's floor is the lower
+        svc.rules_horizon_floor = lambda: min(m60.horizon_floor(),
+                                              m10.horizon_floor())
+        return m60, m10
+
+    m60, m10 = managers()
+    ticks = _RuleTicks(svc)
+    out["threshold"] = thr
+    # the phase's launches: the polls and the ticks (a tick after its poll
+    # finds the poll's batches and windows, and launches only what is new)
+    _build.reset_counts()
+
+    def poll(mgr, rec, label):
+        g = mgr.groups[0]
+        out["polls_ms"].append(_poll_next(svc, g, mgr._state[g.name].last_step,
+                                          polled[rec], label))
+
+    try:
+        with gate:
+            ticks.tick(m60, "fresh start")
+            poll(m10, REC_SUM, "job")
+            ticks.tick(m10, "fresh start")
+            first60, first10 = (m._state[g.name].last_step
+                                for m, g in ((m60, g60), (m10, g10)))
+            rng = np.random.default_rng(args.seed + 20)
+            # the scrapes go on from the last 10 s grid point sampled
+            base = (max(sh.max_ingested_ts for sh in store.shards) + 500) \
+                // 10_000 * 10_000
+            scrape_s = 0.0
+            for k in range(1, RULE_SCRAPES + 1):
+                ts = time.perf_counter()
+                _rule_scrape(store, temps, last, rng, base, k)
+                scrape_s += time.perf_counter() - ts
+                if k % 6 == 0:
+                    poll(m60, REC_RATE, "_ns_")
+                    ticks.tick(m60, f"after scrape {k}")
+            poll(m10, REC_SUM, "job")
+            ticks.tick(m10, f"catch-up after {RULE_SCRAPES} scrapes")
+            out["scrapes_s"] = scrape_s
+            idle = ticks.tick(m60, "idle") + ticks.tick(m10, "idle")
+            if idle:
+                raise AssertionError(f"phase 20: the idle ticks evaluated "
+                                     f"{idle}")
+            wm60, wm10 = m60._state[g60.name].last_step, \
+                m10._state[g10.name].last_step
+            caught = (wm10 - first10) // 10_000
+            if caught != (min(sh.max_ingested_ts for sh in store.shards)
+                          // 10_000 * 10_000 - first10) // 10_000 \
+                    or caught < RULE_SCRAPES:
+                raise AssertionError(f"phase 20: the 10 s group caught up "
+                                     f"{caught} steps")
+    finally:
+        ticks.close()
+    rows = ticks.rows
+    out["ticks"] = rows
+    out["launches"] = dict(_build.LAUNCHES)
+    tick_launches = {k: sum(r["launches"][k] for r in rows)
+                     for k in out["launches"]}
+    if svc.device.type == "cuda" and not any(tick_launches.values()):
+        raise AssertionError("phase 20: the rule ticks launched no kernel")
+    rec = _recorded_equal(store, REC_RATE, RULE_RATE, "_ns_",
+                          polled[REC_RATE], first60, 60_000, wm60)
+    out["recorded"] = {
+        REC_RATE: rec,
+        REC_SUM: _recorded_equal(store, REC_SUM, RULE_SUM, "job",
+                                 polled[REC_SUM], first10, 10_000, wm10)}
+    log(f"  the polls before the ticks: {[round(x) for x in out['polls_ms']]}"
+        f" ms (each at the version and grid of the tick after it)")
+    # the alerts: pending at the first step a namespace is above the
+    # threshold, firing a step (for: 1m) later
+    above = {ns: v > thr for ns, v in rec.pop("values").items()}
+    out["recorded"][REC_SUM].pop("values")
+    states = m60._state[g60.name].alert_states["SmokeRateHigh"]
+    got = {dict(k)["_ns_"]: st.firing for k, st in states.items()}
+    want = {ns: bool(a[-2]) for ns, a in above.items() if a[-1]}
+    if got != want:
+        raise AssertionError(f"phase 20: alert states "
+                             f"{sorted(got.items())[:5]} against "
+                             f"{sorted(want.items())[:5]}")
+    firing = sum(got.values())
+    if not firing:
+        raise AssertionError("phase 20: no alert fired")
+    out["alerts"] = {"firing": firing, "pending": len(got) - firing,
+                     "above": [int(sum(a[j] for a in above.values()))
+                               for j in range(3)],
+                     "transitions": mgr_mod.alerts_transitions.value}
+    log(f"  alerts over {thr:.6f}: {firing} firing, {len(got) - firing} "
+        f"pending of {len(above)} namespaces (above at each step: "
+        f"{out['alerts']['above']}); the states the steps' values give")
+    # a restart: fresh managers on the same store recover each watermark
+    skipped = mgr_mod.rules_steps_skipped.value
+    n60, n10 = managers()
+    t = time.perf_counter()
+    with gate:
+        again = n60.tick() + n10.tick()
+    out["recovery_ms"] = (time.perf_counter() - t) * 1000.0
+    got_wm = (n60._state[g60.name].last_step, n10._state[g10.name].last_step)
+    if again or got_wm != (wm60, wm10) \
+            or mgr_mod.rules_steps_skipped.value != skipped:
+        raise AssertionError(f"phase 20: recovery evaluated {again}, "
+                             f"watermarks {got_wm} against {(wm60, wm10)}")
+    rec_states = n60._state[g60.name].alert_states["SmokeRateHigh"]
+    if {dict(k)["_ns_"]: s.firing for k, s in rec_states.items()} != got:
+        raise AssertionError("phase 20: the recovered alert states differ")
+    del svc.rules_horizon_floor
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  a second manager a group recovered both watermarks and the "
+        f"alert states in {out['recovery_ms']:.1f} ms, evaluated and "
+        f"skipped nothing; launches in the ticks {tick_launches}, with the "
+        f"polls {out['launches']}; step 1 "
+        f"took {out['seconds']:.1f} s (the phase's share "
+        f"{RULE_BUDGET_S:.0f} s)")
+    return out
+
+
+def _webhook():
+    """A local HTTP receiver of alert notifications: (server, bodies)."""
+    import http.server
+    import threading
+
+    bodies = []
+
+    class Hook(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            bodies.append(json.loads(self.rfile.read(
+                int(self.headers["Content-Length"]))))
+            self.send_response(200)
+            self.send_header("Content-Length", "0")
+            self.end_headers()
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Hook)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, bodies
+
+
+def _rules_node_config(root: str, hook_port: int) -> str:
+    """Phase 20's node: phase 12's config with the 60 s group (its alert
+    over 0: every namespace with a positive rate), selfmon every second
+    and the webhook."""
+    path = node_config(root)
+    conf = json.loads(Path(path).read_text())
+    conf["rules"] = {
+        "tick_s": 0.5,
+        "groups": [{"name": "smoke_60s", "interval": "60s", "rules": [
+            {"record": REC_RATE, "expr": RULE_RATE},
+            {"alert": "SmokeRateUp", "expr": f"{RULE_RATE} > 0",
+             "for": "1m", "annotations": {"summary": "requests flow"}}]}],
+        "notify": {"webhook_url": f"http://127.0.0.1:{hook_port}/alerts",
+                   "timeout_s": 5.0}}
+    conf["selfmon"] = {"enabled": True, "interval_s": 1}
+    Path(path).write_text(json.dumps(conf))
+    return path
+
+
+def _wait(what: str, pred, timeout_s: float = 120.0):
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        got = pred()
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"phase 20: {what}: not in {timeout_s} s")
+        time.sleep(0.1)
+
+
+def _group_wm(port: int, name: str = "smoke_60s"):
+    code, body, _ = http_get(port, "/api/v1/rules")
+    for g in json.loads(body)["data"]["groups"] if code == 200 else []:
+        if g["name"] == name:
+            return g["watermark"]
+    return None
+
+
+def _node_scrape(srv, series, dt_ms: int) -> None:
+    """One sample each of ``series`` ((labels, ts, value) a series, the
+    last sent) ``dt_ms`` later, as Influx lines; waits until ingested."""
+    import socket
+
+    lines = []
+    for i, (labels, ts, v) in enumerate(series):
+        ts, v = ts + dt_ms, v + 5.0
+        series[i] = (labels, ts, v)
+        tags = ",".join(f"{a}={b}" for a, b in labels if a != "_metric_")
+        lines.append(f"{M},{tags} counter={v!r} {ts * 1_000_000}\n")
+    with socket.create_connection(("127.0.0.1", srv.gateway.port)) as c:
+        c.sendall("".join(lines).encode())
+    workers = [w for (ds, _), w in srv.node._workers.items() if ds == NODE_DS]
+    _wait("the scrape ingested", lambda: srv.gateway.sink.flush() or all(
+        w.offset >= w.log.latest_offset for w in workers))
+
+
+def rules_node_phase(dev, args) -> dict:
+    """Phase 20 step 2 (see the comment above ``RULE_RATE``)."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.http import remote_read as rr
+
+    t_phase = time.perf_counter()
+    log("phase 20, step 2: a node with rules.groups, selfmon and a webhook "
+        "over phase 11's directory")
+    hook, posts = _webhook()
+    path = _rules_node_config(args.durable_dir, hook.server_address[1])
+    out = {}
+    srv, out["boot1"] = boot_node(path, dev, "boot 1")
+    try:
+        port = srv.http.port
+        wm0 = _wait("the fresh-start tick", lambda: _group_wm(port))
+        # the node's 100 series instance-0..99 through remote read, each
+        # against the shard's exact reader
+        req = rr._ld(1, rr._key(1, 0) + rr._varint(0) + rr._key(2, 0)
+                     + rr._varint(2**62)
+                     + rr._ld(3, rr._ld(2, b"__name__") + rr._ld(3, M.encode()))
+                     + rr._ld(3, rr._key(1, 0) + rr._varint(2)
+                              + rr._ld(2, b"instance")
+                              + rr._ld(3, b"instance-[0-9]{1,2}")))
+        import urllib.request
+
+        t = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                f"http://127.0.0.1:{port}/promql/{NODE_DS}/api/v1/read",
+                data=req, method="POST"), timeout=900) as r:
+            enc, payload = r.headers["Content-Encoding"], r.read()
+        out["remote_read_ms"] = (time.perf_counter() - t) * 1000.0
+        series, n_samples = [], 0
+        for _, _, qr in rr._iter_fields(rr.maybe_decompress(payload)):
+            for _, _, msg in rr._iter_fields(qr):
+                labels, ts, vals = {}, [], []
+                for f, _, v in rr._iter_fields(msg):
+                    if f == 1:
+                        kv = {a: x.decode() for a, _, x in rr._iter_fields(v)}
+                        labels["_metric_" if kv[1] == "__name__"
+                               else kv[1]] = kv[2]
+                    else:
+                        s = dict((a, x) for a, _, x in rr._iter_fields(v))
+                        vals.append(np.frombuffer(s[1], np.float64)[0])
+                        ts.append(s[2])
+                series.append((labels, np.array(ts), np.array(vals)))
+        if len(series) != RULE_NODE_SERIES:
+            raise AssertionError(f"phase 20: remote read gave {len(series)} "
+                                 f"series")
+        from filodb_tpu_torch.core.partkey import PartKey
+
+        store = srv.node.memstores[NODE_DS]
+        for labels, ts, vals in series:
+            key = PartKey.create("prom-counter", labels)
+            shard = store.shards[int(store.shard_of([key])[0])]
+            pid = shard.lookup_keys([key.serialized])
+            _, wts, wvals = shard.exact_samples(pid, 0, 2**62)
+            keep = ~np.isnan(wvals)
+            if not (np.array_equal(ts, wts[keep])
+                    and np.array_equal(vals, wvals[keep])):
+                raise AssertionError(f"phase 20: remote read of {labels}: "
+                                     f"not the shard's samples")
+            n_samples += len(ts)
+        out["remote_read"] = {"series": len(series), "samples": n_samples,
+                              "bytes": len(payload), "encoding": enc}
+        log(f"  remote read: {len(series)} series, {n_samples} samples "
+            f"({len(payload) / 1e6:.2f} MB, {enc}) in "
+            f"{out['remote_read_ms']:.1f} ms, each equal to its shard's "
+            f"exact samples")
+        feed = [(tuple(sorted(lb.items())), int(ts[-1]), float(vals[-1]))
+                for lb, ts, vals in series]
+        _node_scrape(srv, feed, 60_000)
+        wm1 = _wait("the second step", lambda: (_group_wm(port) or 0)
+                    >= wm0 + 60_000 and _group_wm(port))
+        firing = _wait("the webhook's firing alerts", lambda: [
+            a for b in posts for a in b["alerts"]
+            if a["state"] == "firing" and a["labels"].get("alertname")
+            == "SmokeRateUp"])
+        out["webhook"] = {"posts": len(posts), "firing": len(firing)}
+        code, body, _ = http_get(port, "/api/v1/alerts")
+        alerts = json.loads(body)["data"]["alerts"]
+        up = [a for a in alerts if a["labels"]["alertname"] == "SmokeRateUp"]
+        if code != 200 or not up or any(a["state"] != "firing" for a in up):
+            raise AssertionError(f"phase 20: /api/v1/alerts: {body[:300]}")
+        code, body, _ = http_get(port, f"/promql/{NODE_DS}/api/v1/rules")
+        names = [g["name"] for g in json.loads(body)["data"]["groups"]]
+        code2, body2, _ = http_get(port, "/api/v1/rules")
+        all_groups = {g["name"] for g in json.loads(body2)["data"]["groups"]}
+        if code != 200 or names != ["smoke_60s"] \
+                or all_groups != {"smoke_60s", "selfmon_default"}:
+            raise AssertionError(f"phase 20: /rules: {names}, {all_groups}")
+        code, body, _ = http_get(port, "/api/v1/status/tsdb")
+        tsdb = json.loads(body)["data"][NODE_DS]
+        code_m, body_m, _ = http_get(port, "/api/v1/status/mesh")
+        mesh = json.loads(body_m)["data"][NODE_DS]
+        code_i, body_i, _ = http_get(port, "/api/v1/status/ingest")
+        lag = json.loads(body_i)["data"].get("rulesWatermarkLagSeconds", {})
+        if code != 200 or tsdb["headStats"]["numShards"] != 4 \
+                or code_m != 200 or mesh["multiproc"] is not False \
+                or code_i != 200 or "smoke_60s" not in lag:
+            raise AssertionError(f"phase 20: status routes: {code} {code_m} "
+                                 f"{code_i} {lag}")
+        out["status"] = {"tsdb_series": tsdb["headStats"]["numSeries"],
+                         "mesh": mesh["engine"], "rules_lag_s": lag}
+        # an instant query (the extent cache bypasses it): mesh hands it to
+        # the sidecar lane, which decodes the edge chunks
+        code, body, _ = http_get(port, f"/promql/{NODE_DS}/api/v1/query",
+                                 query=RULE_RATE, time=wm1 // 1000,
+                                 stats="all")
+        qs = json.loads(body)["queryStats"]
+        if code != 200 or not qs["decodeMs"] > 0 or not qs["reduceMs"] > 0:
+            raise AssertionError(f"phase 20: ?stats=all: {qs}")
+        out["stats_all"] = {k: qs[k] for k in ("decodeMs", "reduceMs",
+                                               "wallTimeMs")}
+
+        def meta_lag():
+            code, body, _ = http_get(port, "/promql/_meta/api/v1/query",
+                                     query="max(filodb_ingest_lag_seconds)",
+                                     time=int(time.time()))
+            res = json.loads(body)["data"]["result"] if code == 200 else []
+            return res and float(res[0]["value"][1])
+
+        out["meta_ingest_lag_s"] = _wait("_meta's ingest lag", meta_lag)
+        log(f"  over HTTP: /api/v1/rules {sorted(all_groups)}; "
+            f"/api/v1/alerts {len(up)} SmokeRateUp firing; the webhook "
+            f"{len(posts)} posts, {len(firing)} firing; status/tsdb "
+            f"{out['status']['tsdb_series']} series; status/mesh "
+            f"{mesh['engine']}; rules lag {lag}; ?stats=all "
+            f"{out['stats_all']}; max(filodb_ingest_lag_seconds) from _meta "
+            f"{out['meta_ingest_lag_s']:.0f} s")
+    finally:
+        srv.shutdown()
+    srv, out["boot2"] = boot_node(path, dev, "boot 2")
+    try:
+        port = srv.http.port
+        got = _wait("the recovered watermark", lambda: _group_wm(port))
+        if got != wm1:
+            raise AssertionError(f"phase 20: recovered {got}, want {wm1}")
+        _node_scrape(srv, feed, 120_000)
+        wm3 = _wait("two more steps", lambda: (_group_wm(port) or 0)
+                    >= wm1 + 120_000 and _group_wm(port))
+        code, body, _ = http_get(port, f"/promql/{NODE_DS}/api/v1/query_range",
+                                 query=f"count_over_time({REC_RATE}[60s])",
+                                 start=wm0 // 1000, end=wm3 // 1000, step=60)
+        res = json.loads(body)["data"]["result"]
+        counts = [float(v) for r in res for _, v in r["values"]]
+        steps = (wm3 - wm0) // 60_000 + 1
+        if code != 200 or len(res) != 100 \
+                or len(counts) != 100 * steps or set(counts) != {1.0}:
+            raise AssertionError(f"phase 20: after the restart "
+                                 f"count_over_time({REC_RATE}[60s]) over "
+                                 f"{steps} steps: {len(res)} series, "
+                                 f"{sorted(set(counts))}")
+        out["resume"] = {"watermarks": [wm0, wm1, wm3], "steps": steps}
+        log(f"  restart: the group resumed at {wm1} and evaluated on to "
+            f"{wm3}: one recorded sample a step a namespace over {steps} "
+            f"steps (no gap, no double write)")
+    finally:
+        srv.shutdown()
+        hook.shutdown()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  step 2 took {out['seconds']:.1f} s")
+    return out
+
+
 def wide():
     """A QueryContext whose sample limit the smoke's answers fit."""
     from filodb_tpu_torch.query.model import PlannerParams, QueryContext
@@ -5272,9 +5915,9 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
-    # phase 8's histograms: cut from 100,000 (then 50,000) to keep the
-    # smoke inside its limit with phases 12 and 13 (PERF.md §4)
-    ap.add_argument("--hist-series", type=int, default=30_000)
+    # phase 8's histograms: cut from 100,000 (then 50,000, 30,000) to keep
+    # the smoke inside its limit with phases 12, 13 and 20 (PERF.md §4)
+    ap.add_argument("--hist-series", type=int, default=20_000)
     ap.add_argument("--exec-only", action="store_true",
                     help="build, ingest the phase-2 store and run phase 10 "
                     "only (the exec engine against the mesh engine)")
@@ -5312,6 +5955,10 @@ def main() -> int:
                     help="build and run phase 19 only (the object-store "
                     "tier: flush to a FakeS3 bucket, a restart from it, the "
                     "tiered and pyramid-lane queries, the approx sketches)")
+    ap.add_argument("--rules-only", action="store_true",
+                    help="build, ingest the phase-2 store and run phases "
+                    "11 and 20 only (standing queries over the store, then "
+                    "a node with rules, selfmon and a webhook)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
@@ -5398,8 +6045,25 @@ def _phases(args, smi) -> int:
             torch.device("cuda"), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.rules_only:
+        t = time.perf_counter()
+        store = main_store()
+        kept = ingest(store, args.series, args.samples, args.seed)
+        log(f"phase 2: ingest: {args.series} series, {kept} samples, "
+            f"{time.perf_counter() - t:.1f} s on the host")
+        print(json.dumps({"rules": rules_phase(smoke_service(
+            store, device=torch.device("cuda")), args)}))
+        del store
+        torch.cuda.empty_cache()
+        durable = durability_phase(torch.device("cuda"), args)
+        del durable
+        print(json.dumps({"rules_node": rules_node_phase(
+            torch.device("cuda"), args)}))
+        remove_dir(args.durable_dir)
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
-        durable, node = durable_and_node(torch.device("cuda"), args)
+        durable, node, _ = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
         print(json.dumps({"node": node}))
         torch.cuda.empty_cache()
@@ -5418,9 +6082,12 @@ def _phases(args, smi) -> int:
     print(json.dumps({"promql": promql}))
     shapes = plan_shapes_phase(svc, args)
     print(json.dumps({"plan_shapes": shapes}))
-    core = ingest_core_phase(svc, args)
+    keep: dict = {}
+    core = ingest_core_phase(svc, args, keep)
     print(json.dumps({"ingest_core": core}))
-    del svc
+    rules = rules_phase(svc, args, keep)
+    print(json.dumps({"rules": rules}))
+    del svc, keep
     torch.cuda.empty_cache()
     serving, serving_svc = serving_phase(torch.device("cuda"), args)
     print(json.dumps({"serving": serving}))
@@ -5428,9 +6095,11 @@ def _phases(args, smi) -> int:
     print(json.dumps({"control_plane": control}))
     del serving_svc
     torch.cuda.empty_cache()
-    durable, node = durable_and_node(torch.device("cuda"), args)
+    durable, node, rules_node = durable_and_node(torch.device("cuda"), args,
+                                                 rules=True)
     print(json.dumps({"durability": durable}))
     print(json.dumps({"node": node}))
+    print(json.dumps({"rules_node": rules_node}))
     torch.cuda.empty_cache()
     evict = eviction_phase(torch.device("cuda"), args)
     print(json.dumps({"eviction": evict}))
@@ -5460,6 +6129,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase17"] = core["launches"][kern["name"]]
         kern["launches_phase18"] = longterm["launches"][kern["name"]]
         kern["launches_phase19"] = objstore["launches"][kern["name"]]
+        kern["launches_phase20"] = rules["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -14,9 +14,12 @@ the ``resilience`` keys of remote dispatch). ``result_cache``,
 ``query_timeout_s``), ``cost_model``, ``tracing``, a dataset's
 ``downsample`` block (the job, its streaming form and the long-time
 planner), ``federation`` (the tiered planner, with ``mem_retention_ms``
-set) and ``store`` (``backend``: ``local`` sqlite, or ``object`` for the
+set), ``store`` (``backend``: ``local`` sqlite, or ``object`` for the
 S3-compatible tier with its endpoint, bucket, prefix, credentials and
-segment, bucket and queue sizes) are acted on, in any form the reference takes;
+segment, bucket and queue sizes), ``rules`` (groups, tick, catch-up cap
+and the webhook notifier) and ``selfmon`` (the ``_meta`` dataset, its
+sampler and the default alert group) are acted on, in any form the
+reference takes;
 a dataset's ``engine`` is ``mesh``, ``adaptive`` or ``exec``.
 """
 
@@ -180,8 +183,6 @@ UNPORTED = {
     "wal_server_port": "the log server (ROADMAP §A.12)",
     "store_remote": "the remote column store (ROADMAP §A.12)",
     "store_server_port": "the column-store server (ROADMAP §A.12)",
-    "rules.groups": "standing queries (ROADMAP §A.11)",
-    "selfmon.enabled": "self-monitoring (ROADMAP §A.11)",
 }
 
 

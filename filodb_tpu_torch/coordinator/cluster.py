@@ -54,6 +54,7 @@ from filodb_tpu_torch.core.store.api import (
 from filodb_tpu_torch.core.store.config import IngestionConfig
 from filodb_tpu_torch.kafka.log import ReplayLog
 from filodb_tpu_torch.utils.metrics import GaugeFn, get_counter
+from filodb_tpu_torch.utils.selfmon import STAMPS
 
 log = logging.getLogger(__name__)
 
@@ -172,8 +173,9 @@ class Node:
 
 def _register_lag_gauges(dataset: str, shard: int, s, shard_log,
                          worker) -> None:
-    """The log's freshness gauges of one shard, computed at scrape time
-    over weak references (a stopped shard's series drop out)."""
+    """The freshness gauges of one shard (the wall clock past its newest
+    sample, and its log's offset and checkpoint lags), computed at scrape
+    time over weak references (a stopped shard's series drop out)."""
     tags = {"dataset": dataset, "shard": str(shard)}
     get_counter("filodb_ingest_errors", tags)
     log_ref, worker_ref, shard_ref = (weakref.ref(shard_log),
@@ -188,6 +190,14 @@ def _register_lag_gauges(dataset: str, shard: int, s, shard_log,
         return None if lg is None or sh is None else lg.offset_lag(
             int(sh.group_watermarks.min()))
 
+    def ingest_lag():
+        # wall clock past the shard's newest sample; None (no series)
+        # before its first ingest, as the reference's shard gauge
+        sh = shard_ref()
+        return None if sh is None or sh.max_ingested_ts < 0 \
+            else max(0.0, time.time() - sh.max_ingested_ts / 1000.0)
+
+    GaugeFn("filodb_ingest_lag_seconds", ingest_lag, tags)
     GaugeFn("filodb_ingest_offset_lag", offset_lag, tags,
             help="log records appended but not yet ingested")
     GaugeFn("filodb_ingest_checkpoint_lag", checkpoint_lag, tags,
@@ -334,6 +344,10 @@ class _IngestWorker(threading.Thread):
                         return
                     self.offset = sd.offset
                     progressed = True
+                    # the gateway's freshness stamps at or below this
+                    # offset are now queryable in the shard
+                    STAMPS.observe(self.shard.dataset, self.shard.shard_num,
+                                   sd.offset)
             except (ConnectionError, OSError, RuntimeError):
                 # a log read failed: retry from the last ingested offset
                 log.warning("shard %s/%d log read failed; retrying",

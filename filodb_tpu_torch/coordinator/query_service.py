@@ -548,6 +548,7 @@ def _finish(result: QueryResult, qcontext: QueryContext) -> None:
     then hold it to the query's limit and result-bytes budget and count
     its series."""
     data = result.result.materialize()
+    result.stats.settle_timings()  # the copy above waited for the stream
     enforce_limits(data, qcontext)
     shim = _BudgetCtx(qcontext.planner_params.budget, result.partial,
                       result.warnings)

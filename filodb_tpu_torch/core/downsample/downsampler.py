@@ -28,8 +28,9 @@ so a window done twice writes the same chunks and the store keeps the
 first. ``catch_up`` keeps each shard's ingestion-time watermark in the
 meta store under ``<dataset>__dsckpt`` (group 0), the reference's layout,
 so a job of either package resumes from the other's checkpoint. With
-``n_splits`` it scans split by split (the object store's
-``scan_chunk_rows_by_ingestion_time_split``).
+``n_splits`` it scans split by split
+(``scan_chunk_rows_by_ingestion_time_split``: the object store's buckets,
+or the base class's filter of the full scan).
 """
 
 from __future__ import annotations
@@ -343,8 +344,8 @@ class DownsamplerJob:
     # restarted job scans exactly the window not yet done
     meta_store: MetaStore | None = None
     # the ingestion-time scan fanned out over the store's token-range
-    # splits (the object store's buckets); a store without split scans
-    # takes 1 only
+    # splits (the object store's buckets; the base class filters the
+    # full scan)
     n_splits: int = 1
     # seconds and rows of the last run: read, decode, rollup, write
     seconds: dict = field(default_factory=dict)
@@ -431,15 +432,10 @@ class DownsamplerJob:
         if self.n_splits <= 1:
             return self.column_store.scan_chunk_rows_by_ingestion_time(
                 self.dataset, shard, t0, t1)
-        split_scan = getattr(self.column_store,
-                             "scan_chunk_rows_by_ingestion_time_split", None)
-        if split_scan is None:
-            raise NotImplementedError(
-                f"n_splits={self.n_splits}: this column store has no split "
-                "scans (the local store's come with repair, ROADMAP A6)")
         return [row for split in range(self.n_splits)
-                for row in split_scan(self.dataset, shard, t0, t1, split,
-                                      self.n_splits)]
+                for row in self.column_store
+                .scan_chunk_rows_by_ingestion_time_split(
+                    self.dataset, shard, t0, t1, split, self.n_splits)]
 
 
 def _stats() -> dict:

@@ -106,6 +106,15 @@ class CardinalityTracker:
             return Cardinality("/".join(prefix) or "__root__")
         return nodes[-1].card
 
+    def top_k(self, prefix: list[str], k: int = 10) -> list[Cardinality]:
+        """The ``k`` children under ``prefix`` with the most active
+        series (``status/tsdb``'s metric counts)."""
+        nodes = self._walk(prefix)
+        if len(nodes) <= len(prefix):
+            return []
+        return sorted((c.card for c in nodes[-1].children.values()),
+                      key=lambda c: -c.active_ts)[:k]
+
     def to_state(self) -> list:
         """The tree as nested lists ``[name, active, total, children,
         quota, [kids]]`` (the snapshot's JSON)."""

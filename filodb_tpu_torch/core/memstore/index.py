@@ -58,6 +58,16 @@ class PartKeyIndex:
     def __len__(self) -> int:
         return self._count
 
+    @property
+    def ram_bytes(self) -> int:
+        """Approximate resident bytes of the index (``status/tsdb``'s
+        ``indexRamBytes``): the time and liveness arrays, each label's
+        value-id column and its values."""
+        n = self._start.nbytes + self._end.nbytes + self._live.nbytes
+        for col in self._labels.values():
+            n += col.vid.nbytes + sum(64 + len(v) for v in col.values)
+        return n
+
     def _grow(self, n: int) -> None:
         cap = len(self._start)
         if n <= cap:

@@ -267,6 +267,9 @@ class ShardStats:
         self.bloom_queries = Counter("evicted_pk_bloom_filter_queries", tags)
         self.bloom_fp = Counter("evicted_pk_bloom_filter_fp", tags)
         self.quota_dropped = Counter("memstore_data_dropped", tags)
+        # what the seals encoded: samples and codec bytes (``Chunk.nbytes``)
+        self.samples_encoded = Counter("memstore_samples_encoded", tags)
+        self.encoded_bytes = Counter("memstore_encoded_bytes_allocated", tags)
         self.downsample_records = Counter(
             "memstore_downsample_records_created", tags)
 
@@ -755,6 +758,7 @@ class Shard:
         pages, per = encode_pages(ts, vals, rows)
         row = self._chunk_row(pids, ts, rows)
         codec = encode_chunks(ts, vals[:, None, :], rows, row["cid"])
+        self._count_encoded(codec, rows)
         stats, sketch = summarize(ts, vals, rows)
         self._sealed.add(pages, per, codec, **row,
                          vmax=abs_max_finite(vals, rows),
@@ -769,6 +773,7 @@ class Shard:
         cols = multi_columns(slots)
         row = self._chunk_row(pids, ts, rows)
         codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"])
+        self._count_encoded(codec, rows)
         flags = {}
         for j, name in enumerate(MULTI_COLUMNS):
             v = np.ascontiguousarray(cols[..., j])
@@ -790,6 +795,7 @@ class Shard:
         codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"],
                               hist=slots, les=np.stack(
                                   [self.les_list[i] for i in les.tolist()]))
+        self._count_encoded(codec, rows)
         summ = {}
         for j, name in enumerate(HIST_COLUMNS):
             summ[f"stats_{name}"], summ[f"sketch_{name}"] = summarize(
@@ -800,6 +806,10 @@ class Shard:
                               exact_sum=exact_in_f32(cols[..., 0], rows),
                               exact_count=exact_in_f32(cols[..., 1], rows),
                               **summ)
+
+    def _count_encoded(self, codec, rows) -> None:
+        self.stats.samples_encoded.inc(int(rows.sum()))
+        self.stats.encoded_bytes.inc(int(codec.nbytes.sum()))
 
     def _chunk_row(self, pids, ts, rows) -> dict:
         """The columns every sealed chunk has; takes the next sequence
@@ -1772,6 +1782,30 @@ class Shard:
                 np.zeros(len(rows), np.int64), buf.ts[rows], vals,
                 np.arange(buf.ts.shape[1])[None, :] < n[:, None]))
         return out
+
+    def exact_samples(self, pids: np.ndarray, start: int, end: int
+                      ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The value samples of scalar partitions ``pids`` (all of one
+        kind: plain, or all ``ds-gauge``, whose value column is ``avg``)
+        in [start, end], float64 as ingested: (rows in ``pids``, ts, vals),
+        by row then time, from the codec chunks (paged in as a query pages
+        them) and the write buffers, as remote read serves them."""
+        from filodb_tpu_torch.core.downsample.downsampler import (
+            _decoded_parts,
+            _flatten,
+        )
+
+        pids = np.asarray(pids, np.int64)
+        column = None
+        if len(pids) and self.multi[pids[0]]:
+            schema = SCHEMAS[MULTI_SCHEMA].data
+            column = schema.columns[schema.value_column].name
+        with self.lock:
+            paged = self._page_in(pids, start, end)
+            samples = self._samples(pids, start, end, column, paged)
+        parts = [_decoded_parts(r, cb, samples.schema)
+                 for cb, r, _ in samples.codec] + samples.decoded
+        return _flatten(parts, len(pids), start, end)
 
     @staticmethod
     def _page_values(table, idx, row_of_pid, start: int, j):

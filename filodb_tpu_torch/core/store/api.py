@@ -17,8 +17,11 @@ chunks written in an ingestion-time window [start, end), the reference's
 rows, each partition's chunks in chunk-id order.
 
 ``split_of`` is the token-range split of a part key (crc32 of its blob),
-the reference's ``remotestore.split_of``: the object store's buckets are
-its splits.
+the reference's ``remotestore.split_of``. The split scans
+(``scan_part_keys_split``, ``scan_chunk_rows_by_ingestion_time_split``)
+are the fan-out unit of the downsampler and repair jobs: the base class
+filters the full scan, as the reference's does, and the object store's
+buckets are its splits.
 
 Index snapshots (``core/memstore/index_snapshot.py``): a column store
 keeps one a shard (``write_index_snapshot`` / ``read_index_snapshot``)
@@ -94,6 +97,32 @@ class ColumnStore:
         """(part-key blob, serialized chunk) of every chunk whose
         ingestion time lies in [start, end), partition by partition, a
         partition's chunks in chunk-id order."""
+        raise NotImplementedError
+
+    def scan_part_keys_split(self, dataset: str, shard: int, split: int,
+                             n_splits: int) -> list[PartKeyRecord]:
+        """One token-range split of the part-key scan (``split_of``), for
+        the jobs that fan out over splits; the default filters the full
+        scan, the object store reads only the buckets of the split."""
+        if n_splits <= 1:
+            return self.scan_part_keys(dataset, shard)
+        return [r for r in self.scan_part_keys(dataset, shard)
+                if split_of(r.part_key.serialized, n_splits) == split]
+
+    def scan_chunk_rows_by_ingestion_time_split(
+            self, dataset: str, shard: int, start: int, end: int,
+            split: int, n_splits: int) -> list:
+        """One token-range split of ``scan_chunk_rows_by_ingestion_time``;
+        the default filters the full scan."""
+        rows = self.scan_chunk_rows_by_ingestion_time(dataset, shard, start,
+                                                      end)
+        if n_splits <= 1:
+            return rows
+        return [r for r in rows if split_of(bytes(r[0]), n_splits) == split]
+
+    def delete_part_keys(self, dataset: str, shard: int,
+                         part_keys: list[PartKey]) -> None:
+        """Remove part keys and their chunks (the cardinality buster)."""
         raise NotImplementedError
 
     def max_persisted_ts(self, dataset: str, shard: int) -> dict[bytes, int]:
@@ -232,6 +261,12 @@ class InMemoryColumnStore(ColumnStore):
 
     def scan_part_keys(self, dataset, shard):
         return list(self._part_keys[(dataset, shard)].values())
+
+    def delete_part_keys(self, dataset, shard, part_keys):
+        for pk in part_keys:
+            self._part_keys[(dataset, shard)].pop(pk, None)
+            self._chunks[(dataset, shard)].pop(pk.serialized, None)
+            self._ingested[(dataset, shard)].pop(pk.serialized, None)
 
     def max_persisted_ts(self, dataset, shard):
         return {blob: max(et for _, et, _ in chunks.values())

@@ -58,9 +58,9 @@ class StoreConfig:
 
 _UNPORTED = {
     "trace_part_key_substrings": "tracing partitions are not ported "
-                                 "(ROADMAP §A.11)",
+                                 "(ROADMAP §A.11, A6.6)",
     "assert_single_writer": "the single-writer tripwire is not ported "
-                            "(ROADMAP §A.11)",
+                            "(ROADMAP §A.11, A6.6)",
 }
 
 

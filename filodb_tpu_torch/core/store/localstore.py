@@ -181,6 +181,16 @@ class LocalDiskColumnStore(ColumnStore):
             "i.partition AND c.chunkid=i.chunkid ORDER BY c.partition, "
             "c.chunkid", (start, end)))
 
+    def delete_part_keys(self, dataset, shard, part_keys):
+        c = self._db.conn(dataset, shard)
+        with self._wlocks[(dataset, shard)], c:
+            for pk in part_keys:
+                blob = pk.serialized
+                c.execute("DELETE FROM partkeys WHERE partition=?", (blob,))
+                c.execute("DELETE FROM chunks WHERE partition=?", (blob,))
+                c.execute("DELETE FROM ingestion_time_index WHERE "
+                          "partition=?", (blob,))
+
     def max_persisted_ts(self, dataset, shard):
         c = self._db.conn(dataset, shard)
         return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "

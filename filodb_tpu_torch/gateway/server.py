@@ -16,7 +16,9 @@ pushes back on the client) until the drain completes. Waits show as the
 its records instead, counted in ``gateway_records_shed``, and the client
 retries once the pressure clears, as the reference's sink does. Each
 drain is a ``traced_operation("gateway")``: a slow one lands in the
-slow-ingest ring.
+slow-ingest ring, and every Nth container it appends a shard is stamped
+for the end-to-end freshness histogram (``utils/selfmon.py::STAMPS``,
+keyed by the sink's ``dataset``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from filodb_tpu_torch.gateway.influx import InfluxParseError, parse_influx_line
 from filodb_tpu_torch.kafka.log import ReplayLog
 from filodb_tpu_torch.utils import governor as governor_mod
 from filodb_tpu_torch.utils.metrics import Counter, GaugeFn, Histogram
+from filodb_tpu_torch.utils.selfmon import STAMPS
 from filodb_tpu_torch.utils.tracing import traced_operation
 
 log = logging.getLogger(__name__)
@@ -51,10 +54,11 @@ class ContainerSink:
 
     def __init__(self, logs: dict[int, ReplayLog], num_shards: int,
                  spread: int = 1, flush_every: int = 512,
-                 max_pending: int = 16384):
+                 max_pending: int = 16384, dataset: str = "prometheus"):
         self.logs = logs
         self.num_shards = num_shards
         self.spread = spread
+        self.dataset = dataset  # keys the sampled freshness stamps
         self.flush_every = flush_every
         self.max_pending = max(max_pending, flush_every)
         self._pending = RecordContainer()
@@ -132,7 +136,10 @@ class ContainerSink:
                                       records=len(batch)):
                     for shard, cont in route_container(
                             batch, self.num_shards, self.spread).items():
-                        self.logs[shard].append(cont)
+                        off = self.logs[shard].append(cont)
+                        # every Nth container is stamped; the shard's
+                        # ingest worker observes it (utils/selfmon.py)
+                        STAMPS.maybe_stamp(self.dataset, shard, off)
             finally:
                 with self._cond:
                     self._flushing = False

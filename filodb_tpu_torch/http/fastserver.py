@@ -104,9 +104,11 @@ class FastHttpServer:
 
     def __init__(self, services: dict, host="127.0.0.1", port=8080,
                  cluster=None, reuse_port: bool = False,
-                 response_cache: bool = True):
+                 response_cache: bool = True, rule_managers=None):
         self.services = services
         self.cluster = cluster
+        # dataset -> RuleManager: /api/v1/rules and /api/v1/alerts
+        self.rule_managers = rule_managers or {}
         self.response_cache = ResponseCache() if response_cache else None
         # the sizes of the hot batches run, in order (the last 1,024)
         self.batch_sizes: list[int] = []

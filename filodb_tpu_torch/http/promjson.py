@@ -32,7 +32,9 @@ def _labels_json(key) -> dict:
 
 def _stats_json(result: QueryResult, full: bool = False) -> dict:
     """The four basic stats; with ``full`` (``?stats=all``) the counters
-    the port keeps beside them, a federated query's per-tier buckets
+    the port keeps beside them (``decodeMs``: the exec leaves' batch builds
+    and the sidecar and pyramid lanes' folds; ``reduceMs``: the leaves'
+    transformers and the aggregations), a federated query's per-tier buckets
     (``tiers``) and the pyramid lane's levels and bytes (``pyramid``)."""
     s = result.stats
     out = {"seriesScanned": s.series_scanned,
@@ -44,7 +46,9 @@ def _stats_json(result: QueryResult, full: bool = False) -> dict:
                     "cacheHits": s.cache_hits,
                     "cacheMisses": s.cache_misses,
                     "admissionWaitMs": round(s.admission_wait_s * 1000.0,
-                                             3)})
+                                             3),
+                    "decodeMs": round(s.decode_s * 1000.0, 3),
+                    "reduceMs": round(s.reduce_s * 1000.0, 3)})
         if s.tiers:
             out["tiers"] = {
                 tier: {k: (round(v, 3) if isinstance(v, float) else v)

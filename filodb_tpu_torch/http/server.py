@@ -15,24 +15,33 @@ Port of ``filodb_tpu/http/server.py``'s ``HttpDispatcher`` and
   slow-query ring, newest first
 - ``GET /promql/{dataset}/api/v1/debug/costmodel?limit=``: the cost
   model's estimates, calibration and recent decisions
+- ``POST /promql/{dataset}/api/v1/read``: Prometheus remote read
+  (``http/remote_read.py``)
+- ``GET /api/v1/rules`` and ``/api/v1/alerts`` (every dataset's), and
+  ``/promql/{dataset}/api/v1/rules`` and ``.../alerts`` (one dataset's):
+  the rule managers' groups and active alerts (``app.rule_managers``)
 - ``GET /api/v1/cluster`` (datasets) and ``/api/v1/cluster/{dataset}/status``
+- ``GET /api/v1/status/tsdb?dataset=&topk=``: each shard's series and
+  encode counts, and the top metrics and labels by cardinality
 - ``GET /api/v1/status/ingest?dataset=&limit=``: each shard's ingest
-  freshness and offsets, and the slow-ingest ring
+  freshness and offsets, the object store's upload queue, the rule groups'
+  watermark lag and the slow-ingest ring
 - ``GET /api/v1/status/tiers?dataset=``: each dataset's retention tiers,
   their floors and series (``query/federation.py::tier_status``)
+- ``GET /api/v1/status/mesh?dataset=``: ``multiproc: false`` and the
+  engine's counters (one process; the multi-process runtime is §A.12)
 - ``GET /__health``, ``GET /metrics`` (Prometheus exposition)
 
 Status codes and error envelopes are the reference's: 400 for a parse
 error or a bad parameter, 404 for an unknown dataset or route, 422 for a
 query limit or a budget in ``degrade="error"``, 503 with ``Retry-After``
 for a query the governor shed (``unavailable``) or whose deadline passed
-(``timeout``), 500 (``internal``) for anything else. Routes whose modules
-are not ported answer 501: remote read, rules and alerts, ``status/*``
-other than ``status/ingest`` and ``status/tiers`` (ROADMAP §A.11), the
-cluster's shard commands and migration (ROADMAP §A.12). ``?stats=all``
-renders the basic stats, the counters the port keeps beside them and a
-federated query's per-tier buckets (ROADMAP §C: the reference's timing
-fields are not there).
+(``timeout``), 500 (``internal``) for anything else. The cluster's shard
+commands and migration answer 501: they come with ROADMAP §A.12.
+``?stats=all`` renders the basic stats, the counters the port keeps
+beside them (``decodeMs`` and ``reduceMs`` among them), a federated
+query's per-tier buckets and the pyramid lane's keys (ROADMAP §C:
+``wireBytes`` comes with remote dispatch).
 
 The hot routes (``query`` and ``query_range``) go through the rendered-
 response cache (``ResponseCache``, ``response_cache=True`` by default, as
@@ -81,21 +90,6 @@ from filodb_tpu_torch.utils.tracing import slow_ingest, slow_queries, start_trac
 log = logging.getLogger(__name__)
 
 JSON_CT = "application/json"
-
-# routes of the reference whose modules the port does not have yet
-_UNPORTED_ROUTES = {
-    ("api", "v1", "rules"): "standing queries (ROADMAP §A.11)",
-    ("api", "v1", "alerts"): "standing queries (ROADMAP §A.11)",
-    ("api", "v1", "status"): "status introspection other than "
-                             "status/ingest and status/tiers "
-                             "(ROADMAP §A.11)",
-}
-_UNPORTED_PROM = {
-    "rules": "standing queries (ROADMAP §A.11)",
-    "alerts": "standing queries (ROADMAP §A.11)",
-    "read": "remote read (ROADMAP §A.11)",
-}
-
 
 def retry_after_headers(after_s: float | None = None) -> dict:
     """``Retry-After`` of a 503, alike on both fronts: whole seconds, at
@@ -197,7 +191,7 @@ class HttpDispatcher:
             parts = [p for p in url.path.split("/") if p]
             if command == "POST":
                 if parts[-1:] == ["read"]:
-                    return self._unported(_UNPORTED_PROM["read"])
+                    return self._remote_read(parts, raw)
                 if raw and "x-www-form-urlencoded" in content_type:
                     for k, v in parse_qs(raw.decode()).items():
                         qs.setdefault(k, v)
@@ -236,12 +230,25 @@ class HttpDispatcher:
             return self._prom_api(svc, parts[4:], qs)
         if len(parts) >= 3 and parts[:3] == ["api", "v1", "cluster"]:
             return self._cluster_api(parts[3:])
+        if parts == ["api", "v1", "rules"]:
+            # every dataset's groups
+            groups = [g for mgr in self.app.rule_managers.values()
+                      for g in mgr.rules_snapshot()]
+            return self._json(200, {"status": "success",
+                                    "data": {"groups": groups}})
+        if parts == ["api", "v1", "alerts"]:
+            alerts = [a for mgr in self.app.rule_managers.values()
+                      for a in mgr.alerts_snapshot()]
+            return self._json(200, {"status": "success",
+                                    "data": {"alerts": alerts}})
+        if parts == ["api", "v1", "status", "tsdb"]:
+            return self._status_tsdb(qs)
         if parts == ["api", "v1", "status", "ingest"]:
             return self._status_ingest(qs)
         if parts == ["api", "v1", "status", "tiers"]:
             return self._status_tiers(qs)
-        if tuple(parts[:3]) in _UNPORTED_ROUTES:
-            return self._unported(_UNPORTED_ROUTES[tuple(parts[:3])])
+        if parts == ["api", "v1", "status", "mesh"]:
+            return self._status_mesh(qs)
         return self._json(404, promjson.error_json("not found", "not_found"))
 
     # ---- the Prometheus API --------------------------------------------------
@@ -313,11 +320,44 @@ class HttpDispatcher:
                 label = "_metric_"
             return self._json(200, {"status": "success",
                                     "data": svc.label_values(label)})
+        if rest == ["rules"]:
+            mgr = self.app.rule_managers.get(svc.dataset)
+            return self._json(200, {"status": "success", "data": {
+                "groups": mgr.rules_snapshot() if mgr is not None else []}})
+        if rest == ["alerts"]:
+            mgr = self.app.rule_managers.get(svc.dataset)
+            return self._json(200, {"status": "success", "data": {
+                "alerts": mgr.alerts_snapshot() if mgr is not None else []}})
         if rest[:1] == ["debug"]:
             return self._debug(svc, rest[1:], qs)
-        if rest[:1] and rest[0] in _UNPORTED_PROM:
-            return self._unported(_UNPORTED_PROM[rest[0]])
         return self._json(404, promjson.error_json("unknown endpoint"))
+
+    def _remote_read(self, parts: list[str], body: bytes):
+        """Prometheus remote read (``http/remote_read.py``): each query's
+        raw samples, float64 as ingested (``Shard.exact_samples``);
+        histograms are left out, as remote-read v1 has them. Without the
+        ``snappy`` module the body goes both ways uncompressed and says
+        ``identity``, as the reference's ``HAVE_SNAPPY = False``."""
+        from filodb_tpu_torch.http import remote_read as rr
+
+        if len(parts) < 2 or parts[0] != "promql":
+            return self._json(404, promjson.error_json("not found"))
+        svc = self.app.services.get(parts[1])
+        if svc is None:
+            return self._json(404, promjson.error_json(
+                f"unknown dataset {parts[1]}"))
+        try:
+            queries = rr.decode_read_request(rr.maybe_decompress(body))
+        except Exception:  # noqa: BLE001 - any undecodable body
+            return self._json(501 if not rr.HAVE_SNAPPY else 400,
+                              promjson.error_json(
+                                  "could not decode read request "
+                                  "(snappy unavailable?)"))
+        results = [rr.read_series(svc.memstore, q) for q in queries]
+        return (200, {"Content-Type": "application/x-protobuf",
+                      "Content-Encoding":
+                          "snappy" if rr.HAVE_SNAPPY else "identity"},
+                rr.maybe_compress(rr.encode_read_response(results)))
 
     @staticmethod
     def _limit(qs: dict, default: int = 0) -> int:
@@ -363,29 +403,110 @@ class HttpDispatcher:
             return self._json(200, {"status": "success", "data": snap})
         return self._json(404, promjson.error_json("unknown endpoint"))
 
+    def _status_datasets(self, qs: dict) -> dict:
+        """The services, filtered by an optional ``?dataset=``."""
+        want = qs.get("dataset", [None])[0]
+        return {name: svc for name, svc in self.app.services.items()
+                if want is None or name == want}
+
+    def _status_tsdb(self, qs: dict):
+        """Prometheus-shaped TSDB status, as the reference's: each shard's
+        series, index and encode counts, and the top ``topk`` metrics by
+        active series (from the shards' cardinality trees) and labels by
+        distinct values."""
+        try:
+            k = max(1, int(qs.get("topk", ["10"])[0]))
+        except ValueError:
+            k = 10
+        data = {}
+        for name, svc in self._status_datasets(qs).items():
+            by_metric: dict[str, dict] = {}
+            by_label: dict[str, int] = {}
+            shards = []
+            num_series = 0
+            for sh in svc.memstore.shards:
+                root = sh.cardinality.cardinality([])
+                num_series += root.active_ts
+                shards.append({
+                    "shard": sh.shard_num,
+                    "numSeries": root.active_ts,
+                    "totalSeries": root.total_ts,
+                    "indexRamBytes": sh.index.ram_bytes,
+                    "encodedBytes": sh.stats.encoded_bytes.value,
+                    "samplesEncoded": sh.stats.samples_encoded.value,
+                    "chunksFlushed": sh.stats.chunks_flushed.value,
+                    "partitionsEvicted": sh.stats.partitions_evicted.value,
+                })
+                tracker = sh.cardinality
+                # the tree's ws -> ns -> metric levels, metric counts summed
+                # over prefixes and shards
+                for ws in tracker.top_k([], 1000):
+                    for ns in tracker.top_k([ws.name], 1000):
+                        for mc in tracker.top_k([ws.name, ns.name], 1000):
+                            agg = by_metric.setdefault(
+                                mc.name, {"active": 0, "total": 0})
+                            agg["active"] += mc.active_ts
+                            agg["total"] += mc.total_ts
+                for label in sh.label_names():
+                    by_label[label] = max(by_label.get(label, 0),
+                                          len(sh.label_values(label)))
+            top_metrics = sorted(by_metric.items(),
+                                 key=lambda kv: -kv[1]["active"])[:k]
+            top_labels = sorted(by_label.items(), key=lambda kv: -kv[1])[:k]
+            data[name] = {
+                "headStats": {"numSeries": num_series,
+                              "numShards": len(shards)},
+                "shards": shards,
+                "seriesCountByMetricName": [
+                    {"name": m, "value": v["active"],
+                     "totalValue": v["total"]} for m, v in top_metrics],
+                "labelValueCountByLabelName": [
+                    {"name": label, "value": v} for label, v in top_labels],
+            }
+        return self._json(200, {"status": "success", "data": data})
+
+    def _status_mesh(self, qs: dict):
+        """The mesh runtime's status. One process has no multi-process
+        runtime (ROADMAP §A.12): each dataset answers ``multiproc: false``
+        with its engine's counters, the reference's keys (the window
+        cache's hits and misses, the batches held, the hand-written
+        kernels loaded) and the kernels' launches since boot."""
+        from filodb_tpu_torch import _build
+        from filodb_tpu_torch.parallel import mesh_engine
+
+        programs = sum(1 for n in _build._libs if n in _build.SOURCES)
+        data = {}
+        for name, svc in self._status_datasets(qs).items():
+            data[name] = {"multiproc": False, "engine": {
+                "hits": mesh_engine._M_EVAL["hit"].value,
+                "misses": mesh_engine._M_EVAL["miss"].value,
+                "batch_cache": len(svc.batches.batches()),
+                "programs": programs,
+                "launches": dict(_build.LAUNCHES),
+            }}
+        return self._json(200, {"status": "success", "data": data})
+
     def _status_tiers(self, qs: dict):
         """Each dataset's retention tiers (memstore, cold raw, downsample):
         their floors and series, the face of tier federation."""
         from filodb_tpu_torch.query import federation
 
-        want = qs.get("dataset", [None])[0]
         data = {name: federation.tier_status(name, svc)
-                for name, svc in self.app.services.items()
-                if want is None or name == want}
+                for name, svc in self._status_datasets(qs).items()}
         return self._json(200, {"status": "success", "data": data})
 
     def _status_ingest(self, qs: dict):
         """Each shard's ingest freshness (lag against the wall clock, the
-        log's offsets and the checkpoint watermarks), the gateway's queue
-        depth and the slow-ingest ring, as the reference's route; the
-        object store's part waits for its module (ROADMAP A5)."""
+        log's offsets and the checkpoint watermarks), the object store's
+        upload queue, the gateway's queue depth, each rule group's
+        watermark lag and the slow-ingest ring, as the reference's
+        route."""
+        from filodb_tpu_torch.core.store import objectstore
+
         cluster = self.app.cluster
         now = time.time()
-        wanted = qs.get("dataset", [None])[0]
         data = {"datasets": {}}
-        for name, svc in self.app.services.items():
-            if wanted is not None and name != wanted:
-                continue
+        for name, svc in self._status_datasets(qs).items():
             shards = []
             for sh in svc.memstore.shards:
                 lag = (None if sh.max_ingested_ts < 0
@@ -405,11 +526,21 @@ class HttpDispatcher:
                         int(min(sh.group_watermarks, default=-1)))
                 shards.append(entry)
             data["datasets"][name] = {"shards": shards}
+        data["objectstore"] = {
+            "queueDepth": objectstore.QUEUE_DEPTH.value,
+            "oldestTaskAgeSeconds": objectstore._oldest_task_age(),
+        }
+        # gauges of objects this server does not hold (the gateway's sink,
+        # the rule groups) are read from the registry by family name
         with metrics_mod._lock:
             fams = list(metrics_mod._registry.values())
         for m in fams:
             if m.name == "gateway_queue_depth" and m.value is not None:
                 data["gatewayQueueDepth"] = m.value
+            elif m.name == "filodb_rules_watermark_lag_seconds" \
+                    and m.tags.get("group"):  # not the untagged anchor
+                data.setdefault("rulesWatermarkLagSeconds", {})[
+                    m.tags["group"]] = m.value
         data["slowIngest"] = slow_ingest(self._limit(qs, 20))
         return self._json(200, {"status": "success", "data": data})
 
@@ -438,9 +569,11 @@ class FiloHttpServer:
 
     def __init__(self, services: dict, host: str = "127.0.0.1",
                  port: int = 8080, cluster=None, reuse_port: bool = False,
-                 response_cache: bool = True):
+                 response_cache: bool = True, rule_managers=None):
         self.services = services
         self.cluster = cluster
+        # dataset -> RuleManager: /api/v1/rules and /api/v1/alerts
+        self.rule_managers = rule_managers or {}
         self.response_cache = ResponseCache() if response_cache else None
         self._batchers: dict[int, QueryBatcher] = {}
         self._batchers_lock = threading.Lock()

@@ -227,6 +227,12 @@ def chunk_ids(start_times: np.ndarray, seqs: np.ndarray) -> np.ndarray:
         | (np.asarray(seqs, np.int64) & 0xFFF)
 
 
+def chunk_header(data) -> tuple[int, int, int, int]:
+    """(id, rows, start time, end time) of a serialized chunk."""
+    cid, rows, start, end, _ = _HEAD.unpack_from(data)
+    return cid, rows, start, end
+
+
 @dataclass(frozen=True)
 class Chunk:
     """One encoded chunkset for a partition."""

@@ -581,8 +581,10 @@ def try_execute(leaf, ctx, shard, pids: np.ndarray, version: int):
         if ctx.budget is not None:
             raise _Bypass("a scan budget")  # the decode lane counts it
         # the shard's chunk table and write buffers are read as of one
-        # version: an ingest or an eviction waits for the fold
-        with shard.lock:
+        # version: an ingest or an eviction waits for the fold; the whole
+        # fold (edge decodes and summary reads, or the pyramid lane's) is
+        # this lane's decode stage
+        with shard.lock, ctx.stats.timed("decode_s", ctx.device):
             return _execute(leaf, ctx, shard, pids, version, psm, fn,
                             m == "decode")
     except _Bypass as e:

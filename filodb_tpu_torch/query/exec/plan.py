@@ -229,7 +229,7 @@ class SelectRawPartitionsExec(ExecPlan):
                 else self._scan_batches(ctx, shard, pids, version, psm)
         if data is None and batches is None:
             return StepMatrix.empty()
-        with span("reduce"):
+        with span("reduce"), ctx.stats.timed("reduce_s", ctx.device):
             if data is None:
                 data = StepMatrix.concat([psm.eval_batch(b, ctx.stats)
                                           for b in batches])
@@ -251,7 +251,8 @@ class SelectRawPartitionsExec(ExecPlan):
                    self.chunk_start, self.chunk_end, self.value_column)
             batch = ctx.batches.get(key, shard, spids)
             if batch is None:
-                with span("decode", schema=s, partitions=len(spids)):
+                with span("decode", schema=s, partitions=len(spids)), \
+                        ctx.stats.timed("decode_s", ctx.device):
                     batch = build_device_batch(
                         [(shard, spids)], self.chunk_start, self.chunk_end,
                         ctx.device, self.value_column, [version])
@@ -343,7 +344,8 @@ class ReduceAggregateExec(NonLeafExecPlan):
         amr = AggregateMapReduce(self.op, self.params, self.by, self.without)
         if data.num_series == 0:
             return data
-        with span("reduce", op=self.op):
+        with span("reduce", op=self.op), \
+                ctx.stats.timed("reduce_s", ctx.device):
             data, groups = _cardinality_budget(ctx, data,
                                                ctx.gids.of(amr, data))
             return amr.apply(data, groups)

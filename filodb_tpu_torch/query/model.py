@@ -10,12 +10,20 @@ The engine hands values over as a torch tensor on its device;
 ``materialize`` applies any compaction deferred while they lived on the
 device (on the device, so only kept rows cross to the host) and brings them
 to host numpy (float64).
+
+``QueryStats.timed`` times a stage into ``decode_s`` or ``reduce_s``: on
+the host's clock where the work runs on the CPU; on the card between two
+CUDA events recorded on the current stream, read by ``settle_timings``
+once the answer has been copied to the host (a copy that waits for the
+stream anyway), so timing adds no synchronization of its own.
 """
 
 from __future__ import annotations
 
 import math
+import time
 import uuid
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -236,6 +244,41 @@ class QueryStats:
     # {bucketNodes, segmentNodes, chunkNodes, decodeNodes, pyramidBytes,
     # payloadBytes} of its cold-tier folds; empty otherwise
     pyramid: dict = field(default_factory=dict)
+    # seconds of the exec leaves' scans and the sidecar and pyramid lanes'
+    # folds (decode), and of the transformers and aggregations (reduce)
+    decode_s: float = 0.0
+    reduce_s: float = 0.0
+    # (field, start, end) CUDA events of stages timed on the card, not yet
+    # read (``settle_timings``)
+    _timings: list = field(default_factory=list, repr=False, compare=False)
+
+    @contextmanager
+    def timed(self, name: str, device):
+        """Add the enclosed stage's seconds to ``name`` (``decode_s`` or
+        ``reduce_s``) where it completes (a stage that raises, such as a
+        lane's bypass, adds nothing, as the reference counts): host clock
+        on the CPU, CUDA events on the card."""
+        if getattr(device, "type", "cpu") != "cuda":
+            t0 = time.perf_counter()
+            yield
+            setattr(self, name, getattr(self, name) + time.perf_counter() - t0)
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self._timings.append((name, start, end))
+
+    def settle_timings(self) -> None:
+        """Read the stages timed on the card into their fields: called
+        after the answer's device→host copy, when the events have passed
+        (an answer that never left the card waits on its last event)."""
+        for name, start, end in self._timings:
+            end.synchronize()
+            setattr(self, name,
+                    getattr(self, name) + start.elapsed_time(end) / 1000.0)
+        self._timings.clear()
 
     def merge_counts(self, other: "QueryStats") -> None:
         """Fold a sub-query's counts into these (the extent cache folds
@@ -243,8 +286,10 @@ class QueryStats:
         stay the caller's."""
         for name in ("series_scanned", "samples_scanned", "precise_lane",
                      "host_lane", "chunks_touched", "sidecar_chunks",
-                     "cache_hits", "cache_misses", "admission_wait_s"):
+                     "cache_hits", "cache_misses", "admission_wait_s",
+                     "decode_s", "reduce_s"):
             setattr(self, name, getattr(self, name) + getattr(other, name))
+        self._timings.extend(other._timings)
         for reason, n in other.sidecar_bypassed.items():
             self.sidecar_bypassed[reason] = \
                 self.sidecar_bypassed.get(reason, 0) + n

@@ -13,8 +13,10 @@ leaf over their union range, so one page-in); the reference evaluates
 them one after another (ROADMAP §C).
 
 An extent that ends at or before the store's mutable horizon (the least
-over the shards of ``Shard.max_ingested_ts``, less ``ooo_allowance_ms``)
-cannot change under further ingest: it is kept with no stamp. An extent
+over the shards of ``Shard.max_ingested_ts``, less ``ooo_allowance_ms``,
+and no later than the service's ``rules_horizon_floor`` where a rule
+manager publishes one) cannot change under further ingest: it is kept
+with no stamp. An extent
 past it carries the store's version, read before it is evaluated, and is
 evaluated again once the store moved. A dashboard that refreshes after a
 scrape so evaluates its head extent only.
@@ -310,6 +312,12 @@ class ResultCache:
         version = sum(s.version for s in shards)
         horizon = min(s.max_ingested_ts for s in shards) \
             - self.config.ooo_allowance_ms
+        # the standing queries' floor (``rules/manager.py``): rule outputs
+        # land at or below the ingest horizon, so an extent past the last
+        # step the rules have visibly written keeps a version stamp
+        floor = getattr(svc, "rules_horizon_floor", None)
+        if floor is not None:
+            horizon = min(horizon, floor() if callable(floor) else floor)
         sig = plan_signature(plan)
         # a tiered planner's colder tiers: the signature stays the same
         # whichever tier serves an extent, but their index versions join

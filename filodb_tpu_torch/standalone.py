@@ -38,6 +38,16 @@ the raw planner and a downsample planner, whose leaves read a
 ``TieredPlanner`` (memstore, the cold raw tier over the column store, and
 the downsample tier where there is one).
 
+Standing queries and self-monitoring, as the reference's node wires them:
+``rules.groups`` starts one ``RuleManager`` a dataset (``rules/``), its
+outputs written through the shards' logs, ticking once the dataset's
+shards have replayed their logs, with a ``WebhookNotifier`` where
+``rules.notify.webhook_url`` is set; ``selfmon.enabled`` adds the
+``_meta`` dataset after the user's, a ``MetaMonitor`` that writes the
+node's metric registry there every ``interval_s`` and, unless
+``default_alerts`` is false, the ``selfmon_default`` alert group over it.
+Shutdown stops both before the logs close.
+
 It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
 version on the CPU, as the tests do. Without a card it raises; nothing
 carries on on the CPU unasked. Options the port lacks raise at
@@ -60,6 +70,7 @@ import weakref
 from filodb_tpu_torch.config import ServerConfig
 from filodb_tpu_torch.coordinator import adaptive_planner
 from filodb_tpu_torch.coordinator.cluster import FilodbCluster, Node
+from filodb_tpu_torch.core.store.config import IngestionConfig, StoreConfig
 from filodb_tpu_torch.core.store.localstore import (
     LocalDiskColumnStore,
     LocalDiskMetaStore,
@@ -72,6 +83,9 @@ from filodb_tpu_torch.gateway.server import ContainerSink, GatewayServer
 from filodb_tpu_torch.http.fastserver import FastHttpServer
 from filodb_tpu_torch.http.server import FiloHttpServer
 from filodb_tpu_torch.kafka.log import SegmentedFileLog
+# imported whatever the config, so the filodb_rules_* and filodb_alerts_*
+# families are registered at boot, as the reference's node registers them
+from filodb_tpu_torch.rules import LogSink, RuleManager, load_groups
 from filodb_tpu_torch.utils import governor, resilience, tracing
 
 log = logging.getLogger(__name__)
@@ -100,8 +114,23 @@ class FiloServer:
         self.http = None
         self.gateway: GatewayServer | None = None
         self.watchdog: governor.MemoryWatchdog | None = None
+        self.rule_managers: dict[str, RuleManager] = {}
+        self.selfmon = None
         self._ds_threads: list[threading.Thread] = []
         self._stop = threading.Event()
+        self._setup_meta_dataset()
+
+    def _setup_meta_dataset(self) -> None:
+        """The ``_meta`` self-monitoring dataset, where ``selfmon`` is
+        enabled: appended after the user's datasets, since the gateway
+        and the rules' default dataset take the first one."""
+        sm_cfg = self.config.selfmon or {}
+        if not sm_cfg.get("enabled") or "_meta" in self.config.datasets:
+            return
+        self.config.datasets["_meta"] = IngestionConfig(
+            dataset="_meta", num_shards=int(sm_cfg.get("num_shards", 1)),
+            min_num_nodes=1, store=StoreConfig(groups_per_shard=4))
+        self.config.spreads["_meta"] = 0
 
     def _wal_path(self, dataset: str, shard: int) -> str:
         root = self.config.wal_dir or os.path.join(self.config.data_dir,
@@ -133,23 +162,138 @@ class FiloServer:
         # raw and downsample
         self._setup_federation()
         self.watchdog = self._watchdog().start()
+        self._setup_rules()
+        if (cfg.selfmon or {}).get("enabled"):
+            self._start_selfmon()
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
         self.http = http_cls(self.services, port=cfg.http_port,
                              cluster=self.cluster,
                              reuse_port=cfg.http_reuse_port,
-                             response_cache=cfg.http_response_cache).start()
+                             response_cache=cfg.http_response_cache,
+                             rule_managers=self.rule_managers).start()
         if cfg.gateway_port:
             first = next(iter(cfg.datasets.values()))
             sink = ContainerSink(
                 {s: self._shard_log(first.dataset, s)
                  for s in range(first.num_shards)},
-                first.num_shards, cfg.spreads.get(first.dataset, 1))
+                first.num_shards, cfg.spreads.get(first.dataset, 1),
+                dataset=first.dataset)
             self.gateway = GatewayServer(sink, port=cfg.gateway_port).start()
         log.info("FiloServer up: http=%d gateway=%s device=%s",
                  self.http.port,
                  self.gateway.port if self.gateway else "off", self.device)
         return self
+
+    def _setup_rules(self) -> None:
+        """One ``RuleManager`` a dataset with rule groups (the user's, and
+        with ``selfmon`` its default alert group over ``_meta``), writing
+        its outputs through the shards' logs (``LogSink``), ticking every
+        ``rules.tick_s`` once the dataset's shards are ACTIVE: a tick during
+        the logs' replay would read a horizon of the part replayed so far
+        and start a group below its durable watermark (ROADMAP §C)."""
+        cfg = self.config
+        rules_cfg = dict(cfg.rules or {})
+        sm_cfg = cfg.selfmon or {}
+        groups_cfg = list(rules_cfg.get("groups") or [])
+        if sm_cfg.get("enabled") and sm_cfg.get("default_alerts", True):
+            groups_cfg.append(self._default_meta_alerts(sm_cfg))
+        if not groups_cfg:
+            return
+        rules_cfg["groups"] = groups_cfg
+        by_ds: dict[str, list] = {}
+        for grp in load_groups(rules_cfg, next(iter(cfg.datasets))):
+            by_ds.setdefault(grp.dataset, []).append(grp)
+        notify_cfg = rules_cfg.get("notify", {}) or {}
+        for ds, grps in by_ds.items():
+            ing = cfg.datasets[ds]
+            sink = LogSink({s: self._shard_log(ds, s)
+                            for s in range(ing.num_shards)},
+                           ing.num_shards, cfg.spreads.get(ds, 1))
+            # _meta holds only samples stamped at tick time: the default
+            # five-minute out-of-order allowance would hold its alerts
+            # that far behind the ingest clock
+            ooo = (int(sm_cfg.get("ooo_allowance_ms", 2_000))
+                   if ds == "_meta" else None)
+            mgr = self.rule_managers[ds] = RuleManager(
+                self.services[ds], sink, grps, ooo_allowance_ms=ooo,
+                max_catchup_steps=int(rules_cfg.get("max_catchup_steps",
+                                                    512)),
+                notifier=self._build_notifier(notify_cfg))
+            t = threading.Thread(
+                target=self._start_when_active, daemon=True,
+                name=f"rules-start-{ds}",
+                args=(ds, mgr, float(rules_cfg.get("tick_s", 1.0))))
+            t.start()
+            self._ds_threads.append(t)
+
+    def _start_when_active(self, dataset: str, mgr: RuleManager,
+                           tick_s: float) -> None:
+        """Start ``mgr``'s ticks once every shard of ``dataset`` is ACTIVE
+        (a manager stopped meanwhile starts a thread that ends at once)."""
+        while not self._stop.is_set():
+            if self.cluster.wait_active(dataset, timeout=1.0):
+                mgr.start(tick_s)
+                return
+
+    def _start_selfmon(self) -> None:
+        """The ``MetaMonitor``: the node's metric registry into ``_meta``
+        every ``selfmon.interval_s``, through its shards' logs."""
+        from filodb_tpu_torch.utils.selfmon import MetaMonitor
+
+        cfg, sm_cfg = self.config, self.config.selfmon
+        ing = cfg.datasets["_meta"]
+        sink = LogSink({s: self._shard_log("_meta", s)
+                        for s in range(ing.num_shards)},
+                       ing.num_shards, cfg.spreads.get("_meta", 0))
+        self.selfmon = MetaMonitor(
+            sink, interval_s=float(sm_cfg.get("interval_s", 15.0)),
+            node=cfg.node_name,
+            instance=f"{cfg.node_name}:{cfg.http_port}",
+            include_buckets=bool(sm_cfg.get("include_buckets", False)))
+        self.selfmon.start()
+
+    @staticmethod
+    def _build_notifier(notify_cfg: dict):
+        """The webhook notifier of alert transitions; None without a
+        ``webhook_url``."""
+        url = notify_cfg.get("webhook_url")
+        if not url:
+            return None
+        from filodb_tpu_torch.rules.notify import WebhookNotifier
+        from filodb_tpu_torch.utils.resilience import RetryPolicy
+
+        return WebhookNotifier(
+            url, timeout_s=float(notify_cfg.get("timeout_s", 5.0)),
+            retry_policy=RetryPolicy(
+                max_attempts=int(notify_cfg.get("max_attempts", 4)),
+                base_backoff_s=0.1, max_backoff_s=2.0),
+            queue_depth=int(notify_cfg.get("queue_depth", 256)))
+
+    @staticmethod
+    def _default_meta_alerts(sm_cfg: dict) -> dict:
+        """The shipped alert group over ``_meta``: shard ingest lag, and a
+        circuit breaker open (no series on one node, so never active)."""
+        thr = float(sm_cfg.get("lag_alert_threshold_s", 60.0))
+        return {
+            "name": "selfmon_default",
+            "dataset": "_meta",
+            "interval": sm_cfg.get("alert_interval", "5s"),
+            "rules": [
+                {"alert": "FilodbIngestLagHigh",
+                 "expr": f"max(filodb_ingest_lag_seconds) > {thr}",
+                 "for": sm_cfg.get("lag_alert_for", "30s"),
+                 "labels": {"severity": "warning"},
+                 "annotations": {"summary":
+                                 "shard ingest lag above threshold"}},
+                {"alert": "FilodbBreakerOpen",
+                 "expr": "max(filodb_breaker_state) >= 2",
+                 "for": "0s",
+                 "labels": {"severity": "warning"},
+                 "annotations": {"summary":
+                                 "a circuit breaker to a peer is open"}},
+            ],
+        }
 
     def _setup_downsampling(self) -> None:
         """Each dataset's downsampler job thread and long-time planner."""
@@ -225,6 +369,8 @@ class FiloServer:
         if not fed.get("enabled", True) or not fed.get("mem_retention_ms"):
             return
         for dataset, svc in self.services.items():
+            if dataset.startswith("_"):
+                continue  # _meta stays in the memstore
             ing = self.config.datasets[dataset]
             raw_planner, ds_planner, raw_retention = svc.planner, None, None
             if isinstance(svc.planner, LongTimeRangePlanner):
@@ -271,10 +417,15 @@ class FiloServer:
         return wd
 
     def shutdown(self):
-        """Stop the watchdog (the governor back to OK), the fronts, the
-        workers and the scheduler, save the cost models, then close the
-        logs and the stores."""
+        """Stop the self-monitor and the rule managers (before the logs
+        they write close), the watchdog (the governor back to OK), the
+        fronts, the workers and the scheduler, save the cost models, then
+        close the logs and the stores."""
         self._stop.set()
+        if self.selfmon is not None:
+            self.selfmon.stop()
+        for mgr in self.rule_managers.values():
+            mgr.stop()
         for t in self._ds_threads:
             t.join(timeout=30)
         if self.watchdog is not None:

@@ -24,7 +24,11 @@ long retention's (the downsampler job, the ds store, the cold tier, the
 tiered planner and ``TierExec``), through a query over three tiers; and
 the object-store tier's (``objectstore``, ``pyramid``, ``sketches``,
 ``fake_s3``, the pyramid lane), through a flush to a bucket, a cold query
-the pyramid lane serves and the approximate sketches.
+the pyramid lane serves and the approximate sketches; and the standing
+queries' (``rules``, ``utils/selfmon``, ``utils/racecheck``,
+``http/remote_read``, ``core/store/repair``), through a rule tick over the
+store, a self-monitor tick, a remote read and the repair jobs' split
+scans over a local-disk store.
 """
 
 import json
@@ -278,6 +282,38 @@ objrows = [sorted(r.stats.tiers), r.result.num_series,
            objectstore.crc32c(b"123456789")]
 del os.environ["FILODB_SIDECAR_APPROX"]
 ocs.close()
+# standing queries: a recording rule and an alert over the store, the
+# self-monitor's registry into a store of its own, remote read, repair
+from filodb_tpu_torch.core.store.api import InMemoryColumnStore
+from filodb_tpu_torch.core.store import repair
+from filodb_tpu_torch.http import remote_read
+from filodb_tpu_torch.rules import (AlertingRule, MemstoreSink, RecordingRule,
+                                    RuleGroup, RuleManager, notify)
+from filodb_tpu_torch.utils import racecheck, selfmon
+group = RuleGroup("g", 60_000, "timeseries", (
+    RecordingRule("ns:rate", "sum(rate(http_requests_total[5m])) by (_ns_)"),
+    AlertingRule("Busy", "sum(rate(http_requests_total[5m])) > 0")))
+mgr = RuleManager(svc, MemstoreSink(store, "timeseries", 4, 1), [group],
+                  ooo_allowance_ms=0)
+evaluated = mgr.tick()
+meta_store = MemStore(1, 0)
+mon = selfmon.MetaMonitor(MemstoreSink(meta_store, "_meta", 1, 0))
+cpy = InMemoryColumnStore()
+disk2 = open_local(tempfile.mkdtemp(), num_shards=4, spread=1)
+disk2.ingest_series(labels, ts, vals)
+disk2.flush_all(1_000)
+read = remote_read.read_series(store, {
+    "start_ms": 0, "end_ms": 2**62,
+    "filters": parse_query("http_requests_total", TimeStepParams(0, 0, 0))
+    .raw.filters})
+standing = [evaluated, len(mgr.alerts_snapshot()), mon.tick() > 0,
+            meta_store.shards[0].num_partitions > 0, len(read),
+            len(remote_read.encode_read_response([read])) > 0,
+            repair.PartitionKeysCopier(disk2.column_store, cpy, "timeseries",
+                                       4, n_splits=2).run(),
+            repair.ChunkCopier(disk2.column_store, cpy, "timeseries", 4,
+                               n_splits=2).run(0, 2**62)["partitions"]]
+disk2.close()
 
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
@@ -292,6 +328,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "memory": memory, "control": control,
                   "adaptive": adaptive_rows, "core": core,
                   "longterm": longterm, "objectstore": objrows,
+                  "standing": standing,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -343,4 +380,8 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert res["longterm"] == [["exec", tiers, 2], ["exec", tiers, 1], True]
     assert res["objectstore"] == [["objectstore"], 12, True, 3, 12,
                                   0xE3069283]
+    # one step of two rules, the alert active, the self-monitor's series,
+    # 12 series read back, 12 part keys and the 12 partitions' chunks
+    # copied over two splits
+    assert res["standing"] == [2, 1, True, True, 12, True, 12, 12]
     assert res["loaded"] == []

@@ -887,3 +887,63 @@ def test_pyramid_lane_on_card_equals_cpu(cuda, tmp_path):
                 del os.environ["FILODB_SIDECARS"]
         assert outs[0].tobytes() == outs[1].tobytes(), q
     cs.close()
+
+
+def test_rule_ticks_on_card_equal_cpu(cuda):
+    """A 60 s group and a 10 s group ticked by a ``RuleManager`` on the card
+    and by one on the CPU over twin stores: the fresh-start ticks (one step:
+    the sidecar lane, B1/B2 on the edge chunks) and a catch-up of 12 steps
+    (mesh: B3 and B4) write the same series, within the reference's rule
+    tolerance, and the same watermarks and alert states."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.rules import (
+        AlertingRule,
+        MemstoreSink,
+        RecordingRule,
+        RuleGroup,
+        RuleManager,
+    )
+
+    rng = np.random.default_rng(5)
+    n, T = 400, 360
+    ts = 1_600_000_000_000 + np.arange(T) * 10_000 \
+        + rng.integers(-500, 501, (n, T))
+    counters = np.cumsum(rng.integers(0, 20, (n, T)), axis=1).astype(float)
+    labels = [{"_metric_": "m", "_ws_": "w", "_ns_": f"ns-{i % 7}",
+               "instance": f"i-{i}", "job": f"j-{i % 3}"} for i in range(n)]
+    groups = [
+        RuleGroup("g60", 60_000, "timeseries", (
+            RecordingRule("ns:m:rate5m", "sum(rate(m[5m])) by (_ns_)"),
+            AlertingRule("Busy", "sum(rate(m[5m])) by (_ns_) > 1.9",
+                         for_ms=60_000))),
+        RuleGroup("g10", 10_000, "timeseries", (
+            RecordingRule("job:m:sum1m", "sum(sum_over_time(m[1m])) by (job)"),
+        ))]
+    sides = {}
+    for name, dev in (("card", cuda), ("cpu", "cpu")):
+        store = MemStore(4, 1, max_chunk_size=100)
+        store.ingest_series(labels, ts[:, :240], counters[:, :240])
+        svc = QueryService(store, dev)
+        mgr = RuleManager(svc, MemstoreSink(store, "timeseries", 4, 1),
+                          groups, ooo_allowance_ms=0)
+        _build.reset_counts()
+        fresh = mgr.tick()
+        store.ingest_series(labels, ts[:, 240:], counters[:, 240:])
+        catch_up = mgr.tick()
+        sides[name] = (svc, mgr, fresh, catch_up, dict(_build.LAUNCHES))
+    (gsvc, gmgr, gf, gc, launches), (csvc, cmgr, cf, cc, _) = \
+        sides["card"], sides["cpu"]
+    assert (gf, gc) == (cf, cc) and gc > 12
+    assert all(launches.values()), launches
+    for g in groups:
+        assert gmgr._state[g.name].last_step == cmgr._state[g.name].last_step
+    assert [(a["labels"], a["state"]) for a in gmgr.alerts_snapshot()] == \
+        [(a["labels"], a["state"]) for a in cmgr.alerts_snapshot()]
+    end = gmgr._state["g10"].last_step // 1000
+    for rec in ("ns:m:rate5m", "job:m:sum1m", "ALERTS"):
+        x = gsvc.query_range(rec, end - 3600, 10, end)
+        y = csvc.query_range(rec, end - 3600, 10, end)
+        assert x.result.keys == y.result.keys and x.result.num_series
+        np.testing.assert_allclose(np.asarray(x.result.values),
+                                   np.asarray(y.result.values), rtol=2e-5,
+                                   atol=1e-9, equal_nan=True, err_msg=rec)

@@ -9,8 +9,8 @@ The cases of ``tests/test_objectstore.py`` run against the port's row
 API (``write_chunk_rows`` / ``read_chunk_rows`` of serialized chunks);
 equal writes to both packages' stores give byte-equal objects (segments,
 pyramids, manifests, checkpoints, the index snapshot), and either package
-reads a bucket the other wrote. The reference's repair case waits for the
-port's repair jobs (ROADMAP A6.5).
+reads a bucket the other wrote. The repair jobs fan out over the buckets'
+splits (``core/store/repair.py``).
 
 A cold tier lost to transport faults raises in the port, never returns
 wrong data; the reference answers the other tiers as a partial result,
@@ -560,8 +560,16 @@ class TestSplitScans:
         full.close()
 
     def test_repair_jobs_fan_out_over_splits(self):
-        pytest.skip("the port's repair jobs (core/store/repair.py) come "
-                    "in ROADMAP A6.5")
+        from filodb_tpu_torch.core.store.repair import PartitionKeysCopier
+
+        src, dst = _mk(bucket_count=8), _mk(bucket_count=8)
+        pks = self._fill(src)
+        PartitionKeysCopier(src, dst, DS, num_shards=1, n_splits=4).run()
+        dst.flush()
+        assert {str(r.part_key) for r in dst.scan_part_keys(DS, 0)} == \
+            {str(pk) for pk in pks}
+        src.close()
+        dst.close()
 
 
 class TestConcurrency:
@@ -906,13 +914,40 @@ def test_catch_up_on_object_store(tmp_path):
 
 
 def test_a_job_over_a_store_without_split_scans_takes_one_split(tmp_path):
-    from filodb_tpu_torch.core.downsample import DownsamplerJob
-    from filodb_tpu_torch.core.store.localstore import LocalDiskColumnStore
+    """The local store had no split scans, and a job over it raised for
+    ``n_splits`` > 1; the base class's split scans filter the full scan
+    now (ROADMAP A6.5), so four splits run there and write the ds chunks
+    one split writes."""
+    from filodb_tpu_torch.core.downsample import (
+        DownsamplerJob,
+        ds_dataset_name,
+    )
+    from filodb_tpu_torch.core.store.localstore import (
+        LocalDiskColumnStore,
+        LocalDiskMetaStore,
+    )
 
-    job = DownsamplerJob(LocalDiskColumnStore(str(tmp_path)), DS, 1,
-                         n_splits=4)
-    with pytest.raises(NotImplementedError, match="A6"):
-        job.run(0, 10)
+    res = 300_000
+    labels = [{"_metric_": "heap_usage", "_ws_": "demo", "_ns_": f"app-{i}"}
+              for i in range(12)]
+    ts = np.tile(1_600_000_000_000 + np.arange(200) * 10_000, (12, 1))
+    vals = np.arange(12 * 200, dtype=np.float64).reshape(12, 200)
+    out = {}
+    for n in (1, 4):
+        root = str(tmp_path / f"s{n}")
+        ms = MemStore(1, 0, max_chunk_size=50,
+                      column_store=LocalDiskColumnStore(root),
+                      meta_store=LocalDiskMetaStore(root))
+        ms.ingest_series(labels, ts, vals, schema="gauge")
+        ms.flush_all(100)
+        stats = DownsamplerJob(ms.column_store, DS, 1, resolutions_ms=(res,),
+                               n_splits=n).run(0, 200)
+        assert stats["partitions"] == 12
+        out[n] = {(bytes(b), bytes(d)) for b, d in
+                  ms.column_store.scan_chunk_rows_by_ingestion_time(
+                      ds_dataset_name(DS, res), 0, 0, 2**62)}
+        ms.close()
+    assert out[1] == out[4] and len({b for b, _ in out[1]}) == 12
 
 
 # ---- a cold tier under faults ----------------------------------------------------

@@ -117,15 +117,14 @@ UNSUPPORTED = [
     {"wal_server_port": 9093},
     {"store_remote": "127.0.0.1:9094"},
     {"store_server_port": 9095},
-    {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
-    {"selfmon": {"enabled": True}},
     {"resilience": {"retry_max_attempts": 5}},
     {"resilience": {"allow_partial": False}},
 ]
 
 # blocks the port acts on since its control plane came (and, since long
 # retention came, ``downsample`` and ``federation``; since the object
-# store came, ``store.backend``); until then
+# store came, ``store.backend``; since the standing queries came,
+# ``rules.groups`` and ``selfmon.enabled``); until then
 # ``test_unsupported_options_raise`` held that each of them raised
 ACTED_ON = [
     {"store": {"backend": "object"}},
@@ -139,6 +138,8 @@ ACTED_ON = [
     {"resilience": {"query_timeout_s": 5.0}},
     {"cost_model": {"min_samples": 2}},
     {"tracing": {"sample_rate": 1.0}},
+    {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
+    {"selfmon": {"enabled": True}},
 ]
 
 
@@ -178,6 +179,18 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
                 ObjectStoreColumnStore,
             )
             assert isinstance(srv.column_store, ObjectStoreColumnStore)
+            return
+        if block == "rules":
+            # one rule manager over the first dataset's groups
+            assert [g.name for g in srv.rule_managers[DS].groups] == ["g"]
+            return
+        if block == "selfmon":
+            # the _meta dataset after the user's, its sampler and the
+            # default alert group over it
+            assert list(srv.services)[-1] == "_meta"
+            assert srv.selfmon is not None
+            assert [g.name for g in srv.rule_managers["_meta"].groups] \
+                == ["selfmon_default"]
             return
         if block in ("datasets", "federation"):
             # the long-time planner over the raw one, or the tiered one

@@ -208,5 +208,6 @@ def test_debug_and_status_routes(stores):
     assert all(s["maxIngestedTs"] > 0 for s in shards)
     assert "slowIngest" in body["data"]
     code, body = _get(svc, "/api/v1/status/tsdb")
-    assert code == 501
+    assert code == 200
+    assert body["data"][DS]["headStats"]["numShards"] == NUM_SHARDS
     cm.reset_models()
