@@ -208,7 +208,9 @@ checks it, phase by phase; any failed phase exits non-zero:
    traced at ``sample_rate`` 1, its span tree from the slow-query ring
    (threshold 1 ms).
 
-17. (after phase 9, on the phase-2 store, which it changes) the write path
+17. (after phase 9, on a store of its own of the phase-2 generator's first
+   ``CORE_SERIES`` series, which it changes; on the phase-2 store under
+   ``--ingest-only``) the write path
    through the C++ ingest core (``core/memstore/native_shard.py``):
    ``CORE_SCRAPES`` scrapes of every series, 10 s apart from the 2 h's
    end, each shard's series in containers of ``CORE_CONTAINER`` records
@@ -264,8 +266,9 @@ checks it, phase by phase; any failed phase exits non-zero:
    atol 1e-6); ``approx_topk`` and ``approx_cardinality`` under
    ``FILODB_SIDECAR_APPROX=1`` must read no payload, find the largest value
    and count the series within 10 %.
-20. Standing queries, in two steps. Step 1, on the phase-2 store
-   after phase 17 (before its service goes): a ``RuleManager`` a group
+20. Standing queries, in two steps. Step 1, on phase 17's store
+   after phase 17 (before its service goes; the phase-2 store under
+   ``--rules-only``): a ``RuleManager`` a group
    over a ``MemstoreSink``, a 60 s group (``sum(rate) by (_ns_)``
    recorded, and an alert on it above the median of its fresh-start
    values with ``for: 1m``) and a 10 s group (``sum(sum_over_time[1m]) by
@@ -289,6 +292,28 @@ checks it, phase by phase; any failed phase exits non-zero:
    on the same directory, where the group must resume at its watermark,
    and after two more steps hold one recorded sample a step a namespace.
 
+21. The multi-process mesh runtime, in two steps. Step 1 (after phase 5,
+   while the root holds phase 3's batches only and the phase-2 store is
+   still phase 2's): ``MP_WORKERS`` mesh worker
+   processes on the card, spawned after phase 1 with the seed callable
+   ``multiproc_store`` (each ingests the phase-2 generator's series that
+   route to its shard slice, beside the root's phase 2), under a
+   ``MeshClusterRuntime`` whose root holds the phase-2 store; each of
+   ``MP_QUERIES`` at phase 3's grid cold once and warm ``MP_WARM`` times
+   through the runtime and through the root's single-process engine, every
+   answer bitwise the engine's and routed ``ok``
+   (``filodb_mesh_proc_dispatch``); the workers' launches from their
+   status (B3 and B1/B2/B4 each above 0: ``launches_phase21``), device
+   bytes and the last collective's seconds; ``FILODB_MULTIPROC=0`` parity;
+   then one worker killed, and the fallback answer bitwise with
+   ``fallback{reason="worker"}`` one up. Step 2 (after phase 20's node):
+   a node over phase 11's directory with ``mesh_workers`` (the workers
+   recover from its stores and tail its WAL read-only; the extent and
+   response caches off), ``MP_NODE_QUERY`` over HTTP routed ``ok`` and
+   equal to the node's answer under ``FILODB_MULTIPROC=0``,
+   ``status/mesh`` with ``multiproc: true``, then a scrape and a query at
+   once (``ok`` or ``stale``), then routed ``ok`` and equal again.
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
@@ -296,7 +321,8 @@ Its last two lines are a JSON object with the kernels' numbers and
 and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
 phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 ``--objectstore-only``: phases 1 and 19; ``--rules-only``: phases 1, 2,
-11 and 20).
+11 and 20; ``--multiproc-only``: phases 1, 2, 21 step 1, 11 and 21 step
+2).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2427,10 +2453,12 @@ def durability_phase(dev, args) -> dict:
     return out
 
 
-def durable_and_node(dev, args, rules: bool = False) -> tuple:
+def durable_and_node(dev, args, rules: bool = False,
+                     multiproc: bool = False) -> tuple:
     """Phases 11 and 12 over one directory, with ``rules`` phase 20's
-    node after phase 12's, then its removal: (phase 11, phase 12, phase
-    20 step 2 or None)."""
+    node after phase 12's and with ``multiproc`` phase 21's after that,
+    then its removal: (phase 11, phase 12, phase 20 step 2 or None, phase
+    21 step 2 or None)."""
     import gc
 
     import torch
@@ -2440,13 +2468,17 @@ def durable_and_node(dev, args, rules: bool = False) -> tuple:
     torch.cuda.empty_cache()
     node = node_phase(dev, args, durable)
     del durable["scrape"], durable["bodies"]
-    rules_node = None
+    rules_node = mp_node = None
     if rules:
         gc.collect()
         torch.cuda.empty_cache()
         rules_node = rules_node_phase(dev, args)
+    if multiproc:
+        gc.collect()
+        torch.cuda.empty_cache()
+        mp_node = multiproc_node_phase(dev, args)
     node["bytes_freed"] = remove_dir(args.durable_dir)
-    return durable, node, rules_node
+    return durable, node, rules_node, mp_node
 
 
 def remove_dir(root) -> int:
@@ -3044,13 +3076,14 @@ def _node_scheduler(srv) -> dict:
 # phase-2 generator's first EVICT_SERIES series (500 a namespace) on a
 # local-disk store, 20 flush groups a shard, a budget of EVICT_MEM_MB a
 # shard (about half a shard's chunk bytes, as 30 MiB was of 100,000
-# series' before the cut that keeps the smoke in its limit, PERF.md §4)
+# series' and 15 MiB of 50,000 series' before the cuts that keep the smoke
+# in its limit, PERF.md §4)
 # and a retention of EVICT_RETENTION_MS. One more scrape reaches
 # App-50..App-99 only, so App-0..App-49 stop: the scheduler's tick evicts
 # their chunks, evict_cold_partitions then the partitions, App-0 comes back
 # through the bloom and purge_expired drops the rest.
-EVICT_SERIES = 50_000
-EVICT_MEM_MB = 15
+EVICT_SERIES = 25_000  # 50,000 until phase 21 came (PERF.md §4)
+EVICT_MEM_MB = 8
 EVICT_RETENTION_MS = 1_800_000  # 30 min past a series' last sample
 EVICT_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
                  f"sum(count_over_time({M}[5m])) by (job)")
@@ -3312,7 +3345,7 @@ def eviction_phase(dev, args) -> dict:
 NB_BYTES = "node_network_receive_bytes_total"
 CPU_S = "process_cpu_seconds_total"
 LOAD1 = "node_load1"
-HOST_SERIES = 150_000  # (PERF.md §4)
+HOST_SERIES = 50_000  # (PERF.md §4; 150,000 until phase 21 came)
 HOST_SHARES = ((NB_BYTES, "prom-counter", 10), (CPU_S, "prom-counter", 4),
                (LOAD1, "gauge", 1))
 HOST_QUERIES = (f"sum(rate({NB_BYTES}[5m])) by (_ns_)",
@@ -3524,9 +3557,9 @@ def host_lane_phase(dev, args) -> dict:
 # queries one at a time, five data ranges in turn, rebuilt a batch for
 # nearly every query (the phase ran past 20 minutes); then from 250,000
 # to 150,000 and, when phase 16 came to run on this store, to 100,000
-# (phase 11's count), then to 50,000 when phase 20 came, to keep the
-# smoke well inside its limit (PERF.md §4)
-SERVING_SERIES = 50_000
+# (phase 11's count), then to 50,000 when phase 20 came and to 25,000
+# when phase 21 came, to keep the smoke inside its limit (PERF.md §4)
+SERVING_SERIES = 25_000
 SERVING_BATCH = 100
 SERVING_SHIFTS = 5
 SERVING_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
@@ -4096,7 +4129,8 @@ def _control_tracing(svc) -> dict:
 # of the reference raises it; phase 16 checks that the default raises.
 # Its deadline is SMOKE_TIMEOUT_S: a cold query at 1 M series takes up to
 # 40 s, past the default 30 s.
-# phase 17: the write path at full width on the phase-2 store. A scrape a
+# phase 17: the write path on phase 17's store (CORE_SERIES series; the
+# phase-2 store under --ingest-only). A scrape a
 # container lane: CORE_SCRAPES scrapes of every series 10 s apart from the
 # 2 h's end, each shard's series in containers of CORE_CONTAINER records
 # (the gateway's flush_every), one ingest thread a shard, as the node's
@@ -4104,6 +4138,9 @@ def _control_tracing(svc) -> dict:
 # was sent; a query and the sidecar instants over the new samples; and
 # the seal wave that 400-sample chunks give every series every 4,000 s
 CORE_SCRAPES = 12
+# the series of phases 17 and 20 in the full smoke (1 M until phase 21
+# came; the phase-2 store under --ingest-only and --rules-only; PERF.md §4)
+CORE_SERIES = 250_000
 CORE_CONTAINER = 512
 CORE_CHECKED = 1_000
 CORE_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
@@ -5731,6 +5768,338 @@ def rules_node_phase(dev, args) -> dict:
     return out
 
 
+# phase 21: the multi-process mesh runtime. Step 1: ``MP_WORKERS`` worker
+# processes on the card, each ingesting the phase-2 generator's series
+# that route to its shard slice (``multiproc_store``, spawned at the
+# smoke's start so their ingest overlaps the root's), under a runtime
+# whose root holds the phase-2 store; ``MP_QUERIES`` at phase 3's grid,
+# each bitwise against the root's single-process engine. Step 2: a node
+# with ``mesh_workers`` over phase 11's directory.
+MP_WORKERS = 2
+MP_QUERIES = (
+    f"sum(rate({M}[5m])) by (_ns_)",
+    f"sum by (job) (rate({M}[5m]))",
+    f"avg(rate({M}[10m]))",
+    f"sum(sum_over_time({M}[5m])) by (job)",
+    f"sum(count_over_time({M}[5m])) by (job)",
+)
+MP_WARM = 3
+MP_SEED = "chip_smoke:multiproc_store"
+MP_NODE_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
+MP_SCRAPED = 100  # series phase 21's node scrape sends a sample of
+MP_NODE_RANGE_S = 900  # its queries' range: the last 15 minutes
+
+
+def multiproc_store():
+    """Phase 21's seed callable, run inside each mesh worker: the phase-2
+    store's series that route to the worker's own ``--shards`` (read from
+    its command line), with the generator's arguments from
+    ``FILODB_SMOKE_SERIES``, ``_SAMPLES`` and ``_SEED``. The generator
+    runs over every series, so each kept series is the root's, sample for
+    sample, and each shard's partitions come in the root's order."""
+    import os
+
+    from filodb_tpu_torch.core.partkey import PartKey
+
+    lo, hi = (int(x) for x in
+              sys.argv[sys.argv.index("--shards") + 1].split(":"))
+    series = int(os.environ["FILODB_SMOKE_SERIES"])
+    samples = int(os.environ["FILODB_SMOKE_SAMPLES"])
+    rng = np.random.default_rng(int(os.environ["FILODB_SMOKE_SEED"]))
+    store = main_store()
+    step = 65536
+    for a in range(0, series, step):
+        labels, ts, vals = make_series(rng, a, min(a + step, series),
+                                       samples)
+        own = store.shard_of([PartKey.create("prom-counter", lb)
+                              for lb in labels])
+        keep = np.flatnonzero((own >= lo) & (own < hi))
+        store.ingest_series([labels[i] for i in keep], ts[keep], vals[keep])
+    return store
+
+
+def spawn_multiproc_workers(args, device=None):
+    """Phase 21's worker processes, on the card unless ``device`` names
+    another; they ingest their slices while the root goes on."""
+    import os
+
+    from filodb_tpu_torch.parallel.multiproc import MeshWorkerSupervisor
+
+    path = os.pathsep.join(p for p in (str(ROOT),
+                                       os.environ.get("PYTHONPATH")) if p)
+    return MeshWorkerSupervisor(
+        NODE_DS, 4, MP_WORKERS, seed=MP_SEED, device=device,
+        env={"FILODB_SMOKE_SERIES": str(args.series),
+             "FILODB_SMOKE_SAMPLES": str(args.samples),
+             "FILODB_SMOKE_SEED": str(args.seed),
+             "PYTHONPATH": path}).spawn()
+
+
+def _mp_counts() -> dict:
+    from filodb_tpu_torch.coordinator import mesh_cluster as mc
+
+    return {**{f"dispatch_{k}": c.value
+               for k, c in mc._M_PROC_DISPATCH.items()},
+            **{f"fallback_{k}": c.value
+               for k, c in mc._M_PROC_FALLBACK.items()}}
+
+
+def _mp_delta(before: dict) -> dict:
+    return {k: v - before[k] for k, v in _mp_counts().items()
+            if v != before[k]}
+
+
+def _bitwise(got, want, what: str) -> None:
+    if [str(k) for k in got.keys] != [str(k) for k in want.keys] \
+            or np.asarray(got.values).tobytes() \
+            != np.asarray(want.values).tobytes():
+        raise AssertionError(f"phase 21: {what}: not bitwise the "
+                             f"single-process engine's answer")
+
+
+def multiproc_phase(svc, sup, args) -> dict:
+    """Phase 21 step 1 (see the comment above ``MP_WORKERS``): each query
+    cold once and warm ``MP_WARM`` times through the runtime and through
+    the root's single-process engine, bitwise equal, every one routed
+    ``ok``; the workers' launches (B3, and B1/B2/B4, each above 0), device
+    bytes and the last collective's seconds; ``FILODB_MULTIPROC=0``
+    parity; then one worker killed, and the fallback answer bitwise the
+    single-process one with ``fallback{reason="worker"}`` one up."""
+    from filodb_tpu_torch.coordinator.mesh_cluster import MeshClusterRuntime
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    t_phase = time.perf_counter()
+    log(f"phase 21, step 1: the multi-process mesh runtime, {MP_WORKERS} "
+        f"worker processes on the card under a root over the phase-2 "
+        f"store ({args.series} series)")
+    t = time.perf_counter()
+    sup.wait_ready(timeout_s=SMOKE_TIMEOUT_S)
+    out = {"workers": MP_WORKERS, "slices": [list(r) for _, _, r in
+                                             sup.slices],
+           "ready_wait_s": time.perf_counter() - t, "queries": {}}
+    log(f"  workers ready (waited {out['ready_wait_s']:.1f} s more for "
+        f"their ingest): slices {out['slices']}")
+    rt = MeshClusterRuntime(svc.memstore, NODE_DS, 4, sup.slices,
+                            timeout=SMOKE_TIMEOUT_S, device=svc.device)
+    start, end = T0_MS // 1000, END_S
+    plans = {q: parse_query(q, TimeStepParams(start, 60, end))
+             for q in MP_QUERIES}
+    answers = {}
+    try:
+        for q, plan in plans.items():
+            times = {}
+            before = _mp_counts()
+            for side in ("multiproc", "single"):
+                runs = []
+                for _ in range(1 + MP_WARM):
+                    t = time.perf_counter()
+                    if side == "multiproc":
+                        got = rt.execute_plan(plan)
+                        if got is None:
+                            raise AssertionError(
+                                f"phase 21: {q} fell back: "
+                                f"{_mp_delta(before)}")
+                        got.materialize()
+                    else:
+                        res = svc._execute_uncached(plan, wide())
+                        if res.stats.engine != "mesh":
+                            raise AssertionError(f"phase 21: {q}: the "
+                                                 f"root's engine was "
+                                                 f"{res.stats.engine}")
+                        got = res.result
+                    runs.append((time.perf_counter() - t) * 1000.0)
+                times[side] = (runs[0], float(np.median(runs[1:])))
+                answers[(side, q)] = got
+            moved = _mp_delta(before)
+            if moved != {"dispatch_ok": 1 + MP_WARM}:
+                raise AssertionError(f"phase 21: {q}: counters {moved}")
+            _bitwise(answers[("multiproc", q)], answers[("single", q)], q)
+            out["queries"][q] = {
+                "cold_ms": times["multiproc"][0],
+                "warm_p50_ms": times["multiproc"][1],
+                "single_first_ms": times["single"][0],
+                "single_warm_p50_ms": times["single"][1],
+                "rows": answers[("single", q)].num_series,
+                "collective_s": rt.last_collective_s}
+            log(f"  {q}: multiproc cold {times['multiproc'][0]:.1f} ms, "
+                f"warm p50 {times['multiproc'][1]:.2f} ms; single-process "
+                f"first {times['single'][0]:.1f} ms, warm p50 "
+                f"{times['single'][1]:.2f} ms; {out['queries'][q]['rows']} "
+                f"rows, bitwise equal, routed ok; last collective "
+                f"{rt.last_collective_s * 1000:.2f} ms")
+        st = rt.status()
+        launches = {k: sum(w["launches"][k] for w in st["workers"])
+                    for k in st["workers"][0]["launches"]}
+        out["launches"] = launches
+        out["worker_device_bytes"] = [w["device_bytes"]
+                                      for w in st["workers"]]
+        out["worker_devices"] = [w["devices"] for w in st["workers"]]
+        out["last_collective_s"] = st["last_collective_s"]
+        card = svc.device.type == "cuda"  # the CPU's plain versions count
+        if card and (launches["fused_decode_rate"] <= 0 or not all(
+                launches[k] > 0 for k in ("decode_ts_page",
+                                          "decode_f32_page",
+                                          "windowed_sum"))):
+            raise AssertionError(f"phase 21: the workers' launches "
+                                 f"{launches}")
+        if not all(w["reachable"] and w["devices"] == 1
+                   and w["device"].startswith(svc.device.type)
+                   for w in st["workers"]):
+            raise AssertionError(f"phase 21: worker status {st}")
+        log(f"  the workers' launches {launches}; device bytes "
+            f"{[b / 1e9 for b in out['worker_device_bytes']]} GB; "
+            f"last collective {st['last_collective_s'] * 1000:.2f} ms")
+        # FILODB_MULTIPROC=0: the service falls through to its own engine
+        svc.mesh_cluster = rt
+        before = _mp_counts()
+        with valves(FILODB_MULTIPROC="0"):
+            for q, plan in plans.items():
+                res = svc._execute_uncached(plan, wide())
+                if res.stats.engine != "mesh":
+                    raise AssertionError(f"phase 21: {q} under "
+                                         f"FILODB_MULTIPROC=0: "
+                                         f"{res.stats.engine}")
+                _bitwise(res.result, answers[("multiproc", q)],
+                         f"{q} under FILODB_MULTIPROC=0")
+        moved = _mp_delta(before)
+        if moved != {"dispatch_fallback": len(plans),
+                     "fallback_disabled": len(plans)}:
+            raise AssertionError(f"phase 21: FILODB_MULTIPROC=0: {moved}")
+        # a lost worker: the fallback answer, bitwise
+        sup.procs[0].kill()
+        sup.procs[0].wait(timeout=60)
+        q = MP_QUERIES[0]
+        before = _mp_counts()
+        t = time.perf_counter()
+        res = svc._execute_uncached(plans[q], wide())
+        out["worker_loss_ms"] = (time.perf_counter() - t) * 1000.0
+        moved = _mp_delta(before)
+        if res.stats.engine != "mesh" or moved != {
+                "dispatch_fallback": 1, "fallback_worker": 1}:
+            raise AssertionError(f"phase 21: worker loss: "
+                                 f"{res.stats.engine}, {moved}")
+        _bitwise(res.result, answers[("single", q)], f"{q} after a worker "
+                 f"was killed")
+        log(f"  FILODB_MULTIPROC=0: {len(plans)} answers bitwise, "
+            f"fallback{{reason=\"disabled\"}} +{len(plans)}; worker 0 "
+            f"killed: {q} fell back in {out['worker_loss_ms']:.1f} ms, "
+            f"bitwise, fallback{{reason=\"worker\"}} +1")
+    finally:
+        svc.mesh_cluster = None
+        rt.shutdown()
+        sup.stop()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  step 1 took {out['seconds']:.1f} s")
+    return out
+
+
+def multiproc_node_phase(dev, args) -> dict:
+    """Phase 21 step 2: a node over phase 11's directory with
+    ``mesh_workers`` (``MP_WORKERS`` workers recovering from its stores and
+    tailing its WAL read-only; the extent and response caches off, so each
+    HTTP query is evaluated): ``MP_NODE_QUERY`` over HTTP routed ``ok`` once
+    the workers have replayed, its body equal to the same node's under
+    ``FILODB_MULTIPROC=0``; ``status/mesh`` with ``multiproc: true`` and
+    both workers reachable on one device each; then a scrape of
+    ``MP_SCRAPED`` series and a query at once (routed, or ``stale`` while
+    the workers tail), then routed ``ok`` and equal again."""
+    from filodb_tpu_torch.coordinator import mesh_cluster as mc
+
+    t_phase = time.perf_counter()
+    log(f"phase 21, step 2: a node with mesh_workers ({MP_WORKERS} "
+        f"workers) over phase 11's directory")
+    path = node_config(args.durable_dir)
+    conf = json.loads(Path(path).read_text())
+    conf.update({"mesh_workers": {"enabled": True, "workers": MP_WORKERS,
+                                  "ready_timeout_s": 600.0,
+                                  "timeout_s": SMOKE_TIMEOUT_S},
+                 "result_cache": {"enabled": False},
+                 "http_response_cache": False})
+    Path(path).write_text(json.dumps(conf))
+    out = {}
+    srv, out["boot"] = boot_node(path, dev, "phase 21's node")
+    try:
+        port = srv.http.port
+        end = DURABLE_END_S
+
+        def ask():
+            code, body, ms = http_get(
+                port, f"/promql/{NODE_DS}/api/v1/query_range",
+                query=MP_NODE_QUERY, start=end - MP_NODE_RANGE_S, end=end,
+                step=60)
+            if code != 200:
+                raise AssertionError(f"phase 21: HTTP {code}: {body[:300]}")
+            return body_data(body), ms
+
+        def routed(what: str, timeout_s: float = 300.0):
+            deadline = time.perf_counter() + timeout_s
+            tries = []
+            while True:
+                before = _mp_counts()
+                body, ms = ask()
+                moved = _mp_delta(before)
+                tries.append(moved)
+                if moved.get("dispatch_ok"):
+                    return body, ms, tries
+                if time.perf_counter() > deadline:
+                    raise AssertionError(f"phase 21: {what}: not routed in "
+                                         f"{timeout_s} s: {tries[-3:]}")
+                time.sleep(0.2)
+
+        body, ms, tries = routed("the first query")
+        with valves(FILODB_MULTIPROC="0"):
+            plain, plain_ms = ask()
+        if body != plain:
+            raise AssertionError("phase 21: the node's routed body differs "
+                                 "from its FILODB_MULTIPROC=0 body")
+        out["first"] = {"ms": ms, "single_ms": plain_ms,
+                        "tries": len(tries), "before_ok": tries[:-1]}
+        code, sbody, _ = http_get(port, "/api/v1/status/mesh")
+        mesh = json.loads(sbody)["data"][NODE_DS]
+        if code != 200 or mesh["multiproc"] is not True \
+                or len(mesh["workers"]) != MP_WORKERS \
+                or not all(w["reachable"] and w["devices"] == 1
+                           for w in mesh["workers"]):
+            raise AssertionError(f"phase 21: status/mesh: {sbody[:600]}")
+        out["status"] = {"workers": [{k: w[k] for k in (
+            "shards", "device", "devices", "queries", "device_bytes",
+            "launches")} for w in mesh["workers"]],
+            "last_collective_s": mesh["last_collective_s"]}
+        log(f"  routed ok after {len(tries)} tries ({ms:.1f} ms against "
+            f"{plain_ms:.1f} ms under FILODB_MULTIPROC=0, bodies equal); "
+            f"status/mesh multiproc true, workers {out['status']['workers']}")
+        feed = []
+        for i in range(MP_SCRAPED):
+            lb = {"_metric_": M, "_ws_": "demo", "_ns_": f"App-{i % 100}",
+                  "instance": f"instance-{i}", "job": f"job-{i % 10}"}
+            feed.append((tuple(sorted(lb.items())), DURABLE_END_S * 1000,
+                         1e7))
+        _node_scrape(srv, feed, 60_000)
+        end = DURABLE_END_S + 60
+        before = _mp_counts()
+        _, ms = ask()
+        out["after_scrape"] = {"ms": ms, "counts": _mp_delta(before)}
+        body, ms, tries = routed("the query after the scrape")
+        with valves(FILODB_MULTIPROC="0"):
+            plain, plain_ms = ask()
+        if body != plain:
+            raise AssertionError("phase 21: after the scrape the routed "
+                                 "body differs from FILODB_MULTIPROC=0's")
+        out["tailed"] = {"ms": ms, "single_ms": plain_ms,
+                         "tries": len(tries)}
+        log(f"  a scrape of {MP_SCRAPED} series, then a query at once: "
+            f"{out['after_scrape']['counts']}; routed ok after "
+            f"{len(tries)} more tries, equal to FILODB_MULTIPROC=0's")
+        out["launches"] = {k: sum(w["launches"][k]
+                                  for w in out["status"]["workers"])
+                           for k in out["status"]["workers"][0]["launches"]}
+    finally:
+        srv.shutdown()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  step 2 took {out['seconds']:.1f} s")
+    return out
+
+
 def wide():
     """A QueryContext whose sample limit the smoke's answers fit."""
     from filodb_tpu_torch.query.model import PlannerParams, QueryContext
@@ -5915,9 +6284,10 @@ def main() -> int:
     ap.add_argument("--repeats", type=int, default=5)
     ap.add_argument("--long-series", type=int, default=4096)
     ap.add_argument("--long-samples", type=int, default=17_280)
-    # phase 8's histograms: cut from 100,000 (then 50,000, 30,000) to keep
-    # the smoke inside its limit with phases 12, 13 and 20 (PERF.md §4)
-    ap.add_argument("--hist-series", type=int, default=20_000)
+    # phase 8's histograms: cut from 100,000 (then 50,000, 30,000, 20,000)
+    # to keep the smoke inside its limit with phases 12, 13, 20 and 21
+    # (PERF.md §4)
+    ap.add_argument("--hist-series", type=int, default=10_000)
     ap.add_argument("--exec-only", action="store_true",
                     help="build, ingest the phase-2 store and run phase 10 "
                     "only (the exec engine against the mesh engine)")
@@ -5955,6 +6325,11 @@ def main() -> int:
                     help="build and run phase 19 only (the object-store "
                     "tier: flush to a FakeS3 bucket, a restart from it, the "
                     "tiered and pyramid-lane queries, the approx sketches)")
+    ap.add_argument("--multiproc-only", action="store_true",
+                    help="build, spawn the mesh workers, ingest the phase-2 "
+                    "store and run phase 21 only (the multi-process mesh "
+                    "runtime, then phase 11's directory and a node with "
+                    "mesh_workers)")
     ap.add_argument("--rules-only", action="store_true",
                     help="build, ingest the phase-2 store and run phases "
                     "11 and 20 only (standing queries over the store, then "
@@ -6045,6 +6420,28 @@ def _phases(args, smi) -> int:
             torch.device("cuda"), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.multiproc_only:
+        sup = spawn_multiproc_workers(args)
+        try:
+            t = time.perf_counter()
+            store = main_store()
+            kept = ingest(store, args.series, args.samples, args.seed)
+            log(f"phase 2: ingest: {args.series} series, {kept} samples, "
+                f"{time.perf_counter() - t:.1f} s on the host (the workers "
+                f"ingesting their slices beside it)")
+            mp = multiproc_phase(smoke_service(
+                store, device=torch.device("cuda")), sup, args)
+        finally:
+            sup.stop()
+        print(json.dumps({"multiproc": mp}))
+        del store
+        torch.cuda.empty_cache()
+        durability_phase(torch.device("cuda"), args)
+        print(json.dumps({"multiproc_node": multiproc_node_phase(
+            torch.device("cuda"), args)}))
+        remove_dir(args.durable_dir)
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.rules_only:
         t = time.perf_counter()
         store = main_store()
@@ -6063,7 +6460,7 @@ def _phases(args, smi) -> int:
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.durability_only:
-        durable, node, _ = durable_and_node(torch.device("cuda"), args)
+        durable, node, _, _ = durable_and_node(torch.device("cuda"), args)
         print(json.dumps({"durability": durable}))
         print(json.dumps({"node": node}))
         torch.cuda.empty_cache()
@@ -6071,8 +6468,27 @@ def _phases(args, smi) -> int:
                                                       args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
-    kernels, svc = run(torch.device("cuda"), args)
+    # phase 21's workers ingest their slices beside phase 2; step 1 runs
+    # right after phase 5, when the root holds phase 3's batches only (the
+    # card holds the root's and both workers' batches at once) and the
+    # store is still phase 2's
+    sup = spawn_multiproc_workers(args)
+    try:
+        kernels, svc = run(torch.device("cuda"), args)
+        torch.cuda.empty_cache()
+        mp = multiproc_phase(svc, sup, args)
+    finally:
+        sup.stop()
+    print(json.dumps({"multiproc": mp}))
+    torch.cuda.empty_cache()
     exec10 = exec_phase(svc, args)
+    return _rest(args, smi, kernels, svc, exec10, mp)
+
+
+def _rest(args, smi, kernels, svc, exec10, mp) -> int:
+    """The full smoke after phase 10."""
+    import torch
+
     print(json.dumps({"exec": exec10}))
     torch.cuda.empty_cache()
     longs = long_range(torch.device("cuda"), args, reps=3)
@@ -6082,12 +6498,25 @@ def _phases(args, smi) -> int:
     print(json.dumps({"promql": promql}))
     shapes = plan_shapes_phase(svc, args)
     print(json.dumps({"plan_shapes": shapes}))
+    # phases 17 and 20 on a store of their own of the phase-2 generator's
+    # first CORE_SERIES series (their scale cut for phase 21's room;
+    # --ingest-only and --rules-only run them on the 1 M-series store)
+    del svc
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    store = main_store()
+    n = min(CORE_SERIES, args.series)
+    kept = ingest(store, n, args.samples, args.seed)
+    log(f"phases 17 and 20: their store, the first {n} series of the "
+        f"phase-2 generator, {kept} samples, {time.perf_counter() - t:.1f} "
+        f"s on the host")
+    svc = smoke_service(store, device=torch.device("cuda"))
     keep: dict = {}
     core = ingest_core_phase(svc, args, keep)
     print(json.dumps({"ingest_core": core}))
     rules = rules_phase(svc, args, keep)
     print(json.dumps({"rules": rules}))
-    del svc, keep
+    del svc, store, keep
     torch.cuda.empty_cache()
     serving, serving_svc = serving_phase(torch.device("cuda"), args)
     print(json.dumps({"serving": serving}))
@@ -6095,11 +6524,12 @@ def _phases(args, smi) -> int:
     print(json.dumps({"control_plane": control}))
     del serving_svc
     torch.cuda.empty_cache()
-    durable, node, rules_node = durable_and_node(torch.device("cuda"), args,
-                                                 rules=True)
+    durable, node, rules_node, mp_node = durable_and_node(
+        torch.device("cuda"), args, rules=True, multiproc=True)
     print(json.dumps({"durability": durable}))
     print(json.dumps({"node": node}))
     print(json.dumps({"rules_node": rules_node}))
+    print(json.dumps({"multiproc_node": mp_node}))
     torch.cuda.empty_cache()
     evict = eviction_phase(torch.device("cuda"), args)
     print(json.dumps({"eviction": evict}))
@@ -6130,6 +6560,7 @@ def _phases(args, smi) -> int:
         kern["launches_phase18"] = longterm["launches"][kern["name"]]
         kern["launches_phase19"] = objstore["launches"][kern["name"]]
         kern["launches_phase20"] = rules["launches"][kern["name"]]
+        kern["launches_phase21"] = mp["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -9,9 +9,11 @@ in both packages.
 The port boots a single coordinator node (``standalone.py``). Options
 whose modules it does not have yet raise ``NotImplementedError`` naming
 their ROADMAP item when set away from their default (``UNPORTED``, and
-the ``resilience`` keys of remote dispatch). ``result_cache``,
-``http_response_cache``, ``governor``, ``resilience`` (its single-node
-``query_timeout_s``), ``cost_model``, ``tracing``, a dataset's
+the ``resilience`` keys of partial scatter-gather). ``result_cache``,
+``http_response_cache``, ``governor``, ``resilience`` (the query
+timeout, the retry policy and the circuit breakers), ``cost_model``,
+``tracing``, ``mesh_workers`` (the multi-process mesh runtime), a
+dataset's
 ``downsample`` block (the job, its streaming form and the long-time
 planner), ``federation`` (the tiered planner, with ``mem_retention_ms``
 set), ``store`` (``backend``: ``local`` sqlite, or ``object`` for the
@@ -109,6 +111,10 @@ DEFAULTS = {
         "lag_threshold": 0,
         "catchup_timeout_s": 30.0,
     },
+    # the multi-process mesh runtime (``parallel/multiproc.py``,
+    # ``coordinator/mesh_cluster.py``): N worker processes on the card, each
+    # a contiguous slice of one dataset's shards; the node reduces their
+    # windows and falls back to its own engines when a slice is unavailable
     "mesh_workers": {
         "enabled": False,
         "workers": 2,
@@ -177,7 +183,6 @@ UNPORTED = {
     "enable_failover": "coordinator failover (ROADMAP §A.12)",
     "migration": "live shard migration (ROADMAP §A.12)",
     "replication": "shard replication (ROADMAP §A.12)",
-    "mesh_workers": "the multi-process mesh runtime (ROADMAP §A.12)",
     "wal_remote": "the networked log (ROADMAP §A.12)",
     "wal_kafka": "the Kafka log (ROADMAP §A.12)",
     "wal_server_port": "the log server (ROADMAP §A.12)",
@@ -282,6 +287,13 @@ class ServerConfig:
                 raise NotImplementedError(
                     f"{opt}={_get(self, opt)!r}: {why}")
         resilience_mod.check_supported(self.resilience)
+        if (self.mesh_workers or {}).get("enabled") \
+                and self.store.get("backend", "local") != "local" \
+                and not (self.mesh_workers or {}).get("seed"):
+            raise NotImplementedError(
+                "mesh_workers over store.backend="
+                f"{self.store.get('backend')!r}: the workers recover from "
+                "the local-disk stores only (ROADMAP §A.12)")
         if self.http_impl not in ("fast", "threaded"):
             raise ValueError(f"http_impl {self.http_impl!r}: fast or "
                              f"threaded")

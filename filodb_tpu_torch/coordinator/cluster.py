@@ -32,6 +32,12 @@ retention by default); the raw shard's flush publishes its rollups there
 scheduler flushes those shards on its tick, as the reference's does.
 One node only: failure detection, migration, replication and remote
 dispatch wait for ROADMAP §A.12, and a second member raises.
+
+A ``read_only`` node is a mesh worker's view of a node another process
+runs (``parallel/multiproc.py::_tail_shards``): it recovers its shards
+from that node's stores and tails its logs opened read-only
+(``SegmentedFileLog(read_only=True)``), and starts no flush scheduler:
+flushes, checkpoints and the logs' retention stay the owner's.
 """
 
 from __future__ import annotations
@@ -72,6 +78,7 @@ class Node:
     meta_store: MetaStore = field(default_factory=InMemoryMetaStore)
     alive: bool = True
     flush_tick_s: float | None = None  # override the scheduler's cadence
+    read_only: bool = False  # a tailer of another process's node
     memstores: dict = field(default_factory=dict)  # dataset → MemStore
     # (dataset, shard) → {"keys", "index_s", "start_offset"}
     recovery: dict = field(default_factory=dict)
@@ -114,7 +121,7 @@ class Node:
         self._workers[key] = worker
         worker.start()
         _register_lag_gauges(dataset, shard, s, shard_log, worker)
-        if self._flusher is None:
+        if self._flusher is None and not self.read_only:
             self._flusher = _FlushScheduler(self, self.flush_tick_s)
             self._flusher.start()
 

@@ -49,6 +49,13 @@ ring) with the reference's spans: ``parse``, ``mesh-execute``,
 result-bytes budget keeps the rows that fit in ``degrade="partial"``,
 flagged ``partial`` with a warning.
 
+Where a node boots mesh workers (``mesh_workers``), ``mesh_cluster``
+holds the multi-process runtime (``coordinator/mesh_cluster.py``): a plan
+that reads the memstore only tries it first, inside its one admission,
+and falls through to the engines here where it answers None; a worker's
+shed propagates as ``QueryRejected``. Its answers carry ``stats.engine ==
+"mesh-proc"``.
+
 ``result_cache`` (off by default, as the reference's dataclass has it; a
 node turns it on from its config) puts the extent result cache
 (``query/result_cache.py``) in front of every engine: ``execute_logical``
@@ -229,6 +236,9 @@ class QueryService:
                                             memstore.spread,
                                             time_split_ms=time_split_ms)
         self.result_cache = ResultCache.from_config(result_cache)
+        # the multi-process runtime (``coordinator/mesh_cluster.py``) where
+        # a node boots mesh workers: memstore-only plans try it first
+        self.mesh_cluster = None
         self._plans: dict = {}
         self._plans_lock = threading.Lock()
         # the deadline of the query or batch holding ``lock``
@@ -334,7 +344,18 @@ class QueryService:
         t0 = time.perf_counter()
         fallback = ""
         result = None
-        if self.engine != "exec":
+        if self.engine != "exec" and self.mesh_cluster is not None \
+                and self._planner_mem_only(plan):
+            # the multi-process runtime first, inside this query's one
+            # admission; None (a worker lost or stale, a shape it does not
+            # take, FILODB_MULTIPROC=0) falls through to the engines here
+            stats = QueryStats(engine="mesh-proc")
+            with span("mesh-proc-execute"):
+                data = self.mesh_cluster.execute_plan(plan, self._deadline,
+                                                      stats)
+            if data is not None:
+                result = QueryResult(data, stats, qcontext.query_id)
+        if result is None and self.engine != "exec":
             fallback = self.mesh.supports(self.memstore, plan) \
                 if self._planner_mem_only(plan) else _OLDER_TIER
             if fallback is None:
@@ -473,10 +494,24 @@ class QueryService:
         on_mesh: dict = {}
         meshable = [i for i, p in enumerate(plans)
                     if self._planner_mem_only(p)]
+        if self.engine != "exec" and self.mesh_cluster is not None:
+            # the multi-process runtime first, a plan at a time (as
+            # ``_execute_uncached``); what it does not answer goes on
+            for i in meshable:
+                stats = QueryStats(engine="mesh-proc")
+                try:
+                    with span("mesh-proc-execute"):
+                        data = self.mesh_cluster.execute_plan(
+                            plans[i], self._deadline, stats)
+                except Exception as e:  # noqa: BLE001 - at its position
+                    data = e
+                if data is not None:
+                    on_mesh[i] = (data, stats)
+            meshable = [i for i in meshable if i not in on_mesh]
         if self.engine != "exec" and meshable:
             stats = [QueryStats(engine="mesh") for _ in meshable]
             with device_span("mesh-execute", self.device):
-                on_mesh = dict(zip(meshable, zip(self.mesh.execute_many(
+                on_mesh.update(zip(meshable, zip(self.mesh.execute_many(
                     self.memstore, [plans[i] for i in meshable], stats,
                     self._deadline), stats)))
         out: list = []

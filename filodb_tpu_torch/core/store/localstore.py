@@ -17,6 +17,12 @@ either package writes, the other reads.
 A flush of a shard's group writes its chunks with one ``executemany`` in
 one transaction; a query's page-in reads the chunks of many part keys in
 one statement (``read_chunk_rows``).
+
+A node reads a shard's database from many threads at once (the ingest
+and job threads, the flush scheduler, the HTTP routes, page-ins), and a
+sqlite connection is not safe to share: every use of a connection, reads
+as well as writes, holds that connection's lock until its rows are
+fetched (``_Db.use``; ROADMAP §C.14).
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from __future__ import annotations
 import os
 import sqlite3
 import threading
-from collections import defaultdict
+from contextlib import contextmanager
 
 from filodb_tpu_torch.core.store.api import (
     ColumnStore,
@@ -39,12 +45,22 @@ _FEW_KEYS = 256
 
 
 class _Db:
-    """One sqlite database per (dataset, shard), opened on first use."""
+    """One sqlite database per (dataset, shard), opened on first use, with
+    one lock a connection."""
 
     def __init__(self, root: str):
         self.root = root
         self._conns: dict[tuple[str, int], sqlite3.Connection] = {}
+        self._locks: dict[tuple[str, int], threading.RLock] = {}
         self._lock = threading.Lock()
+
+    @contextmanager
+    def use(self, dataset: str, shard: int):
+        """The shard's connection, held under its lock for the block: fetch
+        every row inside it."""
+        c = self.conn(dataset, shard)
+        with self._locks[(dataset, shard)]:
+            yield c
 
     def conn(self, dataset: str, shard: int) -> sqlite3.Connection:
         key = (dataset, shard)
@@ -83,6 +99,7 @@ class _Db:
                     c.execute(f"CREATE INDEX IF NOT EXISTS {tbl}_upd ON "
                               f"{tbl}(upd)")
                 self._conns[key] = c
+                self._locks[key] = threading.RLock()
             return c
 
     def close(self):
@@ -96,9 +113,6 @@ class LocalDiskColumnStore(ColumnStore):
     def __init__(self, root: str):
         self.root = root
         self._db = _Db(root)
-        # a write lock a shard file: shards flush side by side
-        self._wlocks: dict[tuple[str, int], threading.Lock] = \
-            defaultdict(threading.Lock)
         self._upd: dict[tuple[str, int], int] = {}
 
     def initialize(self, dataset: str, num_shards: int) -> None:
@@ -106,7 +120,7 @@ class LocalDiskColumnStore(ColumnStore):
             self._db.conn(dataset, s)
 
     def _upd_peek(self, c, dataset, shard) -> int:
-        """The last write counter (caller holds the shard's write lock),
+        """The last write counter (caller holds the shard's connection),
         read from the database the first time."""
         key = (dataset, shard)
         cur = self._upd.get(key)
@@ -123,8 +137,7 @@ class LocalDiskColumnStore(ColumnStore):
         return cur
 
     def write_chunk_rows(self, dataset, shard, rows, ingestion_time):
-        c = self._db.conn(dataset, shard)
-        with self._wlocks[(dataset, shard)]:
+        with self._db.use(dataset, shard) as c:
             upd = self._next_upd(c, dataset, shard)
             with c:  # one transaction
                 c.executemany(
@@ -136,23 +149,22 @@ class LocalDiskColumnStore(ColumnStore):
                     "(?,?,?)", ((r[0], ingestion_time, r[1]) for r in rows))
 
     def read_chunk_rows(self, dataset, shard, blobs, start_time, end_time):
-        c = self._db.conn(dataset, shard)
-        if len(blobs) <= _FEW_KEYS:
-            out = []
-            for b in sorted(set(blobs)):
-                out.extend(c.execute(
-                    "SELECT partition, data FROM chunks WHERE partition=? "
-                    "AND end_time>=? AND start_time<=? ORDER BY chunkid",
-                    (b, start_time, end_time)))
-            return out
-        want = set(blobs)
-        return [r for r in c.execute(
-            "SELECT partition, data FROM chunks WHERE end_time>=? AND "
-            "start_time<=?", (start_time, end_time)) if r[0] in want]
+        with self._db.use(dataset, shard) as c:
+            if len(blobs) <= _FEW_KEYS:
+                out = []
+                for b in sorted(set(blobs)):
+                    out.extend(c.execute(
+                        "SELECT partition, data FROM chunks WHERE "
+                        "partition=? AND end_time>=? AND start_time<=? "
+                        "ORDER BY chunkid", (b, start_time, end_time)))
+                return out
+            want = set(blobs)
+            return [r for r in c.execute(
+                "SELECT partition, data FROM chunks WHERE end_time>=? AND "
+                "start_time<=?", (start_time, end_time)) if r[0] in want]
 
     def write_part_keys(self, dataset, shard, records):
-        c = self._db.conn(dataset, shard)
-        with self._wlocks[(dataset, shard)]:
+        with self._db.use(dataset, shard) as c:
             upd = self._next_upd(c, dataset, shard)
             with c:
                 c.executemany(
@@ -165,25 +177,24 @@ class LocalDiskColumnStore(ColumnStore):
                      for r in records))
 
     def scan_part_keys(self, dataset, shard):
-        c = self._db.conn(dataset, shard)
-        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in
-                c.execute("SELECT partition, start_time, end_time FROM "
-                          "partkeys ORDER BY rowid")]
+        with self._db.use(dataset, shard) as c:
+            rows = c.execute("SELECT partition, start_time, end_time FROM "
+                             "partkeys ORDER BY rowid").fetchall()
+        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in rows]
 
     def scan_chunk_rows_by_ingestion_time(self, dataset, shard, start, end):
-        c = self._db.conn(dataset, shard)
         # the reference's scan: the partitions indexed in the window, then
         # each one's chunks of it by chunk id
-        return list(c.execute(
+        with self._db.use(dataset, shard) as c:
+            return c.execute(
             "SELECT c.partition, c.data FROM chunks c JOIN (SELECT DISTINCT "
             "partition, chunkid FROM ingestion_time_index WHERE "
             "ingestion_time>=? AND ingestion_time<?) i ON c.partition="
             "i.partition AND c.chunkid=i.chunkid ORDER BY c.partition, "
-            "c.chunkid", (start, end)))
+            "c.chunkid", (start, end)).fetchall()
 
     def delete_part_keys(self, dataset, shard, part_keys):
-        c = self._db.conn(dataset, shard)
-        with self._wlocks[(dataset, shard)], c:
+        with self._db.use(dataset, shard) as c, c:
             for pk in part_keys:
                 blob = pk.serialized
                 c.execute("DELETE FROM partkeys WHERE partition=?", (blob,))
@@ -192,28 +203,28 @@ class LocalDiskColumnStore(ColumnStore):
                           "partition=?", (blob,))
 
     def max_persisted_ts(self, dataset, shard):
-        c = self._db.conn(dataset, shard)
-        return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "
-                              "GROUP BY partition"))
+        with self._db.use(dataset, shard) as c:
+            return dict(c.execute("SELECT partition, MAX(end_time) FROM "
+                                  "chunks GROUP BY partition").fetchall())
 
     def max_persisted_ts_since(self, dataset, shard, chunk_token):
-        c = self._db.conn(dataset, shard)
         # by the upd index: sqlite would otherwise walk every chunk through
         # the primary key to group by partition
-        return dict(c.execute("SELECT partition, MAX(end_time) FROM chunks "
-                              "INDEXED BY chunks_upd WHERE upd > ? GROUP BY "
-                              "partition", (chunk_token,)))
+        with self._db.use(dataset, shard) as c:
+            return dict(c.execute(
+                "SELECT partition, MAX(end_time) FROM chunks INDEXED BY "
+                "chunks_upd WHERE upd > ? GROUP BY partition",
+                (chunk_token,)).fetchall())
 
     def scan_part_keys_since(self, dataset, shard, pk_token):
-        c = self._db.conn(dataset, shard)
-        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in
-                c.execute("SELECT partition, start_time, end_time FROM "
-                          "partkeys WHERE upd > ? ORDER BY rowid",
-                          (pk_token,))]
+        with self._db.use(dataset, shard) as c:
+            rows = c.execute("SELECT partition, start_time, end_time FROM "
+                             "partkeys WHERE upd > ? ORDER BY rowid",
+                             (pk_token,)).fetchall()
+        return [PartKeyRecord(pk_from_blob(b), st, et) for b, st, et in rows]
 
     def update_tokens(self, dataset, shard):
-        c = self._db.conn(dataset, shard)
-        with self._wlocks[(dataset, shard)]:
+        with self._db.use(dataset, shard) as c:
             cur = self._upd_peek(c, dataset, shard)
         return (cur, cur)
 
@@ -241,17 +252,16 @@ class LocalDiskColumnStore(ColumnStore):
 class LocalDiskMetaStore(MetaStore):
     def __init__(self, root: str):
         self._db = _Db(root)
-        self._wlock = threading.Lock()
 
     def write_checkpoint(self, dataset, shard, group, offset):
-        c = self._db.conn(dataset, shard)
-        with self._wlock, c:
+        with self._db.use(dataset, shard) as c, c:
             c.execute("INSERT INTO checkpoints VALUES (?,?) ON CONFLICT(grp) "
                       "DO UPDATE SET offset=excluded.offset", (group, offset))
 
     def read_checkpoints(self, dataset, shard):
-        c = self._db.conn(dataset, shard)
-        return dict(c.execute("SELECT grp, offset FROM checkpoints"))
+        with self._db.use(dataset, shard) as c:
+            return dict(c.execute("SELECT grp, offset FROM checkpoints")
+                        .fetchall())
 
     # the cost model's snapshot, ``<root>/<dataset>/costmodel.json``,
     # replaced atomically (``query/cost_model.py``)

@@ -466,18 +466,24 @@ class HttpDispatcher:
         return self._json(200, {"status": "success", "data": data})
 
     def _status_mesh(self, qs: dict):
-        """The mesh runtime's status. One process has no multi-process
-        runtime (ROADMAP §A.12): each dataset answers ``multiproc: false``
-        with its engine's counters, the reference's keys (the window
-        cache's hits and misses, the batches held, the hand-written
-        kernels loaded) and the kernels' launches since boot."""
+        """The mesh runtime's status. A dataset with a multi-process
+        runtime (``mesh_workers``) answers ``multiproc: true`` with the
+        runtime's ``status()`` (each worker's slice, breaker, devices,
+        caches, launches; the last collective's seconds); any other
+        ``multiproc: false``. Both carry this process's engine counters,
+        the reference's keys (the window cache's hits and misses, the
+        batches held, the hand-written kernels loaded) and the kernels'
+        launches since boot."""
         from filodb_tpu_torch import _build
         from filodb_tpu_torch.parallel import mesh_engine
 
         programs = sum(1 for n in _build._libs if n in _build.SOURCES)
         data = {}
         for name, svc in self._status_datasets(qs).items():
-            data[name] = {"multiproc": False, "engine": {
+            rt = getattr(svc, "mesh_cluster", None)
+            entry = {**rt.status(), "multiproc": True} if rt is not None \
+                else {"multiproc": False}
+            data[name] = {**entry, "engine": {
                 "hits": mesh_engine._M_EVAL["hit"].value,
                 "misses": mesh_engine._M_EVAL["miss"].value,
                 "batch_cache": len(svc.batches.batches()),

@@ -79,10 +79,14 @@ class FileLog(ReplayLog):
     MAGIC = b"FLOG1"
 
     def __init__(self, path: str, index_every: int = 64,
-                 fsync: bool = False):
+                 fsync: bool = False, read_only: bool = False):
+        """``read_only``: a tailer's view of a segment another process
+        appends to: no write handle, and a partial tail is never cut (it
+        may be the owner's append in flight)."""
         self.path = path
         self.index_every = index_every
         self.fsync = fsync
+        self.read_only = read_only
         self._lock = threading.Lock()
         self._count = 0
         self._index: list[tuple[int, int]] = []  # (offset, pos)
@@ -90,6 +94,8 @@ class FileLog(ReplayLog):
         if os.path.exists(path):
             with self._lock:
                 self._recover_scan()
+        elif read_only:
+            raise FileNotFoundError(path)
         else:
             with open(path, "wb") as f:
                 f.write(self.MAGIC)
@@ -103,12 +109,14 @@ class FileLog(ReplayLog):
                     os.fsync(dfd)
                 finally:
                     os.close(dfd)
-        self._f = open(path, "ab")
+        self._f = None if read_only else open(path, "ab")
 
     def _recover_scan(self):
         size = os.path.getsize(self.path)
         with open(self.path, "rb") as f:
             if f.read(5) != self.MAGIC:
+                if self.read_only:
+                    return  # a segment being created: read it next poll
                 raise ValueError(f"bad log file {self.path}")
             pos = 5
             while pos + 4 <= size:
@@ -120,12 +128,14 @@ class FileLog(ReplayLog):
                     self._index.append((self._count, pos))
                 pos += 4 + ln
                 self._count += 1
-        if pos < size:
+        if pos < size and not self.read_only:
             # appends after the garbage would be unreadable: cut it off
             with open(self.path, "r+b") as f:
                 f.truncate(pos)
 
     def append(self, container) -> int:
+        if self.read_only:
+            raise OSError(f"read-only tailer view of {self.path}")
         payload = container.serialize()
         with self._lock:
             pos = self._f.tell()
@@ -141,10 +151,13 @@ class FileLog(ReplayLog):
             return off
 
     def read_from(self, offset: int) -> Iterator[SomeData]:
-        """Whole records from ``offset`` to the end of the file."""
+        """Whole records from ``offset`` to the end of the file, as it is
+        now: a tailer sees what another process appended since it opened
+        the file; a partial record ends the scan, the next one retries."""
         offset = max(offset, 0)
         with self._lock:
-            self._f.flush()
+            if self._f is not None:
+                self._f.flush()
             seek_off, seek_pos = 0, 5
             for o, p in self._index:
                 if o <= offset:
@@ -176,21 +189,30 @@ class FileLog(ReplayLog):
             return self._count - 1
 
     def close(self):
-        self._f.close()
+        if self._f is not None:
+            self._f.close()
 
 
 class SegmentedFileLog(ReplayLog):
     """A log of segments of ``segment_entries`` entries each
     (``seg-<first offset, 20 digits>.log``); ``truncate_before`` deletes
     whole segments below a checkpoint, bounding the log without rewrites
-    (the Kafka segment and retention model)."""
+    (the Kafka segment and retention model).
+
+    ``read_only`` is a tailer's view of a log another process appends to
+    (a mesh worker tailing its node's WAL, ``parallel/multiproc.py``):
+    every segment opens read-only, ``append`` raises, ``align_after`` does
+    nothing, and each read picks up the segments the appender rolled since
+    and drops those it truncated."""
 
     def __init__(self, directory: str, segment_entries: int = 4096,
-                 index_every: int = 64, fsync: bool = False):
+                 index_every: int = 64, fsync: bool = False,
+                 read_only: bool = False):
         self.dir = directory
         self.segment_entries = segment_entries
         self.index_every = index_every
         self.fsync = fsync
+        self.read_only = read_only
         self._lock = threading.Lock()
         os.makedirs(directory, exist_ok=True)
         self._segments: list[tuple[int, FileLog]] = []  # (first_offset, log)
@@ -198,8 +220,9 @@ class SegmentedFileLog(ReplayLog):
             if name.startswith("seg-") and name.endswith(".log"):
                 self._segments.append(
                     (int(name[4:-4]), FileLog(os.path.join(directory, name),
-                                              index_every, fsync=fsync)))
-        if not self._segments:
+                                              index_every, fsync=fsync,
+                                              read_only=read_only)))
+        if not self._segments and not read_only:
             self._roll(0)
 
     def _roll(self, first_offset: int) -> None:
@@ -208,6 +231,8 @@ class SegmentedFileLog(ReplayLog):
                                                      fsync=self.fsync)))
 
     def append(self, container) -> int:
+        if self.read_only:
+            raise OSError(f"read-only tailer view of {self.dir}")
         with self._lock:
             first, seg = self._segments[-1]
             if seg.latest_offset + 1 >= self.segment_entries:
@@ -215,24 +240,55 @@ class SegmentedFileLog(ReplayLog):
                 first, seg = self._segments[-1]
             return first + seg.append(container)
 
+    def _discover_segments(self) -> None:
+        """A tailer's: open (read-only) the segments another process rolled
+        since this view last looked."""
+        known = {first for first, _ in self._segments}
+        for name in sorted(os.listdir(self.dir)):
+            if name.startswith("seg-") and name.endswith(".log"):
+                first = int(name[4:-4])
+                if first not in known:
+                    try:
+                        self._segments.append(
+                            (first, FileLog(os.path.join(self.dir, name),
+                                            self.index_every,
+                                            read_only=True)))
+                    except FileNotFoundError:
+                        pass  # truncated meanwhile
+        self._segments.sort(key=lambda t: t[0])
+
     def read_from(self, offset: int) -> Iterator[SomeData]:
         offset = max(offset, 0)
         with self._lock:
+            if self.read_only:
+                self._discover_segments()
             segments = list(self._segments)
         for i, (first, seg) in enumerate(segments):
-            # a segment ends where the next one starts
+            # a segment ends where the next one starts (a tailer's record
+            # counts are stale for segments another process appends to)
             if i + 1 < len(segments) and segments[i + 1][0] <= offset:
                 continue
-            for sd in seg.read_from(max(offset - first, 0)):
-                yield SomeData(sd.container, first + sd.offset)
+            try:
+                for sd in seg.read_from(max(offset - first, 0)):
+                    yield SomeData(sd.container, first + sd.offset)
+            except FileNotFoundError:
+                # the owner truncated this segment: its records lie below
+                # every checkpoint
+                with self._lock:
+                    self._segments = [(f, s) for f, s in self._segments
+                                      if f != first]
 
     @property
     def latest_offset(self) -> int:
         with self._lock:
+            if not self._segments:
+                return -1
             first, seg = self._segments[-1]
         return first + seg.latest_offset
 
     def align_after(self, offset: int) -> None:
+        if self.read_only:
+            return  # offsets are the appender's
         with self._lock:
             first, seg = self._segments[-1]
             if first + seg.latest_offset >= offset:
@@ -244,7 +300,7 @@ class SegmentedFileLog(ReplayLog):
     @property
     def earliest_offset(self) -> int:
         with self._lock:
-            return self._segments[0][0]
+            return self._segments[0][0] if self._segments else 0
 
     def truncate_before(self, offset: int) -> int:
         """Delete whole segments below ``offset`` (the newest is always

@@ -72,6 +72,20 @@ A query's deadline (``utils.resilience.Deadline``, handed to ``execute``
 and ``execute_many``) is checked where each leaf starts and ends, never
 inside a kernel.
 
+The multi-process runtime (``coordinator/mesh_cluster.py``,
+``parallel/multiproc.py``) splits a plan at its leaf. ``_lower``
+recognizes the reference's mesh shapes, ``agg by|without
+(fn(selector[w]))`` or a bare leaf under value-wise post-transforms
+(instant functions, an operator with a number, topk / bottomk), as a
+``MeshLowered``, and declines the grids the sidecar lane takes where
+``sidecars`` is set. A worker runs the leaf alone
+(``execute_lowered_many`` over the agg-stripped form): its per-series
+windows with every series' full key, in its shards' part order. The root
+runs the rest over the workers' rows concatenated in shard order
+(``reduce_rows``): this engine's own aggregation and transformer code, as
+``execute`` would run it over the same rows, so the answers are bitwise
+equal to the single-process engine's.
+
 ``supports`` decides, before anything runs, whether the engine serves a
 plan, as the reference's ``supports`` does: from the plan, and from the
 shards' indexes for which selectors match histograms. For any other plan
@@ -173,6 +187,20 @@ HIST_FNS = tuple(f for f in RANGE_FNS
 HIST_INSTANT_FNS = ("histogram_quantile", "histogram_max_quantile",
                     "hist_to_prom_vectors")
 _RANK_AGGS = ("topk", "bottomk", "quantile")  # one scalar parameter
+# the multi-process runtime's shapes (the reference's ``MESH_FNS`` and
+# ``MESH_AGG_OPS``) and the value-wise instant functions it applies after
+# the reduce
+MESH_FNS = ("rate", "increase", "delta", "sum_over_time", "count_over_time",
+            "avg_over_time", "min_over_time", "max_over_time",
+            "last_over_time", "present_over_time", "stddev_over_time",
+            "stdvar_over_time")
+MESH_AGGS = ("sum", "avg", "count", "min", "max", "stddev", "stdvar",
+             "group")
+_POST_INSTANT_FNS = (
+    "abs", "ceil", "floor", "exp", "ln", "log2", "log10", "sqrt", "round",
+    "clamp", "clamp_min", "clamp_max", "sgn", "deg", "rad", "acos", "asin",
+    "atan", "cos", "cosh", "sin", "sinh", "tan", "tanh",
+)
 _SCALAR_PLANS = (lp.ScalarFixedDoublePlan, lp.ScalarTimeBasedPlan,
                  lp.ScalarVaryingDoublePlan, lp.ScalarBinaryOperation)
 
@@ -210,6 +238,41 @@ class Lowered:
             self.start, self.step, self.end, self.window,
             None if self.keep_metric else self.fn, self.params, self.offset,
             self.at_ms)
+
+
+@dataclass(frozen=True)
+class MeshLowered:
+    """A plan in the multi-process runtime's shape (the reference's
+    ``_Lowered``): a leaf (``filters`` … ``offset``), the aggregation over
+    it (``agg``, ``by``, ``without``; ``agg`` None for none), whether the
+    leaf's keys keep the metric, and the post-transforms applied after the
+    reduce, innermost first: ``("instant", fn, args)``, ``("scalarop", op,
+    scalar, scalar_is_lhs, bool_mode)``, ``("kagg", op, params, by,
+    without)``."""
+
+    filters: tuple
+    start: int
+    step: int
+    end: int
+    window: int
+    fn: str
+    offset: int
+    agg: str | None
+    by: tuple
+    without: tuple
+    keep_metric: bool
+    post: tuple = ()
+
+    @property
+    def leaf(self) -> Lowered:
+        """The leaf as this engine evaluates it."""
+        return Lowered(tuple(self.filters), self.start, self.step, self.end,
+                       self.window, self.fn, self.offset,
+                       keep_metric=self.fn == "last_sample")
+
+
+def _with_post(low: MeshLowered, op: tuple) -> MeshLowered:
+    return replace(low, post=low.post + (op,))
 
 
 def _shape(plan) -> str:
@@ -418,6 +481,149 @@ class MeshQueryEngine:
         if self._collect is not None:
             self._collect.append(low)
         return hist
+
+    # ---- the multi-process runtime's split ------------------------------------
+
+    def _lower(self, plan) -> MeshLowered | None:
+        """``plan`` as a ``MeshLowered``, or None where it is not of the
+        runtime's shapes, or (with ``sidecars``) where its grid of at most
+        two steps goes to the sidecar lane, as ``_check`` hands it on."""
+        low = self._lower_plan(plan)
+        if low is not None and self.sidecars \
+                and (low.end - low.start) // max(low.step, 1) + 1 <= 2 \
+                and sidecar_lane.covers_fn(low.fn):
+            return None
+        return low
+
+    def _lower_plan(self, plan) -> MeshLowered | None:
+        """The reference's recognition: wrappers peel off into
+        post-transforms, then an aggregation, then the leaf."""
+        if isinstance(plan, lp.ApplyInstantFunction) \
+                and plan.function in _POST_INSTANT_FNS \
+                and all(_is_number(a) for a in plan.args):
+            inner = self._lower(plan.vector)
+            return None if inner is None else _with_post(
+                inner, ("instant", plan.function, tuple(plan.args)))
+        if isinstance(plan, lp.ApplyInstantFunction) \
+                and plan.function == "histogram_quantile":
+            args = [a.value if isinstance(a, lp.ScalarFixedDoublePlan)
+                    else a for a in plan.args]
+            if len(args) != 1 or not _is_number(args[0]):
+                return None
+            inner = self._lower(plan.vector)
+            return None if inner is None else _with_post(
+                inner, ("instant", "histogram_quantile", (float(args[0]),)))
+        if isinstance(plan, lp.ScalarVectorBinaryOperation):
+            sc = plan.scalar
+            if isinstance(sc, lp.ScalarFixedDoublePlan):
+                sc = sc.value
+            if not _is_number(sc):
+                return None
+            inner = self._lower(plan.vector)
+            return None if inner is None else _with_post(
+                inner, ("scalarop", plan.op, float(sc), plan.scalar_is_lhs,
+                        plan.bool_mode))
+        if isinstance(plan, lp.Aggregate) and plan.op in ("topk", "bottomk") \
+                and len(plan.params) == 1:
+            inner = self._lower(plan.vector)
+            if inner is None or inner.post:
+                return None
+            return _with_post(inner, ("kagg", plan.op, tuple(plan.params),
+                                      tuple(plan.by), tuple(plan.without)))
+        if isinstance(plan, lp.Aggregate):
+            if plan.op not in MESH_AGGS or plan.params:
+                return None
+            core = self._lower_periodic(plan.vector)
+            if core is None or core.agg is not None:
+                return None
+            return replace(core, agg=plan.op, by=tuple(plan.by),
+                           without=tuple(plan.without))
+        return self._lower_periodic(plan)
+
+    @staticmethod
+    def _lower_periodic(plan) -> MeshLowered | None:
+        if isinstance(plan, lp.PeriodicSeriesWithWindowing):
+            if plan.function not in MESH_FNS or plan.params \
+                    or plan.at_ms is not None:
+                return None
+            raw = plan.raw
+            if not isinstance(raw, lp.RawSeries) or raw.column is not None:
+                return None
+            # the parser records the selector offset on both nodes: one value
+            return MeshLowered(tuple(raw.filters), plan.start, plan.step,
+                               plan.end, plan.window, plan.function,
+                               plan.offset or raw.offset, None, (), (), False)
+        if isinstance(plan, lp.PeriodicSeries):
+            raw = plan.raw
+            if plan.at_ms is not None or not isinstance(raw, lp.RawSeries) \
+                    or raw.column is not None:
+                return None
+            return MeshLowered(tuple(raw.filters), plan.start, plan.step,
+                               plan.end, raw.lookback or STALENESS_MS,
+                               "last_sample", plan.offset or raw.offset,
+                               None, (), (), True)
+        return None
+
+    def execute_lowered_many(self, lows: list, memstore,
+                             stats: "QueryStats | list | None" = None
+                             ) -> list:
+        """Each ``MeshLowered`` evaluated: its leaf over every shard of
+        ``memstore`` (a worker's is its shard slice), then ``reduce_rows``.
+        None for one whose selector matches scalar series and histograms
+        both. ``stats`` is one ``QueryStats`` or one a lowered plan."""
+        if not isinstance(stats, list):
+            stats = [stats if stats is not None else QueryStats()] \
+                * len(lows)
+        out = []
+        for low, st in zip(lows, stats):
+            leaf = low.leaf
+            try:
+                self._kind(memstore, leaf)
+            except UnsupportedQuery:
+                out.append(None)
+                continue
+            m = self._leaf(memstore, leaf, st)
+            keys = self._batch(memstore, leaf).keys if m.num_series else []
+            out.append(self.reduce_rows(low, keys, m.values, m.steps_ms,
+                                        m.les))
+        return out
+
+    def reduce_rows(self, low: MeshLowered, keys: list, values, steps_ms,
+                    les=None, dropped: list | None = None) -> StepMatrix:
+        """What stands above ``low``'s leaf, over the leaf's rows (``keys``
+        with the metric, ``values`` [P, K] or [P, K, B]): the metric
+        dropped unless the leaf keeps it (``dropped``: the keys without it,
+        where the caller has them), the aggregation, then the
+        post-transforms, by the code ``_eval`` runs, on this engine's
+        device. ``keys`` may be handed on as they are: no one changes
+        them."""
+        if not keys:
+            return self._apply_post(StepMatrix.empty(steps_ms), low)
+        v = torch.as_tensor(values).to(self.device)
+        if not low.keep_metric:
+            keys = dropped if dropped is not None \
+                else [k.drop_metric() for k in keys]
+        m = StepMatrix(keys, v, steps_ms, les=les)
+        if low.agg is not None:
+            amr = AggregateMapReduce(low.agg, (), tuple(low.by),
+                                     tuple(low.without))
+            m = amr.apply(m, self.gids.of(amr, m))
+        return self._apply_post(m, low)
+
+    @staticmethod
+    def _apply_post(m: StepMatrix, low: MeshLowered) -> StepMatrix:
+        """``low``'s post-transforms, innermost first."""
+        for op in low.post:
+            if op[0] == "instant":
+                m = InstantVectorFunctionMapper(op[1], tuple(op[2])).apply(m)
+            elif op[0] == "scalarop":
+                m = ScalarOperationMapper(op[1], op[2], op[3],
+                                          op[4]).apply(m)
+            elif op[0] == "kagg":
+                amr = AggregateMapReduce(op[1], tuple(op[2]), tuple(op[3]),
+                                         tuple(op[4]))
+                m = amr.apply(m.settle())
+        return m
 
     # ---- leaves ---------------------------------------------------------------
 

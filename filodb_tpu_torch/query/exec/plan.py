@@ -79,6 +79,18 @@ from filodb_tpu_torch.query.model import (
 from filodb_tpu_torch.utils.resilience import check
 from filodb_tpu_torch.utils.tracing import span
 
+
+class PlanDispatcher:
+    """Ships a plan to where its data lives (the reference's
+    ``PlanDispatcher``). The framed transport's client
+    (``coordinator/remote.py``) and the mesh worker client derive from it,
+    which registers them on the plan wire; shipping exec plans themselves
+    comes with remote plan dispatch (ROADMAP A7)."""
+
+    def dispatch(self, plan: "ExecPlan", ctx: "ExecContext"):
+        raise NotImplementedError
+
+
 @dataclass
 class ExecContext:
     """What a plan runs against: the store, the query's stats, the card,

@@ -11,6 +11,12 @@ The engine hands values over as a torch tensor on its device;
 device (on the device, so only kept rows cross to the host) and brings them
 to host numpy (float64).
 
+On the plan wire (``coordinator/wire.py``) each of these classes carries
+the reference's fields, in its order (``__wire_fields__``): a
+``StepMatrix`` goes materialized, its values in host numpy, and the
+port's own fields stay behind, so both packages decode each other's
+frames and equal objects encode to the same bytes.
+
 ``QueryStats.timed`` times a stage into ``decode_s`` or ``reduce_s``: on
 the host's clock where the work runs on the CPU; on the card between two
 CUDA events recorded on the current stream, read by ``settle_timings``
@@ -87,6 +93,8 @@ class StepMatrix:
     """Series sharing step timestamps: values [P, K], or [P, K, B] with
     bucket bounds ``les`` for a histogram matrix (numpy after
     ``materialize``, possibly a device tensor before)."""
+
+    __wire_fields__ = ("keys", "values", "steps_ms", "les")
 
     keys: list[RangeVectorKey]
     values: "np.ndarray | torch.Tensor"
@@ -215,6 +223,12 @@ class StepMatrix:
 
 @dataclass
 class QueryStats:
+    __wire_fields__ = ("series_scanned", "samples_scanned", "result_series",
+                       "wall_time_s", "cpu_prep_s", "device_time_s",
+                       "chunks_touched", "cache_hits", "cache_misses",
+                       "wire_bytes", "admission_wait_s", "decode_s",
+                       "reduce_s", "sidecar_chunks", "tiers", "pyramid")
+
     series_scanned: int = 0
     samples_scanned: int = 0
     result_series: int = 0
@@ -248,6 +262,11 @@ class QueryStats:
     # folds (decode), and of the transformers and aggregations (reduce)
     decode_s: float = 0.0
     reduce_s: float = 0.0
+    # the reference's fields the port does not fill yet: carried on the
+    # wire (``wire_bytes`` is remote plan dispatch's, ROADMAP A7)
+    cpu_prep_s: float = 0.0
+    device_time_s: float = 0.0
+    wire_bytes: int = 0
     # (field, start, end) CUDA events of stages timed on the card, not yet
     # read (``settle_timings``)
     _timings: list = field(default_factory=list, repr=False, compare=False)
@@ -324,7 +343,12 @@ class QueryResult:
 
 @dataclass
 class PlannerParams:
-    """The reference's ``PlannerParams``, the fields the port reads."""
+    """The reference's ``PlannerParams``, the fields the port reads (and,
+    for the wire, the partial scatter-gather ones it does not yet)."""
+
+    __wire_fields__ = ("spread", "sample_limit", "enforce_sample_limit",
+                       "shard_overrides", "process_failure",
+                       "allow_partial", "max_partial_fraction", "budget")
 
     # per-query spread: over the planner's per-shard-key overrides and
     # its default (None: not set)
@@ -339,17 +363,27 @@ class PlannerParams:
     # the query's scan budget (``utils.governor.QueryBudget``); None: the
     # service attaches the governor's default (none unless configured)
     budget: "object | None" = None
+    # partial scatter-gather's (remote plan dispatch, ROADMAP A7): carried
+    # on the wire, read by nothing yet
+    process_failure: bool = True
+    allow_partial: "bool | None" = None
+    max_partial_fraction: "float | None" = None
 
 
 @dataclass
 class QueryContext:
     """The reference's ``QueryContext``, the fields the port reads."""
 
+    __wire_fields__ = ("query_id", "submit_time_ms", "origin",
+                       "planner_params", "trace")
+
     query_id: str = field(default_factory=lambda: uuid.uuid4().hex[:12])
     origin: str = ""  # who asked: "" (a user), "rules", ...
     planner_params: PlannerParams = field(default_factory=PlannerParams)
     # set by ``tracing.traced_query`` where the query is traced
     trace: "TraceContext | None" = None
+    submit_time_ms: int = field(
+        default_factory=lambda: int(time.time() * 1000))
 
 
 def enforce_limits(data: StepMatrix, qcontext: QueryContext) -> None:

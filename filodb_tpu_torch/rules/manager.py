@@ -249,6 +249,9 @@ class RuleManager:
         self._stalled_ticks = 0
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        # start and stop may race (a node's shutdown beside the thread that
+        # starts its managers once the shards are active)
+        self._life_lock = threading.Lock()
         rules_groups.set(rules_groups.value + len(self.groups))
         # pre-register watermark lag at 0 per group so the family scrapes
         # from boot (the metrics-parity gate lists it)
@@ -327,8 +330,8 @@ class RuleManager:
     # ------------------------------------------------------------- loop
 
     def start(self, tick_s: float = 1.0) -> "RuleManager":
-        if self._thread is not None or not self.groups:
-            return self
+        """Tick every ``tick_s`` on a thread of its own; a manager already
+        started, or stopped, stays as it is."""
 
         def loop():
             while not self._stop.wait(tick_s):
@@ -337,16 +340,21 @@ class RuleManager:
                 except Exception:
                     log.warning("rules tick failed", exc_info=True)
 
-        self._thread = threading.Thread(target=loop, daemon=True,
-                                        name="rule-manager")
-        self._thread.start()
+        with self._life_lock:
+            if self._thread is not None or not self.groups \
+                    or self._stop.is_set():
+                return self
+            self._thread = threading.Thread(target=loop, daemon=True,
+                                            name="rule-manager")
+            self._thread.start()
         return self
 
     def stop(self) -> None:
         self._stop.set()
-        if self._thread is not None:
-            self._thread.join(timeout=5.0)
-            self._thread = None
+        with self._life_lock:
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            thread.join(timeout=5.0)
         if self._notifier is not None:
             self._notifier.close()
 

@@ -38,6 +38,18 @@ the raw planner and a downsample planner, whose leaves read a
 ``TieredPlanner`` (memstore, the cold raw tier over the column store, and
 the downsample tier where there is one).
 
+The multi-process mesh runtime, as the reference's node boots it:
+``mesh_workers.enabled`` spawns ``workers`` mesh worker processes
+(``parallel/multiproc.py``) on this node's device, each a contiguous
+slice of the dataset's shards (``mesh_workers.dataset``, the first one
+by default), writes their config to ``<data_dir>/
+mesh_worker_config.json`` (they recover from this node's stores and tail
+its WAL read-only; ``mesh_workers.seed`` hands them a seed callable
+instead), waits ``ready_timeout_s`` for them and boots degraded where
+they are late (every query falls back until they answer), and puts a
+``MeshClusterRuntime`` on the dataset's service. Shutdown stops the
+workers.
+
 Standing queries and self-monitoring, as the reference's node wires them:
 ``rules.groups`` starts one ``RuleManager`` a dataset (``rules/``), its
 outputs written through the shards' logs, ticking once the dataset's
@@ -116,6 +128,8 @@ class FiloServer:
         self.watchdog: governor.MemoryWatchdog | None = None
         self.rule_managers: dict[str, RuleManager] = {}
         self.selfmon = None
+        self.mesh_supervisor = None  # the mesh worker processes
+        self.mesh_runtime = None     # the root's descriptor router
         self._ds_threads: list[threading.Thread] = []
         self._stop = threading.Event()
         self._setup_meta_dataset()
@@ -161,6 +175,7 @@ class FiloServer:
         # federation wraps the planner a dataset has by now: raw only, or
         # raw and downsample
         self._setup_federation()
+        self._start_mesh_workers()
         self.watchdog = self._watchdog().start()
         self._setup_rules()
         if (cfg.selfmon or {}).get("enabled"):
@@ -184,6 +199,56 @@ class FiloServer:
                  self.http.port,
                  self.gateway.port if self.gateway else "off", self.device)
         return self
+
+    def _start_mesh_workers(self) -> None:
+        """Spawn the mesh workers and attach the runtime to the dataset's
+        service (see the module's text)."""
+        import dataclasses
+        import json
+
+        cfg = self.config
+        mw = dict(cfg.mesh_workers or {})
+        if not mw.get("enabled") or not self.services:
+            return
+        ds = mw.get("dataset") or next(iter(cfg.datasets))
+        if ds not in self.services:
+            log.warning("mesh_workers.dataset %r not served here; "
+                        "multi-process mesh disabled", ds)
+            return
+        ing = cfg.datasets[ds]
+        seed = mw.get("seed") or None
+        config_path = None
+        if not seed:
+            config_path = os.path.join(cfg.data_dir,
+                                       "mesh_worker_config.json")
+            with open(config_path, "w") as f:
+                json.dump({"data_dir": cfg.data_dir, "wal_dir": cfg.wal_dir,
+                           "datasets": {ds: {
+                               "num_shards": ing.num_shards,
+                               "store": dataclasses.asdict(ing.store)}}}, f)
+        from filodb_tpu_torch.coordinator.mesh_cluster import (
+            MeshClusterRuntime,
+        )
+        from filodb_tpu_torch.parallel.multiproc import MeshWorkerSupervisor
+
+        sup = MeshWorkerSupervisor(
+            dataset=ds, num_shards=ing.num_shards,
+            workers=int(mw.get("workers", 2)),
+            base_port=int(mw.get("base_port", 0)),
+            config_path=config_path, seed=seed,
+            device=self.device.type).spawn()
+        self.mesh_supervisor = sup
+        try:
+            sup.wait_ready(timeout_s=float(mw.get("ready_timeout_s",
+                                                  120.0)))
+        except (TimeoutError, RuntimeError) as e:
+            log.warning("mesh workers not ready (%s); serving through the "
+                        "single-process engines until they are", e)
+        self.mesh_runtime = MeshClusterRuntime(
+            self.services[ds].memstore, ds, ing.num_shards,
+            sup.addresses(), timeout=float(mw.get("timeout_s", 30.0)),
+            device=self.device)
+        self.services[ds].mesh_cluster = self.mesh_runtime
 
     def _setup_rules(self) -> None:
         """One ``RuleManager`` a dataset with rule groups (the user's, and
@@ -434,6 +499,10 @@ class FiloServer:
             self.http.stop()
         if self.gateway is not None:
             self.gateway.stop()
+        if self.mesh_runtime is not None:
+            self.mesh_runtime.shutdown()
+        if self.mesh_supervisor is not None:
+            self.mesh_supervisor.stop()
         self.cluster.stop()
         for lg in self.logs.values():
             lg.close()

@@ -28,7 +28,13 @@ the pyramid lane serves and the approximate sketches; and the standing
 queries' (``rules``, ``utils/selfmon``, ``utils/racecheck``,
 ``http/remote_read``, ``core/store/repair``), through a rule tick over the
 store, a self-monitor tick, a remote read and the repair jobs' split
-scans over a local-disk store.
+scans over a local-disk store; and the multi-process mesh runtime's
+(``parallel/multiproc``, ``coordinator/{mesh_cluster,remote,wire}``),
+through a query answered by two in-thread mesh workers and by a spawned
+worker process. The spawned worker's seed callable, run inside the
+worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
+both for the rest of its life, so a worker that loaded either never
+answers: the check needs no field of the worker's protocol.
 """
 
 import json
@@ -315,6 +321,60 @@ standing = [evaluated, len(mgr.alerts_snapshot()), mon.tick() > 0,
                                n_splits=2).run(0, 2**62)["partitions"]]
 disk2.close()
 
+import os
+from filodb_tpu_torch.coordinator.mesh_cluster import (
+    _M_PROC_DISPATCH, MeshClusterRuntime)
+from filodb_tpu_torch.parallel.multiproc import (
+    MeshWorker, MeshWorkerSupervisor, _ShardSliceStore)
+from filodb_tpu_torch.testing import mesh_store
+mq = "sum(rate(http_requests_total[5m])) by (_ns_)"
+ws = [MeshWorker(_ShardSliceStore(store, "timeseries", lo, lo + 2),
+                 "timeseries", (lo, lo + 2), device="cpu").start()
+      for lo in (0, 2)]
+rt = MeshClusterRuntime(store, "timeseries", 4, [
+    ("127.0.0.1", w.port, w.shard_range) for w in ws], device="cpu")
+routed = QueryService(store, device="cpu")
+routed.mesh_cluster = rt
+ok0 = _M_PROC_DISPATCH["ok"].value
+a = routed.query_range(mq, 1_600_000_600, 60, 1_600_001_400)
+b = svc.query_range(mq, 1_600_000_600, 60, 1_600_001_400)
+in_thread = [a.stats.engine, a.result.values.tobytes()
+             == b.result.values.tobytes(), _M_PROC_DISPATCH["ok"].value - ok0]
+rt.shutdown()
+for w in ws:
+    w.stop()
+guard = tempfile.mkdtemp()
+with open(f"{guard}/mesh_guard.py", "w") as f:
+    f.write(
+        "import sys\n"
+        "def build():\n"
+        "    bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "           ('jax', 'filodb_tpu')]\n"
+        "    if bad:\n"
+        "        raise SystemExit(f'mesh worker loaded {bad}')\n"
+        "    sys.modules['jax'] = None\n"
+        "    sys.modules['filodb_tpu'] = None\n"
+        "    from filodb_tpu_torch.testing import mesh_store\n"
+        "    return mesh_store.build_store()\n")
+mstore = mesh_store.build_store()
+sup = MeshWorkerSupervisor("timeseries", 4, 1, seed="mesh_guard:build",
+                           device="cpu", env={"PYTHONPATH": os.pathsep.join(
+                               [guard, os.getcwd()])}).spawn()
+try:
+    sup.wait_ready(timeout_s=120)
+    prt = MeshClusterRuntime(mstore, "timeseries", 4, sup.slices,
+                             device="cpu")
+    mplan = parse_query("sum(rate(http_requests_total[10m])) by (job)",
+                        TimeStepParams(1_600_000_600, 60, 1_600_001_500))
+    got = prt.execute_plan(mplan)
+    want = QueryService(mstore, device="cpu").execute_logical(mplan)
+    spawned = [got is not None and got.materialize().values.tobytes()
+               == want.result.values.tobytes(), sup.alive(),
+               prt.status()["workers"][0]["device"]]
+    prt.shutdown()
+finally:
+    sup.stop()
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -328,7 +388,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "memory": memory, "control": control,
                   "adaptive": adaptive_rows, "core": core,
                   "longterm": longterm, "objectstore": objrows,
-                  "standing": standing,
+                  "standing": standing, "multiproc": [in_thread, spawned],
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -384,4 +444,8 @@ def test_port_loads_no_jax_and_no_reference_module():
     # 12 series read back, 12 part keys and the 12 partitions' chunks
     # copied over two splits
     assert res["standing"] == [2, 1, True, True, 12, True, 12, 12]
+    # the runtime answered bitwise as the single-process engine, in
+    # thread and from a spawned worker that loaded neither package
+    assert res["multiproc"] == [["mesh-proc", True, 1],
+                                [True, [True], "cpu"]]
     assert res["loaded"] == []

@@ -29,7 +29,9 @@ The cases that need the object store (``TestChaos``, the pyramid cases,
 from __future__ import annotations
 
 import json
+import logging
 import shutil
+import sqlite3
 import time
 import urllib.parse
 import urllib.request
@@ -484,19 +486,78 @@ NODE_CONF = {
 }
 
 
-def _booted(server_cls, config_cls, root, conf, **kw):
+class _JobFailures(logging.Handler):
+    """Records the exceptions both packages' servers log when a
+    downsampler job's thread fails."""
+
+    LOGGERS = ("filodb_tpu.standalone", "filodb_tpu_torch.standalone")
+
+    def __init__(self):
+        super().__init__(logging.ERROR)
+        self.failures: list[str] = []
+
+    def emit(self, record):
+        if "downsampler" in record.getMessage():
+            self.failures.append(self.format(record))
+
+    def __enter__(self):
+        for name in self.LOGGERS:
+            logging.getLogger(name).addHandler(self)
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.LOGGERS:
+            logging.getLogger(name).removeHandler(self)
+
+
+def _checkpoint(root, shard: int) -> int:
+    """Group 0's downsampler checkpoint of ``shard`` in the node's store
+    under ``root``, read on a read-only sqlite connection of the test's
+    own (the node's threads keep theirs); 0 before it is written."""
+    path = root / "columnstore" / f"{DS}__dsckpt" / f"shard-{shard}.db"
+    if not path.exists():
+        return 0
+    try:
+        conn = sqlite3.connect(f"file:{path}?mode=ro", uri=True,
+                               timeout=10)
+        try:
+            row = conn.execute("SELECT offset FROM checkpoints WHERE "
+                               "grp=0").fetchone()
+        finally:
+            conn.close()
+    except sqlite3.OperationalError:  # the table is not there yet
+        return 0
+    return row[0] if row else 0
+
+
+def _booted(server_cls, config_cls, root, conf, timeout_s=60.0, **kw):
     """A node over ``root`` (its column store already holding the raw
     chunks), its job's first run done, ``now`` pinned to the data's
-    end."""
+    end. Raises, naming the shard, where a shard's job checkpoint does
+    not arrive within ``timeout_s``, and with the job's own error where
+    its thread failed."""
     from filodb_tpu_torch.testing.from_jax import boot
 
-    srv = boot(server_cls, config_cls, conf, str(root), **kw)
-    deadline = time.monotonic() + 60
-    ckpt = f"{DS}__dsckpt"
-    while time.monotonic() < deadline and not all(
-            srv.meta_store.read_checkpoints(ckpt, s).get(0, 0) > 0
-            for s in range(NUM_SHARDS)):
-        time.sleep(0.1)
+    with _JobFailures() as jobs:
+        srv = boot(server_cls, config_cls, conf, str(root), **kw)
+        try:
+            deadline = time.monotonic() + timeout_s
+            waiting = list(range(NUM_SHARDS))
+            while waiting and not jobs.failures \
+                    and time.monotonic() < deadline:
+                waiting = [s for s in waiting if _checkpoint(root, s) <= 0]
+                if waiting:
+                    time.sleep(0.1)
+            assert not jobs.failures, \
+                f"{server_cls.__module__}'s downsampler job failed:\n" \
+                + "\n".join(jobs.failures)
+            assert not waiting, \
+                f"{server_cls.__module__}'s downsampler job wrote no " \
+                f"checkpoint for shard {waiting[0]} of {DS} within " \
+                f"{timeout_s} s"
+        except BaseException:
+            srv.shutdown()
+            raise
     svc = (srv.services if hasattr(srv, "services")
            else srv.http.services)[DS]
     svc.planner.now_ms = lambda: NOW
@@ -556,6 +617,30 @@ def test_node_with_downsample_and_federation_answers_three_tiers(
             port.shutdown()
     finally:
         ref.shutdown()
+
+
+def test_booted_names_the_shard_whose_checkpoint_is_missing(
+        env, tmp_path, monkeypatch):
+    """``_booted`` fails where a shard's job checkpoint never arrives,
+    naming that shard, and stops the node it booted."""
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.standalone import FiloServer
+
+    shutil.copytree(env[2] / "port" / DS, tmp_path / "columnstore" / DS)
+    real = _checkpoint
+    monkeypatch.setattr(
+        __import__(__name__), "_checkpoint",
+        lambda root, shard: 0 if shard == NUM_SHARDS - 1
+        else real(root, shard))
+    stopped = []
+    monkeypatch.setattr(FiloServer, "shutdown",
+                        lambda self, _s=FiloServer.shutdown:
+                        stopped.append(1) or _s(self))
+    with pytest.raises(AssertionError,
+                       match=f"shard {NUM_SHARDS - 1} of {DS}"):
+        _booted(FiloServer, ServerConfig, tmp_path, NODE_CONF,
+                timeout_s=5.0, device="cpu")
+    assert stopped == [1]
 
 
 def test_streaming_rollups_reach_the_ds_planner(tmp_path):

@@ -947,3 +947,56 @@ def test_rule_ticks_on_card_equal_cpu(cuda):
         np.testing.assert_allclose(np.asarray(x.result.values),
                                    np.asarray(y.result.values), rtol=2e-5,
                                    atol=1e-9, equal_nan=True, err_msg=rec)
+
+
+def test_multiproc_on_card_equals_cpu(cuda):
+    """Two mesh worker processes on the card under a runtime on the card,
+    and two on the CPU under one on the CPU, over the seeded harness store:
+    the card's answers are bitwise the card's single-process engine's and
+    agree with the CPU's within the mesh tolerance, and the card workers
+    launched B3 (rate) and B1/B2/B4 (sum_over_time)."""
+    from filodb_tpu_torch.coordinator.mesh_cluster import MeshClusterRuntime
+    from filodb_tpu_torch.parallel.mesh_engine import MeshQueryEngine
+    from filodb_tpu_torch.parallel.multiproc import MeshWorkerSupervisor
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.model import QueryStats
+    from filodb_tpu_torch.testing import mesh_store
+
+    start = mesh_store.START_MS // 1000
+    params = TimeStepParams(start + 600, 60, start + 1500)
+    queries = ["sum(rate(http_requests_total[10m]))",
+               "sum by (job) (rate(http_requests_total[5m]))",
+               "avg(rate(http_requests_total[10m]))",
+               "sum(sum_over_time(http_requests_total[5m])) by (job)"]
+    answers = {}
+    for name, dev in (("card", None), ("cpu", "cpu")):
+        store = mesh_store.build_store()
+        sup = MeshWorkerSupervisor(
+            mesh_store.DATASET, mesh_store.NUM_SHARDS, 2,
+            seed="filodb_tpu_torch.testing.mesh_store:build_store",
+            device=dev).spawn()
+        try:
+            sup.wait_ready(timeout_s=300)
+            rt = MeshClusterRuntime(store, mesh_store.DATASET,
+                                    mesh_store.NUM_SHARDS, sup.slices,
+                                    device=dev)
+            got = [rt.execute_plan(parse_query(q, params)) for q in queries]
+            assert all(g is not None for g in got), name
+            answers[name] = [g.materialize() for g in got]
+            single = MeshQueryEngine(rt.device)
+            for q, g in zip(queries, answers[name]):
+                want = single.execute(store, parse_query(q, params),
+                                      QueryStats()).materialize()
+                assert g.keys == want.keys
+                assert g.values.tobytes() == want.values.tobytes(), q
+            launches = [w["launches"] for w in rt.status()["workers"]]
+            rt.shutdown()
+        finally:
+            sup.stop()
+        if name == "card":
+            total = {k: sum(lc[k] for lc in launches) for k in launches[0]}
+            assert all(total.values()), total
+    for g, c in zip(answers["card"], answers["cpu"]):
+        assert g.keys == c.keys and g.num_series
+        np.testing.assert_allclose(g.values, c.values, rtol=2e-5, atol=1e-6,
+                                   equal_nan=True)

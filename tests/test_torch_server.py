@@ -111,21 +111,22 @@ UNSUPPORTED = [
     {"enable_failover": True},
     {"migration": {"auto_rebalance": True}},
     {"replication": {"n_replicas": 1}},
-    {"mesh_workers": {"enabled": True}},
     {"wal_remote": "127.0.0.1:9092"},
     {"wal_kafka": "127.0.0.1:9092"},
     {"wal_server_port": 9093},
     {"store_remote": "127.0.0.1:9094"},
     {"store_server_port": 9095},
-    {"resilience": {"retry_max_attempts": 5}},
     {"resilience": {"allow_partial": False}},
+    {"mesh_workers": {"enabled": True}, "store": {"backend": "object"}},
 ]
 
 # blocks the port acts on since its control plane came (and, since long
 # retention came, ``downsample`` and ``federation``; since the object
 # store came, ``store.backend``; since the standing queries came,
-# ``rules.groups`` and ``selfmon.enabled``); until then
-# ``test_unsupported_options_raise`` held that each of them raised
+# ``rules.groups`` and ``selfmon.enabled``; since the multi-process mesh
+# runtime came, ``mesh_workers`` and the retry and breaker keys of
+# ``resilience``); until then ``test_unsupported_options_raise`` held that
+# each of them raised
 ACTED_ON = [
     {"store": {"backend": "object"}},
     {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
@@ -140,6 +141,8 @@ ACTED_ON = [
     {"tracing": {"sample_rate": 1.0}},
     {"rules": {"groups": [{"name": "g", "interval": "60s", "rules": []}]}},
     {"selfmon": {"enabled": True}},
+    {"mesh_workers": {"enabled": True}},
+    {"resilience": {"retry_max_attempts": 5}},
 ]
 
 
@@ -183,6 +186,18 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
         if block == "rules":
             # one rule manager over the first dataset's groups
             assert [g.name for g in srv.rule_managers[DS].groups] == ["g"]
+            return
+        if block == "mesh_workers":
+            # two worker processes on the node's device, the runtime on
+            # the dataset's service
+            from filodb_tpu_torch.coordinator.mesh_cluster import (
+                MeshClusterRuntime,
+            )
+            rt = srv.services[DS].mesh_cluster
+            assert isinstance(rt, MeshClusterRuntime)
+            assert srv.mesh_supervisor.alive() == [True, True]
+            assert [w["reachable"] for w in rt.status()["workers"]] == \
+                [True, True]
             return
         if block == "selfmon":
             # the _meta dataset after the user's, its sampler and the

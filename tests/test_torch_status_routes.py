@@ -2,7 +2,9 @@
 reference's.
 
 - ``status/mesh``: one process answers ``multiproc: false`` with the
-  engine's counters, under the reference's keys.
+  engine's counters, under the reference's keys; a dataset with a
+  multi-process runtime answers ``multiproc: true`` with the runtime's
+  status, its workers' slices, devices and launches, on both fronts.
 - ``?stats=all``'s ``decodeMs`` and ``reduceMs``: present and not
   negative, and above zero where a stage ran, for an exec leaf on the
   decode lane, a leaf the sidecar lane folds and a cold leaf the pyramid
@@ -126,6 +128,46 @@ def test_status_mesh_is_one_process_with_the_engines_counters(stores):
         assert code == 200 and json.loads(body)["data"] == {}
     finally:
         port.stop()
+
+
+@pytest.mark.parametrize("front", list(FRONTS))
+def test_status_mesh_is_multiproc_with_a_runtime(stores, front):
+    from filodb_tpu_torch.coordinator.mesh_cluster import MeshClusterRuntime
+    from filodb_tpu_torch.parallel.multiproc import (
+        MeshWorker,
+        _ShardSliceStore,
+    )
+
+    workers = [MeshWorker(_ShardSliceStore(stores[1], DS, lo, lo + 2), DS,
+                          (lo, lo + 2), device="cpu").start()
+               for lo in (0, 2)]
+    svc = QueryService(stores[1], device="cpu")
+    svc.mesh_cluster = rt = MeshClusterRuntime(
+        stores[1], DS, 4, [("127.0.0.1", w.port, w.shard_range)
+                           for w in workers], device="cpu")
+    port = FRONTS[front][1]({DS: svc}, port=0).start()
+    try:
+        res = svc.query_range("sum(rate(http_requests_total[5m]))",
+                              START + 600, 60, START + 3000)
+        assert res.stats.engine == "mesh-proc"
+        code, _, body = _call(port, "/api/v1/status/mesh")
+        assert code == 200
+        entry = json.loads(body)["data"][DS]
+        assert entry["multiproc"] is True
+        # the reference's runtime keys, and this process's engine
+        assert {"dataset", "num_shards", "enabled", "workers",
+                "last_collective_s", "engine"} <= set(entry)
+        assert entry["enabled"] and entry["last_collective_s"] >= 0
+        assert [w["shards"] for w in entry["workers"]] == [[0, 2], [2, 4]]
+        for w in entry["workers"]:
+            assert w["reachable"] and w["devices"] == 1
+            assert w["breaker"] == "closed" and w["queries"] == 1
+            assert set(w["launches"]) == set(entry["engine"]["launches"])
+    finally:
+        port.stop()
+        rt.shutdown()
+        for w in workers:
+            w.stop()
 
 
 # ---- decodeMs and reduceMs -------------------------------------------------------
