@@ -314,6 +314,29 @@ checks it, phase by phase; any failed phase exits non-zero:
    ``status/mesh`` with ``multiproc: true``, then a scrape and a query at
    once (``ok`` or ``stale``), then routed ``ok`` and equal again.
 
+22. A FiloDB cluster on the card (after phase 19): a coordinator (a
+   ``FiloServer`` in this process, on the card) and one member (a
+   ``FiloServer`` process of its own on the card, joining through
+   ``seeds``), over one WAL directory that ``cluster_wal`` writes first:
+   the first ``CLUSTER_SERIES`` series of the phase-2 generator
+   (``CLUSTER_SERIES_ALONE`` under ``--cluster-only``), 720
+   samples at 10 s, in the gateway's 512-record containers; 4 shards,
+   spread 1, ``min_num_nodes`` 2, so shards 0 and 1 replay on the
+   coordinator and 2 and 3 on the member. Each of ``CLUSTER_QUERIES``
+   through the coordinator's HTTP API at phase 3's grid, with
+   ``agg_pushdown`` ``auto`` (its leaves leave the process, so it pushes)
+   and ``off``, first and warm ``CLUSTER_WARM`` times, pushed against
+   unpushed at the stated rtol; ``?stats=all``'s ``wireBytes``; each
+   node's B1-B4 launches (the member's through its ``kernel_launches``
+   control message), every one above 0 (``launches_phase22``: their sum).
+   Then the member is SIGKILLed: the next answer is partial with warnings
+   naming shards 2 and 3, the failure detector declares it down, its
+   shards go to the coordinator and replay from the WAL, and the first
+   full answer equals the one before the kill (rtol 1e-9). Last, the
+   coordinator alone (every shard its own) answers each query on exec and
+   on mesh, cold and warm, and the cluster's answers are held against
+   its exec answers.
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
@@ -322,7 +345,7 @@ and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
 phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 ``--objectstore-only``: phases 1 and 19; ``--rules-only``: phases 1, 2,
 11 and 20; ``--multiproc-only``: phases 1, 2, 21 step 1, 11 and 21 step
-2).
+2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2146,8 +2169,9 @@ DURABLE_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
 # hosts, then to 100,000 when phase 16 came: at 150,000 the whole smoke
 # took 1,203 s of its 1,200 s on a host 18 % slower in phase 2's ingest
 # than the run before, then to 50,000 when phase 20 came, whose node boots
-# twice over the same directory (PERF.md §4)
-DURABLE_SERIES = 50_000
+# twice over the same directory, then to 25,000 when phase 22 came (the
+# smoke took 1,051 s with it at 50,000; PERF.md §4)
+DURABLE_SERIES = 25_000
 DURABLE_HIST = f"histogram_quantile(0.99, sum(rate({H}[5m])) by (_ns_))"
 DURABLE_HIST_SERIES = 10_000  # App-0..App-9, 1,000 histograms each
 DURABLE_END_S = END_S + 60    # 2 h plus the new scrape, at 60 s
@@ -6100,6 +6124,341 @@ def multiproc_node_phase(dev, args) -> dict:
     return out
 
 
+# phase 22: a FiloDB cluster on the card (see the module's phase 22). The
+# coordinator is a FiloServer in this process, the member one in a
+# process of its own that joins it through ``seeds``; both read one WAL
+# directory, written before either boots, 4 shards at spread 1, two a
+# node (min_num_nodes 2).
+CLUSTER_SERIES = 50_000  # --cluster-series sets it
+# under --cluster-only: as many series as fit its 600 s (PERF.md §4)
+CLUSTER_SERIES_ALONE = 300_000
+CLUSTER_WARM = 3         # warm runs of each query in each mode
+CLUSTER_MEMBER = "member-1"
+# (query, rtol against the unpushed answer and against one node's exec)
+CLUSTER_QUERIES = (
+    (f"sum(rate({M}[5m])) by (_ns_)", 2e-5),               # B3
+    (f"avg(rate({M}[10m]))", 2e-5),                         # B3
+    (f"sum(sum_over_time({M}[5m])) by (job)", 2e-5),        # B1, B2, B4
+    (f"sum(count_over_time({M}[5m])) by (job)", 2e-5),      # B1, B2, B4
+    (f"topk(5, rate({M}[5m]))", 2e-5),
+    (f"quantile(0.9, rate({M}[5m])) by (job)", 2e-5),       # never pushed
+    (f"rate({_APP0}[5m])", 2e-5),          # unaggregated: 1 % of the series
+)
+CLUSTER_RECOVERY_RTOL = 1e-9  # the first full answer after the kill
+
+
+def cluster_wal(wal_root: str, n: int, samples: int, seed: int) -> dict:
+    """The phase's data as the gateway writes it: the first ``n`` series
+    of the phase-2 generator, ``samples`` scrapes of every series, each
+    shard's records in containers of ``CORE_CONTAINER`` (the gateway's
+    flush_every) appended to its ``SegmentedFileLog`` under
+    ``<wal_root>/<dataset>/shard-<s>`` (the node's layout). A store of the
+    first sample gives each shard's keys in their order (the templates of
+    phase 17, patched a scrape at a time)."""
+    from filodb_tpu_torch.core.record import BytesContainer
+    from filodb_tpu_torch.kafka.log import SegmentedFileLog
+
+    t = time.perf_counter()
+    labels, ts, vals = make_series(np.random.default_rng(seed), 0, n,
+                                   samples)
+    first = main_store()
+    first.ingest_series(labels, ts[:, :1], vals[:, :1])
+    records = nbytes = 0
+    for s, tmpl in enumerate(scrape_templates(first)):
+        row = np.array([int(k.label_map["instance"].rsplit("-", 1)[1])
+                        for k in tmpl["keys"]], np.int64)
+        lg = SegmentedFileLog(str(Path(wal_root) / NODE_DS / f"shard-{s}"))
+        for j in range(samples):
+            _patch(tmpl["buf"], tmpl["ts_off"], ts[row, j])
+            _patch(tmpl["buf"], tmpl["val_off"], vals[row, j])
+            for a, b in tmpl["spans"]:
+                lg.append(BytesContainer(bytes(tmpl["buf"][a:b])))
+                nbytes += b - a
+        records += len(row) * samples
+        lg.close()
+    return {"series": n, "records": records, "bytes": nbytes,
+            "seconds": time.perf_counter() - t}
+
+
+def cluster_configs(root: Path, wal: str) -> tuple[str, str]:
+    """The coordinator's and the member's configs: the smoke's store
+    shape, a retention that holds the data, no flush before the phase
+    ends, the smoke's deadline, the extent and response caches off (each
+    HTTP query is evaluated), and the member seeded at the coordinator's
+    executor port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {
+        "wal_dir": wal, "http_port": 0, "gateway_port": 0,
+        "resilience": {"query_timeout_s": SMOKE_TIMEOUT_S},
+        "result_cache": {"enabled": False}, "http_response_cache": False,
+        "datasets": {NODE_DS: {
+            "num_shards": 4, "min_num_nodes": 2, "spread": 1,
+            "engine": "mesh",
+            "store": {"max_chunk_size": 400, "groups_per_shard": 20,
+                      "flush_interval_ms": 6_000_000, "max_query_matches": 0,
+                      "retention_ms": NODE_RETENTION_MS}}}}
+    coord = {**base, "node_name": "coordinator",
+             "data_dir": str(root / "coordinator"), "executor_port": port}
+    member = {**base, "node_name": CLUSTER_MEMBER,
+              "data_dir": str(root / "member"), "executor_port": 0,
+              "seeds": [f"127.0.0.1:{port}"]}
+    paths = []
+    for name, conf in (("coordinator", coord), ("member", member)):
+        path = root / f"{name}.json"
+        path.write_text(json.dumps(conf))
+        paths.append(str(path))
+    return paths[0], paths[1]
+
+
+def _cluster_rows(body: dict) -> dict:
+    """{labels: values} of a Prometheus matrix body (NaN where a step has
+    no value)."""
+    out = {}
+    for series in body["data"]["result"]:
+        vals = dict((float(t), float(v)) for t, v in series["values"])
+        out[json.dumps(series["metric"], sort_keys=True)] = vals
+    return out
+
+
+def _cluster_same(got: dict, want: dict, rtol: float, what: str) -> float:
+    """Hold two matrix bodies' rows equal at ``rtol`` (atol 1e-9); the
+    largest relative difference."""
+    if set(got) != set(want):
+        raise AssertionError(f"phase 22: {what}: series differ: "
+                             f"{sorted(set(got) ^ set(want))[:4]}")
+    worst = 0.0
+    for k, g in got.items():
+        w = want[k]
+        steps = sorted(set(g) | set(w))
+        a = np.array([g.get(t, np.nan) for t in steps])
+        b = np.array([w.get(t, np.nan) for t in steps])
+        if not np.allclose(a, b, rtol=rtol, atol=1e-9, equal_nan=True):
+            raise AssertionError(f"phase 22: {what}: {k} differs at rtol "
+                                 f"{rtol}")
+        both = np.isfinite(a) & np.isfinite(b) & (b != 0)
+        if both.any():
+            worst = max(worst, float(np.max(np.abs(a[both] - b[both])
+                                            / np.abs(b[both]))))
+    return worst
+
+
+def _cluster_ask(port: int, q: str, what: str) -> tuple[dict, float]:
+    code, body, ms = http_get(port, f"/promql/{NODE_DS}/api/v1/query_range",
+                              query=q, start=T0_MS // 1000, end=END_S,
+                              step=60, stats="all")
+    if code != 200:
+        raise AssertionError(f"phase 22: {what}: {q}: HTTP {code}: "
+                             f"{body[:300]}")
+    return json.loads(body), ms
+
+
+def cluster_phase(dev, args) -> dict:
+    """Phase 22 (see the module's text and the comment above
+    ``CLUSTER_QUERIES``)."""
+    import os
+    import signal
+
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.coordinator.remote import RemotePlanDispatcher
+    from filodb_tpu_torch.standalone import FiloServer
+
+    t_phase = time.perf_counter()
+    n = min(args.cluster_series, args.series)
+    root = Path(tempfile.mkdtemp(prefix="filodb-cluster-"))
+    log(f"phase 22: a cluster on the card: a coordinator (this process) and "
+        f"a member process joined through seeds, one WAL under {root}")
+    out = {"series": n}
+    member = coord = None
+    try:
+        wal = str(root / "wal")
+        out["wal"] = cluster_wal(wal, n, args.samples, args.seed)
+        log(f"  WAL: {n} series x {args.samples} samples, "
+            f"{out['wal']['records']} records, "
+            f"{out['wal']['bytes'] / 1e9:.2f} GB, "
+            f"{out['wal']['seconds']:.1f} s")
+        coord_path, member_path = cluster_configs(root, wal)
+        t = time.perf_counter()
+        coord = FiloServer(ServerConfig.load(coord_path), device=dev).start()
+        svc = coord.services[NODE_DS]
+        sm = coord.cluster.shard_managers[NODE_DS]
+        member_log = open(root / "member.log", "w")
+        member = subprocess.Popen(
+            [sys.executable, "-m", "filodb_tpu_torch.standalone",
+             "--config", member_path, "--device", dev.type],
+            cwd=str(ROOT), stdout=member_log, stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)})
+        while CLUSTER_MEMBER not in coord.cluster.nodes:
+            if member.poll() is not None or time.perf_counter() - t > 600:
+                raise AssertionError(f"phase 22: the member did not join: "
+                                     f"{_tail(root / 'member.log')}")
+            time.sleep(0.05)
+        out["member_join_s"] = time.perf_counter() - t
+        if not coord.cluster.wait_active(NODE_DS, timeout=SMOKE_TIMEOUT_S):
+            raise AssertionError(f"phase 22: shards not ACTIVE: "
+                                 f"{coord.cluster.shard_statuses(NODE_DS)}")
+        out["boot_s"] = time.perf_counter() - t
+        owners = list(sm.mapper.owners)
+        out["owners"] = owners
+        if owners != ["coordinator", "coordinator", CLUSTER_MEMBER,
+                      CLUSTER_MEMBER]:
+            raise AssertionError(f"phase 22: shard owners {owners}")
+        member_ctl = RemotePlanDispatcher(
+            "127.0.0.1", coord.cluster.nodes[CLUSTER_MEMBER].executor_port)
+        log(f"  the member joined {out['member_join_s']:.1f} s after the "
+            f"coordinator's start(); every shard ACTIVE at "
+            f"{out['boot_s']:.1f} s (both replaying their shards from the "
+            f"WAL); owners {owners}")
+
+        # the cluster: every query under auto (pushed) and off, cold once
+        # and warm CLUSTER_WARM times, through the coordinator's HTTP API
+        _build.reset_counts()
+        member_ctl.call("kernel_launches", True)
+        answers, out["queries"] = {}, {}
+        for q, rtol in CLUSTER_QUERIES:
+            rec = out["queries"][q] = {}
+            for mode in ("auto", "off"):
+                svc.planner.agg_pushdown = mode
+                runs, wire = [], []
+                for _ in range(1 + CLUSTER_WARM):
+                    body, ms = _cluster_ask(coord.http.port, q, mode)
+                    if body.get("partial"):
+                        raise AssertionError(f"phase 22: {q} ({mode}) is "
+                                             f"partial: {body['warnings']}")
+                    runs.append(ms)
+                    wire.append(body["queryStats"]["wireBytes"])
+                answers[(mode, q)] = _cluster_rows(body)
+                rec[mode] = {"first_ms": runs[0],
+                             "warm_p50_ms": float(np.median(runs[1:])),
+                             "wire_bytes": wire[-1],
+                             "rows": len(answers[(mode, q)])}
+            rec["pushed_vs_unpushed_max_rel"] = _cluster_same(
+                answers[("auto", q)], answers[("off", q)], rtol,
+                f"{q}: pushed against unpushed")
+            log(f"  {q}: auto first {rec['auto']['first_ms']:.1f} ms, warm "
+                f"p50 {rec['auto']['warm_p50_ms']:.2f} ms, "
+                f"{rec['auto']['wire_bytes']} wire bytes; off warm p50 "
+                f"{rec['off']['warm_p50_ms']:.2f} ms, "
+                f"{rec['off']['wire_bytes']} wire bytes; "
+                f"{rec['auto']['rows']} rows, equal at rtol {rtol} (max "
+                f"rel {rec['pushed_vs_unpushed_max_rel']:.2e})")
+        svc.planner.agg_pushdown = "auto"
+        launches = {"coordinator": dict(_build.LAUNCHES),
+                    "member": member_ctl.call("kernel_launches")}
+        out["launches"] = launches
+        log(f"  launches: {launches}")
+        if dev.type == "cuda":
+            for node, counts in launches.items():
+                missing = [k for k, v in counts.items() if v <= 0]
+                if missing:
+                    raise AssertionError(f"phase 22: the {node} did not "
+                                         f"launch {missing}")
+
+        # the member killed: a partial answer naming its shards, its
+        # shards back on the coordinator, replayed from the WAL, then the
+        # whole answer again. The detector's threshold goes to 100 beats
+        # (5 s) so the partial query runs before the member is declared
+        # down, and the expected size to one node so its loss reassigns.
+        coord.cluster.failure_threshold = 100
+        sm.min_num_nodes = 1
+        q0 = CLUSTER_QUERIES[0][0]
+        member.send_signal(signal.SIGKILL)
+        member.wait(timeout=60)
+        t_kill = time.perf_counter()
+        body, ms = _cluster_ask(coord.http.port, q0, "after the kill")
+        lost = [w for w in body.get("warnings", [])
+                if "shards [2]" in w or "shards [3]" in w]
+        if not body.get("partial") or len(lost) != 2:
+            raise AssertionError(f"phase 22: the answer after the kill: "
+                                 f"partial {body.get('partial')}, warnings "
+                                 f"{body.get('warnings')}")
+        out["kill"] = {"partial_ms": ms, "warnings": body["warnings"],
+                       "partial_rows": len(body["data"]["result"])}
+        while CLUSTER_MEMBER in coord.cluster.nodes:
+            if time.perf_counter() - t_kill > 120:
+                raise AssertionError("phase 22: the member was not "
+                                     "declared down")
+            time.sleep(0.01)
+        out["kill"]["declared_down_s"] = time.perf_counter() - t_kill
+        if not coord.cluster.wait_active(NODE_DS, timeout=SMOKE_TIMEOUT_S) \
+                or set(sm.mapper.owners) != {"coordinator"}:
+            raise AssertionError(f"phase 22: after the kill: "
+                                 f"{coord.cluster.shard_statuses(NODE_DS)}")
+        out["kill"]["reassigned_active_s"] = time.perf_counter() - t_kill
+        body, ms = _cluster_ask(coord.http.port, q0, "after reassignment")
+        if body.get("partial"):
+            raise AssertionError(f"phase 22: partial after reassignment: "
+                                 f"{body['warnings']}")
+        out["kill"]["first_full_ms"] = ms
+        out["kill"]["first_full_max_rel"] = _cluster_same(
+            _cluster_rows(body), answers[("auto", q0)],
+            CLUSTER_RECOVERY_RTOL, f"{q0} after the kill")
+        log(f"  member killed: partial answer in "
+            f"{out['kill']['partial_ms']:.1f} ms naming shards 2 "
+            f"and 3 ({out['kill']['partial_rows']} rows); declared down "
+            f"{out['kill']['declared_down_s']:.2f} s after the kill, its "
+            f"shards ACTIVE on the coordinator at "
+            f"{out['kill']['reassigned_active_s']:.1f} s; the first full "
+            f"answer {out['kill']['first_full_ms']:.1f} ms, equal to the "
+            f"one before the kill (rtol {CLUSTER_RECOVERY_RTOL}, max rel "
+            f"{out['kill']['first_full_max_rel']:.2e})")
+
+        # one node: the coordinator now owns every shard; each query cold
+        # (its batches dropped) and warm on exec, then on mesh, through
+        # the same HTTP API, and held against the cluster's answers
+        out["one_node"] = {}
+        for engine in ("exec", "mesh"):
+            svc.engine = engine
+            svc.batches.clear()
+            for q, rtol in CLUSTER_QUERIES:
+                runs = []
+                for _ in range(1 + CLUSTER_WARM):
+                    body, ms = _cluster_ask(coord.http.port, q, engine)
+                    runs.append(ms)
+                rows = _cluster_rows(body)
+                rec = out["one_node"].setdefault(q, {})
+                rec[engine] = {"first_ms": runs[0],
+                               "warm_p50_ms": float(np.median(runs[1:]))}
+                if engine == "exec":
+                    for mode in ("auto", "off"):
+                        rec[f"cluster_{mode}_max_rel"] = _cluster_same(
+                            answers[(mode, q)], rows, rtol,
+                            f"{q}: the cluster ({mode}) against one node")
+            log(f"  one node, {engine}: " + "; ".join(
+                f"{q.split('(')[0]}… first "
+                f"{out['one_node'][q][engine]['first_ms']:.0f} ms, warm "
+                f"{out['one_node'][q][engine]['warm_p50_ms']:.1f} ms"
+                for q, _ in CLUSTER_QUERIES))
+        svc.engine = "mesh"
+        log("  every cluster answer equal to one node's exec answer at its "
+            "rtol")
+    finally:
+        if member is not None and member.poll() is None:
+            member.kill()
+            member.wait(timeout=60)
+        if coord is not None:
+            coord.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 22 took {out['seconds']:.1f} s")
+    return out
+
+
+def _tail(path, n: int = 3000) -> str:
+    try:
+        return Path(path).read_text()[-n:]
+    except OSError:
+        return ""
+
+
 def wide():
     """A QueryContext whose sample limit the smoke's answers fit."""
     from filodb_tpu_torch.query.model import PlannerParams, QueryContext
@@ -6334,6 +6693,14 @@ def main() -> int:
                     help="build, ingest the phase-2 store and run phases "
                     "11 and 20 only (standing queries over the store, then "
                     "a node with rules, selfmon and a webhook)")
+    ap.add_argument("--cluster-series", type=int, default=None,
+                    help=f"phase 22's series, the first of the phase-2 "
+                    f"generator ({CLUSTER_SERIES}, or "
+                    f"{CLUSTER_SERIES_ALONE} under --cluster-only)")
+    ap.add_argument("--cluster-only", action="store_true",
+                    help="build and run phase 22 only (a coordinator and a "
+                    "member process over one WAL: scatter-gather, two-phase "
+                    "pushdown, a member killed)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
@@ -6341,6 +6708,9 @@ def main() -> int:
     if args.objectstore_series is None:
         args.objectstore_series = OS_SERIES_ALONE \
             if args.objectstore_only else OS_SERIES
+    if args.cluster_series is None:
+        args.cluster_series = CLUSTER_SERIES_ALONE if args.cluster_only \
+            else CLUSTER_SERIES
 
     import torch
 
@@ -6381,6 +6751,11 @@ def _phases(args, smi) -> int:
     import torch
 
     from filodb_tpu_torch import _build
+    if args.cluster_only:
+        print(json.dumps({"cluster": cluster_phase(torch.device("cuda"),
+                                                   args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.exec_only:
 
         store = main_store()
@@ -6545,6 +6920,9 @@ def _rest(args, smi, kernels, svc, exec10, mp) -> int:
     torch.cuda.empty_cache()
     objstore = objectstore_phase(torch.device("cuda"), args)
     print(json.dumps({"objectstore": objstore}))
+    torch.cuda.empty_cache()
+    cluster = cluster_phase(torch.device("cuda"), args)
+    print(json.dumps({"cluster": cluster}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -6561,6 +6939,9 @@ def _rest(args, smi, kernels, svc, exec10, mp) -> int:
         kern["launches_phase19"] = objstore["launches"][kern["name"]]
         kern["launches_phase20"] = rules["launches"][kern["name"]]
         kern["launches_phase21"] = mp["launches"][kern["name"]]
+        # the coordinator's and the member's, in the cluster's queries
+        kern["launches_phase22"] = sum(
+            counts[kern["name"]] for counts in cluster["launches"].values())
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

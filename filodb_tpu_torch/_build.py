@@ -17,7 +17,10 @@ the chunk vectors, the record-container scan) and ``csrc/ingestcore.cpp``
 (the part-key map, the container pass, the write buffers' append and
 window fold), compile with ``g++`` into the same directory on their first
 use (``host_library``), on any machine. A failed build raises: nothing
-falls back to the Python twins.
+falls back to the Python twins. A library that does not build or load
+raises ``RuntimeError`` naming it, never the ``OSError`` beneath: a gather
+takes an ``OSError`` for a lost transport and answers partially without
+the child (``query/exec/plan.py``), and a failing card is no such loss.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import shutil
 import subprocess
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -57,6 +61,16 @@ def reset_counts() -> None:
         LAUNCHES[k] = 0
 
 
+@contextmanager
+def _loading(what):
+    """An ``OSError`` while ``what`` builds or loads, as ``RuntimeError``."""
+    try:
+        yield
+    except OSError as e:
+        raise RuntimeError(f"kernel library {what} failed to build or "
+                           f"load: {e}") from e
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -78,38 +92,41 @@ def _target(name: str) -> Path:
 def build_all() -> float:
     """Compile every source not yet built, in parallel. Returns seconds."""
     t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = []
-    for name in SOURCES:
-        out = _target(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        log = open(BUILD_DIR / f"{name}.log", "w")
-        procs.append((name, out, tmp, log, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-            stdout=log, stderr=subprocess.STDOUT)))
-    failed = []
-    for name, out, tmp, log, proc in procs:
-        rc = proc.wait()
-        log.close()
-        if rc != 0:
-            failed.append(name)
-        else:
-            tmp.replace(out)
-    if failed:
-        logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
-                         for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    with _loading(", ".join(SOURCES)):
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name in SOURCES:
+            out = _target(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            log = open(BUILD_DIR / f"{name}.log", "w")
+            procs.append((name, out, tmp, log, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                 str(CSRC / f"{name}.cu")],
+                stdout=log, stderr=subprocess.STDOUT)))
+        failed = []
+        for name, out, tmp, log, proc in procs:
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                failed.append(name)
+            else:
+                tmp.replace(out)
+        if failed:
+            logs = "\n".join((BUILD_DIR / f"{n}.log").read_text()[-4000:]
+                             for n in failed)
+            raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
     return time.perf_counter() - t0
 
 
 def library(name: str) -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is None:
-        if not _target(name).exists():
-            build_all()
-        lib = _libs[name] = ctypes.CDLL(str(_target(name)))
+        with _loading(name):
+            if not _target(name).exists():
+                build_all()
+            lib = _libs[name] = ctypes.CDLL(str(_target(name)))
         lib.filodb_error_string.restype = ctypes.c_char_p
         lib.filodb_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -151,7 +168,7 @@ def host_library(name: str = "hostcodec") -> ctypes.CDLL:
     lib = _libs.get(name)
     if lib is not None:
         return lib
-    with _host_lock:
+    with _host_lock, _loading(name):
         return _libs.get(name) or _build_host(name)
 
 

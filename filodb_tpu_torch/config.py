@@ -6,12 +6,13 @@ for value), ``ServerConfig`` with its fields and ``ServerConfig.load``
 blocks into ``IngestionConfig``\\ s), so one file loads to the same values
 in both packages.
 
-The port boots a single coordinator node (``standalone.py``). Options
-whose modules it does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item when set away from their default (``UNPORTED``, and
-the ``resilience`` keys of partial scatter-gather). ``result_cache``,
-``http_response_cache``, ``governor``, ``resilience`` (the query
-timeout, the retry policy and the circuit breakers), ``cost_model``,
+The port boots a coordinator node, or with ``seeds`` a member that
+joins the first seed that answers (``standalone.py``). Options whose
+modules it does not have yet raise ``NotImplementedError`` naming their
+ROADMAP item when set away from their default (``UNPORTED``).
+``result_cache``, ``http_response_cache``, ``governor``, ``resilience``
+(the query timeout, the retry policy, the circuit breakers and partial
+scatter-gather), ``cost_model``,
 ``tracing``, ``mesh_workers`` (the multi-process mesh runtime), a
 dataset's
 ``downsample`` block (the job, its streaming form and the long-time
@@ -32,7 +33,6 @@ import json
 from dataclasses import dataclass, field
 
 from filodb_tpu_torch.core.store.config import IngestionConfig, StoreConfig
-from filodb_tpu_torch.utils import resilience as resilience_mod
 
 ENGINES = ("mesh", "adaptive", "exec")
 
@@ -178,7 +178,6 @@ DEFAULTS = {
 # option → why it raises set away from its default: its module is not
 # ported (the ROADMAP item that ports it)
 UNPORTED = {
-    "seeds": "cluster membership beyond one node (ROADMAP §A.12)",
     "consul": "seed discovery (ROADMAP §A.12)",
     "enable_failover": "coordinator failover (ROADMAP §A.12)",
     "migration": "live shard migration (ROADMAP §A.12)",
@@ -286,7 +285,6 @@ class ServerConfig:
             if _get(self, opt) != _default(opt):
                 raise NotImplementedError(
                     f"{opt}={_get(self, opt)!r}: {why}")
-        resilience_mod.check_supported(self.resilience)
         if (self.mesh_workers or {}).get("enabled") \
                 and self.store.get("backend", "local") != "local" \
                 and not (self.mesh_workers or {}).get("seed"):

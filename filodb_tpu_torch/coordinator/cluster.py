@@ -17,9 +17,29 @@ Port of the single-node part of ``filodb_tpu/coordinator/cluster.py``:
   upload goes behind), and writes the shard's index snapshot every
   ``index_snapshot_interval_ms``. A tick comes every ``flush_interval /
   groups`` (between 0.5 and 300 s).
-- ``FilodbCluster``: ``join``, ``setup_dataset`` (shards assigned by
-  ``ShardManager`` and started on their node), ``query_service``,
-  ``shard_statuses``, ``wait_active`` and ``stop``.
+- ``FilodbCluster`` (the reference's ``filodb_tpu/coordinator/
+  cluster.py:521-553, 730-772, 786-888``): ``join`` and ``leave`` of any
+  number of members, in-process nodes (``Node``) or members in other
+  processes (``coordinator/bootstrap.py::RemoteNodeHandle``; a joining
+  remote member's breaker closes; a leaving one's is forced open, so
+  queries skip it without a dial), ``setup_dataset`` (shards assigned by ``ShardManager`` and
+  started on their node), the failure detector (``start_failure_detector``:
+  a heartbeat every ``heartbeat_interval_s``; a member not ``alive`` for
+  ``failure_threshold`` beats leaves, its shards go DOWN and to the
+  members left, which recover them from the store and replay them from
+  the shared logs; each beat also reassigns rate-limited shards and runs
+  ``on_heartbeat``), ``query_service``, ``shard_statuses``,
+  ``wait_active`` and ``stop``.
+- ``query_service``'s planner ships each leaf to its shard's owner
+  (``dispatcher_for_shard``): a shard of the service's own node (the
+  first member, the coordinator's) runs in-process on the root's context
+  and batch cache, as before a cluster existed (the reference wraps its
+  own node in a ``NodeDispatcher`` too, ROADMAP §C); another in-process
+  node's through ``NodeDispatcher`` (``:53-68``), which runs it against
+  that node's store under that node's lock, on the caller's device; a
+  remote member's through ``RemotePlanDispatcher`` to its executor port.
+  The service's mesh engines and caches serve only while every shard is
+  the service's node's (``QueryService.shards_local``).
 
 The port's node holds a ``MemStore`` a dataset (the reference's one
 ``TimeSeriesMemStore`` holds every dataset), created by ``setup_dataset``
@@ -30,8 +50,8 @@ raw shard's chunk size and ``ds_retention_ms``, five times the raw
 retention by default); the raw shard's flush publishes its rollups there
 (``core/downsample/downsampler.py::ShardDownsampler``), and the flush
 scheduler flushes those shards on its tick, as the reference's does.
-One node only: failure detection, migration, replication and remote
-dispatch wait for ROADMAP §A.12, and a second member raises.
+Migration, replication and failover of the coordinator itself wait for
+ROADMAP §A.12.
 
 A ``read_only`` node is a mesh worker's view of a node another process
 runs (``parallel/multiproc.py::_tail_shards``): it recovers its shards
@@ -59,13 +79,41 @@ from filodb_tpu_torch.core.store.api import (
 )
 from filodb_tpu_torch.core.store.config import IngestionConfig
 from filodb_tpu_torch.kafka.log import ReplayLog
+from filodb_tpu_torch.query.engine.device_batch import BatchCache
+from filodb_tpu_torch.query.exec.plan import ExecContext, PlanDispatcher
+from filodb_tpu_torch.query.model import QueryResult, QueryStats
 from filodb_tpu_torch.utils.metrics import GaugeFn, get_counter
+from filodb_tpu_torch.utils.resilience import FaultInjector, breaker_for
 from filodb_tpu_torch.utils.selfmon import STAMPS
 
 log = logging.getLogger(__name__)
 
-_ONE_NODE = ("a cluster of more than one node is not ported "
-             "(ROADMAP §A.12)")
+
+class NodeDispatcher(PlanDispatcher):
+    """Runs a plan against another in-process node's store (the
+    reference's ``NodeDispatcher``, standing in for the remote dispatcher
+    where nodes share a process): under that node's lock, on the caller's
+    device, with the node's own batch cache and stats. A node that is not
+    ``alive`` raises ``ConnectionError``, a lost child to a gather. No
+    wire fields: it fails at encode rather than losing its node."""
+
+    def __init__(self, node: "Node"):
+        self.node = node
+
+    def dispatch(self, plan, ctx):
+        FaultInjector.fire("node.dispatch", node=self.node.name)
+        if not self.node.alive:
+            raise ConnectionError(f"node {self.node.name} is down")
+        with self.node.query_lock:
+            ctx2 = ExecContext(self.node.memstores[ctx.dataset],
+                               QueryStats(engine="exec"), ctx.device,
+                               self.node.batch_cache(ctx.device),
+                               deadline=ctx.deadline, dataset=ctx.dataset,
+                               qcontext=ctx.qcontext)
+            data = plan.execute(ctx2)
+        return QueryResult(data, ctx2.stats, ctx.qcontext.query_id,
+                           partial=ctx2.partial,
+                           warnings=list(ctx2.warnings))
 
 
 @dataclass
@@ -86,6 +134,27 @@ class Node:
     _flusher: object = None
     # (ds dataset, shard) of the streaming rollups the scheduler flushes
     _ds_shards: list = field(default_factory=list)
+    executor_port: int | None = None  # where a PlanExecutorServer fronts it
+    host: str = "127.0.0.1"
+    # plans other nodes hand this one run one at a time, against its own
+    # batches (``NodeDispatcher``)
+    query_lock: object = field(default_factory=threading.RLock)
+    _batches: dict = field(default_factory=dict)  # device → BatchCache
+
+    def batch_cache(self, device) -> BatchCache:
+        key = str(device)
+        if key not in self._batches:
+            self._batches[key] = BatchCache(device)
+        return self._batches[key]
+
+    def owned_shards(self, dataset: str) -> list[int]:
+        """The shards of ``dataset`` this node ingests, sorted."""
+        return sorted(s for d, s in self._workers if d == dataset)
+
+    def stop_shard(self, dataset: str, shard: int) -> None:
+        w = self._workers.pop((dataset, shard), None)
+        if w is not None:
+            w.stop()
 
     def setup_dataset(self, config: IngestionConfig,
                       spread: int = 1) -> MemStore:
@@ -399,27 +468,49 @@ class _IngestWorker(threading.Thread):
 
 @dataclass
 class FilodbCluster:
-    """Membership, shard managers and dataset setup of one node."""
+    """Membership, shard managers, dataset setup and failure detection."""
 
-    nodes: dict[str, Node] = field(default_factory=dict)
+    nodes: dict = field(default_factory=dict)  # name → Node or a handle
     shard_managers: dict[str, ShardManager] = field(default_factory=dict)
     configs: dict[str, IngestionConfig] = field(default_factory=dict)
     spreads: dict[str, int] = field(default_factory=dict)
     logs: dict[tuple[str, int], ReplayLog] = field(default_factory=dict)
+    heartbeat_interval_s: float = 0.05
+    # beats a member may miss before it is declared down
+    failure_threshold: int = 3
+    on_heartbeat: list = field(default_factory=list)  # called every beat
+    _hb_misses: dict = field(default_factory=dict)
+    _hb_thread: threading.Thread | None = None
+    _stop_hb: threading.Event = field(default_factory=threading.Event)
 
-    def join(self, node: Node) -> None:
-        if self.nodes and node.name not in self.nodes:
-            raise NotImplementedError(_ONE_NODE)
+    def join(self, node) -> None:
         self.nodes[node.name] = node
+        if not isinstance(node, Node) and node.executor_port:
+            # a (re)joining remote member starts with its breaker closed
+            breaker_for(f"{node.host}:{node.executor_port}").record_success()
         for dataset, sm in self.shard_managers.items():
-            node.setup_dataset(self.configs[dataset], self.spreads[dataset])
+            if isinstance(node, Node):
+                node.setup_dataset(self.configs[dataset],
+                                   self.spreads[dataset])
             for ev in sm.add_member(node.name):
+                self._on_event(dataset, ev)
+
+    def leave(self, name: str) -> None:
+        """A member gone: its breaker forced open (queries skip it without
+        a dial), its workers stopped, its shards DOWN and reassigned."""
+        node = self.nodes.pop(name, None)
+        if node is not None:
+            if not isinstance(node, Node) and node.executor_port:
+                breaker_for(f"{node.host}:{node.executor_port}").force_open()
+            node.kill()
+        for dataset, sm in self.shard_managers.items():
+            for ev in sm.remove_member(name):
                 self._on_event(dataset, ev)
 
     def setup_dataset(self, config: IngestionConfig,
                       logs: dict[int, ReplayLog], spread: int = 1) -> None:
         """Register a dataset with its shards' logs; its shards are
-        assigned to the member and started there."""
+        assigned to the members and started there."""
         dataset = config.dataset
         self.configs[dataset] = config
         self.spreads[dataset] = spread
@@ -427,8 +518,9 @@ class FilodbCluster:
             self.logs[(dataset, shard)] = log_
         sm = self.shard_managers[dataset] = ShardManager(
             dataset, config.num_shards, config.min_num_nodes)
-        for name, node in self.nodes.items():
-            node.setup_dataset(config, spread)
+        for name, node in list(self.nodes.items()):
+            if isinstance(node, Node):
+                node.setup_dataset(config, spread)
             for ev in sm.add_member(name):
                 self._on_event(dataset, ev)
 
@@ -436,7 +528,7 @@ class FilodbCluster:
         if ev.status == ShardStatus.ASSIGNED and ev.node:
             self.nodes[ev.node].start_shard(
                 dataset, ev.shard, self.configs[dataset],
-                self.logs[(dataset, ev.shard)],
+                self.logs.get((dataset, ev.shard)),
                 self._status_cb(dataset, ev.node))
 
     def _status_cb(self, dataset: str, node: str):
@@ -452,18 +544,105 @@ class FilodbCluster:
 
         return on_status
 
+    # -- failure detection --
+
+    def start_failure_detector(self) -> None:
+        """The heartbeat thread (the reference's stand-in for Akka's
+        phi-accrual detector)."""
+        if self._hb_thread is not None:
+            return
+        self._hb_thread = threading.Thread(target=self._hb_loop, daemon=True,
+                                           name="heartbeat")
+        self._hb_thread.start()
+
+    def _hb_loop(self) -> None:
+        while not self._stop_hb.wait(self.heartbeat_interval_s):
+            self.heartbeat()
+
+    def heartbeat(self) -> None:
+        """One beat: members not alive for ``failure_threshold`` beats
+        leave; rate-limited shards are reassigned; ``on_heartbeat`` runs."""
+        for name, node in list(self.nodes.items()):
+            if node.alive:
+                self._hb_misses[name] = 0
+                continue
+            misses = self._hb_misses.get(name, 0) + 1
+            self._hb_misses[name] = misses
+            if misses >= self.failure_threshold:
+                log.warning("failure detector: node %s down (%d missed "
+                            "heartbeats)", name, misses)
+                self.leave(name)
+                self._hb_misses.pop(name, None)
+        for dataset, sm in list(self.shard_managers.items()):
+            for ev in sm.check_deferred():
+                try:
+                    self._on_event(dataset, ev)
+                except Exception:
+                    get_counter("filodb_heartbeat_errors").inc()
+                    log.exception("deferred reassignment of %s/%d failed",
+                                  dataset, ev.shard)
+        for cb in list(self.on_heartbeat):
+            try:
+                cb()
+            except Exception:
+                get_counter("filodb_heartbeat_errors").inc()
+                log.exception("heartbeat callback %s failed",
+                              getattr(cb, "__name__", repr(cb)))
+
     def stop(self):
+        self._stop_hb.set()
+        if self._hb_thread is not None \
+                and self._hb_thread is not threading.current_thread():
+            self._hb_thread.join(timeout=5)
         for node in list(self.nodes.values()):
             node.kill()
 
+    # -- queries --
+
+    def home_node(self) -> "Node":
+        """The node whose store a service reads in-process: the first
+        in-process member (a standalone server's own)."""
+        for node in self.nodes.values():
+            if isinstance(node, Node):
+                return node
+        raise RuntimeError("no in-process member to serve queries from")
+
+    def dispatcher_for(self, dataset: str, home: "Node"):
+        """shard → its owner's dispatcher (None: ``home``'s, in-process)."""
+        sm = self.shard_managers[dataset]
+
+        def dispatcher_for_shard(shard: int):
+            owner = sm.mapper.node_for(shard)
+            node = self.nodes.get(owner) if owner is not None else None
+            if node is None:
+                raise RuntimeError(f"shard {shard} unassigned")
+            if node is home:
+                return None
+            if isinstance(node, Node):
+                return NodeDispatcher(node)
+            from filodb_tpu_torch.coordinator.remote import (
+                RemotePlanDispatcher,
+            )
+
+            return RemotePlanDispatcher(node.host, node.executor_port)
+
+        return dispatcher_for_shard
+
     def query_service(self, dataset: str, engine: str = "mesh",
                       device=None, result_cache=None) -> QueryService:
-        """A query service over the dataset's store on the node (engine
-        ``"mesh"`` by default, as the standalone server boots it; the
-        extent cache of ``result_cache``, off by default)."""
-        node = next(iter(self.nodes.values()))
-        return QueryService(node.memstores[dataset], device=device,
-                            engine=engine, result_cache=result_cache)
+        """A query service over the home node's store of ``dataset``
+        (engine ``"mesh"`` by default, as the standalone server boots it;
+        the extent cache of ``result_cache``, off by default), whose
+        leaves go to the nodes that own their shards (see the module's
+        text)."""
+        home = self.home_node()
+        sm = self.shard_managers[dataset]
+        svc = QueryService(home.memstores[dataset], device=device,
+                           engine=engine, result_cache=result_cache)
+        svc.planner.dispatcher_for_shard = self.dispatcher_for(dataset, home)
+        svc.shards_local_fn = lambda: all(o == home.name
+                                          for o in sm.mapper.owners)
+        return svc
 
     def shard_statuses(self, dataset: str) -> list[dict]:
         sm = self.shard_managers.get(dataset)

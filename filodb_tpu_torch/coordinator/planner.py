@@ -8,11 +8,20 @@ under a ``DistConcatExec``, the time split (``time_split_ms`` > 0 plans a long r
 sub-ranges and stitches them, ``StitchRvsExec``), and a ``_mat_*`` for
 every logical plan the port parses.
 
-Aggregations reduce at the root (``ReduceAggregateExec`` over the
-gathered series): the reference's ``agg_pushdown="off"``. Its two-phase
-pushdown pays only when a child leaves the process; every leaf here runs
-in-process, where the reference's default arm reduces at the root too.
-Pushdown comes with multi-process serving (ROADMAP §A.12).
+``dispatcher_for_shard`` (a cluster's, ``coordinator/cluster.py``)
+gives each leaf the dispatcher of the node that owns its shard (None:
+in-process). Aggregations reduce at the root over the gathered series,
+or, with two-phase pushdown (the reference's
+``filodb_tpu/coordinator/planner.py:185-247``), each selector leaf ends in
+an ``AggregatePartialMapper`` and the root folds their partials
+(``ReduceAggregateExec(pushdown=True)``). ``agg_pushdown``: ``"off"``
+never; ``"always"`` wherever the shape allows (the plan under the
+aggregation is a leaf or a plain concat of leaves, and the op is in
+``AGG_PUSHDOWN_OPS``); ``"auto"`` (the default) by the cost model's
+``pushdown`` site, whose static arm pushes only where a leaf leaves the
+process (the win is wire bytes); its decision is deferred onto the query
+context and settled with the query's wall time. Each aggregation moves
+``filodb_agg_pushdown_applied`` or ``filodb_agg_pushdown_bypassed``.
 
 Spread overrides, as the reference's: a per-query ``PlannerParams.spread``
 wins over the override of the selector's shard key
@@ -40,6 +49,7 @@ from filodb_tpu_torch.query.exec.plan import (
     DistConcatExec,
     ExecContext,
     ExecPlan,
+    InProcessPlanDispatcher,
     ReduceAggregateExec,
     ScalarBinaryOperationExec,
     ScalarFixedDoubleExec,
@@ -50,9 +60,15 @@ from filodb_tpu_torch.query.exec.plan import (
     VectorFromScalarExec,
 )
 from filodb_tpu_torch.query.model import QueryContext
+from filodb_tpu_torch.utils.metrics import get_counter
 
 # the labels of a shard key, as every schema of the store has them
 SHARD_KEY_LABELS = ("_ws_", "_ns_", "_metric_")
+
+# aggregations planned with a map stage in their leaves, and without
+PUSHDOWN_APPLIED = get_counter("filodb_agg_pushdown_applied")
+PUSHDOWN_BYPASSED = get_counter("filodb_agg_pushdown_bypassed")
+AGG_PUSHDOWN_MODES = ("auto", "always", "off")
 
 
 @dataclass
@@ -69,6 +85,12 @@ class SingleClusterPlanner:
     # or cold tier's, or a streaming ds dataset's), of this dataset
     store: object = None
     dataset_name_override: str | None = None
+    # shard → the dispatcher of the node that owns it (None: in-process)
+    dispatcher_for_shard: "callable | None" = None
+    # two-phase aggregation pushdown: "auto", "always" or "off"
+    agg_pushdown: str = "auto"
+    # the cost model's key ("": the default model)
+    dataset: str = ""
 
     # ---- shard selection ----------------------------------------------------
 
@@ -115,6 +137,10 @@ class SingleClusterPlanner:
                 shard=shard, filters=raw.filters, chunk_start=chunk_start,
                 chunk_end=chunk_end, value_column=raw.column,
                 store=self.store, dataset_name=self.dataset_name_override)
+            d = self.dispatcher_for_shard(shard) \
+                if self.dispatcher_for_shard is not None else None
+            if d is not None:
+                leaf.dispatcher = d
             out.append(leaf.add_transformer(mapper))
         return out
 
@@ -168,10 +194,56 @@ class SingleClusterPlanner:
 
     # -- aggregations and joins --
 
+    def _pushdown_leaves(self, plan: lp.Aggregate, inner: ExecPlan,
+                         q) -> list | None:
+        """The selector leaves to push the map stage into, or None (see
+        the module's text). The map stage rides the leaves' transformers,
+        so the plan under the aggregation must be a leaf or a concat of
+        leaves with nothing above them."""
+        if self.agg_pushdown not in AGG_PUSHDOWN_MODES:
+            raise ValueError(f"agg_pushdown {self.agg_pushdown!r}: one of "
+                             f"{AGG_PUSHDOWN_MODES}")
+        if self.agg_pushdown == "off" or plan.op not in tf.AGG_PUSHDOWN_OPS:
+            return None
+        if isinstance(inner, SelectRawPartitionsExec):
+            leaves = [inner]
+        elif isinstance(inner, DistConcatExec) and not inner.transformers \
+                and all(isinstance(c, SelectRawPartitionsExec)
+                        for c in inner.children_plans):
+            leaves = inner.children_plans
+        else:
+            return None
+        if self.agg_pushdown == "always":
+            return leaves
+        from filodb_tpu_torch.query import cost_model as cm
+
+        local = all(isinstance(c.dispatcher, InProcessPlanDispatcher)
+                    for c in leaves)
+        model = cm.model_for(self.dataset)
+        d = model.decide(
+            "pushdown", f"agg:{plan.op}:leaves{cm.bucket(len(leaves))}:"
+            f"{'local' if local else 'remote'}", ("pushdown", "local"),
+            "local" if local else "pushdown")
+        if q is not None:
+            model.defer(q, d)
+        return None if d.arm == "local" else leaves
+
     def _mat_Aggregate(self, plan: lp.Aggregate, q) -> ExecPlan:
-        return ReduceAggregateExec(children_plans=[self._walk(
-            plan.vector, q)], op=plan.op, params=tuple(plan.params),
-            by=plan.by, without=plan.without)
+        inner = self._walk(plan.vector, q)
+        params = tuple(plan.params)
+        leaves = self._pushdown_leaves(plan, inner, q)
+        if leaves is not None:
+            PUSHDOWN_APPLIED.inc()
+            for leaf in leaves:
+                leaf.add_transformer(tf.AggregatePartialMapper(
+                    plan.op, params, plan.by, plan.without))
+            return ReduceAggregateExec(children_plans=leaves, op=plan.op,
+                                       params=params, by=plan.by,
+                                       without=plan.without, pushdown=True)
+        PUSHDOWN_BYPASSED.inc()
+        return ReduceAggregateExec(children_plans=[inner], op=plan.op,
+                                   params=params, by=plan.by,
+                                   without=plan.without)
 
     def _mat_BinaryJoin(self, plan: lp.BinaryJoin, q) -> ExecPlan:
         lhs, rhs = self._walk(plan.lhs, q), self._walk(plan.rhs, q)

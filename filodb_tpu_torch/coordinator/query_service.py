@@ -75,6 +75,18 @@ every member to exec when its batch raises, which would hide a kernel
 that failed; ROADMAP §C). ``QueryBatcher`` coalesces the queries of
 concurrent threads into such batches (the threaded HTTP front end).
 
+A cluster's service (``FilodbCluster.query_service``) plans leaves
+whose shards other nodes own: its planner's ``dispatcher_for_shard``
+ships them there (``coordinator/remote.py``) and the root gathers them
+(partial answers flagged with their warnings, ``filodb_partial_results``
+counting them). The mesh engines read this process's store alone, so
+they serve only while ``shards_local`` holds (every shard of the dataset
+is this node's); otherwise a plan goes to exec and
+``filodb_mesh_fallback{reason="shards"}`` counts it. The extent cache
+and the node's response cache are stamped with this store's version,
+which remote ingest never moves: both are bypassed while shards are
+remote, as the reference bypasses them.
+
 ``QueryStats.engine`` records which engine answered and
 ``QueryStats.fallback`` why mesh handed the plan on. Both engines keep
 their uploaded batches (and mesh its evaluated windows) in one
@@ -107,7 +119,11 @@ from filodb_tpu_torch.parallel.adaptive import AdaptiveQueryEngine
 from filodb_tpu_torch.parallel.mesh_engine import MeshQueryEngine
 from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
 from filodb_tpu_torch.query.engine.device_batch import BatchCache
-from filodb_tpu_torch.query.exec.plan import ExecContext, apply_result_budget
+from filodb_tpu_torch.query.exec.plan import (
+    ExecContext,
+    apply_result_budget,
+    run_plan,
+)
 from filodb_tpu_torch.query.exec.transformers import GroupIdCache
 from filodb_tpu_torch.query.model import (
     QueryContext,
@@ -140,6 +156,10 @@ from filodb_tpu_torch.utils.tracing import config as tracing_config
 ENGINES = ("mesh", "exec", "adaptive")
 _PLAN_MEMO = 256  # parsed plans kept by ``_parse_cached``
 partial_results = get_counter("filodb_partial_results")
+mesh_fallback_shards = get_counter(
+    "filodb_mesh_fallback", {"reason": "shards"},
+    help="mesh dispatches that fell back to the exec path after "
+    "recognition")
 
 
 # why a plan that reads a colder tier skips the mesh engine
@@ -234,7 +254,11 @@ class QueryService:
                                         self.gids, sidecars=True)
         self.planner = SingleClusterPlanner(memstore.num_shards,
                                             memstore.spread,
-                                            time_split_ms=time_split_ms)
+                                            time_split_ms=time_split_ms,
+                                            dataset=self.dataset)
+        # whether every shard of the dataset is this process's (a
+        # cluster's service sets it; None: always)
+        self.shards_local_fn = None
         self.result_cache = ResultCache.from_config(result_cache)
         # the multi-process runtime (``coordinator/mesh_cluster.py``) where
         # a node boots mesh workers: memstore-only plans try it first
@@ -294,6 +318,13 @@ class QueryService:
         return adaptive_planner.admission_class(
             self.dataset, plan, qcontext, _admission_cost(plan))
 
+    def shards_local(self) -> bool:
+        """Whether every shard of the dataset lives in this process's
+        store (the mesh engines, the extent cache and the response cache
+        need it)."""
+        f = self.shards_local_fn
+        return True if f is None else bool(f())
+
     def _planner_mem_only(self, plan) -> bool:
         """Whether the planner proves ``plan`` reads the memstore only (a
         planner without tiers reads nothing else): only such a plan may
@@ -321,7 +352,8 @@ class QueryService:
                 self._deadline = deadline
                 try:
                     result = None
-                    if self.result_cache is not None and materialize:
+                    if self.result_cache is not None and materialize \
+                            and self.shards_local():
                         result = self.result_cache.execute(self, plan,
                                                            qcontext)
                     if result is None:
@@ -344,7 +376,11 @@ class QueryService:
         t0 = time.perf_counter()
         fallback = ""
         result = None
-        if self.engine != "exec" and self.mesh_cluster is not None \
+        local = self.engine == "exec" or self.shards_local()
+        if not local:
+            mesh_fallback_shards.inc()
+            fallback = "shards on other nodes"
+        if local and self.engine != "exec" and self.mesh_cluster is not None \
                 and self._planner_mem_only(plan):
             # the multi-process runtime first, inside this query's one
             # admission; None (a worker lost or stale, a shape it does not
@@ -355,7 +391,7 @@ class QueryService:
                                                       stats)
             if data is not None:
                 result = QueryResult(data, stats, qcontext.query_id)
-        if result is None and self.engine != "exec":
+        if result is None and local and self.engine != "exec":
             fallback = self.mesh.supports(self.memstore, plan) \
                 if self._planner_mem_only(plan) else _OLDER_TIER
             if fallback is None:
@@ -383,9 +419,10 @@ class QueryService:
             tree = self.planner.materialize(plan, qcontext)
         ctx = ExecContext(self.memstore, stats, self.device, self.batches,
                           self.gids, deadline=self._deadline,
-                          budget=qcontext.planner_params.budget)
+                          budget=qcontext.planner_params.budget,
+                          dataset=self.dataset, qcontext=qcontext)
         with device_span("exec-dispatch", self.device):
-            data = tree.execute(ctx)
+            data = run_plan(tree, ctx)
         return QueryResult(data, stats, qcontext.query_id,
                            partial=ctx.partial, warnings=list(ctx.warnings))
 
@@ -462,7 +499,7 @@ class QueryService:
                     start, step, end))
             except Exception as e:  # noqa: BLE001
                 failed(i, e)
-        if self.result_cache is not None:
+        if self.result_cache is not None and self.shards_local():
             for i, plan in enumerate(plans):
                 if plan is None:
                     continue
@@ -494,6 +531,10 @@ class QueryService:
         on_mesh: dict = {}
         meshable = [i for i, p in enumerate(plans)
                     if self._planner_mem_only(p)]
+        remote = self.engine != "exec" and not self.shards_local()
+        if remote and meshable:
+            mesh_fallback_shards.inc(len(meshable))
+            meshable = []
         if self.engine != "exec" and self.mesh_cluster is not None:
             # the multi-process runtime first, a plan at a time (as
             # ``_execute_uncached``); what it does not answer goes on
@@ -524,6 +565,7 @@ class QueryService:
                            if answer is not None else self._on_exec(
                                plan, qcontext,
                                "" if self.engine == "exec" else
+                               "shards on other nodes" if remote else
                                _OLDER_TIER if i not in on_mesh else
                                self.mesh.supports(self.memstore, plan)
                                or "declined by the mesh engine's batch"))

@@ -1,8 +1,9 @@
-"""The framed TCP transport of the plan wire.
+"""The framed TCP transport of the plan wire, and exec plans shipped
+over it.
 
-Port of the transport half of ``filodb_tpu/coordinator/remote.py``, the
-part the multi-process mesh runtime rides (``coordinator/mesh_cluster.py``,
-``parallel/multiproc.py``); the protocol is the reference's byte for byte,
+Port of ``filodb_tpu/coordinator/remote.py``. The multi-process mesh
+runtime (``coordinator/mesh_cluster.py``, ``parallel/multiproc.py``) and
+a cluster's nodes ride it; the protocol is the reference's byte for byte,
 so either package's client talks to the other's server:
 
 - frames: a u32 length word, then one ``coordinator/wire.py`` value; the
@@ -20,9 +21,27 @@ so either package's client talks to the other's server:
   Any transport error (``TRANSPORT_ERRORS``, a malformed frame among them)
   closes the socket it happened on.
 
-Shipping exec plans (``PlanExecutorServer``, ``dispatch`` with partial
-scatter-gather, aggregation pushdown and ``wireBytes``) comes with remote
-plan dispatch (ROADMAP A7).
+- ``PlanExecutorServer`` (the reference's ``:185-277``): a node's
+  executor port. ``("execute", dataset, plan, qcontext)`` runs the
+  shipped subtree under the governor's admission (an EXPENSIVE slot, the
+  plan's tenant from its leaves' filters) and then under the lock of the
+  dataset's ``QueryService``: the port's service answers one query at a
+  time, and a node's store is never read from handler threads that
+  nothing serializes (ROADMAP §C.14). It answers ``("ok",
+  QueryResult)`` (values materialized to host float64; a sampled query's
+  spans in ``spans``), ``("rejected", why, retry_after_s)`` for a shed,
+  or ``("err", repr)``; ``extra_handlers`` take a node's control
+  messages. A server given a bare store runs its plans on a service of
+  its own (and so under that service's lock), on ``device``.
+- ``RemotePlanDispatcher.dispatch`` (``:442-515``): under the peer's
+  breaker (``calling``: an open peer raises ``CircuitOpenError`` without
+  a dial, and only transport errors count against it), retried on a
+  fresh socket under the retry policy and the query's deadline (each
+  attempt's timeout is the deadline's remainder); it records the peer's
+  latency, counts the call's bytes into the child's
+  ``stats.wire_bytes``, grafts a sampled answer's spans under its
+  ``dispatch`` span tagged with the peer, and re-raises a shed as
+  ``QueryRejected``. ``call`` sends a control message.
 """
 
 from __future__ import annotations
@@ -34,12 +53,20 @@ import socket
 import socketserver
 import struct
 import threading
+import time
 import zlib
 
 from filodb_tpu_torch.coordinator.wire import MAX_FRAME, decode, encode
-from filodb_tpu_torch.query.exec.plan import PlanDispatcher
+from filodb_tpu_torch.query.exec.plan import ExecContext, PlanDispatcher
+from filodb_tpu_torch.query.model import QueryContext, QueryResult, QueryStats
 from filodb_tpu_torch.utils.metrics import GaugeFn, get_counter
-from filodb_tpu_torch.utils.resilience import FaultInjector
+from filodb_tpu_torch.utils.resilience import (
+    FaultInjector,
+    breaker_for,
+    default_retry_policy,
+    record_peer_latency,
+)
+from filodb_tpu_torch.utils.tracing import graft_spans, span, start_trace
 
 log = logging.getLogger(__name__)
 
@@ -176,6 +203,100 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     return buf
 
 
+class PlanExecutorServer:
+    """A node's executor port (see the module's text). ``services`` maps a
+    dataset to the ``QueryService`` whose lock its shipped plans run
+    under; None serves control messages only.
+    ``extra_handlers``: {kind: fn(*payload) → response}."""
+
+    def __init__(self, services: dict | None, host: str = "127.0.0.1",
+                 port: int = 0, extra_handlers: dict | None = None,
+                 secret: str | None = None):
+        self.services = services if services is not None else {}
+        self.extra_handlers = extra_handlers or {}
+        self.secret = secret if secret is not None else cluster_secret()
+        Handler = make_authed_handler(lambda: self.secret, self._handle,
+                                      "remote exec")
+
+        class Server(socketserver.ThreadingTCPServer):
+            # a fixed executor port must rebind across fast restarts
+            allow_reuse_address = True
+
+        self.server = Server((host, port), Handler, bind_and_activate=True)
+        self.server.daemon_threads = True
+        self.port = self.server.server_address[1]
+        self.address = (host, self.port)
+        self._thread = threading.Thread(target=self.server.serve_forever,
+                                        daemon=True, name="plan-executor")
+
+    def _handle(self, msg):
+        kind = msg[0]
+        if kind == "ping":
+            return ("pong",)
+        if kind == "execute":
+            try:
+                return self._execute(*msg[1:])
+            except Exception as e:
+                log.exception("plan execution failed")
+                return ("err", repr(e))
+        handler = self.extra_handlers.get(kind)
+        if handler is not None:
+            try:
+                return ("ok", handler(*msg[1:]))
+            except Exception as e:
+                log.exception("control message %s failed", kind)
+                return ("err", repr(e))
+        return ("err", f"unknown message {kind!r}")
+
+    def _execute(self, dataset: str, plan, qcontext):
+        from filodb_tpu_torch.coordinator.query_service import plan_tenant
+        from filodb_tpu_torch.utils.governor import (
+            EXPENSIVE,
+            QueryRejected,
+            governor,
+        )
+
+        svc = self.services.get(dataset)
+        if svc is None:
+            raise KeyError(f"dataset {dataset!r} is not served here")
+        qcontext = qcontext or QueryContext()
+        tc = qcontext.trace
+        sampled = tc is not None and tc.sampled
+        t0 = time.perf_counter()
+        try:
+            with governor().admit(cost=EXPENSIVE, tenant=plan_tenant(plan)):
+                waited = time.perf_counter() - t0
+                with svc.lock:
+                    ctx = ExecContext(
+                        svc.memstore, QueryStats(engine="exec"), svc.device,
+                        svc.batches, svc.gids, dataset=dataset,
+                        qcontext=qcontext)
+                    ctx.stats.admission_wait_s += waited
+                    spans = []
+                    if sampled:
+                        # join the root's trace: the tree goes back in the
+                        # answer, for the dispatcher to graft
+                        with start_trace() as trace:
+                            data = plan.execute(ctx).materialize()
+                        spans = trace.as_dicts()
+                    else:
+                        data = plan.execute(ctx).materialize()
+                    ctx.stats.settle_timings()
+        except QueryRejected as e:
+            return ("rejected", str(e), e.retry_after_s)
+        return ("ok", QueryResult(data, ctx.stats, qcontext.query_id,
+                                  partial=ctx.partial,
+                                  warnings=list(ctx.warnings), spans=spans))
+
+    def start(self) -> "PlanExecutorServer":
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
 class _SocketPool:
     """The process's authed sockets, idle ones kept a peer: a call checks
     one out and back in, so threads that come and go reuse them. A socket
@@ -232,9 +353,10 @@ def reset_pool() -> None:
 
 class RemotePlanDispatcher(PlanDispatcher):
     """The framed transport's client of one peer: pooled sockets,
-    ``_roundtrip`` and ``ping``. A stale pooled socket (the peer restarted)
-    fails with a transport error and is closed; callers retry on a fresh
-    one under the process retry policy."""
+    ``_roundtrip``, ``ping``, ``dispatch`` and ``call``. A stale pooled
+    socket (the peer restarted) fails with a transport error and is
+    closed; callers retry on a fresh one under the process retry
+    policy."""
 
     __wire_fields__ = ("host", "port", "timeout")
 
@@ -309,8 +431,64 @@ class RemotePlanDispatcher(PlanDispatcher):
             nbytes_out.append(nsent + nrecv)
         return resp
 
+    def dispatch(self, plan, ctx):
+        """Ship ``plan`` to the peer and return its ``QueryResult`` (see
+        the module's text)."""
+        breaker = breaker_for(self.peer)
+        deadline = ctx.deadline
+        nbytes: list[int] = []
+
+        def attempt():
+            timeout = deadline.timeout(cap=self.timeout,
+                                       what=f"dispatch to {self.peer}") \
+                if deadline is not None else self.timeout
+            FaultInjector.fire("remote.dispatch", host=self.host,
+                               port=self.port)
+            return self._roundtrip(
+                ("execute", ctx.dataset, plan, ctx.qcontext), timeout,
+                nbytes_out=nbytes)
+
+        t0 = time.perf_counter()
+        with span("dispatch", peer=self.peer) as dspan, \
+                breaker.calling(transport_errors=self.TRANSPORT_ERRORS):
+            resp = default_retry_policy().call(
+                attempt, retry_on=self.TRANSPORT_ERRORS, deadline=deadline)
+        record_peer_latency(self.peer, time.perf_counter() - t0)
+        if resp[0] == "ok":
+            result = resp[1]
+            # on the child's own stats: the gather merges them, on its
+            # thread
+            result.stats.wire_bytes += sum(nbytes)
+            if result.spans:
+                graft_spans(result.spans, dspan, node=self.peer)
+                result.spans = []
+            return result
+        if resp[0] == "rejected":
+            # the peer's admission shed the query: overload, not a lost
+            # child, so no gather takes it as partial
+            from filodb_tpu_torch.utils.governor import QueryRejected
+
+            raise QueryRejected(f"peer {self.peer} shed the query: "
+                                f"{resp[1]}",
+                                retry_after_s=resp[2] if len(resp) > 2
+                                else 1.0)
+        raise RuntimeError(f"remote execution failed on {self.peer}: "
+                           f"{resp[1]}")
+
     def ping(self) -> bool:
         try:
             return self._roundtrip(("ping",))[0] == "pong"
         except self.TRANSPORT_ERRORS:
             return False
+
+    def call(self, kind: str, *payload):
+        """A control message's answer; a stale pooled socket retries on a
+        fresh one under the retry policy."""
+        resp = default_retry_policy().call(
+            lambda: self._roundtrip((kind, *payload)),
+            retry_on=self.TRANSPORT_ERRORS)
+        if resp[0] == "ok":
+            return resp[1]
+        if resp[0] == "pong":
+            return None
+        raise RuntimeError(f"control call {kind} failed: {resp[1]}")

@@ -15,6 +15,13 @@ Format (little-endian): one tagged value.
     A      dtype str | u8 ndim | i64 shape* | raw bytes
     O      class-name str | u16 nfields | (name str, value)*
 
+The registry walks the exec plans (``EmptyResultExec`` and the pushdown
+root among them), the transformers (``AggregatePartialMapper``), the
+filters and the dispatchers (``InProcessPlanDispatcher``, a bare tag;
+``RemotePlanDispatcher``; ``coordinator/cluster.py::NodeDispatcher``,
+which names no fields and so fails at encode, as the reference's does),
+and lists ``QueryResult`` (with its ``spans``) beside the query model.
+
 A class's fields are its ``__wire_fields__`` where it names them, else
 its dataclass fields. The port's model classes name the reference's
 fields in the reference's order (``query/model.py``): both packages
@@ -57,6 +64,7 @@ def _build_registry() -> dict[str, type]:
     with new exec plans, transformers, filters and dispatchers. Every
     module defining wire classes is imported before the walk, so the
     registry does not depend on import order."""
+    from filodb_tpu_torch.coordinator import cluster  # noqa: F401
     from filodb_tpu_torch.coordinator import remote  # noqa: F401
     from filodb_tpu_torch.coordinator.mesh_cluster import LoweredDescriptor
     from filodb_tpu_torch.core.filters import ColumnFilter, Filter
@@ -67,6 +75,7 @@ def _build_registry() -> dict[str, type]:
     from filodb_tpu_torch.query.model import (
         PlannerParams,
         QueryContext,
+        QueryResult,
         QueryStats,
         RangeVectorKey,
         StepMatrix,
@@ -86,8 +95,8 @@ def _build_registry() -> dict[str, type]:
         reg[base.__name__] = base
         walk(base)
     for cls in (ColumnFilter, PartKey, LoweredDescriptor, PlannerParams,
-                QueryBudget, QueryContext, QueryStats, RangeVectorKey,
-                StepMatrix, TraceContext):
+                QueryBudget, QueryContext, QueryResult, QueryStats,
+                RangeVectorKey, StepMatrix, TraceContext):
         reg[cls.__name__] = cls
     return reg
 

@@ -104,9 +104,13 @@ class FastHttpServer:
 
     def __init__(self, services: dict, host="127.0.0.1", port=8080,
                  cluster=None, reuse_port: bool = False,
-                 response_cache: bool = True, rule_managers=None):
+                 response_cache: bool = True, rule_managers=None,
+                 shard_maps=None):
         self.services = services
         self.cluster = cluster
+        # a member's mirrors of the coordinator's map: dataset → a
+        # callable giving its ``ShardMapper``
+        self.shard_maps = shard_maps or {}
         # dataset -> RuleManager: /api/v1/rules and /api/v1/alerts
         self.rule_managers = rule_managers or {}
         self.response_cache = ResponseCache() if response_cache else None
@@ -290,10 +294,12 @@ class FastHttpServer:
             req = self._classify_hot(conn, slot, method, path)
             if req is not None:
                 cache = self.response_cache
-                if cache is not None:
+                version = service_version(req.svc) if cache is not None \
+                    else None
+                if version is not None:
                     req.ckey = response_cache_key(req.svc, req.kind,
                                                   req.params)
-                    req.version = service_version(req.svc)
+                    req.version = version
                     hit = cache.get(req.ckey, req.version)
                     if hit is not None:
                         conn.fill(slot, _response_bytes(

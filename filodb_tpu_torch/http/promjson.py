@@ -32,7 +32,8 @@ def _labels_json(key) -> dict:
 
 def _stats_json(result: QueryResult, full: bool = False) -> dict:
     """The four basic stats; with ``full`` (``?stats=all``) the counters
-    the port keeps beside them (``decodeMs``: the exec leaves' batch builds
+    the port keeps beside them (``wireBytes``: what remote children's
+    dispatches sent and received; ``decodeMs``: the exec leaves' batch builds
     and the sidecar and pyramid lanes' folds; ``reduceMs``: the leaves'
     transformers and the aggregations), a federated query's per-tier buckets
     (``tiers``) and the pyramid lane's levels and bytes (``pyramid``)."""
@@ -45,6 +46,7 @@ def _stats_json(result: QueryResult, full: bool = False) -> dict:
         out.update({"chunksTouched": s.chunks_touched,
                     "cacheHits": s.cache_hits,
                     "cacheMisses": s.cache_misses,
+                    "wireBytes": s.wire_bytes,
                     "admissionWaitMs": round(s.admission_wait_s * 1000.0,
                                              3),
                     "decodeMs": round(s.decode_s * 1000.0, 3),

@@ -21,6 +21,8 @@ Port of ``filodb_tpu/http/server.py``'s ``HttpDispatcher`` and
   ``/promql/{dataset}/api/v1/rules`` and ``.../alerts`` (one dataset's):
   the rule managers' groups and active alerts (``app.rule_managers``)
 - ``GET /api/v1/cluster`` (datasets) and ``/api/v1/cluster/{dataset}/status``
+  (a member answers from its mirror of the coordinator's map,
+  ``shard_maps``)
 - ``GET /api/v1/status/tsdb?dataset=&topk=``: each shard's series and
   encode counts, and the top metrics and labels by cardinality
 - ``GET /api/v1/status/ingest?dataset=&limit=``: each shard's ingest
@@ -37,18 +39,20 @@ error or a bad parameter, 404 for an unknown dataset or route, 422 for a
 query limit or a budget in ``degrade="error"``, 503 with ``Retry-After``
 for a query the governor shed (``unavailable``) or whose deadline passed
 (``timeout``), 500 (``internal``) for anything else. The cluster's shard
-commands and migration answer 501: they come with ROADMAP §A.12.
-``?stats=all`` renders the basic stats, the counters the port keeps
-beside them (``decodeMs`` and ``reduceMs`` among them), a federated
-query's per-tier buckets and the pyramid lane's keys (ROADMAP §C:
-``wireBytes`` comes with remote dispatch).
+commands (``startshards``, ``stopshards``), ``shardmap`` and ``migrate``
+answer 501 naming ROADMAP §A.12. ``?stats=all`` renders the basic stats,
+the counters the port keeps beside them (``wireBytes``, ``decodeMs`` and
+``reduceMs`` among them), a federated query's per-tier buckets and the
+pyramid lane's keys. A partial answer (a budget's, or a gather that lost
+children) carries ``partial`` and ``warnings``.
 
 The hot routes (``query`` and ``query_range``) go through the rendered-
 response cache (``ResponseCache``, ``response_cache=True`` by default, as
 the reference's ``http_response_cache``): the rendered body is kept under
 the resolved query parameters and the service's construction serial, and
 served while the store's version (``service_version``: the sum of its
-shards' versions) has not moved. Any ingested row moves it, so under
+shards' versions) has not moved, and bypassed while shards of the
+dataset are other nodes'. Any ingested row moves it, so under
 live ingest the extent cache below answers instead. A miss runs through
 ``app.batched(svc)``: on this threaded front a ``QueryBatcher`` a service
 coalesces the queries of concurrent request threads into one
@@ -147,12 +151,15 @@ class ResponseCache:
             self._lru[key] = (version, body)
 
 
-def service_version(svc) -> int:
+def service_version(svc) -> int | None:
     """The response cache's stamp for ``svc``: the sum of its store's shard
     versions (every ingest call moves it), and under a tiered planner its
-    colder tiers' version (``version_token``). The reference bypasses the
-    cache where the store lacks some of the dataset's shards; a port store
-    holds them all."""
+    colder tiers' version (``version_token``). None (no caching) where
+    shards of the dataset are other nodes' (``QueryService.shards_local``):
+    their ingest never moves this stamp, as the reference bypasses the
+    cache then."""
+    if not svc.shards_local():
+        return None
     tok = getattr(svc.planner, "version_token", None)
     return svc.memstore.version + (tok() if tok is not None else 0)
 
@@ -274,11 +281,13 @@ class HttpDispatcher:
         ``app.batched(svc)`` and stores its rendered body. ``full_stats``
         (``?stats=all``) renders the full stats, a body of its own."""
         cache = self.app.response_cache
+        version = service_version(svc) if cache is not None else None
+        if version is None:
+            cache = None  # remote shards: the stamp does not see them
         if cache is not None:
             key = response_cache_key(svc, kind, params)
             if full_stats:
                 key = key + ("stats",)
-            version = service_version(svc)
             body = cache.get(key, version)
             if body is not None:
                 return 200, {"Content-Type": JSON_CT}, body
@@ -558,13 +567,19 @@ class HttpDispatcher:
             return self._json(200, {"status": "success",
                                     "data": list(self.app.services)})
         if len(rest) == 2 and rest[1] == "status":
-            data = cluster.shard_statuses(rest[0]) if cluster is not None \
-                else []
+            mirror = self.app.shard_maps.get(rest[0])
+            if cluster is not None:
+                data = cluster.shard_statuses(rest[0])
+            elif mirror is not None:
+                # a member: the coordinator's map, from its mirror
+                data = mirror().snapshot()
+            else:
+                data = []
             return self._json(200, {"status": "success", "data": data})
         if len(rest) == 2 and rest[1] in ("startshards", "stopshards",
                                           "shardmap", "migrate"):
-            return self._unported("shard commands and migration "
-                                  "(ROADMAP §A.12)")
+            return self._unported(f"{rest[1]}: shard commands and "
+                                  f"migration (ROADMAP §A.12)")
         return self._json(404, promjson.error_json("unknown cluster endpoint"))
 
 
@@ -575,9 +590,13 @@ class FiloHttpServer:
 
     def __init__(self, services: dict, host: str = "127.0.0.1",
                  port: int = 8080, cluster=None, reuse_port: bool = False,
-                 response_cache: bool = True, rule_managers=None):
+                 response_cache: bool = True, rule_managers=None,
+                 shard_maps=None):
         self.services = services
         self.cluster = cluster
+        # a member's mirrors of the coordinator's map: dataset → a
+        # callable giving its ``ShardMapper``
+        self.shard_maps = shard_maps or {}
         # dataset -> RuleManager: /api/v1/rules and /api/v1/alerts
         self.rule_managers = rule_managers or {}
         self.response_cache = ResponseCache() if response_cache else None

@@ -674,6 +674,10 @@ class BatchCache:
             self._entries.pop(next(iter(self._entries)))
         self._entries[key] = (owner, batch.version, pids, batch)
 
+    def clear(self) -> None:
+        """Drop every batch (the next query of each leaf is cold)."""
+        self._entries.clear()
+
     def batches(self, engine: str | None = None) -> list[DeviceBatch]:
         """The batches held, of one engine (a key's first item) or all."""
         return [e[3] for k, e in self._entries.items()

@@ -28,7 +28,11 @@ from filodb_tpu_torch.query.engine.instantfns import (
     COMPARISON_OPS,
     apply_binary_op,
 )
-from filodb_tpu_torch.query.exec.plan import ExecContext, NonLeafExecPlan
+from filodb_tpu_torch.query.exec.plan import (
+    ExecContext,
+    NonLeafExecPlan,
+    run_plan,
+)
 from filodb_tpu_torch.query.exec.transformers import tensor_of
 from filodb_tpu_torch.query.model import (
     RangeVectorKey,
@@ -257,5 +261,5 @@ class SetOperatorExec(NonLeafExecPlan):
 
 
 def _sides(plan, ctx: ExecContext) -> tuple[StepMatrix, StepMatrix]:
-    return tuple(StepMatrix.concat([p.execute(ctx) for p in plans])
+    return tuple(StepMatrix.concat([run_plan(p, ctx) for p in plans])
                  for plans in (plan.lhs_plans, plan.rhs_plans))

@@ -1,13 +1,12 @@
 """The exec plan tree: a query as a tree of plans that each run on the card.
 
-Port of ``filodb_tpu/query/exec/plan.py``, trimmed to an in-process
-engine on one card: ``ExecPlan`` (``execute`` = ``do_execute``, then the
-plan's transformers in order), the leaf ``SelectRawPartitionsExec`` (one
-shard), the gathering plans ``DistConcatExec``, ``ReduceAggregateExec``
-and ``StitchRvsExec`` (children run one after another on the calling
-thread, as the reference runs in-process children), and the scalar
-plans. ``coordinator/planner.py`` builds the
-tree; ``query/exec/binaryjoin.py`` adds the join plans.
+Port of ``filodb_tpu/query/exec/plan.py``: ``ExecPlan`` (``execute`` =
+``do_execute``, then the plan's transformers in order), the leaf
+``SelectRawPartitionsExec`` (one shard), ``EmptyResultExec``, the
+gathering plans ``DistConcatExec``, ``ReduceAggregateExec`` and
+``StitchRvsExec`` (scatter-gather below), and the scalar plans.
+``coordinator/planner.py`` builds the tree; ``query/exec/binaryjoin.py``
+adds the join plans.
 
 A leaf selects its shard's partitions, groups them by schema (each schema
 its own batch, as the reference's ``SelectRawPartitionsExec`` does), and
@@ -41,9 +40,44 @@ transformers, and the root's aggregation). After its sidecar attempt a
 leaf settles the cost model's deferred ``sidecar`` decisions with its
 whole evaluation's wall time, the card synchronized first.
 
-Left out, with the reason in ``ROADMAP.md``: the plan dispatchers, remote
-dispatch and partial scatter-gather (a plan runs where it is,
-``execute``), and two-phase aggregation pushdown.
+A plan runs where its ``dispatcher`` sends it (the reference's
+``filodb_tpu/query/exec/plan.py:48-66``): ``InProcessPlanDispatcher``
+(the default, a bare tag on the wire) runs ``execute`` on the calling
+thread against the caller's context; the framed transport's
+``RemotePlanDispatcher`` (``coordinator/remote.py``) ships the subtree to
+the node that owns its shard, and a cluster's ``NodeDispatcher``
+(``coordinator/cluster.py``) runs it against another in-process node's
+store. The planner sets dispatchers on leaves only.
+
+Scatter-gather (``NonLeafExecPlan.gather_each``, the reference's
+``:402-556``): children that leave the calling thread run at once on a
+pool of the gather's own (a shared pool deadlocks nested gathers), the
+in-process ones on the calling thread while those are in flight; each
+child's answer is folded in child order, whatever the order they
+complete in. A child lost to a transport fault (``TOLERABLE``) becomes
+a partial answer, with a warning naming its shards, where the query's
+``allow_partial`` (or the resilience config's) allows and at most
+``partial_max_fraction`` of the children are lost; past it, the query
+fails. A ``DeadlineExceeded`` is never partial, nor is any other error.
+A remote child's stats, partial flag and warnings merge into the
+context; an in-process child shares the context and merges nothing.
+
+Where local and remote answers meet: ``execute`` returns a
+``StepMatrix`` whose values live on the context's device (a torch
+tensor, float64 once gathered; the windows the kernels give are float32
+until ``StepMatrix.concat`` or an aggregation casts them), while a remote
+child's ``dispatch`` returns a ``QueryResult`` whose values the wire
+carried as host numpy float64. The gather moves each remote child's
+values onto the context's device as float64 (``_on_device``) before they
+reach the concat or the pushdown fold, so a root's reduce runs on its
+own card over float64 rows, whichever node computed them.
+
+``ReduceAggregateExec(pushdown=True)`` is the root of two-phase
+aggregation: its children are leaves that end in an
+``AggregatePartialMapper`` (one partial row a group, computed on the
+child's card) and it folds their partials one child at a time
+(``transformers.PartialAggregateFolder``), so the root holds a group's
+rows, not a series'.
 """
 
 from __future__ import annotations
@@ -64,6 +98,7 @@ from filodb_tpu_torch.query.engine.instantfns import apply_binary_op
 from filodb_tpu_torch.query.exec.transformers import (
     AggregateMapReduce,
     GroupIdCache,
+    PartialAggregateFolder,
     PeriodicSamplesMapper,
     RangeVectorTransformer,
     steps_array,
@@ -71,31 +106,56 @@ from filodb_tpu_torch.query.exec.transformers import (
 )
 from filodb_tpu_torch.query.cost_model import CostModel
 from filodb_tpu_torch.query.model import (
+    QueryContext,
     QueryLimitExceeded,
+    QueryResult,
     QueryStats,
     RangeVectorKey,
     StepMatrix,
 )
-from filodb_tpu_torch.utils.resilience import check
-from filodb_tpu_torch.utils.tracing import span
+from filodb_tpu_torch.utils.resilience import (
+    DeadlineExceeded,
+    FaultInjector,
+    check,
+    config,
+)
+from filodb_tpu_torch.utils.tracing import (
+    activate,
+    current_span,
+    current_trace,
+    span,
+)
 
 
 class PlanDispatcher:
     """Ships a plan to where its data lives (the reference's
-    ``PlanDispatcher``). The framed transport's client
-    (``coordinator/remote.py``) and the mesh worker client derive from it,
-    which registers them on the plan wire; shipping exec plans themselves
-    comes with remote plan dispatch (ROADMAP A7)."""
+    ``PlanDispatcher``): ``dispatch`` returns the plan's answer, a
+    ``StepMatrix`` on the caller's device where it ran in this process,
+    or a ``QueryResult`` where it ran elsewhere (its own stats, partial
+    flag and warnings; values in host numpy)."""
 
     def dispatch(self, plan: "ExecPlan", ctx: "ExecContext"):
         raise NotImplementedError
+
+
+class InProcessPlanDispatcher(PlanDispatcher):
+    """Runs the plan here, against the caller's context (the reference's
+    ``InProcessPlanDispatcher``). Stateless, so a bare tag on the wire; a
+    dispatcher with state (``NodeDispatcher``) has no wire fields and
+    fails at encode rather than losing them."""
+
+    __wire_fields__ = ()
+
+    def dispatch(self, plan, ctx):
+        return plan.execute(ctx)
 
 
 @dataclass
 class ExecContext:
     """What a plan runs against: the store, the query's stats, the card,
     the leaves' batch cache and the aggregations' group-id cache (the
-    service's, which the mesh engine shares)."""
+    service's, which the mesh engine shares), and the dataset's name and
+    the ``QueryContext``, which ride to remote leaves with the plan."""
 
     memstore: object
     stats: QueryStats = field(default_factory=QueryStats)
@@ -103,21 +163,26 @@ class ExecContext:
     batches: BatchCache | None = None
     gids: GroupIdCache = field(default_factory=GroupIdCache)
     # the query's deadline (``utils.resilience.Deadline``) and scan budget
-    # (``utils.governor.QueryBudget``); None: none
+    # (``utils.governor.QueryBudget``); None: none (the budget: the
+    # query context's)
     deadline: object = None
     budget: object = None
-    # a budget in ``degrade="partial"`` stopped the query
+    # a budget in ``degrade="partial"`` stopped the query, or a gather
+    # lost children below its threshold
     partial: bool = False
     warnings: list[str] = field(default_factory=list)
+    # the dataset (the cost model's key; "": the store's) and the query's
+    # context
+    dataset: str = ""
+    qcontext: QueryContext = field(default_factory=QueryContext)
 
     def __post_init__(self):
         if self.batches is None:
             self.batches = BatchCache(self.device)
-
-    @property
-    def dataset(self) -> str:
-        """The cost model's key."""
-        return self.memstore.dataset
+        if not self.dataset and self.memstore is not None:
+            self.dataset = self.memstore.dataset
+        if self.budget is None:
+            self.budget = self.qcontext.planner_params.budget
 
 
 def apply_result_budget(data: StepMatrix, ctx) -> StepMatrix:
@@ -145,6 +210,8 @@ class ExecPlan:
 
     transformers: list[RangeVectorTransformer] = field(default_factory=list,
                                                       kw_only=True)
+    dispatcher: PlanDispatcher = field(
+        default_factory=InProcessPlanDispatcher, kw_only=True)
 
     def execute(self, ctx: ExecContext) -> StepMatrix:
         data = self.do_execute(ctx)
@@ -316,18 +383,174 @@ def _by_schema(shard, pids: np.ndarray) -> list[tuple[int, np.ndarray]]:
 
 
 @dataclass
+class EmptyResultExec(ExecPlan):
+    """No series, at the grid's steps (the reference's
+    ``EmptyResultExec``)."""
+
+    start: int = 0
+    step: int = 1000
+    end: int = 0
+
+    def do_execute(self, ctx) -> StepMatrix:
+        steps = steps_array(self.start, self.step, self.end)
+        return StepMatrix([], np.zeros((0, len(steps))), steps)
+
+    def __repr__(self):
+        return "EmptyResultExec"
+
+
+def plan_shards(plan: ExecPlan) -> list[int]:
+    """Every shard a subtree reads, sorted: a partial answer's warning
+    names the lost ones."""
+    out = set()
+    shard = getattr(plan, "shard", None)
+    if shard is not None:
+        out.add(shard)
+    for c in plan.children():
+        out.update(plan_shards(c))
+    return sorted(out)
+
+
+def _in_process(plan: ExecPlan) -> bool:
+    return isinstance(plan.dispatcher, InProcessPlanDispatcher)
+
+
+def _on_device(data: StepMatrix, device: torch.device) -> StepMatrix:
+    """A remote answer's host values as float64 on ``device`` (see the
+    module's text)."""
+    if isinstance(data.values, np.ndarray):
+        data.values = torch.from_numpy(
+            np.ascontiguousarray(data.values, dtype=np.float64)).to(device)
+    return data
+
+
+def _merged(result, ctx: ExecContext) -> StepMatrix:
+    """A child's answer as a matrix on ``ctx``'s device: a
+    ``QueryResult`` (a child that ran elsewhere) merges its partial flag,
+    new warnings and, where they are its own, its stats into ``ctx``."""
+    if not isinstance(result, QueryResult):
+        return result
+    if result.partial:
+        ctx.partial = True
+        ctx.warnings.extend(w for w in result.warnings
+                            if w not in ctx.warnings)
+    if result.stats is not None and result.stats is not ctx.stats:
+        ctx.stats.merge_counts(result.stats)
+    return _on_device(result.result, ctx.device)
+
+
+def run_plan(plan: ExecPlan, ctx: ExecContext) -> StepMatrix:
+    """``plan``'s answer through its dispatcher, on ``ctx``'s device (a
+    root or a join's side that is itself a leaf shipped elsewhere)."""
+    if _in_process(plan):
+        return plan.execute(ctx)
+    return _merged(plan.dispatcher.dispatch(plan, ctx), ctx)
+
+
+@dataclass
 class NonLeafExecPlan(ExecPlan):
     children_plans: list[ExecPlan] = field(default_factory=list)
 
     def children(self):
         return self.children_plans
 
+    # child losses a gather tolerates as a partial answer: a transport's
+    # (a dead peer, a reset connection, an open breaker, a socket
+    # timeout); a remote error, a limit or a kernel library that does not
+    # load (``_build`` raises RuntimeError for it) still fails the query
+    TOLERABLE = (ConnectionError, OSError, TimeoutError)
+
     def gather(self, ctx: ExecContext) -> list[StepMatrix]:
-        """The children's answers in child order, run one after another on
-        the calling thread (they share ``ctx``, as the reference's
-        in-process children do)."""
+        """The children's answers in child order (see ``gather_each``)."""
+        mats: list[StepMatrix] = []
+        self.gather_each(ctx, mats.append)
+        return mats
+
+    def gather_each(self, ctx: ExecContext, fold) -> None:
+        """Run the children and hand each answer, on ``ctx``'s device, to
+        ``fold`` in child order (see the module's text)."""
+        children = self.children_plans
         check(ctx.deadline, type(self).__name__ + ".gather")
-        return [c.execute(ctx) for c in self.children_plans]
+        rc = config()
+        pp = ctx.qcontext.planner_params
+        allow_partial = rc.allow_partial if pp.allow_partial is None \
+            else pp.allow_partial
+        max_frac = rc.partial_max_fraction \
+            if pp.max_partial_fraction is None else pp.max_partial_fraction
+        failures: list[tuple[int, list[int], Exception]] = []
+        # pool threads adopt the caller's trace under its open span
+        trace, parent_span = current_trace(), current_span()
+
+        def run(i, c):
+            FaultInjector.fire("gather.child", index=i,
+                               shards=plan_shards(c), plan=c)
+            if _in_process(c):
+                return c.execute(ctx)
+            if trace is not None:
+                with activate(trace, parent_span):
+                    return c.dispatcher.dispatch(c, ctx)
+            return c.dispatcher.dispatch(c, ctx)
+
+        def settle(i, ok, payload):
+            if ok:
+                fold(_merged(payload, ctx))
+                return
+            err = payload
+            if isinstance(err, DeadlineExceeded) or not allow_partial \
+                    or not isinstance(err, self.TOLERABLE):
+                raise err
+            failures.append((i, plan_shards(children[i]), err))
+
+        pending: dict[int, tuple[bool, object]] = {}
+        next_i = 0
+
+        def offer(i, ok, payload):
+            nonlocal next_i
+            pending[i] = (ok, payload)
+            while next_i in pending:
+                settle(next_i, *pending.pop(next_i))
+                next_i += 1
+
+        def attempt(i, c):
+            try:
+                return True, run(i, c)
+            except Exception as e:  # noqa: BLE001 - sorted in settle
+                return False, e
+
+        remote = [i for i, c in enumerate(children) if not _in_process(c)]
+        if remote and len(children) > 1:
+            from concurrent.futures import ThreadPoolExecutor, as_completed
+
+            # a pool of this gather's own: a shared bounded pool deadlocks
+            # nested gathers; the in-process children run here meanwhile,
+            # as they share ``ctx``
+            with ThreadPoolExecutor(max_workers=min(len(remote), 16),
+                                    thread_name_prefix="gather") as ex:
+                futs = {ex.submit(attempt, i, children[i]): i
+                        for i in remote}
+                for i, c in enumerate(children):
+                    if _in_process(c):
+                        offer(i, *attempt(i, c))
+                for f in as_completed(futs):
+                    offer(futs[f], *f.result())
+        else:
+            for i, c in enumerate(children):
+                offer(i, *attempt(i, c))
+
+        if failures:
+            if len(failures) / len(children) > max_frac:
+                lost = sorted({s for _, shards, _ in failures
+                               for s in shards})
+                raise failures[0][2].__class__(
+                    f"{len(failures)}/{len(children)} scatter-gather "
+                    f"children failed (> partial threshold {max_frac}); "
+                    f"lost shards {lost}: {failures[0][2]}")
+            ctx.partial = True
+            for i, shards, err in failures:
+                ctx.warnings.append(
+                    f"partial result: child {i} "
+                    f"(shards {shards or 'n/a'}) lost: "
+                    f"{type(err).__name__}: {err}")
 
 
 @dataclass
@@ -343,15 +566,26 @@ class DistConcatExec(NonLeafExecPlan):
 
 @dataclass
 class ReduceAggregateExec(NonLeafExecPlan):
-    """The aggregation over the children's series, at the root (the
-    reference's single-phase form; two-phase pushdown is left out)."""
+    """The aggregation at the root. Single-phase (``pushdown`` False):
+    over the children's series, gathered. Two-phase: the children end in
+    an ``AggregatePartialMapper`` and ship one partial row a group, which
+    this plan folds one child at a time, then finalizes (avg, stddev and
+    stdvar from their components)."""
 
     op: str = "sum"
     params: tuple = ()
     by: tuple[str, ...] = ()
     without: tuple[str, ...] = ()
+    pushdown: bool = False
 
     def do_execute(self, ctx) -> StepMatrix:
+        if self.pushdown:
+            folder = PartialAggregateFolder(self.op, self.params, self.by,
+                                            self.without)
+            self.gather_each(ctx, folder.fold)
+            with span("reduce", op=self.op), \
+                    ctx.stats.timed("reduce_s", ctx.device):
+                return folder.finalize()
         data = StepMatrix.concat(self.gather(ctx)).settle()
         amr = AggregateMapReduce(self.op, self.params, self.by, self.without)
         if data.num_series == 0:
@@ -363,8 +597,9 @@ class ReduceAggregateExec(NonLeafExecPlan):
             return amr.apply(data, groups)
 
     def __repr__(self):
+        pd = ", pushdown" if self.pushdown else ""
         return (f"ReduceAggregateExec(op={self.op}, by={self.by}, "
-                f"without={self.without}, "
+                f"without={self.without}{pd}, "
                 f"{len(self.children_plans)} children)")
 
 
@@ -469,7 +704,7 @@ class ScalarVaryingExec(_ScalarExec):
     end: int = 0
 
     def execute_scalar(self, ctx):
-        data = self.inner.execute(ctx).settle()
+        data = run_plan(self.inner, ctx).settle()
         if data.num_series == 0:
             steps = data.steps_ms if data.num_steps \
                 else steps_array(self.start, self.step, self.end)

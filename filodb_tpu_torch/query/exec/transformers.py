@@ -220,6 +220,10 @@ class PeriodicSamplesMapper(RangeVectorTransformer):
     params: tuple = ()
     offset: int = 0
     at_ms: int | None = None
+    # the reference's fields, carried on the plan wire; no planner of
+    # either package sets them
+    is_counter: bool = False
+    keep_metric: bool = False
 
     @property
     def fn(self) -> str:
@@ -505,6 +509,182 @@ def _fmt_value(v: float) -> str:
     if v == int(v):
         return str(int(v))
     return repr(np.float64(v))
+
+
+# ---------------------------------------------------------------------------
+# two-phase aggregation pushdown (the reference's
+# ``filodb_tpu/query/exec/transformers.py:333-460``): a map stage on each
+# child, the fold at the root
+
+# the label that carries a partial's component ("sum", "sumsq", "count")
+# from the map stage to the root; never a series' own label
+AGG_PART_LABEL = "__agg_part__"
+
+# the aggregations whose partials fold exactly at the root; quantile and
+# count_values need every series at once and take the gathering path
+AGG_PUSHDOWN_OPS = frozenset((
+    "sum", "min", "max", "count", "avg", "group", "stddev", "stdvar",
+    "topk", "bottomk"))
+AGG_PUSHDOWN_BYPASS = frozenset(("quantile", "count_values"))
+
+_COMPONENTS = {"avg": ("sum", "count"),
+               "stddev": ("sum", "sumsq", "count"),
+               "stdvar": ("sum", "sumsq", "count")}
+
+
+def _grouped(op: str, v: torch.Tensor, g: torch.Tensor,
+             G: int) -> torch.Tensor:
+    """``aggregate`` of [P, K] rows, or of a histogram's [P, K, B] rows
+    bucket by bucket (group id g·B + b)."""
+    if v.dim() == 3:
+        P, K, B = v.shape
+        rows = v.transpose(1, 2).reshape(P * B, K)
+        gb = (g[:, None] * B + torch.arange(B, device=v.device)).reshape(-1)
+        return aggregate(op, rows, gb, G * B).view(G, B, K).transpose(1, 2)
+    return aggregate(op, v, g, G)
+
+
+def _part_key(gk: RangeVectorKey, comp: str) -> RangeVectorKey:
+    return RangeVectorKey(tuple(sorted(gk.labels + ((AGG_PART_LABEL,
+                                                     comp),))))
+
+
+@dataclass
+class AggregatePartialMapper(RangeVectorTransformer):
+    """The map stage of two-phase aggregation, on the child's card: one
+    partial row a group instead of one row a series. sum, min, max,
+    count and group give their own aggregate (a count folds as a sum at
+    the root); avg gives (sum, count) and stddev / stdvar (sum, sum of
+    squares, count), rows tagged ``AGG_PART_LABEL``; topk / bottomk give
+    the child's k candidates a group, exact after the root ranks their
+    union (each step's global top k is among the children's)."""
+
+    op: str
+    params: tuple = ()
+    by: tuple[str, ...] = ()
+    without: tuple[str, ...] = ()
+
+    def bind(self, ctx) -> None:
+        self._ctx = ctx
+
+    def apply(self, data: StepMatrix) -> StepMatrix:
+        data.settle()
+        if data.num_series == 0:
+            return data
+        amr = AggregateMapReduce(self.op, self.params, self.by, self.without)
+        ctx = getattr(self, "_ctx", None)
+        groups = ctx.gids.of(amr, data) if ctx is not None \
+            else amr.group_ids(data.keys)
+        comps = _COMPONENTS.get(self.op)
+        if comps is None:
+            if self.op not in AGG_PUSHDOWN_OPS:
+                raise ValueError(f"aggregation {self.op!r} is not "
+                                 f"pushdown-capable")
+            return amr.apply(data, groups)
+        gids, out_keys = groups
+        v = tensor_of(data).to(EXACT_DTYPE)
+        g = torch.as_tensor(gids).to(v.device)
+        parts, keys = [], []
+        for comp in comps:
+            parts.append(_grouped("sum", v * v, g, len(out_keys))
+                         if comp == "sumsq"
+                         else _grouped(comp, v, g, len(out_keys)))
+            keys.extend(_part_key(gk, comp) for gk in out_keys)
+        return StepMatrix(keys, torch.cat(parts), data.steps_ms,
+                          les=data.les)
+
+
+def _reduce_by_key(m: StepMatrix, op: str) -> StepMatrix:
+    """Rows of equal keys combined by ``op`` (partials' group labels are
+    reduced already, so a group is a whole key)."""
+    uniq: dict[RangeVectorKey, int] = {}
+    gids = [uniq.setdefault(k, len(uniq)) for k in m.keys]
+    if len(uniq) == m.num_series:
+        return m
+    v = tensor_of(m)
+    g = torch.tensor(gids, dtype=torch.int64, device=v.device)
+    return StepMatrix(list(uniq), _grouped(op, v, g, len(uniq)),
+                      m.steps_ms, les=m.les)
+
+
+def _split_components(m: StepMatrix, comps: tuple[str, ...]):
+    """Partial rows → (group keys, one [G, K(, B)] tensor a component,
+    rows aligned)."""
+    rows: dict[str, dict[RangeVectorKey, int]] = {c: {} for c in comps}
+    for i, k in enumerate(m.keys):
+        lm = dict(k.labels)
+        comp = lm.pop(AGG_PART_LABEL, None)
+        if comp not in rows:
+            raise ValueError(f"partial aggregate row lacks a valid "
+                             f"{AGG_PART_LABEL} component: {k}")
+        rows[comp][RangeVectorKey(tuple(sorted(lm.items())))] = i
+    keys = list(rows[comps[0]])
+    v = tensor_of(m)
+    out = []
+    for c in comps:
+        if set(rows[c]) != set(keys):
+            raise ValueError("misaligned partial aggregate components")
+        idx = torch.tensor([rows[c][k] for k in keys], dtype=torch.int64,
+                           device=v.device)
+        out.append(v[idx].to(EXACT_DTYPE))
+    return keys, out
+
+
+class PartialAggregateFolder:
+    """The root of two-phase aggregation: folds each child's partial rows
+    as they come, on the root's card (the gather moved remote rows there),
+    so it holds a group's rows, never a series'; ``finalize`` makes avg,
+    stddev and stdvar from their components, in float64."""
+
+    # how partial rows combine across children, by the query's op
+    _COMBINE = {"sum": "sum", "count": "sum", "min": "min", "max": "max",
+                "group": "group", "avg": "sum", "stddev": "sum",
+                "stdvar": "sum"}
+
+    def __init__(self, op: str, params=(), by=(), without=()):
+        self.op = op
+        self.params = params
+        self.by = by
+        self.without = without
+        self._acc: StepMatrix | None = None
+
+    def fold(self, m: StepMatrix) -> None:
+        if m is None:
+            return
+        m.settle()
+        if m.num_series == 0:
+            return
+        if self._acc is None:
+            self._acc = m
+            return
+        both = StepMatrix.concat([self._acc, m])
+        if self.op in ("topk", "bottomk"):
+            # the candidates' union ranked again: at most k a group stay
+            self._acc = AggregateMapReduce(
+                self.op, self.params, self.by, self.without).apply(
+                    both).settle()
+        else:
+            self._acc = _reduce_by_key(both, self._COMBINE[self.op])
+
+    def finalize(self) -> StepMatrix:
+        acc = self._acc
+        if acc is None:
+            return StepMatrix.empty()
+        comps = _COMPONENTS.get(self.op)
+        if comps is None:
+            return acc
+        keys, parts = _split_components(acc, comps)
+        cnt = parts[-1]
+        has = torch.nan_to_num(cnt) > 0
+        if self.op == "avg":
+            out = torch.where(has, parts[0] / cnt, math.nan)
+        else:
+            s, s2 = parts[0], parts[1]
+            mean = s / cnt
+            var = torch.clamp(s2 / cnt - mean * mean, min=0.0)
+            out = torch.where(has, var if self.op == "stdvar"
+                              else torch.sqrt(var), math.nan)
+        return StepMatrix(keys, out, acc.steps_ms, les=acc.les)
 
 
 @dataclass

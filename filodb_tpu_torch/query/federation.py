@@ -27,10 +27,11 @@ Port of ``filodb_tpu/query/federation.py``:
   object store are what it downloaded (``BYTES_DOWN``), as the
   reference's buckets count them; from a local store, the ODP caches'
   reads.
-- A cold tier lost to a transport fault raises (``ObjectStoreError`` or
-  the transport's error): the reference answers the other tiers as a
-  partial result, through partial scatter-gather, which the port does
-  not have yet (ROADMAP §C).
+- A cold tier's leaves lost to a transport fault (the transport's error
+  after the read retries) make the answer partial, the other tiers'
+  steps with a warning naming the lost shards, through partial
+  scatter-gather (``query/exec/plan.py``), as the reference's; an
+  ``ObjectStoreError`` or a corrupt segment raises.
 - ``tier_status``: the retention tiers of a dataset's service, for
   ``GET /api/v1/status/tiers`` on both fronts.
 

@@ -262,11 +262,12 @@ class QueryStats:
     # folds (decode), and of the transformers and aggregations (reduce)
     decode_s: float = 0.0
     reduce_s: float = 0.0
-    # the reference's fields the port does not fill yet: carried on the
-    # wire (``wire_bytes`` is remote plan dispatch's, ROADMAP A7)
+    # bytes a remote child's dispatch sent and received (``dispatch``
+    # counts them on the child's stats; the gather merges them)
+    wire_bytes: int = 0
+    # the reference's fields the port does not fill: carried on the wire
     cpu_prep_s: float = 0.0
     device_time_s: float = 0.0
-    wire_bytes: int = 0
     # (field, start, end) CUDA events of stages timed on the card, not yet
     # read (``settle_timings``)
     _timings: list = field(default_factory=list, repr=False, compare=False)
@@ -301,12 +302,13 @@ class QueryStats:
 
     def merge_counts(self, other: "QueryStats") -> None:
         """Fold a sub-query's counts into these (the extent cache folds
-        each evaluated extent's); ``wall_time_s`` and ``result_series``
-        stay the caller's."""
+        each evaluated extent's, a gather each remote child's);
+        ``wall_time_s`` and ``result_series`` stay the caller's."""
         for name in ("series_scanned", "samples_scanned", "precise_lane",
                      "host_lane", "chunks_touched", "sidecar_chunks",
                      "cache_hits", "cache_misses", "admission_wait_s",
-                     "decode_s", "reduce_s"):
+                     "decode_s", "reduce_s", "wire_bytes", "cpu_prep_s",
+                     "device_time_s"):
             setattr(self, name, getattr(self, name) + getattr(other, name))
         self._timings.extend(other._timings)
         for reason, n in other.sidecar_bypassed.items():
@@ -335,16 +337,19 @@ class QueryResult:
     result: StepMatrix
     stats: QueryStats = field(default_factory=QueryStats)
     query_id: str = ""
-    # a budget in ``degrade="partial"`` stopped the query: what it has,
-    # flagged, with the budget's warning (the Prom JSON renders both)
+    # a budget in ``degrade="partial"`` stopped the query, or a gather
+    # lost children below its threshold: what it has, flagged, with the
+    # warnings (the Prom JSON renders both)
     partial: bool = False
     warnings: list[str] = field(default_factory=list)
+    # a sampled remote leaf's span tree (``Span.as_dict()`` dicts), which
+    # the dispatching root grafts under its dispatch span, then empties
+    spans: list = field(default_factory=list)
 
 
 @dataclass
 class PlannerParams:
-    """The reference's ``PlannerParams``, the fields the port reads (and,
-    for the wire, the partial scatter-gather ones it does not yet)."""
+    """The reference's ``PlannerParams``, in its wire order."""
 
     __wire_fields__ = ("spread", "sample_limit", "enforce_sample_limit",
                        "shard_overrides", "process_failure",
@@ -363,8 +368,10 @@ class PlannerParams:
     # the query's scan budget (``utils.governor.QueryBudget``); None: the
     # service attaches the governor's default (none unless configured)
     budget: "object | None" = None
-    # partial scatter-gather's (remote plan dispatch, ROADMAP A7): carried
-    # on the wire, read by nothing yet
+    # partial scatter-gather: whether a gather may lose children (None:
+    # the resilience config's ``allow_partial``) and what share of them
+    # (None: its ``partial_max_fraction``); ``process_failure`` is carried
+    # on the wire, read by neither package
     process_failure: bool = True
     allow_partial: "bool | None" = None
     max_partial_fraction: "float | None" = None

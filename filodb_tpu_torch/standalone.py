@@ -1,7 +1,6 @@
 """FiloServer: the standalone node.
 
-Port of ``filodb_tpu/standalone.py`` for one node in the coordinator role:
-local-disk column and meta stores at ``<data_dir>/columnstore``, or with
+Port of ``filodb_tpu/standalone.py``: local-disk column and meta stores at ``<data_dir>/columnstore``, or with
 ``store.backend = "object"`` the object-store tier
 (``core/store/objectstore.py::open_object_store``: a directory-backed
 ``FakeS3`` under ``<data_dir>/objectstore`` or the ``store.endpoint``
@@ -15,6 +14,28 @@ cache of ``result_cache``, the HTTP API (``http_impl``: ``fast``, the
 default, or ``threaded``) with the rendered-response cache unless
 ``http_response_cache`` is false and, with a ``gateway_port``, the Influx
 gateway into the first dataset's logs.
+
+A cluster, as the reference's node forms one (``:238-470``): every node
+serves its executor port (``executor_port``, 0: any free port;
+``coordinator/remote.py::PlanExecutorServer``), which runs exec plans
+shipped to it under its dataset services' locks and takes the control
+messages ``start_shard``, ``stop_shard``, ``shard_status``,
+``shard_events``, ``join`` and ``role`` (and ``kernel_launches``, the
+port's: this process's kernel launch counts, zeroed on request, for a
+smoke run that counts every node's). Without ``seeds`` the node is the
+coordinator: it joins its own cluster, sets up the datasets (shards
+assigned by ``min_num_nodes``), serves queries whose leaves go to the
+shards' owners, polls remote members' shard statuses on its heartbeat
+and runs the failure detector (a member that stops answering leaves;
+its shards are reassigned, recovered from this node's store and replayed
+from the shared logs). With ``seeds`` the node is a member: it joins
+the first seed that answers, takes the shards the coordinator assigns
+(``start_shard``), executes the plans shipped to it on its device, and
+mirrors the coordinator's map (``ShardUpdateSubscriber``, polled every
+second) for ``/api/v1/cluster/{dataset}/status``; like the reference's
+member it serves no query API, rules, downsampling, federation,
+self-monitoring or mesh workers. Nodes of one cluster share the logs'
+directory (``wal_dir``).
 
 The node's control plane, as the reference's: the ``resilience``,
 ``governor`` and ``tracing`` blocks configure their process-wide modules
@@ -81,7 +102,17 @@ import weakref
 
 from filodb_tpu_torch.config import ServerConfig
 from filodb_tpu_torch.coordinator import adaptive_planner
+from filodb_tpu_torch.coordinator.bootstrap import (
+    RemoteNodeHandle,
+    ShardUpdateSubscriber,
+    poll_remote_statuses,
+)
 from filodb_tpu_torch.coordinator.cluster import FilodbCluster, Node
+from filodb_tpu_torch.coordinator.query_service import QueryService
+from filodb_tpu_torch.coordinator.remote import (
+    PlanExecutorServer,
+    RemotePlanDispatcher,
+)
 from filodb_tpu_torch.core.store.config import IngestionConfig, StoreConfig
 from filodb_tpu_torch.core.store.localstore import (
     LocalDiskColumnStore,
@@ -130,6 +161,10 @@ class FiloServer:
         self.selfmon = None
         self.mesh_supervisor = None  # the mesh worker processes
         self.mesh_runtime = None     # the root's descriptor router
+        self.executor = None         # the executor port's server
+        self.is_coordinator = not config.seeds
+        self._coord_addr = None      # a member's coordinator
+        self.shard_subscribers: dict = {}  # a member's map mirrors
         self._ds_threads: list[threading.Thread] = []
         self._stop = threading.Event()
         self._setup_meta_dataset()
@@ -160,33 +195,38 @@ class FiloServer:
 
     def start(self) -> "FiloServer":
         cfg = self.config
-        self.cluster.join(self.node)
-        for name, ing in cfg.datasets.items():
-            logs = {s: self._shard_log(name, s)
-                    for s in range(ing.num_shards)}
-            self.cluster.setup_dataset(ing, logs, cfg.spreads.get(name, 1))
-            self.services[name] = self.cluster.query_service(
-                name, engine=cfg.engines.get(name, "mesh"),
-                device=self.device, result_cache=cfg.result_cache)
-            # learned cost estimates, before any query is admitted
-            adaptive_planner.install(name, self.meta_store, cfg.cost_model)
-        if cfg.downsample:
-            self._setup_downsampling()
-        # federation wraps the planner a dataset has by now: raw only, or
-        # raw and downsample
-        self._setup_federation()
-        self._start_mesh_workers()
+        # the services the executor port runs shipped plans on: the
+        # coordinator's query services, a member's exec-only ones
+        executed: dict = {}
+        self.executor = PlanExecutorServer(
+            executed, port=cfg.executor_port, extra_handlers={
+                "start_shard": self._handle_start_shard,
+                "stop_shard": self._handle_stop_shard,
+                "shard_status": self._handle_shard_status,
+                "shard_events": self._handle_shard_events,
+                "join": self._handle_join,
+                "role": self._handle_role,
+                "kernel_launches": self._handle_kernel_launches,
+            }).start()
+        self.node.executor_port = self.executor.port
+        if cfg.seeds:
+            self._start_member(executed)
+        else:
+            self._start_coordinator()
+            executed.update(self.services)
         self.watchdog = self._watchdog().start()
-        self._setup_rules()
-        if (cfg.selfmon or {}).get("enabled"):
-            self._start_selfmon()
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
         self.http = http_cls(self.services, port=cfg.http_port,
-                             cluster=self.cluster,
+                             cluster=self.cluster if self.is_coordinator
+                             else None,
                              reuse_port=cfg.http_reuse_port,
                              response_cache=cfg.http_response_cache,
-                             rule_managers=self.rule_managers).start()
+                             rule_managers=self.rule_managers,
+                             shard_maps={
+                                 name: (lambda s=sub: s.mapper)
+                                 for name, sub in
+                                 self.shard_subscribers.items()}).start()
         if cfg.gateway_port:
             first = next(iter(cfg.datasets.values()))
             sink = ContainerSink(
@@ -195,10 +235,139 @@ class FiloServer:
                 first.num_shards, cfg.spreads.get(first.dataset, 1),
                 dataset=first.dataset)
             self.gateway = GatewayServer(sink, port=cfg.gateway_port).start()
-        log.info("FiloServer up: http=%d gateway=%s device=%s",
-                 self.http.port,
-                 self.gateway.port if self.gateway else "off", self.device)
+        log.info("FiloServer up: http=%d executor=%d gateway=%s role=%s "
+                 "device=%s", self.http.port, self.executor.port,
+                 self.gateway.port if self.gateway else "off",
+                 "coordinator" if self.is_coordinator else "member",
+                 self.device)
         return self
+
+    def _start_coordinator(self) -> None:
+        """The coordinator's role: its own node first, the datasets and
+        their services, remote members' statuses on the heartbeat, the
+        failure detector, then the planes only a coordinator runs."""
+        cfg = self.config
+        self.cluster.join(self.node)
+        for name, ing in cfg.datasets.items():
+            logs = {s: self._shard_log(name, s)
+                    for s in range(ing.num_shards)}
+            self.cluster.setup_dataset(ing, logs, cfg.spreads.get(name, 1))
+            self.services[name] = self.cluster.query_service(
+                name, engine=cfg.engines.get(name, "mesh"),
+                device=self.device, result_cache=cfg.result_cache)
+            self.cluster.on_heartbeat.append(
+                lambda n=name: poll_remote_statuses(self.cluster, n))
+            # learned cost estimates, before any query is admitted
+            adaptive_planner.install(name, self.meta_store, cfg.cost_model)
+        self.cluster.start_failure_detector()
+        if cfg.downsample:
+            self._setup_downsampling()
+        # federation wraps the planner a dataset has by now: raw only, or
+        # raw and downsample
+        self._setup_federation()
+        self._start_mesh_workers()
+        self._setup_rules()
+        if (cfg.selfmon or {}).get("enabled"):
+            self._start_selfmon()
+
+    def _start_member(self, executed: dict) -> None:
+        """The member's role: an exec service a dataset for shipped plans,
+        a join at the first seed that answers (the coordinator assigns
+        shards back through ``start_shard``), then a mirror of its map a
+        dataset, polled every second."""
+        cfg = self.config
+        for name, ing in cfg.datasets.items():
+            executed[name] = QueryService(
+                self.node.setup_dataset(ing, cfg.spreads.get(name, 1)),
+                device=self.device, engine="exec")
+        for seed in cfg.seeds:
+            host, port = seed.rsplit(":", 1)
+            try:
+                RemotePlanDispatcher(host, int(port)).call(
+                    "join", cfg.node_name, self.node.host,
+                    self.executor.port)
+            except (ConnectionError, OSError, RuntimeError) as e:
+                log.warning("seed %s unreachable: %s", seed, e)
+                continue
+            self._coord_addr = (host, int(port))
+            break
+        else:
+            raise RuntimeError(f"could not join any seed of {cfg.seeds}")
+        coord = RemotePlanDispatcher(*self._coord_addr)
+        for name, ing in cfg.datasets.items():
+            self.shard_subscribers[name] = ShardUpdateSubscriber(
+                name, ing.num_shards, coord)
+        t = threading.Thread(target=self._poll_shard_maps, daemon=True,
+                             name="shard-updates")
+        t.start()
+        self._ds_threads.append(t)
+
+    def _poll_shard_maps(self) -> None:
+        while not self._stop.wait(1.0):
+            for sub in self.shard_subscribers.values():
+                try:
+                    sub.poll()
+                except Exception:  # noqa: BLE001 - the next poll retries
+                    log.debug("shard-update poll failed", exc_info=True)
+
+    # -- control messages (the reference's ``standalone.py:238-312``) --
+
+    def _handle_start_shard(self, dataset: str, shard: int):
+        self.node.start_shard(dataset, shard, self.config.datasets[dataset],
+                              self._shard_log(dataset, shard))
+        return True
+
+    def _handle_stop_shard(self, dataset: str, shard: int):
+        self.node.stop_shard(dataset, shard)
+        return True
+
+    def _handle_shard_status(self, dataset: str):
+        return [(s, "active" if w.caught_up.is_set() else "recovery")
+                for (d, s), w in list(self.node._workers.items())
+                if d == dataset]
+
+    def _handle_shard_events(self, dataset: str, since_seq: int,
+                             epoch: str | None = None):
+        """The coordinator's sequenced shard events for a member's mirror,
+        as the reference's 6-tuples (the replica fields false and -1)."""
+        sm = self.cluster.shard_managers.get(dataset)
+        if sm is None:
+            return ([], since_seq, False, epoch)
+        events, seq, resynced, ep = sm.events_since(since_seq, epoch)
+        return ([(e.shard, e.status.name, e.node, e.progress, False, -1)
+                 for e in events], seq, resynced, ep)
+
+    def _handle_role(self):
+        if self.is_coordinator:
+            return ("coordinator", None, None)
+        if self._coord_addr is not None:
+            return ("member", *self._coord_addr)
+        return ("undecided", None, None)
+
+    def _handle_join(self, name: str, host: str, control_port: int):
+        """A member joined: assignment (which calls back to the member)
+        runs off the handler's thread, so the reply does not wait for the
+        member's own start."""
+
+        def do_join():
+            try:
+                self.cluster.join(RemoteNodeHandle(name, host,
+                                                   control_port))
+            except Exception:
+                log.exception("join of %s failed", name)
+
+        threading.Thread(target=do_join, daemon=True,
+                         name=f"join-{name}").start()
+        return True
+
+    @staticmethod
+    def _handle_kernel_launches(reset: bool = False) -> dict:
+        from filodb_tpu_torch import _build
+
+        out = dict(_build.LAUNCHES)
+        if reset:
+            _build.reset_counts()
+        return out
 
     def _start_mesh_workers(self) -> None:
         """Spawn the mesh workers and attach the runtime to the dataset's
@@ -503,7 +672,10 @@ class FiloServer:
             self.mesh_runtime.shutdown()
         if self.mesh_supervisor is not None:
             self.mesh_supervisor.stop()
+        if self.executor is not None:
+            self.executor.stop()
         self.cluster.stop()
+        self.node.kill()
         for lg in self.logs.values():
             lg.close()
         for name in self.config.datasets:

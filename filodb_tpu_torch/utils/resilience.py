@@ -8,10 +8,9 @@ Port of ``filodb_tpu/utils/resilience.py``:
   and batches check it at their boundaries (never a kernel) and raise
   :class:`DeadlineExceeded`, which both HTTP fronts answer 503 ``timeout``.
 - :class:`ResilienceConfig` with ``config``/``configure``: the node reads
-  ``query_timeout_s``, the framed transport its retry and breaker keys.
-  The keys that only partial scatter-gather reads belong to remote plan
-  dispatch (ROADMAP A7): ``configure`` raises ``NotImplementedError``
-  naming it where one of them is set away from its default.
+  ``query_timeout_s``, the framed transport its retry and breaker keys,
+  and a gather ``allow_partial`` and ``partial_max_fraction`` (where the
+  query's ``PlannerParams`` leave them None).
 - :class:`RetryPolicy` and ``default_retry_policy``: exponential backoff
   with jitter under a sleep budget (the object store's uploads and reads,
   the framed transport's round trips).
@@ -20,7 +19,9 @@ Port of ``filodb_tpu/utils/resilience.py``:
   for it, whatever thread makes it. ``record_peer_latency`` keeps each
   peer's EWMA round trip.
 - :class:`FaultInjector` — named fault sites that tests arm (the shard's
-  ``shard.ingest``, the object store's ``objectstore.put``).
+  ``shard.ingest``, the object store's ``objectstore.put``, a gather's
+  ``gather.child``, the dispatcher's ``remote.dispatch`` and a cluster's
+  ``node.dispatch``).
 """
 
 from __future__ import annotations
@@ -344,11 +345,6 @@ class ResilienceConfig:
                 "reset_timeout_s": self.breaker_reset_s}
 
 
-# keys that only partial scatter-gather reads: not ported
-_REMOTE_ONLY = ("partial_max_fraction", "allow_partial")
-_REMOTE_WHY = "remote plan dispatch and its partial scatter-gather " \
-    "(ROADMAP A7)"
-
 _config = ResilienceConfig()
 
 
@@ -356,19 +352,8 @@ def config() -> ResilienceConfig:
     return _config
 
 
-def check_supported(block: dict) -> None:
-    """Raise ``NotImplementedError`` where ``block`` sets a key that only
-    remote plan dispatch reads away from its default (ROADMAP A7)."""
-    defaults = ResilienceConfig()
-    for k in _REMOTE_ONLY:
-        if k in block and block[k] != getattr(defaults, k):
-            raise NotImplementedError(f"resilience.{k}={block[k]!r}: "
-                                      f"{_REMOTE_WHY}")
-
-
 def configure(**kw) -> ResilienceConfig:
-    """Apply the ``resilience`` block (``check_supported`` first)."""
-    check_supported(kw)
+    """Apply the ``resilience`` block."""
     for k, v in kw.items():
         if hasattr(_config, k):
             setattr(_config, k, v)
@@ -412,9 +397,12 @@ class FaultInjector:
     """Process-global registry of named fault sites. The port fires
     ``shard.ingest`` (ctx: dataset, shard, offset) before a container is
     ingested, ``objectstore.put`` (ctx: key) before an object-store
-    upload, ``remote.connect`` (ctx: host, port) before a framed dial and
-    ``meshproc.exec`` (ctx: host, port) before a mesh worker's call; a
-    site that nothing armed costs one dict test."""
+    upload, ``remote.connect`` (ctx: host, port) before a framed dial,
+    ``remote.dispatch`` (ctx: host, port) before a plan is shipped,
+    ``node.dispatch`` (ctx: node) before an in-process node runs one,
+    ``gather.child`` (ctx: index, shards, plan) before a gather runs a
+    child and ``meshproc.exec`` (ctx: host, port) before a mesh worker's
+    call; a site that nothing armed costs one dict test."""
 
     _faults: dict[str, list[Fault]] = {}
     _lock = threading.Lock()

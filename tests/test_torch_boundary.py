@@ -31,7 +31,11 @@ store, a self-monitor tick, a remote read and the repair jobs' split
 scans over a local-disk store; and the multi-process mesh runtime's
 (``parallel/multiproc``, ``coordinator/{mesh_cluster,remote,wire}``),
 through a query answered by two in-thread mesh workers and by a spawned
-worker process. The spawned worker's seed callable, run inside the
+worker process; and the cluster's (``coordinator/{cluster,bootstrap}``,
+``PlanExecutorServer``, ``RemotePlanDispatcher.dispatch``, two-phase
+pushdown), through a query over three in-process nodes, one whose
+leaves ship over TCP to an executor, and a member's mirror of the shard
+map polled over the wire. The spawned worker's seed callable, run inside the
 worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
 both for the rest of its life, so a worker that loaded either never
 answers: the check needs no field of the worker's protocol.
@@ -375,6 +379,71 @@ try:
 finally:
     sup.stop()
 
+# the cluster path: three in-process nodes, a leaf shipped over TCP to a
+# member's executor, two-phase pushdown, partial answers, a member's mirror
+from filodb_tpu_torch.coordinator.bootstrap import ShardUpdateSubscriber
+from filodb_tpu_torch.coordinator.cluster import FilodbCluster, Node
+from filodb_tpu_torch.coordinator.remote import (
+    PlanExecutorServer,
+    RemotePlanDispatcher,
+)
+from filodb_tpu_torch.coordinator.ingestion import route_container
+from filodb_tpu_torch.core.partkey import PartKey
+from filodb_tpu_torch.core.record import (
+    BytesContainer,
+    IngestRecord,
+    RecordContainer,
+)
+from filodb_tpu_torch.core.store.config import IngestionConfig
+from filodb_tpu_torch.kafka.log import InMemoryLog
+
+clogs = {s: InMemoryLog() for s in range(4)}
+for j in range(T):  # the store's samples, a scrape a container
+    scrape = RecordContainer()
+    for i in range(n):
+        scrape.add(IngestRecord(PartKey.create("prom-counter", labels[i]),
+                                int(ts[i, j]), (float(vals[i, j]),)))
+    for s, c in route_container(scrape, 4, 1).items():
+        clogs[s].append(BytesContainer(c.serialize()))
+cl = FilodbCluster()
+for name in ("a", "b", "c"):
+    cl.join(Node(name))
+cl.setup_dataset(IngestionConfig("timeseries", 4, min_num_nodes=2), clogs)
+cl.wait_active("timeseries", 30)
+csvc = cl.query_service("timeseries", device="cpu")
+cq = "sum(rate(http_requests_total[5m])) by (_ns_)"
+cres = csvc.query_range(cq, 1_600_000_600, 60, 1_600_001_400)
+rsvc = QueryService(store, device="cpu", engine="exec")
+esrv = PlanExecutorServer({rsvc.dataset: QueryService(
+    store, device="cpu", engine="exec")}).start()
+rdisp = RemotePlanDispatcher("127.0.0.1", esrv.port)
+rsvc.planner.dispatcher_for_shard = lambda s: rdisp
+rres = rsvc.query_range(cq, 1_600_000_600, 60, 1_600_001_400)
+ctl = PlanExecutorServer(None, extra_handlers={"shard_events": lambda d, q,
+    e=None: ([(x.shard, x.status.name, x.node, x.progress, False, -1)
+              for x in cl.shard_managers[d].events_since(q, e)[0]],
+             *cl.shard_managers[d].events_since(q, e)[1:])}).start()
+sub = ShardUpdateSubscriber("timeseries", 4,
+                            RemotePlanDispatcher("127.0.0.1", ctl.port))
+sub.poll()
+want = svc.query_range(cq, 1_600_000_600, 60, 1_600_001_400).result
+
+
+def same(got):
+    rows = dict(zip(got.keys, got.values))
+    return rows.keys() == set(want.keys) and all(np.allclose(
+        rows[k], v, rtol=2e-5, equal_nan=True)
+        for k, v in zip(want.keys, want.values))
+
+
+cluster_rows = [cres.stats.engine, same(cres.result),
+                rres.stats.wire_bytes > 0, same(rres.result),
+                sub.mapper.owners == cl.shard_managers["timeseries"]
+                .mapper.owners]
+esrv.stop()
+ctl.stop()
+cl.stop()
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -389,6 +458,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "adaptive": adaptive_rows, "core": core,
                   "longterm": longterm, "objectstore": objrows,
                   "standing": standing, "multiproc": [in_thread, spawned],
+                  "cluster": cluster_rows,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -448,4 +518,8 @@ def test_port_loads_no_jax_and_no_reference_module():
     # thread and from a spawned worker that loaded neither package
     assert res["multiproc"] == [["mesh-proc", True, 1],
                                 [True, [True], "cpu"]]
+    # the cluster's answers (three in-process nodes; leaves over TCP,
+    # pushed) equal one store's mesh answer at rtol 2e-5, and a member's
+    # mirror is the map
+    assert res["cluster"] == ["exec", True, True, True, True]
     assert res["loaded"] == []

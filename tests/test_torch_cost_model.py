@@ -228,7 +228,9 @@ def test_the_sidecar_site_leaves_the_static_arm_when_warm(stores,
     svc.query_range(SIDECAR_Q, T, 0, T)
     assert model.samples("sidecar", sig, "decode") >= 2
     assert model.samples("sidecar", sig, "sidecar") >= 2
-    rows = model.recent(8)
+    # the aggregation's pushdown decision (static: its leaves are local)
+    # settles with each query too, last: the rows before it are read
+    rows = [r for r in model.recent(8) if r["site"] != "pushdown"]
     assert rows[0]["source"] == "model"
     # pin decode cheaper, then the kill switch
     for _ in range(20):
@@ -238,7 +240,8 @@ def test_the_sidecar_site_leaves_the_static_arm_when_warm(stores,
     monkeypatch.setenv("FILODB_ADAPTIVE", "0")
     r0 = svc.query_range(SIDECAR_Q, T, 0, T)
     assert not r0.stats.sidecar_bypassed and r0.stats.sidecar_chunks > 0
-    assert model.recent(1)[0]["source"] == "static"
+    assert [r for r in model.recent()
+            if r["site"] != "pushdown"][0]["source"] == "static"
     np.testing.assert_allclose(_sorted(r)[1], _sorted(r0)[1], rtol=2e-5,
                                atol=1e-6, equal_nan=True)
 

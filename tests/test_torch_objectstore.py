@@ -966,18 +966,33 @@ class TestChaos:
         _same_answer(env, *self.Q)
 
     def test_objectstore_fault_raises_never_wrong_data(self, tmp_path):
-        """A cold tier lost to transport faults: the port raises (the
-        reference answers the memstore tier's steps as a partial result,
-        ROADMAP §C, A7); once the faults clear the same query answers as
-        the reference."""
-        from test_torch_pyramids import Env, _same_answer
+        """A cold tier lost to transport faults: since partial
+        scatter-gather came, the port answers as the reference does, the
+        other tiers' steps as a partial result whose warnings name the lost
+        shards (until then it raised; ROADMAP §C); once the faults clear the
+        same query answers as the reference, whole."""
+        from filodb_tpu.testing.fake_s3 import (
+            S3TransientError as RefS3TransientError,
+        )
+        from test_torch_pyramids import TOL, Env, _same_answer, _sorted
 
         env = Env(tmp_path)
         env.read_pcs.client.inject("get", times=100,
                                    exc=S3TransientError("injected outage"))
-        with pytest.raises((ObjectStoreError, ConnectionError)):
-            env.port_run(*self.Q)
+        env.read_rcs.client.inject("get", times=100,
+                                   exc=RefS3TransientError("injected outage"))
+        got = env.port_run(*self.Q)
+        want, _ = env.ref_run(*self.Q)
+        assert got.partial and want.partial
+        lost = {w.split("(shards ")[1].split(")")[0] for w in got.warnings}
+        assert lost == {w.split("(shards ")[1].split(")")[0]
+                        for w in want.warnings}
+        wk, wv = _sorted(want.result)
+        gk, gv = _sorted(got.result.materialize())
+        assert gk == wk
+        np.testing.assert_allclose(gv, wv, **TOL)
         env.read_pcs.client.clear_faults()
+        env.read_rcs.client.clear_faults()
         _same_answer(env, *self.Q)
 
     def test_corrupt_segment_errors_never_wrong_data(self, tmp_path):

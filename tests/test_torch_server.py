@@ -106,7 +106,6 @@ def test_config_loads_the_same_fields(which, tmp_path):
 
 
 UNSUPPORTED = [
-    {"seeds": ["127.0.0.1:9999"]},
     {"consul": {"host": "127.0.0.1"}},
     {"enable_failover": True},
     {"migration": {"auto_rebalance": True}},
@@ -116,7 +115,6 @@ UNSUPPORTED = [
     {"wal_server_port": 9093},
     {"store_remote": "127.0.0.1:9094"},
     {"store_server_port": 9095},
-    {"resilience": {"allow_partial": False}},
     {"mesh_workers": {"enabled": True}, "store": {"backend": "object"}},
 ]
 
@@ -143,6 +141,7 @@ ACTED_ON = [
     {"selfmon": {"enabled": True}},
     {"mesh_workers": {"enabled": True}},
     {"resilience": {"retry_max_attempts": 5}},
+    {"resilience": {"allow_partial": False}},
 ]
 
 

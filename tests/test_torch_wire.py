@@ -4,7 +4,10 @@ and the circuit breakers (``utils/resilience.py``).
 
 Equal objects of the shared classes (``LoweredDescriptor``,
 ``StepMatrix``, ``RangeVectorKey``, ``QueryStats``, the query context,
-filters, part keys) encode to the reference's bytes, and each package
+filters, part keys, the ``("execute", dataset, plan, qcontext)`` message
+of a shipped leaf with its ``PeriodicSamplesMapper`` and
+``AggregatePartialMapper``, ``EmptyResultExec``, and a ``QueryResult``
+with its warnings and ``spans``) encode to the reference's bytes, and each package
 decodes the other's frames: a port ``StepMatrix`` whose values are a
 tensor with a deferred compaction goes on the wire as the reference's
 materialized matrix. Frames cross between the packages' senders and
@@ -99,7 +102,61 @@ def _contexts():
     return port, ref
 
 
+def _execute_messages():
+    """``("execute", dataset, leaf, qcontext)``: a leaf with its
+    ``PeriodicSamplesMapper`` and an ``AggregatePartialMapper``, shipped by
+    a ``RemotePlanDispatcher`` (its own dispatcher field)."""
+    from filodb_tpu.query.exec import plan as ref_plan
+    from filodb_tpu.query.exec import transformers as ref_tf
+    from filodb_tpu_torch.query.exec import plan
+    from filodb_tpu_torch.query.exec import transformers as tf
+
+    out = []
+    for p, t, r, cf, eq, rx in (
+            (plan, tf, remote, ColumnFilter, Equals, EqualsRegex),
+            (ref_plan, ref_tf, ref_remote, RefColumnFilter, RefEquals,
+             RefEqualsRegex)):
+        leaf = p.SelectRawPartitionsExec(
+            shard=2, filters=_filters(cf, eq, rx),
+            chunk_start=1_600_000_000_000, chunk_end=1_600_003_600_000,
+            dispatcher=r.RemotePlanDispatcher("10.0.0.7", 9001, 12.5))
+        leaf.add_transformer(t.PeriodicSamplesMapper(
+            1_600_000_300_000, 60_000, 1_600_003_600_000, 300_000, "rate"))
+        leaf.add_transformer(t.AggregatePartialMapper("avg", (), ("job",)))
+        out.append(leaf)
+    port_q, ref_q = _contexts()
+    return ("execute", "timeseries", out[0], port_q), \
+        ("execute", "timeseries", out[1], ref_q)
+
+
+def _query_results():
+    """A ``QueryResult`` as an executor answers a sampled query: a
+    partial answer with warnings, its stats, and its span tree."""
+    port_m, ref_m = _matrices()
+    port_s, ref_s = _stats()
+    spans = [{"name": "scan", "span_id": 4, "parent_id": 0, "depth": 0,
+              "duration_ms": 1.5, "tags": {"shard": 2}},
+             {"name": "decode", "span_id": 5, "parent_id": 4, "depth": 1,
+              "duration_ms": 0.5, "tags": {}}]
+    kw = dict(query_id="q1", partial=True,
+              warnings=["partial result: child 3 (shards [3]) lost"],
+              spans=spans)
+    return (model.QueryResult(port_m, port_s, **kw),
+            ref_model.QueryResult(ref_m, ref_s, **kw))
+
+
+def _empty_result_plans():
+    from filodb_tpu.query.exec import plan as ref_plan
+    from filodb_tpu_torch.query.exec import plan
+
+    return (plan.EmptyResultExec(start=1, step=60, end=600),
+            ref_plan.EmptyResultExec(start=1, step=60, end=600))
+
+
 PAIRS = {
+    "execute_message": _execute_messages,
+    "query_result": _query_results,
+    "empty_result_exec": _empty_result_plans,
     "descriptor": _descriptors,
     "step_matrix": _matrices,
     "range_vector_key": lambda: (model.RangeVectorKey(LABELS),
@@ -332,8 +389,11 @@ def test_breakers_are_one_a_peer_from_the_config():
         assert b is resilience.breaker_for("h:1")
         assert (b.failure_threshold, b.reset_timeout_s) == (3, 2.5)
         assert resilience.default_retry_policy().max_attempts == 4
-        with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-            resilience.configure(allow_partial=False)
+        # partial scatter-gather's keys are acted on since remote plan
+        # dispatch came (until then they raised, naming ROADMAP A7)
+        cfg = resilience.configure(allow_partial=False,
+                                   partial_max_fraction=0.25)
+        assert (cfg.allow_partial, cfg.partial_max_fraction) == (False, 0.25)
         resilience.record_peer_latency("h:1", 1.0)
         resilience.record_peer_latency("h:1", 2.0)
         assert resilience.peer_latency("h:1") == pytest.approx(1.3)
