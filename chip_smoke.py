@@ -84,14 +84,15 @@ checks it, phase by phase; any failed phase exits non-zero:
    hands to exec, each with the lane forced and with it off (cold, warm
    p50, served and bypassed leaves, B1/B2 launches; the answers within
    rtol 2e-5, atol 1e-9) and once at the default gate;
-10. (run after phase 5) the exec engine: ``QueryService(engine="exec")``,
-   a leaf a shard, on the phase-2 store: ``EXEC_QUERIES`` (sum(rate) by
-   namespace: B3 once a leaf; sum(count_over_time) by job: B1, B2 and B4
-   in every leaf; a sum of rates whose shard key reads 2 of the 4 shards;
-   a per-series rate) cold once and warm three times, each with its plan
-   tree's leaf count and launches, against the mesh engine's answer in the
-   same run (per series bit for bit, aggregated within rtol 1e-9) and its
-   times, and the device memory both engines' batches hold;
+10. (run after phase 21's step 1, on its store: the phase-2 generator's
+   first ``CORE_SERIES`` series; phase 9 follows on it) the exec engine:
+   ``QueryService(engine="exec")``, a leaf a shard: ``EXEC_QUERIES``
+   (sum(rate) by namespace: B3 once a leaf; sum(count_over_time) by job:
+   B1, B2 and B4 in every leaf; a sum of rates whose shard key reads 2 of
+   the 4 shards; a per-series rate) cold once and warm three times, each
+   with its plan tree's leaf count and launches, against the mesh engine's
+   answer in the same run (per series bit for bit, aggregated within rtol
+   1e-9) and its times, and the device memory both engines' batches hold;
 11. (run after phase 9) durability: a store of the phase-2 generator's
    first ``--durable-series`` series (``DURABLE_SERIES``) on a local-disk
    column and meta store (sqlite) under a ``tempfile.mkdtemp()``
@@ -208,9 +209,9 @@ checks it, phase by phase; any failed phase exits non-zero:
    traced at ``sample_rate`` 1, its span tree from the slow-query ring
    (threshold 1 ms).
 
-17. (after phase 9, on a store of its own of the phase-2 generator's first
-   ``CORE_SERIES`` series, which it changes; on the phase-2 store under
-   ``--ingest-only``) the write path
+17. (after phase 9, on the store of phases 21 step 1, 10 and 9: the
+   phase-2 generator's first ``CORE_SERIES`` series, which it changes; on
+   the phase-2 store under ``--ingest-only``) the write path
    through the C++ ingest core (``core/memstore/native_shard.py``):
    ``CORE_SCRAPES`` scrapes of every series, 10 s apart from the 2 h's
    end, each shard's series in containers of ``CORE_CONTAINER`` records
@@ -292,13 +293,13 @@ checks it, phase by phase; any failed phase exits non-zero:
    on the same directory, where the group must resume at its watermark,
    and after two more steps hold one recorded sample a step a namespace.
 
-21. The multi-process mesh runtime, in two steps. Step 1 (after phase 5,
-   while the root holds phase 3's batches only and the phase-2 store is
-   still phase 2's): ``MP_WORKERS`` mesh worker
-   processes on the card, spawned after phase 1 with the seed callable
-   ``multiproc_store`` (each ingests the phase-2 generator's series that
-   route to its shard slice, beside the root's phase 2), under a
-   ``MeshClusterRuntime`` whose root holds the phase-2 store; each of
+21. The multi-process mesh runtime, in two steps. Step 1 (after phase 7,
+   on a store of the phase-2 generator's first ``CORE_SERIES`` series;
+   the phase-2 store under ``--multiproc-only``): ``MP_WORKERS`` mesh
+   worker processes on the card, spawned with the seed callable
+   ``multiproc_store`` (each ingests the same series that route to its
+   shard slice, beside the root's ingest), under a
+   ``MeshClusterRuntime`` whose root holds that store; each of
    ``MP_QUERIES`` at phase 3's grid cold once and warm ``MP_WARM`` times
    through the runtime and through the root's single-process engine, every
    answer bitwise the engine's and routed ``ok``
@@ -337,6 +338,38 @@ checks it, phase by phase; any failed phase exits non-zero:
    on mesh, cold and warm, and the cluster's answers are held against
    its exec answers.
 
+23. High availability on the card (after phase 22): a coordinator (a
+   ``FiloServer`` in this process) and two member processes joined one
+   after the other through ``seeds`` (``ha_configs``), over one WAL of the
+   first ``HA_SERIES`` series of the phase-2 generator
+   (``HA_SERIES_ALONE`` under ``--ha-only``) and one FakeS3 bucket (each
+   node its own object store over it), ``replication`` with one follower
+   a shard; 4 shards, spread 1, ``min_num_nodes`` 2, so shards 0 and 1
+   are the coordinator's, 2 and 3 the first member's (the leader), and
+   the coordinator follows 2 and 3 (a follower needs an in-process
+   member). Step 1: every shard ACTIVE, the followers IN_SYNC at the
+   log's head. Step 2: ``CLUSTER_QUERIES`` over HTTP (each query's first
+   run starting at the leader), ``filodb_replica_follower_reads``. Step
+   3: the leader SIGSTOPped for ``HA_STOP_S``; the answers, each equal to
+   step 2's, and ``filodb_hedged_reads`` / ``_won`` (a hedge must win),
+   then SIGCONT. Step 4: the leader SIGKILLed: the next answer's ms and
+   equality, the seconds until it is declared down (``HA_BEATS`` beats)
+   and until every shard is ACTIVE through promotion, the object-store
+   GETs across the flip (0) and its leader events (ACTIVE to the
+   coordinator only; a cold recovery fails the phase); the first whole
+   answer against step 2's (rtol 1e-9), and step 2's answers against the
+   coordinator's exec answers, every shard its own. Step 5: shard 3
+   migrated to the other member through ``POST …/cluster/{dataset}/
+   migrate``: each phase's seconds, an answer during HANDOFF carrying the
+   recovery warning and equal to the answer after DONE, the queries
+   against step 2's. Step 6: a ``HighAvailabilityPlanner`` over the
+   cluster's planner, a ``StaticFailureProvider`` over the middle third
+   of the range and the coordinator's own HTTP API as the replica cluster
+   (a member serves no query API): the stitched ``sum(rate) by (_ns_)``
+   against the local answer at rtol 1e-6. Step 7: each node's B1-B4
+   launches (the leader's before its kill), each above 0
+   (``launches_phase23``: their sum).
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
@@ -345,7 +378,8 @@ and 14; ``--serving-only``: phases 1, 15 and 16; ``--ingest-only``:
 phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 ``--objectstore-only``: phases 1 and 19; ``--rules-only``: phases 1, 2,
 11 and 20; ``--multiproc-only``: phases 1, 2, 21 step 1, 11 and 21 step
-2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale).
+2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale;
+``--ha-only``: phases 1 and 23, ``--ha-series`` its scale).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -357,6 +391,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -431,8 +466,9 @@ PROMQL_QUERIES = (
     f"by (_ns_)",
 )
 END_S = T0_MS // 1000 + 7200  # the end of the stores' 2 h
-# the plan shapes of phase 9, at full width on the phase-2 store (and on
-# phase 5's small store, card against CPU)
+# the plan shapes of phase 9, on the store of the phase-2 generator's
+# first CORE_SERIES series (and on phase 5's small store, card against
+# CPU)
 PLAN_SHAPES = (
     f'absent({M}{{job="none"}})',
     f"absent_over_time({_APP0}[5m])",
@@ -447,9 +483,10 @@ PLAN_SHAPES = (
     f"sum(rate({M}[5m] @ {END_S})) by (_ns_)",
     f"max_over_time(sum(rate({M}[5m])) by (_ns_)[30m:1m])",
 )
-# phase 10: the exec engine at full width on the phase-2 store, each query
-# against the mesh engine's answer; the third reads the 2 of 4 shards its
-# shard key maps to, the fourth is per series (bitwise between engines)
+# phase 10: the exec engine on the store of the phase-2 generator's first
+# CORE_SERIES series, each query against the mesh engine's answer; the
+# third reads the 2 of 4 shards its shard key maps to, the fourth is per
+# series (bitwise between engines)
 EXEC_QUERIES = (
     f"sum(rate({M}[5m])) by (_ns_)",
     f"sum(count_over_time({M}[5m])) by (job)",
@@ -487,7 +524,14 @@ def keys_group_ids(eng, amr, keys):
     return eng.gids.keys_group_ids(amr, keys, eng.device)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print ``msg``; a phase's first line also gets the seconds since the
+    script started, so each run shows where its time limit goes."""
+    if msg.startswith("phase"):
+        msg += f" [{time.perf_counter() - _T0:.1f} s in]"
     print(msg, flush=True)
 
 
@@ -552,12 +596,26 @@ def make_series(rng, a: int, b: int, samples: int,
 
 def ingest(store, series: int, samples: int, seed: int,
            stale_every: int | None = None) -> int:
+    """The generator's first ``series`` series into ``store``, a block of
+    65,536 at a time; one thread makes the next block (the same draws in
+    the same order) while the store ingests this one."""
+    from concurrent.futures import ThreadPoolExecutor
+
     rng = np.random.default_rng(seed)
-    kept = 0
     step = 65536
-    for a in range(0, series, step):
-        kept += store.ingest_series(*make_series(
-            rng, a, min(a + step, series), samples, stale_every))
+    blocks = [(a, min(a + step, series)) for a in range(0, series, step)]
+    kept = 0
+    with ThreadPoolExecutor(1) as pool:
+        def make(i):
+            return pool.submit(make_series, rng, *blocks[i], samples,
+                               stale_every)
+
+        nxt = make(0) if blocks else None
+        for i in range(len(blocks)):
+            block = nxt.result()
+            if i + 1 < len(blocks):
+                nxt = make(i + 1)
+            kept += store.ingest_series(*block)
     return kept
 
 
@@ -1322,7 +1380,8 @@ def promql_phase(svc, args) -> dict:
 
 def plan_shapes_phase(svc, args) -> dict:
     """Phase 9: the plan shapes beside the leaves, instant queries and the
-    metadata calls, on the phase-2 store at full width."""
+    metadata calls, on ``svc``'s store of the phase-2 generator's first
+    ``args.series`` series."""
     import torch
 
     from filodb_tpu_torch import _build
@@ -1331,8 +1390,8 @@ def plan_shapes_phase(svc, args) -> dict:
 
     t_phase = time.perf_counter()
     start, end = T0_MS // 1000, END_S
-    log("phase 9: plan shapes, instant queries and metadata on the phase-2 "
-        "store:")
+    log(f"phase 9: plan shapes, instant queries and metadata on the "
+        f"phase-2 generator's first {args.series} series:")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_counts()
@@ -2040,14 +2099,15 @@ def histogram_phase(dev, args, reps: int) -> dict:
 
 
 def exec_phase(svc, args) -> dict:
-    """Phase 10: ``QueryService(engine="exec")`` at full width on the
-    phase-2 store: each of ``EXEC_QUERIES`` cold once and warm
+    """Phase 10: ``QueryService(engine="exec")`` on ``svc``'s store (the
+    phase-2 generator's first ``args.series`` series): each of
+    ``EXEC_QUERIES`` cold once and warm
     ``EXEC_WARM`` times, its plan tree's leaf count and its launches (B3
     once a leaf and run for the rates; B1, B2 and B4 in every leaf for
     count_over_time), held against the mesh engine's answer in the same run
     (per series bit for bit, aggregated within rtol 1e-9: the sums add in
     another order) with the mesh engine's times beside (its first call may
-    find its batch cached by phases 3-5; phase 3 gives its cold time)."""
+    find its batch cached by phase 21's step 1)."""
     import torch
 
     from filodb_tpu_torch import _build
@@ -2057,8 +2117,9 @@ def exec_phase(svc, args) -> dict:
     t_phase = time.perf_counter()
     start, end = T0_MS // 1000, END_S
     ex = smoke_service(svc.memstore, device=svc.device, engine="exec")
-    log("phase 10: the exec engine (QueryService(engine=\"exec\"), a leaf "
-        "a shard) on the phase-2 store, against the mesh engine:")
+    log(f"phase 10: the exec engine (QueryService(engine=\"exec\"), a leaf "
+        f"a shard) on the phase-2 generator's first {args.series} series, "
+        f"against the mesh engine:")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     total = {k: 0 for k in _build.LAUNCHES}
@@ -4162,9 +4223,11 @@ def _control_tracing(svc) -> dict:
 # was sent; a query and the sidecar instants over the new samples; and
 # the seal wave that 400-sample chunks give every series every 4,000 s
 CORE_SCRAPES = 12
-# the series of phases 17 and 20 in the full smoke (1 M until phase 21
-# came; the phase-2 store under --ingest-only and --rules-only; PERF.md §4)
-CORE_SERIES = 250_000
+# the series of phases 21 step 1, 10, 9, 17 and 20 in the full smoke (1 M
+# until phase 21 came, then 250,000 for phases 17 and 20 alone, until the
+# smoke passed its limit; the phase-2 store under --exec-only,
+# --multiproc-only, --ingest-only and --rules-only; PERF.md §4)
+CORE_SERIES = 100_000
 CORE_CONTAINER = 512
 CORE_CHECKED = 1_000
 CORE_QUERY = f"sum(rate({M}[5m])) by (_ns_)"
@@ -5794,9 +5857,9 @@ def rules_node_phase(dev, args) -> dict:
 
 # phase 21: the multi-process mesh runtime. Step 1: ``MP_WORKERS`` worker
 # processes on the card, each ingesting the phase-2 generator's series
-# that route to its shard slice (``multiproc_store``, spawned at the
-# smoke's start so their ingest overlaps the root's), under a runtime
-# whose root holds the phase-2 store; ``MP_QUERIES`` at phase 3's grid,
+# that route to its shard slice (``multiproc_store``, spawned just before
+# the root ingests the same series, so the two ingests overlap), under a
+# runtime whose root holds that store; ``MP_QUERIES`` at phase 3's grid,
 # each bitwise against the root's single-process engine. Step 2: a node
 # with ``mesh_workers`` over phase 11's directory.
 MP_WORKERS = 2
@@ -5895,7 +5958,7 @@ def multiproc_phase(svc, sup, args) -> dict:
     t_phase = time.perf_counter()
     log(f"phase 21, step 1: the multi-process mesh runtime, {MP_WORKERS} "
         f"worker processes on the card under a root over the phase-2 "
-        f"store ({args.series} series)")
+        f"generator's first {args.series} series")
     t = time.perf_counter()
     sup.wait_ready(timeout_s=SMOKE_TIMEOUT_S)
     out = {"workers": MP_WORKERS, "slices": [list(r) for _, _, r in
@@ -6129,7 +6192,9 @@ def multiproc_node_phase(dev, args) -> dict:
 # process of its own that joins it through ``seeds``; both read one WAL
 # directory, written before either boots, 4 shards at spread 1, two a
 # node (min_num_nodes 2).
-CLUSTER_SERIES = 50_000  # --cluster-series sets it
+# --cluster-series sets it; 50,000 until phase 23 came, 25,000 until the
+# smoke passed its limit with it (PERF.md §4)
+CLUSTER_SERIES = 10_000
 # under --cluster-only: as many series as fit its 600 s (PERF.md §4)
 CLUSTER_SERIES_ALONE = 300_000
 CLUSTER_WARM = 3         # warm runs of each query in each mode
@@ -6224,11 +6289,12 @@ def _cluster_rows(body: dict) -> dict:
     return out
 
 
-def _cluster_same(got: dict, want: dict, rtol: float, what: str) -> float:
+def _cluster_same(got: dict, want: dict, rtol: float, what: str,
+                  phase: int = 22) -> float:
     """Hold two matrix bodies' rows equal at ``rtol`` (atol 1e-9); the
     largest relative difference."""
     if set(got) != set(want):
-        raise AssertionError(f"phase 22: {what}: series differ: "
+        raise AssertionError(f"phase {phase}: {what}: series differ: "
                              f"{sorted(set(got) ^ set(want))[:4]}")
     worst = 0.0
     for k, g in got.items():
@@ -6237,8 +6303,8 @@ def _cluster_same(got: dict, want: dict, rtol: float, what: str) -> float:
         a = np.array([g.get(t, np.nan) for t in steps])
         b = np.array([w.get(t, np.nan) for t in steps])
         if not np.allclose(a, b, rtol=rtol, atol=1e-9, equal_nan=True):
-            raise AssertionError(f"phase 22: {what}: {k} differs at rtol "
-                                 f"{rtol}")
+            raise AssertionError(f"phase {phase}: {what}: {k} differs at "
+                                 f"rtol {rtol}")
         both = np.isfinite(a) & np.isfinite(b) & (b != 0)
         if both.any():
             worst = max(worst, float(np.max(np.abs(a[both] - b[both])
@@ -6246,12 +6312,13 @@ def _cluster_same(got: dict, want: dict, rtol: float, what: str) -> float:
     return worst
 
 
-def _cluster_ask(port: int, q: str, what: str) -> tuple[dict, float]:
+def _cluster_ask(port: int, q: str, what: str,
+                 phase: int = 22) -> tuple[dict, float]:
     code, body, ms = http_get(port, f"/promql/{NODE_DS}/api/v1/query_range",
                               query=q, start=T0_MS // 1000, end=END_S,
                               step=60, stats="all")
     if code != 200:
-        raise AssertionError(f"phase 22: {what}: {q}: HTTP {code}: "
+        raise AssertionError(f"phase {phase}: {what}: {q}: HTTP {code}: "
                              f"{body[:300]}")
     return json.loads(body), ms
 
@@ -6452,6 +6519,464 @@ def cluster_phase(dev, args) -> dict:
     return out
 
 
+HA_SERIES = 25_000       # --ha-series sets it
+# under --ha-only: as many series as fit its 600 s (PERF.md §4)
+HA_SERIES_ALONE = 200_000
+HA_WARM = 2              # warm runs of each query in step 2
+HA_HEDGE_S = 0.05        # the replication block's hedge timer
+HA_STOP_S = 2.0          # the leader's SIGSTOP window, 40 hedge timers
+HA_BEATS = 20            # missed beats (of 0.05 s) before a member is down
+HA_RECOVERY_RTOL = 1e-9  # an answer against the same one before
+HA_MEMBERS = ("member-1", "member-2")
+
+
+def ha_configs(root: Path, wal: str, bucket: str) -> tuple[str, list]:
+    """The coordinator's and the two members' configs: phase 22's store
+    shape and caches off, the object-store tier over one FakeS3 bucket
+    (each node its own store over it), ``replication`` with one follower
+    a shard and the hedge timer, the members seeded at the coordinator's
+    executor port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = {
+        "wal_dir": wal, "http_port": 0, "gateway_port": 0,
+        "resilience": {"query_timeout_s": SMOKE_TIMEOUT_S},
+        "result_cache": {"enabled": False}, "http_response_cache": False,
+        "store": {"backend": "object", "endpoint": bucket,
+                  "bucket": "filodb"},
+        "replication": {"n_replicas": 1, "hedge_s": HA_HEDGE_S,
+                        "durable_sync_s": 3600.0},
+        "datasets": {NODE_DS: {
+            "num_shards": 4, "min_num_nodes": 2, "spread": 1,
+            "engine": "mesh",
+            "store": {"max_chunk_size": 400, "groups_per_shard": 20,
+                      "flush_interval_ms": 6_000_000, "max_query_matches": 0,
+                      "retention_ms": NODE_RETENTION_MS}}}}
+    paths = []
+    for name, conf in (("coordinator", {"executor_port": port}),
+                       *((m, {"executor_port": 0,
+                              "seeds": [f"127.0.0.1:{port}"]})
+                         for m in HA_MEMBERS)):
+        path = root / f"{name}.json"
+        path.write_text(json.dumps({**base, **conf, "node_name": name,
+                                    "data_dir": str(root / name)}))
+        paths.append(str(path))
+    return paths[0], paths[1:]
+
+
+def _ha_post(port: int, path: str, **form) -> dict:
+    import urllib.parse
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=urllib.parse.urlencode(form).encode(),
+        headers={"Content-Type": "application/x-www-form-urlencoded"})
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _ha_fresh_estimates() -> None:
+    """Reset the replicas' latency estimates once no replica read is in
+    flight: a read a hedge left behind records its round trip when it
+    ends, and one that ends after the reset would order its replica
+    first, so the next query would not start at the leader."""
+    from filodb_tpu_torch.utils import resilience
+
+    _ha_wait("the replica reads in flight", lambda: not any(
+        t.name.startswith("replica-read-") and t.is_alive()
+        for t in threading.enumerate()), SMOKE_TIMEOUT_S)
+    resilience.reset_peer_latency()
+
+
+def _ha_wait(what: str, pred, timeout_s: float, poll_s: float = 0.01):
+    t = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t > timeout_s:
+            raise AssertionError(f"phase 23: {what}: not within "
+                                 f"{timeout_s:.0f} s")
+        time.sleep(poll_s)
+    return time.perf_counter() - t
+
+
+def ha_phase(dev, args) -> dict:
+    """Phase 23 (see the module's text and ``ha_configs``)."""
+    import os
+    import signal
+
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.coordinator.ha_planner import (
+        HighAvailabilityPlanner,
+        StaticFailureProvider,
+        TimeRange,
+    )
+    from filodb_tpu_torch.coordinator.remote import RemotePlanDispatcher
+    from filodb_tpu_torch.coordinator.replication import (
+        FOLLOWER_READS,
+        HEDGED,
+        HEDGED_WON,
+    )
+    from filodb_tpu_torch.coordinator.shardmapper import ShardStatus
+    from filodb_tpu_torch.core.store.objectstore import GETS
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+    from filodb_tpu_torch.query.exec.plan import ExecContext, run_plan
+    from filodb_tpu_torch.query.model import QueryStats
+    from filodb_tpu_torch.standalone import FiloServer
+
+    t_phase = time.perf_counter()
+    n = min(args.ha_series, args.series)
+    root = Path(tempfile.mkdtemp(prefix="filodb-ha-"))
+    log(f"phase 23: high availability on the card: a coordinator (this "
+        f"process) and two member processes joined through seeds, one "
+        f"follower a shard, one WAL and one FakeS3 bucket under {root}")
+    out: dict = {"series": n}
+    procs: dict = {}
+    coord = None
+    try:
+        wal = str(root / "wal")
+        out["wal"] = cluster_wal(wal, n, args.samples, args.seed)
+        log(f"  WAL: {n} series x {args.samples} samples, "
+            f"{out['wal']['records']} records, "
+            f"{out['wal']['bytes'] / 1e9:.2f} GB, "
+            f"{out['wal']['seconds']:.1f} s")
+        coord_path, member_paths = ha_configs(root, wal, str(root / "bucket"))
+        t = time.perf_counter()
+        coord = FiloServer(ServerConfig.load(coord_path), device=dev).start()
+        cl = coord.cluster
+        svc = coord.services[NODE_DS]
+        sm = cl.shard_managers[NODE_DS]
+        env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+            p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+        for name, path in zip(HA_MEMBERS, member_paths):
+            procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "filodb_tpu_torch.standalone",
+                 "--config", path, "--device", dev.type], cwd=str(ROOT),
+                stdout=open(root / f"{name}.log", "w"),
+                stderr=subprocess.STDOUT, env=env)
+            # one at a time: the first to join takes shards 2 and 3
+            _ha_wait(f"{name} joins", lambda nm=name: nm in cl.nodes
+                     or procs[nm].poll() is not None, 600, 0.05)
+            if procs[name].poll() is not None:
+                raise AssertionError(f"phase 23: {name} exited: "
+                                     f"{_tail(root / f'{name}.log')}")
+        leader = sm.mapper.node_for(2)
+        other = next(m for m in HA_MEMBERS if m != leader)
+        owners = list(sm.mapper.owners)
+        if owners != ["coordinator", "coordinator", leader, leader] \
+                or leader not in HA_MEMBERS:
+            raise AssertionError(f"phase 23: shard owners {owners}")
+        ctl = {m: RemotePlanDispatcher("127.0.0.1",
+                                       cl.nodes[m].executor_port)
+               for m in HA_MEMBERS}
+
+        # 1. every shard ACTIVE, every follower IN_SYNC at the log's head
+        heads = {s: cl.logs[(NODE_DS, s)].latest_offset for s in range(4)}
+
+        def synced():
+            return all(
+                any(st.status == ShardStatus.IN_SYNC
+                    and st.watermark >= heads[s]
+                    for st in sm.mapper.replicas_of(s).values())
+                for s in (2, 3))
+
+        _ha_wait("every shard ACTIVE", lambda: all(
+            st == ShardStatus.ACTIVE for st in sm.mapper.statuses),
+            SMOKE_TIMEOUT_S, 0.05)
+        out["active_s"] = time.perf_counter() - t
+        _ha_wait("the followers IN_SYNC", synced, SMOKE_TIMEOUT_S, 0.05)
+        out["in_sync_s"] = time.perf_counter() - t
+        out["replicas"] = {s: {n_: [st.status.value, st.watermark]
+                               for n_, st in sm.mapper.replicas_of(s).items()}
+                           for s in range(4)}
+        log(f"  step 1: owners {owners}; every shard ACTIVE "
+            f"{out['active_s']:.1f} s after the coordinator's start, the "
+            f"followers of shards 2 and 3 (on the coordinator) IN_SYNC at "
+            f"the log's head at {out['in_sync_s']:.1f} s: {out['replicas']}"
+            f" (shards 0 and 1 have none: no other in-process member)")
+
+        # 2. the seven queries over HTTP; each query's first run starts at
+        # the leader (the latency estimates reset), later runs where the
+        # EWMA says
+        _build.reset_counts()
+        for c in ctl.values():
+            c.call("kernel_launches", True)
+        reads0 = FOLLOWER_READS.value
+        answers, out["queries"] = {}, {}
+        for q, rtol in CLUSTER_QUERIES:
+            _ha_fresh_estimates()
+            runs = []
+            for _ in range(1 + HA_WARM):
+                body, ms = _cluster_ask(coord.http.port, q, "replicated", 23)
+                if body.get("partial"):
+                    raise AssertionError(f"phase 23: {q} is partial: "
+                                         f"{body['warnings']}")
+                runs.append(ms)
+            answers[q] = _cluster_rows(body)
+            out["queries"][q] = {"first_ms": runs[0],
+                                 "warm_p50_ms": float(np.median(runs[1:])),
+                                 "rows": len(answers[q])}
+        out["follower_reads"] = FOLLOWER_READS.value - reads0
+        log("  step 2: " + "; ".join(
+            f"{q.split('(')[0]}… first {r['first_ms']:.0f} ms, warm "
+            f"{r['warm_p50_ms']:.1f} ms" for q, r in out["queries"].items())
+            + f"; filodb_replica_follower_reads {out['follower_reads']}")
+
+        # 3. the leader stopped for HA_STOP_S: reads hedge to the followers
+        q0 = CLUSTER_QUERIES[0][0]
+        cl.failure_threshold = 10 ** 6  # no verdict while it is stopped
+        h0, w0 = HEDGED.value, HEDGED_WON.value
+        _ha_fresh_estimates()
+        procs[leader].send_signal(signal.SIGSTOP)
+        t_stop = time.perf_counter()
+        stopped = []
+        try:
+            while time.perf_counter() - t_stop < HA_STOP_S or not stopped:
+                body, ms = _cluster_ask(coord.http.port, q0, "stopped", 23)
+                held = _cluster_same(_cluster_rows(body), answers[q0],
+                                     HA_RECOVERY_RTOL, f"{q0} stopped", 23)
+                stopped.append((ms, held))
+        finally:
+            procs[leader].send_signal(signal.SIGCONT)
+        out["stopped"] = {"queries_ms": [m for m, _ in stopped],
+                          "max_rel": max(h for _, h in stopped),
+                          "hedged": HEDGED.value - h0,
+                          "hedged_won": HEDGED_WON.value - w0,
+                          "window_s": time.perf_counter() - t_stop}
+        if out["stopped"]["hedged_won"] <= 0:
+            raise AssertionError(f"phase 23: no hedge won while {leader} "
+                                 f"was stopped: {out['stopped']}")
+        log(f"  step 3: {leader} SIGSTOPped "
+            f"{out['stopped']['window_s']:.2f} s: {len(stopped)} answers in "
+            + ", ".join(f"{m:.1f}" for m in out["stopped"]["queries_ms"])
+            + f" ms, each equal to step 2's (max rel "
+            f"{out['stopped']['max_rel']:.2e}); filodb_hedged_reads "
+            f"{out['stopped']['hedged']}, filodb_hedged_reads_won "
+            f"{out['stopped']['hedged_won']}; SIGCONT")
+        launches = {"coordinator": None,
+                    leader: ctl[leader].call("kernel_launches")}
+
+        # 4. the leader killed: its followers promoted by the map flip
+        cl.failure_threshold = HA_BEATS
+        sm_events0 = sm.events_since(0)[1]
+        gets0 = GETS.value
+        procs[leader].send_signal(signal.SIGKILL)
+        procs[leader].wait(timeout=60)
+        t_kill = time.perf_counter()
+        body, ms = _cluster_ask(coord.http.port, q0, "after the kill", 23)
+        kill = out["kill"] = {
+            "first_ms": ms, "partial": bool(body.get("partial")),
+            "warnings": body.get("warnings", []),
+            "first_max_rel": _cluster_same(
+                _cluster_rows(body), answers[q0], HA_RECOVERY_RTOL,
+                f"{q0} after the kill", 23)}
+        _ha_wait("the leader declared down", lambda: leader not in cl.nodes,
+                 120)
+        kill["declared_down_s"] = time.perf_counter() - t_kill
+        home = cl.nodes["coordinator"]
+        # the map's flip, then the promoted ingest workers started
+        _ha_wait("every shard ACTIVE after the kill", lambda: all(
+            st == ShardStatus.ACTIVE for st in sm.mapper.statuses)
+            and set(sm.mapper.owners) == {"coordinator"}
+            and all((NODE_DS, s) in home._workers for s in (2, 3)), 120)
+        kill["active_s"] = time.perf_counter() - t_kill
+        kill["gets"] = GETS.value - gets0
+        events = sm.events_since(sm_events0)[0]
+        kill["flip_events"] = [[e.shard, e.status.name, e.node]
+                               for e in events if not e.replica]
+        cl.replication = 0  # placement frozen from here on
+        if kill["gets"] != 0 or kill["partial"] or any(
+                e[1] != "ACTIVE" or e[2] != "coordinator"
+                for e in kill["flip_events"]):
+            raise AssertionError(f"phase 23: the flip fell back or read "
+                                 f"the store: {kill}")
+        rec = [home.recovery.get((NODE_DS, s), {}) for s in (2, 3)]
+        if not all(r.get("promoted") for r in rec):
+            raise AssertionError(f"phase 23: shards 2 and 3 recovered cold, "
+                                 f"not promoted: {rec}")
+        body, ms = _cluster_ask(coord.http.port, q0, "after the flip", 23)
+        kill["whole_ms"] = ms
+        kill["whole_max_rel"] = _cluster_same(
+            _cluster_rows(body), answers[q0], HA_RECOVERY_RTOL,
+            f"{q0} after the flip", 23)
+        # one node now holds every shard, no other follower: each answer
+        # of step 2 against its exec answer
+        svc.engine = "exec"
+        kill["exec_max_rel"] = {}
+        for q, rtol in CLUSTER_QUERIES:
+            body, _ = _cluster_ask(coord.http.port, q, "one node, exec", 23)
+            kill["exec_max_rel"][q] = _cluster_same(
+                answers[q], _cluster_rows(body), rtol,
+                f"{q}: replicated against one node's exec", 23)
+        svc.engine = "mesh"
+        log(f"  step 4: {leader} SIGKILLed: the next answer in "
+            f"{kill['first_ms']:.1f} ms, partial {kill['partial']}, equal "
+            f"to step 2's (max rel {kill['first_max_rel']:.2e}), warnings "
+            f"{kill['warnings']}; declared down "
+            f"{kill['declared_down_s']:.2f} s after the kill ({HA_BEATS} "
+            f"beats), every shard ACTIVE by promotion at "
+            f"{kill['active_s']:.2f} s (phase 22's cold reassignment: "
+            f"23.8 s, PERF.md), {kill['gets']} object-store GETs across the "
+            f"flip, leader events {kill['flip_events']}; the first whole "
+            f"answer {kill['whole_ms']:.1f} ms, max rel "
+            f"{kill['whole_max_rel']:.2e}; step 2's answers against one "
+            f"node's exec: max rel "
+            f"{max(kill['exec_max_rel'].values()):.2e}")
+
+        # 5. a live migration of shard 3 to the other member
+        mig_shard = 3
+        key = (NODE_DS, mig_shard)
+        t_mig = time.perf_counter()
+        started = _ha_post(coord.http.port,
+                           f"/api/v1/cluster/{NODE_DS}/migrate",
+                           shard=str(mig_shard), dest=other)
+        phases: list = []
+        during = None
+        watching = threading.Event()
+
+        def watch():
+            # the phases as the migration's thread records them
+            while not watching.is_set():
+                mig = cl.migrations.get(key)
+                phase = mig.phase if mig is not None else None
+                if phase is not None and (not phases
+                                          or phases[-1][0] != phase):
+                    phases.append((phase, time.perf_counter() - t_mig))
+                if mig is None and phases:
+                    return
+                time.sleep(0.002)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        warned = (f"shard {mig_shard} recovering (handoff): results may "
+                  f"lag live ingest")
+        try:
+            while watcher.is_alive():
+                if not phases and time.perf_counter() - t_mig > 60:
+                    raise AssertionError("phase 23: the migration never "
+                                         "began")
+                if time.perf_counter() - t_mig > SMOKE_TIMEOUT_S:
+                    raise AssertionError(f"phase 23: the migration: "
+                                         f"{phases}")
+                if during is None and \
+                        sm.mapper.statuses[mig_shard] == ShardStatus.HANDOFF:
+                    body, ms = _cluster_ask(coord.http.port, q0, "handoff",
+                                            23)
+                    if warned in body.get("warnings", []):
+                        during = (body, ms)
+                time.sleep(0.01)
+        finally:
+            watching.set()
+            watcher.join(timeout=10)
+        migration = out["migration"] = {
+            "started": started["data"],
+            "phases_s": phases,
+            "total_s": time.perf_counter() - t_mig,
+            "owner": sm.mapper.node_for(mig_shard),
+            "manifest_left": coord.column_store.read_migration_manifest(
+                NODE_DS, mig_shard) is not None}
+        if migration["owner"] != other or migration["manifest_left"] \
+                or during is None \
+                or sm.mapper.statuses[mig_shard] != ShardStatus.ACTIVE:
+            raise AssertionError(f"phase 23: the migration: {migration}, "
+                                 f"a warned answer during HANDOFF: "
+                                 f"{during is not None}")
+        body, ms = _cluster_ask(coord.http.port, q0, "after DONE", 23)
+        migration["handoff_ms"] = during[1]
+        migration["done_ms"] = ms
+        migration["handoff_vs_done_max_rel"] = _cluster_same(
+            _cluster_rows(during[0]), _cluster_rows(body), HA_RECOVERY_RTOL,
+            f"{q0}: during HANDOFF against after DONE", 23)
+        migration["after_max_rel"] = {}
+        for q, rtol in CLUSTER_QUERIES:
+            body, _ = _cluster_ask(coord.http.port, q, "migrated", 23)
+            migration["after_max_rel"][q] = _cluster_same(
+                _cluster_rows(body), answers[q], rtol,
+                f"{q}: after the migration", 23)
+        steps = []
+        for i, (ph, at) in enumerate(phases):
+            end = phases[i + 1][1] if i + 1 < len(phases) \
+                else migration["total_s"]
+            steps.append(f"{ph} {end - at:.2f} s")
+        log(f"  step 5: shard {mig_shard} migrated to {other} through POST "
+            f"…/cluster/{NODE_DS}/migrate: " + ", ".join(steps)
+            + f" ({migration['total_s']:.2f} s in all); a query during "
+            f"HANDOFF ({migration['handoff_ms']:.1f} ms) carries the "
+            f"recovery warning and equals the answer after DONE (max rel "
+            f"{migration['handoff_vs_done_max_rel']:.2e}); the seven "
+            f"queries after it against step 2's: max rel "
+            f"{max(migration['after_max_rel'].values()):.2e}")
+
+        # 6. the HA planner: the middle third of the range from a replica
+        # cluster's HTTP API, the rest on this cluster, stitched on the card
+        third = (END_S - T0_MS // 1000) // 3
+        fail = TimeRange((T0_MS // 1000 + third) * 1000,
+                         (T0_MS // 1000 + 2 * third) * 1000)
+        endpoint = f"http://127.0.0.1:{coord.http.port}/promql/{NODE_DS}"
+        hap = HighAvailabilityPlanner(NODE_DS, svc.planner,
+                                      StaticFailureProvider([fail]),
+                                      endpoint)
+        plan = parse_query(q0, TimeStepParams(T0_MS // 1000, 60, END_S))
+        t = time.perf_counter()
+        tree = hap.materialize(plan)
+        ctx = ExecContext(svc.memstore, QueryStats(engine="exec"), dev,
+                          dataset=NODE_DS)
+        got = run_plan(tree, ctx).materialize()
+        ha_ms = (time.perf_counter() - t) * 1000.0
+        body, local_ms = _cluster_ask(coord.http.port, q0, "local", 23)
+        local = _cluster_rows(body)
+        stitched = {}
+        for k, row in zip(got.keys, np.asarray(got.values)):
+            labels = {("__name__" if a == "_metric_" else a): b
+                      for a, b in k.labels}
+            stitched[json.dumps(labels, sort_keys=True)] = {
+                float(t_) / 1000.0: float(v)
+                for t_, v in zip(got.steps_ms, row) if not np.isnan(v)}
+        out["ha"] = {"ms": ha_ms, "local_ms": local_ms,
+                     "children": len(tree.children()),
+                     "remote": tree.tree_str().count("PromQlRemoteExec"),
+                     "max_rel": _cluster_same(stitched, local, 1e-6,
+                                              f"{q0}: HA-stitched against "
+                                              f"local", 23)}
+        if out["ha"]["remote"] != 1 or out["ha"]["max_rel"] > 1e-6:
+            raise AssertionError(f"phase 23: the HA plan: {out['ha']}")
+        log(f"  step 6: HighAvailabilityPlanner, the middle third from "
+            f"{endpoint} as PromQL: {out['ha']['children']} runs stitched "
+            f"on the card in {ha_ms:.1f} ms (the local answer "
+            f"{local_ms:.1f} ms over HTTP), largest relative difference "
+            f"{out['ha']['max_rel']:.2e} (rtol 1e-6)")
+
+        # 7. each node's launches
+        launches["coordinator"] = dict(_build.LAUNCHES)
+        launches[other] = ctl[other].call("kernel_launches")
+        out["launches"] = launches
+        log(f"  step 7: launches {launches}")
+        if dev.type == "cuda":
+            for node, counts in launches.items():
+                missing = [k for k, v in counts.items() if v <= 0]
+                if missing:
+                    raise AssertionError(f"phase 23: the {node} did not "
+                                         f"launch {missing}")
+    finally:
+        for p_ in procs.values():
+            if p_.poll() is None:
+                p_.send_signal(signal.SIGCONT)
+                p_.kill()
+                p_.wait(timeout=60)
+        if coord is not None:
+            coord.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 23 took {out['seconds']:.1f} s")
+    return out
+
+
 def _tail(path, n: int = 3000) -> str:
     try:
         return Path(path).read_text()[-n:]
@@ -6495,8 +7020,9 @@ def smoke_service(store, device=None, **kw):
 def main_store():
     """The phase-2 store: 4 shards, spread 1, 400-sample chunks, and no
     limit on the series an exec leaf matches (``max_query_matches``, the
-    reference's 250,000 a shard: phase 10 runs exec over shards of
-    250,000 series and more, as the reference's exec would refuse to)."""
+    reference's 250,000 a shard: under ``--exec-only`` phase 10 runs exec
+    over shards of 250,000 series, as the reference's exec would refuse
+    to)."""
     from filodb_tpu_torch.core.memstore.memstore import MemStore
     from filodb_tpu_torch.core.store.config import StoreConfig
 
@@ -6701,6 +7227,15 @@ def main() -> int:
                     help="build and run phase 22 only (a coordinator and a "
                     "member process over one WAL: scatter-gather, two-phase "
                     "pushdown, a member killed)")
+    ap.add_argument("--ha-series", type=int, default=None,
+                    help=f"phase 23's series, the first of the phase-2 "
+                    f"generator ({HA_SERIES}, or {HA_SERIES_ALONE} under "
+                    f"--ha-only)")
+    ap.add_argument("--ha-only", action="store_true",
+                    help="build and run phase 23 only (a coordinator and "
+                    "two member processes: followers, hedged reads, a "
+                    "leader killed and its followers promoted, a live "
+                    "migration, the HA planner)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
@@ -6711,6 +7246,8 @@ def main() -> int:
     if args.cluster_series is None:
         args.cluster_series = CLUSTER_SERIES_ALONE if args.cluster_only \
             else CLUSTER_SERIES
+    if args.ha_series is None:
+        args.ha_series = HA_SERIES_ALONE if args.ha_only else HA_SERIES
 
     import torch
 
@@ -6754,6 +7291,10 @@ def _phases(args, smi) -> int:
     if args.cluster_only:
         print(json.dumps({"cluster": cluster_phase(torch.device("cuda"),
                                                    args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
+    if args.ha_only:
+        print(json.dumps({"ha": ha_phase(torch.device("cuda"), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.exec_only:
@@ -6843,49 +7384,49 @@ def _phases(args, smi) -> int:
                                                       args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
-    # phase 21's workers ingest their slices beside phase 2; step 1 runs
-    # right after phase 5, when the root holds phase 3's batches only (the
-    # card holds the root's and both workers' batches at once) and the
-    # store is still phase 2's
-    sup = spawn_multiproc_workers(args)
-    try:
-        kernels, svc = run(torch.device("cuda"), args)
-        torch.cuda.empty_cache()
-        mp = multiproc_phase(svc, sup, args)
-    finally:
-        sup.stop()
-    print(json.dumps({"multiproc": mp}))
-    torch.cuda.empty_cache()
-    exec10 = exec_phase(svc, args)
-    return _rest(args, smi, kernels, svc, exec10, mp)
+    kernels, svc = run(torch.device("cuda"), args)
+    return _rest(args, smi, kernels, svc)
 
 
-def _rest(args, smi, kernels, svc, exec10, mp) -> int:
-    """The full smoke after phase 10."""
+def _rest(args, smi, kernels, svc) -> int:
+    """The full smoke after phase 5."""
     import torch
 
-    print(json.dumps({"exec": exec10}))
     torch.cuda.empty_cache()
     longs = long_range(torch.device("cuda"), args, reps=3)
     print(json.dumps({"long_range": longs}))
     torch.cuda.empty_cache()
     promql = promql_phase(svc, args)
     print(json.dumps({"promql": promql}))
-    shapes = plan_shapes_phase(svc, args)
-    print(json.dumps({"plan_shapes": shapes}))
-    # phases 17 and 20 on a store of their own of the phase-2 generator's
-    # first CORE_SERIES series (their scale cut for phase 21's room;
-    # --ingest-only and --rules-only run them on the 1 M-series store)
+    # phases 21 step 1, 10, 9, 17 and 20 on a store of their own of the
+    # phase-2 generator's first CORE_SERIES series (their scale cut for the
+    # smoke's limit; --exec-only, --multiproc-only, --ingest-only and
+    # --rules-only run them on the 1 M-series store); phase 21's workers
+    # ingest their slices of it beside the root
     del svc
     torch.cuda.empty_cache()
-    t = time.perf_counter()
-    store = main_store()
-    n = min(CORE_SERIES, args.series)
-    kept = ingest(store, n, args.samples, args.seed)
-    log(f"phases 17 and 20: their store, the first {n} series of the "
-        f"phase-2 generator, {kept} samples, {time.perf_counter() - t:.1f} "
-        f"s on the host")
-    svc = smoke_service(store, device=torch.device("cuda"))
+    core_args = argparse.Namespace(**{**vars(args), "series": min(
+        CORE_SERIES, args.series)})
+    n = core_args.series
+    sup = spawn_multiproc_workers(core_args)
+    try:
+        t = time.perf_counter()
+        store = main_store()
+        kept = ingest(store, n, args.samples, args.seed)
+        log(f"phases 21 (step 1), 10, 9, 17 and 20: their store, the first "
+            f"{n} series of the phase-2 generator, {kept} samples, "
+            f"{time.perf_counter() - t:.1f} s on the host")
+        svc = smoke_service(store, device=torch.device("cuda"))
+        mp = multiproc_phase(svc, sup, core_args)
+    finally:
+        sup.stop()
+    print(json.dumps({"multiproc": mp}))
+    torch.cuda.empty_cache()
+    exec10 = exec_phase(svc, core_args)
+    print(json.dumps({"exec": exec10}))
+    torch.cuda.empty_cache()
+    shapes = plan_shapes_phase(svc, core_args)
+    print(json.dumps({"plan_shapes": shapes}))
     keep: dict = {}
     core = ingest_core_phase(svc, args, keep)
     print(json.dumps({"ingest_core": core}))
@@ -6923,6 +7464,9 @@ def _rest(args, smi, kernels, svc, exec10, mp) -> int:
     torch.cuda.empty_cache()
     cluster = cluster_phase(torch.device("cuda"), args)
     print(json.dumps({"cluster": cluster}))
+    torch.cuda.empty_cache()
+    ha = ha_phase(torch.device("cuda"), args)
+    print(json.dumps({"ha": ha}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -6942,6 +7486,9 @@ def _rest(args, smi, kernels, svc, exec10, mp) -> int:
         # the coordinator's and the member's, in the cluster's queries
         kern["launches_phase22"] = sum(
             counts[kern["name"]] for counts in cluster["launches"].values())
+        # the coordinator's and both members'
+        kern["launches_phase23"] = sum(
+            counts[kern["name"]] for counts in ha["launches"].values())
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

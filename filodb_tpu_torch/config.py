@@ -20,9 +20,12 @@ planner), ``federation`` (the tiered planner, with ``mem_retention_ms``
 set), ``store`` (``backend``: ``local`` sqlite, or ``object`` for the
 S3-compatible tier with its endpoint, bucket, prefix, credentials and
 segment, bucket and queue sizes), ``rules`` (groups, tick, catch-up cap
-and the webhook notifier) and ``selfmon`` (the ``_meta`` dataset, its
-sampler and the default alert group) are acted on, in any form the
-reference takes;
+and the webhook notifier), ``selfmon`` (the ``_meta`` dataset, its
+sampler and the default alert group), ``migration`` (live migrations,
+``auto_rebalance``), ``replication`` (followers a shard, hedged reads),
+``consul`` (seed discovery and election through a Consul agent) and
+``enable_failover`` (a member promotes itself when the coordinator is
+lost) are acted on, in any form the reference takes;
 a dataset's ``engine`` is ``mesh``, ``adaptive`` or ``exec``.
 """
 
@@ -106,10 +109,12 @@ DEFAULTS = {
         "lag_alert_for": "30s",
         "alert_interval": "5s",
     },
+    # live shard migration (``coordinator/migration.py``), e.g.
+    # {"auto_rebalance": true, "lag_threshold": 0, "catchup_timeout_s": 60}
     "migration": {
-        "auto_rebalance": False,
-        "lag_threshold": 0,
-        "catchup_timeout_s": 30.0,
+        "auto_rebalance": False,      # joins and CRITICAL pressure migrate
+        "lag_threshold": 0,           # the largest offset lag at the flip
+        "catchup_timeout_s": 30.0,    # CATCHUP fails after this long
     },
     # the multi-process mesh runtime (``parallel/multiproc.py``,
     # ``coordinator/mesh_cluster.py``): N worker processes on the card, each
@@ -124,11 +129,13 @@ DEFAULTS = {
         "ready_timeout_s": 120.0,
         "seed": None,
     },
+    # followers a shard and hedged reads (``coordinator/replication.py``),
+    # e.g. {"n_replicas": 1, "hedge_s": 0.05}
     "replication": {
-        "n_replicas": 0,
-        "in_sync_lag": 0,
-        "hedge_s": 0.05,
-        "durable_sync_s": 5.0,
+        "n_replicas": 0,              # followers a shard (0: off)
+        "in_sync_lag": 0,             # the largest offset lag IN_SYNC
+        "hedge_s": 0.05,              # a replica read's hedge timer
+        "durable_sync_s": 5.0,        # a follower's segment sync cadence
     },
     "rules": {
         "tick_s": 1.0,
@@ -178,10 +185,6 @@ DEFAULTS = {
 # option → why it raises set away from its default: its module is not
 # ported (the ROADMAP item that ports it)
 UNPORTED = {
-    "consul": "seed discovery (ROADMAP §A.12)",
-    "enable_failover": "coordinator failover (ROADMAP §A.12)",
-    "migration": "live shard migration (ROADMAP §A.12)",
-    "replication": "shard replication (ROADMAP §A.12)",
     "wal_remote": "the networked log (ROADMAP §A.12)",
     "wal_kafka": "the Kafka log (ROADMAP §A.12)",
     "wal_server_port": "the log server (ROADMAP §A.12)",

@@ -39,7 +39,24 @@ Port of the single-node part of ``filodb_tpu/coordinator/cluster.py``:
   that node's store under that node's lock, on the caller's device; a
   remote member's through ``RemotePlanDispatcher`` to its executor port.
   The service's mesh engines and caches serve only while every shard is
-  the service's node's (``QueryService.shards_local``).
+  the service's node's (``QueryService.shards_local``). A shard with
+  in-sync followers reads through a ``ReplicaDispatcher`` over its
+  leader and them (each in-process node behind a ``NodeDispatcher``
+  under its own breaker), and the service's ``shard_status_fn`` names the
+  shards in RECOVERY or HANDOFF, and those whose leader is down and a
+  follower serves, for the answers' warnings.
+- High availability (the reference's ``:212-270, 501-514, 531-537, 584,
+  606-726``): ``replication`` followers a shard on other in-process
+  members (``ensure_replicas``, every heartbeat: followers of dead nodes
+  or of their own shards pruned, new ones on the least-loaded members;
+  ``coordinator/replication.py``); a member's loss promotes in-sync
+  followers, and ``Node.promote_shard`` starts the ingest worker at the
+  follower's applied offset, with no store read; ``migrate_shard`` moves
+  a shard between members through ``coordinator/migration.py``
+  (``Node.prepare_handoff`` on the source, ``shard_offset`` both sides),
+  ``resume_migration`` continues one from its manifest, and with
+  ``auto_rebalance`` a join levels the shard counts by migrations
+  (``maybe_rebalance``), as ``shed_load`` sheds a pressured node's.
 
 The port's node holds a ``MemStore`` a dataset (the reference's one
 ``TimeSeriesMemStore`` holds every dataset), created by ``setup_dataset``
@@ -49,9 +66,9 @@ dataset (``<dataset>_ds_<minutes>m``, a ``MemStore`` of its own with the
 raw shard's chunk size and ``ds_retention_ms``, five times the raw
 retention by default); the raw shard's flush publishes its rollups there
 (``core/downsample/downsampler.py::ShardDownsampler``), and the flush
-scheduler flushes those shards on its tick, as the reference's does.
-Migration, replication and failover of the coordinator itself wait for
-ROADMAP §A.12.
+scheduler flushes those shards on its tick, as the reference's does. A
+stopped shard's image stays in its node's store (the reference's tears
+it down; ROADMAP §C).
 
 A ``read_only`` node is a mesh worker's view of a node another process
 runs (``parallel/multiproc.py::_tail_shards``): it recovers its shards
@@ -68,7 +85,16 @@ import time
 import weakref
 from dataclasses import dataclass, field
 
+from filodb_tpu_torch.coordinator.migration import (
+    MigrationError,
+    ShardMigration,
+)
 from filodb_tpu_torch.coordinator.query_service import QueryService
+from filodb_tpu_torch.coordinator.replication import (
+    ReplicaCandidate,
+    ReplicaDispatcher,
+    ReplicaSyncer,
+)
 from filodb_tpu_torch.coordinator.shardmapper import ShardManager, ShardStatus
 from filodb_tpu_torch.core.memstore.memstore import MemStore
 from filodb_tpu_torch.core.store.api import (
@@ -173,6 +199,11 @@ class Node:
         key = (dataset, shard)
         if key in self._workers:
             return
+        # a migration's destination may hold a view of the shard's durable
+        # state from before the source's upload: read it again
+        refresh = getattr(self.column_store, "refresh_shard", None)
+        if callable(refresh) and not self.read_only:
+            refresh(dataset, shard)
         s = self.setup_dataset(config).shards[shard]
         t0 = time.perf_counter()
         keys = s.recover_index()
@@ -234,6 +265,58 @@ class Node:
                 SomeData(container, next(seq)))
 
         raw_shard.downsampler = ShardDownsampler(resolutions, publish)
+
+    def promote_shard(self, dataset: str, shard: int,
+                      config: IngestionConfig, shard_log: ReplayLog,
+                      start_offset: int, on_status=None) -> None:
+        """A follower made leader: its image is warm (index recovered when
+        it began to follow, the log applied through ``start_offset``), so
+        the ingest worker starts there, with no store read, no index
+        recovery and no watermark pass, and the shard joins the flush
+        schedule."""
+        key = (dataset, shard)
+        if key in self._workers:
+            return
+        s = self.setup_dataset(config).shards[shard]
+        self.recovery[key] = {"keys": s.num_partitions, "index_s": 0.0,
+                              "start_offset": start_offset,
+                              "promoted": True}
+        worker = _IngestWorker(self, s, shard_log, start_offset, on_status)
+        self._workers[key] = worker
+        worker.start()
+        _register_lag_gauges(dataset, shard, s, shard_log, worker)
+        if self._flusher is None and not self.read_only:
+            self._flusher = _FlushScheduler(self, self.flush_tick_s)
+            self._flusher.start()
+
+    def prepare_handoff(self, dataset: str, shard: int) -> int:
+        """A migration's source in SYNCING: every group flushed, the
+        store's uploads drained (raises if one failed), the index
+        snapshot written. Returns the shard's latest ingested offset."""
+        s = self.memstores[dataset].shards[shard]
+        s.flush_all()
+        FaultInjector.fire("migration.sync.upload", node=self.name,
+                           dataset=dataset, shard=shard)
+        flush = getattr(self.column_store, "flush", None)
+        if callable(flush):
+            flush()
+        FaultInjector.fire("migration.sync.checkpoint.before",
+                           node=self.name, dataset=dataset, shard=shard)
+        s.snapshot_index()
+        FaultInjector.fire("migration.sync.checkpoint.after",
+                           node=self.name, dataset=dataset, shard=shard)
+        return s.latest_offset
+
+    def shard_offset(self, dataset: str, shard: int) -> int:
+        """The log offset the shard covers here (-1: none): the larger of
+        its latest ingested offset and its smallest group watermark (a
+        shard recovered with nothing to replay still covers what every
+        group flushed)."""
+        ms = self.memstores.get(dataset)
+        if ms is None:
+            return -1
+        s = ms.shards[shard]
+        return max(s.latest_offset, int(s.group_watermarks.min()))
 
     def kill(self) -> None:
         """Stop every worker and the scheduler (process death or
@@ -479,6 +562,20 @@ class FilodbCluster:
     # beats a member may miss before it is declared down
     failure_threshold: int = 3
     on_heartbeat: list = field(default_factory=list)  # called every beat
+    # live migrations in flight, (dataset, shard) → ShardMigration; with
+    # auto_rebalance a join levels the shard counts (``migration`` block)
+    migrations: dict = field(default_factory=dict)
+    auto_rebalance: bool = False
+    migration_lag_threshold: int = 0
+    migration_catchup_timeout_s: float = 30.0
+    # followers a shard on other in-process members (``replication``
+    # block; 0: none)
+    replication: int = 0
+    replica_in_sync_lag: int = 0    # the largest lag still IN_SYNC
+    replica_hedge_s: float = 0.05   # a replica read's hedge timer
+    replica_durable_sync_s: float = 5.0  # a follower's segment sync
+    # (dataset, shard, node) → ReplicaSyncer
+    replica_syncers: dict = field(default_factory=dict)
     _hb_misses: dict = field(default_factory=dict)
     _hb_thread: threading.Thread | None = None
     _stop_hb: threading.Event = field(default_factory=threading.Event)
@@ -494,6 +591,13 @@ class FilodbCluster:
                                    self.spreads[dataset])
             for ev in sm.add_member(node.name):
                 self._on_event(dataset, ev)
+        if self.auto_rebalance and self.shard_managers:
+            # level the counts onto the joiner, off the caller's thread (a
+            # handoff blocks through its catch-up)
+            threading.Thread(
+                target=lambda: [self.maybe_rebalance(d)
+                                for d in list(self.shard_managers)],
+                daemon=True, name=f"rebalance-{node.name}").start()
 
     def leave(self, name: str) -> None:
         """A member gone: its breaker forced open (queries skip it without
@@ -525,6 +629,27 @@ class FilodbCluster:
                 self._on_event(dataset, ev)
 
     def _on_event(self, dataset: str, ev) -> None:
+        if ev.replica:
+            # a follower leaving a set stops its syncer; upserts are the
+            # syncers' own reports
+            if ev.node and ev.status in (ShardStatus.STOPPED,
+                                         ShardStatus.DOWN,
+                                         ShardStatus.UNASSIGNED):
+                sy = self.replica_syncers.pop((dataset, ev.shard, ev.node),
+                                              None)
+                if sy is not None:
+                    sy.stop()
+            return
+        if ev.status == ShardStatus.ACTIVE and ev.node and \
+                (dataset, ev.shard, ev.node) in self.replica_syncers:
+            # the promotion's flip names a node that follows the shard:
+            # its warm image goes to the ingest path
+            sy = self.replica_syncers.pop((dataset, ev.shard, ev.node))
+            self.nodes[ev.node].promote_shard(
+                dataset, ev.shard, self.configs[dataset],
+                self.logs[(dataset, ev.shard)], sy.promote(),
+                self._status_cb(dataset, ev.node))
+            return
         if ev.status == ShardStatus.ASSIGNED and ev.node:
             self.nodes[ev.node].start_shard(
                 dataset, ev.shard, self.configs[dataset],
@@ -544,6 +669,122 @@ class FilodbCluster:
 
         return on_status
 
+    # -- continuous replication --
+
+    def ensure_replicas(self, dataset: str) -> None:
+        """Bring each shard's follower set toward ``replication``: prune
+        the followers of dead nodes, of their own shards and with a dead
+        tail, then start followers on the least-loaded live in-process
+        members. Idempotent; every heartbeat runs it."""
+        if not self.replication:
+            return
+        sm = self.shard_managers.get(dataset)
+        if sm is None:
+            return
+        for shard in range(sm.num_shards):
+            owner = sm.mapper.node_for(shard)
+            for name in list(sm.mapper.replicas_of(shard)):
+                node = self.nodes.get(name)
+                sy = self.replica_syncers.get((dataset, shard, name))
+                dead_tail = (sy is not None and sy._tail is not None
+                             and not sy._tail.is_alive())
+                if node is None or not node.alive or name == owner \
+                        or dead_tail:
+                    sy = self.replica_syncers.pop((dataset, shard, name),
+                                                  None)
+                    if sy is not None:
+                        sy.stop()
+                    sm.drop_replica(shard, name)
+            if owner is None:
+                continue  # a DOWN shard's followers tail on as they are
+            # syncers still bootstrapping are not in the map yet
+            have = set(sm.mapper.replicas_of(shard))
+            have |= {n for (d, s, n) in self.replica_syncers
+                     if d == dataset and s == shard}
+            need = self.replication - len(have)
+            if need <= 0:
+                continue
+            cands = [n for n, nd in self.nodes.items()
+                     if isinstance(nd, Node) and nd.alive and n != owner
+                     and n not in have]
+            cands.sort(key=lambda n: len(sm.mapper.follower_shards(n)))
+            for name in cands[:need]:
+                sy = ReplicaSyncer(
+                    self.nodes[name], dataset, shard,
+                    self.configs[dataset], self.logs[(dataset, shard)],
+                    sm, in_sync_lag=self.replica_in_sync_lag,
+                    spread=self.spreads[dataset],
+                    durable_sync_interval_s=self.replica_durable_sync_s)
+                self.replica_syncers[(dataset, shard, name)] = sy
+                sy.start()
+
+    # -- live migration and rebalancing --
+
+    def _migration_store(self):
+        """The shared column store the manifests live in: an in-process
+        member's (every member's store is over one durable tier)."""
+        for node in self.nodes.values():
+            if isinstance(node, Node):
+                return node.column_store
+        raise MigrationError("no in-process column store for the "
+                             "migration manifest; pass store= explicitly")
+
+    def migrate_shard(self, dataset: str, shard: int, dest: str,
+                      store=None, **kw) -> ShardMigration:
+        """Move a shard from its owner to ``dest`` (blocks until DONE; a
+        thread runs it under live traffic)."""
+        sm = self.shard_managers[dataset]
+        source = sm.mapper.node_for(shard)
+        if source is None:
+            raise MigrationError(f"shard {shard} has no owner to migrate "
+                                 "from")
+        kw.setdefault("lag_threshold", self.migration_lag_threshold)
+        kw.setdefault("catchup_timeout_s", self.migration_catchup_timeout_s)
+        mig = ShardMigration(self, store or self._migration_store(),
+                             dataset, shard, source, dest, **kw)
+        self.migrations[(dataset, shard)] = mig
+        try:
+            return mig.run()
+        finally:
+            if mig.phase in ("done", "aborted"):
+                self.migrations.pop((dataset, shard), None)
+
+    def resume_migration(self, dataset: str, shard: int, store=None,
+                         **kw) -> ShardMigration | None:
+        """Continue a migration whose run crashed, from its manifest
+        (None: no migration in flight)."""
+        return ShardMigration.resume(self, store or self._migration_store(),
+                                     dataset, shard, **kw)
+
+    def maybe_rebalance(self, dataset: str, overloaded: str | None = None,
+                        min_imbalance: int = 2) -> list[ShardMigration]:
+        """Run the planned rebalance moves, one migration at a time."""
+        sm = self.shard_managers.get(dataset)
+        if sm is None:
+            return []
+        done = []
+        for shard, src, dst in sm.plan_rebalance(overloaded, min_imbalance):
+            if (dataset, shard) in self.migrations:
+                continue
+            try:
+                done.append(self.migrate_shard(dataset, shard, dst))
+            except Exception:
+                get_counter("filodb_shard_migration_errors",
+                            {"dataset": dataset}).inc()
+                log.exception("rebalance migration of %s/%d %s -> %s "
+                              "failed", dataset, shard, src, dst)
+                break
+        return done
+
+    def shed_load(self, node_name: str) -> list[ShardMigration]:
+        """Move one shard a dataset off a pressured node, counts level or
+        not (the memory watchdog's CRITICAL)."""
+        out = []
+        for dataset in list(self.shard_managers):
+            out += self.maybe_rebalance(dataset, overloaded=node_name,
+                                        min_imbalance=1)
+        return out
+
     # -- failure detection --
 
     def start_failure_detector(self) -> None:
@@ -561,7 +802,8 @@ class FilodbCluster:
 
     def heartbeat(self) -> None:
         """One beat: members not alive for ``failure_threshold`` beats
-        leave; rate-limited shards are reassigned; ``on_heartbeat`` runs."""
+        leave; rate-limited shards are reassigned; the follower sets
+        converge; ``on_heartbeat`` runs."""
         for name, node in list(self.nodes.items()):
             if node.alive:
                 self._hb_misses[name] = 0
@@ -581,6 +823,11 @@ class FilodbCluster:
                     get_counter("filodb_heartbeat_errors").inc()
                     log.exception("deferred reassignment of %s/%d failed",
                                   dataset, ev.shard)
+            try:
+                self.ensure_replicas(dataset)
+            except Exception:
+                get_counter("filodb_heartbeat_errors").inc()
+                log.exception("replica convergence for %s failed", dataset)
         for cb in list(self.on_heartbeat):
             try:
                 cb()
@@ -594,6 +841,9 @@ class FilodbCluster:
         if self._hb_thread is not None \
                 and self._hb_thread is not threading.current_thread():
             self._hb_thread.join(timeout=5)
+        for sy in list(self.replica_syncers.values()):
+            sy.stop()
+        self.replica_syncers.clear()
         for node in list(self.nodes.values()):
             node.kill()
 
@@ -608,25 +858,80 @@ class FilodbCluster:
         raise RuntimeError("no in-process member to serve queries from")
 
     def dispatcher_for(self, dataset: str, home: "Node"):
-        """shard → its owner's dispatcher (None: ``home``'s, in-process)."""
+        """shard → the dispatcher of its owner (None: ``home``'s, in
+        process), or a ``ReplicaDispatcher`` over its owner and in-sync
+        followers where it has any."""
         sm = self.shard_managers[dataset]
 
-        def dispatcher_for_shard(shard: int):
-            owner = sm.mapper.node_for(shard)
-            node = self.nodes.get(owner) if owner is not None else None
-            if node is None:
-                raise RuntimeError(f"shard {shard} unassigned")
-            if node is home:
-                return None
+        def candidate(name: str, follower: bool = False
+                      ) -> ReplicaCandidate:
+            node = self.nodes[name]
             if isinstance(node, Node):
-                return NodeDispatcher(node)
+                return ReplicaCandidate(name, NodeDispatcher(node),
+                                        follower=follower, guard=True)
             from filodb_tpu_torch.coordinator.remote import (
                 RemotePlanDispatcher,
             )
 
-            return RemotePlanDispatcher(node.host, node.executor_port)
+            # the remote dispatcher guards itself under its peer's breaker
+            d = RemotePlanDispatcher(node.host, node.executor_port)
+            return ReplicaCandidate(d.peer, d, follower=follower,
+                                    guard=False)
+
+        def dispatcher_for_shard(shard: int):
+            # the followers before the owner: a promotion writes the new
+            # owner, then drops it from the set, so this order never sees
+            # a dead owner and no follower mid-flip
+            followers = [n for n in sm.mapper.in_sync_followers(shard)
+                         if n in self.nodes]
+            owner = sm.mapper.node_for(shard)
+            followers = [n for n in followers if n != owner]
+            if not followers:
+                node = self.nodes.get(owner) if owner is not None else None
+                if node is None:
+                    raise RuntimeError(f"shard {shard} unassigned")
+                return None if node is home \
+                    else candidate(owner).dispatcher
+            cands = [candidate(owner)] if owner in self.nodes else []
+            cands += [candidate(n, follower=True) for n in followers]
+            return ReplicaDispatcher(shard, cands,
+                                     hedge_timeout_s=self.replica_hedge_s)
 
         return dispatcher_for_shard
+
+    def shard_status_fn(self, dataset: str):
+        """() → [(shard, what)] of the shards an answer may lag: RECOVERY
+        or HANDOFF, or ACTIVE on a leader that is down (its node gone,
+        not ``alive``, or a remote one's breaker open) while a follower
+        serves it."""
+        sm = self.shard_managers[dataset]
+
+        def statuses():
+            out = []
+            for s in range(sm.num_shards):
+                st = sm.mapper.statuses[s]
+                if st in (ShardStatus.RECOVERY, ShardStatus.HANDOFF):
+                    out.append((s, st.name.lower()))
+                    continue
+                if st != ShardStatus.ACTIVE:
+                    continue
+                followers = sm.mapper.in_sync_followers(s)
+                if not followers:
+                    continue
+                owner = sm.mapper.node_for(s)
+                node = self.nodes.get(owner) if owner else None
+                if node is None:
+                    unhealthy = True
+                elif isinstance(node, Node):
+                    unhealthy = not node.alive
+                else:
+                    unhealthy = breaker_for(
+                        f"{node.host}:{node.executor_port}").is_open
+                if unhealthy:
+                    out.append((s, f"served by follower {followers[0]}"))
+            return out
+
+        return statuses
 
     def query_service(self, dataset: str, engine: str = "mesh",
                       device=None, result_cache=None) -> QueryService:
@@ -642,6 +947,7 @@ class FilodbCluster:
         svc.planner.dispatcher_for_shard = self.dispatcher_for(dataset, home)
         svc.shards_local_fn = lambda: all(o == home.name
                                           for o in sm.mapper.owners)
+        svc.shard_status_fn = self.shard_status_fn(dataset)
         return svc
 
     def shard_statuses(self, dataset: str) -> list[dict]:

@@ -263,6 +263,10 @@ class QueryService:
         # the multi-process runtime (``coordinator/mesh_cluster.py``) where
         # a node boots mesh workers: memstore-only plans try it first
         self.mesh_cluster = None
+        # () → [(shard, status)] of the queryable shards an answer may lag
+        # (RECOVERY, HANDOFF, a down leader's follower serving): each
+        # answer carries a warning a shard (a cluster's service sets it)
+        self.shard_status_fn = None
         self._plans: dict = {}
         self._plans_lock = threading.Lock()
         # the deadline of the query or batch holding ``lock``
@@ -366,6 +370,33 @@ class QueryService:
                                       time.perf_counter() - t0 - waited, cost)
         if result.partial:
             partial_results.inc()
+        return self._attach_recovery_warnings(result)
+
+    def _recovery_warnings(self) -> list[str]:
+        """A warning a queryable shard still catching up (a replay, a
+        migration's handoff) or served by a follower while its leader is
+        unreachable (the reference's ``:531-551``): such answers are
+        right or flagged, never silently behind."""
+        fn = self.shard_status_fn
+        if fn is None:
+            return []
+        try:
+            out = []
+            for shard, status in fn():
+                if status.startswith("served by"):
+                    out.append(f"shard {shard} {status}: results may "
+                               f"lag live ingest")
+                else:
+                    out.append(f"shard {shard} recovering ({status}): "
+                               f"results may lag live ingest")
+            return out
+        except Exception:  # noqa: BLE001 - a warning never fails a query
+            return []
+
+    def _attach_recovery_warnings(self, result: QueryResult) -> QueryResult:
+        for w in self._recovery_warnings():
+            if w not in result.warnings:
+                result.warnings.append(w)
         return result
 
     def _execute_uncached(self, plan, qcontext: QueryContext | None = None,
@@ -466,6 +497,7 @@ class QueryService:
         slow = tracing_config().slow_query_threshold_ms
         for (promql, *_), r in zip(queries, outcomes):
             if isinstance(r, QueryResult):
+                self._attach_recovery_warnings(r)
                 r.stats.wall_time_s = wall
                 r.stats.admission_wait_s += waited
                 if slow > 0 and wall * 1000.0 > slow:

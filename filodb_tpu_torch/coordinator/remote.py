@@ -218,9 +218,25 @@ class PlanExecutorServer:
         Handler = make_authed_handler(lambda: self.secret, self._handle,
                                       "remote exec")
 
+        conns: set = set()
+        conns_lock = threading.Lock()
+        self._conns, self._conns_lock = conns, conns_lock
+
         class Server(socketserver.ThreadingTCPServer):
             # a fixed executor port must rebind across fast restarts
             allow_reuse_address = True
+
+            # the connections open, which ``stop`` closes: a stopped
+            # node must not go on answering its peers' pooled sockets
+            def process_request(self, request, client_address):
+                with conns_lock:
+                    conns.add(request)
+                super().process_request(request, client_address)
+
+            def shutdown_request(self, request):
+                with conns_lock:
+                    conns.discard(request)
+                super().shutdown_request(request)
 
         self.server = Server((host, port), Handler, bind_and_activate=True)
         self.server.daemon_threads = True
@@ -293,8 +309,17 @@ class PlanExecutorServer:
         return self
 
     def stop(self):
+        """Stop accepting, then close every open connection (a peer's
+        next call on one fails as on a dead node's)."""
         self.server.shutdown()
         self.server.server_close()
+        with self._conns_lock:
+            open_conns = list(self._conns)
+        for sock in open_conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
 
 
 class _SocketPool:

@@ -30,6 +30,12 @@ part keys and chunk floors written after them (``scan_part_keys_since``,
 ``max_persisted_ts_since``). The base class and the in-memory store keep
 the reference's defaults: the "since" calls return everything, which a
 restore applies idempotently.
+
+A live migration's manifest (``coordinator/migration.py``) lives beside
+the shard's data: ``write_`` / ``read_`` / ``delete_migration_manifest``.
+The base class keeps it in a dict, as durable as the rest of an
+in-memory store (the reference's ``:124-135``); the local-disk and
+object stores persist it.
 """
 
 from __future__ import annotations
@@ -152,6 +158,21 @@ class ColumnStore:
         """``max_persisted_ts`` of the chunks written after
         ``chunk_token``."""
         return self.max_persisted_ts(dataset, shard)
+
+    def write_migration_manifest(self, dataset: str, shard: int,
+                                 data: bytes) -> None:
+        if not hasattr(self, "_migration_manifests"):
+            self._migration_manifests = {}
+        self._migration_manifests[(dataset, shard)] = data
+
+    def read_migration_manifest(self, dataset: str,
+                                shard: int) -> bytes | None:
+        return getattr(self, "_migration_manifests", {}).get(
+            (dataset, shard))
+
+    def delete_migration_manifest(self, dataset: str, shard: int) -> None:
+        getattr(self, "_migration_manifests", {}).pop((dataset, shard),
+                                                      None)
 
     def close(self) -> None:
         pass

@@ -9,8 +9,10 @@ the same table of the dataset ``<dataset>__dsckpt``), and the ``upd``
 write counter on chunks and part keys (the port indexes ``upd``: a
 snapshot restore reads what was written after its token; the reference's
 queries ignore the index); a shard's index snapshot is the file
-``<root>/<dataset>/index-shard-<n>.snap``, and the cost model's learned
-estimates ``<root>/<dataset>/costmodel.json``, each replaced atomically. A
+``<root>/<dataset>/index-shard-<n>.snap``, a live migration's manifest
+``<root>/<dataset>/migration-shard-<n>.json`` and the cost model's
+learned estimates ``<root>/<dataset>/costmodel.json``, each replaced
+atomically. A
 partition is its part-key blob (``PartKey.serialized``). A directory
 either package writes, the other reads.
 
@@ -244,6 +246,30 @@ class LocalDiskColumnStore(ColumnStore):
                 return f.read()
         except FileNotFoundError:
             return None
+
+    def _manifest_path(self, dataset, shard) -> str:
+        return os.path.join(self.root, dataset,
+                            f"migration-shard-{shard}.json")
+
+    def write_migration_manifest(self, dataset, shard, data):
+        path = self._manifest_path(dataset, shard)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path + ".tmp", "wb") as f:
+            f.write(data)
+        os.replace(path + ".tmp", path)
+
+    def read_migration_manifest(self, dataset, shard):
+        try:
+            with open(self._manifest_path(dataset, shard), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+
+    def delete_migration_manifest(self, dataset, shard):
+        try:
+            os.remove(self._manifest_path(dataset, shard))
+        except FileNotFoundError:
+            pass
 
     def close(self):
         self._db.close()

@@ -44,9 +44,13 @@ counts in ``filodb_objectstore_corrupt``, never a wrong answer. CRC32C
 runs in the host C++ library (``csrc/hostcodec.cpp``, ``fh_crc32c``);
 the library failing to build raises.
 
-The port's store has no migration manifests and no follower sync
-(``refresh_shard``, ``sync_shard``): those serve live migration and
-replication, which come with multi-node (ROADMAP A7).
+A live migration's manifest is the object ``migration.json`` under the
+shard's prefix, written synchronously (the phase's resume barrier).
+``refresh_shard`` drops a shard's cached state that holds nothing
+unuploaded, so a migration's destination re-reads the manifest the
+source just uploaded; ``sync_shard`` is a follower's tail over the
+bucket: the manifest again, and a GET for each segment it has not seen
+(never for a shard this store writes).
 """
 
 from __future__ import annotations
@@ -658,6 +662,61 @@ class ObjectStoreColumnStore(ColumnStore):
                 st.parts.pop(e[1], None)
                 st.chunks.pop(e[1], None)
 
+    def refresh_shard(self, dataset: str, shard: int) -> None:
+        """Drop a shard's cached state, unless it holds open or pending
+        segments, so the next access re-reads the manifest."""
+        with self._lock:
+            st = self._states.get((dataset, shard))
+            if st is not None and not st.pending and not st.open:
+                del self._states[(dataset, shard)]
+
+    def sync_shard(self, dataset: str, shard: int) -> int:
+        """Apply the segments the manifest lists and this view has not
+        seen (a GET each); a shard with open or pending segments is the
+        writer's and is skipped. Returns the segments applied."""
+        with self._lock:
+            st = self._states.get((dataset, shard))
+            if st is not None and (st.pending or st.open):
+                return 0
+        if st is None:
+            self._state(dataset, shard)  # the first load is the sync
+            return 0
+        base = self._shard_prefix(dataset, shard)
+        try:
+            doc = json.loads(self._get(base + "manifest.json"))
+        except KeyError:
+            return 0
+        with self._lock:
+            if st.pending or st.open:
+                return 0  # became a writer since
+            known = set(st.segments)
+            st.next_seq = max(st.next_seq, int(doc.get("next_seq", 1)))
+            st.upd = max(st.upd, int(doc.get("upd", 0)))
+            st.seg_pyramids = {int(q) for q in doc.get("pyramids", ())}
+            st.bucket_pyramids = {
+                int(d["bucket"]): d
+                for d in doc.get("bucket_pyramids", ())}
+        applied = 0
+        for s in sorted(doc.get("segments", ()),
+                        key=lambda s: int(s["seq"])):
+            if int(s["seq"]) in known:
+                continue
+            info = _SegmentInfo.of(s)
+            if not self._bucket_in_split(info.bucket):
+                continue
+            data = self._get(info.key)
+            if crc32c(data[:-_FOOTER.size]) != info.crc:
+                CORRUPT.inc()
+                raise CorruptSegmentError(
+                    f"{info.key}: manifest CRC mismatch")
+            entries = parse_segment(data, info.key)
+            # two racing syncs may both apply a segment: entries upsert
+            with self._lock:
+                self._apply_entries(st, info.seq, entries)
+                st.segments[info.seq] = info
+            applied += 1
+        return applied
+
     # -------------------------------------------------------- segment build
     def _open_for(self, st, bkt) -> _OpenSegment:
         seg = st.open.get(bkt)
@@ -1056,6 +1115,34 @@ class ObjectStoreColumnStore(ColumnStore):
                              + "index.snap")
         except KeyError:
             return None
+
+    # ------------------------------------------------- migration manifests
+    # synchronous, not behind the uploader: a returned write is the
+    # migration's resume barrier for its phase
+    def write_migration_manifest(self, dataset, shard, data):
+        self._require_writable("write_migration_manifest")
+        key = self._shard_prefix(dataset, shard) + "migration.json"
+        with span("objectstore", op="write_migration", shard=shard):
+            self.retry_policy.call(
+                lambda: self._put_raw(key, data),
+                retry_on=self._transient(),
+                on_retry=lambda *a, **k: RETRIES.inc(),
+                site="objectstore.put")
+
+    def read_migration_manifest(self, dataset, shard):
+        try:
+            return self._get(self._shard_prefix(dataset, shard)
+                             + "migration.json")
+        except KeyError:
+            return None
+
+    def delete_migration_manifest(self, dataset, shard):
+        self._require_writable("delete_migration_manifest")
+        try:
+            self.client.delete_object(self._shard_prefix(dataset, shard)
+                                      + "migration.json")
+        except KeyError:
+            pass
 
     # ---------------------------------------------------------- compaction
     def _maybe_compact(self, dataset: str, shard: int) -> None:

@@ -22,7 +22,12 @@ Port of ``filodb_tpu/http/server.py``'s ``HttpDispatcher`` and
   the rule managers' groups and active alerts (``app.rule_managers``)
 - ``GET /api/v1/cluster`` (datasets) and ``/api/v1/cluster/{dataset}/status``
   (a member answers from its mirror of the coordinator's map,
-  ``shard_maps``)
+  ``shard_maps``); ``.../shardmap`` (each shard's node, status, covered
+  offset, replica set with the followers' applied offsets and migration
+  in flight, and the tenants' series against their quotas); on the
+  coordinator ``.../startshards`` and ``.../stopshards``
+  (``shards=0,1``, ``node=``) and ``GET/POST .../migrate?shard=&dest=``
+  (a live migration, started on a thread of its own)
 - ``GET /api/v1/status/tsdb?dataset=&topk=``: each shard's series and
   encode counts, and the top metrics and labels by cardinality
 - ``GET /api/v1/status/ingest?dataset=&limit=``: each shard's ingest
@@ -38,9 +43,8 @@ Status codes and error envelopes are the reference's: 400 for a parse
 error or a bad parameter, 404 for an unknown dataset or route, 422 for a
 query limit or a budget in ``degrade="error"``, 503 with ``Retry-After``
 for a query the governor shed (``unavailable``) or whose deadline passed
-(``timeout``), 500 (``internal``) for anything else. The cluster's shard
-commands (``startshards``, ``stopshards``), ``shardmap`` and ``migrate``
-answer 501 naming ROADMAP §A.12. ``?stats=all`` renders the basic stats,
+(``timeout``), 500 (``internal``) for anything else. ``?stats=all``
+renders the basic stats,
 the counters the port keeps beside them (``wireBytes``, ``decodeMs`` and
 ``reduceMs`` among them), a federated query's per-tier buckets and the
 pyramid lane's keys. A partial answer (a budget's, or a gather that lost
@@ -218,10 +222,6 @@ class HttpDispatcher:
             else json.dumps(payload).encode()
         return code, {"Content-Type": JSON_CT, **(headers or {})}, body
 
-    def _unported(self, what: str):
-        return self._json(501, promjson.error_json(
-            f"{what}: not ported yet", "not_implemented"))
-
     def _dispatch(self, parts: list[str], qs: dict):
         if parts == ["__health"]:
             return self._json(200, {"status": "healthy"})
@@ -236,7 +236,7 @@ class HttpDispatcher:
                     f"unknown dataset {parts[1]}"))
             return self._prom_api(svc, parts[4:], qs)
         if len(parts) >= 3 and parts[:3] == ["api", "v1", "cluster"]:
-            return self._cluster_api(parts[3:])
+            return self._cluster_api(parts[3:], qs)
         if parts == ["api", "v1", "rules"]:
             # every dataset's groups
             groups = [g for mgr in self.app.rule_managers.values()
@@ -561,26 +561,135 @@ class HttpDispatcher:
 
     # ---- cluster admin -------------------------------------------------------
 
-    def _cluster_api(self, rest: list[str]):
+    def _cluster_api(self, rest: list[str], qs: dict):
+        """``/api/v1/cluster``: the datasets, a dataset's ``status``, and
+        on the coordinator the shard commands ``startshards`` /
+        ``stopshards`` (``shards=0,1`` and ``node=``), ``shardmap`` and
+        ``migrate`` (``shard=`` and ``dest=``; the migration runs on a
+        thread of its own), as the reference's answers them."""
         cluster = self.app.cluster
         if not rest:
             return self._json(200, {"status": "success",
                                     "data": list(self.app.services)})
+        dataset = rest[0]
+        if len(rest) == 2 and rest[1] in ("startshards", "stopshards") \
+                and cluster is not None:
+            return self._shard_commands(cluster, dataset, rest[1], qs)
         if len(rest) == 2 and rest[1] == "status":
-            mirror = self.app.shard_maps.get(rest[0])
+            mirror = self.app.shard_maps.get(dataset)
             if cluster is not None:
-                data = cluster.shard_statuses(rest[0])
+                data = cluster.shard_statuses(dataset)
             elif mirror is not None:
                 # a member: the coordinator's map, from its mirror
                 data = mirror().snapshot()
             else:
                 data = []
             return self._json(200, {"status": "success", "data": data})
-        if len(rest) == 2 and rest[1] in ("startshards", "stopshards",
-                                          "shardmap", "migrate"):
-            return self._unported(f"{rest[1]}: shard commands and "
-                                  f"migration (ROADMAP §A.12)")
+        if len(rest) == 2 and rest[1] == "shardmap":
+            return self._shardmap(dataset)
+        if len(rest) == 2 and rest[1] == "migrate" and cluster is not None:
+            try:
+                shard = int(qs.get("shard", [""])[0])
+            except ValueError:
+                return self._json(400,
+                                  promjson.error_json("shard must be an int"))
+            dest = qs.get("dest", [""])[0]
+            if not dest:
+                return self._json(400, promjson.error_json("dest required"))
+
+            def run():
+                try:
+                    cluster.migrate_shard(dataset, shard, dest)
+                except Exception:
+                    log.exception("migration of %s shard %d -> %s failed",
+                                  dataset, shard, dest)
+
+            threading.Thread(target=run, daemon=True,
+                             name=f"migrate-{dataset}-{shard}").start()
+            return self._json(200, {"status": "success",
+                                    "data": {"dataset": dataset,
+                                             "shard": shard, "dest": dest,
+                                             "state": "started"}})
         return self._json(404, promjson.error_json("unknown cluster endpoint"))
+
+    def _shard_commands(self, cluster, dataset: str, cmd: str, qs: dict):
+        """Stop each shard of ``shards`` on its owner (STOPPED), or
+        assign it to ``node`` (the first member without one) and start
+        it there."""
+        from filodb_tpu_torch.coordinator.shardmapper import (
+            ShardEvent,
+            ShardStatus,
+        )
+
+        shards = [int(x) for x in qs.get("shards", [""])[0].split(",") if x]
+        node = qs.get("node", [None])[0]
+        sm = cluster.shard_managers.get(dataset)
+        if sm is None:
+            return self._json(404, promjson.error_json(
+                f"unknown dataset {dataset}"))
+        done = []
+        for shard in shards:
+            if cmd == "stopshards":
+                owner = sm.mapper.node_for(shard)
+                if owner and owner in cluster.nodes:
+                    cluster.nodes[owner].stop_shard(dataset, shard)
+                    sm._publish(ShardEvent(shard, ShardStatus.STOPPED, None))
+                    done.append(shard)
+            else:
+                target = node or next(iter(cluster.nodes), None)
+                if target:
+                    ev = ShardEvent(shard, ShardStatus.ASSIGNED, target)
+                    sm._publish(ev)
+                    cluster._on_event(dataset, ev)
+                    done.append(shard)
+        return self._json(200, {"status": "success", "data": done})
+
+    def _shardmap(self, dataset: str):
+        """Each shard's node, status, replica set and migration in
+        flight, with the leader's covered offset and the followers'
+        applied ones, and each tenant's active series against its quota
+        (the reference's ``filo-cli shardmap`` backend)."""
+        cluster = self.app.cluster
+        svc = self.app.services.get(dataset)
+        if cluster is not None:
+            shards = cluster.shard_statuses(dataset)
+            for entry in shards:
+                mig = cluster.migrations.get((dataset, entry["shard"]))
+                if mig is not None:
+                    entry["migration"] = mig.snapshot()
+                owner = entry.get("node")
+                node = cluster.nodes.get(owner) if owner else None
+                if node is not None:
+                    try:
+                        entry["watermark"] = node.shard_offset(
+                            dataset, entry["shard"])
+                    except Exception:  # noqa: BLE001 - the map still answers
+                        pass
+                for rep in entry.get("replicas", ()):
+                    sy = cluster.replica_syncers.get(
+                        (dataset, entry["shard"], rep["node"]))
+                    if sy is not None:
+                        rep["watermark"] = sy.applied
+        elif dataset in self.app.shard_maps:
+            shards = self.app.shard_maps[dataset]().snapshot()
+        else:
+            shards = [{"shard": s.shard_num, "status": "active",
+                       "node": None}
+                      for s in svc.memstore.shards] if svc else []
+        trackers = [s.cardinality for s in svc.memstore.shards] \
+            if svc else []
+        tenants = []
+        for tenant, tc in sorted(governor_config().tenants.items()):
+            prefix = tenant.split("/")
+            active = sum(t.cardinality(prefix).active_ts for t in trackers)
+            tenants.append({
+                "tenant": tenant,
+                "active_series": active,
+                "max_series": int(tc.get("max_series", 0) or 0),
+                "max_inflight": int(tc.get("max_inflight", 0) or 0)})
+        return self._json(200, {"status": "success",
+                                "data": {"shards": shards,
+                                         "tenants": tenants}})
 
 
 class FiloHttpServer:

@@ -20,22 +20,42 @@ serves its executor port (``executor_port``, 0: any free port;
 ``coordinator/remote.py::PlanExecutorServer``), which runs exec plans
 shipped to it under its dataset services' locks and takes the control
 messages ``start_shard``, ``stop_shard``, ``shard_status``,
-``shard_events``, ``join`` and ``role`` (and ``kernel_launches``, the
-port's: this process's kernel launch counts, zeroed on request, for a
-smoke run that counts every node's). Without ``seeds`` the node is the
+``shard_events``, ``prepare_handoff``, ``shard_offset``,
+``migration_status``, ``join`` and ``role`` (and ``kernel_launches``,
+the port's: this process's kernel launch counts, zeroed on request, for
+a smoke run that counts every node's). Without ``seeds`` the node is the
 coordinator: it joins its own cluster, sets up the datasets (shards
 assigned by ``min_num_nodes``), serves queries whose leaves go to the
 shards' owners, polls remote members' shard statuses on its heartbeat
 and runs the failure detector (a member that stops answering leaves;
-its shards are reassigned, recovered from this node's store and replayed
-from the shared logs). With ``seeds`` the node is a member: it joins
-the first seed that answers, takes the shards the coordinator assigns
+its shards go to in-sync followers, or are reassigned, recovered from
+this node's store and replayed from the shared logs). Its ``migration``
+block sets ``auto_rebalance`` (a join levels the shard counts by live
+migrations, and the watchdog going CRITICAL sheds a shard of this node's
+by one), the catch-up's ``lag_threshold`` and ``catchup_timeout_s``;
+its ``replication`` block ``n_replicas`` followers a shard on the
+in-process members, ``in_sync_lag``, ``hedge_s`` and
+``durable_sync_s``. With ``seeds`` the node is a member: it joins the
+first seed that answers, takes the shards the coordinator assigns
 (``start_shard``), executes the plans shipped to it on its device, and
 mirrors the coordinator's map (``ShardUpdateSubscriber``, polled every
 second) for ``/api/v1/cluster/{dataset}/status``; like the reference's
 member it serves no query API, rules, downsampling, federation,
 self-monitoring or mesh workers. Nodes of one cluster share the logs'
 directory (``wal_dir``).
+
+Discovery and failover, as the reference's node does them
+(``:342-392, 748-800``): with ``consul`` the node registers its executor
+port with the agent first, then, without ``seeds``, joins a discovered
+node that answers ``role`` as the coordinator (or a member naming one),
+or else the lowest (host, port) forms the cluster and the others join
+it; shutdown deregisters. With ``enable_failover`` every node registers
+in ``<wal_dir>/members.txt`` (``MemberRegistry``); a member pings the
+coordinator every 0.25 s and, after three misses, the first name among
+the members still answering promotes itself: a cluster of its own with
+the running members adopted as they are, the dead coordinator's shards
+assigned to the survivors (below ``min_num_nodes`` if need be), the
+query API served, the registry's coordinator line its own.
 
 The node's control plane, as the reference's: the ``resilience``,
 ``governor`` and ``tracing`` blocks configure their process-wide modules
@@ -113,6 +133,7 @@ from filodb_tpu_torch.coordinator.remote import (
     PlanExecutorServer,
     RemotePlanDispatcher,
 )
+from filodb_tpu_torch.coordinator.shardmapper import ShardManager, ShardStatus
 from filodb_tpu_torch.core.store.config import IngestionConfig, StoreConfig
 from filodb_tpu_torch.core.store.localstore import (
     LocalDiskColumnStore,
@@ -165,6 +186,7 @@ class FiloServer:
         self.is_coordinator = not config.seeds
         self._coord_addr = None      # a member's coordinator
         self.shard_subscribers: dict = {}  # a member's map mirrors
+        self._consul = None          # the Consul agent registered with
         self._ds_threads: list[threading.Thread] = []
         self._stop = threading.Event()
         self._setup_meta_dataset()
@@ -204,11 +226,17 @@ class FiloServer:
                 "stop_shard": self._handle_stop_shard,
                 "shard_status": self._handle_shard_status,
                 "shard_events": self._handle_shard_events,
+                "prepare_handoff": self._handle_prepare_handoff,
+                "shard_offset": self._handle_shard_offset,
+                "migration_status": self._handle_migration_status,
                 "join": self._handle_join,
                 "role": self._handle_role,
                 "kernel_launches": self._handle_kernel_launches,
             }).start()
         self.node.executor_port = self.executor.port
+        if cfg.consul:
+            self._consul_bootstrap()
+        self.is_coordinator = not cfg.seeds
         if cfg.seeds:
             self._start_member(executed)
         else:
@@ -235,6 +263,8 @@ class FiloServer:
                 first.num_shards, cfg.spreads.get(first.dataset, 1),
                 dataset=first.dataset)
             self.gateway = GatewayServer(sink, port=cfg.gateway_port).start()
+        if cfg.enable_failover:
+            self._setup_failover()
         log.info("FiloServer up: http=%d executor=%d gateway=%s role=%s "
                  "device=%s", self.http.port, self.executor.port,
                  self.gateway.port if self.gateway else "off",
@@ -247,6 +277,18 @@ class FiloServer:
         their services, remote members' statuses on the heartbeat, the
         failure detector, then the planes only a coordinator runs."""
         cfg = self.config
+        mig = cfg.migration or {}
+        self.cluster.auto_rebalance = bool(mig.get("auto_rebalance", False))
+        self.cluster.migration_lag_threshold = int(mig.get("lag_threshold",
+                                                           0))
+        self.cluster.migration_catchup_timeout_s = float(
+            mig.get("catchup_timeout_s", 30.0))
+        rep = cfg.replication or {}
+        self.cluster.replication = int(rep.get("n_replicas", 0))
+        self.cluster.replica_in_sync_lag = int(rep.get("in_sync_lag", 0))
+        self.cluster.replica_hedge_s = float(rep.get("hedge_s", 0.05))
+        self.cluster.replica_durable_sync_s = float(
+            rep.get("durable_sync_s", 5.0))
         self.cluster.join(self.node)
         for name, ing in cfg.datasets.items():
             logs = {s: self._shard_log(name, s)
@@ -321,6 +363,19 @@ class FiloServer:
         self.node.stop_shard(dataset, shard)
         return True
 
+    def _handle_prepare_handoff(self, dataset: str, shard: int):
+        """A migration's source: flush, drain and snapshot the shard;
+        its latest offset."""
+        return self.node.prepare_handoff(dataset, shard)
+
+    def _handle_shard_offset(self, dataset: str, shard: int):
+        return self.node.shard_offset(dataset, shard)
+
+    def _handle_migration_status(self, dataset: str):
+        """The coordinator's migrations in flight of ``dataset``."""
+        return [m.snapshot() for (d, _s), m in
+                list(self.cluster.migrations.items()) if d == dataset]
+
     def _handle_shard_status(self, dataset: str):
         return [(s, "active" if w.caught_up.is_set() else "recovery")
                 for (d, s), w in list(self.node._workers.items())
@@ -329,13 +384,13 @@ class FiloServer:
     def _handle_shard_events(self, dataset: str, since_seq: int,
                              epoch: str | None = None):
         """The coordinator's sequenced shard events for a member's mirror,
-        as the reference's 6-tuples (the replica fields false and -1)."""
+        as the reference's 6-tuples (replica sets included)."""
         sm = self.cluster.shard_managers.get(dataset)
         if sm is None:
             return ([], since_seq, False, epoch)
         events, seq, resynced, ep = sm.events_since(since_seq, epoch)
-        return ([(e.shard, e.status.name, e.node, e.progress, False, -1)
-                 for e in events], seq, resynced, ep)
+        return ([(e.shard, e.status.name, e.node, e.progress, e.replica,
+                  e.watermark) for e in events], seq, resynced, ep)
 
     def _handle_role(self):
         if self.is_coordinator:
@@ -645,10 +700,162 @@ class FiloServer:
                     svc.result_cache.clear()
 
         wd.on_degraded.append(evict_caches)
+        if self.is_coordinator and self.cluster.auto_rebalance:
+            # CRITICAL sheds a whole shard to a peer by a live migration,
+            # off the watchdog's thread (a migration blocks through its
+            # catch-up)
+            cluster, me = self.cluster, self.config.node_name
+
+            def shed_on_pressure(state):
+                if state != "critical" or len(cluster.nodes) < 2:
+                    return
+                threading.Thread(target=lambda: cluster.shed_load(me),
+                                 daemon=True, name="shed-load").start()
+
+            wd.on_degraded.append(shed_on_pressure)
         governor.register_tenant_series_gauges(
             lambda: [sh for svc in self.services.values()
                      for sh in svc.memstore.shards])
         return wd
+
+    # -- discovery (the reference's ``:342-392``) --
+
+    def _consul_bootstrap(self) -> None:
+        """Register with the Consul agent; without seeds, join an
+        established cluster a discovered node names, or else the lowest
+        (host, port) forms it and the others join it."""
+        from filodb_tpu_torch.coordinator.bootstrap import ConsulDiscovery
+
+        cfg = self.config
+        self._consul = ConsulDiscovery(
+            host=cfg.consul.get("host", "127.0.0.1"),
+            port=int(cfg.consul.get("port", 8500)),
+            service_name=cfg.consul.get("service", "filodb"))
+        adv = cfg.consul.get("advertise", "127.0.0.1")
+        me = (adv, self.executor.port)
+        try:
+            self._consul.register(cfg.node_name, adv, self.executor.port)
+        except OSError as e:
+            log.warning("consul register failed: %s", e)
+        if cfg.seeds:
+            return
+        others = sorted(t for t in self._consul.discover() if tuple(t) != me)
+        coord = None
+        for h, p in others:
+            try:
+                role, ch, cp = RemotePlanDispatcher(h, p).call("role")
+            except (ConnectionError, OSError, RuntimeError):
+                continue
+            if role == "coordinator":
+                coord = (h, p)
+                break
+            if role == "member" and ch:
+                coord = (ch, cp)
+                break
+        if coord is not None:
+            cfg.seeds = [f"{coord[0]}:{coord[1]}"]
+        elif others and min(others) < me:
+            cfg.seeds = [f"{h}:{p}" for h, p in others]
+        log.info("consul discovery: role=%s seeds=%s",
+                 "member" if cfg.seeds else "coordinator", cfg.seeds)
+
+    # -- coordinator failover (the reference's ``:748-800``) --
+
+    def _registry(self):
+        from filodb_tpu_torch.coordinator.bootstrap import MemberRegistry
+
+        root = self.config.wal_dir or os.path.join(self.config.data_dir,
+                                                   "wal")
+        return MemberRegistry(os.path.join(root, "members.txt"))
+
+    def _setup_failover(self) -> None:
+        role = "coord" if self.is_coordinator else "member"
+        self._registry().register(role, self.config.node_name,
+                                  self.node.host, self.executor.port)
+        if role == "member":
+            t = threading.Thread(target=self._failover_watch, daemon=True,
+                                 name="failover-watch")
+            t.start()
+            self._ds_threads.append(t)
+
+    def _failover_watch(self, interval_s: float = 0.25) -> None:
+        """Ping the coordinator; after three misses the first name among
+        the members that answer promotes itself."""
+        from filodb_tpu_torch.coordinator.bootstrap import alive_members
+
+        reg = self._registry()
+        misses = 0
+        while not self._stop.wait(interval_s):
+            coord = reg.current_coordinator()
+            if coord == self.config.node_name:
+                return
+            entry = reg.members().get(coord)
+            if entry is not None and RemotePlanDispatcher(
+                    entry[1], entry[2], timeout=1.0).ping():
+                misses = 0
+                continue
+            misses += 1
+            if misses < 3:
+                continue
+            alive = alive_members(reg)
+            alive.pop(coord, None)
+            if alive and min(alive) == self.config.node_name:
+                log.warning("coordinator %s down; promoting self", coord)
+                try:
+                    self._promote(alive)
+                except Exception:
+                    log.exception("promotion failed")
+                return
+            misses = 0  # another member promotes; keep watching
+
+    def _promote(self, alive: dict) -> None:
+        """Become the coordinator: a cluster of this node and the running
+        members (their shards adopted as they run), the dead
+        coordinator's shards assigned to the survivors, the query API
+        served, the registry's coordinator line this node's."""
+        cfg = self.config
+        cluster = FilodbCluster()
+        cluster.join(self.node)
+        for name, (host, port) in alive.items():
+            if name != cfg.node_name:
+                cluster.nodes[name] = RemoteNodeHandle(name, host, port)
+        for dataset, ing in cfg.datasets.items():
+            spread = cfg.spreads.get(dataset, 1)
+            cluster.configs[dataset] = ing
+            cluster.spreads[dataset] = spread
+            for shard in range(ing.num_shards):
+                cluster.logs[(dataset, shard)] = self._shard_log(dataset,
+                                                                 shard)
+            # availability over balance: the survivors take the shards
+            # even below min_num_nodes until members join
+            sm = cluster.shard_managers[dataset] = ShardManager(
+                dataset, ing.num_shards,
+                min(ing.min_num_nodes, len(cluster.nodes)))
+            for name, node in cluster.nodes.items():
+                if name == cfg.node_name:
+                    statuses = self._handle_shard_status(dataset)
+                else:
+                    try:
+                        statuses = node.shard_status(dataset)
+                    except (ConnectionError, OSError, RuntimeError):
+                        statuses = []
+                for shard, st in statuses:
+                    sm.adopt(shard, name, ShardStatus.ACTIVE
+                             if st == "active" else ShardStatus.RECOVERY)
+            for ev in sm.rebalance():
+                cluster._on_event(dataset, ev)
+            self.services[dataset] = cluster.query_service(
+                dataset, engine=cfg.engines.get(dataset, "mesh"),
+                device=self.device, result_cache=cfg.result_cache)
+            cluster.on_heartbeat.append(
+                lambda n=dataset: poll_remote_statuses(cluster, n))
+        self.cluster = cluster
+        self.is_coordinator = True
+        if self.http is not None:
+            self.http.cluster = cluster
+        cluster.start_failure_detector()
+        self._registry().register("coord", cfg.node_name, self.node.host,
+                                  self.executor.port)
 
     def shutdown(self):
         """Stop the self-monitor and the rule managers (before the logs
@@ -678,6 +885,11 @@ class FiloServer:
         self.node.kill()
         for lg in self.logs.values():
             lg.close()
+        if self._consul is not None:
+            try:
+                self._consul.deregister(self.config.node_name)
+            except OSError:
+                pass
         for name in self.config.datasets:
             adaptive_planner.persist(name, self.meta_store)
         self.column_store.close()

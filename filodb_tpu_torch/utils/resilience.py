@@ -401,8 +401,13 @@ class FaultInjector:
     ``remote.dispatch`` (ctx: host, port) before a plan is shipped,
     ``node.dispatch`` (ctx: node) before an in-process node runs one,
     ``gather.child`` (ctx: index, shards, plan) before a gather runs a
-    child and ``meshproc.exec`` (ctx: host, port) before a mesh worker's
-    call; a site that nothing armed costs one dict test."""
+    child, ``meshproc.exec`` (ctx: host, port) before a mesh worker's
+    call, ``promql.remote`` (ctx: endpoint) before a ``PromQlRemoteExec``'s
+    request, ``replica.tail`` (ctx: node, dataset, shard) before a
+    follower's poll of its log, ``replica.dispatch`` (ctx: node, shard)
+    before a replica read, and a live migration's ``KILL_POINTS``
+    (``coordinator/migration.py``); a site that nothing armed costs one
+    dict test."""
 
     _faults: dict[str, list[Fault]] = {}
     _lock = threading.Lock()

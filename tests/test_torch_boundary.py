@@ -35,7 +35,13 @@ worker process; and the cluster's (``coordinator/{cluster,bootstrap}``,
 ``PlanExecutorServer``, ``RemotePlanDispatcher.dispatch``, two-phase
 pushdown), through a query over three in-process nodes, one whose
 leaves ship over TCP to an executor, and a member's mirror of the shard
-map polled over the wire. The spawned worker's seed callable, run inside the
+map polled over the wire; and high availability's
+(``coordinator/{replication,migration,ha_planner}``,
+``query/exec/remote_exec``, ``query/logical_parser``, ``utils/dns_srv``,
+``kafka/log_server``, the registry and Consul discovery), through
+followers brought in sync, a node lost and its shards promoted, a live
+migration and an HA plan stitching a replica's HTTP answer, each equal
+to the store's. The spawned worker's seed callable, run inside the
 worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
 both for the rest of its life, so a worker that loaded either never
 answers: the check needs no field of the worker's protocol.
@@ -440,6 +446,61 @@ cluster_rows = [cres.stats.engine, same(cres.result),
                 rres.stats.wire_bytes > 0, same(rres.result),
                 sub.mapper.owners == cl.shard_managers["timeseries"]
                 .mapper.owners]
+# high availability: a follower a shard, a node lost and its shards
+# promoted, a live migration, the HA planner stitching a replica's HTTP
+# answer, discovery and the registry
+import time as _time
+from filodb_tpu_torch.coordinator import (
+    ha_planner, migration, replication)
+from filodb_tpu_torch.coordinator.bootstrap import (
+    ConsulDiscovery, MemberRegistry)
+from filodb_tpu_torch.http.server import FiloHttpServer
+from filodb_tpu_torch.kafka import log_server
+from filodb_tpu_torch.query.exec import remote_exec
+from filodb_tpu_torch.query.exec.plan import ExecContext, run_plan
+from filodb_tpu_torch.query.logical_parser import to_promql
+from filodb_tpu_torch.utils import dns_srv
+csm = cl.shard_managers["timeseries"]
+cl.replication = 1
+for _ in range(600):
+    cl.ensure_replicas("timeseries")
+    if all(csm.mapper.in_sync_followers(s) for s in range(4)):
+        break
+    _time.sleep(0.05)
+in_sync = all(csm.mapper.in_sync_followers(s) for s in range(4))
+cl.replication = 0
+lost = csm.mapper.shards_of("b")
+cl.leave("b")
+promoted = sorted(s for s in lost if csm.mapper.node_for(s) not in
+                  (None, "b"))
+flipped = same(cl.query_service("timeseries", device="cpu").query_range(
+    cq, 1_600_000_600, 60, 1_600_001_400).result)
+moved = csm.mapper.shards_of("a")[0]
+mig = cl.migrate_shard("timeseries", moved, "c")
+migrated = same(cl.query_service("timeseries", device="cpu").query_range(
+    cq, 1_600_000_600, 60, 1_600_001_400).result)
+ha_http = FiloHttpServer({"timeseries": svc}, port=0).start()
+hap = ha_planner.HighAvailabilityPlanner(
+    "timeseries", csvc.planner, ha_planner.StaticFailureProvider(
+        [ha_planner.TimeRange(1_600_000_900_000, 1_600_001_100_000)]),
+    f"http://127.0.0.1:{ha_http.port}/promql/timeseries")
+hplan = parse_query(cq, TimeStepParams(1_600_000_600, 60, 1_600_001_400))
+htree = hap.materialize(hplan)
+hres = run_plan(htree, ExecContext(cl.home_node().memstores["timeseries"],
+                                   dataset="timeseries"))
+hres.materialize()
+ha_http.stop()
+reg = MemberRegistry(tempfile.mkdtemp() + "/members.txt")
+reg.register("coord", "a", "127.0.0.1", 1)
+ha_rows = [in_sync, promoted == sorted(lost), flipped, mig.phase,
+           csm.mapper.node_for(moved), migrated, same(hres),
+           "PromQlRemoteExec" in htree.tree_str(), to_promql(hplan) == cq,
+           len(dns_srv.build_query("_filodb._tcp.example.com", 7)),
+           reg.current_coordinator(),
+           ConsulDiscovery(port=1, timeout=0.2).discover(),
+           issubclass(log_server.LogOpError, RuntimeError),
+           replication.HEDGED.name, migration.KILL_POINTS[0],
+           remote_exec.PromQlRemoteExec.__name__]
 esrv.stop()
 ctl.stop()
 cl.stop()
@@ -458,7 +519,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "adaptive": adaptive_rows, "core": core,
                   "longterm": longterm, "objectstore": objrows,
                   "standing": standing, "multiproc": [in_thread, spawned],
-                  "cluster": cluster_rows,
+                  "cluster": cluster_rows, "ha": ha_rows,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -522,4 +583,11 @@ def test_port_loads_no_jax_and_no_reference_module():
     # pushed) equal one store's mesh answer at rtol 2e-5, and a member's
     # mirror is the map
     assert res["cluster"] == ["exec", True, True, True, True]
+    ha = res["ha"]
+    assert ha[:4] == [True, True, True, "done"]
+    assert ha[4] == "c"
+    assert ha[5:9] == [True, True, True, True]
+    assert ha[9] > 12  # the header and the question
+    assert ha[10:] == ["a", [], True, "filodb_hedged_reads",
+                       "migration.plan", "PromQlRemoteExec"]
     assert res["loaded"] == []

@@ -534,7 +534,10 @@ def test_two_process_cluster(tmp_path):
 def test_a_member_answers_cluster_status_from_its_mirror(tmp_path):
     """A member in this process (its own FiloServer) joined through
     ``seeds``: its ``/api/v1/cluster/{dataset}/status`` is the
-    coordinator's map; the shard commands answer 501 naming §A.12."""
+    coordinator's map; the coordinator answers the shard commands as the
+    reference's does (no shards named: none started; ``shardmap``: each
+    shard's node and covered offset; ``migrate`` without a shard: 400),
+    and a member, which holds no cluster, 404 for them."""
     reset_breakers()
     exec_port = free_port()
     base = {"wal_dir": str(tmp_path / "wal"), "http_port": 0,
@@ -565,14 +568,23 @@ def test_a_member_answers_cluster_status_from_its_mirror(tmp_path):
         assert got == want
         assert {e["node"] for e in want["data"]} == {"coord", "member"}
         assert member.services == {}  # a member serves no query API
-        for cmd in ("startshards", "shardmap", "migrate"):
+        assert _get(coord.http.port, f"/api/v1/cluster/{DS}/startshards") \
+            == {"status": "success", "data": []}
+        shardmap = _get(coord.http.port, f"/api/v1/cluster/{DS}/shardmap")
+        assert [(e["shard"], e["node"]) for e in
+                shardmap["data"]["shards"]] == \
+            [(e["shard"], e["node"]) for e in want["data"]]
+        assert all("watermark" in e for e in shardmap["data"]["shards"])
+        for port, path, code in (
+                (coord.http.port, "migrate", 400),
+                (member.http.port, "startshards", 404),
+                (member.http.port, "migrate", 404)):
             try:
-                _get(coord.http.port, f"/api/v1/cluster/{DS}/{cmd}")
+                _get(port, f"/api/v1/cluster/{DS}/{path}")
             except urllib.error.HTTPError as e:
-                assert e.code == 501
-                assert "§A.12" in json.loads(e.read())["error"]
+                assert e.code == code, (path, e.code)
             else:
-                raise AssertionError(f"{cmd} answered")
+                raise AssertionError(f"{path} answered")
     finally:
         if member is not None:
             member.shutdown()

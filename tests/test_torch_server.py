@@ -106,10 +106,6 @@ def test_config_loads_the_same_fields(which, tmp_path):
 
 
 UNSUPPORTED = [
-    {"consul": {"host": "127.0.0.1"}},
-    {"enable_failover": True},
-    {"migration": {"auto_rebalance": True}},
-    {"replication": {"n_replicas": 1}},
     {"wal_remote": "127.0.0.1:9092"},
     {"wal_kafka": "127.0.0.1:9092"},
     {"wal_server_port": 9093},
@@ -123,9 +119,14 @@ UNSUPPORTED = [
 # store came, ``store.backend``; since the standing queries came,
 # ``rules.groups`` and ``selfmon.enabled``; since the multi-process mesh
 # runtime came, ``mesh_workers`` and the retry and breaker keys of
-# ``resilience``); until then ``test_unsupported_options_raise`` held that
-# each of them raised
+# ``resilience``; since high availability came, ``consul``,
+# ``enable_failover``, ``migration`` and ``replication``); until then
+# ``test_unsupported_options_raise`` held that each of them raised
 ACTED_ON = [
+    {"consul": {"host": "127.0.0.1", "port": 1}},
+    {"enable_failover": True},
+    {"migration": {"auto_rebalance": True}},
+    {"replication": {"n_replicas": 1}},
     {"store": {"backend": "object"}},
     {"datasets": {DS: {"downsample": {"resolutions_ms": [300000]}}}},
     {"federation": {"mem_retention_ms": 60000}},
@@ -174,6 +175,20 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
     cfg.check_supported()
     srv = FiloServer(cfg, device="cpu").start()
     try:
+        block = next(iter(override))
+        if block == "consul":
+            # no agent answers: the node registers nowhere and, finding
+            # no cluster, forms one
+            assert srv._consul.port == 1 and srv.is_coordinator
+            return
+        if block == "enable_failover":
+            # the coordinator's line in the member registry
+            assert srv._registry().current_coordinator() == cfg.node_name
+            return
+        if block in ("migration", "replication"):
+            assert srv.cluster.auto_rebalance is (block == "migration")
+            assert srv.cluster.replication == (block == "replication")
+            return
         (block, kv), = override.items()
         (key, value), = kv.items()
         if block == "store":
@@ -831,3 +846,47 @@ def test_each_server_serves_a_directory_the_other_wrote(tmp_path, writer,
     finally:
         srv2.shutdown()
 
+
+
+# ---- the cluster's shard commands (filodb_tpu/http/server.py:590-670) --------
+
+CLUSTER_COMMANDS = [
+    ("GET", "shardmap", {}),
+    ("GET", "startshards", {}),
+    ("GET", "migrate", {}),
+    ("GET", "migrate", {"shard": "x"}),
+    ("POST", "migrate", {"shard": "0"}),
+    ("GET", "stopshards", {"shards": "1"}),
+    ("GET", "shardmap", {}),
+    ("GET", "startshards", {"shards": "1", "node": "node-0"}),
+    ("GET", "nonesuch", {}),
+]
+
+
+def test_cluster_commands_answer_as_the_reference(tmp_path):
+    """``startshards``, ``stopshards``, ``shardmap`` and ``migrate`` on a
+    coordinator answer as the reference's: the same codes and bodies (a
+    shard map's entries compared without their covered offsets), and a
+    shard stopped and started again is ACTIVE on both."""
+    with server_pair(SMALL, str(tmp_path), REF) as (ref, port):
+        for method, cmd, q in CLUSTER_COMMANDS:
+            path = f"/api/v1/cluster/{DS}/{cmd}"
+            call = _get if method == "GET" else _post
+            (gc, gb), (wc, wb) = (call(s.http.port, path, **q)
+                                  for s in (port, ref))
+            assert gc == wc, (cmd, q, gb, wb)
+            got, want = json.loads(gb), json.loads(wb)
+            if cmd == "shardmap":
+                assert got["data"]["tenants"] == want["data"]["tenants"]
+                assert [(e["shard"], e["status"], e["node"])
+                        for e in got["data"]["shards"]] == \
+                    [(e["shard"], e["status"], e["node"])
+                     for e in want["data"]["shards"]]
+            else:
+                assert got == want, (cmd, q)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not all(
+                s.cluster.wait_active(DS, 0.05) for s in (ref, port)):
+            time.sleep(0.05)
+        assert [e["status"] for e in port.cluster.shard_statuses(DS)] == \
+            ["active", "active"]

@@ -14,8 +14,9 @@ reference's.
   TestRemoteRead``: for the same store and request the response bytes are
   the reference's, on both fronts; without ``snappy`` they go as
   ``identity``.
-- The 501s that remain: only the cluster's shard commands and migration
-  (ROADMAP §A.12); every route the reference serves on one node answers.
+- No route answers 501 any more: every route the reference serves on one
+  node answers, and without a cluster the shard commands and migration
+  answer 404 and ``shardmap`` the store's shards, as the reference's do.
 """
 
 from __future__ import annotations
@@ -327,7 +328,7 @@ def test_request_decode_is_the_references():
          for f in want[0]["filters"]]
 
 
-# ---- what still answers 501 ------------------------------------------------------
+# ---- nothing answers 501 ------------------------------------------------------------
 
 
 SERVED = ["/api/v1/rules", "/api/v1/alerts", "/api/v1/status/tsdb",
@@ -348,10 +349,17 @@ def test_only_the_multi_node_routes_answer_501(stores):
         code, _, _ = _call(port, f"/promql/{DS}/api/v1/read",
                            _read_request(0, 1, [(0, "__name__", "x")]))
         assert code == 200
+        # since high availability came none answers 501: without a
+        # cluster the shard commands and migrate answer 404 and the
+        # shardmap the store's shards, as the reference's do
         for path in A7:
             code, _, body = _call(port, path)
-            assert code == 501, path
-            assert "A.12" in json.loads(body)["error"]
+            want = 200 if path.endswith("shardmap") else 404
+            assert code == want, (path, code)
+            if code == 200:
+                assert [e["shard"] for e in
+                        json.loads(body)["data"]["shards"]] == \
+                    list(range(len(stores[1].shards)))
     finally:
         port.stop()
     assert os.environ.get("FILODB_SIDECARS") is None
