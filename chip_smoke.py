@@ -370,6 +370,29 @@ checks it, phase by phase; any failed phase exits non-zero:
    launches (the leader's before its kill), each above 0
    (``launches_phase23``: their sum).
 
+24. The remote log and the remote store on the card (after phase 23): a
+   ``LogServer`` and a ``ChunkStoreServer`` (``spawn_tiers``), each a
+   process of its own with no card visible, each over a directory of its
+   own; the first ``REMOTE_SERIES`` series of the phase-2 generator
+   (``REMOTE_SERIES_ALONE`` under ``--remote-only``; ``--remote-series``
+   sets it), 720 samples at 10 s, appended in the gateway's
+   512-record containers through ``RemoteLog.append``. A node
+   (``FiloServer`` in this process, on the card) with ``wal_remote`` and
+   ``store_remote``, 4 shards, spread 1. Step 1: every shard ACTIVE and
+   at the log's head. Step 2: ``flush_all`` over the wire (seconds,
+   requests, bytes). Step 3: ``CLUSTER_QUERIES`` at phase 3's grid
+   through the node's HTTP API, first and warm ``REMOTE_WARM`` times;
+   B3 against its plain version on the node's batch, B1 and B2 bitwise
+   on every decode chunk of the ``sum_over_time`` and ``count_over_time``
+   leaves and their answers (B4's) against plain decode and the float64
+   function. Step 4: the node shut down and booted again with the same
+   config: the seconds to ACTIVE, the recovery's and the page-in's
+   requests and bytes, the first answer's ms, every answer byte-equal to
+   step 3's. Step 5: the same containers through a ``FakeKafkaBroker``
+   process and a node with ``wal_kafka``: every answer byte-equal to step
+   3's. The node's B1-B4 launches in steps 3 and 4, behind the HTTP API,
+   each above 0 (``launches_phase24``).
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
@@ -379,7 +402,8 @@ phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 ``--objectstore-only``: phases 1 and 19; ``--rules-only``: phases 1, 2,
 11 and 20; ``--multiproc-only``: phases 1, 2, 21 step 1, 11 and 21 step
 2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale;
-``--ha-only``: phases 1 and 23, ``--ha-series`` its scale).
+``--ha-only``: phases 1 and 23, ``--ha-series`` its scale;
+``--remote-only``: phases 1 and 24, ``--remote-series`` its scale).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -6212,17 +6236,23 @@ CLUSTER_QUERIES = (
 CLUSTER_RECOVERY_RTOL = 1e-9  # the first full answer after the kill
 
 
-def cluster_wal(wal_root: str, n: int, samples: int, seed: int) -> dict:
+def cluster_wal(wal_root: str | None, n: int, samples: int, seed: int,
+                open_log=None) -> dict:
     """The phase's data as the gateway writes it: the first ``n`` series
     of the phase-2 generator, ``samples`` scrapes of every series, each
     shard's records in containers of ``CORE_CONTAINER`` (the gateway's
     flush_every) appended to its ``SegmentedFileLog`` under
-    ``<wal_root>/<dataset>/shard-<s>`` (the node's layout). A store of the
-    first sample gives each shard's keys in their order (the templates of
-    phase 17, patched a scrape at a time)."""
+    ``<wal_root>/<dataset>/shard-<s>`` (the node's layout), or to the log
+    ``open_log(shard)`` gives. A store of the first sample gives each
+    shard's keys in their order (the templates of phase 17, patched a
+    scrape at a time)."""
     from filodb_tpu_torch.core.record import BytesContainer
     from filodb_tpu_torch.kafka.log import SegmentedFileLog
 
+    if open_log is None:
+        def open_log(s):
+            return SegmentedFileLog(str(Path(wal_root) / NODE_DS
+                                        / f"shard-{s}"))
     t = time.perf_counter()
     labels, ts, vals = make_series(np.random.default_rng(seed), 0, n,
                                    samples)
@@ -6232,7 +6262,7 @@ def cluster_wal(wal_root: str, n: int, samples: int, seed: int) -> dict:
     for s, tmpl in enumerate(scrape_templates(first)):
         row = np.array([int(k.label_map["instance"].rsplit("-", 1)[1])
                         for k in tmpl["keys"]], np.int64)
-        lg = SegmentedFileLog(str(Path(wal_root) / NODE_DS / f"shard-{s}"))
+        lg = open_log(s)
         for j in range(samples):
             _patch(tmpl["buf"], tmpl["ts_off"], ts[row, j])
             _patch(tmpl["buf"], tmpl["val_off"], vals[row, j])
@@ -6977,6 +7007,365 @@ def ha_phase(dev, args) -> dict:
     return out
 
 
+# phase 24's series in the full smoke, cut from phase 11's 25,000 for the
+# smoke's limit (phase 24 took 210.2 s at 25,000 on the card; PERF.md §4);
+# under --remote-only 25,000; --remote-series sets it
+REMOTE_SERIES = 10_000
+REMOTE_SERIES_ALONE = 25_000
+REMOTE_WARM = 3          # warm runs of each query in step 3
+KAFKA_BATCH = 16         # containers a Produce request (~1 MB)
+# the chip_smoke's own scripts for the tiers' processes: each serves one
+# directory (or, the broker, memory) on a free port and prints it
+_TIER_SCRIPTS = {
+    "log": "from filodb_tpu_torch.kafka.log_server import LogServer\n"
+           "srv = LogServer(sys.argv[1]).start()\n",
+    "store": "from filodb_tpu_torch.core.store.remotestore import "
+             "ChunkStoreServer\n"
+             "srv = ChunkStoreServer(root=sys.argv[1]).start()\n",
+    "kafka": "from filodb_tpu_torch.kafka.kafka_protocol import "
+             "FakeKafkaBroker\n"
+             "srv = FakeKafkaBroker().start()\n"
+             "srv.create_topic(sys.argv[2], int(sys.argv[3]))\n",
+}
+# the chunk-store requests of a flush, a recovery and a page-in
+REMOTE_OPS = ("write_chunks", "write_pks", "write_cp", "write_snap",
+              "scan_pks", "scan_pks_since", "read_cps", "read_snap",
+              "max_ts", "max_ts_since", "tokens", "read_chunks",
+              "initialize")
+
+
+class KafkaProducer:
+    """A topic partition's producer for ``cluster_wal``: containers sent
+    ``KAFKA_BATCH`` a Produce request, as a Kafka client batches them."""
+
+    def __init__(self, host: str, port: int, topic: str, partition: int):
+        from filodb_tpu_torch.kafka.kafka_protocol import KafkaProtocolClient
+
+        self.client = KafkaProtocolClient(host, port, "chip-smoke")
+        self.topic, self.partition = topic, partition
+        self.pending: list = []
+
+    def append(self, container) -> None:
+        self.pending.append((None, container.serialize()))
+        if len(self.pending) >= KAFKA_BATCH:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.pending:
+            self.client.produce(self.topic, self.partition, self.pending)
+            self.pending = []
+
+    def close(self) -> None:
+        self.flush()
+        self.client.close()
+
+
+def spawn_tiers(kinds: dict, logs: Path) -> list:
+    """Each tier's server (``_TIER_SCRIPTS[kind]``, over the directory
+    ``kinds[kind]``) in a process of its own with no card visible, all
+    started at once; [(the process, its port)] in ``kinds``' order. A
+    server that does not print its port within 120 s fails the phase."""
+    import os
+
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "",
+           "PYTHONPATH": os.pathsep.join(
+               p for p in (str(ROOT), os.environ.get("PYTHONPATH")) if p)}
+    procs = {}
+    for kind, root in kinds.items():
+        root.mkdir(parents=True, exist_ok=True)
+        script = ("import sys, time\n" + _TIER_SCRIPTS[kind]
+                  + "print(srv.port, flush=True)\n"
+                  "while True:\n    time.sleep(3600)\n")
+        procs[kind] = subprocess.Popen(
+            [sys.executable, "-c", script, str(root), NODE_DS, "4"],
+            cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=open(logs / f"{kind}.log", "w"), text=True, env=env)
+    out, failed = [], None
+    for kind, proc in procs.items():
+        box: list = []
+        reader = threading.Thread(target=lambda: box.append(
+            proc.stdout.readline()), daemon=True)
+        reader.start()
+        reader.join(timeout=120)
+        line = box[0].strip() if box else ""
+        out.append((proc, int(line) if line.isdigit() else None))
+        if failed is None and not line.isdigit():
+            failed = kind
+    if failed is not None:
+        for proc, _ in out:
+            proc.kill()
+            proc.wait(timeout=60)
+        raise AssertionError(f"phase 24: the {failed} server did not "
+                             f"start: {_tail(logs / f'{failed}.log')}")
+    return out
+
+
+def _wire(ops=REMOTE_OPS) -> dict:
+    """{op: [requests, bytes sent, bytes received]} of the chunk-store
+    client in this process."""
+    from filodb_tpu_torch.core.store.remotestore import wire_counters
+
+    return {op: [c.value for c in wire_counters(op)] for op in ops}
+
+
+def _wire_delta(before: dict) -> dict:
+    """What moved since ``before``, summed: requests, bytes both ways, and
+    each op's requests."""
+    now = _wire()
+    d = {op: [a - b for a, b in zip(now[op], before[op])] for op in now}
+    return {"requests": sum(v[0] for v in d.values()),
+            "bytes_sent": sum(v[1] for v in d.values()),
+            "bytes_received": sum(v[2] for v in d.values()),
+            "by_op": {op: v[0] for op, v in d.items() if v[0]}}
+
+
+def remote_config(root: Path, name: str, **keys) -> str:
+    """A node's config for phase 24: phase 22's store shape, no flush
+    before the phase ends, the extent and response caches off (each HTTP
+    query is evaluated), the smoke's deadline, and ``keys`` (the remote
+    tiers' addresses)."""
+    path = root / f"{name}.json"
+    path.write_text(json.dumps({
+        "node_name": name, "data_dir": str(root / name), "http_port": 0,
+        "gateway_port": 0,
+        "resilience": {"query_timeout_s": SMOKE_TIMEOUT_S},
+        "result_cache": {"enabled": False}, "http_response_cache": False,
+        "datasets": {NODE_DS: {
+            "num_shards": 4, "spread": 1, "engine": "mesh",
+            "store": {"max_chunk_size": 400, "groups_per_shard": 20,
+                      "flush_interval_ms": 6_000_000, "max_query_matches": 0,
+                      "retention_ms": NODE_RETENTION_MS}}},
+        **keys}))
+    return str(path)
+
+
+def remote_boot(path: str, dev, what: str) -> tuple:
+    """A node over the config at ``path``, waited on until every shard is
+    ACTIVE and every ingest worker is at its log's head; (the node, the
+    seconds to ACTIVE, the seconds to the head)."""
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.standalone import FiloServer
+
+    t = time.perf_counter()
+    srv = FiloServer(ServerConfig.load(path), device=dev).start()
+    try:
+        if not srv.cluster.wait_active(NODE_DS, timeout=SMOKE_TIMEOUT_S):
+            raise AssertionError(f"phase 24: {what}: shards not ACTIVE: "
+                                 f"{srv.cluster.shard_statuses(NODE_DS)}")
+        active = time.perf_counter() - t
+        workers = [w for k, w in srv.node._workers.items()
+                   if k[0] == NODE_DS]
+        heads = [w.log.latest_offset for w in workers]
+        while any(w.offset < h for w, h in zip(workers, heads)):
+            if time.perf_counter() - t > SMOKE_TIMEOUT_S:
+                raise AssertionError(f"phase 24: {what}: not at the log's "
+                                     f"head")
+            time.sleep(0.01)
+    except BaseException:
+        srv.shutdown()
+        raise
+    return srv, active, time.perf_counter() - t
+
+
+def _remote_ask(port: int, q: str, what: str) -> tuple[str, float]:
+    """One query at phase 3's grid through the node's HTTP API: (its
+    body's data, without the query stats; ms)."""
+    code, body, ms = http_get(port, f"/promql/{NODE_DS}/api/v1/query_range",
+                              query=q, start=T0_MS // 1000, end=END_S,
+                              step=60)
+    if code != 200 or '"partial":true' in body:
+        raise AssertionError(f"phase 24: {what}: {q}: HTTP {code}: "
+                             f"{body[:300]}")
+    return body_data(body), ms
+
+
+def remote_phase(dev, args) -> dict:
+    """Phase 24 (see the module's text)."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.kafka.log_server import RemoteLog
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    t_phase = time.perf_counter()
+    n = min(args.remote_series, args.series)
+    root = Path(tempfile.mkdtemp(prefix="filodb-remote-"))
+    log(f"phase 24: the remote log and the remote store: a log server and "
+        f"a chunk-store server, each a process of its own, under {root}; "
+        f"the node on the card")
+    out = {"series": n}
+    procs, srv = [], None
+    try:
+        t = time.perf_counter()
+        procs += spawn_tiers({"log": root / "broker",
+                              "store": root / "tier"}, root)
+        (_, log_port), (_, store_port) = procs
+        out["servers_up_s"] = time.perf_counter() - t
+
+        # the data: RemoteLog.append into the log server's partitions
+        def remote_log(s):
+            return RemoteLog("127.0.0.1", log_port, NODE_DS, s)
+
+        out["wal"] = cluster_wal(None, n, args.samples, args.seed,
+                                 open_log=remote_log)
+        log(f"  servers up in {out['servers_up_s']:.1f} s; "
+            f"{out['wal']['records']} records of {n} series appended "
+            f"through RemoteLog ({out['wal']['bytes'] / 1e9:.2f} GB, "
+            f"{out['wal']['seconds']:.1f} s)")
+
+        # step 1: the node ingests from the log server to the log's head
+        conf = remote_config(root, "node",
+                             wal_remote=f"127.0.0.1:{log_port}",
+                             store_remote=f"127.0.0.1:{store_port}")
+        _build.reset_counts()
+        wire0 = _wire()
+        srv, active_s, head_s = remote_boot(conf, dev, "boot 1")
+        out["boot1"] = {"active_s": active_s, "head_s": head_s,
+                        "wire": _wire_delta(wire0)}
+        log(f"  step 1: every shard ACTIVE {active_s:.1f} s after start(), "
+            f"at the log's head at {head_s:.1f} s")
+
+        # step 2: flush_all over the wire
+        wire0 = _wire()
+        t = time.perf_counter()
+        chunks = srv.node.memstores[NODE_DS].flush_all()
+        out["flush"] = {"chunks": chunks,
+                        "seconds": time.perf_counter() - t,
+                        **_wire_delta(wire0)}
+        f = out["flush"]
+        log(f"  step 2: flush_all: {chunks} chunks in {f['seconds']:.1f} s, "
+            f"{f['requests']} requests, {f['bytes_sent'] / 1e6:.1f} MB "
+            f"sent ({f['by_op']})")
+
+        # step 3: phase 22's queries at phase 3's grid, cold and warm;
+        # B1-B4 against their plain versions on the node's batches
+        _build.reset_counts()
+        bodies, out["queries"] = {}, {}
+        for q, _ in CLUSTER_QUERIES:
+            runs = []
+            for _ in range(1 + REMOTE_WARM):
+                body, ms = _remote_ask(srv.http.port, q, "step 3")
+                runs.append(ms)
+            bodies[q] = body
+            out["queries"][q] = {"first_ms": runs[0],
+                                 "warm_p50_ms": float(np.median(runs[1:])),
+                                 "body_bytes": len(body)}
+            log(f"  step 3: {q}: first {runs[0]:.1f} ms, warm p50 "
+                f"{out['queries'][q]['warm_p50_ms']:.2f} ms")
+        launches = dict(_build.LAUNCHES)
+        svc = srv.services[NODE_DS]
+        start, end = T0_MS // 1000, END_S
+        q_rate = CLUSTER_QUERIES[0][0]
+        q_sum, q_count = CLUSTER_QUERIES[2][0], CLUSTER_QUERIES[3][0]
+
+        def answer(q):
+            return svc._execute_uncached(parse_query(
+                q, TimeStepParams(start, 60, end))).result
+
+        with svc.lock:
+            out["plain_rate"] = rate_against_plain(svc, q_rate, start, end,
+                                                   answer(q_rate))
+            out["plain_decode"] = {
+                q: decoded_against_plain(svc, q, start, end, answer(q))
+                for q in (q_sum, q_count)}
+        _build.LAUNCHES.update(launches)  # the checks' launches not counted
+        log(f"  {q_rate}: B3 against its plain version "
+            f"({out['plain_rate']['shape']}, max abs err "
+            f"{out['plain_rate']['max_abs_err']}); {q_sum} and {q_count}: "
+            f"B1/B2 bitwise on every chunk, the answers (B4's) equal to "
+            f"plain decode and the float64 function")
+
+        # step 4: shut down, boot again with the same config: the index,
+        # part keys and checkpoints from the chunk store, chunks paged in
+        # by read_chunks requests
+        srv.shutdown()
+        srv = None
+        wire0 = _wire()
+        srv, active_s, head_s = remote_boot(conf, dev, "boot 2")
+        recovery = _wire_delta(wire0)
+        wire0 = _wire()
+        out["restart"] = {"active_s": active_s, "head_s": head_s,
+                          "recovery_wire": recovery, "queries": {}}
+        # the widest window first: its page-in covers the others' ranges
+        # (the ODP cache's coverage), one read_chunks request a part key
+        for q, _ in sorted(CLUSTER_QUERIES, key=lambda e: "[10m]" not in
+                           e[0]):
+            body, ms = _remote_ask(srv.http.port, q, "step 4")
+            if body != bodies[q]:
+                raise AssertionError(f"phase 24: {q} after the restart "
+                                     f"differs from step 3's answer")
+            out["restart"]["queries"][q] = {"first_ms": ms}
+            out["restart"].setdefault("first_answer", {"query": q,
+                                                       "ms": ms})
+        out["restart"]["page_in_wire"] = _wire_delta(wire0)
+        for k in launches:
+            launches[k] = _build.LAUNCHES[k]
+        r = out["restart"]
+        log(f"  step 4: restart: every shard ACTIVE {active_s:.1f} s after "
+            f"start() (recovery: {recovery['requests']} requests, "
+            f"{recovery['bytes_received'] / 1e6:.1f} MB received, "
+            f"{recovery['by_op']}); the first answer "
+            f"({r['first_answer']['query']}) {r['first_answer']['ms']:.1f} "
+            f"ms; page-in "
+            f"{r['page_in_wire']['requests']} requests, "
+            f"{r['page_in_wire']['bytes_received'] / 1e6:.1f} MB; every "
+            f"answer bitwise step 3's")
+        srv.shutdown()
+        srv = None
+        out["launches"] = launches
+        log(f"  launches of the remote-backed node (steps 3 and 4, behind "
+            f"the HTTP API): {launches}")
+        if dev.type == "cuda":
+            missing = [k for k, v in launches.items() if v <= 0]
+            if missing:
+                raise AssertionError(f"phase 24: the remote-backed node did "
+                                     f"not launch {missing}")
+
+        # step 5: the same series through a Kafka broker's partitions
+        t = time.perf_counter()
+        procs += spawn_tiers({"kafka": root / "kafka"}, root)
+        kafka_port = procs[-1][1]
+
+        def kafka_log(s):
+            return KafkaProducer("127.0.0.1", kafka_port, NODE_DS, s)
+
+        out["kafka"] = {"wal": cluster_wal(None, n, args.samples, args.seed,
+                                           open_log=kafka_log)}
+        conf_k = remote_config(root, "kafka-node",
+                               wal_kafka=f"127.0.0.1:{kafka_port}")
+        srv, active_s, head_s = remote_boot(conf_k, dev, "the Kafka node")
+        out["kafka"].update({"active_s": active_s, "head_s": head_s,
+                             "queries": {}})
+        for q, _ in CLUSTER_QUERIES:
+            body, ms = _remote_ask(srv.http.port, q, "step 5")
+            if body != bodies[q]:
+                raise AssertionError(f"phase 24: {q} over the Kafka log "
+                                     f"differs from step 3's answer")
+            out["kafka"]["queries"][q] = {"first_ms": ms}
+        srv.shutdown()
+        srv = None
+        out["kafka"]["seconds"] = time.perf_counter() - t
+        log(f"  step 5: the same series through a FakeKafkaBroker process "
+            f"({out['kafka']['wal']['seconds']:.1f} s to produce), a node "
+            f"with wal_kafka at the log's head {head_s:.1f} s after "
+            f"start(); every answer bitwise step 3's")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        for proc, _ in procs:
+            proc.terminate()
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=30)
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache() if dev.type == "cuda" else None
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 24 took {out['seconds']:.1f} s")
+    return out
+
+
 def _tail(path, n: int = 3000) -> str:
     try:
         return Path(path).read_text()[-n:]
@@ -7236,6 +7625,14 @@ def main() -> int:
                     "two member processes: followers, hedged reads, a "
                     "leader killed and its followers promoted, a live "
                     "migration, the HA planner)")
+    ap.add_argument("--remote-series", type=int, default=None,
+                    help=f"phase 24's series, the first of the phase-2 "
+                    f"generator ({REMOTE_SERIES}, or {REMOTE_SERIES_ALONE} "
+                    f"under --remote-only)")
+    ap.add_argument("--remote-only", action="store_true",
+                    help="build and run phase 24 only (a node on the card "
+                    "over a log server and a chunk-store server in "
+                    "processes of their own, then over a Kafka broker)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
@@ -7248,6 +7645,9 @@ def main() -> int:
             else CLUSTER_SERIES
     if args.ha_series is None:
         args.ha_series = HA_SERIES_ALONE if args.ha_only else HA_SERIES
+    if args.remote_series is None:
+        args.remote_series = REMOTE_SERIES_ALONE if args.remote_only \
+            else REMOTE_SERIES
 
     import torch
 
@@ -7295,6 +7695,11 @@ def _phases(args, smi) -> int:
         return 0
     if args.ha_only:
         print(json.dumps({"ha": ha_phase(torch.device("cuda"), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
+    if args.remote_only:
+        print(json.dumps({"remote": remote_phase(torch.device("cuda"),
+                                                 args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
     if args.exec_only:
@@ -7467,6 +7872,9 @@ def _rest(args, smi, kernels, svc) -> int:
     torch.cuda.empty_cache()
     ha = ha_phase(torch.device("cuda"), args)
     print(json.dumps({"ha": ha}))
+    torch.cuda.empty_cache()
+    remote = remote_phase(torch.device("cuda"), args)
+    print(json.dumps({"remote": remote}))
     for kern in kernels:
         kern["launches_phase7"] = promql["launches"][kern["name"]]
         kern["launches_phase8"] = hist["launches"][kern["name"]]
@@ -7489,6 +7897,8 @@ def _rest(args, smi, kernels, svc) -> int:
         # the coordinator's and both members'
         kern["launches_phase23"] = sum(
             counts[kern["name"]] for counts in ha["launches"].values())
+        # the remote-backed node's, behind its HTTP API
+        kern["launches_phase24"] = remote["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,9 +7,10 @@ blocks into ``IngestionConfig``\\ s), so one file loads to the same values
 in both packages.
 
 The port boots a coordinator node, or with ``seeds`` a member that
-joins the first seed that answers (``standalone.py``). Options whose
-modules it does not have yet raise ``NotImplementedError`` naming their
-ROADMAP item when set away from their default (``UNPORTED``).
+joins the first seed that answers (``standalone.py``). Store options
+whose modules it does not have yet raise ``NotImplementedError`` naming
+their ROADMAP item when set away from their default
+(``StoreConfig.check_supported``).
 ``result_cache``, ``http_response_cache``, ``governor``, ``resilience``
 (the query timeout, the retry policy, the circuit breakers and partial
 scatter-gather), ``cost_model``,
@@ -25,7 +26,10 @@ sampler and the default alert group), ``migration`` (live migrations,
 ``auto_rebalance``), ``replication`` (followers a shard, hedged reads),
 ``consul`` (seed discovery and election through a Consul agent) and
 ``enable_failover`` (a member promotes itself when the coordinator is
-lost) are acted on, in any form the reference takes;
+lost), ``wal_remote`` / ``wal_server_port`` (the networked log and its
+broker), ``wal_kafka`` (a Kafka broker's topic partitions as the WAL)
+and ``store_remote`` / ``store_server_port`` (the chunk-store client and
+server) are acted on, in any form the reference takes;
 a dataset's ``engine`` is ``mesh``, ``adaptive`` or ``exec``.
 """
 
@@ -182,17 +186,6 @@ DEFAULTS = {
     },
 }
 
-# option → why it raises set away from its default: its module is not
-# ported (the ROADMAP item that ports it)
-UNPORTED = {
-    "wal_remote": "the networked log (ROADMAP §A.12)",
-    "wal_kafka": "the Kafka log (ROADMAP §A.12)",
-    "wal_server_port": "the log server (ROADMAP §A.12)",
-    "store_remote": "the remote column store (ROADMAP §A.12)",
-    "store_server_port": "the column-store server (ROADMAP §A.12)",
-}
-
-
 @dataclass
 class ServerConfig:
     node_name: str = "node-0"
@@ -281,13 +274,9 @@ class ServerConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for an option the port does not
-        have, set away from its default (``UNPORTED``,
-        ``StoreConfig.check_supported``), or an unknown front end or
-        engine."""
-        for opt, why in UNPORTED.items():
-            if _get(self, opt) != _default(opt):
-                raise NotImplementedError(
-                    f"{opt}={_get(self, opt)!r}: {why}")
+        have (``StoreConfig.check_supported``, mesh workers over a
+        durable tier they cannot recover from), or an unknown front end
+        or engine."""
         if (self.mesh_workers or {}).get("enabled") \
                 and self.store.get("backend", "local") != "local" \
                 and not (self.mesh_workers or {}).get("seed"):
@@ -304,17 +293,6 @@ class ServerConfig:
                 raise ValueError(f"dataset {name}: engine "
                                  f"{self.engines[name]!r}: one of "
                                  f"{', '.join(ENGINES)}")
-
-
-def _get(cfg: ServerConfig, opt: str):
-    head, _, rest = opt.partition(".")
-    v = getattr(cfg, head)
-    return v.get(rest, _default(opt)) if rest else v
-
-
-def _default(opt: str):
-    head, _, rest = opt.partition(".")
-    return DEFAULTS[head][rest] if rest else DEFAULTS[head]
 
 
 def _deep_merge(base: dict, over: dict) -> None:

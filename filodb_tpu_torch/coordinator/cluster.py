@@ -707,7 +707,14 @@ class FilodbCluster:
             cands = [n for n, nd in self.nodes.items()
                      if isinstance(nd, Node) and nd.alive and n != owner
                      and n not in have]
-            cands.sort(key=lambda n: len(sm.mapper.follower_shards(n)))
+            # a member's load counts the followers it is still
+            # bootstrapping: counted from the map alone, every member ties
+            # at 0 in a pass that fills many shards, the order of joins
+            # decides, and a rejoined member gets no slot (§C.17)
+            cands.sort(key=lambda n: len(
+                set(sm.mapper.follower_shards(n))
+                | {s for (d, s, m) in self.replica_syncers
+                   if d == dataset and m == n}))
             for name in cands[:need]:
                 sy = ReplicaSyncer(
                     self.nodes[name], dataset, shard,

@@ -44,6 +44,21 @@ member it serves no query API, rules, downsampling, federation,
 self-monitoring or mesh workers. Nodes of one cluster share the logs'
 directory (``wal_dir``).
 
+The remote tiers, as the reference's node wires them (``:55-81,
+118-129, 316-326``): ``store_remote`` ("host:port") puts the column and
+meta stores behind a chunk-store server (``core/store/remotestore.py``);
+``store_server_port`` serves this node's own stores on that port.
+``wal_kafka`` makes each shard's log a Kafka broker's topic partition
+(``kafka/kafka_protocol.py``), else ``wal_remote`` a log server's
+(``kafka/log_server.py``); ``wal_server_port`` serves this node's WAL
+directory as a log server, and its own shards then go through it too.
+Every reader and writer of a shard's log (the ingest worker, a
+follower's tail, the gateway, the rules' and the self-monitor's sinks)
+takes it from ``_shard_log``. Mesh workers tail the WAL directory
+whatever these keys say, as the reference's do: beside a log server in
+another process they find no records (``wal_server_port`` on this node
+serves that directory, so there they do).
+
 Discovery and failover, as the reference's node does them
 (``:342-392, 748-800``): with ``consul`` the node registers its executor
 port with the agent first, then, without ``seeds``, joins a discovered
@@ -142,11 +157,18 @@ from filodb_tpu_torch.core.store.localstore import (
 # imported whatever the backend, so the filodb_objectstore_* metric
 # families are registered at boot, as the reference's node registers them
 from filodb_tpu_torch.core.store.objectstore import open_object_store
+from filodb_tpu_torch.core.store.remotestore import (
+    ChunkStoreServer,
+    RemoteColumnStore,
+    RemoteMetaStore,
+)
 from filodb_tpu_torch.device import resolve
 from filodb_tpu_torch.gateway.server import ContainerSink, GatewayServer
 from filodb_tpu_torch.http.fastserver import FastHttpServer
 from filodb_tpu_torch.http.server import FiloHttpServer
-from filodb_tpu_torch.kafka.log import SegmentedFileLog
+from filodb_tpu_torch.kafka.kafka_protocol import KafkaReplayLog
+from filodb_tpu_torch.kafka.log import ReplayLog, SegmentedFileLog
+from filodb_tpu_torch.kafka.log_server import LogServer, RemoteLog
 # imported whatever the config, so the filodb_rules_* and filodb_alerts_*
 # families are registered at boot, as the reference's node registers them
 from filodb_tpu_torch.rules import LogSink, RuleManager, load_groups
@@ -164,16 +186,28 @@ class FiloServer:
         tracing.configure(**config.tracing)
         self.device = resolve(device)
         os.makedirs(config.data_dir, exist_ok=True)
-        if config.store.get("backend") == "object":
-            self.column_store, self.meta_store = open_object_store(
-                config.store, config.data_dir)
+        self.store_server = None     # the chunk-store server's role
+        self.log_server = None       # the log broker's role
+        if config.store_remote:
+            # the durable tier behind a chunk-store server
+            host, port = config.store_remote.rsplit(":", 1)
+            self.column_store = RemoteColumnStore(host, int(port))
+            self.meta_store = RemoteMetaStore(host, int(port))
         else:
-            root = os.path.join(config.data_dir, "columnstore")
-            self.column_store = LocalDiskColumnStore(root)
-            self.meta_store = LocalDiskMetaStore(root)
+            if config.store.get("backend") == "object":
+                self.column_store, self.meta_store = open_object_store(
+                    config.store, config.data_dir)
+            else:
+                root = os.path.join(config.data_dir, "columnstore")
+                self.column_store = LocalDiskColumnStore(root)
+                self.meta_store = LocalDiskMetaStore(root)
+            if config.store_server_port:
+                self.store_server = ChunkStoreServer(
+                    host="0.0.0.0", port=config.store_server_port,
+                    backing=self.column_store, meta=self.meta_store).start()
         self.node = Node(config.node_name, self.column_store, self.meta_store)
         self.cluster = FilodbCluster()
-        self.logs: dict[tuple[str, int], SegmentedFileLog] = {}
+        self.logs: dict[tuple[str, int], ReplayLog] = {}
         self.services: dict = {}
         self.http = None
         self.gateway: GatewayServer | None = None
@@ -208,15 +242,36 @@ class FiloServer:
                                                    "wal")
         return os.path.join(root, dataset, f"shard-{shard}")
 
-    def _shard_log(self, dataset: str, shard: int) -> SegmentedFileLog:
+    def _shard_log(self, dataset: str, shard: int) -> ReplayLog:
+        """The shard's log, one a shard for every reader and writer of
+        this node: a Kafka broker's topic partition (``wal_kafka``), a log
+        server's (``wal_remote``), else the file log in the WAL
+        directory."""
         key = (dataset, shard)
         if key not in self.logs:
-            self.logs[key] = SegmentedFileLog(self._wal_path(dataset, shard),
-                                              fsync=self.config.wal_fsync)
+            if self.config.wal_kafka:
+                host, port = self.config.wal_kafka.rsplit(":", 1)
+                self.logs[key] = KafkaReplayLog(host, int(port), dataset,
+                                                shard)
+            elif self.config.wal_remote:
+                host, port = self.config.wal_remote.rsplit(":", 1)
+                self.logs[key] = RemoteLog(host, int(port), dataset, shard)
+            else:
+                self.logs[key] = SegmentedFileLog(
+                    self._wal_path(dataset, shard),
+                    fsync=self.config.wal_fsync)
         return self.logs[key]
 
     def start(self) -> "FiloServer":
         cfg = self.config
+        if cfg.wal_server_port:
+            # the broker's role: this node's WAL directory over TCP, and
+            # its own shards through the server too (one owner a file)
+            self.log_server = LogServer(
+                cfg.wal_dir or os.path.join(cfg.data_dir, "wal"),
+                port=cfg.wal_server_port).start()
+            if not cfg.wal_remote:
+                cfg.wal_remote = f"127.0.0.1:{self.log_server.port}"
         # the services the executor port runs shipped plans on: the
         # coordinator's query services, a member's exec-only ones
         executed: dict = {}
@@ -850,12 +905,14 @@ class FiloServer:
             cluster.on_heartbeat.append(
                 lambda n=dataset: poll_remote_statuses(cluster, n))
         self.cluster = cluster
-        self.is_coordinator = True
         if self.http is not None:
             self.http.cluster = cluster
         cluster.start_failure_detector()
         self._registry().register("coord", cfg.node_name, self.node.host,
                                   self.executor.port)
+        # last, as the reference: a reader that sees the flag sees the
+        # registry name this node (§C.18)
+        self.is_coordinator = True
 
     def shutdown(self):
         """Stop the self-monitor and the rule managers (before the logs
@@ -885,6 +942,8 @@ class FiloServer:
         self.node.kill()
         for lg in self.logs.values():
             lg.close()
+        if self.log_server is not None:
+            self.log_server.stop()
         if self._consul is not None:
             try:
                 self._consul.deregister(self.config.node_name)
@@ -892,6 +951,8 @@ class FiloServer:
                 pass
         for name in self.config.datasets:
             adaptive_planner.persist(name, self.meta_store)
+        if self.store_server is not None:
+            self.store_server.shutdown()
         self.column_store.close()
         self.meta_store.close()
 

@@ -41,7 +41,11 @@ map polled over the wire; and high availability's
 ``kafka/log_server``, the registry and Consul discovery), through
 followers brought in sync, a node lost and its shards promoted, a live
 migration and an HA plan stitching a replica's HTTP answer, each equal
-to the store's. The spawned worker's seed callable, run inside the
+to the store's; and the remote tiers' (``kafka/{log_server,
+kafka_protocol}``, ``core/store/remotestore``), through a node over a
+log server and over a Kafka broker, each with a chunk-store server as
+its durable tier, fed by its gateway and flushed over the wire, and a
+second node on a fresh directory answering from the remote tiers. The spawned worker's seed callable, run inside the
 worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
 both for the rest of its life, so a worker that loaded either never
 answers: the check needs no field of the worker's protocol.
@@ -505,6 +509,67 @@ esrv.stop()
 ctl.stop()
 cl.stop()
 
+# the remote tiers: a node whose WAL is a log server's or a Kafka
+# broker's partitions and whose durable tier is a chunk-store server,
+# fed by its gateway, flushed over the wire, then a second node on a
+# fresh data directory answering from the remote tiers alone
+from filodb_tpu_torch.core.store import remotestore
+from filodb_tpu_torch.kafka import kafka_protocol
+
+
+def _remote_count(rsrv):
+    url = (f"http://127.0.0.1:{rsrv.http.port}/promql/timeseries/api/v1/"
+           "query?query=sum(count_over_time(up[1h]))&time=1600000300")
+    for _ in range(300):
+        if rsrv.gateway is not None:
+            rsrv.gateway.sink.flush()
+        res = json.loads(urllib.request.urlopen(url).read())["data"][
+            "result"]
+        if res and float(res[0]["value"][1]) == 30:
+            return 30
+        time.sleep(0.05)
+    return 0
+
+
+rroot = tempfile.mkdtemp()
+lsrv = log_server.LogServer(rroot + "/broker").start()
+kb = kafka_protocol.FakeKafkaBroker().start()
+kb.create_topic("timeseries", 2)
+remote_rows = []
+for wal in ({"wal_remote": f"127.0.0.1:{lsrv.port}"},
+            {"wal_kafka": f"127.0.0.1:{kb.port}"}):
+    tier = remotestore.ChunkStoreServer(
+        root=f"{rroot}/tier-{len(remote_rows)}").start()
+    conf = {"datasets": {"timeseries": {"num_shards": 2}},
+            "store_remote": f"127.0.0.1:{tier.port}", **wal}
+    row = []
+    for gen in range(2):
+        rsrv = from_jax.boot(standalone.FiloServer,
+                             server_config.ServerConfig, conf,
+                             f"{rroot}/node-{len(remote_rows)}-{gen}",
+                             device="cpu")
+        if gen == 0:
+            with socket.create_connection(("127.0.0.1",
+                                           rsrv.gateway.port)) as s:
+                s.sendall("".join(
+                    f"up,_ws_=w,_ns_=n,i=i{i % 3} value={i} "
+                    f"{(1_600_000_000 + 10 * i) * 10**9}\n"
+                    for i in range(30)).encode())
+        row.append(_remote_count(rsrv))
+        if gen == 0:
+            rsrv.node.memstores["timeseries"].flush_all()
+        row.append(type(rsrv.node.memstores["timeseries"].shards[0]
+                        .column_store).__name__)
+        rsrv.shutdown()
+    probe = remotestore.RemoteColumnStore("127.0.0.1", tier.port)
+    row.append(sum(len(probe.scan_part_keys("timeseries", s_))
+                   for s_ in range(2)))
+    probe.close()
+    tier.shutdown()
+    remote_rows.append(row)
+kb.stop()
+lsrv.stop()
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -520,6 +585,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "longterm": longterm, "objectstore": objrows,
                   "standing": standing, "multiproc": [in_thread, spawned],
                   "cluster": cluster_rows, "ha": ha_rows,
+                  "remote": remote_rows,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -590,4 +656,9 @@ def test_port_loads_no_jax_and_no_reference_module():
     assert ha[9] > 12  # the header and the question
     assert ha[10:] == ["a", [], True, "filodb_hedged_reads",
                        "migration.plan", "PromQlRemoteExec"]
+    # each node answered from the remote log, flushed over the wire,
+    # and a node on a fresh directory answered from the remote tiers;
+    # the three series' part keys are in the chunk store
+    store = "RemoteColumnStore"
+    assert res["remote"] == [[30, store, 30, store, 3]] * 2
     assert res["loaded"] == []

@@ -358,13 +358,21 @@ def test_member_promotes_itself_when_the_coordinator_is_lost(tmp_path):
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline and not member.is_coordinator:
             time.sleep(0.05)
-        assert member.is_coordinator
-        assert reg.current_coordinator() == "member"
-        assert member.cluster.wait_active(DS, 30)
+
+        def state():
+            cl = member.cluster
+            sm = cl.shard_managers.get(DS) if cl is not None else None
+            return (f"map={sm.mapper.snapshot() if sm else None} "
+                    f"registry={reg.current_coordinator()!r} "
+                    f"is_coordinator={member.is_coordinator}")
+
+        assert member.is_coordinator, state()
+        assert reg.current_coordinator() == "member", state()
+        assert member.cluster.wait_active(DS, 30), state()
         sm = member.cluster.shard_managers[DS]
-        assert set(sm.mapper.owners) == {"member"}
+        assert set(sm.mapper.owners) == {"member"}, state()
         after = _ask(member.http.port)
-        assert not after.get("partial")
+        assert not after.get("partial"), (after, state())
         # one node sums what two summed before: the same series and steps,
         # the values to the last bits of float64's order of additions
         got, want = after["data"]["result"], before["data"]["result"]

@@ -364,10 +364,12 @@ class TestKillNodeSoak:
         r = _query(cluster)
         assert not any("served by follower" in w for w in r.warnings)
         np.testing.assert_allclose(r.result.values, baseline, rtol=1e-9)
-        # the rejoin: a follower again, over its warm image
-        cluster.replication = 1
+        # the rejoin: a follower again, over its warm image. node-a is a
+        # member before followers are wanted, so no heartbeat in between
+        # hands every slot to node-b and node-c
         node_a.alive = True
         cluster.join(node_a)
+        cluster.replication = 1
         deadline = time.monotonic() + 30
         while time.monotonic() < deadline:
             if all(sm.mapper.in_sync_followers(s)
@@ -381,6 +383,43 @@ class TestKillNodeSoak:
         np.testing.assert_allclose(_query(cluster).result.values, baseline,
                                    rtol=1e-9)
         assert_no_divergence(cluster, DS, timeout_s=15)
+
+
+class TestFollowerPlacement:
+    """§C.17: one ``ensure_replicas`` pass that fills many shards spreads
+    their followers over the members, counting the syncers still
+    bootstrapping; a member that joined last gets its share."""
+
+    def test_bootstrapping_followers_count_toward_a_members_load(
+            self, monkeypatch):
+        import filodb_tpu_torch.coordinator.cluster as cluster_mod
+
+        # the syncers stay bootstrapping: none reports into the map
+        monkeypatch.setattr(cluster_mod.ReplicaSyncer, "start",
+                            lambda self: self)
+        cluster = FilodbCluster()
+        for name in ("node-b", "node-c", "node-a"):
+            cluster.join(Node(name, InMemoryColumnStore(),
+                              InMemoryMetaStore()))
+        cluster.setup_dataset(
+            IngestionConfig(DS, NUM_SHARDS, min_num_nodes=2,
+                            store=StoreConfig(**GAUGES)),
+            {s: InMemoryLog() for s in range(NUM_SHARDS)})
+        try:
+            # node-a leads nothing, as after the soak's kill and rejoin
+            sm = cluster.shard_managers[DS]
+            assert sm.mapper.shards_of("node-a") == []
+            cluster.replication = 1
+            cluster.ensure_replicas(DS)
+            load = {n: 0 for n in cluster.nodes}
+            for (_d, _s, n) in cluster.replica_syncers:
+                load[n] += 1
+            assert len(cluster.replica_syncers) == NUM_SHARDS, load
+            assert load["node-a"] >= 1, load
+            assert max(load.values()) - min(load.values()) <= 1, load
+        finally:
+            cluster.replica_syncers.clear()
+            cluster.stop()
 
 
 class TestDeferredPromotionRaces:

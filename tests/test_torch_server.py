@@ -12,6 +12,7 @@ compared exactly. ``queryStats`` (wall time, engine counters) is left out
 of the comparison.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -44,7 +45,7 @@ from filodb_tpu_torch.gateway import influx as port_influx
 from filodb_tpu_torch.gateway.server import ContainerSink
 from filodb_tpu_torch.kafka.log import InMemoryLog
 from filodb_tpu_torch.standalone import FiloServer
-from filodb_tpu_torch.testing.from_jax import boot, server_pair
+from filodb_tpu_torch.testing.from_jax import boot, free_port, server_pair
 from filodb_tpu_torch.utils import metrics as port_metrics
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -106,11 +107,6 @@ def test_config_loads_the_same_fields(which, tmp_path):
 
 
 UNSUPPORTED = [
-    {"wal_remote": "127.0.0.1:9092"},
-    {"wal_kafka": "127.0.0.1:9092"},
-    {"wal_server_port": 9093},
-    {"store_remote": "127.0.0.1:9094"},
-    {"store_server_port": 9095},
     {"mesh_workers": {"enabled": True}, "store": {"backend": "object"}},
 ]
 
@@ -120,9 +116,17 @@ UNSUPPORTED = [
 # ``rules.groups`` and ``selfmon.enabled``; since the multi-process mesh
 # runtime came, ``mesh_workers`` and the retry and breaker keys of
 # ``resilience``; since high availability came, ``consul``,
-# ``enable_failover``, ``migration`` and ``replication``); until then
+# ``enable_failover``, ``migration`` and ``replication``; since the remote
+# log and store came, ``wal_remote``, ``wal_kafka``, ``wal_server_port``,
+# ``store_remote`` and ``store_server_port``, whose "{...}" values name
+# the server the test starts for them); until then
 # ``test_unsupported_options_raise`` held that each of them raised
 ACTED_ON = [
+    {"wal_remote": "{log}"},
+    {"wal_kafka": "{kafka}"},
+    {"wal_server_port": "{free}"},
+    {"store_remote": "{store}"},
+    {"store_server_port": "{free}"},
     {"consul": {"host": "127.0.0.1", "port": 1}},
     {"enable_failover": True},
     {"migration": {"auto_rebalance": True}},
@@ -167,86 +171,160 @@ def test_control_plane_blocks_are_acted_on(override, tmp_path):
     from filodb_tpu_torch.query import cost_model
     from filodb_tpu_torch.utils import governor, resilience, tracing
 
-    path = tmp_path / "server.json"
-    path.write_text(json.dumps({**SMALL, **override,
-                                "data_dir": str(tmp_path / "d"),
-                                "http_port": 0}))
-    cfg = port_config.ServerConfig.load(str(path))
-    cfg.check_supported()
-    srv = FiloServer(cfg, device="cpu").start()
-    try:
-        block = next(iter(override))
-        if block == "consul":
-            # no agent answers: the node registers nowhere and, finding
-            # no cluster, forms one
-            assert srv._consul.port == 1 and srv.is_coordinator
-            return
-        if block == "enable_failover":
-            # the coordinator's line in the member registry
-            assert srv._registry().current_coordinator() == cfg.node_name
-            return
-        if block in ("migration", "replication"):
-            assert srv.cluster.auto_rebalance is (block == "migration")
-            assert srv.cluster.replication == (block == "replication")
-            return
-        (block, kv), = override.items()
-        (key, value), = kv.items()
-        if block == "store":
-            from filodb_tpu_torch.core.store.objectstore import (
-                ObjectStoreColumnStore,
-            )
-            assert isinstance(srv.column_store, ObjectStoreColumnStore)
-            return
-        if block == "rules":
-            # one rule manager over the first dataset's groups
-            assert [g.name for g in srv.rule_managers[DS].groups] == ["g"]
-            return
-        if block == "mesh_workers":
-            # two worker processes on the node's device, the runtime on
-            # the dataset's service
-            from filodb_tpu_torch.coordinator.mesh_cluster import (
-                MeshClusterRuntime,
-            )
-            rt = srv.services[DS].mesh_cluster
-            assert isinstance(rt, MeshClusterRuntime)
-            assert srv.mesh_supervisor.alive() == [True, True]
-            assert [w["reachable"] for w in rt.status()["workers"]] == \
-                [True, True]
-            return
-        if block == "selfmon":
-            # the _meta dataset after the user's, its sampler and the
-            # default alert group over it
-            assert list(srv.services)[-1] == "_meta"
-            assert srv.selfmon is not None
-            assert [g.name for g in srv.rule_managers["_meta"].groups] \
-                == ["selfmon_default"]
-            return
-        if block in ("datasets", "federation"):
-            # the long-time planner over the raw one, or the tiered one
-            from filodb_tpu_torch.coordinator.longtime_planner import (
-                LongTimeRangePlanner,
-            )
-            from filodb_tpu_torch.coordinator.tiered_planner import (
-                TieredPlanner,
-            )
-            want = LongTimeRangePlanner if block == "datasets" \
-                else TieredPlanner
-            assert isinstance(srv.services[DS].planner, want)
-            return
-        got = {"governor": lambda: getattr(governor.config(), key),
-               "resilience": lambda: getattr(resilience.config(), key),
-               "tracing": lambda: getattr(tracing.config(), key),
-               "cost_model": lambda: getattr(cost_model.model_for(DS),
-                                             key)}[block]()
-        assert got == value
-        assert srv.watchdog is not None
-    finally:
-        srv.shutdown()
-        governor.reset()
-        resilience.reset()
-        tracing.configure()
-        cost_model.reset_models()
+    with _remote_servers(override, tmp_path) as override:
+        path = tmp_path / "server.json"
+        path.write_text(json.dumps({**SMALL, **override,
+                                    "data_dir": str(tmp_path / "d"),
+                                    "http_port": 0}))
+        cfg = port_config.ServerConfig.load(str(path))
+        cfg.check_supported()
+        srv = FiloServer(cfg, device="cpu").start()
+        try:
+            _check_block(srv, cfg, override)
+        finally:
+            srv.shutdown()
+            governor.reset()
+            resilience.reset()
+            tracing.configure()
+            cost_model.reset_models()
     assert governor.governor().state == governor.OK
+
+
+@contextlib.contextmanager
+def _remote_servers(override: dict, tmp_path):
+    """``override`` with its "{...}" values made real: a log server's,
+    a Kafka broker's (the dataset's topic made) or a chunk-store server's
+    address, or a free port; the servers stop on exit."""
+    from filodb_tpu_torch.core.store.remotestore import ChunkStoreServer
+    from filodb_tpu_torch.kafka.kafka_protocol import FakeKafkaBroker
+    from filodb_tpu_torch.kafka.log_server import LogServer
+
+    (key, value), = list(override.items())[:1]
+    if not (isinstance(value, str) and value.startswith("{")):
+        yield override
+        return
+    if value == "{free}":
+        yield {key: free_port()}
+        return
+    if value == "{log}":
+        srv = LogServer(str(tmp_path / "broker")).start()
+        stop = srv.stop
+    elif value == "{kafka}":
+        srv = FakeKafkaBroker().start()
+        srv.create_topic(DS, SMALL["datasets"][DS]["num_shards"])
+        stop = srv.stop
+    else:
+        srv = ChunkStoreServer(root=str(tmp_path / "tier")).start()
+        stop = srv.shutdown
+    try:
+        yield {key: f"127.0.0.1:{srv.port}"}
+    finally:
+        stop()
+
+
+def _check_block(srv, cfg, override: dict) -> None:
+    """What the node did with the one block ``override`` sets."""
+    from filodb_tpu_torch.core.store.remotestore import (
+        RemoteColumnStore,
+        RemoteMetaStore,
+    )
+    from filodb_tpu_torch.kafka.kafka_protocol import KafkaReplayLog
+    from filodb_tpu_torch.kafka.log_server import RemoteLog
+    from filodb_tpu_torch.query import cost_model
+    from filodb_tpu_torch.utils import governor, resilience, tracing
+
+    block = next(iter(override))
+    if block in ("wal_remote", "wal_kafka", "wal_server_port"):
+        # every shard's log on the wire: the server's, or this
+        # node's own log server over its WAL directory
+        cls = KafkaReplayLog if block == "wal_kafka" else RemoteLog
+        port = srv.log_server.port if block == "wal_server_port" \
+            else int(override[block].rsplit(":", 1)[1])
+        logs = [srv.logs[(DS, s)] for s in range(2)]
+        assert all(isinstance(lg, cls) for lg in logs)
+        assert {(lg.client if block == "wal_kafka" else lg).port
+                for lg in logs} == {port}
+        assert srv.cluster.wait_active(DS, 30)
+        return
+    if block == "store_remote":
+        assert isinstance(srv.column_store, RemoteColumnStore)
+        assert isinstance(srv.meta_store, RemoteMetaStore)
+        assert srv.node.memstores[DS].column_store is srv.column_store
+        return
+    if block == "store_server_port":
+        # the node's own stores behind the port
+        client = RemoteMetaStore("127.0.0.1", override[block])
+        try:
+            srv.meta_store.write_checkpoint(DS, 1, 0, 7)
+            assert client.read_checkpoints(DS, 1) == {0: 7}
+        finally:
+            client.close()
+        assert srv.store_server.store is srv.column_store
+        return
+    if block == "consul":
+        # no agent answers: the node registers nowhere and, finding
+        # no cluster, forms one
+        assert srv._consul.port == 1 and srv.is_coordinator
+        return
+    if block == "enable_failover":
+        # the coordinator's line in the member registry
+        assert srv._registry().current_coordinator() == cfg.node_name
+        return
+    if block in ("migration", "replication"):
+        assert srv.cluster.auto_rebalance is (block == "migration")
+        assert srv.cluster.replication == (block == "replication")
+        return
+    (block, kv), = override.items()
+    (key, value), = kv.items()
+    if block == "store":
+        from filodb_tpu_torch.core.store.objectstore import (
+            ObjectStoreColumnStore,
+        )
+        assert isinstance(srv.column_store, ObjectStoreColumnStore)
+        return
+    if block == "rules":
+        # one rule manager over the first dataset's groups
+        assert [g.name for g in srv.rule_managers[DS].groups] == ["g"]
+        return
+    if block == "mesh_workers":
+        # two worker processes on the node's device, the runtime on
+        # the dataset's service
+        from filodb_tpu_torch.coordinator.mesh_cluster import (
+            MeshClusterRuntime,
+        )
+        rt = srv.services[DS].mesh_cluster
+        assert isinstance(rt, MeshClusterRuntime)
+        assert srv.mesh_supervisor.alive() == [True, True]
+        assert [w["reachable"] for w in rt.status()["workers"]] == \
+            [True, True]
+        return
+    if block == "selfmon":
+        # the _meta dataset after the user's, its sampler and the
+        # default alert group over it
+        assert list(srv.services)[-1] == "_meta"
+        assert srv.selfmon is not None
+        assert [g.name for g in srv.rule_managers["_meta"].groups] \
+            == ["selfmon_default"]
+        return
+    if block in ("datasets", "federation"):
+        # the long-time planner over the raw one, or the tiered one
+        from filodb_tpu_torch.coordinator.longtime_planner import (
+            LongTimeRangePlanner,
+        )
+        from filodb_tpu_torch.coordinator.tiered_planner import (
+            TieredPlanner,
+        )
+        want = LongTimeRangePlanner if block == "datasets" \
+            else TieredPlanner
+        assert isinstance(srv.services[DS].planner, want)
+        return
+    got = {"governor": lambda: getattr(governor.config(), key),
+           "resilience": lambda: getattr(resilience.config(), key),
+           "tracing": lambda: getattr(tracing.config(), key),
+           "cost_model": lambda: getattr(cost_model.model_for(DS),
+                                         key)}[block]()
+    assert got == value
+    assert srv.watchdog is not None
 
 
 @pytest.mark.parametrize("override", [{"result_cache": {"enabled": False}},
