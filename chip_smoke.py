@@ -393,6 +393,35 @@ checks it, phase by phase; any failed phase exits non-zero:
    3's. The node's B1-B4 launches in steps 3 and 4, behind the HTTP API,
    each above 0 (``launches_phase24``).
 
+25. The operator's tools over phase 11's directory, after the nodes of
+   phases 12, 20 and 21 have shut down (its store of ``DURABLE_SERIES``
+   series at full width). Step 1: ``python -m filodb_tpu_torch.standalone``
+   over phase 12's config (a flush of every group each
+   ``TOOLS_FLUSH_MS``, fixed ports), a process of its own on the card,
+   with ``FILODB_LOCKCHECK``, ``FILODB_RACECHECK`` and
+   ``FILODB_PROFILER``; every shard ACTIVE, then every group flushed
+   (checkpoint lag 0). Step 2: every HTTP command of ``filo-cli``
+   (``TOOLS_HTTP_COMMANDS``, each exit 0), ``promql --host`` of
+   ``TOOLS_QUERIES`` at phase 3's grid and ``FiloClient`` (health,
+   cluster status, ``query_range``, ``query_range_matrix``, label names
+   and values): each answer's data equal to what phase 12's node served
+   (phase 11's live store under ``--tools-only``); phase 12's warm query
+   again, its p50 under the checkers. Step 3: SIGTERM; the node prints
+   the checkers' violations and the profiler's top frames (a
+   ``{"tools_checkers": ...}`` line): a violation with a site in the
+   port's modules that ROADMAP §C does not name (``TOOLS_KNOWN_REPORTS``)
+   fails the phase. Step 4: ``filo-cli promql --data-dir`` on the card
+   for both queries (a process each, ``--stats``: index recovery,
+   page-in and answer seconds, launches), each equal to the node's
+   answer; the same queries in this process over the directory, B3
+   against its plain version, B1/B2 bitwise and B4's answer against
+   plain decode. Step 5: the phase-2 generator's first ``--tools-series``
+   series (``TOOLS_SERIES``) as CSV rows, ``filo-cli importcsv`` into a
+   fresh directory, ``promql`` (equal to an in-process service over it,
+   its kernels against their plain versions), ``topkcard``, ``list`` and
+   ``decodechunks``. Step 6: the node's launches in step 2 and the CLI's
+   in step 4, each of B1-B4 above 0 (``launches_phase25``: their sum).
+
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
 ``python3 chip_smoke.py`` (``--exec-only``: phases 1, 2 and 10 alone;
@@ -403,7 +432,8 @@ phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 11 and 20; ``--multiproc-only``: phases 1, 2, 21 step 1, 11 and 21 step
 2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale;
 ``--ha-only``: phases 1 and 23, ``--ha-series`` its scale;
-``--remote-only``: phases 1 and 24, ``--remote-series`` its scale).
+``--remote-only``: phases 1 and 24, ``--remote-series`` its scale;
+``--tools-only``: phases 1, 11 and 25, ``--tools-series`` its backfill).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -2493,6 +2523,7 @@ def durability_phase(dev, args) -> dict:
     import torch
 
     from filodb_tpu_torch import _build
+    from filodb_tpu_torch.http.promjson import matrix_json_str
 
     t_phase = time.perf_counter()
     root = args.durable_dir
@@ -2531,6 +2562,9 @@ def durability_phase(dev, args) -> dict:
     log(f"  scrape through the WAL: {nr} records in {nc} containers, "
         f"{scrape_s:.1f} s; half the groups flushed ({half} chunks)")
     live = live_answers(store, DURABLE_QUERIES, dev)
+    # phase 25's queries at phase 3's grid, the data of their bodies
+    out["tools_bodies"] = {q: json.loads(matrix_json_str(svc.query_range(
+        q, T0_MS // 1000, 60, END_S)))["data"] for q in TOOLS_QUERIES}
     out["chunk_infos"] = chunk_infos_check(svc, store)
     store.close()
     del svc, store, keys, ts, vals
@@ -2563,11 +2597,11 @@ def durability_phase(dev, args) -> dict:
 
 
 def durable_and_node(dev, args, rules: bool = False,
-                     multiproc: bool = False) -> tuple:
+                     multiproc: bool = False, tools: bool = False) -> tuple:
     """Phases 11 and 12 over one directory, with ``rules`` phase 20's
-    node after phase 12's and with ``multiproc`` phase 21's after that,
-    then its removal: (phase 11, phase 12, phase 20 step 2 or None, phase
-    21 step 2 or None)."""
+    node after phase 12's, with ``multiproc`` phase 21's after that and
+    with ``tools`` phase 25 last, then its removal: (phase 11, phase 12,
+    phase 20 step 2, phase 21 step 2, phase 25; None where not run)."""
     import gc
 
     import torch
@@ -2577,7 +2611,8 @@ def durable_and_node(dev, args, rules: bool = False,
     torch.cuda.empty_cache()
     node = node_phase(dev, args, durable)
     del durable["scrape"], durable["bodies"]
-    rules_node = mp_node = None
+    served = durable.pop("tools_bodies")
+    rules_node = mp_node = tools_out = None
     if rules:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2586,8 +2621,13 @@ def durable_and_node(dev, args, rules: bool = False,
         gc.collect()
         torch.cuda.empty_cache()
         mp_node = multiproc_node_phase(dev, args)
+    if tools:
+        gc.collect()
+        torch.cuda.empty_cache()
+        tools_out = tools_phase(dev, args, served, {
+            e["query"]: e["warm_p50_ms"] for e in node["http"]})
     node["bytes_freed"] = remove_dir(args.durable_dir)
-    return durable, node, rules_node, mp_node
+    return durable, node, rules_node, mp_node, tools_out
 
 
 def remove_dir(root) -> int:
@@ -2763,6 +2803,15 @@ def node_phase(dev, args, durable: dict) -> dict:
             f"{out['plain_rate']['max_abs_err']}); {q_count}: B1/B2 bitwise "
             f"on {out['plain_decode']['chunks']} chunks, the answer equal "
             f"to plain decode")
+        for q, want in durable["tools_bodies"].items():
+            code, body, _ = http_get(srv.http.port, f"/promql/{NODE_DS}/api/"
+                                     "v1/query_range", query=q,
+                                     start=T0_MS // 1000, end=END_S, step=60)
+            if code != 200 or json.loads(body)["data"] != want:
+                raise AssertionError(f"phase 12: {q} at phase 3's grid "
+                                     f"differs from phase 11's live answer")
+        log(f"  phase 25's queries at phase 3's grid through HTTP: equal to "
+            f"phase 11's live answers")
         out["concurrency"] = _node_concurrency(srv, durable["bodies"])
         out["gateway"] = _node_gateway(srv, durable["scrape"], args)
         out["scheduler"] = _node_scheduler(srv)
@@ -5678,14 +5727,15 @@ def _rules_node_config(root: str, hook_port: int) -> str:
     return path
 
 
-def _wait(what: str, pred, timeout_s: float = 120.0):
+def _wait(what: str, pred, timeout_s: float = 120.0, phase: int = 20):
     deadline = time.perf_counter() + timeout_s
     while True:
         got = pred()
         if got:
             return got
         if time.perf_counter() > deadline:
-            raise AssertionError(f"phase 20: {what}: not in {timeout_s} s")
+            raise AssertionError(f"phase {phase}: {what}: not in "
+                                 f"{timeout_s} s")
         time.sleep(0.1)
 
 
@@ -7366,6 +7416,427 @@ def remote_phase(dev, args) -> dict:
     return out
 
 
+# phase 25: the operator's tools over phase 11's directory (after phases
+# 12, 20 and 21 have shut their nodes down). Two queries at phase 3's grid
+# that run the four kernels: B3 (rate) and B1, B2 and B4 (sum_over_time);
+# the second aggregated, since a per-series answer of 25,000 series x 121
+# steps (3 M samples) is past the 1,000,000-sample limit the node and the
+# CLI both keep by default (HTTP 422)
+TOOLS_QUERIES = (f"sum(rate({M}[5m])) by (_ns_)",
+                 f"sum(sum_over_time({M}[5m])) by (_ns_)")
+# the backfill's series, the first of the phase-2 generator, 720 samples
+# each at 10 s: ``importcsv`` makes a record a row in Python, as the
+# reference's does (180,000 rows took 10.9 s on the card's host); 1,000
+# series (720,000 rows) fit the phase's share of the smoke's limit, the
+# 2,000 asked for would not (PERF.md §4; --tools-series sets it)
+TOOLS_SERIES = 1_000
+TOOLS_WARM = 5
+# the checked node's flush cadence: every group of a shard in 10 s
+TOOLS_FLUSH_MS = 10_000
+# checker reports ROADMAP §C names (patterns of a rendered violation);
+# any other whose sites lie in the port's modules fails the phase. §C.23:
+# a page-in or a seal over more than 4,096 series encodes on a thread
+# pool of its own (``partition.encode_pages``, ``chunk.py``'s codec
+# pool) and joins its threads while the shard's lock (and a query's
+# service lock) is held
+TOOLS_KNOWN_REPORTS = (
+    r"^\[blocking-under-lock\] thread=\S+: Thread\.join\("
+    r"ThreadPoolExecutor-\d+_\d+\) while holding lock\(s\) created at "
+    r"(query_service\.py:\d+, )?shard\.py:\d+$",)
+TOOLS_HTTP_COMMANDS = (["status"], ["tiers"], ["meshstat"], ["lag"],
+                       ["shardmap"], ["replicacheck"], ["rules"],
+                       ["slowlog", "--limit", "3"], ["coststats"])
+
+
+def _tools_config(root: Path) -> tuple[str, int, int]:
+    """Phase 12's config with a flush every ``TOOLS_FLUSH_MS`` and fixed
+    HTTP and executor ports: (path, HTTP port, executor port)."""
+    import socket
+
+    ports = []
+    for _ in range(2):
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            ports.append(sock.getsockname()[1])
+    conf = json.loads(Path(node_config(str(root))).read_text())
+    conf.update(http_port=ports[0], executor_port=ports[1])
+    conf["datasets"][NODE_DS]["store"]["flush_interval_ms"] = TOOLS_FLUSH_MS
+    path = root / "tools-server.json"
+    path.write_text(json.dumps(conf))
+    return str(path), ports[0], ports[1]
+
+
+def _cli(argv: list, what: str, dev=None, timeout: float = 600) -> tuple:
+    """``python -m filodb_tpu_torch.cli`` with ``argv`` (after ``--device``
+    where ``dev`` is given): (stdout, stderr, seconds); fails on a non-zero
+    exit."""
+    import os
+
+    cmd = [sys.executable, "-m", "filodb_tpu_torch.cli"]
+    if dev is not None:
+        cmd += ["--device", dev.type]
+    t = time.perf_counter()
+    p = subprocess.run(cmd + [str(a) for a in argv], cwd=str(ROOT),
+                       capture_output=True, text=True, timeout=timeout,
+                       env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                           x for x in (str(ROOT),
+                                       os.environ.get("PYTHONPATH")) if x)})
+    if p.returncode != 0:
+        raise AssertionError(f"phase 25: {what}: filo-cli {argv[:4]} exited "
+                             f"{p.returncode}: {p.stderr[-2000:]}")
+    return p.stdout, p.stderr, time.perf_counter() - t
+
+
+def _promql_processes(data, start: int, end: int, dev) -> dict:
+    """``filo-cli promql --data-dir data --stats`` of each of
+    ``TOOLS_QUERIES`` on ``dev``, the processes side by side: query →
+    (stdout, stderr, seconds)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(TOOLS_QUERIES)) as pool:
+        return dict(zip(TOOLS_QUERIES, pool.map(
+            lambda q: _cli(["--data-dir", data, "--dataset", NODE_DS,
+                            "promql", q, "--start", start, "--end", end,
+                            "--step", 60, "--stats"], "promql --data-dir",
+                           dev), TOOLS_QUERIES)))
+
+
+def _report_sites(text: str) -> list[str]:
+    """The ``file.py:line`` sites a rendered violation names."""
+    import re
+
+    return re.findall(r"([\w.-]+\.py):\d+", text)
+
+
+def _port_basenames() -> set:
+    return {p.name for p in (ROOT / "filodb_tpu_torch").rglob("*.py")}
+
+
+def _classify_reports(report: dict) -> dict:
+    """The checkers' violations split: ``port`` (a site among the port's
+    modules, by file name), ``known`` (named in ROADMAP §C) and ``other``
+    (every site in torch or the standard library)."""
+    import re
+
+    port_files = _port_basenames()
+    out = {"port": [], "known": [], "other": []}
+    for kind in ("lockcheck", "racecheck"):
+        for v in report.get(kind, []):
+            if any(re.search(k, v) for k in TOOLS_KNOWN_REPORTS):
+                out["known"].append(v)
+            elif any(s in port_files for s in _report_sites(v)):
+                out["port"].append(v)
+            else:
+                out["other"].append(v)
+    return out
+
+
+def _tools_in_process(root: str, dev) -> tuple:
+    """A store over ``root``'s column store, its index recovered, and its
+    smoke service on ``dev``."""
+    store = durable_store(root, NODE_DS)
+    for s in range(4):
+        store.recover_index(s)
+    return store, smoke_service(store, device=dev)
+
+
+def _tools_plain(svc, start: int, end: int) -> dict:
+    """The two queries' answers on ``svc`` against their plain versions:
+    B3 on the rate leaf's batch, B1/B2 bitwise on every decode chunk of the
+    sum_over_time leaf and its answer against plain decode and the float64
+    function."""
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.promql.parser import TimeStepParams, parse_query
+
+    def answer(q):
+        return svc._execute_uncached(parse_query(
+            q, TimeStepParams(start, 60, end))).result
+
+    saved = dict(_build.LAUNCHES)
+    with svc.lock:
+        out = {"rate": rate_against_plain(svc, TOOLS_QUERIES[0], start, end,
+                                          answer(TOOLS_QUERIES[0])),
+               "decode": decoded_against_plain(svc, TOOLS_QUERIES[1], start,
+                                               end, answer(TOOLS_QUERIES[1]))}
+    _build.LAUNCHES.update(saved)  # the checks' launches not counted
+    return out
+
+
+def tools_phase(dev, args, served: dict, node_warm: dict | None) -> dict:
+    """Phase 25 (see the module's text): ``served`` holds each of
+    ``TOOLS_QUERIES``' data as phase 12's node served it (phase 11's live
+    store under --tools-only), ``node_warm`` phase 12's warm HTTP p50s."""
+    import os
+    import signal as _signal
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from filodb_tpu_torch.client import FiloClient
+    from filodb_tpu_torch.coordinator.remote import RemotePlanDispatcher
+    from filodb_tpu_torch.http.promjson import matrix_json
+
+    t_phase = time.perf_counter()
+    root = Path(args.durable_dir)
+    start, end = T0_MS // 1000, END_S
+    log(f"phase 25: the operator's tools over phase 11's directory: a node "
+        f"under the lock-order checker, the race sanitizer and the "
+        f"profiler; filo-cli and FiloClient against it; filo-cli's "
+        f"embedded promql on the card; a backfill through importcsv")
+    out = {"queries": list(TOOLS_QUERIES)}
+    launches = {}
+
+    # step 1: the node under the checkers, a process of its own
+    path, http_port, exec_port = _tools_config(root)
+    node_out = open(root / "tools-node.out", "w")
+    node_err = open(root / "tools-node.log", "w")
+    env = {**os.environ, "FILODB_LOCKCHECK": "1", "FILODB_RACECHECK": "1",
+           "FILODB_PROFILER": "1", "PYTHONPATH": os.pathsep.join(
+               x for x in (str(ROOT), os.environ.get("PYTHONPATH")) if x)}
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "filodb_tpu_torch.standalone", "--config",
+         path, "--device", dev.type], cwd=str(ROOT), stdout=node_out,
+        stderr=node_err, env=env)
+    host = f"127.0.0.1:{http_port}"
+    client = FiloClient(port=http_port, timeout_s=SMOKE_TIMEOUT_S)
+    try:
+        def up():
+            if proc.poll() is not None:
+                raise AssertionError(f"phase 25: the checked node exited "
+                                     f"{proc.returncode}: "
+                                     f"{_tail(root / 'tools-node.log')}")
+            try:
+                st = client.cluster_status()
+            except OSError:
+                return False
+            return len(st) == 4 and all(s["status"] == "active" for s in st)
+
+        _wait("the checked node's shards ACTIVE", up, SMOKE_TIMEOUT_S, 25)
+        out["active_s"] = time.perf_counter() - t
+
+        def flushed():
+            code, body, _ = http_get(http_port, "/api/v1/status/ingest")
+            shards = json.loads(body)["data"]["datasets"][NODE_DS]["shards"]
+            return code == 200 and all(s.get("checkpointLag") == 0
+                                       for s in shards)
+
+        # every group flushed since the replay, so the embedded CLI (the
+        # column store alone) sees what the node serves
+        _wait("the checked node's groups flushed", flushed, 600, 25)
+        out["flushed_s"] = time.perf_counter() - t
+        log(f"  step 1: the checked node (FILODB_LOCKCHECK, FILODB_RACECHECK,"
+            f" FILODB_PROFILER) ACTIVE {out['active_s']:.1f} s after its "
+            f"start, every group flushed at {out['flushed_s']:.1f} s")
+
+        # step 2: the HTTP commands and the client; the node's launches
+        ctl = RemotePlanDispatcher("127.0.0.1", exec_port)
+        ctl.call("kernel_launches", True)
+        with ThreadPoolExecutor(4) as pool:
+            out["http"] = dict(zip(
+                (a[0] for a in TOOLS_HTTP_COMMANDS),
+                pool.map(lambda a: _cli(["--host", host, "--dataset",
+                                         NODE_DS, *a], a[0])[2],
+                         TOOLS_HTTP_COMMANDS)))
+        out["promql_host"] = {}
+        for q in TOOLS_QUERIES:
+            stdout, _, s = _cli(["--host", host, "--dataset", NODE_DS,
+                                 "promql", q, "--start", start, "--end", end,
+                                 "--step", 60], "promql --host")
+            data = json.loads(stdout)["data"]
+            if data != served[q]:
+                raise AssertionError(f"phase 25: promql --host {q} differs "
+                                     f"from phase 12's answer")
+            out["promql_host"][q] = s
+        if not client.health():
+            raise AssertionError("phase 25: FiloClient.health() is false")
+        for q in TOOLS_QUERIES:
+            if client.query_range(q, start, end, 60) != served[q]["result"]:
+                raise AssertionError(f"phase 25: FiloClient {q} differs")
+            labels, values, steps = client.query_range_matrix(q, start, end,
+                                                              60)
+            if labels != [r["metric"] for r in served[q]["result"]] \
+                    or values.shape != (len(labels), 121):
+                raise AssertionError(f"phase 25: FiloClient matrix of {q}")
+        # every namespace of the store (phase 20's rules add their own)
+        names = client.label_names()
+        namespaces = set(client.label_values("_ns_"))
+        want_ns = {f"App-{i}" for i in range(min(100, args.series))}
+        if "_ns_" not in names or not want_ns <= namespaces:
+            raise AssertionError(f"phase 25: label names {names}, "
+                                 f"namespaces {sorted(namespaces)[:5]}…")
+        # the checkers' cost: phase 12's warm query, the same grid
+        q12 = DURABLE_QUERIES[0]
+        warm = [http_get(http_port, f"/promql/{NODE_DS}/api/v1/query_range",
+                         query=q12, start=start, end=DURABLE_END_S,
+                         step=60)[2] for _ in range(1 + TOOLS_WARM)][1:]
+        out["checked_warm_p50_ms"] = float(np.median(warm))
+        out["phase12_warm_p50_ms"] = (node_warm or {}).get(q12)
+        launches["node"] = ctl.call("kernel_launches")
+        log(f"  step 2: {len(TOOLS_HTTP_COMMANDS)} HTTP commands exit 0 "
+            f"({', '.join(f'{k} {v:.1f} s' for k, v in out['http'].items())}"
+            f"); promql --host and FiloClient (health, cluster_status, "
+            f"query_range, query_range_matrix, label_names, label_values) "
+            f"equal to phase 12's answers; {q12} warm p50 "
+            f"{out['checked_warm_p50_ms']:.2f} ms under the checkers "
+            f"(phase 12: {out['phase12_warm_p50_ms']}); the node's "
+            f"launches {launches['node']}")
+
+        # step 3: the checkers' reports, at the node's shutdown
+        proc.send_signal(_signal.SIGTERM)
+        proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        node_out.close()
+        node_err.close()
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 25: the checked node exited "
+                             f"{proc.returncode}: "
+                             f"{_tail(root / 'tools-node.log')}")
+    lines = [ln for ln in (root / "tools-node.out").read_text().splitlines()
+             if ln.startswith('{"debug_report"')]
+    if not lines:
+        raise AssertionError("phase 25: the checked node printed no report "
+                             "(a checker not armed?)")
+    report = json.loads(lines[-1])["debug_report"]
+    reports = _classify_reports(report)
+    out["reports"] = {k: len(v) for k, v in reports.items()}
+    out["profiler_top"] = report["profiler"][:10]
+    print(json.dumps({"tools_checkers": {**reports,
+                                         "profiler": report["profiler"]}}))
+    log(f"  step 3: checker reports: {len(reports['port'])} with a site in "
+        f"the port's modules, {len(reports['known'])} named in ROADMAP §C, "
+        f"{len(reports['other'])} in torch or the standard library; the "
+        f"profiler's top frame: "
+        f"{(report['profiler'] or ['none'])[0].strip()}")
+    if reports["port"]:
+        raise AssertionError(f"phase 25: checker reports in the port's "
+                             f"modules: {reports['port'][:5]}")
+
+    # step 4: the embedded promql on the card over the full directory,
+    # both queries at once (a process each)
+    out["embedded"] = {}
+    cli_launches = dict.fromkeys(launches["node"], 0)
+    runs = _promql_processes(root, start, end, dev)
+    for q in TOOLS_QUERIES:
+        stdout, stderr, s = runs[q]
+        if json.loads(stdout)["data"] != served[q]:
+            raise AssertionError(f"phase 25: embedded promql {q} differs "
+                                 f"from the node's answer")
+        stats = json.loads(stderr.strip().splitlines()[-1])
+        for k, v in stats.pop("launches").items():
+            cli_launches[k] += v
+        out["embedded"][q] = {**stats, "process_s": s}
+        log(f"  step 4: promql --data-dir {q}: index recovery "
+            f"{stats['index_recovery_s']:.2f} s, page-in "
+            f"{stats['page_in_s']:.2f} s, answer {stats['answer_s']:.2f} s "
+            f"({s:.1f} s with the process), equal to the node's answer")
+    launches["cli"] = cli_launches
+    store, svc = _tools_in_process(str(root), dev)
+    for q in TOOLS_QUERIES:
+        if matrix_json(svc.query_range(q, start, 60, end))["data"] \
+                != served[q]:
+            raise AssertionError(f"phase 25: in-process {q} over the "
+                                 f"directory differs")
+    out["plain_full"] = _tools_plain(svc, start, end)
+    store.close()
+    del store, svc
+    torch.cuda.empty_cache() if dev.type == "cuda" else None
+    log(f"  the same queries in process over the directory: equal; B3 "
+        f"against its plain version ({out['plain_full']['rate']['shape']}"
+        f"), B1/B2 bitwise on {out['plain_full']['decode']['chunks']} "
+        f"chunks, B4's answer equal to plain decode")
+
+    # step 5: a backfill through importcsv into a fresh directory
+    out["backfill"] = _tools_backfill(dev, args, root / "backfill", start,
+                                      end)
+
+    # step 6: launches of steps 2 and 4
+    total = {k: launches["node"][k] + launches["cli"][k]
+             for k in launches["node"]}
+    out["launches"] = total
+    out["launches_split"] = launches
+    log(f"  launches in steps 2 and 4: {total} (node {launches['node']}, "
+        f"filo-cli {launches['cli']})")
+    if dev.type == "cuda":
+        missing = [k for k, v in total.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"phase 25: kernels not launched through "
+                                 f"the tools: {missing}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 25 took {out['seconds']:.1f} s")
+    return out
+
+
+def _tools_backfill(dev, args, bdir: Path, start: int, end: int) -> dict:
+    """Step 5: the phase-2 generator's first ``args.tools_series`` series as
+    CSV rows, ``filo-cli importcsv`` into ``bdir``, then ``promql`` (equal
+    to an in-process service over the directory, whose kernels match their
+    plain versions), ``topkcard``, ``list`` and ``decodechunks``."""
+    from filodb_tpu_torch.http.promjson import matrix_json
+
+    n = min(args.tools_series, args.series)
+    bdir.mkdir(parents=True, exist_ok=True)
+    labels, ts, vals = make_series(np.random.default_rng(args.seed), 0, n,
+                                   args.samples)
+    tags = [",".join(f"{k}={v}" for k, v in lb.items() if k != "_metric_")
+            for lb in labels]
+    t = time.perf_counter()
+    csv_path = bdir / "rows.csv"
+    with open(csv_path, "w") as f:
+        for tj, vj in zip(ts.T.tolist(), vals.T.tolist()):
+            f.write("".join(f"{a},{b!r},{c}\n"
+                            for a, b, c in zip(tj, vj, tags)))
+    out = {"series": n, "rows": n * args.samples,
+           "csv_s": time.perf_counter() - t}
+    data = bdir / "data"
+    stdout, _, out["import_s"] = _cli(["--data-dir", data, "importcsv",
+                                       csv_path, "--metric", M],
+                                      "importcsv", timeout=900)
+    if stdout.strip() != f"imported {n * args.samples} samples":
+        raise AssertionError(f"phase 25: importcsv: {stdout[-300:]}")
+    answers = {}
+    out["promql"] = {}
+    runs = _promql_processes(data, start, end, dev)
+    for q in TOOLS_QUERIES:
+        stdout, stderr, s = runs[q]
+        answers[q] = json.loads(stdout)["data"]
+        out["promql"][q] = {**json.loads(stderr.strip().splitlines()[-1]),
+                            "process_s": s}
+    store, svc = _tools_in_process(str(data), dev)
+    for q in TOOLS_QUERIES:
+        if matrix_json(svc.query_range(q, start, 60, end))["data"] \
+                != answers[q]:
+            raise AssertionError(f"phase 25: backfill promql {q} differs "
+                                 f"from the in-process service")
+        if len(answers[q]["result"]) != min(100, n):
+            raise AssertionError(f"phase 25: backfill {q}: "
+                                 f"{len(answers[q]['result'])} rows")
+    out["plain"] = _tools_plain(svc, start, end)
+    store.close()
+    top, _, _ = _cli(["--data-dir", data, "topkcard", "--prefix", "demo",
+                      "-k", "3"], "topkcard")
+    lst, _, _ = _cli(["--data-dir", data, "list", "--limit", "1"], "list")
+    dec, _, _ = _cli(["--data-dir", data, "decodechunks", "--filter",
+                      "instance=instance-0,", "--limit", "2", "--verbose"],
+                     "decodechunks")
+    if f"total partitions: {n}" not in lst or "series=" not in top \
+            or "chunk id=" not in dec:
+        raise AssertionError(f"phase 25: topkcard / list / decodechunks: "
+                             f"{top[-200:]} {lst[-200:]} {dec[-200:]}")
+    out["topkcard"] = top.strip().splitlines()
+    shutil.rmtree(bdir, ignore_errors=True)
+    log(f"  step 5: backfill: {out['rows']} CSV rows of {n} series "
+        f"({out['csv_s']:.1f} s to write), importcsv {out['import_s']:.1f} "
+        f"s; promql equal to an in-process service over the directory, B3 "
+        f"against its plain version, B1/B2 bitwise on "
+        f"{out['plain']['decode']['chunks']} chunks; topkcard "
+        f"{out['topkcard']}; list, decodechunks")
+    return out
+
+
 def _tail(path, n: int = 3000) -> str:
     try:
         return Path(path).read_text()[-n:]
@@ -7633,6 +8104,13 @@ def main() -> int:
                     help="build and run phase 24 only (a node on the card "
                     "over a log server and a chunk-store server in "
                     "processes of their own, then over a Kafka broker)")
+    ap.add_argument("--tools-series", type=int, default=TOOLS_SERIES,
+                    help="phase 25's backfill: the phase-2 generator's "
+                    "first N series as CSV rows through filo-cli importcsv")
+    ap.add_argument("--tools-only", action="store_true",
+                    help="build and run phases 11 and 25 only (the "
+                    "operator's tools: a node under the checkers, filo-cli "
+                    "and FiloClient, the embedded promql, a backfill)")
     args = ap.parse_args()
     if args.longterm_series is None:
         args.longterm_series = LT_SERIES_ALONE if args.longterm_only \
@@ -7780,8 +8258,20 @@ def _phases(args, smi) -> int:
         remove_dir(args.durable_dir)
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.tools_only:
+        durable = durability_phase(torch.device("cuda"), args)
+        served = durable.pop("tools_bodies")
+        del durable["scrape"], durable["bodies"]
+        print(json.dumps({"durability": durable}))
+        torch.cuda.empty_cache()
+        print(json.dumps({"tools": tools_phase(torch.device("cuda"), args,
+                                               served, None)}))
+        remove_dir(args.durable_dir)
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.durability_only:
-        durable, node, _, _ = durable_and_node(torch.device("cuda"), args)
+        durable, node, _, _, _ = durable_and_node(torch.device("cuda"),
+                                                  args)
         print(json.dumps({"durability": durable}))
         print(json.dumps({"node": node}))
         torch.cuda.empty_cache()
@@ -7845,12 +8335,13 @@ def _rest(args, smi, kernels, svc) -> int:
     print(json.dumps({"control_plane": control}))
     del serving_svc
     torch.cuda.empty_cache()
-    durable, node, rules_node, mp_node = durable_and_node(
-        torch.device("cuda"), args, rules=True, multiproc=True)
+    durable, node, rules_node, mp_node, tools = durable_and_node(
+        torch.device("cuda"), args, rules=True, multiproc=True, tools=True)
     print(json.dumps({"durability": durable}))
     print(json.dumps({"node": node}))
     print(json.dumps({"rules_node": rules_node}))
     print(json.dumps({"multiproc_node": mp_node}))
+    print(json.dumps({"tools": tools}))
     torch.cuda.empty_cache()
     evict = eviction_phase(torch.device("cuda"), args)
     print(json.dumps({"eviction": evict}))
@@ -7899,6 +8390,8 @@ def _rest(args, smi, kernels, svc) -> int:
             counts[kern["name"]] for counts in ha["launches"].values())
         # the remote-backed node's, behind its HTTP API
         kern["launches_phase24"] = remote["launches"][kern["name"]]
+        # the checked node's behind its HTTP API and the embedded CLI's
+        kern["launches_phase25"] = tools["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -7,10 +7,8 @@ blocks into ``IngestionConfig``\\ s), so one file loads to the same values
 in both packages.
 
 The port boots a coordinator node, or with ``seeds`` a member that
-joins the first seed that answers (``standalone.py``). Store options
-whose modules it does not have yet raise ``NotImplementedError`` naming
-their ROADMAP item when set away from their default
-(``StoreConfig.check_supported``).
+joins the first seed that answers (``standalone.py``). Every store
+option is acted on.
 ``result_cache``, ``http_response_cache``, ``governor``, ``resilience``
 (the query timeout, the retry policy, the circuit breakers and partial
 scatter-gather), ``cost_model``,
@@ -274,9 +272,8 @@ class ServerConfig:
 
     def check_supported(self) -> None:
         """Raise ``NotImplementedError`` for an option the port does not
-        have (``StoreConfig.check_supported``, mesh workers over a
-        durable tier they cannot recover from), or an unknown front end
-        or engine."""
+        have (mesh workers over a durable tier they cannot recover from),
+        or an unknown front end or engine."""
         if (self.mesh_workers or {}).get("enabled") \
                 and self.store.get("backend", "local") != "local" \
                 and not (self.mesh_workers or {}).get("seed"):
@@ -287,8 +284,7 @@ class ServerConfig:
         if self.http_impl not in ("fast", "threaded"):
             raise ValueError(f"http_impl {self.http_impl!r}: fast or "
                              f"threaded")
-        for name, ing in self.datasets.items():
-            ing.store.check_supported()
+        for name in self.datasets:
             if self.engines.get(name, "mesh") not in ENGINES:
                 raise ValueError(f"dataset {name}: engine "
                                  f"{self.engines[name]!r}: one of "

@@ -6,6 +6,9 @@ shard its part key routes to (``MemStore.shard_of``'s rule: the upper
 bits from the shard-key hash, the low ``spread`` bits from the part hash),
 records keeping their order within a shard. The shards come out in order
 of their first record, as the reference's ``defaultdict`` fills them.
+``ingest_routed`` ingests a stream of containers so, each shard's part
+at the container's offset (the reference's gateway-equivalent path for
+tests and the command line's ``importcsv``).
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from filodb_tpu_torch.core.partkey import ingestion_shard, murmur3_32_many
-from filodb_tpu_torch.core.record import RecordContainer
+from filodb_tpu_torch.core.record import RecordContainer, SomeData
 
 _SHARD_KEY = ("_ws_", "_ns_", "_metric_")
 
@@ -35,6 +38,20 @@ def route_container(container: RecordContainer, num_shards: int, spread: int,
             c = out[s] = RecordContainer()
         c.records.append(rec)
     return out
+
+
+def ingest_routed(memstore, stream) -> int:
+    """Ingest a stream of ``SomeData``, each container's records routed to
+    the store's shards (its ``num_shards`` and ``spread``). Returns the
+    samples kept."""
+    total = 0
+    for data in stream:
+        for shard, container in route_container(
+                data.container, memstore.num_shards,
+                memstore.spread).items():
+            total += memstore.shards[shard].ingest(
+                SomeData(container, data.offset))
+    return total
 
 
 def _shard_key_hashes(keys, labels: tuple) -> np.ndarray:

@@ -26,7 +26,9 @@ to a sequenced log: ``events_since`` hands a member's mirror the events
 after its last sequence, or the whole map with its replica sets (a
 resync) where it fell behind the log's window, ran ahead of it, or names
 another epoch (the coordinator restarted); ``subscribe`` replays the map
-to a new subscriber, then each event.
+to a new subscriber, then each event. A ``ShardMapper`` and a
+``ShardManager`` register with the race sanitizer (``utils/racecheck``),
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import time
 import uuid
 from dataclasses import dataclass, field
 
+from filodb_tpu_torch.utils import racecheck
 from filodb_tpu_torch.utils.metrics import get_counter
 
 log = logging.getLogger(__name__)
@@ -110,6 +113,9 @@ class ShardMapper:
             self.owners = [None] * self.num_shards
         if not self.replicas:
             self.replicas = [{} for _ in range(self.num_shards)]
+        # routing table read by every query/ingest thread, written by
+        # membership and migration events
+        racecheck.register(self, "ShardMapper")
 
     def apply(self, ev: ShardEvent) -> None:
         if ev.replica:
@@ -222,6 +228,8 @@ class ShardManager:
         # sequence at 0 again, and a mirror whose last sequence falls in
         # the new feed's range would skip events without it
         self.epoch = uuid.uuid4().hex[:16]
+        # shared across heartbeat/join/migration/executor-handler threads
+        racecheck.register(self, f"ShardManager[{self.dataset}]")
 
     @property
     def nodes(self) -> list[str]:

@@ -90,6 +90,15 @@ codec chunks, held, paged in or read back from the column store, and
 copies of the write buffers) for the host-decode lane
 (``query/engine/batch.py``).
 
+Two debug knobs of the store config, as the reference's. A partition
+whose key string holds one of ``trace_part_key_substrings`` is traced:
+the C++ pass lists its records (``listed``), they are appended here
+through the same write buffers, and each sample and each chunk it seals
+logs one line on the ``filodb_tpu_torch.trace`` logger in the
+reference's ``TracingTimeSeriesPartition`` format. Under
+``assert_single_writer`` the first thread that calls ``ingest`` owns the
+shard, and a call from any other raises ``AssertionError``.
+
 Histogram partitions (``ingest_histograms``) keep their own write buffers,
 one per bucket count, their own chunk table and their own page tables: a
 sealed chunk encodes one timestamp page plus one int page per bucket
@@ -181,6 +190,7 @@ from filodb_tpu_torch.utils.resilience import FaultInjector
 from filodb_tpu_torch.utils.tracing import traced_operation
 
 log = logging.getLogger(__name__)
+trace_log = logging.getLogger("filodb_tpu_torch.trace")
 
 _NCOL = len(HIST_COLUMNS)
 _KCOL = len(MULTI_COLUMNS)
@@ -325,7 +335,11 @@ class Shard:
         # multi-column (ds-gauge) partitions: buffers of K float64 bit
         # patterns a sample, and their chunks' per-column flags
         self.multi = np.zeros(0, bool)
-        self.listed = np.zeros(0, bool)  # hist | multi: the C++ pass lists
+        # hist | multi | traced: the C++ pass lists their records
+        self.listed = np.zeros(0, bool)
+        self._trace = tuple(self.config.trace_part_key_substrings)
+        self.traced = np.zeros(0, bool)
+        self._writer_thread: int | None = None  # assert_single_writer
         self.multi_buffers = WriteBuffers(self.max_chunk_size, _KCOL)
         self._multi_sealed = ChunkTable(
             *(f"vmax_{c}" for c in MULTI_COLUMNS),
@@ -387,6 +401,7 @@ class Shard:
         self.hist = more(self.hist, False)
         self.multi = more(self.multi, False)
         self.listed = more(self.listed, False)
+        self.traced = more(self.traced, False)
         self._width = more(self._width, 0)
         self._les_id = more(self._les_id, -1)
         self.status = more(self.status, LIVE)
@@ -408,7 +423,10 @@ class Shard:
         self.schema_of[base:n] = schema
         self.hist[base:n] = [SCHEMAS[k.schema].is_histogram for k in keys]
         self.multi[base:n] = [SCHEMAS[k.schema].is_multi for k in keys]
-        self.listed[base:n] = self.hist[base:n] | self.multi[base:n]
+        if self._trace:
+            self.traced[base:n] = [self._traces(k) for k in keys]
+        self.listed[base:n] = self.hist[base:n] | self.multi[base:n] \
+            | self.traced[base:n]
         self.hashes[base:n] = murmur3_32_many(blobs)
         self.group[base:n] = self.hashes[base:n].astype(np.int64) \
             % self.config.groups_per_shard
@@ -426,6 +444,36 @@ class Shard:
             self._restore_evicted(np.arange(base, n), blobs)
         self.stats.num_partitions.set(len(self.index))
         return np.arange(base, n)
+
+    def _traces(self, key: PartKey) -> bool:
+        kstr = str(key)
+        return any(sub in kstr for sub in self._trace)
+
+    def _trace_samples(self, pids, ts, lens, values) -> None:
+        """Log each sample of the traced partitions among ``pids`` (rows of
+        ``ts`` [N, T] with ``lens``) before it is appended, accepted where
+        it passes its partition's latest sample and every earlier one
+        (``drop_out_of_order``); ``values(i, j)`` is the record's values
+        tuple."""
+        for i in np.flatnonzero(self.traced[pids]).tolist():
+            pid = int(pids[i])
+            floor = int(self.latest[pid])
+            for j in range(int(lens[i])):
+                t = int(ts[i, j])
+                ok = t > floor
+                floor = max(floor, t)
+                trace_log.info(
+                    "TRACE %s shard=%d ingest ts=%d values=%s accepted=%s",
+                    self.keys[pid], self.shard_num, t, values(i, j), ok)
+
+    def _trace_chunks(self, row: dict, codec) -> None:
+        """Log each chunk a seal encoded for a traced partition."""
+        for i in np.flatnonzero(self.traced[row["pid"]]).tolist():
+            trace_log.info(
+                "TRACE %s shard=%d encoded chunk id=%d rows=%d bytes=%d",
+                self.keys[int(row["pid"][i])], self.shard_num,
+                int(row["cid"][i]), int(row["rows"][i]),
+                int(codec.nbytes[i]))
 
     def record_keys(self, pids) -> list[bytes]:
         """The record-form part keys of ``pids`` (the reference's
@@ -515,6 +563,9 @@ class Shard:
         return kept
 
     def _append(self, pids, ts, vals, lens) -> int:
+        if self._trace:
+            self._trace_samples(pids, ts, lens,
+                                lambda i, j: (float(vals[i, j]),))
         ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
         for sealed in self.buffers.append(pids, ts, vals, lens):
             self._add_chunks(*sealed)
@@ -586,6 +637,12 @@ class Shard:
 
     def _append_hist(self, pids, ts, slots, lens, lid: int) -> int:
         B = slots.shape[2] - _NCOL
+        if self._trace:
+            cols = slot_columns(slots)
+            les = self.les_list[lid]
+            self._trace_samples(pids, ts, lens, lambda i, j: (
+                float(cols[i, j, 0]), float(cols[i, j, 1]),
+                (les, slots[i, j, :B].copy())))
         ts, slots, lens = drop_out_of_order(ts, slots, lens,
                                             self.latest[pids])
         act = pids[lens > 0]
@@ -611,6 +668,16 @@ class Shard:
         the port does not know are dropped. Returns the samples kept."""
         FaultInjector.fire("shard.ingest", dataset=self.dataset,
                            shard=self.shard_num, offset=data.offset)
+        if self.config.assert_single_writer:
+            # the reference's single-writer tripwire
+            # (``FiloSchedulers.assertThreadName``)
+            tid = threading.get_ident()
+            if self._writer_thread is None:
+                self._writer_thread = tid
+            elif self._writer_thread != tid:
+                raise AssertionError(
+                    f"shard {self.shard_num} ingested from thread {tid}, "
+                    f"owner is {self._writer_thread}")
         raw = data.container.serialize()
         with traced_operation("ingest", dataset=self.dataset,
                               shard=self.shard_num), self.lock:
@@ -625,7 +692,8 @@ class Shard:
         that point whose key got none are dropped from then on), where a
         row it must append to is full (the filled rows seal, in pid order)
         and where no buffer row is free (more are reserved); each time it
-        resumes at the same record. Histogram records follow."""
+        resumes at the same record. The records it lists follow:
+        multi-column, traced scalar, then histogram ones."""
         buf, nrec = _container(raw)
         core, bufs = self.core, self.buffers
         c = core.start(buf, nrec, offset, self.group_watermarks)
@@ -657,14 +725,21 @@ class Shard:
                 record_tenant_drop(pk_from_blob(cols.keys[i]).label_map)
         if c.n_hist:
             recs, pids = c.out[1][:c.n_hist], c.out[2][:c.n_hist]
-            multi = self.multi[pids]
+            multi, hist = self.multi[pids], self.hist[pids]
             if multi.any():
                 kept += self._append_multi(*_by_series(
                     pids[multi], *_multi_records(raw, recs[multi])))
-            if not multi.all():
+            if not (multi | hist).all():
+                # traced scalar partitions: the pass appended none of
+                # their records, so these keep their order
                 cols = parse_container(raw) if cols is None else cols
-                kept += self._ingest_hist_records(cols, recs[~multi],
-                                                  pids[~multi])
+                at = ~multi & ~hist
+                kept += self._append(*_by_series(
+                    pids[at], cols.ts[recs[at]], cols.dvals[recs[at], 0]))
+            if hist.any():
+                cols = parse_container(raw) if cols is None else cols
+                kept += self._ingest_hist_records(cols, recs[hist],
+                                                  pids[hist])
         self.rows_skipped += c.skipped
         self._ingested_offset = max(self._ingested_offset, offset)
         return kept, c.skipped
@@ -717,6 +792,9 @@ class Shard:
 
     def _append_multi(self, pids, ts, vals, lens) -> int:
         """Append multi-column samples: ``vals`` float64 [N, T, K]."""
+        if self._trace:
+            self._trace_samples(pids, ts, lens, lambda i, j: tuple(
+                float(v) for v in vals[i, j]))
         ts, vals, lens = drop_out_of_order(ts, vals, lens, self.latest[pids])
         slots = np.ascontiguousarray(vals, np.float64).view(np.int64)
         for sealed in self.multi_buffers.append(pids, ts, slots, lens):
@@ -759,6 +837,8 @@ class Shard:
         row = self._chunk_row(pids, ts, rows)
         codec = encode_chunks(ts, vals[:, None, :], rows, row["cid"])
         self._count_encoded(codec, rows)
+        if self._trace:
+            self._trace_chunks(row, codec)
         stats, sketch = summarize(ts, vals, rows)
         self._sealed.add(pages, per, codec, **row,
                          vmax=abs_max_finite(vals, rows),
@@ -774,6 +854,8 @@ class Shard:
         row = self._chunk_row(pids, ts, rows)
         codec = encode_chunks(ts, cols.transpose(0, 2, 1), rows, row["cid"])
         self._count_encoded(codec, rows)
+        if self._trace:
+            self._trace_chunks(row, codec)
         flags = {}
         for j, name in enumerate(MULTI_COLUMNS):
             v = np.ascontiguousarray(cols[..., j])
@@ -796,6 +878,8 @@ class Shard:
                               hist=slots, les=np.stack(
                                   [self.les_list[i] for i in les.tolist()]))
         self._count_encoded(codec, rows)
+        if self._trace:
+            self._trace_chunks(row, codec)
         summ = {}
         for j, name in enumerate(HIST_COLUMNS):
             summ[f"stats_{name}"], summ[f"sketch_{name}"] = summarize(
@@ -1031,8 +1115,8 @@ class Shard:
         self.cardinality = CardinalityTracker(self.shard_num)
         apply_tenant_quotas(self.cardinality)
         for name in ("latest", "floor", "_seq", "schema_of", "group",
-                     "_dirty", "hist", "multi", "listed", "_width",
-                     "_les_id", "status", "hashes"):
+                     "_dirty", "hist", "multi", "listed", "traced",
+                     "_width", "_les_id", "status", "hashes"):
             setattr(self, name, getattr(self, name)[:0])
 
     def _recover_from_snapshot(self, data: bytes) -> int:
@@ -1111,7 +1195,10 @@ class Shard:
                                   for x in SCHEMA_NAMES])[schema]
         self.multi[:n] = np.array([SCHEMAS[x].is_multi
                                    for x in SCHEMA_NAMES])[schema]
-        self.listed[:n] = self.hist[:n] | self.multi[:n]
+        if self._trace:
+            self.traced[:n] = [bool(b) and self._traces(pk_from_blob(b))
+                               for b in blobs]
+        self.listed[:n] = self.hist[:n] | self.multi[:n] | self.traced[:n]
         self.hashes[:n] = snap["hashes"]
         self.group[:n] = snap["hashes"].astype(np.int64) \
             % self.config.groups_per_shard

@@ -1,17 +1,17 @@
 """Store and ingestion configuration.
 
 Copy of ``filodb_tpu/core/store/config.py``'s ``StoreConfig`` and
-``IngestionConfig``, with the fields the port reads. Some fields are read
-by modules the port does not have yet; they are accepted at the
-reference's defaults and raise ``NotImplementedError`` set to anything
-else (``check_supported``). ``shard_mem_mb`` (the budget of a shard's
-resident chunks, ``Shard.enforce_memory``), ``retention_ms``
-(``Shard.purge_expired``) and ``evicted_pk_bloom_filter_capacity`` (the
-evicted-key bloom) take any value; the flush scheduler acts on the first
-two every tick. ``disk_ttl_ms`` takes any value and acts on nothing, in
-either package: the reference reads it only in its config dataclass.
-``max_query_matches`` is the exec leaf's limit of series a shard matches
-(``QueryLimitExceeded``), as in the reference.
+``IngestionConfig``, with the fields the port reads; every field takes
+any value. ``shard_mem_mb`` (the budget of a shard's resident chunks,
+``Shard.enforce_memory``), ``retention_ms`` (``Shard.purge_expired``) and
+``evicted_pk_bloom_filter_capacity`` (the evicted-key bloom); the flush
+scheduler acts on the first two every tick. ``disk_ttl_ms`` acts on
+nothing, in either package: the reference reads it only in its config
+dataclass. ``max_query_matches`` is the exec leaf's limit of series a
+shard matches (``QueryLimitExceeded``), as in the reference.
+``trace_part_key_substrings`` logs every sample and sealed chunk of the
+partitions whose key holds one of them, and ``assert_single_writer``
+makes a shard's first ingesting thread its only one (``Shard.ingest``).
 ``native_ingest`` is accepted either way: the port's container ingest is
 its host C++ scan (``core/record.py::parse_container``) whatever it says.
 ``device_pages`` is always on in the port (sealed chunks keep their
@@ -20,7 +20,7 @@ pages), so its reference default (off) and on are both accepted.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, field, fields
+from dataclasses import dataclass, field
 
 
 @dataclass(frozen=True)
@@ -45,23 +45,6 @@ class StoreConfig:
     native_ingest: bool = True
     # write each shard's index snapshot this often (0: only on demand)
     index_snapshot_interval_ms: int = 600_000
-
-    def check_supported(self) -> None:
-        """Raise for a field set away from the reference's default whose
-        module the port lacks."""
-        for f in fields(self):
-            if f.name in _UNPORTED and getattr(self, f.name) != f.default:
-                raise NotImplementedError(
-                    f"store.{f.name}={getattr(self, f.name)!r}: "
-                    f"{_UNPORTED[f.name]}")
-
-
-_UNPORTED = {
-    "trace_part_key_substrings": "tracing partitions are not ported "
-                                 "(ROADMAP §A.11, A6.6)",
-    "assert_single_writer": "the single-writer tripwire is not ported "
-                            "(ROADMAP §A.11, A6.6)",
-}
 
 
 @dataclass(frozen=True)

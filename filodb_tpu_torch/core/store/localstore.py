@@ -24,12 +24,16 @@ A node reads a shard's database from many threads at once (the ingest
 and job threads, the flush scheduler, the HTTP routes, page-ins), and a
 sqlite connection is not safe to share: every use of a connection, reads
 as well as writes, holds that connection's lock until its rows are
-fetched (``_Db.use``; ROADMAP §C.14).
+fetched (``_Db.use``; ROADMAP §C.14). ``truncate`` takes the locks of
+every shard of the dataset, closes their connections and removes the
+files; a reader waiting on one of those locks opens the shard afresh.
 """
 
 from __future__ import annotations
 
+import glob
 import os
+import re
 import sqlite3
 import threading
 from contextlib import contextmanager
@@ -56,13 +60,20 @@ class _Db:
         self._locks: dict[tuple[str, int], threading.RLock] = {}
         self._lock = threading.Lock()
 
+    def _lock_of(self, key: tuple[str, int]) -> threading.RLock:
+        with self._lock:
+            lk = self._locks.get(key)
+            if lk is None:
+                lk = self._locks[key] = threading.RLock()
+            return lk
+
     @contextmanager
     def use(self, dataset: str, shard: int):
         """The shard's connection, held under its lock for the block: fetch
-        every row inside it."""
-        c = self.conn(dataset, shard)
-        with self._locks[(dataset, shard)]:
-            yield c
+        every row inside it. The lock comes first, so a truncate cannot
+        close the connection between the lookup and the use."""
+        with self._lock_of((dataset, shard)):
+            yield self.conn(dataset, shard)
 
     def conn(self, dataset: str, shard: int) -> sqlite3.Connection:
         key = (dataset, shard)
@@ -101,8 +112,35 @@ class _Db:
                     c.execute(f"CREATE INDEX IF NOT EXISTS {tbl}_upd ON "
                               f"{tbl}(upd)")
                 self._conns[key] = c
-                self._locks[key] = threading.RLock()
+                self._locks.setdefault(key, threading.RLock())
             return c
+
+    def drop(self, dataset: str) -> None:
+        """Close the dataset's connections and remove its shard files
+        (``shard-<n>.db`` and sqlite's ``-wal`` / ``-shm``), holding every
+        one of its shards' locks, in shard order."""
+        files = glob.glob(os.path.join(self.root, dataset, "shard-*.db*"))
+        with self._lock:
+            shards = {s for d, s in self._conns if d == dataset}
+        for f in files:
+            m = re.match(r"shard-(\d+)\.db", os.path.basename(f))
+            if m:
+                shards.add(int(m.group(1)))
+        locks = [self._lock_of((dataset, s)) for s in sorted(shards)]
+        for lk in locks:
+            lk.acquire()
+        try:
+            with self._lock:
+                for s in shards:
+                    c = self._conns.pop((dataset, s), None)
+                    if c is not None:
+                        c.close()
+            for f in glob.glob(os.path.join(self.root, dataset,
+                                            "shard-*.db*")):
+                os.remove(f)
+        finally:
+            for lk in reversed(locks):
+                lk.release()
 
     def close(self):
         with self._lock:
@@ -208,6 +246,13 @@ class LocalDiskColumnStore(ColumnStore):
         with self._db.use(dataset, shard) as c:
             return dict(c.execute("SELECT partition, MAX(end_time) FROM "
                                   "chunks GROUP BY partition").fetchall())
+
+    def truncate(self, dataset):
+        """Remove every chunk, part key and checkpoint of ``dataset``: its
+        shard databases go (the reference's ``truncate``); the next use of
+        a shard opens an empty one. The write counters keep counting up,
+        so a snapshot token taken before stays below every later write."""
+        self._db.drop(dataset)
 
     def max_persisted_ts_since(self, dataset, shard, chunk_token):
         # by the upd index: sqlite would otherwise walk every chunk through

@@ -116,6 +116,14 @@ node's metric registry there every ``interval_s`` and, unless
 ``default_alerts`` is false, the ``selfmon_default`` alert group over it.
 Shutdown stops both before the logs close.
 
+``FILODB_PROFILER`` set starts the sampling profiler
+(``utils/profiler.py``) at ``start``, as the reference's node does. When
+``main`` stops and the profiler or either checker of the package's
+switches (``FILODB_LOCKCHECK``, ``FILODB_RACECHECK``) is on, it prints
+one JSON line, ``{"debug_report": {"lockcheck": [...], "racecheck":
+[...], "profiler": [...]}}``: each violation rendered, and the
+profiler's top frames.
+
 It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
 version on the CPU, as the tests do. Without a card it raises; nothing
 carries on on the CPU unasked. Options the port lacks raise at
@@ -127,6 +135,7 @@ construction (``ServerConfig.check_supported``).
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -172,7 +181,14 @@ from filodb_tpu_torch.kafka.log_server import LogServer, RemoteLog
 # imported whatever the config, so the filodb_rules_* and filodb_alerts_*
 # families are registered at boot, as the reference's node registers them
 from filodb_tpu_torch.rules import LogSink, RuleManager, load_groups
-from filodb_tpu_torch.utils import governor, resilience, tracing
+from filodb_tpu_torch.utils import (
+    governor,
+    lockcheck,
+    racecheck,
+    resilience,
+    tracing,
+)
+from filodb_tpu_torch.utils.profiler import SimpleProfiler
 
 log = logging.getLogger(__name__)
 
@@ -223,6 +239,7 @@ class FiloServer:
         self._consul = None          # the Consul agent registered with
         self._ds_threads: list[threading.Thread] = []
         self._stop = threading.Event()
+        self.profiler: SimpleProfiler | None = None
         self._setup_meta_dataset()
 
     def _setup_meta_dataset(self) -> None:
@@ -298,6 +315,9 @@ class FiloServer:
             self._start_coordinator()
             executed.update(self.services)
         self.watchdog = self._watchdog().start()
+        if os.environ.get("FILODB_PROFILER"):
+            # the reference's SimpleProfiler, started from FiloServer.start
+            self.profiler = SimpleProfiler().start()
         http_cls = FastHttpServer if cfg.http_impl == "fast" \
             else FiloHttpServer
         self.http = http_cls(self.services, port=cfg.http_port,
@@ -973,7 +993,24 @@ def main(argv=None) -> int:
     while not stop:
         time.sleep(0.5)
     server.shutdown()
+    report = debug_report(server)
+    if report is not None:
+        print(json.dumps({"debug_report": report}), flush=True)
     return 0
+
+
+def debug_report(server: FiloServer, top_n: int = 20) -> dict | None:
+    """The checkers' violations and the profiler's top frames, or None
+    where neither checker is installed and no profiler runs."""
+    if server.profiler is None and not lockcheck.installed() \
+            and not racecheck.installed():
+        return None
+    frames = []
+    if server.profiler is not None:
+        frames = server.profiler.stop().splitlines()[:top_n]
+    return {"lockcheck": [v.render() for v in lockcheck.violations()],
+            "racecheck": [v.render() for v in racecheck.violations()],
+            "profiler": frames}
 
 
 if __name__ == "__main__":

@@ -45,7 +45,11 @@ to the store's; and the remote tiers' (``kafka/{log_server,
 kafka_protocol}``, ``core/store/remotestore``), through a node over a
 log server and over a Kafka broker, each with a chunk-store server as
 its durable tier, fed by its gateway and flushed over the wire, and a
-second node on a fresh directory answering from the remote tiers. The spawned worker's seed callable, run inside the
+second node on a fresh directory answering from the remote tiers; and
+the operator's tools' (``cli``, ``client``, ``utils/lockcheck``,
+``utils/racecheck``), through the command line's ``importcsv`` and
+``promql`` and a client reading a node, with both checkers armed. The
+spawned worker's seed callable, run inside the
 worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
 both for the rest of its life, so a worker that loaded either never
 answers: the check needs no field of the worker's protocol.
@@ -570,6 +574,55 @@ for wal in ({"wal_remote": f"127.0.0.1:{lsrv.port}"},
 kb.stop()
 lsrv.stop()
 
+# the operator's tools: the command line's importcsv and promql (its
+# embedded mode) and the client over a node, with the lock-order checker
+# and the race sanitizer armed around them
+import contextlib, io
+from filodb_tpu_torch import cli
+from filodb_tpu_torch.client import FiloClient
+from filodb_tpu_torch.utils import lockcheck, racecheck
+
+lockcheck.install(strict=False)
+racecheck.install()
+troot = tempfile.mkdtemp()
+with open(troot + "/rows.csv", "w") as f:
+    f.write("\n".join(f"{(1_600_000_000 + 10 * i) * 1000},{i},"
+                      f"host=h{i % 2},_ws_=w,_ns_=n" for i in range(60)))
+cli_out = io.StringIO()
+with contextlib.redirect_stdout(cli_out):
+    cli.main(["--device", "cpu", "--data-dir", troot + "/d", "importcsv",
+              troot + "/rows.csv", "--metric", "t"])
+    cli.main(["--device", "cpu", "--data-dir", troot + "/d", "promql",
+              "sum(rate(t[5m]))", "--start", "1600000300", "--end",
+              "1600000590"])
+cli_lines = cli_out.getvalue().splitlines()
+tsrv = from_jax.boot(standalone.FiloServer, server_config.ServerConfig,
+                     {"datasets": {"timeseries": {"num_shards": 2}}},
+                     troot + "/node", device="cpu")
+try:
+    with socket.create_connection(("127.0.0.1", tsrv.gateway.port)) as s:
+        s.sendall("".join(f"up,_ws_=w,_ns_=n,i=i{i % 3} value={i} "
+                          f"{(1_600_000_000 + 10 * i) * 10**9}\n"
+                          for i in range(30)).encode())
+    fc = FiloClient(port=tsrv.http.port)
+    healthy = fc.health()
+    client_rows = 0
+    for _ in range(300):
+        tsrv.gateway.sink.flush()
+        got = fc.query_range("count_over_time(up[1h])", 1_600_000_300,
+                             1_600_000_300, 60)
+        client_rows = sum(float(r["values"][0][1]) for r in got)
+        if client_rows == 30:
+            break
+        time.sleep(0.05)
+finally:
+    tsrv.shutdown()
+tools = [cli_lines[0], json.loads("\n".join(cli_lines[1:]))["status"],
+         healthy, client_rows, lockcheck.violations(),
+         racecheck.violations()]
+racecheck.uninstall()
+lockcheck.uninstall()
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -585,7 +638,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "longterm": longterm, "objectstore": objrows,
                   "standing": standing, "multiproc": [in_thread, spawned],
                   "cluster": cluster_rows, "ha": ha_rows,
-                  "remote": remote_rows,
+                  "remote": remote_rows, "tools": tools,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -661,4 +714,8 @@ def test_port_loads_no_jax_and_no_reference_module():
     # the three series' part keys are in the chunk store
     store = "RemoteColumnStore"
     assert res["remote"] == [[30, store, 30, store, 3]] * 2
+    # the command line imported and answered, the client read the node
+    # until every line was in, and neither checker saw a fault
+    assert res["tools"] == ["imported 60 samples", "success", True, 30.0,
+                            [], []]
     assert res["loaded"] == []

@@ -8,10 +8,15 @@ ninth writes chunks, part keys and checkpoints. Every read must return
 well-formed rows equal to what was written up to that read: at least
 what was committed before the read began, at most what had begun by its
 end, each chunk's bytes as written.
+
+``truncate`` (ROADMAP §C.19) empties a dataset: after it, a scan finds
+no part key and a read no chunk; beside readers of every shard, none of
+them fails or reads a closed connection.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 from filodb_tpu_torch.core.partkey import PartKey
@@ -162,3 +167,79 @@ def test_reads_beside_a_writer_return_what_was_written(tmp_path):
     finally:
         cs.close()
         ms.close()
+
+
+def _fill(cs, shards: int) -> None:
+    for s in range(shards):
+        cs.write_chunk_rows(DS, s, [(b, 1, 0, 9, _data(b, 1))
+                                    for b in BLOBS], ingestion_time=1)
+        cs.write_part_keys(DS, s, [PartKeyRecord(k, 0, 9) for k in KEYS])
+
+
+def test_truncate_empties_the_dataset(tmp_path):
+    cs = LocalDiskColumnStore(str(tmp_path))
+    try:
+        cs.initialize(DS, 2)
+        cs.initialize("other", 1)
+        _fill(cs, 2)
+        cs.write_chunk_rows("other", 0, [(BLOBS[0], 1, 0, 9, b"x")], 1)
+        assert len(cs.scan_part_keys(DS, 1)) == len(KEYS)
+        cs.truncate(DS)
+        assert not [f for f in os.listdir(tmp_path / DS)
+                    if f.startswith("shard-")]
+        for s in range(2):
+            assert cs.scan_part_keys(DS, s) == []
+            assert cs.read_chunk_rows(DS, s, BLOBS, 0, 1 << 40) == []
+            assert cs.max_persisted_ts(DS, s) == {}
+        # another dataset keeps its rows
+        assert cs.read_chunk_rows("other", 0, BLOBS[:1], 0, 1 << 40) == [
+            (BLOBS[0], b"x")]
+        # the store takes writes again, its counters past the old ones
+        before = cs.update_tokens(DS, 0)[0]
+        _fill(cs, 1)
+        assert len(cs.scan_part_keys(DS, 0)) == len(KEYS)
+        assert cs.update_tokens(DS, 0)[0] > before
+    finally:
+        cs.close()
+
+
+def test_truncate_beside_readers(tmp_path):
+    cs = LocalDiskColumnStore(str(tmp_path))
+    cs.initialize(DS, 2)
+    _fill(cs, 2)
+    stop = threading.Event()
+    errors: list[str] = []
+    reads = [0] * 4
+
+    def reader(i: int) -> None:
+        shard = i % 2
+        while not stop.is_set():
+            try:
+                rows = cs.read_chunk_rows(DS, shard, BLOBS, 0, 1 << 40)
+                recs = cs.scan_part_keys(DS, shard)
+            except Exception as e:  # noqa: BLE001 - reported by the test
+                errors.append(f"reader {i}: {e!r}")
+                return
+            if len(rows) not in (0, len(BLOBS)) \
+                    or len(recs) not in (0, len(KEYS)):
+                errors.append(f"reader {i}: {len(rows)} rows, "
+                              f"{len(recs)} part keys")
+                return
+            reads[i] += 1
+
+    threads = [threading.Thread(target=reader, args=(i,)) for i in range(4)]
+    try:
+        for t in threads:
+            t.start()
+        for _ in range(20):
+            cs.truncate(DS)
+            _fill(cs, 2)
+        stop.set()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads), "a reader hung"
+        assert not errors, "\n".join(errors[:5])
+        assert min(reads) > 0, reads
+    finally:
+        stop.set()
+        cs.close()

@@ -19,9 +19,9 @@ on the CPU:
 - the local-disk and object stores keep manifests durably, in the
   reference's files.
 
-The reference's tests arm ``lockcheck`` and ``racecheck``; the port has
-no ``lockcheck`` and its ``racecheck`` is a stand-in (ROADMAP A8), so
-these tests arm neither. Answers are held against the reference
+The reference's tests arm ``lockcheck`` and ``racecheck``; these arm
+neither of the port's (``utils/{lockcheck,racecheck}.py``, held on a
+node by ``tests/test_torch_{lockcheck,racecheck}.py``). Answers are held against the reference
 package's over the same containers at ``rtol=2e-5`` and against the
 cluster's own at ``rtol=1e-9``. Every wait is bounded by a deadline.
 """

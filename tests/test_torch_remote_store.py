@@ -302,18 +302,11 @@ class TestProtocol:
         assert cli.read(blobs[0]) == []
 
     def test_truncate(self, env):
-        srv_pkg, _, cli = env
+        # either package's server over its local-disk store truncates when
+        # either client asks (ROADMAP §C.19, closed)
+        _, _, cli = env
         (blob,) = _blobs(1)
         cli.write(blob, _chunks_for(blob), 1)
-        if srv_pkg == "port":
-            # the port's local-disk store has no truncate (ROADMAP §C.19):
-            # its server answers with an error, which the client raises
-            err = port_rs.StoreOpError if cli.port_side \
-                else ref_rs.StoreOpError
-            with pytest.raises(err, match="truncate"):
-                cli.cs.truncate("ds")
-            assert cli.read(blob) == _chunks_for(blob)
-            return
         cli.cs.truncate("ds")
         assert cli.read(blob) == []
 

@@ -26,9 +26,9 @@ CPU:
 Answers are held against the reference package's over the same
 containers (``rtol=2e-5``) and against the cluster's own before a kill
 (``rtol=1e-9``). The reference's tests arm ``lockcheck`` and
-``racecheck`` around the cluster; the port has no ``lockcheck`` and its
-``racecheck`` is a stand-in that tracks nothing (ROADMAP A8), so these
-tests arm neither. Every wait is bounded by a deadline.
+``racecheck`` around the cluster; these arm neither of the port's
+(``utils/{lockcheck,racecheck}.py``, held on a node by
+``tests/test_torch_{lockcheck,racecheck}.py``). Every wait is bounded by a deadline.
 """
 
 from __future__ import annotations
