@@ -421,6 +421,25 @@ checks it, phase by phase; any failed phase exits non-zero:
    its kernels against their plain versions), ``topkcard``, ``list`` and
    ``decodechunks``. Step 6: the node's launches in step 2 and the CLI's
    in step 4, each of B1-B4 above 0 (``launches_phase25``: their sum).
+26. the multi-device programs (``parallel/dist_query.py``) on the phase-2
+   store, after phase 7: the mesh engine's cached batch of phase 3's
+   ``sum(rate(http_requests_total[5m])) by (_ns_)`` selection decoded by
+   B1 and B2 a block of ``DIST_ROWS`` series at a time and compacted to
+   each row's valid samples first (NaN samples are gaps), the batch
+   cache dropped; then, in a process of its own (the tensors shared over
+   CUDA IPC), a one-rank NCCL group through ``init_distributed`` with
+   ``FILODB_MESH_DISTRIBUTED=1`` and ``make_query_mesh()`` (1x1):
+   ``make_distributed_sum_rate``, its ring form, ``make_distributed_
+   range_agg`` for every function of ``SPLIT_FNS`` under ``sum``, for
+   ``rate`` under every other op of ``MESH_AGG_OPS`` and with ``agg=None``,
+   and the split pipeline (bounds, prepare, eval, group reduce) of every
+   function of ``SPLIT_FNS``; each answer against the port's float64
+   ``range_eval`` plus ``aggregate`` (``DIST_TOL``), the ring and the
+   split pipeline bit for bit against the gather form and the fused
+   program, ``sum(rate)`` against the mesh engine's answer (B3,
+   ``DIST_B3_TOL``); each program's cold ms, warm ms (CUDA events, median
+   of ``DIST_REPS``) and peak device memory (a ``{"dist": ...}`` line;
+   ``launches_phase26``: B1's and B2's launches).
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -433,7 +452,8 @@ phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 2; ``--cluster-only``: phases 1 and 22, ``--cluster-series`` its scale;
 ``--ha-only``: phases 1 and 23, ``--ha-series`` its scale;
 ``--remote-only``: phases 1 and 24, ``--remote-series`` its scale;
-``--tools-only``: phases 1, 11 and 25, ``--tools-series`` its backfill).
+``--tools-only``: phases 1, 11 and 25, ``--tools-series`` its backfill;
+``--dist-only``: phases 1, 2 and 26).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -7434,15 +7454,10 @@ TOOLS_WARM = 5
 # the checked node's flush cadence: every group of a shard in 10 s
 TOOLS_FLUSH_MS = 10_000
 # checker reports ROADMAP §C names (patterns of a rendered violation);
-# any other whose sites lie in the port's modules fails the phase. §C.23:
-# a page-in or a seal over more than 4,096 series encodes on a thread
-# pool of its own (``partition.encode_pages``, ``chunk.py``'s codec
-# pool) and joins its threads while the shard's lock (and a query's
-# service lock) is held
-TOOLS_KNOWN_REPORTS = (
-    r"^\[blocking-under-lock\] thread=\S+: Thread\.join\("
-    r"ThreadPoolExecutor-\d+_\d+\) while holding lock\(s\) created at "
-    r"(query_service\.py:\d+, )?shard\.py:\d+$",)
+# any other whose sites lie in the port's modules fails the phase. None
+# is open: §C.23's thread join under the shard's lock is mended (the
+# encoders share one pool a process)
+TOOLS_KNOWN_REPORTS: tuple = ()
 TOOLS_HTTP_COMMANDS = (["status"], ["tiers"], ["meshstat"], ["lag"],
                        ["shardmap"], ["replicacheck"], ["rules"],
                        ["slowlog", "--limit", "3"], ["coststats"])
@@ -7837,6 +7852,389 @@ def _tools_backfill(dev, args, bdir: Path, start: int, end: int) -> dict:
     return out
 
 
+# phase 26: the multi-device query programs (``parallel/dist_query.py``) on
+# the phase-2 store's batch of phase 3's sum(rate) selection, B1 and B2
+# decoding it, run in a process of its own over a one-rank NCCL group (a
+# 1x1 mesh); every answer against the port's float64 range_eval plus
+# aggregate (DIST_TOL), the ring and the split pipeline bit for bit
+# against the gather form and the fused program, sum(rate) against the
+# mesh engine's answer (B3) through B3's own rows: every series-step where
+# the float64 rate and B3's float32 one differ past DIST_B3_TOL must sit
+# within float32 rounding (DIST_TIE) of Prometheus' extrapolation
+# threshold (integer counters put v_first / increase exactly on 1.1 /
+# (n - 1) often; there float32 and float64 take other branches, that
+# series' rate some % off in that step), checked in exact arithmetic;
+# B3's rows with those cells taken from float64 must sum to the programs'
+# answer (DIST_B3_TOL), and B3's rows to the mesh engine's (phase 5's
+# tolerance)
+DIST_TOL = dict(rtol=1e-9, atol=1e-12)
+DIST_B3_TOL = dict(rtol=2e-5, atol=1e-6)
+DIST_TIE = 1e-6
+DIST_MAX_TIES = 100_000
+DIST_REPS = 5
+DIST_ROWS = 1 << 17      # series decoded and compacted at once
+DIST_EVAL_ROWS = 1 << 16  # series a float64 range_eval chunk takes
+DIST_TIMEOUT_S = 600
+
+
+def _dist_timed(fn, reps: int, cuda: bool) -> tuple:
+    """(the answer, {cold_ms, warm_ms, peak_gb}): a first call on the
+    wall clock, then the median of ``reps`` calls (CUDA events on the
+    card), and the peak device memory over all of them."""
+    import torch
+
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    cold = (time.perf_counter() - t) * 1000.0
+    warm = []
+    for _ in range(reps):
+        if cuda:
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            warm.append(a.elapsed_time(b))
+        else:
+            t = time.perf_counter()
+            fn()
+            warm.append((time.perf_counter() - t) * 1000.0)
+    peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+    return out, {"cold_ms": round(cold, 3),
+                 "warm_ms": round(float(np.median(warm)), 4),
+                 "peak_gb": None if peak is None else round(peak, 3)}
+
+
+def _dist_float64(fn: str, ts, vals, counts, steps, window: int):
+    """The port's own float64 ``range_eval`` (row chunks), per series:
+    what a 1x1 mesh must answer before the group reduce."""
+    import torch
+
+    from filodb_tpu_torch.query.engine.kernels import range_eval
+
+    return torch.cat([range_eval(fn, ts[a:a + DIST_EVAL_ROWS],
+                                 vals[a:a + DIST_EVAL_ROWS],
+                                 counts[a:a + DIST_EVAL_ROWS], steps, window)
+                      for a in range(0, ts.shape[0], DIST_EVAL_ROWS)])
+
+
+def _dist_programs(mesh, ts, vals32, counts, gids, steps, window: int,
+                   G: int, reps: int, b3) -> dict:
+    """Every program of ``dist_query`` on this rank's (the whole) block,
+    each answer checked; {program: times and errors}."""
+    import torch
+
+    from filodb_tpu_torch.parallel import dist_query as dq
+
+    cuda = ts.is_cuda
+    S = ts.shape[1]
+    valid = torch.arange(S, device=ts.device)[None, :] < counts[:, None]
+    vals = vals32.double()
+    block = (ts, vals, valid, gids)
+    out, fused = {}, {}
+
+    def check(name, got, want, bitwise=False):
+        if bitwise:
+            ok = got.shape == want.shape and bool(torch.equal(
+                torch.nan_to_num(got, nan=-7.0),
+                torch.nan_to_num(want, nan=-7.0))) and bool(torch.equal(
+                    torch.isnan(got), torch.isnan(want)))
+            err = 0.0 if ok else None
+        else:
+            ok = got.shape == want.shape and bool(torch.allclose(
+                got, want, equal_nan=True, **DIST_TOL))
+            both = ~torch.isnan(got) & ~torch.isnan(want)
+            err = float((got - want)[both].abs().max()) if both.any() \
+                else 0.0
+        if not ok:
+            raise AssertionError(f"phase 26: {name} out of tolerance "
+                                 f"(max abs err {err})")
+        return err
+
+    def run(name, prog, *args, want=None, bitwise_to=None):
+        got, rec = _dist_timed(lambda: prog(*args), reps, cuda)
+        if want is not None:
+            rec["max_abs_err"] = check(name, got, want)
+        if bitwise_to is not None:
+            check(name, got, bitwise_to, bitwise=True)
+            rec["bitwise"] = True
+        if isinstance(got, torch.Tensor):
+            rec["finite"] = int(torch.isfinite(got).sum())
+        out[name] = rec
+        return got
+
+    per_series = {}
+
+    def float64(fn, agg):
+        """The float64 answer; each function's rows are evaluated once and
+        kept while its aggregations are checked."""
+        if fn not in per_series:
+            per_series.clear()
+            per_series[fn] = _dist_float64(fn, ts, vals, counts, steps,
+                                           window)
+        per = per_series[fn]
+        if agg is None:
+            return per
+        from filodb_tpu_torch.query.engine.aggregations import aggregate
+        return aggregate(agg, per, gids, G)
+
+    sum_rate = run("sum_rate", dq.make_distributed_sum_rate(mesh, G),
+                   *block, steps, window, want=float64("rate", "sum"))
+    run("sum_rate_ring", dq.make_distributed_sum_rate_ring(mesh, G),
+        *block, steps, window, bitwise_to=sum_rate)
+    for agg in dq.MESH_AGG_OPS + (None,):
+        if agg != "sum":
+            got = run(f"range_agg:rate:{agg}",
+                      dq.make_distributed_range_agg(mesh, "rate", G, agg),
+                      *block, steps, window, want=float64("rate", agg))
+    # B3's rows against the float64 rows (agg=None), ties explained
+    out["_b3"] = _b3_against(got, b3, ts, vals, counts, gids, steps,
+                             window, G, sum_rate)
+    del got
+    for fn in dq.SPLIT_FNS:
+        fused[fn] = run(f"range_agg:{fn}:sum",
+                        dq.make_distributed_range_agg(mesh, fn, G, "sum"),
+                        *block, steps, window, want=float64(fn, "sum"))
+    per_series.clear()
+    # the split pipeline: bounds, prepare, eval, group reduce, each timed
+    lo, hi = run("split:bounds", dq.make_mesh_bounds(mesh), ts, steps,
+                 window)
+    cv = run("split:prepare:counter", dq.make_mesh_prepare(mesh, "counter"),
+             vals, valid)
+    prefix = None
+    reduce = dq.make_mesh_group_reduce(mesh, G, "sum")
+    for fn in dq.SPLIT_FNS:
+        if fn in dq.COUNTER_FNS:
+            rows = run(f"split:eval:{fn}", dq.make_mesh_eval_delta(mesh, fn),
+                       ts, vals, valid, lo, hi, steps, window,
+                       cv if dq.COUNTER_FNS[fn][1] else None)
+        else:
+            if prefix is None:
+                cv = None  # the counter correction's last user is done
+                prefix = run("split:prepare:prefix",
+                             dq.make_mesh_prepare(mesh, "prefix"), vals,
+                             valid)
+            rows = run(f"split:eval:{fn}",
+                       dq.make_mesh_eval_simple(mesh, fn), ts, vals, valid,
+                       *prefix, lo, hi, steps, window)
+        run(f"split:reduce:{fn}", reduce, rows, gids, bitwise_to=fused[fn])
+        del rows
+    out["_sum_rate"] = sum_rate.cpu().numpy()
+    return out
+
+
+def _threshold_tie(t, v, st: int, w: int) -> bool:
+    """Whether the window (st - w, st] of one series (its valid samples'
+    int ms ``t`` and values ``v``) has Prometheus' extrapolation sitting
+    within float32 rounding of its threshold, in exact arithmetic."""
+    from fractions import Fraction
+
+    at = [j for j in range(len(t)) if st - w < t[j] <= st]
+    if len(at) < 2:
+        return False
+    j0, j1 = at[0], at[-1]
+    inc = Fraction(v[j1]) - Fraction(v[j0]) + sum(
+        (Fraction(v[j - 1]) for j in at[1:] if v[j] < v[j - 1]),
+        Fraction(0))
+    sampled = Fraction(t[j1] - t[j0], 1000)
+    thr = sampled / (len(at) - 1) * Fraction(11, 10)
+    start = Fraction(t[j0] - (st - w), 1000)
+    if inc > 0:
+        start = min(start, sampled * Fraction(v[j0]) / inc)
+    end = Fraction(st - t[j1], 1000)
+    return any(abs(d - thr) <= DIST_TIE * thr for d in (start, end))
+
+
+def _b3_against(rows64, b3, ts, vals, counts, gids, steps, window: int,
+                G: int, sum_rate) -> dict:
+    """B3's float32 rows [P, K] against the programs' float64 rows: the
+    cells past DIST_B3_TOL, each a threshold tie (else it raises); B3's
+    rows with those cells from float64, summed by group, against the
+    programs' ``sum_rate``; and B3's rows summed as the engine sums them,
+    for the parent to hold against the mesh engine's answer."""
+    import torch
+
+    from filodb_tpu_torch.query.engine.aggregations import aggregate
+
+    b3 = b3.double()
+    off = ~torch.isclose(rows64, b3, equal_nan=True, **DIST_B3_TOL)
+    cells = off.nonzero().cpu().tolist()
+    if len(cells) > DIST_MAX_TIES:
+        raise AssertionError(f"phase 26: B3 and float64 differ at "
+                             f"{len(cells)} series-steps")
+    host_steps = steps.cpu().tolist()
+    for i, k in cells:
+        n = int(counts[i])
+        t = ts[i, :n].cpu().tolist()
+        v = vals[i, :n].cpu().tolist()
+        if not _threshold_tie(t, v, host_steps[k], window):
+            raise AssertionError(
+                f"phase 26: series {i} step {k}: B3 {float(b3[i, k])} "
+                f"against float64 {float(rows64[i, k])}, no threshold tie")
+    mixed = aggregate("sum", torch.where(off, rows64, b3), gids, G)
+    if not torch.allclose(mixed, sum_rate, equal_nan=True, **DIST_B3_TOL):
+        raise AssertionError("phase 26: B3's rows (ties from float64) do "
+                             "not sum to the programs' sum(rate)")
+    return {"cells": int(off.numel()), "ties": len(cells),
+            "sum": aggregate("sum", b3, gids, G).cpu().numpy()}
+
+
+def _dist_child(queue, ts, vals32, counts, gids, steps, window: int,
+                G: int, reps: int, addr: str, b3) -> None:
+    """The phase's process: a one-rank group (NCCL on the card, gloo on
+    the CPU) through ``init_distributed``, the 1x1 mesh, every program;
+    its numbers or its failure go back on ``queue``."""
+    import os
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    os.environ["FILODB_MESH_DISTRIBUTED"] = "1"
+    try:
+        from filodb_tpu_torch.parallel import dist_query as dq
+        from filodb_tpu_torch.parallel.multiproc import init_distributed
+
+        t = time.perf_counter()
+        init_distributed(addr, 1, 0)
+        mesh = dq.make_query_mesh()
+        opened = {"backend": dist.get_backend(),
+                  "mesh": list(mesh.shape),
+                  "group_s": round(time.perf_counter() - t, 3)}
+        out = _dist_programs(mesh, ts, vals32, counts, gids, steps, window,
+                             G, reps, b3)
+        # the parent's, over CUDA IPC
+        del ts, vals32, counts, gids, steps, b3
+        queue.put(("ok", {"group": opened, **out}))
+    except Exception:  # noqa: BLE001 - the parent raises it
+        queue.put(("err", traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def dist_phase(svc, args) -> dict:
+    """Phase 26 (see the module): decode and compact the batch here (B1,
+    B2), then the programs in a process of their own."""
+    import queue as queue_mod
+    import socket
+
+    import torch
+    import torch.multiprocessing as tmp
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.query.engine import cuda_kernels as ck
+    from filodb_tpu_torch.query.engine.device_batch import assemble
+
+    t0 = time.perf_counter()
+    q0 = QUERIES[0][0]
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    eng = svc.mesh
+    answer = svc.query_range(q0, start, 60, end).result
+    low, amr = lowered(eng, q0, start, end)
+    batch = eng._batch(svc.memstore, low)
+    gids, gkeys = keys_group_ids(eng, amr, batch.out_keys)
+    dev = batch.packed[0].device
+    P, S = len(batch.keys), args.samples
+    range_len = batch.end - batch.base
+    _build.reset_counts()
+    ts_c = torch.full((P, S), np.iinfo(np.int32).max, dtype=torch.int32,
+                      device=dev)
+    vals_c = torch.zeros((P, S), dtype=torch.float32, device=dev)
+    counts = torch.zeros(P, dtype=torch.int64, device=dev)
+    for a in range(0, P, DIST_ROWS):
+        b = min(a + DIST_ROWS, P)
+        ts, vals, valid = assemble(tuple(x[a:b] for x in batch.packed),
+                                   range_len)
+        # the programs take each row's valid samples first (a prefix, as
+        # pad_for_mesh makes it); a NaN sample is a gap, as B3 reads it
+        ok = valid & ~torch.isnan(vals)
+        at = torch.where(ok, torch.cumsum(ok, 1) - 1, S)
+        if int(at.masked_fill(~ok, -1).max()) >= S:
+            raise AssertionError("phase 26: a series holds more samples "
+                                 "than --samples")
+        for dst, src in ((ts_c, ts), (vals_c, vals)):
+            buf = torch.zeros((b - a, S + 1), dtype=src.dtype, device=dev)
+            buf[:, :S] = dst[a:b]
+            dst[a:b] = buf.scatter_(1, at, src)[:, :S]
+        counts[a:b] = ok.sum(1)
+        del ts, vals, valid, ok, at
+    launches = dict(_build.LAUNCHES)
+    host = leaf_steps(low)
+    steps = host.to(dev)
+    b3_rows = ck.fused_decode_rate(batch.packed, steps, low.window, low.fn,
+                                   True, ck.steps_in_flight(host, low.window)
+                                   )[:P]
+    del batch
+    svc.batches.clear()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    prep_s = time.perf_counter() - t0
+    log(f"  decoded and compacted {P} series x {S} samples ({int(counts.sum())}"
+        f" valid) in {prep_s:.1f} s; launches {launches}")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+    ctx = tmp.get_context("spawn")
+    results = ctx.Queue()
+    proc = ctx.Process(target=_dist_child, args=(
+        results, ts_c, vals_c, counts, gids.to(dev), steps, int(low.window),
+        len(gkeys), DIST_REPS, addr, b3_rows))
+    proc.start()
+    try:
+        status, got = results.get(timeout=DIST_TIMEOUT_S)
+    except queue_mod.Empty:
+        raise AssertionError(f"phase 26: no answer within {DIST_TIMEOUT_S} s"
+                             ) from None
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=30)
+        del proc
+        if dev.type == "cuda":
+            torch.cuda.ipc_collect()  # the child's handles of our tensors
+    if status != "ok":
+        raise AssertionError(f"phase 26 failed in its process:\n{got}")
+    del ts_c, vals_c, b3_rows
+    # B3's rows summed against the mesh engine's answer (phase 5's check)
+    order = {str(k): i for i, k in enumerate(gkeys)}
+    idx = [order[str(k)] for k in answer.keys]
+    b3 = got.pop("_b3")
+    b3_sum = b3.pop("sum")[idx]
+    mesh_vals = np.asarray(answer.values)
+    if not np.allclose(b3_sum, mesh_vals, rtol=1e-5, atol=1e-6,
+                       equal_nan=True):
+        raise AssertionError("phase 26: B3's rows do not sum to the mesh "
+                             "engine's sum(rate)")
+    mine = got.pop("_sum_rate")[idx]
+    fin = np.isfinite(mine) & np.isfinite(mesh_vals)
+    b3["max_abs_err"] = float(np.abs(mine - mesh_vals)[fin].max())
+    b3["max_rel_err"] = float((np.abs(mine - mesh_vals)[fin] / np.maximum(
+        np.abs(mesh_vals[fin]), 1e-300)).max())
+    missing = [k for k in ("decode_ts_page", "decode_f32_page")
+               if not launches[k]]
+    if dev.type == "cuda" and missing:
+        raise AssertionError(f"phase 26: {missing} did not launch")
+    total = time.perf_counter() - t0
+    log(f"  group {got['group']}; sum(rate) against the mesh engine's "
+        f"(B3): {b3}")
+    for name, rec in got.items():
+        if name != "group":
+            log(f"  {name}: {rec}")
+    return {"series": P, "samples": S, "groups": len(gkeys),
+            "steps": int(steps.numel()), "prep_s": round(prep_s, 2),
+            "seconds": round(total, 2), "launches": launches,
+            "b3": b3, **got}
+
+
 def _tail(path, n: int = 3000) -> str:
     try:
         return Path(path).read_text()[-n:]
@@ -8107,6 +8505,9 @@ def main() -> int:
     ap.add_argument("--tools-series", type=int, default=TOOLS_SERIES,
                     help="phase 25's backfill: the phase-2 generator's "
                     "first N series as CSV rows through filo-cli importcsv")
+    ap.add_argument("--dist-only", action="store_true",
+                    help="build and run phases 1, 2 and 26 only (the "
+                    "multi-device programs on the phase-2 store)")
     ap.add_argument("--tools-only", action="store_true",
                     help="build and run phases 11 and 25 only (the "
                     "operator's tools: a node under the checkers, filo-cli "
@@ -8258,6 +8659,18 @@ def _phases(args, smi) -> int:
         remove_dir(args.durable_dir)
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.dist_only:
+        t = time.perf_counter()
+        store = main_store()
+        kept = ingest(store, args.series, args.samples, args.seed)
+        log(f"phase 2: ingest: {args.series} series, {kept} samples, "
+            f"{time.perf_counter() - t:.1f} s on the host")
+        log("phase 26: the multi-device programs on the phase-2 store "
+            "(a 1x1 mesh over a one-rank NCCL group)")
+        print(json.dumps({"dist": dist_phase(smoke_service(
+            store, device=torch.device("cuda")), args)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.tools_only:
         durable = durability_phase(torch.device("cuda"), args)
         served = durable.pop("tools_bodies")
@@ -8293,6 +8706,10 @@ def _rest(args, smi, kernels, svc) -> int:
     torch.cuda.empty_cache()
     promql = promql_phase(svc, args)
     print(json.dumps({"promql": promql}))
+    log("phase 26: the multi-device programs on the phase-2 store "
+        "(a 1x1 mesh over a one-rank NCCL group)")
+    dist = dist_phase(svc, args)
+    print(json.dumps({"dist": dist}))
     # phases 21 step 1, 10, 9, 17 and 20 on a store of their own of the
     # phase-2 generator's first CORE_SERIES series (their scale cut for the
     # smoke's limit; --exec-only, --multiproc-only, --ingest-only and
@@ -8392,6 +8809,8 @@ def _rest(args, smi, kernels, svc) -> int:
         kern["launches_phase24"] = remote["launches"][kern["name"]]
         # the checked node's behind its HTTP API and the embedded CLI's
         kern["launches_phase25"] = tools["launches"][kern["name"]]
+        # B1 and B2 decoding the programs' inputs (B3 and B4 run none)
+        kern["launches_phase26"] = dist["launches"][kern["name"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

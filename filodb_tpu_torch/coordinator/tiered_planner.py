@@ -95,13 +95,17 @@ class TieredPlanner:
             refresh = getattr(ds, "refresh", None)  # a streaming ds store
             if refresh is not None:                 # has no index to load
                 refresh()
-            tiers.append({"tier": DOWNSAMPLE,
-                          "series": sum(sh.num_partitions
-                                        for sh in ds.shards),
-                          "bytes": None, "floorMs": None,
-                          "ceilMs": raw_floor,
-                          "resolutionMs": getattr(ds, "resolution_ms",
-                                                  None)})
+            entry = {"tier": DOWNSAMPLE,
+                     "series": sum(sh.num_partitions for sh in ds.shards),
+                     "bytes": None, "floorMs": None, "ceilMs": raw_floor,
+                     "resolutionMs": getattr(ds, "resolution_ms", None)}
+            # the bytes where the store can say them (the object store),
+            # under the ds dataset's name, as the reference's
+            stats = getattr(ds.column_store, "dataset_stats", None)
+            if stats is not None:
+                entry["bytes"] = stats(getattr(ds, "ds_dataset",
+                                               ds.dataset)).get("bytes")
+            tiers.append(entry)
         return {"memFloorMs": mem_floor, "rawFloorMs": raw_floor,
                 "tiers": tiers}
 

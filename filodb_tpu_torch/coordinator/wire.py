@@ -81,6 +81,7 @@ def _build_registry() -> dict[str, type]:
         StepMatrix,
         TraceContext,
     )
+    from filodb_tpu_torch.coordinator.migration import MigrationManifest
     from filodb_tpu_torch.utils.governor import QueryBudget
 
     reg: dict[str, type] = {}
@@ -94,9 +95,9 @@ def _build_registry() -> dict[str, type]:
                  _tr.RangeVectorTransformer):
         reg[base.__name__] = base
         walk(base)
-    for cls in (ColumnFilter, PartKey, LoweredDescriptor, PlannerParams,
-                QueryBudget, QueryContext, QueryResult, QueryStats,
-                RangeVectorKey, StepMatrix, TraceContext):
+    for cls in (ColumnFilter, PartKey, LoweredDescriptor, MigrationManifest,
+                PlannerParams, QueryBudget, QueryContext, QueryResult,
+                QueryStats, RangeVectorKey, StepMatrix, TraceContext):
         reg[cls.__name__] = cls
     return reg
 

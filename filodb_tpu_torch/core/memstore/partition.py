@@ -40,8 +40,6 @@ dead and its pages go at the table's next compaction.
 
 from __future__ import annotations
 
-from concurrent.futures import ThreadPoolExecutor
-
 import numpy as np
 
 from filodb_tpu_torch.core.memstore import native_shard
@@ -50,6 +48,7 @@ from filodb_tpu_torch.memory.chunk import (
     SKETCH_BUCKETS,
     STATS_WIDTH,
     ChunkBytes,
+    encode_pool,
     summary_kinds,
     summary_sections,
 )
@@ -62,10 +61,10 @@ from filodb_tpu_torch.query.engine.device_batch import (
     multi_chunk_blocks,
 )
 
-# encode at most this many series' chunks per worker task, on this many
-# threads (the card's host has 8 cores)
+# encode at most this many series' chunks per worker task, on the
+# encoders' pool (``memory/chunk.py::encode_pool``, 8 threads: the card's
+# host has 8 cores)
 _ENCODE_ROWS = 4096
-_ENCODE_WORKERS = 8
 # the value columns a histogram sample carries beside its buckets
 HIST_COLUMNS = ("sum", "count")
 _NCOL = len(HIST_COLUMNS)
@@ -351,8 +350,7 @@ def encode_pages(ts: np.ndarray, vals: np.ndarray, rows: np.ndarray,
         return PageBlocks.encode(tb, vb, rb), per
 
     if len(spans) > 1:
-        with ThreadPoolExecutor(min(_ENCODE_WORKERS, len(spans))) as pool:
-            parts = list(pool.map(one, spans))
+        parts = list(encode_pool().map(one, spans))
     else:
         parts = [one(s) for s in spans]
     if not parts:

@@ -92,8 +92,7 @@ class FileLog(ReplayLog):
         self._index: list[tuple[int, int]] = []  # (offset, pos)
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         if os.path.exists(path):
-            with self._lock:
-                self._recover_scan()
+            self._recover_scan()
         elif read_only:
             raise FileNotFoundError(path)
         else:
@@ -112,6 +111,13 @@ class FileLog(ReplayLog):
         self._f = None if read_only else open(path, "ab")
 
     def _recover_scan(self):
+        # only called from __init__, but _count/_index are lock-guarded
+        # everywhere else: held here too, so the invariant is uniform (and
+        # checkable), as the reference's
+        with self._lock:
+            self._recover_scan_locked()
+
+    def _recover_scan_locked(self):
         size = os.path.getsize(self.path)
         with open(self.path, "rb") as f:
             if f.read(5) != self.MAGIC:

@@ -24,6 +24,7 @@ their ``SC01`` sections and ``read_summaries`` reads them back.
 from __future__ import annotations
 
 import struct
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
@@ -374,10 +375,25 @@ def _spans(n: int) -> list[tuple[int, int]]:
     return [(a, min(a + _BATCH, n)) for a in range(0, n, _BATCH)]
 
 
+_pool: list = []
+_pool_lock = threading.Lock()
+
+
+def encode_pool() -> ThreadPoolExecutor:
+    """The encoders' one pool a process, made at first use: a seal or a
+    page-in encodes under the shard's lock, where starting and joining a
+    pool of its own would be a thread join under a held lock (ROADMAP
+    §C.23); waiting on this pool's futures joins no thread."""
+    with _pool_lock:
+        if not _pool:
+            _pool.append(ThreadPoolExecutor(
+                _WORKERS, thread_name_prefix="chunk-encode"))
+        return _pool[0]
+
+
 def _on_threads(fn, spans):
     if len(spans) > 1:
-        with ThreadPoolExecutor(min(_WORKERS, len(spans))) as pool:
-            return list(pool.map(fn, spans))
+        return list(encode_pool().map(fn, spans))
     return [fn(s) for s in spans]
 
 

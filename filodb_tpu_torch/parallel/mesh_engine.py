@@ -106,6 +106,7 @@ import numpy as np
 import torch
 
 from filodb_tpu_torch.device import EXACT_DTYPE
+from filodb_tpu_torch.parallel import dist_query
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.engine import sidecar_lane
 from filodb_tpu_torch.query.engine.aggregations import AGG_OPS
@@ -149,13 +150,10 @@ from filodb_tpu_torch.query.model import (
 from filodb_tpu_torch.utils.metrics import get_counter
 from filodb_tpu_torch.utils.resilience import check
 
-# the reference's split-pipeline functions (``dist_query.SPLIT_FNS``) and
-# the instant selector, which the reference evaluates as last_over_time:
-# their evaluated windows are cached
-SPLIT_FNS = ("rate", "increase", "delta", "sum_over_time",
-             "count_over_time", "avg_over_time", "last_over_time",
-             "present_over_time", "stddev_over_time", "stdvar_over_time",
-             "last_sample")
+# the split-pipeline functions (``dist_query.SPLIT_FNS``) and the instant
+# selector, which the reference evaluates as last_over_time: their
+# evaluated windows are cached
+SPLIT_FNS = dist_query.SPLIT_FNS + ("last_sample",)
 _M_EVAL = {e: get_counter("filodb_mesh_eval_cache", {"event": e},
                           help="cached per-series window evaluation "
                           "hits/misses on the split pipeline")

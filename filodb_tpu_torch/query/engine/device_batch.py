@@ -162,8 +162,9 @@ def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
     Entry j (ordered by row, then by time) puts block ``block_of[j]`` of
     ``tables[table_of[j]]`` into the next slot of row ``row_of[j]``.
     Returns the nine [P, NB(, 128)] arrays in ``_assemble``'s parameter
-    order, with timestamps rebased to ``start``, and the valid-sample count
-    of each row."""
+    order, with timestamps rebased to ``start`` (a number, or an int64
+    array [n_rows] of each row's), and the valid-sample count of each
+    row."""
     P, NB, slot = _layout(row_of, n_rows)
     rel_bases = np.zeros((P, NB), np.int32)
     ts_slopes = np.zeros((P, NB), np.int32)
@@ -180,7 +181,8 @@ def pack_blocks(tables: list[PageBlocks], table_of: np.ndarray,
         if not len(sel):
             continue
         r, s, b = row_of[sel], slot[sel], block_of[sel]
-        rel_bases[r, s] = (tab.ts_bases[b] - start).astype(np.int32)
+        rel_bases[r, s] = (tab.ts_bases[b] - (
+            start if np.ndim(start) == 0 else start[r])).astype(np.int32)
         ts_slopes[r, s] = tab.ts_slopes[b]
         ts_widths[r, s] = tab.ts_widths[b]
         ts_words[r, s] = tab.ts_words[b]
@@ -394,7 +396,8 @@ def pack_hist_blocks(tables: list[HistPageBlocks], table_of: np.ndarray,
             continue
         r, s, b = row_of[sel], slot[sel], block_of[sel]
         Bt = tab.buckets
-        rel_bases[r, s] = (tab.ts_bases[b] - start).astype(np.int32)
+        rel_bases[r, s] = (tab.ts_bases[b] - (
+            start if np.ndim(start) == 0 else start[r])).astype(np.int32)
         ts_slopes[r, s] = tab.ts_slopes[b]
         ts_widths[r, s] = tab.ts_widths[b]
         ts_words[r, s] = tab.ts_words[b]

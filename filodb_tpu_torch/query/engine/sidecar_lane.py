@@ -253,7 +253,7 @@ def fold_rows(ts: torch.Tensor, vals: torch.Tensor, mask: torch.Tensor,
               base: int = 0) -> torch.Tensor:
     """Stats [R, 12] of the samples ``mask`` keeps in each row of
     (ts, vals float64) [R, L], in row order; timestamps are ``ts + base``
-    (epoch ms)."""
+    (epoch ms; ``base`` a number, or a float64 tensor [R] of each row's)."""
     R, L = vals.shape
     dev = vals.device
     nan = torch.tensor(float("nan"), dtype=torch.float64, device=dev)
@@ -401,7 +401,9 @@ class _Segments:
     """Chunks of a leaf (its edge chunks), rows ``chunk_rows`` of ``table``
     (the shard's sealed chunks, or its ODP cache's), packed as the rows of
     one batch on the device; ``fold`` decodes the rows it needs by B1/B2
-    (values the pages' float32), timestamps relative to ``base``."""
+    (values the pages' float32), each row's timestamps relative to its own
+    first block (``base[row]``; ``base`` is the fallback of a row with
+    none)."""
 
     def __init__(self, shard, chunk_rows: np.ndarray, base: int, device,
                  table=None):
@@ -415,16 +417,26 @@ class _Segments:
         block_of = [blocks - offsets[seg]]
         row_of = [np.repeat(np.arange(len(chunk_rows)),
                             col["nblk"][chunk_rows])]
-        self.base = base
         self.device = device
         self.n_rows = len(chunk_rows)
+        # each row's timestamps are relative to its own first block: the
+        # rows of a leaf's edges can lie further apart than int32 ms hold
+        # (a grid of 30-day steps), a chunk's samples cannot
+        self.base = np.full(self.n_rows, base, np.int64)
         self.packed = None
         self.nbytes = 0
         if self.n_rows:
-            packed, _ = pack_blocks(tables, np.concatenate(table_of),
-                                    np.concatenate(block_of),
-                                    np.concatenate(row_of), self.n_rows,
-                                    base)
+            ent_tab, ent_blk = table_of[0], block_of[0]
+            ent_row = row_of[0]
+            first = np.full(self.n_rows, np.iinfo(np.int64).max)
+            for t, tab in enumerate(tables):
+                sel = ent_tab == t
+                np.minimum.at(first, ent_row[sel], np.asarray(
+                    tab.ts_bases, np.int64)[ent_blk[sel]])
+            self.base = np.where(first == np.iinfo(np.int64).max, base,
+                                 first)
+            packed, _ = pack_blocks(tables, ent_tab, ent_blk, ent_row,
+                                    self.n_rows, self.base)
             self.packed = to_device(packed, device)
             self.nbytes = sum(t.numel() * t.element_size()
                               for t in self.packed)
@@ -435,8 +447,9 @@ class _Segments:
         if not self.n_rows:
             z = np.zeros((0, 1))
             return z.astype(np.int64), z, z.astype(bool)
-        ts, vals, valid = decode_packed(self.packed)
-        return (ts.cpu().numpy().astype(np.int64) + self.base,
+        n = self.n_rows  # the packed rows past them are padding
+        ts, vals, valid = (x[:n] for x in decode_packed(self.packed))
+        return (ts.cpu().numpy().astype(np.int64) + self.base[:, None],
                 vals.cpu().numpy().astype(np.float64), valid.cpu().numpy())
 
     def fold(self, rows: np.ndarray, t0s: np.ndarray,
@@ -448,15 +461,18 @@ class _Segments:
             return _empty_stats(0, dev)
         outs = []
         for a in range(0, len(rows), _FOLD_PAIRS):
-            r = torch.from_numpy(rows[a:a + _FOLD_PAIRS]).to(dev)
+            rr = rows[a:a + _FOLD_PAIRS]
+            r = torch.from_numpy(rr).to(dev)
             ts, vals, valid = decode_packed(tuple(t[r] for t in self.packed))
-            t0 = torch.from_numpy(t0s[a:a + _FOLD_PAIRS] - self.base).to(
+            base = self.base[rr]
+            t0 = torch.from_numpy(t0s[a:a + _FOLD_PAIRS] - base).to(
                 dev)[:, None]
-            t1 = torch.from_numpy(t1s[a:a + _FOLD_PAIRS] - self.base).to(
+            t1 = torch.from_numpy(t1s[a:a + _FOLD_PAIRS] - base).to(
                 dev)[:, None]
             mask = valid & (ts > t0) & (ts <= t1)
             outs.append(fold_rows(ts, vals.to(torch.float64), mask,
-                                  self.base))
+                                  torch.from_numpy(base).to(
+                                      dev, torch.float64)))
         return torch.cat(outs)
 
 

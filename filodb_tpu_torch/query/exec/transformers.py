@@ -753,6 +753,10 @@ class ScalarOperationMapper(RangeVectorTransformer):
 
     def apply(self, data: StepMatrix) -> StepMatrix:
         v = tensor_of(data)
+        if v.numel() == 0:
+            # no series: the empty vector (a tier's [0, 0] matrix cannot
+            # take a per-step scalar's K steps), as the reference returns
+            return data.derive_without_metric(v)
         if isinstance(self.scalar, torch.Tensor):
             if self.scalar.dim() != 1 or data.is_histogram:
                 raise UnsupportedQuery(

@@ -48,7 +48,11 @@ its durable tier, fed by its gateway and flushed over the wire, and a
 second node on a fresh directory answering from the remote tiers; and
 the operator's tools' (``cli``, ``client``, ``utils/lockcheck``,
 ``utils/racecheck``), through the command line's ``importcsv`` and
-``promql`` and a client reading a node, with both checkers armed. The
+``promql`` and a client reading a node, with both checkers armed; and
+the multi-device programs' (``parallel/dist_query``) through
+``make_distributed_sum_rate`` on a one-rank gloo group (a 1x1 mesh),
+equal to the port's float64 functions, and filolint's
+(``analysis``) through ``run_all`` over a small tree. The
 spawned worker's seed callable, run inside the
 worker, exits it where ``jax`` or ``filodb_tpu`` is loaded and blocks
 both for the rest of its life, so a worker that loaded either never
@@ -623,6 +627,48 @@ tools = [cli_lines[0], json.loads("\n".join(cli_lines[1:]))["status"],
 racecheck.uninstall()
 lockcheck.uninstall()
 
+# the multi-device programs on a one-rank gloo group (1x1), against the
+# port's own float64 range_eval plus aggregate; filolint over a small tree
+import os, tempfile, torch
+import torch.distributed as tdist
+from filodb_tpu_torch import analysis
+from filodb_tpu_torch.parallel import dist_query as dq
+from filodb_tpu_torch.parallel.multiproc import init_distributed
+from filodb_tpu_torch.query.engine import aggregations as _agg
+from filodb_tpu_torch.query.engine import kernels as _kern
+os.environ["FILODB_MESH_DISTRIBUTED"] = "1"
+init_distributed(f"127.0.0.1:{from_jax.free_port()}", 1, 0)
+try:
+    dmesh = dq.make_query_mesh()
+    rng = np.random.default_rng(0)
+    dts = np.cumsum(rng.integers(5_000, 15_000, (6, 40)), 1).astype(np.int32)
+    dvals = np.cumsum(rng.integers(0, 9, (6, 40)), 1).astype(float)
+    dcounts = np.full(6, 40, np.int32)
+    dgids = (np.arange(6) % 2).astype(np.int32)
+    dsteps = np.arange(200_000, 400_000, 60_000, dtype=np.int32)
+    blocks = dq.shard_batch_arrays(dmesh, *dq.pad_for_mesh(
+        dts, dvals, dcounts, dgids, dmesh))
+    dgot = dq.make_distributed_sum_rate(dmesh, 2)(
+        *blocks, torch.as_tensor(dsteps), 300_000)
+    dwant = _agg.aggregate("sum", _kern.range_eval(
+        "rate", torch.as_tensor(dts), torch.as_tensor(dvals),
+        torch.as_tensor(dcounts), torch.as_tensor(dsteps), 300_000),
+        torch.as_tensor(dgids), 2)
+    dist_rows = [list(dmesh.shape), bool(torch.allclose(
+        dgot, dwant, rtol=1e-9, atol=1e-12, equal_nan=True)),
+        int((~torch.isnan(dgot)).sum())]
+finally:
+    tdist.destroy_process_group()
+lroot = tempfile.mkdtemp()
+os.makedirs(lroot + "/filodb_tpu_torch/parallel")
+with open(lroot + "/filodb_tpu_torch/parallel/d.py", "w") as f:
+    f.write("def make_step(mesh):\n"
+            "    def step(x):\n"
+            "        return x.item()\n"
+            "    return step\n")
+lint = [f.code for f in analysis.run_all(lroot)
+        if f.path.endswith("parallel/d.py")]
+
 loaded = sorted(m for m, mod in sys.modules.items() if mod is not None
                 and (m == "jax" or m.startswith("jax.")
                      or m == "filodb_tpu" or m.startswith("filodb_tpu.")))
@@ -639,6 +685,7 @@ print(json.dumps({"series": len(body["data"]["result"]),
                   "standing": standing, "multiproc": [in_thread, spawned],
                   "cluster": cluster_rows, "ha": ha_rows,
                   "remote": remote_rows, "tools": tools,
+                  "dist": dist_rows, "lint": lint,
                   "host": [host.stats.host_lane, host.result.num_series],
                   "mean": [mean.stats.engine, mean.result.num_series,
                            float(np.nanmax(mean.result.values))],
@@ -718,4 +765,9 @@ def test_port_loads_no_jax_and_no_reference_module():
     # until every line was in, and neither checker saw a fault
     assert res["tools"] == ["imported 60 samples", "success", True, 30.0,
                             [], []]
+    # the 1x1 program on a gloo group answered what the port's float64
+    # functions answer, and filolint over the port found the host sync in
+    # a factory's program
+    assert res["dist"][:2] == [[1, 1], True] and res["dist"][2] > 0
+    assert res["lint"] == ["HP301"]
     assert res["loaded"] == []

@@ -337,13 +337,16 @@ def test_env_switch_arms_a_node_with_no_report():
 
 
 def test_page_encode_joins_its_pool_under_a_held_lock_pins_c23():
-    """ROADMAP §C.23: ``encode_pages`` over more than ``_ENCODE_ROWS``
-    series encodes on a thread pool of its own and joins its threads on
-    return; under the shard's lock (a page-in, a seal) that is a blocking
-    call under a lock, as phase 25's checked node on the card reports."""
+    """ROADMAP §C.23, closed: ``encode_pages`` over more than
+    ``_ENCODE_ROWS`` series, and ``encode_chunks`` over more than one
+    batch, encode on the encoders' one pool a process; under a held lock
+    (the shard's, in a page-in or a seal) they wait on its futures and
+    join no thread, so the checker reports nothing (it reported a
+    ``Thread.join`` of a pool made for the call)."""
     import numpy as np
 
     from filodb_tpu_torch.core.memstore import partition
+    from filodb_tpu_torch.memory import chunk
 
     n = partition._ENCODE_ROWS + 1
     ts = np.arange(8, dtype=np.int64)[None, :].repeat(n, 0) * 10_000
@@ -351,9 +354,10 @@ def test_page_encode_joins_its_pool_under_a_held_lock_pins_c23():
     rows = np.full(n, 8, np.int64)
     with lockcheck.session():
         shard_lock = threading.Lock()
-        with shard_lock:
-            partition.encode_pages(ts, vals, rows)
+        for _ in range(2):  # the pool's first use, and a later one
+            with shard_lock:
+                blocks, per = partition.encode_pages(ts, vals, rows)
+                chunk._on_threads(lambda s: s, chunk._spans(n))
         vs = lockcheck.violations()
-    assert vs and all(v.kind == "blocking-under-lock"
-                      and "Thread.join(ThreadPoolExecutor-" in v.detail
-                      for v in vs)
+    assert vs == []
+    assert len(per) == n and blocks is not None

@@ -435,3 +435,22 @@ def test_the_frame_cap_takes_a_million_series_answer():
     assert ref_wire.MAX_FRAME == 256 * 1024 * 1024
     assert 500_000 * 121 * 4 + 500_000 * 190 > ref_wire.MAX_FRAME
     assert wire.MAX_FRAME == (1 << 31) - 1
+
+
+def test_migration_manifest_crosses_the_wire():
+    """ROADMAP §C.25: a migration manifest, registered on both packages'
+    wires, encodes to the reference's bytes and each package decodes the
+    other's frame into its own class with the same fields."""
+    from filodb_tpu.coordinator.migration import (
+        MigrationManifest as RefManifest,
+    )
+    from filodb_tpu_torch.coordinator.migration import MigrationManifest
+
+    args = ("timeseries", 3, "node-a", "node-b", "catchup", 5, 10, 20)
+    ours, theirs = MigrationManifest(*args), RefManifest(*args)
+    assert wire.encode(ours) == ref_wire.encode(theirs)
+    back = wire.decode(ref_wire.encode(theirs))
+    assert isinstance(back, MigrationManifest)
+    assert back.to_bytes() == ours.to_bytes()
+    assert ref_wire.decode(wire.encode(ours)).to_bytes() \
+        == theirs.to_bytes()
