@@ -440,6 +440,27 @@ checks it, phase by phase; any failed phase exits non-zero:
    ``DIST_B3_TOL``); each program's cold ms, warm ms (CUDA events, median
    of ``DIST_REPS``) and peak device memory (a ``{"dist": ...}`` line;
    ``launches_phase26``: B1's and B2's launches).
+27. the mesh engine over a (shard, time) mesh of local devices
+   (``parallel/mesh_engine.py::make_query_mesh``: every visible card, or
+   four slots of the one card) on the phase-2 store, after phase 26: the
+   1x1 engine's answers taken before phase 26 while its batches are warm;
+   launch counts set to 0; ``MULTIDEV_QUERIES`` (phase 3's four, a
+   ``topk`` and a per-series ``rate``) through ``QueryService(mesh=...)``
+   in the 4x1 layout (a shard row a slot), cold once and warm
+   ``MULTIDEV_REPS`` times (CUDA events, median), each against the 1x1
+   answer (per-series rows bit for bit, aggregates within
+   ``MULTIDEV_TOL``), every block on its slot and every slot launching
+   each kernel (counted a block); then 2x2 (two time slots a shard row,
+   the split programs of ``dist_query``) over ``MULTIDEV_SUBSET`` in the
+   gather and the ring form: ``MULTIDEV_SPLIT`` and the per-series rates,
+   every rate past ``DIST_B3_TOL`` against B3's a threshold tie (phase
+   26's check), the sum against B3's rows with those cells from float64,
+   the ring bit for bit the gather form; then the adaptive engine over
+   the slots (no host lane): its single-device lane built, routed cold,
+   the mesh lane shadowed, then routed, equal answers; peak device memory
+   a layout, the seven ROADMAP §C.24 counters after the phase (a
+   ``{"multidev": ...}`` line; ``launches_phase27``: the phase's,
+   ``launches_phase27_slots``: each slot's in 4x1).
 
 Its last two lines are a JSON object with the kernels' numbers and
 ``{"ok": true, "device": {...}}``. Run it from the repository root:
@@ -453,7 +474,8 @@ phases 1, 2 and 17; ``--longterm-only``: phases 1 and 18;
 ``--ha-only``: phases 1 and 23, ``--ha-series`` its scale;
 ``--remote-only``: phases 1 and 24, ``--remote-series`` its scale;
 ``--tools-only``: phases 1, 11 and 25, ``--tools-series`` its backfill;
-``--dist-only``: phases 1, 2 and 26).
+``--dist-only``: phases 1, 2 and 26; ``--multidev-only``: phases 1, 2 and
+27).
 Without CUDA it exits with code 2 and prints no result.
 """
 
@@ -8235,6 +8257,363 @@ def dist_phase(svc, args) -> dict:
             "b3": b3, **got}
 
 
+# phase 27: the mesh engine over a (shard, time) mesh of local devices
+# (``parallel/mesh_engine.py::make_query_mesh``, ``dist_query.LocalMesh``):
+# every visible card, or four slots of the one card; phase 3's queries and
+# two more at 4x1 on the phase-2 store, two aggregations and their rows at
+# 2x2 (gather and ring) over MULTIDEV_SUBSET, one query through the
+# adaptive engine's single-device lane; each answer against the 1x1
+# engine's on the same card (MULTIDEV_TOL; per-series rows bit for bit on
+# 4x1; on 2x2 the float64 split programs stand in for B3's float32 kernel:
+# DIST_B3_TOL, every series-step past it a threshold tie)
+MULTIDEV_QUERIES = tuple(q for q, _ in QUERIES) + (
+    f"topk(5, rate({M}[5m]))", f"rate({M}[5m])")
+MULTIDEV_SUBSET = '_ns_=~"App-[0-9]"'  # 100,000 of the 1 M series
+MULTIDEV_SPLIT = (f"sum(rate({M}{{{MULTIDEV_SUBSET}}}[5m])) by (_ns_)",
+                  f"sum(sum_over_time({M}{{{MULTIDEV_SUBSET}}}[5m])) "
+                  f"by (_ns_)")
+MULTIDEV_ROWS = f"rate({M}{{{MULTIDEV_SUBSET}}}[5m])"
+MULTIDEV_REPS = 5
+MULTIDEV_TOL = dict(rtol=1e-9, atol=1e-12)
+
+
+def multidev_slots() -> list:
+    """Every visible card, or four slots of the one card."""
+    import torch
+
+    n = torch.cuda.device_count()
+    return [torch.device("cuda", i) for i in range(n)] if n > 1 \
+        else [torch.device("cuda", 0)] * 4
+
+
+def multidev_reference(svc) -> dict:
+    """The 1x1 engine's answers (keys, host values) of phase 27's queries
+    on the phase-2 store, taken while its batches are warm."""
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    out = {}
+    for q in MULTIDEV_QUERIES + MULTIDEV_SPLIT + (MULTIDEV_ROWS,):
+        r = on_mesh(svc.query_range(q, start, 60, end), q).result
+        out[q] = (r.keys, np.asarray(r.values))
+    return out
+
+
+def _md_timed(svc, q: str, reps: int) -> tuple:
+    """(the answer, cold ms, warm ms): the query once and then ``reps``
+    times, each timed by CUDA events on the first card around the whole
+    call (which ends in the device→host copy); the warm median."""
+    import torch
+
+    start, end = T0_MS // 1000, T0_MS // 1000 + 7200
+    times, res = [], None
+    for _ in range(reps + 1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        res = on_mesh(svc.query_range(q, start, 60, end), q)
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return res.result, round(times[0], 3), \
+        round(float(np.median(times[1:])), 3) if reps else None
+
+
+def _md_spy(eng, slots: dict) -> None:
+    """Count each block's kernel launches into ``slots[row]``: a block's
+    kernels are launched while its evaluation runs, on the host thread."""
+    from filodb_tpu_torch import _build
+
+    inner = eng._block_eval
+
+    def block_eval(row: int):
+        evaluate = inner(row)
+
+        def counted(block, low, stats):
+            before = dict(_build.LAUNCHES)
+            out = evaluate(block, low, stats)
+            got = slots.setdefault(row, {})
+            for k, v in _build.LAUNCHES.items():
+                got[k] = got.get(k, 0) + v - before.get(k, 0)
+            return out
+        return counted
+
+    eng._block_eval = block_eval
+
+
+def _md_on_slots(svc, mesh) -> int:
+    """Raise unless every block of the service's mesh batches and window
+    cache lies on its shard row's first slot; the blocks checked."""
+    from filodb_tpu_torch.query.engine.device_batch import MeshBatch, \
+        device_key
+
+    rows = [device_key(r[0]) for r in mesh.devices]
+    n = 0
+    for b in svc.batches.batches("mesh"):
+        if not isinstance(b, MeshBatch):
+            raise AssertionError("phase 27: a batch of the mesh's service "
+                                 "is not cut into blocks")
+        if [device_key(d) for d in b.devices] != rows:
+            raise AssertionError(f"phase 27: blocks on {b.devices}, the "
+                                 f"mesh's rows on {rows}")
+        for blk, dev in zip(b.blocks, rows):
+            if blk is None:
+                continue
+            t = blk.packed[0] if hasattr(blk, "packed") else blk.vals
+            if device_key(t.device) != dev:
+                raise AssertionError(f"phase 27: a block on {t.device}, "
+                                     f"its slot is {dev}")
+            n += 1
+    for e in svc.batches.batches("mesh-eval"):
+        import torch
+
+        if device_key(torch.as_tensor(e.matrix.values).device) \
+                != device_key(e.device) or device_key(e.device) not in rows:
+            raise AssertionError("phase 27: a window-cache entry off its "
+                                 "slot")
+    return n
+
+
+def _md_peak(devices) -> list:
+    import torch
+
+    return [round(torch.cuda.max_memory_allocated(d) / 1e9, 3)
+            for d in sorted({d.index for d in devices})]
+
+
+def _md_same(got, want, what: str, bitwise: bool, tol=MULTIDEV_TOL) -> float:
+    """``got`` (keys, values) against ``want`` (keys, values): the same
+    keys in the same order, the values bit for bit or within ``tol``; the
+    max abs difference."""
+    keys, values = want
+    if got[0] != keys:
+        raise AssertionError(f"phase 27: {what}: keys differ from the 1x1 "
+                             f"engine's")
+    v = np.asarray(got[1])
+    if v.shape != values.shape:
+        raise AssertionError(f"phase 27: {what}: shape {v.shape} against "
+                             f"{values.shape}")
+    if bitwise and v.tobytes() != values.tobytes():
+        raise AssertionError(f"phase 27: {what}: rows not bit for bit the "
+                             f"1x1 engine's")
+    if not np.allclose(v, values, equal_nan=True, **tol):
+        raise AssertionError(f"phase 27: {what}: out of {tol} against the "
+                             f"1x1 engine")
+    fin = np.isfinite(v) & np.isfinite(values)
+    return float(np.abs(v - values)[fin].max()) if fin.any() else 0.0
+
+
+def _md_ties(svc, rows64, b3) -> dict:
+    """The 2x2 mesh's float64 per-series rates (``rows64``) against the
+    1x1 engine's B3 rows (``b3``): every series-step past DIST_B3_TOL must
+    be a threshold tie (phase 26's check, over the samples the mesh's
+    blocks decode); → the tie mask and counts."""
+    import torch
+
+    from filodb_tpu_torch.query.engine.device_batch import (
+        MeshBatch,
+        assemble,
+        compact_rows,
+    )
+
+    off = ~np.isclose(rows64, b3, equal_nan=True, **DIST_B3_TOL)
+    cells = np.argwhere(off)
+    if len(cells) > DIST_MAX_TIES:
+        raise AssertionError(f"phase 27: 2x2 and B3 differ at {len(cells)} "
+                             f"series-steps")
+    if len(cells):
+        (batch,) = [b for b in svc.batches.batches("mesh")
+                    if isinstance(b, MeshBatch)
+                    and len(b.keys) == rows64.shape[0]]
+        steps = (T0_MS // 1000 * 1000 + np.arange(121) * 60_000
+                 - batch.base).tolist()
+        for blk, (a, b) in zip(batch.blocks, batch.rows):
+            mine = cells[(cells[:, 0] >= a) & (cells[:, 0] < b)]
+            if not len(mine):
+                continue
+            ts, vals, counts = compact_rows(*assemble(
+                blk.packed, blk.end - blk.base))
+            for i, k in mine.tolist():
+                n = int(counts[i - a])
+                if not _threshold_tie(ts[i - a, :n].tolist(),
+                                      vals[i - a, :n].double().tolist(),
+                                      steps[k], 300_000):
+                    raise AssertionError(
+                        f"phase 27: series {i} step {k}: 2x2 "
+                        f"{rows64[i, k]} against B3 {b3[i, k]}, no "
+                        f"threshold tie")
+            del ts, vals, counts
+            torch.cuda.empty_cache()
+    return {"cells": int(off.size), "ties": int(len(cells)), "off": off}
+
+
+def multidev_phase(store, args, ref: dict) -> dict:
+    """Phase 27 (see the module): the mesh engine over the slots of
+    ``multidev_slots`` in 4x1 and 2x2 layouts and the adaptive engine's
+    single lane, each answer against the 1x1 engine's (``ref``)."""
+    import torch
+
+    from filodb_tpu_torch import _build
+    from filodb_tpu_torch.core.memstore import odp
+    from filodb_tpu_torch.memory import chunk as chunk_mod
+    from filodb_tpu_torch.parallel import mesh_engine as me
+    from filodb_tpu_torch.query.engine.aggregations import aggregate
+    from filodb_tpu_torch.query.exec.transformers import AggregateMapReduce
+
+    t0 = time.perf_counter()
+    slots = multidev_slots()
+    devices = sorted(set(slots), key=lambda d: d.index)
+    out = {"slots": [str(d) for d in slots], "layouts": {}}
+    _build.reset_counts()
+    # step 1: 4x1 (a shard row a slot), phase 3's queries and two more
+    mesh = me.make_query_mesh(devices=slots)
+    svc = smoke_service(store, engine="mesh", mesh=mesh)
+    per_slot: dict = {}
+    _md_spy(svc.mesh, per_slot)
+    for d in devices:
+        torch.cuda.reset_peak_memory_stats(d)
+    rows = {}
+    for q in MULTIDEV_QUERIES:
+        got, cold, warm = _md_timed(svc, q, MULTIDEV_REPS)
+        per_series = "sum(" not in q and "avg(" not in q
+        err = _md_same((got.keys, got.values), ref[q], q,
+                       bitwise=per_series)
+        rows[q] = {"cold_ms": cold, "warm_ms": warm, "rows": got.num_series,
+                   "max_abs_err": err, "bitwise": per_series}
+        log(f"  {'x'.join(map(str, mesh.shape))} {q}: cold {cold:.1f} ms, "
+            f"warm {warm:.2f} ms (median of {MULTIDEV_REPS}), "
+            f"{got.num_series} rows, max abs err {err:.3g} against 1x1"
+            f"{' (bit for bit)' if per_series else ''}")
+    blocks = _md_on_slots(svc, mesh)
+    slot_launches = [per_slot.get(i, {}) for i in range(len(slots))]
+    idle = [i for i, c in enumerate(slot_launches)
+            if not all(c.get(k) for k in _build.LAUNCHES)]
+    if idle and slots[0].type == "cuda":
+        raise AssertionError(f"phase 27: slots {idle} launched not every "
+                             f"kernel: {slot_launches}")
+    out["slot_launches"] = slot_launches
+    out["layouts"]["x".join(map(str, mesh.shape))] = {
+        "queries": rows, "peak_gb": _md_peak(devices), "blocks": blocks,
+        "slot_launches": slot_launches,
+        "window_cache": list(svc.mesh.window_cache)}
+    log(f"  {'x'.join(map(str, mesh.shape))}: {blocks} blocks on their "
+        f"slots, peak {out['layouts']['x'.join(map(str, mesh.shape))]['peak_gb']}"
+        f" GB; launches a slot {slot_launches}")
+    del svc, got
+    torch.cuda.empty_cache()
+    # step 2: 2x2 (two time slots a shard row) over MULTIDEV_SUBSET,
+    # gather and ring
+    if len(slots) >= 2:
+        mesh = me.make_query_mesh(devices=slots[:len(slots) // 2 * 2],
+                                  time_axis=2)
+        name = "x".join(map(str, mesh.shape))
+        layout = {}
+        for variant in ("gather", "ring"):
+            svc = smoke_service(store, engine="mesh", mesh=mesh,
+                                variant=variant)
+            for d in devices:
+                torch.cuda.reset_peak_memory_stats(d)
+            rows, mats = {}, {}
+            for q in MULTIDEV_SPLIT + (MULTIDEV_ROWS,):
+                got, cold, warm = _md_timed(svc, q, MULTIDEV_REPS)
+                if got.keys != ref[q][0]:
+                    raise AssertionError(f"phase 27: {name} {variant}: {q}:"
+                                         f" keys differ from the 1x1 "
+                                         f"engine's")
+                mats[q] = np.asarray(got.values)
+                rows[q] = {"cold_ms": cold, "warm_ms": warm,
+                           "rows": got.num_series}
+                log(f"  {name} {variant} {q}: cold {cold:.1f} ms, warm "
+                    f"{warm:.2f} ms, {got.num_series} rows")
+            # per-series rates: float64 against B3, every miss a tie; the
+            # sum against B3's rows with the ties' cells from float64
+            ties = _md_ties(svc, mats[MULTIDEV_ROWS], ref[MULTIDEV_ROWS][1])
+            off = ties.pop("off")
+            amr = AggregateMapReduce("sum", (), ("_ns_",))
+            gids, gkeys = amr.group_ids(ref[MULTIDEV_ROWS][0])
+            want = aggregate("sum", torch.from_numpy(np.where(
+                off, mats[MULTIDEV_ROWS], ref[MULTIDEV_ROWS][1])),
+                torch.from_numpy(gids), len(gkeys)).numpy()
+            q0, q1 = MULTIDEV_SPLIT
+            order = {str(k): i for i, k in enumerate(gkeys)}
+            want = want[[order[str(k)] for k in ref[q0][0]]]
+            if not np.allclose(mats[q0], want, equal_nan=True,
+                               **DIST_B3_TOL):
+                raise AssertionError(f"phase 27: {name} {variant}: {q0} "
+                                     f"against B3's rows (ties from "
+                                     f"float64)")
+            fin = np.isfinite(mats[q0]) & np.isfinite(ref[q0][1])
+            errs = {q0: float(np.abs(mats[q0] - ref[q0][1])[fin].max()),
+                    q1: _md_same((ref[q1][0], mats[q1]), ref[q1], q1,
+                                 False)}
+            layout[variant] = {
+                "queries": rows, "max_abs_err": errs, **ties,
+                "peak_gb": _md_peak(devices),
+                "blocks": _md_on_slots(svc, mesh), "_rate": mats[q0]}
+            log(f"  {name} {variant}: max abs err against 1x1 {errs}; "
+                f"rates past {DIST_B3_TOL}: {ties['ties']} of "
+                f"{ties['cells']}, each a threshold tie; peak "
+                f"{layout[variant]['peak_gb']} GB")
+            del svc, got, mats
+            torch.cuda.empty_cache()
+        if layout["ring"].pop("_rate").tobytes() \
+                != layout["gather"].pop("_rate").tobytes():
+            raise AssertionError(f"phase 27: {name}: the ring's sum(rate) "
+                                 f"is not the gather form's bit for bit")
+        out["layouts"][name] = layout
+    # step 3: the adaptive engine over the slots: its single lane is built,
+    # serves the cold query and answers as the mesh lane
+    asvc = smoke_service(store, engine="adaptive",
+                         mesh=me.make_query_mesh(devices=slots))
+    eng = asvc.mesh
+    # no host lane: the CPU's plain versions would take the cold query
+    eng._host_checked = True
+    q0 = MULTIDEV_SPLIT[0]
+    single, s_cold, _ = _md_timed(asvc, q0, 0)
+    eng.drain()
+    if eng._single() is None or eng.routed["single"] != 1 \
+            or eng.shadowed["device"] != 1:
+        raise AssertionError(f"phase 27: the single lane: routed "
+                             f"{eng.routed}, shadowed {eng.shadowed}")
+    eng._record("single", 1, 1e3)  # the mesh lane measured faster
+    mesh_lane, m_cold, _ = _md_timed(asvc, q0, 0)
+    if eng.routed["device"] != 1:
+        raise AssertionError(f"phase 27: the mesh lane was not routed: "
+                             f"{eng.routed}")
+    err = _md_same((single.keys, single.values),
+                   (mesh_lane.keys, np.asarray(mesh_lane.values)),
+                   "the single lane against the mesh lane", False)
+    _md_same((single.keys, single.values), ref[q0],
+             "the single lane against 1x1", True)
+    out["adaptive"] = {"routed": dict(eng.routed),
+                       "shadowed": dict(eng.shadowed),
+                       "single_cold_ms": s_cold, "mesh_ms": m_cold,
+                       "max_abs_err": err}
+    log(f"  adaptive over {len(slots)} slots: routed {eng.routed}, shadowed"
+        f" {eng.shadowed}; single lane {s_cold:.1f} ms cold, mesh lane "
+        f"{m_cold:.1f} ms; max abs err {err:.3g}")
+    del asvc, eng
+    torch.cuda.empty_cache()
+    launches = dict(_build.LAUNCHES)
+    missing = [k for k, v in launches.items() if not v]
+    if missing and slots[0].type == "cuda":
+        raise AssertionError(f"phase 27: {missing} did not launch")
+    out["launches"] = launches
+    out["counters"] = {
+        "filodb_mesh_supported": me._M_SUPPORTED.value,
+        "filodb_mesh_unsupported": me._M_UNSUPPORTED.value,
+        "filodb_mesh_dispatch": {f: c.value
+                                 for f, c in me._M_DISPATCH.items()},
+        "filodb_mesh_batch_cache": {e: c.value
+                                    for e, c in me._M_BATCH.items()},
+        "filodb_mesh_hit_rate": round(me._M_SUPPORTED.value / max(
+            me._M_SUPPORTED.value + me._M_UNSUPPORTED.value, 1), 6),
+        "filodb_odp_cache_chunks": odp.odp_cache_chunks.value,
+        "filodb_sidecar_backfilled": chunk_mod.SIDECAR_BACKFILLED.value}
+    out["seconds"] = round(time.perf_counter() - t0, 2)
+    log(f"  launches {launches}; counters {out['counters']}; "
+        f"{out['seconds']} s")
+    return out
+
+
 def _tail(path, n: int = 3000) -> str:
     try:
         return Path(path).read_text()[-n:]
@@ -8508,6 +8887,9 @@ def main() -> int:
     ap.add_argument("--dist-only", action="store_true",
                     help="build and run phases 1, 2 and 26 only (the "
                     "multi-device programs on the phase-2 store)")
+    ap.add_argument("--multidev-only", action="store_true",
+                    help="build and run phases 1, 2 and 27 only (the mesh "
+                    "engine over every card, or four slots of the one)")
     ap.add_argument("--tools-only", action="store_true",
                     help="build and run phases 11 and 25 only (the "
                     "operator's tools: a node under the checkers, filo-cli "
@@ -8671,6 +9053,22 @@ def _phases(args, smi) -> int:
             store, device=torch.device("cuda")), args)}))
         print(smi[0] if smi else "nvidia-smi: no output")
         return 0
+    if args.multidev_only:
+        t = time.perf_counter()
+        store = main_store()
+        kept = ingest(store, args.series, args.samples, args.seed)
+        log(f"phase 2: ingest: {args.series} series, {kept} samples, "
+            f"{time.perf_counter() - t:.1f} s on the host")
+        svc = smoke_service(store, device=torch.device("cuda"))
+        ref = multidev_reference(svc)
+        svc.batches.clear()
+        del svc
+        torch.cuda.empty_cache()
+        log(f"phase 27: the mesh engine over {len(multidev_slots())} slots "
+            f"of local devices on the phase-2 store")
+        print(json.dumps({"multidev": multidev_phase(store, args, ref)}))
+        print(smi[0] if smi else "nvidia-smi: no output")
+        return 0
     if args.tools_only:
         durable = durability_phase(torch.device("cuda"), args)
         served = durable.pop("tools_bodies")
@@ -8706,10 +9104,18 @@ def _rest(args, smi, kernels, svc) -> int:
     torch.cuda.empty_cache()
     promql = promql_phase(svc, args)
     print(json.dumps({"promql": promql}))
+    # phase 27's reference answers, while the 1x1 engine's batches of the
+    # phase-2 store are warm (phase 26 drops them)
+    md_ref = multidev_reference(svc)
     log("phase 26: the multi-device programs on the phase-2 store "
         "(a 1x1 mesh over a one-rank NCCL group)")
     dist = dist_phase(svc, args)
     print(json.dumps({"dist": dist}))
+    log(f"phase 27: the mesh engine over {len(multidev_slots())} slots of "
+        f"local devices on the phase-2 store")
+    md = multidev_phase(svc.memstore, args, md_ref)
+    print(json.dumps({"multidev": md}))
+    del md_ref
     # phases 21 step 1, 10, 9, 17 and 20 on a store of their own of the
     # phase-2 generator's first CORE_SERIES series (their scale cut for the
     # smoke's limit; --exec-only, --multiproc-only, --ingest-only and
@@ -8811,6 +9217,11 @@ def _rest(args, smi, kernels, svc) -> int:
         kern["launches_phase25"] = tools["launches"][kern["name"]]
         # B1 and B2 decoding the programs' inputs (B3 and B4 run none)
         kern["launches_phase26"] = dist["launches"][kern["name"]]
+        # the mesh engine over local slots: the phase's, and each slot's
+        # in the first layout (a shard row a slot)
+        kern["launches_phase27"] = md["launches"][kern["name"]]
+        kern["launches_phase27_slots"] = [
+            c.get(kern["name"], 0) for c in md["slot_launches"]]
     print(smi[0] if smi else "nvidia-smi: no output")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

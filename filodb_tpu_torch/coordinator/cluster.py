@@ -941,16 +941,19 @@ class FilodbCluster:
         return statuses
 
     def query_service(self, dataset: str, engine: str = "mesh",
-                      device=None, result_cache=None) -> QueryService:
+                      device=None, result_cache=None,
+                      mesh=None) -> QueryService:
         """A query service over the home node's store of ``dataset``
         (engine ``"mesh"`` by default, as the standalone server boots it;
-        the extent cache of ``result_cache``, off by default), whose
-        leaves go to the nodes that own their shards (see the module's
-        text)."""
+        the extent cache of ``result_cache``, off by default; its mesh
+        engines over ``mesh`` where given), whose leaves go to the nodes
+        that own their shards (see the module's text)."""
         home = self.home_node()
         sm = self.shard_managers[dataset]
-        svc = QueryService(home.memstores[dataset], device=device,
-                           engine=engine, result_cache=result_cache)
+        svc = QueryService(home.memstores[dataset],
+                           device=device if mesh is None else None,
+                           engine=engine, result_cache=result_cache,
+                           mesh=mesh)
         svc.planner.dispatcher_for_shard = self.dispatcher_for(dataset, home)
         svc.shards_local_fn = lambda: all(o == home.name
                                           for o in sm.mapper.owners)

@@ -223,8 +223,12 @@ class QueryService:
     ``result_cache`` (a ``result_cache`` config block, True, or a
     ``ResultCache``; None or False: off) caches range answers by extent;
     ``query_timeout_s`` (None: the resilience config's) is each query's
-    deadline. The batches both engines keep take at most half the card's
-    memory (``batches.budget``)."""
+    deadline. ``mesh`` (a ``LocalMesh``, ``parallel/mesh_engine.
+    make_query_mesh``) spreads the mesh engines' leaves over its slots,
+    and its first slot is then the service's device, where the exec
+    engine runs; ``variant`` ("gather" or "ring") is their combine over
+    the mesh's time axis. The batches both engines keep take at most half
+    of each card's memory (``batches.budget`` on the service's device)."""
 
     # construction serials: a response-cache key names its service by it,
     # never by ``id()``, which a later service can reuse
@@ -233,12 +237,13 @@ class QueryService:
     def __init__(self, memstore: MemStore,
                  device: "str | torch.device | None" = None,
                  engine: str = "mesh", time_split_ms: int = 0,
-                 result_cache=None, query_timeout_s: float | None = None):
+                 result_cache=None, query_timeout_s: float | None = None,
+                 mesh=None, variant: str = "gather"):
         if engine not in ENGINES:
             raise ValueError(f"engine {engine!r}: one of {ENGINES}")
         self.memstore = memstore
         self.dataset = memstore.dataset
-        self.device = resolve(device)
+        self.device = resolve(device if mesh is None else mesh.root)
         self.engine = engine
         self.query_timeout_s = query_timeout_s
         self.serial = next(QueryService._serials)
@@ -248,10 +253,12 @@ class QueryService:
         if engine == "adaptive":
             self.mesh = AdaptiveQueryEngine(
                 self.device, self.batches, self.gids, sidecars=True,
-                dataset=self.dataset, lock=self.lock)
+                dataset=self.dataset, lock=self.lock, mesh=mesh,
+                variant=variant)
         else:
             self.mesh = MeshQueryEngine(self.device, self.batches,
-                                        self.gids, sidecars=True)
+                                        self.gids, sidecars=True, mesh=mesh,
+                                        variant=variant)
         self.planner = SingleClusterPlanner(memstore.num_shards,
                                             memstore.spread,
                                             time_split_ms=time_split_ms,
@@ -599,7 +606,7 @@ class QueryService:
                                "" if self.engine == "exec" else
                                "shards on other nodes" if remote else
                                _OLDER_TIER if i not in on_mesh else
-                               self.mesh.supports(self.memstore, plan)
+                               self.mesh.reason(self.memstore, plan)
                                or "declined by the mesh engine's batch"))
             except Exception as e:  # noqa: BLE001 - at its position
                 out.append(e)

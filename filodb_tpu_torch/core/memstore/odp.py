@@ -37,6 +37,7 @@ eviction of any of the partition's chunks forgets it.
 from __future__ import annotations
 
 import time
+import weakref
 
 import numpy as np
 
@@ -57,11 +58,19 @@ from filodb_tpu_torch.memory.chunk import (
     decode_chunks,
     read_summaries,
 )
+from filodb_tpu_torch.utils.metrics import GaugeFn
 from filodb_tpu_torch.utils.tracing import span
 
 _NONE = np.iinfo(np.int64).max
 # chunks decoded and encoded at once
 _DECODE_CHUNKS = 65536
+
+
+# chunks held across every live cache (every shard, raw and cold tiers),
+# read at scrape time
+_CACHES: "weakref.WeakSet[DemandPagedChunkCache]" = weakref.WeakSet()
+odp_cache_chunks = GaugeFn("filodb_odp_cache_chunks",
+                           lambda: sum(len(c) for c in list(_CACHES)))
 
 
 def needs_paging(earliest_mem, index_start, query_start):
@@ -102,6 +111,7 @@ class DemandPagedChunkCache:
         # host seconds spent reading the store, decoding chunks (C++) and
         # encoding their pages
         self.seconds = {"read": 0.0, "decode": 0.0, "encode": 0.0}
+        _CACHES.add(self)
 
     def __len__(self) -> int:
         return sum(len(t.live()) for t in self.tables.values())

@@ -1323,7 +1323,7 @@ def _with_summary(payload: bytes) -> bytes:
     ch = Chunk.deserialize(payload)
     if ch.summary is not None:
         return payload
-    ensure_summary(ch)
+    ensure_summary(ch, backfill=True)
     return ch.serialize()
 
 

@@ -33,6 +33,7 @@ import numpy as np
 from filodb_tpu_torch import _build
 from filodb_tpu_torch.core.schemas import ColumnType, Schema
 from filodb_tpu_torch.memory import codecs
+from filodb_tpu_torch.utils.metrics import Counter
 
 _HEAD = struct.Struct("<qIqqI")  # id, rows, start, end, vector count
 # chunks a host codec call takes, and threads it runs on
@@ -56,6 +57,12 @@ STATS_WIDTH = 12
  S_LAST_VAL, S_RESETS, S_CORR, S_CHANGES) = range(STATS_WIDTH)
 SKETCH_BUCKETS = 64
 SC_MAGIC = b"SC01"
+
+# chunks whose summary was made after the fact: a compaction rewriting a
+# segment written without summaries (``ensure_summary(backfill=True)``)
+SIDECAR_BACKFILLED = Counter(
+    "filodb_sidecar_backfilled",
+    help="chunk summaries computed after seal (old segments, native seals)")
 
 
 @dataclass(frozen=True, eq=False)
@@ -125,10 +132,11 @@ def summarize_columns(schema: Schema, ts: np.ndarray, columns: list) -> tuple:
     return tuple(out)
 
 
-def ensure_summary(chunk: "Chunk"):
+def ensure_summary(chunk: "Chunk", backfill: bool = False):
     """The chunk's summary tuple, made from its decoded vectors where it
     has none (memoized on the chunk); None where its timestamps do not
-    decode."""
+    decode. ``backfill``: a compaction's rewrite, counted in
+    ``filodb_sidecar_backfilled`` where a summary was made."""
     if chunk.summary is not None:
         return chunk.summary
     try:
@@ -149,6 +157,8 @@ def ensure_summary(chunk: "Chunk"):
             out.append(None)
     summary = tuple(out)
     object.__setattr__(chunk, "summary", summary)
+    if backfill and any(c is not None for c in summary):
+        SIDECAR_BACKFILLED.inc()
     return summary
 
 

@@ -287,10 +287,11 @@ def decode_ts_blocks(slopes: torch.Tensor, widths: torch.Tensor,
     out = torch.empty(words.shape, dtype=torch.int32, device=words.device)
     _check_aligned(words=words, out=out)
     fn = _build.bind("decode_pages", "decode_ts_pages", 6)
-    _build.check("decode_pages", fn(
-        slopes.data_ptr(), widths.data_ptr(), words.data_ptr(),
-        out.data_ptr(), words.shape[0],
-        torch.cuda.current_stream(words.device).cuda_stream))
+    with torch.cuda.device(words.device):  # launches on the current device
+        _build.check("decode_pages", fn(
+            slopes.data_ptr(), widths.data_ptr(), words.data_ptr(),
+            out.data_ptr(), words.shape[0],
+            torch.cuda.current_stream(words.device).cuda_stream))
     _build.count("decode_ts_page")
     return out
 
@@ -307,9 +308,10 @@ def decode_f32_blocks(firsts: torch.Tensor, shifts: torch.Tensor,
     out = torch.empty(words.shape, dtype=torch.float32, device=words.device)
     _check_aligned(words=words, out=out)
     fn = _build.bind("decode_pages", "decode_f32_pages", 7)
-    _build.check("decode_pages", fn(
-        firsts.data_ptr(), shifts.data_ptr(), widths.data_ptr(),
-        words.data_ptr(), out.data_ptr(), words.shape[0],
-        torch.cuda.current_stream(words.device).cuda_stream))
+    with torch.cuda.device(words.device):  # launches on the current device
+        _build.check("decode_pages", fn(
+            firsts.data_ptr(), shifts.data_ptr(), widths.data_ptr(),
+            words.data_ptr(), out.data_ptr(), words.shape[0],
+            torch.cuda.current_stream(words.device).cuda_stream))
     _build.count("decode_f32_page")
     return out

@@ -1,30 +1,34 @@
-"""The adaptive engine: the mesh engine on the card and a host lane,
-cost-routed by batch size.
+"""The adaptive engine: the mesh engine on the card (or on a mesh of local
+devices), a single-device lane and a host lane, cost-routed by batch size.
 
-Port of ``filodb_tpu/parallel/adaptive.py`` for one card
+Port of ``filodb_tpu/parallel/adaptive.py``
 (``QueryService(engine="adaptive")``; the default engine stays ``mesh``,
 which never builds a host lane). A query's latency on the card is a
 synchronization floor plus the device's work; a small scan can answer
-sooner on the host. The engine keeps two lanes behind the mesh engine's
-interface and routes each call to the lane measured faster for its
-batch-size bucket:
+sooner on the host, and one that a mesh's blocks and combines cost more
+than they save, on one device. The engine keeps its lanes behind the mesh
+engine's interface and routes each call to the lane measured faster for
+its batch-size bucket:
 
-- ``device``: the port's ``MeshQueryEngine`` on the card, with the
-  service's batch and group-id caches;
+- ``device``: the port's ``MeshQueryEngine`` on the card or over the
+  service's ``mesh`` (``variant`` its time combine), with the service's
+  batch and group-id caches;
+- ``single``: where that mesh spans more than one slot, a 1×1 engine on
+  its first slot, built on first use beside it (it shares the caches; a
+  batch's key names its layout), as the reference's one-device mesh;
 - ``host``: the same engine on ``torch.device("cpu")``, which runs every
   kernel's plain version, as the reference's host lane runs the same
   programs on the CPU backend. It is built on first use when the device
   lane is not the CPU; a build that fails raises (the reference logs and
   goes on without the lane; ROADMAP §C). Tests inject one (``host_lane``).
 
-The reference's third lane, ``single`` (a one-device mesh), exists only
-where its mesh spans several devices; on one card it is not built.
-
 Routing, as the reference's: an estimate of seconds a query a (lane,
 bucket), an EWMA whose first two samples replace; a cold bucket is served
-by the host lane; the other lane is probed by shadow traffic on a
+by the host lane, else by the single-device lane; the others are probed
+by shadow traffic on a
 background worker (a copy of a served batch, never a client's wait) when
-its estimate is missing, and once every ``SHADOW_EVERY`` calls. Every
+its estimate is missing, and once every ``SHADOW_EVERY`` calls (then
+rotating through them). Every
 sample is mirrored into the cost model's ``lane`` site, which takes over
 the pick once it is warm on every lane (a persisted model). A lane's time
 includes the device→host copy of its answers. Counted in
@@ -103,20 +107,24 @@ class AdaptiveQueryEngine:
 
     SHADOW_EVERY = 32  # probe the other lane once in this many calls
 
-    def __init__(self, device: torch.device, batches=None, gids=None,
-                 sidecars: bool = False, dataset: str = "",
-                 lock=None, host_lane=None):
+    def __init__(self, device: torch.device | None = None, batches=None,
+                 gids=None, sidecars: bool = False, dataset: str = "",
+                 lock=None, host_lane=None, mesh=None,
+                 variant: str = "gather"):
         self.device_engine = MeshQueryEngine(device, batches, gids,
-                                             sidecars=sidecars)
+                                             sidecars=sidecars, mesh=mesh,
+                                             variant=variant)
         self._host_engine = host_lane
         self._host_checked = host_lane is not None
+        self._single_engine = None
+        self._single_checked = False
         self._cost: dict[tuple, _LaneCost] = {}
         self._calls = 0
         self._dataset = dataset
         self._lock = lock if lock is not None else threading.RLock()
         self.sync_floor_s: float | None = None
-        self.routed = {"device": 0, "host": 0}
-        self.shadowed = {"device": 0, "host": 0}
+        self.routed = {"device": 0, "single": 0, "host": 0}
+        self.shadowed = {"device": 0, "single": 0, "host": 0}
         self._shadow_q: queue.Queue | None = None
         self._shadow_thread = None
         self._pending = 0  # shadow probes queued or running
@@ -144,12 +152,32 @@ class AdaptiveQueryEngine:
                          "%.3f ms", self.sync_floor_s * 1e3)
         return self._host_engine
 
+    def _single(self) -> MeshQueryEngine | None:
+        """The single-device lane, built on first use where the device
+        lane's mesh spans more than one slot: a 1×1 engine on its first
+        slot, sharing its caches."""
+        if not self._single_checked:
+            self._single_checked = True
+            dev = self.device_engine
+            if len(dev.mesh) > 1:
+                self._single_engine = MeshQueryEngine(
+                    dev.device, dev.batches, dev.gids, sidecars=dev.sidecars,
+                    variant=dev.variant)
+                log.info("adaptive engine: single-device lane up on %s",
+                         dev.device)
+        return self._single_engine
+
     def _lanes(self) -> list[str]:
-        return ["device", "host"] if self._host() is not None \
-            else ["device"]
+        lanes = ["device"]
+        if self._single() is not None:
+            lanes.append("single")
+        if self._host() is not None:
+            lanes.append("host")
+        return lanes
 
     def _engine_for(self, lane: str):
-        return self.device_engine if lane == "device" else self._host_engine
+        return {"device": self.device_engine, "single": self._single_engine,
+                "host": self._host_engine}[lane]
 
     def _cost_of(self, lane: str, b: int) -> _LaneCost:
         c = self._cost.get((lane, b))
@@ -174,7 +202,9 @@ class AdaptiveQueryEngine:
         known = {la: self._cost_of(la, b).est for la in lanes
                  if self._cost_of(la, b).est is not None}
         if not known:
-            return "host"  # cold: the cheapest dispatch; shadows price
+            # cold: the cheapest dispatch (the host, else one device, which
+            # pays no mesh's blocks and combines); shadows price the rest
+            return "host" if "host" in lanes else "single"
         return min(known, key=known.get)
 
     def _record(self, lane: str, n_queries: int, secs: float) -> None:

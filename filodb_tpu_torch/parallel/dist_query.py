@@ -34,6 +34,22 @@ the global host arrays by its mesh coordinates and puts it on the rank's
 device. An aggregating program returns [G, K] on every rank; ``agg=None``
 and the split pipeline's evaluations return this rank's [P_l, K] rows.
 
+The second calling convention, a single controller: over a
+``LocalMesh`` (a (shard, time) array of ``torch.device``s in one process,
+where a device may fill several slots) the same programs are called ONCE,
+with each block argument a list of one tensor a slot, in row-major order
+over (shard, time), each on its slot's device (``shard_batch_arrays``
+over a ``LocalMesh`` returns such lists); ``steps`` and ``window`` stay
+single. The math is the same code: each per-block step runs on every
+slot's block where it lies, and only the collectives differ. The gather
+over ``time`` stacks a shard row's blocks in time order on the row's
+first slot, and what follows it holds one tensor a shard row; the ring
+passes each row's states from slot to slot; the reduction over ``shard``
+folds the rows' partials in row order on the root slot (the first), so a
+layout always gives one answer. An aggregating program returns its
+[G, K] on the root slot; ``agg=None`` and the split pipeline's
+evaluations return a list of each shard row's [P_l, K] rows.
+
 Arithmetic runs in ``dtype`` (the port's float64 ``EXACT_DTYPE`` by
 default, the reference's ``fdtype()`` under x64) in the reference's
 order, so a 1×1 mesh answers what ``kernels.range_eval`` plus
@@ -85,9 +101,49 @@ def make_query_mesh(n_devices: int | None = None,
                       mesh_dim_names=("shard", "time"))
 
 
+class LocalMesh:
+    """A (shard, time) array of ``torch.device``s that one process drives
+    (the single controller of the module's second calling convention). A
+    device may fill several slots: every slot's block is launched and
+    combined on its own all the same. ``devices`` is a nested list, one
+    list a shard row."""
+
+    def __init__(self, devices):
+        rows = [[torch.device(d) for d in row] for row in devices]
+        if not rows or not rows[0] or any(len(r) != len(rows[0])
+                                          for r in rows):
+            raise ValueError("a LocalMesh is a non-empty (shard, time) "
+                             "array of devices")
+        self.devices = rows
+
+    def size(self, dim: int) -> int:
+        return len(self.devices) if dim == 0 else len(self.devices[0])
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.size(0), self.size(1)
+
+    @property
+    def slots(self) -> list:
+        """Every slot's device, row-major over (shard, time)."""
+        return [d for row in self.devices for d in row]
+
+    @property
+    def root(self) -> torch.device:
+        """The first slot's device: where reductions over ``shard`` land."""
+        return self.devices[0][0]
+
+    def __len__(self) -> int:
+        return self.size(0) * self.size(1)
+
+    def __repr__(self) -> str:
+        return (f"LocalMesh({self.size(0)}x{self.size(1)}: "
+                f"{[str(d) for d in self.slots]})")
+
+
 def mesh_axes(mesh) -> tuple[int, int]:
-    """(shard, time) sizes of a ``DeviceMesh``, or of a ``(shard, time)``
-    pair."""
+    """(shard, time) sizes of a ``DeviceMesh`` or a ``LocalMesh``, or of a
+    ``(shard, time)`` pair."""
     if isinstance(mesh, tuple):
         return mesh
     return mesh.size(0), mesh.size(1)
@@ -98,9 +154,41 @@ def _coords(mesh) -> tuple[int, int]:
     return int(s), int(t)
 
 
-def _all_gather_time(mesh, parts: torch.Tensor) -> torch.Tensor:
-    """[dt, *parts.shape]: every time block's ``parts``, in block order."""
+def _each(fn, *blocks):
+    """``fn`` on each block: list arguments (a ``LocalMesh``'s blocks) go
+    element by element, the rest whole; a rank's own tensors go at once."""
+    lists = [b for b in blocks if isinstance(b, list)]
+    if not lists:
+        return fn(*blocks)
+    return [fn(*(b[i] if isinstance(b, list) else b for b in blocks))
+            for i in range(len(lists[0]))]
+
+
+def _unzipped(out):
+    """A ``LocalMesh``'s list of per-block tuples → a tuple of per-block
+    lists; a rank's own tuple as it is."""
+    return tuple(list(x) for x in zip(*out)) if isinstance(out, list) \
+        else out
+
+
+def _per_row(mesh, blocks):
+    """A ``LocalMesh``'s per-slot blocks → the first of each shard row
+    (what the shard's time blocks share, its group ids); else as given."""
+    if isinstance(blocks, list) and len(blocks) == len(mesh) \
+            and mesh.size(1) > 1:
+        return blocks[::mesh.size(1)]
+    return blocks
+
+
+def _all_gather_time(mesh, parts):
+    """[dt, *parts.shape]: every time block's ``parts``, in block order.
+    Over a ``LocalMesh``: a list of one such stack a shard row, on the
+    row's first slot."""
     dt = mesh.size(1)
+    if isinstance(mesh, LocalMesh):
+        rows = [parts[s * dt:(s + 1) * dt] for s in range(mesh.size(0))]
+        return [torch.stack([p.to(row[0].device) for p in row])
+                for row in rows]
     # blocks concatenated along the first axis (the form gloo and NCCL
     # both take), then viewed as [dt, ...]
     out = torch.empty((dt * parts.shape[0], *parts.shape[1:]),
@@ -110,7 +198,18 @@ def _all_gather_time(mesh, parts: torch.Tensor) -> torch.Tensor:
     return out.view(dt, *parts.shape)
 
 
-def _reduce_shard(mesh, x: torch.Tensor, op) -> torch.Tensor:
+_FOLD = {dist.ReduceOp.SUM: torch.add, dist.ReduceOp.MIN: torch.minimum,
+         dist.ReduceOp.MAX: torch.maximum}
+
+
+def _reduce_shard(mesh, x, op):
+    """``op`` over the shard axis. Over a ``LocalMesh`` ``x`` holds one
+    tensor a shard row; they are folded in row order on the root slot."""
+    if isinstance(mesh, LocalMesh):
+        acc = x[0].to(mesh.root)
+        for part in x[1:]:
+            acc = _FOLD[op](acc, part.to(mesh.root))
+        return acc
     dist.all_reduce(x, op=op, group=mesh.get_group("shard"))
     return x
 
@@ -397,32 +496,42 @@ def _segment_sum(x, gid, num_groups: int):
                                 unsafe=True)
 
 
+def _segment_extreme(res, gid, num_groups: int, agg: str):
+    """[G, K] per-group min (max) of the present values of ``res``; the
+    sentinel where a group has none."""
+    sentinel = float("inf") if agg == "min" else float("-inf")
+    marked = torch.where(~torch.isnan(res), res, sentinel)
+    seg = torch.full((num_groups, res.shape[1]), sentinel, dtype=res.dtype,
+                     device=res.device)
+    return seg.scatter_reduce_(0, gid[:, None].expand_as(marked), marked,
+                               reduce="amin" if agg == "min" else "amax")
+
+
 def _group_reduce(res, gid_l, num_groups: int, agg: str, mesh):
     """[P_l, K] per-series results → [G, K] grouped aggregate (the
     segment reduce, then SUM / MIN / MAX over the shard axis). NaN = series
-    absent at that step."""
-    gid = gid_l.to(device=res.device, dtype=torch.int64)
-    present = ~torch.isnan(res)
-    contrib = torch.where(present, res, 0.0)
-    nan = _nan_like(res)
-    gcnt = _reduce_shard(mesh, _segment_sum(present.to(contrib.dtype), gid,
-                                            num_groups), dist.ReduceOp.SUM)
+    absent at that step. Over a ``LocalMesh`` ``res`` holds a shard row's
+    rows a row (``gid_l`` a row's or a slot's ids) and the answer lands on
+    the root slot."""
+    gid = _each(lambda r, g: g.to(device=r.device, dtype=torch.int64), res,
+                _per_row(mesh, gid_l))
+    contrib = _each(lambda r: torch.where(~torch.isnan(r), r, 0.0), res)
+    gcnt = _reduce_shard(mesh, _each(
+        lambda r, g: _segment_sum((~torch.isnan(r)).to(r.dtype), g,
+                                  num_groups), res, gid), dist.ReduceOp.SUM)
+    nan = _nan_like(gcnt)
     if agg in ("min", "max"):
-        sentinel = float("inf") if agg == "min" else float("-inf")
-        marked = torch.where(present, res, sentinel)
-        seg = torch.full((num_groups, res.shape[1]), sentinel,
-                         dtype=res.dtype, device=res.device)
-        seg.scatter_reduce_(0, gid[:, None].expand_as(marked), marked,
-                            reduce="amin" if agg == "min" else "amax")
-        seg = _reduce_shard(mesh, seg, dist.ReduceOp.MIN if agg == "min"
-                            else dist.ReduceOp.MAX)
+        seg = _reduce_shard(mesh, _each(
+            lambda r, g: _segment_extreme(r, g, num_groups, agg), res, gid),
+            dist.ReduceOp.MIN if agg == "min" else dist.ReduceOp.MAX)
         return torch.where(gcnt > 0, seg, nan)
-    gsum = _reduce_shard(mesh, _segment_sum(contrib, gid, num_groups),
-                         dist.ReduceOp.SUM)
+    gsum = _reduce_shard(mesh, _each(
+        lambda c, g: _segment_sum(c, g, num_groups), contrib, gid),
+        dist.ReduceOp.SUM)
     if agg in ("stddev", "stdvar"):
-        gsum2 = _reduce_shard(mesh, _segment_sum(contrib * contrib, gid,
-                                                 num_groups),
-                              dist.ReduceOp.SUM)
+        gsum2 = _reduce_shard(mesh, _each(
+            lambda c, g: _segment_sum(c * c, g, num_groups), contrib, gid),
+            dist.ReduceOp.SUM)
         mean = gsum / gcnt.clamp(min=1.0)
         var = (gsum2 / gcnt.clamp(min=1.0) - mean * mean).clamp(min=0.0)
         out = var if agg == "stdvar" else torch.sqrt(var)
@@ -455,16 +564,17 @@ def make_distributed_range_agg(mesh, fn: str, num_groups: int,
     def per_series(ts_l, vals_l, valid_l, steps, window, raw_l=None):
         if fn in COUNTER_FNS:
             mode, counter = COUNTER_FNS[fn]
-            parts = _local_rate_partials(ts_l, vals_l, valid_l, steps,
-                                         window, counter=counter,
-                                         raw=raw_l, dtype=dtype)
+            parts = _each(lambda t, v, ok, r: _local_rate_partials(
+                t, v, ok, steps, window, counter=counter, raw=r,
+                dtype=dtype), ts_l, vals_l, valid_l, raw_l)
             gathered = _all_gather_time(mesh, parts)  # [dt, P_l, K, 7]
-            return _combine_time_partials(gathered, steps, window,
-                                          mode=mode, counter=counter)
+            return _each(lambda g: _combine_time_partials(
+                g, steps, window, mode=mode, counter=counter), gathered)
         combine = _SIMPLE_COMBINE[fn]
-        parts = _local_simple_partials(ts_l, vals_l, valid_l, steps, window,
-                                       fn in _MINMAX_FNS, dtype)
-        return combine(_all_gather_time(mesh, parts))
+        parts = _each(lambda t, v, ok: _local_simple_partials(
+            t, v, ok, steps, window, fn in _MINMAX_FNS, dtype),
+            ts_l, vals_l, valid_l)
+        return _each(combine, _all_gather_time(mesh, parts))
 
     def step(ts, vals, valid, group_ids, steps, window, raw=None):
         res = per_series(ts, vals, valid, steps, window, raw)
@@ -497,11 +607,15 @@ def make_mesh_prepare(mesh, kind: str, dtype: torch.dtype = EXACT_DTYPE):
     (vals, valid) → (csum, cnt, csum2), each block's exclusive prefixes
     [P_l, S_l + 1]."""
 
-    def prep(vals, valid):
+    def one(vals, valid):
         if kind == "counter":
             return _counter_correct(torch.where(valid, vals, 0.0).to(dtype),
                                     valid)
         return _simple_prefixes(vals, valid, dtype)
+
+    def prep(vals, valid):
+        out = _each(one, vals, valid)
+        return _unzipped(out) if kind == "prefix" else out
 
     return prep
 
@@ -510,9 +624,12 @@ def make_mesh_bounds(mesh):
     """The window-bounds program: (ts, steps, window) → (lo, hi) int32
     [P_l, K], local to this rank's time block."""
 
-    def bounds(ts, steps, window):
+    def one(ts, steps, window):
         lo, hi = _window_bounds(ts, steps, window)
         return lo.to(torch.int32), hi.to(torch.int32)
+
+    def bounds(ts, steps, window):
+        return _unzipped(_each(one, ts, steps, window))
 
     return bounds
 
@@ -527,10 +644,12 @@ def make_mesh_eval_delta(mesh, fn: str, counter: bool | None = None,
     counter = default_counter if counter is None else counter
 
     def ev(ts, vals, valid, lo, hi, steps, window, cv=None, raw=None):
-        parts = _rate_partials_from_bounds(ts, vals, valid, lo, hi, cv=cv,
-                                           raw=raw, dtype=dtype)
-        return _combine_time_partials(_all_gather_time(mesh, parts), steps,
-                                      window, mode=mode, counter=counter)
+        parts = _each(lambda t, v, ok, a, b, c, r: _rate_partials_from_bounds(
+            t, v, ok, a, b, cv=c, raw=r, dtype=dtype),
+            ts, vals, valid, lo, hi, cv, raw)
+        return _each(lambda g: _combine_time_partials(
+            g, steps, window, mode=mode, counter=counter),
+            _all_gather_time(mesh, parts))
 
     return ev
 
@@ -543,10 +662,10 @@ def make_mesh_eval_simple(mesh, fn: str, dtype: torch.dtype = EXACT_DTYPE):
     combine = _SIMPLE_COMBINE[fn]
 
     def ev(ts, vals, valid, csum, cnt, csum2, lo, hi, steps, window):
-        parts = _simple_partials_from_bounds(ts, vals, valid, csum, cnt,
-                                             csum2, lo, hi,
-                                             with_minmax=False, dtype=dtype)
-        return combine(_all_gather_time(mesh, parts))
+        parts = _each(lambda *b: _simple_partials_from_bounds(
+            *b, with_minmax=False, dtype=dtype),
+            ts, vals, valid, csum, cnt, csum2, lo, hi)
+        return _each(combine, _all_gather_time(mesh, parts))
 
     return ev
 
@@ -568,10 +687,11 @@ def make_distributed_sum_rate(mesh, num_groups: int,
     every rank."""
 
     def step(ts, vals, valid, group_ids, steps, window, raw=None):
-        parts = _local_rate_partials(ts, vals, valid, steps, window,
-                                     raw=raw, dtype=dtype)
-        rate = _combine_time_partials(_all_gather_time(mesh, parts), steps,
-                                      window)
+        parts = _each(lambda t, v, ok, r: _local_rate_partials(
+            t, v, ok, steps, window, raw=r, dtype=dtype),
+            ts, vals, valid, raw)
+        rate = _each(lambda g: _combine_time_partials(g, steps, window),
+                     _all_gather_time(mesh, parts))
         return _group_reduce(rate, group_ids, num_groups, "sum", mesh)
 
     return step
@@ -582,28 +702,36 @@ def shard_batch_arrays(mesh, ts, vals, valid, group_ids, raw=None,
     """This rank's block of the global host arrays (its mesh coordinates'
     rows of ``ts``, ``vals``, ``valid`` and ``raw`` [P, S], and of
     ``group_ids`` [P]), on ``device`` (the mesh's: the current card under
-    NCCL, else the CPU). P and S must divide by the mesh (``pad_for_mesh``)."""
+    NCCL, else the CPU). P and S must divide by the mesh (``pad_for_mesh``).
+    Over a ``LocalMesh``: each array as a list of every slot's block on
+    the slot's device, row-major over (shard, time)."""
     ds, dt = mesh_axes(mesh)
-    s_idx, t_idx = _coords(mesh)
     P, S = ts.shape
     if P % ds or S % dt:
         raise ValueError(f"[{P}, {S}] does not divide over a {ds}×{dt} "
                          f"mesh: pad it (pad_for_mesh)")
     pl, sl = P // ds, S // dt
-    rows = slice(s_idx * pl, (s_idx + 1) * pl)
-    cols = slice(t_idx * sl, (t_idx + 1) * sl)
+
+    def block(s_idx, t_idx, dev):
+        rows = slice(s_idx * pl, (s_idx + 1) * pl)
+        cols = slice(t_idx * sl, (t_idx + 1) * sl)
+
+        def put(x, *idx):
+            return torch.as_tensor(np.ascontiguousarray(x[idx])).to(dev)
+
+        placed = (put(ts, rows, cols), put(vals, rows, cols),
+                  put(valid, rows, cols), put(group_ids, rows))
+        if raw is not None:
+            placed += (put(raw, rows, cols),)
+        return placed
+
+    if isinstance(mesh, LocalMesh):
+        return _unzipped([block(s, t, mesh.devices[s][t])
+                          for s in range(ds) for t in range(dt)])
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
             if mesh.device_type == "cuda" else torch.device("cpu")
-
-    def put(x, *idx):
-        return torch.as_tensor(np.ascontiguousarray(x[idx])).to(device)
-
-    placed = (put(ts, rows, cols), put(vals, rows, cols),
-              put(valid, rows, cols), put(group_ids, rows))
-    if raw is not None:
-        placed += (put(raw, rows, cols),)
-    return placed
+    return block(*_coords(mesh), device)
 
 
 def pad_for_mesh(ts, vals, counts, group_ids, mesh):
@@ -626,87 +754,127 @@ def pad_for_mesh(ts, vals, counts, group_ids, mesh):
     return ts_p, vals_p, valid, gid_p
 
 
+def _ring_state(parts):
+    """A block's own ring state [P_l, K, 8] (n so far, t_first, v_first,
+    increase so far, has_prev, v_prev, t_last, v_first_raw) from its rate
+    partials [P_l, K, 7]."""
+    n_l, tf_l, vf_l, tl_l, vl_l, inc_l, vfr_l = [
+        parts[..., i] for i in range(7)]
+    has_l = n_l > 0
+    zero = torch.zeros_like(n_l)
+    return torch.stack([
+        n_l, tf_l, torch.where(has_l, vf_l, zero), inc_l,
+        has_l.to(parts.dtype), torch.where(has_l, vl_l, zero), tl_l,
+        torch.where(has_l, vfr_l, zero)], -1)
+
+
+def _ring_combine(prev, parts, first_block: bool):
+    """One hop of the ring: the state received from the previous time
+    block combined with this block's partials [P_l, K, 7]."""
+    n_l, tf_l, vf_l, tl_l, vl_l, inc_l, vfr_l = [
+        parts[..., i] for i in range(7)]
+    has_l = n_l > 0
+    zero = torch.zeros_like(n_l)
+    # the first block receives nothing (zeros): mask the counts and flags
+    # and re-sentinel the min/max-combined fields, so zeros cannot pollute
+    # t_first (min) / t_last (max)
+    p_n, p_tf, p_vf, p_inc, p_has, p_vl, p_tl, p_vfr = [
+        prev[..., i] for i in range(8)]
+    if first_block:
+        p_n = torch.zeros_like(p_n)
+        p_has = torch.zeros_like(p_has)
+        p_inc = torch.zeros_like(p_inc)
+        p_vfr = torch.zeros_like(p_vfr)
+    no_prev = p_has == 0
+    p_tf = torch.where(no_prev, float(_T_FIRST_NONE), p_tf)
+    p_tl = torch.where(no_prev, float(_T_LAST_NONE), p_tl)
+    boundary = torch.where(has_l & (p_has > 0),
+                           torch.where(vf_l < p_vl, vf_l, vf_l - p_vl), zero)
+    n_c = p_n + n_l
+    inc_c = p_inc + inc_l + boundary
+    tf_c = torch.minimum(p_tf, tf_l)
+    vf_c = torch.where(p_has > 0, p_vf, torch.where(has_l, vf_l, zero))
+    vfr_c = torch.where(p_has > 0, p_vfr, torch.where(has_l, vfr_l, zero))
+    has_c = torch.maximum(p_has, has_l.to(parts.dtype))
+    vl_c = torch.where(has_l, vl_l, p_vl)
+    tl_c = torch.maximum(p_tl, tl_l)
+    return torch.stack([n_c, tf_c, vf_c, inc_c, has_c, vl_c, tl_c, vfr_c],
+                       -1)
+
+
 def make_distributed_sum_rate_ring(mesh, num_groups: int,
-                                   dtype: torch.dtype = EXACT_DTYPE):
+                                   dtype: torch.dtype = EXACT_DTYPE,
+                                   agg: str | None = "sum"):
     """The ring form of ``make_distributed_sum_rate``: instead of
     all-gathering every time block's partials, the running combine state
-    [P_l, K, 8] (n so far, t_first, v_first, increase so far, has_prev,
-    v_prev, t_last, v_first_raw) passes from each time block to the next,
-    dt - 1 hops of paired send / receive. Memory per rank stays O(P_l·K)
-    whatever dt is."""
+    [P_l, K, 8] (``_ring_state``) passes from each time block to the next,
+    dt - 1 hops of paired send / receive (over a ``LocalMesh``: a copy to
+    the next slot's device). Memory per block stays O(P_l·K) whatever dt
+    is. ``agg=None`` returns the per-series rates (``group_ids`` unread)."""
 
-    dt_size = mesh_axes(mesh)[1]
-    s_idx, t_idx = _coords(mesh)
-    ranks = mesh.mesh.tolist()
-    # this block's neighbours along the time axis (global ranks)
-    nxt = ranks[s_idx][t_idx + 1] if t_idx + 1 < dt_size else None
-    prv = ranks[s_idx][t_idx - 1] if t_idx > 0 else None
-    first_block = t_idx == 0
+    ds_size, dt_size = mesh_axes(mesh)
+    local = isinstance(mesh, LocalMesh)
+    if local:
+        firsts = [t == 0 for _ in range(ds_size) for t in range(dt_size)]
+    else:
+        s_idx, t_idx = _coords(mesh)
+        ranks = mesh.mesh.tolist()
+        # this block's neighbours along the time axis (global ranks)
+        nxt = ranks[s_idx][t_idx + 1] if t_idx + 1 < dt_size else None
+        prv = ranks[s_idx][t_idx - 1] if t_idx > 0 else None
+        firsts = t_idx == 0
+
+    def shift(state):
+        """Each block's state to the next time block; what the first
+        block of a row receives is zeros."""
+        if local:
+            return [torch.zeros_like(st) if t == 0
+                    else state[i - 1].to(st.device)
+                    for i, (st, t) in enumerate(
+                        zip(state, [t for _ in range(ds_size)
+                                    for t in range(dt_size)]))]
+        prev = torch.zeros_like(state)
+        ops = []
+        if nxt is not None:
+            ops.append(dist.P2POp(dist.isend, state.contiguous(), nxt))
+        if prv is not None:
+            ops.append(dist.P2POp(dist.irecv, prev, prv))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return prev
+
+    def last_block(state):
+        """The full combine, which the last time block holds, on every
+        block of its row (a masked sum, one contributor); over a
+        ``LocalMesh``, a row's last slot's state a row."""
+        if local:
+            return [state[(s + 1) * dt_size - 1] for s in range(ds_size)]
+        if dt_size == 1:
+            return state
+        full = state if t_idx == dt_size - 1 else torch.zeros_like(state)
+        dist.all_reduce(full, group=mesh.get_group("time"))
+        return full
 
     def step(ts, vals, valid, group_ids, steps, window, raw=None):
-        dtt = dtype
-        parts = _local_rate_partials(ts, vals, valid, steps, window,
-                                     raw=raw, dtype=dtype)
-        n_l, tf_l, vf_l, tl_l, vl_l, inc_l, vfr_l = [
-            parts[..., i] for i in range(7)]
-        del parts
-        has_l = n_l > 0
-        zero = torch.zeros_like(n_l)
-        state = torch.stack([
-            n_l, tf_l, torch.where(has_l, vf_l, zero), inc_l,
-            has_l.to(dtt), torch.where(has_l, vl_l, zero), tl_l,
-            torch.where(has_l, vfr_l, zero)], -1)
+        parts = _each(lambda t, v, ok, r: _local_rate_partials(
+            t, v, ok, steps, window, raw=r, dtype=dtype),
+            ts, vals, valid, raw)
+        state = _each(_ring_state, parts)
         for _ in range(dt_size - 1):
-            prev = torch.zeros_like(state)
-            ops = []
-            if nxt is not None:
-                ops.append(dist.P2POp(dist.isend, state.contiguous(), nxt))
-            if prv is not None:
-                ops.append(dist.P2POp(dist.irecv, prev, prv))
-            if ops:
-                for req in dist.batch_isend_irecv(ops):
-                    req.wait()
-            # the first block receives nothing (zeros): mask the counts and
-            # flags and re-sentinel the min/max-combined fields, so zeros
-            # cannot pollute t_first (min) / t_last (max)
-            p_n, p_tf, p_vf, p_inc, p_has, p_vl, p_tl, p_vfr = [
-                prev[..., i] for i in range(8)]
-            if first_block:
-                p_n = torch.zeros_like(p_n)
-                p_has = torch.zeros_like(p_has)
-                p_inc = torch.zeros_like(p_inc)
-                p_vfr = torch.zeros_like(p_vfr)
-            no_prev = p_has == 0
-            p_tf = torch.where(no_prev, float(_T_FIRST_NONE), p_tf)
-            p_tl = torch.where(no_prev, float(_T_LAST_NONE), p_tl)
-            # combine the previous state with the local block
-            boundary = torch.where(
-                has_l & (p_has > 0),
-                torch.where(vf_l < p_vl, vf_l, vf_l - p_vl), zero)
-            n_c = p_n + n_l
-            inc_c = p_inc + inc_l + boundary
-            tf_c = torch.minimum(p_tf, tf_l)
-            vf_c = torch.where(p_has > 0, p_vf,
-                               torch.where(has_l, vf_l, zero))
-            vfr_c = torch.where(p_has > 0, p_vfr,
-                                torch.where(has_l, vfr_l, zero))
-            has_c = torch.maximum(p_has, has_l.to(dtt))
-            vl_c = torch.where(has_l, vl_l, p_vl)
-            tl_c = torch.maximum(p_tl, tl_l)
-            state = torch.stack([n_c, tf_c, vf_c, inc_c, has_c, vl_c, tl_c,
-                                 vfr_c], -1)
-        # after dt - 1 hops the last time block holds the full combine:
-        # every block takes it (a masked sum, one contributor)
-        if dt_size > 1:
-            full = state if t_idx == dt_size - 1 else torch.zeros_like(state)
-            dist.all_reduce(full, group=mesh.get_group("time"))
-        else:
-            full = state
-        (n_tot, t_first_g, _, total_inc, _, _, t_last_g,
-         v_first_raw_g) = [full[..., i] for i in range(8)]
-        rate = _extrapolate(n_tot, t_first_g, t_last_g, total_inc,
-                            v_first_raw_g, steps, window, "rate", True, dtt,
-                            full.device)
-        return _group_reduce(rate, group_ids, num_groups, "sum", mesh)
+            state = _each(_ring_combine, shift(state), parts, firsts)
+        del parts
+
+        def rate(full):
+            (n_tot, t_first_g, _, total_inc, _, _, t_last_g,
+             v_first_raw_g) = [full[..., i] for i in range(8)]
+            return _extrapolate(n_tot, t_first_g, t_last_g, total_inc,
+                                v_first_raw_g, steps, window, "rate", True,
+                                dtype, full.device)
+
+        rates = _each(rate, last_block(state))
+        if agg is None:
+            return rates
+        return _group_reduce(rates, group_ids, num_groups, agg, mesh)
 
     return step

@@ -1,6 +1,7 @@
-"""The one-GPU query engine: PromQL plans over scalar series on the card.
+"""The mesh query engine: PromQL plans over the card, or over a (shard,
+time) mesh of local devices.
 
-Port of ``filodb_tpu/parallel/mesh_engine.py`` for one card. A leaf is
+Port of ``filodb_tpu/parallel/mesh_engine.py``. A leaf is
 lowered (``lower_plan``) from
 
     range_fn(selector[w] offset o)   every range function of
@@ -72,6 +73,38 @@ A query's deadline (``utils.resilience.Deadline``, handed to ``execute``
 and ``execute_many``) is checked where each leaf starts and ends, never
 inside a kernel.
 
+The mesh (``mesh``, a ``dist_query.LocalMesh``; ``make_query_mesh``
+builds one over every visible card, or over the devices it is given, a
+device may fill several slots; one slot on ``device`` is the one-card
+engine above, bit for bit). Over several slots a leaf's batch is a
+``MeshBatch``: its rows cut into contiguous even blocks, one a shard row,
+each packed and uploaded to the row's first slot (``build_device_batch``
+with ``blocks``), as the reference's ``pad_for_mesh`` and
+``shard_batch_arrays`` cut its rows. Every block is evaluated where it
+lies before any block's answer is read, so cards overlap: with a time
+axis of 1 by the windowing stage above (B3, or B1/B2 with B4 or a
+float64 function), with a time axis above 1, for a function of
+``dist_query.SPLIT_FNS``, by decoding the block (B1/B2), moving each
+row's samples to a prefix, cutting them into a block a time slot and
+running ``dist_query``'s split programs (bounds, prepare, evaluation,
+the gather over ``time``) or, for rate under ``variant="ring"``, its ring;
+any other leaf (histograms, quantile_over_time, holt_winters, ``@``) runs
+on the shard axis alone, as the reference's ``MESH_FNS`` decline it. The
+window cache keeps an entry a block, on its slot. An aggregation of
+``MESH_AGGS`` directly over a leaf reduces each block to group partials
+and folds them over ``shard`` in block order on the first slot
+(``dist_query._group_reduce``); every other leaf's rows come to the first
+slot in row order, where the code above the leaves runs unchanged. The
+ring variant is, as the reference's, fused only: it skips the window
+cache.
+
+The reference's plan and cache counters: ``filodb_mesh_supported`` /
+``_unsupported`` (``supports`` and ``execute_many``'s plans; ``reason``
+asks without counting), ``filodb_mesh_dispatch{form}`` (a leaf with rows:
+``split`` where its windows come through the window cache, else
+``fused``), ``filodb_mesh_batch_cache{event}`` (``_batch_over``) and the
+``filodb_mesh_hit_rate`` gauge.
+
 The multi-process runtime (``coordinator/mesh_cluster.py``,
 ``parallel/multiproc.py``) splits a plan at its leaf. ``_lower``
 recognizes the reference's mesh shapes, ``agg by|without
@@ -107,14 +140,20 @@ import torch
 
 from filodb_tpu_torch.device import EXACT_DTYPE
 from filodb_tpu_torch.parallel import dist_query
+from filodb_tpu_torch.parallel.dist_query import LocalMesh
 from filodb_tpu_torch.query import logical as lp
 from filodb_tpu_torch.query.engine import sidecar_lane
 from filodb_tpu_torch.query.engine.aggregations import AGG_OPS
+from filodb_tpu_torch.query.engine.batch import SeriesBatch
 from filodb_tpu_torch.query.engine.device_batch import (
     MIXED_KINDS,
     BatchCache,
     DeviceBatch,
+    MeshBatch,
+    assemble,
     build_device_batch,
+    compact_rows,
+    device_key,
 )
 from filodb_tpu_torch.query.engine.instantfns import (
     INSTANT_FNS,
@@ -138,6 +177,7 @@ from filodb_tpu_torch.query.exec.transformers import (
     PeriodicSamplesMapper,
     ScalarOperationMapper,
     SortFunctionMapper,
+    int32_steps,
     steps_array,
     tensor_of,
 )
@@ -147,17 +187,63 @@ from filodb_tpu_torch.query.model import (
     StepMatrix,
     UnsupportedQuery,
 )
-from filodb_tpu_torch.utils.metrics import get_counter
+from filodb_tpu_torch.utils.metrics import GaugeFn, get_counter
 from filodb_tpu_torch.utils.resilience import check
 
 # the split-pipeline functions (``dist_query.SPLIT_FNS``) and the instant
 # selector, which the reference evaluates as last_over_time: their
 # evaluated windows are cached
 SPLIT_FNS = dist_query.SPLIT_FNS + ("last_sample",)
+# the reference's families, registered at import so a scrape sees them
+# before the first query: plan recognition (``supports``), the leaf's
+# dispatch form (``split``: through the window cache), the batch cache
+_M_SUPPORTED = get_counter(
+    "filodb_mesh_supported", help="plans recognized for mesh execution")
+_M_UNSUPPORTED = get_counter(
+    "filodb_mesh_unsupported", help="plans that fell back to the exec path "
+    "at recognition time")
+_M_DISPATCH = {f: get_counter("filodb_mesh_dispatch", {"form": f},
+                              help="mesh batch dispatches by kernel form "
+                              "(split pipeline vs fused one-shot)")
+               for f in ("split", "fused")}
+_M_BATCH = {e: get_counter("filodb_mesh_batch_cache", {"event": e},
+                           help="decoded+placed batch cache hits/misses")
+            for e in ("hit", "miss")}
 _M_EVAL = {e: get_counter("filodb_mesh_eval_cache", {"event": e},
                           help="cached per-series window evaluation "
                           "hits/misses on the split pipeline")
            for e in ("hit", "miss")}
+GaugeFn("filodb_mesh_hit_rate",
+        lambda: _M_SUPPORTED.value / t
+        if (t := _M_SUPPORTED.value + _M_UNSUPPORTED.value) else 0.0,
+        help="fraction of inspected plans the mesh engine recognized")
+VARIANTS = ("gather", "ring")
+
+
+def make_query_mesh(n_devices: int | None = None,
+                    time_axis: int | None = None,
+                    devices: list | None = None) -> LocalMesh:
+    """The (shard × time) mesh of local devices the engine spreads a
+    query over: every visible card (``torch.cuda.device_count()``), or
+    ``devices`` (a slot each, a device may repeat), the first
+    ``n_devices`` of them where given, ``time_axis`` slots a shard row
+    (default 1, ROADMAP §C: B3 fuses a series' whole window range, which a
+    split of the samples would take off the default path), row-major as
+    the reference's ``make_query_mesh`` lays its devices out."""
+    if devices is None:
+        n = torch.cuda.device_count()
+        if not n:
+            raise RuntimeError("no CUDA card is visible: name the mesh's "
+                               "devices (devices=['cpu', ...])")
+        devices = [torch.device("cuda", i) for i in range(n)]
+    devices = [torch.device(d) for d in devices][:n_devices]
+    time_axis = time_axis or 1
+    n = len(devices) // time_axis * time_axis
+    if not n:
+        raise ValueError(f"{len(devices)} device(s) do not fill a time "
+                         f"axis of {time_axis}")
+    return LocalMesh([devices[i:i + time_axis]
+                      for i in range(0, n, time_axis)])
 
 
 def split_enabled() -> bool:
@@ -167,13 +253,15 @@ def split_enabled() -> bool:
 
 @dataclass
 class Evaluated:
-    """A window-cache entry: a leaf's evaluated windows, the stats its
-    evaluation counted, its device bytes and its batch's version."""
+    """A window-cache entry: a leaf's evaluated windows (of one block of a
+    mesh batch), the stats its evaluation counted, its device bytes, its
+    batch's version and the device it lies on."""
 
     matrix: StepMatrix
     stats: QueryStats
     nbytes: int
     version: int
+    device: torch.device | None = None
 
 # range functions a histogram leaf serves here. The exec engine also
 # answers timestamp (in seconds from the batch start, not epoch seconds)
@@ -326,13 +414,30 @@ def lower_plan(plan) -> Lowered:
 
 
 class MeshQueryEngine:
-    """Runs plans on one device. Its batches live in ``batches`` and its
-    group ids in ``gids``, which a service shares with its exec engine."""
+    """Runs plans on one device, or on a ``LocalMesh`` (``mesh``) of
+    local devices whose first slot (``device``) runs what stands above
+    the leaves. Its batches live in ``batches`` and its group ids in
+    ``gids``, which a service shares with its exec engine. ``variant``:
+    "gather" or "ring", the combine over the time axis (see the
+    module)."""
 
-    def __init__(self, device: torch.device,
+    def __init__(self, device: torch.device | None = None,
                  batches: BatchCache | None = None,
-                 gids: GroupIdCache | None = None, sidecars: bool = False):
-        self.device = device
+                 gids: GroupIdCache | None = None, sidecars: bool = False,
+                 mesh: LocalMesh | None = None, variant: str = "gather"):
+        if variant not in VARIANTS:
+            raise ValueError(f"variant {variant!r}: one of {VARIANTS}")
+        if mesh is None:
+            if device is None:
+                raise ValueError("the engine needs a device or a mesh")
+            mesh = LocalMesh([[device]])
+        elif device is not None \
+                and device_key(device) != device_key(mesh.root):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"slot {mesh.root}")
+        self.mesh = mesh
+        self.variant = variant
+        self.device = mesh.root
         # the reference's sidecar delegation: grids of at most two steps
         # (rule ticks, alert probes, instant queries) over a function the
         # sidecar lane serves go to exec, whose leaves fold them from the
@@ -360,12 +465,24 @@ class MeshQueryEngine:
         """None where this engine serves ``plan``, else why not. It is
         decided from the plan and the shards' indexes (which selectors
         match histograms) before any batch is built, as the reference's
-        ``supports`` decides."""
+        ``supports`` decides, and counted in ``filodb_mesh_supported`` /
+        ``filodb_mesh_unsupported``."""
+        why = self.reason(memstore, plan)
+        self._note(why is None)
+        return why
+
+    def reason(self, memstore, plan) -> str | None:
+        """``supports`` without counting: why the engine declines
+        ``plan`` (None where it serves it)."""
         try:
             self._check(memstore, plan)
         except UnsupportedQuery as e:
             return str(e)
         return None
+
+    @staticmethod
+    def _note(ok: bool) -> None:
+        (_M_SUPPORTED if ok else _M_UNSUPPORTED).inc()
 
     def _kind(self, memstore, low: Lowered) -> bool:
         """Whether the leaf's selector matches histograms; raises where it
@@ -581,7 +698,8 @@ class MeshQueryEngine:
                 out.append(None)
                 continue
             m = self._leaf(memstore, leaf, st)
-            keys = self._batch(memstore, leaf).keys if m.num_series else []
+            keys = self._batch(memstore, leaf, note=False).keys \
+                if m.num_series else []
             out.append(self.reduce_rows(low, keys, m.values, m.steps_ms,
                                         m.les))
         return out
@@ -625,29 +743,41 @@ class MeshQueryEngine:
 
     # ---- leaves ---------------------------------------------------------------
 
-    def _batch(self, memstore, low: Lowered) -> DeviceBatch:
+    def _batch(self, memstore, low: Lowered, note: bool = True):
         """The leaf's batch over every shard (``_batch_over``)."""
-        return self._batch_over(memstore, low.filters, *low.chunk_range)
+        return self._batch_over(memstore, low.filters, *low.chunk_range,
+                                note=note)
 
-    @staticmethod
-    def _batch_key(filters, lo_ms: int, hi_ms: int) -> tuple:
-        return ("mesh", str(filters), lo_ms, hi_ms)
+    def _batch_key(self, filters, lo_ms: int, hi_ms: int) -> tuple:
+        """A batch's key; a mesh of several slots adds its layout and
+        slots, so that engines of other layouts can share one
+        ``BatchCache``."""
+        key = ("mesh", str(filters), lo_ms, hi_ms)
+        if len(self.mesh) > 1:
+            key += (self.mesh.shape, tuple(str(d) for d in self.mesh.slots))
+        return key
 
-    def _batch_over(self, memstore, filters, lo_ms: int, hi_ms: int
-                    ) -> DeviceBatch:
+    def _batch_over(self, memstore, filters, lo_ms: int, hi_ms: int,
+                    note: bool = True):
         """The batch of a selector over every shard and the data range
         [lo_ms, hi_ms], cached per (selector, data range) until the store
-        ingests again."""
+        ingests again (``note``: counted in ``filodb_mesh_batch_cache``).
+        Over a mesh of several slots it is a ``MeshBatch``: the rows cut
+        into a block a shard row, each on the row's first slot."""
         key = self._batch_key(filters, lo_ms, hi_ms)
         batch = self.batches.get(key, memstore)
+        if note:
+            _M_BATCH["hit" if batch is not None else "miss"].inc()
         if batch is None:
             # each shard's version before its lookup
             versions = [shard.version for shard in memstore.shards]
             selected = [(shard, shard.lookup_partitions(list(filters),
                                                         lo_ms, hi_ms))
                         for shard in memstore.shards]
+            blocks = [row[0] for row in self.mesh.devices] \
+                if len(self.mesh) > 1 else None
             batch = build_device_batch(selected, lo_ms, hi_ms, self.device,
-                                       versions=versions)
+                                       versions=versions, blocks=blocks)
             self.batches.put(key, memstore, None, batch)
         return batch
 
@@ -662,10 +792,36 @@ class MeshQueryEngine:
         held = self.batches.batches("mesh-eval")
         return len(held), sum(e.nbytes for e in held)
 
+    def _cached(self, low: Lowered) -> bool:
+        """Whether the leaf's windows go through the window cache (the
+        reference's split pipeline; its ring variant is fused only)."""
+        return split_enabled() and low.fn in SPLIT_FNS \
+            and self.variant != "ring"
+
     def _leaf(self, memstore, low: Lowered, stats: QueryStats) -> StepMatrix:
         """A leaf at its steps through its windowing stage, from the window
         cache where it holds it; in ``execute_many``, over its group's
-        shared batch, once a grid."""
+        shared batch, once a grid. Over a mesh of several slots, the
+        blocks' rows gathered to the first slot in row order."""
+        return self._gathered(*self._leaf_parts(memstore, low, stats), low)
+
+    def _gathered(self, parts: list, batch, low: Lowered) -> StepMatrix:
+        """The leaf's matrix from its parts: a mesh batch's blocks' rows
+        on the first slot, in row order."""
+        if not isinstance(batch, MeshBatch):
+            # a matrix of the leaf's own: what is above it settles in place
+            return replace(parts[0])
+        values = torch.cat([torch.as_tensor(m.values).to(self.device)
+                            for m in parts if m is not None])
+        return StepMatrix(batch.keys if low.keep_metric else batch.out_keys,
+                          values, steps_array(low.start, low.step, low.end),
+                          dropped_keys=batch.out_keys, les=batch.les)
+
+    def _leaf_parts(self, memstore, low: Lowered, stats: QueryStats):
+        """(the leaf's evaluated windows, a matrix a block of its batch,
+        None for an empty block; the batch). Every block's kernels are
+        launched before any block's answer is read, so the cards of a mesh
+        work at once."""
         check(self._deadline, "the mesh engine's leaf")
         shared = self._shared.get(low.signature) if self._shared else None
         if shared is None:
@@ -675,25 +831,120 @@ class MeshQueryEngine:
             batch, _, bkey = shared
         stats.series_scanned += len(batch.keys)
         stats.samples_scanned += int(batch.counts.sum())
-        if split_enabled() and low.fn in SPLIT_FNS:
-            m = self._evaluated(memstore, bkey, batch, low, stats)
+        cached = self._cached(low)
+        if batch.keys:
+            _M_DISPATCH["split" if cached else "fused"].inc()
+        if isinstance(batch, MeshBatch):
+            def evaluate(i, block):
+                if block is None:
+                    return None
+                if cached:
+                    return self._evaluated(memstore, bkey + (i,), block, low,
+                                           stats, self._block_eval(i))
+                return self._block_eval(i)(block, low, stats)
+
+            if shared is None:
+                parts = [evaluate(i, b) for i, b in enumerate(batch.blocks)]
+            else:
+                parts = shared[1].get((low.start, low.end))
+                if parts is None:
+                    parts = shared[1][(low.start, low.end)] = [
+                        evaluate(i, b) for i, b in enumerate(batch.blocks)]
+        elif cached:
+            parts = [self._evaluated(memstore, bkey, batch, low, stats)]
         elif shared is None:
-            m = low.mapper.eval_batch(batch, stats)
+            parts = [low.mapper.eval_batch(batch, stats)]
         else:
             m = shared[1].get((low.start, low.end))
             if m is None:
                 m = shared[1][(low.start, low.end)] = \
                     low.mapper.eval_batch(batch, stats)
+            parts = [m]
         check(self._deadline, "the mesh engine's leaf")
-        # a matrix of the leaf's own: what is above it settles in place
-        return replace(m)
+        return parts, batch
+
+    def _block_eval(self, row: int):
+        """How shard row ``row``'s block is evaluated: the windowing stage
+        on the row's first slot, or, where the mesh has a time axis and
+        the leaf's function a time combine (``dist_query.SPLIT_FNS``, a
+        scalar batch, no ``@``), split over the row's time slots."""
+        def evaluate(block, low: Lowered, stats: QueryStats) -> StepMatrix:
+            if self.mesh.size(1) > 1 and low.fn in dist_query.SPLIT_FNS \
+                    and low.at_ms is None and block.les is None:
+                return self._time_split(block, low, row)
+            return low.mapper.eval_batch(block, stats)
+        return evaluate
+
+    def _time_split(self, block, low: Lowered, row: int) -> StepMatrix:
+        """A block's leaf over the time slots of shard row ``row``: each
+        row's samples (decoded by B1 and B2 on the row's first slot, or the
+        host-decode lane's float64 ones) moved to a prefix, cut into a
+        block a time slot, and combined by ``dist_query``'s split pipeline
+        (prepare, bounds, evaluation, the gather over ``time``) or, for
+        rate under the ``ring`` variant, by the ring."""
+        row_mesh = LocalMesh([self.mesh.devices[row]])
+        dt = row_mesh.size(1)
+        steps_ms = steps_array(low.start, low.step, low.end)
+        steps = int32_steps(steps_ms - low.offset - block.base)
+        if isinstance(block, SeriesBatch):
+            ts, vals, counts = block.ts, block.vals, \
+                torch.from_numpy(block.counts).to(block.device)
+        else:
+            ts, vals, counts = compact_rows(*assemble(
+                block.packed, block.end - block.base))
+            ts, vals, counts = (x[:len(block.keys)] for x in (ts, vals,
+                                                              counts))
+        # the host's sample counts bound the compacted rows' (NaN samples
+        # and those outside the range drop out): no device sync
+        S = -(-max(int(block.counts.max(initial=0)), 1) // dt) * dt
+        sl = S // dt
+        valid = torch.arange(S, device=counts.device)[None, :] \
+            < counts[:, None]
+        if S > ts.shape[1]:  # room for the time axis's last block
+            pad = S - ts.shape[1]
+            ts = torch.nn.functional.pad(ts, (0, pad),
+                                         value=dist_query.TS_PAD)
+            vals = torch.nn.functional.pad(vals, (0, pad))
+
+        def cut(x):
+            return [x[:, t * sl:(t + 1) * sl].contiguous().to(dev)
+                    for t, dev in enumerate(row_mesh.slots)]
+
+        ts_b, vals_b, valid_b = cut(ts[:, :S]), cut(vals[:, :S]), \
+            cut(valid)
+        window = int(low.mapper.span)
+        counter = low.fn != "delta" or block.is_counter
+        if self.variant == "ring" and low.fn == "rate":
+            rows = dist_query.make_distributed_sum_rate_ring(
+                row_mesh, 1, agg=None)(ts_b, vals_b, valid_b, None, steps,
+                                       window)
+        elif low.fn in dist_query.COUNTER_FNS:
+            lo, hi = dist_query.make_mesh_bounds(row_mesh)(ts_b, steps,
+                                                           window)
+            cv = dist_query.make_mesh_prepare(row_mesh, "counter")(
+                vals_b, valid_b) if counter else None
+            rows = dist_query.make_mesh_eval_delta(
+                row_mesh, low.fn, counter=counter)(
+                ts_b, vals_b, valid_b, lo, hi, steps, window, cv=cv)
+        else:
+            lo, hi = dist_query.make_mesh_bounds(row_mesh)(ts_b, steps,
+                                                           window)
+            csum, cnt, csum2 = dist_query.make_mesh_prepare(
+                row_mesh, "prefix")(vals_b, valid_b)
+            rows = dist_query.make_mesh_eval_simple(row_mesh, low.fn)(
+                ts_b, vals_b, valid_b, csum, cnt, csum2, lo, hi, steps,
+                window)
+        return StepMatrix(block.out_keys, rows[0], steps_ms,
+                          dropped_keys=block.out_keys)
 
     def _evaluated(self, memstore, bkey: tuple, batch, low: Lowered,
-                   stats: QueryStats) -> StepMatrix:
+                   stats: QueryStats, evaluate=None) -> StepMatrix:
         """The leaf's evaluated windows through the window cache, keyed as
         the reference's ``_series_eval_cached``: the batch's key (and, by
         the cache's stamp, its version), the window, the step grid and the
-        function (with its parameters, offset and ``@``)."""
+        function (with its parameters, offset and ``@``). ``evaluate``
+        (block, leaf, stats) evaluates a mesh batch's block; by default
+        the leaf's windowing stage."""
         ekey = ("mesh-eval", bkey, low.window, low.start, low.step, low.end,
                 low.fn, low.params, low.offset, low.at_ms, low.keep_metric)
         hit = self.batches.get(ekey, memstore)
@@ -703,12 +954,13 @@ class MeshQueryEngine:
             return hit.matrix
         _M_EVAL["miss"].inc()
         counted = QueryStats()
-        m = low.mapper.eval_batch(batch, counted)
+        m = evaluate(batch, low, counted) if evaluate is not None \
+            else low.mapper.eval_batch(batch, counted)
         stats.merge_counts(counted)
         values = torch.as_tensor(m.values)
         self.batches.put(ekey, memstore, None, Evaluated(
             m, counted, values.numel() * values.element_size(),
-            batch.version))
+            batch.version, values.device))
         return m
 
     def execute_many(self, memstore, plans: list,
@@ -734,6 +986,7 @@ class MeshQueryEngine:
                 pass
             finally:
                 self._collect = None
+            self._note(i in leaves)
         groups: dict = {}
         for lows in leaves.values():
             for low in lows:
@@ -845,6 +1098,11 @@ class MeshQueryEngine:
         """The one place that walks a plan tree, once ``_check`` passed."""
         if isinstance(plan, lp.Aggregate):
             amr = self._aggregation(plan)
+            if len(self.mesh) > 1 and amr.op in MESH_AGGS \
+                    and isinstance(plan.vector, (
+                        lp.PeriodicSeriesWithWindowing, lp.PeriodicSeries)):
+                return self._reduce_blocks(memstore, amr,
+                                           lower_plan(plan.vector), stats)
             data = self._eval(memstore, plan.vector, stats).settle()
             return amr.apply(data, self.gids.of(amr, data))
         if isinstance(plan, lp.ApplyInstantFunction):
@@ -891,6 +1149,28 @@ class MeshQueryEngine:
             return binary_join(lhs, rhs, plan.op, plan.cardinality, plan.on,
                                plan.ignoring, plan.include, plan.bool_mode)
         return self._leaf(memstore, lower_plan(plan), stats)
+
+
+    def _reduce_blocks(self, memstore, amr: AggregateMapReduce,
+                       low: Lowered, stats: QueryStats) -> StepMatrix:
+        """An aggregation of ``MESH_AGGS`` directly over a leaf on a mesh of
+        several slots: each block's rows reduced to group partials on its
+        own slot, then combined over ``shard`` in block order on the first
+        slot (``dist_query._group_reduce``). A histogram leaf's rows are
+        gathered and aggregated as ``execute`` aggregates them."""
+        parts, batch = self._leaf_parts(memstore, low, stats)
+        if not isinstance(batch, MeshBatch) or batch.les is not None:
+            data = self._gathered(parts, batch, low).settle()
+            return amr.apply(data, self.gids.of(amr, data))
+        keys = batch.keys if low.keep_metric else batch.out_keys
+        gids, gkeys = self.gids.keys_group_ids(amr, keys, self.device)
+        rows = [(torch.as_tensor(m.values).to(EXACT_DTYPE), gids[a:b])
+                for m, (a, b) in zip(parts, batch.rows) if m is not None]
+        out = dist_query._group_reduce([r for r, _ in rows],
+                                       [g for _, g in rows], len(gkeys),
+                                       amr.op, self.mesh)
+        return StepMatrix(gkeys, out, steps_array(low.start, low.step,
+                                                  low.end))
 
 
 def _subquery_mapper(plan: lp.SubqueryWithWindowing) -> PeriodicSamplesMapper:

@@ -125,10 +125,12 @@ def fused_decode_rate(packed, steps: torch.Tensor, window: int,
     K = steps.shape[0]
     out = torch.empty((P, K), dtype=torch.float32, device=dev)
     fn = _build.bind("fused_rate", "fused_decode_rate", 19)
-    _build.check("fused_rate", fn(
-        *(a.data_ptr() for a in packed), steps.data_ptr(), K, int(window),
-        P, NB, KINDS[kind], int(counter), R, out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream))
+    # the launch and its cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(dev):
+        _build.check("fused_rate", fn(
+            *(a.data_ptr() for a in packed), steps.data_ptr(), K,
+            int(window), P, NB, KINDS[kind], int(counter), R,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream))
     _build.count("fused_decode_rate")
     return out
 
@@ -182,9 +184,11 @@ def windowed_sum(ts: torch.Tensor, vals: torch.Tensor, steps: torch.Tensor,
     K = steps.shape[0]
     out = torch.empty((P, K), dtype=torch.float32, device=ts.device)
     fn = _build.bind("windowed_sum", "windowed_sum", 11)
-    _build.check("windowed_sum", fn(
-        ts.data_ptr(), vals.data_ptr(), steps.data_ptr(), K, int(window), P,
-        S, R, int(vec), out.data_ptr(),
-        torch.cuda.current_stream(ts.device).cuda_stream))
+    # the launch and its cudaFuncSetAttribute act on the current device
+    with torch.cuda.device(ts.device):
+        _build.check("windowed_sum", fn(
+            ts.data_ptr(), vals.data_ptr(), steps.data_ptr(), K,
+            int(window), P, S, R, int(vec), out.data_ptr(),
+            torch.cuda.current_stream(ts.device).cuda_stream))
     _build.count("windowed_sum")
     return out

@@ -548,7 +548,8 @@ MIXED_MULTI = ("the selector matches both rollup (ds-gauge) and other "
 
 
 def build_device_batch(selected, start: int, end: int, device: torch.device,
-                       column: str | None = None, versions=None):
+                       column: str | None = None, versions=None,
+                       blocks: list | None = None):
     """Select, pack and upload the pages of ``selected``, a list of
     (shard, partition ids), for [start, end]; rows follow that order. All
     partitions are histograms or none are; a histogram batch reads the
@@ -565,7 +566,15 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     The lane gate: where any shard's selected values are not exact in
     float32, every shard hands over its float64 samples instead and the
     batch is the host-decode lane's ``SeriesBatch`` (``batch.py``); the
-    gate is per batch, as the reference's mesh gate is."""
+    gate is per batch, as the reference's mesh gate is.
+
+    ``blocks``, a device a block (a mesh's shard rows): the selection is
+    cut into that many contiguous row blocks of ceil(P / blocks) rows (the
+    last ones shorter or empty, as ``dist_query.pad_for_mesh`` cuts the
+    reference's rows), each packed and uploaded to its device, and the
+    answer is a ``MeshBatch`` of them. Every block takes the lane and the
+    ``vmax`` of the whole selection, so a row is evaluated as it is in
+    one batch."""
     if versions is None:
         versions = [None] * len(selected)
     version = sum(v for v in versions if v is not None)
@@ -575,6 +584,8 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
     if not selected:
         return DeviceBatch([], None, np.zeros(0, np.int32), 0.0, False,
                            start, end, version=version)
+    if blocks is not None:
+        device = blocks[0]
     kind = np.concatenate([sh.hist[p] for sh, p in selected])
     if kind.any() and not kind.all():
         raise UnsupportedQuery(MIXED_KINDS)
@@ -610,9 +621,17 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
         ts, vals, counts, seconds = build_batch(
             [(int(f), sel) for f, (sel, _) in zip(firsts, sels)], len(keys),
             start, end, device)
-        return SeriesBatch([k.range_vector_key for k in keys], ts, vals,
-                           counts, col.is_counter, start, end, version,
-                           seconds={"select": select_s, **seconds})
+        whole = SeriesBatch([k.range_vector_key for k in keys], ts, vals,
+                            counts, col.is_counter, start, end, version,
+                            seconds={"select": select_s, **seconds})
+        if blocks is None:
+            return whole
+        return MeshBatch.of(whole, [
+            SeriesBatch(whole.keys[a:b], ts[a:b].to(dev), vals[a:b].to(dev),
+                        counts[a:b], col.is_counter, start, end, version)
+            if b > a else None
+            for (a, b), dev in zip(_row_blocks(len(keys), len(blocks)),
+                                   blocks)], blocks)
     tables, table_of, block_of, row_of = [], [], [], []
     vmax, les, n = 0.0, None, 0
     for ((tabs, t_of, b_of, r_of, x), _), (_, pids, _) in zip(sels, picked):
@@ -627,24 +646,132 @@ def build_device_batch(selected, start: int, end: int, device: torch.device,
         block_of.append(b_of)
         row_of.append(r_of + n)
         n += len(pids)
-    entries = (tables, np.concatenate(table_of), np.concatenate(block_of),
-               np.concatenate(row_of), len(keys), start)
+    table_of, block_of, row_of = (np.concatenate(x) for x in
+                                  (table_of, block_of, row_of))
     if hist:
         les = les if les is not None else np.array([np.inf])
-        packed, counts = pack_hist_blocks(*entries, len(les))
-    else:
-        packed, counts = pack_blocks(*entries)
-    dev = to_device(packed, device)
-    return DeviceBatch([k.range_vector_key for k in keys], dev,
-                       counts[: len(keys)], vmax, col.is_counter, start,
-                       end, les if hist else None,
-                       sum(a.numel() * a.element_size() for a in dev),
-                       version=version)
+    rvks = [k.range_vector_key for k in keys]
+
+    def upload(a: int, b: int, device) -> DeviceBatch:
+        """Rows [a, b) of the selection, packed on ``device``."""
+        sel = slice(None) if (a, b) == (0, len(keys)) \
+            else (row_of >= a) & (row_of < b)
+        entries = (tables, table_of[sel], block_of[sel], row_of[sel] - a,
+                   b - a, start)
+        if hist:
+            packed, counts = pack_hist_blocks(*entries, len(les))
+        else:
+            packed, counts = pack_blocks(*entries)
+        dev = to_device(packed, device)
+        return DeviceBatch(rvks[a:b], dev, counts[: b - a], vmax,
+                           col.is_counter, start, end,
+                           les if hist else None,
+                           sum(t.numel() * t.element_size() for t in dev),
+                           version=version)
+
+    if blocks is None:
+        return upload(0, len(keys), device)
+    parts = [upload(a, b, dev) if b > a else None for (a, b), dev in
+             zip(_row_blocks(len(keys), len(blocks)), blocks)]
+    return MeshBatch(rvks, np.concatenate([b.counts for b in parts
+                                           if b is not None]),
+                     parts, list(blocks), les if hist else None,
+                     col.is_counter, start, end, version)
+
+
+def _row_blocks(P: int, n: int) -> list[tuple[int, int]]:
+    """[a, b) of each of ``n`` contiguous blocks of ceil(P / n) rows."""
+    per = -(-P // n)
+    return [(min(i * per, P), min((i + 1) * per, P)) for i in range(n)]
+
+
+@dataclass
+class MeshBatch:
+    """A selection's batch cut into contiguous row blocks (``blocks``: a
+    ``DeviceBatch`` or ``SeriesBatch`` each, None for an empty one), each
+    on its own device (``devices``), for the shard rows of a mesh; the
+    keys and counts are the whole selection's, in row order."""
+
+    keys: list
+    counts: np.ndarray
+    blocks: list
+    devices: list
+    les: np.ndarray | None
+    is_counter: bool
+    base: int
+    end: int
+    version: int = 0
+    _out_keys: list | None = None
+
+    @staticmethod
+    def of(whole, blocks: list, devices: list) -> "MeshBatch":
+        """The blocks of ``whole``, a batch of the whole selection."""
+        return MeshBatch(whole.keys, whole.counts, blocks, list(devices),
+                         whole.les, whole.is_counter, whole.base, whole.end,
+                         whole.version)
+
+    @property
+    def out_keys(self) -> list:
+        """Series keys of a range function's output (metric dropped)."""
+        if self._out_keys is None:
+            self._out_keys = [k.drop_metric() for k in self.keys]
+        return self._out_keys
+
+    @property
+    def rows(self) -> list[tuple[int, int]]:
+        """[a, b) of each block."""
+        return _row_blocks(len(self.keys), len(self.blocks))
+
+    @property
+    def nbytes(self) -> int:
+        return sum(b.nbytes for b in self.blocks if b is not None)
+
+    def footprint(self) -> dict:
+        """Device → bytes of the blocks on it."""
+        out: dict = {}
+        for b, dev in zip(self.blocks, self.devices):
+            if b is not None:
+                key = device_key(dev)
+                out[key] = out.get(key, 0) + b.nbytes
+        return out
+
+
+def device_key(device) -> torch.device:
+    """``device`` with its index (a card named without one is the current
+    card)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _budget(device: torch.device) -> int:
+    """Half of a card's memory; 4 GiB on the CPU."""
+    return torch.cuda.get_device_properties(device).total_memory // 2 \
+        if device.type == "cuda" else 1 << 32
+
+
+def compact_rows(ts: torch.Tensor, vals: torch.Tensor, valid: torch.Tensor):
+    """Decoded rows (``assemble``'s ts, vals, valid [P, S]) with each
+    row's valid samples moved to a prefix, as ``dist_query``'s programs
+    take them: → (ts int32 [P, S] with ``TS_PAD`` past the samples, vals
+    [P, S] zero past them, counts int64 [P])."""
+    from filodb_tpu_torch.query.engine.batch import TS_PAD
+
+    P, S = ts.shape
+    at = torch.where(valid, torch.cumsum(valid, 1) - 1, S)
+    ts_c = torch.full((P, S + 1), TS_PAD, dtype=torch.int32,
+                      device=ts.device)
+    vals_c = torch.zeros((P, S + 1), dtype=vals.dtype, device=vals.device)
+    ts_c.scatter_(1, at, ts.to(torch.int32))
+    vals_c.scatter_(1, at, vals)
+    return ts_c[:, :S], vals_c[:, :S], valid.sum(1)
 
 
 class BatchCache:
     """Uploaded batches of both engines under one budget of device bytes
-    (half the card's memory), least recently used dropped first.
+    a card (half its memory), least recently used dropped first: a mesh
+    batch's blocks count against the cards they lie on.
     A batch is kept until its owner, the store (mesh) or a shard (exec
     leaf), ingests again: it is found by its key, its owner (the same
     object: a shard of a downsample or cold tier shares its number with a
@@ -655,8 +782,8 @@ class BatchCache:
     served as that newer version."""
 
     def __init__(self, device: torch.device):
-        self.budget = torch.cuda.get_device_properties(device).total_memory \
-            // 2 if device.type == "cuda" else 1 << 32
+        self.device = device_key(device)
+        self.budget = _budget(self.device)
         # key → (owner, owner's version, pids, batch), least recent first
         self._entries: dict = {}
 
@@ -668,12 +795,39 @@ class BatchCache:
         self._entries[key] = self._entries.pop(key)
         return hit[3]
 
+    def _footprint(self, batch) -> dict:
+        """Device → bytes of an entry: a ``MeshBatch``'s blocks each on
+        its slot's card, anything else on its own device (by default the
+        cache's)."""
+        f = getattr(batch, "footprint", None)
+        if f is not None:
+            return f()
+        dev = getattr(batch, "device", None)
+        return {self.device if dev is None else device_key(dev):
+                batch.nbytes}
+
+    def budget_of(self, device) -> int:
+        """The byte budget of ``device``: ``budget`` for the cache's own,
+        half of any other card."""
+        device = device_key(device)
+        return self.budget if device == self.device else _budget(device)
+
+    def used(self, device) -> int:
+        """Device bytes of the entries held on ``device``."""
+        device = device_key(device)
+        return sum(self._footprint(e[3]).get(device, 0)
+                   for e in self._entries.values())
+
     def put(self, key, owner, pids, batch: DeviceBatch) -> None:
+        """Keep ``batch``, dropping the least recently used entries until
+        each card it lies on has room for its bytes there."""
         self._entries.pop(key, None)
         for k in [k for k, (o, v, _, _) in self._entries.items()
                   if o.version != v]:
             del self._entries[k]
-        while self._entries and self.nbytes() + batch.nbytes > self.budget:
+        need = self._footprint(batch)
+        while self._entries and any(self.used(d) + n > self.budget_of(d)
+                                    for d, n in need.items()):
             self._entries.pop(next(iter(self._entries)))
         self._entries[key] = (owner, batch.version, pids, batch)
 

@@ -124,9 +124,12 @@ one JSON line, ``{"debug_report": {"lockcheck": [...], "racecheck":
 [...], "profiler": [...]}}``: each violation rendered, and the
 profiler's top frames.
 
-It runs on the CUDA card; ``device="cpu"`` runs every kernel's plain
-version on the CPU, as the tests do. Without a card it raises; nothing
-carries on on the CPU unasked. Options the port lacks raise at
+It runs on the CUDA cards: the mesh engines spread each leaf over a
+``make_query_mesh()`` of every visible card (1×1 on a host of one), the
+rest runs on the first; ``device="cuda:N"`` pins every engine to that
+card, and ``device="cpu"`` runs every kernel's plain version on the CPU,
+as the tests do. Without a card it raises; nothing carries on on the CPU
+unasked. Options the port lacks raise at
 construction (``ServerConfig.check_supported``).
 
     python -m filodb_tpu_torch.standalone --config conf/server.json
@@ -172,6 +175,7 @@ from filodb_tpu_torch.core.store.remotestore import (
     RemoteMetaStore,
 )
 from filodb_tpu_torch.device import resolve
+from filodb_tpu_torch.parallel.mesh_engine import make_query_mesh
 from filodb_tpu_torch.gateway.server import ContainerSink, GatewayServer
 from filodb_tpu_torch.http.fastserver import FastHttpServer
 from filodb_tpu_torch.http.server import FiloHttpServer
@@ -201,6 +205,10 @@ class FiloServer:
         governor.configure(**config.governor)
         tracing.configure(**config.tracing)
         self.device = resolve(device)
+        # the mesh engines' (shard, time) mesh: every visible card unless
+        # a device is named (``cuda:N``: that card alone; ``cpu``: one CPU
+        # slot); with one card it is 1×1, the one-card engine
+        self.mesh = make_query_mesh() if device is None else None
         os.makedirs(config.data_dir, exist_ok=True)
         self.store_server = None     # the chunk-store server's role
         self.log_server = None       # the log broker's role
@@ -371,7 +379,8 @@ class FiloServer:
             self.cluster.setup_dataset(ing, logs, cfg.spreads.get(name, 1))
             self.services[name] = self.cluster.query_service(
                 name, engine=cfg.engines.get(name, "mesh"),
-                device=self.device, result_cache=cfg.result_cache)
+                device=self.device, result_cache=cfg.result_cache,
+                mesh=self.mesh)
             self.cluster.on_heartbeat.append(
                 lambda n=name: poll_remote_statuses(self.cluster, n))
             # learned cost estimates, before any query is admitted
@@ -921,7 +930,8 @@ class FiloServer:
                 cluster._on_event(dataset, ev)
             self.services[dataset] = cluster.query_service(
                 dataset, engine=cfg.engines.get(dataset, "mesh"),
-                device=self.device, result_cache=cfg.result_cache)
+                device=self.device, result_cache=cfg.result_cache,
+                mesh=self.mesh)
             cluster.on_heartbeat.append(
                 lambda n=dataset: poll_remote_statuses(cluster, n))
         self.cluster = cluster
@@ -982,7 +992,8 @@ def main(argv=None) -> int:
                                  "server")
     ap.add_argument("--config", help="server config JSON", default=None)
     ap.add_argument("--device", default=None,
-                    help="cuda (the default) or cpu")
+                    help="cuda:N (that card alone) or cpu; by default the "
+                    "query engines spread over every visible card")
     args = ap.parse_args(argv)
     logging.basicConfig(level=logging.INFO)
     server = FiloServer(ServerConfig.load(args.config),

@@ -15,7 +15,8 @@ A case is a dict: ``name``; ``program``, one of ``sum_rate``, ``ring``,
 (prepare → bounds → eval → group reduce for ``fn`` under ``agg``) or
 ``blocks`` (the rank's ``shard_batch_arrays`` blocks); ``num_groups``; and
 the global host arrays, padded for the layout (``pad_for_mesh``): ``ts``,
-``vals``, ``valid``, ``gids``, ``steps``, ``window``.
+``vals``, ``valid``, ``gids``, ``steps``, ``window``. ``run_case`` runs a
+case over a ``LocalMesh`` too, in the calling process.
 
     python -m filodb_tpu_torch.testing.dist_run --cases cases.pkl \\
         --out results/ --rank 0 --world 8 --time-axis 2 --addr 127.0.0.1:PORT
@@ -55,16 +56,25 @@ def _split(mesh, dq, case, blocks):
 
 
 def run_case(mesh, case):
-    """One case on this rank: what its program returned, as numpy."""
+    """One case on this rank: what its program returned, as numpy. Over a
+    ``LocalMesh`` (one process drives every slot): an aggregate's [G, K],
+    the shard rows' per-series rows joined in row order, or for
+    ``blocks`` every slot's blocks in slot order."""
+    import numpy as np
     import torch
 
     from filodb_tpu_torch.parallel import dist_query as dq
 
+    local = isinstance(mesh, dq.LocalMesh)
     blocks = dq.shard_batch_arrays(mesh, case["ts"], case["vals"],
                                    case["valid"], case["gids"])
     if case["program"] == "blocks":
+        if local:
+            return [tuple(b[i].cpu().numpy() for b in blocks)
+                    for i in range(len(mesh))]
         return tuple(b.numpy() for b in blocks)
-    steps = torch.as_tensor(case["steps"]).to(blocks[0].device)
+    steps = torch.as_tensor(case["steps"]).to(
+        mesh.root if local else blocks[0].device)
     case = dict(case, steps=steps)
     G, window = case["num_groups"], int(case["window"])
     prog = case["program"]
@@ -81,6 +91,8 @@ def run_case(mesh, case):
         out = _split(mesh, dq, case, blocks)
     else:
         raise ValueError(f"unknown program {prog}")
+    if isinstance(out, list):
+        return np.concatenate([o.cpu().numpy() for o in out])
     return out.cpu().numpy()
 
 

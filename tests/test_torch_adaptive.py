@@ -6,6 +6,9 @@ the device lane's, equal to ``engine="mesh"``; routing, warm-up and
 shadow probes run with injected fake lanes, as the reference injects
 them. ``execute_many`` answers as the reference's adaptive engine does on
 the slice store (``test_torch_slice``), through ``query_range_many``.
+Over a mesh of several CPU slots the ``single`` lane (a 1×1 engine on
+the first slot) is built, serves a cold bucket, is shadowed and answers
+as the device lane; over one slot it is not built.
 """
 
 import time
@@ -63,7 +66,7 @@ def test_one_lane_on_the_cpu_answers_as_mesh(stores):
     eng = svc.mesh
     assert isinstance(eng, AdaptiveQueryEngine)
     assert eng._host() is None and eng._lanes() == ["device"]
-    assert eng.routed == {"device": 1, "host": 0}
+    assert eng.routed == {"device": 1, "single": 0, "host": 0}
     assert a.stats.engine == "mesh"
 
 
@@ -116,6 +119,7 @@ def _engine_with_lanes():
     eng.device_engine = _FakeLane()
     eng._host_engine = _FakeLane()
     eng._host_checked = True
+    eng._single_checked = True  # two lanes: device and host
     eng.sync_floor_s = 0.070
     return eng
 
@@ -208,3 +212,47 @@ def test_a_real_host_lane_answers_as_the_device_lane(stores):
     want = QueryService(port, device="cpu").query_range(Q, Q_START, Q_STEP,
                                                         Q_END)
     np.testing.assert_array_equal(got.result.values, want.result.values)
+
+
+def _mesh_service(port, slots: int):
+    from filodb_tpu_torch.parallel.mesh_engine import make_query_mesh
+
+    return QueryService(port, engine="adaptive",
+                        mesh=make_query_mesh(devices=["cpu"] * slots))
+
+
+@pytest.mark.parametrize("slots", [1, 2, 4])
+def test_the_single_lane_is_built_over_several_slots(stores, slots):
+    _, port = stores
+    eng = _mesh_service(port, slots).mesh
+    single = eng._single()
+    assert (single is not None) == (slots > 1)
+    assert eng._lanes() == (["device", "single"] if slots > 1
+                            else ["device"])
+    if single is not None:
+        assert len(single.mesh) == 1
+        assert single.device == eng.device_engine.device
+        assert single.batches is eng.device_engine.batches
+
+
+def test_the_single_lane_is_routed_shadowed_and_answers_as_the_mesh(stores):
+    _, port = stores
+    svc = _mesh_service(port, 4)
+    eng = svc.mesh
+    before = adaptive._M_ROUTED["single"].value
+    got = svc.query_range(Q, Q_START, Q_STEP, Q_END)  # cold: single
+    eng.drain()
+    assert eng.routed["single"] == 1
+    assert adaptive._M_ROUTED["single"].value == before + 1
+    # the device lane's estimate was missing: a shadow probe priced it
+    assert eng.shadowed["device"] == 1
+    assert eng._cost[("device", 1)].est is not None
+    eng._record("single", 1, 10.0)  # the mesh measured faster
+    dev = svc.query_range(Q, Q_START, Q_STEP, Q_END)
+    assert eng.routed["device"] == 1
+    assert _sorted(got)[0] == _sorted(dev)[0]
+    np.testing.assert_allclose(_sorted(got)[1], _sorted(dev)[1], rtol=1e-9,
+                               atol=1e-12, equal_nan=True)
+    one = QueryService(port, device="cpu").query_range(Q, Q_START, Q_STEP,
+                                                       Q_END)
+    np.testing.assert_array_equal(got.result.values, one.result.values)

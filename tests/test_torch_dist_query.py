@@ -16,6 +16,12 @@ The ring agrees with the gather form and the split pipeline with the
 fused program bit for bit. ``pad_for_mesh`` and ``shard_batch_arrays``
 are held against the reference's on odd P and S. Every group has a
 deadline.
+
+The single controller's back-end: every case also runs over a
+``LocalMesh`` of CPU slots in the same layout, in this process, and equals
+the gloo group's answer (per-series rows and blocks bit for bit; an
+aggregate within rtol 1e-9, atol 1e-12, as gloo's reduction over
+``shard`` need not add the shards in row order).
 """
 
 from __future__ import annotations
@@ -33,7 +39,7 @@ from filodb_tpu.parallel import dist_query as ref_dq
 from filodb_tpu.query.engine.batch import TS_PAD
 from filodb_tpu_torch.parallel import dist_query as dq
 from filodb_tpu_torch.query.engine import aggregations, kernels
-from filodb_tpu_torch.testing.dist_run import run_group
+from filodb_tpu_torch.testing.dist_run import run_case, run_group
 
 RTOL, ATOL = 1e-9, 1e-12
 LAYOUTS = {"4x2": (4, 2), "2x2": (2, 2), "1x1": (1, 1)}
@@ -159,17 +165,20 @@ def _padded(data: str, layout: str):
 _GROUPS: dict = {}
 
 
+def _case(name: str, layout: str) -> dict:
+    data, program, fn, agg = CASES[name]
+    ts, vals, valid, gids = _padded(data, layout)
+    _, _, G, steps, window = DATA[data]
+    return dict(name=name, program=program, fn=fn, agg=agg, num_groups=G,
+                ts=ts, vals=vals, valid=valid, gids=gids, steps=steps,
+                window=window)
+
+
 def _run_layout(layout: str, tmp_path_factory) -> list:
     """Every rank's results of one gloo group in ``layout``, run once a
     module."""
     if layout not in _GROUPS:
-        cases = []
-        for name, (data, program, fn, agg) in CASES.items():
-            ts, vals, valid, gids = _padded(data, layout)
-            _, _, G, steps, window = DATA[data]
-            cases.append(dict(name=name, program=program, fn=fn, agg=agg,
-                              num_groups=G, ts=ts, vals=vals, valid=valid,
-                              gids=gids, steps=steps, window=window))
+        cases = [_case(name, layout) for name in CASES]
         ds, dt = LAYOUTS[layout]
         _GROUPS[layout] = run_group(
             cases, ds, dt, str(tmp_path_factory.mktemp(layout)),
@@ -310,3 +319,42 @@ def test_split_fns_are_the_references():
     assert dq.MESH_AGG_OPS == ref_dq.MESH_AGG_OPS
     assert dq.COUNTER_FNS == ref_dq.COUNTER_FNS
     assert set(dq._SIMPLE_COMBINE) == set(ref_dq._SIMPLE_COMBINE)
+
+
+def _local_mesh(layout: str) -> dq.LocalMesh:
+    ds, dt = LAYOUTS[layout]
+    return dq.LocalMesh([["cpu"] * dt for _ in range(ds)])
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if c != "blocks_odd"])
+def test_local_mesh_equals_the_gloo_group(group, case):
+    layout, res = group
+    agg = CASES[case][3]
+    got = run_case(_local_mesh(layout), _case(case, layout))
+    want = _answer(res, case, agg)
+    assert got.shape == want.shape
+    if agg is None:
+        assert got.tobytes() == want.tobytes()
+    else:
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                                   equal_nan=True, err_msg=f"{layout} {case}")
+
+
+def test_local_mesh_blocks_equal_the_gloo_ranks(group):
+    layout, res = group
+    mesh = _local_mesh(layout)
+    got = run_case(mesh, _case("blocks_odd", layout))
+    ds, dt = mesh.shape
+    for r in res:
+        s, t = r["coords"]
+        for g, w in zip(got[s * dt + t], r["blocks_odd"]):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_local_mesh_names_its_slots():
+    mesh = dq.LocalMesh([["cpu", "cpu"], ["cpu", "cpu"]])
+    assert mesh.shape == (2, 2) and len(mesh) == 4
+    assert dq.mesh_axes(mesh) == (2, 2)
+    assert mesh.root == torch.device("cpu")
+    with pytest.raises(ValueError):
+        dq.LocalMesh([["cpu"], ["cpu", "cpu"]])

@@ -393,27 +393,60 @@ def test_passes_cover_the_port_tree():
 
 
 # --------------------------------------------------------------------------
-# ROADMAP §C.24
+# ROADMAP §C.24 (closed)
 
 C24_FAMILIES = ("filodb_mesh_batch_cache_total", "filodb_mesh_dispatch_total",
                 "filodb_mesh_hit_rate", "filodb_mesh_supported_total",
                 "filodb_mesh_unsupported_total", "filodb_odp_cache_chunks",
                 "filodb_sidecar_backfilled_total")
+# the reference's mesh shapes (a split and a fused leaf each), then plans
+# both engines decline: grids of one step that the sidecar lane takes
+C24_QUERIES = (
+    ("range", "sum(rate(http_requests_total[5m])) by (job)"),
+    ("range", "max_over_time(http_requests_total[5m])"),
+    ("range", "http_requests_total"),
+    ("range", "topk(2, rate(http_requests_total[5m]))"),
+    ("range", "2 * avg(sum_over_time(queue_depth[5m])) without (instance)"),
+    ("range", "sum(min_over_time(queue_depth[5m])) by (job)"),
+    ("instant", "sum(rate(http_requests_total[5m]))"),
+    ("instant", "count_over_time(queue_depth[5m])"),
+)
+
+
+def _c24_counts(mod) -> tuple:
+    return (mod._M_SUPPORTED.value, mod._M_UNSUPPORTED.value,
+            mod._M_DISPATCH["split"].value, mod._M_DISPATCH["fused"].value)
 
 
 def test_missing_metric_families_pin_c24():
-    """ROADMAP §C.24, open: seven families the reference registers at
-    import (its mesh engine's plan and cache counters, the ODP cache's
-    resident chunks, the sidecar backfill counter) are absent from the
-    port's registry; the port's filolint reports each as PR204."""
+    """ROADMAP §C.24, closed: the seven families the reference registers
+    at import (its mesh engine's plan and cache counters, the ODP cache's
+    resident chunks, the sidecar backfill counter) are in the port's
+    registry too, no PR204 entry stands for them, and over the
+    reference's mesh shapes and plans both engines decline the port's
+    ``supported``, ``unsupported`` and ``dispatch{form}`` move by the
+    reference's amounts, query by query."""
     import filodb_tpu.core.memstore.odp  # noqa: F401
     import filodb_tpu.memory.chunk  # noqa: F401
-    import filodb_tpu.parallel.mesh_engine  # noqa: F401
+    import filodb_tpu.parallel.mesh_engine as ref_mesh
     import filodb_tpu_torch.core.memstore.odp  # noqa: F401
     import filodb_tpu_torch.memory.chunk  # noqa: F401
-    import filodb_tpu_torch.parallel.mesh_engine  # noqa: F401
+    import filodb_tpu_torch.parallel.mesh_engine as port_mesh
+    from filodb_tpu.coordinator.query_service import \
+        QueryService as RefService
     from filodb_tpu.utils import metrics as ref_metrics
+    from filodb_tpu_torch.coordinator.query_service import QueryService
     from filodb_tpu_torch.utils import metrics as port_metrics
+    from test_torch_slice import (
+        CHUNK,
+        DS,
+        NUM_SHARDS,
+        Q_END,
+        Q_START,
+        Q_STEP,
+        _build_stores,
+        _series_specs,
+    )
 
     def families(text):
         return {line.split()[2] for line in text.splitlines()
@@ -421,10 +454,30 @@ def test_missing_metric_families_pin_c24():
 
     ref = families(ref_metrics.render_prometheus())
     port = families(port_metrics.render_prometheus())
-    base = {f.replace("_total", "") for f in C24_FAMILIES}
-    assert {f for f in ref if f in base or f in C24_FAMILIES}
-    assert not {f for f in port if f in base or f in C24_FAMILIES}
-    pr204 = {e["key"].rsplit(":", 1)[1] for e in
-             Baseline.load(BASELINE).entries.values()
-             if e["code"] == "PR204" and "§C.24" in e["justification"]}
-    assert pr204 == set(C24_FAMILIES)
+    names = set(C24_FAMILIES) | {f.replace("_total", "")
+                                 for f in C24_FAMILIES}
+    seven = {f for f in ref if f in names}
+    assert len(seven) == 7
+    assert {f for f in port if f in names} == seven
+    assert not [e for e in Baseline.load(BASELINE).entries.values()
+                if e["code"] == "PR204"
+                and e["key"].rsplit(":", 1)[1] in C24_FAMILIES]
+
+    ref_store, port_store = _build_stores(_series_specs(), CHUNK)
+    rsvc = RefService(ref_store, DS, NUM_SHARDS, spread=1, engine="mesh")
+    psvc = QueryService(port_store, device="cpu")
+    got, want = [], []
+    for kind, q in C24_QUERIES:
+        before, rbefore = _c24_counts(port_mesh), _c24_counts(ref_mesh)
+        for svc in (psvc, rsvc):
+            if kind == "range":
+                svc.query_range(q, Q_START, Q_STEP, Q_END).result \
+                    .materialize()
+            else:
+                svc.query_instant(q, Q_END).result.materialize()
+        got.append(tuple(a - b for a, b in zip(_c24_counts(port_mesh),
+                                               before)))
+        want.append(tuple(a - b for a, b in zip(_c24_counts(ref_mesh),
+                                                rbefore)))
+    assert got == want
+    assert sum(g[1] for g in got) == 2 and sum(g[3] for g in got) == 2

@@ -1000,3 +1000,91 @@ def test_multiproc_on_card_equals_cpu(cuda):
         assert g.keys == c.keys and g.num_series
         np.testing.assert_allclose(g.values, c.values, rtol=2e-5, atol=1e-6,
                                    equal_nan=True)
+
+
+def test_every_kernel_launches_on_its_inputs_card():
+    """B1, B2, B3 and B4 on ``cuda:1``, with ``cuda:0`` current, give what
+    they give on ``cuda:0``, bit for bit: each wrapper enters its input's
+    device around the launch (the launch and B3 / B4's
+    ``cudaFuncSetAttribute`` act on the current device)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    d0, d1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    slopes, widths, shifts, firsts, words = _blocks(4099, 7)
+    packed = _packed(37, 720, 720)
+    t, v = _sum_rows(300, 1000, 3)
+    steps = torch.arange(60_000, 720 * 12_000, 60_000, dtype=torch.int32)
+    with torch.cuda.device(d0):
+        out = {}
+        for dev in (d0, d1):
+            out[dev] = (
+                dp.decode_ts_blocks(slopes.to(dev), widths.to(dev),
+                                    words.to(dev)),
+                dp.decode_f32_blocks(firsts.to(dev), shifts.to(dev),
+                                     widths.to(dev), words.to(dev)),
+                ck.fused_decode_rate(to_device(packed, dev), steps.to(dev),
+                                     300_000),
+                ck.windowed_sum(t.to(dev), v.to(dev), steps.to(dev),
+                                300_000))
+            assert all(x.device == dev for x in out[dev])
+        for a, b in zip(out[d0], out[d1]):
+            assert a.cpu().numpy().tobytes() == b.cpu().numpy().tobytes()
+
+
+def test_mesh_of_repeated_slots_on_the_card_answers_as_one_slot(cuda):
+    """Four slots of one card (4×1 and 2×2): every block is launched on
+    it; per-series rows equal the one-slot engine's bit for bit on 4×1,
+    and an aggregate within rtol 1e-9 (2×2: B3's tolerance against the
+    float64 split programs)."""
+    from filodb_tpu_torch.parallel.mesh_engine import make_query_mesh
+
+    store = MemStore(4, 1, max_chunk_size=400)
+    rng = np.random.default_rng(0)
+    ts = 1_600_000_000_000 + np.arange(720) * 10_000
+    for i in range(400):
+        store.ingest({"_metric_": "http_requests_total", "_ws_": "demo",
+                      "_ns_": f"App-{i % 7}", "instance": f"i{i}"}, ts,
+                     np.cumsum(rng.integers(0, 20, 720)).astype(float))
+    start, end = 1_600_000_000 + 600, 1_600_000_000 + 7000
+    one = QueryService(store, device=cuda)
+    for layout, dt in (((4, 1), 1), ((2, 2), 2)):
+        svc = QueryService(store, mesh=make_query_mesh(
+            devices=[cuda] * 4, time_axis=dt))
+        for q, agg in (("rate(http_requests_total[5m])", False),
+                       ("sum(rate(http_requests_total[5m])) by (_ns_)",
+                        True)):
+            got = svc.query_range(q, start, 60, end).result.materialize()
+            want = one.query_range(q, start, 60, end).result.materialize()
+            assert [str(k) for k in got.keys] == [str(k) for k in want.keys]
+            if dt > 1:
+                np.testing.assert_allclose(got.values, want.values,
+                                           rtol=2e-5, atol=1e-6,
+                                           equal_nan=True)
+            elif agg:
+                np.testing.assert_allclose(got.values, want.values,
+                                           rtol=1e-9, atol=1e-12,
+                                           equal_nan=True)
+            else:
+                assert got.values.tobytes() == want.values.tobytes()
+
+
+def test_node_without_a_device_takes_every_visible_card(cuda, tmp_path):
+    """``FiloServer`` with no device named runs its mesh engines over a
+    ``make_query_mesh()`` of every visible card (1×1 on a host of one);
+    ``cuda:0`` named pins them to that card alone."""
+    from filodb_tpu_torch.config import ServerConfig
+    from filodb_tpu_torch.standalone import FiloServer
+    from filodb_tpu_torch.testing.from_jax import boot
+
+    conf = {"datasets": {"timeseries": {
+        "num_shards": 4, "spread": 1,
+        "store": {"max_chunk_size": 400, "groups_per_shard": 4}}}}
+    for device, slots in ((None, torch.cuda.device_count()), ("cuda:0", 1)):
+        srv = boot(FiloServer, ServerConfig, conf,
+                   str(tmp_path / str(device)), device=device)
+        try:
+            eng = srv.services["timeseries"].mesh
+            assert len(eng.mesh) == slots and eng.mesh.size(1) == 1
+            assert eng.device == torch.device("cuda", 0)
+        finally:
+            srv.shutdown()
